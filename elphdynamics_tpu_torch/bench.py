@@ -1,0 +1,84 @@
+"""The port's main path: one Holstein HMC update with the KPM-CG solver,
+batched over chains, as the JAX package's ``bench.py`` times it.
+
+Model: square lattice, t = 1 on both bonds, ω = 1, λ = 1, μ = 0; Fourier
+mass block ω ∈ (0, 10) with m = 0.5; HMC with trajectory time 1, Nb = 4,
+tol 1e-5, maxiter 500, cubic warm starts; symmetric KPM at max_order 4;
+half-filled initial phonons. Two configurations use it:
+
+* ``BENCH_8X8``: 8×8, β = 4, Δτ = 0.1 (Lτ = 40), dt = 0.05, 128 chains —
+  the dense branch (no kernel);
+* ``KERNEL_64X64``: 64×64 (N = 4096), β = 4, Δτ = 0.1, dt = 0.025, 16
+  chains — the checkerboard-fold branch, which runs the CUDA kernel on a
+  card for both exp(−Δτ·K) and the KPM Ā.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig, HMCState, make_hmc_step
+from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
+from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
+from elphdynamics_tpu_torch.models.holstein import HolsteinParams, build_holstein
+from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
+
+
+@dataclass(frozen=True)
+class BenchConfig:
+    name: str
+    L: int
+    beta: float
+    dtau: float
+    dt: float
+    n_chains: int
+
+
+BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
+KERNEL_64X64 = BenchConfig("kernel_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=16)
+
+
+@dataclass(frozen=True)
+class BenchStep:
+    ops: ModelOps
+    params: HolsteinParams
+    step: object            # step(params, state, generator) -> (state, stats)
+    state: HMCState         # initial state
+    generator: torch.Generator
+
+
+def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
+                     device="cpu", dtype: torch.dtype = torch.float32, *,
+                     seed: int = 0, trajectory_time: float = 1.0,
+                     dense_threshold: int = 2048,
+                     pallas_threshold: int = 2048) -> BenchStep:
+    """Build the model, the KPM-preconditioned HMC step and a half-filled
+    initial state of ``n_chains`` chains on ``device``."""
+    uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
+    lat = Lattice.create(uc, L)
+    spec, params = build_holstein(
+        lat, beta=beta, dtau=dtau,
+        t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))],
+        omega=1.0, lam=1.0, mu=0.0, dtype=dtype, device=device,
+        dense_threshold=dense_threshold, pallas_threshold=pallas_threshold)
+    ops = make_model_ops(spec)
+    mass = build_mass(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
+                      [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
+    cfg = HMCConfig(dt=dt, trajectory_time=trajectory_time, Nb=4, tol=1e-5,
+                    maxiter=500, construct_guess=True, guess_order=3)
+    precond = kpm.make_symmetric_precond(ops, kpm.KPMConfig(max_order=4))
+    step = make_hmc_step(ops, mass, cfg, precond)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = init_phonons_half_filled(ops, params, n_chains, gen)
+    return BenchStep(ops=ops, params=params, step=step,
+                     state=HMCState(x=x, v=torch.zeros_like(x)), generator=gen)
+
+
+def build(cfg: BenchConfig, device="cpu", dtype: torch.dtype = torch.float32,
+          **kw) -> BenchStep:
+    return build_bench_step(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains,
+                            device, dtype, **kw)

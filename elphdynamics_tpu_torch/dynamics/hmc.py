@@ -1,0 +1,298 @@
+"""Hybrid Monte Carlo over the phonon fields, batched over chains.
+
+Counterpart of ``elphdynamics_tpu/dynamics/hmc.py`` (leapfrog with Nb
+bosonic substeps). One update:
+
+* momenta v = α·v + √(1−α²)·M^(−1/2)·R (Fourier-accelerated mass);
+* auxiliary field φ± = Λ⁻¹·Mᵀ·R± per spin;
+* Nt leapfrog steps, each with Nb bosonic substeps, a KPM-preconditioned,
+  residual-checked CG solve of MᵀM·z = Λφ (warm-started from the previous
+  solutions) and the fermion forces;
+* a tol² endpoint solve, ΔH through float64 dots, and a Metropolis test.
+
+A solver failure freezes that chain's trajectory (masked commits) and
+rejects its update.
+
+Shapes: ``x``, ``v`` are ``[C, Nph, Lτ]``; the two spin systems are
+stacked as ``[C, 2, N, Lτ]`` and solved as one batched CG. Every per-chain
+quantity (KPM window, CG masks, flags, acceptance) stays per chain.
+
+Random draws are explicit: the step takes an optional :class:`HMCDraws`;
+without one it draws from its ``generator``. The integrator ``2mn``,
+``tune_dt``/``dynamic_dt``, ``log_verbose``, deflation, block CG and
+non-CG solvers are not ported and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from elphdynamics_tpu_torch.dynamics.solve import (
+    SolverConfig, precond_state, resolve_precond, solve_oinv)
+from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
+from elphdynamics_tpu_torch.utils.dtypes import fdot, pseudofermion_noise
+
+
+@dataclass(frozen=True)
+class HMCConfig:
+    dt: float
+    trajectory_time: float
+    alpha: float = 0.0        # partial momentum refresh fraction
+    Nb: int = 1               # bosonic substeps per fermionic step
+    tol: float = 1e-5
+    maxiter: int = 1000
+    kappa_max: float = 1e12
+    solver_kind: str = "cg"
+    block: bool = False
+    loop_precision: str | None = "high"   # accepted, not used yet (solve.py)
+    integrator: str = "leapfrog"
+    log_verbose: bool = False
+    construct_guess: bool = False          # warm-start the trajectory solves
+    guess_order: int = 1                   # polynomial extrapolation order
+    deflate_k: int = 0
+    tune_dt: bool = False
+
+    @property
+    def Nt(self) -> int:
+        return max(1, round(self.trajectory_time / self.dt))
+
+    @property
+    def dt_b(self) -> float:
+        return self.dt / self.Nb
+
+    def check_ported(self) -> None:
+        if self.integrator != "leapfrog":
+            raise NotImplementedError(f"integrator {self.integrator!r}: ROADMAP slice G")
+        if self.tune_dt:
+            raise NotImplementedError("tune_dt: ROADMAP slice G")
+        if self.log_verbose:
+            raise NotImplementedError("log_verbose: ROADMAP slice B")
+        if self.deflate_k > 0:
+            raise NotImplementedError("deflation: ROADMAP slice I")
+        SolverConfig(kind=self.solver_kind, block=self.block).check_ported()
+
+
+@dataclass(frozen=True)
+class HMCState:
+    x: torch.Tensor   # [C, Nph, Lτ]
+    v: torch.Tensor   # [C, Nph, Lτ]
+
+
+@dataclass(frozen=True)
+class HMCStats:
+    accepted: torch.Tensor   # [C] bool
+    iters: torch.Tensor      # [C] mean CG iterations per solve
+    flag: torch.Tensor       # [C] max solver flag
+    delta_H: torch.Tensor    # [C] float64
+    H: torch.Tensor
+    S: torch.Tensor
+    K: torch.Tensor
+
+
+@dataclass(frozen=True)
+class HMCDraws:
+    """The random numbers of one update."""
+
+    momentum: torch.Tensor        # [C, Nph, Lτ] unit normals
+    pseudofermion: torch.Tensor   # [C, 2, N, Lτ] unit normals
+    uniform: torch.Tensor         # [C] uniforms on [0, 1) (float64)
+    # power-iteration start vectors of the KPM setup; None = the
+    # preconditioner's fixed pair
+    kpm_start: tuple | None = None
+
+
+def draw(ops: ModelOps, n_chains: int, dtype: torch.dtype, device,
+         generator: torch.Generator | None = None) -> HMCDraws:
+    """Draw one update's random numbers from ``generator``."""
+    C = n_chains
+    return HMCDraws(
+        momentum=torch.randn((C, ops.Nph, ops.Ltau), generator=generator,
+                             dtype=dtype, device=device),
+        pseudofermion=pseudofermion_noise((C, ops.Nsites, ops.Ltau), dtype, device,
+                                          generator),
+        uniform=torch.rand((C,), generator=generator, dtype=torch.float64, device=device),
+    )
+
+
+# --- warm-start history: a tuple of H = clamp(order, 1, 4) solutions,
+# newest first, rotated with masked copies each step
+
+def zhist_size(order: int) -> int:
+    return max(1, min(int(order), 4))
+
+
+def zhist_init(z0, order: int):
+    return (z0,) * zhist_size(order)
+
+
+def zhist_last(hist):
+    return hist[0]
+
+
+def zhist_guess(hist, order: int):
+    """Polynomial forward extrapolation over the newest ``order`` entries."""
+    if order <= 1:
+        return hist[0]
+    if order == 2:
+        return 2.0 * hist[0] - hist[1]
+    if order == 3:
+        return 3.0 * hist[0] - 3.0 * hist[1] + hist[2]
+    return 4.0 * hist[0] - 6.0 * hist[1] + 4.0 * hist[2] - hist[3]
+
+
+def zhist_push(hist, z, ok):
+    """Chains with ``ok`` ``[C]`` shift ``z`` in as the newest entry; failed
+    chains keep their history."""
+    okb = ok.reshape(ok.shape + (1,) * (z.ndim - 1))
+    return tuple(torch.where(okb, new, old) for new, old in zip((z,) + hist[:-1], hist))
+
+
+def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
+                  dynamic_dt: bool = False):
+    """Build the update ``step(params, state, generator=None, draws=None)
+    -> (state, stats)``.
+
+    ``mass_table`` is the ``[Nph, Lτ]`` dynamical-mass spectrum; ``precond``
+    a :class:`..ops.kpm.Preconditioner` (full setup once per update, a
+    refresh before every solve).
+    """
+    if dynamic_dt:
+        raise NotImplementedError("dynamic_dt (the dt tuner): ROADMAP slice G")
+    cfg.check_ported()
+    if ops.calc_Lambda is None:
+        raise NotImplementedError("models without the Λ shift (SSH): ROADMAP slice C")
+    mass_ops: dict = {}
+
+    def mass(like) -> MassOperator:
+        key = (like.device, like.dtype)
+        if key not in mass_ops:
+            mass_ops[key] = MassOperator(mass_table, (-0.5, -1.0, 1.0), like.device, like.dtype)
+        return mass_ops[key]
+
+    tol1 = cfg.tol
+    tol2 = cfg.tol ** 2
+    use_g = cfg.construct_guess
+    g_ord = cfg.guess_order if use_g else 1
+    dt = cfg.dt
+
+    def lam_phi(params, x, phi):
+        """Λ(x)·φ for spin-stacked φ."""
+        return ops.mulLambda(ops.calc_Lambda(params, x)[:, None], phi)
+
+    def solve_O(params, x, derived, Lphi, tol, pstate, z_guess=None):
+        """Spin-batched solve of MᵀM·z = Λφ with the preconditioner refreshed
+        at ``x``; returns (z, per-chain iterations, per-chain flag)."""
+        pa = resolve_precond(precond, params, x, prev_state=pstate)
+        scfg = SolverConfig(tol=tol, maxiter=cfg.maxiter, kappa_max=cfg.kappa_max,
+                            kind=cfg.solver_kind, block=cfg.block,
+                            loop_precision=cfg.loop_precision)
+        res = solve_oinv(ops, params, derived[:, None], Lphi, scfg, pa,
+                         x0=z_guess if use_g else None)
+        ns = res.iters.shape[1]
+        iters = (res.iters.sum(dim=1) + ns - 1) // ns
+        return res.x, iters, res.flag.amax(dim=1)
+
+    def forces(params, x, derived, phi, z):
+        """Fermionic force −Σ±(Mz)ᵀ·∂M/∂x·z + Σ±φᵀ·∂Λᵀ/∂x·z, plus the bosonic
+        force when Nb == 1 (else the substeps integrate it)."""
+        ds, xs = derived[:, None], x[:, None]
+        Mz = ops.mulM(params, ds, z)
+        dSf = -ops.muldMdx(params, ds, xs, Mz, z).sum(dim=1)
+        Lam = ops.calc_Lambda(params, x)
+        dSf = dSf + ops.muldLambdadx(params, xs, Lam[:, None], phi, z).sum(dim=1)
+        if cfg.Nb == 1:
+            return dSf + ops.calc_dSbdx(params, x, False)
+        return dSf
+
+    def calc_K(v):
+        return fdot(v, mass(v).apply(v, 1.0), dim=(-2, -1)) / 2
+
+    def calc_S(params, x, Lphi, z):
+        return fdot(Lphi, z, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
+
+    def boson_substeps(params, x, v, qf):
+        dt_b = dt / cfg.Nb
+        QdSb = qf(ops.calc_dSbdx(params, x, False))
+        for _ in range(cfg.Nb):
+            v = v - dt_b / 2 * QdSb
+            x = x + dt_b * v
+            QdSb = qf(ops.calc_dSbdx(params, x, False))
+            v = v - dt_b / 2 * QdSb
+        return x, v
+
+    def step(params, state: HMCState, generator: torch.Generator | None = None,
+             draws: HMCDraws | None = None):
+        x0, v_in = state.x, state.v
+        if x0.ndim != 3:
+            raise ValueError(f"state.x must be [C, Nph, Ltau], got {tuple(x0.shape)}")
+        if draws is None:
+            draws = draw(ops, x0.shape[0], x0.dtype, x0.device, generator)
+        mop = mass(x0)
+
+        def qf(a):
+            return mop.apply(a, -1.0)
+
+        R = ops.tie(draws.momentum.to(x0))
+        v0 = cfg.alpha * v_in + math.sqrt(1.0 - cfg.alpha ** 2) * mop.apply(R, -0.5)
+
+        derived0 = ops.derived(params, x0)
+        MtR = ops.mulMT(params, derived0[:, None], draws.pseudofermion.to(x0))
+        Lam0 = ops.calc_Lambda(params, x0)
+        phi = ops.mulLambdaInv(Lam0[:, None], MtR)
+
+        pstate = precond_state(precond, params, x0, start=draws.kpm_start)
+
+        Lphi0 = ops.mulLambda(Lam0[:, None], phi)
+        z0, iters, flag = solve_O(params, x0, derived0, Lphi0, tol2, pstate)
+        H0 = calc_S(params, x0, Lphi0, z0) + calc_K(v0)
+        QdSdx = qf(forces(params, x0, derived0, phi, z0))
+
+        x, v = x0, v0
+        hist = zhist_init(z0, g_ord)
+        for _ in range(cfg.Nt):
+            ok = flag == 0
+            v1 = v - dt / 2 * QdSdx
+            if cfg.Nb == 1:
+                x1 = x + dt * v1
+            else:
+                x1, v1 = boson_substeps(params, x, v1, qf)
+            d1 = ops.derived(params, x1)
+            Lphi1 = lam_phi(params, x1, phi)
+            z1, it1, fl1 = solve_O(params, x1, d1, Lphi1, tol1, pstate,
+                                   z_guess=zhist_guess(hist, g_ord))
+            Qd1 = qf(forces(params, x1, d1, phi, z1))
+            v1 = v1 - dt / 2 * Qd1
+            okb = ok[:, None, None]
+            x = torch.where(okb, x1, x)
+            v = torch.where(okb, v1, v)
+            QdSdx = torch.where(okb, Qd1, QdSdx)
+            hist = zhist_push(hist, z1, ok)
+            iters = iters + torch.where(ok, it1, torch.zeros_like(it1))
+            flag = torch.maximum(flag, torch.where(ok, fl1, torch.zeros_like(fl1)))
+
+        d1 = ops.derived(params, x)
+        Lphi1 = lam_phi(params, x, phi)
+        z1, it2, fl2 = solve_O(params, x, d1, Lphi1, tol2, pstate, z_guess=zhist_last(hist))
+        iters = iters + it2
+        flag = torch.maximum(flag, fl2)
+        S1 = calc_S(params, x, Lphi1, z1)
+        K1 = calc_K(v)
+        H1 = S1 + K1
+        dH = H1 - H0
+        P = torch.minimum(torch.ones_like(dH), torch.exp(-dH))
+        accept = (draws.uniform.to(P) < P) & (flag == 0)
+
+        acc = accept[:, None, None]
+        x_new = torch.where(acc, x, x0)
+        v_new = torch.where(acc, v, -v0)
+        nsolves = cfg.Nt + 2
+        mean_iters = (iters + nsolves // 2) // nsolves
+        stats = HMCStats(accepted=accept, iters=mean_iters, flag=flag, delta_H=dH,
+                         H=H1, S=S1, K=K1)
+        return HMCState(x=x_new, v=v_new), stats
+
+    return step

@@ -1,0 +1,39 @@
+"""Initial phonon-field configurations (Holstein branch).
+
+Counterpart of ``elphdynamics_tpu/dynamics/init_phonons.py``: worldlines
+flat in τ, drawn from the quantum-harmonic-oscillator width
+σ = 1/√(2ω·tanh(βω/2)), shifted by (λ/ω²)·u with u uniform on {−1, 0, +1}
+(a site prepared near density 0, 1 or 2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from elphdynamics_tpu_torch.models.adapter import ModelOps
+
+
+def _qho_sigma(omega: torch.Tensor, beta: float) -> torch.Tensor:
+    safe = torch.where(omega > 0, omega, torch.ones_like(omega))
+    sig = 1.0 / torch.sqrt(2.0 * safe * torch.tanh(beta * safe / 2.0))
+    return torch.where(omega > 0, sig, torch.ones_like(sig))
+
+
+def init_phonons_half_filled(ops: ModelOps, params, n_chains: int,
+                             generator: torch.Generator | None = None,
+                             draws: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Initial ``x`` ``[C, Nph, Lτ]``. ``draws`` = (unit normals ``[C, Nph]``,
+    integers in {−1, 0, 1} ``[C, Nph]``) replaces the generator's draws."""
+    if not ops.is_holstein:
+        raise NotImplementedError("SSH initial phonons: ROADMAP slice C")
+    dev, dt = params.omega.device, params.omega.dtype
+    if draws is None:
+        normals = torch.randn((n_chains, ops.Nph), generator=generator, dtype=dt, device=dev)
+        ints = torch.randint(-1, 2, (n_chains, ops.Nph), generator=generator, device=dev)
+    else:
+        normals, ints = draws
+    sigma = _qho_sigma(params.omega, ops.beta)
+    base = sigma * normals.to(device=dev, dtype=dt)
+    om2 = torch.where(params.omega != 0, params.omega ** 2, torch.ones_like(params.omega))
+    x0 = base + (params.lam / om2) * ints.to(device=dev, dtype=dt)
+    return x0[:, :, None].expand(-1, -1, ops.Ltau).contiguous()

@@ -1,0 +1,66 @@
+"""Uniform functional interface over the model families.
+
+Counterpart of ``elphdynamics_tpu/models/adapter.py``: the samplers and
+preconditioners are written against :class:`ModelOps`, a bundle of
+closures over the static spec with the parameters passed explicitly.
+``derived(params, x)`` is the per-configuration cache (``expnV`` for
+Holstein). Only the Holstein branch is ported; SSH is ROADMAP slice C.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from elphdynamics_tpu_torch.models import holstein as Hm
+
+
+@dataclass(frozen=True)
+class ModelOps:
+    spec: Any
+    Nsites: int
+    Nph: int
+    Ltau: int
+    dtau: float
+    beta: float
+    is_holstein: bool
+    derived: Callable          # (params, x) -> env
+    mulM: Callable             # (params, derived, v, precision=None) -> v
+    mulMT: Callable
+    mulMTM: Callable
+    muldMdx: Callable          # (params, derived, x, u, v) -> [..., Nph, Lτ]
+    calc_Sb: Callable          # (params, x, shifted=False) -> [...]
+    calc_dSbdx: Callable       # (params, x, shifted=False) -> [..., Nph, Lτ]
+    tie: Callable              # (v) -> v (identity for Holstein)
+    calc_Lambda: Callable | None = None
+    mulLambda: Callable | None = None
+    mulLambdaInv: Callable | None = None
+    muldLambdadx: Callable | None = None
+
+
+def make_model_ops(spec) -> ModelOps:
+    if not isinstance(spec, Hm.HolsteinSpec):
+        raise NotImplementedError(
+            f"model spec {type(spec).__name__}: only Holstein is ported "
+            "(SSH is ROADMAP slice C)")
+    return ModelOps(
+        spec=spec,
+        Nsites=spec.Nsites,
+        Nph=spec.Nph,
+        Ltau=spec.Ltau,
+        dtau=spec.dtau,
+        beta=spec.beta,
+        is_holstein=True,
+        derived=lambda p, x: Hm.expnV(spec, p, x),
+        mulM=lambda p, d, v, precision=None: Hm.mulM(spec, p, d, v, precision),
+        mulMT=lambda p, d, v, precision=None: Hm.mulMT(spec, p, d, v, precision),
+        mulMTM=lambda p, d, v, precision=None: Hm.mulMTM(spec, p, d, v, precision),
+        muldMdx=lambda p, d, x, u, v: Hm.muldMdx(spec, p, d, x, u, v),
+        calc_Sb=lambda p, x, shifted=False: Hm.calc_Sb(spec, p, x, shifted),
+        calc_dSbdx=lambda p, x, shifted=False: Hm.calc_dSbdx(spec, p, x, shifted),
+        tie=lambda v: v,
+        calc_Lambda=lambda p, x: Hm.calc_Lambda(spec, p, x),
+        mulLambda=lambda Lam, v: Hm.mulLambda(spec, Lam, v),
+        mulLambdaInv=lambda Lam, v: Hm.mulLambdaInv(spec, Lam, v),
+        muldLambdadx=lambda p, x, Lam, vl, vr: Hm.muldLambdadx(spec, p, x, Lam, vl, vr),
+    )

@@ -1,0 +1,345 @@
+"""Holstein model: fermion matrix M, derivatives, and bosonic action.
+
+Counterpart of ``elphdynamics_tpu/models/holstein.py``, real hopping only.
+
+    M[τ,τ'] = I δ(τ,τ') − B(τ) δ(τ,τ'+1)   (+B(0) at the (0,Lτ−1) corner)
+    B(τ)    = exp(−Δτ·K) · exp(−Δτ·V[x(τ)])
+    exp(−Δτ·V)ᵢᵢ(τ) = exp(−Δτ·(λᵢxᵢ(τ) + λ₂ᵢxᵢ(τ)² − μᵢ))
+
+Fields are ``[..., N, Lτ]`` with τ last; leading axes (chains, spins)
+broadcast. exp(−Δτ·K) is routed by :func:`apply_expK`:
+
+* dense ``[N, N]`` matmul when ``N <= dense_threshold``;
+* else the CUDA checkerboard kernel when the field is on CUDA and
+  ``N >= pallas_threshold``;
+* else the plain torch fold (the only fold branch on the CPU).
+
+Both thresholds default to 2048, values tuned on a TPU; an H100
+measurement has to set them anew. Every matmul runs in full precision of
+the field dtype: the ``precision`` arguments are accepted for interface
+parity with the JAX package and not used yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.lattice import Lattice, sort_neighbor_table
+from elphdynamics_tpu_torch.ops import checkerboard as ckb
+from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.utils.dtypes import fsum
+
+
+@dataclass(frozen=True)
+class HolsteinParams:
+    """Model parameters as tensors on one device in one dtype."""
+
+    mu: torch.Tensor      # [N] chemical potential
+    omega: torch.Tensor   # [N] phonon frequency
+    omega4: torch.Tensor  # [N] anharmonic X⁴ coefficient
+    lam: torch.Tensor     # [N] linear el-ph coupling λ
+    lam2: torch.Tensor    # [N] quadratic el-ph coupling λ₂
+    cosht: torch.Tensor   # [Nbonds] cosh(Δτ·t), checkerboard order
+    sinht: torch.Tensor   # [Nbonds] sinh(Δτ·t), checkerboard order
+    wij: torch.Tensor     # [Nwij] dispersive phonon coupling ωᵢⱼ (may be empty)
+    t: torch.Tensor | None = None         # [Nbonds] bare hoppings, original order
+    expK: torch.Tensor | None = None      # dense exp(−Δτ·K) (dense branch)
+    expK_inv: torch.Tensor | None = None  # dense exp(+Δτ·K)
+
+
+@dataclass(frozen=True, eq=False)
+class HolsteinSpec:
+    """Static (host) model description."""
+
+    lattice: Lattice
+    beta: float
+    dtau: float
+    Ltau: int
+    Nsites: int
+    Nph: int
+    Nbonds: int
+    Ndim: int
+    Ndof: int
+    ckb: ckb.CheckerboardSpec
+    # exp(−Δτ·K) as a dense [N, N] matmul instead of the group fold
+    dense_ckb: bool = False
+    # fold branch at N >= pallas_threshold: the CUDA kernel for CUDA fields
+    kernel_fold: bool = False
+    wij_table: np.ndarray = field(default_factory=lambda: np.zeros((2, 0), dtype=np.int64))
+    wij_sign: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
+    bond_defs: tuple = ()
+    bond_def_of_bond: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
+    ckb_to_bond: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
+    bond_to_ckb: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
+
+
+def build_holstein(
+    lattice: Lattice,
+    beta: float,
+    dtau: float,
+    *,
+    t_assignments=(),      # iterable of (t, stddev, o1, o2, (dL1,dL2,dL3))
+    mu=0.0, mu_std=0.0,
+    omega=1.0, omega_std=0.0,
+    lam=0.0, lam_std=0.0,
+    lam2=0.0, lam2_std=0.0,
+    omega4=0.0, omega4_std=0.0,
+    wij_assignments=(),    # iterable of (w, stddev, sign, o1, o2, (dL,))
+    per_orbit: dict | None = None,
+    rng: np.random.Generator | None = None,
+    dtype: torch.dtype = torch.float64,
+    device="cpu",
+    # TPU-tuned defaults; to be re-set from H100 measurements
+    dense_threshold: int = 2048,
+    pallas_threshold: int = 2048,
+    twist=None,
+) -> tuple[HolsteinSpec, HolsteinParams]:
+    """Construct a Holstein model spec and parameters.
+
+    The disorder draws consume ``rng`` in the same order as the JAX
+    package's ``build_holstein``, so one seed builds the same model in both.
+    Complex hopping (complex ``t`` or a nonzero ``twist``) is not ported.
+    """
+    rng = rng or np.random.default_rng(0)
+    if twist is not None and np.any(np.asarray(twist)):
+        raise NotImplementedError("twisted boundary conditions: ROADMAP slice F")
+    if any(np.iscomplexobj(a[0]) for a in t_assignments):
+        raise NotImplementedError("complex hopping: ROADMAP slice F")
+    N = lattice.nsites
+    Ltau = int(round(beta / dtau))
+
+    def _assign(base, std, name):
+        vals = base + std * rng.standard_normal(N) if std else np.full(N, float(base))
+        if per_orbit and name in per_orbit:
+            for orbit, (v, s) in per_orbit[name].items():
+                sel = lattice.site_to_orbit == orbit
+                vals = np.where(sel, v + (s * rng.standard_normal(N) if s else 0.0), vals)
+        return vals
+
+    mu_v = _assign(mu, mu_std, "mu")
+    om_v = _assign(omega, omega_std, "omega")
+    om4_v = _assign(omega4, omega4_std, "omega4")
+    lam_v = _assign(lam, lam_std, "lambda")
+    lam2_v = _assign(lam2, lam2_std, "lambda2")
+
+    tables, tvals, bond_defs, bond_def_of_bond = [], [], [], []
+    for idef, (tval, tstd, o1, o2, dL) in enumerate(t_assignments):
+        tb = lattice.calc_neighbor_table(o1, o2, dL)
+        nnew = tb.shape[1]
+        phase = np.sign(tval) if tval != 0 else 1.0
+        tv = phase * (abs(tval) + (tstd * rng.standard_normal(nnew) if tstd else 0.0))
+        tables.append(tb)
+        tvals.append(np.broadcast_to(tv, (nnew,)).astype(np.float64))
+        bond_defs.append((o1, o2, tuple(dL)))
+        bond_def_of_bond.extend([idef] * nnew)
+    if tables:
+        table = np.concatenate(tables, axis=1)
+        t = np.concatenate(tvals)
+    else:
+        table = np.zeros((2, 0), dtype=np.int64)
+        t = np.zeros(0)
+    table_sorted, perm = sort_neighbor_table(table)
+    t_sorted = t[perm]
+    cspec = ckb.build_checkerboard_spec(N, table_sorted)
+    t_ckb = t_sorted[cspec.order]
+    ckb_to_bond = perm[cspec.order] if table.shape[1] else np.zeros(0, dtype=np.int64)
+    bond_to_ckb = np.argsort(ckb_to_bond) if table.shape[1] else np.zeros(0, dtype=np.int64)
+
+    wtabs, wvals, wsigns = [], [], []
+    for (wval, wstd, sgn, o1, o2, dL) in wij_assignments:
+        tb = lattice.calc_neighbor_table(o1, o2, dL)
+        nnew = tb.shape[1]
+        wtabs.append(tb)
+        wvals.append(wval + (wstd * rng.standard_normal(nnew) if wstd else np.zeros(nnew)))
+        wsigns.append(np.full(nnew, int(sgn)))
+    if wtabs:
+        wij_table = np.concatenate(wtabs, axis=1)
+        wij = np.concatenate(wvals)
+        wij_sign = np.concatenate(wsigns)
+    else:
+        wij_table = np.zeros((2, 0), dtype=np.int64)
+        wij = np.zeros(0)
+        wij_sign = np.zeros(0, dtype=np.int64)
+
+    dense_ckb = 0 < cspec.nbonds and N <= dense_threshold
+    kernel_fold = not dense_ckb and cspec.nbonds > 0 and N >= pallas_threshold
+    spec = HolsteinSpec(
+        lattice=lattice, beta=float(beta), dtau=float(dtau), Ltau=Ltau,
+        Nsites=N, Nph=N, Nbonds=cspec.nbonds, Ndim=N * Ltau, Ndof=N * Ltau,
+        ckb=cspec, dense_ckb=dense_ckb, kernel_fold=kernel_fold,
+        wij_table=wij_table, wij_sign=wij_sign, bond_defs=tuple(bond_defs),
+        bond_def_of_bond=np.asarray(bond_def_of_bond, dtype=np.int64),
+        ckb_to_bond=ckb_to_bond, bond_to_ckb=bond_to_ckb)
+    cosh_v, sinh_v = np.cosh(dtau * t_ckb), np.sinh(dtau * t_ckb)
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
+
+    params = HolsteinParams(
+        mu=T(mu_v), omega=T(om_v), omega4=T(om4_v), lam=T(lam_v), lam2=T(lam2_v),
+        cosht=T(cosh_v), sinht=T(sinh_v), wij=T(wij), t=T(t),
+        expK=T(ckb.dense_matrix(cspec, cosh_v, sinh_v)) if dense_ckb else None,
+        expK_inv=(T(ckb.dense_matrix(cspec, cosh_v, sinh_v, inverse=True))
+                  if dense_ckb else None),
+    )
+    return spec, params
+
+
+# ---------------------------------------------------------------------------
+# derived quantities
+# ---------------------------------------------------------------------------
+
+def expnV(spec: HolsteinSpec, p: HolsteinParams, x):
+    """exp(−Δτ·V[x])ᵢᵢ(τ) = exp(−Δτ·(λx + λ₂x² − μ)), shape ``[..., N, Lτ]``."""
+    lam = p.lam[:, None]
+    lam2 = p.lam2[:, None]
+    mu = p.mu[:, None]
+    return torch.exp(-spec.dtau * (lam * x + lam2 * x * x - mu))
+
+
+def _tau_sign_first(spec: HolsteinSpec, like):
+    """[+1, −1, ..., −1]: the antiperiodic wrap at τ=0."""
+    s = -torch.ones(spec.Ltau, dtype=like.dtype, device=like.device)
+    s[0] = 1.0
+    return s
+
+
+def _tau_sign_last(spec: HolsteinSpec, like):
+    """[−1, ..., −1, +1]: the wrap at τ=Lτ−1 (Mᵀ)."""
+    s = -torch.ones(spec.Ltau, dtype=like.dtype, device=like.device)
+    s[-1] = 1.0
+    return s
+
+
+# ---------------------------------------------------------------------------
+# fermion matrix multiplication routines
+# ---------------------------------------------------------------------------
+
+def _fold(spec: HolsteinSpec, p: HolsteinParams, y, *, reverse: bool):
+    if spec.kernel_fold and y.is_cuda:
+        return ckb_cuda.fold(spec.ckb, p.cosht, p.sinht, y.contiguous(), reverse=reverse)
+    return ckb.fold(spec.ckb, p.cosht, p.sinht, y, reverse=reverse)
+
+
+def apply_expK(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
+    """exp(−Δτ·K)·y over the site axis (dense matmul or checkerboard fold;
+    ``precision`` is not used yet)."""
+    if spec.dense_ckb:
+        return torch.matmul(p.expK, y)
+    return _fold(spec, p, y, reverse=False)
+
+
+def apply_expK_T(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
+    """exp(−Δτ·K)ᵀ·y."""
+    if spec.dense_ckb:
+        return torch.matmul(p.expK.mT, y)
+    return _fold(spec, p, y, reverse=True)
+
+
+def mulM(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
+    """y = M·v: y(τ) = v(τ) − B(τ)·v(τ−1) for τ>0, y(0) = v(0) + B(0)·v(Lτ−1).
+    ``env`` is :func:`expnV` of the phonon field."""
+    y = env * torch.roll(v, 1, dims=-1)
+    y = apply_expK(spec, p, y, precision)
+    return v + _tau_sign_first(spec, v) * y
+
+
+def mulMT(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
+    """y = Mᵀ·v: y(τ) = v(τ) − Bᵀ(τ+1)·v(τ+1), y(Lτ−1) = v(Lτ−1) + Bᵀ(0)·v(0)."""
+    z = apply_expK_T(spec, p, v, precision)
+    w = env * z
+    return v + _tau_sign_last(spec, v) * torch.roll(w, -1, dims=-1)
+
+
+def mulMTM(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
+    """y = MᵀM·v."""
+    return mulMT(spec, p, env, mulM(spec, p, env, v, precision), precision)
+
+
+def muldMdx(spec: HolsteinSpec, p: HolsteinParams, env, x, u, v):
+    """uᵀ·[∂M/∂xᵢ(τ)]·v for every dof:
+    ±Δτ·(λᵢ + 2λ₂ᵢxᵢ(τ))·expnV(i,τ)·v(i,τ−1)·[exp(−ΔτK)ᵀu](i,τ),
+    with the minus sign on the τ=0 slice."""
+    lam = p.lam[:, None]
+    lam2 = p.lam2[:, None]
+    sgn = -_tau_sign_first(spec, x)
+    d = sgn * spec.dtau * (lam + 2.0 * lam2 * x) * env * torch.roll(v, 1, dims=-1)
+    return apply_expK_T(spec, p, u) * d
+
+
+# ---------------------------------------------------------------------------
+# bosonic (phonon) action
+# ---------------------------------------------------------------------------
+
+def calc_Sb(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
+    """Phonon action Sb = Δτ·Σ[ω²x²/2 + ω₄x⁴ − λx·shifted + (Δx/Δτ)²/2
+    + ωᵢⱼ²(xᵢ±xⱼ)²/2], summed over the last two axes in float64."""
+    om2 = (p.omega ** 2)[:, None]
+    om4 = p.omega4[:, None]
+    lam = p.lam[:, None]
+    dx = x - torch.roll(x, 1, dims=-1)
+    sb = om2 * x * x / 2 + om4 * x ** 4 + dx * dx / (2 * spec.dtau ** 2)
+    if shifted:
+        sb = sb - lam * x
+    total = fsum(sb, dim=(-2, -1))
+    if spec.wij_table.shape[1] > 0:
+        i = torch.as_tensor(spec.wij_table[0], device=x.device)
+        j = torch.as_tensor(spec.wij_table[1], device=x.device)
+        sgn = torch.as_tensor(spec.wij_sign, dtype=x.dtype, device=x.device)[:, None]
+        pair = x.index_select(-2, i) + sgn * x.index_select(-2, j)
+        total = total + ((p.wij ** 2)[:, None] * pair * pair / 2).sum(dim=(-2, -1))
+    return spec.dtau * total
+
+
+def calc_dSbdx(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
+    """∂Sb/∂xᵢ(τ)."""
+    om2 = (p.omega ** 2)[:, None]
+    om4 = p.omega4[:, None]
+    lam = p.lam[:, None]
+    lap = torch.roll(x, 1, dims=-1) + torch.roll(x, -1, dims=-1) - 2.0 * x
+    d = spec.dtau * (om2 * x + 4.0 * om4 * x ** 3) - lap / spec.dtau
+    if shifted:
+        d = d - spec.dtau * lam
+    if spec.wij_table.shape[1] > 0:
+        i = torch.as_tensor(spec.wij_table[0], device=x.device)
+        j = torch.as_tensor(spec.wij_table[1], device=x.device)
+        sgn = torch.as_tensor(spec.wij_sign, dtype=x.dtype, device=x.device)[:, None]
+        w2 = (p.wij ** 2)[:, None]
+        pair = spec.dtau * w2 * (x.index_select(-2, i) + sgn * x.index_select(-2, j))
+        d = d.index_add(-2, i, pair).index_add(-2, j, sgn * pair)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Λ operators for the HMC exponential-shift trick
+# ---------------------------------------------------------------------------
+
+def calc_Lambda(spec: HolsteinSpec, p: HolsteinParams, x):
+    """Λ(i,τ) = exp(−Δτ·(λx + λ₂x²)/2)."""
+    lam = p.lam[:, None]
+    lam2 = p.lam2[:, None]
+    return torch.exp(-spec.dtau * (lam * x + lam2 * x * x) / 2.0)
+
+
+def mulLambda(spec: HolsteinSpec, Lam, v):
+    """v' = Λ·v: v'(τ) = −Λ(τ+1)v(τ+1), v'(Lτ−1) = Λ(0)v(0)."""
+    w = Lam * v
+    return _tau_sign_last(spec, w) * torch.roll(w, -1, dims=-1)
+
+
+def mulLambdaInv(spec: HolsteinSpec, Lam, v):
+    """v' = Λ⁻¹·v: v'(τ) = −v(τ−1)/Λ(τ), v'(0) = v(Lτ−1)/Λ(0)."""
+    return _tau_sign_first(spec, v) * torch.roll(v, 1, dims=-1) / Lam
+
+
+def muldLambdadx(spec: HolsteinSpec, p: HolsteinParams, x, Lam, vl, vr):
+    """⟨vₗ|∂Λ/∂x(τ)|vᵣ⟩ per dof, to be added to a force:
+    ±vₗ(i,τ)·Δτ·(λᵢ/2 + λ₂ᵢxᵢ(τ))·Λ(i,τ)·vᵣ(i,τ−1), minus on τ=0."""
+    lam = p.lam[:, None]
+    lam2 = p.lam2[:, None]
+    sgn = -_tau_sign_first(spec, Lam)
+    base = sgn * spec.dtau * (lam / 2.0 + lam2 * x) * Lam * torch.roll(vr, 1, dims=-1)
+    return vl * base

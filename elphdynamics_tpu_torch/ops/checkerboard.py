@@ -1,0 +1,208 @@
+"""Checkerboard decomposition of the hopping-matrix exponential.
+
+Counterpart of ``elphdynamics_tpu/ops/checkerboard.py``. exp(−Δτ·K) is an
+ordered product of 2×2 bond rotations ``[c s; s c]``; bonds are greedily
+grouped into sweeps of mutually disjoint bonds, so one group acts on a
+``[..., N, K]`` field as
+
+    v  <-  c_site ⊙ v + s_site ⊙ v[partner]
+
+with ``partner`` an involutive site permutation. The full product is a fold
+over the groups:
+
+* forward           = groups in order
+* transpose         = reversed order
+* inverse           = reversed order, −s
+* inverse-transpose = forward order, −s
+
+The host-side parts (grouping, spec, dense assembly) are numpy. The torch
+fold :func:`_apply_groups` is the plain twin of the CUDA kernel in
+``csrc/ckb_fold.cu`` (:mod:`.ckb_cuda`): the tests compare it with the JAX
+package, and the kernel is compared with it on the card. Real hopping only
+(per-bond ``[Nb]`` coefficients); the complex ``conj(s)`` convention and
+per-(bond, τ) coefficients belong to later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+def checkerboard_groups(neighbor_table: np.ndarray) -> np.ndarray:
+    """Greedy grouping of bonds into mutually disjoint sweeps: walk bonds in
+    (sorted) order, assigning each to the first group in which it shares no
+    site with an earlier member. Returns 0-based group ids per bond."""
+    nb = neighbor_table.shape[1]
+    groups = np.full(nb, -1, dtype=np.int64)
+    group = -1
+    nassigned = 0
+    while nassigned < nb:
+        group += 1
+        occupied: set[int] = set()
+        for n in range(nb):
+            if groups[n] >= 0:
+                continue
+            i, j = int(neighbor_table[0, n]), int(neighbor_table[1, n])
+            if i in occupied or j in occupied:
+                continue
+            groups[n] = group
+            occupied.add(i)
+            occupied.add(j)
+            nassigned += 1
+    return groups
+
+
+@dataclass(frozen=True, eq=False)
+class CheckerboardSpec:
+    """Static (host, numpy) description of the checkerboard decomposition.
+
+    ``partner[g]`` is the involutive site permutation of group ``g``;
+    ``bond_of_site[g]`` maps each site to the bond supplying its
+    coefficients (0 for untouched sites, which are masked); ``is_lo[g]``
+    marks the first endpoint of each bond; ``order`` maps sorted-bond-order
+    coefficient arrays into checkerboard order (``coeffs[order]``);
+    ``neighbor_table``/``groups`` are in checkerboard (grouped) order, so the
+    bonds of one group are contiguous.
+    """
+
+    nsites: int
+    nbonds: int
+    ngroups: int
+    partner: np.ndarray
+    bond_of_site: np.ndarray
+    mask: np.ndarray
+    is_lo: np.ndarray
+    neighbor_table: np.ndarray
+    order: np.ndarray
+    groups: np.ndarray
+    # per-device tensors derived from the arrays above, built on first use
+    # (see :meth:`torch_tables` and ops/ckb_cuda.py)
+    _cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def group_offsets(self) -> np.ndarray:
+        """[ngroups+1] start of each group's bonds in checkerboard order."""
+        return np.searchsorted(self.groups, np.arange(self.ngroups + 1)).astype(np.int64)
+
+    def torch_tables(self, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(partner, bond_of_site, mask) as tensors on ``device``, cached."""
+        key = ("fold", str(device))
+        out = self._cache.get(key)
+        if out is None:
+            out = (torch.as_tensor(self.partner, device=device),
+                   torch.as_tensor(self.bond_of_site, device=device),
+                   torch.as_tensor(self.mask, device=device))
+            self._cache[key] = out
+        return out
+
+
+def build_checkerboard_spec(nsites: int, neighbor_table: np.ndarray) -> CheckerboardSpec:
+    """Build the group/permutation representation from a canonically sorted
+    (2, nbonds) neighbor table."""
+    neighbor_table = np.asarray(neighbor_table, dtype=np.int64)
+    nb = neighbor_table.shape[1]
+    groups_sorted = checkerboard_groups(neighbor_table)
+    order = np.argsort(groups_sorted, kind="stable")
+    table = neighbor_table[:, order]
+    groups = groups_sorted[order]
+    ngroups = int(groups.max()) + 1 if nb > 0 else 0
+
+    partner = np.tile(np.arange(nsites, dtype=np.int64), (max(ngroups, 1), 1))
+    bond_of_site = np.zeros((max(ngroups, 1), nsites), dtype=np.int64)
+    mask = np.zeros((max(ngroups, 1), nsites), dtype=bool)
+    is_lo = np.zeros((max(ngroups, 1), nsites), dtype=bool)
+    for n in range(nb):
+        g = groups[n]
+        i, j = table[0, n], table[1, n]
+        if mask[g, i] or mask[g, j]:
+            raise ValueError("bonds within a group must be disjoint")
+        partner[g, i] = j
+        partner[g, j] = i
+        bond_of_site[g, i] = n
+        bond_of_site[g, j] = n
+        mask[g, i] = True
+        mask[g, j] = True
+        is_lo[g, i] = True
+    return CheckerboardSpec(
+        nsites=nsites, nbonds=nb, ngroups=ngroups, partner=partner,
+        bond_of_site=bond_of_site, mask=mask, is_lo=is_lo,
+        neighbor_table=table, order=order, groups=groups)
+
+
+def _apply_groups(spec: CheckerboardSpec, cosh_b: torch.Tensor,
+                  sinh_b: torch.Tensor, v: torch.Tensor, group_order,
+                  sign: float) -> torch.Tensor:
+    """Fold the group rotations over ``v`` ``[..., N, K]`` (sites on axis
+    −2) with per-bond ``[Nb]`` coefficients; ``sign=-1`` applies each
+    group's inverse. Plain torch: one gather + FMA pass per group."""
+    if v.shape[-2] != spec.nsites:
+        raise ValueError(f"site axis (-2) must have size {spec.nsites}, got {tuple(v.shape)}")
+    if cosh_b.ndim != 1 or cosh_b.is_complex() or sinh_b.is_complex():
+        raise NotImplementedError(
+            "per-(bond, τ) coefficients (SSH, ROADMAP slice C) and complex "
+            "hopping (slice F) are not ported")
+    partner, bond_of_site, mask = spec.torch_tables(v.device)
+    one = torch.ones((), dtype=cosh_b.dtype, device=v.device)
+    zero = torch.zeros((), dtype=sinh_b.dtype, device=v.device)
+    for g in group_order:
+        m = mask[g]
+        c = torch.where(m, cosh_b[bond_of_site[g]], one)[:, None]
+        s = torch.where(m, sinh_b[bond_of_site[g]], zero)[:, None]
+        if sign < 0:
+            s = -s
+        v = c * v + s * v.index_select(-2, partner[g])
+    return v
+
+
+def ckb_mul(spec, cosh_b, sinh_b, v):
+    """``exp(−Δτ·K)·v``: groups in forward order."""
+    return _apply_groups(spec, cosh_b, sinh_b, v, range(spec.ngroups), +1)
+
+
+def ckb_transpose_mul(spec, cosh_b, sinh_b, v):
+    """``exp(−Δτ·K)ᵀ·v``: reversed group order."""
+    return _apply_groups(spec, cosh_b, sinh_b, v, range(spec.ngroups - 1, -1, -1), +1)
+
+
+def ckb_inverse_mul(spec, cosh_b, sinh_b, v):
+    """``exp(+Δτ·K)·v``: reversed order, −s."""
+    return _apply_groups(spec, cosh_b, sinh_b, v, range(spec.ngroups - 1, -1, -1), -1)
+
+
+def ckb_inverse_transpose_mul(spec, cosh_b, sinh_b, v):
+    """``exp(+Δτ·K)ᵀ·v``: forward order, −s."""
+    return _apply_groups(spec, cosh_b, sinh_b, v, range(spec.ngroups), -1)
+
+
+def fold(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
+         sign: float = 1.0):
+    """The fold in direction ``(reverse, sign)``: the plain twin of the CUDA
+    kernel, with the kernel's signature."""
+    order = range(spec.ngroups - 1, -1, -1) if reverse else range(spec.ngroups)
+    return _apply_groups(spec, cosh_b, sinh_b, v, order, sign)
+
+
+def dense_matrix(spec: CheckerboardSpec, cosh_b, sinh_b, inverse: bool = False) -> np.ndarray:
+    """The exact dense [N, N] float64 matrix of the checkerboard product,
+    assembled on the host from the same elementary 2×2 rotations (the
+    dense-branch exp(−Δτ·K) of small lattices)."""
+    if np.iscomplexobj(cosh_b) or np.iscomplexobj(sinh_b):
+        raise NotImplementedError("complex hopping is ROADMAP slice F")
+    cosh_b = np.asarray(cosh_b, dtype=np.float64)
+    sinh_b = np.asarray(sinh_b, dtype=np.float64)
+    N = spec.nsites
+    D = np.eye(N)
+    order = range(spec.nbonds) if not inverse else range(spec.nbonds - 1, -1, -1)
+    sgn = -1.0 if inverse else 1.0
+    for n in order:
+        i, j = spec.neighbor_table[0, n], spec.neighbor_table[1, n]
+        c = cosh_b[n]
+        s = sgn * sinh_b[n]
+        ri = D[i].copy()
+        rj = D[j].copy()
+        D[i] = c * ri + s * rj
+        D[j] = c * rj + s * ri
+    return D

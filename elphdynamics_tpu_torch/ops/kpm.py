@@ -1,0 +1,350 @@
+"""KPM (Chebyshev) preconditioner for the fermion-matrix solves.
+
+Counterpart of ``elphdynamics_tpu/ops/kpm.py`` (symmetric CG
+preconditioner, real hopping). In the Θ-twisted frequency basis the fermion
+matrix is block diagonal, M[ω,ω] = I − e^{−iφ(ω)}·Ā, with Ā the
+time-averaged single-slice propagator exp(−Δτ·K̄)·exp(−Δτ·V̄). The
+preconditioner approximates (MᵀM)⁻¹ per frequency by a Chebyshev expansion
+of f(z) = (1 − e^{−iφ}z)⁻¹ over the spectral window of Ā, run on the
+stacked-real half spectrum ``[..., N, 2Lω]``.
+
+Chains: the state carries a leading chain axis. ``expnV_bar`` is
+``[C, N]``; ``lam_avg``, ``lam_mag`` and ``active`` are ``[C]``;
+``coeff`` is ``[C, M, Lω]``. Fields are ``[C, ..., N, K]``.
+
+Ā is applied as a dense matmul up to ``_DENSE_ABAR_MAX_SITES`` sites, or
+through the checkerboard fold: the CUDA kernel for CUDA tensors above
+``_PALLAS_ABAR_MIN_SITES`` sites, the plain fold otherwise. Both gates are
+the JAX package's TPU-tuned values. Every matmul runs in full precision of
+the field dtype (the JAX package ran these at the TPU's DEFAULT precision);
+choosing a lower precision is a later, measured change.
+
+The ``stacked`` and ``exact_lowfreq`` options, complex hopping, and the
+left/right (BiCGStab/GMRES) preconditioners are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.ops import checkerboard as ckb
+from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.ops.timefreqfft import omega_to_tau, tau_to_omega
+
+
+@dataclass(frozen=True)
+class KPMConfig:
+    n_power: int = 20        # power-iteration steps for the spectral bounds
+    buf: float = 0.05        # spectral buffer
+    c1: float = 1.0          # order = (λhi−λlo)·(c1/φ + c2)
+    c2: float = 1.0
+    max_order: int = 64      # static cap on the expansion order
+    stacked: bool = False    # flattened dense T_m stack (not ported)
+    # τ↔ω by precomputed real DFT matmuls instead of FFTs; None = Lτ <= 256
+    dft_matmul: bool | None = None
+    exact_lowfreq: int = 0   # exact low-frequency blocks (not ported)
+
+    def use_dft(self, Ltau: int) -> bool:
+        if self.dft_matmul is None:
+            return Ltau <= 256
+        return self.dft_matmul
+
+    def check_ported(self) -> None:
+        if self.stacked:
+            raise NotImplementedError("KPMConfig.stacked: ROADMAP slice E")
+        if self.exact_lowfreq:
+            raise NotImplementedError("KPMConfig.exact_lowfreq: ROADMAP slice E")
+
+
+@dataclass(frozen=True)
+class KPMState:
+    """Per-configuration preconditioner state for a batch of C chains."""
+
+    expnV_bar: torch.Tensor  # [C, N] time-averaged exp(−Δτ·V̄)
+    cosh_bar: torch.Tensor   # [Nbonds] averaged checkerboard coefficients
+    sinh_bar: torch.Tensor
+    lam_avg: torch.Tensor    # [C] (λhi+λlo)/2
+    lam_mag: torch.Tensor    # [C] (λhi−λlo)/2
+    coeff: torch.Tensor      # [C, max_order, Lω] complex Chebyshev coefficients
+    active: torch.Tensor     # [C] bool
+    expK: torch.Tensor | None = None      # dense exp(−Δτ·K̄) [N, N]
+    expK_inv: torch.Tensor | None = None
+    dft_f: torch.Tensor | None = None     # [Lτ, 2Lω] τ→ω DFT table
+    dft_b: torch.Tensor | None = None     # [2Lω, Lτ] ω→τ DFT table
+
+
+def _avg_operator(ops: ModelOps, params, derived):
+    """Time-averaged Ā pieces: (expnV̄ [C, N], cosh̄, sinh̄)."""
+    return derived.mean(dim=-1), params.cosht, params.sinht
+
+
+# dense Ā up to this many sites; above _PALLAS_ABAR_MIN_SITES a CUDA field
+# takes the kernel fold instead (TPU-tuned gates of the JAX package)
+_DENSE_ABAR_MAX_SITES = 4096
+_PALLAS_ABAR_MIN_SITES = 2048
+
+
+def _kernel_fold_available(sinh_bar: torch.Tensor) -> bool:
+    """True when Ā can run the CUDA fold kernel: the state is on CUDA."""
+    return sinh_bar.is_cuda
+
+
+def _dense_abar_gate(nsites: int, sinh_bar) -> bool:
+    """Densify Ā below the gate; above it the kernel fold carries the
+    Chebyshev recurrence."""
+    if _kernel_fold_available(sinh_bar) and nsites > _PALLAS_ABAR_MIN_SITES:
+        return False
+    return nsites <= _DENSE_ABAR_MAX_SITES
+
+
+def _dense_avg(ops: ModelOps, cosh_bar, sinh_bar):
+    """exp(∓Δτ·K̄) as dense matrices: the identity folded through the groups
+    once per setup."""
+    sc = ops.spec.ckb
+    eye = torch.eye(ops.Nsites, dtype=cosh_bar.dtype, device=cosh_bar.device)
+    return ckb.ckb_mul(sc, cosh_bar, sinh_bar, eye), ckb.ckb_inverse_mul(sc, cosh_bar, sinh_bar, eye)
+
+
+def _chain(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A per-chain scalar ``[C]`` shaped to broadcast against ``v``
+    ``[C, ...]``."""
+    return s.reshape(s.shape + (1,) * (v.ndim - s.ndim)).to(v.dtype)
+
+
+def _site_diag(d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A per-chain site diagonal ``[C, N]`` shaped against ``v``
+    ``[C, ..., N, K]``."""
+    return d.reshape(d.shape[:1] + (1,) * (v.ndim - 3) + d.shape[1:] + (1,))
+
+
+def _fold(st: KPMState, spec_ckb, v, reverse: bool, sign: float):
+    """Ā's hopping factor without a dense matrix: the kernel on CUDA (the
+    gate above leaves no other fold there), the plain twin on the CPU."""
+    return ckb_cuda.fold(spec_ckb, st.cosh_bar, st.sinh_bar, v.contiguous(),
+                         reverse=reverse, sign=sign)
+
+
+def _mulA(st: KPMState, spec_ckb, v):
+    """Ā·v = exp(−Δτ·K̄)·exp(−Δτ·V̄)·v on ``[C, ..., N, K]`` blocks."""
+    w = _site_diag(st.expnV_bar, v) * v
+    if st.expK is not None:
+        return torch.matmul(st.expK.to(v.dtype), w)
+    return _fold(st, spec_ckb, w, reverse=False, sign=1.0)
+
+
+def _mulA_T(st: KPMState, spec_ckb, v):
+    """Āᵀ·v."""
+    if st.expK is not None:
+        w = torch.matmul(st.expK.to(v.dtype).mT, v)
+    else:
+        w = _fold(st, spec_ckb, v, reverse=True, sign=1.0)
+    return _site_diag(st.expnV_bar, v) * w
+
+
+def _mulA_inv(st: KPMState, spec_ckb, v):
+    """Ā⁻¹·v."""
+    if st.expK_inv is not None:
+        w = torch.matmul(st.expK_inv.to(v.dtype), v)
+    else:
+        w = _fold(st, spec_ckb, v, reverse=True, sign=-1.0)
+    return w / _site_diag(st.expnV_bar, v)
+
+
+def _spectral_radius(apply_fn, v0: torch.Tensor, n_chains: int, n_iter: int):
+    """Power-iteration estimate of the dominant |eigenvalue| per chain, from
+    the start vector ``v0`` ``[N, 1]`` shared by all chains."""
+    v = v0 / torch.linalg.vector_norm(v0)
+    v = v.expand((n_chains,) + tuple(v0.shape)).contiguous()
+    lam = torch.ones(n_chains, dtype=v0.dtype, device=v0.device)
+    for _ in range(n_iter):
+        w = apply_fn(v)
+        lam = torch.linalg.vector_norm(w, dim=(-2, -1))
+        safe = torch.where(lam > 0, lam, torch.ones_like(lam))
+        v = w / safe[:, None, None]
+    return lam
+
+
+def start_vectors(nsites: int, seed: int = 1234):
+    """The two power-iteration start vectors ``[N, 1]`` (float64, CPU):
+    fixed for a preconditioner (one generator seed), shared by all chains
+    and updates; :func:`setup` moves them to the state's device and dtype."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn((nsites, 1), generator=g, dtype=torch.float64) for _ in range(2))
+
+
+def _dft_tables(Ltau: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real [Lτ, 2Lω] / [2Lω, Lτ] DFT tables reproducing the τ→ω half
+    spectrum map and its conjugate-symmetric inverse."""
+    from elphdynamics_tpu_torch.ops.timefreqfft import theta
+
+    Lw = (Ltau + 1) // 2
+    th = theta(Ltau)
+    T = np.fft.fft(th * np.eye(Ltau), axis=-1)
+    Wf = np.concatenate([T[:, :Lw].real, T[:, :Lw].imag], axis=1)
+    Wb = np.zeros((2 * Lw, Ltau))
+    for k in range(2 * Lw):
+        u = np.zeros(Lw, dtype=complex)
+        if k < Lw:
+            u[k] = 1.0
+        else:
+            u[k - Lw] = 1j
+        full = np.concatenate([u, np.conj(u[::-1])[(2 * Lw - Ltau):]])
+        Wb[k] = np.real(np.conj(th) * np.fft.ifft(full))
+    return Wf, Wb
+
+
+def _to_half_stacked(st: KPMState, v, Ltau: int, use_dft: bool):
+    """[.., N, Lτ] real → stacked-real [.., N, 2Lω] (real then imaginary)."""
+    Lw = (Ltau + 1) // 2
+    if use_dft:
+        return torch.matmul(v, st.dft_f.to(v.dtype))
+    u_c = tau_to_omega(v)[..., :Lw]
+    return torch.cat([u_c.real, u_c.imag], dim=-1)
+
+
+def _from_half_stacked(st: KPMState, w, Ltau: int, dtype, use_dft: bool):
+    """Stacked-real [.., N, 2Lω] → [.., N, Lτ] real."""
+    Lw = (Ltau + 1) // 2
+    if use_dft:
+        return torch.matmul(w, st.dft_b.to(w.dtype)).to(dtype)
+    u = torch.complex(w[..., :Lw], w[..., Lw:])
+    full = torch.cat([u, torch.flip(u.conj_physical(), dims=(-1,))[..., (2 * Lw - Ltau):]], dim=-1)
+    return omega_to_tau(full, real=True).to(dtype)
+
+
+def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
+    """Build the KPM state for phonon fields ``x`` ``[C, N, Lτ]``.
+    ``start`` is the pair of power-iteration start vectors
+    (:func:`start_vectors`)."""
+    cfg.check_ported()
+    if x.ndim != 3:
+        raise ValueError(f"x must be [C, N, Ltau], got {tuple(x.shape)}")
+    C = x.shape[0]
+    derived = ops.derived(params, x)
+    expnV_bar, cosh_bar, sinh_bar = _avg_operator(ops, params, derived)
+    sc = ops.spec.ckb
+    dtype, device = expnV_bar.dtype, expnV_bar.device
+    expK = params.expK if ops.spec.dense_ckb else None
+    expK_inv = params.expK_inv if ops.spec.dense_ckb else None
+    if expK is None and 0 < sc.nbonds and _dense_abar_gate(ops.Nsites, sinh_bar):
+        expK, expK_inv = _dense_avg(ops, cosh_bar, sinh_bar)
+    Wf, Wb = _dft_tables(ops.Ltau)
+    st0 = KPMState(expnV_bar=expnV_bar, cosh_bar=cosh_bar, sinh_bar=sinh_bar,
+                   lam_avg=torch.ones(C, dtype=dtype, device=device),
+                   lam_mag=torch.ones(C, dtype=dtype, device=device),
+                   coeff=torch.zeros((C, 1, 1), dtype=dtype, device=device),
+                   active=torch.ones(C, dtype=torch.bool, device=device),
+                   expK=expK, expK_inv=expK_inv,
+                   dft_f=torch.as_tensor(Wf, device=device).to(dtype),
+                   dft_b=torch.as_tensor(Wb, device=device).to(dtype))
+
+    v1, v2 = (s.to(device=device, dtype=dtype) for s in start)
+    e_max = _spectral_radius(lambda v: _mulA(st0, sc, v), v1, C, cfg.n_power)
+    e_min = 1.0 / _spectral_radius(lambda v: _mulA_inv(st0, sc, v), v2, C, cfg.n_power)
+    active = (e_min > 0.0) & (e_min < 1.0) & (e_max > 1.0) & ((e_max - e_min) < 2.0)
+
+    lam_lo = torch.clamp((1.0 - 2.0 * cfg.buf) * e_min, min=0.0)
+    lam_hi = (1.0 + 2.0 * cfg.buf) * e_max
+    lam_avg = (lam_hi + lam_lo) / 2
+    lam_mag = (lam_hi - lam_lo) / 2
+
+    Ltau = ops.Ltau
+    Lw = (Ltau + 1) // 2
+    phis = torch.as_tensor(2.0 * np.pi / Ltau * (np.arange(Lw) + 0.5), device=device).to(dtype)
+    M = cfg.max_order
+    NM = 2 * M
+    theta_n = (np.arange(NM) + 0.5) * np.pi / NM
+    nodes = torch.as_tensor(np.cos(theta_n), device=device).to(dtype)          # [NM]
+    xs = lam_mag[:, None] * nodes + lam_avg[:, None]                           # [C, NM]
+    f = 1.0 / (1.0 - torch.exp(-1j * phis)[None, None, :] * xs[:, :, None])   # [C, NM, Lw]
+    cosmat = torch.as_tensor(np.cos(np.outer(np.arange(M), theta_n)), device=device).to(dtype)
+    scale = torch.as_tensor(np.where(np.arange(M) == 0, 1.0, 2.0), device=device).to(dtype)[:, None] / NM
+    coeff = scale * torch.matmul(cosmat.to(f.dtype), f)                         # [C, M, Lw]
+
+    order = torch.floor((lam_hi - lam_lo)[:, None] * (cfg.c1 / phis + cfg.c2))  # [C, Lw]
+    order = torch.clamp(order, 1, M)
+    morder = torch.arange(M, device=device)[None, :, None] < order[:, None, :]
+    coeff = torch.where(morder, coeff, torch.zeros_like(coeff))
+    return replace(st0, lam_avg=lam_avg, lam_mag=lam_mag, coeff=coeff, active=active)
+
+
+def refresh(ops: ModelOps, st: KPMState, params, x) -> KPMState:
+    """Recompute only the averaged operator for the current fields, reusing
+    the bounds and coefficients of an earlier :func:`setup`."""
+    derived = ops.derived(params, x)
+    expnV_bar, cosh_bar, sinh_bar = _avg_operator(ops, params, derived)
+    return replace(st, expnV_bar=expnV_bar, cosh_bar=cosh_bar, sinh_bar=sinh_bar)
+
+
+def _cmul_halves(coeff_m, w):
+    """Per-chain complex coefficients ``[C, Lω]`` times a stacked-real block
+    ``w`` ``[C, ..., N, 2Lω]``."""
+    Lw = w.shape[-1] // 2
+    shape = coeff_m.shape[:1] + (1,) * (w.ndim - 2) + coeff_m.shape[1:]
+    cr = coeff_m.real.to(w.dtype).reshape(shape)
+    ci = coeff_m.imag.to(w.dtype).reshape(shape)
+    wr, wi = w[..., :Lw], w[..., Lw:]
+    return torch.cat([cr * wr - ci * wi, cr * wi + ci * wr], dim=-1)
+
+
+def _chebyshev_apply_stacked(ops: ModelOps, st: KPMState, w, coeff, transposed: bool):
+    """Σₘ c_m(ω)·T_m(Ā′)·w on the stacked-real layout, Ā′ = (Ā − λavg)/λmag
+    (Āᵀ when ``transposed``)."""
+    sc = ops.spec.ckb
+    mul = _mulA_T if transposed else _mulA
+    mag = _chain(st.lam_mag, w)
+    shift = _chain(st.lam_avg / st.lam_mag, w)
+
+    def Ap(v):
+        return mul(st, sc, v) / mag - shift * v
+
+    out = _cmul_halves(coeff[:, 0], w)
+    u_nm1, u_n = w, Ap(w)
+    for m in range(1, coeff.shape[1]):
+        out = out + _cmul_halves(coeff[:, m], u_n)
+        u_nm1, u_n = u_n, 2.0 * Ap(u_n) - u_nm1
+    return out
+
+
+def apply_symmetric(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None = None):
+    """P⁻¹ ≈ (MᵀM)⁻¹ on a real ``[C, ..., N, Lτ]`` field: τ→ω, the per-ω
+    [M⁻ᵀ·M⁻¹] Chebyshev pair on the half spectrum, ω→τ. Chains whose
+    spectral window is invalid get the identity."""
+    Ltau = ops.Ltau
+    use_dft = cfg is not None and cfg.use_dft(Ltau)
+    w_in = _to_half_stacked(st, v, Ltau, use_dft)
+    w = _chebyshev_apply_stacked(ops, st, w_in, st.coeff.conj_physical(), transposed=True)
+    w = _chebyshev_apply_stacked(ops, st, w, st.coeff, transposed=False)
+    out = _from_half_stacked(st, w, Ltau, v.dtype, use_dft)
+    active = st.active.reshape(st.active.shape + (1,) * (v.ndim - 1))
+    return torch.where(active, out, v)
+
+
+@dataclass(frozen=True)
+class Preconditioner:
+    """``setup(params, x, start=None)`` runs the full spectral-bounds and
+    coefficient build; ``refresh(st, params, x)`` re-derives only the
+    averaged operator; ``symmetric(st, v)`` applies P⁻¹."""
+
+    setup: object
+    refresh: object
+    symmetric: object
+
+
+def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
+    """Symmetric :class:`Preconditioner` for the CG samplers: full setup once
+    per update, cheap refresh and apply inside the solves. The power
+    iteration starts from two fixed vectors drawn from ``seed``; a caller
+    may pass others to ``setup``."""
+    cfg.check_ported()
+    fixed = start_vectors(ops.Nsites, seed)
+    return Preconditioner(
+        setup=lambda params, x, start=None: setup(ops, params, x, cfg,
+                                                  fixed if start is None else start),
+        refresh=lambda st, params, x: refresh(ops, st, params, x),
+        symmetric=lambda st, v: apply_symmetric(ops, st, v, cfg),
+    )
