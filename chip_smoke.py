@@ -6,18 +6,31 @@ Phases (one line each, and the process exits non-zero if any fails):
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions and
    the TF32 switches;
-2. build the CUDA checkerboard-fold kernel from ``elphdynamics_tpu_torch/
-   csrc/ckb_fold.cu`` with nvcc;
-3. the kernel against its plain torch twin in all four directions at the
-   main path's shapes, float32 and float64, with median times;
-4. a small update (4×4, float64) on the card with the kernel forced on,
-   against the same update on the CPU through the plain twin;
-5. the bench 8×8 configuration (128 chains, dense branch): 1 warm-up and 3
+2. build the two CUDA kernels, the checkerboard fold (K1, ``csrc/
+   ckb_fold.cu``) and the fused Chebyshev step (K2, ``csrc/
+   ckb_fold_fused.cu``), one nvcc per source, started together;
+3. K1 against its plain torch twin in all four directions at the main
+   path's shapes, float32 and float64, with median times;
+4. K2 against its plain twin at [16, 1, 4096, 40] and [16, 10, 4096, 40]
+   (16 chains, nᵥ = 10 rows each) with per-chain scalars and diagonals,
+   with and without ``prev``, both directions, float32 and float64;
+5. a small update (4×4, float64) on the card with K1 forced on, against
+   the same update on the CPU through the plain twin;
+6. a small preconditioner apply (4×4, float64) on the fold branch: K2 on
+   the card against its twin on the CPU;
+7. the bench 8×8 configuration (128 chains, dense branch): 1 warm-up and 3
    timed updates;
-6. the kernel 64×64 configuration (16 chains, fold branch, N = 4096): 1
-   warm-up and 2 timed updates, with the kernel's launch count.
+8. the kernel 64×64 configuration (16 chains, fold branch, N = 4096): 1
+   warm-up and 2 timed updates, with K1's and K2's launch counts;
+9. the 64×64 A/B of the two fold-branch Chebyshev recurrences (K2 steps
+   against K1 plus elementwise passes) on one KPM state;
+10. the TOML driver, ``simulation.simulate``: ``examples/
+    holstein_hmc_square.toml`` with its counts cut (4×4, dense branch), and
+    the same file at 64×64, β = 4 (4 chains, K1 and K2 on the path), each
+    into a temporary directory, with seconds per update and per
+    measurement and the peak device memory.
 
-The line before the last is a JSON object with the kernel's numbers; the
+The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -25,10 +38,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import tomllib
 from dataclasses import replace
 
 import numpy as np
@@ -75,8 +91,9 @@ def phase_build():
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
     t0 = time.perf_counter()
-    so = ckb_cuda.build(verbose=True)
-    say("build", library=so.name, seconds=f"{time.perf_counter() - t0:.2f}")
+    libs = ckb_cuda.build(verbose=True)
+    say("build", libraries=",".join(so.name for so in libs.values()),
+        seconds=f"{time.perf_counter() - t0:.2f}")
 
 
 def _spec_64():
@@ -127,6 +144,122 @@ def phase_kernel_vs_twin() -> dict:
     return dict(max_abs_err=worst_abs, **main)
 
 
+def phase_fused_vs_twin() -> dict:
+    """K2 and its plain twin on the same inputs: 16 chains with one row each
+    and with nᵥ = 10 Green's-function rows each, K = 2Lω = 40; per-chain a,
+    b and pre (forward) or post (reverse) diagonals; with and without prev."""
+    from elphdynamics_tpu_torch.ops import checkerboard as ckb
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    spec, params = _spec_64()
+    N = spec.Nsites
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst_abs = 0.0
+    main = {}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        c, s = params.cosht.to(dtype), params.sinht.to(dtype)
+        for inner in (1, 10):
+            shape = (16, inner, N, 40)
+            v = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+            prev = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+            diag = 0.5 + torch.rand((16, N), generator=g, dtype=dtype, device="cuda")
+            a = 0.5 + torch.rand(16, generator=g, dtype=dtype, device="cuda")
+            b = torch.rand(16, generator=g, dtype=dtype, device="cuda") - 0.5
+            for name, rev in (("forward", False), ("reverse", True)):
+                for use_prev in (False, True):
+                    kw = dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None,
+                              a=a, b=b, c=-1.0, prev=prev if use_prev else None)
+                    got = ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw)
+                    want = ckb.fold_fused(spec.ckb, c, s, v, **kw)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    rel = err / want.abs().max().item()
+                    worst_abs = max(worst_abs, err)
+                    ms = median_ms(lambda: ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw))
+                    plain = median_ms(lambda: ckb.fold_fused(spec.ckb, c, s, v, **kw))
+                    say("fused_kernel", dtype=str(dtype).split(".")[1],
+                        shape="x".join(map(str, shape)), direction=name, prev=use_prev,
+                        max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
+                        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+                    if not rel <= tol:
+                        raise RuntimeError(f"fused kernel disagrees with its twin: {rel} > {tol}")
+                    if dtype == torch.float32 and inner == 10 and not rev and use_prev:
+                        main = dict(ms=ms, plain_ms=plain)
+    return dict(max_abs_err=worst_abs, **main)
+
+
+def phase_small_fused_reference() -> None:
+    """A 4×4 float64 preconditioner apply on the fold branch (the state's
+    dense Ā dropped, as tests/test_kpm.py forces it): K2 on the card against
+    the plain twin on the CPU, same state and field."""
+    from elphdynamics_tpu_torch.bench import build_bench_step
+    from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
+
+    cfg = kpm.KPMConfig(max_order=8)
+    start = kpm.start_vectors(16, seed=3)
+    x = 0.3 * torch.randn((4, 16, 10), generator=torch.Generator().manual_seed(2),
+                          dtype=torch.float64)
+    v = torch.randn((4, 2, 16, 10), generator=torch.Generator().manual_seed(3),
+                    dtype=torch.float64)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        b = build_bench_step(4, 1.0, 0.1, 0.05, 4, dev, torch.float64)
+        st = kpm.setup(b.ops, b.params, x.to(dev), cfg, start)
+        st = replace(st, expK=None, expK_inv=None)
+        before = ckb_cuda.fused_launches
+        out[dev] = (kpm.apply_symmetric(b.ops, st, v.to(dev), cfg).cpu(),
+                    ckb_cuda.fused_launches - before)
+    diff = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    rel = diff / out["cpu"][0].abs().max().item()
+    say("small_fused_reference", max_abs_diff=f"{diff:.3e}", max_rel_diff=f"{rel:.3e}",
+        tol=1e-12, cuda_fused_launches=out["cuda"][1], cpu_fused_launches=out["cpu"][1])
+    if not (rel <= 1e-12 and out["cuda"][1] > 0 and out["cpu"][1] == 0):
+        raise RuntimeError("the card's fold-branch preconditioner disagrees with the CPU")
+
+
+def phase_chebyshev_ab() -> dict:
+    """The fold-branch Chebyshev pair of one preconditioner apply (Āᵀ pass,
+    then Ā) on the kernel-64×64 KPM state and a CG-shaped [16, 2, 4096, 40]
+    field, through K2 steps and through K1 plus elementwise passes, timed in
+    turns (composed, fused, fused, composed)."""
+    from elphdynamics_tpu_torch.bench import KERNEL_64X64, build
+    from elphdynamics_tpu_torch.ops import kpm
+
+    b = build(KERNEL_64X64, "cuda", torch.float32)
+    cfg = kpm.KPMConfig(max_order=4)
+    st = kpm.setup(b.ops, b.params, b.state.x, cfg, kpm.start_vectors(b.ops.Nsites))
+    if st.expK is not None:
+        raise RuntimeError("the 64x64 KPM state is not on the fold branch")
+    Lw = (b.ops.Ltau + 1) // 2
+    w = torch.randn((16, 2, b.ops.Nsites, 2 * Lw), generator=torch.Generator(device="cuda")
+                    .manual_seed(4), device="cuda")
+
+    def pair(fn):
+        u = fn(b.ops, st, w, st.coeff.conj_physical(), True)
+        return fn(b.ops, st, u, st.coeff, False)
+
+    fused = pair(kpm._chebyshev_apply_stacked_fused)
+    composed = pair(kpm._chebyshev_apply_stacked_composed)
+    rel = ((fused - composed).abs().max() / composed.abs().max()).item()
+    times = {"composed": [], "fused": []}
+    for route in ("composed", "fused", "fused", "composed"):
+        fn = getattr(kpm, f"_chebyshev_apply_stacked_{route}")
+        times[route].append(median_ms(lambda: pair(fn), reps=10))
+    apply_ms = median_ms(lambda: kpm.apply_symmetric(b.ops, st, w[..., :b.ops.Ltau], cfg),
+                         reps=10)
+    out = dict(fused_ms=statistics.mean(times["fused"]),
+               composed_ms=statistics.mean(times["composed"]), max_rel_diff=rel,
+               apply_symmetric_ms=apply_ms)
+    say("chebyshev_ab_64x64", shape="16x2x4096x40", max_order=4,
+        fused_ms=f"{out['fused_ms']:.4f}", composed_ms=f"{out['composed_ms']:.4f}",
+        fused_runs=",".join(f"{t:.4f}" for t in times["fused"]),
+        composed_runs=",".join(f"{t:.4f}" for t in times["composed"]),
+        max_rel_diff=f"{rel:.3e}", apply_symmetric_fused_ms=f"{apply_ms:.4f}")
+    if not rel <= 1e-4:
+        raise RuntimeError(f"the two recurrences disagree: {rel}")
+    return out
+
+
 def phase_small_reference() -> None:
     """One 4×4 update in float64 on the card with the kernel forced on
     (pallas_threshold=0), against the same update on the CPU (plain twin)."""
@@ -168,7 +301,7 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     b = build(cfg, "cuda", torch.float32)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    ckb_cuda.launches = 0
+    ckb_cuda.launches = ckb_cuda.fused_launches = 0
     state = b.state
     for _ in range(warmup):
         state, stats = b.step(b.params, state, b.generator)
@@ -183,13 +316,14 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
         dHs.append(stats.delta_H)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = ckb_cuda.launches
+    launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
     acc, iters, flags, dHs = (torch.stack(a).cpu() for a in (acc, iters, flags, dHs))
     out = dict(sweeps_per_s=cfg.n_chains * timed / elapsed,
                acceptance=acc.double().mean().item(),
                cg_iters_per_solve=iters.double().mean().item(),
                max_flag=int(flags.max()), dH_finite=bool(torch.isfinite(dHs).all()),
                max_abs_dH=dHs.abs().max().item(), kernel_launches=launches,
+               fused_kernel_launches=fused_launches,
                build_s=build_s, seconds=elapsed,
                x_shape=tuple(state.x.shape), x_finite=bool(torch.isfinite(state.x).all()))
     say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_updates=timed,
@@ -200,34 +334,135 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     return out
 
 
+def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
+    """``simulation.simulate`` of ``cfg`` (written as a TOML file) on the
+    card in float32, with both kernels' counts set to 0 just before and
+    read just after; checks the output tree."""
+    from elphdynamics_tpu_torch.io.output import dump_toml
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+    from elphdynamics_tpu_torch.simulation import simulate
+
+    workdir = os.path.join(workdir, name)
+    os.makedirs(workdir)
+    cfg["simulation"]["filepath"] = workdir
+    path = os.path.join(workdir, f"{name}.toml")
+    with open(path, "w") as f:
+        f.write(dump_toml(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    ckb_cuda.launches = ckb_cuda.fused_launches = 0
+    t0 = time.perf_counter()
+    stats = simulate(path, n_chains=n_chains, device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
+    h, sp = cfg["hmc"], cfg["simulation"]
+    folder = os.path.join(workdir, f"{sp['foldername']}-1")
+    summary = open(os.path.join(folder, f"{sp['foldername']}_summary.out")).read()
+    sections = ("INPUT FILE CONTENTS", "SIMULATION INFO", "GLOBAL MEASUREMENTS",
+                "ON-SITE MEASUREMENTS", "SUSCEPTIBILITIES", "CORRELATIONS")
+    finite = True
+    for b in range(1, sp["num_bins"] + 1):
+        for sub, kind in (("global_measurements", "keyed"), ("onsite_measurements", "keyed"),
+                          ("Greens_position", "table"), ("PairSusc_momentum", "table")):
+            path = os.path.join(folder, f"{sub}_f", f"{sub}_{b:05d}.out")
+            if kind == "keyed":
+                lines = open(path).read().splitlines()
+                vals = np.asarray([float(r.split()[-1]) for r in lines
+                                   if r.split() and r.split()[0] != "measurement"])
+            else:
+                vals = np.loadtxt(path, skiprows=1)[:, 1:]
+            finite = finite and vals.size > 0 and bool(np.isfinite(vals).all())
+    n_upd = h["burnin_updates"] + h["simulation_updates"]
+    n_meas = h["simulation_updates"] // h["meas_freq"]
+    out = dict(chains=n_chains, L=cfg["lattice"]["L"], beta=cfg["holstein"]["beta"],
+               updates=n_upd, measurements=n_meas, wall_s=wall,
+               s_per_update=stats["simulation_time"] / n_upd,
+               s_per_measurement=stats["measurement_time"] / n_meas,
+               write_s=stats["write_time"], acceptance=stats["acceptance_rate"],
+               cg_iters_per_solve=stats["iters"], solver_failures=stats.get("solver_failures", 0),
+               reflect_acceptance=stats["reflect_acceptance_rate"],
+               swap_acceptance=stats["swap_acceptance_rate"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               kernel_launches=launches, fused_kernel_launches=fused_launches,
+               sections_ok=all(f"## {x} ##" in summary for x in sections), bins_finite=finite)
+    say(f"driver_{name}", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+                             for k, v in out.items()})
+    if not (out["sections_ok"] and finite):
+        raise RuntimeError(f"driver {name}: summary sections or bins wrong")
+    if out["solver_failures"] != 0 or not out["acceptance"] > 0:
+        raise RuntimeError(f"driver {name}: {out['solver_failures']} solver failures, "
+                           f"acceptance {out['acceptance']}")
+    return out
+
+
+def phase_driver(small_too: bool = True) -> dict:
+    """The stock 4×4 example with its counts cut, and the same file at
+    64×64 (β = 4, dt = 0.025, 4 bosonic substeps, 4 chains): the full-width
+    run, with K1 (fermion operator, Ā power iteration) and K2 (Chebyshev
+    steps) on its path. Each run writes into its own temporary folder."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
+        stock = tomllib.load(f)
+    with tempfile.TemporaryDirectory() as work:
+        if small_too:
+            small = json.loads(json.dumps(stock))
+            small["hmc"].update(burnin_updates=20, simulation_updates=40)
+            small["simulation"]["num_bins"] = 4
+            run_driver("square_4x4", small, 1, work)
+        big = json.loads(json.dumps(stock))
+        big["lattice"]["L"] = 64
+        big["holstein"]["beta"] = 4.0
+        big["hmc"].update(dt=0.025, num_multitimesteps=4, burnin_updates=1,
+                          simulation_updates=2, meas_freq=1)
+        big["simulation"]["num_bins"] = 2
+        big["measurements"]["num_random_vectors"] = 10
+        out = run_driver("square_64x64", big, 4, work)
+    if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
+        raise RuntimeError("the 64x64 driver run launched a kernel no time: "
+                           f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import elphdynamics_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     phase_card()
     phase_build()
     kern = phase_kernel_vs_twin()
+    fused = phase_fused_vs_twin()
     phase_small_reference()
+    phase_small_fused_reference()
 
     from elphdynamics_tpu_torch.bench import BENCH_8X8, KERNEL_64X64
 
     run_config(BENCH_8X8, warmup=1, timed=3)
     big = run_config(KERNEL_64X64, warmup=1, timed=2)
-    if big["kernel_launches"] <= 0:
-        raise RuntimeError("the 64x64 main path launched the fold kernel no time")
+    if big["kernel_launches"] <= 0 or big["fused_kernel_launches"] <= 0:
+        raise RuntimeError("the 64x64 update launched a kernel no time: "
+                           f"K1 {big['kernel_launches']}, K2 {big['fused_kernel_launches']}")
     if big["max_flag"] != 0 or big["acceptance"] <= 0:
         raise RuntimeError(f"64x64: flag {big['max_flag']}, acceptance {big['acceptance']}")
-    if not math.isfinite(kern["ms"]):
+    phase_chebyshev_ab()
+    drv = phase_driver()
+    if not (math.isfinite(kern["ms"]) and math.isfinite(fused["ms"])):
         raise RuntimeError("kernel timing missing")
+    say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
 
-    print(json.dumps({"kernels": [{
-        "name": "ckb_fold", "route": "cuda",
-        "source": "elphdynamics_tpu_torch/csrc/ckb_fold.cu",
-        "replaces": "elphdynamics_tpu/ops/ckb_pallas.py:75",
-        "launches": big["kernel_launches"], "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "ckb_fold", "route": "cuda",
+         "source": "elphdynamics_tpu_torch/csrc/ckb_fold.cu",
+         "replaces": "elphdynamics_tpu/ops/ckb_pallas.py:75",
+         "launches": drv["kernel_launches"], "max_abs_err": kern["max_abs_err"],
+         "ms": kern["ms"], "plain_ms": kern["plain_ms"]},
+        {"name": "ckb_fold_fused", "route": "cuda",
+         "source": "elphdynamics_tpu_torch/csrc/ckb_fold_fused.cu",
+         "replaces": "elphdynamics_tpu/ops/ckb_pallas.py:128",
+         "launches": drv["fused_kernel_launches"], "max_abs_err": fused["max_abs_err"],
+         "ms": fused["ms"], "plain_ms": fused["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,9 +13,15 @@ counterpart is easy to find, but follows PyTorch idiom inside:
   JAX package's draws in;
 * the chain axis is an explicit leading dimension instead of ``jax.vmap``.
 
-The hand-written CUDA kernel of the checkerboard fold lives in
-``csrc/ckb_fold.cu`` and is built by ``nvcc`` at first use
-(:mod:`elphdynamics_tpu_torch.ops.ckb_cuda`).
+The hand-written CUDA kernels, the checkerboard fold (``csrc/ckb_fold.cu``)
+and the fused Chebyshev step (``csrc/ckb_fold_fused.cu``), are built by
+``nvcc`` at first use (:mod:`elphdynamics_tpu_torch.ops.ckb_cuda`).
+
+The user entry point is the TOML driver,
+``python -m elphdynamics_tpu_torch input.toml [run_id]``
+(:mod:`elphdynamics_tpu_torch.simulation`).
 
 This package never imports ``jax`` nor ``elphdynamics_tpu``.
 """
+
+__version__ = "0.1.0"

@@ -19,15 +19,14 @@
 //     [tile·kt, tile·kt + kt) of the [B, N, K] row-major field;
 //   * the slab [N, kt] lives in dynamic shared memory (kt is chosen by the
 //     wrapper from the opt-in shared-memory budget of the card);
-//   * groups run in order with __syncthreads() between them. Within a group
-//     the bonds are disjoint, so one thread per (bond, column) reads both
-//     endpoints and writes both new values: no two threads touch one site;
-//   * bond tables: endpoints bi/bj [nb] in checkerboard order, group offsets
-//     goff [G+1], coefficients c/s [nb]; sign = −1 gives the inverse.
+//   * the groups run in order on the slab (ckb_fold_groups.cuh, shared with
+//     the fused Chebyshev step of ckb_fold_fused.cu).
 // The mask/roll offset classes and [N,K]→[K,N] transposes of the Pallas
 // kernel existed only because Mosaic has no dynamic gather; they are gone.
 
 #include <cuda_runtime.h>
+
+#include "ckb_fold_groups.cuh"
 
 namespace {
 
@@ -59,25 +58,7 @@ __global__ void ckb_fold_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
   __syncthreads();
 
-  for (int gi = 0; gi < ngroups; ++gi) {
-    const int g = reverse ? ngroups - 1 - gi : gi;
-    const int b0 = goff[g];
-    const int nwork = (goff[g + 1] - b0) * kw;
-    for (int idx = threadIdx.x; idx < nwork; idx += blockDim.x) {
-      const int r = idx / kw;
-      const int col = idx - r * kw;
-      const int n = b0 + r;
-      const int i = bi[n];
-      const int j = bj[n];
-      const T cc = c[n];
-      const T ss = sign * s[n];
-      const T vi = slab[i * kt + col];
-      const T vj = slab[j * kt + col];
-      slab[i * kt + col] = cc * vi + ss * vj;
-      slab[j * kt + col] = cc * vj + ss * vi;
-    }
-    __syncthreads();
-  }
+  ckb_fold_slab(slab, bi, bj, c, s, goff, ngroups, reverse, sign, kt, kw);
 
   for (int idx = threadIdx.x; idx < nload; idx += blockDim.x) {
     const int i = idx / kw;

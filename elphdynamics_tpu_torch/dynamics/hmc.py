@@ -18,15 +18,16 @@ stacked as ``[C, 2, N, Lτ]`` and solved as one batched CG. Every per-chain
 quantity (KPM window, CG masks, flags, acceptance) stays per chain.
 
 Random draws are explicit: the step takes an optional :class:`HMCDraws`;
-without one it draws from its ``generator``. The integrator ``2mn``,
-``tune_dt``/``dynamic_dt``, ``log_verbose``, deflation, block CG and
-non-CG solvers are not ported and raise ``NotImplementedError``.
+without one it draws from its ``generator``. With ``log_verbose`` the stats
+carry each leapfrog step's energies. The integrator ``2mn``,
+``tune_dt``/``dynamic_dt``, deflation, block CG and non-CG solvers are not
+ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -69,8 +70,6 @@ class HMCConfig:
             raise NotImplementedError(f"integrator {self.integrator!r}: ROADMAP slice G")
         if self.tune_dt:
             raise NotImplementedError("tune_dt: ROADMAP slice G")
-        if self.log_verbose:
-            raise NotImplementedError("log_verbose: ROADMAP slice B")
         if self.deflate_k > 0:
             raise NotImplementedError("deflation: ROADMAP slice I")
         SolverConfig(kind=self.solver_kind, block=self.block).check_ported()
@@ -91,6 +90,12 @@ class HMCStats:
     H: torch.Tensor
     S: torch.Tensor
     K: torch.Tensor
+    # per-timestep [C, Nt] energies and solve iterations when
+    # cfg.log_verbose (the driver's verbose hmc_sim_log.out rows)
+    traj_H: torch.Tensor | None = None
+    traj_S: torch.Tensor | None = None
+    traj_K: torch.Tensor | None = None
+    traj_iters: torch.Tensor | None = None
 
 
 @dataclass(frozen=True)
@@ -253,6 +258,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
 
         x, v = x0, v0
         hist = zhist_init(z0, g_ord)
+        traj = []
         for _ in range(cfg.Nt):
             ok = flag == 0
             v1 = v - dt / 2 * QdSdx
@@ -273,6 +279,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             hist = zhist_push(hist, z1, ok)
             iters = iters + torch.where(ok, it1, torch.zeros_like(it1))
             flag = torch.maximum(flag, torch.where(ok, fl1, torch.zeros_like(fl1)))
+            if cfg.log_verbose:
+                # per-timestep energies reusing the step's tol¹ solve
+                S_t, K_t = calc_S(params, x, Lphi1, z1), calc_K(v)
+                traj.append((S_t + K_t, S_t, K_t, it1))
 
         d1 = ops.derived(params, x)
         Lphi1 = lam_phi(params, x, phi)
@@ -293,6 +303,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         mean_iters = (iters + nsolves // 2) // nsolves
         stats = HMCStats(accepted=accept, iters=mean_iters, flag=flag, delta_H=dH,
                          H=H1, S=S1, K=K1)
+        if traj:
+            tH, tS, tK, tI = (torch.stack(col, dim=1) for col in zip(*traj))
+            stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
         return HMCState(x=x_new, v=v_new), stats
 
     return step

@@ -1,4 +1,5 @@
-"""Model-level linear-solve dispatch (CG through MᵀM).
+"""Model-level linear-solve dispatch (CG through MᵀM): z = (MᵀM)⁻¹·rhs for
+the HMC forces and actions, x = M⁻¹·rhs for the Green's-function probes.
 
 Counterpart of the CG path of ``elphdynamics_tpu/dynamics/solve.py``: with
 CG, systems are solved through the SPD operator MᵀM with the symmetric KPM
@@ -70,6 +71,20 @@ def _cg_operators(ops: ModelOps, params, derived, scfg: SolverConfig):
     """(in-loop, verification) MᵀM operators. Both are the full-precision
     operator here, so the verification operator is None (the loop's)."""
     return (lambda v: ops.mulMTM(params, derived, v)), None
+
+
+def solve_minv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
+               pa: PrecondApplies | None):
+    """x = M⁻¹·rhs for every leading index of ``rhs``, through CG on
+    MᵀM·x = Mᵀ·rhs (the Green's-function probes). Block CG over the probe
+    axis is ROADMAP slice E."""
+    scfg.check_ported()
+    b = ops.mulMT(params, derived, rhs)
+    hot, chk = _cg_operators(ops, params, derived, scfg)
+    return solvers.solve_checked(
+        hot, b, apply_P=pa.symmetric if pa else None,
+        tol=scfg.tol, maxiter=scfg.maxiter, kappa_max=scfg.kappa_max,
+        apply_A_check=chk)
 
 
 def solve_oinv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,

@@ -1,0 +1,131 @@
+"""Global Monte Carlo moves of the Holstein model: reflection and swap.
+
+Counterpart of ``elphdynamics_tpu/dynamics/special_updates.py``:
+
+* reflection: x_i(τ) → −x_i(τ) on a whole site worldline;
+* swap: exchange the worldlines of the two sites of a random bond.
+
+Each proposal is an exact Metropolis test: the pseudofermions are drawn
+afresh at the current configuration (so S₀ = Σ±|R±|²/2 + Sb exactly), the
+move is applied, the new action is evaluated with tol² solves, and the
+move is accepted or rejected. The moves of one call run in sequence, each
+on all chains at once (one batched solve per move).
+
+Random draws are explicit, as in :mod:`.hmc`: an update takes optional
+:class:`SpecialDraws`; without them it draws from its ``generator``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
+from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.utils.dtypes import fdot, pseudofermion_noise
+
+
+@dataclass(frozen=True)
+class SpecialUpdateConfig:
+    freq: int = 1       # apply every `freq` sampler updates (0 = never)
+    n_moves: int = 0    # sites (reflection) or bonds (swap) per call
+    tol: float = 1e-5
+    maxiter: int = 1000
+
+
+@dataclass(frozen=True)
+class SpecialDraws:
+    """The random numbers of one call of ``n_moves`` moves on C chains."""
+
+    picks: torch.Tensor          # [n_moves, C] site (reflection) or checkerboard bond (swap)
+    pseudofermion: torch.Tensor  # [n_moves, C, 2, N, Lτ] unit normals
+    uniform: torch.Tensor        # [n_moves, C] uniforms on [0, 1) (float64)
+
+
+def _eval_S(ops: ModelOps, params, x, phi, tol: float, maxiter: int, precond=None):
+    """S = Sb + Σ± (Λφ±)ᵀ(MᵀM)⁻¹(Λφ±)/2 per chain, and the solve's flag."""
+    derived = ops.derived(params, x)
+    Lphi = ops.mulLambda(ops.calc_Lambda(params, x)[:, None], phi)
+    pa = resolve_precond(precond, params, x)
+    sol = solve_oinv(ops, params, derived[:, None], Lphi,
+                     SolverConfig(tol=tol, maxiter=maxiter), pa)
+    S = fdot(Lphi, sol.x, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
+    return S, sol.flag.amax(dim=1)
+
+
+def _refresh_phi(ops: ModelOps, params, x, R):
+    """φ± = Λ⁻¹·Mᵀ·R± and the exact action S₀ = Σ±|R±|²/2 + Sb."""
+    derived = ops.derived(params, x)
+    MtR = ops.mulMT(params, derived[:, None], R)
+    phi = ops.mulLambdaInv(ops.calc_Lambda(params, x)[:, None], MtR)
+    S0 = fdot(R, R, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
+    return phi, S0
+
+
+def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, n_picks: int,
+                 propose, precond):
+    """The Metropolis loop shared by both moves: ``propose(x, picks)``
+    returns the moved fields for one ``[C]`` vector of picks."""
+
+    def update(params, x, generator: torch.Generator | None = None,
+               draws: SpecialDraws | None = None):
+        C = x.shape[0]
+        if n_moves == 0:
+            return x, torch.zeros(C, dtype=torch.float64, device=x.device)
+        if draws is None:
+            draws = SpecialDraws(
+                picks=torch.randint(0, n_picks, (n_moves, C), generator=generator,
+                                    device=x.device),
+                pseudofermion=torch.stack([
+                    pseudofermion_noise((C, ops.Nsites, ops.Ltau), x.dtype, x.device, generator)
+                    for _ in range(n_moves)]),
+                uniform=torch.rand((n_moves, C), generator=generator, dtype=torch.float64,
+                                   device=x.device))
+        accepted = torch.zeros(C, dtype=torch.int64, device=x.device)
+        for m in range(n_moves):
+            phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[m].to(x))
+            x_new = propose(x, draws.picks[m].to(x.device))
+            S1, flag = _eval_S(ops, params, x_new, phi, cfg.tol ** 2, cfg.maxiter, precond)
+            P = torch.clamp(torch.exp(-(S1 - S0)), max=1.0)
+            acc = (draws.uniform[m].to(P) < P) & (flag == 0)
+            x = torch.where(acc[:, None, None], x_new, x)
+            accepted = accepted + acc.to(torch.int64)
+        return x, accepted.to(torch.float64) / max(n_moves, 1)
+
+    return update
+
+
+def make_reflection_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
+    """Reflection x → −x on ``n_moves`` random sites per call. Returns
+    ``update(params, x, generator=None, draws=None) -> (x, acceptance [C])``."""
+    if not ops.is_holstein:
+        raise NotImplementedError("SSH special updates: ROADMAP slice C")
+
+    def propose(x, sites):
+        rows = torch.arange(x.shape[0], device=x.device)
+        x_new = x.clone()
+        x_new[rows, sites] = -x[rows, sites]
+        return x_new
+
+    return _make_update(ops, cfg, min(cfg.n_moves, ops.Nph), ops.Nph, propose, precond)
+
+
+def make_swap_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
+    """Swap the worldlines of the two sites of ``n_moves`` random bonds per
+    call (bonds in checkerboard order)."""
+    if not ops.is_holstein:
+        raise NotImplementedError("SSH special updates: ROADMAP slice C")
+    n_moves = cfg.n_moves if ops.spec.Nbonds > 0 else 0
+    table = torch.as_tensor(ops.spec.ckb.neighbor_table)
+
+    def propose(x, bonds):
+        rows = torch.arange(x.shape[0], device=x.device)
+        ends = table.to(x.device)[:, bonds]
+        i, j = ends[0], ends[1]
+        x_new = x.clone()
+        x_new[rows, i] = x[rows, j]
+        x_new[rows, j] = x[rows, i]
+        return x_new
+
+    return _make_update(ops, cfg, n_moves, ops.spec.Nbonds, propose, precond)

@@ -1,0 +1,256 @@
+"""TOML configuration: the same input files as the JAX package.
+
+Counterpart of ``elphdynamics_tpu/io/config.py`` for what the port runs:
+``[lattice]``, ``[holstein]``, ``[[fourier_acceleration]]``, ``[hmc]`` (with
+``[hmc.burnin]`` overrides and the reflection / swap updates),
+``[simulation]``, ``[solver]`` with CG and ``[solver.preconditioner]``,
+``[tune_density]`` and ``[measurements]``. Orbit indices are 1-based in the
+files and 0-based here.
+
+What the port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP slice: ``[ssh]`` (C), ``[langevin]`` (D), solvers other than CG and
+block CG (E), twisted boundaries and complex hopping (F), ``[tempering]``,
+``tune_dt`` and the 2MN integrator (G), ``[solver.deflation]`` and
+``[solver.nearnull]`` (I), and the inter-site correlations (B remainder).
+
+Disorder is drawn from ``numpy.random.default_rng(random_seed)`` in the
+JAX package's order, so one seed builds the same parameters in both.
+"""
+
+from __future__ import annotations
+
+import tomllib
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+from elphdynamics_tpu_torch.dynamics.special_updates import SpecialUpdateConfig
+from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+from elphdynamics_tpu_torch.measure.measurements import MeasurementSpec
+from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
+from elphdynamics_tpu_torch.models.holstein import build_holstein
+from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
+from elphdynamics_tpu_torch.ops.kpm import KPMConfig
+
+
+@dataclass
+class SimulationParams:
+    """Run parameters of the ``[simulation]`` and sampler tables."""
+
+    burnin: int
+    nsteps: int
+    meas_freq: int
+    num_bins: int
+    bin_size: int
+    chckpnt_freq_s: float
+    filepath: str
+    foldername: str
+    datafolder: str
+    write_M_matrix: bool = False
+    random_seed: int = 0
+
+    def __post_init__(self):
+        if self.nsteps % self.meas_freq != 0:
+            raise ValueError(f"simulation_updates {self.nsteps} is not a multiple of "
+                             f"meas_freq {self.meas_freq}")
+        if (self.nsteps // self.meas_freq) % self.num_bins != 0:
+            raise ValueError(f"{self.nsteps // self.meas_freq} measurements do not "
+                             f"split into {self.num_bins} bins")
+
+
+@dataclass
+class SimulationSetup:
+    """Everything a run needs, built from a parsed config."""
+
+    ops: ModelOps
+    params: Any
+    sim_params: SimulationParams
+    hmc_cfg: HMCConfig
+    hmc_burnin_cfg: HMCConfig
+    fa_mass: np.ndarray
+    solver_cfg: SolverConfig
+    kpm_cfg: KPMConfig | None
+    mspec: MeasurementSpec
+    reflect_cfg: SpecialUpdateConfig
+    swap_cfg: SpecialUpdateConfig
+    tune_density: dict | None
+    read_phonon_config: str | None
+    config: dict
+    device: torch.device
+    dtype: torch.dtype
+
+
+def load_toml(path: str) -> dict:
+    with open(path, "rb") as f:
+        return tomllib.load(f)
+
+
+def _not_ported(what: str, slice_: str):
+    return NotImplementedError(f"{what}: ROADMAP slice {slice_}")
+
+
+def _build_lattice(cfg: dict) -> Lattice:
+    lat = cfg["lattice"]
+    uc = UnitCell.create(lat["ndim"], lat["norbits"], lat["lattice_vectors"],
+                         lat["basis_vectors"])
+    return Lattice.create(uc, lat["L"])
+
+
+def _per_orbit(blocks) -> dict:
+    out = {}
+    for d in blocks:
+        for orbit in d["orbit"]:
+            out[orbit - 1] = (d["val"], d.get("stddev", 0.0))
+    return out
+
+
+def _dL(d) -> tuple:
+    return tuple(list(d["dL"]) + [0] * (3 - len(d["dL"])))
+
+
+def _build_model(cfg: dict, rng: np.random.Generator, dtype, device):
+    if "ssh" in cfg:
+        raise _not_ported("[ssh] (the optical SSH model)", "C")
+    h = cfg["holstein"]
+    if h.get("twist") is not None and any(h["twist"]):
+        raise _not_ported("[holstein] twist (twisted boundary conditions)", "F")
+    if any(d.get("imag", 0.0) for d in h.get("t", [])):
+        raise _not_ported("[[holstein.t]] imag (complex hopping)", "F")
+    t_assign = [(d["val"], d.get("stddev", 0.0), d["orbit"][0] - 1, d["orbit"][1] - 1, _dL(d))
+                for d in h.get("t", [])]
+    wij_assign = [(d["val"], d.get("stddev", 0.0), int(d.get("sign", 1)), d["orbit"][0] - 1,
+                   d["orbit"][1] - 1, _dL(d)) for d in h.get("omega_ij", [])]
+    per_orbit = {name: _per_orbit(h.get(key, []))
+                 for name, key in (("omega", "omega"), ("mu", "mu"), ("lambda", "lambda"),
+                                   ("lambda2", "lambda2"), ("omega4", "omega4"))}
+    spec, params = build_holstein(
+        _build_lattice(cfg), h["beta"], h["dtau"], t_assignments=t_assign,
+        wij_assignments=wij_assign, per_orbit={k: v for k, v in per_orbit.items() if v},
+        rng=rng, dtype=dtype, device=device)
+    return spec, params
+
+
+def _measurement_spec(cfg: dict) -> MeasurementSpec:
+    m = cfg.get("measurements", {})
+
+    def corr_list(kinds):
+        out = []
+        for kind in kinds:
+            info = m.get(kind)
+            if info and info.get("measure", False):
+                pairs = info.get("pairs")
+                if pairs is not None:
+                    pairs = tuple((int(a) - 1, int(b) - 1) for a, b in pairs)
+                out.append((kind, bool(info.get("time_dependent", False)), pairs))
+        return tuple(out)
+
+    # PhononGreens is on-site for Holstein (site phonons)
+    mspec = MeasurementSpec(
+        nv=m.get("num_random_vectors", 10),
+        onsite_corr=corr_list(("Greens", "DenDen", "SpinSpin", "PairGreens", "PhononGreens")),
+        intersite_corr=corr_list(("BondBond", "CurrentCurrent", "BondPairGreens")),
+        snapshots=tuple(k for k, v in m.get("Snapshots", {}).items() if v))
+    mspec.check_ported()
+    return mspec
+
+
+def _hmc_config(h: dict, b: dict, solver: SolverConfig) -> HMCConfig:
+    """The sampling ``[hmc]`` config (``b`` empty) or its ``[hmc.burnin]``
+    overrides."""
+    cfg = HMCConfig(
+        dt=b.get("dt", h["dt"]),
+        trajectory_time=b.get("trajectory_time", h["trajectory_time"]),
+        alpha=b.get("momentum_conservation_fraction", h.get("momentum_conservation_fraction", 0.0)),
+        Nb=b.get("num_multitimesteps", h.get("num_multitimesteps", 1)),
+        tol=solver.tol, maxiter=solver.maxiter, solver_kind=solver.kind, block=solver.block,
+        loop_precision=solver.loop_precision,
+        integrator=str(b.get("integrator", h.get("integrator", "leapfrog"))).lower(),
+        log_verbose=bool(h.get("verbose", False)),
+        construct_guess=bool(h.get("construct_guess", False)),
+        guess_order=int(h.get("guess_order", 3)),
+        tune_dt=bool(b.get("tune_dt", h.get("tune_dt", False))))
+    cfg.check_ported()
+    return cfg
+
+
+def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> SimulationSetup:
+    """Every simulation object of a parsed config, with the model's tensors
+    on ``device`` in ``dtype``."""
+    if "langevin" in cfg:
+        raise _not_ported("[langevin] (Langevin dynamics)", "D")
+    if "hmc" not in cfg:
+        raise ValueError("the config needs an [hmc] table")
+    if ("holstein" in cfg) == ("ssh" in cfg):
+        raise ValueError("the config needs exactly one of [holstein] / [ssh]")
+    if "tempering" in cfg:
+        raise _not_ported("[tempering] (parallel tempering)", "G")
+    device = torch.device(device)
+
+    sim = cfg["simulation"]
+    seed = sim.get("random_seed", np.random.SeedSequence().entropy % (2 ** 31))
+    rng = np.random.default_rng(seed)
+    spec, params = _build_model(cfg, rng, dtype, device)
+    ops = make_model_ops(spec)
+
+    h = cfg["hmc"]
+    nsteps = h["simulation_updates"]
+    meas_freq = h["meas_freq"]
+    num_bins = sim["num_bins"]
+    sim_params = SimulationParams(
+        burnin=h["burnin_updates"], nsteps=nsteps, meas_freq=meas_freq, num_bins=num_bins,
+        bin_size=(nsteps // meas_freq) // num_bins,
+        chckpnt_freq_s=60.0 * sim.get("checkpoint_freq", 10),
+        filepath=sim.get("filepath", "."), foldername=sim.get("foldername", "run"),
+        datafolder=datafolder, write_M_matrix=sim.get("write_M_matrix", False),
+        random_seed=int(seed))
+
+    sol = cfg["solver"]
+    if "nearnull" in sol:
+        raise _not_ported("[solver.nearnull] (near-null preconditioner)", "I")
+    if int(sol.get("deflation", {}).get("k", 0)) > 0:
+        raise _not_ported("[solver.deflation] (slow-mode deflation)", "I")
+    solver_cfg = SolverConfig(tol=sol.get("tol", 1e-5), maxiter=sol.get("maxiter", 1000),
+                              kind=sol.get("type", "CG").lower(),
+                              block=bool(sol.get("block", False)),
+                              loop_precision=sol.get("loop_precision", "high"))
+    solver_cfg.check_ported()
+    kpm_cfg = None
+    if "preconditioner" in sol:
+        p = sol["preconditioner"]
+        kpm_cfg = KPMConfig(n_power=p.get("n", 20), buf=p.get("buf", 0.05),
+                            c1=p.get("c1", 1.0), c2=p.get("c2", 1.0),
+                            max_order=p.get("max_order", 64),
+                            dft_matmul=p.get("dft_matmul", None),
+                            stacked=p.get("stacked", False),
+                            exact_lowfreq=int(p.get("exact_lowfreq", 0)))
+        kpm_cfg.check_ported()
+
+    omega = params.omega.detach().cpu().double().numpy()
+    fa_mass = build_mass(omega, spec.dtau, spec.Ltau, cfg.get("fourier_acceleration", []))
+
+    hmc_cfg = _hmc_config(h, {}, solver_cfg)
+    hmc_burnin_cfg = _hmc_config(h, h.get("burnin", {}), solver_cfg)
+    reflect_cfg = swap_cfg = SpecialUpdateConfig(freq=0, n_moves=0)
+    if "reflection_update" in h:
+        reflect_cfg = SpecialUpdateConfig(freq=h["reflection_update"]["freq"],
+                                          n_moves=h["reflection_update"]["nsites"],
+                                          tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
+    if "swap_update" in h:
+        swap_cfg = SpecialUpdateConfig(freq=h["swap_update"]["freq"],
+                                       n_moves=h["swap_update"]["nbonds"],
+                                       tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
+
+    mspec = _measurement_spec(cfg)
+    model_cfg = cfg["holstein"]
+    return SimulationSetup(
+        ops=ops, params=params, sim_params=sim_params, hmc_cfg=hmc_cfg,
+        hmc_burnin_cfg=hmc_burnin_cfg, fa_mass=fa_mass,
+        solver_cfg=solver_cfg, kpm_cfg=kpm_cfg, mspec=mspec, reflect_cfg=reflect_cfg,
+        swap_cfg=swap_cfg, tune_density=cfg.get("tune_density"),
+        read_phonon_config=(model_cfg.get("phonon_config_file")
+                            if model_cfg.get("read_phonon_config", False) else None),
+        config=cfg, device=device, dtype=dtype)

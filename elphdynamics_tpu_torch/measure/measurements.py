@@ -1,0 +1,342 @@
+"""Observable measurements, binning and post-processing.
+
+Counterpart of ``elphdynamics_tpu/measure/measurements.py`` for the Holstein
+model with real hopping. The measurement step accumulates per sampler
+sweep:
+
+* global: density, ⟨N̂²⟩, μ;
+* on-site per orbital: density, double occupancy, μ, ⟨x⟩, ⟨x²⟩, ⟨x⁴⟩,
+  phonon kinetic and potential energy, electron-phonon energy;
+* inter-site per bond definition: electron kinetic energy;
+* on-site correlations: Greens, DenDen, SpinSpin, PairGreens, PhononGreens
+  with their τ=β boundary identities;
+* snapshots: density, double occupancy, phonon position.
+
+Every accumulated quantity is linear in the pair-summed estimator tensors
+(:mod:`.greens`), so the step assembles everything once from those and from
+per-probe sums:
+
+    Σ_{i<j}(aᵢ + aⱼ) = (nᵥ−1)·Σᵢaᵢ,
+    Σ_{i<j} aᵢ·bⱼ + aⱼ·bᵢ = (Σa)(Σb) − Σᵢaᵢbᵢ.
+
+Chains: the step measures every chain of a ``[C, N, Lτ]`` batch;
+:func:`mean_over_chains` then averages the increments over the chains whose
+probe solves succeeded. Per bin, :func:`process_bin` normalises, moves the
+correlations to momentum space and integrates the susceptibilities.
+
+The inter-site correlations (BondBond, CurrentCurrent, BondPairGreens;
+``measure/intersite_corr.py`` of the JAX package) are not ported: they
+raise, naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+from elphdynamics_tpu_torch.measure import greens as G
+from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.utils.math import simpson
+
+ONSITE_CORR_KINDS = ("Greens", "DenDen", "SpinSpin", "PairGreens", "PhononGreens")
+SUSC_MAP = {"PairGreens": "PairSusc", "DenDen": "ChargeSusc", "SpinSpin": "SpinSusc",
+            "BondPairGreens": "BondPairSusc"}
+
+
+@dataclass(frozen=True)
+class MeasurementSpec:
+    """Static measurement configuration (the ``[measurements]`` table).
+    ``onsite_corr`` / ``intersite_corr`` hold ``(kind, time_dependent[,
+    pairs])`` entries."""
+
+    nv: int = 10
+    onsite_corr: tuple = ()
+    intersite_corr: tuple = ()
+    onsite_pairs: tuple | None = None      # orbital pairs; None = all
+    intersite_pairs: tuple | None = None
+    snapshots: tuple = ()        # subset of (density, double_occupancy, phonon_position)
+
+    def check_ported(self) -> None:
+        if self.intersite_corr:
+            kinds = ", ".join(e[0] for e in self.intersite_corr)
+            raise NotImplementedError(
+                f"inter-site correlations ({kinds}; measure/intersite_corr.py): "
+                "ROADMAP slice B remainder")
+        unknown = [e[0] for e in self.onsite_corr if e[0] not in ONSITE_CORR_KINDS]
+        if unknown:
+            raise ValueError(f"unknown on-site correlation kinds {unknown}")
+
+
+def _corr_pairs(n, explicit):
+    if explicit is not None:
+        return np.asarray(explicit, dtype=np.int64).reshape(-1, 2)
+    return np.asarray([(i, j) for i in range(n) for j in range(n)], dtype=np.int64)
+
+
+def _normalize_kinds(entries):
+    """(kind, td[, pairs]) tuples -> {kind: (td, pairs_or_None)}."""
+    return {e[0]: (e[1], e[2] if len(e) > 2 else None) for e in entries}
+
+
+def _container_shapes(ops: ModelOps, mspec: MeasurementSpec) -> dict:
+    lat = ops.spec.lattice
+    no = lat.unit_cell.norbits
+    shapes: dict[str, Any] = {"global": {"density": (), "Nsqr": (), "mu": ()}}
+    shapes["onsite"] = {k: (no,) for k in ("density", "double_occ", "mu", "x", "x2", "x4",
+                                           "phonon_ke", "phonon_pe", "elph_energy")}
+    shapes["intersite"] = {"el_ke": (len(ops.spec.bond_defs),)}
+    shapes["onsite_corr"] = {
+        kind: (len(_corr_pairs(no, kp if kp is not None else mspec.onsite_pairs)),
+               lat.L1, lat.L2, lat.L3, (ops.Ltau + 1) if td else 1)
+        for kind, (td, kp) in _normalize_kinds(mspec.onsite_corr).items()}
+    shapes["intersite_corr"] = {}
+    return shapes
+
+
+def complex_of(dtype: torch.dtype) -> torch.dtype:
+    return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def zero_container(ops: ModelOps, mspec: MeasurementSpec, dtype: torch.dtype, device) -> dict:
+    """The bin accumulator: real groups in ``dtype``, correlations in its
+    complex type, on ``device``."""
+    out = {}
+    for group, shapes in _container_shapes(ops, mspec).items():
+        dt = complex_of(dtype) if group.endswith("_corr") else dtype
+        out[group] = {k: torch.zeros(v, dtype=dt, device=device) for k, v in shapes.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the measurement step
+# ---------------------------------------------------------------------------
+
+def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
+                          scfg: SolverConfig = SolverConfig(), precond=None):
+    """Build ``step(params, x, generator=None, R=None) -> (increments,
+    stats, snapshots)`` for fields ``x`` ``[C, N, Lτ]``: every increment
+    and snapshot has a leading chain axis; ``stats`` holds the per-chain
+    ``iters`` and ``flag`` of the probe solves. ``R`` injects the probes.
+    ``step.analyze(params, x, gd)`` is everything after the solves."""
+    if not ops.is_holstein:
+        raise NotImplementedError("SSH measurements: ROADMAP slice C")
+    mspec.check_ported()
+    lat = ops.spec.lattice
+    spec = ops.spec
+    no = lat.unit_cell.norbits
+    Lt = ops.Ltau
+    nv = mspec.nv
+    n_pairs = nv * (nv - 1) // 2
+    norm_site = lat.ncells * Lt
+    ndefs = len(spec.bond_defs)
+    onsite_pairs = _corr_pairs(no, mspec.onsite_pairs)
+    onsite_kinds = _normalize_kinds(mspec.onsite_corr)
+
+    def kind_pairs(kind):
+        td, kp = onsite_kinds[kind]
+        return td, (_corr_pairs(no, kp) if kp is not None else onsite_pairs)
+
+    def analyze(params, x, gd: G.GreensData):
+        dev, dt = x.device, x.dtype
+        C = x.shape[0]
+        site_orbit = torch.as_tensor(lat.site_to_orbit, device=dev)
+
+        def orbit_sum(f):
+            """[C, N, Lτ] -> per-orbital totals [C, nₒ]."""
+            tot = f.sum(dim=-1)
+            return torch.zeros((C, no), dtype=tot.dtype, device=dev).index_add(1, site_orbit, tot)
+
+        def chains(v):
+            return v.expand((C,) + tuple(v.shape))
+
+        R, MinvR = gd.R, gd.MinvR
+        pt = G.pair_tensor_sums(lat, R, MinvR)
+        out: dict[str, Any] = {"global": {}, "onsite": {}, "intersite": {},
+                               "onsite_corr": {}, "intersite_corr": {}}
+
+        # per-probe diagonal estimates Gᵢ(s, τ) = (M⁻¹rᵢ ⊙ rᵢ)(s, τ)
+        Gdiag = MinvR * R                             # [C, nv, N, Lt]
+        TrG = Gdiag.sum(dim=(-2, -1)) / Lt            # [C, nv]
+        N_per_vec = 2.0 * (spec.Nsites - TrG)
+
+        # ---- global
+        out["global"]["density"] = (nv - 1) / 2.0 * N_per_vec.sum(dim=-1) / spec.Nsites
+        sumN = N_per_vec.sum(dim=-1)
+        NN = (sumN ** 2 - (N_per_vec ** 2).sum(dim=-1)) / 2.0
+        g0d_sum = pt.G0D_GD0[..., 0].real.sum(dim=tuple(range(1, pt.G0D_GD0.ndim - 1)))
+        out["global"]["Nsqr"] = (NN + (nv - 1) * TrG.sum(dim=-1)
+                                 - 2.0 * (spec.Nsites / no) * g0d_sum)
+        out["global"]["mu"] = chains(n_pairs * params.mu.mean())
+
+        # ---- on-site
+        one_minus_G = 1.0 - Gdiag
+        sum1mG = one_minus_G.sum(dim=1)               # [C, N, Lt]
+        dens_site = (nv - 1) * sum1mG
+        docc_site = (sum1mG.abs() ** 2 - (one_minus_G.abs() ** 2).sum(dim=1)) / 2.0
+        out["onsite"]["density"] = orbit_sum(dens_site) / norm_site
+        out["onsite"]["double_occ"] = orbit_sum(docc_site) / norm_site
+        out["onsite"]["mu"] = n_pairs * orbit_sum(chains(params.mu[:, None].expand(-1, Lt))) / norm_site
+        dtau = spec.dtau
+        dx = torch.roll(x, -1, dims=-1) - x
+        ke = 0.5 / dtau - dx ** 2 / (2 * dtau ** 2)
+        pe = (params.omega ** 2)[:, None] * x ** 2 / 2 + params.omega4[:, None] * x ** 4
+        out["onsite"]["x"] = n_pairs * orbit_sum(x) / norm_site
+        out["onsite"]["x2"] = n_pairs * orbit_sum(x ** 2) / norm_site
+        out["onsite"]["x4"] = n_pairs * orbit_sum(x ** 4) / norm_site
+        out["onsite"]["phonon_ke"] = n_pairs * orbit_sum(ke) / norm_site
+        out["onsite"]["phonon_pe"] = n_pairs * orbit_sum(pe) / norm_site
+        # λ⟨x(n₊+n₋)⟩: Σpairs λx(2−G₁−G₂) = λx[2·n_pairs − (nv−1)ΣᵢGᵢ]
+        elph = params.lam[:, None] * x * (2.0 * n_pairs - (nv - 1) * Gdiag.sum(dim=1))
+        out["onsite"]["elph_energy"] = orbit_sum(elph) / norm_site
+
+        # ---- inter-site: bond kinetic energy per definition
+        el_ke = torch.zeros((C, ndefs), dtype=dt, device=dev)
+        if spec.Nbonds > 0:
+            s1 = torch.as_tensor(spec.ckb.neighbor_table[0][spec.bond_to_ckb], device=dev)
+            s2 = torch.as_tensor(spec.ckb.neighbor_table[1][spec.bond_to_ckb], device=dev)
+            bdef = torch.as_tensor(spec.bond_def_of_bond, device=dev)
+            est_12 = MinvR.index_select(-2, s1) * R.index_select(-2, s2)
+            est_21 = MinvR.index_select(-2, s2) * R.index_select(-2, s1)
+            h = -(nv - 1) * (est_12 + est_21).sum(dim=1)          # [C, Nbonds, Lt]
+            ke_b = -params.t[:, None] * h
+            el_ke = el_ke.index_add(1, bdef, ke_b.sum(dim=-1)) / (lat.ncells * Lt)
+        out["intersite"]["el_ke"] = el_ke
+
+        # ---- on-site correlations
+        def oslices(pairs):
+            o1 = torch.as_tensor(pairs[:, 0], device=dev)
+            o2 = torch.as_tensor(pairs[:, 1], device=dev)
+
+            def at0(A, a, b):
+                return A[:, a, b, 0, 0, 0, 0][:, :, None, None, None]
+
+            delta_r = torch.zeros(pt.G.shape[3:6], dtype=dt, device=dev)
+            delta_r[0, 0, 0] = 1.0
+            same = torch.as_tensor(pairs[:, 0] == pairs[:, 1], device=dev)
+            return {"o1": o1, "o2": o2, "Gp": pt.G[:, o2, o1], "GGp": pt.GG[:, o2, o1],
+                    "GDDp": pt.GDD_G00[:, o2, o1], "G0Dp": pt.G0D_GD0[:, o2, o1],
+                    "G_o2o2_00": at0(pt.G, o2, o2), "G_o1o1_00": at0(pt.G, o1, o1),
+                    "G_o2o1_00": at0(pt.G, o2, o1),
+                    "delta": same[:, None, None, None].to(dt) * delta_r[None]}
+
+        def tslice(A, td):
+            """[C, np, l..., 2Lt] -> [C, np, l..., Lt(+1)] with τ=β = τ=0."""
+            return torch.cat([A[..., :Lt], A[..., :1]], dim=-1) if td else A[..., :1]
+
+        delta_t0 = torch.zeros(2 * Lt, dtype=dt, device=dev)
+        delta_t0[0] = 1.0
+        if "Greens" in onsite_kinds:
+            td, kp = kind_pairs("Greens")
+            sl = oslices(kp)
+            main = sl["Gp"][..., :Lt] if td else sl["Gp"][..., :1]
+            if td:
+                # G(β) = δᵣ − G(0), per-pair sum: δ → n_pairs·δ
+                beta = (n_pairs * sl["delta"] - sl["Gp"][..., 0])[..., None]
+                main = torch.cat([main, beta], dim=-1)
+            out["onsite_corr"]["Greens"] = main
+        if "DenDen" in onsite_kinds:
+            td, kp = kind_pairs("DenDen")
+            sl = oslices(kp)
+            dd = 4.0 * (n_pairs - sl["G_o2o2_00"][..., None] - sl["G_o1o1_00"][..., None]
+                        + sl["GDDp"]
+                        + 0.5 * (sl["delta"][..., None] * delta_t0
+                                 * sl["G_o2o1_00"][..., None] - sl["G0Dp"]))
+            out["onsite_corr"]["DenDen"] = tslice(dd, td)
+        if "SpinSpin" in onsite_kinds:
+            td, kp = kind_pairs("SpinSpin")
+            sl = oslices(kp)
+            ss = (-2.0 * sl["G0Dp"]
+                  + 2.0 * sl["delta"][..., None] * delta_t0 * sl["G_o2o1_00"][..., None])
+            if td:
+                # τ=β: swapped orbitals, negated displacement
+                o1, o2 = sl["o1"], sl["o2"]
+                neg = G._neg_index(pt.G0D_GD0[:, o1, o2][..., 0], (-3, -2, -1))
+                G_sw_00 = pt.G[:, o1, o2, 0, 0, 0, 0][:, :, None, None, None]
+                beta = -2.0 * neg + 2.0 * sl["delta"] * G_sw_00
+                ss = torch.cat([ss[..., :Lt], beta[..., None]], dim=-1)
+            else:
+                ss = ss[..., :1]
+            out["onsite_corr"]["SpinSpin"] = ss
+        if "PairGreens" in onsite_kinds:
+            td, kp = kind_pairs("PairGreens")
+            sl = oslices(kp)
+            pg = sl["GGp"]
+            if td:
+                beta = pg[..., 0] + sl["delta"] * (n_pairs - 2.0 * sl["G_o1o1_00"].real)
+                pg = torch.cat([pg[..., :Lt], beta[..., None]], dim=-1)
+            else:
+                pg = pg[..., :1]
+            out["onsite_corr"]["PairGreens"] = pg
+        if "PhononGreens" in onsite_kinds:
+            td, kp = kind_pairs("PhononGreens")
+            xc = G.to_cell_layout(lat, x).to(complex_of(dt))     # [C, no, L1, L2, L3, Lt]
+            xx = n_pairs * G.translational_average(
+                xc[:, torch.as_tensor(kp[:, 0], device=dev)],
+                xc[:, torch.as_tensor(kp[:, 1], device=dev)])
+            out["onsite_corr"]["PhononGreens"] = (torch.cat([xx, xx[..., :1]], dim=-1)
+                                                  if td else xx[..., :1])
+
+        # ---- snapshots: per-site instantaneous estimates
+        snaps = {}
+        if "density" in mspec.snapshots or "double_occupancy" in mspec.snapshots:
+            Gsite = Gdiag.mean(dim=(1, -1))          # [C, N]
+            if "density" in mspec.snapshots:
+                snaps["density"] = 2.0 * (1.0 - Gsite)
+            if "double_occupancy" in mspec.snapshots:
+                snaps["double_occupancy"] = (1.0 - Gsite).abs() ** 2
+        if "phonon_position" in mspec.snapshots:
+            snaps["phonon_position"] = x.mean(dim=-1)
+        return out, {"iters": gd.iters, "flag": gd.flag}, snaps
+
+    def step(params, x, generator: torch.Generator | None = None, R=None):
+        gd = G.sample_greens(ops, params, x, nv, scfg, precond, generator, R)
+        return analyze(params, x, gd)
+
+    step.analyze = analyze
+    return step
+
+
+def mean_over_chains(inc: dict, snaps: dict, flag: torch.Tensor):
+    """Average per-chain increments over the chains whose probe solves
+    succeeded (all chains when none did), and take the snapshots of the
+    first such chain. Stays on the device."""
+    ok = flag == 0
+    any_ok = ok.any()
+    w = ok.to(torch.float64)
+    denom = torch.clamp(w.sum(), min=1.0)
+    first_ok = torch.argmax(ok.to(torch.int32))
+
+    def chain_mean(a):
+        wa = w.reshape((-1,) + (1,) * (a.ndim - 1)).to(a.dtype)
+        return torch.where(any_ok, (a * wa).sum(dim=0) / denom.to(a.dtype), a.mean(dim=0))
+
+    mean = {group: {k: chain_mean(v) for k, v in vals.items()} for group, vals in inc.items()}
+    return mean, {k: v[first_ok] for k, v in snaps.items()}
+
+
+# ---------------------------------------------------------------------------
+# bin post-processing
+# ---------------------------------------------------------------------------
+
+def process_bin(ops: ModelOps, mspec: MeasurementSpec, container: dict, bin_size: int) -> dict:
+    """Normalise by bin_size·C(nᵥ,2), transform the correlations to
+    momentum space and Simpson-integrate the susceptibilities over τ."""
+    nv = mspec.nv
+    V = bin_size * (nv * (nv - 1) // 2)
+    out = {group: {k: v / V for k, v in container[group].items()}
+           for group in ("global", "onsite", "intersite")}
+    out.update(onsite_corr={}, intersite_corr={}, onsite_susc={}, intersite_susc={})
+    for group, sgroup in (("onsite_corr", "onsite_susc"), ("intersite_corr", "intersite_susc")):
+        for kind, pos in container[group].items():
+            pos = pos / V
+            mom = torch.fft.fftn(pos, dim=(1, 2, 3))
+            out[group][kind] = {"position": pos, "momentum": mom}
+            if kind in SUSC_MAP and pos.shape[-1] > 1:
+                out[sgroup][SUSC_MAP[kind]] = {
+                    "position": simpson(torch.movedim(pos, -1, 0), ops.dtau),
+                    "momentum": simpson(torch.movedim(mom, -1, 0), ops.dtau)}
+    return out

@@ -16,9 +16,11 @@ over the groups:
 * inverse-transpose = forward order, −s
 
 The host-side parts (grouping, spec, dense assembly) are numpy. The torch
-fold :func:`_apply_groups` is the plain twin of the CUDA kernel in
-``csrc/ckb_fold.cu`` (:mod:`.ckb_cuda`): the tests compare it with the JAX
-package, and the kernel is compared with it on the card. Real hopping only
+fold :func:`fold` is the plain twin of the CUDA kernel in
+``csrc/ckb_fold.cu``, and :func:`fold_fused` that of the fused Chebyshev
+step in ``csrc/ckb_fold_fused.cu`` (:mod:`.ckb_cuda`): the tests compare
+them with the JAX package, and the kernels are compared with them on the
+card. Real hopping only
 (per-bond ``[Nb]`` coefficients); the complex ``conj(s)`` convention and
 per-(bond, τ) coefficients belong to later slices.
 """
@@ -183,6 +185,39 @@ def fold(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
     kernel, with the kernel's signature."""
     order = range(spec.ngroups - 1, -1, -1) if reverse else range(spec.ngroups)
     return _apply_groups(spec, cosh_b, sinh_b, v, order, sign)
+
+
+def n_chains(v: torch.Tensor) -> int:
+    """Chains of a ``[C, ..., N, K]`` field; an ``[N, K]`` block is one."""
+    return v.shape[0] if v.ndim >= 3 else 1
+
+
+def fold_fused(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
+               sign: float = 1.0, pre=None, post=None, a=1.0, b=0.0, c: float = 0.0,
+               prev=None):
+    """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev``: the
+    plain twin of the fused CUDA kernel (``csrc/ckb_fold_fused.cu``), with
+    its signature. ``v`` is ``[C, ..., N, K]`` (``[N, K]`` is one chain);
+    ``a``, ``b`` are numbers or per-chain ``[C]``; ``pre``/``post`` are
+    per-chain site diagonals ``[C, N]`` (or ``[N]``) or None; ``c`` is a
+    number and ``prev`` a field of ``v``'s shape or None."""
+    C = n_chains(v)
+    v4 = v.reshape(C, -1, *v.shape[-2:])
+
+    def chain(t):
+        return t.reshape(-1, 1, 1, 1) if torch.is_tensor(t) else t
+
+    def diag(d):
+        return d.reshape(-1, 1, d.shape[-1], 1)
+
+    u = v4 if pre is None else diag(pre) * v4
+    f = fold(spec, cosh_b, sinh_b, u, reverse=reverse, sign=sign)
+    if post is not None:
+        f = diag(post) * f
+    o = chain(a) * f + chain(b) * v4
+    if prev is not None:
+        o = o + c * prev.reshape(v4.shape)
+    return o.reshape(v.shape)
 
 
 def dense_matrix(spec: CheckerboardSpec, cosh_b, sinh_b, inverse: bool = False) -> np.ndarray:

@@ -1,20 +1,27 @@
-"""The checkerboard fold as a hand-written CUDA kernel (``csrc/ckb_fold.cu``).
+"""The checkerboard fold and the fused Chebyshev step as hand-written CUDA
+kernels (``csrc/ckb_fold.cu``, ``csrc/ckb_fold_fused.cu``).
 
-Replaces the Pallas TPU kernel ``elphdynamics_tpu/ops/ckb_pallas.py:
-_fold_kernel`` (driven by ``fold_2d``; wrappers ``ckb_mul``,
-``ckb_transpose_mul``, ``ckb_inverse_mul``, ``ckb_inverse_transpose_mul``).
-The fold is bound by device-memory bytes: the plain twin
-(:func:`..checkerboard.fold`) makes one read and one write of the field per
-bond group, the kernel one of each per fold, because it holds a ``[N, kt]``
-slab of the field in shared memory across all groups.
+* :func:`fold` replaces the Pallas TPU kernel ``elphdynamics_tpu/ops/
+  ckb_pallas.py:_fold_kernel`` (driven by ``fold_2d``; wrappers ``ckb_mul``,
+  ``ckb_transpose_mul``, ``ckb_inverse_mul``, ``ckb_inverse_transpose_mul``).
+  The fold is bound by device-memory bytes: the plain twin
+  (:func:`..checkerboard.fold`) makes one read and one write of the field
+  per bond group, the kernel one of each per fold, because it holds a
+  ``[N, kt]`` slab of the field in shared memory across all groups.
+* :func:`fold_fused` replaces ``ckb_pallas.py:_fold_fused_kernel`` (driven
+  by ``fold_kn_fused``): one KPM Chebyshev step
+  ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` in one pass, per-chain ``a``,
+  ``b``, ``pre``, ``post``. Its plain twin is
+  :func:`..checkerboard.fold_fused`.
 
-The library is built from the repository's source by ``nvcc`` at first use
-(``-gencode arch=compute_90a,code=sm_90a``) into ``elphdynamics_tpu_torch/
-build/``, keyed by a hash of the source, and loaded with ``ctypes``.
+Each source is built by ``nvcc`` at first use (``-gencode
+arch=compute_90a,code=sm_90a``) into its own shared library under
+``elphdynamics_tpu_torch/build/``, keyed by a hash of the source and the
+shared header, all compilers started together, and loaded with ``ctypes``.
 
 Dispatch is by the tensor's device only: a CPU tensor goes to the plain
-twin; a CUDA tensor launches the kernel or raises. ``launches`` counts
-kernel launches (never twin calls).
+twin; a CUDA tensor launches the kernel or raises. ``launches`` and
+``fused_launches`` count kernel launches (never twin calls).
 """
 
 from __future__ import annotations
@@ -31,16 +38,19 @@ import torch
 
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
 
-# kernel launches since import (or since a caller last set it to 0)
+# kernel launches since import (or since a caller last set them to 0)
 launches = 0
+fused_launches = 0
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ckb_fold.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"ckb_fold": CSRC / "ckb_fold.cu", "ckb_fold_fused": CSRC / "ckb_fold_fused.cu"}
+HEADERS = (CSRC / "ckb_fold_groups.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 THREADS = 1024
 
-_lib = None
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -50,45 +60,65 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.is_file():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA checkerboard kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA checkerboard kernels cannot be built")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/ckb_fold.cu`` (if not already built for this source)
-    and return the shared library's path."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libckb_fold_{digest}.so"
-    if so.is_file():
-        return so
+def _library(name: str) -> Path:
+    """Where the library of source ``name`` is built for its current text."""
+    text = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(verbose: bool = False) -> dict[str, Path]:
+    """Compile every source not yet built for its current text, one ``nvcc``
+    per source, all started together; return ``{name: library path}``."""
+    todo = {name: _library(name) for name in SOURCES}
+    missing = [name for name, so in todo.items() if not so.is_file()]
+    if not missing:
+        return todo
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, so)
-    return so
+    procs = {}
+    for name in missing:
+        tmp = todo[name].with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(err.strip())
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return todo
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ckb_smem_optin.argtypes = [i32]
-        lib.ckb_smem_optin.restype = i32
-        for name in ("ckb_fold_f32", "ckb_fold_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = ([ptr] * 7 + [i32, i32, ctypes.c_double]
-                           + [i32] * 5 + [ptr])
-            fn.restype = i32
-        _lib = lib
-    return _lib
+def _load(name: str):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build()[name]))
+        ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        if name == "ckb_fold":
+            lib.ckb_smem_optin.argtypes = [i32]
+            lib.ckb_smem_optin.restype = i32
+            sigs = {fn: [ptr] * 7 + [i32, i32, f64] + [i32] * 5 + [ptr]
+                    for fn in ("ckb_fold_f32", "ckb_fold_f64")}
+        else:
+            sigs = {fn: [ptr] * 8 + [i32, i32, f64] + [ptr] * 4 + [f64] + [i32] * 6 + [ptr]
+                    for fn in ("ckb_fold_fused_f32", "ckb_fold_fused_f64")}
+        for fn, argtypes in sigs.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = i32
+        _libs[name] = lib
+    return lib
 
 
 def _device_tables(spec: ckb.CheckerboardSpec, device: torch.device):
@@ -117,10 +147,10 @@ def choose_tile(B: int, N: int, K: int, itemsize: int, smem_bytes: int,
     return math.ceil(K / n_tiles)
 
 
-def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor:
-    global launches
+def _check(spec, cosh_b, sinh_b, v) -> None:
+    """Raise on what the kernels do not take."""
     if v.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ckb fold kernel takes float32/float64, got {v.dtype}")
+        raise TypeError(f"ckb fold kernels take float32/float64, got {v.dtype}")
     for name, t in (("cosh_b", cosh_b), ("sinh_b", sinh_b)):
         if t.device != v.device or t.dtype != v.dtype or t.shape != (spec.nbonds,):
             raise ValueError(f"{name} must be [{spec.nbonds}] {v.dtype} on {v.device}, "
@@ -131,20 +161,30 @@ def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor
         raise ValueError(f"field must be [..., {spec.nsites}, K], got {tuple(v.shape)}")
     if not v.is_contiguous():
         raise ValueError("field must be contiguous")
+
+
+def _geometry(spec, v):
+    """(device index, B, N, K, kt, bond tables) of a launch on ``v``."""
     N, K = v.shape[-2:]
     B = math.prod(v.shape[:-2])
-    out = torch.empty_like(v)
-    if v.numel() == 0 or spec.ngroups == 0:
-        out.copy_(v)
-        return out
-    lib = _load()
     dev = v.device.index if v.device.index is not None else torch.cuda.current_device()
-    smem = lib.ckb_smem_optin(dev)
+    smem = _load("ckb_fold").ckb_smem_optin(dev)
     if smem <= 0:
         raise RuntimeError(f"cudaDeviceGetAttribute failed ({-smem})")
     kt = choose_tile(B, N, K, v.element_size(), smem,
                      torch.cuda.get_device_properties(dev).multi_processor_count)
-    bi, bj, goff = _device_tables(spec, v.device)
+    return dev, B, N, K, kt, _device_tables(spec, v.device)
+
+
+def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor:
+    global launches
+    _check(spec, cosh_b, sinh_b, v)
+    out = torch.empty_like(v)
+    if v.numel() == 0 or spec.ngroups == 0:
+        out.copy_(v)
+        return out
+    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v)
+    lib = _load("ckb_fold")
     fn = lib.ckb_fold_f32 if v.dtype == torch.float32 else lib.ckb_fold_f64
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -168,6 +208,82 @@ def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False
     if v.device.type == "cpu":
         return ckb.fold(spec, cosh_b, sinh_b, v, reverse=reverse, sign=sign)
     raise ValueError(f"no checkerboard fold for device {v.device}")
+
+
+def _per_chain(name: str, t, C: int, v) -> torch.Tensor:
+    """A per-chain scalar (a number, or a ``[C]`` tensor) as a contiguous
+    ``[C]`` tensor of ``v``'s dtype on ``v``'s device."""
+    if not torch.is_tensor(t):
+        return torch.full((C,), float(t), dtype=v.dtype, device=v.device)
+    if t.device != v.device or t.dtype != v.dtype or t.shape not in ((C,), ()):
+        raise ValueError(f"{name} must be a number or [{C}] {v.dtype} on {v.device}, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return t.expand(C).contiguous()
+
+
+def _site_diag(name: str, d, C: int, v):
+    """A per-chain site diagonal ``[C, N]`` (or None), contiguous."""
+    if d is None:
+        return None
+    N = v.shape[-2]
+    if d.device != v.device or d.dtype != v.dtype or d.shape not in ((C, N), (N,)):
+        raise ValueError(f"{name} must be [{C}, {N}] {v.dtype} on {v.device}, "
+                         f"got {tuple(d.shape)} {d.dtype} on {d.device}")
+    return d.expand(C, N).contiguous()
+
+
+def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
+                  prev) -> torch.Tensor:
+    global fused_launches
+    _check(spec, cosh_b, sinh_b, v)
+    C = ckb.n_chains(v)
+    a, b = _per_chain("a", a, C, v), _per_chain("b", b, C, v)
+    pre, post = _site_diag("pre", pre, C, v), _site_diag("post", post, C, v)
+    if prev is not None and (prev.shape != v.shape or prev.dtype != v.dtype
+                             or prev.device != v.device or not prev.is_contiguous()):
+        raise ValueError(f"prev must be a contiguous {tuple(v.shape)} {v.dtype} "
+                         f"tensor on {v.device}")
+    if v.numel() == 0 or spec.ngroups == 0:
+        return ckb.fold_fused(spec, cosh_b, sinh_b, v, reverse=reverse, sign=sign,
+                              pre=pre, post=post, a=a, b=b, c=c, prev=prev)
+    out = torch.empty_like(v)
+    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v)
+    lib = _load("ckb_fold_fused")
+    fn = lib.ckb_fold_fused_f32 if v.dtype == torch.float32 else lib.ckb_fold_fused_f64
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(v.data_ptr(), out.data_ptr(), ptr(prev), bi.data_ptr(), bj.data_ptr(),
+                 cosh_b.data_ptr(), sinh_b.data_ptr(), goff.data_ptr(),
+                 spec.ngroups, int(reverse), float(sign), ptr(pre), ptr(post),
+                 a.data_ptr(), b.data_ptr(), float(c), B, N, K, kt, B // C,
+                 THREADS, stream)
+    if err != 0:
+        raise RuntimeError(f"ckb_fold_fused kernel launch failed: CUDA error {err}")
+    fused_launches += 1
+    return out
+
+
+def fold_fused(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
+               sign: float = 1.0, pre=None, post=None, a=1.0, b=0.0, c: float = 0.0,
+               prev=None) -> torch.Tensor:
+    """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` on a
+    ``[C, ..., N, K]`` field (``[N, K]`` is one chain): per-chain ``a``,
+    ``b`` (numbers or ``[C]``) and ``pre``/``post`` (``[C, N]`` or None),
+    one number ``c``, ``prev`` (v's shape) or None. The CUDA kernel for a
+    CUDA tensor, the plain twin :func:`..checkerboard.fold_fused` for a CPU
+    tensor. The result is a new tensor (it never aliases ``v`` or
+    ``prev``)."""
+    if v.device.type == "cuda":
+        return _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post,
+                             a, b, c, prev)
+    if v.device.type == "cpu":
+        return ckb.fold_fused(spec, cosh_b, sinh_b, v, reverse=reverse, sign=sign,
+                              pre=pre, post=post, a=a, b=b, c=c, prev=prev)
+    raise ValueError(f"no fused checkerboard step for device {v.device}")
 
 
 def ckb_mul(spec, cosh_b, sinh_b, v):

@@ -15,9 +15,12 @@ Chains: the state carries a leading chain axis. ``expnV_bar`` is
 Ā is applied as a dense matmul up to ``_DENSE_ABAR_MAX_SITES`` sites, or
 through the checkerboard fold: the CUDA kernel for CUDA tensors above
 ``_PALLAS_ABAR_MIN_SITES`` sites, the plain fold otherwise. Both gates are
-the JAX package's TPU-tuned values. Every matmul runs in full precision of
-the field dtype (the JAX package ran these at the TPU's DEFAULT precision);
-choosing a lower precision is a later, measured change.
+the JAX package's TPU-tuned values. On the fold branch every Chebyshev step
+is one fused fold (``csrc/ckb_fold_fused.cu`` on CUDA, its plain twin on
+the CPU); the power iteration and Ā⁻¹ of the setup use the fold itself.
+Every matmul runs in full precision of the field dtype (the JAX package ran
+these at the TPU's DEFAULT precision); choosing a lower precision is a
+later, measured change.
 
 The ``stacked`` and ``exact_lowfreq`` options, complex hopping, and the
 left/right (BiCGStab/GMRES) preconditioners are not ported.
@@ -293,7 +296,18 @@ def _cmul_halves(coeff_m, w):
 
 def _chebyshev_apply_stacked(ops: ModelOps, st: KPMState, w, coeff, transposed: bool):
     """Σₘ c_m(ω)·T_m(Ā′)·w on the stacked-real layout, Ā′ = (Ā − λavg)/λmag
-    (Āᵀ when ``transposed``)."""
+    (Āᵀ when ``transposed``): the dense recurrence when Ā is dense, the
+    fused-step recurrence on the fold branch."""
+    if st.expK is None:
+        return _chebyshev_apply_stacked_fused(ops, st, w, coeff, transposed)
+    return _chebyshev_apply_stacked_composed(ops, st, w, coeff, transposed)
+
+
+def _chebyshev_apply_stacked_composed(ops: ModelOps, st: KPMState, w, coeff,
+                                      transposed: bool):
+    """The recurrence written out: each step applies Ā (dense matmul or a
+    fold) and then the spectral map and the combine as elementwise
+    passes."""
     sc = ops.spec.ckb
     mul = _mulA_T if transposed else _mulA
     mag = _chain(st.lam_mag, w)
@@ -307,6 +321,35 @@ def _chebyshev_apply_stacked(ops: ModelOps, st: KPMState, w, coeff, transposed: 
     for m in range(1, coeff.shape[1]):
         out = out + _cmul_halves(coeff[:, m], u_n)
         u_nm1, u_n = u_n, 2.0 * Ap(u_n) - u_nm1
+    return out
+
+
+def _chebyshev_apply_stacked_fused(ops: ModelOps, st: KPMState, w, coeff,
+                                   transposed: bool):
+    """The recurrence on the fold branch with each step one fused fold
+    (:func:`..ckb_cuda.fold_fused`, the counterpart of the JAX package's
+    ``_chebyshev_apply_stacked_pallas``): the exp(−Δτ·V̄) diagonal rides
+    the step's ``pre`` (Ā) or ``post`` (Āᵀ), the spectral map its per-chain
+    ``a = a_mul/λmag``, ``b = −a_mul·λavg/λmag``, and the combine
+    ``2·Ap(u) − u₋`` its ``c = −1`` with ``prev``. The per-ω coefficient
+    accumulation stays elementwise."""
+    sc = ops.spec.ckb
+    pre = None if transposed else st.expnV_bar
+    post = st.expnV_bar if transposed else None
+    inv_mag = (1.0 / st.lam_mag).to(w.dtype)
+    shift = (st.lam_avg / st.lam_mag).to(w.dtype)
+
+    def step(u, a_mul: float, prev=None):
+        return ckb_cuda.fold_fused(sc, st.cosh_bar, st.sinh_bar, u, reverse=transposed,
+                                   pre=pre, post=post, a=a_mul * inv_mag,
+                                   b=-a_mul * shift, c=-1.0, prev=prev)
+
+    w = w.contiguous()
+    out = _cmul_halves(coeff[:, 0], w)
+    u_nm1, u_n = w, step(w, 1.0)
+    for m in range(1, coeff.shape[1]):
+        out = out + _cmul_halves(coeff[:, m], u_n)
+        u_nm1, u_n = u_n, step(u_n, 2.0, u_nm1)
     return out
 
 

@@ -1,0 +1,459 @@
+"""Top-level simulation driver, on one device.
+
+Counterpart of ``elphdynamics_tpu/simulation.py``. One call runs: config →
+datafolder naming (auto-incrementing ``-<id>`` suffix) → new run or resume
+→ burn-in → sampling with measurements every ``meas_freq`` updates → bins
+→ summary, with checkpoints on a wall-clock cadence and at bin boundaries.
+
+The ``n_chains`` Markov chains are one batch on the device (an explicit
+leading chain axis). Measurements average over the chains within each bin;
+chains whose probe solves failed are left out of the average and logged.
+
+Per-update statistics (acceptance, solver iterations, solver flags) are
+folded into accumulators on the device and read by the host once per
+window (a bin, a checkpoint, the end of the run), not once per update; so
+are the rows of ``hmc_sim_log.out`` (``[hmc] log = true``), drained every
+``LOG_ROWS`` updates. Only ``[hmc] verbose = true`` (one log row per
+leapfrog step) reads them every update.
+
+Not ported: sharding chains or the lattice over several devices and
+multi-host runs (ROADMAP slice H), Langevin dynamics (D), ``tune_dt`` (G),
+parallel tempering (G), deflation and the near-null preconditioner (I);
+``build_setup`` raises for each.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import shutil
+import time
+from dataclasses import fields, replace
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
+from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
+from elphdynamics_tpu_torch.dynamics.special_updates import (
+    make_reflection_update, make_swap_update)
+from elphdynamics_tpu_torch.io import checkpoint as ckpt
+from elphdynamics_tpu_torch.io import output as out_io
+from elphdynamics_tpu_torch.io.config import SimulationSetup, build_setup, load_toml
+from elphdynamics_tpu_torch.io.summary import write_summary
+from elphdynamics_tpu_torch.measure.measurements import (
+    make_measurement_step, mean_over_chains, process_bin, zero_container)
+from elphdynamics_tpu_torch.measure.mufinder import MuTuner
+from elphdynamics_tpu_torch.ops import kpm
+
+logger = logging.getLogger("elphdynamics_tpu_torch")
+
+# hmc_sim_log.out rows held on the device between host reads
+LOG_ROWS = 64
+# per-stream accumulator slots: updates, Σacceptance, Σiterations, flagged
+# chains, first and last flagged update, largest flag
+_N, _ACC, _ITERS, _NFLAG, _FIRST, _LAST, _FMAX = range(7)
+
+
+def name_datafolder(filepath: str, foldername: str, run_id: int | None = None) -> str:
+    """``<foldername>-<id>``: an existing folder with a checkpoint is reused
+    (resume); otherwise the id increments past every existing folder."""
+    if run_id is not None:
+        return os.path.join(filepath, f"{foldername}-{run_id}")
+    i = 1
+    while True:
+        cand = os.path.join(filepath, f"{foldername}-{i}")
+        if not os.path.isdir(cand) or ckpt.has_checkpoint(cand):
+            return cand
+        i += 1
+
+
+def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda",
+             dtype: torch.dtype = torch.float32) -> dict:
+    """Run a full simulation from a TOML path or a parsed config dict on
+    one ``device`` in ``dtype``; return the run statistics."""
+    if n_chains < 1:
+        raise ValueError(f"n_chains must be >= 1, got {n_chains}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available (run on the CPU with device='cpu')")
+    cfg = load_toml(config) if isinstance(config, str) else dict(config)
+    sim = cfg["simulation"]
+    datafolder = name_datafolder(sim.get("filepath", "."), sim["foldername"], run_id)
+    setup = build_setup(cfg, datafolder, device, dtype)
+    os.makedirs(datafolder, exist_ok=True)
+    with open(os.path.join(datafolder, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    if isinstance(config, str) and os.path.isfile(config):
+        shutil.copy(config, os.path.join(datafolder, os.path.basename(config)))
+    else:
+        with open(os.path.join(datafolder, "input.toml"), "w") as f:
+            f.write(out_io.dump_toml(cfg))
+
+    handler = logging.FileHandler(os.path.join(datafolder, f"{setup.sim_params.foldername}.log"))
+    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        import elphdynamics_tpu_torch
+        logger.info("elphdynamics_tpu_torch version: %s", elphdynamics_tpu_torch.__version__)
+        logger.info("Random Seed: %d", setup.sim_params.random_seed)
+        logger.info("Device: %s (%s), dtype %s", device,
+                    torch.cuda.get_device_name(device) if device.type == "cuda" else "host",
+                    dtype)
+        logger.info("Markov chains: %d", n_chains)
+        return _run(setup, n_chains)
+    finally:
+        logger.removeHandler(handler)
+        handler.close()
+
+
+class _Stats:
+    """Per-update statistics folded on the device, one accumulator per
+    stream, read by the host in one transfer per :meth:`flush`."""
+
+    STREAMS = {"update": ("iters", "acceptance_rate"),
+               "reflect": (None, "reflect_acceptance_rate"),
+               "swap": (None, "swap_acceptance_rate"),
+               "measurement": (None, None)}
+
+    def __init__(self, device):
+        self.device = device
+        self.acc = {k: self._zero() for k in self.STREAMS}
+        self.folds = {k: 0 for k in self.STREAMS}
+
+    def _zero(self):
+        z = torch.zeros(7, dtype=torch.float64, device=self.device)
+        z[_FIRST] = math.inf
+        z[_LAST] = -1.0
+        return z
+
+    def fold(self, kind: str, n: int, acc, iters, flag, n_flagged=None):
+        """Add one update (or measurement, with ``n_flagged``) to a stream."""
+        s = self.acc[kind]
+        flag = torch.as_tensor(flag, device=self.device)
+        nf = (flag != 0).sum().to(torch.float64) if n_flagged is None else \
+            torch.as_tensor(n_flagged, device=self.device).to(torch.float64)
+        has = nf > 0
+        mean = (lambda a: torch.as_tensor(a, device=self.device).to(torch.float64).mean())
+        self.acc[kind] = torch.stack([
+            s[_N] + 1.0, s[_ACC] + mean(acc), s[_ITERS] + mean(iters), s[_NFLAG] + nf,
+            torch.where(has, torch.clamp(s[_FIRST], max=float(n)), s[_FIRST]),
+            torch.where(has, torch.clamp(s[_LAST], min=float(n)), s[_LAST]),
+            torch.maximum(s[_FMAX], flag.max().to(torch.float64))])
+        self.folds[kind] += 1
+
+    def flush(self, sim_stats: dict) -> bool:
+        """Move every touched stream to the host, add it to ``sim_stats`` and
+        log the window's solver failures. Returns whether it read the
+        device."""
+        kinds = [k for k, n in self.folds.items() if n]
+        if not kinds:
+            return False
+        host = torch.stack([self.acc[k] for k in kinds]).cpu().numpy()
+        for kind, h in zip(kinds, host):
+            self.acc[kind], self.folds[kind] = self._zero(), 0
+            it_key, acc_key = self.STREAMS[kind]
+            if it_key:
+                sim_stats[it_key] += float(h[_ITERS])
+            if acc_key:
+                sim_stats[acc_key] += float(h[_ACC])
+            nf = int(round(h[_NFLAG]))
+            if nf:
+                sim_stats["solver_failures"] = sim_stats.get("solver_failures", 0) + nf
+                logger.warning("solver failure during %s, updates %d..%d: %d flagged "
+                               "(max flag %d)", kind, int(h[_FIRST]), int(h[_LAST]), nf,
+                               int(h[_FMAX]))
+        return True
+
+
+class _HMCLog:
+    """``hmc_sim_log.out``: one row per update per chain (``t = -1``), plus
+    one per leapfrog step when verbose. Non-verbose rows wait on the device
+    and are written ``LOG_ROWS`` updates at a time."""
+
+    def __init__(self, path: str | None, n_chains: int, device):
+        self.f = self.buf = None
+        self.ns: list[int] = []
+        if path is not None:
+            new = not os.path.isfile(path)
+            self.f = open(path, "a")
+            if new:
+                self.f.write("updates accepted timestep tot_energy action kin_energy iters\n")
+            self.buf = torch.zeros((LOG_ROWS, 5, n_chains), dtype=torch.float64, device=device)
+
+    def _row(self, n, acc, H, S, K, iters):
+        self.f.write(f"{n} {int(acc)} -1 {H:.8f} {S:.8f} {K:.8f} {int(iters)}\n")
+
+    def push(self, n: int, stats) -> None:
+        if self.f is None:
+            return
+        self.buf[len(self.ns)] = torch.stack([stats.accepted.to(torch.float64), stats.H,
+                                              stats.S, stats.K, stats.iters.to(torch.float64)])
+        self.ns.append(n)
+        if len(self.ns) == LOG_ROWS:
+            self.drain()
+
+    def drain(self) -> None:
+        if not self.ns:
+            return
+        host = self.buf[:len(self.ns)].cpu().numpy()
+        for n, rows in zip(self.ns, host):
+            for c in range(rows.shape[1]):
+                self._row(n, *rows[:, c])
+        self.ns = []
+
+    def write_now(self, n: int, stats) -> None:
+        """The verbose rows of one update, read from the device at once."""
+        if self.f is None:
+            return
+        if stats.traj_H is not None:
+            tH, tS, tK, tI = (t.cpu().numpy() for t in
+                              (stats.traj_H, stats.traj_S, stats.traj_K, stats.traj_iters))
+            for c in range(tH.shape[0]):
+                for t in range(tH.shape[1]):
+                    if np.isfinite(tH[c, t]):
+                        self.f.write(f"{n} -1 {t + 1} {tH[c, t]:.8f} {tS[c, t]:.8f} "
+                                     f"{tK[c, t]:.8f} {int(tI[c, t])}\n")
+        rows = torch.stack([stats.accepted.to(torch.float64), stats.H, stats.S, stats.K,
+                            stats.iters.to(torch.float64)]).cpu().numpy()
+        for c in range(rows.shape[1]):
+            self._row(n, *rows[:, c])
+
+    def close(self) -> None:
+        if self.f is not None:
+            self.drain()
+            self.f.close()
+            self.f = None
+
+
+def _host_tree(tree):
+    """A nested dict of tensors as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def _run(setup: SimulationSetup, n_chains: int) -> dict:
+    ops, params, sp = setup.ops, setup.params, setup.sim_params
+    datafolder = sp.datafolder
+    dev, dtype = setup.device, setup.dtype
+    mspec = setup.mspec
+    resume = ckpt.has_checkpoint(datafolder)
+
+    precond = (kpm.make_symmetric_precond(ops, setup.kpm_cfg)
+               if setup.kpm_cfg is not None else None)
+    sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
+    burnin_step = (sim_step if setup.hmc_burnin_cfg == setup.hmc_cfg
+                   else make_hmc_step(ops, setup.fa_mass, setup.hmc_burnin_cfg, precond))
+    mstep = make_measurement_step(ops, mspec, setup.solver_cfg, precond)
+    reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
+    swap = make_swap_update(ops, setup.swap_cfg, precond)
+
+    sim_stats = {"simulation_time": 0.0, "measurement_time": 0.0, "write_time": 0.0,
+                 "iters": 0.0, "acceptance_rate": 0.0, "reflect_acceptance_rate": 0.0,
+                 "swap_acceptance_rate": 0.0}
+    container = zero_container(ops, mspec, dtype, dev)
+    tune = setup.tune_density or {}
+    mu_tuner = MuTuner(
+        active=setup.tune_density is not None, init_mu=float(params.mu.mean()),
+        target_N=tune.get("density", 1.0) * ops.Nsites, N=ops.Nsites, beta=ops.beta,
+        dtau=ops.dtau, forgetful_c=tune.get("memory", 0.75),
+        kappa_min=tune.get("kappa_min", 0.1) * ops.Nsites,
+        logfile=os.path.join(datafolder, "mu_tuner_log.out"))
+    gen = torch.Generator(device=dev).manual_seed(sp.random_seed)
+    burnin_start = sim_start = 0
+
+    if resume:
+        st = ckpt.load_checkpoint(datafolder)
+        if st["x"].shape[0] != n_chains:
+            raise ValueError(f"{datafolder}: the checkpoint holds {st['x'].shape[0]} chains, "
+                             f"the run asks for {n_chains}")
+        x = torch.as_tensor(st["x"], device=dev).to(dtype)
+        v = torch.as_tensor(st["v"], device=dev).to(dtype)
+        gen.set_state(torch.as_tensor(st["generator"]))
+        container = {group: {k: torch.as_tensor(st["container"].get(group, {}).get(k, z.cpu().numpy()),
+                                                device=dev).to(z.dtype)
+                             for k, z in zs.items()}
+                     for group, zs in container.items()}
+        params = replace(params, **{k: torch.as_tensor(a, device=dev).to(dtype)
+                                    for k, a in st["params"].items()})
+        sim_stats.update(st["sim_stats"])
+        mu_tuner.load_state_dict(st["mu_tuner"])
+        burnin_start = st["counters"]["burnin_start"]
+        sim_start = st["counters"]["sim_start"]
+        logger.info("resumed from checkpoint: burnin_start=%d sim_start=%d",
+                    burnin_start, sim_start)
+    else:
+        if setup.read_phonon_config:
+            x0 = torch.as_tensor(out_io.read_phonons(ops, setup.read_phonon_config),
+                                 device=dev).to(dtype)
+            x = x0.expand((n_chains,) + tuple(x0.shape)).contiguous()
+        else:
+            x = init_phonons_half_filled(ops, params, n_chains, gen)
+        v = torch.zeros_like(x)
+        out_io.init_measurement_folders(datafolder, container, mspec.snapshots)
+        out_io.write_key_files(datafolder, ops, mspec, container)
+    state = HMCState(x=x, v=v)
+
+    stats_acc = _Stats(dev)
+    hmc_table = setup.config["hmc"]
+    hmc_log = _HMCLog(os.path.join(datafolder, "hmc_sim_log.out")
+                      if hmc_table.get("log", False) else None, n_chains, dev)
+    # verbose rows are per leapfrog step: read them (and the stats) every update
+    stats_sync = hmc_log.f is not None and bool(hmc_table.get("verbose", False))
+    npairs = mspec.nv * (mspec.nv - 1) // 2
+    t_ckpt = time.time()
+
+    def flush_stats():
+        t0 = time.time()
+        hmc_log.drain()
+        if stats_acc.flush(sim_stats):
+            # the read waits on the outstanding device work of the window
+            sim_stats["simulation_time"] += time.time() - t0
+
+    def maybe_checkpoint(bstart, sstart, force=False, min_interval=None):
+        nonlocal t_ckpt
+        interval = sp.chckpnt_freq_s if min_interval is None else min_interval
+        if not (force or (time.time() - t_ckpt) > interval):
+            return
+        flush_stats()  # the checkpointed sim_stats include the window
+        t0 = time.time()
+        ckpt.save_checkpoint(datafolder, x=state.x, v=state.v, generator_state=gen.get_state(),
+                             params=params, container=container,
+                             counters={"burnin_start": bstart, "sim_start": sstart},
+                             sim_stats=sim_stats, mu_tuner_state=mu_tuner.state_dict())
+        sim_stats["write_time"] += time.time() - t0
+        t_ckpt = time.time()
+
+    def apply_mu(params, new_mu):
+        return replace(params, mu=params.mu + (new_mu - float(params.mu.mean())))
+
+    def record_update(kind_label, n, n_log, stats):
+        if stats_sync:
+            sim_stats["iters"] += float(stats.iters.double().mean())
+            sim_stats["acceptance_rate"] += float(stats.accepted.double().mean())
+            flags = stats.flag.cpu().numpy()
+            nf = int(np.sum(flags != 0))
+            if nf:
+                sim_stats["solver_failures"] = sim_stats.get("solver_failures", 0) + nf
+                logger.warning("solver failure during %s update %d: %d/%d chains flagged "
+                               "(flags=%s)", kind_label, n, nf, flags.size,
+                               np.unique(flags[flags != 0]).tolist())
+            hmc_log.write_now(n_log, stats)
+        else:
+            stats_acc.fold("update", n, stats.accepted, stats.iters, stats.flag)
+            hmc_log.push(n_log, stats)
+
+    def do_special(state, n):
+        for upd, cfg_, kind in ((reflect, setup.reflect_cfg, "reflect"),
+                                (swap, setup.swap_cfg, "swap")):
+            if cfg_.n_moves and cfg_.freq and n % cfg_.freq == 0:
+                t0 = time.time()
+                xn, rate = upd(params, state.x, gen)
+                state = replace(state, x=xn)
+                sim_stats["simulation_time"] += time.time() - t0
+                stats_acc.fold(kind, n, rate, 0.0, 0)
+        return state
+
+    def measure():
+        inc, mstats, snaps = mstep(params, state.x, gen)
+        inc, snaps = mean_over_chains(inc, snaps, mstats["flag"])
+        return inc, (mstats["flag"] != 0).sum(), snaps
+
+    def tune_mu(params, inc):
+        Nm = float(inc["global"]["density"]) / npairs * ops.Nsites
+        N2m = float(inc["global"]["Nsqr"]) / npairs
+        return apply_mu(params, mu_tuner.update(Nm, N2m))
+
+    try:
+        # ---- thermalization
+        for n in range(burnin_start, sp.burnin):
+            maybe_checkpoint(n, 0)
+            t0 = time.time()
+            state, stats = burnin_step(params, state, gen)
+            sim_stats["simulation_time"] += time.time() - t0
+            record_update("burnin", n + 1, n + 1, stats)
+            state = do_special(state, n + 1)
+            if mu_tuner.active and (n + 1) % max(sp.meas_freq, 1) == 0:
+                t0 = time.time()
+                inc, _, _ = measure()
+                params = tune_mu(params, inc)
+                sim_stats["simulation_time"] += time.time() - t0
+
+        # ---- sampling and measurements
+        for n in range(sim_start, sp.nsteps):
+            maybe_checkpoint(sp.burnin, n)
+            t0 = time.time()
+            state, stats = sim_step(params, state, gen)
+            sim_stats["simulation_time"] += time.time() - t0
+            record_update("simulation", n + 1, sp.burnin + n + 1, stats)
+            state = do_special(state, n + 1)
+            if (n + 1) % sp.meas_freq:
+                continue
+            nmeas = (n + 1) // sp.meas_freq
+            t0 = time.time()
+            inc, n_flagged, snaps = measure()
+            for group, vals in container.items():
+                for k, a in vals.items():
+                    a.add_(inc[group][k])
+            sim_stats["measurement_time"] += time.time() - t0
+            stats_acc.fold("measurement", nmeas, 0.0, 0.0, 0, n_flagged=n_flagged)
+            if mu_tuner.active:
+                params = tune_mu(params, inc)
+            if snaps:
+                t0 = time.time()
+                for sname, svals in _host_tree(snaps).items():
+                    out_io.write_snapshot(datafolder, sname, svals, nmeas)
+                sim_stats["write_time"] += time.time() - t0
+            if nmeas % sp.bin_size == 0:
+                flush_stats()  # the window's deferred stats and warnings
+                t0 = time.time()
+                processed = _host_tree(process_bin(ops, mspec, container, sp.bin_size))
+                sim_stats["measurement_time"] += time.time() - t0
+                t0 = time.time()
+                out_io.write_bin(datafolder, processed, nmeas // sp.bin_size, ops)
+                sim_stats["write_time"] += time.time() - t0
+                container = zero_container(ops, mspec, dtype, dev)
+                maybe_checkpoint(sp.burnin, n + 1, min_interval=min(10.0, sp.chckpnt_freq_s))
+
+        # ---- finalize. The last checkpoint holds the raw counters: a resume
+        # of a finished run re-enters the normalization below.
+        flush_stats()
+        maybe_checkpoint(sp.burnin, sp.nsteps, force=True)
+    finally:
+        hmc_log.close()
+
+    total = sp.burnin + sp.nsteps
+    sim_stats["iters"] /= max(total, 1)
+    sim_stats["acceptance_rate"] /= max(total, 1)
+    for kname, scfg in (("reflect_acceptance_rate", setup.reflect_cfg),
+                        ("swap_acceptance_rate", setup.swap_cfg)):
+        if scfg.n_moves and scfg.freq:
+            sim_stats[kname] /= max(sp.burnin // scfg.freq + sp.nsteps // scfg.freq, 1)
+    for k in ("simulation_time", "measurement_time", "write_time"):
+        sim_stats[k + "_min"] = sim_stats[k] / 60.0
+
+    x_final = state.x[0]
+    out_io.write_phonons(ops, x_final, os.path.join(datafolder, "final_phonon_config.out"))
+    if sp.write_M_matrix:
+        out_io.write_M_matrix(ops, params, x_final, os.path.join(datafolder, "M_matrix.out"))
+    mu_tuner.estimate_mu()
+    write_summary(setup, sim_stats, mu_tuner)
+    logger.info("simulation complete: %s", sim_stats)
+    return sim_stats
+
+
+def load_model(datafolder: str, device="cpu", dtype: torch.dtype = torch.float64):
+    """Rebuild a finished or checkpointed run: ``(setup, params, x)`` with
+    the checkpoint's parameters and ``[C, N, Lτ]`` fields."""
+    with open(os.path.join(datafolder, "config.json")) as f:
+        cfg = json.load(f)
+    setup = build_setup(cfg, datafolder, device, dtype)
+    st = ckpt.load_checkpoint(datafolder)
+    params = replace(setup.params, **{
+        f.name: torch.as_tensor(st["params"][f.name], device=setup.device).to(dtype)
+        for f in fields(setup.params) if f.name in st["params"]})
+    return setup, params, torch.as_tensor(st["x"], device=setup.device).to(dtype)

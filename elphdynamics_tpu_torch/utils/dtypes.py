@@ -1,4 +1,4 @@
-"""Accurate accumulation primitives and pseudofermion noise.
+"""Accurate accumulation primitives, pseudofermion and probe noise.
 
 Counterpart of ``elphdynamics_tpu/utils/dtypes.py``. Every reduction here
 accumulates in float64 on every device: the H100 has float64 in hardware,
@@ -49,3 +49,13 @@ def pseudofermion_noise(shape, dtype: torch.dtype, device,
     shape = tuple(shape)
     full = shape[:-2] + (2,) + shape[-2:]
     return torch.randn(full, dtype=dtype, device=device, generator=generator)
+
+
+def trace_noise(shape, dtype: torch.dtype, device,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Gaussian probes with E[ggᵀ] = I for the stochastic Green's-function
+    and trace estimators (real hopping: unit normals). The complex probes of
+    the complex-hopping path belong to ROADMAP slice F."""
+    if dtype.is_complex:
+        raise NotImplementedError("complex probe vectors: ROADMAP slice F")
+    return torch.randn(tuple(shape), dtype=dtype, device=device, generator=generator)

@@ -1,13 +1,18 @@
-"""Profile one update of the PyTorch port's main path on a CUDA card.
+"""Profile one update, or one measurement, of the PyTorch port on a CUDA
+card.
 
-    python scripts/profile_torch_hmc.py [bench_8x8|kernel_64x64] [--trace DIR]
+    python scripts/profile_torch_hmc.py [bench_8x8|kernel_64x64|measure_64x64] [--trace DIR]
 
-Builds the configuration in float32, runs one warm-up update, then one
-update under ``torch.profiler`` and prints: wall time, summed device-kernel
-time and the device's busy share, the fold kernel's launches, the heaviest
-kernels by device time, and the heaviest host-side operators. With
-``--trace DIR`` the Chrome trace goes to ``DIR/<config>_trace.json`` (about
-200 MB for one update).
+``bench_8x8`` and ``kernel_64x64`` are the HMC updates of ``bench.py``;
+``measure_64x64`` is one measurement of the driver at 64×64, β = 4 (4
+chains, nᵥ = 10, the five time-dependent on-site correlations, KPM
+max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it. Builds the
+configuration in float32, runs it once to warm up, then once under
+``torch.profiler`` and prints: wall time, summed device-kernel time and
+the device's busy share, both kernels' launches, the heaviest kernels by
+device time, and the heaviest host-side operators. With ``--trace DIR``
+the Chrome trace goes to ``DIR/<config>_trace.json`` (about 200 MB for one
+update).
 """
 
 from __future__ import annotations
@@ -28,35 +33,63 @@ from elphdynamics_tpu_torch.ops import ckb_cuda  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("config", choices=["bench_8x8", "kernel_64x64"])
+    ap.add_argument("config", choices=["bench_8x8", "kernel_64x64", "measure_64x64"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
-    cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64}[args.config]
-    b = bench.build(cfg, "cuda", torch.float32)
-    state, _ = b.step(b.params, b.state, b.generator)
+    if args.config == "measure_64x64":
+        run = _measurement()
+    else:
+        cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64}[args.config]
+        b = bench.build(cfg, "cuda", torch.float32)
+        box = {"state": b.state}
+
+        def run():
+            box["state"], stats = b.step(b.params, box["state"], b.generator)
+            return stats.iters
+    run()
     torch.cuda.synchronize()
-    ckb_cuda.launches = 0
+    ckb_cuda.launches = ckb_cuda.fused_launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, stats = b.step(b.params, state, b.generator)
+        iters = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"[{cfg.name}] device={torch.cuda.get_device_name(0)!r} wall_s={wall:.4f} "
+    print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} wall_s={wall:.4f} "
           f"device_kernel_s={dev_us / 1e6:.4f} device_busy_share={dev_us / 1e6 / wall:.4f} "
-          f"fold_launches={ckb_cuda.launches} mean_cg_iters={stats.iters.double().mean().item():.3f}")
+          f"fold_launches={ckb_cuda.launches} fused_launches={ckb_cuda.fused_launches} "
+          f"mean_cg_iters={iters.double().mean().item():.3f}")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15))
     if args.trace:
         out = Path(args.trace)
         out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / f"{cfg.name}_trace.json"))
+        prof.export_chrome_trace(str(out / f"{args.config}_trace.json"))
     return 0
+
+
+def _measurement():
+    """One driver measurement at 64×64, β = 4, 4 chains."""
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.measure import measurements as M
+    from elphdynamics_tpu_torch.ops import kpm
+
+    b = bench.build_bench_step(64, 4.0, 0.1, 0.025, 4, "cuda", torch.float32)
+    mspec = M.MeasurementSpec(nv=10, onsite_corr=tuple((k, True) for k in M.ONSITE_CORR_KINDS))
+    step = M.make_measurement_step(b.ops, mspec, SolverConfig(tol=1e-5, maxiter=10000),
+                                   kpm.make_symmetric_precond(b.ops, kpm.KPMConfig(max_order=8)))
+
+    def run():
+        inc, stats, snaps = step(b.params, b.state.x, b.generator)
+        M.mean_over_chains(inc, snaps, stats["flag"])
+        return stats["iters"]
+
+    return run
 
 
 if __name__ == "__main__":

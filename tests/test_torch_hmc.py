@@ -2,7 +2,8 @@
 
 Same model, same start fields, and JAX's own random draws fed to the port
 (``HMCDraws``), on the dense branch and on the fold branch
-(``dense_threshold=0``), 2 chains, float64 on the CPU. ΔH agrees to 1e-9
+(``dense_threshold=0``), 2 chains, float64 on the CPU, and once with the
+verbose per-timestep energies. ΔH agrees to 1e-9
 absolute, x and v to 1e-10, and the accept decisions, flags and mean CG
 iterations are equal.
 """
@@ -68,8 +69,9 @@ def _jax_draws(keys, N, Ltau):
                     uniform=torch.as_tensor(np.asarray(U)), kpm_start=start)
 
 
-@pytest.mark.parametrize("dense_threshold", [2048, 0], ids=["dense", "fold"])
-def test_hmc_update_matches_jax(dense_threshold):
+@pytest.mark.parametrize("dense_threshold,verbose", [(2048, False), (0, False), (2048, True)],
+                         ids=["dense", "fold", "dense_verbose"])
+def test_hmc_update_matches_jax(dense_threshold, verbose):
     jspec, jparams, tspec, tparams = _models(dense_threshold)
     assert tspec.dense_ckb == (dense_threshold > 0)
     N, Ltau = jspec.Nsites, jspec.Ltau
@@ -80,7 +82,8 @@ def test_hmc_update_matches_jax(dense_threshold):
     v0 = rng.standard_normal((N_CHAINS, N, Ltau))
 
     jops = j_make_model_ops(jspec)
-    jstep = j_make_hmc_step(jops, mass, JHMCConfig(**CFG),
+    cfg = {**CFG, "log_verbose": verbose}
+    jstep = j_make_hmc_step(jops, mass, JHMCConfig(**cfg),
                             jkpm.make_symmetric_precond(jops, jkpm.KPMConfig(**KPM)))
     keys = jax.random.split(jax.random.PRNGKey(3), N_CHAINS)
     # chains one at a time through one compiled step (equal to the vmapped
@@ -92,7 +95,7 @@ def test_hmc_update_matches_jax(dense_threshold):
     jstats = jax.tree.map(lambda *a: np.stack(a), *[r[1] for r in runs])
 
     tops = make_model_ops(tspec)
-    tstep = make_hmc_step(tops, mass, HMCConfig(**CFG),
+    tstep = make_hmc_step(tops, mass, HMCConfig(**cfg),
                           kpm.make_symmetric_precond(tops, kpm.KPMConfig(**KPM)))
     tstate, tstats = tstep(tparams, HMCState(x=torch.as_tensor(x0), v=torch.as_tensor(v0)),
                            draws=_jax_draws(keys, N, Ltau))
@@ -105,6 +108,13 @@ def test_hmc_update_matches_jax(dense_threshold):
     np.testing.assert_allclose(tstate.v.numpy(), np.asarray(jstate.v), rtol=0, atol=1e-10)
     np.testing.assert_allclose(tstats.H.numpy(), np.asarray(jstats.H), rtol=1e-12)
     assert np.all(np.asarray(jstats.flag) == 0)
+    if verbose:  # the per-timestep rows of the verbose HMC log
+        for name in ("traj_H", "traj_S", "traj_K"):
+            np.testing.assert_allclose(getattr(tstats, name).numpy(),
+                                       np.asarray(getattr(jstats, name)), rtol=1e-12)
+        np.testing.assert_array_equal(tstats.traj_iters.numpy(), np.asarray(jstats.traj_iters))
+    else:
+        assert tstats.traj_H is None
 
 
 def test_hmc_update_draws_from_generator():
@@ -128,7 +138,7 @@ def test_hmc_unported_options_raise():
     _, _, tspec, _ = _models(2048)
     tops = make_model_ops(tspec)
     mass = np.ones((tspec.Nph, tspec.Ltau))
-    for bad in (dict(integrator="2mn"), dict(tune_dt=True), dict(log_verbose=True),
+    for bad in (dict(integrator="2mn"), dict(tune_dt=True),
                 dict(deflate_k=2), dict(block=True), dict(solver_kind="gmres")):
         with pytest.raises(NotImplementedError):
             make_hmc_step(tops, mass, HMCConfig(**{**CFG, **bad}))

@@ -1,0 +1,231 @@
+"""Configuration, output files and checkpoints of the PyTorch port against
+the JAX package.
+
+* ``build_setup`` on each stock Holstein HMC example gives the JAX
+  package's parameters (to 1e-12, through ``convert.params_from_jax``) and
+  the same run, solver, preconditioner, sampler and measurement settings.
+* On the same processed bins, the port's ``write_bin``, ``write_key_files``
+  and ``write_summary`` write the same files, byte for byte, as the JAX
+  package's.
+* Checkpoints round-trip; a JAX checkpoint is refused; what the port does
+  not run raises, naming its ROADMAP slice; the CLI refuses a CUDA run
+  without a card.
+"""
+
+import copy
+import dataclasses
+import filecmp
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elphdynamics_tpu.io import config as jconfig
+from elphdynamics_tpu.io import output as jout
+from elphdynamics_tpu.io import summary as jsummary
+from elphdynamics_tpu.measure import measurements as jm
+from elphdynamics_tpu.measure.mufinder import MuTuner as JMuTuner
+from elphdynamics_tpu_torch import __main__ as cli
+from elphdynamics_tpu_torch.convert import params_from_jax
+from elphdynamics_tpu_torch.io import checkpoint as tckpt
+from elphdynamics_tpu_torch.io import config as tconfig
+from elphdynamics_tpu_torch.io import output as tout
+from elphdynamics_tpu_torch.io import summary as tsummary
+from elphdynamics_tpu_torch.measure import measurements as tm
+from elphdynamics_tpu_torch.measure.mufinder import MuTuner
+
+torch.set_num_threads(1)
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
+STOCK = ["holstein_hmc_square", "holstein_hmc_single_site", "holstein_hmc_honeycomb",
+         "holstein_hmc_triangular"]
+
+
+def _stock(name, seed=11):
+    cfg = jconfig.load_toml(os.path.join(EXAMPLES, f"{name}.toml"))
+    cfg["simulation"]["random_seed"] = seed
+    return cfg
+
+
+def _with_disorder(cfg):
+    """Disorder on every Holstein parameter, so the rng stream is used."""
+    cfg = copy.deepcopy(cfg)
+    h = cfg["holstein"]
+    for t in h.get("t", []):
+        t["stddev"] = 0.1
+    for key in ("omega", "lambda", "mu"):
+        for d in h[key]:
+            d["stddev"] = 0.05
+    return cfg
+
+
+@pytest.mark.parametrize("disorder", [False, True], ids=["stock", "disordered"])
+@pytest.mark.parametrize("name", STOCK)
+def test_build_setup_matches_jax(name, disorder, tmp_path):
+    cfg = _stock(name)
+    if disorder:
+        cfg = _with_disorder(cfg)
+    js = jconfig.build_setup(copy.deepcopy(cfg), str(tmp_path))
+    ts = tconfig.build_setup(copy.deepcopy(cfg), str(tmp_path), "cpu", torch.float64)
+    want = params_from_jax({f.name: getattr(js.params, f.name)
+                            for f in dataclasses.fields(ts.params)})
+    for f in dataclasses.fields(ts.params):
+        a, b = getattr(ts.params, f.name), getattr(want, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12, msg=f.name)
+    assert dataclasses.asdict(ts.sim_params) == dataclasses.asdict(js.sim_params)
+    np.testing.assert_allclose(ts.fa_mass, js.fa_mass, rtol=1e-14)
+    for field in ("dt", "trajectory_time", "alpha", "Nb", "tol", "maxiter", "construct_guess",
+                  "guess_order", "log_verbose", "integrator"):
+        assert getattr(ts.hmc_cfg, field) == getattr(js.hmc_cfg, field), field
+        assert getattr(ts.hmc_burnin_cfg, field) == getattr(js.hmc_burnin_cfg, field), field
+    for field in ("tol", "maxiter", "kind"):
+        assert getattr(ts.solver_cfg, field) == getattr(js.solver_cfg, field)
+    for field in ("n_power", "buf", "c1", "c2", "max_order"):
+        assert getattr(ts.kpm_cfg, field) == getattr(js.kpm_cfg, field)
+    for a, b in ((ts.reflect_cfg, js.reflect_cfg), (ts.swap_cfg, js.swap_cfg)):
+        assert (a.freq, a.n_moves, a.tol, a.maxiter) == (b.freq, b.n_moves, b.tol, b.maxiter)
+    assert ts.mspec.nv == js.mspec.nv and ts.mspec.onsite_corr == js.mspec.onsite_corr
+    assert ts.mspec.intersite_corr == js.mspec.intersite_corr == ()
+    assert ts.ops.spec.bond_defs == js.ops.spec.bond_defs
+
+
+def _processed_bins(js, ts, n_bins=2):
+    """JAX-processed bins of random containers, as host numpy trees."""
+    rng = np.random.default_rng(3)
+    zero = tm.zero_container(ts.ops, ts.mspec, torch.float64, "cpu")
+    out = []
+    for _ in range(n_bins):
+        cont = {g: {k: (rng.standard_normal(z.shape) + 1j * rng.standard_normal(z.shape)
+                        if z.is_complex() else rng.standard_normal(z.shape))
+                    for k, z in vals.items()} for g, vals in zero.items()}
+        out.append(jax.tree.map(np.asarray, jm.process_bin(
+            js.ops, js.mspec, jax.tree.map(jnp.asarray, cont), 5)))
+    return zero, out
+
+
+def test_output_files_match_jax(tmp_path):
+    cfg = _with_disorder(_stock("holstein_hmc_honeycomb"))
+    cfg["measurements"]["SpinSpin"]["time_dependent"] = False
+    js = jconfig.build_setup(copy.deepcopy(cfg), str(tmp_path / "jax"))
+    ts = tconfig.build_setup(copy.deepcopy(cfg), str(tmp_path / "torch"), "cpu", torch.float64)
+    zero, bins = _processed_bins(js, ts)
+    jzero = jm.zero_container(js.ops, js.mspec)
+    sim_stats = {"simulation_time": 12.5, "measurement_time": 3.25, "write_time": 0.5,
+                 "iters": 17.125, "acceptance_rate": 0.875, "reflect_acceptance_rate": 0.5,
+                 "swap_acceptance_rate": 0.25, "solver_failures": 2}
+    mu_kw = dict(active=True, init_mu=0.1, target_N=8.0, N=8, beta=2.0, dtau=0.1,
+                 forgetful_c=0.75, kappa_min=0.8)
+    tuners = [JMuTuner(**mu_kw), MuTuner(**mu_kw)]
+    for tuner in tuners:
+        for nm, n2 in ((7.5, 60.0), (8.25, 70.0), (8.0, 66.0)):
+            tuner.update(nm, n2)
+        tuner.estimate_mu()
+    for (mod, setup, cont, tuner, folder) in (
+            (jout, js, jzero, tuners[0], tmp_path / "jax"),
+            (tout, ts, zero, tuners[1], tmp_path / "torch")):
+        mod.init_measurement_folders(str(folder), cont, ("density",))
+        mod.write_key_files(str(folder), setup.ops, setup.mspec, cont)
+        for b, processed in enumerate(bins, start=1):
+            mod.write_bin(str(folder), processed, b, setup.ops)
+        mod.write_snapshot(str(folder), "density", np.linspace(0.0, 1.0, 8), 4)
+    jsummary.write_summary(js, sim_stats, tuners[0])
+    tsummary.write_summary(ts, sim_stats, tuners[1])
+
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    names = tree(tmp_path / "jax")
+    assert names == tree(tmp_path / "torch")
+    assert any(n.endswith("_key.out") for n in names) and "run_summary.out" not in names
+    match, mismatch, errors = filecmp.cmpfiles(tmp_path / "jax", tmp_path / "torch", names,
+                                               shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+    assert len(match) == len(names) > 40
+
+
+def test_phonon_and_M_matrix_files_match_jax(tmp_path):
+    cfg = _stock("holstein_hmc_square")
+    cfg["lattice"]["L"] = 2
+    cfg["holstein"]["beta"] = 0.4
+    js = jconfig.build_setup(copy.deepcopy(cfg), str(tmp_path))
+    ts = tconfig.build_setup(copy.deepcopy(cfg), str(tmp_path), "cpu", torch.float64)
+    x = 0.3 * np.random.default_rng(1).standard_normal((ts.ops.Nph, ts.ops.Ltau))
+    jout.write_phonons(js.ops, x, str(tmp_path / "jx.out"))
+    tout.write_phonons(ts.ops, torch.as_tensor(x), str(tmp_path / "tx.out"))
+    assert filecmp.cmp(tmp_path / "jx.out", tmp_path / "tx.out", shallow=False)
+    np.testing.assert_allclose(tout.read_phonons(ts.ops, str(tmp_path / "tx.out")), x, atol=1e-6)
+    jout.write_M_matrix(js.ops, js.params, jnp.asarray(x), str(tmp_path / "jM.out"), chunk=7)
+    tout.write_M_matrix(ts.ops, ts.params, torch.as_tensor(x), str(tmp_path / "tM.out"), chunk=7)
+    jm_, tm_ = (np.loadtxt(tmp_path / f, skiprows=1) for f in ("jM.out", "tM.out"))
+    np.testing.assert_array_equal(jm_[:, :2], tm_[:, :2])
+    np.testing.assert_allclose(jm_[:, 2:], tm_[:, 2:], atol=2e-10)
+
+
+def test_checkpoint_round_trip_and_refuses_jax(tmp_path):
+    cfg = _stock("holstein_hmc_single_site")
+    ts = tconfig.build_setup(copy.deepcopy(cfg), str(tmp_path), "cpu", torch.float64)
+    cont = tm.zero_container(ts.ops, ts.mspec, torch.float64, "cpu")
+    cont["onsite_corr"]["Greens"] += 1.5 - 0.5j
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((2, ts.ops.Nph, ts.ops.Ltau), generator=gen, dtype=torch.float64)
+    tckpt.save_checkpoint(str(tmp_path), x=x, v=-x, generator_state=gen.get_state(),
+                          params=ts.params, container=cont,
+                          counters={"burnin_start": 3, "sim_start": 0},
+                          sim_stats={"iters": 4.0}, mu_tuner_state={"mu": 0.0})
+    assert tckpt.has_checkpoint(str(tmp_path))
+    st = tckpt.load_checkpoint(str(tmp_path))
+    np.testing.assert_array_equal(st["x"], x.numpy())
+    assert st["generator"].dtype == np.uint8
+    restored = torch.Generator()
+    restored.set_state(torch.as_tensor(st["generator"]))
+    assert torch.equal(torch.rand(3, generator=restored), torch.rand(3, generator=gen))
+    np.testing.assert_array_equal(st["container"]["onsite_corr"]["Greens"],
+                                  cont["onsite_corr"]["Greens"].numpy())
+    np.testing.assert_array_equal(st["params"]["mu"], ts.params.mu.numpy())
+    assert st["counters"]["burnin_start"] == 3
+    # a checkpoint of the JAX package (a PRNG key instead of a generator)
+    np.savez(tmp_path / "checkpoint.npz", x=st["x"], v=st["v"], key=np.zeros(2, np.uint32))
+    with pytest.raises(ValueError, match="not interchangeable"):
+        tckpt.load_checkpoint(str(tmp_path))
+
+
+UNPORTED = [
+    (lambda c: c.update(ssh=c.pop("holstein")), "slice C"),
+    (lambda c: c.update(langevin=c.pop("hmc")), "slice D"),
+    (lambda c: c["solver"].update(type="GMRES"), "slice E"),
+    (lambda c: c["solver"].update(block=True), "slice E"),
+    (lambda c: c["solver"]["preconditioner"].update(stacked=True), "slice E"),
+    (lambda c: c["holstein"].update(twist=[0.3, 0.0]), "slice F"),
+    (lambda c: c["holstein"]["t"][0].update(imag=0.2), "slice F"),
+    (lambda c: c.update(tempering={"ladder": [1.0, 0.5]}), "slice G"),
+    (lambda c: c["hmc"].update(tune_dt=True), "slice G"),
+    (lambda c: c["hmc"].update(integrator="2mn"), "slice G"),
+    (lambda c: c["solver"].update(deflation={"k": 4}), "slice I"),
+    (lambda c: c["solver"].update(nearnull={"k": 4}), "slice I"),
+    (lambda c: c["measurements"].update(BondBond={"measure": True}), "slice B"),
+]
+
+
+@pytest.mark.parametrize("edit,slice_", UNPORTED, ids=[u[1] + f"-{i}" for i, u in enumerate(UNPORTED)])
+def test_unported_sections_raise(edit, slice_, tmp_path):
+    cfg = _stock("holstein_hmc_square")
+    edit(cfg)
+    with pytest.raises(NotImplementedError, match=slice_):
+        tconfig.build_setup(cfg, str(tmp_path), "cpu", torch.float64)
+
+
+def test_cli_refuses_cuda_without_a_card_and_multi_gpu(capsys):
+    path = os.path.join(EXAMPLES, "holstein_hmc_square.toml")
+    if not torch.cuda.is_available():
+        assert cli.main([path]) != 0
+        assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="slice H"):
+        cli.main([path, "--devices", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice H"):
+        cli.main([path, "--multihost", "--device", "cpu"])

@@ -1,5 +1,5 @@
-"""The CUDA checkerboard-fold kernel against its plain torch twin, on the
-card. Every test here needs an NVIDIA GPU and skips without one. The file
+"""The CUDA checkerboard-fold kernel and the fused Chebyshev-step kernel
+against their plain torch twins, on the card. Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so a machine with only PyTorch
 runs it:
 
@@ -18,13 +18,14 @@ from elphdynamics_tpu_torch.ops import ckb_cuda
 DIRECTIONS = [("forward", False, 1.0), ("transpose", True, 1.0),
               ("inverse", True, -1.0), ("inverse_transpose", False, -1.0)]
 # relative to max|twin|: float64 differs from the twin only by FMA contraction
+# and the order of the epilogue's terms
 TOLS = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the fold kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the fold kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -68,3 +69,53 @@ def test_kernel_refuses_bad_inputs(cuda):
         ckb_cuda.fold(spec, c, s, v[:-1].contiguous())               # wrong site count
     with pytest.raises(TypeError):
         ckb_cuda.fold(spec, c.half(), s.half(), v.half())
+
+
+# (chains, rows per chain): the K2 shapes of chip_smoke.py — 16 chains, and
+# 16 chains × nᵥ = 10 Green's-function rows — and a small ragged case
+FUSED_SHAPES = [(6, 2, 3, 7), (64, 16, 1, 40), (64, 16, 10, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_prev", [False, True], ids=["no_prev", "prev"])
+@pytest.mark.parametrize("name,rev,sign", DIRECTIONS[:2], ids=[d[0] for d in DIRECTIONS[:2]])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("L,C,nv,K", FUSED_SHAPES, ids=["6x6", "64x64_C16", "64x64_C16_nv10"])
+def test_fused_kernel_matches_twin(cuda, L, C, nv, K, dtype, name, rev, sign, use_prev):
+    spec, params = _spec(L)
+    c = params.cosht.to(device=cuda, dtype=dtype)
+    s = params.sinht.to(device=cuda, dtype=dtype)
+    N = spec.nsites
+    g = torch.Generator(device=cuda).manual_seed(3)
+    v = torch.randn((C, nv, N, K), generator=g, device=cuda, dtype=dtype)
+    prev = torch.randn((C, nv, N, K), generator=g, device=cuda, dtype=dtype) if use_prev else None
+    pre = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
+    post = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
+    a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
+    b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
+    kw = dict(reverse=rev, sign=sign, pre=pre if not rev else None,
+              post=post if rev else None, a=a, b=b, c=-1.0, prev=prev)
+    before = ckb_cuda.fused_launches
+    got = ckb_cuda.fold_fused(spec, c, s, v, **kw)
+    assert ckb_cuda.fused_launches == before + 1
+    want = ckb.fold_fused(spec, c, s, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == v.shape and got.dtype == dtype
+    assert got.data_ptr() not in (v.data_ptr(), None if prev is None else prev.data_ptr())
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+
+
+@pytest.mark.cuda
+def test_fused_kernel_refuses_bad_inputs(cuda):
+    spec, params = _spec(6)
+    c, s = params.cosht.to(cuda), params.sinht.to(cuda)
+    v = torch.randn((2, spec.nsites, 8), device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        ckb_cuda.fold_fused(spec, c, s, v, a=torch.ones(3, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ckb_cuda.fold_fused(spec, c, s, v, pre=torch.ones((2, 5), device=cuda,
+                                                          dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ckb_cuda.fold_fused(spec, c, s, v, prev=v[:1].contiguous())
+    with pytest.raises(ValueError):
+        ckb_cuda.fold_fused(spec, c, s, v, a=torch.ones(2, device=cuda))  # float32 a

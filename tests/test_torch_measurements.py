@@ -1,0 +1,202 @@
+"""The measurement stage of the PyTorch port against the JAX package,
+float64 on the CPU.
+
+One measurement step per chain (2 chains, nᵥ = 4, a two-orbital lattice so
+the orbital-pair axes are exercised) with JAX's probe vectors and KPM start
+vectors fed to the port: every increment agrees to 1e-9 (the probe solves
+run to tol 1e-10, so the two CG runs agree far below that), the solver
+statistics are equal, and ``process_bin`` on one container agrees to 1e-12.
+The reflection and swap updates, given JAX's draws, make the same accept
+decisions and end at the same fields to 1e-10.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elphdynamics_tpu.dynamics import special_updates as jsu
+from elphdynamics_tpu.dynamics.force import SolverConfig as JSolverConfig
+from elphdynamics_tpu.lattice import Lattice as JLattice
+from elphdynamics_tpu.lattice import UnitCell as JUnitCell
+from elphdynamics_tpu.measure import measurements as jm
+from elphdynamics_tpu.models.adapter import make_model_ops as j_make_model_ops
+from elphdynamics_tpu.models.holstein import build_holstein as j_build_holstein
+from elphdynamics_tpu.ops import kpm as jkpm
+from elphdynamics_tpu_torch.dynamics import special_updates as tsu
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+from elphdynamics_tpu_torch.measure import measurements as tm
+from elphdynamics_tpu_torch.models.adapter import make_model_ops
+from elphdynamics_tpu_torch.models.holstein import build_holstein
+from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.utils.math import simpson
+
+torch.set_num_threads(1)
+
+C, NV = 2, 4
+UC = (2, 2, [[1.5, 0.8660254037844386], [1.5, -0.8660254037844386]],
+      [[0.0, 0.0], [1.0, 0.0]])
+KW = dict(t_assignments=[(1.0, 0.1, 0, 1, (0, 0, 0)), (1.0, 0.0, 1, 0, (1, 0, 0)),
+                         (1.0, 0.0, 1, 0, (0, 1, 0))],
+          omega=1.0, omega_std=0.1, lam=0.7, mu=-0.3, mu_std=0.1)
+KPM_CFG = dict(max_order=8)
+TOL = 1e-10
+SPECS = {
+    "time_dependent": tm.MeasurementSpec(
+        nv=NV, onsite_corr=tuple((k, True) for k in tm.ONSITE_CORR_KINDS),
+        snapshots=("density", "double_occupancy", "phonon_position")),
+    "equal_time": tm.MeasurementSpec(
+        nv=NV, onsite_corr=(("Greens", False), ("DenDen", False), ("SpinSpin", False),
+                            ("PairGreens", False, ((0, 1), (1, 1))),
+                            ("PhononGreens", False))),
+}
+
+
+@pytest.fixture(scope="module")
+def models():
+    js, jp = j_build_holstein(JLattice.create(JUnitCell.create(*UC), 2), 0.6, 0.1,
+                              rng=np.random.default_rng(2), **KW)
+    ts, tp = build_holstein(Lattice.create(UnitCell.create(*UC), 2), 0.6, 0.1,
+                            rng=np.random.default_rng(2), **KW)
+    jops, tops = j_make_model_ops(js), make_model_ops(ts)
+    # the port's preconditioner starts its power iteration from JAX's vectors
+    k1, k2 = jax.random.split(jax.random.PRNGKey(1234))
+    start = tuple(torch.as_tensor(np.array(jax.random.normal(k, (ts.Nsites, 1),
+                                                             dtype=jnp.float64)))
+                  for k in (k1, k2))
+    cfg = kpm.KPMConfig(**KPM_CFG)
+    tprec = kpm.Preconditioner(
+        setup=lambda params, x, start_=None: kpm.setup(tops, params, x, cfg, start),
+        refresh=lambda st, params, x: kpm.refresh(tops, st, params, x),
+        symmetric=lambda st, v: kpm.apply_symmetric(tops, st, v, cfg))
+    jprec = jkpm.make_symmetric_precond(jops, jkpm.KPMConfig(**KPM_CFG))
+    x = 0.4 * np.random.default_rng(7).standard_normal((C, ts.Nph, ts.Ltau)) + 0.3
+    return jops, jp, jprec, tops, tp, tprec, x
+
+
+def _jax_probes(keys, N, Lt):
+    """The probes elphdynamics_tpu/measure/greens.py:sample_greens draws."""
+    return np.stack([np.asarray(jax.random.normal(jax.random.split(k)[1], (NV, N, Lt),
+                                                  dtype=jnp.float64)) for k in keys])
+
+
+@pytest.fixture(scope="module", params=list(SPECS), ids=list(SPECS))
+def measured(request, models):
+    jops, jp, jprec, tops, tp, tprec, x = models
+    mspec = SPECS[request.param]
+    keys = jax.random.split(jax.random.PRNGKey(5), C)
+    jstep = jax.jit(jm.make_measurement_step(jops, mspec, JSolverConfig(tol=TOL, maxiter=2000),
+                                             jprec))
+    jout = [jstep(jp, jnp.asarray(x[c]), keys[c]) for c in range(C)]
+    tstep = tm.make_measurement_step(tops, mspec, SolverConfig(tol=TOL, maxiter=2000), tprec)
+    R = torch.as_tensor(_jax_probes(keys, tops.Nsites, tops.Ltau))
+    tout = tstep(tp, torch.as_tensor(x), R=R)
+    return mspec, tops, jops, jout, tout
+
+
+def test_measurement_step_matches_jax(measured):
+    mspec, tops, _, jout, (inc, stats, snaps) = measured
+    for c in range(C):
+        jinc, jstats, jsnaps, _ = jout[c]
+        assert set(inc) == set(jinc)
+        for group in inc:
+            assert set(inc[group]) == set(jinc[group]), group
+            for k, v in inc[group].items():
+                np.testing.assert_allclose(v[c].numpy(), np.asarray(jinc[group][k]),
+                                           rtol=1e-9, atol=1e-9, err_msg=f"{group}/{k}")
+        assert int(stats["iters"][c]) == int(jstats["iters"])
+        assert int(stats["flag"][c]) == int(jstats["flag"]) == 0
+        assert set(snaps) == set(jsnaps)
+        for k, v in snaps.items():
+            np.testing.assert_allclose(v[c].numpy(), np.asarray(jsnaps[k]), rtol=1e-9, atol=1e-9)
+
+
+def test_container_and_process_bin_match_jax(measured):
+    mspec, tops, jops, _, (inc, stats, snaps) = measured
+    mean, snap0 = tm.mean_over_chains(inc, snaps, stats["flag"])
+    zero = tm.zero_container(tops, mspec, torch.float64, "cpu")
+    jzero = jm.zero_container(jops, mspec)
+    for group in zero:
+        for k, z in zero[group].items():
+            assert tuple(z.shape) == jzero[group][k].shape, (group, k)
+            assert (z.dtype == torch.complex128) == jnp.iscomplexobj(jzero[group][k])
+            assert tuple(mean[group][k].shape) == tuple(z.shape)
+    container = {g: {k: 3.0 * v for k, v in vals.items()} for g, vals in mean.items()}
+    got = tm.process_bin(tops, mspec, container, 3)
+    want = jm.process_bin(jops, mspec, jax.tree.map(lambda t: jnp.asarray(t.numpy()), container), 3)
+    flat_got = {"/".join(map(str, p)): v for p, v in jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), got))[0]}
+    flat_want = {"/".join(map(str, p)): v for p, v in jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert flat_got.keys() == flat_want.keys()
+    for k in flat_got:
+        np.testing.assert_allclose(flat_got[k], np.asarray(flat_want[k]), rtol=1e-12, atol=1e-12,
+                                   err_msg=k)
+    for k, v in snap0.items():
+        torch.testing.assert_close(v, snaps[k][0])
+
+
+def test_mean_over_chains_masks_flagged_chains():
+    inc = {"global": {"density": torch.tensor([1.0, 3.0, 5.0])}}
+    snaps = {"density": torch.tensor([[1.0], [2.0], [3.0]])}
+    mean, snap = tm.mean_over_chains(inc, snaps, torch.tensor([1, 0, 0]))
+    assert mean["global"]["density"].item() == 4.0 and snap["density"].item() == 2.0
+    mean, snap = tm.mean_over_chains(inc, snaps, torch.tensor([1, 2, 1]))
+    assert mean["global"]["density"].item() == 3.0 and snap["density"].item() == 1.0
+
+
+def test_intersite_correlations_raise(models):
+    tops = models[3]
+    with pytest.raises(NotImplementedError, match="slice B"):
+        tm.make_measurement_step(tops, tm.MeasurementSpec(intersite_corr=(("BondBond", False),)))
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 6, 7])
+def test_simpson_matches_jax(L):
+    from elphdynamics_tpu.utils.math import simpson as jsimpson
+    f = np.random.default_rng(L).standard_normal((L, 3))
+    np.testing.assert_allclose(simpson(torch.as_tensor(f), 0.1).numpy(),
+                               np.asarray(jsimpson(jnp.asarray(f), 0.1)), rtol=1e-14, atol=1e-15)
+
+
+def _special_draws(kind, key, n_moves, N, Lt, Nph, Nbonds):
+    """The draws of the JAX reflection / swap update from ``key``."""
+    if kind == "reflect":
+        key, ks = jax.random.split(key)
+        picks = np.asarray(jax.random.randint(ks, (n_moves,), 0, Nph))
+    pf, uni, bonds = [], [], []
+    for _ in range(n_moves):
+        if kind == "swap":
+            key, kb = jax.random.split(key)
+            bonds.append(int(jax.random.randint(kb, (), 0, Nbonds)))
+        key, kp = jax.random.split(key)
+        pf.append(np.asarray(jax.random.normal(kp, (2, N, Lt), dtype=jnp.float64)))
+        key, ka = jax.random.split(key)
+        uni.append(float(jax.random.uniform(ka, dtype=jnp.float64)))
+    return (picks if kind == "reflect" else np.asarray(bonds)), np.stack(pf), np.asarray(uni)
+
+
+@pytest.mark.parametrize("kind", ["reflect", "swap"])
+def test_special_updates_match_jax(models, kind):
+    jops, jp, jprec, tops, tp, tprec, x = models
+    n_moves = 3
+    cfg = dict(freq=1, n_moves=n_moves, tol=1e-5, maxiter=2000)
+    jmake = jsu.make_reflection_update if kind == "reflect" else jsu.make_swap_update
+    jupd = jax.jit(jmake(jops, jsu.SpecialUpdateConfig(**cfg), jprec))
+    keys = jax.random.split(jax.random.PRNGKey(9), C)
+    jres = [jupd(jp, jnp.asarray(x[c]), keys[c]) for c in range(C)]
+    per_chain = [_special_draws(kind, keys[c], n_moves, tops.Nsites, tops.Ltau, tops.Nph,
+                                tops.spec.Nbonds) for c in range(C)]
+    draws = tsu.SpecialDraws(
+        picks=torch.as_tensor(np.stack([d[0] for d in per_chain], axis=1)),
+        pseudofermion=torch.as_tensor(np.stack([d[1] for d in per_chain], axis=1)),
+        uniform=torch.as_tensor(np.stack([d[2] for d in per_chain], axis=1)))
+    tmake = tsu.make_reflection_update if kind == "reflect" else tsu.make_swap_update
+    tupd = tmake(tops, tsu.SpecialUpdateConfig(**cfg), tprec)
+    x_new, rate = tupd(tp, torch.as_tensor(x), draws=draws)
+    for c in range(C):
+        jx, jrate, _ = jres[c]
+        # JAX's rate is a float32 quotient of the accept count
+        assert round(rate[c].item() * n_moves) == round(float(jrate) * n_moves)
+        np.testing.assert_allclose(x_new[c].numpy(), np.asarray(jx), rtol=0, atol=1e-10)
