@@ -357,7 +357,8 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
     launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
     h, sp = cfg["hmc"], cfg["simulation"]
     folder = os.path.join(workdir, f"{sp['foldername']}-1")
-    summary = open(os.path.join(folder, f"{sp['foldername']}_summary.out")).read()
+    with open(os.path.join(folder, f"{sp['foldername']}_summary.out")) as f:
+        summary = f.read()
     sections = ("INPUT FILE CONTENTS", "SIMULATION INFO", "GLOBAL MEASUREMENTS",
                 "ON-SITE MEASUREMENTS", "SUSCEPTIBILITIES", "CORRELATIONS")
     finite = True
@@ -366,7 +367,8 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
                           ("Greens_position", "table"), ("PairSusc_momentum", "table")):
             path = os.path.join(folder, f"{sub}_f", f"{sub}_{b:05d}.out")
             if kind == "keyed":
-                lines = open(path).read().splitlines()
+                with open(path) as f:
+                    lines = f.read().splitlines()
                 vals = np.asarray([float(r.split()[-1]) for r in lines
                                    if r.split() and r.split()[0] != "measurement"])
             else:
@@ -395,7 +397,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
     return out
 
 
-def phase_driver(small_too: bool = True) -> dict:
+def phase_driver() -> dict:
     """The stock 4×4 example with its counts cut, and the same file at
     64×64 (β = 4, dt = 0.025, 4 bosonic substeps, 4 chains): the full-width
     run, with K1 (fermion operator, Ā power iteration) and K2 (Chebyshev
@@ -404,11 +406,10 @@ def phase_driver(small_too: bool = True) -> dict:
     with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
         stock = tomllib.load(f)
     with tempfile.TemporaryDirectory() as work:
-        if small_too:
-            small = json.loads(json.dumps(stock))
-            small["hmc"].update(burnin_updates=20, simulation_updates=40)
-            small["simulation"]["num_bins"] = 4
-            run_driver("square_4x4", small, 1, work)
+        small = json.loads(json.dumps(stock))
+        small["hmc"].update(burnin_updates=20, simulation_updates=40)
+        small["simulation"]["num_bins"] = 4
+        run_driver("square_4x4", small, 1, work)
         big = json.loads(json.dumps(stock))
         big["lattice"]["L"] = 64
         big["holstein"]["beta"] = 4.0

@@ -1,12 +1,15 @@
 """Profile one update, or one measurement, of the PyTorch port on a CUDA
 card.
 
-    python scripts/profile_torch_hmc.py [bench_8x8|kernel_64x64|measure_64x64] [--trace DIR]
+    python scripts/profile_torch_hmc.py [bench_8x8|kernel_64x64|measure_64x64|driver_4x4] [--trace DIR]
 
 ``bench_8x8`` and ``kernel_64x64`` are the HMC updates of ``bench.py``;
 ``measure_64x64`` is one measurement of the driver at 64×64, β = 4 (4
 chains, nᵥ = 10, the five time-dependent on-site correlations, KPM
-max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it. Builds the
+max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it;
+``driver_4x4`` is one sampling step of the driver on
+``examples/holstein_hmc_square.toml`` (1 chain): the HMC update, the
+reflection and swap moves and the measurement. Builds the
 configuration in float32, runs it once to warm up, then once under
 ``torch.profiler`` and prints: wall time, summed device-kernel time and
 the device's busy share, both kernels' launches, the heaviest kernels by
@@ -33,7 +36,8 @@ from elphdynamics_tpu_torch.ops import ckb_cuda  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("config", choices=["bench_8x8", "kernel_64x64", "measure_64x64"])
+    ap.add_argument("config",
+                    choices=["bench_8x8", "kernel_64x64", "measure_64x64", "driver_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -41,6 +45,8 @@ def main() -> int:
         return 1
     if args.config == "measure_64x64":
         run = _measurement()
+    elif args.config == "driver_4x4":
+        run = _driver_step()
     else:
         cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64}[args.config]
         b = bench.build(cfg, "cuda", torch.float32)
@@ -88,6 +94,43 @@ def _measurement():
         inc, stats, snaps = step(b.params, b.state.x, b.generator)
         M.mean_over_chains(inc, snaps, stats["flag"])
         return stats["iters"]
+
+    return run
+
+
+def _driver_step():
+    """One sampling step of the driver on the stock 4×4 example."""
+    import tempfile
+
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
+    from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
+    from elphdynamics_tpu_torch.dynamics.special_updates import (
+        make_reflection_update, make_swap_update)
+    from elphdynamics_tpu_torch.io.config import build_setup, load_toml
+    from elphdynamics_tpu_torch.measure import measurements as M
+    from elphdynamics_tpu_torch.ops import kpm
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = load_toml(str(root / "examples" / "holstein_hmc_square.toml"))
+    setup = build_setup(cfg, tempfile.gettempdir(), "cuda", torch.float32)
+    ops, params = setup.ops, setup.params
+    precond = kpm.make_symmetric_precond(ops, setup.kpm_cfg)
+    step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
+    reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
+    swap = make_swap_update(ops, setup.swap_cfg, precond)
+    mstep = M.make_measurement_step(ops, setup.mspec, setup.solver_cfg, precond)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = init_phonons_half_filled(ops, params, 1, gen)
+    box = {"state": HMCState(x=x, v=torch.zeros_like(x))}
+
+    def run():
+        state, stats = step(params, box["state"], gen)
+        x, _ = reflect(params, state.x, gen)
+        x, _ = swap(params, x, gen)
+        inc, mstats, snaps = mstep(params, x, gen)
+        M.mean_over_chains(inc, snaps, mstats["flag"])
+        box["state"] = HMCState(x=x, v=state.v)
+        return stats.iters
 
     return run
 
