@@ -87,15 +87,6 @@ int launch(const T* in, T* out, const int* bi, const int* bj, const T* c,
 
 extern "C" {
 
-// Largest dynamic shared memory a block may opt in to on `device` (bytes),
-// or a negative CUDA error code.
-int ckb_smem_optin(int device) {
-  int v = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? v : -static_cast<int>(err);
-}
-
 int ckb_fold_f32(const float* in, float* out, const int* bi, const int* bj,
                  const float* c, const float* s, const int* goff, int ngroups,
                  int reverse, double sign, int B, int N, int K, int kt,

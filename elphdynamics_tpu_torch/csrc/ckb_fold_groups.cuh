@@ -11,9 +11,15 @@
 // caller may read any slab element afterwards.
 //
 // Bond tables: endpoints bi/bj [nb] in checkerboard order, group offsets
-// goff [G+1], coefficients c/s [nb]; sign = −1 gives the inverse.
+// goff [G+1], coefficients c/s [nb]; sign = −1 gives the inverse. With no
+// groups the sweep does nothing and the slab keeps what was loaded.
+//
+// Also the card's opt-in shared-memory budget, which sizes the slab: each
+// library that includes this header exports it.
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 template <typename T>
 __device__ __forceinline__ void ckb_fold_slab(T* slab, const int* __restrict__ bi,
@@ -42,4 +48,13 @@ __device__ __forceinline__ void ckb_fold_slab(T* slab, const int* __restrict__ b
     }
     __syncthreads();
   }
+}
+
+// Largest dynamic shared memory a block may opt in to on `device` (bytes),
+// or a negative CUDA error code.
+extern "C" int ckb_smem_optin(int device) {
+  int v = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err == cudaSuccess ? v : -static_cast<int>(err);
 }

@@ -187,34 +187,46 @@ def fold(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
     return _apply_groups(spec, cosh_b, sinh_b, v, order, sign)
 
 
-def n_chains(v: torch.Tensor) -> int:
-    """Chains of a ``[C, ..., N, K]`` field; an ``[N, K]`` block is one."""
-    return v.shape[0] if v.ndim >= 3 else 1
+def check_fused_operands(v, pre, post, a, b, prev) -> None:
+    """Raise unless the operands of a fused step are what the kernel and its
+    twin take: ``v`` ``[C, ..., N, K]``; ``a``, ``b`` ``[C]``; ``pre``,
+    ``post`` ``[C, N]`` or None; ``prev`` of ``v``'s shape or None; all of
+    ``v``'s dtype and device."""
+    if v.ndim < 3:
+        raise ValueError(f"field must be [C, ..., N, K], got {tuple(v.shape)}")
+    C, N = v.shape[0], v.shape[-2]
+    for name, t, shape in (("a", a, (C,)), ("b", b, (C,)), ("pre", pre, (C, N)),
+                           ("post", post, (C, N)), ("prev", prev, tuple(v.shape))):
+        if t is None and name not in ("a", "b"):
+            continue
+        if not (torch.is_tensor(t) and tuple(t.shape) == shape and t.dtype == v.dtype
+                and t.device == v.device):
+            got = (f"{tuple(t.shape)} {t.dtype} on {t.device}" if torch.is_tensor(t)
+                   else type(t).__name__)
+            raise ValueError(f"{name} must be a {list(shape)} {v.dtype} tensor on "
+                             f"{v.device}, got {got}")
 
 
 def fold_fused(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
-               sign: float = 1.0, pre=None, post=None, a=1.0, b=0.0, c: float = 0.0,
+               sign: float = 1.0, pre=None, post=None, a, b, c: float = 0.0,
                prev=None):
     """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev``: the
     plain twin of the fused CUDA kernel (``csrc/ckb_fold_fused.cu``), with
-    its signature. ``v`` is ``[C, ..., N, K]`` (``[N, K]`` is one chain);
-    ``a``, ``b`` are numbers or per-chain ``[C]``; ``pre``/``post`` are
-    per-chain site diagonals ``[C, N]`` (or ``[N]``) or None; ``c`` is a
-    number and ``prev`` a field of ``v``'s shape or None."""
-    C = n_chains(v)
+    its signature. ``v`` is ``[C, ..., N, K]``; ``a``, ``b`` are per-chain
+    ``[C]``; ``pre``/``post`` are per-chain site diagonals ``[C, N]`` or
+    None; ``c`` is a number and ``prev`` a field of ``v``'s shape or None."""
+    check_fused_operands(v, pre, post, a, b, prev)
+    C = v.shape[0]
     v4 = v.reshape(C, -1, *v.shape[-2:])
 
-    def chain(t):
-        return t.reshape(-1, 1, 1, 1) if torch.is_tensor(t) else t
-
     def diag(d):
-        return d.reshape(-1, 1, d.shape[-1], 1)
+        return d.reshape(C, 1, -1, 1)
 
     u = v4 if pre is None else diag(pre) * v4
     f = fold(spec, cosh_b, sinh_b, u, reverse=reverse, sign=sign)
     if post is not None:
         f = diag(post) * f
-    o = chain(a) * f + chain(b) * v4
+    o = a.reshape(C, 1, 1, 1) * f + b.reshape(C, 1, 1, 1) * v4
     if prev is not None:
         o = o + c * prev.reshape(v4.shape)
     return o.reshape(v.shape)

@@ -50,7 +50,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 THREADS = 1024
 
+_PTR, _I32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# argument types of each library's ``<name>_f32`` / ``<name>_f64`` entry point
+_ARGTYPES = {
+    "ckb_fold": [_PTR] * 7 + [_I32, _I32, _F64] + [_I32] * 5 + [_PTR],
+    "ckb_fold_fused": [_PTR] * 8 + [_I32, _I32, _F64] + [_PTR] * 4 + [_F64] + [_I32] * 6 + [_PTR],
+}
+
 _libs: dict = {}
+_smem_budget: dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -105,20 +113,19 @@ def _load(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build()[name]))
-        ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        if name == "ckb_fold":
-            lib.ckb_smem_optin.argtypes = [i32]
-            lib.ckb_smem_optin.restype = i32
-            sigs = {fn: [ptr] * 7 + [i32, i32, f64] + [i32] * 5 + [ptr]
-                    for fn in ("ckb_fold_f32", "ckb_fold_f64")}
-        else:
-            sigs = {fn: [ptr] * 8 + [i32, i32, f64] + [ptr] * 4 + [f64] + [i32] * 6 + [ptr]
-                    for fn in ("ckb_fold_fused_f32", "ckb_fold_fused_f64")}
-        for fn, argtypes in sigs.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = i32
+        lib.ckb_smem_optin.argtypes = [_I32]
+        lib.ckb_smem_optin.restype = _I32
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = _I32
         _libs[name] = lib
     return lib
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """The ``float32``/``float64`` entry point of library ``name``."""
+    return getattr(_load(name), f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
 
 
 def _device_tables(spec: ckb.CheckerboardSpec, device: torch.device):
@@ -163,14 +170,19 @@ def _check(spec, cosh_b, sinh_b, v) -> None:
         raise ValueError("field must be contiguous")
 
 
-def _geometry(spec, v):
-    """(device index, B, N, K, kt, bond tables) of a launch on ``v``."""
+def _geometry(spec, v, name: str):
+    """(device index, B, N, K, kt, bond tables) of a launch of library
+    ``name`` on ``v``; the card's shared-memory budget is read once per
+    device."""
     N, K = v.shape[-2:]
     B = math.prod(v.shape[:-2])
     dev = v.device.index if v.device.index is not None else torch.cuda.current_device()
-    smem = _load("ckb_fold").ckb_smem_optin(dev)
-    if smem <= 0:
-        raise RuntimeError(f"cudaDeviceGetAttribute failed ({-smem})")
+    smem = _smem_budget.get(dev)
+    if smem is None:
+        smem = _load(name).ckb_smem_optin(dev)
+        if smem <= 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed ({-smem})")
+        _smem_budget[dev] = smem
     kt = choose_tile(B, N, K, v.element_size(), smem,
                      torch.cuda.get_device_properties(dev).multi_processor_count)
     return dev, B, N, K, kt, _device_tables(spec, v.device)
@@ -180,12 +192,10 @@ def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor
     global launches
     _check(spec, cosh_b, sinh_b, v)
     out = torch.empty_like(v)
-    if v.numel() == 0 or spec.ngroups == 0:
-        out.copy_(v)
+    if v.numel() == 0:
         return out
-    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v)
-    lib = _load("ckb_fold")
-    fn = lib.ckb_fold_f32 if v.dtype == torch.float32 else lib.ckb_fold_f64
+    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v, "ckb_fold")
+    fn = _entry("ckb_fold", v.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(v.data_ptr(), out.data_ptr(), bi.data_ptr(), bj.data_ptr(),
@@ -210,46 +220,19 @@ def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False
     raise ValueError(f"no checkerboard fold for device {v.device}")
 
 
-def _per_chain(name: str, t, C: int, v) -> torch.Tensor:
-    """A per-chain scalar (a number, or a ``[C]`` tensor) as a contiguous
-    ``[C]`` tensor of ``v``'s dtype on ``v``'s device."""
-    if not torch.is_tensor(t):
-        return torch.full((C,), float(t), dtype=v.dtype, device=v.device)
-    if t.device != v.device or t.dtype != v.dtype or t.shape not in ((C,), ()):
-        raise ValueError(f"{name} must be a number or [{C}] {v.dtype} on {v.device}, "
-                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    return t.expand(C).contiguous()
-
-
-def _site_diag(name: str, d, C: int, v):
-    """A per-chain site diagonal ``[C, N]`` (or None), contiguous."""
-    if d is None:
-        return None
-    N = v.shape[-2]
-    if d.device != v.device or d.dtype != v.dtype or d.shape not in ((C, N), (N,)):
-        raise ValueError(f"{name} must be [{C}, {N}] {v.dtype} on {v.device}, "
-                         f"got {tuple(d.shape)} {d.dtype} on {d.device}")
-    return d.expand(C, N).contiguous()
-
-
 def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
                   prev) -> torch.Tensor:
     global fused_launches
     _check(spec, cosh_b, sinh_b, v)
-    C = ckb.n_chains(v)
-    a, b = _per_chain("a", a, C, v), _per_chain("b", b, C, v)
-    pre, post = _site_diag("pre", pre, C, v), _site_diag("post", post, C, v)
-    if prev is not None and (prev.shape != v.shape or prev.dtype != v.dtype
-                             or prev.device != v.device or not prev.is_contiguous()):
-        raise ValueError(f"prev must be a contiguous {tuple(v.shape)} {v.dtype} "
-                         f"tensor on {v.device}")
-    if v.numel() == 0 or spec.ngroups == 0:
-        return ckb.fold_fused(spec, cosh_b, sinh_b, v, reverse=reverse, sign=sign,
-                              pre=pre, post=post, a=a, b=b, c=c, prev=prev)
+    ckb.check_fused_operands(v, pre, post, a, b, prev)
+    if prev is not None and not prev.is_contiguous():
+        raise ValueError("prev must be contiguous")
+    pre, post, a, b = (None if t is None else t.contiguous() for t in (pre, post, a, b))
     out = torch.empty_like(v)
-    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v)
-    lib = _load("ckb_fold_fused")
-    fn = lib.ckb_fold_fused_f32 if v.dtype == torch.float32 else lib.ckb_fold_fused_f64
+    if v.numel() == 0:
+        return out
+    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v, "ckb_fold_fused")
+    fn = _entry("ckb_fold_fused", v.dtype)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -259,7 +242,7 @@ def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
         err = fn(v.data_ptr(), out.data_ptr(), ptr(prev), bi.data_ptr(), bj.data_ptr(),
                  cosh_b.data_ptr(), sinh_b.data_ptr(), goff.data_ptr(),
                  spec.ngroups, int(reverse), float(sign), ptr(pre), ptr(post),
-                 a.data_ptr(), b.data_ptr(), float(c), B, N, K, kt, B // C,
+                 ptr(a), ptr(b), float(c), B, N, K, kt, B // v.shape[0],
                  THREADS, stream)
     if err != 0:
         raise RuntimeError(f"ckb_fold_fused kernel launch failed: CUDA error {err}")
@@ -268,15 +251,14 @@ def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
 
 
 def fold_fused(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
-               sign: float = 1.0, pre=None, post=None, a=1.0, b=0.0, c: float = 0.0,
+               sign: float = 1.0, pre=None, post=None, a, b, c: float = 0.0,
                prev=None) -> torch.Tensor:
     """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` on a
-    ``[C, ..., N, K]`` field (``[N, K]`` is one chain): per-chain ``a``,
-    ``b`` (numbers or ``[C]``) and ``pre``/``post`` (``[C, N]`` or None),
-    one number ``c``, ``prev`` (v's shape) or None. The CUDA kernel for a
-    CUDA tensor, the plain twin :func:`..checkerboard.fold_fused` for a CPU
-    tensor. The result is a new tensor (it never aliases ``v`` or
-    ``prev``)."""
+    ``[C, ..., N, K]`` field: per-chain ``a``, ``b`` (``[C]``) and
+    ``pre``/``post`` (``[C, N]`` or None), one number ``c``, ``prev`` (v's
+    shape) or None. The CUDA kernel for a CUDA tensor, the plain twin
+    :func:`..checkerboard.fold_fused` for a CPU tensor. The result is a new
+    tensor (it never aliases ``v`` or ``prev``)."""
     if v.device.type == "cuda":
         return _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post,
                              a, b, c, prev)

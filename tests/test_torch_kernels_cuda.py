@@ -110,12 +110,44 @@ def test_fused_kernel_refuses_bad_inputs(cuda):
     spec, params = _spec(6)
     c, s = params.cosht.to(cuda), params.sinht.to(cuda)
     v = torch.randn((2, spec.nsites, 8), device=cuda, dtype=torch.float64)
+    ok = dict(a=torch.ones(2, device=cuda, dtype=torch.float64),
+              b=torch.zeros(2, device=cuda, dtype=torch.float64))
+    bad = [dict(a=torch.ones(3, device=cuda, dtype=torch.float64)),
+           dict(b=0.5),                                              # a number
+           dict(pre=torch.ones((2, 5), device=cuda, dtype=torch.float64)),
+           dict(post=torch.ones(spec.nsites, device=cuda, dtype=torch.float64)),
+           dict(prev=v[:1].contiguous()),
+           dict(a=torch.ones(2, device=cuda))]                       # float32 a
+    for kw in bad:
+        with pytest.raises(ValueError):
+            ckb_cuda.fold_fused(spec, c, s, v, **(ok | kw))
     with pytest.raises(ValueError):
-        ckb_cuda.fold_fused(spec, c, s, v, a=torch.ones(3, device=cuda, dtype=torch.float64))
-    with pytest.raises(ValueError):
-        ckb_cuda.fold_fused(spec, c, s, v, pre=torch.ones((2, 5), device=cuda,
-                                                          dtype=torch.float64))
-    with pytest.raises(ValueError):
-        ckb_cuda.fold_fused(spec, c, s, v, prev=v[:1].contiguous())
-    with pytest.raises(ValueError):
-        ckb_cuda.fold_fused(spec, c, s, v, a=torch.ones(2, device=cuda))  # float32 a
+        ckb_cuda.fold_fused(spec, c, s, v[0], **ok)                  # no chain axis
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernels_launch_without_bonds(cuda, dtype):
+    """A model with no hopping has no bond groups: both kernels still launch
+    (the group sweep does nothing) and match their twins."""
+    spec = ckb.build_checkerboard_spec(36, np.zeros((2, 0), dtype=np.int64))
+    assert spec.ngroups == 0
+    empty = torch.zeros(0, device=cuda, dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    v, prev = (torch.randn((4, 3, 36, 10), generator=g, device=cuda, dtype=dtype)
+               for _ in range(2))
+    before = ckb_cuda.launches
+    got = ckb_cuda.fold(spec, empty, empty, v)
+    assert ckb_cuda.launches == before + 1
+    assert torch.equal(got, v) and got.data_ptr() != v.data_ptr()
+    kw = dict(pre=0.5 + torch.rand((4, 36), generator=g, device=cuda, dtype=dtype),
+              post=0.5 + torch.rand((4, 36), generator=g, device=cuda, dtype=dtype),
+              a=0.5 + torch.rand(4, generator=g, device=cuda, dtype=dtype),
+              b=torch.rand(4, generator=g, device=cuda, dtype=dtype) - 0.5,
+              c=-1.0, prev=prev)
+    before = ckb_cuda.fused_launches
+    got = ckb_cuda.fold_fused(spec, empty, empty, v, **kw)
+    assert ckb_cuda.fused_launches == before + 1
+    want = ckb.fold_fused(spec, empty, empty, v, **kw)
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]

@@ -101,14 +101,41 @@ def test_fold_fused_twin_matches_jax(models, C, nv, name, rev, sign, use_prev, d
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
 
 
-def test_fold_fused_twin_on_one_block(models):
-    """An [N, K] block is one chain; numbers stand for per-chain scalars."""
+def _ones(*shape):
+    return torch.ones(shape, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(v=_ones(16, 5)),                   # an [N, K] block: no chain axis
+    dict(a=1.5),                            # a number where a [C] tensor goes
+    dict(b=_ones(1)),                       # [1] for 2 chains
+    dict(pre=_ones(16)),                    # [N] where [C, N] goes
+    dict(post=_ones(2, 16).float()),        # another dtype
+    dict(prev=_ones(1, 16, 5)),             # not v's shape
+], ids=["block", "number_a", "short_b", "flat_pre", "f32_post", "short_prev"])
+def test_fold_fused_refuses_other_forms(models, bad):
+    """The twin takes exactly the kernel's operand forms: [C] scalars and
+    [C, N] diagonals on a [C, ..., N, K] field."""
     _, _, ts, tp = models
-    rng = np.random.default_rng(9)
-    v = torch.as_tensor(rng.standard_normal((ts.Nsites, 5)))
-    pre = torch.as_tensor(rng.uniform(0.5, 1.5, ts.Nsites))
-    got = ckb.fold_fused(ts.ckb, tp.cosht, tp.sinht, v, pre=pre, a=1.5, b=-0.25)
-    want = 1.5 * ckb.fold(ts.ckb, tp.cosht, tp.sinht, pre[:, None] * v) - 0.25 * v
+    kw = dict(v=_ones(2, ts.Nsites, 5), a=_ones(2), b=_ones(2)) | bad
+    with pytest.raises(ValueError):
+        ckb.fold_fused(ts.ckb, tp.cosht, tp.sinht, kw.pop("v"), **kw)
+
+
+def test_fold_fused_twin_without_bonds():
+    """With no bonds (no hopping) the fold is the identity and the step is
+    a·post⊙pre⊙v + b·v + c·prev."""
+    spec = ckb.build_checkerboard_spec(6, np.zeros((2, 0), dtype=np.int64))
+    assert spec.ngroups == 0
+    rng = np.random.default_rng(11)
+    v, prev = (torch.as_tensor(rng.standard_normal((2, 3, 6, 4))) for _ in range(2))
+    pre, post = (torch.as_tensor(rng.uniform(0.5, 1.5, (2, 6))) for _ in range(2))
+    a, b = torch.tensor([1.5, 0.5]).double(), torch.tensor([-0.25, 0.75]).double()
+    empty = torch.zeros(0, dtype=torch.float64)
+    got = ckb_cuda.fold_fused(spec, empty, empty, v, pre=pre, post=post, a=a, b=b,
+                              c=-1.0, prev=prev)
+    d = (pre * post)[:, None, :, None]
+    want = a[:, None, None, None] * d * v + b[:, None, None, None] * v - prev
     torch.testing.assert_close(got, want, rtol=1e-14, atol=1e-14)
 
 
