@@ -10,10 +10,14 @@ Phases (one line each, and the process exits non-zero if any fails):
    ckb_fold.cu``) and the fused Chebyshev step (K2, ``csrc/
    ckb_fold_fused.cu``), one nvcc per source, started together;
 3. K1 against its plain torch twin in all four directions at the main
-   path's shapes, float32 and float64, with median times;
+   path's shapes, float32 and float64, with device times per launch;
 4. K2 against its plain twin at [16, 1, 4096, 40] and [16, 10, 4096, 40]
    (16 chains, nᵥ = 10 rows each) with per-chain scalars and diagonals,
-   with and without ``prev``, both directions, float32 and float64;
+   with and without ``prev``, both directions, float32 and float64; for
+   both kernels at their main shape (f32, K1 [32, 4096, 40] forward, K2
+   [16, 10, 4096, 40] with prev) also the bound (bytes over the card's
+   memory rate) and ``torch.matmul`` by the assembled dense [N, N]
+   checkerboard matrix (TF32 off), the one-call library form of the fold;
 5. a small update (4×4, float64) on the card with K1 forced on, against
    the same update on the CPU through the plain twin;
 6. a small preconditioner apply (4×4, float64) on the fold branch: K2 on
@@ -31,7 +35,14 @@ Phases (one line each, and the process exits non-zero if any fails):
     measurement and the peak device memory.
 
 The line before the last is a JSON object with the kernels' numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+last line is ``{"ok": true, "device": {...}}``. Kernel times (``ms``,
+``plain_ms``, ``library_ms``) are device time per call: calls captured in a
+CUDA graph and replayed between CUDA events, so a host slower than the card
+does not enter them; ``call_ms`` in the phase lines is one call after a
+synchronisation (CUDA events, median of 20), host time before the launch
+included. The first launch of each kernel at a new shape times its launch
+geometries and keeps the fastest (``ops/ckb_cuda.candidates``); the
+kernel-vs-twin phases make that launch before they time.
 """
 
 from __future__ import annotations
@@ -52,12 +63,65 @@ import torch
 
 F32_TOL = 1e-5
 F64_TOL = 1e-12
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 DIRECTIONS = (("forward", False, 1.0), ("transpose", True, 1.0),
               ("inverse", True, -1.0), ("inverse_transpose", False, -1.0))
 
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def device_ms(fn, reps: int = 30, replays: int = 3) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph
+    (after a warm-up call on the capture stream), the graph replayed
+    ``replays`` times between two CUDA events, over ``replays``·``reps``.
+    The captured launches run back to back on the card, so the host's pace
+    does not enter, and no profiler trace (CUPTI) is needed."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    graph.reset()
+    return ms
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` of device memory traffic and
+    ``flops`` float32 operations, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_ms(spec, c, s, v) -> float:
+    """``torch.matmul`` by the assembled dense [N, N] checkerboard matrix
+    on ``v`` [..., N, K] (float32, TF32 off): the one PyTorch call that
+    computes the fold. Timed here only; the port never calls it."""
+    from elphdynamics_tpu_torch.ops import checkerboard as ckb
+
+    dense = torch.as_tensor(ckb.dense_matrix(spec, c.double().cpu().numpy(),
+                                             s.double().cpu().numpy()),
+                            dtype=v.dtype, device=v.device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return device_ms(lambda: torch.matmul(dense, v), reps=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -132,15 +196,21 @@ def phase_kernel_vs_twin() -> dict:
                 err = (got - want).abs().max().item()
                 rel = err / want.abs().max().item()
                 worst_abs = max(worst_abs, err)
-                ms = median_ms(lambda: ckb_cuda.fold(spec.ckb, c, s, v, reverse=rev, sign=sign))
-                plain = median_ms(lambda: ckb.fold(spec.ckb, c, s, v, reverse=rev, sign=sign))
+                run = lambda: ckb_cuda.fold(spec.ckb, c, s, v, reverse=rev, sign=sign)  # noqa: E731
+                ms, call = device_ms(run), median_ms(run)
+                plain = device_ms(lambda: ckb.fold(spec.ckb, c, s, v, reverse=rev, sign=sign),
+                                  reps=10)
                 say("kernel", dtype=str(dtype).split(".")[1], shape="x".join(map(str, shape)),
                     direction=name, max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
-                    kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+                    kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}", plain_ms=f"{plain:.4f}")
                 if not rel <= tol:
                     raise RuntimeError(f"kernel disagrees with the plain twin: {rel} > {tol}")
                 if dtype == torch.float32 and shape[0] == 32 and name == "forward":
-                    main = dict(ms=ms, plain_ms=plain)
+                    # 2 reads/writes per element; 3 flops per element per group
+                    b_ms, b_by = bound(2 * v.numel() * v.element_size(),
+                                       3 * v.numel() * spec.ckb.ngroups)
+                    main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=library_ms(spec.ckb, c, s, v))
     return dict(max_abs_err=worst_abs, **main)
 
 
@@ -175,16 +245,22 @@ def phase_fused_vs_twin() -> dict:
                     err = (got - want).abs().max().item()
                     rel = err / want.abs().max().item()
                     worst_abs = max(worst_abs, err)
-                    ms = median_ms(lambda: ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw))
-                    plain = median_ms(lambda: ckb.fold_fused(spec.ckb, c, s, v, **kw))
+                    run = lambda: ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw)  # noqa: E731
+                    ms, call = device_ms(run), median_ms(run)
+                    plain = device_ms(lambda: ckb.fold_fused(spec.ckb, c, s, v, **kw), reps=10)
                     say("fused_kernel", dtype=str(dtype).split(".")[1],
                         shape="x".join(map(str, shape)), direction=name, prev=use_prev,
                         max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
-                        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+                        kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}", plain_ms=f"{plain:.4f}")
                     if not rel <= tol:
                         raise RuntimeError(f"fused kernel disagrees with its twin: {rel} > {tol}")
                     if dtype == torch.float32 and inner == 10 and not rev and use_prev:
-                        main = dict(ms=ms, plain_ms=plain)
+                        # v, prev read and o written once; per element 3 flops per
+                        # group plus pre and the 5-flop combine
+                        b_ms, b_by = bound(3 * v.numel() * v.element_size(),
+                                           (3 * spec.ckb.ngroups + 6) * v.numel())
+                        main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=library_ms(spec.ckb, c, s, v))
     return dict(max_abs_err=worst_abs, **main)
 
 
@@ -453,17 +529,18 @@ def main() -> int:
         raise RuntimeError("kernel timing missing")
     say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
 
+    def entry(name, source, replaces, launches, k):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "bound_share": k["bound_ms"] / k["ms"], "library_ms": k["library_ms"]}
+
     print(json.dumps({"kernels": [
-        {"name": "ckb_fold", "route": "cuda",
-         "source": "elphdynamics_tpu_torch/csrc/ckb_fold.cu",
-         "replaces": "elphdynamics_tpu/ops/ckb_pallas.py:75",
-         "launches": drv["kernel_launches"], "max_abs_err": kern["max_abs_err"],
-         "ms": kern["ms"], "plain_ms": kern["plain_ms"]},
-        {"name": "ckb_fold_fused", "route": "cuda",
-         "source": "elphdynamics_tpu_torch/csrc/ckb_fold_fused.cu",
-         "replaces": "elphdynamics_tpu/ops/ckb_pallas.py:128",
-         "launches": drv["fused_kernel_launches"], "max_abs_err": fused["max_abs_err"],
-         "ms": fused["ms"], "plain_ms": fused["plain_ms"]}]}), flush=True)
+        entry("ckb_fold", "elphdynamics_tpu_torch/csrc/ckb_fold.cu",
+              "elphdynamics_tpu/ops/ckb_pallas.py:75", drv["kernel_launches"], kern),
+        entry("ckb_fold_fused", "elphdynamics_tpu_torch/csrc/ckb_fold_fused.cu",
+              "elphdynamics_tpu/ops/ckb_pallas.py:128", drv["fused_kernel_launches"], fused),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

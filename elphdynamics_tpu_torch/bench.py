@@ -26,6 +26,7 @@ from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams, build_holstein
 from elphdynamics_tpu_torch.ops import kpm
 from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
+from elphdynamics_tpu_torch.utils.device import require_device
 
 
 @dataclass(frozen=True)
@@ -52,12 +53,14 @@ class BenchStep:
 
 
 def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
-                     device="cpu", dtype: torch.dtype = torch.float32, *,
+                     device="cuda", dtype: torch.dtype = torch.float32, *,
                      seed: int = 0, trajectory_time: float = 1.0,
                      dense_threshold: int = 2048,
                      pallas_threshold: int = 2048) -> BenchStep:
     """Build the model, the KPM-preconditioned HMC step and a half-filled
-    initial state of ``n_chains`` chains on ``device``."""
+    initial state of ``n_chains`` chains on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = require_device(device)
     uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
     lat = Lattice.create(uc, L)
     spec, params = build_holstein(
@@ -78,7 +81,8 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                      state=HMCState(x=x, v=torch.zeros_like(x)), generator=gen)
 
 
-def build(cfg: BenchConfig, device="cpu", dtype: torch.dtype = torch.float32,
+def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
           **kw) -> BenchStep:
+    """:func:`build_bench_step` of one configuration."""
     return build_bench_step(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains,
                             device, dtype, **kw)

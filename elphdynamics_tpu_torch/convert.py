@@ -14,13 +14,16 @@ import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams
+from elphdynamics_tpu_torch.utils.device import require_device
 
 
-def params_from_jax(np_params: dict, device="cpu",
+def params_from_jax(np_params: dict, device="cuda",
                     dtype: torch.dtype = torch.float64) -> HolsteinParams:
-    """The port's :class:`HolsteinParams` from a dict of numpy arrays named
-    like the JAX ``HolsteinParams`` fields. ``t``, ``expK`` and ``expK_inv``
-    may be absent or None; complex arrays (complex hopping) are refused."""
+    """The port's :class:`HolsteinParams` on ``device`` from a dict of numpy
+    arrays named like the JAX ``HolsteinParams`` fields. ``t``, ``expK`` and
+    ``expK_inv`` may be absent or None; complex arrays (complex hopping) are
+    refused."""
+    device = require_device(device)
     out = {}
     for f in fields(HolsteinParams):
         a = np_params.get(f.name)

@@ -11,126 +11,242 @@
 // b = −a_mul·λavg/λmag the spectral-window map; c = −1 with prev gives the
 // recurrence u₊ = 2·Ap(u) − u₋.
 //
-// What bounds it on the card: device-memory bytes, like the plain fold. The
-// recurrence written out (fold kernel, then the diagonal, the affine map and
-// the combine as separate elementwise passes) reads and writes the field
-// about five times per step; this kernel reads v once into the slab, re-reads
-// v and prev once in the epilogue (at the thread's own index, so mostly from
-// L2: the block has just loaded the same rows) and writes o once.
+// What bounds it on the card: device-memory bytes: v and prev read once, o
+// written once (3·B·N·K·itemsize with prev). The recurrence written out
+// (fold kernel, then the diagonal, the affine map and the combine as
+// separate elementwise passes) moves the field about five times per step.
 //
-// Design (the plain fold's, ckb_fold.cu, plus a prologue and an epilogue):
-//   * field layout [B, N, K] row-major, B = C·inner rows, where C is the
-//     number of chains and row r belongs to chain r / inner (the Green's
-//     solves run [C, nᵥ, N, 2Lω], the HMC solves [C, 2, N, 2Lω]);
-//   * per chain: a[C], b[C] and the diagonals pre/post [C, N] (either may be
-//     null); c is one scalar; prev may be null;
-//   * block (tile, r) owns row r and columns [tile·kt, tile·kt + kw); one
-//     [N, kt] slab in dynamic shared memory, pre applied while loading; no
-//     second slab (it would halve kt);
-//   * o must not alias v or prev (every pointer is __restrict__); the
-//     wrapper allocates o.
-// The Pallas kernel's lane rolls and [K, N] transposes are not carried over.
+// What the design does about it: the plain fold's cluster-split slabs
+// (ckb_fold.cu: one contiguous chunk of the row per cluster rank, bulk
+// copies in and out, the group sweep on the cluster through distributed
+// shared memory, two CTAs per SM), plus
+//   * pre applied to the slab after it lands, before the sweep;
+//   * the epilogue reads the CTA's own contiguous chunks of v (mostly from
+//     L2: the CTA loaded it moments before) and prev, two sites per thread
+//     in flight; prev, the second read of v and the bulk store of o are
+//     marked to leave L2 first, so that the v chunks other CTAs have yet to
+//     re-read stay there. A second slab that brought prev into shared
+//     memory was tried and not kept (PERF.md);
+//   * o is written into the fold slab and leaves with the bulk store.
+// Field layout [B, N, K] row-major, B = C·inner rows, row r belongs to
+// chain r / inner (the Green's solves run [C, nᵥ, N, 2Lω], the HMC solves
+// [C, 2, N, 2Lω]); a[C], b[C], pre/post [C, N] (either may be null), one
+// scalar c, prev may be null. o aliases neither v nor prev (every pointer
+// is __restrict__); the wrapper allocates o. The Pallas kernel's lane rolls
+// and [K, N] transposes are not carried over.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "ckb_fold_groups.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void ckb_fold_fused_kernel(
-    const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ prev,
-    const int* __restrict__ bi, const int* __restrict__ bj,
-    const T* __restrict__ c, const T* __restrict__ s,
-    const int* __restrict__ goff, int ngroups, int reverse, T sign,
-    const T* __restrict__ pre, const T* __restrict__ post,
-    const T* __restrict__ a, const T* __restrict__ b, T cprev, int N, int K,
-    int kt, int inner) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// V values from device memory read once (ld.global.cs: the lines leave L2
+// first), as one vector where `vec` says p is aligned for it.
+template <typename T, int V>
+__device__ inline ckb::Pack<T, V> load_once(const T* __restrict__ p, bool vec) {
+  ckb::Pack<T, V> r;
+  if constexpr (V == 4) {
+    if (vec) {
+      const float4 x = __ldcs(reinterpret_cast<const float4*>(p));
+      r.x[0] = x.x, r.x[1] = x.y, r.x[2] = x.z, r.x[3] = x.w;
+      return r;
+    }
+  } else if constexpr (V == 2) {
+    if (vec) {
+      using T2 = typename std::conditional<sizeof(T) == 4, float2, double2>::type;
+      const T2 x = __ldcs(reinterpret_cast<const T2*>(p));
+      r.x[0] = x.x, r.x[1] = x.y;
+      return r;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) r.x[e] = __ldcs(p + e);
+  return r;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(ckb::kMaxThreads, 2)
+    ckb_fold_fused_kernel(const T* __restrict__ in, T* __restrict__ out,
+                          const T* __restrict__ prev, const int4* __restrict__ bonds,
+                          const int* __restrict__ poff, const T* __restrict__ c,
+                          const T* __restrict__ s, int ngroups, T sign,
+                          const T* __restrict__ pre, const T* __restrict__ post,
+                          const T* __restrict__ a, const T* __restrict__ b, T cprev, int N,
+                          int K, int kt, int cs, int inner, int pmax) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const size_t sb = ckb::slab_bytes(N, cs, kt, sizeof(T));
   T* slab = reinterpret_cast<T*>(smem_raw);
+  unsigned char* tables = smem_raw + sb;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tables + ckb::table_bytes(pmax, sizeof(T)));
 
-  const int row = blockIdx.y;
-  const int chain = row / inner;
-  const int k0 = blockIdx.x * kt;
-  const int kw = min(kt, K - k0);
-  if (kw <= 0) return;
-  const size_t base = static_cast<size_t>(row) * N * K + k0;
-  const T* src = in + base;
-  const T* pre_c = pre ? pre + static_cast<size_t>(chain) * N : nullptr;
-  const T* post_c = post ? post + static_cast<size_t>(chain) * N : nullptr;
+  const ckb::Tile t = ckb::tile_of_block(N, K, kt, cs);
+  const ckb::ThreadMap m = ckb::thread_map<V>(kt, t.kw);
+  const bool contiguous = kt == K;
+  const int chain = blockIdx.y / inner;
+  const int n = t.nsites * K;
+  const T* v = in + t.gbase;
+  const T* p = prev ? prev + t.gbase : nullptr;
 
-  const int nload = N * kw;
-  for (int idx = threadIdx.x; idx < nload; idx += blockDim.x) {
-    const int i = idx / kw;
-    const int col = idx - i * kw;
-    T x = src[static_cast<size_t>(i) * K + col];
-    if (pre_c) x *= pre_c[i];
-    slab[i * kt + col] = x;
+  if (threadIdx.x == 0) {
+    ckb::mbar_init(bar);
+    ckb::fence_mbar_init();
   }
   __syncthreads();
 
-  ckb_fold_slab(slab, bi, bj, c, s, goff, ngroups, reverse, sign, kt, kw);
+  bool wait = false;
+  if (contiguous) {
+    wait = ckb::start_copy_in(slab, v, n, bar);
+  } else {
+    ckb::copy_tile_in<T, V>(slab, v, t, kt, K, m);
+  }
+  const ckb::BondTables<T> tb =
+      ckb::load_bond_tables(tables, bonds, poff, c, s, ngroups, sign, t.rank, pmax);
+  if (wait) ckb::mbar_wait(bar, 0);
+  __syncthreads();
 
-  const T ac = a[chain];
-  const T bc = b[chain];
-  for (int idx = threadIdx.x; idx < nload; idx += blockDim.x) {
-    const int i = idx / kw;
-    const int col = idx - i * kw;
-    const size_t off = static_cast<size_t>(i) * K + col;
-    T f = slab[i * kt + col];
-    if (post_c) f *= post_c[i];
-    T o = ac * f + bc * src[off];
-    if (prev) o += cprev * prev[base + off];
-    out[base + off] = o;
+  if (pre && m.active) {
+    const T* pre_c = pre + static_cast<size_t>(chain) * N + t.site0;
+    for (int r = m.r0; r < t.nsites; r += m.rstep) {
+      const T d = pre_c[r];
+#pragma unroll
+      for (int e = 0; e < V; ++e) slab[r * kt + m.col + e] *= d;
+    }
+  }
+
+  ckb::fold_sweep<T, V>(slab, tb, poff + cs * (ngroups + 1), ngroups, kt, t, m);
+
+  if (m.active) {
+    const T ac = a[chain];
+    const T bc = b[chain];
+    const T* post_c = post ? post + static_cast<size_t>(chain) * N + t.site0 : nullptr;
+    const bool vec_v = (reinterpret_cast<uintptr_t>(v) % (V * sizeof(T))) == 0;
+    const bool vec_p = p && (reinterpret_cast<uintptr_t>(p) % (V * sizeof(T))) == 0;
+    // two sites per pass, so each thread has two pairs of loads in flight
+    for (int r = m.r0; r < t.nsites; r += 2 * m.rstep) {
+      ckb::Pack<T, V> vv[2], pv[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int ru = r + u * m.rstep;
+        if (ru < t.nsites) {
+          const size_t goff = static_cast<size_t>(ru) * K + m.col;
+          vv[u] = load_once<T, V>(v + goff, vec_v);
+          if (p) pv[u] = load_once<T, V>(p + goff, vec_p);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int ru = r + u * m.rstep;
+        if (ru < t.nsites) {
+          T* f = slab + ru * kt + m.col;
+          const T d = post_c ? post_c[ru] : T(1);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            T o = ac * (d * f[e]) + bc * vv[u].x[e];
+            if (p) o += cprev * pv[u].x[e];
+            f[e] = o;
+          }
+        }
+      }
+    }
+  }
+
+  if (contiguous) {
+    ckb::copy_out(out + t.gbase, slab, n, /*evict_first=*/true);
+  } else {
+    ckb::copy_tile_out<T, V>(out + t.gbase, slab, t, kt, K, m);
   }
 }
 
+// Dynamic shared memory allowed so far for each instantiation, per device.
+template <typename T, int V>
+int* smem_set() {
+  static int set[ckb::kMaxDevices] = {};
+  return set;
+}
+
+template <typename T, int V>
+int clusters_v(int N, int kt, int cs, int pmax, int threads) {
+  const size_t smem =
+      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T)) + 16;
+  return ckb::resident_clusters(ckb_fold_fused_kernel<T, V>, smem_set<T, V>(), cs, threads,
+                                smem);
+}
+
+template <typename T, int V>
+int launch_v(const T* in, T* out, const T* prev, const int* bonds, const int* poff,
+             const T* c, const T* s, int ngroups, T sign, const T* pre, const T* post,
+             const T* a, const T* b, T cprev, int B, int N, int K, int kt, int cs, int inner,
+             int pmax, int threads, void* stream) {
+  const size_t smem =
+      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T)) + 16;
+  return ckb::launch_cluster(ckb_fold_fused_kernel<T, V>, smem_set<T, V>(), (K + kt - 1) / kt,
+                             B, cs,
+                             threads, smem, stream, in, out, prev,
+                             reinterpret_cast<const int4*>(bonds), poff, c, s, ngroups, sign,
+                             pre, post, a, b, cprev, N, K, kt, cs, inner, pmax);
+}
+
 template <typename T>
-int launch(const T* in, T* out, const T* prev, const int* bi, const int* bj,
-           const T* c, const T* s, const int* goff, int ngroups, int reverse,
-           T sign, const T* pre, const T* post, const T* a, const T* b,
-           T cprev, int B, int N, int K, int kt, int inner, int threads,
-           void* stream) {
-  const size_t smem = static_cast<size_t>(N) * kt * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      ckb_fold_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + kt - 1) / kt, B);
-  ckb_fold_fused_kernel<T><<<grid, threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      in, out, prev, bi, bj, c, s, goff, ngroups, reverse, sign, pre, post, a,
-      b, cprev, N, K, kt, inner);
-  return static_cast<int>(cudaGetLastError());
+int launch(const T* in, T* out, const T* prev, const int* bonds, const int* poff, const T* c,
+           const T* s, int ngroups, T sign, const T* pre, const T* post, const T* a,
+           const T* b, T cprev, int B, int N, int K, int kt, int cs, int vec, int inner,
+           int pmax, int threads, void* stream) {
+  switch (vec) {
+    case 1:
+      return launch_v<T, 1>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a, b,
+                            cprev, B, N, K, kt, cs, inner, pmax, threads, stream);
+    case 2:
+      return launch_v<T, 2>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a, b,
+                            cprev, B, N, K, kt, cs, inner, pmax, threads, stream);
+    case 4:
+      if constexpr (sizeof(T) == 4)
+        return launch_v<T, 4>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a,
+                              b, cprev, B, N, K, kt, cs, inner, pmax, threads, stream);
+      [[fallthrough]];
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int ckb_fold_fused_f32(const float* in, float* out, const float* prev,
-                       const int* bi, const int* bj, const float* c,
-                       const float* s, const int* goff, int ngroups,
-                       int reverse, double sign, const float* pre,
-                       const float* post, const float* a, const float* b,
-                       double cprev, int B, int N, int K, int kt, int inner,
-                       int threads, void* stream) {
-  return launch<float>(in, out, prev, bi, bj, c, s, goff, ngroups, reverse,
-                       static_cast<float>(sign), pre, post, a, b,
-                       static_cast<float>(cprev), B, N, K, kt, inner, threads,
-                       stream);
+// Clusters of the launch (dtype64, vec, N, kt, cs, pmax, threads) the card
+// holds at once (the grid runs in ceil(clusters / this) waves).
+int ckb_fold_fused_resident_clusters(int dtype64, int vec, int N, int kt, int cs, int pmax,
+                                     int threads) {
+  if (dtype64) {
+    return vec == 2 ? clusters_v<double, 2>(N, kt, cs, pmax, threads)
+                    : clusters_v<double, 1>(N, kt, cs, pmax, threads);
+  }
+  return vec == 4   ? clusters_v<float, 4>(N, kt, cs, pmax, threads)
+         : vec == 2 ? clusters_v<float, 2>(N, kt, cs, pmax, threads)
+                    : clusters_v<float, 1>(N, kt, cs, pmax, threads);
 }
 
-int ckb_fold_fused_f64(const double* in, double* out, const double* prev,
-                       const int* bi, const int* bj, const double* c,
-                       const double* s, const int* goff, int ngroups,
-                       int reverse, double sign, const double* pre,
-                       const double* post, const double* a, const double* b,
-                       double cprev, int B, int N, int K, int kt, int inner,
-                       int threads, void* stream) {
-  return launch<double>(in, out, prev, bi, bj, c, s, goff, ngroups, reverse,
-                        sign, pre, post, a, b, cprev, B, N, K, kt, inner,
-                        threads, stream);
+int ckb_fold_fused_f32(const float* in, float* out, const float* prev, const int* bonds,
+                       const int* poff, const float* c, const float* s, int ngroups,
+                       double sign, const float* pre, const float* post, const float* a,
+                       const float* b, double cprev, int B, int N, int K, int kt, int cs,
+                       int vec, int inner, int pmax, int threads,
+                       void* stream) {
+  return launch<float>(in, out, prev, bonds, poff, c, s, ngroups, static_cast<float>(sign),
+                       pre, post, a, b, static_cast<float>(cprev), B, N, K, kt, cs, vec,
+                       inner, pmax, threads, stream);
+}
+
+int ckb_fold_fused_f64(const double* in, double* out, const double* prev, const int* bonds,
+                       const int* poff, const double* c, const double* s, int ngroups,
+                       double sign, const double* pre, const double* post, const double* a,
+                       const double* b, double cprev, int B, int N, int K, int kt, int cs,
+                       int vec, int inner, int pmax, int threads,
+                       void* stream) {
+  return launch<double>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a, b,
+                        cprev, B, N, K, kt, cs, vec, inner, pmax, threads, stream);
 }
 
 }  // extern "C"

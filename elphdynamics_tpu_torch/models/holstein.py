@@ -30,6 +30,7 @@ import torch
 from elphdynamics_tpu_torch.lattice import Lattice, sort_neighbor_table
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
 from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.utils.device import require_device
 from elphdynamics_tpu_torch.utils.dtypes import fsum
 
 
@@ -91,18 +92,20 @@ def build_holstein(
     per_orbit: dict | None = None,
     rng: np.random.Generator | None = None,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device="cuda",
     # TPU-tuned defaults; to be re-set from H100 measurements
     dense_threshold: int = 2048,
     pallas_threshold: int = 2048,
     twist=None,
 ) -> tuple[HolsteinSpec, HolsteinParams]:
-    """Construct a Holstein model spec and parameters.
+    """Construct a Holstein model spec and parameters on ``device`` (the
+    card unless the caller asks for the CPU).
 
     The disorder draws consume ``rng`` in the same order as the JAX
     package's ``build_holstein``, so one seed builds the same model in both.
     Complex hopping (complex ``t`` or a nonzero ``twist``) is not ported.
     """
+    device = require_device(device)
     rng = rng or np.random.default_rng(0)
     if twist is not None and np.any(np.asarray(twist)):
         raise NotImplementedError("twisted boundary conditions: ROADMAP slice F")

@@ -1,18 +1,31 @@
 """The checkerboard fold and the fused Chebyshev step as hand-written CUDA
-kernels (``csrc/ckb_fold.cu``, ``csrc/ckb_fold_fused.cu``).
+kernels (``csrc/ckb_fold.cu``, ``csrc/ckb_fold_fused.cu``, sharing
+``csrc/ckb_fold_groups.cuh``).
 
 * :func:`fold` replaces the Pallas TPU kernel ``elphdynamics_tpu/ops/
   ckb_pallas.py:_fold_kernel`` (driven by ``fold_2d``; wrappers ``ckb_mul``,
   ``ckb_transpose_mul``, ``ckb_inverse_mul``, ``ckb_inverse_transpose_mul``).
   The fold is bound by device-memory bytes: the plain twin
   (:func:`..checkerboard.fold`) makes one read and one write of the field
-  per bond group, the kernel one of each per fold, because it holds a
-  ``[N, kt]`` slab of the field in shared memory across all groups.
+  per bond group, the kernel one of each per fold.
 * :func:`fold_fused` replaces ``ckb_pallas.py:_fold_fused_kernel`` (driven
   by ``fold_kn_fused``): one KPM Chebyshev step
   ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` in one pass, per-chain ``a``,
   ``b``, ``pre``, ``post``. Its plain twin is
   :func:`..checkerboard.fold_fused`.
+
+Design (Hopper): a thread-block cluster of ``cs`` CTAs owns one ``[N, K]``
+row of the ``[B, N, K]`` field; rank ``r`` keeps the contiguous site range
+``[r·N/cs, (r+1)·N/cs)`` in shared memory, moved in and out by the bulk
+copy engine, and the bond groups run on the cluster, partners held by
+another rank reached through distributed shared memory. Where a row is too
+large for 16 such slabs the kernels also tile K. The host side here lists
+the launch geometries worth trying (:func:`choose_cluster`,
+:func:`candidates`: cluster size, column tile, block size) and builds each
+rank's owned-bond tables with local indices (:func:`cluster_plan`), cached
+on the spec; none of it touches CUDA, so the CPU tests reach it. On a
+shape's first launch the wrapper times the candidates on the card and keeps
+the fastest (every geometry computes the same values).
 
 Each source is built by ``nvcc`` at first use (``-gencode
 arch=compute_90a,code=sm_90a``) into its own shared library under
@@ -26,14 +39,17 @@ twin; a CUDA tensor launches the kernel or raises. ``launches`` and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
@@ -48,17 +64,23 @@ HEADERS = (CSRC / "ckb_fold_groups.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-THREADS = 1024
+
+MAX_CLUSTER = 16      # CTAs per cluster on an H100 (non-portable above 8)
+PORTABLE_CLUSTER = 8  # the largest cluster the grid-filling rule asks for
+MAX_THREADS = 512     # threads per CTA: two CTAs share an SM (csrc kMaxThreads)
+MAX_KT = 512          # columns per tile, so a block holds one thread per chunk
+CTA_RESERVE = 1024    # shared memory the runtime keeps per CTA (bytes)
+MAX_ROWS = 65535      # grid.y
 
 _PTR, _I32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # argument types of each library's ``<name>_f32`` / ``<name>_f64`` entry point
 _ARGTYPES = {
-    "ckb_fold": [_PTR] * 7 + [_I32, _I32, _F64] + [_I32] * 5 + [_PTR],
-    "ckb_fold_fused": [_PTR] * 8 + [_I32, _I32, _F64] + [_PTR] * 4 + [_F64] + [_I32] * 6 + [_PTR],
+    "ckb_fold": [_PTR] * 6 + [_I32, _F64] + [_I32] * 8 + [_PTR],
+    "ckb_fold_fused": [_PTR] * 7 + [_I32, _F64] + [_PTR] * 4 + [_F64] + [_I32] * 9 + [_PTR],
 }
 
 _libs: dict = {}
-_smem_budget: dict[int, int] = {}
+_device_info: dict[int, tuple[int, int]] = {}
 
 
 def _nvcc() -> str:
@@ -119,6 +141,9 @@ def _load(name: str):
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = _ARGTYPES[name]
             fn.restype = _I32
+        query = getattr(lib, f"{name}_resident_clusters")
+        query.argtypes = [_I32] * 7
+        query.restype = _I32
         _libs[name] = lib
     return lib
 
@@ -128,30 +153,220 @@ def _entry(name: str, dtype: torch.dtype):
     return getattr(_load(name), f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
 
 
-def _device_tables(spec: ckb.CheckerboardSpec, device: torch.device):
-    """(bi, bj, goff) int32 bond tables on ``device``, cached on the spec."""
-    key = ("cuda_fold", str(device))
+# ---------------------------------------------------------------------------
+# host-side plan: which rank owns which bonds
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    """The group sweep of one fold direction split over a cluster of ``cs``
+    ranks. Rank ``r`` holds sites ``site0[r] .. site0[r+1]-1``; at step
+    ``k`` (group ``steps[k]``) it owns the bonds
+    ``bonds[offsets[r, k]:offsets[r, k+1]]``, the bonds whose first
+    endpoint it holds, each as (local i, local j, rank holding j, bond
+    index into the coefficient arrays). ``crosses[k]``: some bond of step
+    ``k`` has its endpoints with two ranks (the kernels then need a
+    cluster-wide barrier around that step)."""
+
+    cs: int
+    site0: np.ndarray     # [cs + 1]
+    steps: np.ndarray     # [G] group id applied at each step
+    bonds: np.ndarray     # [P, 4] int32
+    offsets: np.ndarray   # [cs, G + 1] int64
+    crosses: np.ndarray   # [G] bool
+
+    def owned(self, rank: int, step: int) -> np.ndarray:
+        return self.bonds[self.offsets[rank, step]:self.offsets[rank, step + 1]]
+
+
+def cluster_plan(spec: ckb.CheckerboardSpec, cs: int, reverse: bool = False) -> ClusterPlan:
+    """The :class:`ClusterPlan` of ``spec`` over ``cs`` ranks, groups in
+    forward (or, with ``reverse``, reversed) order. The sign of a direction
+    does not change the plan."""
+    N, G, nb = spec.nsites, spec.ngroups, spec.nbonds
+    if not 1 <= cs <= max(N, 1):
+        raise ValueError(f"a cluster of {cs} ranks cannot split {N} sites")
+    site0 = np.arange(cs + 1, dtype=np.int64) * N // cs
+    bi, bj = spec.neighbor_table
+    ri = np.searchsorted(site0, bi, side="right") - 1
+    rj = np.searchsorted(site0, bj, side="right") - 1
+    step_of_bond = (G - 1 - spec.groups) if reverse else spec.groups
+    key = ri * G + step_of_bond
+    order = np.argsort(key, kind="stable")
+    bonds = np.stack([bi - site0[ri], bj - site0[rj], rj, np.arange(nb)], axis=1)
+    starts = np.concatenate([[0], np.cumsum(np.bincount(key, minlength=cs * G))])
+    offsets = starts[np.arange(cs)[:, None] * G + np.arange(G + 1)[None, :]]
+    steps = np.arange(G)[::-1] if reverse else np.arange(G)
+    crosses = np.bincount(step_of_bond[ri != rj], minlength=G)[:G] > 0
+    return ClusterPlan(cs=cs, site0=site0, steps=steps.copy(),
+                       bonds=bonds[order].astype(np.int32).reshape(nb, 4),
+                       offsets=offsets.astype(np.int64), crosses=crosses)
+
+
+def owned_max(spec: ckb.CheckerboardSpec, cs: int) -> int:
+    """The most bonds one of ``cs`` ranks owns over all groups (the same in
+    every direction), cached on the spec."""
+    key = ("cluster_owned_max", cs)
     out = spec._cache.get(key)
     if out is None:
-        nt = spec.neighbor_table
-        out = (torch.as_tensor(nt[0], dtype=torch.int32, device=device).contiguous(),
-               torch.as_tensor(nt[1], dtype=torch.int32, device=device).contiguous(),
-               torch.as_tensor(spec.group_offsets, dtype=torch.int32, device=device))
+        off = cluster_plan(spec, cs).offsets
+        out = spec._cache[key] = int((off[:, -1] - off[:, 0]).max())
+    return out
+
+
+def _device_plan(spec: ckb.CheckerboardSpec, cs: int, reverse: bool, device: torch.device):
+    """(bonds [P, 4], offsets [cs·(G+1)] then crossing flags [G]) int32
+    tensors on ``device``, cached on the spec per (cs, direction, device)."""
+    key = ("cluster_plan", cs, bool(reverse), str(device))
+    out = spec._cache.get(key)
+    if out is None:
+        plan = cluster_plan(spec, cs, reverse)
+        table = np.concatenate([plan.offsets.ravel(), plan.crosses]).astype(np.int32)
+        out = (torch.as_tensor(plan.bonds, device=device).contiguous(),
+               torch.as_tensor(table, device=device))
         spec._cache[key] = out
     return out
 
 
-def choose_tile(B: int, N: int, K: int, itemsize: int, smem_bytes: int,
-                n_sms: int) -> int:
-    """Columns per block: as many as the shared-memory budget allows, cut
-    so that the grid fills the SMs in one wave where it can."""
-    kt_max = smem_bytes // (N * itemsize)
-    if kt_max < 1:
-        raise ValueError(
-            f"a [{N}] site column of {itemsize}-byte values needs "
-            f"{N * itemsize} bytes of shared memory; the card offers {smem_bytes}")
-    n_tiles = max(math.ceil(K / kt_max), min(K, max(1, n_sms // B)))
-    return math.ceil(K / n_tiles)
+# ---------------------------------------------------------------------------
+# launch geometry
+# ---------------------------------------------------------------------------
+
+def _cta_bytes(N: int, cs: int, kt: int, itemsize: int, owned: int = 0) -> int:
+    """Dynamic shared memory of one CTA: a slab of ``ceil(N/cs)`` sites by
+    ``kt`` columns rounded up to 128 bytes, the tables of ``owned`` bonds
+    (an int4 entry and two coefficients each, rounded up to 16 bytes) and
+    an mbarrier (csrc ``slab_bytes``, ``table_bytes``)."""
+    slab = math.ceil(math.ceil(N / cs) * kt * itemsize / 128) * 128
+    return slab + math.ceil(owned * (16 + 2 * itemsize) / 16) * 16 + 16
+
+
+def choose_cluster(B: int, N: int, K: int, itemsize: int, smem_bytes: int, n_sms: int,
+                   owned=lambda cs: 0) -> tuple[int, int]:
+    """(cs, kt): cluster size and columns per tile of a launch on a
+    ``[B, N, K]`` field. The smallest cluster whose CTA (its slab and the
+    tables of the ``owned(cs)`` bonds of its busiest rank) fits in half the
+    SM's shared memory with all K columns, so that two CTAs share an SM;
+    where no cluster of up to 16 holds the row, 16 ranks and K cut into
+    tiles (in the whole budget where half cannot hold one column). Then cs
+    doubles, up to 8, while the grid has fewer CTAs than the card has SMs:
+    an H100 holds 30 clusters of 8 at two CTAs per SM but only 14 of 16,
+    so 16 is taken only where the slab needs it."""
+    half = (smem_bytes + CTA_RESERVE) // 2 - CTA_RESERVE
+    sizes = [cs for cs in (1, 2, 4, 8, MAX_CLUSTER) if cs <= max(N, 1)]
+    kt = min(K, MAX_KT)
+    cs = next((cs for cs in sizes
+               if _cta_bytes(N, cs, kt, itemsize, owned(cs)) <= half), None)
+    if cs is None:
+        cs = sizes[-1]
+        per_col = math.ceil(N / cs) * itemsize
+        fixed = _cta_bytes(N, cs, 0, itemsize, owned(cs)) + 128
+        fits = [(budget - fixed) // per_col for budget in (half, smem_bytes)]
+        kt = min(kt, next((k for k in fits if k >= 1), 0))
+        if kt < 1:
+            raise ValueError(
+                f"a [{math.ceil(N / cs)}] site column of {itemsize}-byte values needs "
+                f"{_cta_bytes(N, cs, 1, itemsize, owned(cs))} bytes of shared memory; the "
+                f"card offers {smem_bytes}")
+        if kt >= 4:
+            kt -= kt % 4   # keep 16-byte vectors where K allows them
+    ntile = math.ceil(K / kt)
+    while cs < min(sizes[-1], PORTABLE_CLUSTER) and B * ntile * cs < n_sms:
+        cs = sizes[sizes.index(cs) + 1]
+    return cs, kt
+
+
+def vector_width(kt: int, K: int, itemsize: int) -> int:
+    """Elements per shared-memory access of the sweep: up to 16 bytes,
+    dividing both the tile and the row."""
+    return next(v for v in (4, 2, 1) if v * itemsize <= 16 and kt % v == 0 and K % v == 0)
+
+
+@dataclass(frozen=True)
+class Geometry:
+    B: int
+    N: int
+    K: int
+    cs: int
+    kt: int
+    vec: int
+    threads: int
+    owned: int      # bond-table entries per CTA (the busiest rank's)
+
+
+def geometry(B: int, N: int, K: int, itemsize: int, smem_bytes: int, n_sms: int,
+             owned=lambda cs: 0) -> Geometry:
+    """The whole launch geometry: :func:`choose_cluster`, the vector width
+    and a block size that is a multiple of the chunks per site row."""
+    cs, kt = choose_cluster(B, N, K, itemsize, smem_bytes, n_sms, owned)
+    vec = vector_width(kt, K, itemsize)
+    nvec = kt // vec
+    return Geometry(B=B, N=N, K=K, cs=cs, kt=kt, vec=vec,
+                    threads=(MAX_THREADS // nvec) * nvec, owned=owned(cs))
+
+
+TUNE_THREADS = (256, 384, 512)   # block sizes tried, rounded down to whole site rows
+
+
+def candidates(B: int, N: int, K: int, itemsize: int, smem_bytes: int, n_sms: int,
+               owned=lambda cs: 0) -> list[Geometry]:
+    """The launch geometries timed on a shape's first launch: :func:`geometry`
+    first, then every cluster size whose CTA (all K columns) fits two to an
+    SM, each at about 256, 384 and 512 threads. Where K is tiled, only the
+    block size varies. No one rule picks the fastest: on an H100 the best
+    (cs, threads) differs between the main path's shapes by 4–7% (PERF.md)."""
+    base = geometry(B, N, K, itemsize, smem_bytes, n_sms, owned)
+    half = (smem_bytes + CTA_RESERVE) // 2 - CTA_RESERVE
+    sizes = [base.cs]
+    if base.kt == K:
+        sizes += [cs for cs in (1, 2, 4, 8, MAX_CLUSTER) if cs != base.cs and cs <= max(N, 1)
+                  and _cta_bytes(N, cs, K, itemsize, owned(cs)) <= half]
+    nvec = base.kt // base.vec
+    out = [base]
+    for cs in sizes:
+        for t in TUNE_THREADS:
+            threads = max(1, t // nvec) * nvec
+            g = Geometry(B=B, N=N, K=K, cs=cs, kt=base.kt, vec=base.vec, threads=threads,
+                         owned=owned(cs))
+            if threads <= MAX_THREADS and g not in out:
+                out.append(g)
+    return out
+
+
+def fastest(cands: list[Geometry], times) -> Geometry:
+    """The candidate of least time (the first of equals)."""
+    return cands[min(range(len(cands)), key=lambda i: times[i])]
+
+
+def _resident_clusters(name: str, dtype: torch.dtype, g: Geometry) -> int:
+    """How many clusters of launch ``g`` of library ``name`` the current card
+    holds at once (0: the launch cannot run)."""
+    n = getattr(_load(name), f"{name}_resident_clusters")(
+        int(dtype == torch.float64), g.vec, g.N, g.kt, g.cs, g.owned, g.threads)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed ({-n})")
+    return n
+
+
+def _time_candidates(cands: list[Geometry], run, reps: int = 3) -> list[float]:
+    """Device ms of ``reps`` launches of each candidate (CUDA events), summed
+    over two passes, in order and reversed, after one launch of each."""
+    for g in cands:
+        run(g)
+    times = [0.0] * len(cands)
+    for order in (range(len(cands)), reversed(range(len(cands)))):
+        marks = []
+        for i in order:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                run(cands[i])
+            b.record()
+            marks.append((i, a, b))
+        marks[-1][2].synchronize()
+        for i, a, b in marks:
+            times[i] += a.elapsed_time(b)
+    return times
 
 
 def _check(spec, cosh_b, sinh_b, v) -> None:
@@ -168,24 +383,51 @@ def _check(spec, cosh_b, sinh_b, v) -> None:
         raise ValueError(f"field must be [..., {spec.nsites}, K], got {tuple(v.shape)}")
     if not v.is_contiguous():
         raise ValueError("field must be contiguous")
+    if math.prod(v.shape[:-2]) > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows of [N, K], got {math.prod(v.shape[:-2])}")
 
 
-def _geometry(spec, v, name: str):
-    """(device index, B, N, K, kt, bond tables) of a launch of library
-    ``name`` on ``v``; the card's shared-memory budget is read once per
-    device."""
+def _device_index(v) -> int:
+    return v.device.index if v.device.index is not None else torch.cuda.current_device()
+
+
+def _geometry(spec, v, name: str, run) -> Geometry:
+    """The geometry of a launch of library ``name`` on ``v``, cached on the
+    spec per (device, shape, dtype, library). On a shape's first launch every
+    one of its :func:`candidates` that the card can hold runs through
+    ``run(geometry)`` (which launches into the caller's output; the launches
+    are not counted) and the fastest is kept. The card's shared-memory
+    budget and SM count are read once per device."""
+    dev = _device_index(v)
     N, K = v.shape[-2:]
     B = math.prod(v.shape[:-2])
-    dev = v.device.index if v.device.index is not None else torch.cuda.current_device()
-    smem = _smem_budget.get(dev)
-    if smem is None:
-        smem = _load(name).ckb_smem_optin(dev)
-        if smem <= 0:
-            raise RuntimeError(f"cudaDeviceGetAttribute failed ({-smem})")
-        _smem_budget[dev] = smem
-    kt = choose_tile(B, N, K, v.element_size(), smem,
-                     torch.cuda.get_device_properties(dev).multi_processor_count)
-    return dev, B, N, K, kt, _device_tables(spec, v.device)
+    key = ("cluster_geometry", dev, B, N, K, v.element_size(), name)
+    g = spec._cache.get(key)
+    if g is None:
+        info = _device_info.get(dev)
+        if info is None:
+            smem = _load(name).ckb_smem_optin(dev)
+            if smem <= 0:
+                raise RuntimeError(f"cudaDeviceGetAttribute failed ({-smem})")
+            info = _device_info[dev] = (smem, torch.cuda.get_device_properties(dev)
+                                        .multi_processor_count)
+        cands = candidates(B, N, K, v.element_size(), *info,
+                           owned=lambda cs: owned_max(spec, cs))
+        cands = [cands[0]] + [c for c in cands[1:] if _resident_clusters(name, v.dtype, c) > 0]
+        g = cands[0] if len(cands) == 1 else fastest(cands, _time_candidates(cands, run))
+        spec._cache[key] = g
+    return g
+
+
+def _stream(dev: int) -> int:
+    """The raw handle of ``dev``'s current stream (``torch.cuda.current_stream``
+    builds a Python object per call, several µs of host time per launch)."""
+    return torch._C._cuda_getCurrentRawStream(dev)
+
+
+def _on_device(dev: int):
+    """Make ``dev`` current for a launch; no switch where it already is."""
+    return contextlib.nullcontext() if torch.cuda.current_device() == dev else torch.cuda.device(dev)
 
 
 def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor:
@@ -194,16 +436,19 @@ def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor
     out = torch.empty_like(v)
     if v.numel() == 0:
         return out
-    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v, "ckb_fold")
+    dev = _device_index(v)
     fn = _entry("ckb_fold", v.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(v.data_ptr(), out.data_ptr(), bi.data_ptr(), bj.data_ptr(),
-                 cosh_b.data_ptr(), sinh_b.data_ptr(), goff.data_ptr(),
-                 spec.ngroups, int(reverse), float(sign), B, N, K, kt, THREADS,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"ckb_fold kernel launch failed: CUDA error {err}")
+
+    def run(g: Geometry) -> None:
+        bonds, poff = _device_plan(spec, g.cs, reverse, v.device)
+        err = fn(v.data_ptr(), out.data_ptr(), bonds.data_ptr(), poff.data_ptr(),
+                 cosh_b.data_ptr(), sinh_b.data_ptr(), spec.ngroups, float(sign),
+                 g.B, g.N, g.K, g.kt, g.cs, g.vec, g.owned, g.threads, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"ckb_fold kernel launch failed: CUDA error {err}")
+
+    with _on_device(dev):
+        run(_geometry(spec, v, "ckb_fold", run))
     launches += 1
     return out
 
@@ -231,21 +476,23 @@ def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
     out = torch.empty_like(v)
     if v.numel() == 0:
         return out
-    dev, B, N, K, kt, (bi, bj, goff) = _geometry(spec, v, "ckb_fold_fused")
+    dev = _device_index(v)
     fn = _entry("ckb_fold_fused", v.dtype)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(v.data_ptr(), out.data_ptr(), ptr(prev), bi.data_ptr(), bj.data_ptr(),
-                 cosh_b.data_ptr(), sinh_b.data_ptr(), goff.data_ptr(),
-                 spec.ngroups, int(reverse), float(sign), ptr(pre), ptr(post),
-                 ptr(a), ptr(b), float(c), B, N, K, kt, B // v.shape[0],
-                 THREADS, stream)
-    if err != 0:
-        raise RuntimeError(f"ckb_fold_fused kernel launch failed: CUDA error {err}")
+    def run(g: Geometry) -> None:
+        bonds, poff = _device_plan(spec, g.cs, reverse, v.device)
+        err = fn(v.data_ptr(), out.data_ptr(), ptr(prev), bonds.data_ptr(), poff.data_ptr(),
+                 cosh_b.data_ptr(), sinh_b.data_ptr(), spec.ngroups, float(sign), ptr(pre),
+                 ptr(post), ptr(a), ptr(b), float(c), g.B, g.N, g.K, g.kt, g.cs, g.vec,
+                 g.B // v.shape[0], g.owned, g.threads, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"ckb_fold_fused kernel launch failed: CUDA error {err}")
+
+    with _on_device(dev):
+        run(_geometry(spec, v, "ckb_fold_fused", run))
     fused_launches += 1
     return out
 

@@ -47,6 +47,7 @@ from elphdynamics_tpu_torch.measure.measurements import (
     make_measurement_step, mean_over_chains, process_bin, zero_container)
 from elphdynamics_tpu_torch.measure.mufinder import MuTuner
 from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.utils.device import require_device
 
 logger = logging.getLogger("elphdynamics_tpu_torch")
 
@@ -76,9 +77,7 @@ def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda"
     one ``device`` in ``dtype``; return the run statistics."""
     if n_chains < 1:
         raise ValueError(f"n_chains must be >= 1, got {n_chains}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available (run on the CPU with device='cpu')")
+    device = require_device(device)
     cfg = load_toml(config) if isinstance(config, str) else dict(config)
     sim = cfg["simulation"]
     datafolder = name_datafolder(sim.get("filepath", "."), sim["foldername"], run_id)
@@ -446,9 +445,10 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     return sim_stats
 
 
-def load_model(datafolder: str, device="cpu", dtype: torch.dtype = torch.float64):
+def load_model(datafolder: str, device="cuda", dtype: torch.dtype = torch.float64):
     """Rebuild a finished or checkpointed run: ``(setup, params, x)`` with
-    the checkpoint's parameters and ``[C, N, Lτ]`` fields."""
+    the checkpoint's parameters and ``[C, N, Lτ]`` fields, on ``device``."""
+    device = require_device(device)
     with open(os.path.join(datafolder, "config.json")) as f:
         cfg = json.load(f)
     setup = build_setup(cfg, datafolder, device, dtype)

@@ -12,10 +12,10 @@ max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it;
 reflection and swap moves and the measurement. Builds the
 configuration in float32, runs it once to warm up, then once under
 ``torch.profiler`` and prints: wall time, summed device-kernel time and
-the device's busy share, both kernels' launches, the heaviest kernels by
-device time, and the heaviest host-side operators. With ``--trace DIR``
-the Chrome trace goes to ``DIR/<config>_trace.json`` (about 200 MB for one
-update).
+the device's busy share, both kernels' launches and summed device time,
+the heaviest kernels by device time, and the heaviest host-side
+operators. With ``--trace DIR`` the Chrome trace goes to
+``DIR/<config>_trace.json`` (about 200 MB for one update).
 """
 
 from __future__ import annotations
@@ -64,11 +64,17 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in cuda)
+
+    def kernel_s(name):
+        return sum(e.self_device_time_total for e in cuda if f"{name}<" in e.key) / 1e6
+
     print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} wall_s={wall:.4f} "
           f"device_kernel_s={dev_us / 1e6:.4f} device_busy_share={dev_us / 1e6 / wall:.4f} "
-          f"fold_launches={ckb_cuda.launches} fused_launches={ckb_cuda.fused_launches} "
+          f"fold_launches={ckb_cuda.launches} fold_s={kernel_s('ckb_fold_kernel'):.4f} "
+          f"fused_launches={ckb_cuda.fused_launches} "
+          f"fused_s={kernel_s('ckb_fold_fused_kernel'):.4f} "
           f"mean_cg_iters={iters.double().mean().item():.3f}")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15))

@@ -40,7 +40,7 @@ def _model(L=6):
     spec, params = j_build_holstein(JLattice.create(JUnitCell.create(*uc_args), L),
                                     rng=np.random.default_rng(0), **kw)
     tspec, tparams = t_build_holstein(TLattice.create(TUnitCell.create(*uc_args), L),
-                                      rng=np.random.default_rng(0), **kw)
+                                      rng=np.random.default_rng(0), device="cpu", **kw)
     np.testing.assert_array_equal(tparams.cosht.numpy(), np.asarray(params.cosht))
     return spec, np.array(params.cosht), np.array(params.sinht), tspec.ckb
 
@@ -96,17 +96,137 @@ def test_cuda_wrapper_on_cpu_uses_twin_without_launching(model):
 
 
 def test_tile_choice():
-    # 64×64 float32 on an H100 (227 KB opt-in, 132 SMs): one wave of blocks
+    """The cluster and column-tile chooser on an H100 (227 KB opt-in shared
+    memory, 132 SMs): two CTAs per SM, cs raised while the grid underfills
+    the SMs, K tiled only where 16 slabs cannot hold a row."""
     smem, sms = 232448, 132
-    assert ckb_cuda.choose_tile(32, 4096, 40, 4, smem, sms) == 10
-    assert ckb_cuda.choose_tile(16, 4096, 1, 4, smem, sms) == 1
-    kt = ckb_cuda.choose_tile(32, 4096, 40, 8, smem, sms)
-    assert kt * 4096 * 8 <= smem
-    for B, N, K, item in ((1, 64, 40, 4), (128, 4096, 40, 4), (3, 1000, 7, 8)):
-        kt = ckb_cuda.choose_tile(B, N, K, item, smem, sms)
-        assert 1 <= kt <= K and kt * N * item <= smem
+    half = (smem + ckb_cuda.CTA_RESERVE) // 2 - ckb_cuda.CTA_RESERVE
+    # 64×64 float32: the fermion operator (256 CTAs) and the power
+    # iteration (K = 1, raised to 8 ranks, not the 16 that fill the SMs);
+    # float64 needs 16 ranks for its slabs
+    assert ckb_cuda.choose_cluster(32, 4096, 40, 4, smem, sms) == (8, 40)
+    assert ckb_cuda.choose_cluster(16, 4096, 40, 4, smem, sms) == (8, 40)
+    assert ckb_cuda.choose_cluster(16, 4096, 1, 4, smem, sms) == (8, 1)
+    assert ckb_cuda.choose_cluster(32, 4096, 40, 8, smem, sms) == (16, 40)
+    # with the 64×64 plan's bond tables (1088 bonds on the busiest of 8
+    # ranks) the fermion operator still takes two CTAs per SM at cs = 8
+    g = ckb_cuda.geometry(160, 4096, 40, 4, smem, sms, owned=lambda cs: 8704 // cs)
+    assert (g.cs, g.kt, g.vec, g.threads, g.owned) == (8, 40, 4, 510, 1088)
+    assert ckb_cuda._cta_bytes(4096, 8, 40, 4, 1088) <= half
+    # 128×128 float64: K is tiled in the largest cluster
+    cs, kt = ckb_cuda.choose_cluster(32, 16384, 40, 8, smem, sms)
+    assert cs == 16 and 1 <= kt < 40 and kt % 4 == 0
+    assert ckb_cuda._cta_bytes(16384, cs, kt, 8) <= half
+    for B, N, K, item in ((1, 64, 40, 4), (128, 4096, 40, 4), (3, 1000, 7, 8), (2, 36, 1, 4),
+                          (1, 3, 5, 8), (4, 4096, 1000, 4)):
+        g = ckb_cuda.geometry(B, N, K, item, smem, sms)
+        assert 1 <= g.kt <= K and g.cs <= N and g.kt % g.vec == 0 and K % g.vec == 0
+        assert ckb_cuda._cta_bytes(N, g.cs, g.kt, item) <= smem
+        assert g.threads <= ckb_cuda.MAX_THREADS and g.threads % (g.kt // g.vec) == 0
     with pytest.raises(ValueError):
-        ckb_cuda.choose_tile(1, 40000, 4, 8, smem, sms)
+        ckb_cuda.choose_cluster(1, 10**6, 4, 8, smem, sms)
+
+
+@pytest.mark.parametrize("B,N,K,item,sizes", [
+    (32, 4096, 40, 4, {8, 16}),          # the fermion operator, float32
+    (16, 4096, 1, 4, {2, 4, 8, 16}),     # the power iteration (1 rank: tables too large)
+    (32, 4096, 40, 8, {16}),             # float64: only 16 ranks fit two CTAs per SM
+    (32, 16384, 40, 8, {16}),            # 128×128 float64, K tiled
+    (2, 36, 7, 8, {1, 2, 4, 8, 16}),     # 6×6, odd K
+])
+def test_tuning_candidates(B, N, K, item, sizes):
+    """The geometries a shape's first launch times: the chooser's first,
+    every cluster size whose CTA fits two to an SM, about 256, 384 and 512
+    threads in whole site rows, no duplicates, one column tile for all."""
+    smem, sms = 232448, 132
+    half = (smem + ckb_cuda.CTA_RESERVE) // 2 - ckb_cuda.CTA_RESERVE
+    owned = lambda cs: 2 * N // cs  # noqa: E731  (a square lattice's 2N bonds, split evenly)
+    cands = ckb_cuda.candidates(B, N, K, item, smem, sms, owned)
+    first = ckb_cuda.geometry(B, N, K, item, smem, sms, owned)
+    assert cands[0] == first
+    assert len(set(cands)) == len(cands)
+    assert {g.cs for g in cands} == sizes
+    for g in cands:
+        assert (g.B, g.N, g.K, g.kt, g.vec) == (B, N, K, first.kt, first.vec)
+        assert g.owned == owned(g.cs) and g.cs <= N
+        assert g.threads <= ckb_cuda.MAX_THREADS and g.threads % (g.kt // g.vec) == 0
+        assert g.cs == first.cs or ckb_cuda._cta_bytes(N, g.cs, K, item, g.owned) <= half
+    assert {g.threads for g in cands if g.cs == first.cs} >= {first.threads}
+    if first.kt == K and K == 40 and item == 4:
+        assert {g.threads for g in cands if g.cs == 16} == {250, 380, 510}
+
+
+def test_tuning_keeps_the_fastest():
+    cands = ckb_cuda.candidates(32, 4096, 40, 4, 232448, 132)
+    assert ckb_cuda.fastest(cands, [3.0, 1.0, 2.0] + [5.0] * (len(cands) - 3)) == cands[1]
+    assert ckb_cuda.fastest(cands, [1.0] * len(cands)) == cands[0]   # ties keep the first
+
+
+def _replay(plan, c, s, v, sign):
+    """The plan run in plain torch on per-rank slabs, as the kernels run it:
+    each rank updates the bonds it owns, reaching partners in other ranks'
+    slabs."""
+    slabs = [v[..., plan.site0[r]:plan.site0[r + 1], :].clone() for r in range(plan.cs)]
+    for step in range(len(plan.steps)):
+        for r in range(plan.cs):
+            owned = torch.as_tensor(plan.owned(r, step).astype(np.int64))
+            for q in range(plan.cs):
+                li, lj, _, n = owned[owned[:, 2] == q].T
+                cc, ss = c[n][:, None], sign * s[n][:, None]
+                vi, vj = slabs[r][..., li, :], slabs[q][..., lj, :]
+                slabs[r][..., li, :] = cc * vi + ss * vj
+                slabs[q][..., lj, :] = cc * vj + ss * vi
+    return torch.cat(slabs, dim=-2)
+
+
+@pytest.fixture(scope="module")
+def model_64():
+    uc = TUnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
+    spec, params = t_build_holstein(
+        TLattice.create(uc, 64), 1.0, 0.1, dense_threshold=0, rng=np.random.default_rng(4),
+        t_assignments=[(1.0, 0.1, 0, 0, (1, 0, 0)), (0.8, 0.1, 0, 0, (0, 1, 0))], device="cpu")
+    return spec.ckb, params.cosht, params.sinht
+
+
+@pytest.mark.parametrize("cs", [1, 2, 8, 16])
+@pytest.mark.parametrize("name,rev,sign,jfn,tfn", DIRECTIONS, ids=IDS)
+@pytest.mark.parametrize("lattice", ["6x6", "64x64"])
+def test_cluster_plan_replay_matches_twin(model, model_64, lattice, name, rev, sign, jfn,
+                                          tfn, cs):
+    """The cluster plan replayed on per-rank slabs is the fold (6×6: 36
+    sites, not divisible by 8 or 16, so the ranks hold unequal counts)."""
+    if lattice == "6x6":
+        _, c, s, spec = model
+        c, s = torch.as_tensor(c), torch.as_tensor(s)
+    else:
+        spec, c, s = model_64
+    plan = ckb_cuda.cluster_plan(spec, cs, reverse=rev)
+    bi, bj = spec.neighbor_table
+    counts = np.diff(plan.site0)
+    assert counts.sum() == spec.nsites and counts.max() - counts.min() <= 1
+    # every bond once, owned by the rank holding its first endpoint
+    assert sorted(plan.bonds[:, 3]) == list(range(spec.nbonds))
+    assert plan.offsets[0, 0] == 0 and plan.offsets[-1, -1] == spec.nbonds
+    for r in range(cs):
+        for step, g in enumerate(plan.steps):
+            e = plan.owned(r, step)
+            assert (spec.groups[e[:, 3]] == g).all()
+            np.testing.assert_array_equal(plan.site0[r] + e[:, 0], bi[e[:, 3]])
+            np.testing.assert_array_equal(plan.site0[e[:, 2]] + e[:, 1], bj[e[:, 3]])
+    ri = np.searchsorted(plan.site0, bi, side="right") - 1
+    rj = np.searchsorted(plan.site0, bj, side="right") - 1
+    for step, g in enumerate(plan.steps):
+        assert plan.crosses[step] == (ri != rj)[spec.groups == g].any()
+    v = torch.as_tensor(np.random.default_rng(6).standard_normal((2, spec.nsites, 3)))
+    want = tckb.fold(spec, c, s, v, reverse=rev, sign=sign)
+    got = _replay(plan, c, s, v, sign)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-12
+
+
+def test_cluster_plan_refuses_more_ranks_than_sites(model):
+    _, _, _, spec = model
+    with pytest.raises(ValueError):
+        ckb_cuda.cluster_plan(spec, spec.nsites + 1)
 
 
 def test_other_devices_refused(model):

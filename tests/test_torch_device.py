@@ -1,0 +1,49 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: called without a device where CUDA is absent, each raises and returns
+no CPU tensors. CUDA's absence is simulated, so the tests mean the same on
+a machine with a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from elphdynamics_tpu_torch import bench, convert, simulation
+from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+from elphdynamics_tpu_torch.models.holstein import build_holstein
+from elphdynamics_tpu_torch.utils.device import require_device
+
+torch.set_num_threads(1)
+
+
+def _lattice():
+    return Lattice.create(UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]]), 2)
+
+
+ENTRY_POINTS = {
+    "bench.build": lambda tmp: bench.build(bench.BENCH_8X8),
+    "bench.build_bench_step": lambda tmp: bench.build_bench_step(2, 1.0, 0.1, 0.05, 1),
+    "build_holstein": lambda tmp: build_holstein(
+        _lattice(), 1.0, 0.1, t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0))]),
+    "simulation.load_model": lambda tmp: simulation.load_model(str(tmp)),
+    "convert.params_from_jax": lambda tmp: convert.params_from_jax(
+        {"mu": np.zeros(4), "omega": np.ones(4)}),
+}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(no_cuda, name, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name](tmp_path)
+
+
+def test_require_device(no_cuda):
+    assert require_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        require_device()
+    with pytest.raises(RuntimeError):
+        require_device(torch.device("cuda", 0))

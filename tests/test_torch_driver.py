@@ -113,7 +113,7 @@ def test_simulate_end_to_end(finished_run):
     assert lines[0].startswith("updates accepted") and len(lines) == 1 + 6 * 2
     # a finished folder resolves to itself (resume)
     assert name_datafolder(str(root), "testrun") == folder
-    setup, params, x = load_model(folder)
+    setup, params, x = load_model(folder, "cpu")
     assert tuple(x.shape) == (2, setup.ops.Nph, setup.ops.Ltau)
     assert torch.isfinite(x).all()
 
@@ -150,7 +150,7 @@ def test_checkpoint_resume_continues(finished_run, tmp_path):
     resumed = str(tmp_path / "testrun-7")
     st = ckpt.load_checkpoint(resumed)
     assert st["counters"]["sim_start"] == BASE_CFG["hmc"]["simulation_updates"]
-    setup, params, _ = load_model(resumed)
+    setup, params, _ = load_model(resumed, "cpu")
     st["counters"]["sim_start"] = 2
     ckpt.save_checkpoint(resumed, x=st["x"], v=st["v"], generator_state=torch.as_tensor(
         st["generator"]), params=params, container=st["container"], counters=st["counters"],
@@ -213,7 +213,8 @@ def test_free_fermion_greens_and_density_anchor():
     lat = Lattice.create(UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]]), L)
     spec, params = build_holstein(lat, beta, dtau, omega=1.0, lam=0.0, mu=mu,
                                   t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)),
-                                                 (1.0, 0.0, 0, 0, (0, 1, 0))])
+                                                 (1.0, 0.0, 0, 0, (0, 1, 0))],
+                                  device="cpu")
     ops = make_model_ops(spec)
     N, Lt = spec.Nsites, spec.Ltau
     B = ckb.dense_matrix(spec.ckb, params.cosht.numpy(), params.sinht.numpy()) * np.exp(dtau * mu)

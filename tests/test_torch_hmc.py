@@ -48,7 +48,7 @@ def _models(dense_threshold):
                                       rng=np.random.default_rng(5), **kw)
     uct = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
     tspec, tparams = build_holstein(Lattice.create(uct, L), BETA, DTAU,
-                                    rng=np.random.default_rng(5), **kw)
+                                    rng=np.random.default_rng(5), device="cpu", **kw)
     return jspec, jparams, tspec, tparams
 
 

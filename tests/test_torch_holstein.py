@@ -34,7 +34,7 @@ def _models(dense_threshold, L=4, beta=1.0):
     js, jp = JH.build_holstein(JLattice.create(JUnitCell.create(*uc_args), L), beta, 0.1,
                                rng=np.random.default_rng(9), **kw)
     ts, tp = TH.build_holstein(TLattice.create(TUnitCell.create(*uc_args), L), beta, 0.1,
-                               rng=np.random.default_rng(9), **kw)
+                               rng=np.random.default_rng(9), device="cpu", **kw)
     return js, jp, ts, tp
 
 
@@ -179,9 +179,9 @@ def test_params_from_jax_round_trip(branch):
     assert torch.allclose(TH.mulMTM(ts, conv, TH.expnV(ts, conv, x), v),
                           TH.mulMTM(ts, tp, TH.expnV(ts, tp, x), v), rtol=1e-13, atol=1e-13)
     del np_params["expK"], np_params["expK_inv"], np_params["t"]
-    assert convert.params_from_jax(np_params).expK is None
+    assert convert.params_from_jax(np_params, "cpu").expK is None
     with pytest.raises(KeyError):
-        convert.params_from_jax({"mu": np_params["mu"]})
+        convert.params_from_jax({"mu": np_params["mu"]}, "cpu")
 
 
 def test_unported_hopping_raises():
@@ -189,6 +189,7 @@ def test_unported_hopping_raises():
     lat = TLattice.create(uc, 2)
     with pytest.raises(NotImplementedError):
         TH.build_holstein(lat, 1.0, 0.1, t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0))],
-                          twist=(0.5, 0.0))
+                          twist=(0.5, 0.0), device="cpu")
     with pytest.raises(NotImplementedError):
-        TH.build_holstein(lat, 1.0, 0.1, t_assignments=[(1.0j, 0.0, 0, 0, (1, 0, 0))])
+        TH.build_holstein(lat, 1.0, 0.1, t_assignments=[(1.0j, 0.0, 0, 0, (1, 0, 0))],
+                          device="cpu")

@@ -71,7 +71,7 @@ def test_build_setup_matches_jax(name, disorder, tmp_path):
     js = jconfig.build_setup(copy.deepcopy(cfg), str(tmp_path))
     ts = tconfig.build_setup(copy.deepcopy(cfg), str(tmp_path), "cpu", torch.float64)
     want = params_from_jax({f.name: getattr(js.params, f.name)
-                            for f in dataclasses.fields(ts.params)})
+                            for f in dataclasses.fields(ts.params)}, "cpu")
     for f in dataclasses.fields(ts.params):
         a, b = getattr(ts.params, f.name), getattr(want, f.name)
         assert (a is None) == (b is None), f.name

@@ -1,10 +1,17 @@
 """The CUDA checkerboard-fold kernel and the fused Chebyshev-step kernel
-against their plain torch twins, on the card. Every test here needs an NVIDIA GPU and skips without one. The file
-imports neither JAX nor the JAX package, so a machine with only PyTorch
-runs it:
+against their plain torch twins, on the card. Every test here needs an
+NVIDIA GPU and skips without one. The file imports neither JAX nor the JAX
+package, so a machine with only PyTorch runs it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q -m cuda
-"""
+
+The shapes cover the cluster split (cs > 1, and ranks with unequal site
+counts where N is not a multiple of cs), the K-tiled route (128×128: a row
+larger than 16 slabs), K = 1, odd K with ragged chunk tails, and fields
+whose chunks start off a 16-byte boundary (a view one element into its
+storage)."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -29,24 +36,38 @@ def cuda():
     return torch.device("cuda")
 
 
+@functools.lru_cache(maxsize=None)
 def _spec(L):
     uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
     spec, params = build_holstein(
         Lattice.create(uc, L), 1.0, 0.1, dense_threshold=0, rng=np.random.default_rng(0),
-        t_assignments=[(1.0, 0.1, 0, 0, (1, 0, 0)), (0.8, 0.1, 0, 0, (0, 1, 0))])
+        t_assignments=[(1.0, 0.1, 0, 0, (1, 0, 0)), (0.8, 0.1, 0, 0, (0, 1, 0))], device="cpu")
     return spec.ckb, params
+
+
+def _randn(shape, offset, g, device, dtype):
+    """A contiguous normal field; with ``offset``, a view that starts one
+    element into its storage (its chunks are not 16-byte aligned)."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, generator=g, device=device, dtype=dtype)
+    return flat[offset:].view(shape)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,rev,sign", DIRECTIONS, ids=[d[0] for d in DIRECTIONS])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("L,shape", [(6, (4, 2, 40)), (64, (32, 40)), (64, (16, 1))],
-                         ids=["6x6", "64x64_fermion", "64x64_power"])
-def test_kernel_matches_twin(cuda, name, rev, sign, dtype, L, shape):
+@pytest.mark.parametrize(
+    "L,shape,offset",
+    [(6, (4, 2, 40), 0), (64, (32, 40), 0), (64, (16, 1), 0), (5, (3, 7), 0), (6, (2, 1), 0),
+     (128, (2, 40), 0), (64, (32, 40), 1), (5, (3, 7), 1)],
+    ids=["6x6", "64x64_fermion", "64x64_power", "5x5_K7", "6x6_K1", "128x128_ktiled",
+         "64x64_misaligned", "5x5_K7_misaligned"])
+def test_kernel_matches_twin(cuda, name, rev, sign, dtype, L, shape, offset):
     spec, params = _spec(L)
     c = params.cosht.to(device=cuda, dtype=dtype)
     s = params.sinht.to(device=cuda, dtype=dtype)
-    v = torch.randn(shape[:-1] + (spec.nsites, shape[-1]), device=cuda, dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    v = _randn(shape[:-1] + (spec.nsites, shape[-1]), offset, g, cuda, dtype)
     before = ckb_cuda.launches
     got = ckb_cuda.fold(spec, c, s, v, reverse=rev, sign=sign)
     assert ckb_cuda.launches == before + 1
@@ -71,24 +92,28 @@ def test_kernel_refuses_bad_inputs(cuda):
         ckb_cuda.fold(spec, c.half(), s.half(), v.half())
 
 
-# (chains, rows per chain): the K2 shapes of chip_smoke.py — 16 chains, and
-# 16 chains × nᵥ = 10 Green's-function rows — and a small ragged case
-FUSED_SHAPES = [(6, 2, 3, 7), (64, 16, 1, 40), (64, 16, 10, 40)]
+# (L, chains, rows per chain, K, offset): the K2 shapes of chip_smoke.py —
+# 16 chains, and 16 chains × nᵥ = 10 Green's-function rows — small ragged
+# cases, the K-tiled route and misaligned v and prev
+FUSED_SHAPES = [(6, 2, 3, 7, 0), (64, 16, 1, 40, 0), (64, 16, 10, 40, 0), (5, 3, 1, 7, 0),
+                (6, 2, 2, 1, 0), (128, 2, 1, 40, 0), (64, 16, 2, 40, 1), (5, 3, 1, 7, 1)]
+FUSED_IDS = ["6x6", "64x64_C16", "64x64_C16_nv10", "5x5_K7", "6x6_K1", "128x128_ktiled",
+             "64x64_C16_misaligned", "5x5_K7_misaligned"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_prev", [False, True], ids=["no_prev", "prev"])
 @pytest.mark.parametrize("name,rev,sign", DIRECTIONS[:2], ids=[d[0] for d in DIRECTIONS[:2]])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("L,C,nv,K", FUSED_SHAPES, ids=["6x6", "64x64_C16", "64x64_C16_nv10"])
-def test_fused_kernel_matches_twin(cuda, L, C, nv, K, dtype, name, rev, sign, use_prev):
+@pytest.mark.parametrize("L,C,nv,K,offset", FUSED_SHAPES, ids=FUSED_IDS)
+def test_fused_kernel_matches_twin(cuda, L, C, nv, K, offset, dtype, name, rev, sign, use_prev):
     spec, params = _spec(L)
     c = params.cosht.to(device=cuda, dtype=dtype)
     s = params.sinht.to(device=cuda, dtype=dtype)
     N = spec.nsites
     g = torch.Generator(device=cuda).manual_seed(3)
-    v = torch.randn((C, nv, N, K), generator=g, device=cuda, dtype=dtype)
-    prev = torch.randn((C, nv, N, K), generator=g, device=cuda, dtype=dtype) if use_prev else None
+    v = _randn((C, nv, N, K), offset, g, cuda, dtype)
+    prev = _randn((C, nv, N, K), offset, g, cuda, dtype) if use_prev else None
     pre = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
     post = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
     a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)

@@ -51,7 +51,7 @@ def models():
     js, jp = j_build_holstein(JLattice.create(JUnitCell.create(*UC), 4), 1.0, 0.1,
                               rng=np.random.default_rng(3), **KW)
     ts, tp = build_holstein(Lattice.create(UnitCell.create(*UC), 4), 1.0, 0.1,
-                            rng=np.random.default_rng(3), **KW)
+                            rng=np.random.default_rng(3), device="cpu", **KW)
     return js, jp, ts, tp
 
 

@@ -59,7 +59,7 @@ def models():
     js, jp = j_build_holstein(JLattice.create(JUnitCell.create(*UC), 2), 0.6, 0.1,
                               rng=np.random.default_rng(2), **KW)
     ts, tp = build_holstein(Lattice.create(UnitCell.create(*UC), 2), 0.6, 0.1,
-                            rng=np.random.default_rng(2), **KW)
+                            rng=np.random.default_rng(2), device="cpu", **KW)
     jops, tops = j_make_model_ops(js), make_model_ops(ts)
     # the port's preconditioner starts its power iteration from JAX's vectors
     k1, k2 = jax.random.split(jax.random.PRNGKey(1234))

@@ -51,7 +51,7 @@ def model(request):
     js, jp = j_build_holstein(JLattice.create(JUnitCell.create(*uc_args), 4), 2.0, 0.1,
                               rng=np.random.default_rng(1), **kw)
     ts, tp = t_build_holstein(TLattice.create(TUnitCell.create(*uc_args), 4), 2.0, 0.1,
-                              rng=np.random.default_rng(1), **kw)
+                              rng=np.random.default_rng(1), device="cpu", **kw)
     x = 0.3 * np.random.default_rng(2).standard_normal((C, ts.Nph, ts.Ltau))
     return j_make_model_ops(js), jp, t_make_model_ops(ts), tp, x
 
