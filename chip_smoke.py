@@ -18,24 +18,37 @@ Phases (one line each, and the process exits non-zero if any fails):
    [16, 10, 4096, 40] with prev) also the bound (bytes over the card's
    memory rate) and ``torch.matmul`` by the assembled dense [N, N]
    checkerboard matrix (TF32 off), the one-call library form of the fold;
-5. a small update (4×4, float64) on the card with K1 forced on, against
-   the same update on the CPU through the plain twin;
-6. a small preconditioner apply (4×4, float64) on the fold branch: K2 on
+5. the kernels' coefficient-table modes of the SSH model at the shapes
+   its 64×64 update launches, against the twins, float32 and float64, all
+   directions: K1 with per-(chain, bond, τ) tables [8, 4096·2, 40] on
+   [8, 2, 4096, 40] (the fermion operator), K1 with per-chain tables on
+   [8, 4096, 1] (the power iteration) and [8, 2, 4096, 40] (Ā on a CG
+   block), K2 with per-chain tables on [8, 2, 4096, 40] with and without
+   ``prev``; each with device ms, plain ms, bound and the one-call library
+   form where there is one;
+6. a small update (4×4, float64) on the card with K1 forced on, against
+   the same update on the CPU through the plain twin; the same for a 4×4
+   SSH update with the dense Ā switched off, so that K1 runs in both its
+   SSH modes and K2 with per-chain tables;
+7. a small preconditioner apply (4×4, float64) on the fold branch: K2 on
    the card against its twin on the CPU;
-7. the bench 8×8 configuration (128 chains, dense branch): 1 warm-up and 3
+8. the bench 8×8 configuration (128 chains, dense branch): 1 warm-up and 3
    timed updates;
-8. the kernel 64×64 configuration (16 chains, fold branch, N = 4096): 1
-   warm-up and 2 timed updates, with K1's and K2's launch counts;
-9. the 64×64 A/B of the two fold-branch Chebyshev recurrences (K2 steps
-   against K1 plus elementwise passes) on one KPM state;
-10. the TOML driver, ``simulation.simulate``: ``examples/
-    holstein_hmc_square.toml`` with its counts cut (4×4, dense branch), and
-    the same file at 64×64, β = 4 (4 chains, K1 and K2 on the path), each
-    into a temporary directory, with seconds per update and per
-    measurement and the peak device memory.
+9. the kernel 64×64 configuration (16 chains, fold branch, N = 4096): 1
+   warm-up and 2 timed updates, with K1's and K2's launch counts; and the
+   SSH 64×64 configuration (8 chains): 1 warm-up and 2 timed updates, with
+   the launch counts of each kernel mode;
+10. the 64×64 A/B of the two fold-branch Chebyshev recurrences (K2 steps
+    against K1 plus elementwise passes) on one KPM state;
+11. the TOML driver, ``simulation.simulate``: ``examples/
+    holstein_hmc_square.toml`` and ``examples/ssh_hmc_square.toml``, each
+    with its counts cut (4×4, dense branch) and at 64×64, β = 4 (4 chains,
+    K1 and K2 on the path), each into a temporary directory, with seconds
+    per update and per measurement and the peak device memory.
 
-The line before the last is a JSON object with the kernels' numbers; the
-last line is ``{"ok": true, "device": {...}}``. Kernel times (``ms``,
+The line before the last is a JSON object with the kernels' numbers, one
+entry per kernel and coefficient mode; the last line is ``{"ok": true,
+"device": {...}}``. Kernel times (``ms``,
 ``plain_ms``, ``library_ms``) are device time per call: calls captured in a
 CUDA graph and replayed between CUDA events, so a host slower than the card
 does not enter them; ``call_ms`` in the phase lines is one call after a
@@ -109,13 +122,18 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 def library_ms(spec, c, s, v) -> float:
     """``torch.matmul`` by the assembled dense [N, N] checkerboard matrix
-    on ``v`` [..., N, K] (float32, TF32 off): the one PyTorch call that
-    computes the fold. Timed here only; the port never calls it."""
+    (one per chain for per-chain [C, Nb] tables) on ``v`` [C, ..., N, K]
+    (float32, TF32 off): the one PyTorch call that computes the fold. Timed
+    here only; the port never calls it."""
     from elphdynamics_tpu_torch.ops import checkerboard as ckb
 
-    dense = torch.as_tensor(ckb.dense_matrix(spec, c.double().cpu().numpy(),
-                                             s.double().cpu().numpy()),
-                            dtype=v.dtype, device=v.device)
+    c, s = c.double().cpu().numpy(), s.double().cpu().numpy()
+    if c.ndim == 1:
+        dense = torch.as_tensor(ckb.dense_matrix(spec, c, s), dtype=v.dtype, device=v.device)
+    else:
+        dense = torch.stack([torch.as_tensor(ckb.dense_matrix(spec, ci, si), dtype=v.dtype,
+                                             device=v.device) for ci, si in zip(c, s)])
+        dense = dense.reshape(dense.shape[:1] + (1,) * (v.ndim - 3) + dense.shape[1:])
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -264,6 +282,139 @@ def phase_fused_vs_twin() -> dict:
     return dict(max_abs_err=worst_abs, **main)
 
 
+def _ssh_64():
+    """The SSH model of ``bench.SSH_64X64`` on the card (float64) and the
+    coefficient tables of a tied random field: per (chain, bond, τ)
+    ``[8, 8192, 40]`` (the fermion operator's) and their per-chain τ-means
+    ``[8, 8192]`` (Ā's)."""
+    from elphdynamics_tpu_torch.bench import SSH_64X64, build_ssh_step
+    from elphdynamics_tpu_torch.models import ssh as Sm
+
+    b = build_ssh_step(SSH_64X64.L, SSH_64X64.beta, SSH_64X64.dtau, SSH_64X64.dt,
+                       SSH_64X64.n_chains, "cuda", torch.float64)
+    spec = b.ops.spec
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = Sm.tie_fields(spec, b.state.x + 0.3 * torch.randn(b.state.x.shape, generator=g,
+                                                            dtype=torch.float64, device="cuda"))
+    d = Sm.ckb_coeffs(spec, b.params, x)
+    return spec, {"column": (d.cosh, d.sinh), "chain": (d.cosh.mean(-1), d.sinh.mean(-1))}
+
+
+def phase_table_kernels() -> dict:
+    """Both kernels with the SSH model's coefficient tables against their
+    twins at the SSH 64×64 update's shapes (C = 8 chains, N = 4096, Lτ =
+    2Lω = 40): K1 with per-(chain, bond, τ) tables on the fermion operator's
+    [8, 2, N, 40]; K1 with per-chain tables on the power iteration's
+    [8, N, 1] and on a CG block [8, 2, N, 40]; K2 with per-chain tables on
+    the Chebyshev block [8, 2, N, 40], with and without prev. Returns, per
+    kernel and mode, its numbers at its main-path shape (float32)."""
+    from elphdynamics_tpu_torch.ops import checkerboard as ckb
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    spec, tables = _ssh_64()
+    sc, G = spec.ckb, spec.ckb.ngroups
+    C, N, Lt = tables["column"][0].shape[0], spec.Nsites, spec.Ltau
+    cases = [("fold", "column", (C, 2, N, Lt)), ("fold", "chain", (C, N, 1)),
+             ("fold", "chain", (C, 2, N, Lt)), ("fused", "chain", (C, 2, N, Lt))]
+    main_shape = {"fold/column": (C, 2, N, Lt), "fold/chain": (C, N, 1),
+                  "fused/chain": (C, 2, N, Lt)}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    out = {k: dict(max_abs_err=0.0) for k in main_shape}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        for kernel, form, shape in cases:
+            key = f"{kernel}/{form}"
+            c, s = (t.to(dtype).contiguous() for t in tables[form])
+            v = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+            if kernel == "fold":
+                variants = [(name, dict(reverse=rev, sign=sign)) for name, rev, sign in DIRECTIONS]
+                fast, plain_fn = ckb_cuda.fold, ckb.fold
+            else:
+                prev = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+                diag = 0.5 + torch.rand((C, N), generator=g, dtype=dtype, device="cuda")
+                a = 0.5 + torch.rand(C, generator=g, dtype=dtype, device="cuda")
+                bb = torch.rand(C, generator=g, dtype=dtype, device="cuda") - 0.5
+                variants = [(f"{name}{'_prev' if p else ''}",
+                             dict(reverse=rev, pre=None if rev else diag,
+                                  post=diag if rev else None, a=a, b=bb, c=-1.0,
+                                  prev=prev if p else None))
+                            for name, rev in (("forward", False), ("reverse", True))
+                            for p in (True, False)]
+                fast, plain_fn = ckb_cuda.fold_fused, ckb.fold_fused
+            for name, kw in variants:
+                got = fast(sc, c, s, v, **kw)
+                want = plain_fn(sc, c, s, v, **kw)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
+                run = lambda: fast(sc, c, s, v, **kw)  # noqa: E731
+                ms, call = device_ms(run), median_ms(run)
+                plain = device_ms(lambda: plain_fn(sc, c, s, v, **kw), reps=10)
+                # each input read once, each output written once: the field (and
+                # prev), the tables, K2's diagonal and scalars; 3 flops per
+                # element per group (K2: plus the diagonal and the combine)
+                nbytes = v.element_size() * (
+                    (2 + (kw.get("prev") is not None)) * v.numel() + c.numel() + s.numel()
+                    + (C * N + 2 * C if kernel == "fused" else 0))
+                flops = (3 * G + (6 if kernel == "fused" else 0)) * v.numel()
+                b_ms, b_by = bound(nbytes, flops)
+                say("table_kernel", kernel=kernel, tables=form, dtype=str(dtype).split(".")[1],
+                    shape="x".join(map(str, shape)), table_shape="x".join(map(str, c.shape)),
+                    direction=name, max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
+                    kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}", plain_ms=f"{plain:.4f}",
+                    bound_ms=f"{b_ms:.4f}", bound_share=f"{b_ms / ms:.3f}")
+                if not rel <= tol:
+                    raise RuntimeError(f"{key} kernel disagrees with its twin: {rel} > {tol}")
+                if (dtype == torch.float32 and shape == main_shape[key] and "ms" not in out[key]
+                        and name.startswith("forward")):
+                    # no one PyTorch call computes the fold with per-column
+                    # tables: per-(chain, τ) dense matrices take C·Lτ·N² elements
+                    lib = None if form == "column" else library_ms(sc, c, s, v)
+                    out[key].update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib, shape="x".join(map(str, shape)))
+    return out
+
+
+def phase_small_ssh_reference() -> None:
+    """One 4×4 SSH update in float64 on the card with the dense Ā switched
+    off (so K1 runs with per-(chain, bond, τ) and per-chain tables and K2
+    with per-chain tables), against the same update on the CPU (plain
+    twins)."""
+    from elphdynamics_tpu_torch.bench import build_ssh_step
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCState, draw
+    from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
+
+    runs = {}
+    dense_max = kpm._DENSE_ABAR_MAX_SITES
+    kpm._DENSE_ABAR_MAX_SITES = 0
+    try:
+        for dev in ("cpu", "cuda"):
+            b = build_ssh_step(4, 1.0, 0.1, 0.05, 4, dev, torch.float64, trajectory_time=0.2)
+            if dev == "cpu":
+                draws = draw(b.ops, 4, torch.float64, "cpu", torch.Generator().manual_seed(1))
+                x0 = b.state.x
+            moved = replace(draws, momentum=draws.momentum.to(dev),
+                            pseudofermion=draws.pseudofermion.to(dev),
+                            uniform=draws.uniform.to(dev))
+            ckb_cuda.reset_counts()
+            st, stats = b.step(b.params, HMCState(x=x0.to(dev), v=torch.zeros_like(x0, device=dev)),
+                               draws=moved)
+            runs[dev] = (st.x.cpu(), stats.delta_H.cpu(), stats.accepted.cpu(),
+                         dict(ckb_cuda.table_launches))
+    finally:
+        kpm._DENSE_ABAR_MAX_SITES = dense_max
+    dx = (runs["cuda"][0] - runs["cpu"][0]).abs().max().item()
+    ddh = (runs["cuda"][1] - runs["cpu"][1]).abs().max().item()
+    n = runs["cuda"][3]
+    say("small_ssh_reference", max_abs_dx=f"{dx:.3e}", max_abs_ddH=f"{ddh:.3e}",
+        accept_equal=bool(torch.equal(runs["cuda"][2], runs["cpu"][2])),
+        cuda_launches=n, cpu_launches=sum(runs["cpu"][3].values()))
+    if not (dx <= 1e-10 and ddh <= 1e-9 and torch.equal(runs["cuda"][2], runs["cpu"][2])
+            and n["fold/column"] > 0 and n["fold/chain"] > 0 and n["fused/chain"] > 0
+            and sum(runs["cpu"][3].values()) == 0):
+        raise RuntimeError("the card's SSH update disagrees with the CPU reference")
+
+
 def phase_small_fused_reference() -> None:
     """A 4×4 float64 preconditioner apply on the fold branch (the state's
     dense Ā dropped, as tests/test_kpm.py forces it): K2 on the card against
@@ -377,7 +528,7 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     b = build(cfg, "cuda", torch.float32)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    ckb_cuda.launches = ckb_cuda.fused_launches = 0
+    ckb_cuda.reset_counts()
     state = b.state
     for _ in range(warmup):
         state, stats = b.step(b.params, state, b.generator)
@@ -393,18 +544,19 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
+    by_table = dict(ckb_cuda.table_launches)
     acc, iters, flags, dHs = (torch.stack(a).cpu() for a in (acc, iters, flags, dHs))
     out = dict(sweeps_per_s=cfg.n_chains * timed / elapsed,
                acceptance=acc.double().mean().item(),
                cg_iters_per_solve=iters.double().mean().item(),
                max_flag=int(flags.max()), dH_finite=bool(torch.isfinite(dHs).all()),
                max_abs_dH=dHs.abs().max().item(), kernel_launches=launches,
-               fused_kernel_launches=fused_launches,
+               fused_kernel_launches=fused_launches, table_launches=by_table,
                build_s=build_s, seconds=elapsed,
                x_shape=tuple(state.x.shape), x_finite=bool(torch.isfinite(state.x).all()))
     say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_updates=timed,
         **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out.items()})
-    shape = (cfg.n_chains, cfg.L * cfg.L, round(cfg.beta / cfg.dtau))
+    shape = (cfg.n_chains, b.ops.Nph, round(cfg.beta / cfg.dtau))
     if not (out["x_finite"] and out["dH_finite"] and out["x_shape"] == shape):
         raise RuntimeError(f"{cfg.name}: non-finite or misshapen output")
     return out
@@ -425,22 +577,29 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
     with open(path, "w") as f:
         f.write(dump_toml(cfg))
     torch.cuda.reset_peak_memory_stats()
-    ckb_cuda.launches = ckb_cuda.fused_launches = 0
+    ckb_cuda.reset_counts()
     t0 = time.perf_counter()
     stats = simulate(path, n_chains=n_chains, device="cuda", dtype=torch.float32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
+    by_table = dict(ckb_cuda.table_launches)
     h, sp = cfg["hmc"], cfg["simulation"]
+    ssh = "ssh" in cfg
     folder = os.path.join(workdir, f"{sp['foldername']}-1")
     with open(os.path.join(folder, f"{sp['foldername']}_summary.out")) as f:
         summary = f.read()
     sections = ("INPUT FILE CONTENTS", "SIMULATION INFO", "GLOBAL MEASUREMENTS",
-                "ON-SITE MEASUREMENTS", "SUSCEPTIBILITIES", "CORRELATIONS")
+                "ON-SITE MEASUREMENTS", "INTER-SITE MEASUREMENTS", "SUSCEPTIBILITIES",
+                "CORRELATIONS")
+    files = [("global_measurements", "keyed"), ("onsite_measurements", "keyed"),
+             ("intersite_measurements", "keyed"), ("Greens_position", "table"),
+             ("PairSusc_momentum", "table")]
+    if ssh:    # the bond phonons' Green's function (inter-site for SSH)
+        files += [("PhononGreens_position", "table"), ("PhononGreens_momentum", "table")]
     finite = True
     for b in range(1, sp["num_bins"] + 1):
-        for sub, kind in (("global_measurements", "keyed"), ("onsite_measurements", "keyed"),
-                          ("Greens_position", "table"), ("PairSusc_momentum", "table")):
+        for sub, kind in files:
             path = os.path.join(folder, f"{sub}_f", f"{sub}_{b:05d}.out")
             if kind == "keyed":
                 with open(path) as f:
@@ -452,7 +611,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
             finite = finite and vals.size > 0 and bool(np.isfinite(vals).all())
     n_upd = h["burnin_updates"] + h["simulation_updates"]
     n_meas = h["simulation_updates"] // h["meas_freq"]
-    out = dict(chains=n_chains, L=cfg["lattice"]["L"], beta=cfg["holstein"]["beta"],
+    out = dict(chains=n_chains, L=cfg["lattice"]["L"], beta=cfg["ssh" if ssh else "holstein"]["beta"],
                updates=n_upd, measurements=n_meas, wall_s=wall,
                s_per_update=stats["simulation_time"] / n_upd,
                s_per_measurement=stats["measurement_time"] / n_meas,
@@ -462,7 +621,10 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
                swap_acceptance=stats["swap_acceptance_rate"],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                kernel_launches=launches, fused_kernel_launches=fused_launches,
-               sections_ok=all(f"## {x} ##" in summary for x in sections), bins_finite=finite)
+               table_launches=by_table,
+               sections_ok=(all(f"## {x} ##" in summary for x in sections)
+                            and (not ssh or "sign_switch 1 = " in summary)),
+               bins_finite=finite)
     say(f"driver_{name}", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                              for k, v in out.items()})
     if not (out["sections_ok"] and finite):
@@ -473,29 +635,32 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
     return out
 
 
-def phase_driver() -> dict:
-    """The stock 4×4 example with its counts cut, and the same file at
-    64×64 (β = 4, dt = 0.025, 4 bosonic substeps, 4 chains): the full-width
-    run, with K1 (fermion operator, Ā power iteration) and K2 (Chebyshev
-    steps) on its path. Each run writes into its own temporary folder."""
+def phase_driver(example: str, model: str, small_updates: tuple[int, int, int]) -> dict:
+    """A stock 4×4 example with its counts cut, and the same file at 64×64
+    (β = 4, dt = 0.025, 4 bosonic substeps, 4 chains): the full-width run,
+    with K1 (fermion operator, Ā power iteration) and K2 (Chebyshev steps)
+    on its path. ``small_updates``: the cut run's burn-in updates, sampling
+    updates and bins. Each run writes into its own temporary folder."""
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
+    with open(os.path.join(here, "examples", f"{example}.toml"), "rb") as f:
         stock = tomllib.load(f)
+    name = example.split("_")[0]
     with tempfile.TemporaryDirectory() as work:
         small = json.loads(json.dumps(stock))
-        small["hmc"].update(burnin_updates=20, simulation_updates=40)
-        small["simulation"]["num_bins"] = 4
-        run_driver("square_4x4", small, 1, work)
+        burnin, sampling, bins = small_updates
+        small["hmc"].update(burnin_updates=burnin, simulation_updates=sampling)
+        small["simulation"]["num_bins"] = bins
+        run_driver(f"{name}_square_4x4", small, 1, work)
         big = json.loads(json.dumps(stock))
         big["lattice"]["L"] = 64
-        big["holstein"]["beta"] = 4.0
+        big[model]["beta"] = 4.0
         big["hmc"].update(dt=0.025, num_multitimesteps=4, burnin_updates=1,
                           simulation_updates=2, meas_freq=1)
         big["simulation"]["num_bins"] = 2
         big["measurements"]["num_random_vectors"] = 10
-        out = run_driver("square_64x64", big, 4, work)
+        out = run_driver(f"{name}_square_64x64", big, 4, work)
     if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
-        raise RuntimeError("the 64x64 driver run launched a kernel no time: "
+        raise RuntimeError(f"the 64x64 {name} driver run launched a kernel no time: "
                            f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
     return out
 
@@ -511,21 +676,33 @@ def main() -> int:
     phase_build()
     kern = phase_kernel_vs_twin()
     fused = phase_fused_vs_twin()
+    tables = phase_table_kernels()
     phase_small_reference()
+    phase_small_ssh_reference()
     phase_small_fused_reference()
 
-    from elphdynamics_tpu_torch.bench import BENCH_8X8, KERNEL_64X64
+    from elphdynamics_tpu_torch.bench import BENCH_8X8, KERNEL_64X64, SSH_64X64
 
     run_config(BENCH_8X8, warmup=1, timed=3)
-    big = run_config(KERNEL_64X64, warmup=1, timed=2)
-    if big["kernel_launches"] <= 0 or big["fused_kernel_launches"] <= 0:
-        raise RuntimeError("the 64x64 update launched a kernel no time: "
-                           f"K1 {big['kernel_launches']}, K2 {big['fused_kernel_launches']}")
-    if big["max_flag"] != 0 or big["acceptance"] <= 0:
-        raise RuntimeError(f"64x64: flag {big['max_flag']}, acceptance {big['acceptance']}")
+    for cfg, forms in ((KERNEL_64X64, ("fold/shared", "fused/shared")),
+                       (SSH_64X64, ("fold/column", "fold/chain", "fused/chain"))):
+        big = run_config(cfg, warmup=1, timed=2)
+        idle = [f for f in forms if big["table_launches"][f] <= 0]
+        if idle:
+            raise RuntimeError(f"{cfg.name}: kernel modes launched no time: {idle}")
+        if big["max_flag"] != 0 or big["acceptance"] <= 0:
+            raise RuntimeError(f"{cfg.name}: flag {big['max_flag']}, "
+                               f"acceptance {big['acceptance']}")
     phase_chebyshev_ab()
-    drv = phase_driver()
-    if not (math.isfinite(kern["ms"]) and math.isfinite(fused["ms"])):
+    # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
+    # per update; SSH's KPM at max_order 64): a few updates each
+    drv = phase_driver("holstein_hmc_square", "holstein", (4, 8, 4))
+    drv_ssh = phase_driver("ssh_hmc_square", "ssh", (1, 2, 2))
+    idle = [f for f in ("fold/column", "fold/chain", "fused/chain")
+            if drv_ssh["table_launches"][f] <= 0]
+    if idle:
+        raise RuntimeError(f"the 64x64 SSH driver run launched these kernel modes no time: {idle}")
+    if not all(math.isfinite(k["ms"]) for k in (kern, fused, *tables.values())):
         raise RuntimeError("kernel timing missing")
     say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
 
@@ -535,11 +712,20 @@ def main() -> int:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "bound_share": k["bound_ms"] / k["ms"], "library_ms": k["library_ms"]}
 
+    k1 = ("elphdynamics_tpu_torch/csrc/ckb_fold.cu", "elphdynamics_tpu/ops/ckb_pallas.py:75")
+    k2 = ("elphdynamics_tpu_torch/csrc/ckb_fold_fused.cu",
+          "elphdynamics_tpu/ops/ckb_pallas.py:128")
+    # launches: the Holstein modes from the 64×64 Holstein driver run, the
+    # SSH modes from the 64×64 SSH driver run
     print(json.dumps({"kernels": [
-        entry("ckb_fold", "elphdynamics_tpu_torch/csrc/ckb_fold.cu",
-              "elphdynamics_tpu/ops/ckb_pallas.py:75", drv["kernel_launches"], kern),
-        entry("ckb_fold_fused", "elphdynamics_tpu_torch/csrc/ckb_fold_fused.cu",
-              "elphdynamics_tpu/ops/ckb_pallas.py:128", drv["fused_kernel_launches"], fused),
+        entry("ckb_fold", *k1, drv["table_launches"]["fold/shared"], kern),
+        entry("ckb_fold[per-chain-bond-column tables]", *k1,
+              drv_ssh["table_launches"]["fold/column"], tables["fold/column"]),
+        entry("ckb_fold[per-chain tables]", *k1, drv_ssh["table_launches"]["fold/chain"],
+              tables["fold/chain"]),
+        entry("ckb_fold_fused", *k2, drv["table_launches"]["fused/shared"], fused),
+        entry("ckb_fold_fused[per-chain tables]", *k2, drv_ssh["table_launches"]["fused/chain"],
+              tables["fused/chain"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,17 @@ half-filled initial phonons. Two configurations use it:
 * ``KERNEL_64X64``: 64×64 (N = 4096), β = 4, Δτ = 0.1, dt = 0.025, 16
   chains — the checkerboard-fold branch, which runs the CUDA kernel on a
   card for both exp(−Δτ·K) and the KPM Ā.
+
+The optical SSH update (``scripts/bench_ssh.py`` of the JAX package):
+square lattice, bonds x and y with t = 1, α = 0.25, ω = 0.5, μ = 0;
+Fourier mass block ω ∈ (0, 10) with m = 0.5; HMC with trajectory time 1,
+Nb = 4, tol 1e-5, maxiter 500, cubic warm starts; symmetric KPM at
+max_order 8; half-filled initial phonons; β = 4, Δτ = 0.1 (Lτ = 40).
+
+* ``SSH_64X64``: 64×64, dt = 0.025, 8 chains (N = 4096, Nb = Nph = 8192, 4
+  groups) — on a card the fermion operator runs the fold kernel with
+  per-(chain, bond, τ) coefficients, the KPM Ā its per-chain tables, and
+  every Chebyshev step the fused kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_fille
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams, build_holstein
+from elphdynamics_tpu_torch.models.ssh import SSHParams, build_ssh
 from elphdynamics_tpu_torch.ops import kpm
 from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
 from elphdynamics_tpu_torch.utils.device import require_device
@@ -37,16 +49,19 @@ class BenchConfig:
     dtau: float
     dt: float
     n_chains: int
+    model: str = "holstein"
 
 
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
 KERNEL_64X64 = BenchConfig("kernel_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=16)
+SSH_64X64 = BenchConfig("ssh_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=8,
+                        model="ssh")
 
 
 @dataclass(frozen=True)
 class BenchStep:
     ops: ModelOps
-    params: HolsteinParams
+    params: HolsteinParams | SSHParams
     step: object            # step(params, state, generator) -> (state, stats)
     state: HMCState         # initial state
     generator: torch.Generator
@@ -61,19 +76,41 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     initial state of ``n_chains`` chains on ``device`` (the card unless the
     caller asks for the CPU)."""
     device = require_device(device)
-    uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
-    lat = Lattice.create(uc, L)
     spec, params = build_holstein(
-        lat, beta=beta, dtau=dtau,
+        _square(L), beta=beta, dtau=dtau,
         t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))],
         omega=1.0, lam=1.0, mu=0.0, dtype=dtype, device=device,
         dense_threshold=dense_threshold, pallas_threshold=pallas_threshold)
+    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=4)
+
+
+def build_ssh_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
+                   device="cuda", dtype: torch.dtype = torch.float32, *,
+                   seed: int = 0, trajectory_time: float = 1.0) -> BenchStep:
+    """The SSH model, its KPM-preconditioned HMC step and a half-filled
+    initial state of ``n_chains`` chains on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = require_device(device)
+    hop = dict(t=1.0, alpha=0.25, omega=0.5, o1=0, o2=0)
+    spec, params = build_ssh(
+        _square(L), beta, dtau,
+        hoppings=[dict(hop, dL=(1, 0, 0), name="x"), dict(hop, dL=(0, 1, 0), name="y")],
+        mu_assignments=[(0.0, 0.0, None)], dtype=dtype, device=device)
+    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8)
+
+
+def _square(L: int) -> Lattice:
+    return Lattice.create(UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]]), L)
+
+
+def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time,
+                max_order: int) -> BenchStep:
     ops = make_model_ops(spec)
     mass = build_mass(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
                       [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
     cfg = HMCConfig(dt=dt, trajectory_time=trajectory_time, Nb=4, tol=1e-5,
                     maxiter=500, construct_guess=True, guess_order=3)
-    precond = kpm.make_symmetric_precond(ops, kpm.KPMConfig(max_order=4))
+    precond = kpm.make_symmetric_precond(ops, kpm.KPMConfig(max_order=max_order))
     step = make_hmc_step(ops, mass, cfg, precond)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = init_phonons_half_filled(ops, params, n_chains, gen)
@@ -83,6 +120,7 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
 
 def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
           **kw) -> BenchStep:
-    """:func:`build_bench_step` of one configuration."""
-    return build_bench_step(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains,
-                            device, dtype, **kw)
+    """:func:`build_bench_step` (or, for an SSH configuration,
+    :func:`build_ssh_step`) of one configuration."""
+    make = build_ssh_step if cfg.model == "ssh" else build_bench_step
+    return make(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype, **kw)

@@ -8,6 +8,9 @@
 // element per group; every field element must be read once and written once
 // (2·B·N·K·itemsize bytes), and a plain fold (one gather + FMA pass per
 // group, the torch twin in ops/checkerboard.py) moves that G times over.
+// With per-(chain, bond, column) coefficients (the SSH fermion operator's
+// [C, Nb, Lτ] cosh/sinh) the tables add 2·C·Nb·K elements, read from device
+// memory by the sweep (each chain's by its inner rows, mostly from L2).
 //
 // What the design does about it (ckb_fold_groups.cuh):
 //   * a cluster of cs CTAs owns one batch row (and one column tile where the
@@ -35,20 +38,26 @@
 
 namespace {
 
-template <typename T, int V>
+template <typename T, int V, bool PC>
 __global__ void __launch_bounds__(ckb::kMaxThreads, 2)
     ckb_fold_kernel(const T* __restrict__ in, T* __restrict__ out,
                     const int4* __restrict__ bonds, const int* __restrict__ poff,
                     const T* __restrict__ c, const T* __restrict__ s, int ngroups,
-                    T sign, int N, int K, int kt, int cs, int pmax) {
+                    T sign, int N, int K, int kt, int cs, int pmax, int inner,
+                    long long cstride) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const size_t sb = ckb::slab_bytes(N, cs, kt, sizeof(T));
   T* slab = reinterpret_cast<T*>(smem_raw);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + sb + ckb::table_bytes(pmax, sizeof(T)));
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(smem_raw + sb + ckb::table_bytes(pmax, sizeof(T), PC));
 
   const ckb::Tile t = ckb::tile_of_block(N, K, kt, cs);
   const ckb::ThreadMap m = ckb::thread_map<V>(kt, t.kw);
   const bool contiguous = kt == K;
+  // the row's coefficients: its chain's table (cstride 0: the shared one)
+  const size_t coff = static_cast<size_t>(blockIdx.y / inner) * cstride;
+  const T* cr = c + coff;
+  const T* sr = s + coff;
 
   if (threadIdx.x == 0) {
     ckb::mbar_init(bar);
@@ -62,11 +71,17 @@ __global__ void __launch_bounds__(ckb::kMaxThreads, 2)
   } else {
     ckb::copy_tile_in<T, V>(slab, in + t.gbase, t, kt, K, m);
   }
-  const ckb::BondTables<T> tb =
-      ckb::load_bond_tables(smem_raw + sb, bonds, poff, c, s, ngroups, sign, t.rank, pmax);
+  const ckb::BondTables<T> tb = ckb::load_bond_tables<T, PC>(smem_raw + sb, bonds, poff, cr, sr,
+                                                             ngroups, sign, t.rank, pmax);
+  ckb::ColumnCoeffs<T> cc;
+  cc.c = cr + t.k0;
+  cc.s = sr + t.k0;
+  cc.K = K;
+  cc.vec = (reinterpret_cast<uintptr_t>(c) % (V * sizeof(T))) == 0 &&
+           (reinterpret_cast<uintptr_t>(s) % (V * sizeof(T))) == 0;
   if (wait) ckb::mbar_wait(bar, 0);
 
-  ckb::fold_sweep<T, V>(slab, tb, poff + cs * (ngroups + 1), ngroups, kt, t, m);
+  ckb::fold_sweep<T, V, PC>(slab, tb, poff + cs * (ngroups + 1), ngroups, kt, t, m, cc, sign);
 
   if (contiguous) {
     ckb::copy_out(out + t.gbase, slab, t.nsites * K);
@@ -76,46 +91,66 @@ __global__ void __launch_bounds__(ckb::kMaxThreads, 2)
 }
 
 // Dynamic shared memory allowed so far for each instantiation, per device.
-template <typename T, int V>
+template <typename T, int V, bool PC>
 int* smem_set() {
   static int set[ckb::kMaxDevices] = {};
   return set;
 }
 
-template <typename T, int V>
+template <typename T, int V, bool PC>
+size_t smem_bytes(int N, int kt, int cs, int pmax) {
+  return ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T), PC) + 16;
+}
+
+template <typename T, int V, bool PC>
 int clusters_v(int N, int kt, int cs, int pmax, int threads) {
-  const size_t smem =
-      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T)) + 16;
-  return ckb::resident_clusters(ckb_fold_kernel<T, V>, smem_set<T, V>(), cs, threads, smem);
+  return ckb::resident_clusters(ckb_fold_kernel<T, V, PC>, smem_set<T, V, PC>(), cs, threads,
+                                smem_bytes<T, V, PC>(N, kt, cs, pmax));
 }
 
 template <typename T, int V>
+int clusters_pc(int N, int kt, int cs, int pmax, int threads, int per_column) {
+  return per_column ? clusters_v<T, V, true>(N, kt, cs, pmax, threads)
+                    : clusters_v<T, V, false>(N, kt, cs, pmax, threads);
+}
+
+template <typename T, int V, bool PC>
 int launch_v(const T* in, T* out, const int* bonds, const int* poff, const T* c, const T* s,
              int ngroups, T sign, int B, int N, int K, int kt, int cs, int pmax, int threads,
-             void* stream) {
-  const size_t smem =
-      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T)) + 16;
-  return ckb::launch_cluster(ckb_fold_kernel<T, V>, smem_set<T, V>(), (K + kt - 1) / kt, B, cs,
-                             threads, smem, stream, in, out,
-                             reinterpret_cast<const int4*>(bonds), poff, c, s, ngroups, sign,
-                             N, K, kt, cs, pmax);
+             int inner, long long cstride, void* stream) {
+  return ckb::launch_cluster(ckb_fold_kernel<T, V, PC>, smem_set<T, V, PC>(), (K + kt - 1) / kt,
+                             B, cs, threads, smem_bytes<T, V, PC>(N, kt, cs, pmax), stream, in,
+                             out, reinterpret_cast<const int4*>(bonds), poff, c, s, ngroups,
+                             sign, N, K, kt, cs, pmax, inner, cstride);
+}
+
+template <typename T, int V>
+int launch_pc(const T* in, T* out, const int* bonds, const int* poff, const T* c, const T* s,
+              int ngroups, T sign, int B, int N, int K, int kt, int cs, int pmax, int threads,
+              int inner, long long cstride, int per_column, void* stream) {
+  return per_column
+             ? launch_v<T, V, true>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs,
+                                    pmax, threads, inner, cstride, stream)
+             : launch_v<T, V, false>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs,
+                                     pmax, threads, inner, cstride, stream);
 }
 
 template <typename T>
 int launch(const T* in, T* out, const int* bonds, const int* poff, const T* c, const T* s,
            int ngroups, T sign, int B, int N, int K, int kt, int cs, int vec, int pmax,
-           int threads, void* stream) {
+           int threads, int inner, long long cstride, int per_column, void* stream) {
+  if (inner < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (vec) {
     case 1:
-      return launch_v<T, 1>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, pmax,
-                            threads, stream);
+      return launch_pc<T, 1>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, pmax,
+                             threads, inner, cstride, per_column, stream);
     case 2:
-      return launch_v<T, 2>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, pmax,
-                            threads, stream);
+      return launch_pc<T, 2>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, pmax,
+                             threads, inner, cstride, per_column, stream);
     case 4:
       if constexpr (sizeof(T) == 4)
-        return launch_v<T, 4>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs,
-                              pmax, threads, stream);
+        return launch_pc<T, 4>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs,
+                               pmax, threads, inner, cstride, per_column, stream);
       [[fallthrough]];
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -126,31 +161,37 @@ int launch(const T* in, T* out, const int* bonds, const int* poff, const T* c, c
 
 extern "C" {
 
-// Clusters of the launch (dtype64, vec, N, kt, cs, pmax, threads) the card
-// holds at once (the grid runs in ceil(clusters / this) waves).
+// Clusters of the launch (dtype64, vec, N, kt, cs, pmax, threads,
+// per_column) the card holds at once (the grid runs in ceil(clusters /
+// this) waves).
 int ckb_fold_resident_clusters(int dtype64, int vec, int N, int kt, int cs, int pmax,
-                               int threads) {
+                               int threads, int per_column) {
   if (dtype64) {
-    return vec == 2 ? clusters_v<double, 2>(N, kt, cs, pmax, threads)
-                    : clusters_v<double, 1>(N, kt, cs, pmax, threads);
+    return vec == 2 ? clusters_pc<double, 2>(N, kt, cs, pmax, threads, per_column)
+                    : clusters_pc<double, 1>(N, kt, cs, pmax, threads, per_column);
   }
-  return vec == 4   ? clusters_v<float, 4>(N, kt, cs, pmax, threads)
-         : vec == 2 ? clusters_v<float, 2>(N, kt, cs, pmax, threads)
-                    : clusters_v<float, 1>(N, kt, cs, pmax, threads);
+  return vec == 4   ? clusters_pc<float, 4>(N, kt, cs, pmax, threads, per_column)
+         : vec == 2 ? clusters_pc<float, 2>(N, kt, cs, pmax, threads, per_column)
+                    : clusters_pc<float, 1>(N, kt, cs, pmax, threads, per_column);
 }
 
+// Rows are [B, N, K]; row r takes its coefficients at (r / inner)·cstride
+// (cstride 0: one table for all rows; Nb: one per chain; Nb·K with
+// per_column: one coefficient per chain, bond and column).
 int ckb_fold_f32(const float* in, float* out, const int* bonds, const int* poff,
                  const float* c, const float* s, int ngroups, double sign, int B, int N,
-                 int K, int kt, int cs, int vec, int pmax, int threads, void* stream) {
+                 int K, int kt, int cs, int vec, int pmax, int threads, int inner,
+                 long long cstride, int per_column, void* stream) {
   return launch<float>(in, out, bonds, poff, c, s, ngroups, static_cast<float>(sign), B, N,
-                       K, kt, cs, vec, pmax, threads, stream);
+                       K, kt, cs, vec, pmax, threads, inner, cstride, per_column, stream);
 }
 
 int ckb_fold_f64(const double* in, double* out, const int* bonds, const int* poff,
                  const double* c, const double* s, int ngroups, double sign, int B, int N,
-                 int K, int kt, int cs, int vec, int pmax, int threads, void* stream) {
+                 int K, int kt, int cs, int vec, int pmax, int threads, int inner,
+                 long long cstride, int per_column, void* stream) {
   return launch<double>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, vec, pmax,
-                        threads, stream);
+                        threads, inner, cstride, per_column, stream);
 }
 
 }  // extern "C"

@@ -31,7 +31,9 @@
 // Field layout [B, N, K] row-major, B = C·inner rows, row r belongs to
 // chain r / inner (the Green's solves run [C, nᵥ, N, 2Lω], the HMC solves
 // [C, 2, N, 2Lω]); a[C], b[C], pre/post [C, N] (either may be null), one
-// scalar c, prev may be null. o aliases neither v nor prev (every pointer
+// scalar c, prev may be null. The bond coefficients are one [Nb] table
+// (cstride 0) or one per chain at chain·cstride (cstride Nb: the SSH
+// model's Ā is τ-averaged from each chain's own field). o aliases neither v nor prev (every pointer
 // is __restrict__); the wrapper allocates o. The Pallas kernel's lane rolls
 // and [K, N] transposes are not carried over.
 
@@ -75,12 +77,12 @@ __global__ void __launch_bounds__(ckb::kMaxThreads, 2)
                           const T* __restrict__ s, int ngroups, T sign,
                           const T* __restrict__ pre, const T* __restrict__ post,
                           const T* __restrict__ a, const T* __restrict__ b, T cprev, int N,
-                          int K, int kt, int cs, int inner, int pmax) {
+                          int K, int kt, int cs, int inner, int pmax, long long cstride) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const size_t sb = ckb::slab_bytes(N, cs, kt, sizeof(T));
   T* slab = reinterpret_cast<T*>(smem_raw);
   unsigned char* tables = smem_raw + sb;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(tables + ckb::table_bytes(pmax, sizeof(T)));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tables + ckb::table_bytes(pmax, sizeof(T), false));
 
   const ckb::Tile t = ckb::tile_of_block(N, K, kt, cs);
   const ckb::ThreadMap m = ckb::thread_map<V>(kt, t.kw);
@@ -102,8 +104,11 @@ __global__ void __launch_bounds__(ckb::kMaxThreads, 2)
   } else {
     ckb::copy_tile_in<T, V>(slab, v, t, kt, K, m);
   }
-  const ckb::BondTables<T> tb =
-      ckb::load_bond_tables(tables, bonds, poff, c, s, ngroups, sign, t.rank, pmax);
+  // the chain's coefficient table (cstride 0: the one shared by all chains)
+  const size_t coff = static_cast<size_t>(chain) * cstride;
+  const ckb::BondTables<T> tb = ckb::load_bond_tables<T, false>(tables, bonds, poff, c + coff,
+                                                                s + coff, ngroups, sign, t.rank,
+                                                                pmax);
   if (wait) ckb::mbar_wait(bar, 0);
   __syncthreads();
 
@@ -116,7 +121,8 @@ __global__ void __launch_bounds__(ckb::kMaxThreads, 2)
     }
   }
 
-  ckb::fold_sweep<T, V>(slab, tb, poff + cs * (ngroups + 1), ngroups, kt, t, m);
+  ckb::fold_sweep<T, V, false>(slab, tb, poff + cs * (ngroups + 1), ngroups, kt, t, m,
+                               ckb::ColumnCoeffs<T>{}, sign);
 
   if (m.active) {
     const T ac = a[chain];
@@ -170,7 +176,7 @@ int* smem_set() {
 template <typename T, int V>
 int clusters_v(int N, int kt, int cs, int pmax, int threads) {
   const size_t smem =
-      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T)) + 16;
+      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T), false) + 16;
   return ckb::resident_clusters(ckb_fold_fused_kernel<T, V>, smem_set<T, V>(), cs, threads,
                                 smem);
 }
@@ -179,32 +185,34 @@ template <typename T, int V>
 int launch_v(const T* in, T* out, const T* prev, const int* bonds, const int* poff,
              const T* c, const T* s, int ngroups, T sign, const T* pre, const T* post,
              const T* a, const T* b, T cprev, int B, int N, int K, int kt, int cs, int inner,
-             int pmax, int threads, void* stream) {
+             int pmax, int threads, long long cstride, void* stream) {
   const size_t smem =
-      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T)) + 16;
+      ckb::slab_bytes(N, cs, kt, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T), false) + 16;
   return ckb::launch_cluster(ckb_fold_fused_kernel<T, V>, smem_set<T, V>(), (K + kt - 1) / kt,
                              B, cs,
                              threads, smem, stream, in, out, prev,
                              reinterpret_cast<const int4*>(bonds), poff, c, s, ngroups, sign,
-                             pre, post, a, b, cprev, N, K, kt, cs, inner, pmax);
+                             pre, post, a, b, cprev, N, K, kt, cs, inner, pmax, cstride);
 }
 
 template <typename T>
 int launch(const T* in, T* out, const T* prev, const int* bonds, const int* poff, const T* c,
            const T* s, int ngroups, T sign, const T* pre, const T* post, const T* a,
            const T* b, T cprev, int B, int N, int K, int kt, int cs, int vec, int inner,
-           int pmax, int threads, void* stream) {
+           int pmax, int threads, long long cstride, void* stream) {
+  if (inner < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (vec) {
     case 1:
       return launch_v<T, 1>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a, b,
-                            cprev, B, N, K, kt, cs, inner, pmax, threads, stream);
+                            cprev, B, N, K, kt, cs, inner, pmax, threads, cstride, stream);
     case 2:
       return launch_v<T, 2>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a, b,
-                            cprev, B, N, K, kt, cs, inner, pmax, threads, stream);
+                            cprev, B, N, K, kt, cs, inner, pmax, threads, cstride, stream);
     case 4:
       if constexpr (sizeof(T) == 4)
         return launch_v<T, 4>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a,
-                              b, cprev, B, N, K, kt, cs, inner, pmax, threads, stream);
+                              b, cprev, B, N, K, kt, cs, inner, pmax, threads, cstride,
+                              stream);
       [[fallthrough]];
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -215,10 +223,12 @@ int launch(const T* in, T* out, const T* prev, const int* bonds, const int* poff
 
 extern "C" {
 
-// Clusters of the launch (dtype64, vec, N, kt, cs, pmax, threads) the card
-// holds at once (the grid runs in ceil(clusters / this) waves).
+// Clusters of the launch (dtype64, vec, N, kt, cs, pmax, threads,
+// per_column) the card holds at once (the grid runs in ceil(clusters /
+// this) waves). This kernel takes no per-column coefficients.
 int ckb_fold_fused_resident_clusters(int dtype64, int vec, int N, int kt, int cs, int pmax,
-                                     int threads) {
+                                     int threads, int per_column) {
+  if (per_column) return -static_cast<int>(cudaErrorInvalidValue);
   if (dtype64) {
     return vec == 2 ? clusters_v<double, 2>(N, kt, cs, pmax, threads)
                     : clusters_v<double, 1>(N, kt, cs, pmax, threads);
@@ -232,21 +242,21 @@ int ckb_fold_fused_f32(const float* in, float* out, const float* prev, const int
                        const int* poff, const float* c, const float* s, int ngroups,
                        double sign, const float* pre, const float* post, const float* a,
                        const float* b, double cprev, int B, int N, int K, int kt, int cs,
-                       int vec, int inner, int pmax, int threads,
+                       int vec, int inner, int pmax, int threads, long long cstride,
                        void* stream) {
   return launch<float>(in, out, prev, bonds, poff, c, s, ngroups, static_cast<float>(sign),
                        pre, post, a, b, static_cast<float>(cprev), B, N, K, kt, cs, vec,
-                       inner, pmax, threads, stream);
+                       inner, pmax, threads, cstride, stream);
 }
 
 int ckb_fold_fused_f64(const double* in, double* out, const double* prev, const int* bonds,
                        const int* poff, const double* c, const double* s, int ngroups,
                        double sign, const double* pre, const double* post, const double* a,
                        const double* b, double cprev, int B, int N, int K, int kt, int cs,
-                       int vec, int inner, int pmax, int threads,
+                       int vec, int inner, int pmax, int threads, long long cstride,
                        void* stream) {
   return launch<double>(in, out, prev, bonds, poff, c, s, ngroups, sign, pre, post, a, b,
-                        cprev, B, N, K, kt, cs, vec, inner, pmax, threads, stream);
+                        cprev, B, N, K, kt, cs, vec, inner, pmax, threads, cstride, stream);
 }
 
 }  // extern "C"

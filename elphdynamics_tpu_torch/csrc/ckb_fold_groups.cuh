@@ -30,8 +30,17 @@
 // per bond (local i, local j, rank of j, bond index into c/s), grouped by
 // (rank, step) with offsets poff[rank·(G+1) + step], then one flag per step
 // saying whether it crosses ranks; the sweep does no division per element.
-// Before the sweep each rank copies its plan entries and their
-// coefficients into shared memory next to its slab.
+// Before the sweep each rank copies its plan entries into shared memory
+// next to its slab.
+//
+// Coefficients. Three forms of c and s: one [Nb] table shared by every
+// row; one [Nb] table per chain ([C, Nb], the row's chain is
+// blockIdx.y / inner, its table at chain·Nb); or one coefficient per chain,
+// bond and column ([C, Nb, K], per_column). With a table per row the
+// rank's (c_n, sign·s_n) pairs are copied next to the plan entries; with
+// per-column coefficients they cannot be (Nb·K of them per chain, several
+// times the slab), so the sweep reads each bond's V-wide vectors of c and
+// s from device memory along the thread's column chunk.
 //
 // Threads. Thread t works on column chunk t % nvec (V columns, nvec = kt/V)
 // of sites/bonds t / nvec, t / nvec + T/nvec, ...; the launcher makes the
@@ -70,6 +79,7 @@ struct Tile {
   int rank;      // rank in the cluster
   int site0;     // first site of the slab
   int nsites;    // sites in the slab
+  int k0;        // first column of the tile
   int kw;        // columns in this tile
   size_t gbase;  // element offset of (row, site0, k0) in the field
 };
@@ -77,11 +87,11 @@ struct Tile {
 __device__ inline Tile tile_of_block(int N, int K, int kt, int cs) {
   Tile t;
   t.rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int k0 = (blockIdx.x / cs) * kt;
+  t.k0 = (blockIdx.x / cs) * kt;
   t.site0 = static_cast<int>(static_cast<long long>(t.rank) * N / cs);
   t.nsites = static_cast<int>(static_cast<long long>(t.rank + 1) * N / cs) - t.site0;
-  t.kw = min(kt, K - k0);
-  t.gbase = (static_cast<size_t>(blockIdx.y) * N + t.site0) * K + k0;
+  t.kw = min(kt, K - t.k0);
+  t.gbase = (static_cast<size_t>(blockIdx.y) * N + t.site0) * K + t.k0;
   return t;
 }
 
@@ -316,20 +326,21 @@ __device__ void copy_tile_out(T* __restrict__ g, const T* s, const Tile& t, int 
 // ---------------------------------------------------------------------------
 
 // The rank's owned bonds of every step, copied next to the slab before the
-// sweep: the plan entries (local i, local j, rank of j, bond) and their
-// coefficients (c_n, sign·s_n) gathered from the bond arrays, so that the
-// sweep reads nothing from device memory.
+// sweep: the plan entries (local i, local j, rank of j, bond) and, unless
+// the coefficients are per column (PC), their (c_n, sign·s_n) gathered
+// from the row's bond table, so that the sweep reads nothing else.
 template <typename T>
 struct BondTables {
   int4* bond;             // [nown]
-  Pack<T, 2>* coef;       // [nown]
+  Pack<T, 2>* coef;       // [nown], or null with per-column coefficients
   int base;               // index of the rank's first plan entry
   const int* off;         // poff + rank·(G+1): global offsets of the steps
 };
 
 // Every thread: fill the tables (call while the slab's bulk copy is in
-// flight; the caller synchronises before the sweep).
-template <typename T>
+// flight; the caller synchronises before the sweep). `c` and `s` are the
+// row's [Nb] tables (unused with PC).
+template <typename T, bool PC>
 __device__ BondTables<T> load_bond_tables(unsigned char* where, const int4* __restrict__ bonds,
                                           const int* __restrict__ poff,
                                           const T* __restrict__ c, const T* __restrict__ s,
@@ -338,22 +349,49 @@ __device__ BondTables<T> load_bond_tables(unsigned char* where, const int4* __re
   tb.off = poff + rank * (ngroups + 1);
   tb.base = tb.off[0];
   tb.bond = reinterpret_cast<int4*>(where);
-  tb.coef = reinterpret_cast<Pack<T, 2>*>(where + static_cast<size_t>(pmax) * sizeof(int4));
+  tb.coef = PC ? nullptr
+               : reinterpret_cast<Pack<T, 2>*>(where + static_cast<size_t>(pmax) * sizeof(int4));
   const int nown = tb.off[ngroups] - tb.base;
   for (int k = threadIdx.x; k < nown; k += blockDim.x) {
     const int4 e = bonds[tb.base + k];
-    Pack<T, 2> cf;
-    cf.x[0] = c[e.w];
-    cf.x[1] = sign * s[e.w];
     tb.bond[k] = e;
-    tb.coef[k] = cf;
+    if constexpr (!PC) {
+      Pack<T, 2> cf;
+      cf.x[0] = c[e.w];
+      cf.x[1] = sign * s[e.w];
+      tb.coef[k] = cf;
+    }
   }
   return tb;
 }
 
-// Bytes of the bond tables of a rank owning at most pmax bonds (16-aligned).
-__host__ __device__ inline size_t table_bytes(int pmax, size_t item) {
-  return (static_cast<size_t>(pmax) * (sizeof(int4) + 2 * item) + 15) / 16 * 16;
+// Bytes of the bond tables of a rank owning at most pmax bonds (16-aligned):
+// an int4 plan entry each, plus two coefficients unless they are per column.
+// Same formula as ckb_cuda._cta_bytes.
+__host__ __device__ inline size_t table_bytes(int pmax, size_t item, bool per_column) {
+  const size_t entry = sizeof(int4) + (per_column ? 0 : 2 * item);
+  return (static_cast<size_t>(pmax) * entry + 15) / 16 * 16;
+}
+
+// Per-column coefficients of one row's column tile: c and s point at
+// (bond 0, the tile's first column) of the row's [Nb, K] tables; `vec`:
+// both are aligned for V-wide loads (every offset the sweep adds is a
+// multiple of V).
+template <typename T>
+struct ColumnCoeffs {
+  const T* c;
+  const T* s;
+  int K;
+  bool vec;
+};
+
+template <typename T, int V>
+__device__ inline Pack<T, V> load_coeffs(const T* __restrict__ p, bool vec) {
+  if (vec) return *reinterpret_cast<const Pack<T, V>*>(p);
+  Pack<T, V> r;
+#pragma unroll
+  for (int e = 0; e < V; ++e) r.x[e] = p[e];
+  return r;
 }
 
 // Barrier between two steps of the sweep: the whole cluster where either
@@ -373,10 +411,13 @@ __device__ inline void step_barrier(bool cluster_wide) {
 // waited on; no barrier needed). Postcondition: every slab holds the folded
 // values, visible to its CTA, and no other CTA touches it again. Each thread
 // keeps two bonds in flight: the bonds of a group are disjoint, so the
-// second bond's loads may pass the first's stores.
-template <typename T, int V>
+// second bond's loads may pass the first's stores. With PC each bond's
+// coefficients are V-wide vectors of `cc` along the thread's columns (and
+// `sign` is applied here); else the pair in the tables.
+template <typename T, int V, bool PC>
 __device__ void fold_sweep(T* slab, const BondTables<T>& tb, const int* __restrict__ cross,
-                           int ngroups, int kt, const Tile& t, const ThreadMap& m) {
+                           int ngroups, int kt, const Tile& t, const ThreadMap& m,
+                           const ColumnCoeffs<T>& cc, T sign) {
   cg::cluster_group cluster = cg::this_cluster();
   step_barrier(ngroups > 0 && cross[0]);
   for (int step = 0; step < ngroups; ++step) {
@@ -386,7 +427,7 @@ __device__ void fold_sweep(T* slab, const BondTables<T>& tb, const int* __restri
         const int nb = k + m.rstep < end ? 2 : 1;
         Pack<T, V>* pi[2];
         Pack<T, V>* pj[2];
-        Pack<T, V> vi[2], vj[2];
+        Pack<T, V> vi[2], vj[2], ci[2], si[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           if (u < nb) {
@@ -396,17 +437,32 @@ __device__ void fold_sweep(T* slab, const BondTables<T>& tb, const int* __restri
             pj[u] = reinterpret_cast<Pack<T, V>*>(sj + e.y * kt + m.col);
             vi[u] = *pi[u];
             vj[u] = *pj[u];
+            if constexpr (PC) {
+              const size_t off = static_cast<size_t>(e.w) * cc.K + m.col;
+              ci[u] = load_coeffs<T, V>(cc.c + off, cc.vec);
+              si[u] = load_coeffs<T, V>(cc.s + off, cc.vec);
+            }
           }
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           if (u < nb) {
-            const Pack<T, 2> cf = tb.coef[k + u * m.rstep];
+            if constexpr (!PC) {
+              const Pack<T, 2> cf = tb.coef[k + u * m.rstep];
+#pragma unroll
+              for (int x = 0; x < V; ++x) {
+                ci[u].x[x] = cf.x[0];
+                si[u].x[x] = cf.x[1];
+              }
+            } else {
+#pragma unroll
+              for (int x = 0; x < V; ++x) si[u].x[x] *= sign;
+            }
             Pack<T, V> oi, oj;
 #pragma unroll
             for (int x = 0; x < V; ++x) {
-              oi.x[x] = cf.x[0] * vi[u].x[x] + cf.x[1] * vj[u].x[x];
-              oj.x[x] = cf.x[0] * vj[u].x[x] + cf.x[1] * vi[u].x[x];
+              oi.x[x] = ci[u].x[x] * vi[u].x[x] + si[u].x[x] * vj[u].x[x];
+              oj.x[x] = ci[u].x[x] * vj[u].x[x] + si[u].x[x] * vi[u].x[x];
             }
             *pi[u] = oi;
             *pj[u] = oj;

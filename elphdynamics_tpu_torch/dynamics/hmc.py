@@ -3,8 +3,10 @@
 Counterpart of ``elphdynamics_tpu/dynamics/hmc.py`` (leapfrog with Nb
 bosonic substeps). One update:
 
-* momenta v = α·v + √(1−α²)·M^(−1/2)·R (Fourier-accelerated mass);
-* auxiliary field φ± = Λ⁻¹·Mᵀ·R± per spin;
+* momenta v = α·v + √(1−α²)·M^(−1/2)·R (Fourier-accelerated mass; R tied
+  over aliased fields);
+* auxiliary field φ± = Λ⁻¹·Mᵀ·R± per spin (Mᵀ·R± for SSH, which has no Λ
+  shift);
 * Nt leapfrog steps, each with Nb bosonic substeps, a KPM-preconditioned,
   residual-checked CG solve of MᵀM·z = Λφ (warm-started from the previous
   solutions) and the fermion forces;
@@ -14,8 +16,10 @@ A solver failure freezes that chain's trajectory (masked commits) and
 rejects its update.
 
 Shapes: ``x``, ``v`` are ``[C, Nph, Lτ]``; the two spin systems are
-stacked as ``[C, 2, N, Lτ]`` and solved as one batched CG. Every per-chain
-quantity (KPM window, CG masks, flags, acceptance) stays per chain.
+stacked as ``[C, 2, N, Lτ]`` and solved as one batched CG, the model's
+derived state shaped for the stack by ``ops.stack``. Every per-chain
+quantity (KPM window, CG masks, flags, acceptance) stays per chain. The
+kinetic energy counts primary fields only (SSH aliases).
 
 Random draws are explicit: the step takes an optional :class:`HMCDraws`;
 without one it draws from its ``generator``. With ``log_verbose`` the stats
@@ -29,6 +33,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import (
@@ -168,8 +173,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     if dynamic_dt:
         raise NotImplementedError("dynamic_dt (the dt tuner): ROADMAP slice G")
     cfg.check_ported()
-    if ops.calc_Lambda is None:
-        raise NotImplementedError("models without the Λ shift (SSH): ROADMAP slice C")
+    has_lambda = ops.calc_Lambda is not None
+    # kinetic energy over primary fields only (aliased SSH fields repeat them)
+    k_mask = (None if ops.is_holstein else
+              torch.as_tensor(ops.spec.primary_phonon == np.arange(ops.Nph))[:, None])
     mass_ops: dict = {}
 
     def mass(like) -> MassOperator:
@@ -185,7 +192,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     dt = cfg.dt
 
     def lam_phi(params, x, phi):
-        """Λ(x)·φ for spin-stacked φ."""
+        """Λ(x)·φ for spin-stacked φ (φ itself without a Λ shift)."""
+        if not has_lambda:
+            return phi
         return ops.mulLambda(ops.calc_Lambda(params, x)[:, None], phi)
 
     def solve_O(params, x, derived, Lphi, tol, pstate, z_guess=None):
@@ -195,7 +204,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         scfg = SolverConfig(tol=tol, maxiter=cfg.maxiter, kappa_max=cfg.kappa_max,
                             kind=cfg.solver_kind, block=cfg.block,
                             loop_precision=cfg.loop_precision)
-        res = solve_oinv(ops, params, derived[:, None], Lphi, scfg, pa,
+        res = solve_oinv(ops, params, ops.stack(derived), Lphi, scfg, pa,
                          x0=z_guess if use_g else None)
         ns = res.iters.shape[1]
         iters = (res.iters.sum(dim=1) + ns - 1) // ns
@@ -204,17 +213,21 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     def forces(params, x, derived, phi, z):
         """Fermionic force −Σ±(Mz)ᵀ·∂M/∂x·z + Σ±φᵀ·∂Λᵀ/∂x·z, plus the bosonic
         force when Nb == 1 (else the substeps integrate it)."""
-        ds, xs = derived[:, None], x[:, None]
+        ds, xs = ops.stack(derived), x[:, None]
         Mz = ops.mulM(params, ds, z)
         dSf = -ops.muldMdx(params, ds, xs, Mz, z).sum(dim=1)
-        Lam = ops.calc_Lambda(params, x)
-        dSf = dSf + ops.muldLambdadx(params, xs, Lam[:, None], phi, z).sum(dim=1)
+        if has_lambda:
+            Lam = ops.calc_Lambda(params, x)
+            dSf = dSf + ops.muldLambdadx(params, xs, Lam[:, None], phi, z).sum(dim=1)
         if cfg.Nb == 1:
             return dSf + ops.calc_dSbdx(params, x, False)
         return dSf
 
     def calc_K(v):
-        return fdot(v, mass(v).apply(v, 1.0), dim=(-2, -1)) / 2
+        mv = mass(v).apply(v, 1.0)
+        if k_mask is not None:
+            v = k_mask.to(v) * v
+        return fdot(v, mv, dim=(-2, -1)) / 2
 
     def calc_S(params, x, Lphi, z):
         return fdot(Lphi, z, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
@@ -245,13 +258,13 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         v0 = cfg.alpha * v_in + math.sqrt(1.0 - cfg.alpha ** 2) * mop.apply(R, -0.5)
 
         derived0 = ops.derived(params, x0)
-        MtR = ops.mulMT(params, derived0[:, None], draws.pseudofermion.to(x0))
-        Lam0 = ops.calc_Lambda(params, x0)
-        phi = ops.mulLambdaInv(Lam0[:, None], MtR)
+        MtR = ops.mulMT(params, ops.stack(derived0), draws.pseudofermion.to(x0))
+        phi = (ops.mulLambdaInv(ops.calc_Lambda(params, x0)[:, None], MtR) if has_lambda
+               else MtR)
 
         pstate = precond_state(precond, params, x0, start=draws.kpm_start)
 
-        Lphi0 = ops.mulLambda(Lam0[:, None], phi)
+        Lphi0 = lam_phi(params, x0, phi)
         z0, iters, flag = solve_O(params, x0, derived0, Lphi0, tol2, pstate)
         H0 = calc_S(params, x0, Lphi0, z0) + calc_K(v0)
         QdSdx = qf(forces(params, x0, derived0, phi, z0))

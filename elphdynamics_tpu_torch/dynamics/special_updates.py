@@ -1,9 +1,11 @@
-"""Global Monte Carlo moves of the Holstein model: reflection and swap.
+"""Global Monte Carlo moves: reflection and swap.
 
 Counterpart of ``elphdynamics_tpu/dynamics/special_updates.py``:
 
-* reflection: x_i(τ) → −x_i(τ) on a whole site worldline;
-* swap: exchange the worldlines of the two sites of a random bond.
+* reflection: x_i(τ) → −x_i(τ) on a whole site worldline (Holstein; a null
+  move for SSH);
+* swap: exchange the worldlines of the two sites of a random bond
+  (Holstein), or of two random phonons (SSH).
 
 Each proposal is an exact Metropolis test: the pseudofermions are drawn
 afresh at the current configuration (so S₀ = Σ±|R±|²/2 + Sb exactly), the
@@ -38,35 +40,42 @@ class SpecialUpdateConfig:
 class SpecialDraws:
     """The random numbers of one call of ``n_moves`` moves on C chains."""
 
-    picks: torch.Tensor          # [n_moves, C] site (reflection) or checkerboard bond (swap)
+    # [n_moves, C] site (reflection) or checkerboard bond (Holstein swap);
+    # [n_moves, C, 2] two distinct phonons (SSH swap)
+    picks: torch.Tensor
     pseudofermion: torch.Tensor  # [n_moves, C, 2, N, Lτ] unit normals
     uniform: torch.Tensor        # [n_moves, C] uniforms on [0, 1) (float64)
 
 
 def _eval_S(ops: ModelOps, params, x, phi, tol: float, maxiter: int, precond=None):
-    """S = Sb + Σ± (Λφ±)ᵀ(MᵀM)⁻¹(Λφ±)/2 per chain, and the solve's flag."""
+    """S = Sb + Σ± (Λφ±)ᵀ(MᵀM)⁻¹(Λφ±)/2 per chain (Λ = 1 for SSH), and the
+    solve's flag."""
     derived = ops.derived(params, x)
-    Lphi = ops.mulLambda(ops.calc_Lambda(params, x)[:, None], phi)
+    Lphi = (ops.mulLambda(ops.calc_Lambda(params, x)[:, None], phi)
+            if ops.calc_Lambda is not None else phi)
     pa = resolve_precond(precond, params, x)
-    sol = solve_oinv(ops, params, derived[:, None], Lphi,
+    sol = solve_oinv(ops, params, ops.stack(derived), Lphi,
                      SolverConfig(tol=tol, maxiter=maxiter), pa)
     S = fdot(Lphi, sol.x, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
     return S, sol.flag.amax(dim=1)
 
 
 def _refresh_phi(ops: ModelOps, params, x, R):
-    """φ± = Λ⁻¹·Mᵀ·R± and the exact action S₀ = Σ±|R±|²/2 + Sb."""
+    """φ± = Λ⁻¹·Mᵀ·R± (Mᵀ·R± for SSH) and the exact action
+    S₀ = Σ±|R±|²/2 + Sb."""
     derived = ops.derived(params, x)
-    MtR = ops.mulMT(params, derived[:, None], R)
-    phi = ops.mulLambdaInv(ops.calc_Lambda(params, x)[:, None], MtR)
+    MtR = ops.mulMT(params, ops.stack(derived), R)
+    phi = (ops.mulLambdaInv(ops.calc_Lambda(params, x)[:, None], MtR)
+           if ops.calc_Lambda is not None else MtR)
     S0 = fdot(R, R, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
     return phi, S0
 
 
-def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, n_picks: int,
+def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_picks,
                  propose, precond):
-    """The Metropolis loop shared by both moves: ``propose(x, picks)``
-    returns the moved fields for one ``[C]`` vector of picks."""
+    """The Metropolis loop shared by the moves: ``draw_picks(shape,
+    generator, device)`` draws the ``[n_moves, C]`` picks, ``propose(x,
+    picks)`` returns the moved fields for one chain vector of picks."""
 
     def update(params, x, generator: torch.Generator | None = None,
                draws: SpecialDraws | None = None):
@@ -75,8 +84,7 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, n_picks:
             return x, torch.zeros(C, dtype=torch.float64, device=x.device)
         if draws is None:
             draws = SpecialDraws(
-                picks=torch.randint(0, n_picks, (n_moves, C), generator=generator,
-                                    device=x.device),
+                picks=draw_picks((n_moves, C), generator, x.device),
                 pseudofermion=torch.stack([
                     pseudofermion_noise((C, ops.Nsites, ops.Ltau), x.dtype, x.device, generator)
                     for _ in range(n_moves)]),
@@ -96,11 +104,18 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, n_picks:
     return update
 
 
+def _uniform_picks(n: int):
+    def draw_picks(shape, generator, device):
+        return torch.randint(0, n, shape, generator=generator, device=device)
+    return draw_picks
+
+
 def make_reflection_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
-    """Reflection x → −x on ``n_moves`` random sites per call. Returns
-    ``update(params, x, generator=None, draws=None) -> (x, acceptance [C])``."""
+    """Reflection x → −x on ``n_moves`` random sites per call (Holstein; for
+    SSH a null move that accepts nothing). Returns ``update(params, x,
+    generator=None, draws=None) -> (x, acceptance [C])``."""
     if not ops.is_holstein:
-        raise NotImplementedError("SSH special updates: ROADMAP slice C")
+        return _make_update(ops, cfg, 0, None, None, precond)
 
     def propose(x, sites):
         rows = torch.arange(x.shape[0], device=x.device)
@@ -108,24 +123,38 @@ def make_reflection_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None
         x_new[rows, sites] = -x[rows, sites]
         return x_new
 
-    return _make_update(ops, cfg, min(cfg.n_moves, ops.Nph), ops.Nph, propose, precond)
+    return _make_update(ops, cfg, min(cfg.n_moves, ops.Nph), _uniform_picks(ops.Nph), propose,
+                        precond)
+
+
+def _swap_rows(x, i, j):
+    """``x`` with rows ``i`` and ``j`` (one per chain) exchanged."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    x_new = x.clone()
+    x_new[rows, i] = x[rows, j]
+    x_new[rows, j] = x[rows, i]
+    return x_new
 
 
 def make_swap_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
-    """Swap the worldlines of the two sites of ``n_moves`` random bonds per
-    call (bonds in checkerboard order)."""
+    """Swap ``n_moves`` times per call: the worldlines of the two sites of a
+    random bond (Holstein, bonds in checkerboard order), or of two distinct
+    random phonons (SSH)."""
     if not ops.is_holstein:
-        raise NotImplementedError("SSH special updates: ROADMAP slice C")
+        Nph = ops.Nph
+
+        def draw_pair(shape, generator, device):
+            i = torch.randint(0, Nph, shape, generator=generator, device=device)
+            j = torch.randint(0, Nph - 1, shape, generator=generator, device=device)
+            return torch.stack([i, torch.where(j >= i, j + 1, j)], dim=-1)
+
+        return _make_update(ops, cfg, cfg.n_moves if Nph >= 2 else 0, draw_pair,
+                            lambda x, ij: _swap_rows(x, ij[:, 0], ij[:, 1]), precond)
     n_moves = cfg.n_moves if ops.spec.Nbonds > 0 else 0
     table = torch.as_tensor(ops.spec.ckb.neighbor_table)
 
     def propose(x, bonds):
-        rows = torch.arange(x.shape[0], device=x.device)
         ends = table.to(x.device)[:, bonds]
-        i, j = ends[0], ends[1]
-        x_new = x.clone()
-        x_new[rows, i] = x[rows, j]
-        x_new[rows, j] = x[rows, i]
-        return x_new
+        return _swap_rows(x, ends[0], ends[1])
 
-    return _make_update(ops, cfg, n_moves, ops.spec.Nbonds, propose, precond)
+    return _make_update(ops, cfg, n_moves, _uniform_picks(ops.spec.Nbonds), propose, precond)

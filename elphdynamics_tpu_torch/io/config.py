@@ -1,17 +1,20 @@
 """TOML configuration: the same input files as the JAX package.
 
 Counterpart of ``elphdynamics_tpu/io/config.py`` for what the port runs:
-``[lattice]``, ``[holstein]``, ``[[fourier_acceleration]]``, ``[hmc]`` (with
-``[hmc.burnin]`` overrides and the reflection / swap updates),
-``[simulation]``, ``[solver]`` with CG and ``[solver.preconditioner]``,
-``[tune_density]`` and ``[measurements]``. Orbit indices are 1-based in the
-files and 0-based here.
+``[lattice]``, ``[holstein]`` or ``[ssh]``, ``[[fourier_acceleration]]``,
+``[hmc]`` (with ``[hmc.burnin]`` overrides and the reflection / swap
+updates; the reflection is Holstein's only), ``[simulation]``, ``[solver]``
+with CG and ``[solver.preconditioner]``, ``[tune_density]`` and
+``[measurements]`` (PhononGreens is on-site for Holstein's site phonons,
+inter-site for SSH's bond phonons). Orbit indices are 1-based in the files
+and 0-based here.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP slice: ``[ssh]`` (C), ``[langevin]`` (D), solvers other than CG and
-block CG (E), twisted boundaries and complex hopping (F), ``[tempering]``,
-``tune_dt`` and the 2MN integrator (G), ``[solver.deflation]`` and
-``[solver.nearnull]`` (I), and the inter-site correlations (B remainder).
+ROADMAP slice: ``[langevin]`` (D), solvers other than CG and block CG (E),
+twisted boundaries and complex hopping (F), ``[tempering]``, ``tune_dt``
+and the 2MN integrator (G), ``[solver.deflation]`` and
+``[solver.nearnull]`` (I), and the inter-site correlations BondBond,
+CurrentCurrent and BondPairGreens (B remainder).
 
 Disorder is drawn from ``numpy.random.default_rng(random_seed)`` in the
 JAX package's order, so one seed builds the same parameters in both.
@@ -33,6 +36,7 @@ from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.measure.measurements import MeasurementSpec
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import build_holstein
+from elphdynamics_tpu_torch.models.ssh import build_ssh
 from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
 from elphdynamics_tpu_torch.ops.kpm import KPMConfig
 
@@ -112,9 +116,27 @@ def _dL(d) -> tuple:
     return tuple(list(d["dL"]) + [0] * (3 - len(d["dL"])))
 
 
+def _build_ssh(cfg: dict, rng: np.random.Generator, dtype, device):
+    s = cfg["ssh"]
+    if s.get("twist") is not None and any(s["twist"]):
+        raise _not_ported("[ssh] twist (twisted boundary conditions)", "F")
+    hoppings = [dict(t=d.get("t_avg", 0.0), t_std=d.get("t_std", 0.0),
+                     alpha=d.get("alpha_avg", 0.0), alpha_std=d.get("alpha_std", 0.0),
+                     alpha2=d.get("alpha2_avg", 0.0), alpha2_std=d.get("alpha2_std", 0.0),
+                     omega=d.get("omega_avg", 0.0), omega_std=d.get("omega_std", 0.0),
+                     omega4=d.get("omega4_avg", 0.0), omega4_std=d.get("omega4_std", 0.0),
+                     o1=d["orbits"][0] - 1, o2=d["orbits"][1] - 1, dL=_dL(d),
+                     name=d.get("name", ""))
+                for d in s.get("hopping", [])]
+    mu_assign = [(d["val"], d.get("stddev", 0.0), orbit - 1)
+                 for d in s.get("mu", []) for orbit in d["orbit"]]
+    return build_ssh(_build_lattice(cfg), s["beta"], s["dtau"], hoppings=hoppings,
+                     mu_assignments=mu_assign, rng=rng, dtype=dtype, device=device)
+
+
 def _build_model(cfg: dict, rng: np.random.Generator, dtype, device):
     if "ssh" in cfg:
-        raise _not_ported("[ssh] (the optical SSH model)", "C")
+        return _build_ssh(cfg, rng, dtype, device)
     h = cfg["holstein"]
     if h.get("twist") is not None and any(h["twist"]):
         raise _not_ported("[holstein] twist (twisted boundary conditions)", "F")
@@ -134,7 +156,7 @@ def _build_model(cfg: dict, rng: np.random.Generator, dtype, device):
     return spec, params
 
 
-def _measurement_spec(cfg: dict) -> MeasurementSpec:
+def _measurement_spec(cfg: dict, is_holstein: bool) -> MeasurementSpec:
     m = cfg.get("measurements", {})
 
     def corr_list(kinds):
@@ -148,11 +170,14 @@ def _measurement_spec(cfg: dict) -> MeasurementSpec:
                 out.append((kind, bool(info.get("time_dependent", False)), pairs))
         return tuple(out)
 
-    # PhononGreens is on-site for Holstein (site phonons)
+    # PhononGreens is on-site for Holstein (site phonons), inter-site for
+    # SSH (bond phonons)
+    onsite = ["Greens", "DenDen", "SpinSpin", "PairGreens"]
+    inter = ["BondBond", "CurrentCurrent", "BondPairGreens"]
+    (onsite if is_holstein else inter).append("PhononGreens")
     mspec = MeasurementSpec(
         nv=m.get("num_random_vectors", 10),
-        onsite_corr=corr_list(("Greens", "DenDen", "SpinSpin", "PairGreens", "PhononGreens")),
-        intersite_corr=corr_list(("BondBond", "CurrentCurrent", "BondPairGreens")),
+        onsite_corr=corr_list(onsite), intersite_corr=corr_list(inter),
         snapshots=tuple(k for k, v in m.get("Snapshots", {}).items() if v))
     mspec.check_ported()
     return mspec
@@ -235,7 +260,7 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
     hmc_cfg = _hmc_config(h, {}, solver_cfg)
     hmc_burnin_cfg = _hmc_config(h, h.get("burnin", {}), solver_cfg)
     reflect_cfg = swap_cfg = SpecialUpdateConfig(freq=0, n_moves=0)
-    if "reflection_update" in h:
+    if "reflection_update" in h and ops.is_holstein:
         reflect_cfg = SpecialUpdateConfig(freq=h["reflection_update"]["freq"],
                                           n_moves=h["reflection_update"]["nsites"],
                                           tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
@@ -244,8 +269,8 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
                                        n_moves=h["swap_update"]["nbonds"],
                                        tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
 
-    mspec = _measurement_spec(cfg)
-    model_cfg = cfg["holstein"]
+    mspec = _measurement_spec(cfg, ops.is_holstein)
+    model_cfg = cfg["holstein" if ops.is_holstein else "ssh"]
     return SimulationSetup(
         ops=ops, params=params, sim_params=sim_params, hmc_cfg=hmc_cfg,
         hmc_burnin_cfg=hmc_burnin_cfg, fa_mass=fa_mass,

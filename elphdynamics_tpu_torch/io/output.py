@@ -151,15 +151,28 @@ def write_snapshot(datafolder: str, name: str, values: np.ndarray, nmeas: int):
 # phonon-field text IO
 # ---------------------------------------------------------------------------
 
+def _phonon_types(ops: ModelOps) -> tuple[int, int]:
+    """SSH: (phonon types, phonons per type)."""
+    ntypes = max(len([d for d in ops.spec.bond_defs if d[3]]), 1)
+    return ntypes, (ops.Nph // ntypes if ops.Nph else 0)
+
+
 def write_phonons(ops: ModelOps, x, filename: str):
-    """Holstein format: 'L3 L2 L1 orbit tau x' for one chain's ``[N, Lτ]``
-    field."""
-    if not ops.is_holstein:
-        raise NotImplementedError("SSH phonon files: ROADMAP slice C")
+    """One chain's ``[Nph, Lτ]`` field. Holstein format: 'L3 L2 L1 orbit tau
+    x'; SSH format: 'type loc tau x'."""
     x = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-    lat = ops.spec.lattice
-    no = lat.unit_cell.norbits
     with open(filename, "w") as f:
+        if not ops.is_holstein:
+            ntypes, per_type = _phonon_types(ops)
+            f.write("type loc tau x\n")
+            for ptype in range(ntypes):
+                for i in range(per_type):
+                    ph = ptype * per_type + i
+                    for tau in range(ops.Ltau):
+                        f.write(f"{ptype + 1} {i + 1} {tau + 1} {x[ph, tau]:.6f}\n")
+            return
+        lat = ops.spec.lattice
+        no = lat.unit_cell.norbits
         f.write("L3 L2 L1 orbit tau x\n")
         for l3 in range(lat.L3):
             for l2 in range(lat.L2):
@@ -172,9 +185,7 @@ def write_phonons(ops: ModelOps, x, filename: str):
 
 
 def read_phonons(ops: ModelOps, filename: str) -> np.ndarray:
-    """Inverse of :func:`write_phonons`: a ``[N, Lτ]`` numpy field."""
-    if not ops.is_holstein:
-        raise NotImplementedError("SSH phonon files: ROADMAP slice C")
+    """Inverse of :func:`write_phonons`: a ``[Nph, Lτ]`` numpy field."""
     x = np.zeros((ops.Nph, ops.Ltau))
     with open(filename) as f:
         f.readline()
@@ -182,22 +193,41 @@ def read_phonons(ops: ModelOps, filename: str) -> np.ndarray:
             parts = line.split()
             if not parts:
                 continue
-            l3, l2, l1, orbit, tau = (int(p) for p in parts[:5])
-            site = ops.spec.lattice.loc_to_site(orbit - 1, l1, l2, l3)
-            x[site, tau - 1] = float(parts[5])
+            if ops.is_holstein:
+                l3, l2, l1, orbit, tau = (int(p) for p in parts[:5])
+                site = ops.spec.lattice.loc_to_site(orbit - 1, l1, l2, l3)
+                x[site, tau - 1] = float(parts[5])
+            else:
+                ptype, loc, tau = (int(p) for p in parts[:3])
+                x[(ptype - 1) * _phonon_types(ops)[1] + (loc - 1), tau - 1] = float(parts[3])
     return x
 
 
 def write_K_matrix(ops: ModelOps, params, x, filename: str, tau: int = 0):
-    """The SSH hopping matrix K[τ]: the SSH model is ROADMAP slice C."""
-    raise NotImplementedError("write_K_matrix (SSH): ROADMAP slice C")
+    """The SSH hopping matrix K[τ] of one chain's ``[Nph, Lτ]`` field,
+    on-site energies included: 'col row val' rows."""
+    from elphdynamics_tpu_torch.models import ssh as Sm
+
+    spec = ops.spec
+    x = torch.as_tensor(x, device=params.mu.device, dtype=params.mu.dtype)
+    with open(filename, "w") as f:
+        f.write("col row val\n")
+        mu = params.mu.detach().cpu().numpy()
+        for i in range(spec.Nsites):
+            f.write(f"{i + 1} {i + 1} {-mu[i]}\n")
+        tp = Sm.hopping_t_prime(spec, params, x).detach().cpu().numpy()
+        for b in range(spec.Nbonds):
+            s1, s2 = spec.ckb.neighbor_table[:, spec.bond_to_ckb[b]]
+            val = -tp[b, tau]
+            f.write(f"{s1 + 1} {s2 + 1} {val}\n")
+            f.write(f"{s2 + 1} {s1 + 1} {val}\n")
 
 
 def write_M_matrix(ops: ModelOps, params, x, filename: str, threshold=1e-10,
                    chunk: int = 512):
     """Densify M for one chain's field ``x`` ``[N, Lτ]`` column by column, in
     batches of ``chunk`` unit vectors, and write its nonzeros."""
-    derived = ops.derived(params, x)
+    derived = ops.stack(ops.derived(params, x[None]))   # one chain
     N, L = ops.Nsites, ops.Ltau
     NL = N * L
     chunk = min(chunk, NL)
@@ -209,7 +239,7 @@ def write_M_matrix(ops: ModelOps, params, x, filename: str, threshold=1e-10,
             idx = torch.clamp(torch.arange(start, start + chunk, device=x.device), max=NL - 1)
             eye = torch.zeros((chunk, NL), dtype=x.dtype, device=x.device)
             eye[rows, idx] = 1.0
-            cols = ops.mulM(params, derived, eye.reshape(chunk, N, L)).reshape(chunk, NL)
+            cols = ops.mulM(params, derived, eye.reshape(1, chunk, N, L)).reshape(chunk, NL)
             cols = cols.cpu().numpy()
             for j in range(min(chunk, NL - start)):
                 colv = cols[j]

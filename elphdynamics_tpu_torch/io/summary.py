@@ -137,7 +137,8 @@ def _avg_std(vals: np.ndarray):
 def _write_bond_definitions(f, setup):
     spec = setup.ops.spec
     t = _np(setup.params.t) if setup.params.t is not None else np.zeros(0)
-    per_def = np.asarray(spec.bond_def_of_bond)
+    per_def = np.asarray(spec.bond_def_of_bond if setup.ops.is_holstein
+                         else spec.bond_to_definition)
     for bid, d in enumerate(spec.bond_defs):
         o1, o2, dL = d[0], d[1], d[2]
         avg, std = _avg_std(t[per_def == bid] if t.size else np.zeros(0))
@@ -149,9 +150,33 @@ def _write_bond_definitions(f, setup):
         f.write(f"Displacement  = {list(dL)}\n\n")
 
 
+def _write_ssh_phonon_definitions(f, setup):
+    """One section per phonon type: its couplings and its bond definition."""
+    spec = setup.ops.spec
+    p = setup.params
+    ph_defs = [d for d in spec.bond_defs if d[3]]
+    if not ph_defs or spec.Nph == 0:
+        return
+    per_type = spec.Nph // len(ph_defs)
+    for pid, d in enumerate(ph_defs):
+        sel = slice(pid * per_type, (pid + 1) * per_type)
+        f.write(f"SSH Phonon ID = {pid + 1}\n")
+        for label, arr in (("alpha", p.alpha), ("alpha2", p.alpha2),
+                           ("omega", p.omega), ("omega4", p.omega4)):
+            avg, std = _avg_std(_np(arr)[sel])
+            f.write(f"{label}_avg = {avg}\n")
+            f.write(f"{label}_std = {std}\n")
+        f.write(f"Initial Orbit = {d[0] + 1}\n")
+        f.write(f"Final Orbit   = {d[1] + 1}\n")
+        f.write(f"Displacement  = {list(d[2])}\n\n")
+
+
 def _write_phonon_definitions(f, setup):
     spec = setup.ops.spec
     p = setup.params
+    if not setup.ops.is_holstein:
+        _write_ssh_phonon_definitions(f, setup)
+        return
     orbit = np.asarray(spec.lattice.site_to_orbit)
     for o in range(spec.lattice.unit_cell.norbits):
         sel = orbit == o

@@ -51,7 +51,7 @@ def sample_greens(ops: ModelOps, params, x, nv: int, scfg: SolverConfig, precond
         R = trace_noise((C, nv, ops.Nsites, ops.Ltau), x.dtype, x.device, generator)
     derived = ops.derived(params, x)
     pa = resolve_precond(precond, params, x)
-    sol = solve_minv(ops, params, derived[:, None], R, scfg, pa)
+    sol = solve_minv(ops, params, ops.stack(derived), R, scfg, pa)
     return GreensData(R=R, MinvR=sol.x, iters=sol.iters.sum(dim=1) // nv,
                       flag=sol.flag.amax(dim=1))
 

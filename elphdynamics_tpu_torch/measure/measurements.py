@@ -1,15 +1,19 @@
 """Observable measurements, binning and post-processing.
 
-Counterpart of ``elphdynamics_tpu/measure/measurements.py`` for the Holstein
-model with real hopping. The measurement step accumulates per sampler
-sweep:
+Counterpart of ``elphdynamics_tpu/measure/measurements.py`` for the
+Holstein and optical SSH models with real hopping. The measurement step
+accumulates per sampler sweep:
 
 * global: density, ⟨N̂²⟩, μ;
-* on-site per orbital: density, double occupancy, μ, ⟨x⟩, ⟨x²⟩, ⟨x⁴⟩,
-  phonon kinetic and potential energy, electron-phonon energy;
-* inter-site per bond definition: electron kinetic energy;
-* on-site correlations: Greens, DenDen, SpinSpin, PairGreens, PhononGreens
-  with their τ=β boundary identities;
+* on-site per orbital: density, double occupancy, μ, and for Holstein ⟨x⟩,
+  ⟨x²⟩, ⟨x⁴⟩, phonon kinetic and potential energy, electron-phonon energy;
+* inter-site per bond definition: electron kinetic energy (with the
+  modulated hopping t′ for SSH), and for SSH the bond-phonon statistics
+  and the fraction of sign-switched bonds, over each definition's own bond
+  count;
+* on-site correlations: Greens, DenDen, SpinSpin, PairGreens, and
+  PhononGreens for Holstein's site phonons, with their τ=β boundary
+  identities; for SSH the bond-phonon PhononGreens is inter-site;
 * snapshots: density, double occupancy, phonon position.
 
 Every accumulated quantity is linear in the pair-summed estimator tensors
@@ -24,8 +28,8 @@ Chains: the step measures every chain of a ``[C, N, Lτ]`` batch;
 probe solves succeeded. Per bin, :func:`process_bin` normalises, moves the
 correlations to momentum space and integrates the susceptibilities.
 
-The inter-site correlations (BondBond, CurrentCurrent, BondPairGreens;
-``measure/intersite_corr.py`` of the JAX package) are not ported: they
+The inter-site correlations BondBond, CurrentCurrent and BondPairGreens
+(``measure/intersite_corr.py`` of the JAX package) are not ported: they
 raise, naming the ROADMAP item.
 """
 
@@ -39,6 +43,7 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
 from elphdynamics_tpu_torch.measure import greens as G
+from elphdynamics_tpu_torch.models import ssh as Sm
 from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.utils.math import simpson
 
@@ -61,10 +66,12 @@ class MeasurementSpec:
     snapshots: tuple = ()        # subset of (density, double_occupancy, phonon_position)
 
     def check_ported(self) -> None:
-        if self.intersite_corr:
-            kinds = ", ".join(e[0] for e in self.intersite_corr)
+        """Raise for the inter-site correlations that are not ported (all
+        but SSH's bond PhononGreens)."""
+        kinds = [e[0] for e in self.intersite_corr if e[0] != "PhononGreens"]
+        if kinds:
             raise NotImplementedError(
-                f"inter-site correlations ({kinds}; measure/intersite_corr.py): "
+                f"inter-site correlations ({', '.join(kinds)}; measure/intersite_corr.py): "
                 "ROADMAP slice B remainder")
         unknown = [e[0] for e in self.onsite_corr if e[0] not in ONSITE_CORR_KINDS]
         if unknown:
@@ -82,18 +89,33 @@ def _normalize_kinds(entries):
     return {e[0]: (e[1], e[2] if len(e) > 2 else None) for e in entries}
 
 
+PHONON_STATS = ("x", "x2", "x4", "phonon_ke", "phonon_pe", "elph_energy")
+
+
+def _phonon_types(spec) -> int:
+    """SSH phonon types: the bond definitions that carry a phonon (at least 1)."""
+    return max(sum(1 for d in spec.bond_defs if d[3]), 1)
+
+
 def _container_shapes(ops: ModelOps, mspec: MeasurementSpec) -> dict:
     lat = ops.spec.lattice
     no = lat.unit_cell.norbits
+    ndefs = len(ops.spec.bond_defs)
+    T = ops.Ltau + 1
     shapes: dict[str, Any] = {"global": {"density": (), "Nsqr": (), "mu": ()}}
-    shapes["onsite"] = {k: (no,) for k in ("density", "double_occ", "mu", "x", "x2", "x4",
-                                           "phonon_ke", "phonon_pe", "elph_energy")}
-    shapes["intersite"] = {"el_ke": (len(ops.spec.bond_defs),)}
+    onsite = ("density", "double_occ", "mu") + (PHONON_STATS if ops.is_holstein else ())
+    shapes["onsite"] = {k: (no,) for k in onsite}
+    inter = ("el_ke",) + (() if ops.is_holstein else PHONON_STATS + ("sign_switch",))
+    shapes["intersite"] = {k: (ndefs,) for k in inter}
     shapes["onsite_corr"] = {
         kind: (len(_corr_pairs(no, kp if kp is not None else mspec.onsite_pairs)),
-               lat.L1, lat.L2, lat.L3, (ops.Ltau + 1) if td else 1)
+               lat.L1, lat.L2, lat.L3, T if td else 1)
         for kind, (td, kp) in _normalize_kinds(mspec.onsite_corr).items()}
-    shapes["intersite_corr"] = {}
+    # SSH's bond PhononGreens: pairs over phonon types
+    shapes["intersite_corr"] = {
+        kind: (len(_corr_pairs(_phonon_types(ops.spec), kp)), lat.L1, lat.L2, lat.L3,
+               T if td else 1)
+        for kind, (td, kp) in _normalize_kinds(mspec.intersite_corr).items()}
     return shapes
 
 
@@ -122,9 +144,10 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     and snapshot has a leading chain axis; ``stats`` holds the per-chain
     ``iters`` and ``flag`` of the probe solves. ``R`` injects the probes.
     ``step.analyze(params, x, gd)`` is everything after the solves."""
-    if not ops.is_holstein:
-        raise NotImplementedError("SSH measurements: ROADMAP slice C")
     mspec.check_ported()
+    if ops.is_holstein and mspec.intersite_corr:
+        raise NotImplementedError("inter-site PhononGreens of the Holstein model "
+                                  "(measure/intersite_corr.py): ROADMAP slice B remainder")
     lat = ops.spec.lattice
     spec = ops.spec
     no = lat.unit_cell.norbits
@@ -135,6 +158,11 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     ndefs = len(spec.bond_defs)
     onsite_pairs = _corr_pairs(no, mspec.onsite_pairs)
     onsite_kinds = _normalize_kinds(mspec.onsite_corr)
+    inter_kinds = _normalize_kinds(mspec.intersite_corr)
+    if not ops.is_holstein:
+        # per-definition volume: each definition's own bond count times Lτ
+        def_counts = np.bincount(spec.bond_to_definition, minlength=ndefs)
+        Vb_def = np.maximum(def_counts, 1) * Lt
 
     def kind_pairs(kind):
         td, kp = onsite_kinds[kind]
@@ -181,30 +209,62 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         out["onsite"]["double_occ"] = orbit_sum(docc_site) / norm_site
         out["onsite"]["mu"] = n_pairs * orbit_sum(chains(params.mu[:, None].expand(-1, Lt))) / norm_site
         dtau = spec.dtau
-        dx = torch.roll(x, -1, dims=-1) - x
-        ke = 0.5 / dtau - dx ** 2 / (2 * dtau ** 2)
-        pe = (params.omega ** 2)[:, None] * x ** 2 / 2 + params.omega4[:, None] * x ** 4
-        out["onsite"]["x"] = n_pairs * orbit_sum(x) / norm_site
-        out["onsite"]["x2"] = n_pairs * orbit_sum(x ** 2) / norm_site
-        out["onsite"]["x4"] = n_pairs * orbit_sum(x ** 4) / norm_site
-        out["onsite"]["phonon_ke"] = n_pairs * orbit_sum(ke) / norm_site
-        out["onsite"]["phonon_pe"] = n_pairs * orbit_sum(pe) / norm_site
-        # λ⟨x(n₊+n₋)⟩: Σpairs λx(2−G₁−G₂) = λx[2·n_pairs − (nv−1)ΣᵢGᵢ]
-        elph = params.lam[:, None] * x * (2.0 * n_pairs - (nv - 1) * Gdiag.sum(dim=1))
-        out["onsite"]["elph_energy"] = orbit_sum(elph) / norm_site
+        if ops.is_holstein:
+            dx = torch.roll(x, -1, dims=-1) - x
+            ke = 0.5 / dtau - dx ** 2 / (2 * dtau ** 2)
+            pe = (params.omega ** 2)[:, None] * x ** 2 / 2 + params.omega4[:, None] * x ** 4
+            out["onsite"]["x"] = n_pairs * orbit_sum(x) / norm_site
+            out["onsite"]["x2"] = n_pairs * orbit_sum(x ** 2) / norm_site
+            out["onsite"]["x4"] = n_pairs * orbit_sum(x ** 4) / norm_site
+            out["onsite"]["phonon_ke"] = n_pairs * orbit_sum(ke) / norm_site
+            out["onsite"]["phonon_pe"] = n_pairs * orbit_sum(pe) / norm_site
+            # λ⟨x(n₊+n₋)⟩: Σpairs λx(2−G₁−G₂) = λx[2·n_pairs − (nv−1)ΣᵢGᵢ]
+            elph = params.lam[:, None] * x * (2.0 * n_pairs - (nv - 1) * Gdiag.sum(dim=1))
+            out["onsite"]["elph_energy"] = orbit_sum(elph) / norm_site
 
-        # ---- inter-site: bond kinetic energy per definition
-        el_ke = torch.zeros((C, ndefs), dtype=dt, device=dev)
-        if spec.Nbonds > 0:
+        # ---- inter-site: bond kinetic energy per definition (+ SSH phonons)
+        if spec.Nbonds == 0:
+            out["intersite"] = {k: torch.zeros((C, ndefs), dtype=dt, device=dev)
+                                for k in _container_shapes(ops, mspec)["intersite"]}
+        else:
             s1 = torch.as_tensor(spec.ckb.neighbor_table[0][spec.bond_to_ckb], device=dev)
             s2 = torch.as_tensor(spec.ckb.neighbor_table[1][spec.bond_to_ckb], device=dev)
-            bdef = torch.as_tensor(spec.bond_def_of_bond, device=dev)
+            bdef = torch.as_tensor(spec.bond_def_of_bond if ops.is_holstein
+                                   else spec.bond_to_definition, device=dev)
             est_12 = MinvR.index_select(-2, s1) * R.index_select(-2, s2)
             est_21 = MinvR.index_select(-2, s2) * R.index_select(-2, s1)
             h = -(nv - 1) * (est_12 + est_21).sum(dim=1)          # [C, Nbonds, Lt]
-            ke_b = -params.t[:, None] * h
-            el_ke = el_ke.index_add(1, bdef, ke_b.sum(dim=-1)) / (lat.ncells * Lt)
-        out["intersite"]["el_ke"] = el_ke
+
+            def per_def(v, V):
+                return torch.zeros((C, ndefs), dtype=dt, device=dev).index_add(
+                    1, bdef, v.sum(dim=-1)) / V
+
+            if ops.is_holstein:
+                out["intersite"]["el_ke"] = per_def(-params.t[:, None] * h, lat.ncells * Lt)
+            else:
+                Vb = torch.as_tensor(Vb_def, device=dev).to(dt)
+                tp = Sm.hopping_t_prime(spec, params, x)          # [C, Nbonds, Lt]
+                out["intersite"]["el_ke"] = per_def(-tp * h, Vb)
+                # the phonon-carrying bonds
+                has_ph = torch.as_tensor(spec.bond_to_phonon >= 0, device=dev)[:, None]
+                php = torch.as_tensor(np.maximum(spec.bond_to_phonon, 0), device=dev)
+                xb = x.index_select(-2, php)
+                om = params.omega[php][:, None]
+                al = params.alpha[php][:, None]
+                dxb = torch.roll(xb, -1, dims=-1) - xb
+                zero = torch.zeros((), dtype=dt, device=dev)
+
+                def acc(v):
+                    return per_def(torch.where(has_ph, v, zero), Vb)
+
+                out["intersite"]["x"] = n_pairs * acc(xb)
+                out["intersite"]["x2"] = n_pairs * acc(xb ** 2)
+                out["intersite"]["x4"] = n_pairs * acc(xb ** 4)
+                out["intersite"]["phonon_ke"] = n_pairs * acc(0.5 / dtau - dxb ** 2 / (2 * dtau ** 2))
+                out["intersite"]["phonon_pe"] = n_pairs * acc(om ** 2 * xb ** 2 / 2)
+                out["intersite"]["elph_energy"] = acc(al * h * xb)
+                switch = (torch.sign(params.t[:, None]) != torch.sign(tp)).to(dt)
+                out["intersite"]["sign_switch"] = n_pairs * acc(switch)
 
         # ---- on-site correlations
         def oslices(pairs):
@@ -279,6 +339,23 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                 xc[:, torch.as_tensor(kp[:, 1], device=dev)])
             out["onsite_corr"]["PhononGreens"] = (torch.cat([xx, xx[..., :1]], dim=-1)
                                                   if td else xx[..., :1])
+
+        # ---- inter-site correlations: SSH's bond-phonon Green's function
+        if "PhononGreens" in inter_kinds:
+            ntypes = _phonon_types(spec)
+            td, kp = inter_kinds["PhononGreens"]
+            pairs = _corr_pairs(ntypes, kp)
+            per_type = ops.Nph // ntypes
+            if per_type != lat.ncells:
+                raise ValueError("SSH PhononGreens needs one phonon per unit cell per type "
+                                 "(bond deduplication on tiny lattices breaks this)")
+            xt = x.reshape(C, ntypes, lat.L3, lat.L2, lat.L1, Lt).permute(0, 1, 4, 3, 2, 5)
+            xt = xt.to(complex_of(dt))
+            xx = n_pairs * G.translational_average(
+                xt[:, torch.as_tensor(pairs[:, 1], device=dev)],
+                xt[:, torch.as_tensor(pairs[:, 0], device=dev)])
+            out["intersite_corr"]["PhononGreens"] = (torch.cat([xx, xx[..., :1]], dim=-1)
+                                                     if td else xx[..., :1])
 
         # ---- snapshots: per-site instantaneous estimates
         snaps = {}

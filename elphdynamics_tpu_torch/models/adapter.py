@@ -3,8 +3,12 @@
 Counterpart of ``elphdynamics_tpu/models/adapter.py``: the samplers and
 preconditioners are written against :class:`ModelOps`, a bundle of
 closures over the static spec with the parameters passed explicitly.
-``derived(params, x)`` is the per-configuration cache (``expnV`` for
-Holstein). Only the Holstein branch is ported; SSH is ROADMAP slice C.
+``derived(params, x)`` is the per-configuration cache of a ``[C, Nph,
+Lτ]`` batch: ``expnV`` ``[C, N, Lτ]`` for Holstein, the ``(cosh, sinh)``
+coefficient tables ``[C, Nb, Lτ]`` for SSH. ``stack(derived)`` makes it act
+on ``[C, S, N, Lτ]`` stacks of fields (the two spins, the nᵥ probes): the
+Holstein diagonal gains an axis, the SSH tables stay as they are (the fold
+applies a chain's table to every row of that chain). SSH has no Λ shift.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from elphdynamics_tpu_torch.models import holstein as Hm
+from elphdynamics_tpu_torch.models import ssh as Sm
 
 
 @dataclass(frozen=True)
@@ -24,7 +29,8 @@ class ModelOps:
     dtau: float
     beta: float
     is_holstein: bool
-    derived: Callable          # (params, x) -> env
+    derived: Callable          # (params, x) -> env / (cosh, sinh)
+    stack: Callable            # derived -> derived acting on [C, S, N, Lτ] fields
     mulM: Callable             # (params, derived, v, precision=None) -> v
     mulMT: Callable
     mulMTM: Callable
@@ -39,10 +45,27 @@ class ModelOps:
 
 
 def make_model_ops(spec) -> ModelOps:
+    if isinstance(spec, Sm.SSHSpec):
+        return ModelOps(
+            spec=spec,
+            Nsites=spec.Nsites,
+            Nph=spec.Nph,
+            Ltau=spec.Ltau,
+            dtau=spec.dtau,
+            beta=spec.beta,
+            is_holstein=False,
+            derived=lambda p, x: Sm.ckb_coeffs(spec, p, x),
+            stack=lambda d: d,
+            mulM=lambda p, d, v, precision=None: Sm.mulM(spec, p, d, v),
+            mulMT=lambda p, d, v, precision=None: Sm.mulMT(spec, p, d, v),
+            mulMTM=lambda p, d, v, precision=None: Sm.mulMTM(spec, p, d, v),
+            muldMdx=lambda p, d, x, u, v: Sm.muldMdx(spec, p, d, x, u, v),
+            calc_Sb=lambda p, x, shifted=False: Sm.calc_Sb(spec, p, x, shifted),
+            calc_dSbdx=lambda p, x, shifted=False: Sm.calc_dSbdx(spec, p, x, shifted),
+            tie=lambda v: Sm.tie_fields(spec, v),
+        )
     if not isinstance(spec, Hm.HolsteinSpec):
-        raise NotImplementedError(
-            f"model spec {type(spec).__name__}: only Holstein is ported "
-            "(SSH is ROADMAP slice C)")
+        raise TypeError(f"unknown model spec {type(spec).__name__}")
     return ModelOps(
         spec=spec,
         Nsites=spec.Nsites,
@@ -52,6 +75,7 @@ def make_model_ops(spec) -> ModelOps:
         beta=spec.beta,
         is_holstein=True,
         derived=lambda p, x: Hm.expnV(spec, p, x),
+        stack=lambda d: d[:, None],
         mulM=lambda p, d, v, precision=None: Hm.mulM(spec, p, d, v, precision),
         mulMT=lambda p, d, v, precision=None: Hm.mulMT(spec, p, d, v, precision),
         mulMTM=lambda p, d, v, precision=None: Hm.mulMTM(spec, p, d, v, precision),

@@ -1,0 +1,370 @@
+"""Optical SSH model: bond phonons modulating the electron hopping.
+
+Counterpart of ``elphdynamics_tpu/models/ssh.py``, real hopping only. The
+phonon ``x`` lives on bonds and modulates the hopping
+``t′ = t − (αx + sign(x)·α₂x²)``; the fermion matrix uses a time-dependent
+checkerboard factorisation
+
+    B(τ) = exp(−Δτ·K[x(τ)]) · exp(+Δτ·μ)
+
+Phonon fields are ``[C, ..., Nph, Lτ]`` with a leading chain axis; the
+derived state of a ``[C, Nph, Lτ]`` batch is the pair of per-(chain, bond,
+τ) coefficient tables ``cosh``/``sinh`` ``[C, Nb, Lτ]`` in checkerboard
+order. exp(−Δτ·K[x]) is the checkerboard fold with those tables
+(:func:`..ops.ckb_cuda.fold`: the CUDA kernel on the card, its plain twin
+on the CPU), which applies a chain's table to every row of that chain, so
+the same derived state acts on spin-stacked ``[C, 2, N, Lτ]`` and probe
+``[C, nᵥ, N, Lτ]`` fields.
+
+``muldMdx`` walks the checkerboard groups with carried partial products,
+in plain torch, as the JAX package does outside Pallas. Primary-field
+aliasing: same-named phonons on different bond types share one degree of
+freedom, through ``primary_phonon``. Complex hopping (twisted boundaries,
+``t_phase``) is ROADMAP slice F. The JAX package's dense per-τ
+``dense_ckb`` mode is off there and not carried over (:func:`dense_K`
+serves the tests and file output).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.lattice import Lattice, sort_neighbor_table
+from elphdynamics_tpu_torch.ops import checkerboard as ckb
+from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.utils.device import require_device
+from elphdynamics_tpu_torch.utils.dtypes import fsum
+
+
+@dataclass(frozen=True)
+class SSHParams:
+    """Model parameters as tensors on one device in one dtype."""
+
+    mu: torch.Tensor      # [N] chemical potential
+    t: torch.Tensor       # [Nbonds] bare hopping, original bond order
+    omega: torch.Tensor   # [Nph] phonon frequency
+    omega4: torch.Tensor  # [Nph] anharmonic coefficient
+    alpha: torch.Tensor   # [Nph] linear el-ph coupling
+    alpha2: torch.Tensor  # [Nph] quadratic el-ph coupling
+    t_phase: torch.Tensor | None = None   # complex Peierls phases: ROADMAP slice F
+
+
+@dataclass(frozen=True, eq=False)
+class SSHSpec:
+    """Static (host) model description. Bond parameters stay in the
+    original bond order (appended per definition); ``ckb_to_bond`` /
+    ``bond_to_ckb`` map to and from checkerboard order."""
+
+    lattice: Lattice
+    beta: float
+    dtau: float
+    Ltau: int
+    Nsites: int
+    Nbonds: int
+    Nph: int
+    Ndim: int
+    Ndof: int
+    ckb: ckb.CheckerboardSpec
+    ckb_to_bond: np.ndarray      # [Nbonds] checkerboard position -> original bond
+    bond_to_ckb: np.ndarray      # [Nbonds] original bond -> checkerboard position
+    bond_to_phonon: np.ndarray   # [Nbonds] -1 where the bond carries no phonon
+    phonon_to_bond: np.ndarray   # [Nph]
+    primary_phonon: np.ndarray   # [Nph] phonon -> its primary alias
+    bond_to_definition: np.ndarray  # [Nbonds] bond -> bond-definition index
+    bond_defs: tuple = ()        # ((o1, o2, (dL...), has_phonon), ...)
+    # per-device index tensors, built on first use
+    _cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def tensor(self, name: str, device) -> torch.Tensor:
+        """``getattr(self, name)`` as a tensor on ``device``, cached."""
+        key = (name, str(device))
+        out = self._cache.get(key)
+        if out is None:
+            out = self._cache[key] = torch.as_tensor(np.ascontiguousarray(getattr(self, name)),
+                                                     device=device)
+        return out
+
+
+def build_ssh(
+    lattice: Lattice,
+    beta: float,
+    dtau: float,
+    *,
+    hoppings=(),        # dicts: t, t_std, omega, omega_std, omega4, omega4_std,
+                        #        alpha, alpha_std, alpha2, alpha2_std, o1, o2, dL, name
+    mu_assignments=(),  # (mu, std, orbit or None for every orbit)
+    twist=None,
+    rng: np.random.Generator | None = None,
+    dtype: torch.dtype = torch.float64,
+    device="cuda",
+) -> tuple[SSHSpec, SSHParams]:
+    """Construct the SSH model on ``device`` (the card unless the caller asks
+    for the CPU). The disorder draws consume ``rng`` in the JAX package's
+    order, so one seed builds the same model in both. A nonzero ``twist``
+    (complex Peierls phases) is not ported."""
+    device = require_device(device)
+    if twist is not None and np.any(np.asarray(twist)):
+        raise NotImplementedError("twisted SSH (complex Peierls phases): ROADMAP slice F")
+    rng = rng or np.random.default_rng(0)
+    N = lattice.nsites
+    Ltau = int(round(beta / dtau))
+
+    mu_v = np.zeros(N)
+    for (mu0, std, orbit) in mu_assignments:
+        for i in range(N):
+            if orbit is None or lattice.site_to_orbit[i] == orbit:
+                mu_v[i] = mu0 + (std * rng.standard_normal() if std else 0.0)
+
+    tables, tvals, bond_defs = [], [], []
+    om, om4, al, al2 = [], [], [], []
+    phonon_to_bond, bond_to_phonon = [], []
+    bond_count = 0
+    ph_names = []
+    for idef, h in enumerate(hoppings):
+        tb = lattice.calc_neighbor_table(h["o1"], h["o2"], h["dL"])
+        nnew = tb.shape[1]
+        tval, tstd = h.get("t", 0.0), h.get("t_std", 0.0)
+        phase = np.sign(tval) if tval != 0 else 1.0
+        tvals.append(phase * (abs(tval) + (tstd * rng.standard_normal(nnew) if tstd
+                                           else np.zeros(nnew))))
+        tables.append(tb)
+        bond_defs.extend([idef] * nnew)
+        has_phonon = (h.get("omega", 0.0) != 0.0) or (h.get("omega_std", 0.0) != 0.0)
+        if has_phonon:
+            ph_names.append(h.get("name") or f"__anon{idef}")
+
+            def draw(key, std_key):
+                v0, s0 = h.get(key, 0.0), h.get(std_key, 0.0)
+                noise = s0 * rng.standard_normal(nnew) if s0 else np.zeros(nnew)
+                if key.startswith("omega"):
+                    return v0 + noise
+                return (np.sign(v0) if v0 != 0 else 1.0) * (abs(v0) + noise)
+
+            om.append(draw("omega", "omega_std"))
+            om4.append(draw("omega4", "omega4_std"))
+            al.append(draw("alpha", "alpha_std"))
+            al2.append(draw("alpha2", "alpha2_std"))
+            phonon_to_bond.extend(range(bond_count, bond_count + nnew))
+            bond_to_phonon.extend(range(len(phonon_to_bond) - nnew, len(phonon_to_bond)))
+        else:
+            bond_to_phonon.extend([-1] * nnew)
+        bond_count += nnew
+
+    table = np.concatenate(tables, axis=1) if tables else np.zeros((2, 0), dtype=np.int64)
+    t = np.concatenate(tvals) if tvals else np.zeros(0)
+    nb = table.shape[1]
+    table_sorted, perm = sort_neighbor_table(table)
+    cspec = ckb.build_checkerboard_spec(N, table_sorted)
+    ckb_to_bond = perm[cspec.order] if nb else np.zeros(0, dtype=np.int64)
+    bond_to_ckb = np.argsort(ckb_to_bond) if nb else np.zeros(0, dtype=np.int64)
+    Nph = len(phonon_to_bond)
+
+    # same-named phonon types alias the earliest type of that name (phonons
+    # are laid out contiguously per type)
+    primary = np.arange(Nph, dtype=np.int64)
+    sizes = [len(o) for o in om]
+    starts = np.cumsum([0] + sizes[:-1]) if sizes else np.zeros(0, dtype=np.int64)
+    for a in range(len(ph_names)):
+        for b in range(a + 1, len(ph_names)):
+            if ph_names[a] == ph_names[b] and sizes[a] == sizes[b]:
+                sa, sb = int(starts[a]), int(starts[b])
+                for k in range(sizes[b]):
+                    if primary[sb + k] == sb + k:
+                        primary[sb + k] = primary[sa + k]
+
+    spec = SSHSpec(
+        lattice=lattice, beta=float(beta), dtau=float(dtau), Ltau=Ltau, Nsites=N,
+        Nbonds=nb, Nph=Nph, Ndim=N * Ltau, Ndof=Nph * Ltau, ckb=cspec,
+        ckb_to_bond=ckb_to_bond, bond_to_ckb=bond_to_ckb,
+        bond_to_phonon=np.asarray(bond_to_phonon, dtype=np.int64),
+        phonon_to_bond=np.asarray(phonon_to_bond, dtype=np.int64), primary_phonon=primary,
+        bond_to_definition=np.asarray(bond_defs, dtype=np.int64),
+        bond_defs=tuple((h["o1"], h["o2"], tuple(h["dL"]),
+                         (h.get("omega", 0.0) != 0.0) or (h.get("omega_std", 0.0) != 0.0))
+                        for h in hoppings))
+
+    def T(parts):
+        a = np.concatenate(parts) if parts else np.zeros(0)
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
+
+    params = SSHParams(mu=T([mu_v]), t=T([t]), omega=T(om), omega4=T(om4), alpha=T(al),
+                       alpha2=T(al2))
+    return spec, params
+
+
+# ---------------------------------------------------------------------------
+# derived quantities
+# ---------------------------------------------------------------------------
+
+def _check_real(p: SSHParams) -> None:
+    if p.t_phase is not None:
+        raise NotImplementedError("complex SSH hopping (t_phase): ROADMAP slice F")
+
+
+def tie_fields(spec: SSHSpec, x):
+    """Equalise aliased phonon worldlines: x ← x[primary]."""
+    return x.index_select(-2, spec.tensor("primary_phonon", x.device))
+
+
+def hopping_t_prime(spec: SSHSpec, p: SSHParams, x):
+    """Modulated hopping t′(bond, τ) = t − (αx + sign(x)·α₂x²) in original
+    bond order, ``[..., Nbonds, Lτ]``."""
+    btp = torch.as_tensor(np.maximum(spec.bond_to_phonon, 0), device=x.device)
+    has = torch.as_tensor(spec.bond_to_phonon >= 0, device=x.device)[:, None]
+    xb = x.index_select(-2, btp)
+    a = p.alpha[btp][:, None]
+    a2 = p.alpha2[btp][:, None]
+    v = a * xb + torch.sign(xb) * a2 * xb * xb
+    return p.t[:, None] - torch.where(has, v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+class SSHDerived(NamedTuple):
+    """The derived state of a configuration: cosh/sinh of Δτ·t′ in
+    checkerboard order, ``[C, Nb, Lτ]`` each."""
+
+    cosh: torch.Tensor
+    sinh: torch.Tensor
+
+
+def ckb_coeffs(spec: SSHSpec, p: SSHParams, x) -> SSHDerived:
+    """(cosh, sinh) of Δτ·t′(x) in checkerboard order, ``[C, Nb, Lτ]`` for
+    fields ``[C, Nph, Lτ]``."""
+    _check_real(p)
+    tp = hopping_t_prime(spec, p, x)
+    arg = spec.dtau * tp.index_select(-2, spec.tensor("ckb_to_bond", x.device))
+    return SSHDerived(cosh=torch.cosh(arg), sinh=torch.sinh(arg))
+
+
+def exp_mu(spec: SSHSpec, p: SSHParams):
+    """exp(+Δτ·μ) diagonal, ``[N, 1]``."""
+    return torch.exp(spec.dtau * p.mu)[:, None]
+
+
+def dense_K(spec: SSHSpec, cosh_b, sinh_b):
+    """The per-τ dense exp(−Δτ·K[x(τ)]) ``[Lτ, N, N]`` for one chain's
+    ``[Nb, Lτ]`` coefficients: the identity folded through the groups with
+    τ as the table's chain axis (plain torch; for the tests and file
+    output)."""
+    N, Lt = spec.Nsites, spec.Ltau
+    eye = torch.eye(N, dtype=cosh_b.dtype, device=cosh_b.device).expand(Lt, N, N)
+    return ckb.ckb_mul(spec.ckb, cosh_b.mT.contiguous(), sinh_b.mT.contiguous(), eye)
+
+
+# ---------------------------------------------------------------------------
+# fermion matrix multiplication routines
+# ---------------------------------------------------------------------------
+
+def _tau_sign(spec: SSHSpec, like, first: bool):
+    """[+1, −1, ..., −1] (``first``: the wrap at τ=0) or [−1, ..., −1, +1]."""
+    s = -torch.ones(spec.Ltau, dtype=like.dtype, device=like.device)
+    s[0 if first else -1] = 1.0
+    return s
+
+
+def _apply_K(spec: SSHSpec, coeffs: SSHDerived, y, transpose: bool = False):
+    """exp(−Δτ·K[x(τ)])·y (or its transpose) on ``[C, ..., N, Lτ]``."""
+    cosh_b, sinh_b = coeffs
+    return ckb_cuda.fold(spec.ckb, cosh_b, sinh_b, y.contiguous(), reverse=transpose)
+
+
+def mulM(spec: SSHSpec, p: SSHParams, coeffs, v):
+    """y = M·v: y(τ) = v(τ) − B(τ)·v(τ−1), y(0) = v(0) + B(0)·v(Lτ−1)."""
+    y = _apply_K(spec, coeffs, exp_mu(spec, p) * torch.roll(v, 1, dims=-1))
+    return v + _tau_sign(spec, v, True) * y
+
+
+def mulMT(spec: SSHSpec, p: SSHParams, coeffs, v):
+    """y = Mᵀ·v."""
+    w = exp_mu(spec, p) * _apply_K(spec, coeffs, v, transpose=True)
+    return v + _tau_sign(spec, v, False) * torch.roll(w, -1, dims=-1)
+
+
+def mulMTM(spec: SSHSpec, p: SSHParams, coeffs, v):
+    return mulMT(spec, p, coeffs, mulM(spec, p, coeffs, v))
+
+
+def mulMMT(spec: SSHSpec, p: SSHParams, coeffs, v):
+    return mulM(spec, p, coeffs, mulMT(spec, p, coeffs, v))
+
+
+def _group_bonds(spec: SSHSpec, g: int, device):
+    """The phonon-carrying bonds of group ``g``: (first sites, second sites,
+    phonons) as index tensors on ``device``, cached; None when it has none."""
+    key = ("group_bonds", g, str(device))
+    if key not in spec._cache:
+        in_g = np.nonzero(spec.ckb.groups == g)[0]
+        ph = spec.bond_to_phonon[spec.ckb_to_bond[in_g]]
+        sel = ph >= 0
+        spec._cache[key] = None if not sel.any() else tuple(
+            torch.as_tensor(a, device=device) for a in (spec.ckb.neighbor_table[0, in_g[sel]],
+                                                        spec.ckb.neighbor_table[1, in_g[sel]],
+                                                        ph[sel]))
+    return spec._cache[key]
+
+
+def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
+    """uᵀ·[∂M/∂x_b(τ)]·v for every phonon and slice, ``[..., Nph, Lτ]``.
+
+    The group walk: carry b ← G_g·b and c ← G_g⁻¹·c through the
+    checkerboard groups (b starts as exp(Δτμ)·v(τ−1), c as exp(−Δτ·K)ᵀ·u);
+    after group g every phonon-carrying bond (i, j) of g contributes
+    ±Δτ·(α + 2α₂x)·(c_j·b_i + c_i·b_j), minus on the τ=0 slice, with the
+    reference's α + 2α₂x. Aliased phonons sum their forces onto the
+    primary, which every alias then carries."""
+    cosh_b, sinh_b = coeffs
+    b = exp_mu(spec, p) * torch.roll(v, 1, dims=-1)
+    c = _apply_K(spec, coeffs, u, transpose=True)
+    b, c = torch.broadcast_tensors(b, c)
+    batch = torch.broadcast_shapes(x.shape[:-2], b.shape[:-2])
+    out = torch.zeros(batch + (spec.Nph, spec.Ltau), dtype=x.dtype, device=x.device)
+    sgn = -_tau_sign(spec, x, True)
+    partner, bond_of_site, mask = spec.ckb.torch_tables(x.device)
+    one = torch.ones((), dtype=cosh_b.dtype, device=x.device)
+    zero = torch.zeros((), dtype=sinh_b.dtype, device=x.device)
+    for g in range(spec.ckb.ngroups):
+        cg = ckb._site_coeffs(cosh_b, bond_of_site[g], mask[g], one, b)
+        sg = ckb._site_coeffs(sinh_b, bond_of_site[g], mask[g], zero, b)
+        b = cg * b + sg * b.index_select(-2, partner[g])
+        c = cg * c - sg * c.index_select(-2, partner[g])
+        sites = _group_bonds(spec, g, x.device)
+        if sites is None:
+            continue
+        i_s, j_s, ph_s = sites
+        dKdx = p.alpha[ph_s][:, None] + 2.0 * p.alpha2[ph_s][:, None] * x.index_select(-2, ph_s)
+        dmdx = sgn * spec.dtau * dKdx * (c.index_select(-2, j_s) * b.index_select(-2, i_s)
+                                         + c.index_select(-2, i_s) * b.index_select(-2, j_s))
+        out = out.index_add(-2, ph_s, dmdx.expand(batch + dmdx.shape[-2:]))
+    prim = spec.tensor("primary_phonon", x.device)
+    return torch.zeros_like(out).index_add(-2, prim, out).index_select(-2, prim)
+
+
+# ---------------------------------------------------------------------------
+# bosonic (phonon) action — primary fields only
+# ---------------------------------------------------------------------------
+
+def primary_mask(spec: SSHSpec, like) -> torch.Tensor:
+    """``[Nph, 1]``: 1 on primary fields, 0 on their aliases."""
+    return torch.as_tensor(spec.primary_phonon == np.arange(spec.Nph),
+                           device=like.device).to(like.dtype)[:, None]
+
+
+def calc_Sb(spec: SSHSpec, p: SSHParams, x, shifted: bool = False):
+    """Sb = Σ_primary Σ_τ [Δτω²x²/2 + Δτω₄x⁴ + (Δx)²/(2Δτ)], accumulated in
+    float64."""
+    om2 = (p.omega ** 2)[:, None]
+    om4 = p.omega4[:, None]
+    dx = x - torch.roll(x, 1, dims=-1)
+    sb = spec.dtau * (om2 * x * x / 2 + om4 * x ** 4) + dx * dx / (2 * spec.dtau)
+    return fsum(primary_mask(spec, x) * sb, dim=(-2, -1))
+
+
+def calc_dSbdx(spec: SSHSpec, p: SSHParams, x, shifted: bool = False):
+    """∂Sb/∂x for every field (aliased worldlines carry equal values)."""
+    om2 = (p.omega ** 2)[:, None]
+    om4 = p.omega4[:, None]
+    lap = torch.roll(x, 1, dims=-1) + torch.roll(x, -1, dims=-1) - 2.0 * x
+    return spec.dtau * (om2 * x + 4.0 * om4 * x ** 3) - lap / spec.dtau

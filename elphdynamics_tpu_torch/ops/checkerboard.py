@@ -20,9 +20,11 @@ fold :func:`fold` is the plain twin of the CUDA kernel in
 ``csrc/ckb_fold.cu``, and :func:`fold_fused` that of the fused Chebyshev
 step in ``csrc/ckb_fold_fused.cu`` (:mod:`.ckb_cuda`): the tests compare
 them with the JAX package, and the kernels are compared with them on the
-card. Real hopping only
-(per-bond ``[Nb]`` coefficients); the complex ``conj(s)`` convention and
-per-(bond, τ) coefficients belong to later slices.
+card. Real hopping only, with three coefficient forms: ``[Nb]`` shared by
+every row, ``[C, Nb]`` one table per chain (the SSH model's τ-averaged Ā)
+and ``[C, Nb, K]`` one per chain, bond and column (the SSH fermion
+operator's per-(bond, τ) coefficients); the complex ``conj(s)`` convention
+belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -134,25 +136,57 @@ def build_checkerboard_spec(nsites: int, neighbor_table: np.ndarray) -> Checkerb
         neighbor_table=table, order=order, groups=groups)
 
 
+def check_coeffs(spec: CheckerboardSpec, cosh_b, sinh_b, v, per_column: bool = True) -> None:
+    """Raise unless ``(cosh_b, sinh_b)`` is a coefficient form the fold
+    takes for the field ``v`` ``[..., N, K]``: ``[Nb]`` shared by every
+    row; ``[C, Nb]`` one table per chain, ``C = v.shape[0]`` of a
+    ``[C, ..., N, K]`` field; or (with ``per_column``) ``[C, Nb, K]`` one
+    coefficient per chain, bond and column. Complex tables are refused."""
+    if v.shape[-2] != spec.nsites:
+        raise ValueError(f"site axis (-2) must have size {spec.nsites}, got {tuple(v.shape)}")
+    if cosh_b.is_complex() or sinh_b.is_complex():
+        raise NotImplementedError("complex hopping (conj(s) tables): ROADMAP slice F")
+    nb = spec.nbonds
+    forms = [(nb,)]
+    if v.ndim >= 3:
+        forms.append((v.shape[0], nb))
+        if per_column:
+            forms.append((v.shape[0], nb, v.shape[-1]))
+    for name, t in (("cosh_b", cosh_b), ("sinh_b", sinh_b)):
+        if tuple(t.shape) not in forms:
+            raise ValueError(f"{name} must be one of {[list(f) for f in forms]} for a "
+                             f"{tuple(v.shape)} field, got {tuple(t.shape)}")
+    if cosh_b.shape != sinh_b.shape:
+        raise ValueError(f"cosh_b {tuple(cosh_b.shape)} and sinh_b {tuple(sinh_b.shape)} differ")
+
+
+def _site_coeffs(t: torch.Tensor, bonds: torch.Tensor, keep: torch.Tensor, fill, v):
+    """A coefficient table gathered onto the sites of one group and shaped
+    against ``v``: ``[N, 1]`` from ``[Nb]``, ``[C, 1.., N, 1]`` from
+    ``[C, Nb]``, ``[C, 1.., N, K]`` from ``[C, Nb, K]``."""
+    if t.ndim == 1:
+        return torch.where(keep, t[bonds], fill)[:, None]
+    site = t.index_select(1, bonds)
+    site = torch.where(keep.reshape((1, -1) + (1,) * (t.ndim - 2)), site, fill)
+    if t.ndim == 2:
+        site = site[..., None]
+    return site.reshape(site.shape[:1] + (1,) * (v.ndim - 3) + site.shape[1:])
+
+
 def _apply_groups(spec: CheckerboardSpec, cosh_b: torch.Tensor,
                   sinh_b: torch.Tensor, v: torch.Tensor, group_order,
                   sign: float) -> torch.Tensor:
     """Fold the group rotations over ``v`` ``[..., N, K]`` (sites on axis
-    −2) with per-bond ``[Nb]`` coefficients; ``sign=-1`` applies each
-    group's inverse. Plain torch: one gather + FMA pass per group."""
-    if v.shape[-2] != spec.nsites:
-        raise ValueError(f"site axis (-2) must have size {spec.nsites}, got {tuple(v.shape)}")
-    if cosh_b.ndim != 1 or cosh_b.is_complex() or sinh_b.is_complex():
-        raise NotImplementedError(
-            "per-(bond, τ) coefficients (SSH, ROADMAP slice C) and complex "
-            "hopping (slice F) are not ported")
+    −2) with coefficients in any form of :func:`check_coeffs`; ``sign=-1``
+    applies each group's inverse. Plain torch: one gather + FMA pass per
+    group."""
+    check_coeffs(spec, cosh_b, sinh_b, v)
     partner, bond_of_site, mask = spec.torch_tables(v.device)
     one = torch.ones((), dtype=cosh_b.dtype, device=v.device)
     zero = torch.zeros((), dtype=sinh_b.dtype, device=v.device)
     for g in group_order:
-        m = mask[g]
-        c = torch.where(m, cosh_b[bond_of_site[g]], one)[:, None]
-        s = torch.where(m, sinh_b[bond_of_site[g]], zero)[:, None]
+        c = _site_coeffs(cosh_b, bond_of_site[g], mask[g], one, v)
+        s = _site_coeffs(sinh_b, bond_of_site[g], mask[g], zero, v)
         if sign < 0:
             s = -s
         v = c * v + s * v.index_select(-2, partner[g])
@@ -187,13 +221,15 @@ def fold(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
     return _apply_groups(spec, cosh_b, sinh_b, v, order, sign)
 
 
-def check_fused_operands(v, pre, post, a, b, prev) -> None:
+def check_fused_operands(spec: CheckerboardSpec, cosh_b, sinh_b, v, pre, post, a, b,
+                         prev) -> None:
     """Raise unless the operands of a fused step are what the kernel and its
-    twin take: ``v`` ``[C, ..., N, K]``; ``a``, ``b`` ``[C]``; ``pre``,
-    ``post`` ``[C, N]`` or None; ``prev`` of ``v``'s shape or None; all of
-    ``v``'s dtype and device."""
+    twin take: ``v`` ``[C, ..., N, K]``; coefficients ``[Nb]`` or per-chain
+    ``[C, Nb]``; ``a``, ``b`` ``[C]``; ``pre``, ``post`` ``[C, N]`` or None;
+    ``prev`` of ``v``'s shape or None; all of ``v``'s dtype and device."""
     if v.ndim < 3:
         raise ValueError(f"field must be [C, ..., N, K], got {tuple(v.shape)}")
+    check_coeffs(spec, cosh_b, sinh_b, v, per_column=False)
     C, N = v.shape[0], v.shape[-2]
     for name, t, shape in (("a", a, (C,)), ("b", b, (C,)), ("pre", pre, (C, N)),
                            ("post", post, (C, N)), ("prev", prev, tuple(v.shape))):
@@ -212,10 +248,11 @@ def fold_fused(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = Fal
                prev=None):
     """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev``: the
     plain twin of the fused CUDA kernel (``csrc/ckb_fold_fused.cu``), with
-    its signature. ``v`` is ``[C, ..., N, K]``; ``a``, ``b`` are per-chain
-    ``[C]``; ``pre``/``post`` are per-chain site diagonals ``[C, N]`` or
-    None; ``c`` is a number and ``prev`` a field of ``v``'s shape or None."""
-    check_fused_operands(v, pre, post, a, b, prev)
+    its signature. ``v`` is ``[C, ..., N, K]``; the coefficients ``[Nb]``
+    or ``[C, Nb]``; ``a``, ``b`` are per-chain ``[C]``; ``pre``/``post``
+    are per-chain site diagonals ``[C, N]`` or None; ``c`` is a number and
+    ``prev`` a field of ``v``'s shape or None."""
+    check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev)
     C = v.shape[0]
     v4 = v.reshape(C, -1, *v.shape[-2:])
 

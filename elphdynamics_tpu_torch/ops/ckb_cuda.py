@@ -7,12 +7,16 @@ kernels (``csrc/ckb_fold.cu``, ``csrc/ckb_fold_fused.cu``, sharing
   ``ckb_transpose_mul``, ``ckb_inverse_mul``, ``ckb_inverse_transpose_mul``).
   The fold is bound by device-memory bytes: the plain twin
   (:func:`..checkerboard.fold`) makes one read and one write of the field
-  per bond group, the kernel one of each per fold.
+  per bond group, the kernel one of each per fold. It takes the three
+  coefficient forms of :func:`..checkerboard.check_coeffs`: ``[Nb]``,
+  per-chain ``[C, Nb]`` (the JAX package ran the Pallas kernel under
+  ``vmap`` for those) and per-(chain, bond, column) ``[C, Nb, K]`` (the SSH
+  fermion operator, which the JAX package folded outside Pallas).
 * :func:`fold_fused` replaces ``ckb_pallas.py:_fold_fused_kernel`` (driven
   by ``fold_kn_fused``): one KPM Chebyshev step
   ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` in one pass, per-chain ``a``,
-  ``b``, ``pre``, ``post``. Its plain twin is
-  :func:`..checkerboard.fold_fused`.
+  ``b``, ``pre``, ``post``, and ``[Nb]`` or per-chain ``[C, Nb]`` bond
+  coefficients. Its plain twin is :func:`..checkerboard.fold_fused`.
 
 Design (Hopper): a thread-block cluster of ``cs`` CTAs owns one ``[N, K]``
 row of the ``[B, N, K]`` field; rank ``r`` keeps the contiguous site range
@@ -34,7 +38,10 @@ shared header, all compilers started together, and loaded with ``ctypes``.
 
 Dispatch is by the tensor's device only: a CPU tensor goes to the plain
 twin; a CUDA tensor launches the kernel or raises. ``launches`` and
-``fused_launches`` count kernel launches (never twin calls).
+``fused_launches`` count kernel launches (never twin calls), and
+``table_launches`` the same launches by kernel and coefficient form
+(``"fold/shared"``, ``"fold/chain"``, ``"fold/column"``,
+``"fused/shared"``, ``"fused/chain"``).
 """
 
 from __future__ import annotations
@@ -57,6 +64,17 @@ from elphdynamics_tpu_torch.ops import checkerboard as ckb
 # kernel launches since import (or since a caller last set them to 0)
 launches = 0
 fused_launches = 0
+TABLE_FORMS = ("shared", "chain", "column")   # [Nb], [C, Nb], [C, Nb, K]
+table_launches = {"fold/shared": 0, "fold/chain": 0, "fold/column": 0,
+                  "fused/shared": 0, "fused/chain": 0}
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    global launches, fused_launches
+    launches = fused_launches = 0
+    for k in table_launches:
+        table_launches[k] = 0
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"ckb_fold": CSRC / "ckb_fold.cu", "ckb_fold_fused": CSRC / "ckb_fold_fused.cu"}
@@ -72,11 +90,12 @@ MAX_KT = 512          # columns per tile, so a block holds one thread per chunk
 CTA_RESERVE = 1024    # shared memory the runtime keeps per CTA (bytes)
 MAX_ROWS = 65535      # grid.y
 
-_PTR, _I32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_PTR, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # argument types of each library's ``<name>_f32`` / ``<name>_f64`` entry point
 _ARGTYPES = {
-    "ckb_fold": [_PTR] * 6 + [_I32, _F64] + [_I32] * 8 + [_PTR],
-    "ckb_fold_fused": [_PTR] * 7 + [_I32, _F64] + [_PTR] * 4 + [_F64] + [_I32] * 9 + [_PTR],
+    "ckb_fold": [_PTR] * 6 + [_I32, _F64] + [_I32] * 9 + [_I64, _I32, _PTR],
+    "ckb_fold_fused": ([_PTR] * 7 + [_I32, _F64] + [_PTR] * 4 + [_F64] + [_I32] * 9
+                       + [_I64, _PTR]),
 }
 
 _libs: dict = {}
@@ -142,7 +161,7 @@ def _load(name: str):
             fn.argtypes = _ARGTYPES[name]
             fn.restype = _I32
         query = getattr(lib, f"{name}_resident_clusters")
-        query.argtypes = [_I32] * 7
+        query.argtypes = [_I32] * 8
         query.restype = _I32
         _libs[name] = lib
     return lib
@@ -232,17 +251,20 @@ def _device_plan(spec: ckb.CheckerboardSpec, cs: int, reverse: bool, device: tor
 # launch geometry
 # ---------------------------------------------------------------------------
 
-def _cta_bytes(N: int, cs: int, kt: int, itemsize: int, owned: int = 0) -> int:
+def _cta_bytes(N: int, cs: int, kt: int, itemsize: int, owned: int = 0,
+               per_column: bool = False) -> int:
     """Dynamic shared memory of one CTA: a slab of ``ceil(N/cs)`` sites by
     ``kt`` columns rounded up to 128 bytes, the tables of ``owned`` bonds
-    (an int4 entry and two coefficients each, rounded up to 16 bytes) and
-    an mbarrier (csrc ``slab_bytes``, ``table_bytes``)."""
+    (an int4 entry each, and two coefficients unless they are per column,
+    rounded up to 16 bytes) and an mbarrier (csrc ``slab_bytes``,
+    ``table_bytes``)."""
     slab = math.ceil(math.ceil(N / cs) * kt * itemsize / 128) * 128
-    return slab + math.ceil(owned * (16 + 2 * itemsize) / 16) * 16 + 16
+    entry = 16 + (0 if per_column else 2 * itemsize)
+    return slab + math.ceil(owned * entry / 16) * 16 + 16
 
 
 def choose_cluster(B: int, N: int, K: int, itemsize: int, smem_bytes: int, n_sms: int,
-                   owned=lambda cs: 0) -> tuple[int, int]:
+                   owned=lambda cs: 0, per_column: bool = False) -> tuple[int, int]:
     """(cs, kt): cluster size and columns per tile of a launch on a
     ``[B, N, K]`` field. The smallest cluster whose CTA (its slab and the
     tables of the ``owned(cs)`` bonds of its busiest rank) fits in half the
@@ -251,22 +273,26 @@ def choose_cluster(B: int, N: int, K: int, itemsize: int, smem_bytes: int, n_sms
     tiles (in the whole budget where half cannot hold one column). Then cs
     doubles, up to 8, while the grid has fewer CTAs than the card has SMs:
     an H100 holds 30 clusters of 8 at two CTAs per SM but only 14 of 16,
-    so 16 is taken only where the slab needs it."""
+    so 16 is taken only where the slab needs it. ``per_column``: the
+    coefficients are per column and stay out of shared memory."""
     half = (smem_bytes + CTA_RESERVE) // 2 - CTA_RESERVE
     sizes = [cs for cs in (1, 2, 4, 8, MAX_CLUSTER) if cs <= max(N, 1)]
     kt = min(K, MAX_KT)
-    cs = next((cs for cs in sizes
-               if _cta_bytes(N, cs, kt, itemsize, owned(cs)) <= half), None)
+
+    def cta(cs, kt):
+        return _cta_bytes(N, cs, kt, itemsize, owned(cs), per_column)
+
+    cs = next((cs for cs in sizes if cta(cs, kt) <= half), None)
     if cs is None:
         cs = sizes[-1]
         per_col = math.ceil(N / cs) * itemsize
-        fixed = _cta_bytes(N, cs, 0, itemsize, owned(cs)) + 128
+        fixed = cta(cs, 0) + 128
         fits = [(budget - fixed) // per_col for budget in (half, smem_bytes)]
         kt = min(kt, next((k for k in fits if k >= 1), 0))
         if kt < 1:
             raise ValueError(
                 f"a [{math.ceil(N / cs)}] site column of {itemsize}-byte values needs "
-                f"{_cta_bytes(N, cs, 1, itemsize, owned(cs))} bytes of shared memory; the "
+                f"{cta(cs, 1)} bytes of shared memory; the "
                 f"card offers {smem_bytes}")
         if kt >= 4:
             kt -= kt % 4   # keep 16-byte vectors where K allows them
@@ -292,42 +318,44 @@ class Geometry:
     vec: int
     threads: int
     owned: int      # bond-table entries per CTA (the busiest rank's)
+    per_column: bool = False   # per-column coefficients: no coefficients in the tables
 
 
 def geometry(B: int, N: int, K: int, itemsize: int, smem_bytes: int, n_sms: int,
-             owned=lambda cs: 0) -> Geometry:
+             owned=lambda cs: 0, per_column: bool = False) -> Geometry:
     """The whole launch geometry: :func:`choose_cluster`, the vector width
     and a block size that is a multiple of the chunks per site row."""
-    cs, kt = choose_cluster(B, N, K, itemsize, smem_bytes, n_sms, owned)
+    cs, kt = choose_cluster(B, N, K, itemsize, smem_bytes, n_sms, owned, per_column)
     vec = vector_width(kt, K, itemsize)
     nvec = kt // vec
     return Geometry(B=B, N=N, K=K, cs=cs, kt=kt, vec=vec,
-                    threads=(MAX_THREADS // nvec) * nvec, owned=owned(cs))
+                    threads=(MAX_THREADS // nvec) * nvec, owned=owned(cs),
+                    per_column=per_column)
 
 
 TUNE_THREADS = (256, 384, 512)   # block sizes tried, rounded down to whole site rows
 
 
 def candidates(B: int, N: int, K: int, itemsize: int, smem_bytes: int, n_sms: int,
-               owned=lambda cs: 0) -> list[Geometry]:
+               owned=lambda cs: 0, per_column: bool = False) -> list[Geometry]:
     """The launch geometries timed on a shape's first launch: :func:`geometry`
     first, then every cluster size whose CTA (all K columns) fits two to an
     SM, each at about 256, 384 and 512 threads. Where K is tiled, only the
     block size varies. No one rule picks the fastest: on an H100 the best
     (cs, threads) differs between the main path's shapes by 4–7% (PERF.md)."""
-    base = geometry(B, N, K, itemsize, smem_bytes, n_sms, owned)
+    base = geometry(B, N, K, itemsize, smem_bytes, n_sms, owned, per_column)
     half = (smem_bytes + CTA_RESERVE) // 2 - CTA_RESERVE
     sizes = [base.cs]
     if base.kt == K:
         sizes += [cs for cs in (1, 2, 4, 8, MAX_CLUSTER) if cs != base.cs and cs <= max(N, 1)
-                  and _cta_bytes(N, cs, K, itemsize, owned(cs)) <= half]
+                  and _cta_bytes(N, cs, K, itemsize, owned(cs), per_column) <= half]
     nvec = base.kt // base.vec
     out = [base]
     for cs in sizes:
         for t in TUNE_THREADS:
             threads = max(1, t // nvec) * nvec
             g = Geometry(B=B, N=N, K=K, cs=cs, kt=base.kt, vec=base.vec, threads=threads,
-                         owned=owned(cs))
+                         owned=owned(cs), per_column=per_column)
             if threads <= MAX_THREADS and g not in out:
                 out.append(g)
     return out
@@ -342,7 +370,8 @@ def _resident_clusters(name: str, dtype: torch.dtype, g: Geometry) -> int:
     """How many clusters of launch ``g`` of library ``name`` the current card
     holds at once (0: the launch cannot run)."""
     n = getattr(_load(name), f"{name}_resident_clusters")(
-        int(dtype == torch.float64), g.vec, g.N, g.kt, g.cs, g.owned, g.threads)
+        int(dtype == torch.float64), g.vec, g.N, g.kt, g.cs, g.owned, g.threads,
+        int(g.per_column))
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed ({-n})")
     return n
@@ -369,39 +398,47 @@ def _time_candidates(cands: list[Geometry], run, reps: int = 3) -> list[float]:
     return times
 
 
-def _check(spec, cosh_b, sinh_b, v) -> None:
-    """Raise on what the kernels do not take."""
+def _check(spec, cosh_b, sinh_b, v, per_column: bool) -> tuple[int, int]:
+    """Raise on what the kernels do not take; return the launch's (rows per
+    chain, elements per chain's coefficient table): ``(1, 0)`` for one
+    ``[Nb]`` table, ``(B/C, Nb)`` for ``[C, Nb]``, ``(B/C, Nb·K)`` for
+    ``[C, Nb, K]`` (only with ``per_column``)."""
     if v.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ckb fold kernels take float32/float64, got {v.dtype}")
     for name, t in (("cosh_b", cosh_b), ("sinh_b", sinh_b)):
-        if t.device != v.device or t.dtype != v.dtype or t.shape != (spec.nbonds,):
-            raise ValueError(f"{name} must be [{spec.nbonds}] {v.dtype} on {v.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if t.device != v.device or t.dtype != v.dtype:
+            raise ValueError(f"{name} must be {v.dtype} on {v.device}, "
+                             f"got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if v.ndim < 2 or v.shape[-2] != spec.nsites:
         raise ValueError(f"field must be [..., {spec.nsites}, K], got {tuple(v.shape)}")
+    ckb.check_coeffs(spec, cosh_b, sinh_b, v, per_column=per_column)
     if not v.is_contiguous():
         raise ValueError("field must be contiguous")
-    if math.prod(v.shape[:-2]) > MAX_ROWS:
-        raise ValueError(f"at most {MAX_ROWS} rows of [N, K], got {math.prod(v.shape[:-2])}")
+    B = math.prod(v.shape[:-2])
+    if B > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows of [N, K], got {B}")
+    if cosh_b.ndim == 1:
+        return 1, 0
+    return max(B // v.shape[0], 1), cosh_b[0].numel()
 
 
 def _device_index(v) -> int:
     return v.device.index if v.device.index is not None else torch.cuda.current_device()
 
 
-def _geometry(spec, v, name: str, run) -> Geometry:
+def _geometry(spec, v, name: str, run, per_column: bool = False) -> Geometry:
     """The geometry of a launch of library ``name`` on ``v``, cached on the
-    spec per (device, shape, dtype, library). On a shape's first launch every
-    one of its :func:`candidates` that the card can hold runs through
-    ``run(geometry)`` (which launches into the caller's output; the launches
-    are not counted) and the fastest is kept. The card's shared-memory
-    budget and SM count are read once per device."""
+    spec per (device, shape, dtype, library, coefficient mode). On a shape's
+    first launch every one of its :func:`candidates` that the card can hold
+    runs through ``run(geometry)`` (which launches into the caller's output;
+    the launches are not counted) and the fastest is kept. The card's
+    shared-memory budget and SM count are read once per device."""
     dev = _device_index(v)
     N, K = v.shape[-2:]
     B = math.prod(v.shape[:-2])
-    key = ("cluster_geometry", dev, B, N, K, v.element_size(), name)
+    key = ("cluster_geometry", dev, B, N, K, v.element_size(), name, per_column)
     g = spec._cache.get(key)
     if g is None:
         info = _device_info.get(dev)
@@ -412,7 +449,7 @@ def _geometry(spec, v, name: str, run) -> Geometry:
             info = _device_info[dev] = (smem, torch.cuda.get_device_properties(dev)
                                         .multi_processor_count)
         cands = candidates(B, N, K, v.element_size(), *info,
-                           owned=lambda cs: owned_max(spec, cs))
+                           owned=lambda cs: owned_max(spec, cs), per_column=per_column)
         cands = [cands[0]] + [c for c in cands[1:] if _resident_clusters(name, v.dtype, c) > 0]
         g = cands[0] if len(cands) == 1 else fastest(cands, _time_candidates(cands, run))
         spec._cache[key] = g
@@ -432,7 +469,8 @@ def _on_device(dev: int):
 
 def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor:
     global launches
-    _check(spec, cosh_b, sinh_b, v)
+    per_column = cosh_b.ndim == 3
+    inner, cstride = _check(spec, cosh_b, sinh_b, v, per_column=True)
     out = torch.empty_like(v)
     if v.numel() == 0:
         return out
@@ -443,21 +481,24 @@ def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor
         bonds, poff = _device_plan(spec, g.cs, reverse, v.device)
         err = fn(v.data_ptr(), out.data_ptr(), bonds.data_ptr(), poff.data_ptr(),
                  cosh_b.data_ptr(), sinh_b.data_ptr(), spec.ngroups, float(sign),
-                 g.B, g.N, g.K, g.kt, g.cs, g.vec, g.owned, g.threads, _stream(dev))
+                 g.B, g.N, g.K, g.kt, g.cs, g.vec, g.owned, g.threads, inner, cstride,
+                 int(per_column), _stream(dev))
         if err != 0:
             raise RuntimeError(f"ckb_fold kernel launch failed: CUDA error {err}")
 
     with _on_device(dev):
-        run(_geometry(spec, v, "ckb_fold", run))
+        run(_geometry(spec, v, "ckb_fold", run, per_column))
     launches += 1
+    table_launches[f"fold/{TABLE_FORMS[cosh_b.ndim - 1]}"] += 1
     return out
 
 
 def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
          sign: float = 1.0) -> torch.Tensor:
     """The whole checkerboard fold of ``v`` ``[..., N, K]`` in direction
-    ``(reverse, sign)``: the CUDA kernel for a CUDA tensor, the plain twin
-    for a CPU tensor."""
+    ``(reverse, sign)``, with coefficients ``[Nb]``, ``[C, Nb]`` or
+    ``[C, Nb, K]`` for a ``[C, ..., N, K]`` field: the CUDA kernel for a
+    CUDA tensor, the plain twin for a CPU tensor."""
     if v.device.type == "cuda":
         return _launch(spec, cosh_b, sinh_b, v, reverse, sign)
     if v.device.type == "cpu":
@@ -468,8 +509,8 @@ def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False
 def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
                   prev) -> torch.Tensor:
     global fused_launches
-    _check(spec, cosh_b, sinh_b, v)
-    ckb.check_fused_operands(v, pre, post, a, b, prev)
+    ckb.check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev)
+    _, cstride = _check(spec, cosh_b, sinh_b, v, per_column=False)
     if prev is not None and not prev.is_contiguous():
         raise ValueError("prev must be contiguous")
     pre, post, a, b = (None if t is None else t.contiguous() for t in (pre, post, a, b))
@@ -487,13 +528,14 @@ def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
         err = fn(v.data_ptr(), out.data_ptr(), ptr(prev), bonds.data_ptr(), poff.data_ptr(),
                  cosh_b.data_ptr(), sinh_b.data_ptr(), spec.ngroups, float(sign), ptr(pre),
                  ptr(post), ptr(a), ptr(b), float(c), g.B, g.N, g.K, g.kt, g.cs, g.vec,
-                 g.B // v.shape[0], g.owned, g.threads, _stream(dev))
+                 g.B // v.shape[0], g.owned, g.threads, cstride, _stream(dev))
         if err != 0:
             raise RuntimeError(f"ckb_fold_fused kernel launch failed: CUDA error {err}")
 
     with _on_device(dev):
         run(_geometry(spec, v, "ckb_fold_fused", run))
     fused_launches += 1
+    table_launches[f"fused/{TABLE_FORMS[cosh_b.ndim - 1]}"] += 1
     return out
 
 
@@ -501,7 +543,8 @@ def fold_fused(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool =
                sign: float = 1.0, pre=None, post=None, a, b, c: float = 0.0,
                prev=None) -> torch.Tensor:
     """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` on a
-    ``[C, ..., N, K]`` field: per-chain ``a``, ``b`` (``[C]``) and
+    ``[C, ..., N, K]`` field: coefficients ``[Nb]`` or per-chain
+    ``[C, Nb]``, per-chain ``a``, ``b`` (``[C]``) and
     ``pre``/``post`` (``[C, N]`` or None), one number ``c``, ``prev`` (v's
     shape) or None. The CUDA kernel for a CUDA tensor, the plain twin
     :func:`..checkerboard.fold_fused` for a CPU tensor. The result is a new

@@ -10,14 +10,20 @@ stacked-real half spectrum ``[..., N, 2Lω]``.
 
 Chains: the state carries a leading chain axis. ``expnV_bar`` is
 ``[C, N]``; ``lam_avg``, ``lam_mag`` and ``active`` are ``[C]``;
-``coeff`` is ``[C, M, Lω]``. Fields are ``[C, ..., N, K]``.
+``coeff`` is ``[C, M, Lω]``. Fields are ``[C, ..., N, K]``. Holstein's Ā
+has one hopping factor for every chain (``cosh_bar`` ``[Nb]``, dense
+``expK`` ``[N, N]``); SSH's is τ-averaged from each chain's own field
+(``cosh_bar`` ``[C, Nb]``, dense ``expK`` ``[C, N, N]``, rebuilt on every
+refresh) with exp(+Δτ·μ) as its diagonal.
 
 Ā is applied as a dense matmul up to ``_DENSE_ABAR_MAX_SITES`` sites, or
 through the checkerboard fold: the CUDA kernel for CUDA tensors above
 ``_PALLAS_ABAR_MIN_SITES`` sites, the plain fold otherwise. Both gates are
 the JAX package's TPU-tuned values. On the fold branch every Chebyshev step
 is one fused fold (``csrc/ckb_fold_fused.cu`` on CUDA, its plain twin on
-the CPU); the power iteration and Ā⁻¹ of the setup use the fold itself.
+the CPU); the power iteration and Ā⁻¹ of the setup use the fold itself
+(``csrc/ckb_fold.cu`` on CUDA), as does the densification of a dense Ā
+that the model does not supply.
 Every matmul runs in full precision of the field dtype (the JAX package ran
 these at the TPU's DEFAULT precision); choosing a lower precision is a
 later, measured change.
@@ -34,7 +40,6 @@ import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.models.adapter import ModelOps
-from elphdynamics_tpu_torch.ops import checkerboard as ckb
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.ops.timefreqfft import omega_to_tau, tau_to_omega
 
@@ -68,21 +73,29 @@ class KPMState:
     """Per-configuration preconditioner state for a batch of C chains."""
 
     expnV_bar: torch.Tensor  # [C, N] time-averaged exp(−Δτ·V̄)
-    cosh_bar: torch.Tensor   # [Nbonds] averaged checkerboard coefficients
+    cosh_bar: torch.Tensor   # [Nbonds] or per chain [C, Nbonds] averaged coefficients
     sinh_bar: torch.Tensor
     lam_avg: torch.Tensor    # [C] (λhi+λlo)/2
     lam_mag: torch.Tensor    # [C] (λhi−λlo)/2
     coeff: torch.Tensor      # [C, max_order, Lω] complex Chebyshev coefficients
     active: torch.Tensor     # [C] bool
-    expK: torch.Tensor | None = None      # dense exp(−Δτ·K̄) [N, N]
+    expK: torch.Tensor | None = None      # dense exp(−Δτ·K̄) [N, N] or [C, N, N]
     expK_inv: torch.Tensor | None = None
     dft_f: torch.Tensor | None = None     # [Lτ, 2Lω] τ→ω DFT table
     dft_b: torch.Tensor | None = None     # [2Lω, Lτ] ω→τ DFT table
 
 
 def _avg_operator(ops: ModelOps, params, derived):
-    """Time-averaged Ā pieces: (expnV̄ [C, N], cosh̄, sinh̄)."""
-    return derived.mean(dim=-1), params.cosht, params.sinht
+    """Time-averaged Ā pieces: (expnV̄ [C, N], cosh̄, sinh̄). Holstein:
+    the τ-mean of exp(−Δτ·V), the model's [Nb] hopping coefficients. SSH:
+    exp(+Δτ·μ) for every chain, each chain's τ-mean of its [C, Nb, Lτ]
+    coefficient tables."""
+    if ops.is_holstein:
+        return derived.mean(dim=-1), params.cosht, params.sinht
+    cosh_b, sinh_b = derived
+    C = cosh_b.shape[0]
+    expnV_bar = torch.exp(ops.dtau * params.mu).expand(C, ops.Nsites).contiguous()
+    return expnV_bar, cosh_b.mean(dim=-1), sinh_b.mean(dim=-1)
 
 
 # dense Ā up to this many sites; above _PALLAS_ABAR_MIN_SITES a CUDA field
@@ -105,11 +118,15 @@ def _dense_abar_gate(nsites: int, sinh_bar) -> bool:
 
 
 def _dense_avg(ops: ModelOps, cosh_bar, sinh_bar):
-    """exp(∓Δτ·K̄) as dense matrices: the identity folded through the groups
-    once per setup."""
+    """exp(∓Δτ·K̄) as dense matrices, ``[N, N]`` or per chain ``[C, N, N]``
+    for per-chain ``[C, Nb]`` coefficients: the identity folded through the
+    groups (the CUDA kernel on the card)."""
     sc = ops.spec.ckb
     eye = torch.eye(ops.Nsites, dtype=cosh_bar.dtype, device=cosh_bar.device)
-    return ckb.ckb_mul(sc, cosh_bar, sinh_bar, eye), ckb.ckb_inverse_mul(sc, cosh_bar, sinh_bar, eye)
+    if cosh_bar.ndim == 2:
+        eye = eye.expand((cosh_bar.shape[0],) + tuple(eye.shape)).contiguous()
+    return (ckb_cuda.ckb_mul(sc, cosh_bar, sinh_bar, eye),
+            ckb_cuda.ckb_inverse_mul(sc, cosh_bar, sinh_bar, eye))
 
 
 def _chain(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -124,6 +141,15 @@ def _site_diag(d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return d.reshape(d.shape[:1] + (1,) * (v.ndim - 3) + d.shape[1:] + (1,))
 
 
+def _dense(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A dense operator, ``[N, N]`` or per chain ``[C, N, N]``, shaped to
+    multiply ``v`` ``[C, ..., N, K]``."""
+    mat = mat.to(v.dtype)
+    if mat.ndim == 2:
+        return mat
+    return mat.reshape(mat.shape[:1] + (1,) * (v.ndim - 3) + mat.shape[1:])
+
+
 def _fold(st: KPMState, spec_ckb, v, reverse: bool, sign: float):
     """Ā's hopping factor without a dense matrix: the kernel on CUDA (the
     gate above leaves no other fold there), the plain twin on the CPU."""
@@ -135,14 +161,14 @@ def _mulA(st: KPMState, spec_ckb, v):
     """Ā·v = exp(−Δτ·K̄)·exp(−Δτ·V̄)·v on ``[C, ..., N, K]`` blocks."""
     w = _site_diag(st.expnV_bar, v) * v
     if st.expK is not None:
-        return torch.matmul(st.expK.to(v.dtype), w)
+        return torch.matmul(_dense(st.expK, v), w)
     return _fold(st, spec_ckb, w, reverse=False, sign=1.0)
 
 
 def _mulA_T(st: KPMState, spec_ckb, v):
     """Āᵀ·v."""
     if st.expK is not None:
-        w = torch.matmul(st.expK.to(v.dtype).mT, v)
+        w = torch.matmul(_dense(st.expK, v).mT, v)
     else:
         w = _fold(st, spec_ckb, v, reverse=True, sign=1.0)
     return _site_diag(st.expnV_bar, v) * w
@@ -151,7 +177,7 @@ def _mulA_T(st: KPMState, spec_ckb, v):
 def _mulA_inv(st: KPMState, spec_ckb, v):
     """Ā⁻¹·v."""
     if st.expK_inv is not None:
-        w = torch.matmul(st.expK_inv.to(v.dtype), v)
+        w = torch.matmul(_dense(st.expK_inv, v), v)
     else:
         w = _fold(st, spec_ckb, v, reverse=True, sign=-1.0)
     return w / _site_diag(st.expnV_bar, v)
@@ -231,8 +257,9 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     expnV_bar, cosh_bar, sinh_bar = _avg_operator(ops, params, derived)
     sc = ops.spec.ckb
     dtype, device = expnV_bar.dtype, expnV_bar.device
-    expK = params.expK if ops.spec.dense_ckb else None
-    expK_inv = params.expK_inv if ops.spec.dense_ckb else None
+    dense = ops.is_holstein and ops.spec.dense_ckb
+    expK = params.expK if dense else None
+    expK_inv = params.expK_inv if dense else None
     if expK is None and 0 < sc.nbonds and _dense_abar_gate(ops.Nsites, sinh_bar):
         expK, expK_inv = _dense_avg(ops, cosh_bar, sinh_bar)
     Wf, Wb = _dft_tables(ops.Ltau)
@@ -277,10 +304,15 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
 
 def refresh(ops: ModelOps, st: KPMState, params, x) -> KPMState:
     """Recompute only the averaged operator for the current fields, reusing
-    the bounds and coefficients of an earlier :func:`setup`."""
+    the bounds and coefficients of an earlier :func:`setup`; SSH's dense Ā
+    (its hopping factor depends on the fields) is densified anew."""
     derived = ops.derived(params, x)
     expnV_bar, cosh_bar, sinh_bar = _avg_operator(ops, params, derived)
-    return replace(st, expnV_bar=expnV_bar, cosh_bar=cosh_bar, sinh_bar=sinh_bar)
+    st = replace(st, expnV_bar=expnV_bar, cosh_bar=cosh_bar, sinh_bar=sinh_bar)
+    if not ops.is_holstein and st.expK is not None:
+        expK, expK_inv = _dense_avg(ops, cosh_bar, sinh_bar)
+        st = replace(st, expK=expK, expK_inv=expK_inv)
+    return st
 
 
 def _cmul_halves(coeff_m, w):

@@ -185,11 +185,12 @@ def run_shipped(case, g=None, v=None):
         err = fn(v.data_ptr(), out.data_ptr(), case["prev"].data_ptr(), bonds.data_ptr(),
                  poff.data_ptr(), case["c"].data_ptr(), case["s"].data_ptr(), spec.ngroups, 1.0,
                  case["pre"].data_ptr(), None, case["a"].data_ptr(), case["b"].data_ptr(), -1.0,
-                 g.B, g.N, g.K, g.kt, g.cs, g.vec, g.B // v.shape[0], g.owned, g.threads, stream)
+                 g.B, g.N, g.K, g.kt, g.cs, g.vec, g.B // v.shape[0], g.owned, g.threads, 0,
+                 stream)
     else:
         err = fn(v.data_ptr(), out.data_ptr(), bonds.data_ptr(), poff.data_ptr(),
                  case["c"].data_ptr(), case["s"].data_ptr(), spec.ngroups, 1.0, g.B, g.N, g.K,
-                 g.kt, g.cs, g.vec, g.owned, g.threads, stream)
+                 g.kt, g.cs, g.vec, g.owned, g.threads, 1, 0, 0, stream)
     if err:
         raise RuntimeError(f"{name} at {g} failed: CUDA error {err}")
     return out

@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(1024, 1)
   const size_t sb = ckb::slab_bytes(N, cs, K, sizeof(T));
   T* slabs[2] = {reinterpret_cast<T*>(smem_raw), reinterpret_cast<T*>(smem_raw + sb)};
   unsigned char* tables = smem_raw + 2 * sb;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(tables + ckb::table_bytes(pmax, sizeof(T)));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tables + ckb::table_bytes(pmax, sizeof(T), false));
 
   ckb::Tile t;
   t.rank = static_cast<int>(cg::this_cluster().block_rank());
@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(1024, 1)
 
   if (row < B) issue(row, 0);
   const ckb::BondTables<T> tb =
-      ckb::load_bond_tables(tables, bonds, poff, c, s, ngroups, sign, t.rank, pmax);
+      ckb::load_bond_tables<T, false>(tables, bonds, poff, c, s, ngroups, sign, t.rank, pmax);
   const int* cross = poff + cs * (ngroups + 1);
   const uint64_t policy = ckb::policy_evict_first();
 
@@ -121,7 +121,8 @@ __global__ void __launch_bounds__(1024, 1)
       }
     }
 
-    ckb::fold_sweep<T, V>(slab, tb, cross, ngroups, K, t, m);
+    ckb::fold_sweep<T, V, false>(slab, tb, cross, ngroups, K, t, m, ckb::ColumnCoeffs<T>{},
+                                 sign);
 
     if constexpr (FUSED) {
       if (m.active) {
@@ -185,7 +186,7 @@ int* smem_set() {
 
 template <typename T>
 size_t smem_of(int N, int K, int cs, int pmax) {
-  return 2 * ckb::slab_bytes(N, cs, K, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T)) + 16;
+  return 2 * ckb::slab_bytes(N, cs, K, sizeof(T)) + ckb::table_bytes(pmax, sizeof(T), false) + 16;
 }
 
 template <typename T, int V, bool F>

@@ -1,18 +1,22 @@
 """Profile one update, or one measurement, of the PyTorch port on a CUDA
 card.
 
-    python scripts/profile_torch_hmc.py [bench_8x8|kernel_64x64|measure_64x64|driver_4x4] [--trace DIR]
+    python scripts/profile_torch_hmc.py [bench_8x8|kernel_64x64|ssh_64x64|measure_64x64|measure_ssh_64x64|driver_4x4] [--trace DIR]
 
-``bench_8x8`` and ``kernel_64x64`` are the HMC updates of ``bench.py``;
+``bench_8x8``, ``kernel_64x64`` and ``ssh_64x64`` (the optical SSH model,
+8 chains) are the HMC updates of ``bench.py``;
 ``measure_64x64`` is one measurement of the driver at 64×64, β = 4 (4
 chains, nᵥ = 10, the five time-dependent on-site correlations, KPM
 max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it;
+``measure_ssh_64x64`` the same for the SSH example (its four on-site
+correlations and the inter-site bond PhononGreens, KPM max_order 64);
 ``driver_4x4`` is one sampling step of the driver on
 ``examples/holstein_hmc_square.toml`` (1 chain): the HMC update, the
 reflection and swap moves and the measurement. Builds the
 configuration in float32, runs it once to warm up, then once under
 ``torch.profiler`` and prints: wall time, summed device-kernel time and
-the device's busy share, both kernels' launches and summed device time,
+the device's busy share, both kernels' launches and summed device time
+(K1's per-(chain, bond, τ) coefficient mode also apart),
 the heaviest kernels by device time, and the heaviest host-side
 operators. With ``--trace DIR`` the Chrome trace goes to
 ``DIR/<config>_trace.json`` (about 200 MB for one update).
@@ -37,18 +41,20 @@ from elphdynamics_tpu_torch.ops import ckb_cuda  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("config",
-                    choices=["bench_8x8", "kernel_64x64", "measure_64x64", "driver_4x4"])
+                    choices=["bench_8x8", "kernel_64x64", "ssh_64x64", "measure_64x64",
+                             "measure_ssh_64x64", "driver_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
-    if args.config == "measure_64x64":
-        run = _measurement()
+    if args.config.startswith("measure"):
+        run = _measurement(ssh="ssh" in args.config)
     elif args.config == "driver_4x4":
         run = _driver_step()
     else:
-        cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64}[args.config]
+        cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64,
+               "ssh_64x64": bench.SSH_64X64}[args.config]
         b = bench.build(cfg, "cuda", torch.float32)
         box = {"state": b.state}
 
@@ -57,7 +63,7 @@ def main() -> int:
             return stats.iters
     run()
     torch.cuda.synchronize()
-    ckb_cuda.launches = ckb_cuda.fused_launches = 0
+    ckb_cuda.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         iters = run()
@@ -67,12 +73,15 @@ def main() -> int:
     cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in cuda)
 
-    def kernel_s(name):
-        return sum(e.self_device_time_total for e in cuda if f"{name}<" in e.key) / 1e6
+    def kernel_s(name, mode=""):
+        return sum(e.self_device_time_total for e in cuda
+                   if f"{name}<" in e.key and mode in e.key) / 1e6
 
     print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} wall_s={wall:.4f} "
           f"device_kernel_s={dev_us / 1e6:.4f} device_busy_share={dev_us / 1e6 / wall:.4f} "
           f"fold_launches={ckb_cuda.launches} fold_s={kernel_s('ckb_fold_kernel'):.4f} "
+          f"fold_per_column_s={kernel_s('ckb_fold_kernel', ', true>'):.4f} "
+          f"table_launches={ckb_cuda.table_launches} "
           f"fused_launches={ckb_cuda.fused_launches} "
           f"fused_s={kernel_s('ckb_fold_fused_kernel'):.4f} "
           f"mean_cg_iters={iters.double().mean().item():.3f}")
@@ -85,16 +94,20 @@ def main() -> int:
     return 0
 
 
-def _measurement():
-    """One driver measurement at 64×64, β = 4, 4 chains."""
+def _measurement(ssh: bool = False):
+    """One driver measurement at 64×64, β = 4, 4 chains (Holstein, or SSH)."""
     from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
     from elphdynamics_tpu_torch.measure import measurements as M
     from elphdynamics_tpu_torch.ops import kpm
 
-    b = bench.build_bench_step(64, 4.0, 0.1, 0.025, 4, "cuda", torch.float32)
-    mspec = M.MeasurementSpec(nv=10, onsite_corr=tuple((k, True) for k in M.ONSITE_CORR_KINDS))
+    make = bench.build_ssh_step if ssh else bench.build_bench_step
+    b = make(64, 4.0, 0.1, 0.025, 4, "cuda", torch.float32)
+    kinds = M.ONSITE_CORR_KINDS[:4] if ssh else M.ONSITE_CORR_KINDS
+    mspec = M.MeasurementSpec(nv=10, onsite_corr=tuple((k, True) for k in kinds),
+                              intersite_corr=(("PhononGreens", True),) if ssh else ())
+    cfg = kpm.KPMConfig(max_order=64 if ssh else 8)
     step = M.make_measurement_step(b.ops, mspec, SolverConfig(tol=1e-5, maxiter=10000),
-                                   kpm.make_symmetric_precond(b.ops, kpm.KPMConfig(max_order=8)))
+                                   kpm.make_symmetric_precond(b.ops, cfg))
 
     def run():
         inc, stats, snaps = step(b.params, b.state.x, b.generator)

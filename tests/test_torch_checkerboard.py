@@ -1,7 +1,8 @@
 """The checkerboard fold of the PyTorch port: the plain torch twin against
-the JAX package's XLA fold and its Pallas kernel (interpret mode), and the
-CUDA wrapper's CPU behaviour. The kernel itself is tested on the card by
-tests/test_torch_kernels_cuda.py."""
+the JAX package's XLA fold and its Pallas kernel (interpret mode), with one
+``[Nb]`` table, one ``[Nb]`` table per chain and one coefficient per chain,
+bond and column, and the CUDA wrapper's CPU behaviour. The kernel itself is
+tested on the card by tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
 import pytest
@@ -156,6 +157,24 @@ def test_tuning_candidates(B, N, K, item, sizes):
         assert {g.threads for g in cands if g.cs == 16} == {250, 380, 510}
 
 
+def test_tuning_candidates_per_column():
+    """With per-column coefficients the bond tables hold plan entries only
+    (16 bytes a bond, not 16 + 2 coefficients), so a CTA needs less shared
+    memory and every candidate carries the mode (the geometry cache and the
+    kernel's shared-memory size depend on it)."""
+    smem, sms = 232448, 132
+    owned = lambda cs: 2 * 4096 // cs  # noqa: E731
+    for cs in (1, 8, 16):
+        assert (ckb_cuda._cta_bytes(4096, cs, 40, 4, owned(cs), per_column=True)
+                == ckb_cuda._cta_bytes(4096, cs, 40, 4, owned(cs)) - owned(cs) * 8)
+    cands = ckb_cuda.candidates(16, 4096, 40, 4, smem, sms, owned, per_column=True)
+    assert all(g.per_column for g in cands)
+    assert cands[0] == ckb_cuda.geometry(16, 4096, 40, 4, smem, sms, owned, per_column=True)
+    shared = ckb_cuda.candidates(16, 4096, 40, 4, smem, sms, owned)
+    assert not any(g.per_column for g in shared)
+    assert {g.cs for g in cands} >= {g.cs for g in shared}
+
+
 def test_tuning_keeps_the_fastest():
     cands = ckb_cuda.candidates(32, 4096, 40, 4, 232448, 132)
     assert ckb_cuda.fastest(cands, [3.0, 1.0, 2.0] + [5.0] * (len(cands) - 3)) == cands[1]
@@ -172,7 +191,9 @@ def _replay(plan, c, s, v, sign):
             owned = torch.as_tensor(plan.owned(r, step).astype(np.int64))
             for q in range(plan.cs):
                 li, lj, _, n = owned[owned[:, 2] == q].T
-                cc, ss = c[n][:, None], sign * s[n][:, None]
+                cc, ss = c[n], sign * s[n]
+                if c.ndim == 1:
+                    cc, ss = cc[:, None], ss[:, None]
                 vi, vj = slabs[r][..., li, :], slabs[q][..., lj, :]
                 slabs[r][..., li, :] = cc * vi + ss * vj
                 slabs[q][..., lj, :] = cc * vj + ss * vi
@@ -234,3 +255,91 @@ def test_other_devices_refused(model):
     v = torch.zeros((tspec.nsites, 2), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError):
         ckb_cuda.fold(tspec, torch.as_tensor(c), torch.as_tensor(s), v)
+
+
+# ---------------------------------------------------------------------------
+# per-chain [C, Nb] and per-(chain, bond, column) [C, Nb, K] tables
+# ---------------------------------------------------------------------------
+
+C_TABLES, INNER, K_TABLES = 3, 2, 5
+FORMS = ["chain", "chain_column"]
+
+
+def _chain_tables(c, s, form, seed):
+    """Per-chain perturbations of the model's coefficients: ``[C, Nb]`` or
+    ``[C, Nb, K]`` (cosh stays above 1, as for a real bond)."""
+    rng = np.random.default_rng(seed)
+    shape = (C_TABLES, c.size) + ((K_TABLES,) if form == "chain_column" else ())
+    grow = (slice(None), slice(None)) + ((None,) if form == "chain_column" else ())
+    cc = c[None][grow] * (1.0 + 0.1 * rng.uniform(size=shape))
+    ss = s[None][grow] * (1.0 + 0.2 * rng.standard_normal(shape))
+    return cc, ss
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("name,rev,sign,jfn,tfn", DIRECTIONS, ids=IDS)
+def test_chain_tables_match_xla_fold(model, name, rev, sign, jfn, tfn, form):
+    """Each chain's rows folded with its own table equal JAX's fold of that
+    chain with its [Nb] (or [Nb, Lτ]-like [Nb, K]) coefficients."""
+    spec, c, s, tspec = model
+    cc, ss = _chain_tables(c, s, form, 7)
+    v = np.random.default_rng(8).standard_normal((C_TABLES, INNER, spec.Nsites, K_TABLES))
+    got = ckb_cuda.fold(tspec, torch.as_tensor(cc), torch.as_tensor(ss), torch.as_tensor(v),
+                        reverse=rev, sign=sign).numpy()
+    for ch in range(C_TABLES):
+        want = np.asarray(jfn(spec.ckb, cc[ch], ss[ch], v[ch]))
+        np.testing.assert_allclose(got[ch], want, rtol=0, atol=1e-12)
+    # a [C, N, K] field (one row per chain) takes the same tables
+    got3 = tckb.fold(tspec, torch.as_tensor(cc), torch.as_tensor(ss), torch.as_tensor(v[:, 0]),
+                     reverse=rev, sign=sign).numpy()
+    np.testing.assert_allclose(got3, got[:, 0], rtol=0, atol=1e-14)
+
+
+@pytest.mark.parametrize("name,rev,sign,jfn,tfn", DIRECTIONS, ids=IDS)
+def test_chain_tables_match_pallas_interpret(model, name, rev, sign, jfn, tfn):
+    """[C, Nb] tables against the Pallas kernel (interpret mode) run chain by
+    chain, as the JAX package runs it under vmap."""
+    spec, c, s, tspec = model
+    cc, ss = _chain_tables(c, s, "chain", 9)
+    v = np.random.default_rng(10).standard_normal((C_TABLES, INNER, spec.Nsites, K_TABLES))
+    got = ckb_cuda.fold(tspec, torch.as_tensor(cc), torch.as_tensor(ss), torch.as_tensor(v),
+                        reverse=rev, sign=sign).numpy()
+    for ch in range(C_TABLES):
+        v2, restore = ckb_pallas._to_2d(v[ch])
+        want = np.asarray(restore(ckb_pallas.fold_2d(spec.ckb, cc[ch], ss[ch], v2, reverse=rev,
+                                                     sign=sign, interpret=True)))
+        np.testing.assert_allclose(got[ch], want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("cs", [1, 8])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("name,rev,sign,jfn,tfn", DIRECTIONS, ids=IDS)
+def test_cluster_plan_replay_with_chain_tables(model, name, rev, sign, jfn, tfn, form, cs):
+    """The kernels' plan replayed chain by chain with that chain's table
+    (per column where the tables are) is the fold with the tables."""
+    spec, c, s, tspec = model
+    cc, ss = (torch.as_tensor(t) for t in _chain_tables(c, s, form, 11))
+    plan = ckb_cuda.cluster_plan(tspec, cs, reverse=rev)
+    v = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (C_TABLES, INNER, spec.Nsites, K_TABLES)))
+    want = tckb.fold(tspec, cc, ss, v, reverse=rev, sign=sign)
+    got = torch.stack([_replay(plan, cc[ch], ss[ch], v[ch], sign) for ch in range(C_TABLES)])
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-12
+
+
+@pytest.mark.parametrize("shape", [(4, 72), (3, 71), (3, 72, 4), (3, 72, 5, 1), (72,)],
+                         ids=["other_C", "other_Nb", "other_K", "rank4", "field_2d_chain"])
+def test_fold_refuses_other_table_forms(model, shape):
+    """The twin (and so the kernel wrapper's check) takes [Nb], [C, Nb] and
+    [C, Nb, K] tables for a [C, ..., N, K] field and nothing else."""
+    _, c, s, tspec = model
+    assert tspec.nbonds == 72
+    v = torch.zeros((3, 2, tspec.nsites, 5), dtype=torch.float64)
+    if shape == (72,):            # [C, Nb] on an [N, K] field has no chain axis
+        v, shape = v[0, 0], (3, 72)
+    t = torch.ones(shape, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        ckb_cuda.fold(tspec, t, t, v)
+    with pytest.raises(ValueError):
+        tckb.fold(tspec, torch.ones((3, 72), dtype=torch.float64),
+                  torch.ones((3, 72, 5), dtype=torch.float64), v.expand(3, 2, -1, -1))

@@ -10,6 +10,7 @@ import torch
 from elphdynamics_tpu_torch import bench, convert, simulation
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.holstein import build_holstein
+from elphdynamics_tpu_torch.models.ssh import build_ssh
 from elphdynamics_tpu_torch.utils.device import require_device
 
 torch.set_num_threads(1)
@@ -24,6 +25,11 @@ ENTRY_POINTS = {
     "bench.build_bench_step": lambda tmp: bench.build_bench_step(2, 1.0, 0.1, 0.05, 1),
     "build_holstein": lambda tmp: build_holstein(
         _lattice(), 1.0, 0.1, t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0))]),
+    "build_ssh": lambda tmp: build_ssh(
+        _lattice(), 1.0, 0.1, hoppings=[dict(t=1.0, omega=1.0, alpha=0.2, o1=0, o2=0,
+                                             dL=(1, 0, 0))]),
+    "bench.build_ssh_step": lambda tmp: bench.build_ssh_step(2, 1.0, 0.1, 0.05, 1),
+    "bench.build(SSH_64X64)": lambda tmp: bench.build(bench.SSH_64X64),
     "simulation.load_model": lambda tmp: simulation.load_model(str(tmp)),
     "convert.params_from_jax": lambda tmp: convert.params_from_jax(
         {"mu": np.zeros(4), "omega": np.ones(4)}),

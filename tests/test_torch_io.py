@@ -8,8 +8,9 @@ the JAX package.
   and ``write_summary`` write the same files, byte for byte, as the JAX
   package's.
 * Checkpoints round-trip; a JAX checkpoint is refused; what the port does
-  not run raises, naming its ROADMAP slice; the CLI refuses a CUDA run
-  without a card.
+  not run raises, naming its ROADMAP slice (for SSH: twisted boundaries,
+  Langevin, the inter-site correlations other than PhononGreens); the CLI
+  refuses a CUDA run without a card.
 """
 
 import copy
@@ -195,8 +196,16 @@ def test_checkpoint_round_trip_and_refuses_jax(tmp_path):
         tckpt.load_checkpoint(str(tmp_path))
 
 
+def _ssh(c, **extra):
+    """The config with its [holstein] table replaced by the stock SSH
+    example's [ssh] table (plus ``extra``)."""
+    c.pop("holstein")
+    c["ssh"] = {**jconfig.load_toml(os.path.join(EXAMPLES, "ssh_hmc_square.toml"))["ssh"], **extra}
+    return c
+
+
 UNPORTED = [
-    (lambda c: c.update(ssh=c.pop("holstein")), "slice C"),
+    (lambda c: _ssh(c, twist=[0.3, 0.0]), "slice F"),
     (lambda c: c.update(langevin=c.pop("hmc")), "slice D"),
     (lambda c: c["solver"].update(type="GMRES"), "slice E"),
     (lambda c: c["solver"].update(block=True), "slice E"),
@@ -209,6 +218,8 @@ UNPORTED = [
     (lambda c: c["solver"].update(deflation={"k": 4}), "slice I"),
     (lambda c: c["solver"].update(nearnull={"k": 4}), "slice I"),
     (lambda c: c["measurements"].update(BondBond={"measure": True}), "slice B"),
+    (lambda c: _ssh(c).update(langevin=c.pop("hmc")), "slice D"),
+    (lambda c: _ssh(c)["measurements"].update(BondBond={"measure": True}), "slice B remainder"),
 ]
 
 

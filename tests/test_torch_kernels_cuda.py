@@ -9,7 +9,11 @@ The shapes cover the cluster split (cs > 1, and ranks with unequal site
 counts where N is not a multiple of cs), the K-tiled route (128×128: a row
 larger than 16 slabs), K = 1, odd K with ragged chunk tails, and fields
 whose chunks start off a 16-byte boundary (a view one element into its
-storage)."""
+storage). Both kernels also run with one coefficient table per chain
+([C, Nb], SSH's Ā), and the fold with one coefficient per chain, bond and
+column ([C, Nb, K], SSH's fermion operator), whose tables may themselves
+start off a vector boundary; table forms a kernel does not take are
+refused."""
 
 import functools
 
@@ -176,3 +180,106 @@ def test_kernels_launch_without_bonds(cuda, dtype):
     want = ckb.fold_fused(spec, empty, empty, v, **kw)
     torch.cuda.synchronize()
     assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+
+
+def _tables(params, C, K, form, g, device, dtype, offset=0):
+    """Per-chain perturbations of the model's coefficients, ``[C, Nb]`` or
+    ``[C, Nb, K]``; with ``offset``, views one element into their storage."""
+    shape = (C, params.cosht.numel()) + ((K,) if form == "chain_column" else ())
+    base = (slice(None), slice(None)) + ((None,) if form == "chain_column" else ())
+    c0 = params.cosht.to(device=device, dtype=dtype)[None][base]
+    s0 = params.sinht.to(device=device, dtype=dtype)[None][base]
+    c = c0 * (1.0 + 0.1 * _randn(shape, offset, g, device, dtype).abs())
+    s = s0 * (1.0 + 0.2 * _randn(shape, offset, g, device, dtype))
+    if offset:
+        c, s = (_randn(shape, offset, g, device, dtype).copy_(t) for t in (c, s))
+    return c, s
+
+
+# (L, field shape [C, (inner,) N, K] without N, offset): SSH 64×64's
+# fermion operator [8, 2, 4096, 40], its power iteration [8, 4096, 1] and
+# Chebyshev block [8, 2, 4096, 40]; small ragged cases, K-tiled, misaligned
+TABLE_SHAPES = [(6, (3, 2, 10), 0), (64, (8, 2, 40), 0), (64, (8, 1), 0), (5, (3, 7), 0),
+                (128, (2, 1, 40), 0), (64, (8, 2, 40), 1), (5, (3, 2, 7), 1)]
+TABLE_IDS = ["6x6", "64x64_fermion", "64x64_power", "5x5_K7", "128x128_ktiled",
+             "64x64_misaligned", "5x5_K7_misaligned"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["chain", "chain_column"])
+@pytest.mark.parametrize("name,rev,sign", DIRECTIONS, ids=[d[0] for d in DIRECTIONS])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("L,shape,offset", TABLE_SHAPES, ids=TABLE_IDS)
+def test_kernel_tables_match_twin(cuda, L, shape, offset, dtype, name, rev, sign, form):
+    spec, params = _spec(L)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    v = _randn(shape[:-1] + (spec.nsites, shape[-1]), offset, g, cuda, dtype)
+    c, s = _tables(params, shape[0], shape[-1], form, g, cuda, dtype, offset)
+    before = ckb_cuda.launches
+    got = ckb_cuda.fold(spec, c, s, v, reverse=rev, sign=sign)
+    assert ckb_cuda.launches == before + 1
+    want = ckb.fold(spec, c, s, v, reverse=rev, sign=sign)
+    torch.cuda.synchronize()
+    assert got.shape == v.shape and got.dtype == dtype
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_prev", [False, True], ids=["no_prev", "prev"])
+@pytest.mark.parametrize("name,rev,sign", DIRECTIONS[:2], ids=[d[0] for d in DIRECTIONS[:2]])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("L,C,nv,K,offset", FUSED_SHAPES, ids=FUSED_IDS)
+def test_fused_kernel_chain_tables_match_twin(cuda, L, C, nv, K, offset, dtype, name, rev,
+                                              sign, use_prev):
+    spec, params = _spec(L)
+    N = spec.nsites
+    g = torch.Generator(device=cuda).manual_seed(7)
+    c, s = _tables(params, C, K, "chain", g, cuda, dtype, offset)
+    v = _randn((C, nv, N, K), offset, g, cuda, dtype)
+    prev = _randn((C, nv, N, K), offset, g, cuda, dtype) if use_prev else None
+    d = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
+    a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
+    b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
+    kw = dict(reverse=rev, sign=sign, pre=None if rev else d, post=d if rev else None, a=a, b=b,
+              c=-1.0, prev=prev)
+    before = ckb_cuda.fused_launches
+    got = ckb_cuda.fold_fused(spec, c, s, v, **kw)
+    assert ckb_cuda.fused_launches == before + 1
+    want = ckb.fold_fused(spec, c, s, v, **kw)
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_table_forms(cuda):
+    """A table form a kernel does not take raises before any launch: other
+    chain counts, bond counts or column counts, per-column tables for the
+    fused step, chain tables on a field without a chain axis, tables of
+    another dtype, device or layout."""
+    spec, params = _spec(6)
+    nb, N = spec.nbonds, spec.nsites
+    f64 = dict(device=cuda, dtype=torch.float64)
+    v = torch.randn((3, 2, N, 8), **f64)
+    before = (ckb_cuda.launches, ckb_cuda.fused_launches)
+    for shape in ((4, nb), (3, nb + 1), (3, nb, 7), (3, nb, 8, 1), (nb, 8)):
+        t = torch.ones(shape, **f64)
+        with pytest.raises(ValueError):
+            ckb_cuda.fold(spec, t, t, v)
+    with pytest.raises(ValueError):
+        ckb_cuda.fold(spec, torch.ones((3, nb), **f64), torch.ones((3, nb), **f64), v[0, 0])
+    with pytest.raises(ValueError):                                   # cosh and sinh differ
+        ckb_cuda.fold(spec, torch.ones((3, nb), **f64), torch.ones((3, nb, 8), **f64), v)
+    with pytest.raises(ValueError):                                   # float32 tables
+        ckb_cuda.fold(spec, torch.ones((3, nb, 8), device=cuda), torch.ones((3, nb, 8),
+                                                                         device=cuda), v)
+    with pytest.raises(ValueError):                                   # tables on the CPU
+        ckb_cuda.fold(spec, torch.ones((3, nb)).double(), torch.ones((3, nb)).double(), v)
+    with pytest.raises(ValueError):                                   # not contiguous
+        t = torch.ones((3, 8, nb), **f64).transpose(1, 2)
+        ckb_cuda.fold(spec, t, t, v)
+    ok = dict(a=torch.ones(3, **f64), b=torch.zeros(3, **f64))
+    for shape in ((3, nb, 8), (2, nb)):
+        t = torch.ones(shape, **f64)
+        with pytest.raises(ValueError):
+            ckb_cuda.fold_fused(spec, t, t, v, **ok)
+    assert (ckb_cuda.launches, ckb_cuda.fused_launches) == before

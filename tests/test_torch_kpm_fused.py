@@ -5,7 +5,9 @@ float64 on the CPU.
   ``csrc/ckb_fold_fused.cu`` is held to on the card) against JAX's
   ``fold_kn_fused`` in Pallas interpret mode: every combination of
   pre/post/a/b/c/prev, both fold directions and the inverse, one chain and
-  2 chains × nᵥ = 3 rows with per-chain scalars and diagonals. rtol 1e-10.
+  2 chains × nᵥ = 3 rows with per-chain scalars and diagonals, and with
+  one coefficient table per chain (SSH's Ā) against the JAX kernel run
+  chain by chain with that chain's table. rtol 1e-10.
 * The port's fold-branch recurrence (``_chebyshev_apply_stacked`` on a
   state with ``expK = None``, which routes to the fused steps) against
   JAX's ``_chebyshev_apply_stacked_pallas`` (interpret mode) and against
@@ -55,9 +57,10 @@ def models():
     return js, jp, ts, tp
 
 
-def _jax_fused(js, jp, v, rev, sign, pre, post, a, b, c, prev):
+def _jax_fused(js, jp, v, rev, sign, pre, post, a, b, c, prev, tables=None):
     """JAX's fold_kn_fused chain by chain on the [C, nv, N, K] port layout:
-    each chain's rows go in as one [nv·K, N] block with its own scalars."""
+    each chain's rows go in as one [nv·K, N] block with its own scalars (and,
+    given per-chain ``tables`` (cosh [C, Nb], sinh [C, Nb]), its own)."""
     C, nv, N, K = v.shape
     out = np.empty_like(v)
 
@@ -65,7 +68,8 @@ def _jax_fused(js, jp, v, rev, sign, pre, post, a, b, c, prev):
         return jnp.asarray(arr.transpose(0, 2, 1).reshape(nv * K, N))
 
     for ch in range(C):
-        o = fold_kn_fused(js.ckb, jp.cosht, jp.sinht, kn(v[ch]), reverse=rev, sign=sign,
+        cb, sb = (jp.cosht, jp.sinht) if tables is None else (tables[0][ch], tables[1][ch])
+        o = fold_kn_fused(js.ckb, cb, sb, kn(v[ch]), reverse=rev, sign=sign,
                           pre=None if pre is None else jnp.asarray(pre[ch]),
                           post=None if post is None else jnp.asarray(post[ch]),
                           a=float(a[ch]), b=float(b[ch]), c=c,
@@ -99,6 +103,43 @@ def test_fold_fused_twin_matches_jax(models, C, nv, name, rev, sign, use_prev, d
     assert ckb_cuda.fused_launches == before  # a CPU tensor takes the twin
     assert got.shape == v.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("name,rev,sign,use_prev,diag",
+                         [c for c in CASES if c[4] in ("pre", "post")],
+                         ids=[f"{c[0]}-{'prev' if c[3] else 'no_prev'}-{c[4]}"
+                              for c in CASES if c[4] in ("pre", "post")])
+def test_fold_fused_chain_tables_match_jax(models, name, rev, sign, use_prev, diag):
+    """[C, Nb] tables (one per chain, as SSH's τ-averaged Ā has) against
+    JAX's fold_kn_fused (interpret mode) run chain by chain with that
+    chain's table."""
+    js, jp, ts, tp = models
+    C, nv, N, K = 2, 3, ts.Nsites, 6
+    rng = np.random.default_rng([7, int(rev), int(use_prev), ("pre", "post").index(diag)])
+    cb = np.asarray(jp.cosht)[None] * (1.0 + 0.1 * rng.uniform(size=(C, ts.Nbonds)))
+    sb = np.asarray(jp.sinht)[None] * (1.0 + 0.2 * rng.standard_normal((C, ts.Nbonds)))
+    v = rng.standard_normal((C, nv, N, K))
+    prev = rng.standard_normal((C, nv, N, K)) if use_prev else None
+    d = rng.uniform(0.5, 1.5, (C, N))
+    pre, post = (d, None) if diag == "pre" else (None, d)
+    a, b = rng.uniform(0.5, 2.0, C), rng.uniform(-1.0, 1.0, C)
+    c = -1.0 if use_prev else 0.0
+    want = _jax_fused(js, jp, v, rev, sign, pre, post, a, b, c, prev, tables=(cb, sb))
+
+    def T(arr):
+        return None if arr is None else torch.as_tensor(arr)
+
+    got = ckb_cuda.fold_fused(ts.ckb, T(cb), T(sb), T(v), reverse=rev, sign=sign, pre=T(pre),
+                              post=T(post), a=T(a), b=T(b), c=c, prev=T(prev))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
+
+
+def test_fold_fused_refuses_per_column_tables(models):
+    """The fused step takes [Nb] and [C, Nb] tables only."""
+    _, _, ts, _ = models
+    t = torch.ones((2, ts.Nbonds, 5), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        ckb.fold_fused(ts.ckb, t, t, _ones(2, ts.Nsites, 5), a=_ones(2), b=_ones(2))
 
 
 def _ones(*shape):
