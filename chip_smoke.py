@@ -44,10 +44,33 @@ Phases (one line each, and the process exits non-zero if any fails):
     holstein_hmc_square.toml`` and ``examples/ssh_hmc_square.toml``, each
     with its counts cut (4×4, dense branch) and at 64×64, β = 4 (4 chains,
     K1 and K2 on the path), each into a temporary directory, with seconds
-    per update and per measurement and the peak device memory.
+    per update and per measurement and the peak device memory;
+12. Langevin dynamics and the other solver kinds, 4×4 float64 on the card
+    (K1 forced on, the dense Ā off) against the CPU: one Euler, one
+    Runge-Kutta and one Heun step with the same injected draws, Holstein
+    and SSH; ``solve_minv`` and ``solve_oinv`` by GMRES and by BiCGStab with
+    the left and right KPM applies; a block-CG probe solve; 1e-10 in x;
+13. the Langevin configurations at full width, ``LANGEVIN_64X64`` (16
+    chains) and ``SSH_LANGEVIN_64X64`` (8 chains): 1 warm-up and 3 timed
+    Runge-Kutta steps, steps per second, CG iterations per solve, flags 0,
+    launch counts per kernel mode; and on the kernel 64×64 model nᵥ = 10
+    probe solves per chain by CG, block CG, GMRES and BiCGStab: iterations,
+    seconds, the solutions' mutual distance, K2 launches of the left and
+    right applies;
+14. the TOML driver on ``examples/holstein_langevin_square.toml`` with its
+    counts cut, and the same file at 64×64, β = 4 (4 chains, a few steps,
+    two measurements) with BondBond, CurrentCurrent and BondPairGreens
+    switched on (nᵥ = 10; BondBond and BondPairGreens time dependent);
+15. every (kernel, coefficient form, field shape) that one of the 64×64
+    runs of phases 9, 11, 13 and 14 launched (``ckb_cuda.launch_shapes``),
+    against the twin in float32 and float64, all directions, at every
+    launch geometry the wrapper's tuning may keep for that shape, so that
+    no run goes through a row count or geometry that was not checked.
 
 The line before the last is a JSON object with the kernels' numbers, one
-entry per kernel and coefficient mode; the last line is ``{"ok": true,
+entry per kernel and coefficient mode (``launches`` summed over the 64×64
+driver runs and Langevin configurations that use the mode,
+``launches_by_path`` each run's own); the last line is ``{"ok": true,
 "device": {...}}``. Kernel times (``ms``,
 ``plain_ms``, ``library_ms``) are device time per call: calls captured in a
 CUDA graph and replayed between CUDA events, so a host slower than the card
@@ -60,6 +83,7 @@ kernel-vs-twin phases make that launch before they time.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -82,7 +106,12 @@ DIRECTIONS = (("forward", False, 1.0), ("transpose", True, 1.0),
               ("inverse", True, -1.0), ("inverse_transpose", False, -1.0))
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
+    """One line of a phase; ``at``: seconds since the script started."""
+    kv["at"] = f"{time.perf_counter() - T_START:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
@@ -358,18 +387,23 @@ def phase_table_kernels() -> dict:
                     + (C * N + 2 * C if kernel == "fused" else 0))
                 flops = (3 * G + (6 if kernel == "fused" else 0)) * v.numel()
                 b_ms, b_by = bound(nbytes, flops)
+                # the one-call library form, once per float32 shape: none exists
+                # for per-column tables (per-(chain, τ) dense matrices take
+                # C·Lτ·N² elements)
+                lib = (library_ms(sc, c, s, v)
+                       if dtype == torch.float32 and form == "chain" and name == "forward" else None)
                 say("table_kernel", kernel=kernel, tables=form, dtype=str(dtype).split(".")[1],
                     shape="x".join(map(str, shape)), table_shape="x".join(map(str, c.shape)),
                     direction=name, max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
                     kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}", plain_ms=f"{plain:.4f}",
-                    bound_ms=f"{b_ms:.4f}", bound_share=f"{b_ms / ms:.3f}")
+                    bound_ms=f"{b_ms:.4f}", bound_share=f"{b_ms / ms:.3f}",
+                    **({} if lib is None else {"library_ms": f"{lib:.4f}"}))
                 if not rel <= tol:
                     raise RuntimeError(f"{key} kernel disagrees with its twin: {rel} > {tol}")
                 if (dtype == torch.float32 and shape == main_shape[key] and "ms" not in out[key]
                         and name.startswith("forward")):
-                    # no one PyTorch call computes the fold with per-column
-                    # tables: per-(chain, τ) dense matrices take C·Lτ·N² elements
-                    lib = None if form == "column" else library_ms(sc, c, s, v)
+                    if lib is None and form == "chain":
+                        lib = library_ms(sc, c, s, v)
                     out[key].update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                     library_ms=lib, shape="x".join(map(str, shape)))
     return out
@@ -519,6 +553,203 @@ def phase_small_reference() -> None:
         raise RuntimeError("the card's update disagrees with the CPU reference")
 
 
+@contextlib.contextmanager
+def _without_dense_abar():
+    """The KPM's dense-Ā gate closed, so that Ā runs through the fold (K2
+    on the card) at any size."""
+    from elphdynamics_tpu_torch.ops import kpm
+
+    dense_max = kpm._DENSE_ABAR_MAX_SITES
+    kpm._DENSE_ABAR_MAX_SITES = 0
+    try:
+        yield
+    finally:
+        kpm._DENSE_ABAR_MAX_SITES = dense_max
+
+
+MODES = {"holstein": ("fold/shared", "fused/shared"),
+         "ssh": ("fold/column", "fold/chain", "fused/chain")}
+
+
+def phase_small_langevin_reference() -> None:
+    """One Euler, one Runge-Kutta and one Heun step of the 4×4 Holstein and
+    SSH models in float64 on the card (K1 forced on, the dense Ā off, so K2
+    runs) against the same step on the CPU (plain twins), with the same
+    injected draws."""
+    from elphdynamics_tpu_torch.bench import build_langevin_step
+    from elphdynamics_tpu_torch.dynamics import langevin as tl
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    with _without_dense_abar():
+        for model in ("holstein", "ssh"):
+            for method in tl.METHODS:
+                runs = {}
+                for dev in ("cpu", "cuda"):
+                    b = build_langevin_step(4, 1.0, 0.1, 0.01, 4, dev, torch.float64, model=model,
+                                            method=method, dense_threshold=0, pallas_threshold=0)
+                    if dev == "cpu":
+                        draws = tl.draw(b.ops, 4, method, torch.float64, "cpu",
+                                        torch.Generator().manual_seed(1))
+                        x0 = b.x
+                    moved = tl.LangevinDraws(eta=draws.eta.to(dev),
+                                             g=tuple(g.to(dev) for g in draws.g))
+                    ckb_cuda.reset_counts()
+                    x1, stats = b.step(b.params, x0.to(dev), draws=moved)
+                    runs[dev] = (x1.cpu(), stats.iters.cpu(), stats.flag.cpu(),
+                                 dict(ckb_cuda.table_launches))
+                dx = (runs["cuda"][0] - runs["cpu"][0]).abs().max().item()
+                n = runs["cuda"][3]
+                say("small_langevin_reference", model=model, method=method,
+                    max_abs_dx=f"{dx:.3e}", tol=1e-10, iters=runs["cuda"][1].tolist(),
+                    iters_equal=bool(torch.equal(runs["cuda"][1], runs["cpu"][1])),
+                    cuda_launches=n, cpu_launches=sum(runs["cpu"][3].values()))
+                if not (dx <= 1e-10 and int(runs["cuda"][2].max()) == 0
+                        and int(runs["cpu"][2].max()) == 0
+                        and all(n[m] > 0 for m in MODES[model])
+                        and sum(runs["cpu"][3].values()) == 0):
+                    raise RuntimeError(f"the card's {model} {method} Langevin step disagrees "
+                                       "with the CPU reference")
+
+
+def phase_small_solver_reference() -> None:
+    """``solve_minv`` and ``solve_oinv`` by GMRES and by BiCGStab with the
+    left and right KPM applies, and a block-CG probe solve, on the 4×4
+    Holstein model in float64: the card (K1 forced on, Ā through K2)
+    against the CPU, same fields and right-hand sides."""
+    from elphdynamics_tpu_torch.bench import build_langevin_step
+    from elphdynamics_tpu_torch.dynamics.solve import (
+        SolverConfig, resolve_precond, solve_minv, solve_oinv)
+    from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
+
+    g = torch.Generator().manual_seed(5)
+    x = 0.3 * torch.randn((4, 16, 10), generator=g, dtype=torch.float64)
+    rhs = torch.randn((4, 3, 16, 10), generator=g, dtype=torch.float64)
+    kw = dict(tol=1e-11, maxiter=400, restart=20)
+    cases = [(f"{fn.__name__}/{kind}", fn, SolverConfig(kind=kind, **kw), {})
+             for kind in ("gmres", "bicgstab") for fn in (solve_minv, solve_oinv)]
+    cases.append(("solve_minv/block_cg", solve_minv, SolverConfig(block=True, **kw),
+                  dict(block=True)))
+    out = {}
+    with _without_dense_abar():
+        for dev in ("cpu", "cuda"):
+            b = build_langevin_step(4, 1.0, 0.1, 0.01, 4, dev, torch.float64,
+                                    dense_threshold=0, pallas_threshold=0)
+            precond = kpm.make_precond(b.ops, kpm.KPMConfig(max_order=32, c1=4.0, c2=4.0))
+            xd = x.to(dev)
+            ds = b.ops.stack(b.ops.derived(b.params, xd))
+            pa = resolve_precond(precond, b.params, xd)
+            for name, fn, scfg, extra in cases:
+                ckb_cuda.reset_counts()
+                res = fn(b.ops, b.params, ds, rhs.to(dev), scfg, pa, **extra)
+                out[name, dev] = (res.x.cpu(), res.iters.cpu(), int(res.flag.max()),
+                                  ckb_cuda.launches, ckb_cuda.fused_launches)
+    for name, _, _, _ in cases:
+        (xc, ic, fc, k1c, k2c), (xg, ig, fg, k1g, k2g) = out[name, "cpu"], out[name, "cuda"]
+        rel = ((xg - xc).abs().max() / xc.abs().max()).item()
+        say("small_solver_reference", solve=name, max_rel_dx=f"{rel:.3e}", tol=1e-10,
+            iters_cuda=f"{ig.double().mean().item():.2f}", iters_cpu=f"{ic.double().mean().item():.2f}",
+            flags=(fc, fg), cuda_launches=(k1g, k2g), cpu_launches=(k1c, k2c))
+        if not (rel <= 1e-10 and fc == 0 and fg == 0 and k1g > 0 and k2g > 0
+                and k1c == 0 and k2c == 0):
+            raise RuntimeError(f"{name}: the card disagrees with the CPU reference")
+
+
+def run_langevin_config(cfg, warmup: int, timed: int) -> dict:
+    """Build the Langevin configuration ``cfg`` on the card in float32 and
+    run warm-up + timed steps."""
+    from elphdynamics_tpu_torch.bench import build
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    t0 = time.perf_counter()
+    b = build(cfg, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x = b.x
+    for _ in range(warmup):
+        x, stats = b.step(b.params, x, b.generator)
+    torch.cuda.synchronize()
+    ckb_cuda.reset_counts()
+    iters, flags = [], []
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        x, stats = b.step(b.params, x, b.generator)
+        iters.append(stats.iters)
+        flags.append(stats.flag)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    by_table = dict(ckb_cuda.table_launches)
+    iters, flags = torch.stack(iters).cpu(), torch.stack(flags).cpu()
+    out = dict(steps_per_s=cfg.n_chains * timed / elapsed, s_per_step=elapsed / timed,
+               method=cfg.method, cg_iters_per_solve=iters.double().mean().item(),
+               max_flag=int(flags.max()),
+               launches_per_step={k: v / timed for k, v in by_table.items() if v},
+               table_launches=by_table, build_s=build_s, seconds=elapsed,
+               x_shape=tuple(x.shape), x_finite=bool(torch.isfinite(x).all()))
+    say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_steps=timed,
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out.items()})
+    out["launch_shapes"] = set(ckb_cuda.launch_shapes)
+    shape = (cfg.n_chains, b.ops.Nph, round(cfg.beta / cfg.dtau))
+    idle = [m for m in MODES[cfg.model] if by_table[m] <= 0]
+    if not (out["x_finite"] and out["x_shape"] == shape) or out["max_flag"] != 0 or idle:
+        raise RuntimeError(f"{cfg.name}: non-finite or misshapen output, flag "
+                           f"{out['max_flag']}, or kernel modes launched no time: {idle}")
+    return out
+
+
+def phase_solver_kinds_64() -> dict:
+    """nᵥ = 10 probe solves per chain of M·z = r on the kernel 64×64 model
+    (16 chains, float32, KPM max_order 4) by CG on MᵀM, block CG over each
+    chain's probes, GMRES and BiCGStab on M with the left apply: iterations,
+    seconds, flags, launches, and the largest relative distance between two
+    kinds' solutions."""
+    from elphdynamics_tpu_torch.bench import LANGEVIN_64X64, build
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    b = build(LANGEVIN_64X64, "cuda", torch.float32)
+    ops, x = b.ops, b.x
+    R = torch.randn((x.shape[0], 10, ops.Nsites, ops.Ltau), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    ds = ops.stack(ops.derived(b.params, x))
+    pa = resolve_precond(b.precond, b.params, x)
+    kw = dict(tol=1e-5, maxiter=500)
+    kinds = {"cg": (SolverConfig(**kw), False), "block_cg": (SolverConfig(block=True, **kw), True),
+             "gmres": (SolverConfig(kind="gmres", restart=20, **kw), False),
+             "bicgstab": (SolverConfig(kind="bicgstab", **kw), False)}
+    sols, out, shapes = {}, {}, set()
+    for name, (scfg, block) in kinds.items():
+        for timed in (False, True):      # the first pass tunes the launch geometries
+            ckb_cuda.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve_minv(ops, b.params, ds, R, scfg, pa, block=block)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        sols[name] = res.x
+        shapes |= ckb_cuda.launch_shapes
+        out[name] = dict(iters=res.iters.double().mean().item(), max_iters=int(res.iters.max()),
+                         seconds=secs, max_flag=int(res.flag.max()),
+                         max_residual=res.residual.max().item(),
+                         k1_launches=ckb_cuda.launches, k2_launches=ckb_cuda.fused_launches,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        say("solver_kinds_64x64", kind=name, systems=R.shape[0] * R.shape[1],
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out[name].items()})
+
+    def norm(a):
+        return a.double().pow(2).sum(dim=(-2, -1)).sqrt()
+
+    dist = max((norm(sols[a] - sols[b2]) / norm(sols["cg"])).max().item()
+               for a in kinds for b2 in kinds if a < b2)
+    say("solver_kinds_64x64", max_mutual_distance=f"{dist:.3e}", tol=kw["tol"], gate=1e-3)
+    bad = [k for k, v in out.items()
+           if v["max_flag"] != 0 or v["k1_launches"] <= 0 or v["k2_launches"] <= 0]
+    if bad or not dist <= 1e-3:
+        raise RuntimeError(f"64x64 solver kinds: flagged or idle {bad}, distance {dist}")
+    out["launch_shapes"] = shapes
+    return out
+
+
 def run_config(cfg, warmup: int, timed: int) -> dict:
     """Build ``cfg`` on the card in float32 and run warm-up + timed updates."""
     from elphdynamics_tpu_torch.bench import build
@@ -556,16 +787,18 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
                x_shape=tuple(state.x.shape), x_finite=bool(torch.isfinite(state.x).all()))
     say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_updates=timed,
         **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out.items()})
+    out["launch_shapes"] = set(ckb_cuda.launch_shapes)
     shape = (cfg.n_chains, b.ops.Nph, round(cfg.beta / cfg.dtau))
     if not (out["x_finite"] and out["dH_finite"] and out["x_shape"] == shape):
         raise RuntimeError(f"{cfg.name}: non-finite or misshapen output")
     return out
 
 
-def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
-    """``simulation.simulate`` of ``cfg`` (written as a TOML file) on the
-    card in float32, with both kernels' counts set to 0 just before and
-    read just after; checks the output tree."""
+def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()) -> dict:
+    """``simulation.simulate`` of ``cfg`` (written as a TOML file, ``[hmc]``
+    or ``[langevin]``) on the card in float32, with both kernels' counts
+    set to 0 just before and read just after; checks the output tree
+    (``extra_files``: further per-bin tables that must be finite)."""
     from elphdynamics_tpu_torch.io.output import dump_toml
     from elphdynamics_tpu_torch.ops import ckb_cuda
     from elphdynamics_tpu_torch.simulation import simulate
@@ -583,8 +816,14 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
-    by_table = dict(ckb_cuda.table_launches)
-    h, sp = cfg["hmc"], cfg["simulation"]
+    by_table, shapes = dict(ckb_cuda.table_launches), set(ckb_cuda.launch_shapes)
+    sp = cfg["simulation"]
+    if "hmc" in cfg:
+        h = cfg["hmc"]
+        n_burn, n_sim = h["burnin_updates"], h["simulation_updates"]
+    else:
+        h = cfg["langevin"]
+        n_burn, n_sim = h["burnin_timesteps"], h["simulation_timesteps"]
     ssh = "ssh" in cfg
     folder = os.path.join(workdir, f"{sp['foldername']}-1")
     with open(os.path.join(folder, f"{sp['foldername']}_summary.out")) as f:
@@ -597,6 +836,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
              ("PairSusc_momentum", "table")]
     if ssh:    # the bond phonons' Green's function (inter-site for SSH)
         files += [("PhononGreens_position", "table"), ("PhononGreens_momentum", "table")]
+    files += [(sub, "table") for sub in extra_files]
     finite = True
     for b in range(1, sp["num_bins"] + 1):
         for sub, kind in files:
@@ -609,8 +849,8 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
             else:
                 vals = np.loadtxt(path, skiprows=1)[:, 1:]
             finite = finite and vals.size > 0 and bool(np.isfinite(vals).all())
-    n_upd = h["burnin_updates"] + h["simulation_updates"]
-    n_meas = h["simulation_updates"] // h["meas_freq"]
+    n_upd = n_burn + n_sim
+    n_meas = n_sim // h["meas_freq"]
     out = dict(chains=n_chains, L=cfg["lattice"]["L"], beta=cfg["ssh" if ssh else "holstein"]["beta"],
                updates=n_upd, measurements=n_meas, wall_s=wall,
                s_per_update=stats["simulation_time"] / n_upd,
@@ -627,6 +867,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
                bins_finite=finite)
     say(f"driver_{name}", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                              for k, v in out.items()})
+    out["launch_shapes"] = shapes
     if not (out["sections_ok"] and finite):
         raise RuntimeError(f"driver {name}: summary sections or bins wrong")
     if out["solver_failures"] != 0 or not out["acceptance"] > 0:
@@ -635,12 +876,14 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str) -> dict:
     return out
 
 
-def phase_driver(example: str, model: str, small_updates: tuple[int, int, int]) -> dict:
+def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
+                 big_updates: tuple[int, int, int] = (1, 2, 2)) -> dict:
     """A stock 4×4 example with its counts cut, and the same file at 64×64
     (β = 4, dt = 0.025, 4 bosonic substeps, 4 chains): the full-width run,
     with K1 (fermion operator, Ā power iteration) and K2 (Chebyshev steps)
-    on its path. ``small_updates``: the cut run's burn-in updates, sampling
-    updates and bins. Each run writes into its own temporary folder."""
+    on its path. ``small_updates`` / ``big_updates``: each run's burn-in
+    updates, sampling updates (a measurement after each at 64×64) and bins.
+    Each run writes into its own temporary folder."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "examples", f"{example}.toml"), "rb") as f:
         stock = tomllib.load(f)
@@ -654,9 +897,9 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int]) 
         big = json.loads(json.dumps(stock))
         big["lattice"]["L"] = 64
         big[model]["beta"] = 4.0
-        big["hmc"].update(dt=0.025, num_multitimesteps=4, burnin_updates=1,
-                          simulation_updates=2, meas_freq=1)
-        big["simulation"]["num_bins"] = 2
+        big["hmc"].update(dt=0.025, num_multitimesteps=4, burnin_updates=big_updates[0],
+                          simulation_updates=big_updates[1], meas_freq=1)
+        big["simulation"]["num_bins"] = big_updates[2]
         big["measurements"]["num_random_vectors"] = 10
         out = run_driver(f"{name}_square_64x64", big, 4, work)
     if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
@@ -665,13 +908,114 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int]) 
     return out
 
 
+def phase_driver_langevin() -> dict:
+    """``examples/holstein_langevin_square.toml`` with its counts cut (4×4,
+    dense branch), and the same file at 64×64, β = 4, 4 chains, 1 + 4
+    Runge-Kutta steps and two measurements with the bond-pair correlations
+    BondBond, CurrentCurrent and BondPairGreens switched on (nᵥ = 10: 45
+    probe pairs, 4 bond pairs). BondBond and BondPairGreens are time
+    dependent, CurrentCurrent is written at equal time (its transforms run
+    over all of τ all the same): the per-bin text files of a time-dependent
+    64×64 correlation take seconds each to write."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "holstein_langevin_square.toml"), "rb") as f:
+        stock = tomllib.load(f)
+    with tempfile.TemporaryDirectory() as work:
+        small = json.loads(json.dumps(stock))
+        small["langevin"].update(burnin_timesteps=4, simulation_timesteps=8, meas_freq=2)
+        small["simulation"]["num_bins"] = 2
+        run_driver("langevin_square_4x4", small, 1, work)
+        big = json.loads(json.dumps(stock))
+        big["lattice"]["L"] = 64
+        big["holstein"]["beta"] = 4.0
+        big["langevin"].update(burnin_timesteps=1, simulation_timesteps=4, meas_freq=2)
+        big["simulation"]["num_bins"] = 2
+        big["measurements"]["num_random_vectors"] = 10
+        bond = ("BondBond", "CurrentCurrent", "BondPairGreens")
+        big["measurements"].update({k: {"measure": True, "time_dependent": k != "CurrentCurrent"}
+                                    for k in bond})
+        out = run_driver("langevin_square_64x64", big, 4, work,
+                         extra_files=[f"{k}_position" for k in bond] + ["BondPairSusc_momentum"])
+    if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
+        raise RuntimeError("the 64x64 Langevin driver run launched a kernel no time: "
+                           f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
+    return out
+
+
+def phase_path_shapes(paths: dict) -> None:
+    """Every (kernel, coefficient form, field shape) that a 64×64 run of
+    ``paths`` ({run name: its ``ckb_cuda.launch_shapes``}) launched, against
+    the twin on the same inputs: float32 and float64, all four directions
+    (K2: forward and reverse, with and without prev), at every launch
+    geometry of ``ckb_cuda.launch_candidates`` for that shape, one of which
+    the wrapper's tuning keeps. The kernels see a field as rows of [N, K]
+    (and, with per-chain operands, chains of rows), so shapes are merged to
+    [B, N, K] for K1 with one table and to [C, B/C, N, K] otherwise."""
+    from elphdynamics_tpu_torch.ops import checkerboard as ckb
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    t0 = time.perf_counter()
+    users: dict = {}
+    for path, shapes in paths.items():
+        for form, shape, _ in shapes:
+            rows = math.prod(shape[:-2])
+            lead = (rows,) if form == "fold/shared" else (shape[0], rows // shape[0])
+            users.setdefault((form, lead + tuple(shape[-2:])), set()).add(path)
+    holstein, ssh = _spec_64(), _ssh_64()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for (form, shape), by in sorted(users.items()):
+        kernel, table = form.split("/")
+        C, N = shape[0], shape[-2]
+        worst, n_geo = {}, 0
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+            if table == "shared":
+                sc, (c, s) = holstein[0].ckb, (holstein[1].cosht, holstein[1].sinht)
+            else:
+                sc, (c, s) = ssh[0].ckb, (t[:C] for t in ssh[1][table])
+                if c.shape[0] != C or (table == "column" and c.shape[-1] != shape[-1]):
+                    raise RuntimeError(f"no {form} tables for a field of shape {shape}")
+            c, s = c.to(dtype).contiguous(), s.to(dtype).contiguous()
+            v = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+            if kernel == "fold":
+                variants = [dict(reverse=rev, sign=sign) for _, rev, sign in DIRECTIONS]
+                fast, plain_fn = ckb_cuda.fold, ckb.fold
+            else:
+                prev = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+                diag = 0.5 + torch.rand((C, N), generator=g, dtype=dtype, device="cuda")
+                a = 0.5 + torch.rand(C, generator=g, dtype=dtype, device="cuda")
+                b = torch.rand(C, generator=g, dtype=dtype, device="cuda") - 0.5
+                variants = [dict(reverse=rev, pre=None if rev else diag,
+                                 post=diag if rev else None, a=a, b=b, c=-1.0,
+                                 prev=prev if p else None)
+                            for rev in (False, True) for p in (True, False)]
+                fast, plain_fn = ckb_cuda.fold_fused, ckb.fold_fused
+            cands = ckb_cuda.launch_candidates(
+                sc, v, "ckb_fold" if kernel == "fold" else "ckb_fold_fused",
+                per_column=table == "column")
+            n_geo = len(cands)
+            rel = torch.zeros((), dtype=torch.float64, device="cuda")
+            for kw in variants:
+                want = plain_fn(sc, c, s, v, **kw)
+                for geo in cands:
+                    got = fast(sc, c, s, v, geometry=geo, **kw)
+                    rel = torch.maximum(rel, ((got - want).abs().max() / want.abs().max()).double())
+            worst[dtype] = rel.item()
+            if not worst[dtype] <= tol:
+                raise RuntimeError(f"{form} at {shape} ({dtype}) disagrees with its twin at one "
+                                   f"of {cands}: {worst[dtype]} > {tol}")
+        say("path_shape", kernel=kernel, tables=table, shape="x".join(map(str, shape)),
+            geometries=n_geo, max_rel_err_f32=f"{worst[torch.float32]:.3e}", tol_f32=F32_TOL,
+            max_rel_err_f64=f"{worst[torch.float64]:.3e}", tol_f64=F64_TOL,
+            launched_by=",".join(sorted(by)))
+    say("path_shapes", checked=len(users), seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import elphdynamics_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    t_start = time.perf_counter()
     phase_card()
     phase_build()
     kern = phase_kernel_vs_twin()
@@ -680,13 +1024,18 @@ def main() -> int:
     phase_small_reference()
     phase_small_ssh_reference()
     phase_small_fused_reference()
+    phase_small_langevin_reference()
+    phase_small_solver_reference()
 
-    from elphdynamics_tpu_torch.bench import BENCH_8X8, KERNEL_64X64, SSH_64X64
+    from elphdynamics_tpu_torch.bench import (
+        BENCH_8X8, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64, SSH_LANGEVIN_64X64)
 
     run_config(BENCH_8X8, warmup=1, timed=3)
+    shapes = {}
     for cfg, forms in ((KERNEL_64X64, ("fold/shared", "fused/shared")),
                        (SSH_64X64, ("fold/column", "fold/chain", "fused/chain"))):
         big = run_config(cfg, warmup=1, timed=2)
+        shapes[cfg.name] = big["launch_shapes"]
         idle = [f for f in forms if big["table_launches"][f] <= 0]
         if idle:
             raise RuntimeError(f"{cfg.name}: kernel modes launched no time: {idle}")
@@ -694,38 +1043,52 @@ def main() -> int:
             raise RuntimeError(f"{cfg.name}: flag {big['max_flag']}, "
                                f"acceptance {big['acceptance']}")
     phase_chebyshev_ab()
+    lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
+    lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
+    shapes["solver_kinds_64x64"] = phase_solver_kinds_64()["launch_shapes"]
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
-    # per update; SSH's KPM at max_order 64): a few updates each
-    drv = phase_driver("holstein_hmc_square", "holstein", (4, 8, 4))
-    drv_ssh = phase_driver("ssh_hmc_square", "ssh", (1, 2, 2))
+    # per update, 4–6 s each; SSH's KPM at max_order 64, 25–45 s each): a few
+    # updates each; the 64×64 SSH run (max_order 64, ~19 s per update) takes
+    # one sampling update
+    drv = phase_driver("holstein_hmc_square", "holstein", (2, 4, 2))
+    drv_ssh = phase_driver("ssh_hmc_square", "ssh", (1, 1, 1), big_updates=(1, 1, 1))
+    drv_lang = phase_driver_langevin()
     idle = [f for f in ("fold/column", "fold/chain", "fused/chain")
             if drv_ssh["table_launches"][f] <= 0]
     if idle:
         raise RuntimeError(f"the 64x64 SSH driver run launched these kernel modes no time: {idle}")
     if not all(math.isfinite(k["ms"]) for k in (kern, fused, *tables.values())):
         raise RuntimeError("kernel timing missing")
-    say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
+    holstein_paths = {"hmc_driver_64x64": drv, "langevin_driver_64x64": drv_lang,
+                      LANGEVIN_64X64.name: lang}
+    ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
+    shapes.update({k: r["launch_shapes"] for k, r in (holstein_paths | ssh_paths).items()})
+    phase_path_shapes(shapes)
+    say("total", seconds=f"{time.perf_counter() - T_START:.1f}")
 
-    def entry(name, source, replaces, launches, k):
+    def entry(name, mode, source, replaces, k):
+        """One kernel mode's line: its launches in each run that uses the
+        mode (every one must have launched it) and their sum."""
+        by_path = {p: r["table_launches"][mode]
+                   for p, r in (ssh_paths if mode in MODES["ssh"] else holstein_paths).items()}
+        if min(by_path.values()) <= 0:
+            raise RuntimeError(f"{name}: a run launched it no time: {by_path}")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "bound_share": k["bound_ms"] / k["ms"], "library_ms": k["library_ms"]}
 
     k1 = ("elphdynamics_tpu_torch/csrc/ckb_fold.cu", "elphdynamics_tpu/ops/ckb_pallas.py:75")
     k2 = ("elphdynamics_tpu_torch/csrc/ckb_fold_fused.cu",
           "elphdynamics_tpu/ops/ckb_pallas.py:128")
-    # launches: the Holstein modes from the 64×64 Holstein driver run, the
-    # SSH modes from the 64×64 SSH driver run
     print(json.dumps({"kernels": [
-        entry("ckb_fold", *k1, drv["table_launches"]["fold/shared"], kern),
-        entry("ckb_fold[per-chain-bond-column tables]", *k1,
-              drv_ssh["table_launches"]["fold/column"], tables["fold/column"]),
-        entry("ckb_fold[per-chain tables]", *k1, drv_ssh["table_launches"]["fold/chain"],
-              tables["fold/chain"]),
-        entry("ckb_fold_fused", *k2, drv["table_launches"]["fused/shared"], fused),
-        entry("ckb_fold_fused[per-chain tables]", *k2, drv_ssh["table_launches"]["fused/chain"],
-              tables["fused/chain"]),
+        entry("ckb_fold", "fold/shared", *k1, kern),
+        entry("ckb_fold[per-chain-bond-column tables]", "fold/column", *k1,
+              tables["fold/column"]),
+        entry("ckb_fold[per-chain tables]", "fold/chain", *k1, tables["fold/chain"]),
+        entry("ckb_fold_fused", "fused/shared", *k2, fused),
+        entry("ckb_fold_fused[per-chain tables]", "fused/chain", *k2, tables["fused/chain"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

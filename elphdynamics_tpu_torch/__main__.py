@@ -5,7 +5,9 @@
 
 The run uses one device: a CUDA card by default (the command fails when
 none is available), or the CPU with ``--device cpu``. Fields are float32
-unless ``--x64``.
+unless ``--x64``. The input file chooses the sampler (``[hmc]`` or
+``[langevin]``) and the solver (``[solver] type`` CG, BiCGStab or GMRES;
+``block = true`` for block CG over systems that share an operator).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import sys
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="elphdynamics_tpu_torch")
-    ap.add_argument("input", help="TOML input file (the JAX package's schema)")
+    ap.add_argument("input", help="TOML input file (the JAX package's schema; [hmc] or [langevin])")
     ap.add_argument("run_id", nargs="?", type=int, default=None,
                     help="datafolder suffix id (auto-incremented if omitted)")
     ap.add_argument("--chains", type=int, default=1,

@@ -1,5 +1,6 @@
-"""The port's main path: one Holstein HMC update with the KPM-CG solver,
-batched over chains, as the JAX package's ``bench.py`` times it.
+"""The port's main paths: one Holstein HMC update with the KPM-CG solver,
+batched over chains, as the JAX package's ``bench.py`` times it; the SSH
+update; and one Langevin time step of either model.
 
 Model: square lattice, t = 1 on both bonds, ω = 1, λ = 1, μ = 0; Fourier
 mass block ω ∈ (0, 10) with m = 0.5; HMC with trajectory time 1, Nb = 4,
@@ -22,6 +23,14 @@ max_order 8; half-filled initial phonons; β = 4, Δτ = 0.1 (Lτ = 40).
   groups) — on a card the fermion operator runs the fold kernel with
   per-(chain, bond, τ) coefficients, the KPM Ā its per-chain tables, and
   every Chebyshev step the fused kernel.
+
+Langevin dynamics (Runge-Kutta steps, dt = 1e-3, Fourier acceleration block
+ω ∈ (0, 10) with m = 0.5, solver tol 1e-5, maxiter 500; a step is two force
+solves of MᵀM·z = Mᵀg, no Metropolis test):
+
+* ``LANGEVIN_64X64``: the Holstein model and KPM of ``KERNEL_64X64``, 16
+  chains;
+* ``SSH_LANGEVIN_64X64``: the SSH model and KPM of ``SSH_64X64``, 8 chains.
 """
 
 from __future__ import annotations
@@ -32,12 +41,14 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig, HMCState, make_hmc_step
 from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
+from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams, build_holstein
 from elphdynamics_tpu_torch.models.ssh import SSHParams, build_ssh
 from elphdynamics_tpu_torch.ops import kpm
-from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
+from elphdynamics_tpu_torch.ops.fourier_accel import build_Q, build_mass
 from elphdynamics_tpu_torch.utils.device import require_device
 
 
@@ -50,12 +61,18 @@ class BenchConfig:
     dt: float
     n_chains: int
     model: str = "holstein"
+    sampler: str = "hmc"       # "hmc" | "langevin"
+    method: str = "rk"         # the Langevin scheme
 
 
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
 KERNEL_64X64 = BenchConfig("kernel_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=16)
 SSH_64X64 = BenchConfig("ssh_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=8,
                         model="ssh")
+LANGEVIN_64X64 = BenchConfig("langevin_64x64", L=64, beta=4.0, dtau=0.1, dt=1e-3, n_chains=16,
+                             sampler="langevin")
+SSH_LANGEVIN_64X64 = BenchConfig("ssh_langevin_64x64", L=64, beta=4.0, dtau=0.1, dt=1e-3,
+                                 n_chains=8, model="ssh", sampler="langevin")
 
 
 @dataclass(frozen=True)
@@ -67,6 +84,16 @@ class BenchStep:
     generator: torch.Generator
 
 
+@dataclass(frozen=True)
+class LangevinBench:
+    ops: ModelOps
+    params: HolsteinParams | SSHParams
+    step: object            # step(params, x, generator) -> (x, stats)
+    x: torch.Tensor         # initial fields [C, Nph, Lτ]
+    generator: torch.Generator
+    precond: object         # the step's kpm.Preconditioner
+
+
 def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                      device="cuda", dtype: torch.dtype = torch.float32, *,
                      seed: int = 0, trajectory_time: float = 1.0,
@@ -76,11 +103,8 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     initial state of ``n_chains`` chains on ``device`` (the card unless the
     caller asks for the CPU)."""
     device = require_device(device)
-    spec, params = build_holstein(
-        _square(L), beta=beta, dtau=dtau,
-        t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))],
-        omega=1.0, lam=1.0, mu=0.0, dtype=dtype, device=device,
-        dense_threshold=dense_threshold, pallas_threshold=pallas_threshold)
+    spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
+                                   pallas_threshold)
     return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=4)
 
 
@@ -91,12 +115,51 @@ def build_ssh_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     initial state of ``n_chains`` chains on ``device`` (the card unless the
     caller asks for the CPU)."""
     device = require_device(device)
+    spec, params = _ssh_model(L, beta, dtau, dtype, device)
+    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8)
+
+
+def build_langevin_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
+                        device="cuda", dtype: torch.dtype = torch.float32, *,
+                        model: str = "holstein", method: str = "rk", seed: int = 0,
+                        solver: SolverConfig = SolverConfig(tol=1e-5, maxiter=500),
+                        dense_threshold: int = 2048,
+                        pallas_threshold: int = 2048) -> LangevinBench:
+    """The Holstein (or SSH) model of the HMC configurations, its
+    KPM-preconditioned Langevin step (all three applies, so any solver kind
+    runs) and half-filled initial fields of ``n_chains`` chains on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = require_device(device)
+    if model == "ssh":
+        spec, params = _ssh_model(L, beta, dtau, dtype, device)
+    else:
+        spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
+                                       pallas_threshold)
+    ops = make_model_ops(spec)
+    Q = build_Q(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
+                [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
+    precond = kpm.make_precond(ops, kpm.KPMConfig(max_order=8 if model == "ssh" else 4))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return LangevinBench(ops=ops, params=params,
+                         step=make_langevin_step(ops, Q, dt, method, solver, precond),
+                         x=init_phonons_half_filled(ops, params, n_chains, gen), generator=gen,
+                         precond=precond)
+
+
+def _holstein_model(L, beta, dtau, dtype, device, dense_threshold, pallas_threshold):
+    return build_holstein(
+        _square(L), beta=beta, dtau=dtau,
+        t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))],
+        omega=1.0, lam=1.0, mu=0.0, dtype=dtype, device=device,
+        dense_threshold=dense_threshold, pallas_threshold=pallas_threshold)
+
+
+def _ssh_model(L, beta, dtau, dtype, device):
     hop = dict(t=1.0, alpha=0.25, omega=0.5, o1=0, o2=0)
-    spec, params = build_ssh(
+    return build_ssh(
         _square(L), beta, dtau,
         hoppings=[dict(hop, dL=(1, 0, 0), name="x"), dict(hop, dL=(0, 1, 0), name="y")],
         mu_assignments=[(0.0, 0.0, None)], dtype=dtype, device=device)
-    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8)
 
 
 def _square(L: int) -> Lattice:
@@ -110,7 +173,7 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time,
                       [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
     cfg = HMCConfig(dt=dt, trajectory_time=trajectory_time, Nb=4, tol=1e-5,
                     maxiter=500, construct_guess=True, guess_order=3)
-    precond = kpm.make_symmetric_precond(ops, kpm.KPMConfig(max_order=max_order))
+    precond = kpm.make_precond(ops, kpm.KPMConfig(max_order=max_order))
     step = make_hmc_step(ops, mass, cfg, precond)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = init_phonons_half_filled(ops, params, n_chains, gen)
@@ -119,8 +182,12 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time,
 
 
 def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
-          **kw) -> BenchStep:
-    """:func:`build_bench_step` (or, for an SSH configuration,
-    :func:`build_ssh_step`) of one configuration."""
+          **kw) -> BenchStep | LangevinBench:
+    """:func:`build_bench_step` (for an SSH configuration
+    :func:`build_ssh_step`, for a Langevin one :func:`build_langevin_step`)
+    of one configuration."""
+    if cfg.sampler == "langevin":
+        return build_langevin_step(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype,
+                                   model=cfg.model, method=cfg.method, **kw)
     make = build_ssh_step if cfg.model == "ssh" else build_bench_step
     return make(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype, **kw)

@@ -8,8 +8,10 @@ bosonic substeps). One update:
 * auxiliary field φ± = Λ⁻¹·Mᵀ·R± per spin (Mᵀ·R± for SSH, which has no Λ
   shift);
 * Nt leapfrog steps, each with Nb bosonic substeps, a KPM-preconditioned,
-  residual-checked CG solve of MᵀM·z = Λφ (warm-started from the previous
-  solutions) and the fermion forces;
+  residual-checked solve of MᵀM·z = Λφ and the fermion forces. The solve is
+  CG (warm-started from the previous solutions; with ``block`` the two
+  spins of a chain as one block CG), or BiCGStab / GMRES through Mᵀ then M
+  (never warm-started, as in the JAX package);
 * a tol² endpoint solve, ΔH through float64 dots, and a Metropolis test.
 
 A solver failure freezes that chain's trajectory (masked commits) and
@@ -24,8 +26,8 @@ kinetic energy counts primary fields only (SSH aliases).
 Random draws are explicit: the step takes an optional :class:`HMCDraws`;
 without one it draws from its ``generator``. With ``log_verbose`` the stats
 carry each leapfrog step's energies. The integrator ``2mn``,
-``tune_dt``/``dynamic_dt``, deflation, block CG and non-CG solvers are not
-ported and raise ``NotImplementedError``.
+``tune_dt``/``dynamic_dt`` and deflation are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ class HMCConfig:
     tol: float = 1e-5
     maxiter: int = 1000
     kappa_max: float = 1e12
-    solver_kind: str = "cg"
-    block: bool = False
+    solver_kind: str = "cg"   # "cg" | "bicgstab" | "gmres"
+    restart: int = 20         # GMRES restart length
+    block: bool = False       # block CG over the spin-stacked trajectory solves
     loop_precision: str | None = "high"   # accepted, not used yet (solve.py)
     integrator: str = "leapfrog"
     log_verbose: bool = False
@@ -77,7 +80,7 @@ class HMCConfig:
             raise NotImplementedError("tune_dt: ROADMAP slice G")
         if self.deflate_k > 0:
             raise NotImplementedError("deflation: ROADMAP slice I")
-        SolverConfig(kind=self.solver_kind, block=self.block).check_ported()
+        SolverConfig(kind=self.solver_kind)   # refuses an unknown kind
 
 
 @dataclass(frozen=True)
@@ -187,7 +190,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
 
     tol1 = cfg.tol
     tol2 = cfg.tol ** 2
-    use_g = cfg.construct_guess
+    # only CG takes a warm start
+    use_g = cfg.construct_guess and cfg.solver_kind == "cg"
     g_ord = cfg.guess_order if use_g else 1
     dt = cfg.dt
 
@@ -202,7 +206,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         at ``x``; returns (z, per-chain iterations, per-chain flag)."""
         pa = resolve_precond(precond, params, x, prev_state=pstate)
         scfg = SolverConfig(tol=tol, maxiter=cfg.maxiter, kappa_max=cfg.kappa_max,
-                            kind=cfg.solver_kind, block=cfg.block,
+                            kind=cfg.solver_kind, restart=cfg.restart, block=cfg.block,
                             loop_precision=cfg.loop_precision)
         res = solve_oinv(ops, params, ops.stack(derived), Lphi, scfg, pa,
                          x0=z_guess if use_g else None)

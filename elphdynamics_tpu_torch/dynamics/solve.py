@@ -1,19 +1,31 @@
-"""Model-level linear-solve dispatch (CG through MᵀM): z = (MᵀM)⁻¹·rhs for
-the HMC forces and actions, x = M⁻¹·rhs for the Green's-function probes.
+"""Model-level linear-solve dispatch: z = (MᵀM)⁻¹·rhs for the HMC forces
+and actions, x = M⁻¹·rhs for the Langevin force and the Green's-function
+probes.
 
-Counterpart of the CG path of ``elphdynamics_tpu/dynamics/solve.py``: with
-CG, systems are solved through the SPD operator MᵀM with the symmetric KPM
-preconditioner, and every solve ends in the residual verification + retry
-of :func:`..solvers.solve_checked`. BiCGStab/GMRES, block CG and deflation
-are not ported (ROADMAP slices E and I).
+Counterpart of ``elphdynamics_tpu/dynamics/solve.py``. With CG, systems are
+solved through the SPD operator MᵀM with the symmetric KPM preconditioner
+(optionally block CG over an axis of systems that share the operator); with
+BiCGStab or GMRES they are solved through M and Mᵀ directly with the left
+and right KPM preconditioners, and (MᵀM)⁻¹ becomes two solves in sequence.
+Every path ends in a residual verification and an unpreconditioned retry.
+Deflation is not ported (ROADMAP slice I).
+
+Fields carry an explicit leading chain axis, so the systems of one chain
+that share its operator are ``rhs[c]``: block CG needs ``rhs`` of at least
+four axes ``[C, s, N, Lτ]`` (the JAX package, which maps over chains, asks
+for three).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+
+import torch
 
 from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.utils.dtypes import fdot
 
 
 @dataclass(frozen=True)
@@ -23,7 +35,10 @@ class SolverConfig:
     tol: float = 1e-5
     maxiter: int = 1000
     kappa_max: float = 1e12
-    kind: str = "cg"
+    kind: str = "cg"      # "cg" | "bicgstab" | "gmres"
+    restart: int = 20     # GMRES restart length
+    # block CG over the systems of one chain that share its operator (the nᵥ
+    # probes of a measurement, the two spins of a trajectory solve)
     block: bool = False
     # accepted for parity with the JAX package and not used yet: every
     # operator runs at the full precision of the field dtype (the TPU's
@@ -31,16 +46,16 @@ class SolverConfig:
     # later, measured change)
     loop_precision: str | None = "high"
 
-    def check_ported(self) -> None:
-        if self.kind != "cg":
-            raise NotImplementedError(f"solver kind {self.kind!r}: ROADMAP slice E")
-        if self.block:
-            raise NotImplementedError("block CG: ROADMAP slice E")
+    def __post_init__(self):
+        if self.kind not in ("cg", "bicgstab", "gmres"):
+            raise ValueError(f"unknown solver kind {self.kind!r} (cg, bicgstab or gmres)")
 
 
 @dataclass(frozen=True)
 class PrecondApplies:
-    symmetric: object  # (v) -> v   ≈ (MᵀM)⁻¹
+    symmetric: object          # (v) -> v   ≈ (MᵀM)⁻¹
+    left: object = None        # (v) -> v   ≈ M⁻¹
+    right: object = None       # (v) -> v   ≈ M⁻ᵀ
 
 
 def precond_state(precond, params, x, prev=None, start=None):
@@ -54,10 +69,13 @@ def precond_state(precond, params, x, prev=None, start=None):
 
 
 def precond_applies(precond, st) -> PrecondApplies | None:
-    """Bind a preconditioner state into the apply closure."""
+    """Bind a preconditioner state into the apply closures."""
     if precond is None:
         return None
-    return PrecondApplies(symmetric=lambda v: precond.symmetric(st, v))
+    return PrecondApplies(
+        symmetric=lambda v: precond.symmetric(st, v),
+        left=(lambda v: precond.left(st, v)) if precond.left is not None else None,
+        right=(lambda v: precond.right(st, v)) if precond.right is not None else None)
 
 
 def resolve_precond(precond, params, x, prev_state=None) -> PrecondApplies | None:
@@ -73,29 +91,92 @@ def _cg_operators(ops: ModelOps, params, derived, scfg: SolverConfig):
     return (lambda v: ops.mulMTM(params, derived, v)), None
 
 
+def _checked_nonsym(apply_A, b, base, apply_P, scfg: SolverConfig):
+    """Residual verification and unpreconditioned retry for the BiCGStab and
+    GMRES paths. The retry runs only when a system failed (one host read);
+    it then iterates every system from its first solution, and only the
+    failed ones keep its result."""
+    def nrm(a):
+        return torch.sqrt(fdot(a, a, dim=(-2, -1)))
+
+    res1 = base(apply_A, b, apply_P=apply_P, tol=scfg.tol, maxiter=scfg.maxiter)
+    normb = nrm(b)
+    safe = torch.where(normb > 0, normb, torch.ones_like(normb))
+    err = nrm(apply_A(res1.x) - b) / safe
+    sq = math.sqrt(scfg.tol)
+    bad = err > sq
+    one, two, zero = (torch.full_like(res1.iters, k) for k in (1, 2, 0))
+    flag = torch.where(bad, torch.where(res1.iters >= scfg.maxiter, one, two), zero)
+    if apply_P is None or not bool(bad.any()):
+        return solvers.SolveResult(x=res1.x, iters=res1.iters, residual=err, flag=flag)
+    badf = bad[..., None, None]
+    x_start = torch.where(badf, torch.zeros_like(res1.x), res1.x)
+    res2 = base(apply_A, b, x0=x_start, apply_P=None, tol=scfg.tol,
+                maxiter=10 * scfg.maxiter)
+    x = torch.where(badf, res2.x, res1.x)
+    err2 = nrm(apply_A(x) - b) / safe
+    flag = torch.where(bad & (err2 > sq), flag, zero)
+    iters = res1.iters + torch.where(bad, res2.iters, zero)
+    return solvers.SolveResult(x=x, iters=iters, residual=err2, flag=flag)
+
+
+def _base_solver(scfg: SolverConfig):
+    if scfg.kind == "bicgstab":
+        return solvers.bicgstab
+
+    def gmres_batched(apply_A, b, x0=None, *, apply_P=None, tol, maxiter):
+        return solvers.gmres(apply_A, b, x0, apply_P=apply_P, tol=tol, maxiter=maxiter,
+                             restart=scfg.restart)
+
+    return gmres_batched
+
+
 def solve_minv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
-               pa: PrecondApplies | None):
-    """x = M⁻¹·rhs for every leading index of ``rhs``, through CG on
-    MᵀM·x = Mᵀ·rhs (the Green's-function probes). Block CG over the probe
-    axis is ROADMAP slice E."""
-    scfg.check_ported()
-    b = ops.mulMT(params, derived, rhs)
-    hot, chk = _cg_operators(ops, params, derived, scfg)
-    return solvers.solve_checked(
-        hot, b, apply_P=pa.symmetric if pa else None,
-        tol=scfg.tol, maxiter=scfg.maxiter, kappa_max=scfg.kappa_max,
-        apply_A_check=chk)
+               pa: PrecondApplies | None, block: bool = False):
+    """x = M⁻¹·rhs for every leading index of ``rhs``: CG on MᵀM·x = Mᵀ·rhs
+    with the symmetric preconditioner, or BiCGStab / GMRES on M with the left
+    one.
+
+    ``block=True`` (CG with ``scfg.block`` only) solves ``rhs``
+    ``[C, s, N, Lτ]`` by block CG over the ``s`` axis: valid only when those
+    systems share the operator (the nᵥ probes of one configuration), never
+    for the chain axis."""
+    if scfg.kind == "cg":
+        b = ops.mulMT(params, derived, rhs)
+        hot, chk = _cg_operators(ops, params, derived, scfg)
+        solve = (solvers.block_solve_checked if block and scfg.block and rhs.ndim >= 4
+                 else solvers.solve_checked)
+        return solve(hot, b, apply_P=pa.symmetric if pa else None, tol=scfg.tol,
+                     maxiter=scfg.maxiter, kappa_max=scfg.kappa_max, apply_A_check=chk)
+    return _checked_nonsym(lambda v: ops.mulM(params, derived, v), rhs, _base_solver(scfg),
+                           pa.left if pa else None, scfg)
 
 
 def solve_oinv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
                pa: PrecondApplies | None, x0=None, deflate=None):
     """z = (MᵀM)⁻¹·rhs for every leading index of ``rhs``; ``x0`` warm
-    starts the CG."""
-    scfg.check_ported()
+    starts the CG.
+
+    With ``scfg.block`` the spin-stacked systems ``[C, 2, N, Lτ]`` (one
+    operator per chain; the spins differ only in φ) run through block CG.
+    Gated to tol ≥ 1e-6: at the tol² endpoint tolerance the shared Gram
+    solves sit on the float32 noise floor, so those stay on batched CG.
+    BiCGStab / GMRES solve Mᵀ·y = rhs with the right preconditioner, then
+    M·z = y with the left one."""
     if deflate is not None:
         raise NotImplementedError("deflation: ROADMAP slice I")
-    hot, chk = _cg_operators(ops, params, derived, scfg)
-    return solvers.solve_checked(
-        hot, rhs, x0=x0, apply_P=pa.symmetric if pa else None,
-        tol=scfg.tol, maxiter=scfg.maxiter, kappa_max=scfg.kappa_max,
-        apply_A_check=chk)
+    if scfg.kind == "cg":
+        hot, chk = _cg_operators(ops, params, derived, scfg)
+        kw = dict(apply_P=pa.symmetric if pa else None, tol=scfg.tol, maxiter=scfg.maxiter,
+                  kappa_max=scfg.kappa_max, apply_A_check=chk)
+        if scfg.block and rhs.ndim >= 4 and scfg.tol >= 1e-6:
+            return solvers.block_solve_checked(hot, rhs, X0=x0, **kw)
+        return solvers.solve_checked(hot, rhs, x0=x0, **kw)
+    base = _base_solver(scfg)
+    res1 = _checked_nonsym(lambda v: ops.mulMT(params, derived, v), rhs, base,
+                           pa.right if pa else None, scfg)
+    res2 = _checked_nonsym(lambda v: ops.mulM(params, derived, v), res1.x, base,
+                           pa.left if pa else None, scfg)
+    return solvers.SolveResult(x=res2.x, iters=res1.iters + res2.iters,
+                               residual=res2.residual,
+                               flag=torch.maximum(res1.flag, res2.flag))

@@ -11,7 +11,10 @@ Each proposal is an exact Metropolis test: the pseudofermions are drawn
 afresh at the current configuration (so S₀ = Σ±|R±|²/2 + Sb exactly), the
 move is applied, the new action is evaluated with tol² solves, and the
 move is accepted or rejected. The moves of one call run in sequence, each
-on all chains at once (one batched solve per move).
+on all chains at once (one batched solve per move). As in the JAX package
+these tol² solves are always batched CG with the symmetric preconditioner,
+whatever solver kind and ``block`` setting the sampler runs with, and are
+never warm-started.
 
 Random draws are explicit, as in :mod:`.hmc`: an update takes optional
 :class:`SpecialDraws`; without them it draws from its ``generator``.

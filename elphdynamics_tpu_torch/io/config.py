@@ -3,18 +3,20 @@
 Counterpart of ``elphdynamics_tpu/io/config.py`` for what the port runs:
 ``[lattice]``, ``[holstein]`` or ``[ssh]``, ``[[fourier_acceleration]]``,
 ``[hmc]`` (with ``[hmc.burnin]`` overrides and the reflection / swap
-updates; the reflection is Holstein's only), ``[simulation]``, ``[solver]``
-with CG and ``[solver.preconditioner]``, ``[tune_density]`` and
-``[measurements]`` (PhononGreens is on-site for Holstein's site phonons,
-inter-site for SSH's bond phonons). Orbit indices are 1-based in the files
-and 0-based here.
+updates; the reflection is Holstein's only) or ``[langevin]`` (``dt``,
+``update_method`` 1 Euler / 2 Runge-Kutta / 3 Heun, ``burnin_timesteps``,
+``simulation_timesteps``, ``meas_freq``), ``[simulation]``, ``[solver]``
+(``type`` CG, BiCGStab or GMRES, ``restart``, ``block``) with
+``[solver.preconditioner]`` (``stacked`` and ``exact_lowfreq`` included),
+``[tune_density]`` and ``[measurements]`` (PhononGreens is on-site for
+Holstein's site phonons, inter-site for SSH's bond phonons; BondBond,
+CurrentCurrent and BondPairGreens over pairs of bond definitions). Orbit
+indices are 1-based in the files and 0-based here.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP slice: ``[langevin]`` (D), solvers other than CG and block CG (E),
-twisted boundaries and complex hopping (F), ``[tempering]``, ``tune_dt``
-and the 2MN integrator (G), ``[solver.deflation]`` and
-``[solver.nearnull]`` (I), and the inter-site correlations BondBond,
-CurrentCurrent and BondPairGreens (B remainder).
+ROADMAP slice: twisted boundaries and complex hopping (F), ``[tempering]``,
+``tune_dt`` and the 2MN integrator (G), ``[solver.deflation]`` and
+``[solver.nearnull]`` (I).
 
 Disorder is drawn from ``numpy.random.default_rng(random_seed)`` in the
 JAX package's order, so one seed builds the same parameters in both.
@@ -37,7 +39,7 @@ from elphdynamics_tpu_torch.measure.measurements import MeasurementSpec
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.models.ssh import build_ssh
-from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
+from elphdynamics_tpu_torch.ops.fourier_accel import build_Q, build_mass
 from elphdynamics_tpu_torch.ops.kpm import KPMConfig
 
 
@@ -73,8 +75,12 @@ class SimulationSetup:
     ops: ModelOps
     params: Any
     sim_params: SimulationParams
-    hmc_cfg: HMCConfig
-    hmc_burnin_cfg: HMCConfig
+    dynamics_type: str                  # "hmc" | "langevin"
+    hmc_cfg: HMCConfig | None           # None for a Langevin run
+    hmc_burnin_cfg: HMCConfig | None
+    langevin_dt: float | None           # None for an HMC run
+    langevin_method: str | None         # "euler" | "rk" | "heun"
+    fa_Q: np.ndarray
     fa_mass: np.ndarray
     solver_cfg: SolverConfig
     kpm_cfg: KPMConfig | None
@@ -179,7 +185,7 @@ def _measurement_spec(cfg: dict, is_holstein: bool) -> MeasurementSpec:
         nv=m.get("num_random_vectors", 10),
         onsite_corr=corr_list(onsite), intersite_corr=corr_list(inter),
         snapshots=tuple(k for k, v in m.get("Snapshots", {}).items() if v))
-    mspec.check_ported()
+    mspec.check()
     return mspec
 
 
@@ -191,7 +197,8 @@ def _hmc_config(h: dict, b: dict, solver: SolverConfig) -> HMCConfig:
         trajectory_time=b.get("trajectory_time", h["trajectory_time"]),
         alpha=b.get("momentum_conservation_fraction", h.get("momentum_conservation_fraction", 0.0)),
         Nb=b.get("num_multitimesteps", h.get("num_multitimesteps", 1)),
-        tol=solver.tol, maxiter=solver.maxiter, solver_kind=solver.kind, block=solver.block,
+        tol=solver.tol, maxiter=solver.maxiter, solver_kind=solver.kind,
+        restart=solver.restart, block=solver.block,
         loop_precision=solver.loop_precision,
         integrator=str(b.get("integrator", h.get("integrator", "leapfrog"))).lower(),
         log_verbose=bool(h.get("verbose", False)),
@@ -205,10 +212,8 @@ def _hmc_config(h: dict, b: dict, solver: SolverConfig) -> HMCConfig:
 def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> SimulationSetup:
     """Every simulation object of a parsed config, with the model's tensors
     on ``device`` in ``dtype``."""
-    if "langevin" in cfg:
-        raise _not_ported("[langevin] (Langevin dynamics)", "D")
-    if "hmc" not in cfg:
-        raise ValueError("the config needs an [hmc] table")
+    if ("hmc" in cfg) == ("langevin" in cfg):
+        raise ValueError("the config needs exactly one of [hmc] / [langevin]")
     if ("holstein" in cfg) == ("ssh" in cfg):
         raise ValueError("the config needs exactly one of [holstein] / [ssh]")
     if "tempering" in cfg:
@@ -221,12 +226,16 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
     spec, params = _build_model(cfg, rng, dtype, device)
     ops = make_model_ops(spec)
 
-    h = cfg["hmc"]
-    nsteps = h["simulation_updates"]
-    meas_freq = h["meas_freq"]
+    h = cfg.get("hmc")
+    if h is not None:
+        burnin, nsteps, meas_freq = h["burnin_updates"], h["simulation_updates"], h["meas_freq"]
+    else:
+        lv = cfg["langevin"]
+        burnin, nsteps, meas_freq = (lv["burnin_timesteps"], lv["simulation_timesteps"],
+                                     lv["meas_freq"])
     num_bins = sim["num_bins"]
     sim_params = SimulationParams(
-        burnin=h["burnin_updates"], nsteps=nsteps, meas_freq=meas_freq, num_bins=num_bins,
+        burnin=burnin, nsteps=nsteps, meas_freq=meas_freq, num_bins=num_bins,
         bin_size=(nsteps // meas_freq) // num_bins,
         chckpnt_freq_s=60.0 * sim.get("checkpoint_freq", 10),
         filepath=sim.get("filepath", "."), foldername=sim.get("foldername", "run"),
@@ -240,9 +249,9 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
         raise _not_ported("[solver.deflation] (slow-mode deflation)", "I")
     solver_cfg = SolverConfig(tol=sol.get("tol", 1e-5), maxiter=sol.get("maxiter", 1000),
                               kind=sol.get("type", "CG").lower(),
+                              restart=sol.get("restart", 20),
                               block=bool(sol.get("block", False)),
                               loop_precision=sol.get("loop_precision", "high"))
-    solver_cfg.check_ported()
     kpm_cfg = None
     if "preconditioner" in sol:
         p = sol["preconditioner"]
@@ -252,28 +261,40 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
                             dft_matmul=p.get("dft_matmul", None),
                             stacked=p.get("stacked", False),
                             exact_lowfreq=int(p.get("exact_lowfreq", 0)))
-        kpm_cfg.check_ported()
 
     omega = params.omega.detach().cpu().double().numpy()
-    fa_mass = build_mass(omega, spec.dtau, spec.Ltau, cfg.get("fourier_acceleration", []))
+    fa_blocks = cfg.get("fourier_acceleration", [])
+    fa_Q = build_Q(omega, spec.dtau, spec.Ltau, fa_blocks)
+    fa_mass = build_mass(omega, spec.dtau, spec.Ltau, fa_blocks)
 
-    hmc_cfg = _hmc_config(h, {}, solver_cfg)
-    hmc_burnin_cfg = _hmc_config(h, h.get("burnin", {}), solver_cfg)
+    hmc_cfg = hmc_burnin_cfg = langevin_dt = langevin_method = None
     reflect_cfg = swap_cfg = SpecialUpdateConfig(freq=0, n_moves=0)
-    if "reflection_update" in h and ops.is_holstein:
-        reflect_cfg = SpecialUpdateConfig(freq=h["reflection_update"]["freq"],
-                                          n_moves=h["reflection_update"]["nsites"],
-                                          tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
-    if "swap_update" in h:
-        swap_cfg = SpecialUpdateConfig(freq=h["swap_update"]["freq"],
-                                       n_moves=h["swap_update"]["nbonds"],
-                                       tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
+    if h is None:
+        langevin_dt = float(cfg["langevin"]["dt"])
+        method = cfg["langevin"].get("update_method", 1)
+        if method not in (1, 2, 3):
+            raise ValueError(f"[langevin] update_method {method!r}: 1 (Euler), 2 (Runge-Kutta) "
+                             "or 3 (Heun)")
+        langevin_method = {1: "euler", 2: "rk", 3: "heun"}[method]
+    else:
+        hmc_cfg = _hmc_config(h, {}, solver_cfg)
+        hmc_burnin_cfg = _hmc_config(h, h.get("burnin", {}), solver_cfg)
+        if "reflection_update" in h and ops.is_holstein:
+            reflect_cfg = SpecialUpdateConfig(freq=h["reflection_update"]["freq"],
+                                              n_moves=h["reflection_update"]["nsites"],
+                                              tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
+        if "swap_update" in h:
+            swap_cfg = SpecialUpdateConfig(freq=h["swap_update"]["freq"],
+                                           n_moves=h["swap_update"]["nbonds"],
+                                           tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
 
     mspec = _measurement_spec(cfg, ops.is_holstein)
     model_cfg = cfg["holstein" if ops.is_holstein else "ssh"]
     return SimulationSetup(
-        ops=ops, params=params, sim_params=sim_params, hmc_cfg=hmc_cfg,
-        hmc_burnin_cfg=hmc_burnin_cfg, fa_mass=fa_mass,
+        ops=ops, params=params, sim_params=sim_params,
+        dynamics_type="langevin" if h is None else "hmc", hmc_cfg=hmc_cfg,
+        hmc_burnin_cfg=hmc_burnin_cfg, langevin_dt=langevin_dt,
+        langevin_method=langevin_method, fa_Q=fa_Q, fa_mass=fa_mass,
         solver_cfg=solver_cfg, kpm_cfg=kpm_cfg, mspec=mspec, reflect_cfg=reflect_cfg,
         swap_cfg=swap_cfg, tune_density=cfg.get("tune_density"),
         read_phonon_config=(model_cfg.get("phonon_config_file")

@@ -10,8 +10,9 @@ two-point sum uses the bilinearity identity
 Σ_{i<j} conv(aᵢ+aⱼ, bᵢ+bⱼ)/2 = [(nᵥ−2)·Σᵢconv(aᵢ,bᵢ) + conv(Σa, Σb)]/2.
 
 Chains: fields carry a leading chain axis. Probes and solutions are
-``[C, nᵥ, N, Lτ]`` and the nᵥ·C systems are one batched CG; pair tensors
-are ``[C, nₒ, nₒ, L1, L2, L3, 2Lτ]``.
+``[C, nᵥ, N, Lτ]`` and the nᵥ·C systems are one batched solve (with
+``[solver] block`` a block CG over each chain's nᵥ probes, which share its
+operator); pair tensors are ``[C, nₒ, nₒ, L1, L2, L3, 2Lτ]``.
 
 The transforms are ``torch.fft`` (full precision of the field's complex
 type, no TF32). The JAX package's DFT-matmul lowering of these transforms
@@ -44,14 +45,15 @@ class GreensData:
 def sample_greens(ops: ModelOps, params, x, nv: int, scfg: SolverConfig, precond=None,
                   generator: torch.Generator | None = None, R=None) -> GreensData:
     """Draw nᵥ probes per chain (or take ``R`` ``[C, nᵥ, N, Lτ]``) and solve
-    M·z = r for all of them at once, through CG on MᵀM with the symmetric
+    M·z = r for all of them at once by the configured solver kind, with the
     preconditioner set up at ``x`` ``[C, N, Lτ]``."""
     C = x.shape[0]
     if R is None:
         R = trace_noise((C, nv, ops.Nsites, ops.Ltau), x.dtype, x.device, generator)
     derived = ops.derived(params, x)
     pa = resolve_precond(precond, params, x)
-    sol = solve_minv(ops, params, ops.stack(derived), R, scfg, pa)
+    # a chain's nᵥ systems share its operator: eligible for block CG
+    sol = solve_minv(ops, params, ops.stack(derived), R, scfg, pa, block=True)
     return GreensData(R=R, MinvR=sol.x, iters=sol.iters.sum(dim=1) // nv,
                       flag=sol.flag.amax(dim=1))
 

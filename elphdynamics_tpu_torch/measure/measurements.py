@@ -13,7 +13,10 @@ accumulates per sampler sweep:
   count;
 * on-site correlations: Greens, DenDen, SpinSpin, PairGreens, and
   PhononGreens for Holstein's site phonons, with their τ=β boundary
-  identities; for SSH the bond-phonon PhononGreens is inter-site;
+  identities;
+* inter-site correlations over pairs of bond definitions: BondBond,
+  CurrentCurrent and BondPairGreens (:mod:`.intersite_corr`), and for SSH
+  the bond-phonon PhononGreens over pairs of phonon types;
 * snapshots: density, double occupancy, phonon position.
 
 Every accumulated quantity is linear in the pair-summed estimator tensors
@@ -26,11 +29,8 @@ per-probe sums:
 Chains: the step measures every chain of a ``[C, N, Lτ]`` batch;
 :func:`mean_over_chains` then averages the increments over the chains whose
 probe solves succeeded. Per bin, :func:`process_bin` normalises, moves the
-correlations to momentum space and integrates the susceptibilities.
-
-The inter-site correlations BondBond, CurrentCurrent and BondPairGreens
-(``measure/intersite_corr.py`` of the JAX package) are not ported: they
-raise, naming the ROADMAP item.
+correlations to momentum space and integrates the susceptibilities
+(PairSusc, ChargeSusc, SpinSusc, BondPairSusc).
 """
 
 from __future__ import annotations
@@ -43,11 +43,13 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
 from elphdynamics_tpu_torch.measure import greens as G
+from elphdynamics_tpu_torch.measure import intersite_corr as IC
 from elphdynamics_tpu_torch.models import ssh as Sm
 from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.utils.math import simpson
 
 ONSITE_CORR_KINDS = ("Greens", "DenDen", "SpinSpin", "PairGreens", "PhononGreens")
+INTERSITE_CORR_KINDS = ("BondBond", "CurrentCurrent", "BondPairGreens", "PhononGreens")
 SUSC_MAP = {"PairGreens": "PairSusc", "DenDen": "ChargeSusc", "SpinSpin": "SpinSusc",
             "BondPairGreens": "BondPairSusc"}
 
@@ -65,17 +67,13 @@ class MeasurementSpec:
     intersite_pairs: tuple | None = None
     snapshots: tuple = ()        # subset of (density, double_occupancy, phonon_position)
 
-    def check_ported(self) -> None:
-        """Raise for the inter-site correlations that are not ported (all
-        but SSH's bond PhononGreens)."""
-        kinds = [e[0] for e in self.intersite_corr if e[0] != "PhononGreens"]
-        if kinds:
-            raise NotImplementedError(
-                f"inter-site correlations ({', '.join(kinds)}; measure/intersite_corr.py): "
-                "ROADMAP slice B remainder")
-        unknown = [e[0] for e in self.onsite_corr if e[0] not in ONSITE_CORR_KINDS]
-        if unknown:
-            raise ValueError(f"unknown on-site correlation kinds {unknown}")
+    def check(self) -> None:
+        """Raise for a correlation kind that does not exist."""
+        for entries, known, where in ((self.onsite_corr, ONSITE_CORR_KINDS, "on-site"),
+                                      (self.intersite_corr, INTERSITE_CORR_KINDS, "inter-site")):
+            unknown = [e[0] for e in entries if e[0] not in known]
+            if unknown:
+                raise ValueError(f"unknown {where} correlation kinds {unknown}")
 
 
 def _corr_pairs(n, explicit):
@@ -111,10 +109,11 @@ def _container_shapes(ops: ModelOps, mspec: MeasurementSpec) -> dict:
         kind: (len(_corr_pairs(no, kp if kp is not None else mspec.onsite_pairs)),
                lat.L1, lat.L2, lat.L3, T if td else 1)
         for kind, (td, kp) in _normalize_kinds(mspec.onsite_corr).items()}
-    # SSH's bond PhononGreens: pairs over phonon types
+    # pairs of bond definitions; SSH's bond PhononGreens: pairs of phonon types
     shapes["intersite_corr"] = {
-        kind: (len(_corr_pairs(_phonon_types(ops.spec), kp)), lat.L1, lat.L2, lat.L3,
-               T if td else 1)
+        kind: (len(_corr_pairs(_phonon_types(ops.spec), kp) if kind == "PhononGreens" else
+                   _corr_pairs(ndefs, kp if kp is not None else mspec.intersite_pairs)),
+               lat.L1, lat.L2, lat.L3, T if td else 1)
         for kind, (td, kp) in _normalize_kinds(mspec.intersite_corr).items()}
     return shapes
 
@@ -144,10 +143,10 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     and snapshot has a leading chain axis; ``stats`` holds the per-chain
     ``iters`` and ``flag`` of the probe solves. ``R`` injects the probes.
     ``step.analyze(params, x, gd)`` is everything after the solves."""
-    mspec.check_ported()
-    if ops.is_holstein and mspec.intersite_corr:
-        raise NotImplementedError("inter-site PhononGreens of the Holstein model "
-                                  "(measure/intersite_corr.py): ROADMAP slice B remainder")
+    mspec.check()
+    if ops.is_holstein and any(e[0] == "PhononGreens" for e in mspec.intersite_corr):
+        raise ValueError("PhononGreens is an on-site correlation for the Holstein model "
+                         "(site phonons); the inter-site one is SSH's bond phonons")
     lat = ops.spec.lattice
     spec = ops.spec
     no = lat.unit_cell.norbits
@@ -159,6 +158,7 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     onsite_pairs = _corr_pairs(no, mspec.onsite_pairs)
     onsite_kinds = _normalize_kinds(mspec.onsite_corr)
     inter_kinds = _normalize_kinds(mspec.intersite_corr)
+    inter_pairs = _corr_pairs(ndefs, mspec.intersite_pairs)
     if not ops.is_holstein:
         # per-definition volume: each definition's own bond count times Lτ
         def_counts = np.bincount(spec.bond_to_definition, minlength=ndefs)
@@ -356,6 +356,28 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                 xt[:, torch.as_tensor(pairs[:, 0], device=dev)])
             out["intersite_corr"]["PhononGreens"] = (torch.cat([xx, xx[..., :1]], dim=-1)
                                                      if td else xx[..., :1])
+
+        # ---- inter-site correlations over pairs of bond definitions
+        bond_kinds = [k for k in inter_kinds if k != "PhononGreens"]
+        if bond_kinds:
+            bf = IC.BondFields(lat, R, MinvR, G.pair_indices(nv), complex_of(dt))
+
+            def bond_pairs(kind):
+                td, kp = inter_kinds[kind]
+                arr = _corr_pairs(ndefs, kp) if kp is not None else inter_pairs
+                return td, [tuple(int(i) for i in p) for p in arr]
+
+            if "BondBond" in inter_kinds:
+                td, bp = bond_pairs("BondBond")
+                out["intersite_corr"]["BondBond"] = IC.measure_bondbond(ops, pt, bf, bp, td)
+            if "CurrentCurrent" in inter_kinds:
+                td, bp = bond_pairs("CurrentCurrent")
+                out["intersite_corr"]["CurrentCurrent"] = IC.measure_currentcurrent(
+                    ops, params, x, pt, bf, bp, td)
+            if "BondPairGreens" in inter_kinds:
+                td, bp = bond_pairs("BondPairGreens")
+                out["intersite_corr"]["BondPairGreens"] = IC.measure_bondpairgreens(
+                    ops, pt, bf, bp, td, n_pairs)
 
         # ---- snapshots: per-site instantaneous estimates
         snaps = {}

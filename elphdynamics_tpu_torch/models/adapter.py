@@ -34,6 +34,7 @@ class ModelOps:
     mulM: Callable             # (params, derived, v, precision=None) -> v
     mulMT: Callable
     mulMTM: Callable
+    mulMMT: Callable
     muldMdx: Callable          # (params, derived, x, u, v) -> [..., Nph, Lτ]
     calc_Sb: Callable          # (params, x, shifted=False) -> [...]
     calc_dSbdx: Callable       # (params, x, shifted=False) -> [..., Nph, Lτ]
@@ -59,6 +60,7 @@ def make_model_ops(spec) -> ModelOps:
             mulM=lambda p, d, v, precision=None: Sm.mulM(spec, p, d, v),
             mulMT=lambda p, d, v, precision=None: Sm.mulMT(spec, p, d, v),
             mulMTM=lambda p, d, v, precision=None: Sm.mulMTM(spec, p, d, v),
+            mulMMT=lambda p, d, v, precision=None: Sm.mulMMT(spec, p, d, v),
             muldMdx=lambda p, d, x, u, v: Sm.muldMdx(spec, p, d, x, u, v),
             calc_Sb=lambda p, x, shifted=False: Sm.calc_Sb(spec, p, x, shifted),
             calc_dSbdx=lambda p, x, shifted=False: Sm.calc_dSbdx(spec, p, x, shifted),
@@ -79,6 +81,7 @@ def make_model_ops(spec) -> ModelOps:
         mulM=lambda p, d, v, precision=None: Hm.mulM(spec, p, d, v, precision),
         mulMT=lambda p, d, v, precision=None: Hm.mulMT(spec, p, d, v, precision),
         mulMTM=lambda p, d, v, precision=None: Hm.mulMTM(spec, p, d, v, precision),
+        mulMMT=lambda p, d, v, precision=None: Hm.mulMMT(spec, p, d, v, precision),
         muldMdx=lambda p, d, x, u, v: Hm.muldMdx(spec, p, d, x, u, v),
         calc_Sb=lambda p, x, shifted=False: Hm.calc_Sb(spec, p, x, shifted),
         calc_dSbdx=lambda p, x, shifted=False: Hm.calc_dSbdx(spec, p, x, shifted),

@@ -262,6 +262,11 @@ def mulMTM(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
     return mulMT(spec, p, env, mulM(spec, p, env, v, precision), precision)
 
 
+def mulMMT(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
+    """y = MMᵀ·v."""
+    return mulM(spec, p, env, mulMT(spec, p, env, v, precision), precision)
+
+
 def muldMdx(spec: HolsteinSpec, p: HolsteinParams, env, x, u, v):
     """uᵀ·[∂M/∂xᵢ(τ)]·v for every dof:
     ±Δτ·(λᵢ + 2λ₂ᵢxᵢ(τ))·expnV(i,τ)·v(i,τ−1)·[exp(−ΔτK)ᵀu](i,τ),

@@ -41,7 +41,9 @@ twin; a CUDA tensor launches the kernel or raises. ``launches`` and
 ``fused_launches`` count kernel launches (never twin calls), and
 ``table_launches`` the same launches by kernel and coefficient form
 (``"fold/shared"``, ``"fold/chain"``, ``"fold/column"``,
-``"fused/shared"``, ``"fused/chain"``).
+``"fused/shared"``, ``"fused/chain"``); ``launch_shapes`` holds each counted
+launch's (form key, field shape, dtype), so that a caller can see at which
+shapes a run went through the kernels.
 """
 
 from __future__ import annotations
@@ -67,14 +69,22 @@ fused_launches = 0
 TABLE_FORMS = ("shared", "chain", "column")   # [Nb], [C, Nb], [C, Nb, K]
 table_launches = {"fold/shared": 0, "fold/chain": 0, "fold/column": 0,
                   "fused/shared": 0, "fused/chain": 0}
+launch_shapes: set = set()    # (form key, field shape, dtype) of the counted launches
 
 
 def reset_counts() -> None:
-    """Set every launch count to 0."""
+    """Set every launch count to 0 and forget the launches' shapes."""
     global launches, fused_launches
     launches = fused_launches = 0
     for k in table_launches:
         table_launches[k] = 0
+    launch_shapes.clear()
+
+
+def _count(kernel: str, cosh_b, v) -> None:
+    form = f"{kernel}/{TABLE_FORMS[cosh_b.ndim - 1]}"
+    table_launches[form] += 1
+    launch_shapes.add((form, tuple(v.shape), v.dtype))
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"ckb_fold": CSRC / "ckb_fold.cu", "ckb_fold_fused": CSRC / "ckb_fold_fused.cu"}
@@ -428,29 +438,43 @@ def _device_index(v) -> int:
     return v.device.index if v.device.index is not None else torch.cuda.current_device()
 
 
+def _card(name: str, dev: int) -> tuple[int, int]:
+    """(opt-in shared memory per SM in bytes, SM count) of device ``dev``,
+    read once per device."""
+    info = _device_info.get(dev)
+    if info is None:
+        smem = _load(name).ckb_smem_optin(dev)
+        if smem <= 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed ({-smem})")
+        info = _device_info[dev] = (smem, torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
+    return info
+
+
+def launch_candidates(spec, v, name: str, per_column: bool = False) -> list[Geometry]:
+    """The :func:`candidates` of a launch of library ``name`` (``"ckb_fold"``
+    or ``"ckb_fold_fused"``) on the CUDA field ``v``: :func:`geometry`'s
+    first, then the others that the card can hold. The wrapper keeps one of
+    these."""
+    N, K = v.shape[-2:]
+    cands = candidates(math.prod(v.shape[:-2]), N, K, v.element_size(),
+                       *_card(name, _device_index(v)),
+                       owned=lambda cs: owned_max(spec, cs), per_column=per_column)
+    return [cands[0]] + [c for c in cands[1:] if _resident_clusters(name, v.dtype, c) > 0]
+
+
 def _geometry(spec, v, name: str, run, per_column: bool = False) -> Geometry:
     """The geometry of a launch of library ``name`` on ``v``, cached on the
     spec per (device, shape, dtype, library, coefficient mode). On a shape's
-    first launch every one of its :func:`candidates` that the card can hold
-    runs through ``run(geometry)`` (which launches into the caller's output;
-    the launches are not counted) and the fastest is kept. The card's
-    shared-memory budget and SM count are read once per device."""
-    dev = _device_index(v)
+    first launch every one of its :func:`launch_candidates` runs through
+    ``run(geometry)`` (which launches into the caller's output; the launches
+    are not counted) and the fastest is kept."""
     N, K = v.shape[-2:]
-    B = math.prod(v.shape[:-2])
-    key = ("cluster_geometry", dev, B, N, K, v.element_size(), name, per_column)
+    key = ("cluster_geometry", _device_index(v), math.prod(v.shape[:-2]), N, K,
+           v.element_size(), name, per_column)
     g = spec._cache.get(key)
     if g is None:
-        info = _device_info.get(dev)
-        if info is None:
-            smem = _load(name).ckb_smem_optin(dev)
-            if smem <= 0:
-                raise RuntimeError(f"cudaDeviceGetAttribute failed ({-smem})")
-            info = _device_info[dev] = (smem, torch.cuda.get_device_properties(dev)
-                                        .multi_processor_count)
-        cands = candidates(B, N, K, v.element_size(), *info,
-                           owned=lambda cs: owned_max(spec, cs), per_column=per_column)
-        cands = [cands[0]] + [c for c in cands[1:] if _resident_clusters(name, v.dtype, c) > 0]
+        cands = launch_candidates(spec, v, name, per_column)
         g = cands[0] if len(cands) == 1 else fastest(cands, _time_candidates(cands, run))
         spec._cache[key] = g
     return g
@@ -467,7 +491,7 @@ def _on_device(dev: int):
     return contextlib.nullcontext() if torch.cuda.current_device() == dev else torch.cuda.device(dev)
 
 
-def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor:
+def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float, geometry) -> torch.Tensor:
     global launches
     per_column = cosh_b.ndim == 3
     inner, cstride = _check(spec, cosh_b, sinh_b, v, per_column=True)
@@ -487,27 +511,29 @@ def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float) -> torch.Tensor
             raise RuntimeError(f"ckb_fold kernel launch failed: CUDA error {err}")
 
     with _on_device(dev):
-        run(_geometry(spec, v, "ckb_fold", run, per_column))
+        run(geometry or _geometry(spec, v, "ckb_fold", run, per_column))
     launches += 1
-    table_launches[f"fold/{TABLE_FORMS[cosh_b.ndim - 1]}"] += 1
+    _count("fold", cosh_b, v)
     return out
 
 
 def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
-         sign: float = 1.0) -> torch.Tensor:
+         sign: float = 1.0, geometry: Geometry | None = None) -> torch.Tensor:
     """The whole checkerboard fold of ``v`` ``[..., N, K]`` in direction
     ``(reverse, sign)``, with coefficients ``[Nb]``, ``[C, Nb]`` or
     ``[C, Nb, K]`` for a ``[C, ..., N, K]`` field: the CUDA kernel for a
-    CUDA tensor, the plain twin for a CPU tensor."""
+    CUDA tensor, the plain twin for a CPU tensor. ``geometry``: launch with
+    this one of :func:`launch_candidates` instead of the tuned one (to hold
+    every candidate against the twin)."""
     if v.device.type == "cuda":
-        return _launch(spec, cosh_b, sinh_b, v, reverse, sign)
+        return _launch(spec, cosh_b, sinh_b, v, reverse, sign, geometry)
     if v.device.type == "cpu":
         return ckb.fold(spec, cosh_b, sinh_b, v, reverse=reverse, sign=sign)
     raise ValueError(f"no checkerboard fold for device {v.device}")
 
 
 def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
-                  prev) -> torch.Tensor:
+                  prev, geometry) -> torch.Tensor:
     global fused_launches
     ckb.check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev)
     _, cstride = _check(spec, cosh_b, sinh_b, v, per_column=False)
@@ -533,25 +559,26 @@ def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
             raise RuntimeError(f"ckb_fold_fused kernel launch failed: CUDA error {err}")
 
     with _on_device(dev):
-        run(_geometry(spec, v, "ckb_fold_fused", run))
+        run(geometry or _geometry(spec, v, "ckb_fold_fused", run))
     fused_launches += 1
-    table_launches[f"fused/{TABLE_FORMS[cosh_b.ndim - 1]}"] += 1
+    _count("fused", cosh_b, v)
     return out
 
 
 def fold_fused(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
                sign: float = 1.0, pre=None, post=None, a, b, c: float = 0.0,
-               prev=None) -> torch.Tensor:
+               prev=None, geometry: Geometry | None = None) -> torch.Tensor:
     """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` on a
     ``[C, ..., N, K]`` field: coefficients ``[Nb]`` or per-chain
     ``[C, Nb]``, per-chain ``a``, ``b`` (``[C]``) and
     ``pre``/``post`` (``[C, N]`` or None), one number ``c``, ``prev`` (v's
     shape) or None. The CUDA kernel for a CUDA tensor, the plain twin
     :func:`..checkerboard.fold_fused` for a CPU tensor. The result is a new
-    tensor (it never aliases ``v`` or ``prev``)."""
+    tensor (it never aliases ``v`` or ``prev``). ``geometry`` as in
+    :func:`fold`."""
     if v.device.type == "cuda":
         return _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post,
-                             a, b, c, prev)
+                             a, b, c, prev, geometry)
     if v.device.type == "cpu":
         return ckb.fold_fused(spec, cosh_b, sinh_b, v, reverse=reverse, sign=sign,
                               pre=pre, post=post, a=a, b=b, c=c, prev=prev)

@@ -1,12 +1,14 @@
 """KPM (Chebyshev) preconditioner for the fermion-matrix solves.
 
-Counterpart of ``elphdynamics_tpu/ops/kpm.py`` (symmetric CG
-preconditioner, real hopping). In the Θ-twisted frequency basis the fermion
-matrix is block diagonal, M[ω,ω] = I − e^{−iφ(ω)}·Ā, with Ā the
-time-averaged single-slice propagator exp(−Δτ·K̄)·exp(−Δτ·V̄). The
-preconditioner approximates (MᵀM)⁻¹ per frequency by a Chebyshev expansion
-of f(z) = (1 − e^{−iφ}z)⁻¹ over the spectral window of Ā, run on the
-stacked-real half spectrum ``[..., N, 2Lω]``.
+Counterpart of ``elphdynamics_tpu/ops/kpm.py`` (real hopping). In the
+Θ-twisted frequency basis the fermion matrix is block diagonal,
+M[ω,ω] = I − e^{−iφ(ω)}·Ā, with Ā the time-averaged single-slice
+propagator exp(−Δτ·K̄)·exp(−Δτ·V̄). The preconditioner approximates M⁻¹ per
+frequency by a Chebyshev expansion of f(z) = (1 − e^{−iφ}z)⁻¹ over the
+spectral window of Ā, run on the stacked-real half spectrum
+``[..., N, 2Lω]``: the symmetric apply ≈ (MᵀM)⁻¹ is the transposed pass
+then the forward one (CG), the left apply ≈ M⁻¹ the forward pass alone and
+the right apply ≈ M⁻ᵀ the transposed pass alone (BiCGStab, GMRES).
 
 Chains: the state carries a leading chain axis. ``expnV_bar`` is
 ``[C, N]``; ``lam_avg``, ``lam_mag`` and ``active`` are ``[C]``;
@@ -28,8 +30,15 @@ Every matmul runs in full precision of the field dtype (the JAX package ran
 these at the TPU's DEFAULT precision); choosing a lower precision is a
 later, measured change.
 
-The ``stacked`` and ``exact_lowfreq`` options, complex hopping, and the
-left/right (BiCGStab/GMRES) preconditioners are not ported.
+Two options exist on the dense-Ā branch only, as in the JAX package:
+``stacked`` precomputes the dense T_m(Ā′) stack per setup/refresh so that a
+pass is one stacked matmul and a coefficient combine, and
+``exact_lowfreq = k`` inverts the k lowest Matsubara blocks exactly once
+per setup (a complex batched ``torch.linalg.inv``; the JAX package embeds
+them in real 2×2 blocks) and leaves the Chebyshev expansion the rest. The
+exact blocks enter the symmetric apply only; the left and right applies see
+those frequencies' coefficients zeroed, as in the JAX package. Complex
+hopping is not ported.
 """
 
 from __future__ import annotations
@@ -51,21 +60,15 @@ class KPMConfig:
     c1: float = 1.0          # order = (λhi−λlo)·(c1/φ + c2)
     c2: float = 1.0
     max_order: int = 64      # static cap on the expansion order
-    stacked: bool = False    # flattened dense T_m stack (not ported)
+    stacked: bool = False    # dense T_m(Ā′) stack per setup/refresh (dense Ā only)
     # τ↔ω by precomputed real DFT matmuls instead of FFTs; None = Lτ <= 256
     dft_matmul: bool | None = None
-    exact_lowfreq: int = 0   # exact low-frequency blocks (not ported)
+    exact_lowfreq: int = 0   # exact inverses of the k lowest frequency blocks (dense Ā only)
 
     def use_dft(self, Ltau: int) -> bool:
         if self.dft_matmul is None:
             return Ltau <= 256
         return self.dft_matmul
-
-    def check_ported(self) -> None:
-        if self.stacked:
-            raise NotImplementedError("KPMConfig.stacked: ROADMAP slice E")
-        if self.exact_lowfreq:
-            raise NotImplementedError("KPMConfig.exact_lowfreq: ROADMAP slice E")
 
 
 @dataclass(frozen=True)
@@ -83,6 +86,11 @@ class KPMState:
     expK_inv: torch.Tensor | None = None
     dft_f: torch.Tensor | None = None     # [Lτ, 2Lω] τ→ω DFT table
     dft_b: torch.Tensor | None = None     # [2Lω, Lτ] ω→τ DFT table
+    # KPMConfig.stacked: [C, M, N, N] T_m(Ā′) and their transposes
+    S_fwd: torch.Tensor | None = None
+    S_tr: torch.Tensor | None = None
+    # KPMConfig.exact_lowfreq: complex [C, k, N, N] (I − e^{−iφ_j}Ā)⁻¹
+    G_low: torch.Tensor | None = None
 
 
 def _avg_operator(ops: ModelOps, params, derived):
@@ -183,6 +191,62 @@ def _mulA_inv(st: KPMState, spec_ckb, v):
     return w / _site_diag(st.expnV_bar, v)
 
 
+def _dense_A(st: KPMState) -> torch.Tensor:
+    """Ā = exp(−Δτ·K̄)·diag(exp(−Δτ·V̄)) per chain, ``[C, N, N]``."""
+    return st.expK * st.expnV_bar[:, None, :]
+
+
+def _build_stack(st: KPMState, M: int):
+    """The dense T_m(Ā′) stack ``[C, M, N, N]`` and its per-block transpose:
+    Ā′ = (Ā − λavg)/λmag, T₀ = I, T₁ = Ā′, T_{m+1} = 2Ā′T_m − T_{m−1}."""
+    A = _dense_A(st)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    Ap = A / st.lam_mag[:, None, None] - (st.lam_avg / st.lam_mag)[:, None, None] * eye
+    Ts = [eye.expand_as(Ap), Ap]
+    for _ in range(M - 2):
+        Ts.append(2.0 * torch.matmul(Ap, Ts[-1]) - Ts[-2])
+    S = torch.stack(Ts[:M], dim=1)
+    return S, S.mT.contiguous()
+
+
+def _stacked_cheb(S2: torch.Tensor, coeff: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σₘ c_m(ω)·(block m of ``S2``)·w(ω) on the stacked-real layout: one
+    stacked real matmul and a complex coefficient combine. Equals the
+    recurrence of :func:`_chebyshev_apply_stacked` (``S2`` holds T_m or
+    T_mᵀ)."""
+    Lw = w.shape[-1] // 2
+    mid = (1,) * (w.ndim - 3)
+    S2 = S2.to(w.dtype).reshape(S2.shape[:1] + mid + S2.shape[1:])
+    t = torch.matmul(S2, w.unsqueeze(-3))                      # [C, ..., M, N, 2Lω]
+    tr, ti = t[..., :Lw], t[..., Lw:]
+    cshape = coeff.shape[:1] + mid + (coeff.shape[1], 1, Lw)
+    cr = coeff.real.to(w.dtype).reshape(cshape)
+    ci = coeff.imag.to(w.dtype).reshape(cshape)
+    return torch.cat([(cr * tr - ci * ti).sum(dim=-3), (cr * ti + ci * tr).sum(dim=-3)], dim=-1)
+
+
+def _lowfreq_blocks(st: KPMState, k: int, Ltau: int) -> torch.Tensor:
+    """G_j = (I − e^{−iφ_j}Ā)⁻¹ for the k lowest Matsubara frequencies,
+    complex ``[C, k, N, N]``, by one batched complex inverse. Built once per
+    full setup: the ``buf`` window that lets the bounds stay frozen along a
+    trajectory covers these blocks equally."""
+    A = _dense_A(st)
+    phis = torch.as_tensor(2.0 * np.pi / Ltau * (np.arange(k) + 0.5), device=A.device).to(A.dtype)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    blocks = eye - torch.exp(-1j * phis)[None, :, None, None] * A[:, None]
+    return torch.linalg.inv(blocks)
+
+
+def _lowfreq_apply_sym(st: KPMState, ur, ui):
+    """Exact G·Gᴴ on the first k frequency columns, given and returned as
+    their real and imaginary halves ``[C, ..., N, k]``."""
+    G = st.G_low
+    u = torch.complex(ur, ui).to(G.dtype)
+    t = torch.einsum("ckmn,c...mk->c...nk", G.conj(), u)
+    w = torch.einsum("cknm,c...mk->c...nk", G, t)
+    return w.real.to(ur.dtype), w.imag.to(ur.dtype)
+
+
 def _spectral_radius(apply_fn, v0: torch.Tensor, n_chains: int, n_iter: int):
     """Power-iteration estimate of the dominant |eigenvalue| per chain, from
     the start vector ``v0`` ``[N, 1]`` shared by all chains."""
@@ -249,7 +313,6 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     """Build the KPM state for phonon fields ``x`` ``[C, N, Lτ]``.
     ``start`` is the pair of power-iteration start vectors
     (:func:`start_vectors`)."""
-    cfg.check_ported()
     if x.ndim != 3:
         raise ValueError(f"x must be [C, N, Ltau], got {tuple(x.shape)}")
     C = x.shape[0]
@@ -299,7 +362,18 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     order = torch.clamp(order, 1, M)
     morder = torch.arange(M, device=device)[None, :, None] < order[:, None, :]
     coeff = torch.where(morder, coeff, torch.zeros_like(coeff))
-    return replace(st0, lam_avg=lam_avg, lam_mag=lam_mag, coeff=coeff, active=active)
+    st = replace(st0, lam_avg=lam_avg, lam_mag=lam_mag, coeff=coeff, active=active)
+    if cfg.stacked and expK is not None:
+        S_fwd, S_tr = _build_stack(st, M)
+        st = replace(st, S_fwd=S_fwd, S_tr=S_tr)
+    if cfg.exact_lowfreq > 0 and expK is not None:
+        k = min(cfg.exact_lowfreq, Lw)
+        # the exact blocks replace those columns: their Chebyshev
+        # coefficients are zeroed so the polynomial adds nothing there
+        coeff = st.coeff.clone()
+        coeff[:, :, :k] = 0.0
+        st = replace(st, G_low=_lowfreq_blocks(st, k, Ltau), coeff=coeff)
+    return st
 
 
 def refresh(ops: ModelOps, st: KPMState, params, x) -> KPMState:
@@ -312,6 +386,9 @@ def refresh(ops: ModelOps, st: KPMState, params, x) -> KPMState:
     if not ops.is_holstein and st.expK is not None:
         expK, expK_inv = _dense_avg(ops, cosh_bar, sinh_bar)
         st = replace(st, expK=expK, expK_inv=expK_inv)
+    if st.S_fwd is not None:
+        S_fwd, S_tr = _build_stack(st, st.coeff.shape[1])
+        st = replace(st, S_fwd=S_fwd, S_tr=S_tr)
     return st
 
 
@@ -385,29 +462,66 @@ def _chebyshev_apply_stacked_fused(ops: ModelOps, st: KPMState, w, coeff,
     return out
 
 
-def apply_symmetric(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None = None):
-    """P⁻¹ ≈ (MᵀM)⁻¹ on a real ``[C, ..., N, Lτ]`` field: τ→ω, the per-ω
-    [M⁻ᵀ·M⁻¹] Chebyshev pair on the half spectrum, ω→τ. Chains whose
-    spectral window is invalid get the identity."""
+def _pass(ops: ModelOps, st: KPMState, w, transposed: bool):
+    """One Chebyshev pass on the stacked-real layout: the forward polynomial
+    ≈ M⁻¹ per frequency, or the transposed one (conjugate coefficients, Āᵀ)
+    ≈ M⁻ᵀ; by the dense stack when the state holds one."""
+    coeff = st.coeff.conj_physical() if transposed else st.coeff
+    if st.S_fwd is not None:
+        return _stacked_cheb(st.S_tr if transposed else st.S_fwd, coeff, w)
+    return _chebyshev_apply_stacked(ops, st, w, coeff, transposed)
+
+
+def _apply(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None, passes, exact: bool):
+    """τ→ω, the Chebyshev ``passes`` (each ``transposed`` or not) on the
+    half spectrum, the exact low-frequency blocks where the state holds
+    them and ``exact`` asks, ω→τ. Chains whose spectral window is invalid
+    get the identity."""
     Ltau = ops.Ltau
+    Lw = (Ltau + 1) // 2
     use_dft = cfg is not None and cfg.use_dft(Ltau)
     w_in = _to_half_stacked(st, v, Ltau, use_dft)
-    w = _chebyshev_apply_stacked(ops, st, w_in, st.coeff.conj_physical(), transposed=True)
-    w = _chebyshev_apply_stacked(ops, st, w, st.coeff, transposed=False)
+    w = w_in
+    for transposed in passes:
+        w = _pass(ops, st, w, transposed)
+    if exact and st.G_low is not None:
+        k = st.G_low.shape[1]
+        lr, li = _lowfreq_apply_sym(st, w_in[..., :k], w_in[..., Lw:Lw + k])
+        w = torch.cat([lr, w[..., k:Lw], li, w[..., Lw + k:]], dim=-1)
     out = _from_half_stacked(st, w, Ltau, v.dtype, use_dft)
     active = st.active.reshape(st.active.shape + (1,) * (v.ndim - 1))
     return torch.where(active, out, v)
+
+
+def apply_symmetric(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None = None):
+    """P⁻¹ ≈ (MᵀM)⁻¹ on a real ``[C, ..., N, Lτ]`` field: the per-ω
+    [M⁻ᵀ·M⁻¹] Chebyshev pair (the CG preconditioner)."""
+    return _apply(ops, st, v, cfg, (True, False), exact=True)
+
+
+def apply_left(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None = None):
+    """P⁻¹ ≈ M⁻¹: the forward pass alone (BiCGStab / GMRES on M)."""
+    return _apply(ops, st, v, cfg, (False,), exact=False)
+
+
+def apply_right(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None = None):
+    """P⁻¹ ≈ M⁻ᵀ: the transposed pass alone (BiCGStab / GMRES on Mᵀ)."""
+    return _apply(ops, st, v, cfg, (True,), exact=False)
 
 
 @dataclass(frozen=True)
 class Preconditioner:
     """``setup(params, x, start=None)`` runs the full spectral-bounds and
     coefficient build; ``refresh(st, params, x)`` re-derives only the
-    averaged operator; ``symmetric(st, v)`` applies P⁻¹."""
+    averaged operator; ``symmetric(st, v)``, ``left(st, v)`` and
+    ``right(st, v)`` apply P⁻¹ (the last two None on a symmetric-only
+    preconditioner)."""
 
     setup: object
     refresh: object
     symmetric: object
+    left: object = None
+    right: object = None
 
 
 def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
@@ -415,7 +529,6 @@ def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
     per update, cheap refresh and apply inside the solves. The power
     iteration starts from two fixed vectors drawn from ``seed``; a caller
     may pass others to ``setup``."""
-    cfg.check_ported()
     fixed = start_vectors(ops.Nsites, seed)
     return Preconditioner(
         setup=lambda params, x, start=None: setup(ops, params, x, cfg,
@@ -423,3 +536,11 @@ def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
         refresh=lambda st, params, x: refresh(ops, st, params, x),
         symmetric=lambda st, v: apply_symmetric(ops, st, v, cfg),
     )
+
+
+def make_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
+    """:class:`Preconditioner` for all three solver kinds: the symmetric
+    apply for CG, the left and right ones for BiCGStab and GMRES."""
+    return replace(make_symmetric_precond(ops, cfg, seed),
+                   left=lambda st, v: apply_left(ops, st, v, cfg),
+                   right=lambda st, v: apply_right(ops, st, v, cfg))

@@ -4,6 +4,8 @@ Counterpart of ``elphdynamics_tpu/simulation.py``. One call runs: config →
 datafolder naming (auto-incrementing ``-<id>`` suffix) → new run or resume
 → burn-in → sampling with measurements every ``meas_freq`` updates → bins
 → summary, with checkpoints on a wall-clock cadence and at bin boundaries.
+The sampler is HMC (``[hmc]``) or Langevin dynamics (``[langevin]``, where
+an update is one time step and every step is accepted).
 
 The ``n_chains`` Markov chains are one batch on the device (an explicit
 leading chain axis). Measurements average over the chains within each bin;
@@ -17,9 +19,9 @@ are the rows of ``hmc_sim_log.out`` (``[hmc] log = true``), drained every
 leapfrog step) reads them every update.
 
 Not ported: sharding chains or the lattice over several devices and
-multi-host runs (ROADMAP slice H), Langevin dynamics (D), ``tune_dt`` (G),
-parallel tempering (G), deflation and the near-null preconditioner (I);
-``build_setup`` raises for each.
+multi-host runs (ROADMAP slice H), ``tune_dt`` (G), parallel tempering (G),
+deflation and the near-null preconditioner (I); ``build_setup`` raises for
+each.
 """
 
 from __future__ import annotations
@@ -30,13 +32,14 @@ import math
 import os
 import shutil
 import time
-from dataclasses import fields, replace
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
 from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
+from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
 from elphdynamics_tpu_torch.dynamics.special_updates import (
     make_reflection_update, make_swap_update)
 from elphdynamics_tpu_torch.io import checkpoint as ckpt
@@ -107,6 +110,31 @@ def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda"
     finally:
         logger.removeHandler(handler)
         handler.close()
+
+
+@dataclass(frozen=True)
+class _LangevinUpdate:
+    """A Langevin step's statistics in the shape the driver folds: every
+    step is accepted."""
+
+    accepted: torch.Tensor
+    iters: torch.Tensor
+    flag: torch.Tensor
+
+
+def _langevin_update(setup: SimulationSetup, precond):
+    """The Langevin step as a sampler update ``(params, state, generator) ->
+    (state, stats)``; the momenta of ``state`` ride along untouched."""
+    lstep = make_langevin_step(setup.ops, setup.fa_Q, setup.langevin_dt, setup.langevin_method,
+                               setup.solver_cfg, precond)
+
+    def update(params, state: HMCState, generator):
+        x, stats = lstep(params, state.x, generator)
+        return replace(state, x=x), _LangevinUpdate(
+            accepted=torch.ones_like(stats.flag, dtype=torch.bool), iters=stats.iters,
+            flag=stats.flag)
+
+    return update
 
 
 class _Stats:
@@ -242,11 +270,13 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     mspec = setup.mspec
     resume = ckpt.has_checkpoint(datafolder)
 
-    precond = (kpm.make_symmetric_precond(ops, setup.kpm_cfg)
-               if setup.kpm_cfg is not None else None)
-    sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
-    burnin_step = (sim_step if setup.hmc_burnin_cfg == setup.hmc_cfg
-                   else make_hmc_step(ops, setup.fa_mass, setup.hmc_burnin_cfg, precond))
+    precond = kpm.make_precond(ops, setup.kpm_cfg) if setup.kpm_cfg is not None else None
+    if setup.dynamics_type == "hmc":
+        sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
+        burnin_step = (sim_step if setup.hmc_burnin_cfg == setup.hmc_cfg
+                       else make_hmc_step(ops, setup.fa_mass, setup.hmc_burnin_cfg, precond))
+    else:
+        sim_step = burnin_step = _langevin_update(setup, precond)
     mstep = make_measurement_step(ops, mspec, setup.solver_cfg, precond)
     reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
     swap = make_swap_update(ops, setup.swap_cfg, precond)
@@ -298,7 +328,7 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     state = HMCState(x=x, v=v)
 
     stats_acc = _Stats(dev)
-    hmc_table = setup.config["hmc"]
+    hmc_table = setup.config.get("hmc", {})
     hmc_log = _HMCLog(os.path.join(datafolder, "hmc_sim_log.out")
                       if hmc_table.get("log", False) else None, n_chains, dev)
     # verbose rows are per leapfrog step: read them (and the stats) every update

@@ -1,19 +1,26 @@
-"""Batched conjugate gradient with masked per-system convergence.
+"""Batched iterative solvers with masked per-system convergence.
 
-Counterpart of the CG part of ``elphdynamics_tpu/solvers.py`` (``cg`` and
-``solve_checked``). Fields are ``[..., N, Lτ]``; every leading index is an
-independent system. All systems iterate together and stop individually
-through masks: an iteration changes nothing for a system that has
-converged or hit the κ bound, so extra iterations are harmless.
+Counterpart of ``elphdynamics_tpu/solvers.py``: ``cg``, ``cg_split``,
+``block_cg``, ``bicgstab``, ``gmres`` and the residual-verified wrappers
+``solve_checked`` / ``block_solve_checked``. Fields are ``[..., N, Lτ]``;
+every leading index is an independent system (for :func:`block_cg` the
+axis before the field axes is the block of right-hand sides that share one
+operator). All systems iterate together and stop individually through
+masks: an iteration changes nothing for a system that has converged, hit
+the κ bound or broken down, so extra iterations are harmless.
 
-The JAX loop is a ``lax.while_loop`` whose condition reads ``any(active)``
-on the device. Here that flag is read on the host only once every
-``CG_SYNC_EVERY`` iterations, and the retry ladder of :func:`solve_checked`
-runs only when a verification failed — one host sync per solve for it.
+The JAX loops are ``lax.while_loop`` programs whose condition reads
+``any(active)`` on the device. Here that flag is read on the host only
+once every ``CG_SYNC_EVERY`` iterations (GMRES: at that cadence inside a
+restart cycle and once per cycle), and the retry ladders run only when a
+verification failed — one host sync per solve for them.
 
-Dot products and norms accumulate in float64
+Dot products, norms and Gram matrices accumulate in float64
 (:mod:`elphdynamics_tpu_torch.utils.dtypes`); scalars are cast back to the
-field dtype before they touch a field.
+field dtype before they touch a field. The block updates of
+:func:`block_cg` are matmuls in the field dtype. They must not run in TF32
+(a low-precision block update breaks block CG's A-conjugacy): callers leave
+``torch.backends.cuda.matmul.allow_tf32`` off, which is PyTorch's default.
 """
 
 from __future__ import annotations
@@ -58,6 +65,18 @@ def _nonzero(a):
     return torch.where(a != 0, a, torch.ones_like(a))
 
 
+def _positive(a):
+    return torch.where(a > 0, a, torch.ones_like(a))
+
+
+def _kappa_bound(kmin, eps0, eps, j: int):
+    """The running condition-number lower bound (2(j+1)/log(2ε₀/ε))² with
+    the signed log of the reference formula; only ε ≈ 2ε₀ is guarded."""
+    logr = torch.log(2.0 * eps0 / torch.where(eps > 0, eps, torch.full_like(eps, 1e-300)))
+    logr = torch.where(logr.abs() > 1e-12, logr, torch.full_like(logr, 1e-12))
+    return torch.maximum(kmin, (2.0 * (j + 1) / logr) ** 2)
+
+
 @dataclass(frozen=True)
 class CGResult:
     x: torch.Tensor
@@ -77,7 +96,7 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     P = apply_P if apply_P is not None else (lambda v: v)
 
     normb = _norm(b)
-    safe_normb = torch.where(normb > 0, normb, torch.ones_like(normb))
+    safe_normb = _positive(normb)
     r = b - apply_A(x0)
     z = P(r)
     rdotz = _dot(r, z)
@@ -102,10 +121,7 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
         x_new = x + _bc(alpha, x) * p
         r_new = r - _bc(alpha, r) * Ap
         eps = _norm_hot(r_new) / safe_normb
-        # the signed log of the reference formula; only ε ≈ 2ε₀ is guarded
-        logr = torch.log(2.0 * eps0 / torch.where(eps > 0, eps, torch.full_like(eps, 1e-300)))
-        logr = torch.where(logr.abs() > 1e-12, logr, torch.full_like(logr, 1e-12))
-        kmin_new = torch.maximum(kmin, (2.0 * (j + 1) / logr) ** 2)
+        kmin_new = _kappa_bound(kmin, eps0, eps, j)
         done = (eps < tol) | (kmin_new > kappa_max)
         z_new = P(r_new)
         rdotz_new = _dot_hot(r_new, z_new)
@@ -144,15 +160,25 @@ def solve_checked(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = 
     A_chk = apply_A_check if apply_A_check is not None else apply_A
     res1 = cg(apply_A, b, x0=x0, apply_P=apply_P, tol=tol, maxiter=maxiter,
               kappa_max=kappa_max)
+    return _verify_and_retry(A_chk, b, res1, tol, maxiter, kappa_max,
+                             retry=apply_P is not None)
+
+
+def _verify_and_retry(A_chk, b, res1: CGResult, tol: float, maxiter: int, kappa_max: float,
+                      retry: bool = True) -> SolveResult:
+    """The ladder shared by :func:`solve_checked` and
+    :func:`block_solve_checked`: verify ``res1`` against ``A_chk``, flag the
+    systems above √tol and re-solve them from zero by plain masked CG. The
+    retry runs only when a system failed (one host read)."""
     normb = _norm(b)
-    safe_normb = torch.where(normb > 0, normb, torch.ones_like(normb))
+    safe_normb = _positive(normb)
     err = _norm(A_chk(res1.x) - b) / safe_normb
     sq = math.sqrt(tol)
     bad = err > sq
     one, two, zero = (torch.full_like(res1.iters, k) for k in (1, 2, 0))
     flag = torch.where(bad, torch.where(res1.iters >= maxiter, one, two), zero)
 
-    if apply_P is None or not bool(bad.any()):
+    if not retry or not bool(bad.any()):
         return SolveResult(x=res1.x, iters=res1.iters, residual=err, flag=flag)
 
     x_start = torch.where(_bc(bad, res1.x), torch.zeros_like(res1.x), res1.x)
@@ -163,3 +189,326 @@ def solve_checked(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = 
     still_bad = bad & (err2 > sq)
     flag = torch.where(still_bad, flag, zero)
     return SolveResult(x=x, iters=res1.iters + res2.iters, residual=err2, flag=flag)
+
+
+def cg_split(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+             apply_Linv: Callable, apply_LTinv: Callable, tol: float = 1e-5,
+             maxiter: int = 1000, kappa_max: float = 1e12) -> CGResult:
+    """CG with a split preconditioner L/Lᵀ: iterates the transformed system
+    ``[L⁻¹·A·L⁻ᵀ]·u = L⁻¹·b`` with u = Lᵀ·x carried implicitly. The residual
+    criterion is ``|L⁻ᵀL⁻¹(A·x−b)| / |L⁻ᵀL⁻¹b|``; masks and the κ bound as in
+    :func:`cg`."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    r = apply_Linv(b - apply_A(x0))
+    p = apply_LTinv(r)
+    safe_normLb = _positive(_norm(apply_LTinv(apply_Linv(b))))
+    eps0 = _norm(p) / safe_normLb
+    rdotr = _dot(r, r)
+    active = eps0 >= tol
+    conv = eps0 < tol
+    x = x0
+    kmin = torch.zeros_like(eps0)
+    iters = torch.zeros(b.shape[:-2], dtype=torch.int32, device=b.device)
+
+    for j in range(maxiter):
+        if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
+            break
+        Ap = apply_A(p)
+        alpha = rdotr / _nonzero(_dot_hot(p, Ap))
+        x_new = x + _bc(alpha, x) * p
+        r_new = r - _bc(alpha, r) * apply_Linv(Ap)
+        rdotr_new = _dot_hot(r_new, r_new)
+        beta = rdotr_new / _nonzero(rdotr)
+        p_new = apply_LTinv(r_new) + _bc(beta, p) * p
+        eps = _norm_hot(p_new) / safe_normLb
+        kmin_new = _kappa_bound(kmin, eps0, eps, j)
+        done = (eps < tol) | (kmin_new > kappa_max)
+
+        m = _bc(active, x)
+        x = torch.where(m, x_new, x)
+        r = torch.where(m, r_new, r)
+        p = torch.where(m, p_new, p)
+        rdotr = torch.where(active, rdotr_new, rdotr)
+        kmin = torch.where(active, kmin_new, kmin)
+        iters = iters + active.to(torch.int32)
+        conv = conv | (active & (eps < tol))
+        active = active & ~done
+    return CGResult(x=x, iters=iters, converged=conv)
+
+
+def _colsolve(G: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Batched s×s solve G⁻¹·C with the diagonal scaling
+    D⁻½·(D⁻½GD⁻½)⁻¹·D⁻½ folded in (a unit diagonal conditions the Gram
+    matrix as a per-iteration column normalisation would). s = 2 uses the
+    closed-form inverse; larger blocks one batched LU without the error
+    check's host read (``torch.linalg.solve_ex``)."""
+    dg = torch.diagonal(G, dim1=-2, dim2=-1)
+    sc = 1.0 / torch.sqrt(_positive(dg))
+    Gh = G * sc[..., :, None] * sc[..., None, :]
+    Ch = sc[..., :, None] * C
+    if G.shape[-1] == 2:
+        a, b, b2, c = Gh[..., 0, 0], Gh[..., 0, 1], Gh[..., 1, 0], Gh[..., 1, 1]
+        det = _nonzero(a * c - b * b2)[..., None]
+        Y = torch.stack([(c[..., None] * Ch[..., 0, :] - b[..., None] * Ch[..., 1, :]) / det,
+                         (a[..., None] * Ch[..., 1, :] - b2[..., None] * Ch[..., 0, :]) / det],
+                        dim=-2)
+    else:
+        Y = torch.linalg.solve_ex(Gh, Ch).result
+    return sc[..., :, None] * Y
+
+
+def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None, *,
+             apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
+             kappa_max: float = 1e12, active0: torch.Tensor | None = None) -> CGResult:
+    """Breakdown-guarded block CG: ``A·X = B`` for ``s`` right-hand sides
+    ``[..., s, N, Lτ]`` that share the operator, the search block spanning
+    all residuals (O'Leary 1980). Leading axes before ``s`` are independent
+    blocks (chains).
+
+    * converged columns freeze: they are zeroed out of the direction block
+      and the Gram matrix gets a unit diagonal in their slot;
+    * the Gram solves are scaled to a unit diagonal (:func:`_colsolve`);
+    * α and β come from the explicit Gram solves ``(PᵀAP)α = PᵀR`` and
+      ``(PᵀAP)β = −QᵀZ``, not from the ρ recursion;
+    * the Gram matrices accumulate in float64, the block updates are field
+      dtype matmuls (TF32 matmuls must be off, as they are by default)."""
+    if B.ndim < 3:
+        raise ValueError("block_cg needs [..., s, N, Ltau] right-hand sides")
+    if X0 is None:
+        X0 = torch.zeros_like(B)
+    P = apply_P if apply_P is not None else (lambda v: v)
+    s = B.shape[-3]
+    field = B.shape[-2:]
+    flat = B.shape[:-2] + (field[0] * field[1],)
+
+    def gram(U, W):
+        """[..., a, b] = Σ U[..., a]·W[..., b] over the field, in float64."""
+        return torch.matmul(U.reshape(flat).double(), W.reshape(flat).double().mT)
+
+    def combine(U, coef):
+        """Σₐ U[..., a]·coef[..., a, b] as a [..., b] block."""
+        return torch.matmul(coef.to(U.dtype).mT, U.reshape(flat)).reshape(U.shape)
+
+    safe_normb = _positive(_norm(B))            # [..., s]
+    R = B - apply_A(X0)
+    Z = P(R)
+    eps0 = _norm(R) / safe_normb
+
+    batch = B.shape[:-2]
+    active = torch.ones(batch, dtype=torch.bool, device=B.device)
+    if active0 is not None:
+        active = active & active0
+    active = active & (eps0 >= tol)
+    conv = eps0 < tol
+
+    Pd = Z * _bc(active, Z)
+    Pd = Pd / _bc(_positive(_norm_hot(Pd)), Pd)
+    X = X0
+    kmin = torch.zeros_like(eps0)
+    iters = torch.zeros(batch, dtype=torch.int32, device=B.device)
+    eye = torch.eye(s, dtype=torch.float64, device=B.device)
+
+    for j in range(maxiter):
+        if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
+            break
+        Pd = Pd * _bc(active, Pd)
+        Q = apply_A(Pd)
+        # frozen slots: a unit diagonal keeps the batched LU non-singular
+        G = gram(Pd, Q) + eye * (~active).to(torch.float64)[..., None, :]
+        alpha = _colsolve(G, gram(Pd, R)) * active[..., None, :].to(torch.float64)
+        X_new = X + combine(Pd, alpha)
+        R_new = R - combine(Q, alpha)
+        eps = _norm_hot(R_new) / safe_normb
+        kmin_new = _kappa_bound(kmin, eps0, eps, j)
+        done = (eps < tol) | (kmin_new > kappa_max)
+        Z_new = P(R_new) * _bc(active & ~done, R_new)
+        beta = _colsolve(G, -gram(Q, Z_new))
+        Pd_new = Z_new + combine(Pd, beta)
+
+        m = _bc(active, X)
+        X = torch.where(m, X_new, X)
+        R = torch.where(m, R_new, R)
+        Pd = torch.where(m, Pd_new, torch.zeros_like(Pd_new))
+        kmin = torch.where(active, kmin_new, kmin)
+        iters = iters + active.to(torch.int32)
+        conv = conv | (active & (eps < tol))
+        active = active & ~done
+    return CGResult(x=X, iters=iters, converged=conv)
+
+
+def block_solve_checked(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None, *,
+                        apply_P: Callable | None = None, tol: float = 1e-5,
+                        maxiter: int = 1000, kappa_max: float = 1e12,
+                        apply_A_check: Callable | None = None) -> SolveResult:
+    """:func:`block_cg` with the residual verification and retry ladder of
+    :func:`solve_checked`; failed columns are re-solved by plain
+    unpreconditioned masked CG."""
+    A_chk = apply_A_check if apply_A_check is not None else apply_A
+    res1 = block_cg(apply_A, B, X0=X0, apply_P=apply_P, tol=tol, maxiter=maxiter,
+                    kappa_max=kappa_max)
+    return _verify_and_retry(A_chk, B, res1, tol, maxiter, kappa_max)
+
+
+def bicgstab(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+             apply_P: Callable | None = None, tol: float = 1e-5,
+             maxiter: int = 1000) -> CGResult:
+    """Preconditioned BiCGStab for a non-symmetric ``A``, batched with masked
+    convergence. A breakdown (ρ = 0 or ω = 0) stops that system through the
+    masks; no host branch looks at it."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    P = apply_P if apply_P is not None else (lambda v: v)
+
+    safe_normb = _positive(_norm(b))
+    r = b - apply_A(x0)
+    rt = r
+    eps0 = _norm(r) / safe_normb
+    batch = b.shape[:-2]
+    x = x0
+    pvec, v = torch.zeros_like(b), torch.zeros_like(b)
+    rho_old, omega = torch.ones_like(eps0), torch.ones_like(eps0)
+    alpha = torch.zeros_like(eps0)
+    iters = torch.zeros(batch, dtype=torch.int32, device=b.device)
+    active, conv = eps0 >= tol, eps0 < tol
+
+    for j in range(maxiter):
+        if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
+            break
+        rho = _dot_hot(rt, r)
+        breakdown = rho == 0
+        beta = (rho / _nonzero(rho_old)) * (alpha / _nonzero(omega))
+        p_new = r + _bc(beta, r) * (pvec - _bc(omega, v) * v)
+        phat = P(p_new)
+        v_new = apply_A(phat)
+        alpha_new = rho / _nonzero(_dot_hot(rt, v_new))
+        s = r - _bc(alpha_new, r) * v_new
+        early = _norm_hot(s) / safe_normb < tol
+        shat = P(s)
+        t = apply_A(shat)
+        omega_new = _dot_hot(t, s) / _nonzero(_dot_hot(t, t))
+        x_early = x + _bc(alpha_new, x) * phat
+        x_full = x_early + _bc(omega_new, x) * shat
+        r_new = s - _bc(omega_new, r) * t
+        eps = _norm_hot(r_new) / safe_normb
+        done = early | (eps < tol) | breakdown | (omega_new == 0)
+
+        m = _bc(active, x)
+        x = torch.where(m, torch.where(_bc(early, x), x_early, x_full), x)
+        r = torch.where(m, r_new, r)
+        pvec = torch.where(m, p_new, pvec)
+        v = torch.where(m, v_new, v)
+        rho_old = torch.where(active, rho, rho_old)
+        alpha = torch.where(active, alpha_new, alpha)
+        omega = torch.where(active, omega_new, omega)
+        iters = iters + active.to(torch.int32)
+        conv = conv | (active & (early | (eps < tol)))
+        active = active & ~done
+    return CGResult(x=x, iters=iters, converged=conv)
+
+
+def gmres(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+          apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
+          restart: int = 20, side: str = "right") -> CGResult:
+    """Preconditioned restarted GMRES, batched over the leading axes of ``b``.
+
+    All systems share one restart-cycle loop: the Krylov basis ``V`` is
+    ``[m+1, ..., N, Lτ]`` (one buffer for the whole solve), the Hessenberg
+    and rotation state is per system (``[..., m+1, m]``, float64). A system
+    that converges inside a cycle freezes: its basis rows are zero, its
+    Hessenberg columns are zero and its rotations stop, so floor-level
+    Arnoldi columns never reach the back-substitution. Converged systems
+    stop counting iterations and take no update at later restarts.
+
+    Orthogonalisation is classical Gram-Schmidt applied twice, each pass one
+    batched product against the whole basis (the JAX package's modified
+    Gram-Schmidt is a loop over basis rows). The Givens rotations are kept
+    as their accumulated product ``Qr`` ``[..., m+1, m+1]``: a new Hessenberg
+    column is rotated by one batched product, and the residual estimate is
+    ``β·Qr[:, 0]``.
+
+    ``side`` selects right (default) or left preconditioning. Right solves
+    (A·P)u = b with x = P·u, whose Givens estimate is the true residual;
+    left tracks ‖P(b−Ax)‖.
+
+    Host reads: ``all(done)`` every ``CG_SYNC_EVERY`` Arnoldi steps (leaving
+    a cycle early changes nothing: frozen systems contribute zero columns)
+    and once per restart cycle."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    P = apply_P if apply_P is not None else (lambda v: v)
+    right = apply_P is not None and side == "right"
+    m = restart
+    n_outer = max(1, -(-maxiter // m))
+    batch = tuple(b.shape[:-2])
+    dt, dev, f64 = b.dtype, b.device, torch.float64
+
+    normb = _positive(_norm(b if right else P(b)))
+    x = x0
+    iters = torch.zeros(batch, dtype=torch.int32, device=dev)
+    done_all = torch.zeros(batch, dtype=torch.bool, device=dev)
+    V = b.new_empty((m + 1,) + tuple(b.shape))
+
+    def project(w, n):
+        """Coefficients of ``w`` on the first ``n`` basis rows, and ``w``
+        with them removed."""
+        h = fdot(V[:n], w[None], dim=(-2, -1))               # [n, ...]
+        return h, w - (V[:n] * h[..., None, None].to(dt)).sum(dim=0)
+
+    for _ in range(n_outer):
+        if bool(done_all.all()):
+            break
+        r = (b - apply_A(x)) if right else P(b - apply_A(x))
+        beta = _norm_hot(r)
+        V[0] = r / _bc(_positive(beta), r)
+        H = torch.zeros(batch + (m + 1, m), dtype=f64, device=dev)
+        Qr = torch.eye(m + 1, dtype=f64, device=dev).expand(batch + (m + 1, m + 1)).contiguous()
+        done = done_all | (beta / normb < tol)
+        n = 0
+        for i in range(m):
+            if i % CG_SYNC_EVERY == 0 and bool(done.all()):
+                break
+            w = apply_A(P(V[i])) if right else P(apply_A(V[i]))
+            h, w = project(w, i + 1)
+            h2, w = project(w, i + 1)
+            hip = _norm_hot(w)
+            V[i + 1] = torch.where(_bc(done, w), torch.zeros_like(w), w / _bc(_positive(hip), w))
+            col = torch.zeros(batch + (m + 1,), dtype=f64, device=dev)
+            col[..., :i + 1] = torch.movedim(h + h2, 0, -1)
+            col[..., i + 1] = hip
+            col = torch.matmul(Qr, col[..., None])[..., 0]
+            # the new rotation zeroes col[i+1]
+            a, c = col[..., i], col[..., i + 1]
+            denom = torch.sqrt(a * a + c * c)
+            ci = torch.where(denom > 0, a / _positive(denom), torch.ones_like(a))
+            si = torch.where(denom > 0, c / _positive(denom), torch.zeros_like(a))
+            col[..., i] = ci * a + si * c
+            col[..., i + 1] = 0.0
+            fr = done[..., None]
+            qi, qi1 = Qr[..., i, :], Qr[..., i + 1, :]
+            new_qi = torch.where(fr, qi, ci[..., None] * qi + si[..., None] * qi1)
+            new_qi1 = torch.where(fr, qi1, ci[..., None] * qi1 - si[..., None] * qi)
+            Qr[..., i, :] = new_qi
+            Qr[..., i + 1, :] = new_qi1
+            H[..., :, i] = torch.where(fr, torch.zeros_like(col), col)
+            eps = (beta * Qr[..., i + 1, 0]).abs() / normb
+            iters = iters + (~done).to(torch.int32)
+            done = done | (eps < tol)
+            n = i + 1
+        # back-substitution y = H[:n, :n]⁻¹·s[:n]; a zero diagonal is a frozen
+        # or unreached column and stays out of the correction
+        svec = beta[..., None] * Qr[..., :m, 0]
+        y = torch.zeros(batch + (m,), dtype=f64, device=dev)
+        for k in range(n - 1, -1, -1):
+            hkk = H[..., k, k]
+            val = (svec[..., k] - (H[..., k, :] * y).sum(dim=-1)) / _nonzero(hkk)
+            y[..., k] = torch.where(hkk != 0, val, torch.zeros_like(val))
+        if n:
+            dx = (V[:n] * torch.movedim(y[..., :n], -1, 0)[..., None, None].to(dt)).sum(dim=0)
+            if right:
+                dx = P(dx)
+            x = torch.where(_bc(done_all, x), x, x + dx)
+        done_all = done
+
+    err = _norm(apply_A(x) - b) / _positive(_norm(b))
+    return CGResult(x=x, iters=iters, converged=err < math.sqrt(tol))

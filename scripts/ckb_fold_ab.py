@@ -170,30 +170,10 @@ def run_shipped(case, g=None, v=None):
     """The shipped kernel on ``case`` (or on the field ``v``), with the
     wrapper's geometry or, with ``g``, that geometry."""
     spec, v = case["spec"], case["v"] if v is None else v
-    kw = dict(pre=case["pre"], a=case["a"], b=case["b"], c=-1.0, prev=case["prev"])
-    if g is None:
-        if case["fused"]:
-            return ckb_cuda.fold_fused(spec, case["c"], case["s"], v, **kw)
-        return ckb_cuda.fold(spec, case["c"], case["s"], v)
-    dev = v.device.index
-    bonds, poff = ckb_cuda._device_plan(spec, g.cs, False, v.device)
-    name = "ckb_fold_fused" if case["fused"] else "ckb_fold"
-    fn = ckb_cuda._entry(name, v.dtype)
-    out = torch.empty_like(v)
-    stream = ckb_cuda._stream(dev)
     if case["fused"]:
-        err = fn(v.data_ptr(), out.data_ptr(), case["prev"].data_ptr(), bonds.data_ptr(),
-                 poff.data_ptr(), case["c"].data_ptr(), case["s"].data_ptr(), spec.ngroups, 1.0,
-                 case["pre"].data_ptr(), None, case["a"].data_ptr(), case["b"].data_ptr(), -1.0,
-                 g.B, g.N, g.K, g.kt, g.cs, g.vec, g.B // v.shape[0], g.owned, g.threads, 0,
-                 stream)
-    else:
-        err = fn(v.data_ptr(), out.data_ptr(), bonds.data_ptr(), poff.data_ptr(),
-                 case["c"].data_ptr(), case["s"].data_ptr(), spec.ngroups, 1.0, g.B, g.N, g.K,
-                 g.kt, g.cs, g.vec, g.owned, g.threads, 1, 0, 0, stream)
-    if err:
-        raise RuntimeError(f"{name} at {g} failed: CUDA error {err}")
-    return out
+        return ckb_cuda.fold_fused(spec, case["c"], case["s"], v, pre=case["pre"], a=case["a"],
+                                   b=case["b"], c=-1.0, prev=case["prev"], geometry=g)
+    return ckb_cuda.fold(spec, case["c"], case["s"], v, geometry=g)
 
 
 class Persistent:
@@ -312,7 +292,7 @@ def tuned_geometry(case):
     v = case["v"]
     N, K = v.shape[-2:]
     return case["spec"]._cache[("cluster_geometry", v.device.index, math.prod(v.shape[:-2]), N,
-                                K, v.element_size(), case["kernel"])]
+                                K, v.element_size(), case["kernel"], False)]
 
 
 def section_shipped(cases, bare, old, reps):

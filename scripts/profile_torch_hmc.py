@@ -1,15 +1,25 @@
 """Profile one update, or one measurement, of the PyTorch port on a CUDA
 card.
 
-    python scripts/profile_torch_hmc.py [bench_8x8|kernel_64x64|ssh_64x64|measure_64x64|measure_ssh_64x64|driver_4x4] [--trace DIR]
+    python scripts/profile_torch_hmc.py CONFIG [--trace DIR]
+
+with CONFIG one of bench_8x8, kernel_64x64, ssh_64x64, langevin_64x64,
+ssh_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
+measure_bond_64x64, driver_4x4.
 
 ``bench_8x8``, ``kernel_64x64`` and ``ssh_64x64`` (the optical SSH model,
-8 chains) are the HMC updates of ``bench.py``;
+8 chains) are the HMC updates of ``bench.py``; ``langevin_64x64`` and
+``ssh_langevin_64x64`` one Runge-Kutta Langevin step of its Langevin
+configurations; ``gmres_64x64`` one GMRES solve of M·z = r for nᵥ = 10
+probes per chain on the ``langevin_64x64`` model (the left KPM apply);
 ``measure_64x64`` is one measurement of the driver at 64×64, β = 4 (4
 chains, nᵥ = 10, the five time-dependent on-site correlations, KPM
 max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it;
 ``measure_ssh_64x64`` the same for the SSH example (its four on-site
 correlations and the inter-site bond PhononGreens, KPM max_order 64);
+``measure_bond_64x64`` the Holstein measurement with Greens and the three
+time-dependent bond-pair correlations (BondBond, CurrentCurrent,
+BondPairGreens);
 ``driver_4x4`` is one sampling step of the driver on
 ``examples/holstein_hmc_square.toml`` (1 chain): the HMC update, the
 reflection and swap moves and the measurement. Builds the
@@ -41,17 +51,28 @@ from elphdynamics_tpu_torch.ops import ckb_cuda  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("config",
-                    choices=["bench_8x8", "kernel_64x64", "ssh_64x64", "measure_64x64",
-                             "measure_ssh_64x64", "driver_4x4"])
+                    choices=["bench_8x8", "kernel_64x64", "ssh_64x64", "langevin_64x64",
+                             "ssh_langevin_64x64", "gmres_64x64", "measure_64x64",
+                             "measure_ssh_64x64", "measure_bond_64x64", "driver_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
     if args.config.startswith("measure"):
-        run = _measurement(ssh="ssh" in args.config)
+        run = _measurement(ssh="ssh" in args.config, bond="bond" in args.config)
     elif args.config == "driver_4x4":
         run = _driver_step()
+    elif args.config == "gmres_64x64":
+        run = _gmres_solve()
+    elif "langevin" in args.config:
+        b = bench.build(bench.SSH_LANGEVIN_64X64 if "ssh" in args.config
+                        else bench.LANGEVIN_64X64, "cuda", torch.float32)
+        box = {"x": b.x}
+
+        def run():
+            box["x"], stats = b.step(b.params, box["x"], b.generator)
+            return stats.iters
     else:
         cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64,
                "ssh_64x64": bench.SSH_64X64}[args.config]
@@ -94,8 +115,23 @@ def main() -> int:
     return 0
 
 
-def _measurement(ssh: bool = False):
-    """One driver measurement at 64×64, β = 4, 4 chains (Holstein, or SSH)."""
+def _gmres_solve():
+    """One GMRES solve (restart 20, tol 1e-5) of nᵥ = 10 probes per chain on
+    the Langevin 64×64 model, preconditioned by the left KPM apply."""
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
+
+    b = bench.build(bench.LANGEVIN_64X64, "cuda", torch.float32)
+    R = torch.randn((b.x.shape[0], 10, b.ops.Nsites, b.ops.Ltau), device="cuda",
+                    generator=b.generator)
+    ds = b.ops.stack(b.ops.derived(b.params, b.x))
+    pa = resolve_precond(b.precond, b.params, b.x)
+    scfg = SolverConfig(tol=1e-5, maxiter=500, kind="gmres", restart=20)
+    return lambda: solve_minv(b.ops, b.params, ds, R, scfg, pa).iters
+
+
+def _measurement(ssh: bool = False, bond: bool = False):
+    """One driver measurement at 64×64, β = 4, 4 chains (Holstein, or SSH;
+    ``bond``: Holstein with the bond-pair correlations)."""
     from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
     from elphdynamics_tpu_torch.measure import measurements as M
     from elphdynamics_tpu_torch.ops import kpm
@@ -103,11 +139,15 @@ def _measurement(ssh: bool = False):
     make = bench.build_ssh_step if ssh else bench.build_bench_step
     b = make(64, 4.0, 0.1, 0.025, 4, "cuda", torch.float32)
     kinds = M.ONSITE_CORR_KINDS[:4] if ssh else M.ONSITE_CORR_KINDS
+    inter = (("PhononGreens", True),) if ssh else ()
+    if bond:
+        kinds = ("Greens",)
+        inter = tuple((k, True) for k in M.INTERSITE_CORR_KINDS[:3])
     mspec = M.MeasurementSpec(nv=10, onsite_corr=tuple((k, True) for k in kinds),
-                              intersite_corr=(("PhononGreens", True),) if ssh else ())
+                              intersite_corr=inter)
     cfg = kpm.KPMConfig(max_order=64 if ssh else 8)
     step = M.make_measurement_step(b.ops, mspec, SolverConfig(tol=1e-5, maxiter=10000),
-                                   kpm.make_symmetric_precond(b.ops, cfg))
+                                   kpm.make_precond(b.ops, cfg))
 
     def run():
         inc, stats, snaps = step(b.params, b.state.x, b.generator)
@@ -133,7 +173,7 @@ def _driver_step():
     cfg = load_toml(str(root / "examples" / "holstein_hmc_square.toml"))
     setup = build_setup(cfg, tempfile.gettempdir(), "cuda", torch.float32)
     ops, params = setup.ops, setup.params
-    precond = kpm.make_symmetric_precond(ops, setup.kpm_cfg)
+    precond = kpm.make_precond(ops, setup.kpm_cfg)
     step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
     reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
     swap = make_swap_update(ops, setup.swap_cfg, precond)

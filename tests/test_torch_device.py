@@ -30,6 +30,9 @@ ENTRY_POINTS = {
                                              dL=(1, 0, 0))]),
     "bench.build_ssh_step": lambda tmp: bench.build_ssh_step(2, 1.0, 0.1, 0.05, 1),
     "bench.build(SSH_64X64)": lambda tmp: bench.build(bench.SSH_64X64),
+    "bench.build_langevin_step": lambda tmp: bench.build_langevin_step(2, 1.0, 0.1, 1e-3, 1),
+    "bench.build(LANGEVIN_64X64)": lambda tmp: bench.build(bench.LANGEVIN_64X64),
+    "bench.build(SSH_LANGEVIN_64X64)": lambda tmp: bench.build(bench.SSH_LANGEVIN_64X64),
     "simulation.load_model": lambda tmp: simulation.load_model(str(tmp)),
     "convert.params_from_jax": lambda tmp: convert.params_from_jax(
         {"mu": np.zeros(4), "omega": np.ones(4)}),

@@ -138,12 +138,15 @@ def test_hmc_unported_options_raise():
     _, _, tspec, _ = _models(2048)
     tops = make_model_ops(tspec)
     mass = np.ones((tspec.Nph, tspec.Ltau))
-    for bad in (dict(integrator="2mn"), dict(tune_dt=True),
-                dict(deflate_k=2), dict(block=True), dict(solver_kind="gmres")):
+    for bad in (dict(integrator="2mn"), dict(tune_dt=True), dict(deflate_k=2)):
         with pytest.raises(NotImplementedError):
             make_hmc_step(tops, mass, HMCConfig(**{**CFG, **bad}))
     with pytest.raises(NotImplementedError):
         make_hmc_step(tops, mass, HMCConfig(**CFG), dynamic_dt=True)
-    for bad in (dict(stacked=True), dict(exact_lowfreq=2)):
-        with pytest.raises(NotImplementedError):
-            kpm.make_symmetric_precond(tops, kpm.KPMConfig(**bad))
+    with pytest.raises(ValueError):
+        make_hmc_step(tops, mass, HMCConfig(**{**CFG, "solver_kind": "minres"}))
+    # ported since: block CG, the other solver kinds, the KPM options
+    for ok in (dict(block=True), dict(solver_kind="gmres"), dict(solver_kind="bicgstab")):
+        assert callable(make_hmc_step(tops, mass, HMCConfig(**{**CFG, **ok})))
+    for ok in (dict(stacked=True), dict(exact_lowfreq=2)):
+        assert kpm.make_symmetric_precond(tops, kpm.KPMConfig(**ok)).left is None

@@ -96,6 +96,46 @@ def test_kernel_refuses_bad_inputs(cuda):
         ckb_cuda.fold(spec, c.half(), s.half(), v.half())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kernel,lead", [("fold", (16,)), ("fold", (160,)), ("fused", (16, 1)),
+                                         ("fused", (4, 10))],
+                         ids=["fold_16", "fold_160", "fused_16x1", "fused_4x10"])
+def test_every_launch_candidate_matches_twin(cuda, kernel, lead, dtype):
+    """Each geometry the tuning may keep for a shape (``launch_candidates``)
+    computes the twin's values, at the 64×64 row counts of a Langevin step
+    (16 chains), of nᵥ = 10 probe solves (160 rows; 4 chains × 10) — and the
+    launches' shapes are recorded until the counts are reset."""
+    spec, params = _spec(64)
+    c = params.cosht.to(device=cuda, dtype=dtype)
+    s = params.sinht.to(device=cuda, dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    v = torch.randn(lead + (spec.nsites, 40), generator=g, device=cuda, dtype=dtype)
+    if kernel == "fold":
+        fast, plain, name, kws = ckb_cuda.fold, ckb.fold, "ckb_fold", [
+            dict(reverse=rev, sign=sign) for _, rev, sign in DIRECTIONS]
+    else:
+        C = lead[0]
+        diag = 0.5 + torch.rand((C, spec.nsites), generator=g, device=cuda, dtype=dtype)
+        a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
+        b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
+        fast, plain, name, kws = ckb_cuda.fold_fused, ckb.fold_fused, "ckb_fold_fused", [
+            dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a, b=b,
+                 c=-1.0, prev=torch.randn_like(v)) for rev in (False, True)]
+    cands = ckb_cuda.launch_candidates(spec, v, name)
+    assert len(cands) > 1 and len(set(cands)) == len(cands)
+    ckb_cuda.reset_counts()
+    for kw in kws:
+        want = plain(spec, c, s, v, **kw)
+        for geo in cands:
+            got = fast(spec, c, s, v, geometry=geo, **kw)
+            assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype], geo
+    assert ckb_cuda.launch_shapes == {(f"{kernel}/shared", tuple(v.shape), dtype)}
+    assert ckb_cuda.table_launches[f"{kernel}/shared"] == len(kws) * len(cands)
+    ckb_cuda.reset_counts()
+    assert not ckb_cuda.launch_shapes
+
+
 # (L, chains, rows per chain, K, offset): the K2 shapes of chip_smoke.py —
 # 16 chains, and 16 chains × nᵥ = 10 Green's-function rows — small ragged
 # cases, the K-tiled route and misaligned v and prev

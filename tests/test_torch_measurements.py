@@ -147,9 +147,21 @@ def test_mean_over_chains_masks_flagged_chains():
 
 
 def test_intersite_correlations_raise(models):
+    """What the inter-site stage still refuses: an unknown kind, Holstein's
+    PhononGreens as an inter-site correlation, complex probes (the bond-pair
+    correlations themselves are compared in tests/test_torch_intersite.py)."""
     tops = models[3]
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tm.make_measurement_step(tops, tm.MeasurementSpec(intersite_corr=(("BondBond", False),)))
+    assert callable(tm.make_measurement_step(
+        tops, tm.MeasurementSpec(intersite_corr=(("BondBond", False),))))
+    with pytest.raises(ValueError, match="unknown inter-site"):
+        tm.make_measurement_step(tops, tm.MeasurementSpec(intersite_corr=(("BondSpin", False),)))
+    with pytest.raises(ValueError, match="on-site"):
+        tm.make_measurement_step(tops, tm.MeasurementSpec(intersite_corr=(("PhononGreens", True),)))
+    R = torch.zeros((1, NV, tops.Nsites, tops.Ltau), dtype=torch.complex128)
+    from elphdynamics_tpu_torch.measure import greens as tg
+    from elphdynamics_tpu_torch.measure.intersite_corr import BondFields
+    with pytest.raises(NotImplementedError, match="slice F"):
+        BondFields(tops.spec.lattice, R, R, tg.pair_indices(NV), torch.complex128)
 
 
 @pytest.mark.parametrize("L", [1, 2, 3, 6, 7])
