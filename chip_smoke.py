@@ -61,11 +61,30 @@ Phases (one line each, and the process exits non-zero if any fails):
     counts cut, and the same file at 64×64, β = 4 (4 chains, a few steps,
     two measurements) with BondBond, CurrentCurrent and BondPairGreens
     switched on (nᵥ = 10; BondBond and BondPairGreens time dependent);
-15. every (kernel, coefficient form, field shape) that one of the 64×64
-    runs of phases 9, 11, 13 and 14 launched (``ckb_cuda.launch_shapes``),
-    against the twin in float32 and float64, all directions, at every
-    launch geometry the wrapper's tuning may keep for that shape, so that
-    no run goes through a row count or geometry that was not checked.
+15. K1's complex mode (complex hopping: twisted boundaries) against its
+    twin in complex64 and complex128, all directions, in its three table
+    forms at the twisted 64×64 shapes: [Nb] tables on [16, 4096, 40] and
+    [16, 4096, 1], per-(chain, bond, column) tables on [8, 1, 4096, 40],
+    per-chain tables on [8, 1, 4096, 40], [8, 4096, 1] and [8, 4096, 4096]
+    (a densified Ā); device ms (forward), plain ms, bound and the dense
+    complex matmul;
+16. twisted 4×4 float64 runs on the card (K1 forced on, the dense Ā off,
+    so the complex KPM recurrence runs K1) against the CPU with the same
+    draws: a Holstein and an SSH HMC update, a Holstein Runge-Kutta
+    Langevin step and a Holstein measurement with every on-site
+    correlation and CurrentCurrent;
+17. the twisted configurations at full width, ``TWISTED_64X64`` (16
+    chains) and ``SSH_TWISTED_64X64`` (8 chains): 1 warm-up and 2 timed
+    updates, every complex K1 form on its path launched, flags 0,
+    acceptance > 0;
+18. the TOML driver on ``examples/holstein_hmc_twisted.toml`` and
+    ``examples/ssh_hmc_twisted.toml``, one update and one measurement each;
+19. every (kernel, coefficient form, field shape) that one of the 64×64
+    runs of phases 9, 11, 13, 14 and 17 launched (``ckb_cuda.launch_shapes``),
+    against the twin in float32 and float64 (complex64 and complex128 for
+    K1's complex mode), all directions, at every launch geometry the
+    wrapper's tuning may keep for that shape, so that no run goes through a
+    row count or geometry that was not checked.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -102,6 +121,10 @@ F32_TOL = 1e-5
 F64_TOL = 1e-12
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
+# the tolerance of each field dtype (complex: its real type's)
+TOLS = {torch.float32: F32_TOL, torch.float64: F64_TOL, torch.complex64: F32_TOL,
+        torch.complex128: F64_TOL}
 DIRECTIONS = (("forward", False, 1.0), ("transpose", True, 1.0),
               ("inverse", True, -1.0), ("inverse_transpose", False, -1.0))
 
@@ -142,21 +165,24 @@ def device_ms(fn, reps: int = 30, replays: int = 3) -> float:
     return ms
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S
+          ) -> tuple[float, str]:
     """The least time (ms) for ``nbytes`` of device memory traffic and
-    ``flops`` float32 operations, and which of the two sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    ``flops`` operations at ``flops_per_s`` (float32 by default), and which
+    of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_ms(spec, c, s, v) -> float:
     """``torch.matmul`` by the assembled dense [N, N] checkerboard matrix
     (one per chain for per-chain [C, Nb] tables) on ``v`` [C, ..., N, K]
-    (float32, TF32 off): the one PyTorch call that computes the fold. Timed
-    here only; the port never calls it."""
+    (float32 or complex64, TF32 off): the one PyTorch call that computes the
+    fold. Timed here only; the port never calls it."""
     from elphdynamics_tpu_torch.ops import checkerboard as ckb
 
-    c, s = c.double().cpu().numpy(), s.double().cpu().numpy()
+    c, s = (t.to(torch.complex128 if t.is_complex() else torch.float64).cpu().numpy()
+            for t in (c, s))
     if c.ndim == 1:
         dense = torch.as_tensor(ckb.dense_matrix(spec, c, s), dtype=v.dtype, device=v.device)
     else:
@@ -834,7 +860,8 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()
     files = [("global_measurements", "keyed"), ("onsite_measurements", "keyed"),
              ("intersite_measurements", "keyed"), ("Greens_position", "table"),
              ("PairSusc_momentum", "table")]
-    if ssh:    # the bond phonons' Green's function (inter-site for SSH)
+    if ssh and cfg["measurements"].get("PhononGreens", {}).get("measure", False):
+        # the bond phonons' Green's function (inter-site for SSH)
         files += [("PhononGreens_position", "table"), ("PhononGreens_momentum", "table")]
     files += [(sub, "table") for sub in extra_files]
     finite = True
@@ -945,12 +972,14 @@ def phase_driver_langevin() -> dict:
 def phase_path_shapes(paths: dict) -> None:
     """Every (kernel, coefficient form, field shape) that a 64×64 run of
     ``paths`` ({run name: its ``ckb_cuda.launch_shapes``}) launched, against
-    the twin on the same inputs: float32 and float64, all four directions
-    (K2: forward and reverse, with and without prev), at every launch
-    geometry of ``ckb_cuda.launch_candidates`` for that shape, one of which
-    the wrapper's tuning keeps. The kernels see a field as rows of [N, K]
-    (and, with per-chain operands, chains of rows), so shapes are merged to
-    [B, N, K] for K1 with one table and to [C, B/C, N, K] otherwise."""
+    the twin on the same inputs: float32 and float64 (K1's complex mode:
+    complex64 and complex128, with the twisted models' tables), all four
+    directions (K2: forward and reverse, with and without prev), at every
+    launch geometry of ``ckb_cuda.launch_candidates`` for that shape, one of
+    which the wrapper's tuning keeps. The kernels see a field as rows of
+    [N, K] (and, with per-chain operands, chains of rows), so shapes are
+    merged to [B, N, K] for K1 with one table and to [C, B/C, N, K]
+    otherwise."""
     from elphdynamics_tpu_torch.ops import checkerboard as ckb
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
@@ -959,15 +988,22 @@ def phase_path_shapes(paths: dict) -> None:
     for path, shapes in paths.items():
         for form, shape, _ in shapes:
             rows = math.prod(shape[:-2])
-            lead = (rows,) if form == "fold/shared" else (shape[0], rows // shape[0])
+            lead = (rows,) if form.startswith("fold/shared") else (shape[0], rows // shape[0])
             users.setdefault((form, lead + tuple(shape[-2:])), set()).add(path)
-    holstein, ssh = _spec_64(), _ssh_64()
+    models = {False: (_spec_64(), _ssh_64())}
+    if any(form.endswith("/complex") for form, _ in users):
+        models[True] = (_twisted_64(), _ssh_twisted_64())
     g = torch.Generator(device="cuda").manual_seed(9)
     for (form, shape), by in sorted(users.items()):
-        kernel, table = form.split("/")
+        kernel, table = form.split("/")[:2]
+        cplx = form.endswith("/complex")
+        holstein, ssh = models[cplx]
         C, N = shape[0], shape[-2]
         worst, n_geo = {}, 0
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        dtypes = ((torch.complex64, torch.complex128) if cplx
+                  else (torch.float32, torch.float64))
+        for dtype in dtypes:
+            tol = TOLS[dtype]
             if table == "shared":
                 sc, (c, s) = holstein[0].ckb, (holstein[1].cosht, holstein[1].sinht)
             else:
@@ -1003,11 +1039,236 @@ def phase_path_shapes(paths: dict) -> None:
             if not worst[dtype] <= tol:
                 raise RuntimeError(f"{form} at {shape} ({dtype}) disagrees with its twin at one "
                                    f"of {cands}: {worst[dtype]} > {tol}")
-        say("path_shape", kernel=kernel, tables=table, shape="x".join(map(str, shape)),
-            geometries=n_geo, max_rel_err_f32=f"{worst[torch.float32]:.3e}", tol_f32=F32_TOL,
-            max_rel_err_f64=f"{worst[torch.float64]:.3e}", tol_f64=F64_TOL,
+        lo, hi = dtypes
+        say("path_shape", kernel=kernel, tables=table + ("/complex" if cplx else ""),
+            shape="x".join(map(str, shape)), geometries=n_geo,
+            **{f"max_rel_err_{str(lo).split('.')[1]}": f"{worst[lo]:.3e}",
+               f"tol_{str(lo).split('.')[1]}": TOLS[lo],
+               f"max_rel_err_{str(hi).split('.')[1]}": f"{worst[hi]:.3e}",
+               f"tol_{str(hi).split('.')[1]}": TOLS[hi]},
             launched_by=",".join(sorted(by)))
     say("path_shapes", checked=len(users), seconds=f"{time.perf_counter() - t0:.2f}")
+
+
+# ---------------------------------------------------------------------------
+# complex hopping (twisted boundaries): K1's complex mode
+# ---------------------------------------------------------------------------
+
+COMPLEX_MODES = ("fold/shared/complex", "fold/column/complex", "fold/chain/complex")
+
+
+def _twisted_64():
+    """The twisted Holstein model of ``bench.TWISTED_64X64`` on the card
+    (complex128 [Nb] tables), with bond disorder."""
+    from elphdynamics_tpu_torch.bench import TWISTED_64X64
+    from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+    from elphdynamics_tpu_torch.models.holstein import build_holstein
+
+    uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
+    return build_holstein(
+        Lattice.create(uc, TWISTED_64X64.L), beta=TWISTED_64X64.beta, dtau=TWISTED_64X64.dtau,
+        t_assignments=[(1.0, 0.1, 0, 0, (1, 0, 0)), (1.0, 0.1, 0, 0, (0, 1, 0))],
+        twist=TWISTED_64X64.twist, rng=np.random.default_rng(0), device="cuda")
+
+
+def _ssh_twisted_64():
+    """The twisted SSH model of ``bench.SSH_TWISTED_64X64`` on the card
+    (float64) and the complex128 tables of a tied random field: per (chain,
+    bond, τ) ``[8, 8192, 40]`` and their per-chain τ-means ``[8, 8192]``."""
+    from elphdynamics_tpu_torch.bench import SSH_TWISTED_64X64, build
+    from elphdynamics_tpu_torch.models import ssh as Sm
+
+    b = build(SSH_TWISTED_64X64, "cuda", torch.float64)
+    spec = b.ops.spec
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = Sm.tie_fields(spec, b.state.x + 0.3 * torch.randn(b.state.x.shape, generator=g,
+                                                            dtype=torch.float64, device="cuda"))
+    d = Sm.ckb_coeffs(spec, b.params, x)
+    return spec, {"column": (d.cosh, d.sinh), "chain": (d.cosh.mean(-1), d.sinh.mean(-1))}
+
+
+def phase_complex_kernels() -> dict:
+    """K1's complex mode against its twin at the twisted 64×64 shapes,
+    complex64 and complex128, all four directions: [Nb] tables (twisted
+    Holstein) on the fermion operator's [16, N, 40] and the power
+    iteration's [16, N, 1]; per-(chain, bond, column) tables (twisted SSH's
+    fermion operator) on [8, 1, N, 40]; per-chain tables (SSH's Ā) on a CG
+    block [8, 1, N, 40], the power iteration's [8, N, 1] and a densified Ā
+    [8, N, N]. Forward launches are timed (device ms, plain ms, bound);
+    returns, per table form, the numbers at its main shape (complex64)."""
+    from elphdynamics_tpu_torch.ops import checkerboard as ckb
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    hspec, hparams = _twisted_64()
+    sspec, stables = _ssh_twisted_64()
+    N = hspec.Nsites
+    cases = [("shared", (16, N, 40)), ("shared", (16, N, 1)), ("column", (8, 1, N, 40)),
+             ("chain", (8, 1, N, 40)), ("chain", (8, N, 1)), ("chain", (8, N, N))]
+    main_shape = {"shared": (16, N, 40), "column": (8, 1, N, 40), "chain": (8, 1, N, 40)}
+    g = torch.Generator(device="cuda").manual_seed(10)
+    out = {f"fold/{form}/complex": dict(max_abs_err=0.0) for form in main_shape}
+    for dtype, rate in ((torch.complex64, F32_FLOPS_PER_S), (torch.complex128, F64_FLOPS_PER_S)):
+        tol = TOLS[dtype]
+        for form, shape in cases:
+            key = f"fold/{form}/complex"
+            if form == "shared":
+                sc, (c, s) = hspec.ckb, (hparams.cosht, hparams.sinht)
+            else:
+                sc, (c, s) = sspec.ckb, stables[form]
+            c, s = c.to(dtype).contiguous(), s.to(dtype).contiguous()
+            v = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+            big = v.numel() > 1e8
+            for name, rev, sign in DIRECTIONS:
+                got = ckb_cuda.fold(sc, c, s, v, reverse=rev, sign=sign)
+                want = ckb.fold(sc, c, s, v, reverse=rev, sign=sign)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                del got, want
+                out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
+                timing = {}
+                if name == "forward":
+                    run = lambda: ckb_cuda.fold(sc, c, s, v)  # noqa: E731
+                    ms = device_ms(run, reps=2 if big else 30, replays=2 if big else 3)
+                    plain = device_ms(lambda: ckb.fold(sc, c, s, v), reps=1 if big else 10,
+                                      replays=1 if big else 3)
+                    # the field read and written once, the tables read once;
+                    # 14 real flops per complex element per group
+                    b_ms, b_by = bound(v.element_size() * (2 * v.numel() + c.numel() + s.numel()),
+                                       14 * sc.ngroups * v.numel(), rate)
+                    lib = (library_ms(sc, c, s, v) if dtype == torch.complex64
+                           and shape == main_shape[form] and form != "column" else None)
+                    timing = dict(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                                  bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                                  bound_share=f"{b_ms / ms:.3f}",
+                                  **({} if lib is None else {"library_ms": f"{lib:.4f}"}))
+                    if dtype == torch.complex64 and shape == main_shape[form]:
+                        out[key].update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=lib, shape="x".join(map(str, shape)))
+                say("complex_kernel", tables=form, dtype=str(dtype).split(".")[1],
+                    shape="x".join(map(str, shape)), table_shape="x".join(map(str, c.shape)),
+                    direction=name, max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
+                    **timing)
+                if not rel <= tol:
+                    raise RuntimeError(f"{key} kernel disagrees with its twin: {rel} > {tol}")
+    return out
+
+
+def phase_small_twisted_reference() -> None:
+    """Twisted 4×4 float64 runs on the card against the CPU, with the same
+    inputs and draws: K1 forced on and the dense Ā off, so every fold of a
+    complex field (the fermion operator, the power iteration and the
+    complex Chebyshev recurrence) runs K1's complex mode. A Holstein and an
+    SSH HMC update, a Holstein Runge-Kutta Langevin step (x within 1e-12,
+    equal iterations and accept decisions) and a Holstein measurement
+    (every increment within 1e-10 relative)."""
+    from elphdynamics_tpu_torch.bench import TWIST, build_bench_step, build_langevin_step, build_ssh_step
+    from elphdynamics_tpu_torch.dynamics import langevin as tl
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCState, draw
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.measure import measurements as tm
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+    from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+
+    forced = dict(dense_threshold=0, pallas_threshold=0)
+    c128 = torch.complex128
+    with _without_dense_abar():
+        for model, builder, kw, modes in (
+                ("holstein", build_bench_step, forced, ("fold/shared/complex",)),
+                ("ssh", build_ssh_step, {}, ("fold/column/complex", "fold/chain/complex"))):
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                b = builder(4, 1.0, 0.1, 0.05, 4, dev, torch.float64, trajectory_time=0.2,
+                            twist=TWIST, **kw)
+                if dev == "cpu":
+                    draws = draw(b.ops, 4, torch.float64, "cpu", torch.Generator().manual_seed(1),
+                                 fdtype=c128)
+                    x0 = b.state.x
+                moved = replace(draws, momentum=draws.momentum.to(dev),
+                                pseudofermion=draws.pseudofermion.to(dev),
+                                uniform=draws.uniform.to(dev))
+                ckb_cuda.reset_counts()
+                st, stats = b.step(b.params, HMCState(x=x0.to(dev),
+                                                      v=torch.zeros_like(x0, device=dev)),
+                                   draws=moved)
+                runs[dev] = (st.x.cpu(), stats.iters.cpu(), stats.accepted.cpu(),
+                             dict(ckb_cuda.table_launches))
+            dx = (runs["cuda"][0] - runs["cpu"][0]).abs().max().item()
+            n = runs["cuda"][3]
+            say("small_twisted_reference", run=f"{model}_hmc", max_abs_dx=f"{dx:.3e}", tol=1e-12,
+                iters=runs["cuda"][1].tolist(),
+                iters_equal=bool(torch.equal(runs["cuda"][1], runs["cpu"][1])),
+                accept_equal=bool(torch.equal(runs["cuda"][2], runs["cpu"][2])),
+                cuda_launches={m: n[m] for m in COMPLEX_MODES},
+                cpu_launches=sum(runs["cpu"][3].values()))
+            if not (dx <= 1e-12 and torch.equal(runs["cuda"][1], runs["cpu"][1])
+                    and torch.equal(runs["cuda"][2], runs["cpu"][2])
+                    and all(n[m] > 0 for m in modes) and sum(runs["cpu"][3].values()) == 0):
+                raise RuntimeError(f"the card's twisted {model} update disagrees with the CPU")
+
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            b = build_langevin_step(4, 1.0, 0.1, 0.01, 4, dev, torch.float64, method="rk",
+                                    twist=TWIST, **forced)
+            if dev == "cpu":
+                draws = tl.draw(b.ops, 4, "rk", torch.float64, "cpu",
+                                torch.Generator().manual_seed(1), fdtype=c128)
+                x0 = b.x
+            ckb_cuda.reset_counts()
+            x1, stats = b.step(b.params, x0.to(dev), draws=tl.LangevinDraws(
+                eta=draws.eta.to(dev), g=tuple(g.to(dev) for g in draws.g)))
+            runs[dev] = (x1.cpu(), stats.iters.cpu(), stats.flag.cpu(),
+                         ckb_cuda.table_launches["fold/shared/complex"])
+        dx = (runs["cuda"][0] - runs["cpu"][0]).abs().max().item()
+        say("small_twisted_reference", run="holstein_langevin_rk", max_abs_dx=f"{dx:.3e}",
+            tol=1e-12, iters=runs["cuda"][1].tolist(),
+            iters_equal=bool(torch.equal(runs["cuda"][1], runs["cpu"][1])),
+            cuda_launches=runs["cuda"][3], cpu_launches=runs["cpu"][3])
+        if not (dx <= 1e-12 and torch.equal(runs["cuda"][1], runs["cpu"][1])
+                and int(runs["cuda"][2].max()) == 0 and runs["cuda"][3] > 0
+                and runs["cpu"][3] == 0):
+            raise RuntimeError("the card's twisted Langevin step disagrees with the CPU")
+
+    mspec = tm.MeasurementSpec(nv=4, onsite_corr=tuple(
+        (k, True) for k in ("Greens", "DenDen", "SpinSpin", "PairGreens")),
+        intersite_corr=(("CurrentCurrent", True), ("BondBond", True), ("BondPairGreens", True)))
+    x = 0.3 * torch.randn((2, 16, 10), generator=torch.Generator().manual_seed(3),
+                          dtype=torch.float64)
+    R = trace_noise((2, 4, 16, 10), c128, "cpu", torch.Generator().manual_seed(4))
+    incs = {}
+    for dev in ("cpu", "cuda"):
+        b = build_bench_step(4, 1.0, 0.1, 0.05, 2, dev, torch.float64, twist=TWIST, **forced)
+        step = tm.make_measurement_step(b.ops, mspec, SolverConfig(tol=1e-12, maxiter=2000))
+        ckb_cuda.reset_counts()
+        inc, stats, _ = step(b.params, x.to(dev), R=R.to(dev))
+        incs[dev] = ({f"{g}/{k}": v.cpu() for g, vals in inc.items() for k, v in vals.items()},
+                     stats["iters"].cpu(), ckb_cuda.table_launches["fold/shared/complex"])
+    worst = max(((incs["cuda"][0][k] - v).abs().max() / v.abs().max().clamp(min=1e-300)).item()
+                for k, v in incs["cpu"][0].items())
+    say("small_twisted_reference", run="holstein_measurement", max_rel_diff=f"{worst:.3e}",
+        tol=1e-10, increments=len(incs["cpu"][0]),
+        iters_equal=bool(torch.equal(incs["cuda"][1], incs["cpu"][1])),
+        cuda_launches=incs["cuda"][2], cpu_launches=incs["cpu"][2])
+    if not (worst <= 1e-10 and incs["cuda"][2] > 0 and incs["cpu"][2] == 0):
+        raise RuntimeError("the card's twisted measurement disagrees with the CPU")
+
+
+def phase_driver_twisted() -> dict:
+    """``examples/holstein_hmc_twisted.toml`` and ``examples/
+    ssh_hmc_twisted.toml`` through the driver on the card, as shipped (4×4,
+    1 chain) with their counts cut to one sampling update, its measurement
+    and one bin."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        for example, extra in (("holstein_hmc_twisted", ()),
+                               ("ssh_hmc_twisted", ("CurrentCurrent_position",))):
+            with open(os.path.join(here, "examples", f"{example}.toml"), "rb") as f:
+                cfg = tomllib.load(f)
+            cfg["hmc"].update(burnin_updates=0, simulation_updates=1, meas_freq=1)
+            cfg["simulation"]["num_bins"] = 1
+            out[example] = run_driver(example, cfg, 1, work, extra_files=extra)
+    return out
 
 
 def main() -> int:
@@ -1021,20 +1282,25 @@ def main() -> int:
     kern = phase_kernel_vs_twin()
     fused = phase_fused_vs_twin()
     tables = phase_table_kernels()
+    ctables = phase_complex_kernels()
     phase_small_reference()
     phase_small_ssh_reference()
     phase_small_fused_reference()
     phase_small_langevin_reference()
     phase_small_solver_reference()
+    phase_small_twisted_reference()
 
     from elphdynamics_tpu_torch.bench import (
-        BENCH_8X8, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64, SSH_LANGEVIN_64X64)
+        BENCH_8X8, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64, SSH_LANGEVIN_64X64,
+        SSH_TWISTED_64X64, TWISTED_64X64)
 
     run_config(BENCH_8X8, warmup=1, timed=3)
-    shapes = {}
+    shapes, runs = {}, {}
     for cfg, forms in ((KERNEL_64X64, ("fold/shared", "fused/shared")),
-                       (SSH_64X64, ("fold/column", "fold/chain", "fused/chain"))):
-        big = run_config(cfg, warmup=1, timed=2)
+                       (SSH_64X64, ("fold/column", "fold/chain", "fused/chain")),
+                       (TWISTED_64X64, ("fold/shared/complex",)),
+                       (SSH_TWISTED_64X64, ("fold/column/complex", "fold/chain/complex"))):
+        big = runs[cfg.name] = run_config(cfg, warmup=1, timed=2)
         shapes[cfg.name] = big["launch_shapes"]
         idle = [f for f in forms if big["table_launches"][f] <= 0]
         if idle:
@@ -1048,29 +1314,35 @@ def main() -> int:
     shapes["solver_kinds_64x64"] = phase_solver_kinds_64()["launch_shapes"]
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
     # per update, 4–6 s each; SSH's KPM at max_order 64, 25–45 s each): a few
-    # updates each; the 64×64 SSH run (max_order 64, ~19 s per update) takes
-    # one sampling update
+    # updates each; the SSH runs (4×4, and 64×64 at ~19 s per update) take
+    # one sampling update and no burn-in
     drv = phase_driver("holstein_hmc_square", "holstein", (2, 4, 2))
-    drv_ssh = phase_driver("ssh_hmc_square", "ssh", (1, 1, 1), big_updates=(1, 1, 1))
+    drv_ssh = phase_driver("ssh_hmc_square", "ssh", (0, 1, 1), big_updates=(0, 1, 1))
     drv_lang = phase_driver_langevin()
+    drv_tw = phase_driver_twisted()
     idle = [f for f in ("fold/column", "fold/chain", "fused/chain")
             if drv_ssh["table_launches"][f] <= 0]
     if idle:
         raise RuntimeError(f"the 64x64 SSH driver run launched these kernel modes no time: {idle}")
-    if not all(math.isfinite(k["ms"]) for k in (kern, fused, *tables.values())):
+    if not all(math.isfinite(k["ms"]) for k in (kern, fused, *tables.values(), *ctables.values())):
         raise RuntimeError("kernel timing missing")
     holstein_paths = {"hmc_driver_64x64": drv, "langevin_driver_64x64": drv_lang,
                       LANGEVIN_64X64.name: lang}
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
+    # K1's complex mode: the twisted 64×64 configurations, and the stock
+    # twisted SSH example (its fermion operator and densified Ā are K1's at
+    # any size; the 4×4 Holstein example runs dense matmuls)
+    twisted_paths = {TWISTED_64X64.name: runs[TWISTED_64X64.name]}
+    twisted_ssh_paths = {SSH_TWISTED_64X64.name: runs[SSH_TWISTED_64X64.name],
+                         "ssh_twisted_driver_4x4": drv_tw["ssh_hmc_twisted"]}
     shapes.update({k: r["launch_shapes"] for k, r in (holstein_paths | ssh_paths).items()})
     phase_path_shapes(shapes)
     say("total", seconds=f"{time.perf_counter() - T_START:.1f}")
 
-    def entry(name, mode, source, replaces, k):
-        """One kernel mode's line: its launches in each run that uses the
-        mode (every one must have launched it) and their sum."""
-        by_path = {p: r["table_launches"][mode]
-                   for p, r in (ssh_paths if mode in MODES["ssh"] else holstein_paths).items()}
+    def entry(name, mode, source, replaces, k, paths):
+        """One kernel mode's line: its launches in each run of ``paths``
+        (every one must have launched it) and their sum."""
+        by_path = {p: r["table_launches"][mode] for p, r in paths.items()}
         if min(by_path.values()) <= 0:
             raise RuntimeError(f"{name}: a run launched it no time: {by_path}")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1083,12 +1355,19 @@ def main() -> int:
     k2 = ("elphdynamics_tpu_torch/csrc/ckb_fold_fused.cu",
           "elphdynamics_tpu/ops/ckb_pallas.py:128")
     print(json.dumps({"kernels": [
-        entry("ckb_fold", "fold/shared", *k1, kern),
+        entry("ckb_fold", "fold/shared", *k1, kern, holstein_paths),
         entry("ckb_fold[per-chain-bond-column tables]", "fold/column", *k1,
-              tables["fold/column"]),
-        entry("ckb_fold[per-chain tables]", "fold/chain", *k1, tables["fold/chain"]),
-        entry("ckb_fold_fused", "fused/shared", *k2, fused),
-        entry("ckb_fold_fused[per-chain tables]", "fused/chain", *k2, tables["fused/chain"]),
+              tables["fold/column"], ssh_paths),
+        entry("ckb_fold[per-chain tables]", "fold/chain", *k1, tables["fold/chain"], ssh_paths),
+        entry("ckb_fold_fused", "fused/shared", *k2, fused, holstein_paths),
+        entry("ckb_fold_fused[per-chain tables]", "fused/chain", *k2, tables["fused/chain"],
+              ssh_paths),
+        entry("ckb_fold[complex]", "fold/shared/complex", *k1,
+              ctables["fold/shared/complex"], twisted_paths),
+        entry("ckb_fold[complex, per-chain-bond-column tables]", "fold/column/complex", *k1,
+              ctables["fold/column/complex"], twisted_ssh_paths),
+        entry("ckb_fold[complex, per-chain tables]", "fold/chain/complex", *k1,
+              ctables["fold/chain/complex"], twisted_ssh_paths),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

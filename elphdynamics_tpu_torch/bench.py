@@ -24,6 +24,16 @@ max_order 8; half-filled initial phonons; β = 4, Δτ = 0.1 (Lτ = 40).
   per-(chain, bond, τ) coefficients, the KPM Ā its per-chain tables, and
   every Chebyshev step the fused kernel.
 
+Twisted boundaries (complex hopping), the twist [π/4, π/8] of
+``examples/*_hmc_twisted.toml``: every fold of a complex field runs the
+fold kernel's complex mode (the fused Chebyshev step is real-only, so the
+complex KPM recurrence is the fold plus elementwise passes).
+
+* ``TWISTED_64X64``: ``KERNEL_64X64`` twisted, 16 chains — ``[Nb]`` tables
+  for the fermion operator and Ā;
+* ``SSH_TWISTED_64X64``: ``SSH_64X64`` twisted, 8 chains — ``[C, Nb, K]``
+  tables for the fermion operator, ``[C, Nb]`` for Ā.
+
 Langevin dynamics (Runge-Kutta steps, dt = 1e-3, Fourier acceleration block
 ω ∈ (0, 10) with m = 0.5, solver tol 1e-5, maxiter 500; a step is two force
 solves of MᵀM·z = Mᵀg, no Metropolis test):
@@ -35,6 +45,7 @@ solves of MᵀM·z = Mᵀg, no Metropolis test):
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -63,6 +74,7 @@ class BenchConfig:
     model: str = "holstein"
     sampler: str = "hmc"       # "hmc" | "langevin"
     method: str = "rk"         # the Langevin scheme
+    twist: tuple | None = None  # twisted-boundary flux angles (complex hopping)
 
 
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
@@ -73,6 +85,11 @@ LANGEVIN_64X64 = BenchConfig("langevin_64x64", L=64, beta=4.0, dtau=0.1, dt=1e-3
                              sampler="langevin")
 SSH_LANGEVIN_64X64 = BenchConfig("ssh_langevin_64x64", L=64, beta=4.0, dtau=0.1, dt=1e-3,
                                  n_chains=8, model="ssh", sampler="langevin")
+TWIST = (math.pi / 4, math.pi / 8)
+TWISTED_64X64 = BenchConfig("twisted_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=16,
+                            twist=TWIST)
+SSH_TWISTED_64X64 = BenchConfig("ssh_twisted_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
+                                n_chains=8, model="ssh", twist=TWIST)
 
 
 @dataclass(frozen=True)
@@ -98,24 +115,26 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                      device="cuda", dtype: torch.dtype = torch.float32, *,
                      seed: int = 0, trajectory_time: float = 1.0,
                      dense_threshold: int = 2048,
-                     pallas_threshold: int = 2048) -> BenchStep:
-    """Build the model, the KPM-preconditioned HMC step and a half-filled
-    initial state of ``n_chains`` chains on ``device`` (the card unless the
-    caller asks for the CPU)."""
+                     pallas_threshold: int = 2048, twist=None) -> BenchStep:
+    """Build the model (with ``twist``, twisted boundaries), the
+    KPM-preconditioned HMC step and a half-filled initial state of
+    ``n_chains`` chains on ``device`` (the card unless the caller asks for
+    the CPU)."""
     device = require_device(device)
     spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
-                                   pallas_threshold)
+                                   pallas_threshold, twist)
     return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=4)
 
 
 def build_ssh_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                    device="cuda", dtype: torch.dtype = torch.float32, *,
-                   seed: int = 0, trajectory_time: float = 1.0) -> BenchStep:
-    """The SSH model, its KPM-preconditioned HMC step and a half-filled
-    initial state of ``n_chains`` chains on ``device`` (the card unless the
-    caller asks for the CPU)."""
+                   seed: int = 0, trajectory_time: float = 1.0, twist=None) -> BenchStep:
+    """The SSH model (with ``twist``, twisted boundaries), its
+    KPM-preconditioned HMC step and a half-filled initial state of
+    ``n_chains`` chains on ``device`` (the card unless the caller asks for
+    the CPU)."""
     device = require_device(device)
-    spec, params = _ssh_model(L, beta, dtau, dtype, device)
+    spec, params = _ssh_model(L, beta, dtau, dtype, device, twist)
     return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8)
 
 
@@ -124,17 +143,18 @@ def build_langevin_step(L: int, beta: float, dtau: float, dt: float, n_chains: i
                         model: str = "holstein", method: str = "rk", seed: int = 0,
                         solver: SolverConfig = SolverConfig(tol=1e-5, maxiter=500),
                         dense_threshold: int = 2048,
-                        pallas_threshold: int = 2048) -> LangevinBench:
-    """The Holstein (or SSH) model of the HMC configurations, its
-    KPM-preconditioned Langevin step (all three applies, so any solver kind
-    runs) and half-filled initial fields of ``n_chains`` chains on
-    ``device`` (the card unless the caller asks for the CPU)."""
+                        pallas_threshold: int = 2048, twist=None) -> LangevinBench:
+    """The Holstein (or SSH) model of the HMC configurations (with
+    ``twist``, twisted boundaries), its KPM-preconditioned Langevin step
+    (all three applies, so any solver kind runs) and half-filled initial
+    fields of ``n_chains`` chains on ``device`` (the card unless the caller
+    asks for the CPU)."""
     device = require_device(device)
     if model == "ssh":
-        spec, params = _ssh_model(L, beta, dtau, dtype, device)
+        spec, params = _ssh_model(L, beta, dtau, dtype, device, twist)
     else:
         spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
-                                       pallas_threshold)
+                                       pallas_threshold, twist)
     ops = make_model_ops(spec)
     Q = build_Q(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
                 [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
@@ -146,20 +166,21 @@ def build_langevin_step(L: int, beta: float, dtau: float, dt: float, n_chains: i
                          precond=precond)
 
 
-def _holstein_model(L, beta, dtau, dtype, device, dense_threshold, pallas_threshold):
+def _holstein_model(L, beta, dtau, dtype, device, dense_threshold, pallas_threshold,
+                    twist=None):
     return build_holstein(
         _square(L), beta=beta, dtau=dtau,
         t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))],
         omega=1.0, lam=1.0, mu=0.0, dtype=dtype, device=device,
-        dense_threshold=dense_threshold, pallas_threshold=pallas_threshold)
+        dense_threshold=dense_threshold, pallas_threshold=pallas_threshold, twist=twist)
 
 
-def _ssh_model(L, beta, dtau, dtype, device):
+def _ssh_model(L, beta, dtau, dtype, device, twist=None):
     hop = dict(t=1.0, alpha=0.25, omega=0.5, o1=0, o2=0)
     return build_ssh(
         _square(L), beta, dtau,
         hoppings=[dict(hop, dL=(1, 0, 0), name="x"), dict(hop, dL=(0, 1, 0), name="y")],
-        mu_assignments=[(0.0, 0.0, None)], dtype=dtype, device=device)
+        mu_assignments=[(0.0, 0.0, None)], twist=twist, dtype=dtype, device=device)
 
 
 def _square(L: int) -> Lattice:
@@ -188,6 +209,7 @@ def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
     of one configuration."""
     if cfg.sampler == "langevin":
         return build_langevin_step(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype,
-                                   model=cfg.model, method=cfg.method, **kw)
+                                   model=cfg.model, method=cfg.method, twist=cfg.twist, **kw)
     make = build_ssh_step if cfg.model == "ssh" else build_bench_step
-    return make(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype, **kw)
+    return make(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype, twist=cfg.twist,
+                **kw)

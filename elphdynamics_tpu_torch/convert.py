@@ -16,6 +16,7 @@ import torch
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams
 from elphdynamics_tpu_torch.models.ssh import SSHParams
 from elphdynamics_tpu_torch.utils.device import require_device
+from elphdynamics_tpu_torch.utils.dtypes import complex_of
 
 
 def params_from_jax(np_params: dict, device="cuda",
@@ -23,9 +24,10 @@ def params_from_jax(np_params: dict, device="cuda",
     """The port's :class:`HolsteinParams`, or :class:`SSHParams` where the
     dict has an ``alpha``, on ``device`` from a dict of numpy arrays named
     like the JAX parameter fields. Holstein's ``t``, ``expK`` and
-    ``expK_inv`` may be absent or None; SSH's ``t_phase`` must be (twisted
-    SSH is ROADMAP slice F); complex arrays (complex hopping) are
-    refused."""
+    ``expK_inv`` may be absent or None, as may SSH's ``t_phase``. Complex
+    arrays (complex hopping: Holstein's ``t``, ``cosht``, ``sinht``,
+    ``expK``, ``expK_inv``; SSH's ``t_phase``) become the complex type of
+    ``dtype``."""
     device = require_device(device)
     cls = SSHParams if "alpha" in np_params else HolsteinParams
     out = {}
@@ -37,9 +39,11 @@ def params_from_jax(np_params: dict, device="cuda",
             out[f.name] = None
             continue
         a = np.asarray(a)
-        if np.iscomplexobj(a) or f.name == "t_phase":
-            raise NotImplementedError(f"complex {f.name!r}: complex hopping is ROADMAP slice F")
-        out[f.name] = torch.as_tensor(a.astype(np.float64), device=device).to(dtype)
+        if np.iscomplexobj(a):
+            out[f.name] = torch.as_tensor(a.astype(np.complex128), device=device).to(
+                complex_of(dtype))
+        else:
+            out[f.name] = torch.as_tensor(a.astype(np.float64), device=device).to(dtype)
     return cls(**out)
 
 

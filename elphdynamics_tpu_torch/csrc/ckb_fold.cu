@@ -4,6 +4,14 @@
 // (driven by fold_2d). Same arithmetic: for each bond group g, in forward or
 // reversed order, v <- c_g ⊙ v + sign·s_g ⊙ v[partner_g].
 //
+// Complex mode (complex hopping: twisted boundaries, Peierls phases; the JAX
+// package folded those outside Pallas): complex64 / complex128 fields and
+// coefficient tables, interleaved (re, im) as torch stores them, with the
+// bond's first endpoint taking s and its second conj(s) (ckb_fold_groups.cuh).
+// c is carried complex, as the plain twin carries it. The same three table
+// forms, the same plan and geometry; a complex64 element is 8 bytes and a
+// complex128 one 16, so the host's geometry reckons with the element size.
+//
 // What bounds it on the card: device-memory bytes. The fold does 3 flops per
 // element per group; every field element must be read once and written once
 // (2·B·N·K·itemsize bytes), and a plain fold (one gather + FMA pass per
@@ -38,12 +46,15 @@
 
 namespace {
 
+template <typename T>
+using Real = typename ckb::RealOf<T>::type;
+
 template <typename T, int V, bool PC>
 __global__ void __launch_bounds__(ckb::kMaxThreads, 2)
     ckb_fold_kernel(const T* __restrict__ in, T* __restrict__ out,
                     const int4* __restrict__ bonds, const int* __restrict__ poff,
                     const T* __restrict__ c, const T* __restrict__ s, int ngroups,
-                    T sign, int N, int K, int kt, int cs, int pmax, int inner,
+                    Real<T> sign, int N, int K, int kt, int cs, int pmax, int inner,
                     long long cstride) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const size_t sb = ckb::slab_bytes(N, cs, kt, sizeof(T));
@@ -116,7 +127,7 @@ int clusters_pc(int N, int kt, int cs, int pmax, int threads, int per_column) {
 
 template <typename T, int V, bool PC>
 int launch_v(const T* in, T* out, const int* bonds, const int* poff, const T* c, const T* s,
-             int ngroups, T sign, int B, int N, int K, int kt, int cs, int pmax, int threads,
+             int ngroups, Real<T> sign, int B, int N, int K, int kt, int cs, int pmax, int threads,
              int inner, long long cstride, void* stream) {
   return ckb::launch_cluster(ckb_fold_kernel<T, V, PC>, smem_set<T, V, PC>(), (K + kt - 1) / kt,
                              B, cs, threads, smem_bytes<T, V, PC>(N, kt, cs, pmax), stream, in,
@@ -126,7 +137,7 @@ int launch_v(const T* in, T* out, const int* bonds, const int* poff, const T* c,
 
 template <typename T, int V>
 int launch_pc(const T* in, T* out, const int* bonds, const int* poff, const T* c, const T* s,
-              int ngroups, T sign, int B, int N, int K, int kt, int cs, int pmax, int threads,
+              int ngroups, Real<T> sign, int B, int N, int K, int kt, int cs, int pmax, int threads,
               int inner, long long cstride, int per_column, void* stream) {
   return per_column
              ? launch_v<T, V, true>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs,
@@ -137,7 +148,7 @@ int launch_pc(const T* in, T* out, const int* bonds, const int* poff, const T* c
 
 template <typename T>
 int launch(const T* in, T* out, const int* bonds, const int* poff, const T* c, const T* s,
-           int ngroups, T sign, int B, int N, int K, int kt, int cs, int vec, int pmax,
+           int ngroups, Real<T> sign, int B, int N, int K, int kt, int cs, int vec, int pmax,
            int threads, int inner, long long cstride, int per_column, void* stream) {
   if (inner < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (vec) {
@@ -145,10 +156,12 @@ int launch(const T* in, T* out, const int* bonds, const int* poff, const T* c, c
       return launch_pc<T, 1>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, pmax,
                              threads, inner, cstride, per_column, stream);
     case 2:
-      return launch_pc<T, 2>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, pmax,
-                             threads, inner, cstride, per_column, stream);
+      if constexpr (sizeof(T) * 2 <= 16)
+        return launch_pc<T, 2>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs,
+                               pmax, threads, inner, cstride, per_column, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 4:
-      if constexpr (sizeof(T) == 4)
+      if constexpr (sizeof(T) * 4 <= 16)
         return launch_pc<T, 4>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs,
                                pmax, threads, inner, cstride, per_column, stream);
       [[fallthrough]];
@@ -161,18 +174,29 @@ int launch(const T* in, T* out, const int* bonds, const int* poff, const T* c, c
 
 extern "C" {
 
-// Clusters of the launch (dtype64, vec, N, kt, cs, pmax, threads,
+// Clusters of the launch (dtype, vec, N, kt, cs, pmax, threads,
 // per_column) the card holds at once (the grid runs in ceil(clusters /
-// this) waves).
-int ckb_fold_resident_clusters(int dtype64, int vec, int N, int kt, int cs, int pmax,
+// this) waves). dtype: 0 float32, 1 float64, 2 complex64, 3 complex128.
+int ckb_fold_resident_clusters(int dtype, int vec, int N, int kt, int cs, int pmax,
                                int threads, int per_column) {
-  if (dtype64) {
-    return vec == 2 ? clusters_pc<double, 2>(N, kt, cs, pmax, threads, per_column)
-                    : clusters_pc<double, 1>(N, kt, cs, pmax, threads, per_column);
+  using c64 = ckb::cplx<float>;
+  using c128 = ckb::cplx<double>;
+  switch (dtype) {
+    case 0:
+      return vec == 4   ? clusters_pc<float, 4>(N, kt, cs, pmax, threads, per_column)
+             : vec == 2 ? clusters_pc<float, 2>(N, kt, cs, pmax, threads, per_column)
+                        : clusters_pc<float, 1>(N, kt, cs, pmax, threads, per_column);
+    case 1:
+      return vec == 2 ? clusters_pc<double, 2>(N, kt, cs, pmax, threads, per_column)
+                      : clusters_pc<double, 1>(N, kt, cs, pmax, threads, per_column);
+    case 2:
+      return vec == 2 ? clusters_pc<c64, 2>(N, kt, cs, pmax, threads, per_column)
+                      : clusters_pc<c64, 1>(N, kt, cs, pmax, threads, per_column);
+    case 3:
+      return clusters_pc<c128, 1>(N, kt, cs, pmax, threads, per_column);
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
   }
-  return vec == 4   ? clusters_pc<float, 4>(N, kt, cs, pmax, threads, per_column)
-         : vec == 2 ? clusters_pc<float, 2>(N, kt, cs, pmax, threads, per_column)
-                    : clusters_pc<float, 1>(N, kt, cs, pmax, threads, per_column);
 }
 
 // Rows are [B, N, K]; row r takes its coefficients at (r / inner)·cstride
@@ -192,6 +216,29 @@ int ckb_fold_f64(const double* in, double* out, const int* bonds, const int* pof
                  long long cstride, int per_column, void* stream) {
   return launch<double>(in, out, bonds, poff, c, s, ngroups, sign, B, N, K, kt, cs, vec, pmax,
                         threads, inner, cstride, per_column, stream);
+}
+
+// Complex fields and tables (interleaved re/im): the same interface, K and
+// kt counted in complex elements.
+int ckb_fold_c64(const void* in, void* out, const int* bonds, const int* poff, const void* c,
+                 const void* s, int ngroups, double sign, int B, int N, int K, int kt, int cs,
+                 int vec, int pmax, int threads, int inner, long long cstride, int per_column,
+                 void* stream) {
+  using T = ckb::cplx<float>;
+  return launch<T>(static_cast<const T*>(in), static_cast<T*>(out), bonds, poff,
+                   static_cast<const T*>(c), static_cast<const T*>(s), ngroups,
+                   static_cast<float>(sign), B, N, K, kt, cs, vec, pmax, threads, inner, cstride,
+                   per_column, stream);
+}
+
+int ckb_fold_c128(const void* in, void* out, const int* bonds, const int* poff, const void* c,
+                  const void* s, int ngroups, double sign, int B, int N, int K, int kt, int cs,
+                  int vec, int pmax, int threads, int inner, long long cstride, int per_column,
+                  void* stream) {
+  using T = ckb::cplx<double>;
+  return launch<T>(static_cast<const T*>(in), static_cast<T*>(out), bonds, poff,
+                   static_cast<const T*>(c), static_cast<const T*>(s), ngroups, sign, B, N, K,
+                   kt, cs, vec, pmax, threads, inner, cstride, per_column, stream);
 }
 
 }  // extern "C"

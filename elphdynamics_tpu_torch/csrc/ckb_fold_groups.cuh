@@ -17,8 +17,11 @@
 // width where aligned, else scalars.
 //
 // Sweep. For each bond group g in application order,
-//     v_i <- c_n·v_i + sign·s_n·v_j,   v_j <- c_n·v_j + sign·s_n·v_i
-// for the disjoint bonds n = (i, j) of g. Bond n is owned by the rank that
+//     v_i <- c_n·v_i + sign·s_n·v_j,   v_j <- c_n·v_j + sign·conj(s_n)·v_i
+// for the disjoint bonds n = (i, j) of g (i the bond's first endpoint, as
+// in the spec's is_lo; conj is the identity on real types, and on complex
+// fields makes each bond block the Hermitian [c s; s̄ c], so the reversed
+// fold is the adjoint). Bond n is owned by the rank that
 // holds i; it reads and writes j in its own slab or, where j lies with
 // another rank, in that rank's slab through distributed shared memory.
 // A barrier separates the groups and ends the sweep: cluster.sync() where
@@ -42,6 +45,12 @@
 // times the slab), so the sweep reads each bond's V-wide vectors of c and
 // s from device memory along the thread's column chunk.
 //
+// Element types. T is float or double, or cplx<float> / cplx<double> for
+// complex fields (complex hopping): an interleaved (re, im) pair, torch's
+// complex layout, aligned to its size, so a complex element moves as one
+// 8- or 16-byte access and no vector splits a pair. The sign of a direction
+// stays real (RealOf<T>); the coefficients c and s are of type T.
+//
 // Threads. Thread t works on column chunk t % nvec (V columns, nvec = kt/V)
 // of sites/bonds t / nvec, t / nvec + T/nvec, ...; the launcher makes the
 // block size T a multiple of nvec. CTAs have at most 512 threads, and at
@@ -62,8 +71,44 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxDevices = 64;
 constexpr uint32_t kBulkPiece = 32768;  // bytes per bulk copy instruction
 
+// A complex number as torch stores it: (re, im) interleaved.
+template <typename R>
+struct alignas(2 * sizeof(R)) cplx {
+  R re, im;
+};
+
+template <typename T>
+struct RealOf {
+  using type = T;
+};
+template <typename R>
+struct RealOf<cplx<R>> {
+  using type = R;
+};
+
+template <typename R>
+__device__ __forceinline__ cplx<R> operator+(cplx<R> a, cplx<R> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> operator*(cplx<R> a, cplx<R> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> operator*(R a, cplx<R> b) {
+  return {a * b.re, a * b.im};
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> conj_of(cplx<R> a) {
+  return {a.re, -a.im};
+}
+__device__ __forceinline__ float conj_of(float a) { return a; }
+__device__ __forceinline__ double conj_of(double a) { return a; }
+
+// V elements moved as one access (at most 16 bytes, the widest a thread
+// loads or stores).
 template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
+struct alignas(sizeof(T) * V > 16 ? 16 : sizeof(T) * V) Pack {
   T x[V];
 };
 
@@ -344,7 +389,8 @@ template <typename T, bool PC>
 __device__ BondTables<T> load_bond_tables(unsigned char* where, const int4* __restrict__ bonds,
                                           const int* __restrict__ poff,
                                           const T* __restrict__ c, const T* __restrict__ s,
-                                          int ngroups, T sign, int rank, int pmax) {
+                                          int ngroups, typename RealOf<T>::type sign, int rank,
+                                          int pmax) {
   BondTables<T> tb;
   tb.off = poff + rank * (ngroups + 1);
   tb.base = tb.off[0];
@@ -413,11 +459,12 @@ __device__ inline void step_barrier(bool cluster_wide) {
 // keeps two bonds in flight: the bonds of a group are disjoint, so the
 // second bond's loads may pass the first's stores. With PC each bond's
 // coefficients are V-wide vectors of `cc` along the thread's columns (and
-// `sign` is applied here); else the pair in the tables.
+// `sign` is applied here); else the pair in the tables. The bond's second
+// endpoint takes conj(s) (a no-op for real T).
 template <typename T, int V, bool PC>
 __device__ void fold_sweep(T* slab, const BondTables<T>& tb, const int* __restrict__ cross,
                            int ngroups, int kt, const Tile& t, const ThreadMap& m,
-                           const ColumnCoeffs<T>& cc, T sign) {
+                           const ColumnCoeffs<T>& cc, typename RealOf<T>::type sign) {
   cg::cluster_group cluster = cg::this_cluster();
   step_barrier(ngroups > 0 && cross[0]);
   for (int step = 0; step < ngroups; ++step) {
@@ -456,13 +503,13 @@ __device__ void fold_sweep(T* slab, const BondTables<T>& tb, const int* __restri
               }
             } else {
 #pragma unroll
-              for (int x = 0; x < V; ++x) si[u].x[x] *= sign;
+              for (int x = 0; x < V; ++x) si[u].x[x] = sign * si[u].x[x];
             }
             Pack<T, V> oi, oj;
 #pragma unroll
             for (int x = 0; x < V; ++x) {
               oi.x[x] = ci[u].x[x] * vi[u].x[x] + si[u].x[x] * vj[u].x[x];
-              oj.x[x] = ci[u].x[x] * vj[u].x[x] + si[u].x[x] * vi[u].x[x];
+              oj.x[x] = ci[u].x[x] * vj[u].x[x] + conj_of(si[u].x[x]) * vi[u].x[x];
             }
             *pi[u] = oi;
             *pj[u] = oj;

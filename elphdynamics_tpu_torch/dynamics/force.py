@@ -7,7 +7,9 @@ is estimated from one Gaussian vector per evaluation:
 
 with ``M⁻¹g`` from :func:`..solve.solve_minv` (CG on MᵀM·z = Mᵀg, or
 BiCGStab / GMRES on M). Fields are ``[C, Nph, Lτ]`` and ``g`` is
-``[C, N, Lτ]``: one system per chain.
+``[C, N, Lτ]``: one system per chain. Under complex hopping ``g`` is a
+circular complex normal (E[gg†] = I) and the force is
+−2·Re[g†·∂M·M⁻¹g] (the model's ``muldMdx`` takes the real part).
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ bosonic substeps). One update:
 * momenta v = α·v + √(1−α²)·M^(−1/2)·R (Fourier-accelerated mass; R tied
   over aliased fields);
 * auxiliary field φ± = Λ⁻¹·Mᵀ·R± per spin (Mᵀ·R± for SSH, which has no Λ
-  shift);
+  shift); under complex hopping the two spins are one complex stack entry
+  φ = Λ⁻¹·M†·(R↑ + i·R↓), the time-reversal-symmetric twist ensemble;
 * Nt leapfrog steps, each with Nb bosonic substeps, a KPM-preconditioned,
   residual-checked solve of MᵀM·z = Λφ and the fermion forces. The solve is
   CG (warm-started from the previous solutions; with ``block`` the two
@@ -18,7 +19,8 @@ A solver failure freezes that chain's trajectory (masked commits) and
 rejects its update.
 
 Shapes: ``x``, ``v`` are ``[C, Nph, Lτ]``; the two spin systems are
-stacked as ``[C, 2, N, Lτ]`` and solved as one batched CG, the model's
+stacked as ``[C, 2, N, Lτ]`` (``[C, 1, N, Lτ]`` complex under complex
+hopping) and solved as one batched CG, the model's
 derived state shaped for the stack by ``ops.stack``. Every per-chain
 quantity (KPM window, CG masks, flags, acceptance) stays per chain. The
 kinetic energy counts primary fields only (SSH aliases).
@@ -42,7 +44,7 @@ from elphdynamics_tpu_torch.dynamics.solve import (
     SolverConfig, precond_state, resolve_precond, solve_oinv)
 from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
-from elphdynamics_tpu_torch.utils.dtypes import fdot, pseudofermion_noise
+from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
 
 
 @dataclass(frozen=True)
@@ -111,7 +113,8 @@ class HMCDraws:
     """The random numbers of one update."""
 
     momentum: torch.Tensor        # [C, Nph, Lτ] unit normals
-    pseudofermion: torch.Tensor   # [C, 2, N, Lτ] unit normals
+    # [C, 2, N, Lτ] unit normals; [C, 1, N, Lτ] R↑ + i·R↓ under complex hopping
+    pseudofermion: torch.Tensor
     uniform: torch.Tensor         # [C] uniforms on [0, 1) (float64)
     # power-iteration start vectors of the KPM setup; None = the
     # preconditioner's fixed pair
@@ -119,13 +122,16 @@ class HMCDraws:
 
 
 def draw(ops: ModelOps, n_chains: int, dtype: torch.dtype, device,
-         generator: torch.Generator | None = None) -> HMCDraws:
-    """Draw one update's random numbers from ``generator``."""
+         generator: torch.Generator | None = None, fdtype: torch.dtype | None = None
+         ) -> HMCDraws:
+    """Draw one update's random numbers from ``generator``; ``fdtype`` is
+    the fermion-field dtype (complex under complex hopping; default
+    ``dtype``)."""
     C = n_chains
     return HMCDraws(
         momentum=torch.randn((C, ops.Nph, ops.Ltau), generator=generator,
                              dtype=dtype, device=device),
-        pseudofermion=pseudofermion_noise((C, ops.Nsites, ops.Ltau), dtype, device,
+        pseudofermion=pseudofermion_noise((C, ops.Nsites, ops.Ltau), fdtype or dtype, device,
                                           generator),
         uniform=torch.rand((C,), generator=generator, dtype=torch.float64, device=device),
     )
@@ -252,7 +258,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         if x0.ndim != 3:
             raise ValueError(f"state.x must be [C, Nph, Ltau], got {tuple(x0.shape)}")
         if draws is None:
-            draws = draw(ops, x0.shape[0], x0.dtype, x0.device, generator)
+            draws = draw(ops, x0.shape[0], x0.dtype, x0.device, generator,
+                         field_dtype(params, x0.dtype))
         mop = mass(x0)
 
         def qf(a):
@@ -262,7 +269,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         v0 = cfg.alpha * v_in + math.sqrt(1.0 - cfg.alpha ** 2) * mop.apply(R, -0.5)
 
         derived0 = ops.derived(params, x0)
-        MtR = ops.mulMT(params, ops.stack(derived0), draws.pseudofermion.to(x0))
+        MtR = ops.mulMT(params, ops.stack(derived0), draws.pseudofermion.to(x0.device))
         phi = (ops.mulLambdaInv(ops.calc_Lambda(params, x0)[:, None], MtR) if has_lambda
                else MtR)
 

@@ -31,7 +31,7 @@ from elphdynamics_tpu_torch.dynamics.force import total_force
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_state
 from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
-from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
 METHODS = ("euler", "rk", "heun")
 
@@ -47,7 +47,9 @@ class LangevinDraws:
     """The random numbers of one step."""
 
     eta: torch.Tensor     # [C, Nph, Lτ] unit normals (tied by the step)
-    g: tuple              # one [C, N, Lτ] unit-normal field per force evaluation
+    # one [C, N, Lτ] unit-normal field per force evaluation (circular complex
+    # normals, E[gg†] = I, under complex hopping)
+    g: tuple
 
 
 def n_forces(method: str) -> int:
@@ -55,12 +57,14 @@ def n_forces(method: str) -> int:
 
 
 def draw(ops: ModelOps, n_chains: int, method: str, dtype: torch.dtype, device,
-         generator: torch.Generator | None = None) -> LangevinDraws:
+         generator: torch.Generator | None = None, fdtype: torch.dtype | None = None
+         ) -> LangevinDraws:
     """Draw one step's random numbers from ``generator``: η, then the force
-    vectors in order."""
+    vectors in order (of the fermion-field dtype ``fdtype``, default
+    ``dtype``)."""
     eta = torch.randn((n_chains, ops.Nph, ops.Ltau), generator=generator, dtype=dtype,
                       device=device)
-    g = tuple(trace_noise((n_chains, ops.Nsites, ops.Ltau), dtype, device, generator)
+    g = tuple(trace_noise((n_chains, ops.Nsites, ops.Ltau), fdtype or dtype, device, generator)
               for _ in range(n_forces(method)))
     return LangevinDraws(eta=eta, g=g)
 
@@ -83,7 +87,8 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         return q_ops[key]
 
     def force(params, x, g, pstate=None):
-        return total_force(ops, params, x, g.to(x), scfg, precond, shifted=True, pstate=pstate)
+        return total_force(ops, params, x, g.to(x.device), scfg, precond, shifted=True,
+                           pstate=pstate)
 
     def euler(params, x, eta, g, Q):
         f = force(params, x, g[0])
@@ -115,7 +120,8 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         if x.ndim != 3:
             raise ValueError(f"x must be [C, Nph, Ltau], got {tuple(x.shape)}")
         if draws is None:
-            draws = draw(ops, x.shape[0], method, x.dtype, x.device, generator)
+            draws = draw(ops, x.shape[0], method, x.dtype, x.device, generator,
+                         field_dtype(params, x.dtype))
         return scheme(params, x, ops.tie(draws.eta.to(x)), draws.g, accel(x))
 
     return step

@@ -28,7 +28,7 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
 from elphdynamics_tpu_torch.models.adapter import ModelOps
-from elphdynamics_tpu_torch.utils.dtypes import fdot, pseudofermion_noise
+from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
 
 
 @dataclass(frozen=True)
@@ -46,7 +46,9 @@ class SpecialDraws:
     # [n_moves, C] site (reflection) or checkerboard bond (Holstein swap);
     # [n_moves, C, 2] two distinct phonons (SSH swap)
     picks: torch.Tensor
-    pseudofermion: torch.Tensor  # [n_moves, C, 2, N, Lτ] unit normals
+    # [n_moves, C, 2, N, Lτ] unit normals; under complex hopping the two
+    # spins packed as [n_moves, C, 1, N, Lτ] R↑ + i·R↓
+    pseudofermion: torch.Tensor
     uniform: torch.Tensor        # [n_moves, C] uniforms on [0, 1) (float64)
 
 
@@ -89,13 +91,14 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
             draws = SpecialDraws(
                 picks=draw_picks((n_moves, C), generator, x.device),
                 pseudofermion=torch.stack([
-                    pseudofermion_noise((C, ops.Nsites, ops.Ltau), x.dtype, x.device, generator)
+                    pseudofermion_noise((C, ops.Nsites, ops.Ltau), field_dtype(params, x.dtype),
+                                        x.device, generator)
                     for _ in range(n_moves)]),
                 uniform=torch.rand((n_moves, C), generator=generator, dtype=torch.float64,
                                    device=x.device))
         accepted = torch.zeros(C, dtype=torch.int64, device=x.device)
         for m in range(n_moves):
-            phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[m].to(x))
+            phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[m].to(x.device))
             x_new = propose(x, draws.picks[m].to(x.device))
             S1, flag = _eval_S(ops, params, x_new, phi, cfg.tol ** 2, cfg.maxiter, precond)
             P = torch.clamp(torch.exp(-(S1 - S0)), max=1.0)

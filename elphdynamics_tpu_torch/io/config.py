@@ -11,12 +11,14 @@ updates; the reflection is Holstein's only) or ``[langevin]`` (``dt``,
 ``[tune_density]`` and ``[measurements]`` (PhononGreens is on-site for
 Holstein's site phonons, inter-site for SSH's bond phonons; BondBond,
 CurrentCurrent and BondPairGreens over pairs of bond definitions). Orbit
-indices are 1-based in the files and 0-based here.
+indices are 1-based in the files and 0-based here. Complex hopping:
+``[holstein] twist`` / ``[ssh] twist`` = [θ1, θ2(, θ3)] (twisted boundaries,
+radians) and ``[[holstein.t]] imag`` (t = val + i·imag).
 
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP slice: twisted boundaries and complex hopping (F), ``[tempering]``,
-``tune_dt`` and the 2MN integrator (G), ``[solver.deflation]`` and
-``[solver.nearnull]`` (I).
+ROADMAP slice: ``[solver] block`` with complex hopping (F4),
+``[tempering]``, ``tune_dt`` and the 2MN integrator (G),
+``[solver.deflation]`` and ``[solver.nearnull]`` (I).
 
 Disorder is drawn from ``numpy.random.default_rng(random_seed)`` in the
 JAX package's order, so one seed builds the same parameters in both.
@@ -41,6 +43,7 @@ from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.models.ssh import build_ssh
 from elphdynamics_tpu_torch.ops.fourier_accel import build_Q, build_mass
 from elphdynamics_tpu_torch.ops.kpm import KPMConfig
+from elphdynamics_tpu_torch.utils.dtypes import params_are_complex
 
 
 @dataclass
@@ -124,8 +127,6 @@ def _dL(d) -> tuple:
 
 def _build_ssh(cfg: dict, rng: np.random.Generator, dtype, device):
     s = cfg["ssh"]
-    if s.get("twist") is not None and any(s["twist"]):
-        raise _not_ported("[ssh] twist (twisted boundary conditions)", "F")
     hoppings = [dict(t=d.get("t_avg", 0.0), t_std=d.get("t_std", 0.0),
                      alpha=d.get("alpha_avg", 0.0), alpha_std=d.get("alpha_std", 0.0),
                      alpha2=d.get("alpha2_avg", 0.0), alpha2_std=d.get("alpha2_std", 0.0),
@@ -137,18 +138,17 @@ def _build_ssh(cfg: dict, rng: np.random.Generator, dtype, device):
     mu_assign = [(d["val"], d.get("stddev", 0.0), orbit - 1)
                  for d in s.get("mu", []) for orbit in d["orbit"]]
     return build_ssh(_build_lattice(cfg), s["beta"], s["dtau"], hoppings=hoppings,
-                     mu_assignments=mu_assign, rng=rng, dtype=dtype, device=device)
+                     mu_assignments=mu_assign, twist=s.get("twist"), rng=rng, dtype=dtype,
+                     device=device)
 
 
 def _build_model(cfg: dict, rng: np.random.Generator, dtype, device):
     if "ssh" in cfg:
         return _build_ssh(cfg, rng, dtype, device)
     h = cfg["holstein"]
-    if h.get("twist") is not None and any(h["twist"]):
-        raise _not_ported("[holstein] twist (twisted boundary conditions)", "F")
-    if any(d.get("imag", 0.0) for d in h.get("t", [])):
-        raise _not_ported("[[holstein.t]] imag (complex hopping)", "F")
-    t_assign = [(d["val"], d.get("stddev", 0.0), d["orbit"][0] - 1, d["orbit"][1] - 1, _dL(d))
+    # TOML has no complex literal: a complex hopping is val + i·imag
+    t_assign = [(d["val"] + (1j * d["imag"] if d.get("imag", 0.0) else 0.0),
+                 d.get("stddev", 0.0), d["orbit"][0] - 1, d["orbit"][1] - 1, _dL(d))
                 for d in h.get("t", [])]
     wij_assign = [(d["val"], d.get("stddev", 0.0), int(d.get("sign", 1)), d["orbit"][0] - 1,
                    d["orbit"][1] - 1, _dL(d)) for d in h.get("omega_ij", [])]
@@ -158,7 +158,7 @@ def _build_model(cfg: dict, rng: np.random.Generator, dtype, device):
     spec, params = build_holstein(
         _build_lattice(cfg), h["beta"], h["dtau"], t_assignments=t_assign,
         wij_assignments=wij_assign, per_orbit={k: v for k, v in per_orbit.items() if v},
-        rng=rng, dtype=dtype, device=device)
+        twist=h.get("twist"), rng=rng, dtype=dtype, device=device)
     return spec, params
 
 
@@ -252,6 +252,9 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
                               restart=sol.get("restart", 20),
                               block=bool(sol.get("block", False)),
                               loop_precision=sol.get("loop_precision", "high"))
+    if solver_cfg.block and params_are_complex(params):
+        raise _not_ported("[solver] block with complex hopping (block CG on complex fields)",
+                          "F4")
     kpm_cfg = None
     if "preconditioner" in sol:
         p = sol["preconditioner"]

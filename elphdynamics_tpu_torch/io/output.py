@@ -205,22 +205,32 @@ def read_phonons(ops: ModelOps, filename: str) -> np.ndarray:
 
 def write_K_matrix(ops: ModelOps, params, x, filename: str, tau: int = 0):
     """The SSH hopping matrix K[τ] of one chain's ``[Nph, Lτ]`` field,
-    on-site energies included: 'col row val' rows."""
+    on-site energies included: 'col row val' rows, or 'col row real imag'
+    under twisted boundaries (K is Hermitian: the reversed entry is the
+    conjugate)."""
     from elphdynamics_tpu_torch.models import ssh as Sm
 
     spec = ops.spec
+    cplx = params.t_phase is not None
     x = torch.as_tensor(x, device=params.mu.device, dtype=params.mu.dtype)
     with open(filename, "w") as f:
-        f.write("col row val\n")
+        f.write("col row real imag\n" if cplx else "col row val\n")
         mu = params.mu.detach().cpu().numpy()
         for i in range(spec.Nsites):
-            f.write(f"{i + 1} {i + 1} {-mu[i]}\n")
-        tp = Sm.hopping_t_prime(spec, params, x).detach().cpu().numpy()
+            f.write(f"{i + 1} {i + 1} {-mu[i]} 0.0\n" if cplx else f"{i + 1} {i + 1} {-mu[i]}\n")
+        tp = Sm.hopping_t_prime(spec, params, x)
+        if cplx:
+            tp = params.t_phase[:, None] * tp
+        tp = tp.detach().cpu().numpy()
         for b in range(spec.Nbonds):
             s1, s2 = spec.ckb.neighbor_table[:, spec.bond_to_ckb[b]]
             val = -tp[b, tau]
-            f.write(f"{s1 + 1} {s2 + 1} {val}\n")
-            f.write(f"{s2 + 1} {s1 + 1} {val}\n")
+            if cplx:
+                f.write(f"{s1 + 1} {s2 + 1} {val.real} {val.imag}\n")
+                f.write(f"{s2 + 1} {s1 + 1} {val.real} {-val.imag}\n")
+            else:
+                f.write(f"{s1 + 1} {s2 + 1} {val}\n")
+                f.write(f"{s2 + 1} {s1 + 1} {val}\n")
 
 
 def write_M_matrix(ops: ModelOps, params, x, filename: str, threshold=1e-10,

@@ -128,7 +128,10 @@ def _toml_print(f, d: dict, prefix: str = ""):
 # ---------------------------------------------------------------------------
 
 def _avg_std(vals: np.ndarray):
-    vals = np.asarray(vals, dtype=float).ravel()
+    vals = np.asarray(vals).ravel()
+    if np.iscomplexobj(vals):   # complex hopping: the real part here, imag below
+        vals = vals.real
+    vals = vals.astype(float)
     if vals.size == 0:
         return 0.0, 0.0
     return float(vals.mean()), float(vals.std(ddof=1)) if vals.size > 1 else 0.0
@@ -141,10 +144,15 @@ def _write_bond_definitions(f, setup):
                          else spec.bond_to_definition)
     for bid, d in enumerate(spec.bond_defs):
         o1, o2, dL = d[0], d[1], d[2]
-        avg, std = _avg_std(t[per_def == bid] if t.size else np.zeros(0))
+        tvals = t[per_def == bid] if t.size else np.zeros(0)
+        avg, std = _avg_std(tvals)
         f.write(f"Bond ID       = {bid + 1}\n")
         f.write(f"t_avg         = {avg}\n")
         f.write(f"t_std         = {std}\n")
+        if np.iscomplexobj(tvals):
+            f.write(f"t_imag_avg    = {float(tvals.imag.mean())}\n")
+            f.write(f"t_imag_std    = "
+                    f"{float(tvals.imag.std(ddof=1)) if tvals.size > 1 else 0.0}\n")
         f.write(f"Initial Orbit = {o1 + 1}\n")
         f.write(f"Final Orbit   = {o2 + 1}\n")
         f.write(f"Displacement  = {list(dL)}\n\n")

@@ -1,7 +1,7 @@
 """Stochastic Green's-function estimation.
 
-Counterpart of ``elphdynamics_tpu/measure/greens.py`` (real hopping). Per
-measurement, nᵥ Gaussian probes R and their solutions M⁻¹R estimate the
+Counterpart of ``elphdynamics_tpu/measure/greens.py``. Per measurement, nᵥ
+Gaussian probes R and their solutions M⁻¹R estimate the
 single-particle Green's function; every unordered pair (i, j) of probes
 builds translation-averaged two- and four-point tensors by space-time FFT
 convolution with an antiperiodic doubling of the τ axis. Only the pair sums
@@ -13,6 +13,11 @@ Chains: fields carry a leading chain axis. Probes and solutions are
 ``[C, nᵥ, N, Lτ]`` and the nᵥ·C systems are one batched solve (with
 ``[solver] block`` a block CG over each chain's nᵥ probes, which share its
 operator); pair tensors are ``[C, nₒ, nₒ, L1, L2, L3, 2Lτ]``.
+
+Complex hopping (the time-reversal-symmetric twist ensemble, G↓ = conj G↑):
+the probes are circular complex normals, M⁻¹R ⊙ conj(R) estimates the
+spin-↑ Green's function, and every pair tensor is the spin sum of its real
+meaning, so the assembly downstream is unchanged (see :class:`PairTensors`).
 
 The transforms are ``torch.fft`` (full precision of the field's complex
 type, no TF32). The JAX package's DFT-matmul lowering of these transforms
@@ -29,7 +34,7 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
 from elphdynamics_tpu_torch.models.adapter import ModelOps
-from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
 FFT_DIMS = (-4, -3, -2, -1)
 
@@ -49,7 +54,9 @@ def sample_greens(ops: ModelOps, params, x, nv: int, scfg: SolverConfig, precond
     preconditioner set up at ``x`` ``[C, N, Lτ]``."""
     C = x.shape[0]
     if R is None:
-        R = trace_noise((C, nv, ops.Nsites, ops.Ltau), x.dtype, x.device, generator)
+        # circular complex normals under complex hopping
+        R = trace_noise((C, nv, ops.Nsites, ops.Ltau), field_dtype(params, x.dtype), x.device,
+                        generator)
     derived = ops.derived(params, x)
     pa = resolve_precond(precond, params, x)
     # a chain's nᵥ systems share its operator: eligible for block CG
@@ -113,13 +120,21 @@ def translational_average(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class PairTensors:
     """Pair-summed estimator tensors ``[C, nₒ, nₒ, L1, L2, L3, 2Lτ]``
-    (complex): sums over the C(nᵥ,2) unordered probe pairs."""
+    (complex): sums over the C(nᵥ,2) unordered probe pairs.
+
+    Under complex hopping each is the spin-averaged generalisation of its
+    real meaning: G = Re G↑; GG = G↑·G↓; GDD_G00 = Re GΔΔ·Re G00;
+    G0D_GD0 = Re[GΔ0·G0Δ]; GDD_minus = −Im GΔΔ·Im G00 (the Sz–Sz direct
+    term, None for real hopping); G_up the per-spin complex G↑ (None for
+    real hopping)."""
 
     G: torch.Tensor          # GΔ0
     GG: torch.Tensor         # GΔ0·GΔ0
     GDD_G00: torch.Tensor    # GΔΔ·G00
     G0D_GD0: torch.Tensor    # GΔ0·G0Δ
     n_pairs: int
+    GDD_minus: torch.Tensor | None = None
+    G_up: torch.Tensor | None = None
 
 
 def pair_indices(nv: int):
@@ -127,14 +142,19 @@ def pair_indices(nv: int):
 
 
 def pair_tensor_sums(lattice, R: torch.Tensor, MinvR: torch.Tensor) -> PairTensors:
-    """The four pair-summed tensors from ``[C, nᵥ, N, Lτ]`` probes and
-    solutions."""
-    if R.is_complex():
-        raise NotImplementedError("complex probes: ROADMAP slice F")
+    """The pair-summed tensors from ``[C, nᵥ, N, Lτ]`` probes and
+    solutions. Complex probes (complex hopping): conj on every probe of a
+    same-vector pairing (G↑ = E[M⁻¹R ⊙ conj R]); each unordered pair gives
+    vector i to spin ↑ and j to spin ↓ = conj, and the spin sums become
+    real parts (per factor for the direct products, of the whole
+    convolution for the same-spin exchange)."""
     nv, Ltau = R.shape[-3], R.shape[-1]
     V = 2 * Ltau * lattice.ncells
+    cplx = R.is_complex()
     Rc = to_cell_layout(lattice, R)        # [C, nv, no, L1, L2, L3, L]
     Mc = to_cell_layout(lattice, MinvR)
+    if cplx:
+        Rc = Rc.conj()                      # the estimator's probe side
     Ra, Ma = antiperiodic_double(Rc), antiperiodic_double(Mc)
     V_AX = -6                               # the probe axis in cell layout
 
@@ -142,6 +162,11 @@ def pair_tensor_sums(lattice, R: torch.Tensor, MinvR: torch.Tensor) -> PairTenso
     diag_sum = convolve(Ma, Ra, V).sum(dim=V_AX - 1)
     tot = convolve(Ma.sum(dim=V_AX), Ra.sum(dim=V_AX), V)
     G = ((nv - 2) * diag_sum + tot) / 2.0
+    G_up = None
+    if cplx:
+        # per spin, and the spin average (G↑+G↓)/2 = Re G↑ (kept in the
+        # complex type, as every pair tensor is)
+        G_up, G = G, G.real.to(G.dtype)
 
     iu, ju = (torch.as_tensor(i, device=R.device) for i in pair_indices(nv))
     Mi, Mj = Mc.index_select(V_AX, iu), Mc.index_select(V_AX, ju)
@@ -150,6 +175,16 @@ def pair_tensor_sums(lattice, R: torch.Tensor, MinvR: torch.Tensor) -> PairTenso
     def pair_sum(a, b):
         return convolve(periodic_double(a), periodic_double(b), V).sum(dim=V_AX - 1)
 
-    return PairTensors(G=G, GG=pair_sum(Mi * Mj, Ri * Rj),
-                       GDD_G00=pair_sum(Mj * Rj, Mi * Ri),
-                       G0D_GD0=pair_sum(Mi * Rj, Mj * Ri), n_pairs=len(iu))
+    if not cplx:
+        return PairTensors(G=G, GG=pair_sum(Mi * Mj, Ri * Rj),
+                           GDD_G00=pair_sum(Mj * Rj, Mi * Ri),
+                           G0D_GD0=pair_sum(Mi * Rj, Mj * Ri), n_pairs=len(iu))
+    # opposite spins: the j side is conjugated wholesale (M and probe)
+    GG = pair_sum(Mi * Mj.conj(), Ri * Rj.conj())
+    Di, Dj = Mi * Ri, Mj * Rj                # the density fields M⁻¹R ⊙ conj R
+    dd_plus = pair_sum(Dj, Di)               # GΔΔ·G00
+    dd_cross = pair_sum(Dj, Di.conj())       # GΔΔ·conj(G00)
+    cdt = G.dtype
+    return PairTensors(G=G, GG=GG, GDD_G00=((dd_plus + dd_cross).real / 2.0).to(cdt),
+                       G0D_GD0=pair_sum(Mi * Rj, Mj * Ri).real.to(cdt), n_pairs=len(iu),
+                       GDD_minus=((dd_plus - dd_cross).real / 2.0).to(cdt), G_up=G_up)

@@ -1,7 +1,7 @@
 """Inter-site (bond-pair) correlation functions, batched over chains.
 
-Counterpart of ``elphdynamics_tpu/measure/intersite_corr.py`` (real
-hopping). For every pair of bond definitions (n″, n′) — bond n′ runs
+Counterpart of ``elphdynamics_tpu/measure/intersite_corr.py``. For every
+pair of bond definitions (n″, n′) — bond n′ runs
 orbitals b→a displaced r′ cells, bond n″ runs d→c displaced r″ — the
 estimators combine shifted single-orbital fields of the two probes of each
 probe pair (i, j) into translational averages:
@@ -24,8 +24,14 @@ Fields carry a leading chain axis: the per-probe-pair fields are
 ``[C, n_bond_pairs, L1, L2, L3, Lτ+1 | 1]``. Bond pairs run in a Python loop
 (one pair's fields at a time); within a pair all P probe pairs go through
 one batched FFT, and their sum is taken before the inverse transform. The
-contact terms index single elements on the device. Real probes only: the
-conjugated-probe branch of complex hopping is ROADMAP slice F.
+contact terms index single elements on the device.
+
+Complex hopping (the time-reversal-symmetric twist ensemble, spin ↓ on the
+conjugate phases): the probes are stored conjugated (the estimator pairing
+is G↑ = E[M⁻¹R ⊙ conj R]); direct (cross-spin) terms take the real part of
+each factor, same-spin exchange and contact terms the real part of the
+whole product, and BondPairGreens conjugates its spin-↓ factor, with the
+per-spin G↑ in its τ = β identities. All are identities for real hopping.
 """
 
 from __future__ import annotations
@@ -65,19 +71,25 @@ def _bond(defs, n):
 
 class BondFields:
     """Cell-layout fields of every probe pair: r₁ / M⁻¹r₁ of probe i and
-    r₂ / M⁻¹r₂ of probe j, each ``[C, P, nₒ, L1, L2, L3, Lτ]`` complex."""
+    r₂ / M⁻¹r₂ of probe j, each ``[C, P, nₒ, L1, L2, L3, Lτ]`` complex;
+    complex probes (complex hopping) are stored conjugated."""
 
     def __init__(self, lattice, R, MinvR, pair_idx, cdtype: torch.dtype):
-        if R.is_complex():
-            raise NotImplementedError("conjugated complex probes: ROADMAP slice F")
+        self.cplx = R.is_complex()
         iu, ju = (torch.as_tensor(i, device=R.device) for i in pair_idx)
         Rc = G.to_cell_layout(lattice, R).to(cdtype)         # [C, nv, no, L1, L2, L3, Lτ]
+        if self.cplx:
+            Rc = Rc.conj()
         Mc = G.to_cell_layout(lattice, MinvR).to(cdtype)
         self.r1, self.M1 = Rc.index_select(1, iu), Mc.index_select(1, iu)
         self.r2, self.M2 = Rc.index_select(1, ju), Mc.index_select(1, ju)
 
     def f(self, which: str, orbital: int):
         return getattr(self, which)[:, :, orbital]
+
+    def re(self, v):
+        """The real part (kept complex) under complex hopping, else ``v``."""
+        return v.real.to(v.dtype) if self.cplx else v
 
 
 def _finalize_tau(arr, Lt: int, time_dependent: bool, beta_negated: bool):
@@ -99,11 +111,11 @@ def measure_bondbond(ops, pt, bf: BondFields, bond_pairs, time_dependent: bool):
         d, c, r2v = _bond(spec.bond_defs, n2)
         b, a, r1v = _bond(spec.bond_defs, n1)
         # + 4·⟨b(i+r,τ)a⁺(i+r+r′,τ)⟩⟨d(i,0)c⁺(i+r″,0)⟩: the direct term
-        bb = 4.0 * _ta_sum(bf.f("M1", b) * _cshift(bf.f("r1", a), r1v),
-                           bf.f("M2", d) * _cshift(bf.f("r2", c), r2v))
+        bb = 4.0 * _ta_sum(bf.re(bf.f("M1", b) * _cshift(bf.f("r1", a), r1v)),
+                           bf.re(bf.f("M2", d) * _cshift(bf.f("r2", c), r2v)))
         # − 2·⟨b(i+r,τ)c⁺(i+r″,0)⟩⟨d(i,0)a⁺(i+r+r′,τ)⟩: the same-spin exchange
-        bb = bb - 2.0 * _ta_sum(bf.f("M2", d) * _cshift(bf.f("r1", c), r2v),
-                                bf.f("M1", b) * _cshift(bf.f("r2", a), r1v))
+        bb = bb - 2.0 * bf.re(_ta_sum(bf.f("M2", d) * _cshift(bf.f("r1", c), r2v),
+                                      bf.f("M1", b) * _cshift(bf.f("r2", a), r1v)))
         # + 2·δ(a,d)·δ(r+r′)·⟨b(i+r−r″,τ)c⁺(i,0)⟩, recorded at l = −r′−r″
         if a == d:
             l = _wrap(lat, [-r1v[k] - r2v[k] for k in range(3)])
@@ -124,6 +136,8 @@ def _hopping_grids(ops, params, x, cdtype):
         tvals = params.t[None, :, None]                          # [1, Nbonds, 1]
     else:
         tvals = Sm.hopping_t_prime(spec, params, x)              # [C, Nbonds, Lτ]
+        if params.t_phase is not None:                           # twisted SSH
+            tvals = params.t_phase[None, :, None] * tvals
     lead, tail = tvals.shape[0], tvals.shape[-1]
     grids, n0 = [], 0
     for dfn in spec.bond_defs:
@@ -152,8 +166,9 @@ def measure_currentcurrent(ops, params, x, pt, bf: BondFields, bond_pairs,
 
     def contact(G1, G2, l, w1, w2):
         """The lattice average pairing G₁ at cell y+l with G₂ at cell y,
-        summed over the probe pairs: ``[C]``."""
-        return (_cshift(w1 * G1, l) * (w2 * G2)).sum(dim=(1, 2, 3, 4, 5)) / norm
+        summed over the probe pairs: ``[C]`` (its real part under complex
+        hopping)."""
+        return bf.re((_cshift(w1 * G1, l) * (w2 * G2)).sum(dim=(1, 2, 3, 4, 5)) / norm)
 
     out = []
     for n2, n1 in bond_pairs:
@@ -162,27 +177,34 @@ def measure_currentcurrent(ops, params, x, pt, bf: BondFields, bond_pairs,
         t1, t2 = w(t[n1]), w(t[n2])          # t′ (bond n′), t″ (bond n″)
         t1c, t2c = t1.conj(), t2.conj()
 
-        def term(G1, G2, w1, w2, coeff):
-            return coeff * _ta_sum(w1 * G1, w2 * G2)
+        def direct(G1, G2, w1, w2, coeff):
+            """A cross-spin product: each factor spin-summed (its real
+            part under complex hopping)."""
+            return coeff * _ta_sum(bf.re(w1 * G1), bf.re(w2 * G2))
+
+        def exch(G1, G2, w1, w2, coeff):
+            """A same-spin contraction (its real part under complex
+            hopping)."""
+            return coeff * bf.re(_ta_sum(w1 * G1, w2 * G2))
 
         M1b_r1a = bf.f("M1", b) * _cshift(bf.f("r1", a), r1v)
         M1a_r1b = _cshift(bf.f("M1", a), r1v) * bf.f("r1", b)
         M2c_r2d = _cshift(bf.f("M2", c), r2v) * bf.f("r2", d)
         M2d_r2c = bf.f("M2", d) * _cshift(bf.f("r2", c), r2v)
         # the four direct terms: the per-configuration ⟨J′⟩⟨J″⟩ product
-        cc = term(M1b_r1a, M2c_r2d, t1, t2c, 4.0)
-        cc = cc + term(M1b_r1a, M2d_r2c, t1, t2, -4.0)
-        cc = cc + term(M1a_r1b, M2c_r2d, t1c, t2c, -4.0)
-        cc = cc + term(M1a_r1b, M2d_r2c, t1c, t2, 4.0)
+        cc = direct(M1b_r1a, M2c_r2d, t1, t2c, 4.0)
+        cc = cc + direct(M1b_r1a, M2d_r2c, t1, t2, -4.0)
+        cc = cc + direct(M1a_r1b, M2c_r2d, t1c, t2c, -4.0)
+        cc = cc + direct(M1a_r1b, M2d_r2c, t1c, t2, 4.0)
         # the four exchange terms
         M1b_r2a = bf.f("M1", b) * _cshift(bf.f("r2", a), r1v)
         M1a_r2b = _cshift(bf.f("M1", a), r1v) * bf.f("r2", b)
         M2c_r1d = _cshift(bf.f("M2", c), r2v) * bf.f("r1", d)
         r1c_M2d = _cshift(bf.f("r1", c), r2v) * bf.f("M2", d)
-        cc = cc + term(M1b_r2a, M2c_r1d, t1, t2c, -2.0)
-        cc = cc + term(r1c_M2d, M1b_r2a, t2, t1, 2.0)
-        cc = cc + term(M1a_r2b, M2c_r1d, t1c, t2c, 2.0)
-        cc = cc + term(M1a_r2b, r1c_M2d, t1c, t2, -2.0)
+        cc = cc + exch(M1b_r2a, M2c_r1d, t1, t2c, -2.0)
+        cc = cc + exch(r1c_M2d, M1b_r2a, t2, t1, 2.0)
+        cc = cc + exch(M1a_r2b, M2c_r1d, t1c, t2c, 2.0)
+        cc = cc + exch(M1a_r2b, r1c_M2d, t1c, t2, -2.0)
         # the equal-time δ pieces of the exchange contractions, each a
         # lattice average placed at one displacement
         if a == c:      # +2·t′(i+l)t″(i)·⟨b(i+l,0)d⁺(i,0)⟩ at l = r″−r′
@@ -207,13 +229,20 @@ def measure_bondpairgreens(ops, pt, bf: BondFields, bond_pairs, time_dependent: 
                            n_pairs: int):
     """``[C, n_bond_pairs, L1, L2, L3, Lτ+1 | 1]``."""
     spec, Lt, lat = ops.spec, ops.Ltau, ops.spec.lattice
+    # the τ = β identities are per spin: the (a↑c⁺↑) factor gives G↑, the
+    # (b↓d⁺↓) factor its conjugate (both the real G for real hopping)
+    Gup = pt.G if pt.G_up is None else pt.G_up
+    Gdn = pt.G if pt.G_up is None else pt.G_up.conj()
     out = []
     for n2, n1 in bond_pairs:
         d, c, r2v = _bond(spec.bond_defs, n2)
         b, a, r1v = _bond(spec.bond_defs, n1)
-        # ⟨a(r′+r+i,τ)c⁺(r″+i,0)⟩⟨b(r+i,τ)d⁺(i,0)⟩
-        pg = _ta_sum(_cshift(bf.f("M1", a), r1v) * bf.f("M2", b),
-                     _cshift(bf.f("r1", c), r2v) * bf.f("r2", d))
+        # ⟨a(r′+r+i,τ)c⁺(r″+i,0)⟩⟨b(r+i,τ)d⁺(i,0)⟩; under complex hopping
+        # the spin-↓ factor is the conjugated estimate (M₂ and r₂ together)
+        M2b, r2d = bf.f("M2", b), bf.f("r2", d)
+        if bf.cplx:
+            M2b, r2d = M2b.conj(), r2d.conj()
+        pg = _ta_sum(_cshift(bf.f("M1", a), r1v) * M2b, _cshift(bf.f("r1", c), r2v) * r2d)
         if not time_dependent:
             out.append(pg[..., :1])
             continue
@@ -223,9 +252,9 @@ def measure_bondpairgreens(ops, pt, bf: BondFields, bond_pairs, time_dependent: 
             beta[:, 0, 0, 0] += float(n_pairs)
         if b == d:      # − δ(r=0)·G(r′−r″; c,a; 0) placed at r = 0
             l = _wrap(lat, [r1v[k] - r2v[k] for k in range(3)])
-            beta[:, 0, 0, 0] -= pt.G[:, a, c, l[0], l[1], l[2], 0]
+            beta[:, 0, 0, 0] -= Gup[:, a, c, l[0], l[1], l[2], 0]
         if a == c:      # − δ(r″ = r′+r)·G(r; d,b; 0) at r = r″−r′
             l = _wrap(lat, [r2v[k] - r1v[k] for k in range(3)])
-            beta[:, l[0], l[1], l[2]] -= pt.G[:, b, d, l[0], l[1], l[2], 0]
+            beta[:, l[0], l[1], l[2]] -= Gdn[:, b, d, l[0], l[1], l[2], 0]
         out.append(torch.cat([pg, beta[..., None]], dim=-1))
     return torch.stack(out, dim=1)

@@ -1,8 +1,8 @@
 """Observable measurements, binning and post-processing.
 
 Counterpart of ``elphdynamics_tpu/measure/measurements.py`` for the
-Holstein and optical SSH models with real hopping. The measurement step
-accumulates per sampler sweep:
+Holstein and optical SSH models, real or complex hopping. The measurement
+step accumulates per sampler sweep:
 
 * global: density, ⟨N̂²⟩, μ;
 * on-site per orbital: density, double occupancy, μ, and for Holstein ⟨x⟩,
@@ -26,6 +26,12 @@ per-probe sums:
     Σ_{i<j}(aᵢ + aⱼ) = (nᵥ−1)·Σᵢaᵢ,
     Σ_{i<j} aᵢ·bⱼ + aⱼ·bᵢ = (Σa)(Σb) − Σᵢaᵢbᵢ.
 
+Complex hopping (the time-reversal-symmetric twist ensemble, spin ↓ on the
+conjugate phases): the per-probe estimates pair M⁻¹r with conj(r), the
+scalars run on their real parts (the spin-summed density is 2 − 2·Re G),
+the bond kinetic energy is the Hermitian pair 2·Re[t·G↑(1,2) + t̄·G↑(2,1)],
+and SpinSpin gains the direct term 4·GDD_minus.
+
 Chains: the step measures every chain of a ``[C, N, Lτ]`` batch;
 :func:`mean_over_chains` then averages the increments over the chains whose
 probe solves succeeded. Per bin, :func:`process_bin` normalises, moves the
@@ -46,6 +52,7 @@ from elphdynamics_tpu_torch.measure import greens as G
 from elphdynamics_tpu_torch.measure import intersite_corr as IC
 from elphdynamics_tpu_torch.models import ssh as Sm
 from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.utils.dtypes import complex_of
 from elphdynamics_tpu_torch.utils.math import simpson
 
 ONSITE_CORR_KINDS = ("Greens", "DenDen", "SpinSpin", "PairGreens", "PhononGreens")
@@ -118,10 +125,6 @@ def _container_shapes(ops: ModelOps, mspec: MeasurementSpec) -> dict:
     return shapes
 
 
-def complex_of(dtype: torch.dtype) -> torch.dtype:
-    return torch.complex128 if dtype == torch.float64 else torch.complex64
-
-
 def zero_container(ops: ModelOps, mspec: MeasurementSpec, dtype: torch.dtype, device) -> dict:
     """The bin accumulator: real groups in ``dtype``, correlations in its
     complex type, on ``device``."""
@@ -186,8 +189,14 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         out: dict[str, Any] = {"global": {}, "onsite": {}, "intersite": {},
                                "onsite_corr": {}, "intersite_corr": {}}
 
-        # per-probe diagonal estimates Gᵢ(s, τ) = (M⁻¹rᵢ ⊙ rᵢ)(s, τ)
-        Gdiag = MinvR * R                             # [C, nv, N, Lt]
+        # per-probe diagonal estimates Gᵢ(s, τ) = (M⁻¹rᵢ ⊙ conj rᵢ)(s, τ).
+        # Complex hopping: the spin-summed density is 2 − 2·Re G (the Im
+        # parts of ↑ and ↓ = conj cancel), so the scalars run on Re G, and
+        # the double occupancy keeps the complex field
+        cplx = R.is_complex()
+        Rp = R.conj() if cplx else R
+        Gdiag_c = MinvR * Rp                          # [C, nv, N, Lt]
+        Gdiag = Gdiag_c.real if cplx else Gdiag_c
         TrG = Gdiag.sum(dim=(-2, -1)) / Lt            # [C, nv]
         N_per_vec = 2.0 * (spec.Nsites - TrG)
 
@@ -201,10 +210,11 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         out["global"]["mu"] = chains(n_pairs * params.mu.mean())
 
         # ---- on-site
-        one_minus_G = 1.0 - Gdiag
-        sum1mG = one_minus_G.sum(dim=1)               # [C, N, Lt]
+        sum1mG = (1.0 - Gdiag).sum(dim=1)             # [C, N, Lt]
         dens_site = (nv - 1) * sum1mG
-        docc_site = (sum1mG.abs() ** 2 - (one_minus_G.abs() ** 2).sum(dim=1)) / 2.0
+        # ⟨n↑n↓⟩ = Σpairs Re[(1−G₁)(1−conj G₂)] = (|Σ(1−G)|² − Σ|1−Gᵢ|²)/2
+        omg_c = 1.0 - Gdiag_c
+        docc_site = (omg_c.sum(dim=1).abs() ** 2 - (omg_c.abs() ** 2).sum(dim=1)) / 2.0
         out["onsite"]["density"] = orbit_sum(dens_site) / norm_site
         out["onsite"]["double_occ"] = orbit_sum(docc_site) / norm_site
         out["onsite"]["mu"] = n_pairs * orbit_sum(chains(params.mu[:, None].expand(-1, Lt))) / norm_site
@@ -231,20 +241,36 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             s2 = torch.as_tensor(spec.ckb.neighbor_table[1][spec.bond_to_ckb], device=dev)
             bdef = torch.as_tensor(spec.bond_def_of_bond if ops.is_holstein
                                    else spec.bond_to_definition, device=dev)
-            est_12 = MinvR.index_select(-2, s1) * R.index_select(-2, s2)
-            est_21 = MinvR.index_select(-2, s2) * R.index_select(-2, s1)
+            # complex hopping: conj probe and Re (each pair's ↑/↓ assignment
+            # symmetrises to the spin-summed 2·Re G per vector)
+            est_12c = MinvR.index_select(-2, s1) * Rp.index_select(-2, s2)
+            est_21c = MinvR.index_select(-2, s2) * Rp.index_select(-2, s1)
+            est_12 = est_12c.real if cplx else est_12c
+            est_21 = est_21c.real if cplx else est_21c
             h = -(nv - 1) * (est_12 + est_21).sum(dim=1)          # [C, Nbonds, Lt]
+
+            def ke_pairs(tf):
+                """Σpairs of the bond kinetic energy for the hoppings ``tf``:
+                −tf·h, or under complex hopping the Hermitian pair
+                −t·c†₂c₁ − t̄·c†₁c₂ per spin, spin-summed to
+                2·Re[t·G↑(1,2) + t̄·G↑(2,1)]."""
+                if not cplx:
+                    return -tf * h
+                w = tf.unsqueeze(1) if tf.ndim == 3 else tf    # SSH's [C, Nb, Lt] per probe
+                return (nv - 1) * (w * est_12c + w.conj() * est_21c).real.sum(dim=1)
 
             def per_def(v, V):
                 return torch.zeros((C, ndefs), dtype=dt, device=dev).index_add(
                     1, bdef, v.sum(dim=-1)) / V
 
             if ops.is_holstein:
-                out["intersite"]["el_ke"] = per_def(-params.t[:, None] * h, lat.ncells * Lt)
+                out["intersite"]["el_ke"] = per_def(ke_pairs(params.t[:, None]),
+                                                    lat.ncells * Lt)
             else:
                 Vb = torch.as_tensor(Vb_def, device=dev).to(dt)
                 tp = Sm.hopping_t_prime(spec, params, x)          # [C, Nbonds, Lt]
-                out["intersite"]["el_ke"] = per_def(-tp * h, Vb)
+                tf = tp if params.t_phase is None else params.t_phase[:, None] * tp
+                out["intersite"]["el_ke"] = per_def(ke_pairs(tf), Vb)
                 # the phonon-carrying bonds
                 has_ph = torch.as_tensor(spec.bond_to_phonon >= 0, device=dev)[:, None]
                 php = torch.as_tensor(np.maximum(spec.bond_to_phonon, 0), device=dev)
@@ -311,12 +337,19 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             sl = oslices(kp)
             ss = (-2.0 * sl["G0Dp"]
                   + 2.0 * sl["delta"][..., None] * delta_t0 * sl["G_o2o1_00"][..., None])
+            if pt.GDD_minus is not None:
+                # twisted direct term: n↑ − n↓ = −2i·Im G↑ per configuration,
+                # so ⟨SzΔSz0⟩ gains −4·⟨Im GΔΔ·Im G00⟩ = +4·GDD_minus
+                ss = ss + 4.0 * pt.GDD_minus[:, sl["o2"], sl["o1"]]
             if td:
                 # τ=β: swapped orbitals, negated displacement
                 o1, o2 = sl["o1"], sl["o2"]
                 neg = G._neg_index(pt.G0D_GD0[:, o1, o2][..., 0], (-3, -2, -1))
                 G_sw_00 = pt.G[:, o1, o2, 0, 0, 0, 0][:, :, None, None, None]
                 beta = -2.0 * neg + 2.0 * sl["delta"] * G_sw_00
+                if pt.GDD_minus is not None:
+                    beta = beta + 4.0 * G._neg_index(pt.GDD_minus[:, o1, o2][..., 0],
+                                                     (-3, -2, -1))
                 ss = torch.cat([ss[..., :Lt], beta[..., None]], dim=-1)
             else:
                 ss = ss[..., :1]
@@ -382,9 +415,9 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         # ---- snapshots: per-site instantaneous estimates
         snaps = {}
         if "density" in mspec.snapshots or "double_occupancy" in mspec.snapshots:
-            Gsite = Gdiag.mean(dim=(1, -1))          # [C, N]
+            Gsite = Gdiag_c.mean(dim=(1, -1))        # [C, N] per-site ⟨c c†⟩
             if "density" in mspec.snapshots:
-                snaps["density"] = 2.0 * (1.0 - Gsite)
+                snaps["density"] = 2.0 * (1.0 - (Gsite.real if cplx else Gsite))
             if "double_occupancy" in mspec.snapshots:
                 snaps["double_occupancy"] = (1.0 - Gsite).abs() ** 2
         if "phonon_position" in mspec.snapshots:

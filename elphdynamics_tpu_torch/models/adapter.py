@@ -9,6 +9,9 @@ coefficient tables ``[C, Nb, Lτ]`` for SSH. ``stack(derived)`` makes it act
 on ``[C, S, N, Lτ]`` stacks of fields (the two spins, the nᵥ probes): the
 Holstein diagonal gains an axis, the SSH tables stay as they are (the fold
 applies a chain's table to every row of that chain). SSH has no Λ shift.
+Under complex hopping the SSH tables are complex and the fields the
+operators act on are of the parameters' complex type
+(:func:`..utils.dtypes.field_dtype`); ``stack`` is unchanged.
 """
 
 from __future__ import annotations

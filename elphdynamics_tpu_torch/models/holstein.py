@@ -1,6 +1,6 @@
 """Holstein model: fermion matrix M, derivatives, and bosonic action.
 
-Counterpart of ``elphdynamics_tpu/models/holstein.py``, real hopping only.
+Counterpart of ``elphdynamics_tpu/models/holstein.py``.
 
     M[τ,τ'] = I δ(τ,τ') − B(τ) δ(τ,τ'+1)   (+B(0) at the (0,Lτ−1) corner)
     B(τ)    = exp(−Δτ·K) · exp(−Δτ·V[x(τ)])
@@ -13,6 +13,13 @@ broadcast. exp(−Δτ·K) is routed by :func:`apply_expK`:
 * else the CUDA checkerboard kernel when the field is on CUDA and
   ``N >= pallas_threshold``;
 * else the plain torch fold (the only fold branch on the CPU).
+
+Complex hopping (complex ``t`` or a twist of the boundaries) makes the
+hopping tables, ``t`` and ``expK`` complex (``complex64``/``complex128``):
+each bond block is the Hermitian ``[c s; s̄ c]`` with c = cosh(Δτ|t|),
+s = (t/|t|)·sinh(Δτ|t|), :func:`mulMT` is then the adjoint M†, and the
+forces on the real phonon field take the real part of the adjoint pairing.
+The CUDA kernel folds complex fields in its complex mode.
 
 Both thresholds default to 2048, values tuned on a TPU; an H100
 measurement has to set them anew. Every matmul runs in full precision of
@@ -31,7 +38,7 @@ from elphdynamics_tpu_torch.lattice import Lattice, sort_neighbor_table
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.utils.device import require_device
-from elphdynamics_tpu_torch.utils.dtypes import fsum
+from elphdynamics_tpu_torch.utils.dtypes import complex_of, fsum
 
 
 @dataclass(frozen=True)
@@ -43,8 +50,8 @@ class HolsteinParams:
     omega4: torch.Tensor  # [N] anharmonic X⁴ coefficient
     lam: torch.Tensor     # [N] linear el-ph coupling λ
     lam2: torch.Tensor    # [N] quadratic el-ph coupling λ₂
-    cosht: torch.Tensor   # [Nbonds] cosh(Δτ·t), checkerboard order
-    sinht: torch.Tensor   # [Nbonds] sinh(Δτ·t), checkerboard order
+    cosht: torch.Tensor   # [Nbonds] cosh(Δτ·|t|), checkerboard order (complex under complex t)
+    sinht: torch.Tensor   # [Nbonds] (t/|t|)·sinh(Δτ·|t|), checkerboard order
     wij: torch.Tensor     # [Nwij] dispersive phonon coupling ωᵢⱼ (may be empty)
     t: torch.Tensor | None = None         # [Nbonds] bare hoppings, original order
     expK: torch.Tensor | None = None      # dense exp(−Δτ·K) (dense branch)
@@ -96,21 +103,20 @@ def build_holstein(
     # TPU-tuned defaults; to be re-set from H100 measurements
     dense_threshold: int = 2048,
     pallas_threshold: int = 2048,
-    twist=None,
+    twist=None,            # (θ1, θ2[, θ3]) twisted-boundary flux angles, radians
 ) -> tuple[HolsteinSpec, HolsteinParams]:
     """Construct a Holstein model spec and parameters on ``device`` (the
     card unless the caller asks for the CPU).
 
     The disorder draws consume ``rng`` in the same order as the JAX
     package's ``build_holstein``, so one seed builds the same model in both.
-    Complex hopping (complex ``t`` or a nonzero ``twist``) is not ported.
+    Complex ``t`` values, or a nonzero ``twist`` (every bond of displacement
+    dL times the Peierls phase exp(i·Σ_d θ_d·dL_d/L_d)), make the hopping
+    complex: the tables, ``t`` and ``expK`` then carry the complex type of
+    ``dtype``.
     """
     device = require_device(device)
     rng = rng or np.random.default_rng(0)
-    if twist is not None and np.any(np.asarray(twist)):
-        raise NotImplementedError("twisted boundary conditions: ROADMAP slice F")
-    if any(np.iscomplexobj(a[0]) for a in t_assignments):
-        raise NotImplementedError("complex hopping: ROADMAP slice F")
     N = lattice.nsites
     Ltau = int(round(beta / dtau))
 
@@ -128,14 +134,25 @@ def build_holstein(
     lam_v = _assign(lam, lam_std, "lambda")
     lam2_v = _assign(lam2, lam2_std, "lambda2")
 
+    tw3 = None
+    if twist is not None and np.any(np.asarray(twist)):
+        tw3 = np.zeros(3)
+        tw3[: len(tuple(twist))] = twist
+    t_dtype = (np.complex128 if tw3 is not None
+               or any(np.iscomplexobj(a[0]) for a in t_assignments) else np.float64)
+    Ls = np.asarray([lattice.L1, lattice.L2, lattice.L3], np.float64)
     tables, tvals, bond_defs, bond_def_of_bond = [], [], [], []
     for idef, (tval, tstd, o1, o2, dL) in enumerate(t_assignments):
         tb = lattice.calc_neighbor_table(o1, o2, dL)
         nnew = tb.shape[1]
         phase = np.sign(tval) if tval != 0 else 1.0
         tv = phase * (abs(tval) + (tstd * rng.standard_normal(nnew) if tstd else 0.0))
+        if tw3 is not None:
+            dL3 = np.zeros(3)
+            dL3[: len(dL)] = dL
+            tv = tv * np.exp(1j * float(np.sum(tw3 * dL3 / Ls)))
         tables.append(tb)
-        tvals.append(np.broadcast_to(tv, (nnew,)).astype(np.float64))
+        tvals.append(np.broadcast_to(tv, (nnew,)).astype(t_dtype))
         bond_defs.append((o1, o2, tuple(dL)))
         bond_def_of_bond.extend([idef] * nnew)
     if tables:
@@ -143,7 +160,7 @@ def build_holstein(
         t = np.concatenate(tvals)
     else:
         table = np.zeros((2, 0), dtype=np.int64)
-        t = np.zeros(0)
+        t = np.zeros(0, dtype=t_dtype)
     table_sorted, perm = sort_neighbor_table(table)
     t_sorted = t[perm]
     cspec = ckb.build_checkerboard_spec(N, table_sorted)
@@ -176,19 +193,34 @@ def build_holstein(
         wij_table=wij_table, wij_sign=wij_sign, bond_defs=tuple(bond_defs),
         bond_def_of_bond=np.asarray(bond_def_of_bond, dtype=np.int64),
         ckb_to_bond=ckb_to_bond, bond_to_ckb=bond_to_ckb)
-    cosh_v, sinh_v = np.cosh(dtau * t_ckb), np.sinh(dtau * t_ckb)
+    cosh_v, sinh_v = _ckb_tables(dtau, t_ckb)
+    cdtype = complex_of(dtype) if np.iscomplexobj(t) else dtype
 
-    def T(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
+    def T(a, to=dtype):
+        a = np.asarray(a)
+        return torch.as_tensor(a.astype(np.complex128 if np.iscomplexobj(a) else np.float64),
+                               device=device).to(to)
 
     params = HolsteinParams(
         mu=T(mu_v), omega=T(om_v), omega4=T(om4_v), lam=T(lam_v), lam2=T(lam2_v),
-        cosht=T(cosh_v), sinht=T(sinh_v), wij=T(wij), t=T(t),
-        expK=T(ckb.dense_matrix(cspec, cosh_v, sinh_v)) if dense_ckb else None,
-        expK_inv=(T(ckb.dense_matrix(cspec, cosh_v, sinh_v, inverse=True))
+        cosht=T(cosh_v, cdtype), sinht=T(sinh_v, cdtype), wij=T(wij), t=T(t, cdtype),
+        expK=T(ckb.dense_matrix(cspec, cosh_v, sinh_v), cdtype) if dense_ckb else None,
+        expK_inv=(T(ckb.dense_matrix(cspec, cosh_v, sinh_v, inverse=True), cdtype)
                   if dense_ckb else None),
     )
     return spec, params
+
+
+def _ckb_tables(dtau: float, t_ckb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(cosh, sinh) checkerboard coefficient tables: cosh/sinh(Δτ·t) for real
+    t; for complex t the Hermitian bond-block convention c = cosh(Δτ|t|),
+    s = (t/|t|)·sinh(Δτ|t|) (c complex128 with zero imaginary part), which
+    is the real formula for real t (the sign rides the phase)."""
+    if np.iscomplexobj(t_ckb):
+        at = np.abs(t_ckb)
+        phase = np.where(at > 0, t_ckb / np.where(at > 0, at, 1.0), 1.0)
+        return np.cosh(dtau * at).astype(np.complex128), phase * np.sinh(dtau * at)
+    return np.cosh(dtau * t_ckb), np.sinh(dtau * t_ckb)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +253,15 @@ def _tau_sign_last(spec: HolsteinSpec, like):
 # fermion matrix multiplication routines
 # ---------------------------------------------------------------------------
 
+def _promote(p: HolsteinParams, y):
+    """A real field meeting complex hopping becomes complex (as JAX promotes)."""
+    if p.cosht.is_complex() and not y.is_complex():
+        return y.to(p.cosht.dtype)
+    return y
+
+
 def _fold(spec: HolsteinSpec, p: HolsteinParams, y, *, reverse: bool):
+    y = _promote(p, y)
     if spec.kernel_fold and y.is_cuda:
         return ckb_cuda.fold(spec.ckb, p.cosht, p.sinht, y.contiguous(), reverse=reverse)
     return ckb.fold(spec.ckb, p.cosht, p.sinht, y, reverse=reverse)
@@ -231,14 +271,16 @@ def apply_expK(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
     """exp(−Δτ·K)·y over the site axis (dense matmul or checkerboard fold;
     ``precision`` is not used yet)."""
     if spec.dense_ckb:
-        return torch.matmul(p.expK, y)
+        return torch.matmul(p.expK, _promote(p, y))
     return _fold(spec, p, y, reverse=False)
 
 
 def apply_expK_T(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
-    """exp(−Δτ·K)ᵀ·y."""
+    """exp(−Δτ·K)ᵀ·y: the adjoint exp(−Δτ·K)†·y under complex hopping
+    (the reversed fold of Hermitian bond blocks is the adjoint; the dense
+    branch conjugates)."""
     if spec.dense_ckb:
-        return torch.matmul(p.expK.mT, y)
+        return torch.matmul(p.expK.mH, _promote(p, y))
     return _fold(spec, p, y, reverse=True)
 
 
@@ -251,7 +293,8 @@ def mulM(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
 
 
 def mulMT(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
-    """y = Mᵀ·v: y(τ) = v(τ) − Bᵀ(τ+1)·v(τ+1), y(Lτ−1) = v(Lτ−1) + Bᵀ(0)·v(0)."""
+    """y = Mᵀ·v (M† under complex hopping): y(τ) = v(τ) − Bᵀ(τ+1)·v(τ+1),
+    y(Lτ−1) = v(Lτ−1) + Bᵀ(0)·v(0)."""
     z = apply_expK_T(spec, p, v, precision)
     w = env * z
     return v + _tau_sign_last(spec, v) * torch.roll(w, -1, dims=-1)
@@ -270,12 +313,16 @@ def mulMMT(spec: HolsteinSpec, p: HolsteinParams, env, v, precision=None):
 def muldMdx(spec: HolsteinSpec, p: HolsteinParams, env, x, u, v):
     """uᵀ·[∂M/∂xᵢ(τ)]·v for every dof:
     ±Δτ·(λᵢ + 2λ₂ᵢxᵢ(τ))·expnV(i,τ)·v(i,τ−1)·[exp(−ΔτK)ᵀu](i,τ),
-    with the minus sign on the τ=0 slice."""
+    with the minus sign on the τ=0 slice. Complex fields give the force on
+    the real field, Re[u†·∂M/∂x·v]."""
     lam = p.lam[:, None]
     lam2 = p.lam2[:, None]
     sgn = -_tau_sign_first(spec, x)
     d = sgn * spec.dtau * (lam + 2.0 * lam2 * x) * env * torch.roll(v, 1, dims=-1)
-    return apply_expK_T(spec, p, u) * d
+    y = apply_expK_T(spec, p, u)
+    if y.is_complex() or d.is_complex():
+        return (y.conj() * d).real
+    return y * d
 
 
 # ---------------------------------------------------------------------------
@@ -345,9 +392,12 @@ def mulLambdaInv(spec: HolsteinSpec, Lam, v):
 
 def muldLambdadx(spec: HolsteinSpec, p: HolsteinParams, x, Lam, vl, vr):
     """⟨vₗ|∂Λ/∂x(τ)|vᵣ⟩ per dof, to be added to a force:
-    ±vₗ(i,τ)·Δτ·(λᵢ/2 + λ₂ᵢxᵢ(τ))·Λ(i,τ)·vᵣ(i,τ−1), minus on τ=0."""
+    ±vₗ(i,τ)·Δτ·(λᵢ/2 + λ₂ᵢxᵢ(τ))·Λ(i,τ)·vᵣ(i,τ−1), minus on τ=0
+    (Re[vₗ†·∂Λ/∂x·vᵣ] for complex fields; Λ itself is real)."""
     lam = p.lam[:, None]
     lam2 = p.lam2[:, None]
     sgn = -_tau_sign_first(spec, Lam)
     base = sgn * spec.dtau * (lam / 2.0 + lam2 * x) * Lam * torch.roll(vr, 1, dims=-1)
+    if vl.is_complex() or base.is_complex():
+        return (vl.conj() * base).real
     return vl * base

@@ -1,7 +1,7 @@
 """Optical SSH model: bond phonons modulating the electron hopping.
 
-Counterpart of ``elphdynamics_tpu/models/ssh.py``, real hopping only. The
-phonon ``x`` lives on bonds and modulates the hopping
+Counterpart of ``elphdynamics_tpu/models/ssh.py``. The phonon ``x`` lives
+on bonds and modulates the hopping
 ``t′ = t − (αx + sign(x)·α₂x²)``; the fermion matrix uses a time-dependent
 checkerboard factorisation
 
@@ -19,8 +19,14 @@ the same derived state acts on spin-stacked ``[C, 2, N, Lτ]`` and probe
 ``muldMdx`` walks the checkerboard groups with carried partial products,
 in plain torch, as the JAX package does outside Pallas. Primary-field
 aliasing: same-named phonons on different bond types share one degree of
-freedom, through ``primary_phonon``. Complex hopping (twisted boundaries,
-``t_phase``) is ROADMAP slice F. The JAX package's dense per-τ
+freedom, through ``primary_phonon``.
+
+Twisted boundaries: ``t_phase`` holds each bond's complex Peierls phase, and
+the physical hopping is t_phase·t′(x). The tables become c = cosh(Δτ·t′)
+(carried complex) and s = t_phase·sinh(Δτ·t′), each bond block the
+Hermitian ``[c s; s̄ c]`` (the kernel's complex mode on the card), so
+:func:`mulMT` is the adjoint M† and :func:`muldMdx` gives the real part of
+the adjoint pairing. The JAX package's dense per-τ
 ``dense_ckb`` mode is off there and not carried over (:func:`dense_K`
 serves the tests and file output).
 """
@@ -37,7 +43,7 @@ from elphdynamics_tpu_torch.lattice import Lattice, sort_neighbor_table
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.utils.device import require_device
-from elphdynamics_tpu_torch.utils.dtypes import fsum
+from elphdynamics_tpu_torch.utils.dtypes import complex_of, fsum
 
 
 @dataclass(frozen=True)
@@ -50,7 +56,9 @@ class SSHParams:
     omega4: torch.Tensor  # [Nph] anharmonic coefficient
     alpha: torch.Tensor   # [Nph] linear el-ph coupling
     alpha2: torch.Tensor  # [Nph] quadratic el-ph coupling
-    t_phase: torch.Tensor | None = None   # complex Peierls phases: ROADMAP slice F
+    # [Nbonds] complex Peierls phases, original bond order (twisted
+    # boundaries; None for real hopping)
+    t_phase: torch.Tensor | None = None
 
 
 @dataclass(frozen=True, eq=False)
@@ -105,10 +113,14 @@ def build_ssh(
     """Construct the SSH model on ``device`` (the card unless the caller asks
     for the CPU). The disorder draws consume ``rng`` in the JAX package's
     order, so one seed builds the same model in both. A nonzero ``twist``
-    (complex Peierls phases) is not ported."""
+    (θ1, θ2[, θ3]) gives every bond of displacement dL the Peierls phase
+    exp(i·Σ_d θ_d·dL_d/L_d) in ``t_phase``."""
     device = require_device(device)
+    tw3 = None
     if twist is not None and np.any(np.asarray(twist)):
-        raise NotImplementedError("twisted SSH (complex Peierls phases): ROADMAP slice F")
+        tw3 = np.zeros(3)
+        tw3[: len(tuple(twist))] = twist
+        Ls = np.array([lattice.L1, lattice.L2, lattice.L3], dtype=float)
     rng = rng or np.random.default_rng(0)
     N = lattice.nsites
     Ltau = int(round(beta / dtau))
@@ -119,7 +131,7 @@ def build_ssh(
             if orbit is None or lattice.site_to_orbit[i] == orbit:
                 mu_v[i] = mu0 + (std * rng.standard_normal() if std else 0.0)
 
-    tables, tvals, bond_defs = [], [], []
+    tables, tvals, bond_defs, phases = [], [], [], []
     om, om4, al, al2 = [], [], [], []
     phonon_to_bond, bond_to_phonon = [], []
     bond_count = 0
@@ -132,6 +144,10 @@ def build_ssh(
         tvals.append(phase * (abs(tval) + (tstd * rng.standard_normal(nnew) if tstd
                                            else np.zeros(nnew))))
         tables.append(tb)
+        if tw3 is not None:
+            dL3 = np.zeros(3)
+            dL3[: len(h["dL"])] = h["dL"]
+            phases.append(np.full(nnew, np.exp(1j * float(np.sum(tw3 * dL3 / Ls)))))
         bond_defs.extend([idef] * nnew)
         has_phonon = (h.get("omega", 0.0) != 0.0) or (h.get("omega_std", 0.0) != 0.0)
         if has_phonon:
@@ -191,19 +207,18 @@ def build_ssh(
         a = np.concatenate(parts) if parts else np.zeros(0)
         return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
 
+    t_phase = None
+    if tw3 is not None:
+        a = np.concatenate(phases) if phases else np.zeros(0, dtype=np.complex128)
+        t_phase = torch.as_tensor(a.astype(np.complex128), device=device).to(complex_of(dtype))
     params = SSHParams(mu=T([mu_v]), t=T([t]), omega=T(om), omega4=T(om4), alpha=T(al),
-                       alpha2=T(al2))
+                       alpha2=T(al2), t_phase=t_phase)
     return spec, params
 
 
 # ---------------------------------------------------------------------------
 # derived quantities
 # ---------------------------------------------------------------------------
-
-def _check_real(p: SSHParams) -> None:
-    if p.t_phase is not None:
-        raise NotImplementedError("complex SSH hopping (t_phase): ROADMAP slice F")
-
 
 def tie_fields(spec: SSHSpec, x):
     """Equalise aliased phonon worldlines: x ← x[primary]."""
@@ -232,11 +247,16 @@ class SSHDerived(NamedTuple):
 
 def ckb_coeffs(spec: SSHSpec, p: SSHParams, x) -> SSHDerived:
     """(cosh, sinh) of Δτ·t′(x) in checkerboard order, ``[C, Nb, Lτ]`` for
-    fields ``[C, Nph, Lτ]``."""
-    _check_real(p)
+    fields ``[C, Nph, Lτ]``. With ``t_phase`` the tables are complex:
+    c = cosh(Δτ·t′), s = t_phase·sinh(Δτ·t′)."""
     tp = hopping_t_prime(spec, p, x)
     arg = spec.dtau * tp.index_select(-2, spec.tensor("ckb_to_bond", x.device))
-    return SSHDerived(cosh=torch.cosh(arg), sinh=torch.sinh(arg))
+    cosh_b, sinh_b = torch.cosh(arg), torch.sinh(arg)
+    if p.t_phase is not None:
+        ph = p.t_phase.index_select(-1, spec.tensor("ckb_to_bond", x.device))
+        sinh_b = ph[:, None] * sinh_b
+        cosh_b = cosh_b.to(sinh_b.dtype)
+    return SSHDerived(cosh=cosh_b, sinh=sinh_b)
 
 
 def exp_mu(spec: SSHSpec, p: SSHParams):
@@ -266,8 +286,12 @@ def _tau_sign(spec: SSHSpec, like, first: bool):
 
 
 def _apply_K(spec: SSHSpec, coeffs: SSHDerived, y, transpose: bool = False):
-    """exp(−Δτ·K[x(τ)])·y (or its transpose) on ``[C, ..., N, Lτ]``."""
+    """exp(−Δτ·K[x(τ)])·y (or its transpose, the adjoint for complex
+    tables) on ``[C, ..., N, Lτ]``; a real field meeting complex tables is
+    promoted."""
     cosh_b, sinh_b = coeffs
+    if sinh_b.is_complex() and not y.is_complex():
+        y = y.to(sinh_b.dtype)
     return ckb_cuda.fold(spec.ckb, cosh_b, sinh_b, y.contiguous(), reverse=transpose)
 
 
@@ -278,7 +302,7 @@ def mulM(spec: SSHSpec, p: SSHParams, coeffs, v):
 
 
 def mulMT(spec: SSHSpec, p: SSHParams, coeffs, v):
-    """y = Mᵀ·v."""
+    """y = Mᵀ·v (M† under twisted boundaries)."""
     w = exp_mu(spec, p) * _apply_K(spec, coeffs, v, transpose=True)
     return v + _tau_sign(spec, v, False) * torch.roll(w, -1, dims=-1)
 
@@ -293,16 +317,18 @@ def mulMMT(spec: SSHSpec, p: SSHParams, coeffs, v):
 
 def _group_bonds(spec: SSHSpec, g: int, device):
     """The phonon-carrying bonds of group ``g``: (first sites, second sites,
-    phonons) as index tensors on ``device``, cached; None when it has none."""
+    phonons, original bonds) as index tensors on ``device``, cached; None
+    when it has none."""
     key = ("group_bonds", g, str(device))
     if key not in spec._cache:
         in_g = np.nonzero(spec.ckb.groups == g)[0]
-        ph = spec.bond_to_phonon[spec.ckb_to_bond[in_g]]
+        bonds = spec.ckb_to_bond[in_g]
+        ph = spec.bond_to_phonon[bonds]
         sel = ph >= 0
         spec._cache[key] = None if not sel.any() else tuple(
             torch.as_tensor(a, device=device) for a in (spec.ckb.neighbor_table[0, in_g[sel]],
                                                         spec.ckb.neighbor_table[1, in_g[sel]],
-                                                        ph[sel]))
+                                                        ph[sel], bonds[sel]))
     return spec._cache[key]
 
 
@@ -314,29 +340,37 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
     after group g every phonon-carrying bond (i, j) of g contributes
     ±Δτ·(α + 2α₂x)·(c_j·b_i + c_i·b_j), minus on the τ=0 slice, with the
     reference's α + 2α₂x. Aliased phonons sum their forces onto the
-    primary, which every alias then carries."""
+    primary, which every alias then carries. Under twisted boundaries the
+    bond's vertex is [0, ph; p̄h, 0] (the phase on the i←j entry) and the
+    force on the real field is Re[ph·c̄ᵢ·bⱼ + p̄h·c̄ⱼ·bᵢ]."""
     cosh_b, sinh_b = coeffs
+    cplx = sinh_b.is_complex()
     b = exp_mu(spec, p) * torch.roll(v, 1, dims=-1)
     c = _apply_K(spec, coeffs, u, transpose=True)
+    if cplx:
+        b = b.to(sinh_b.dtype)
     b, c = torch.broadcast_tensors(b, c)
     batch = torch.broadcast_shapes(x.shape[:-2], b.shape[:-2])
     out = torch.zeros(batch + (spec.Nph, spec.Ltau), dtype=x.dtype, device=x.device)
     sgn = -_tau_sign(spec, x, True)
-    partner, bond_of_site, mask = spec.ckb.torch_tables(x.device)
-    one = torch.ones((), dtype=cosh_b.dtype, device=x.device)
-    zero = torch.zeros((), dtype=sinh_b.dtype, device=x.device)
+    partner = spec.ckb.torch_tables(x.device)[0]
     for g in range(spec.ckb.ngroups):
-        cg = ckb._site_coeffs(cosh_b, bond_of_site[g], mask[g], one, b)
-        sg = ckb._site_coeffs(sinh_b, bond_of_site[g], mask[g], zero, b)
+        cg, sg = ckb.group_coeffs(spec.ckb, g, cosh_b, sinh_b, b)
         b = cg * b + sg * b.index_select(-2, partner[g])
         c = cg * c - sg * c.index_select(-2, partner[g])
         sites = _group_bonds(spec, g, x.device)
         if sites is None:
             continue
-        i_s, j_s, ph_s = sites
+        i_s, j_s, ph_s, bond_s = sites
         dKdx = p.alpha[ph_s][:, None] + 2.0 * p.alpha2[ph_s][:, None] * x.index_select(-2, ph_s)
-        dmdx = sgn * spec.dtau * dKdx * (c.index_select(-2, j_s) * b.index_select(-2, i_s)
-                                         + c.index_select(-2, i_s) * b.index_select(-2, j_s))
+        bi, bj = b.index_select(-2, i_s), b.index_select(-2, j_s)
+        ci, cj = c.index_select(-2, i_s), c.index_select(-2, j_s)
+        if cplx:
+            phb = p.t_phase.index_select(-1, bond_s)[:, None]
+            pair = (phb * ci.conj() * bj + phb.conj() * cj.conj() * bi).real
+        else:
+            pair = cj * bi + ci * bj
+        dmdx = sgn * spec.dtau * dKdx * pair
         out = out.index_add(-2, ph_s, dmdx.expand(batch + dmdx.shape[-2:]))
     prim = spec.tensor("primary_phonon", x.device)
     return torch.zeros_like(out).index_add(-2, prim, out).index_select(-2, prim)

@@ -20,11 +20,16 @@ fold :func:`fold` is the plain twin of the CUDA kernel in
 ``csrc/ckb_fold.cu``, and :func:`fold_fused` that of the fused Chebyshev
 step in ``csrc/ckb_fold_fused.cu`` (:mod:`.ckb_cuda`): the tests compare
 them with the JAX package, and the kernels are compared with them on the
-card. Real hopping only, with three coefficient forms: ``[Nb]`` shared by
-every row, ``[C, Nb]`` one table per chain (the SSH model's τ-averaged Ā)
-and ``[C, Nb, K]`` one per chain, bond and column (the SSH fermion
-operator's per-(bond, τ) coefficients); the complex ``conj(s)`` convention
-belongs to a later slice.
+card. Three coefficient forms: ``[Nb]`` shared by every row, ``[C, Nb]``
+one table per chain (the SSH model's τ-averaged Ā) and ``[C, Nb, K]`` one
+per chain, bond and column (the SSH fermion operator's per-(bond, τ)
+coefficients).
+
+Complex hopping (Peierls phases, twisted boundaries): complex tables make
+each bond block the Hermitian ``[c s; s̄ c]``. The first endpoint of a bond
+(``is_lo``) takes ``s``, the second ``conj(s)``, so the reversed-order fold
+is the adjoint exp(−Δτ·K)† and the inverse still negates ``s``
+(c² − |s|² = 1).
 """
 
 from __future__ import annotations
@@ -141,11 +146,14 @@ def check_coeffs(spec: CheckerboardSpec, cosh_b, sinh_b, v, per_column: bool = T
     takes for the field ``v`` ``[..., N, K]``: ``[Nb]`` shared by every
     row; ``[C, Nb]`` one table per chain, ``C = v.shape[0]`` of a
     ``[C, ..., N, K]`` field; or (with ``per_column``) ``[C, Nb, K]`` one
-    coefficient per chain, bond and column. Complex tables are refused."""
+    coefficient per chain, bond and column. Complex tables (complex
+    hopping) must be of the field's dtype."""
     if v.shape[-2] != spec.nsites:
         raise ValueError(f"site axis (-2) must have size {spec.nsites}, got {tuple(v.shape)}")
-    if cosh_b.is_complex() or sinh_b.is_complex():
-        raise NotImplementedError("complex hopping (conj(s) tables): ROADMAP slice F")
+    for name, t in (("cosh_b", cosh_b), ("sinh_b", sinh_b)):
+        if t.is_complex() and t.dtype != v.dtype:
+            raise ValueError(f"complex {name} ({t.dtype}) must be of the field's dtype "
+                             f"({v.dtype})")
     nb = spec.nbonds
     forms = [(nb,)]
     if v.ndim >= 3:
@@ -160,13 +168,22 @@ def check_coeffs(spec: CheckerboardSpec, cosh_b, sinh_b, v, per_column: bool = T
         raise ValueError(f"cosh_b {tuple(cosh_b.shape)} and sinh_b {tuple(sinh_b.shape)} differ")
 
 
-def _site_coeffs(t: torch.Tensor, bonds: torch.Tensor, keep: torch.Tensor, fill, v):
+def _site_coeffs(t: torch.Tensor, bonds: torch.Tensor, keep: torch.Tensor, fill, v,
+                 lo: torch.Tensor | None = None):
     """A coefficient table gathered onto the sites of one group and shaped
     against ``v``: ``[N, 1]`` from ``[Nb]``, ``[C, 1.., N, 1]`` from
-    ``[C, Nb]``, ``[C, 1.., N, K]`` from ``[C, Nb, K]``."""
+    ``[C, Nb]``, ``[C, 1.., N, K]`` from ``[C, Nb, K]``. With ``lo`` (the
+    group's first-endpoint mask) a complex table is conjugated on the second
+    endpoints."""
+    conj = lo is not None and t.is_complex()
     if t.ndim == 1:
-        return torch.where(keep, t[bonds], fill)[:, None]
+        site = t[bonds]
+        if conj:
+            site = torch.where(lo, site, site.conj())
+        return torch.where(keep, site, fill)[:, None]
     site = t.index_select(1, bonds)
+    if conj:
+        site = torch.where(lo.reshape((1, -1) + (1,) * (t.ndim - 2)), site, site.conj())
     site = torch.where(keep.reshape((1, -1) + (1,) * (t.ndim - 2)), site, fill)
     if t.ndim == 2:
         site = site[..., None]
@@ -181,16 +198,28 @@ def _apply_groups(spec: CheckerboardSpec, cosh_b: torch.Tensor,
     applies each group's inverse. Plain torch: one gather + FMA pass per
     group."""
     check_coeffs(spec, cosh_b, sinh_b, v)
-    partner, bond_of_site, mask = spec.torch_tables(v.device)
-    one = torch.ones((), dtype=cosh_b.dtype, device=v.device)
-    zero = torch.zeros((), dtype=sinh_b.dtype, device=v.device)
+    partner = spec.torch_tables(v.device)[0]
     for g in group_order:
-        c = _site_coeffs(cosh_b, bond_of_site[g], mask[g], one, v)
-        s = _site_coeffs(sinh_b, bond_of_site[g], mask[g], zero, v)
+        c, s = group_coeffs(spec, g, cosh_b, sinh_b, v)
         if sign < 0:
             s = -s
         v = c * v + s * v.index_select(-2, partner[g])
     return v
+
+
+def group_coeffs(spec: CheckerboardSpec, g: int, cosh_b: torch.Tensor, sinh_b: torch.Tensor, v):
+    """Group ``g``'s per-site (c, s) shaped against ``v``
+    (:func:`_site_coeffs`): 1 and 0 on untouched sites, ``conj(s)`` on the
+    second endpoints of complex tables."""
+    partner, bond_of_site, mask = spec.torch_tables(v.device)
+    key = ("is_lo", str(v.device))
+    lo = spec._cache.get(key)
+    if lo is None:
+        lo = spec._cache[key] = torch.as_tensor(spec.is_lo, device=v.device)
+    one = torch.ones((), dtype=cosh_b.dtype, device=v.device)
+    zero = torch.zeros((), dtype=sinh_b.dtype, device=v.device)
+    return (_site_coeffs(cosh_b, bond_of_site[g], mask[g], one, v),
+            _site_coeffs(sinh_b, bond_of_site[g], mask[g], zero, v, lo[g]))
 
 
 def ckb_mul(spec, cosh_b, sinh_b, v):
@@ -270,15 +299,16 @@ def fold_fused(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = Fal
 
 
 def dense_matrix(spec: CheckerboardSpec, cosh_b, sinh_b, inverse: bool = False) -> np.ndarray:
-    """The exact dense [N, N] float64 matrix of the checkerboard product,
-    assembled on the host from the same elementary 2×2 rotations (the
-    dense-branch exp(−Δτ·K) of small lattices)."""
-    if np.iscomplexobj(cosh_b) or np.iscomplexobj(sinh_b):
-        raise NotImplementedError("complex hopping is ROADMAP slice F")
-    cosh_b = np.asarray(cosh_b, dtype=np.float64)
-    sinh_b = np.asarray(sinh_b, dtype=np.float64)
+    """The exact dense [N, N] matrix of the checkerboard product (float64,
+    complex128 for complex tables), assembled on the host from the same
+    elementary 2×2 blocks (the dense-branch exp(−Δτ·K) of small
+    lattices)."""
+    ddtype = (np.complex128 if np.iscomplexobj(cosh_b) or np.iscomplexobj(sinh_b)
+              else np.float64)
+    cosh_b = np.asarray(cosh_b, dtype=ddtype)
+    sinh_b = np.asarray(sinh_b, dtype=ddtype)
     N = spec.nsites
-    D = np.eye(N)
+    D = np.eye(N, dtype=ddtype)
     order = range(spec.nbonds) if not inverse else range(spec.nbonds - 1, -1, -1)
     sgn = -1.0 if inverse else 1.0
     for n in order:
@@ -288,5 +318,5 @@ def dense_matrix(spec: CheckerboardSpec, cosh_b, sinh_b, inverse: bool = False) 
         ri = D[i].copy()
         rj = D[j].copy()
         D[i] = c * ri + s * rj
-        D[j] = c * rj + s * ri
+        D[j] = c * rj + np.conj(s) * ri   # the second endpoint takes conj(s)
     return D

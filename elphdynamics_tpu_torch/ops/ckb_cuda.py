@@ -11,12 +11,17 @@ kernels (``csrc/ckb_fold.cu``, ``csrc/ckb_fold_fused.cu``, sharing
   coefficient forms of :func:`..checkerboard.check_coeffs`: ``[Nb]``,
   per-chain ``[C, Nb]`` (the JAX package ran the Pallas kernel under
   ``vmap`` for those) and per-(chain, bond, column) ``[C, Nb, K]`` (the SSH
-  fermion operator, which the JAX package folded outside Pallas).
+  fermion operator, which the JAX package folded outside Pallas). It has a
+  complex mode (complex64 / complex128 fields and tables of the field's
+  dtype): complex hopping, whose bond blocks are the Hermitian
+  ``[c s; s̄ c]``, the second endpoint taking ``conj(s)`` (the JAX package
+  folded those outside Pallas too).
 * :func:`fold_fused` replaces ``ckb_pallas.py:_fold_fused_kernel`` (driven
   by ``fold_kn_fused``): one KPM Chebyshev step
   ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` in one pass, per-chain ``a``,
   ``b``, ``pre``, ``post``, and ``[Nb]`` or per-chain ``[C, Nb]`` bond
-  coefficients. Its plain twin is :func:`..checkerboard.fold_fused`.
+  coefficients, real fields only (a complex field is a ``TypeError``). Its
+  plain twin is :func:`..checkerboard.fold_fused`.
 
 Design (Hopper): a thread-block cluster of ``cs`` CTAs owns one ``[N, K]``
 row of the ``[B, N, K]`` field; rank ``r`` keeps the contiguous site range
@@ -41,7 +46,9 @@ twin; a CUDA tensor launches the kernel or raises. ``launches`` and
 ``fused_launches`` count kernel launches (never twin calls), and
 ``table_launches`` the same launches by kernel and coefficient form
 (``"fold/shared"``, ``"fold/chain"``, ``"fold/column"``,
-``"fused/shared"``, ``"fused/chain"``); ``launch_shapes`` holds each counted
+``"fused/shared"``, ``"fused/chain"``, and K1's complex mode as
+``"fold/shared/complex"``, ``"fold/chain/complex"``,
+``"fold/column/complex"``); ``launch_shapes`` holds each counted
 launch's (form key, field shape, dtype), so that a caller can see at which
 shapes a run went through the kernels.
 """
@@ -68,7 +75,8 @@ launches = 0
 fused_launches = 0
 TABLE_FORMS = ("shared", "chain", "column")   # [Nb], [C, Nb], [C, Nb, K]
 table_launches = {"fold/shared": 0, "fold/chain": 0, "fold/column": 0,
-                  "fused/shared": 0, "fused/chain": 0}
+                  "fused/shared": 0, "fused/chain": 0, "fold/shared/complex": 0,
+                  "fold/chain/complex": 0, "fold/column/complex": 0}
 launch_shapes: set = set()    # (form key, field shape, dtype) of the counted launches
 
 
@@ -82,7 +90,7 @@ def reset_counts() -> None:
 
 
 def _count(kernel: str, cosh_b, v) -> None:
-    form = f"{kernel}/{TABLE_FORMS[cosh_b.ndim - 1]}"
+    form = f"{kernel}/{TABLE_FORMS[cosh_b.ndim - 1]}" + ("/complex" if v.is_complex() else "")
     table_launches[form] += 1
     launch_shapes.add((form, tuple(v.shape), v.dtype))
 
@@ -101,7 +109,12 @@ CTA_RESERVE = 1024    # shared memory the runtime keeps per CTA (bytes)
 MAX_ROWS = 65535      # grid.y
 
 _PTR, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-# argument types of each library's ``<name>_f32`` / ``<name>_f64`` entry point
+# entry-point suffix of each field dtype, and the dtype code of the
+# ``<name>_resident_clusters`` queries; K2 takes the real types only
+DTYPES = {torch.float32: ("f32", 0), torch.float64: ("f64", 1),
+          torch.complex64: ("c64", 2), torch.complex128: ("c128", 3)}
+KERNEL_DTYPES = {"ckb_fold": tuple(DTYPES), "ckb_fold_fused": (torch.float32, torch.float64)}
+# argument types of each library's ``<name>_<suffix>`` entry points
 _ARGTYPES = {
     "ckb_fold": [_PTR] * 6 + [_I32, _F64] + [_I32] * 9 + [_I64, _I32, _PTR],
     "ckb_fold_fused": ([_PTR] * 7 + [_I32, _F64] + [_PTR] * 4 + [_F64] + [_I32] * 9
@@ -166,8 +179,8 @@ def _load(name: str):
         lib = ctypes.CDLL(str(build()[name]))
         lib.ckb_smem_optin.argtypes = [_I32]
         lib.ckb_smem_optin.restype = _I32
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{name}_{suffix}")
+        for dtype in KERNEL_DTYPES[name]:
+            fn = getattr(lib, f"{name}_{DTYPES[dtype][0]}")
             fn.argtypes = _ARGTYPES[name]
             fn.restype = _I32
         query = getattr(lib, f"{name}_resident_clusters")
@@ -178,8 +191,8 @@ def _load(name: str):
 
 
 def _entry(name: str, dtype: torch.dtype):
-    """The ``float32``/``float64`` entry point of library ``name``."""
-    return getattr(_load(name), f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    """The entry point of library ``name`` for fields of ``dtype``."""
+    return getattr(_load(name), f"{name}_{DTYPES[dtype][0]}")
 
 
 # ---------------------------------------------------------------------------
@@ -380,8 +393,7 @@ def _resident_clusters(name: str, dtype: torch.dtype, g: Geometry) -> int:
     """How many clusters of launch ``g`` of library ``name`` the current card
     holds at once (0: the launch cannot run)."""
     n = getattr(_load(name), f"{name}_resident_clusters")(
-        int(dtype == torch.float64), g.vec, g.N, g.kt, g.cs, g.owned, g.threads,
-        int(g.per_column))
+        DTYPES[dtype][1], g.vec, g.N, g.kt, g.cs, g.owned, g.threads, int(g.per_column))
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed ({-n})")
     return n
@@ -408,19 +420,21 @@ def _time_candidates(cands: list[Geometry], run, reps: int = 3) -> list[float]:
     return times
 
 
-def _check(spec, cosh_b, sinh_b, v, per_column: bool) -> tuple[int, int]:
-    """Raise on what the kernels do not take; return the launch's (rows per
-    chain, elements per chain's coefficient table): ``(1, 0)`` for one
+def _check(spec, cosh_b, sinh_b, v, per_column: bool, name: str = "ckb_fold") -> tuple[int, int]:
+    """Raise on what kernel ``name`` does not take; return the launch's (rows
+    per chain, elements per chain's coefficient table): ``(1, 0)`` for one
     ``[Nb]`` table, ``(B/C, Nb)`` for ``[C, Nb]``, ``(B/C, Nb·K)`` for
-    ``[C, Nb, K]`` (only with ``per_column``)."""
-    if v.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ckb fold kernels take float32/float64, got {v.dtype}")
-    for name, t in (("cosh_b", cosh_b), ("sinh_b", sinh_b)):
+    ``[C, Nb, K]`` (only with ``per_column``). Tables must be of the
+    field's dtype (complex tables for a complex field)."""
+    if v.dtype not in KERNEL_DTYPES[name]:
+        raise TypeError(f"{name} takes {[str(d) for d in KERNEL_DTYPES[name]]} fields, "
+                        f"got {v.dtype}")
+    for label, t in (("cosh_b", cosh_b), ("sinh_b", sinh_b)):
         if t.device != v.device or t.dtype != v.dtype:
-            raise ValueError(f"{name} must be {v.dtype} on {v.device}, "
+            raise ValueError(f"{label} must be {v.dtype} on {v.device}, "
                              f"got {t.dtype} on {t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     if v.ndim < 2 or v.shape[-2] != spec.nsites:
         raise ValueError(f"field must be [..., {spec.nsites}, K], got {tuple(v.shape)}")
     ckb.check_coeffs(spec, cosh_b, sinh_b, v, per_column=per_column)
@@ -471,7 +485,7 @@ def _geometry(spec, v, name: str, run, per_column: bool = False) -> Geometry:
     are not counted) and the fastest is kept."""
     N, K = v.shape[-2:]
     key = ("cluster_geometry", _device_index(v), math.prod(v.shape[:-2]), N, K,
-           v.element_size(), name, per_column)
+           v.dtype, name, per_column)
     g = spec._cache.get(key)
     if g is None:
         cands = launch_candidates(spec, v, name, per_column)
@@ -521,8 +535,9 @@ def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False
          sign: float = 1.0, geometry: Geometry | None = None) -> torch.Tensor:
     """The whole checkerboard fold of ``v`` ``[..., N, K]`` in direction
     ``(reverse, sign)``, with coefficients ``[Nb]``, ``[C, Nb]`` or
-    ``[C, Nb, K]`` for a ``[C, ..., N, K]`` field: the CUDA kernel for a
-    CUDA tensor, the plain twin for a CPU tensor. ``geometry``: launch with
+    ``[C, Nb, K]`` for a ``[C, ..., N, K]`` field, real or complex (tables
+    of the field's dtype): the CUDA kernel for a CUDA tensor, the plain twin
+    for a CPU tensor. ``geometry``: launch with
     this one of :func:`launch_candidates` instead of the tuned one (to hold
     every candidate against the twin)."""
     if v.device.type == "cuda":
@@ -535,8 +550,8 @@ def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False
 def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
                   prev, geometry) -> torch.Tensor:
     global fused_launches
+    _, cstride = _check(spec, cosh_b, sinh_b, v, per_column=False, name="ckb_fold_fused")
     ckb.check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev)
-    _, cstride = _check(spec, cosh_b, sinh_b, v, per_column=False)
     if prev is not None and not prev.is_contiguous():
         raise ValueError("prev must be contiguous")
     pre, post, a, b = (None if t is None else t.contiguous() for t in (pre, post, a, b))

@@ -1,6 +1,6 @@
 """KPM (Chebyshev) preconditioner for the fermion-matrix solves.
 
-Counterpart of ``elphdynamics_tpu/ops/kpm.py`` (real hopping). In the
+Counterpart of ``elphdynamics_tpu/ops/kpm.py``. In the
 Θ-twisted frequency basis the fermion matrix is block diagonal,
 M[ω,ω] = I − e^{−iφ(ω)}·Ā, with Ā the time-averaged single-slice
 propagator exp(−Δτ·K̄)·exp(−Δτ·V̄). The preconditioner approximates M⁻¹ per
@@ -37,8 +37,17 @@ pass is one stacked matmul and a coefficient combine, and
 per setup (a complex batched ``torch.linalg.inv``; the JAX package embeds
 them in real 2×2 blocks) and leaves the Chebyshev expansion the rest. The
 exact blocks enter the symmetric apply only; the left and right applies see
-those frequencies' coefficients zeroed, as in the JAX package. Complex
-hopping is not ported.
+those frequencies' coefficients zeroed, as in the JAX package.
+
+Complex hopping (twisted boundaries, Peierls phases): Ā is complex, so the
+state runs the full-spectrum pipeline of the JAX package's
+``_apply_complex``: power iteration on complex vectors, coefficients for all
+Lτ frequencies (complex fields have no conjugate symmetry to fold onto a
+half), τ→ω, the plain complex recurrence (Āᴴ for the adjoint pass), ω→τ
+without a real projection. Ā goes through the same gates; on the fold
+branch each step is the CUDA fold in its complex mode plus torch
+elementwise passes (the fused step kernel is real-only). ``stacked`` and
+``exact_lowfreq`` are ignored on a complex state, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.ops.timefreqfft import omega_to_tau, tau_to_omega
+from elphdynamics_tpu_torch.utils.dtypes import complex_of, real_of
 
 
 @dataclass(frozen=True)
@@ -174,9 +184,10 @@ def _mulA(st: KPMState, spec_ckb, v):
 
 
 def _mulA_T(st: KPMState, spec_ckb, v):
-    """Āᵀ·v."""
+    """Āᵀ·v (the adjoint Āᴴ·v on a complex state: expnV̄ is real, and the
+    reversed fold of Hermitian bond blocks is the adjoint)."""
     if st.expK is not None:
-        w = torch.matmul(_dense(st.expK, v).mT, v)
+        w = torch.matmul(_dense(st.expK, v).mH, v)
     else:
         w = _fold(st, spec_ckb, v, reverse=True, sign=1.0)
     return _site_diag(st.expnV_bar, v) * w
@@ -247,12 +258,20 @@ def _lowfreq_apply_sym(st: KPMState, ur, ui):
     return w.real.to(ur.dtype), w.imag.to(ur.dtype)
 
 
+def _state_is_complex(st: KPMState) -> bool:
+    """A complex-hopping state: its hopping factor is complex (expnV̄ is
+    always real)."""
+    if st.expK is not None:
+        return st.expK.is_complex()
+    return st.sinh_bar.is_complex()
+
+
 def _spectral_radius(apply_fn, v0: torch.Tensor, n_chains: int, n_iter: int):
     """Power-iteration estimate of the dominant |eigenvalue| per chain, from
     the start vector ``v0`` ``[N, 1]`` shared by all chains."""
     v = v0 / torch.linalg.vector_norm(v0)
     v = v.expand((n_chains,) + tuple(v0.shape)).contiguous()
-    lam = torch.ones(n_chains, dtype=v0.dtype, device=v0.device)
+    lam = torch.ones(n_chains, dtype=real_of(v0.dtype), device=v0.device)
     for _ in range(n_iter):
         w = apply_fn(v)
         lam = torch.linalg.vector_norm(w, dim=(-2, -1))
@@ -312,7 +331,8 @@ def _from_half_stacked(st: KPMState, w, Ltau: int, dtype, use_dft: bool):
 def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     """Build the KPM state for phonon fields ``x`` ``[C, N, Lτ]``.
     ``start`` is the pair of power-iteration start vectors
-    (:func:`start_vectors`)."""
+    (:func:`start_vectors`; cast to the complex type on a complex state,
+    where complex start vectors may be passed too)."""
     if x.ndim != 3:
         raise ValueError(f"x must be [C, N, Ltau], got {tuple(x.shape)}")
     C = x.shape[0]
@@ -335,7 +355,9 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
                    dft_f=torch.as_tensor(Wf, device=device).to(dtype),
                    dft_b=torch.as_tensor(Wb, device=device).to(dtype))
 
-    v1, v2 = (s.to(device=device, dtype=dtype) for s in start)
+    cplx = _state_is_complex(st0)
+    pdtype = complex_of(dtype) if cplx else dtype
+    v1, v2 = (s.to(device=device, dtype=pdtype) for s in start)
     e_max = _spectral_radius(lambda v: _mulA(st0, sc, v), v1, C, cfg.n_power)
     e_min = 1.0 / _spectral_radius(lambda v: _mulA_inv(st0, sc, v), v2, C, cfg.n_power)
     active = (e_min > 0.0) & (e_min < 1.0) & (e_max > 1.0) & ((e_max - e_min) < 2.0)
@@ -345,8 +367,10 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     lam_avg = (lam_hi + lam_lo) / 2
     lam_mag = (lam_hi - lam_lo) / 2
 
+    # real fields use the lower half spectrum (conjugate symmetry supplies
+    # the rest); complex fields need all Lτ frequencies
     Ltau = ops.Ltau
-    Lw = (Ltau + 1) // 2
+    Lw = Ltau if cplx else (Ltau + 1) // 2
     phis = torch.as_tensor(2.0 * np.pi / Ltau * (np.arange(Lw) + 0.5), device=device).to(dtype)
     M = cfg.max_order
     NM = 2 * M
@@ -358,15 +382,20 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     scale = torch.as_tensor(np.where(np.arange(M) == 0, 1.0, 2.0), device=device).to(dtype)[:, None] / NM
     coeff = scale * torch.matmul(cosmat.to(f.dtype), f)                         # [C, M, Lw]
 
-    order = torch.floor((lam_hi - lam_lo)[:, None] * (cfg.c1 / phis + cfg.c2))  # [C, Lw]
+    # on the full spectrum the hard frequencies sit at both ends (e^{−iφ} → 1
+    # as φ → 0 or 2π): the order follows the distance to the nearer pole
+    phis_eff = torch.minimum(phis, 2.0 * np.pi - phis) if cplx else phis
+    order = torch.floor((lam_hi - lam_lo)[:, None] * (cfg.c1 / phis_eff + cfg.c2))  # [C, Lw]
     order = torch.clamp(order, 1, M)
     morder = torch.arange(M, device=device)[None, :, None] < order[:, None, :]
     coeff = torch.where(morder, coeff, torch.zeros_like(coeff))
     st = replace(st0, lam_avg=lam_avg, lam_mag=lam_mag, coeff=coeff, active=active)
-    if cfg.stacked and expK is not None:
+    # the dense stack and the exact blocks assume a real Ā: a complex state
+    # keeps the plain complex recurrence (the JAX package ignores both there)
+    if cfg.stacked and expK is not None and not cplx:
         S_fwd, S_tr = _build_stack(st, M)
         st = replace(st, S_fwd=S_fwd, S_tr=S_tr)
-    if cfg.exact_lowfreq > 0 and expK is not None:
+    if cfg.exact_lowfreq > 0 and expK is not None and not cplx:
         k = min(cfg.exact_lowfreq, Lw)
         # the exact blocks replace those columns: their Chebyshev
         # coefficients are zeroed so the polynomial adds nothing there
@@ -472,11 +501,52 @@ def _pass(ops: ModelOps, st: KPMState, w, transposed: bool):
     return _chebyshev_apply_stacked(ops, st, w, coeff, transposed)
 
 
+def _chebyshev_apply(ops: ModelOps, st: KPMState, u, coeff, transposed: bool):
+    """Σₘ c_m(ω)·T_m(Ā′)·u on a complex ``[C, ..., N, Lτ]`` frequency block
+    (the complex-hopping pass; Āᴴ when ``transposed``): each step applies Ā
+    (a dense matmul, or the fold: the CUDA kernel's complex mode on the
+    card) and then the spectral map and the combine as elementwise
+    passes."""
+    sc = ops.spec.ckb
+    mul = _mulA_T if transposed else _mulA
+    mag = _chain(st.lam_mag, u)
+    shift = _chain(st.lam_avg / st.lam_mag, u)
+    cshape = coeff.shape[:1] + (1,) * (u.ndim - 2) + coeff.shape[2:]
+
+    def Ap(v):
+        return mul(st, sc, v) / mag - shift * v
+
+    def cm(m):
+        return coeff[:, m].reshape(cshape).to(u.dtype)
+
+    out = cm(0) * u
+    u_nm1, u_n = u, Ap(u)
+    for m in range(1, coeff.shape[1]):
+        out = out + cm(m) * u_n
+        u_nm1, u_n = u_n, 2.0 * Ap(u_n) - u_nm1
+    return out
+
+
+def _apply_complex(ops: ModelOps, st: KPMState, v, passes):
+    """The complex-hopping pipeline: τ→ω on the full spectrum, one complex
+    Chebyshev pass per entry of ``passes`` (``transposed``: conjugate
+    coefficients and Āᴴ), ω→τ without a real projection."""
+    u = tau_to_omega(v)
+    for transposed in passes:
+        coeff = st.coeff.conj_physical() if transposed else st.coeff
+        u = _chebyshev_apply(ops, st, u, coeff, transposed)
+    out = omega_to_tau(u, real=False).to(v.dtype)
+    active = st.active.reshape(st.active.shape + (1,) * (v.ndim - 1))
+    return torch.where(active, out, v)
+
+
 def _apply(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None, passes, exact: bool):
     """τ→ω, the Chebyshev ``passes`` (each ``transposed`` or not) on the
     half spectrum, the exact low-frequency blocks where the state holds
     them and ``exact`` asks, ω→τ. Chains whose spectral window is invalid
-    get the identity."""
+    get the identity. A complex state takes :func:`_apply_complex`."""
+    if _state_is_complex(st):
+        return _apply_complex(ops, st, v, passes)
     Ltau = ops.Ltau
     Lw = (Ltau + 1) // 2
     use_dft = cfg is not None and cfg.use_dft(Ltau)
@@ -494,8 +564,9 @@ def _apply(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None, passes, exact:
 
 
 def apply_symmetric(ops: ModelOps, st: KPMState, v, cfg: KPMConfig | None = None):
-    """P⁻¹ ≈ (MᵀM)⁻¹ on a real ``[C, ..., N, Lτ]`` field: the per-ω
-    [M⁻ᵀ·M⁻¹] Chebyshev pair (the CG preconditioner)."""
+    """P⁻¹ ≈ (MᵀM)⁻¹ on a ``[C, ..., N, Lτ]`` field: the per-ω
+    [M⁻ᵀ·M⁻¹] Chebyshev pair (the CG preconditioner; (M†M)⁻¹ = M⁻¹·M⁻ᴴ on
+    a complex state)."""
     return _apply(ops, st, v, cfg, (True, False), exact=True)
 
 

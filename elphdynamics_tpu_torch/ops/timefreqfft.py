@@ -10,25 +10,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from elphdynamics_tpu_torch.utils.dtypes import complex_of
+
 
 def theta(Ltau: int) -> np.ndarray:
     return np.exp(-1j * np.pi * np.arange(Ltau) / Ltau)
 
 
-def _complex_of(v: torch.Tensor) -> torch.dtype:
-    if v.is_complex():
-        return v.dtype
-    return torch.complex128 if v.dtype == torch.float64 else torch.complex64
-
-
 def tau_to_omega(v: torch.Tensor) -> torch.Tensor:
     """ν = F·Θ·v."""
-    th = torch.as_tensor(theta(v.shape[-1]), dtype=_complex_of(v), device=v.device)
+    th = torch.as_tensor(theta(v.shape[-1]), dtype=complex_of(v.dtype), device=v.device)
     return torch.fft.fft(th * v, dim=-1)
 
 
 def omega_to_tau(v: torch.Tensor, real: bool = True) -> torch.Tensor:
     """v = Θ†·F⁻¹·ν (real part when ``real``)."""
-    th = torch.as_tensor(theta(v.shape[-1]), dtype=_complex_of(v), device=v.device)
+    th = torch.as_tensor(theta(v.shape[-1]), dtype=complex_of(v.dtype), device=v.device)
     out = torch.conj(th) * torch.fft.ifft(v, dim=-1)
     return out.real if real else out

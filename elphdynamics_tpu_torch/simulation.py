@@ -307,8 +307,9 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
                                                 device=dev).to(z.dtype)
                              for k, z in zs.items()}
                      for group, zs in container.items()}
-        params = replace(params, **{k: torch.as_tensor(a, device=dev).to(dtype)
-                                    for k, a in st["params"].items()})
+        params = replace(params, **{
+            k: torch.as_tensor(a, device=dev).to(_param_dtype(params, k, dtype))
+            for k, a in st["params"].items()})
         sim_stats.update(st["sim_stats"])
         mu_tuner.load_state_dict(st["mu_tuner"])
         burnin_start = st["counters"]["burnin_start"]
@@ -475,6 +476,13 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     return sim_stats
 
 
+def _param_dtype(params, name: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a checkpointed parameter goes back to: the built one's
+    (complex under complex hopping), else ``dtype``."""
+    cur = getattr(params, name, None)
+    return cur.dtype if torch.is_tensor(cur) else dtype
+
+
 def load_model(datafolder: str, device="cuda", dtype: torch.dtype = torch.float64):
     """Rebuild a finished or checkpointed run: ``(setup, params, x)`` with
     the checkpoint's parameters and ``[C, N, Lτ]`` fields, on ``device``."""
@@ -484,6 +492,7 @@ def load_model(datafolder: str, device="cuda", dtype: torch.dtype = torch.float6
     setup = build_setup(cfg, datafolder, device, dtype)
     st = ckpt.load_checkpoint(datafolder)
     params = replace(setup.params, **{
-        f.name: torch.as_tensor(st["params"][f.name], device=setup.device).to(dtype)
+        f.name: torch.as_tensor(st["params"][f.name], device=setup.device).to(
+            _param_dtype(setup.params, f.name, dtype))
         for f in fields(setup.params) if f.name in st["params"]})
     return setup, params, torch.as_tensor(st["x"], device=setup.device).to(dtype)

@@ -21,6 +21,11 @@ field dtype before they touch a field. The block updates of
 :func:`block_cg` are matmuls in the field dtype. They must not run in TF32
 (a low-precision block update breaks block CG's A-conjugacy): callers leave
 ``torch.backends.cuda.matmul.allow_tf32`` off, which is PyTorch's default.
+
+Complex fields (complex hopping) run through ``cg``, ``cg_split``,
+``bicgstab`` and ``gmres`` unchanged: the dot products are the real
+Hermitian product Re(a†b), so the solvers work on the real ℝ²ⁿ embedding.
+``block_cg`` refuses them (ROADMAP slice F4).
 """
 
 from __future__ import annotations
@@ -275,6 +280,11 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
       dtype matmuls (TF32 matmuls must be off, as they are by default)."""
     if B.ndim < 3:
         raise ValueError("block_cg needs [..., s, N, Ltau] right-hand sides")
+    if B.is_complex():
+        # the JAX package's block CG forms complex Grams without a conjugate
+        # and reaches the tolerance only through its unpreconditioned retry
+        raise NotImplementedError("block CG on complex fields (complex hopping): "
+                                  "ROADMAP slice F4")
     if X0 is None:
         X0 = torch.zeros_like(B)
     P = apply_P if apply_P is not None else (lambda v: v)

@@ -3,12 +3,13 @@ card.
 
     python scripts/profile_torch_hmc.py CONFIG [--trace DIR]
 
-with CONFIG one of bench_8x8, kernel_64x64, ssh_64x64, langevin_64x64,
-ssh_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
-measure_bond_64x64, driver_4x4.
+with CONFIG one of bench_8x8, kernel_64x64, ssh_64x64, twisted_64x64,
+ssh_twisted_64x64, langevin_64x64, ssh_langevin_64x64, gmres_64x64,
+measure_64x64, measure_ssh_64x64, measure_bond_64x64, driver_4x4.
 
 ``bench_8x8``, ``kernel_64x64`` and ``ssh_64x64`` (the optical SSH model,
-8 chains) are the HMC updates of ``bench.py``; ``langevin_64x64`` and
+8 chains) are the HMC updates of ``bench.py``, ``twisted_64x64`` and
+``ssh_twisted_64x64`` its twisted-boundary (complex hopping) updates; ``langevin_64x64`` and
 ``ssh_langevin_64x64`` one Runge-Kutta Langevin step of its Langevin
 configurations; ``gmres_64x64`` one GMRES solve of M·z = r for nᵥ = 10
 probes per chain on the ``langevin_64x64`` model (the left KPM apply);
@@ -26,7 +27,8 @@ reflection and swap moves and the measurement. Builds the
 configuration in float32, runs it once to warm up, then once under
 ``torch.profiler`` and prints: wall time, summed device-kernel time and
 the device's busy share, both kernels' launches and summed device time
-(K1's per-(chain, bond, τ) coefficient mode also apart),
+(K1's per-(chain, bond, τ) coefficient mode and its complex mode also
+apart), the share of device time in torch's elementwise kernels,
 the heaviest kernels by device time, and the heaviest host-side
 operators. With ``--trace DIR`` the Chrome trace goes to
 ``DIR/<config>_trace.json`` (about 200 MB for one update).
@@ -51,7 +53,8 @@ from elphdynamics_tpu_torch.ops import ckb_cuda  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("config",
-                    choices=["bench_8x8", "kernel_64x64", "ssh_64x64", "langevin_64x64",
+                    choices=["bench_8x8", "kernel_64x64", "ssh_64x64", "twisted_64x64",
+                             "ssh_twisted_64x64", "langevin_64x64",
                              "ssh_langevin_64x64", "gmres_64x64", "measure_64x64",
                              "measure_ssh_64x64", "measure_bond_64x64", "driver_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
@@ -75,7 +78,8 @@ def main() -> int:
             return stats.iters
     else:
         cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64,
-               "ssh_64x64": bench.SSH_64X64}[args.config]
+               "ssh_64x64": bench.SSH_64X64, "twisted_64x64": bench.TWISTED_64X64,
+               "ssh_twisted_64x64": bench.SSH_TWISTED_64X64}[args.config]
         b = bench.build(cfg, "cuda", torch.float32)
         box = {"state": b.state}
 
@@ -94,6 +98,8 @@ def main() -> int:
     cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in cuda)
 
+    elementwise_us = sum(e.self_device_time_total for e in cuda if "elementwise" in e.key)
+
     def kernel_s(name, mode=""):
         return sum(e.self_device_time_total for e in cuda
                    if f"{name}<" in e.key and mode in e.key) / 1e6
@@ -102,6 +108,8 @@ def main() -> int:
           f"device_kernel_s={dev_us / 1e6:.4f} device_busy_share={dev_us / 1e6 / wall:.4f} "
           f"fold_launches={ckb_cuda.launches} fold_s={kernel_s('ckb_fold_kernel'):.4f} "
           f"fold_per_column_s={kernel_s('ckb_fold_kernel', ', true>'):.4f} "
+          f"fold_complex_s={kernel_s('ckb_fold_kernel', 'cplx'):.4f} "
+          f"elementwise_share={elementwise_us / max(dev_us, 1e-9):.4f} "
           f"table_launches={ckb_cuda.table_launches} "
           f"fused_launches={ckb_cuda.fused_launches} "
           f"fused_s={kernel_s('ckb_fold_fused_kernel'):.4f} "

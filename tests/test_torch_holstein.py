@@ -185,11 +185,14 @@ def test_params_from_jax_round_trip(branch):
 
 
 def test_unported_hopping_raises():
+    """Complex hopping, refused until it was ported (twisted boundaries and
+    complex t): it now builds complex tables (complex128 for float64)."""
     uc = TUnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
     lat = TLattice.create(uc, 2)
-    with pytest.raises(NotImplementedError):
-        TH.build_holstein(lat, 1.0, 0.1, t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0))],
-                          twist=(0.5, 0.0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TH.build_holstein(lat, 1.0, 0.1, t_assignments=[(1.0j, 0.0, 0, 0, (1, 0, 0))],
-                          device="cpu")
+    _, tw = TH.build_holstein(lat, 1.0, 0.1, t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0))],
+                              twist=(0.5, 0.0), device="cpu")
+    _, im = TH.build_holstein(lat, 1.0, 0.1, t_assignments=[(1.0j, 0.0, 0, 0, (1, 0, 0))],
+                              device="cpu")
+    for p in (tw, im):
+        assert p.cosht.dtype == p.sinht.dtype == p.expK.dtype == torch.complex128
+        assert p.sinht.imag.abs().max() > 0

@@ -159,10 +159,19 @@ def test_intersite_output_folders_match_jax(analysed, tmp_path):
 
 
 def test_bond_fields_refuse_complex_probes():
+    """Complex probes (complex hopping), refused until that was ported, are
+    stored conjugated (the estimator pairs M⁻¹R with conj R); real probes
+    are stored as they are."""
     _, _, tops, _ = _models("holstein_L2")
-    R = torch.zeros((1, NV, tops.Nsites, tops.Ltau), dtype=torch.complex128)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        IC.BondFields(tops.spec.lattice, R, R, tgreens.pair_indices(NV), torch.complex128)
+    g = torch.Generator().manual_seed(0)
+    R = torch.randn((1, NV, tops.Nsites, tops.Ltau), dtype=torch.complex128, generator=g)
+    bf = IC.BondFields(tops.spec.lattice, R, 2 * R, tgreens.pair_indices(NV), torch.complex128)
+    assert bf.cplx
+    torch.testing.assert_close(bf.r1, (bf.M1 / 2).conj(), rtol=0, atol=0)
+    bf = IC.BondFields(tops.spec.lattice, R.real, 2 * R.real, tgreens.pair_indices(NV),
+                       torch.complex128)
+    assert not bf.cplx
+    torch.testing.assert_close(bf.r1, bf.M1 / 2, rtol=0, atol=0)
 
 
 def test_holstein_intersite_phonon_greens_is_refused():

@@ -8,10 +8,10 @@ the JAX package.
   and ``write_summary`` write the same files, byte for byte, as the JAX
   package's.
 * Checkpoints round-trip; a JAX checkpoint is refused; what the port does
-  not run raises, naming its ROADMAP slice (twisted boundaries and complex
-  hopping, tempering, ``tune_dt``, 2MN, deflation, near-null); the sections
-  ported since (Langevin, GMRES, block CG, the KPM options, the bond-pair
-  correlations) load and run; the CLI refuses a CUDA run without a card.
+  not run raises, naming its ROADMAP slice (tempering, ``tune_dt``, 2MN,
+  deflation, near-null); the sections ported since (Langevin, GMRES, block
+  CG, the KPM options, the bond-pair correlations, twisted boundaries and
+  complex hopping) load and run; the CLI refuses a CUDA run without a card.
 """
 
 import copy
@@ -208,14 +208,13 @@ def _ssh(c, **extra):
 # (id, edit, slice): what the port still refuses. The ids keep the numbers
 # they had when the list also held what has been ported since.
 UNPORTED = [
-    ("slice F-0", lambda c: _ssh(c, twist=[0.3, 0.0]), "slice F"),
-    ("slice F-5", lambda c: c["holstein"].update(twist=[0.3, 0.0]), "slice F"),
-    ("slice F-6", lambda c: c["holstein"]["t"][0].update(imag=0.2), "slice F"),
     ("slice G-7", lambda c: c.update(tempering={"ladder": [1.0, 0.5]}), "slice G"),
     ("slice G-8", lambda c: c["hmc"].update(tune_dt=True), "slice G"),
     ("slice G-9", lambda c: c["hmc"].update(integrator="2mn"), "slice G"),
     ("slice I-10", lambda c: c["solver"].update(deflation={"k": 4}), "slice I"),
     ("slice I-11", lambda c: c["solver"].update(nearnull={"k": 4}), "slice I"),
+    ("slice F4-12", lambda c: (c["holstein"].update(twist=[0.3, 0.0]),
+                               c["solver"].update(block=True)), "slice F4"),
 ]
 
 
@@ -245,6 +244,9 @@ PORTED = [
     ("bond_correlations", lambda c: c["measurements"].update(BOND_CORR)),
     ("ssh_langevin", lambda c: _langevin(_ssh(c))),
     ("ssh_bond_correlations", lambda c: _ssh(c)["measurements"].update(BOND_CORR)),
+    ("ssh_twist", lambda c: _ssh(c, twist=[0.3, 0.0])),
+    ("twist", lambda c: c["holstein"].update(twist=[0.3, 0.0])),
+    ("imag", lambda c: c["holstein"]["t"][0].update(imag=0.2)),
 ]
 
 

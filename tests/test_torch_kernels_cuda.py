@@ -13,7 +13,9 @@ storage). Both kernels also run with one coefficient table per chain
 ([C, Nb], SSH's Ā), and the fold with one coefficient per chain, bond and
 column ([C, Nb, K], SSH's fermion operator), whose tables may themselves
 start off a vector boundary; table forms a kernel does not take are
-refused."""
+refused. The fold's complex mode (complex64 / complex128 fields and tables,
+the bond's second endpoint taking conj(s)) runs the same shapes and forms,
+with complex c as the twin carries it."""
 
 import functools
 
@@ -30,7 +32,10 @@ DIRECTIONS = [("forward", False, 1.0), ("transpose", True, 1.0),
               ("inverse", True, -1.0), ("inverse_transpose", False, -1.0)]
 # relative to max|twin|: float64 differs from the twin only by FMA contraction
 # and the order of the epilogue's terms
-TOLS = {torch.float64: 1e-12, torch.float32: 1e-5}
+TOLS = {torch.float64: 1e-12, torch.float32: 1e-5, torch.complex128: 1e-12,
+        torch.complex64: 1e-5}
+COMPLEX = [torch.complex128, torch.complex64]
+COMPLEX_IDS = ["c128", "c64"]
 
 
 @pytest.fixture
@@ -322,4 +327,138 @@ def test_kernels_refuse_other_table_forms(cuda):
         t = torch.ones(shape, **f64)
         with pytest.raises(ValueError):
             ckb_cuda.fold_fused(spec, t, t, v, **ok)
+    assert (ckb_cuda.launches, ckb_cuda.fused_launches) == before
+
+
+@functools.lru_cache(maxsize=None)
+def _twisted_spec(L):
+    """A twisted lattice: complex128 coefficient tables (Peierls phases)."""
+    uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
+    spec, params = build_holstein(
+        Lattice.create(uc, L), 1.0, 0.1, dense_threshold=0, rng=np.random.default_rng(0),
+        t_assignments=[(1.0, 0.1, 0, 0, (1, 0, 0)), (0.8, 0.1, 0, 0, (0, 1, 0))],
+        twist=(np.pi / 4, np.pi / 8), device="cpu")
+    assert params.sinht.is_complex()
+    return spec.ckb, params
+
+
+def _check_complex(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == dtype
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+
+
+COMPLEX_SHAPES = [(6, (4, 2, 40), 0), (64, (16, 40), 0), (64, (8, 1), 0), (5, (3, 7), 0),
+                  (128, (2, 40), 0), (64, (16, 40), 1), (5, (3, 7), 1)]
+COMPLEX_SHAPE_IDS = ["6x6", "64x64_fermion", "64x64_power", "5x5_K7", "128x128_ktiled",
+                     "64x64_misaligned", "5x5_K7_misaligned"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rev,sign", DIRECTIONS, ids=[d[0] for d in DIRECTIONS])
+@pytest.mark.parametrize("dtype", COMPLEX, ids=COMPLEX_IDS)
+@pytest.mark.parametrize("L,shape,offset", COMPLEX_SHAPES, ids=COMPLEX_SHAPE_IDS)
+def test_complex_kernel_matches_twin(cuda, name, rev, sign, dtype, L, shape, offset):
+    """K1's complex mode with one [Nb] table: every direction, both complex
+    types, the cluster split, K-tiling, K = 1, odd K and misaligned rows."""
+    spec, params = _twisted_spec(L)
+    c = params.cosht.to(device=cuda, dtype=dtype)
+    s = params.sinht.to(device=cuda, dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    v = _randn(shape[:-1] + (spec.nsites, shape[-1]), offset, g, cuda, dtype)
+    before = ckb_cuda.table_launches["fold/shared/complex"]
+    got = ckb_cuda.fold(spec, c, s, v, reverse=rev, sign=sign)
+    assert ckb_cuda.table_launches["fold/shared/complex"] == before + 1
+    want = ckb.fold(spec, c, s, v, reverse=rev, sign=sign)
+    torch.cuda.synchronize()
+    _check_complex(got, want, dtype)
+
+
+def _complex_tables(params, C, K, form, g, device, dtype, offset=0):
+    """Per-chain complex tables ``[C, Nb]`` or ``[C, Nb, K]`` around the
+    twisted model's, with a nonzero imaginary part of c (the kernel carries
+    c complex, as the twin does)."""
+    shape = (C, params.cosht.numel()) + ((K,) if form == "chain_column" else ())
+    base = (slice(None), slice(None)) + ((None,) if form == "chain_column" else ())
+    c0 = params.cosht.to(device=device, dtype=dtype)[None][base]
+    s0 = params.sinht.to(device=device, dtype=dtype)[None][base]
+    c = c0 * (1.0 + 0.1 * _randn(shape, offset, g, device, dtype))
+    s = s0 * (1.0 + 0.2 * _randn(shape, offset, g, device, dtype))
+    if offset:
+        c, s = (_randn(shape, offset, g, device, dtype).copy_(t) for t in (c, s))
+    assert c.imag.abs().max() > 0
+    return c, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["chain", "chain_column"])
+@pytest.mark.parametrize("name,rev,sign", DIRECTIONS, ids=[d[0] for d in DIRECTIONS])
+@pytest.mark.parametrize("dtype", COMPLEX, ids=COMPLEX_IDS)
+@pytest.mark.parametrize("L,shape,offset", TABLE_SHAPES, ids=TABLE_IDS)
+def test_complex_kernel_tables_match_twin(cuda, L, shape, offset, dtype, name, rev, sign, form):
+    """K1's complex mode with per-chain [C, Nb] and per-(chain, bond, column)
+    [C, Nb, K] tables (twisted SSH's Ā and fermion operator)."""
+    spec, params = _twisted_spec(L)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    v = _randn(shape[:-1] + (spec.nsites, shape[-1]), offset, g, cuda, dtype)
+    c, s = _complex_tables(params, shape[0], shape[-1], form, g, cuda, dtype, offset)
+    key = "fold/column/complex" if form == "chain_column" else "fold/chain/complex"
+    before = ckb_cuda.table_launches[key]
+    got = ckb_cuda.fold(spec, c, s, v, reverse=rev, sign=sign)
+    assert ckb_cuda.table_launches[key] == before + 1
+    want = ckb.fold(spec, c, s, v, reverse=rev, sign=sign)
+    torch.cuda.synchronize()
+    _check_complex(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", COMPLEX, ids=COMPLEX_IDS)
+def test_complex_kernel_every_candidate_matches_twin(cuda, dtype):
+    """Every geometry the tuner may keep for a twisted 64×64 fermion field
+    (16 chains) computes the twin's values in the complex mode."""
+    spec, params = _twisted_spec(64)
+    c = params.cosht.to(device=cuda, dtype=dtype)
+    s = params.sinht.to(device=cuda, dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    v = torch.randn((16, spec.nsites, 40), generator=g, device=cuda, dtype=dtype)
+    cands = ckb_cuda.launch_candidates(spec, v, "ckb_fold")
+    assert len(cands) >= 1 and len(set(cands)) == len(cands)
+    for _, rev, sign in DIRECTIONS:
+        want = ckb.fold(spec, c, s, v, reverse=rev, sign=sign)
+        for geo in cands:
+            got = ckb_cuda.fold(spec, c, s, v, reverse=rev, sign=sign, geometry=geo)
+            _check_complex(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", COMPLEX, ids=COMPLEX_IDS)
+def test_complex_kernel_launches_without_bonds(cuda, dtype):
+    """No bond groups: the complex mode still launches and copies the field."""
+    spec = ckb.build_checkerboard_spec(36, np.zeros((2, 0), dtype=np.int64))
+    empty = torch.zeros(0, device=cuda, dtype=dtype)
+    v = torch.randn((4, 3, 36, 10), device=cuda, dtype=dtype)
+    before = ckb_cuda.launches
+    got = ckb_cuda.fold(spec, empty, empty, v)
+    assert ckb_cuda.launches == before + 1
+    assert torch.equal(got, v) and got.data_ptr() != v.data_ptr()
+
+
+@pytest.mark.cuda
+def test_complex_kernel_refuses_mismatched_tables(cuda):
+    """The complex mode takes tables of the field's complex dtype only, and
+    the fused step takes no complex field: each raises before a launch,
+    and no complex field goes to the twin."""
+    spec, params = _twisted_spec(6)
+    c128 = params.cosht.to(cuda)
+    s128 = params.sinht.to(cuda)
+    v128 = torch.randn((2, spec.nsites, 8), device=cuda, dtype=torch.complex128)
+    before = (ckb_cuda.launches, ckb_cuda.fused_launches)
+    with pytest.raises(ValueError):                   # complex64 field, complex128 tables
+        ckb_cuda.fold(spec, c128, s128, v128.to(torch.complex64))
+    with pytest.raises(ValueError):                   # complex field, real tables
+        ckb_cuda.fold(spec, c128.real.contiguous(), s128.real.contiguous(), v128)
+    with pytest.raises(ValueError):                   # real field, complex tables
+        ckb_cuda.fold(spec, c128, s128, v128.real.contiguous())
+    with pytest.raises(TypeError):                    # K2 is real-only
+        ckb_cuda.fold_fused(spec, c128, s128, v128, a=torch.ones(2, device=cuda),
+                            b=torch.zeros(2, device=cuda))
     assert (ckb_cuda.launches, ckb_cuda.fused_launches) == before

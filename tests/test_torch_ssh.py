@@ -283,9 +283,13 @@ def test_primary_field_tying():
 
 
 def test_twisted_ssh_refused():
-    with pytest.raises(NotImplementedError, match="slice F"):
-        TS.build_ssh(Lattice.create(UnitCell.create(*UC), 2), 1.0, 0.1,
-                     hoppings=[dict(HOP, dL=(1, 0, 0))], twist=(0.3, 0.0), device="cpu")
+    """Twisted SSH, refused until complex hopping was ported, now builds the
+    JAX package's complex Peierls phases (t stays real)."""
+    kw = dict(hoppings=[dict(HOP, dL=(1, 0, 0))], twist=(0.3, 0.0))
+    _, jp = JS.build_ssh(JLattice.create(JUnitCell.create(*UC), 2), 1.0, 0.1, **kw)
+    _, tp = TS.build_ssh(Lattice.create(UnitCell.create(*UC), 2), 1.0, 0.1, device="cpu", **kw)
+    assert tp.t_phase.dtype == torch.complex128 and not tp.t.is_complex()
+    np.testing.assert_allclose(tp.t_phase.numpy(), np.asarray(jp.t_phase), rtol=0, atol=1e-15)
 
 
 def test_params_from_jax(model):
@@ -300,8 +304,9 @@ def test_params_from_jax(model):
     back = convert.params_to_numpy(conv)
     for f in names[:-1]:
         np.testing.assert_array_equal(back[f], np_params[f])
-    with pytest.raises(NotImplementedError, match="slice F"):
-        convert.params_from_jax({**np_params, "t_phase": np.ones(ts.Nbonds, complex)}, "cpu")
+    phases = np.exp(0.3j * np.arange(ts.Nbonds))    # twisted SSH's t_phase
+    conv = convert.params_from_jax({**np_params, "t_phase": phases}, "cpu")
+    np.testing.assert_array_equal(conv.t_phase.numpy(), phases)
 
 
 def test_init_phonons_matches_jax(model):
