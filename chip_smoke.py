@@ -79,8 +79,25 @@ Phases (one line each, and the process exits non-zero if any fails):
     acceptance > 0;
 18. the TOML driver on ``examples/holstein_hmc_twisted.toml`` and
     ``examples/ssh_hmc_twisted.toml``, one update and one measurement each;
-19. every (kernel, coefficient form, field shape) that one of the 64×64
-    runs of phases 9, 11, 13, 14 and 17 launched (``ckb_cuda.launch_shapes``),
+19. the deep-β samplers and solver aids, 4×4 float64 on the card (K1 forced
+    on, the dense Ā off) against the CPU with the same draws: a 2MN update,
+    a dynamic-dt update, a tempering exchange (Holstein and SSH, λ or α per
+    chain), a deflated and a near-null solve; x within 1e-12, equal
+    iterations and decisions;
+20. ``KERNEL_2MN_64X64`` (2MN at dt 0.05, 16 chains) and ``TEMPERING_64X64``
+    (4 rungs × 4 lanes, an exchange every 2 updates, both parities): 1
+    warm-up and 2 (tempering: 4) timed updates, with the exchange acceptance;
+21. both kernels at the deep-β shapes (K = 160: K1 [8, N, 160] and the
+    deflation filter's [128, N, 160], K2 [4, 2, N, 160] and [4, 32, N, 160]
+    with prev), against the twin, with device ms, plain ms, bound and the
+    dense matmul; and ``DEEP_BETA_64X64``: from-zero solves at 64×64, β =
+    16 by plain KPM-CG, with deflation and with the near-null
+    preconditioner: iterations, set-up and solve seconds, peak memory;
+22. the TOML driver on ``examples/holstein_hmc_deep_beta.toml`` (as shipped,
+    cut in depth; the tuned dt) and on the stock 4×4 Holstein example with
+    a ``[tempering]`` ladder on 8 chains (the exchange rate);
+23. every (kernel, coefficient form, field shape) that one of the 64×64
+    runs of phases 9, 11, 13, 14, 17, 20 and 21 launched (``ckb_cuda.launch_shapes``),
     against the twin in float32 and float64 (complex64 and complex128 for
     K1's complex mode), all directions, at every launch geometry the
     wrapper's tuning may keep for that shape, so that no run goes through a
@@ -787,13 +804,26 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     build_s = time.perf_counter() - t0
     ckb_cuda.reset_counts()
     state = b.state
-    for _ in range(warmup):
-        state, stats = b.step(b.params, state, b.generator)
+    exchanges = []
+
+    def update(n):
+        """Update ``n`` (from 1), and under a ladder an exchange attempt
+        every ``exchange_freq`` updates, the pair parity alternating."""
+        state_, stats_ = b.step(b.params, state, b.generator)
+        if b.exchange is not None and n % b.exchange_freq == 0:
+            x, v, rate, _, flag = b.exchange(b.params, state_.x, state_.v,
+                                             (n // b.exchange_freq) % 2, b.generator)
+            state_ = replace(state_, x=x, v=v)
+            exchanges.append((rate, flag))
+        return state_, stats_
+
+    for n in range(1, warmup + 1):
+        state, stats = update(n)
     torch.cuda.synchronize()
     acc, iters, flags, dHs = [], [], [], []
     t0 = time.perf_counter()
-    for _ in range(timed):
-        state, stats = b.step(b.params, state, b.generator)
+    for n in range(warmup + 1, warmup + timed + 1):
+        state, stats = update(n)
         acc.append(stats.accepted)
         iters.append(stats.iters)
         flags.append(stats.flag)
@@ -811,6 +841,11 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
                fused_kernel_launches=fused_launches, table_launches=by_table,
                build_s=build_s, seconds=elapsed,
                x_shape=tuple(state.x.shape), x_finite=bool(torch.isfinite(state.x).all()))
+    if exchanges:
+        out.update(exchanges=len(exchanges),
+                   exchange_acceptance=statistics.mean(float(r) for r, _ in exchanges),
+                   exchange_max_flag=max(int(f) for _, f in exchanges))
+        out["max_flag"] = max(out["max_flag"], out["exchange_max_flag"])
     say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_updates=timed,
         **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out.items()})
     out["launch_shapes"] = set(ckb_cuda.launch_shapes)
@@ -820,11 +855,13 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     return out
 
 
-def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()) -> dict:
+def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=(),
+               failures_ok: int = 0) -> dict:
     """``simulation.simulate`` of ``cfg`` (written as a TOML file, ``[hmc]``
     or ``[langevin]``) on the card in float32, with both kernels' counts
     set to 0 just before and read just after; checks the output tree
-    (``extra_files``: further per-bin tables that must be finite)."""
+    (``extra_files``: further per-bin tables that must be finite) and that
+    at most ``failures_ok`` updates were flagged by the solver."""
     from elphdynamics_tpu_torch.io.output import dump_toml
     from elphdynamics_tpu_torch.ops import ckb_cuda
     from elphdynamics_tpu_torch.simulation import simulate
@@ -887,6 +924,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()
                reflect_acceptance=stats["reflect_acceptance_rate"],
                swap_acceptance=stats["swap_acceptance_rate"],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **{k: stats[k] for k in ("tuned_dt", "tempering_acceptance_rate") if k in stats},
                kernel_launches=launches, fused_kernel_launches=fused_launches,
                table_launches=by_table,
                sections_ok=(all(f"## {x} ##" in summary for x in sections)
@@ -897,7 +935,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()
     out["launch_shapes"] = shapes
     if not (out["sections_ok"] and finite):
         raise RuntimeError(f"driver {name}: summary sections or bins wrong")
-    if out["solver_failures"] != 0 or not out["acceptance"] > 0:
+    if out["solver_failures"] > failures_ok or not out["acceptance"] > 0:
         raise RuntimeError(f"driver {name}: {out['solver_failures']} solver failures, "
                            f"acceptance {out['acceptance']}")
     return out
@@ -949,7 +987,7 @@ def phase_driver_langevin() -> dict:
         stock = tomllib.load(f)
     with tempfile.TemporaryDirectory() as work:
         small = json.loads(json.dumps(stock))
-        small["langevin"].update(burnin_timesteps=4, simulation_timesteps=8, meas_freq=2)
+        small["langevin"].update(burnin_timesteps=2, simulation_timesteps=4, meas_freq=2)
         small["simulation"]["num_bins"] = 2
         run_driver("langevin_square_4x4", small, 1, work)
         big = json.loads(json.dumps(stock))
@@ -1271,6 +1309,247 @@ def phase_driver_twisted() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the deep-β samplers and solver aids: 2MN, dynamic dt, parallel tempering,
+# slow-mode deflation, the near-null preconditioner
+# ---------------------------------------------------------------------------
+
+def _card_vs_cpu(run: str, fn, modes, tol: float = 1e-12, relative: bool = False) -> None:
+    """``fn(dev) -> (x, iterations, decisions)`` on the CPU (first: it may
+    draw the shared inputs there) and on the card, each with the kernels'
+    counts set to 0 before; x within ``tol`` (absolute, or relative to the
+    CPU's largest entry), equal iterations and decisions, every table form of
+    ``modes`` launched on the card and no kernel on the CPU."""
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ckb_cuda.reset_counts()
+        x, iters, dec = fn(dev)
+        runs[dev] = (x.cpu(), iters.cpu(), dec.cpu(), dict(ckb_cuda.table_launches))
+    (xc, ic, dc, nc), (xg, ig, dg, ng) = runs["cpu"], runs["cuda"]
+    dx = (xg - xc).abs().max().item() / (xc.abs().max().item() if relative else 1.0)
+    ok = (dx <= tol and torch.equal(ig, ic) and torch.equal(dg, dc)
+          and all(ng[m] > 0 for m in modes) and sum(nc.values()) == 0)
+    say("small_deep_reference", run=run, **{"max_rel_dx" if relative else "max_abs_dx": f"{dx:.3e}"},
+        tol=tol, iters=ig.flatten().tolist()[:8], iters_equal=bool(torch.equal(ig, ic)),
+        decisions_equal=bool(torch.equal(dg, dc)), cuda_launches={m: ng[m] for m in modes},
+        cpu_launches=sum(nc.values()))
+    if not ok:
+        raise RuntimeError(f"{run}: the card disagrees with the CPU reference")
+
+
+def phase_small_deep_reference() -> None:
+    """4×4 float64 runs on the card (K1 forced on, the dense Ā off, so K2
+    runs) against the CPU with the same inputs and draws: a 2MN update; a
+    dynamic-dt update (dt = 0.04 handed to a step built for dt = 0.05); a
+    tempering exchange of 2 rungs × 2 lanes (λ, or α, per chain), Holstein
+    and SSH; a deflated and a near-null solve (β = 1.6, the deflation basis
+    refreshed 4 times first). x within 1e-12 (updates, exchanges: absolute;
+    solves: relative), equal iterations and accept / swap decisions."""
+    from elphdynamics_tpu_torch.bench import (
+        DEEP_BETA_64X64, build_bench_step, build_deep_beta_solves, build_ssh_step)
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig, HMCState, draw, make_hmc_step
+    from elphdynamics_tpu_torch.dynamics.tempering import ExchangeDraws
+    from elphdynamics_tpu_torch.ops import deflation, kpm
+    from elphdynamics_tpu_torch.ops.fourier_accel import build_mass
+    from elphdynamics_tpu_torch.ops.nearnull import NearNullConfig
+    from elphdynamics_tpu_torch.utils.dtypes import pseudofermion_noise
+
+    f64 = torch.float64
+    forced = dict(dense_threshold=0, pallas_threshold=0)
+    shared = {}
+
+    def update(integrator: str, dt=None):
+        def fn(dev):
+            b = build_bench_step(4, 1.0, 0.1, 0.05, 4, dev, f64, trajectory_time=0.2,
+                                 integrator=integrator, **forced)
+            if dev == "cpu":
+                shared["draws"] = draw(b.ops, 4, f64, "cpu", torch.Generator().manual_seed(1))
+                shared["x0"] = b.state.x
+            d, x0 = shared["draws"], shared["x0"].to(dev)
+            moved = replace(d, momentum=d.momentum.to(dev), pseudofermion=d.pseudofermion.to(dev),
+                            uniform=d.uniform.to(dev))
+            step, args = b.step, ()
+            if dt is not None:
+                mass = build_mass(b.params.omega.double().cpu().numpy(), b.ops.dtau, b.ops.Ltau,
+                                  [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
+                cfg = HMCConfig(dt=0.05, trajectory_time=0.2, Nb=4, tol=1e-5, maxiter=500,
+                                construct_guess=True, guess_order=3, integrator=integrator)
+                step = make_hmc_step(b.ops, mass, cfg,
+                                     kpm.make_precond(b.ops, kpm.KPMConfig(max_order=4)),
+                                     dynamic_dt=True)
+                args = (torch.tensor(dt, dtype=f64, device=dev),)
+            st, stats = step(b.params, HMCState(x=x0, v=torch.zeros_like(x0)), *args, draws=moved)
+            return st.x, stats.iters, stats.accepted
+        return fn
+
+    def exchange(builder, kw):
+        def fn(dev):
+            b = builder(4, 1.0, 0.1, 0.05, 4, dev, f64, ladder=(1.0, 0.9), **kw)
+            if dev == "cpu":
+                g = torch.Generator().manual_seed(2)
+                x = b.state.x + 0.3 * torch.randn(b.state.x.shape, generator=g, dtype=f64)
+                shared["xv"] = (b.ops.tie(x), b.ops.tie(torch.randn(x.shape, generator=g,
+                                                                     dtype=f64)))
+                shared["ex"] = ExchangeDraws(
+                    pseudofermion=pseudofermion_noise((4, b.ops.Nsites, b.ops.Ltau), f64, "cpu", g),
+                    uniform=torch.rand(4, generator=g, dtype=f64))
+            x, v = (t.to(dev) for t in shared["xv"])
+            d = shared["ex"]
+            x1, _, rate, iters, _ = b.exchange(b.params, x, v, 0, draws=ExchangeDraws(
+                pseudofermion=d.pseudofermion.to(dev), uniform=d.uniform.to(dev)))
+            return x1, iters.reshape(1), rate.reshape(1)
+        return fn
+
+    small = replace(DEEP_BETA_64X64, L=4, beta=1.6, n_chains=2,
+                    deflation=deflation.DeflationConfig(k=8), nearnull=NearNullConfig(k=4))
+
+    def solve(kind):
+        def fn(dev):
+            res = build_deep_beta_solves(small, dev, f64, **forced).prepare(kind)()
+            return res.x, res.iters, res.flag
+        return fn
+
+    holstein = ("fold/shared", "fused/shared")
+    with _without_dense_abar():
+        _card_vs_cpu("hmc_2mn", update("2mn"), holstein)
+        _card_vs_cpu("hmc_dynamic_dt", update("leapfrog", dt=0.04), holstein)
+        _card_vs_cpu("exchange_holstein", exchange(build_bench_step, forced), holstein)
+        _card_vs_cpu("exchange_ssh", exchange(build_ssh_step, {}),
+                     ("fold/column", "fold/chain", "fused/chain"))
+        _card_vs_cpu("solve_deflation", solve("deflation"), holstein, relative=True)
+        _card_vs_cpu("solve_nearnull", solve("nearnull"), holstein, relative=True)
+
+
+def phase_deep_beta_kernels() -> dict:
+    """Both kernels at the deep-β shapes of ``bench.DEEP_BETA_64X64`` (K =
+    Lτ = 160, float32, forward, against the twin): K1 on the fermion
+    operator's [8, 4096, 160] (4 chains × 2 spins) and the deflation
+    filter's [128, 4096, 160] (4 chains × k = 32); K2 with per-chain
+    diagonals and prev on [4, 2, 4096, 160] and [4, 32, 4096, 160]. Device
+    ms, plain ms, bound (each input read once, the output written once) and
+    the dense-matmul library form."""
+    from elphdynamics_tpu_torch.ops import checkerboard as ckb
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    spec, params = _spec_64()
+    sc, G, N = spec.ckb, spec.ckb.ngroups, spec.Nsites
+    c, s = params.cosht.float(), params.sinht.float()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for kernel, lead in (("fold", (8,)), ("fold", (128,)), ("fused", (4, 2)), ("fused", (4, 32))):
+        v = torch.randn(lead + (N, 160), generator=g, device="cuda")
+        if kernel == "fold":
+            kw, fast, plain_fn = {}, ckb_cuda.fold, ckb.fold
+            nbytes, flops = 2 * v.numel() * 4 + 2 * c.numel() * 4, 3 * G * v.numel()
+        else:
+            C = lead[0]
+            kw = dict(pre=0.5 + torch.rand((C, N), generator=g, device="cuda"),
+                      a=0.5 + torch.rand(C, generator=g, device="cuda"),
+                      b=torch.rand(C, generator=g, device="cuda") - 0.5, c=-1.0,
+                      prev=torch.randn_like(v))
+            fast, plain_fn = ckb_cuda.fold_fused, ckb.fold_fused
+            nbytes = 3 * v.numel() * 4 + (2 * c.numel() + C * N + 2 * C) * 4
+            flops = (3 * G + 6) * v.numel()
+        got, want = fast(sc, c, s, v, **kw), plain_fn(sc, c, s, v, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        del got, want
+        ms = device_ms(lambda: fast(sc, c, s, v, **kw), reps=10)
+        plain = device_ms(lambda: plain_fn(sc, c, s, v, **kw), reps=3)
+        lib = library_ms(sc, c, s, v)
+        b_ms, b_by = bound(nbytes, flops)
+        shape = "x".join(map(str, v.shape))
+        out[f"{kernel}/{shape}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=lib, max_abs_err=err)
+        say("deep_kernel", kernel=kernel, shape=shape, dtype="float32",
+            max_rel_err=f"{rel:.3e}", tol=F32_TOL, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, bound_share=f"{b_ms / ms:.3f}",
+            library_ms=f"{lib:.4f}")
+        if not rel <= F32_TOL:
+            raise RuntimeError(f"{kernel} at {shape} disagrees with its twin: {rel}")
+    return out
+
+
+def phase_deep_beta_solves() -> dict:
+    """``bench.DEEP_BETA_64X64``: from-zero solves of MᵀM at 64×64, β = 16
+    (Lτ = 160), 4 chains × 2 spins, at a τ-rough field (half-filled
+    worldlines plus free-phonon τ-fluctuations), KPM max_order 8, tol 1e-5,
+    float32, by
+    plain KPM-CG, with deflation (k 32) and with the near-null
+    preconditioner (k 16): iterations per solve, set-up and solve seconds,
+    flags and peak device memory, each kind run twice (the first pass tunes
+    the launch geometries at the new shapes; the second is reported). The
+    kernels' counts cover the whole phase."""
+    from elphdynamics_tpu_torch.bench import DEEP_BETA_64X64, SOLVE_KINDS, build_deep_beta_solves
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    d = build_deep_beta_solves(DEEP_BETA_64X64, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    ckb_cuda.reset_counts()
+    out = {}
+    for kind in SOLVE_KINDS:
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = d.prepare(kind)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        out[kind] = dict(iters=res.iters.double().mean().item(), max_iters=int(res.iters.max()),
+                         setup_s=t1 - t0, solve_s=t2 - t1, max_flag=int(res.flag.max()),
+                         max_residual=res.residual.max().item(),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        say(DEEP_BETA_64X64.name, kind=kind, chains=DEEP_BETA_64X64.n_chains,
+            Ltau=d.ops.Ltau, systems=res.iters.numel(),
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out[kind].items()})
+    out.update(table_launches=dict(ckb_cuda.table_launches),
+               launch_shapes=set(ckb_cuda.launch_shapes))
+    say(DEEP_BETA_64X64.name, table_launches=out["table_launches"])
+    bad = [k for k in SOLVE_KINDS if out[k]["max_flag"] != 0]
+    idle = [m for m in ("fold/shared", "fused/shared") if out["table_launches"][m] <= 0]
+    if bad or idle:
+        raise RuntimeError(f"deep-beta solves: flagged {bad}, kernel forms launched no time {idle}")
+    return out
+
+
+def phase_driver_deep() -> dict:
+    """``examples/holstein_hmc_deep_beta.toml`` as shipped (8×8, β = 16, 20
+    probes, time-dependent correlations, ``tune_dt`` toward 0.85), cut in
+    depth only: 4 tuned burn-in updates, 2 sampling updates, 2 bins, 1
+    chain (host-bound: thousands of CG iterations per update); and the
+    stock 4×4 Holstein example with ``[tempering] ladder = [1.0, 0.9, 0.8,
+    0.7]`` (an exchange every update) on 8 chains, 2 sampling updates."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(here, "examples", "holstein_hmc_deep_beta.toml"), "rb") as f:
+            deep = tomllib.load(f)
+        deep["hmc"].update(burnin_updates=4, simulation_updates=2)
+        deep["simulation"]["num_bins"] = 2
+        # dual averaging starts from its shrinkage point log(10·dt₀): its
+        # first burn-in steps try dt up to ~13·dt₀, where a β = 16
+        # trajectory can run away; such an update is flagged, rejected and
+        # fed to the tuner as acceptance 0, as in the JAX package
+        out["deep"] = run_driver("holstein_deep_beta_8x8", deep, 1, work,
+                                 failures_ok=deep["hmc"]["burnin_updates"])
+        with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
+            temp = tomllib.load(f)
+        temp["hmc"].update(burnin_updates=0, simulation_updates=2)
+        temp["simulation"]["num_bins"] = 2
+        temp["tempering"] = {"ladder": [1.0, 0.9, 0.8, 0.7], "freq": 1}
+        out["tempering"] = run_driver("holstein_tempering_4x4", temp, 8, work)
+    if "tuned_dt" not in out["deep"] or "tempering_acceptance_rate" not in out["tempering"]:
+        raise RuntimeError("the deep-beta driver froze no dt, or the tempering driver "
+                           "reported no exchange rate")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1289,18 +1568,23 @@ def main() -> int:
     phase_small_langevin_reference()
     phase_small_solver_reference()
     phase_small_twisted_reference()
+    phase_small_deep_reference()
 
     from elphdynamics_tpu_torch.bench import (
-        BENCH_8X8, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64, SSH_LANGEVIN_64X64,
-        SSH_TWISTED_64X64, TWISTED_64X64)
+        BENCH_8X8, KERNEL_2MN_64X64, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64,
+        SSH_LANGEVIN_64X64, SSH_TWISTED_64X64, TEMPERING_64X64, TWISTED_64X64)
 
     run_config(BENCH_8X8, warmup=1, timed=3)
     shapes, runs = {}, {}
-    for cfg, forms in ((KERNEL_64X64, ("fold/shared", "fused/shared")),
-                       (SSH_64X64, ("fold/column", "fold/chain", "fused/chain")),
-                       (TWISTED_64X64, ("fold/shared/complex",)),
-                       (SSH_TWISTED_64X64, ("fold/column/complex", "fold/chain/complex"))):
-        big = runs[cfg.name] = run_config(cfg, warmup=1, timed=2)
+    holstein = ("fold/shared", "fused/shared")
+    # tempering: 4 timed updates, so that both pair parities are tried
+    for cfg, forms, timed in ((KERNEL_64X64, holstein, 2),
+                              (SSH_64X64, ("fold/column", "fold/chain", "fused/chain"), 2),
+                              (TWISTED_64X64, ("fold/shared/complex",), 2),
+                              (SSH_TWISTED_64X64, ("fold/column/complex", "fold/chain/complex"),
+                               2),
+                              (KERNEL_2MN_64X64, holstein, 2), (TEMPERING_64X64, holstein, 4)):
+        big = runs[cfg.name] = run_config(cfg, warmup=1, timed=timed)
         shapes[cfg.name] = big["launch_shapes"]
         idle = [f for f in forms if big["table_launches"][f] <= 0]
         if idle:
@@ -1312,14 +1596,17 @@ def main() -> int:
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
     shapes["solver_kinds_64x64"] = phase_solver_kinds_64()["launch_shapes"]
+    phase_deep_beta_kernels()
+    deep = phase_deep_beta_solves()
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
     # per update, 4–6 s each; SSH's KPM at max_order 64, 25–45 s each): a few
     # updates each; the SSH runs (4×4, and 64×64 at ~19 s per update) take
     # one sampling update and no burn-in
-    drv = phase_driver("holstein_hmc_square", "holstein", (2, 4, 2))
+    drv = phase_driver("holstein_hmc_square", "holstein", (1, 2, 2))
     drv_ssh = phase_driver("ssh_hmc_square", "ssh", (0, 1, 1), big_updates=(0, 1, 1))
     drv_lang = phase_driver_langevin()
     drv_tw = phase_driver_twisted()
+    phase_driver_deep()
     idle = [f for f in ("fold/column", "fold/chain", "fused/chain")
             if drv_ssh["table_launches"][f] <= 0]
     if idle:
@@ -1327,7 +1614,8 @@ def main() -> int:
     if not all(math.isfinite(k["ms"]) for k in (kern, fused, *tables.values(), *ctables.values())):
         raise RuntimeError("kernel timing missing")
     holstein_paths = {"hmc_driver_64x64": drv, "langevin_driver_64x64": drv_lang,
-                      LANGEVIN_64X64.name: lang}
+                      LANGEVIN_64X64.name: lang, KERNEL_2MN_64X64.name: runs[KERNEL_2MN_64X64.name],
+                      TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep}
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
     # K1's complex mode: the twisted 64×64 configurations, and the stock
     # twisted SSH example (its fermion operator and densified Ā are K1's at

@@ -34,6 +34,26 @@ complex KPM recurrence is the fold plus elementwise passes).
 * ``SSH_TWISTED_64X64``: ``SSH_64X64`` twisted, 8 chains — ``[C, Nb, K]``
   tables for the fermion operator, ``[C, Nb]`` for Ā.
 
+The deep-β samplers on ``KERNEL_64X64``'s model (16 chains, N = 4096):
+
+* ``KERNEL_2MN_64X64``: the 2MN integrator at dt = 0.05 — the same
+  trajectory length, so 20 steps of two solves (42 solves per update, as
+  leapfrog's 40 steps at dt = 0.025 make);
+* ``TEMPERING_64X64``: 16 chains = 4 rungs × 4 lanes on the ladder (1.0,
+  0.9, 0.8, 0.7), λ and λ₂ per chain (K2's per-chain ``pre`` / ``post``
+  diagonals; the hopping tables stay ``[Nb]``), an exchange attempt every 2
+  updates (:attr:`BenchStep.exchange`).
+
+``DEEP_BETA_64X64`` (:func:`build_deep_beta_solves`) builds solves, not an
+update: the Holstein model at 64×64, β = 16, Δτ = 0.1 (Lτ = 160), 4
+chains, KPM ``max_order`` 8 (the stock deep-β example's), tol 1e-5,
+from-zero solves of MᵀM·z = Mᵀ·R (2 spins per chain) at a τ-rough field
+(half-filled worldlines plus free-phonon τ-fluctuations) by plain KPM-CG,
+with slow-mode deflation (k 32, filter degree 8, 4 power steps, cutoff
+1/16; the basis, in the field dtype, refreshed 4 times first) and with the
+near-null preconditioner (k 16, c 4): K1 and K2 at K = Lτ = 160, and the
+deflation filter's ``[4, 32, 4096, 160]`` batches.
+
 Langevin dynamics (Runge-Kutta steps, dt = 1e-3, Fourier acceleration block
 ω ∈ (0, 10) with m = 0.5, solver tol 1e-5, maxiter 500; a step is two force
 solves of MᵀM·z = Mᵀg, no Metropolis test):
@@ -46,20 +66,24 @@ solves of MᵀM·z = Mᵀg, no Metropolis test):
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
 from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig, HMCState, make_hmc_step
 from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
 from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
-from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_applies, solve_oinv
+from elphdynamics_tpu_torch.dynamics.tempering import (
+    TemperingConfig, ladder_params, make_exchange_step)
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams, build_holstein
 from elphdynamics_tpu_torch.models.ssh import SSHParams, build_ssh
-from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.ops import deflation, kpm
 from elphdynamics_tpu_torch.ops.fourier_accel import build_Q, build_mass
+from elphdynamics_tpu_torch.ops.nearnull import NearNullConfig, make_nearnull_precond
+from elphdynamics_tpu_torch.solvers import SolveResult
 from elphdynamics_tpu_torch.utils.device import require_device
 
 
@@ -75,6 +99,8 @@ class BenchConfig:
     sampler: str = "hmc"       # "hmc" | "langevin"
     method: str = "rk"         # the Langevin scheme
     twist: tuple | None = None  # twisted-boundary flux angles (complex hopping)
+    integrator: str = "leapfrog"
+    ladder: tuple | None = None  # parallel-tempering coupling ladder (rung-major chains)
 
 
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
@@ -90,6 +116,11 @@ TWISTED_64X64 = BenchConfig("twisted_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
                             twist=TWIST)
 SSH_TWISTED_64X64 = BenchConfig("ssh_twisted_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
                                 n_chains=8, model="ssh", twist=TWIST)
+KERNEL_2MN_64X64 = BenchConfig("kernel_2mn_64x64", L=64, beta=4.0, dtau=0.1, dt=0.05,
+                               n_chains=16, integrator="2mn")
+TEMPERING_64X64 = BenchConfig("tempering_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
+                              n_chains=16, ladder=(1.0, 0.9, 0.8, 0.7))
+EXCHANGE_FREQ = 2   # updates per exchange attempt under a ladder
 
 
 @dataclass(frozen=True)
@@ -99,6 +130,10 @@ class BenchStep:
     step: object            # step(params, state, generator) -> (state, stats)
     state: HMCState         # initial state
     generator: torch.Generator
+    # under a ladder: exchange(params, x, v, parity, generator) -> (x, v,
+    # acceptance, iterations, flag), attempted every ``exchange_freq`` updates
+    exchange: object = None
+    exchange_freq: int = 0
 
 
 @dataclass(frozen=True)
@@ -115,27 +150,32 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                      device="cuda", dtype: torch.dtype = torch.float32, *,
                      seed: int = 0, trajectory_time: float = 1.0,
                      dense_threshold: int = 2048,
-                     pallas_threshold: int = 2048, twist=None) -> BenchStep:
+                     pallas_threshold: int = 2048, twist=None, integrator: str = "leapfrog",
+                     ladder=None) -> BenchStep:
     """Build the model (with ``twist``, twisted boundaries), the
-    KPM-preconditioned HMC step and a half-filled initial state of
-    ``n_chains`` chains on ``device`` (the card unless the caller asks for
-    the CPU)."""
+    KPM-preconditioned HMC step (``integrator``) and a half-filled initial
+    state of ``n_chains`` chains on ``device`` (the card unless the caller
+    asks for the CPU); with a ``ladder``, per-chain couplings and the
+    tempering exchange."""
     device = require_device(device)
     spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
                                    pallas_threshold, twist)
-    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=4)
+    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=4,
+                       integrator=integrator, ladder=ladder)
 
 
 def build_ssh_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                    device="cuda", dtype: torch.dtype = torch.float32, *,
-                   seed: int = 0, trajectory_time: float = 1.0, twist=None) -> BenchStep:
+                   seed: int = 0, trajectory_time: float = 1.0, twist=None,
+                   integrator: str = "leapfrog", ladder=None) -> BenchStep:
     """The SSH model (with ``twist``, twisted boundaries), its
     KPM-preconditioned HMC step and a half-filled initial state of
     ``n_chains`` chains on ``device`` (the card unless the caller asks for
-    the CPU)."""
+    the CPU); ``integrator``, ``ladder`` as in :func:`build_bench_step`."""
     device = require_device(device)
     spec, params = _ssh_model(L, beta, dtau, dtype, device, twist)
-    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8)
+    return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8,
+                       integrator=integrator, ladder=ladder)
 
 
 def build_langevin_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
@@ -187,19 +227,119 @@ def _square(L: int) -> Lattice:
     return Lattice.create(UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]]), L)
 
 
-def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time,
-                max_order: int) -> BenchStep:
+def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order: int,
+                integrator: str = "leapfrog", ladder=None) -> BenchStep:
     ops = make_model_ops(spec)
     mass = build_mass(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
                       [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
     cfg = HMCConfig(dt=dt, trajectory_time=trajectory_time, Nb=4, tol=1e-5,
-                    maxiter=500, construct_guess=True, guess_order=3)
+                    maxiter=500, construct_guess=True, guess_order=3, integrator=integrator)
     precond = kpm.make_precond(ops, kpm.KPMConfig(max_order=max_order))
     step = make_hmc_step(ops, mass, cfg, precond)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = init_phonons_half_filled(ops, params, n_chains, gen)
+    exchange = None
+    if ladder is not None:
+        tcfg = TemperingConfig(ladder=tuple(ladder), freq=EXCHANGE_FREQ, tol=cfg.tol,
+                               maxiter=cfg.maxiter)
+        params = ladder_params(params, tcfg, n_chains)
+        exchange = make_exchange_step(ops, tcfg, n_chains, precond)
     return BenchStep(ops=ops, params=params, step=step,
-                     state=HMCState(x=x, v=torch.zeros_like(x)), generator=gen)
+                     state=HMCState(x=x, v=torch.zeros_like(x)), generator=gen,
+                     exchange=exchange, exchange_freq=EXCHANGE_FREQ if exchange else 0)
+
+
+@dataclass(frozen=True)
+class DeepBetaConfig:
+    name: str
+    L: int
+    beta: float
+    dtau: float
+    n_chains: int
+    max_order: int = 8
+    tol: float = 1e-5
+    maxiter: int = 4000
+    deflation: deflation.DeflationConfig = deflation.DeflationConfig()   # k 32, 8, 4, 1/16
+    refreshes: int = 4            # deflation-basis refreshes before the solves
+    nearnull: NearNullConfig = NearNullConfig()                           # k 16, c 4
+
+
+DEEP_BETA_64X64 = DeepBetaConfig("deep_beta_64x64", L=64, beta=16.0, dtau=0.1, n_chains=4)
+SOLVE_KINDS = ("plain", "deflation", "nearnull")
+
+
+@dataclass(frozen=True)
+class DeepBetaSolves:
+    ops: ModelOps
+    params: HolsteinParams
+    x: torch.Tensor          # [C, N, Lτ] half-filled fields
+    rhs: torch.Tensor        # [C, 2, N, Lτ] Mᵀ·R
+    cfg: DeepBetaConfig
+    seed: int                # the deflation basis's draw
+
+    def prepare(self, kind: str):
+        """The solve of ``kind`` (one of :data:`SOLVE_KINDS`) made ready:
+        its preconditioner set up at ``x`` (and the deflation basis refreshed
+        ``cfg.refreshes`` times); returns ``run() -> SolveResult``, a
+        from-zero solve of all right-hand sides."""
+        if kind not in SOLVE_KINDS:
+            raise ValueError(f"unknown solve kind {kind!r} (expected one of {SOLVE_KINDS})")
+        ops, p, x, cfg = self.ops, self.params, self.x, self.cfg
+        kcfg = kpm.KPMConfig(max_order=cfg.max_order)
+        precond = (make_nearnull_precond(ops, kcfg, cfg.nearnull) if kind == "nearnull"
+                   else kpm.make_precond(ops, kcfg))
+        pa = precond_applies(precond, precond.setup(p, x))
+        ds = ops.stack(ops.derived(p, x))
+        defl = None
+        if kind == "deflation":
+            # drawn on the host, so that every device starts from one basis
+            init = deflation.init(x.shape[0], cfg.deflation.k, ops.Nsites, ops.Ltau,
+                                  dtype=x.dtype, device="cpu",
+                                  generator=torch.Generator().manual_seed(self.seed))
+            defl = deflation.DeflationState(*(getattr(init, f.name).to(x.device)
+                                              for f in fields(init)))
+            for _ in range(cfg.refreshes):
+                defl = deflation.refresh(defl, lambda v: ops.mulMTM(p, ds, v.to(x.dtype)),
+                                         pa.symmetric, cfg.deflation)
+        scfg = SolverConfig(tol=cfg.tol, maxiter=cfg.maxiter)
+
+        def run() -> SolveResult:
+            return solve_oinv(ops, p, ds, self.rhs, scfg, pa, deflate=defl)
+
+        return run
+
+
+def build_deep_beta_solves(cfg: DeepBetaConfig = DEEP_BETA_64X64, device="cuda",
+                           dtype: torch.dtype = torch.float32, seed: int = 0,
+                           dense_threshold: int = 2048,
+                           pallas_threshold: int = 2048) -> DeepBetaSolves:
+    """The Holstein model of ``cfg`` (``KERNEL_64X64``'s couplings) on
+    ``device`` (the card unless the caller asks for the CPU), fields of
+    ``cfg.n_chains`` chains (half-filled worldlines with free-phonon
+    τ-fluctuations) and the right-hand sides Mᵀ·R of normal R per spin, all
+    drawn on the host from ``seed`` (the same inputs on every device)."""
+    device = require_device(device)
+    spec, params = _holstein_model(cfg.L, cfg.beta, cfg.dtau, dtype, device, dense_threshold,
+                                   pallas_threshold)
+    ops = make_model_ops(spec)
+    C, Lt = cfg.n_chains, ops.Ltau
+    g = torch.Generator().manual_seed(seed)
+    x = init_phonons_half_filled(ops, params, C, draws=(
+        torch.randn((C, ops.Nph), generator=g, dtype=torch.float64),
+        torch.randint(-1, 2, (C, ops.Nph), generator=g)))
+    # plus τ-fluctuations drawn from the free phonon action Δτ·Σ[ω²x²/2 +
+    # (∂τx)²/2], exactly, through its circulant spectrum per site: a sampler's
+    # field is rough in τ, and flat worldlines make a far better conditioned
+    # operator
+    k = torch.arange(Lt // 2 + 1, dtype=torch.float64)
+    spectrum = (ops.dtau * params.omega.double().cpu()[:, None] ** 2
+                + (2.0 - 2.0 * torch.cos(2.0 * math.pi * k / Lt)) / ops.dtau)
+    noise = torch.randn((C, ops.Nph, Lt), generator=g, dtype=torch.float64)
+    rough = torch.fft.irfft(torch.fft.rfft(noise, dim=-1) / spectrum.sqrt(), n=Lt, dim=-1)
+    x = x + rough.to(device=device, dtype=dtype)
+    R = torch.randn((C, 2, ops.Nsites, Lt), generator=g, dtype=torch.float64)
+    rhs = ops.mulMT(params, ops.stack(ops.derived(params, x)), R.to(device=device, dtype=dtype))
+    return DeepBetaSolves(ops=ops, params=params, x=x, rhs=rhs, cfg=cfg, seed=seed)
 
 
 def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
@@ -212,4 +352,4 @@ def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
                                    model=cfg.model, method=cfg.method, twist=cfg.twist, **kw)
     make = build_ssh_step if cfg.model == "ssh" else build_bench_step
     return make(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype, twist=cfg.twist,
-                **kw)
+                integrator=cfg.integrator, ladder=cfg.ladder, **kw)

@@ -1,18 +1,21 @@
 """Hybrid Monte Carlo over the phonon fields, batched over chains.
 
-Counterpart of ``elphdynamics_tpu/dynamics/hmc.py`` (leapfrog with Nb
-bosonic substeps). One update:
+Counterpart of ``elphdynamics_tpu/dynamics/hmc.py``. One update:
 
 * momenta v = α·v + √(1−α²)·M^(−1/2)·R (Fourier-accelerated mass; R tied
   over aliased fields);
 * auxiliary field φ± = Λ⁻¹·Mᵀ·R± per spin (Mᵀ·R± for SSH, which has no Λ
   shift); under complex hopping the two spins are one complex stack entry
   φ = Λ⁻¹·M†·(R↑ + i·R↓), the time-reversal-symmetric twist ensemble;
-* Nt leapfrog steps, each with Nb bosonic substeps, a KPM-preconditioned,
-  residual-checked solve of MᵀM·z = Λφ and the fermion forces. The solve is
-  CG (warm-started from the previous solutions; with ``block`` the two
-  spins of a chain as one block CG), or BiCGStab / GMRES through Mᵀ then M
-  (never warm-started, as in the JAX package);
+* Nt trajectory steps, each with a KPM-preconditioned, residual-checked
+  solve of MᵀM·z = Λφ and the fermion forces: leapfrog (Nb bosonic
+  substeps per step), or the 2MN minimum-norm integrator (Omelyan et al.,
+  hep-lat/0506011: λ-kick, dt/2 drift, middle kick, dt/2 drift, λ-kick;
+  two solves per step, each drift Nb substeps of its half step). The solve
+  is CG (warm-started from the previous solutions; with ``block`` the two
+  spins of a chain as one block CG; with deflation started from the
+  slow-mode projection of :mod:`..ops.deflation`), or BiCGStab / GMRES
+  through Mᵀ then M (never warm-started, as in the JAX package);
 * a tol² endpoint solve, ΔH through float64 dots, and a Metropolis test.
 
 A solver failure freezes that chain's trajectory (masked commits) and
@@ -27,9 +30,10 @@ kinetic energy counts primary fields only (SSH aliases).
 
 Random draws are explicit: the step takes an optional :class:`HMCDraws`;
 without one it draws from its ``generator``. With ``log_verbose`` the stats
-carry each leapfrog step's energies. The integrator ``2mn``,
-``tune_dt``/``dynamic_dt`` and deflation are not ported and raise
-``NotImplementedError``.
+carry each trajectory step's energies. ``dynamic_dt`` makes the step size
+an argument (a 0-dim tensor on the device, the trajectory length Nt fixed
+from ``cfg``), so the burn-in tuner (:func:`dt_tuner_update`, Nesterov dual
+averaging toward ``target_acceptance``) changes it with no host read.
 """
 
 from __future__ import annotations
@@ -41,10 +45,17 @@ import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import (
-    SolverConfig, precond_state, resolve_precond, solve_oinv)
+    SolverConfig, precond_applies, precond_state, resolve_precond, solve_oinv)
 from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.ops import deflation
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
-from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
+from elphdynamics_tpu_torch.utils.device import require_device
+from elphdynamics_tpu_torch.utils.dtypes import (
+    fdot, field_dtype, params_are_complex, pseudofermion_noise)
+
+# Omelyan's second-order minimum-norm coefficient (hep-lat/0506011 §2)
+LAM_2MN = 0.1931833275037836
+INTEGRATORS = ("leapfrog", "2mn")
 
 
 @dataclass(frozen=True)
@@ -60,12 +71,19 @@ class HMCConfig:
     restart: int = 20         # GMRES restart length
     block: bool = False       # block CG over the spin-stacked trajectory solves
     loop_precision: str | None = "high"   # accepted, not used yet (solve.py)
-    integrator: str = "leapfrog"
+    integrator: str = "leapfrog"          # "leapfrog" | "2mn"
     log_verbose: bool = False
     construct_guess: bool = False          # warm-start the trajectory solves
     guess_order: int = 1                   # polynomial extrapolation order
+    # slow-mode deflation (ops/deflation.py): basis size (0 = off), filter
+    # degree, power-iteration steps and band-stop cutoff per refresh
     deflate_k: int = 0
+    deflate_filter: int = 8
+    deflate_power: int = 4
+    deflate_cutoff: float = 1 / 16
+    # burn-in step-size tuning toward this mean acceptance (driver)
     tune_dt: bool = False
+    target_acceptance: float = 0.8
 
     @property
     def Nt(self) -> int:
@@ -75,20 +93,25 @@ class HMCConfig:
     def dt_b(self) -> float:
         return self.dt / self.Nb
 
-    def check_ported(self) -> None:
-        if self.integrator != "leapfrog":
-            raise NotImplementedError(f"integrator {self.integrator!r}: ROADMAP slice G")
-        if self.tune_dt:
-            raise NotImplementedError("tune_dt: ROADMAP slice G")
-        if self.deflate_k > 0:
-            raise NotImplementedError("deflation: ROADMAP slice I")
-        SolverConfig(kind=self.solver_kind)   # refuses an unknown kind
+    @property
+    def deflation(self) -> deflation.DeflationConfig:
+        return deflation.DeflationConfig(self.deflate_k, self.deflate_filter,
+                                         self.deflate_power, self.deflate_cutoff)
+
+    def check(self) -> None:
+        """Refuse an unknown integrator or solver kind."""
+        if self.integrator not in INTEGRATORS:
+            raise ValueError(f"unknown integrator {self.integrator!r} "
+                             "(expected 'leapfrog' or '2mn')")
+        SolverConfig(kind=self.solver_kind)
 
 
 @dataclass(frozen=True)
 class HMCState:
     x: torch.Tensor   # [C, Nph, Lτ]
     v: torch.Tensor   # [C, Nph, Lτ]
+    # per-chain ops.deflation.DeflationState when cfg.deflate_k > 0, else None
+    defl: deflation.DeflationState | None = None
 
 
 @dataclass(frozen=True)
@@ -100,8 +123,8 @@ class HMCStats:
     H: torch.Tensor
     S: torch.Tensor
     K: torch.Tensor
-    # per-timestep [C, Nt] energies and solve iterations when
-    # cfg.log_verbose (the driver's verbose hmc_sim_log.out rows)
+    # per-step [C, Nt] energies and solve iterations (2MN: both solves of
+    # the step) when cfg.log_verbose (the driver's verbose hmc_sim_log.out rows)
     traj_H: torch.Tensor | None = None
     traj_S: torch.Tensor | None = None
     traj_K: torch.Tensor | None = None
@@ -173,15 +196,17 @@ def zhist_push(hist, z, ok):
 def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
                   dynamic_dt: bool = False):
     """Build the update ``step(params, state, generator=None, draws=None)
-    -> (state, stats)``.
+    -> (state, stats)``; with ``dynamic_dt`` the update
+    ``step(params, state, dt, generator=None, draws=None)``, ``dt`` a 0-dim
+    tensor on the fields' device (Nt stays ``cfg.Nt``).
 
     ``mass_table`` is the ``[Nph, Lτ]`` dynamical-mass spectrum; ``precond``
     a :class:`..ops.kpm.Preconditioner` (full setup once per update, a
-    refresh before every solve).
+    refresh before every solve). With ``cfg.deflate_k > 0`` the state
+    carries a deflation basis (:func:`init_deflation`), refreshed once per
+    update at the starting field and used by every solve of the update.
     """
-    if dynamic_dt:
-        raise NotImplementedError("dynamic_dt (the dt tuner): ROADMAP slice G")
-    cfg.check_ported()
+    cfg.check()
     has_lambda = ops.calc_Lambda is not None
     # kinetic energy over primary fields only (aliased SSH fields repeat them)
     k_mask = (None if ops.is_holstein else
@@ -199,7 +224,6 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     # only CG takes a warm start
     use_g = cfg.construct_guess and cfg.solver_kind == "cg"
     g_ord = cfg.guess_order if use_g else 1
-    dt = cfg.dt
 
     def lam_phi(params, x, phi):
         """Λ(x)·φ for spin-stacked φ (φ itself without a Λ shift)."""
@@ -207,7 +231,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             return phi
         return ops.mulLambda(ops.calc_Lambda(params, x)[:, None], phi)
 
-    def solve_O(params, x, derived, Lphi, tol, pstate, z_guess=None):
+    def solve_O(params, x, derived, Lphi, tol, pstate, z_guess=None, defl=None):
         """Spin-batched solve of MᵀM·z = Λφ with the preconditioner refreshed
         at ``x``; returns (z, per-chain iterations, per-chain flag)."""
         pa = resolve_precond(precond, params, x, prev_state=pstate)
@@ -215,7 +239,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
                             kind=cfg.solver_kind, restart=cfg.restart, block=cfg.block,
                             loop_precision=cfg.loop_precision)
         res = solve_oinv(ops, params, ops.stack(derived), Lphi, scfg, pa,
-                         x0=z_guess if use_g else None)
+                         x0=z_guess if use_g else None, deflate=defl)
         ns = res.iters.shape[1]
         iters = (res.iters.sum(dim=1) + ns - 1) // ns
         return res.x, iters, res.flag.amax(dim=1)
@@ -242,8 +266,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     def calc_S(params, x, Lphi, z):
         return fdot(Lphi, z, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
 
-    def boson_substeps(params, x, v, qf):
-        dt_b = dt / cfg.Nb
+    def boson_substeps(params, x, v, qf, dt_b):
         QdSb = qf(ops.calc_dSbdx(params, x, False))
         for _ in range(cfg.Nb):
             v = v - dt_b / 2 * QdSb
@@ -252,14 +275,32 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             v = v - dt_b / 2 * QdSb
         return x, v
 
-    def step(params, state: HMCState, generator: torch.Generator | None = None,
-             draws: HMCDraws | None = None):
+    def refresh_deflation(params, state, derived0, pstate, fdtype):
+        """The basis refined at the update's starting field (kept on reject
+        too: it only steers solver starts)."""
+        if cfg.deflate_k <= 0:
+            return state.defl
+        if state.defl is None:
+            raise ValueError("cfg.deflate_k > 0 requires HMCState.defl "
+                             "(initialize with dynamics.hmc.init_deflation)")
+        if params_are_complex(params) and not state.defl.W.is_complex():
+            # the Hermitian Grams and projections need conjugated vectors
+            raise ValueError("complex hopping parameters require a complex deflation "
+                             "basis: initialize with init_deflation(ops, cfg, n_chains, "
+                             "params=params)")
+        pa0 = precond_applies(precond, pstate)
+        ds0 = ops.stack(derived0)
+        return deflation.refresh(
+            state.defl, lambda v: ops.mulMTM(params, ds0, v.to(fdtype)),
+            pa0.symmetric if pa0 is not None else (lambda v: v), cfg.deflation)
+
+    def _step(params, state: HMCState, dt, generator, draws):
         x0, v_in = state.x, state.v
         if x0.ndim != 3:
             raise ValueError(f"state.x must be [C, Nph, Ltau], got {tuple(x0.shape)}")
+        fdtype = field_dtype(params, x0.dtype)
         if draws is None:
-            draws = draw(ops, x0.shape[0], x0.dtype, x0.device, generator,
-                         field_dtype(params, x0.dtype))
+            draws = draw(ops, x0.shape[0], x0.dtype, x0.device, generator, fdtype)
         mop = mass(x0)
 
         def qf(a):
@@ -274,43 +315,68 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
                else MtR)
 
         pstate = precond_state(precond, params, x0, start=draws.kpm_start)
+        defl = refresh_deflation(params, state, derived0, pstate, fdtype)
 
         Lphi0 = lam_phi(params, x0, phi)
-        z0, iters, flag = solve_O(params, x0, derived0, Lphi0, tol2, pstate)
+        z0, iters, flag = solve_O(params, x0, derived0, Lphi0, tol2, pstate, defl=defl)
         H0 = calc_S(params, x0, Lphi0, z0) + calc_K(v0)
         QdSdx = qf(forces(params, x0, derived0, phi, z0))
+
+        def drift(x, v, h):
+            """Position update over ``h``: a plain drift (Nb = 1) or Nb
+            bosonic substeps of h/Nb."""
+            if cfg.Nb == 1:
+                return x + h * v, v
+            return boson_substeps(params, x, v, qf, h / cfg.Nb)
+
+        def force_at(x, guess):
+            """The tol¹ solve at ``x`` (warm-started from ``guess``) and the
+            accelerated force."""
+            d = ops.derived(params, x)
+            Lphi_x = lam_phi(params, x, phi)
+            z, it, fl = solve_O(params, x, d, Lphi_x, tol1, pstate, z_guess=guess, defl=defl)
+            return qf(forces(params, x, d, phi, z)), z, it, fl, Lphi_x
 
         x, v = x0, v0
         hist = zhist_init(z0, g_ord)
         traj = []
         for _ in range(cfg.Nt):
             ok = flag == 0
-            v1 = v - dt / 2 * QdSdx
-            if cfg.Nb == 1:
-                x1 = x + dt * v1
+            if cfg.integrator == "2mn":
+                # the boundary λ-kicks of adjacent steps use the carried force,
+                # as the leapfrog carries QdSdx; the two solves sit dt/2 apart,
+                # so the warm-start extrapolation applies unchanged
+                v1 = v - LAM_2MN * dt * QdSdx
+                x1, v1 = drift(x, v1, dt / 2)
+                Qd_m, z_m, it_m, fl_m, _ = force_at(x1, zhist_guess(hist, g_ord))
+                hist = zhist_push(hist, z_m, ok)
+                v1 = v1 - (1.0 - 2.0 * LAM_2MN) * dt * Qd_m
+                x1, v1 = drift(x1, v1, dt / 2)
+                Qd1, z1, it_e, fl_e, Lphi1 = force_at(x1, zhist_guess(hist, g_ord))
+                hist = zhist_push(hist, z1, ok)
+                v1 = v1 - LAM_2MN * dt * Qd1
+                it1, fl1 = it_m + it_e, torch.maximum(fl_m, fl_e)
             else:
-                x1, v1 = boson_substeps(params, x, v1, qf)
-            d1 = ops.derived(params, x1)
-            Lphi1 = lam_phi(params, x1, phi)
-            z1, it1, fl1 = solve_O(params, x1, d1, Lphi1, tol1, pstate,
-                                   z_guess=zhist_guess(hist, g_ord))
-            Qd1 = qf(forces(params, x1, d1, phi, z1))
-            v1 = v1 - dt / 2 * Qd1
+                v1 = v - dt / 2 * QdSdx
+                x1, v1 = drift(x, v1, dt)
+                Qd1, z1, it1, fl1, Lphi1 = force_at(x1, zhist_guess(hist, g_ord))
+                v1 = v1 - dt / 2 * Qd1
+                hist = zhist_push(hist, z1, ok)
             okb = ok[:, None, None]
             x = torch.where(okb, x1, x)
             v = torch.where(okb, v1, v)
             QdSdx = torch.where(okb, Qd1, QdSdx)
-            hist = zhist_push(hist, z1, ok)
             iters = iters + torch.where(ok, it1, torch.zeros_like(it1))
             flag = torch.maximum(flag, torch.where(ok, fl1, torch.zeros_like(fl1)))
             if cfg.log_verbose:
-                # per-timestep energies reusing the step's tol¹ solve
+                # per-step energies reusing the step's (last) tol¹ solve
                 S_t, K_t = calc_S(params, x, Lphi1, z1), calc_K(v)
                 traj.append((S_t + K_t, S_t, K_t, it1))
 
         d1 = ops.derived(params, x)
         Lphi1 = lam_phi(params, x, phi)
-        z1, it2, fl2 = solve_O(params, x, d1, Lphi1, tol2, pstate, z_guess=zhist_last(hist))
+        z1, it2, fl2 = solve_O(params, x, d1, Lphi1, tol2, pstate, z_guess=zhist_last(hist),
+                               defl=defl)
         iters = iters + it2
         flag = torch.maximum(flag, fl2)
         S1 = calc_S(params, x, Lphi1, z1)
@@ -323,13 +389,90 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         acc = accept[:, None, None]
         x_new = torch.where(acc, x, x0)
         v_new = torch.where(acc, v, -v0)
-        nsolves = cfg.Nt + 2
+        # solves per update: Nt tol¹ (2Nt for 2MN) and two tol² endpoints
+        nsolves = (2 * cfg.Nt if cfg.integrator == "2mn" else cfg.Nt) + 2
         mean_iters = (iters + nsolves // 2) // nsolves
         stats = HMCStats(accepted=accept, iters=mean_iters, flag=flag, delta_H=dH,
                          H=H1, S=S1, K=K1)
         if traj:
             tH, tS, tK, tI = (torch.stack(col, dim=1) for col in zip(*traj))
             stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
-        return HMCState(x=x_new, v=v_new), stats
+        return HMCState(x=x_new, v=v_new, defl=defl), stats
+
+    if dynamic_dt:
+        def dyn_step(params, state: HMCState, dt, generator: torch.Generator | None = None,
+                     draws: HMCDraws | None = None):
+            return _step(params, state, dt, generator, draws)
+        return dyn_step
+
+    def step(params, state: HMCState, generator: torch.Generator | None = None,
+             draws: HMCDraws | None = None):
+        return _step(params, state, cfg.dt, generator, draws)
 
     return step
+
+
+# --- burn-in step-size tuning: Nesterov dual averaging (Hoffman & Gelman
+# 2014, "The No-U-Turn Sampler", §3.2) toward a mean acceptance
+
+@dataclass(frozen=True)
+class DtTunerState:
+    """Dual-averaging state, float32 0-dim tensors on the device (the update
+    runs there, with no host read)."""
+
+    m: torch.Tensor            # tuning-iteration count
+    log_dt: torch.Tensor       # current (exploring) log step size
+    log_dt_avg: torch.Tensor   # averaged iterate: the value to freeze
+    h_bar: torch.Tensor        # running mean of (target − acceptance)
+    mu: torch.Tensor           # shrinkage point log(10·dt₀)
+    lo: torch.Tensor           # clamp bounds on log_dt
+    hi: torch.Tensor
+
+    def as_list(self) -> list[float]:
+        """The seven values (one host read), for a checkpoint."""
+        return torch.stack([self.m, self.log_dt, self.log_dt_avg, self.h_bar, self.mu,
+                            self.lo, self.hi]).cpu().tolist()
+
+    @classmethod
+    def from_list(cls, vals, device="cuda") -> "DtTunerState":
+        device = require_device(device)
+        return cls(*(torch.tensor(float(v), dtype=torch.float32, device=device) for v in vals))
+
+
+def dt_tuner_init(dt0: float, lo: float | None = None, hi: float | None = None,
+                  device="cuda") -> DtTunerState:
+    """The tuner at step size ``dt0``, clamped to [dt0/64, 64·dt0] unless
+    ``lo`` / ``hi`` say otherwise."""
+    lo = dt0 / 64.0 if lo is None else lo
+    hi = dt0 * 64.0 if hi is None else hi
+    return DtTunerState.from_list([0.0, np.log(dt0), np.log(dt0), 0.0, np.log(10.0 * dt0),
+                                   np.log(lo), np.log(hi)], device)
+
+
+def dt_tuner_update(t: DtTunerState, accept_prob, target: float, gamma: float = 0.05,
+                    t0: float = 10.0, kappa: float = 0.75) -> DtTunerState:
+    """One dual-averaging step toward mean acceptance ``target``;
+    ``accept_prob`` is the chain-mean min(1, e^{−ΔH}) of the update just
+    taken at exp(t.log_dt) (a 0-dim tensor or a number), used in float32."""
+    p = torch.as_tensor(accept_prob, device=t.m.device).to(torch.float32)
+    m = t.m + 1.0
+    w = 1.0 / (m + t0)
+    h_bar = (1.0 - w) * t.h_bar + w * (target - p)
+    log_dt = torch.clamp(t.mu - torch.sqrt(m) / gamma * h_bar, t.lo, t.hi)
+    eta = m ** (-kappa)
+    log_dt_avg = eta * log_dt + (1.0 - eta) * t.log_dt_avg
+    return replace(t, m=m, h_bar=h_bar, log_dt=log_dt, log_dt_avg=log_dt_avg)
+
+
+def init_deflation(ops: ModelOps, cfg: HMCConfig, n_chains: int,
+                   generator: torch.Generator | None = None, params=None,
+                   device="cuda") -> deflation.DeflationState | None:
+    """A fresh per-chain deflation basis for ``HMCState.defl`` (None when
+    ``cfg.deflate_k`` is 0): float32, complex64 when ``params`` have complex
+    hopping (the Hermitian projector)."""
+    if cfg.deflate_k <= 0:
+        return None
+    dtype = (torch.complex64 if params is not None and params_are_complex(params)
+             else torch.float32)
+    return deflation.init(n_chains, cfg.deflate_k, ops.Nsites, ops.Ltau, dtype=dtype,
+                          device=device, generator=generator)

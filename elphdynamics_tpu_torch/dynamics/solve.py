@@ -8,7 +8,8 @@ solved through the SPD operator MᵀM with the symmetric KPM preconditioner
 BiCGStab or GMRES they are solved through M and Mᵀ directly with the left
 and right KPM preconditioners, and (MᵀM)⁻¹ becomes two solves in sequence.
 Every path ends in a residual verification and an unpreconditioned retry.
-Deflation is not ported (ROADMAP slice I).
+CG solves of MᵀM can start from a deflated guess (``deflate``,
+:mod:`..ops.deflation`).
 
 Fields carry an explicit leading chain axis, so the systems of one chain
 that share its operator are ``rhs[c]``: block CG needs ``rhs`` of at least
@@ -155,23 +156,23 @@ def solve_minv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
 def solve_oinv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
                pa: PrecondApplies | None, x0=None, deflate=None):
     """z = (MᵀM)⁻¹·rhs for every leading index of ``rhs``; ``x0`` warm
-    starts the CG.
+    starts the CG, ``deflate`` (a per-chain
+    :class:`..ops.deflation.DeflationState`) init-projects its slow modes
+    out (CG only; the other kinds ignore it, as in the JAX package).
 
     With ``scfg.block`` the spin-stacked systems ``[C, 2, N, Lτ]`` (one
-    operator per chain; the spins differ only in φ) run through block CG.
-    Gated to tol ≥ 1e-6: at the tol² endpoint tolerance the shared Gram
-    solves sit on the float32 noise floor, so those stay on batched CG.
-    BiCGStab / GMRES solve Mᵀ·y = rhs with the right preconditioner, then
-    M·z = y with the left one."""
-    if deflate is not None:
-        raise NotImplementedError("deflation: ROADMAP slice I")
+    operator per chain; the spins differ only in φ) run through block CG,
+    unless deflating. Gated to tol ≥ 1e-6: at the tol² endpoint tolerance
+    the shared Gram solves sit on the float32 noise floor, so those stay on
+    batched CG. BiCGStab / GMRES solve Mᵀ·y = rhs with the right
+    preconditioner, then M·z = y with the left one."""
     if scfg.kind == "cg":
         hot, chk = _cg_operators(ops, params, derived, scfg)
         kw = dict(apply_P=pa.symmetric if pa else None, tol=scfg.tol, maxiter=scfg.maxiter,
                   kappa_max=scfg.kappa_max, apply_A_check=chk)
-        if scfg.block and rhs.ndim >= 4 and scfg.tol >= 1e-6:
+        if scfg.block and deflate is None and rhs.ndim >= 4 and scfg.tol >= 1e-6:
             return solvers.block_solve_checked(hot, rhs, X0=x0, **kw)
-        return solvers.solve_checked(hot, rhs, x0=x0, **kw)
+        return solvers.solve_checked(hot, rhs, x0=x0, deflate=deflate, **kw)
     base = _base_solver(scfg)
     res1 = _checked_nonsym(lambda v: ops.mulMT(params, derived, v), rhs, base,
                            pa.right if pa else None, scfg)

@@ -1,0 +1,158 @@
+"""Parallel tempering over a coupling ladder (beyond the reference).
+
+Counterpart of ``elphdynamics_tpu/dynamics/tempering.py``. K replicas run at
+scaled electron-phonon couplings (rung r: λ·ladder[r] and λ₂·ladder[r]² for
+Holstein, α and α₂ likewise for SSH; rung 0 is the physical coupling), and
+an exchange proposes swapping whole configurations between adjacent rungs.
+The exchange is a Metropolis test on the joint (x, v, φ) chain: φ is
+refreshed exactly (φ = Λ⁻¹MᵀR, so S₀ = Σ|R|²/2 + Sb needs no solve), one
+batched tol solve over all C chains evaluates each chain's action at its
+partner's (x, φ), and
+
+    P(swap) = min(1, exp(−[S_a(x_b) + S_b(x_a) − S_a(x_a) − S_b(x_b)])),
+
+with one uniform per pair and both partners' solves unflagged. x and v are
+gathered by the partner index (φ is refreshed by the next update anyway).
+
+Chain layout: C = K·M chains; rung r owns chains [r·M, (r+1)·M), and lane m
+of rung r only exchanges with lane m of rungs r ± 1, pairs (2i+parity,
+2i+parity+1) alternating with the attempt's parity.
+
+In the port the couplings alone become per-chain ``[C, ...]`` leaves (the
+models broadcast them against the chain axis); every other parameter stays
+shared. Random numbers come from a generator or an injected
+:class:`ExchangeDraws`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
+from elphdynamics_tpu_torch.dynamics.special_updates import _refresh_phi
+from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
+
+
+@dataclass(frozen=True)
+class TemperingConfig:
+    ladder: tuple = (1.0,)   # coupling multipliers; ladder[0] must be 1.0
+    freq: int = 5            # attempt an exchange every `freq` sampler updates
+    tol: float = 1e-5
+    maxiter: int = 1000
+
+
+@dataclass(frozen=True)
+class ExchangeDraws:
+    """The random numbers of one exchange on C chains."""
+
+    pseudofermion: torch.Tensor   # [C, 2, N, Lτ] ([C, 1, N, Lτ] complex) φ-refresh normals
+    uniform: torch.Tensor         # [C] on [0, 1); a pair uses its lower member's
+
+
+def check_ladder(tcfg: TemperingConfig, n_chains: int) -> None:
+    """Refuse a ladder that does not divide the chains or does not start at
+    the physical coupling."""
+    K = len(tcfg.ladder)
+    if n_chains % K:
+        raise ValueError(f"--chains ({n_chains}) must be divisible by the tempering ladder "
+                         f"size ({K})")
+    if abs(float(tcfg.ladder[0]) - 1.0) > 1e-12:
+        raise ValueError("[tempering] ladder[0] must be 1.0 (the physical coupling; "
+                         "measurements bin rung 0 only)")
+
+
+def _coupling_names(params) -> tuple[str, str]:
+    return ("lam", "lam2") if hasattr(params, "lam") else ("alpha", "alpha2")
+
+
+def ladder_params(params, tcfg: TemperingConfig, n_chains: int):
+    """``params`` with per-chain couplings ``[C, ...]``: chains of rung r
+    scale the linear coupling by ladder[r] and the quadratic one by
+    ladder[r]²."""
+    check_ladder(tcfg, n_chains)
+    lin, quad = _coupling_names(params)
+    base = getattr(params, lin)
+    mult = torch.as_tensor(np.repeat(np.asarray(tcfg.ladder, np.float64),
+                                     n_chains // len(tcfg.ladder)),
+                           device=base.device).to(base.dtype)[:, None]
+    return replace(params, **{lin: mult * base, quad: mult * mult * getattr(params, quad)})
+
+
+def rung_params(params):
+    """Shared-coupling parameters at the physical couplings: those of chain
+    0, a rung-0 chain (``params`` themselves when the couplings are
+    shared)."""
+    lin, quad = _coupling_names(params)
+    if getattr(params, lin).ndim == 1:
+        return params
+    return replace(params, **{lin: getattr(params, lin)[0], quad: getattr(params, quad)[0]})
+
+
+def target_mask(tcfg: TemperingConfig, n_chains: int) -> np.ndarray:
+    """Boolean ``[C]``: the chains at the physical coupling (rung 0)."""
+    m = np.zeros(n_chains, dtype=bool)
+    m[:n_chains // len(tcfg.ladder)] = True
+    return m
+
+
+def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, precond=None):
+    """Build ``exchange(params, x, v, parity, generator=None, draws=None) ->
+    (x, v, acc_rate, iters, flag)`` for ladder ``params`` (per-chain
+    couplings, :func:`ladder_params`) and fields ``[C, Nph, Lτ]``;
+    ``parity`` ∈ {0, 1} chooses the rung pairs. ``acc_rate`` is the accepted
+    share of the complete pairs, ``iters`` the chains' mean solve
+    iterations, ``flag`` the largest solver flag (0-dim tensors)."""
+    K = len(tcfg.ladder)
+    M = n_chains // K
+    scfg = SolverConfig(tol=tcfg.tol, maxiter=tcfg.maxiter)
+
+    def partners(parity: int, device):
+        chain = torch.arange(n_chains, device=device)
+        rung = chain // M
+        rel = rung - parity
+        lower = (rel % 2 == 0) & (rel >= 0) & (rung + 1 < K)
+        upper = (rel % 2 == 1) & (rung - 1 >= 0) & (rel - 1 >= 0)
+        return torch.where(lower, chain + M, torch.where(upper, chain - M, chain)), lower
+
+    def exchange(params, x, v, parity: int, generator: torch.Generator | None = None,
+                 draws: ExchangeDraws | None = None):
+        if x.shape[0] != n_chains:
+            raise ValueError(f"x holds {x.shape[0]} chains, the exchange {n_chains}")
+        if draws is None:
+            draws = ExchangeDraws(
+                pseudofermion=pseudofermion_noise((n_chains, ops.Nsites, ops.Ltau),
+                                                  field_dtype(params, x.dtype), x.device,
+                                                  generator),
+                uniform=torch.rand((n_chains,), generator=generator, dtype=torch.float64,
+                                   device=x.device))
+        phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion.to(x.device))
+        partner, lower = partners(parity, x.device)
+
+        # one batched cross solve: each chain's action at its partner's
+        # (x, φ); the pseudofermion travels with its configuration
+        xp, phip = x[partner], phi[partner]
+        Lphi = (ops.mulLambda(ops.calc_Lambda(params, xp)[:, None], phip)
+                if ops.calc_Lambda is not None else phip)
+        sol = solve_oinv(ops, params, ops.stack(ops.derived(params, xp)), Lphi, scfg,
+                         resolve_precond(precond, params, xp))
+        S_cross = fdot(Lphi, sol.x, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, xp, False)
+        ns = sol.iters.shape[1]
+        iters = (sol.iters.sum(dim=1) + ns - 1) // ns
+        flag = sol.flag.amax(dim=1)
+
+        half = S_cross - S0
+        dS = half + half[partner]                 # the same on both members
+        paired = partner != torch.arange(n_chains, device=x.device)
+        u = draws.uniform.to(device=x.device, dtype=dS.dtype)
+        u_pair = torch.where(lower, u, u[partner])
+        accept = paired & (flag == 0) & (flag[partner] == 0) & (u_pair < torch.exp(-dS))
+        sel = torch.where(accept, partner, torch.arange(n_chains, device=x.device))
+        n_pairs = torch.clamp((paired & lower).sum(), min=1)
+        acc_rate = (accept & lower).sum().to(torch.float64) / n_pairs
+        return x[sel], v[sel], acc_rate, iters.to(torch.float64).mean(), flag.max()
+
+    return exchange

@@ -3,8 +3,9 @@
 Counterpart of ``elphdynamics_tpu/io/checkpoint.py``: a checkpoint is an
 ``.npz`` of the fields, the random-generator state, the parameters and the
 bin accumulators, plus a JSON sidecar of the loop counters, the run
-statistics and the μ-tuner history; a run resumes when its datafolder holds
-both. The port stores its ``torch.Generator`` state as a uint8 array under
+statistics, the μ-tuner history and ``extras`` (the burn-in dt tuner's
+state while it runs); a run resumes when its datafolder holds both. The
+port stores its ``torch.Generator`` state as a uint8 array under
 ``generator``; a JAX checkpoint stores a PRNG key under ``key``. Neither
 package reads the other's checkpoints.
 """
@@ -25,7 +26,7 @@ def _host(t) -> np.ndarray:
 
 def save_checkpoint(datafolder: str, *, x, v, generator_state: torch.Tensor, params,
                     container: dict, counters: dict, sim_stats: dict,
-                    mu_tuner_state: dict) -> None:
+                    mu_tuner_state: dict, extras: dict | None = None) -> None:
     arrays = {"x": _host(x), "v": _host(v), "generator": _host(generator_state)}
     arrays.update({f"params/{f.name}": _host(getattr(params, f.name)) for f in fields(params)
                    if getattr(params, f.name) is not None})
@@ -34,7 +35,8 @@ def save_checkpoint(datafolder: str, *, x, v, generator_state: torch.Tensor, par
     tmp = os.path.join(datafolder, "checkpoint_tmp.npz")
     np.savez(tmp, **arrays)
     os.replace(tmp, os.path.join(datafolder, "checkpoint.npz"))
-    meta = {"counters": counters, "sim_stats": sim_stats, "mu_tuner": mu_tuner_state}
+    meta = {"counters": counters, "sim_stats": sim_stats, "mu_tuner": mu_tuner_state,
+            "extras": extras or {}}
     tmp = os.path.join(datafolder, "checkpoint.json.tmp")
     with open(tmp, "w") as f:
         json.dump(meta, f)
@@ -66,4 +68,5 @@ def load_checkpoint(datafolder: str) -> dict:
             "params": {k[len("params/"):]: a for k, a in flat.items()
                        if k.startswith("params/")},
             "container": container, "counters": meta["counters"],
-            "sim_stats": meta["sim_stats"], "mu_tuner": meta["mu_tuner"]}
+            "sim_stats": meta["sim_stats"], "mu_tuner": meta["mu_tuner"],
+            "extras": meta.get("extras", {})}

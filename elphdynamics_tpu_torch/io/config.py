@@ -15,10 +15,13 @@ indices are 1-based in the files and 0-based here. Complex hopping:
 ``[holstein] twist`` / ``[ssh] twist`` = [θ1, θ2(, θ3)] (twisted boundaries,
 radians) and ``[[holstein.t]] imag`` (t = val + i·imag).
 
-What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP slice: ``[solver] block`` with complex hopping (F4),
-``[tempering]``, ``tune_dt`` and the 2MN integrator (G),
-``[solver.deflation]`` and ``[solver.nearnull]`` (I).
+Beyond the reference, as in the JAX package: ``[hmc] integrator = "2mn"``,
+``tune_dt`` / ``target_acceptance`` (with ``[hmc.burnin]`` overrides),
+``[tempering]`` (``ladder``, ``freq``), ``[solver.deflation]`` (``k``,
+``filter_degree``, ``power_iters``, ``cutoff``) and ``[solver.nearnull]``
+(CG with ``[solver.preconditioner]`` and real hopping only). ``[solver]
+block`` with complex hopping raises ``NotImplementedError`` naming its
+ROADMAP slice (F4).
 
 Disorder is drawn from ``numpy.random.default_rng(random_seed)`` in the
 JAX package's order, so one seed builds the same parameters in both.
@@ -36,6 +39,7 @@ import torch
 from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
 from elphdynamics_tpu_torch.dynamics.special_updates import SpecialUpdateConfig
+from elphdynamics_tpu_torch.dynamics.tempering import TemperingConfig
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.measure.measurements import MeasurementSpec
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
@@ -43,6 +47,7 @@ from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.models.ssh import build_ssh
 from elphdynamics_tpu_torch.ops.fourier_accel import build_Q, build_mass
 from elphdynamics_tpu_torch.ops.kpm import KPMConfig
+from elphdynamics_tpu_torch.ops.nearnull import NearNullConfig
 from elphdynamics_tpu_torch.utils.dtypes import params_are_complex
 
 
@@ -95,6 +100,8 @@ class SimulationSetup:
     config: dict
     device: torch.device
     dtype: torch.dtype
+    tempering_cfg: TemperingConfig | None = None
+    nearnull_cfg: NearNullConfig | None = None
 
 
 def load_toml(path: str) -> dict:
@@ -189,9 +196,9 @@ def _measurement_spec(cfg: dict, is_holstein: bool) -> MeasurementSpec:
     return mspec
 
 
-def _hmc_config(h: dict, b: dict, solver: SolverConfig) -> HMCConfig:
+def _hmc_config(h: dict, b: dict, solver: SolverConfig, deflation: dict) -> HMCConfig:
     """The sampling ``[hmc]`` config (``b`` empty) or its ``[hmc.burnin]``
-    overrides."""
+    overrides; ``deflation`` is the ``[solver.deflation]`` table."""
     cfg = HMCConfig(
         dt=b.get("dt", h["dt"]),
         trajectory_time=b.get("trajectory_time", h["trajectory_time"]),
@@ -204,8 +211,13 @@ def _hmc_config(h: dict, b: dict, solver: SolverConfig) -> HMCConfig:
         log_verbose=bool(h.get("verbose", False)),
         construct_guess=bool(h.get("construct_guess", False)),
         guess_order=int(h.get("guess_order", 3)),
-        tune_dt=bool(b.get("tune_dt", h.get("tune_dt", False))))
-    cfg.check_ported()
+        deflate_k=int(deflation.get("k", 0)),
+        deflate_filter=int(deflation.get("filter_degree", 8)),
+        deflate_power=int(deflation.get("power_iters", 4)),
+        deflate_cutoff=float(deflation.get("cutoff", 1 / 16)),
+        tune_dt=bool(b.get("tune_dt", h.get("tune_dt", False))),
+        target_acceptance=float(b.get("target_acceptance", h.get("target_acceptance", 0.8))))
+    cfg.check()
     return cfg
 
 
@@ -216,8 +228,6 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
         raise ValueError("the config needs exactly one of [hmc] / [langevin]")
     if ("holstein" in cfg) == ("ssh" in cfg):
         raise ValueError("the config needs exactly one of [holstein] / [ssh]")
-    if "tempering" in cfg:
-        raise _not_ported("[tempering] (parallel tempering)", "G")
     device = torch.device(device)
 
     sim = cfg["simulation"]
@@ -243,10 +253,6 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
         random_seed=int(seed))
 
     sol = cfg["solver"]
-    if "nearnull" in sol:
-        raise _not_ported("[solver.nearnull] (near-null preconditioner)", "I")
-    if int(sol.get("deflation", {}).get("k", 0)) > 0:
-        raise _not_ported("[solver.deflation] (slow-mode deflation)", "I")
     solver_cfg = SolverConfig(tol=sol.get("tol", 1e-5), maxiter=sol.get("maxiter", 1000),
                               kind=sol.get("type", "CG").lower(),
                               restart=sol.get("restart", 20),
@@ -264,6 +270,24 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
                             dft_matmul=p.get("dft_matmul", None),
                             stacked=p.get("stacked", False),
                             exact_lowfreq=int(p.get("exact_lowfreq", 0)))
+    nearnull_cfg = None
+    if "nearnull" in sol:
+        nn = sol["nearnull"]
+        nearnull_cfg = NearNullConfig(
+            k=int(nn.get("k", 16)), c=int(nn.get("c", 4)),
+            setup_iters=int(nn.get("setup_iters", 10)),
+            setup_passes=int(nn.get("setup_passes", 2)),
+            refresh_iters=int(nn.get("refresh_iters", 3)),
+            refresh_mode=str(nn.get("refresh_mode", "smooth")), reg=float(nn.get("reg", 1e-6)))
+        if solver_cfg.kind != "cg":
+            raise ValueError("[solver.nearnull] requires the CG solver (it provides the "
+                             "symmetric preconditioner)")
+        if kpm_cfg is None:
+            raise ValueError("[solver.nearnull] needs [solver.preconditioner] (the KPM "
+                             "smoother it augments)")
+        if params_are_complex(params):
+            raise NotImplementedError("[solver.nearnull] with complex hopping: the near-null "
+                                      "chunking and Galerkin products are real-only")
 
     omega = params.omega.detach().cpu().double().numpy()
     fa_blocks = cfg.get("fourier_acceleration", [])
@@ -280,8 +304,9 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
                              "or 3 (Heun)")
         langevin_method = {1: "euler", 2: "rk", 3: "heun"}[method]
     else:
-        hmc_cfg = _hmc_config(h, {}, solver_cfg)
-        hmc_burnin_cfg = _hmc_config(h, h.get("burnin", {}), solver_cfg)
+        dfl = sol.get("deflation", {})
+        hmc_cfg = _hmc_config(h, {}, solver_cfg, dfl)
+        hmc_burnin_cfg = _hmc_config(h, h.get("burnin", {}), solver_cfg, dfl)
         if "reflection_update" in h and ops.is_holstein:
             reflect_cfg = SpecialUpdateConfig(freq=h["reflection_update"]["freq"],
                                               n_moves=h["reflection_update"]["nsites"],
@@ -290,6 +315,13 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
             swap_cfg = SpecialUpdateConfig(freq=h["swap_update"]["freq"],
                                            n_moves=h["swap_update"]["nbonds"],
                                            tol=solver_cfg.tol, maxiter=solver_cfg.maxiter)
+
+    tempering_cfg = None
+    if "tempering" in cfg:
+        t = cfg["tempering"]
+        tempering_cfg = TemperingConfig(ladder=tuple(float(a) for a in t["ladder"]),
+                                        freq=int(t.get("freq", 5)), tol=solver_cfg.tol,
+                                        maxiter=solver_cfg.maxiter)
 
     mspec = _measurement_spec(cfg, ops.is_holstein)
     model_cfg = cfg["holstein" if ops.is_holstein else "ssh"]
@@ -302,4 +334,5 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
         swap_cfg=swap_cfg, tune_density=cfg.get("tune_density"),
         read_phonon_config=(model_cfg.get("phonon_config_file")
                             if model_cfg.get("read_phonon_config", False) else None),
-        config=cfg, device=device, dtype=dtype)
+        config=cfg, device=device, dtype=dtype, tempering_cfg=tempering_cfg,
+        nearnull_cfg=nearnull_cfg)

@@ -48,8 +48,8 @@ class HolsteinParams:
     mu: torch.Tensor      # [N] chemical potential
     omega: torch.Tensor   # [N] phonon frequency
     omega4: torch.Tensor  # [N] anharmonic X⁴ coefficient
-    lam: torch.Tensor     # [N] linear el-ph coupling λ
-    lam2: torch.Tensor    # [N] quadratic el-ph coupling λ₂
+    lam: torch.Tensor     # [N] linear el-ph coupling λ ([C, N]: one per chain, tempering)
+    lam2: torch.Tensor    # [N] quadratic el-ph coupling λ₂ ([C, N] likewise)
     cosht: torch.Tensor   # [Nbonds] cosh(Δτ·|t|), checkerboard order (complex under complex t)
     sinht: torch.Tensor   # [Nbonds] (t/|t|)·sinh(Δτ·|t|), checkerboard order
     wij: torch.Tensor     # [Nwij] dispersive phonon coupling ωᵢⱼ (may be empty)
@@ -227,10 +227,19 @@ def _ckb_tables(dtau: float, t_ckb: np.ndarray) -> tuple[np.ndarray, np.ndarray]
 # derived quantities
 # ---------------------------------------------------------------------------
 
+def site_leaf(a, like):
+    """A per-site parameter against a field ``like`` ``[C, ..., N, Lτ]``:
+    ``[N]`` is shared by every chain; ``[C, N]`` (parallel tempering's
+    per-rung couplings) gives each chain its own, the chain axis leading."""
+    if a.ndim == 1:
+        return a[:, None]
+    return a.reshape(a.shape[:1] + (1,) * (like.ndim - 3) + a.shape[1:] + (1,))
+
+
 def expnV(spec: HolsteinSpec, p: HolsteinParams, x):
     """exp(−Δτ·V[x])ᵢᵢ(τ) = exp(−Δτ·(λx + λ₂x² − μ)), shape ``[..., N, Lτ]``."""
-    lam = p.lam[:, None]
-    lam2 = p.lam2[:, None]
+    lam = site_leaf(p.lam, x)
+    lam2 = site_leaf(p.lam2, x)
     mu = p.mu[:, None]
     return torch.exp(-spec.dtau * (lam * x + lam2 * x * x - mu))
 
@@ -315,8 +324,8 @@ def muldMdx(spec: HolsteinSpec, p: HolsteinParams, env, x, u, v):
     ±Δτ·(λᵢ + 2λ₂ᵢxᵢ(τ))·expnV(i,τ)·v(i,τ−1)·[exp(−ΔτK)ᵀu](i,τ),
     with the minus sign on the τ=0 slice. Complex fields give the force on
     the real field, Re[u†·∂M/∂x·v]."""
-    lam = p.lam[:, None]
-    lam2 = p.lam2[:, None]
+    lam = site_leaf(p.lam, x)
+    lam2 = site_leaf(p.lam2, x)
     sgn = -_tau_sign_first(spec, x)
     d = sgn * spec.dtau * (lam + 2.0 * lam2 * x) * env * torch.roll(v, 1, dims=-1)
     y = apply_expK_T(spec, p, u)
@@ -334,7 +343,7 @@ def calc_Sb(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     + ωᵢⱼ²(xᵢ±xⱼ)²/2], summed over the last two axes in float64."""
     om2 = (p.omega ** 2)[:, None]
     om4 = p.omega4[:, None]
-    lam = p.lam[:, None]
+    lam = site_leaf(p.lam, x)
     dx = x - torch.roll(x, 1, dims=-1)
     sb = om2 * x * x / 2 + om4 * x ** 4 + dx * dx / (2 * spec.dtau ** 2)
     if shifted:
@@ -353,7 +362,7 @@ def calc_dSbdx(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     """∂Sb/∂xᵢ(τ)."""
     om2 = (p.omega ** 2)[:, None]
     om4 = p.omega4[:, None]
-    lam = p.lam[:, None]
+    lam = site_leaf(p.lam, x)
     lap = torch.roll(x, 1, dims=-1) + torch.roll(x, -1, dims=-1) - 2.0 * x
     d = spec.dtau * (om2 * x + 4.0 * om4 * x ** 3) - lap / spec.dtau
     if shifted:
@@ -374,8 +383,8 @@ def calc_dSbdx(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
 
 def calc_Lambda(spec: HolsteinSpec, p: HolsteinParams, x):
     """Λ(i,τ) = exp(−Δτ·(λx + λ₂x²)/2)."""
-    lam = p.lam[:, None]
-    lam2 = p.lam2[:, None]
+    lam = site_leaf(p.lam, x)
+    lam2 = site_leaf(p.lam2, x)
     return torch.exp(-spec.dtau * (lam * x + lam2 * x * x) / 2.0)
 
 
@@ -394,8 +403,8 @@ def muldLambdadx(spec: HolsteinSpec, p: HolsteinParams, x, Lam, vl, vr):
     """⟨vₗ|∂Λ/∂x(τ)|vᵣ⟩ per dof, to be added to a force:
     ±vₗ(i,τ)·Δτ·(λᵢ/2 + λ₂ᵢxᵢ(τ))·Λ(i,τ)·vᵣ(i,τ−1), minus on τ=0
     (Re[vₗ†·∂Λ/∂x·vᵣ] for complex fields; Λ itself is real)."""
-    lam = p.lam[:, None]
-    lam2 = p.lam2[:, None]
+    lam = site_leaf(p.lam, x)
+    lam2 = site_leaf(p.lam2, x)
     sgn = -_tau_sign_first(spec, Lam)
     base = sgn * spec.dtau * (lam / 2.0 + lam2 * x) * Lam * torch.roll(vr, 1, dims=-1)
     if vl.is_complex() or base.is_complex():

@@ -54,8 +54,8 @@ class SSHParams:
     t: torch.Tensor       # [Nbonds] bare hopping, original bond order
     omega: torch.Tensor   # [Nph] phonon frequency
     omega4: torch.Tensor  # [Nph] anharmonic coefficient
-    alpha: torch.Tensor   # [Nph] linear el-ph coupling
-    alpha2: torch.Tensor  # [Nph] quadratic el-ph coupling
+    alpha: torch.Tensor   # [Nph] linear el-ph coupling ([C, Nph]: one per chain, tempering)
+    alpha2: torch.Tensor  # [Nph] quadratic el-ph coupling ([C, Nph] likewise)
     # [Nbonds] complex Peierls phases, original bond order (twisted
     # boundaries; None for real hopping)
     t_phase: torch.Tensor | None = None
@@ -225,14 +225,25 @@ def tie_fields(spec: SSHSpec, x):
     return x.index_select(-2, spec.tensor("primary_phonon", x.device))
 
 
+def phonon_leaf(a, idx, like):
+    """Entries ``idx`` of a per-phonon parameter against a field ``like``
+    ``[C, ..., n, Lτ]``: ``[Nph]`` is shared by every chain; ``[C, Nph]``
+    (parallel tempering's per-rung couplings) gives each chain its own, the
+    chain axis leading."""
+    a = a.index_select(-1, idx)
+    if a.ndim == 1:
+        return a[:, None]
+    return a.reshape(a.shape[:1] + (1,) * (like.ndim - 3) + a.shape[1:] + (1,))
+
+
 def hopping_t_prime(spec: SSHSpec, p: SSHParams, x):
     """Modulated hopping t′(bond, τ) = t − (αx + sign(x)·α₂x²) in original
     bond order, ``[..., Nbonds, Lτ]``."""
     btp = torch.as_tensor(np.maximum(spec.bond_to_phonon, 0), device=x.device)
     has = torch.as_tensor(spec.bond_to_phonon >= 0, device=x.device)[:, None]
     xb = x.index_select(-2, btp)
-    a = p.alpha[btp][:, None]
-    a2 = p.alpha2[btp][:, None]
+    a = phonon_leaf(p.alpha, btp, x)
+    a2 = phonon_leaf(p.alpha2, btp, x)
     v = a * xb + torch.sign(xb) * a2 * xb * xb
     return p.t[:, None] - torch.where(has, v, torch.zeros((), dtype=v.dtype, device=v.device))
 
@@ -362,7 +373,8 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
         if sites is None:
             continue
         i_s, j_s, ph_s, bond_s = sites
-        dKdx = p.alpha[ph_s][:, None] + 2.0 * p.alpha2[ph_s][:, None] * x.index_select(-2, ph_s)
+        dKdx = (phonon_leaf(p.alpha, ph_s, x)
+                + 2.0 * phonon_leaf(p.alpha2, ph_s, x) * x.index_select(-2, ph_s))
         bi, bj = b.index_select(-2, i_s), b.index_select(-2, j_s)
         ci, cj = c.index_select(-2, i_s), c.index_select(-2, j_s)
         if cplx:

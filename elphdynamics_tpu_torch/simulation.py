@@ -5,7 +5,14 @@ datafolder naming (auto-incrementing ``-<id>`` suffix) → new run or resume
 → burn-in → sampling with measurements every ``meas_freq`` updates → bins
 → summary, with checkpoints on a wall-clock cadence and at bin boundaries.
 The sampler is HMC (``[hmc]``) or Langevin dynamics (``[langevin]``, where
-an update is one time step and every step is accepted).
+an update is one time step and every step is accepted). With ``[hmc]
+tune_dt`` the burn-in tunes the step size toward ``target_acceptance``
+(dual averaging on the device) and the sampling step is rebuilt once with
+the frozen value; ``[tempering]`` runs the chains on a coupling ladder with
+an exchange every ``freq`` updates, and only rung-0 chains are measured;
+``[solver.deflation]`` carries a per-chain slow-mode basis in the sampler
+state; ``[solver.nearnull]`` replaces the KPM preconditioner by the
+two-level one.
 
 The ``n_chains`` Markov chains are one batch on the device (an explicit
 leading chain axis). Measurements average over the chains within each bin;
@@ -18,10 +25,12 @@ are the rows of ``hmc_sim_log.out`` (``[hmc] log = true``), drained every
 ``LOG_ROWS`` updates. Only ``[hmc] verbose = true`` (one log row per
 leapfrog step) reads them every update.
 
+The timers around device work (``_clock``) do not synchronise the card:
+an update's queued tail can land in the next interval, by less than the
+runs' noise.
+
 Not ported: sharding chains or the lattice over several devices and
-multi-host runs (ROADMAP slice H), ``tune_dt`` (G), parallel tempering (G),
-deflation and the near-null preconditioner (I); ``build_setup`` raises for
-each.
+multi-host runs (ROADMAP slice H).
 """
 
 from __future__ import annotations
@@ -37,11 +46,14 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
+from elphdynamics_tpu_torch.dynamics.hmc import (
+    DtTunerState, HMCState, dt_tuner_init, dt_tuner_update, init_deflation, make_hmc_step)
 from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
 from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
 from elphdynamics_tpu_torch.dynamics.special_updates import (
     make_reflection_update, make_swap_update)
+from elphdynamics_tpu_torch.dynamics.tempering import (
+    check_ladder, ladder_params, make_exchange_step, rung_params)
 from elphdynamics_tpu_torch.io import checkpoint as ckpt
 from elphdynamics_tpu_torch.io import output as out_io
 from elphdynamics_tpu_torch.io.config import SimulationSetup, build_setup, load_toml
@@ -50,6 +62,7 @@ from elphdynamics_tpu_torch.measure.measurements import (
     make_measurement_step, mean_over_chains, process_bin, zero_container)
 from elphdynamics_tpu_torch.measure.mufinder import MuTuner
 from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.ops.nearnull import make_nearnull_precond
 from elphdynamics_tpu_torch.utils.device import require_device
 
 logger = logging.getLogger("elphdynamics_tpu_torch")
@@ -59,6 +72,15 @@ LOG_ROWS = 64
 # per-stream accumulator slots: updates, Σacceptance, Σiterations, flagged
 # chains, first and last flagged update, largest flag
 _N, _ACC, _ITERS, _NFLAG, _FIRST, _LAST, _FMAX = range(7)
+
+
+def _clock(device: torch.device) -> float:
+    """The driver's timer read around device work: ``time.time()`` with no
+    synchronisation of ``device`` (a queued tail of an update lands in the
+    next interval; on an NVIDIA H100 at 700 W a synchronising clock moved the
+    64×64 run's update/measurement split by less than its run-to-run noise,
+    PERF.md)."""
+    return time.time()
 
 
 def name_datafolder(filepath: str, foldername: str, run_id: int | None = None) -> str:
@@ -144,6 +166,7 @@ class _Stats:
     STREAMS = {"update": ("iters", "acceptance_rate"),
                "reflect": (None, "reflect_acceptance_rate"),
                "swap": (None, "swap_acceptance_rate"),
+               "tempering": (None, "tempering_acceptance_rate"),
                "measurement": (None, None)}
 
     def __init__(self, device):
@@ -270,11 +293,27 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     mspec = setup.mspec
     resume = ckpt.has_checkpoint(datafolder)
 
-    precond = kpm.make_precond(ops, setup.kpm_cfg) if setup.kpm_cfg is not None else None
-    if setup.dynamics_type == "hmc":
+    tcfg = setup.tempering_cfg
+    if tcfg is not None:
+        if n_chains < 2:
+            raise ValueError("[tempering] needs --chains = K*M (> 1)")
+        check_ladder(tcfg, n_chains)
+    if setup.nearnull_cfg is not None:
+        precond = make_nearnull_precond(ops, setup.kpm_cfg, setup.nearnull_cfg)
+    else:
+        precond = kpm.make_precond(ops, setup.kpm_cfg) if setup.kpm_cfg is not None else None
+    hmc = setup.dynamics_type == "hmc"
+    bcfg = setup.hmc_burnin_cfg
+    tuned_step = tuner = None
+    if hmc:
         sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
-        burnin_step = (sim_step if setup.hmc_burnin_cfg == setup.hmc_cfg
-                       else make_hmc_step(ops, setup.fa_mass, setup.hmc_burnin_cfg, precond))
+        burnin_step = (sim_step if bcfg == setup.hmc_cfg
+                       else make_hmc_step(ops, setup.fa_mass, bcfg, precond))
+        if bcfg.tune_dt and sp.burnin > 0:
+            # the burn-in step takes dt from the tuner on the device; the
+            # trajectory length Nt stays the configured one until the freeze
+            tuned_step = make_hmc_step(ops, setup.fa_mass, bcfg, precond, dynamic_dt=True)
+            tuner = dt_tuner_init(bcfg.dt, device=dev)
     else:
         sim_step = burnin_step = _langevin_update(setup, precond)
     mstep = make_measurement_step(ops, mspec, setup.solver_cfg, precond)
@@ -284,6 +323,18 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     sim_stats = {"simulation_time": 0.0, "measurement_time": 0.0, "write_time": 0.0,
                  "iters": 0.0, "acceptance_rate": 0.0, "reflect_acceptance_rate": 0.0,
                  "swap_acceptance_rate": 0.0}
+
+    def freeze_tuned_dt(tuned_dt: float) -> None:
+        """The sampling step rebuilt with the tuned dt; Nt =
+        round(trajectory_time/dt) restores the configured trajectory time."""
+        nonlocal sim_step
+        cfg2 = replace(setup.hmc_cfg, dt=float(tuned_dt))
+        sim_step = make_hmc_step(ops, setup.fa_mass, cfg2, precond)
+        sim_stats["tuned_dt"] = float(tuned_dt)
+        logger.info("tune_dt: frozen dt=%.6g Nt=%d (configured dt=%.6g Nt=%d, "
+                    "target acceptance %.2f)", cfg2.dt, cfg2.Nt, setup.hmc_cfg.dt,
+                    setup.hmc_cfg.Nt, bcfg.target_acceptance)
+
     container = zero_container(ops, mspec, dtype, dev)
     tune = setup.tune_density or {}
     mu_tuner = MuTuner(
@@ -316,6 +367,12 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
         sim_start = st["counters"]["sim_start"]
         logger.info("resumed from checkpoint: burnin_start=%d sim_start=%d",
                     burnin_start, sim_start)
+        # mid-burn-in: the tuner's state; after burn-in: the frozen dt
+        saved = st["extras"].get("dt_tuner")
+        if tuner is not None and saved is not None:
+            tuner = DtTunerState.from_list(saved, dev)
+        if hmc and "tuned_dt" in sim_stats and burnin_start >= sp.burnin:
+            freeze_tuned_dt(sim_stats["tuned_dt"])
     else:
         if setup.read_phonon_config:
             x0 = torch.as_tensor(out_io.read_phonons(ops, setup.read_phonon_config),
@@ -326,7 +383,26 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
         v = torch.zeros_like(x)
         out_io.init_measurement_folders(datafolder, container, mspec.snapshots)
         out_io.write_key_files(datafolder, ops, mspec, container)
-    state = HMCState(x=x, v=v)
+
+    exchange = None
+    n_meas_chains = n_chains
+    if tcfg is not None:
+        # a resumed run loaded the per-chain couplings from its checkpoint
+        if not resume:
+            params = ladder_params(params, tcfg, n_chains)
+        exchange = make_exchange_step(ops, tcfg, n_chains, precond)
+        n_meas_chains = n_chains // len(tcfg.ladder)
+        sim_stats.setdefault("tempering_acceptance_rate", 0.0)
+        logger.info("parallel tempering: ladder=%s freq=%d (%d chains/rung)",
+                    list(tcfg.ladder), tcfg.freq, n_meas_chains)
+    # the deflation basis is a solver aid, not checkpointed: it is drawn
+    # anew (from its own seed, leaving the main stream as it is) on resume
+    defl = None
+    if hmc and setup.hmc_cfg.deflate_k > 0:
+        defl = init_deflation(ops, setup.hmc_cfg, n_chains,
+                              torch.Generator(device=dev).manual_seed(sp.random_seed + 7919),
+                              params=setup.params, device=dev)
+    state = HMCState(x=x, v=v, defl=defl)
 
     stats_acc = _Stats(dev)
     hmc_table = setup.config.get("hmc", {})
@@ -351,10 +427,14 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
             return
         flush_stats()  # the checkpointed sim_stats include the window
         t0 = time.time()
+        extras = {}
+        if tuner is not None and bstart < sp.burnin:
+            extras["dt_tuner"] = tuner.as_list()
         ckpt.save_checkpoint(datafolder, x=state.x, v=state.v, generator_state=gen.get_state(),
                              params=params, container=container,
                              counters={"burnin_start": bstart, "sim_start": sstart},
-                             sim_stats=sim_stats, mu_tuner_state=mu_tuner.state_dict())
+                             sim_stats=sim_stats, mu_tuner_state=mu_tuner.state_dict(),
+                             extras=extras)
         sim_stats["write_time"] += time.time() - t0
         t_ckpt = time.time()
 
@@ -381,15 +461,29 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
         for upd, cfg_, kind in ((reflect, setup.reflect_cfg, "reflect"),
                                 (swap, setup.swap_cfg, "swap")):
             if cfg_.n_moves and cfg_.freq and n % cfg_.freq == 0:
-                t0 = time.time()
+                t0 = _clock(dev)
                 xn, rate = upd(params, state.x, gen)
                 state = replace(state, x=xn)
-                sim_stats["simulation_time"] += time.time() - t0
+                sim_stats["simulation_time"] += _clock(dev) - t0
                 stats_acc.fold(kind, n, rate, 0.0, 0)
         return state
 
+    def do_exchange(state, n):
+        """A tempering exchange attempt every ``freq`` updates, the pair
+        parity alternating."""
+        if exchange is None or n % tcfg.freq:
+            return state
+        t0 = _clock(dev)
+        xn, vn, rate, _, flag = exchange(params, state.x, state.v, (n // tcfg.freq) % 2, gen)
+        state = replace(state, x=xn, v=vn)
+        sim_stats["simulation_time"] += _clock(dev) - t0
+        stats_acc.fold("tempering", n, rate, 0.0, flag)
+        return state
+
     def measure():
-        inc, mstats, snaps = mstep(params, state.x, gen)
+        # under tempering only the rung-0 chains (physical couplings) are
+        # measured: the other rungs' bins would be discarded
+        inc, mstats, snaps = mstep(rung_params(params), state.x[:n_meas_chains], gen)
         inc, snaps = mean_over_chains(inc, snaps, mstats["flag"])
         return inc, (mstats["flag"] != 0).sum(), snaps
 
@@ -402,34 +496,45 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
         # ---- thermalization
         for n in range(burnin_start, sp.burnin):
             maybe_checkpoint(n, 0)
-            t0 = time.time()
-            state, stats = burnin_step(params, state, gen)
-            sim_stats["simulation_time"] += time.time() - t0
+            t0 = _clock(dev)
+            if tuner is not None:
+                state, stats = tuned_step(params, state, torch.exp(tuner.log_dt), gen)
+                # a flagged (auto-rejected) or non-finite update counts as 0
+                p = torch.clamp(torch.exp(-stats.delta_H), max=1.0)
+                p = torch.where(torch.isfinite(p) & (stats.flag == 0), p, torch.zeros_like(p))
+                tuner = dt_tuner_update(tuner, p.mean(), bcfg.target_acceptance)
+            else:
+                state, stats = burnin_step(params, state, gen)
+            sim_stats["simulation_time"] += _clock(dev) - t0
             record_update("burnin", n + 1, n + 1, stats)
             state = do_special(state, n + 1)
+            state = do_exchange(state, n + 1)
             if mu_tuner.active and (n + 1) % max(sp.meas_freq, 1) == 0:
-                t0 = time.time()
+                t0 = _clock(dev)
                 inc, _, _ = measure()
                 params = tune_mu(params, inc)
-                sim_stats["simulation_time"] += time.time() - t0
+                sim_stats["simulation_time"] += _clock(dev) - t0
+        if tuner is not None and "tuned_dt" not in sim_stats:
+            freeze_tuned_dt(float(torch.exp(tuner.log_dt_avg)))
 
         # ---- sampling and measurements
         for n in range(sim_start, sp.nsteps):
             maybe_checkpoint(sp.burnin, n)
-            t0 = time.time()
+            t0 = _clock(dev)
             state, stats = sim_step(params, state, gen)
-            sim_stats["simulation_time"] += time.time() - t0
+            sim_stats["simulation_time"] += _clock(dev) - t0
             record_update("simulation", n + 1, sp.burnin + n + 1, stats)
             state = do_special(state, n + 1)
+            state = do_exchange(state, n + 1)
             if (n + 1) % sp.meas_freq:
                 continue
             nmeas = (n + 1) // sp.meas_freq
-            t0 = time.time()
+            t0 = _clock(dev)
             inc, n_flagged, snaps = measure()
             for group, vals in container.items():
                 for k, a in vals.items():
                     a.add_(inc[group][k])
-            sim_stats["measurement_time"] += time.time() - t0
+            sim_stats["measurement_time"] += _clock(dev) - t0
             stats_acc.fold("measurement", nmeas, 0.0, 0.0, 0, n_flagged=n_flagged)
             if mu_tuner.active:
                 params = tune_mu(params, inc)
@@ -440,9 +545,9 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
                 sim_stats["write_time"] += time.time() - t0
             if nmeas % sp.bin_size == 0:
                 flush_stats()  # the window's deferred stats and warnings
-                t0 = time.time()
+                t0 = _clock(dev)
                 processed = _host_tree(process_bin(ops, mspec, container, sp.bin_size))
-                sim_stats["measurement_time"] += time.time() - t0
+                sim_stats["measurement_time"] += _clock(dev) - t0
                 t0 = time.time()
                 out_io.write_bin(datafolder, processed, nmeas // sp.bin_size, ops)
                 sim_stats["write_time"] += time.time() - t0
@@ -463,13 +568,17 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
                         ("swap_acceptance_rate", setup.swap_cfg)):
         if scfg.n_moves and scfg.freq:
             sim_stats[kname] /= max(sp.burnin // scfg.freq + sp.nsteps // scfg.freq, 1)
+    if tcfg is not None:
+        sim_stats["tempering_acceptance_rate"] /= max(
+            sp.burnin // tcfg.freq + sp.nsteps // tcfg.freq, 1)
     for k in ("simulation_time", "measurement_time", "write_time"):
         sim_stats[k + "_min"] = sim_stats[k] / 60.0
 
     x_final = state.x[0]
     out_io.write_phonons(ops, x_final, os.path.join(datafolder, "final_phonon_config.out"))
     if sp.write_M_matrix:
-        out_io.write_M_matrix(ops, params, x_final, os.path.join(datafolder, "M_matrix.out"))
+        out_io.write_M_matrix(ops, rung_params(params), x_final,
+                              os.path.join(datafolder, "M_matrix.out"))
     mu_tuner.estimate_mu()
     write_summary(setup, sim_stats, mu_tuner)
     logger.info("simulation complete: %s", sim_stats)

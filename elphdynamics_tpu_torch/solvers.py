@@ -36,6 +36,7 @@ from typing import Callable
 
 import torch
 
+from elphdynamics_tpu_torch.ops import deflation
 from elphdynamics_tpu_torch.utils.dtypes import fdot, fdot_fast
 
 # iterations between host reads of any(active); masked iterations past
@@ -91,11 +92,14 @@ class CGResult:
 
 def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
        apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
-       kappa_max: float = 1e12, active0: torch.Tensor | None = None) -> CGResult:
+       kappa_max: float = 1e12, active0: torch.Tensor | None = None,
+       deflate=None) -> CGResult:
     """Preconditioned CG for SPD ``A`` (``apply_P`` applies P⁻¹). A system
     stops when ``|r|/|b| < tol`` or when the running condition-number lower
     bound ``(2j/log(2ε₀/ε))²`` exceeds ``kappa_max``; ``active0`` masks out
-    systems that should not be solved at all."""
+    systems that should not be solved at all. ``deflate`` (a
+    :class:`..ops.deflation.DeflationState`, chain axis leading as in ``b``)
+    projects the slow modes out of the start before the first iteration."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     P = apply_P if apply_P is not None else (lambda v: v)
@@ -103,6 +107,12 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     normb = _norm(b)
     safe_normb = _positive(normb)
     r = b - apply_A(x0)
+    if deflate is not None:
+        # two passes, one step of iterative refinement: a float32 WᵀAW
+        # factor limits one projection to ~1e-4·|b| in the slow modes
+        for _ in range(2):
+            x0 = deflation.project(deflate, r, x0)
+            r = b - apply_A(x0)
     z = P(r)
     rdotz = _dot(r, z)
     eps0 = _norm(r) / safe_normb
@@ -156,15 +166,16 @@ class SolveResult:
 def solve_checked(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
                   apply_P: Callable | None = None, tol: float = 1e-5,
                   maxiter: int = 1000, kappa_max: float = 1e12,
-                  apply_A_check: Callable | None = None) -> SolveResult:
+                  apply_A_check: Callable | None = None, deflate=None) -> SolveResult:
     """CG with residual verification and retry: systems whose true residual
     ``|A·x−b|/|b|`` exceeds √tol are flagged (1 = hit maxiter, 2 = false
     convergence) and re-solved from zero, unpreconditioned, with 10× the
     iteration budget. ``apply_A_check`` (default ``apply_A``) is the operator
-    of the verification and the retry."""
+    of the verification and the retry; ``deflate`` goes to the first
+    :func:`cg` only (the retry starts from zero, undeflated)."""
     A_chk = apply_A_check if apply_A_check is not None else apply_A
     res1 = cg(apply_A, b, x0=x0, apply_P=apply_P, tol=tol, maxiter=maxiter,
-              kappa_max=kappa_max)
+              kappa_max=kappa_max, deflate=deflate)
     return _verify_and_retry(A_chk, b, res1, tol, maxiter, kappa_max,
                              retry=apply_P is not None)
 

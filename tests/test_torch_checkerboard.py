@@ -134,6 +134,9 @@ def test_tile_choice():
     (32, 4096, 40, 8, {16}),             # float64: only 16 ranks fit two CTAs per SM
     (32, 16384, 40, 8, {16}),            # 128×128 float64, K tiled
     (2, 36, 7, 8, {1, 2, 4, 8, 16}),     # 6×6, odd K
+    (8, 4096, 160, 4, {16}),             # β = 16 (Lτ = 160), float32: K tiled
+    (128, 4096, 160, 4, {16}),           # the deflation filter's 4 chains × 32 rows
+    (8, 4096, 160, 8, {16}),             # β = 16, float64
 ])
 def test_tuning_candidates(B, N, K, item, sizes):
     """The geometries a shape's first launch times: the chooser's first,

@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from elphdynamics_tpu_torch import bench, convert, simulation
+from elphdynamics_tpu_torch.dynamics import hmc
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.models.ssh import build_ssh
+from elphdynamics_tpu_torch.ops import deflation
 from elphdynamics_tpu_torch.utils.device import require_device
 
 torch.set_num_threads(1)
@@ -36,6 +38,12 @@ ENTRY_POINTS = {
     "simulation.load_model": lambda tmp: simulation.load_model(str(tmp)),
     "convert.params_from_jax": lambda tmp: convert.params_from_jax(
         {"mu": np.zeros(4), "omega": np.ones(4)}),
+    "bench.build(KERNEL_2MN_64X64)": lambda tmp: bench.build(bench.KERNEL_2MN_64X64),
+    "bench.build(TEMPERING_64X64)": lambda tmp: bench.build(bench.TEMPERING_64X64),
+    "bench.build_deep_beta_solves": lambda tmp: bench.build_deep_beta_solves(),
+    "deflation.init": lambda tmp: deflation.init(2, 4, 4, 10),
+    "hmc.dt_tuner_init": lambda tmp: hmc.dt_tuner_init(0.05),
+    "hmc.DtTunerState.from_list": lambda tmp: hmc.DtTunerState.from_list([0.0] * 7),
 }
 
 

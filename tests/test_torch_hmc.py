@@ -24,7 +24,7 @@ from elphdynamics_tpu.models.holstein import build_holstein as j_build_holstein
 from elphdynamics_tpu.ops import kpm as jkpm
 from elphdynamics_tpu.ops.fourier_accel import build_mass
 from elphdynamics_tpu_torch.dynamics.hmc import (
-    HMCConfig, HMCDraws, HMCState, make_hmc_step)
+    HMCConfig, HMCDraws, HMCState, init_deflation, make_hmc_step)
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.adapter import make_model_ops
 from elphdynamics_tpu_torch.models.holstein import build_holstein
@@ -135,17 +135,34 @@ def test_hmc_update_draws_from_generator():
 
 
 def test_hmc_unported_options_raise():
-    _, _, tspec, _ = _models(2048)
+    """Every sampler option of the JAX package builds and runs: the 2MN
+    integrator, the dynamic-dt step of the burn-in tuner and deflation (each
+    one finite update); an unknown solver kind or integrator raises."""
+    _, _, tspec, tparams = _models(2048)
     tops = make_model_ops(tspec)
-    mass = np.ones((tspec.Nph, tspec.Ltau))
-    for bad in (dict(integrator="2mn"), dict(tune_dt=True), dict(deflate_k=2)):
-        with pytest.raises(NotImplementedError):
-            make_hmc_step(tops, mass, HMCConfig(**{**CFG, **bad}))
-    with pytest.raises(NotImplementedError):
-        make_hmc_step(tops, mass, HMCConfig(**CFG), dynamic_dt=True)
+    mass = build_mass(tparams.omega.numpy(), DTAU, tspec.Ltau,
+                      [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
+    pre = kpm.make_symmetric_precond(tops, kpm.KPMConfig(**KPM))
+    x0 = 0.1 * torch.ones((N_CHAINS, tspec.Nph, tspec.Ltau), dtype=torch.float64)
+    for opts, dyn in ((dict(integrator="2mn"), False), (dict(tune_dt=True), True),
+                      (dict(deflate_k=2), False)):
+        cfg = HMCConfig(**{**CFG, **opts})
+        step = make_hmc_step(tops, mass, cfg, pre, dynamic_dt=dyn)
+        defl = init_deflation(tops, cfg, N_CHAINS, torch.Generator().manual_seed(1),
+                              device="cpu")
+        assert (defl is None) == (cfg.deflate_k == 0)
+        state = HMCState(x=x0, v=torch.zeros_like(x0), defl=defl)
+        args = (torch.tensor(0.04, dtype=torch.float64),) if dyn else ()
+        out, stats = step(tparams, state, *args, torch.Generator().manual_seed(2))
+        assert torch.isfinite(out.x).all() and torch.isfinite(stats.delta_H).all()
+        assert (stats.flag == 0).all()
+        if cfg.deflate_k:
+            assert out.defl.W.shape == (N_CHAINS, 2, tspec.Nsites, tspec.Ltau)
     with pytest.raises(ValueError):
         make_hmc_step(tops, mass, HMCConfig(**{**CFG, "solver_kind": "minres"}))
-    # ported since: block CG, the other solver kinds, the KPM options
+    with pytest.raises(ValueError, match="integrator"):
+        make_hmc_step(tops, mass, HMCConfig(**{**CFG, "integrator": "verlet"}))
+    # ported before: block CG, the other solver kinds, the KPM options
     for ok in (dict(block=True), dict(solver_kind="gmres"), dict(solver_kind="bicgstab")):
         assert callable(make_hmc_step(tops, mass, HMCConfig(**{**CFG, **ok})))
     for ok in (dict(stacked=True), dict(exact_lowfreq=2)):

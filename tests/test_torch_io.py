@@ -208,11 +208,6 @@ def _ssh(c, **extra):
 # (id, edit, slice): what the port still refuses. The ids keep the numbers
 # they had when the list also held what has been ported since.
 UNPORTED = [
-    ("slice G-7", lambda c: c.update(tempering={"ladder": [1.0, 0.5]}), "slice G"),
-    ("slice G-8", lambda c: c["hmc"].update(tune_dt=True), "slice G"),
-    ("slice G-9", lambda c: c["hmc"].update(integrator="2mn"), "slice G"),
-    ("slice I-10", lambda c: c["solver"].update(deflation={"k": 4}), "slice I"),
-    ("slice I-11", lambda c: c["solver"].update(nearnull={"k": 4}), "slice I"),
     ("slice F4-12", lambda c: (c["holstein"].update(twist=[0.3, 0.0]),
                                c["solver"].update(block=True)), "slice F4"),
 ]
@@ -247,6 +242,11 @@ PORTED = [
     ("ssh_twist", lambda c: _ssh(c, twist=[0.3, 0.0])),
     ("twist", lambda c: c["holstein"].update(twist=[0.3, 0.0])),
     ("imag", lambda c: c["holstein"]["t"][0].update(imag=0.2)),
+    ("tempering", lambda c: c.update(tempering={"ladder": [1.0, 0.5]})),
+    ("tune_dt", lambda c: c["hmc"].update(tune_dt=True, target_acceptance=0.7)),
+    ("2mn", lambda c: c["hmc"].update(integrator="2mn")),
+    ("deflation", lambda c: c["solver"].update(deflation={"k": 4})),
+    ("nearnull", lambda c: c["solver"].update(nearnull={"k": 4})),
 ]
 
 
@@ -277,6 +277,27 @@ def test_ported_sections_load_and_run(edit, tmp_path):
         assert data.size and np.isfinite(data).all(), kind
     if "BondPairGreens" in kinds:
         assert (folder / "BondPairSusc_momentum_f" / "BondPairSusc_momentum_key.out").is_file()
+
+
+def test_cli_deep_beta_example_with_profile(tmp_path):
+    """``examples/holstein_hmc_deep_beta.toml`` cut in depth (L = 2, β = 2)
+    runs through the CLI on the CPU, and ``--profile DIR`` writes the run's
+    Chrome trace."""
+    cfg = _stock("holstein_hmc_deep_beta")
+    cfg["lattice"]["L"] = 2
+    cfg["holstein"]["beta"] = 2.0
+    cfg["hmc"].update(burnin_updates=2, simulation_updates=2, trajectory_time=0.2)
+    cfg["simulation"].update(num_bins=2, filepath=str(tmp_path))
+    cfg["measurements"]["num_random_vectors"] = 2
+    path = tmp_path / "deep.toml"
+    path.write_text(tout.dump_toml(cfg))
+    prof = tmp_path / "trace"
+    assert cli.main([str(path), "1", "--chains", "2", "--device", "cpu", "--x64",
+                     "--profile", str(prof)]) == 0
+    trace = prof / "trace.json"
+    assert trace.is_file() and '"traceEvents"' in trace.read_text()[:4096]
+    log = (tmp_path / "holstein_hmc_deep_beta-1" / "holstein_hmc_deep_beta.log").read_text()
+    assert "tune_dt: frozen dt=" in log
 
 
 def test_cli_refuses_cuda_without_a_card_and_multi_gpu(capsys):

@@ -15,7 +15,10 @@ column ([C, Nb, K], SSH's fermion operator), whose tables may themselves
 start off a vector boundary; table forms a kernel does not take are
 refused. The fold's complex mode (complex64 / complex128 fields and tables,
 the bond's second endpoint taking conj(s)) runs the same shapes and forms,
-with complex c as the twin carries it."""
+with complex c as the twin carries it. The deep-β shapes: K = Lτ = 160
+(β = 16) for both kernels, at every launch candidate, with the deflation
+filter's [C·k]-row batches; and K2's per-chain diagonals of a tempering
+ladder (λ per chain)."""
 
 import functools
 
@@ -23,7 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
+from elphdynamics_tpu_torch.dynamics.tempering import TemperingConfig, ladder_params
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+from elphdynamics_tpu_torch.models.adapter import make_model_ops
 from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
 from elphdynamics_tpu_torch.ops import ckb_cuda
@@ -139,6 +145,76 @@ def test_every_launch_candidate_matches_twin(cuda, kernel, lead, dtype):
     assert ckb_cuda.table_launches[f"{kernel}/shared"] == len(kws) * len(cands)
     ckb_cuda.reset_counts()
     assert not ckb_cuda.launch_shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kernel,lead", [("fold", (8,)), ("fold", (128,)), ("fused", (4, 2)),
+                                         ("fused", (4, 32))],
+                         ids=["fold_8", "fold_128", "fused_4x2", "fused_4x32"])
+def test_deep_beta_k160_candidates_match_twin(cuda, kernel, lead, dtype):
+    """K = Lτ = 160 (β = 16 at Δτ = 0.1) at 64×64: a row of 4096 × 160
+    needs the K-tiled route in float32 and float64; every launch candidate
+    against the twin, all directions, at the row counts of the deep-β solves
+    (4 chains × 2 spins) and of the deflation filter (4 chains × k = 32)."""
+    spec, params = _spec(64)
+    c = params.cosht.to(device=cuda, dtype=dtype)
+    s = params.sinht.to(device=cuda, dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    v = torch.randn(lead + (spec.nsites, 160), generator=g, device=cuda, dtype=dtype)
+    if kernel == "fold":
+        fast, plain, name, kws = ckb_cuda.fold, ckb.fold, "ckb_fold", [
+            dict(reverse=rev, sign=sign) for _, rev, sign in DIRECTIONS]
+    else:
+        C = lead[0]
+        diag = 0.5 + torch.rand((C, spec.nsites), generator=g, device=cuda, dtype=dtype)
+        a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
+        b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
+        fast, plain, name, kws = ckb_cuda.fold_fused, ckb.fold_fused, "ckb_fold_fused", [
+            dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a, b=b,
+                 c=-1.0, prev=torch.randn_like(v) if p else None)
+            for rev in (False, True) for p in (False, True)]
+    cands = ckb_cuda.launch_candidates(spec, v, name)
+    assert cands and all(geo.kt < 160 for geo in cands)      # tiled
+    for kw in kws:
+        want = plain(spec, c, s, v, **kw)
+        for geo in cands:
+            got = fast(spec, c, s, v, geometry=geo, **kw)
+            assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype], geo
+        got = fast(spec, c, s, v, **kw)                       # the tuned geometry
+        assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_prev", [False, True], ids=["no_prev", "prev"])
+@pytest.mark.parametrize("rev", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_fused_kernel_ladder_diagonals_match_twin(cuda, dtype, rev, use_prev):
+    """K2 with the per-chain diagonals of a tempering ladder: Ā's τ-averaged
+    exp(−Δτ·V) of a 64×64 Holstein model whose 16 chains hold λ·(1.0, 0.9,
+    0.8, 0.7) (4 lanes each), the hopping table [Nb] shared."""
+    uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
+    spec, params = build_holstein(
+        Lattice.create(uc, 64), 4.0, 0.1, rng=np.random.default_rng(0), device=cuda,
+        dtype=dtype, t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))],
+        omega=1.0, lam=1.0, lam2=0.1)
+    ops = make_model_ops(spec)
+    x = init_phonons_half_filled(ops, params, 16, torch.Generator(device=cuda).manual_seed(1))
+    lp = ladder_params(params, TemperingConfig(ladder=(1.0, 0.9, 0.8, 0.7)), 16)
+    diag = ops.derived(lp, x).mean(dim=-1)                    # [16, N]
+    assert not torch.allclose(diag[0], diag[-1])              # the rungs differ
+    g = torch.Generator(device=cuda).manual_seed(12)
+    v = torch.randn((16, 2, spec.Nsites, 40), generator=g, device=cuda, dtype=dtype)
+    a = 0.5 + torch.rand(16, generator=g, device=cuda, dtype=dtype)
+    b = torch.rand(16, generator=g, device=cuda, dtype=dtype) - 0.5
+    kw = dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a, b=b,
+              c=-1.0, prev=torch.randn_like(v) if use_prev else None)
+    c, s = params.cosht, params.sinht
+    ckb_cuda.reset_counts()
+    got = ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw)
+    want = ckb.fold_fused(spec.ckb, c, s, v, **kw)
+    assert ckb_cuda.table_launches["fused/shared"] == 1
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
 
 
 # (L, chains, rows per chain, K, offset): the K2 shapes of chip_smoke.py —

@@ -35,6 +35,7 @@ from elphdynamics_tpu.lattice import Lattice as JLattice
 from elphdynamics_tpu.lattice import UnitCell as JUnitCell
 from elphdynamics_tpu.models.adapter import make_model_ops as j_make_model_ops
 from elphdynamics_tpu.models.holstein import build_holstein as j_build_holstein
+from elphdynamics_tpu.ops import deflation as jdefl
 from elphdynamics_tpu.ops import kpm as jkpm
 from elphdynamics_tpu.ops.fourier_accel import build_mass
 from elphdynamics_tpu_torch import solvers as tsolvers
@@ -44,6 +45,7 @@ from elphdynamics_tpu_torch.lattice import Lattice as TLattice
 from elphdynamics_tpu_torch.lattice import UnitCell as TUnitCell
 from elphdynamics_tpu_torch.models.adapter import make_model_ops as t_make_model_ops
 from elphdynamics_tpu_torch.models.holstein import build_holstein as t_build_holstein
+from elphdynamics_tpu_torch.ops import deflation as tdefl
 from elphdynamics_tpu_torch.ops import kpm as tkpm
 
 torch.set_num_threads(1)
@@ -438,9 +440,21 @@ def test_solve_block_gates_match_jax(dispatch_model):
     batched = tsolve.solve_minv(tops, tp, td, torch.as_tensor(B[None]),
                                 tsolve.SolverConfig(tol=1e-6, maxiter=500), tpa, block=True)
     assert int(got.iters.max()) > 0 and batched.iters.shape == (1, 5)
-    with pytest.raises(NotImplementedError, match="slice I"):
-        tsolve.solve_oinv(tops, tp, td, torch.as_tensor(B[None]), tsolve.SolverConfig(), tpa,
-                          deflate=object())
+    # a deflation basis closes the block gate in both packages: the batched,
+    # init-projected CG runs
+    N, Lt = tops.Nsites, tops.Ltau
+    jdef = jdefl.init(jax.random.PRNGKey(7), 3, N, Lt, dtype=jnp.float64)
+    tdef = tdefl.DeflationState(*(torch.as_tensor(np.asarray(getattr(jdef, f)))[None]
+                                  for f in ("W", "chol", "pvec", "lam_max")))
+    kw = dict(tol=1e-6, maxiter=500, block=True)
+    want = jsolve.solve_oinv(jops, jp, jd, jnp.asarray(B), jsolve.SolverConfig(**kw), jpa,
+                             deflate=jdef)
+    got = tsolve.solve_oinv(tops, tp, td, torch.as_tensor(B[None]), tsolve.SolverConfig(**kw),
+                            tpa, deflate=tdef)
+    plain = tsolve.solve_oinv(tops, tp, td, torch.as_tensor(B[None]),
+                              tsolve.SolverConfig(tol=1e-6, maxiter=500), tpa, deflate=tdef)
+    np.testing.assert_array_equal(got.iters[0].numpy(), np.asarray(want.iters))
+    assert torch.equal(got.x, plain.x) and torch.equal(got.iters, plain.iters)
     with pytest.raises(ValueError):
         tsolve.SolverConfig(kind="minres")
 

@@ -19,6 +19,7 @@ from elphdynamics_tpu.lattice import Lattice as JLattice
 from elphdynamics_tpu.lattice import UnitCell as JUnitCell
 from elphdynamics_tpu.models.adapter import make_model_ops as j_make_model_ops
 from elphdynamics_tpu.models.holstein import build_holstein as j_build_holstein
+from elphdynamics_tpu.ops import deflation as jdefl
 from elphdynamics_tpu.ops import fourier_accel as jfa
 from elphdynamics_tpu.ops import kpm as jkpm
 from elphdynamics_tpu.ops import timefreqfft as jtf
@@ -30,6 +31,7 @@ from elphdynamics_tpu_torch.lattice import Lattice as TLattice
 from elphdynamics_tpu_torch.lattice import UnitCell as TUnitCell
 from elphdynamics_tpu_torch.models.adapter import make_model_ops as t_make_model_ops
 from elphdynamics_tpu_torch.models.holstein import build_holstein as t_build_holstein
+from elphdynamics_tpu_torch.ops import deflation as tdefl
 from elphdynamics_tpu_torch.ops import fourier_accel as tfa
 from elphdynamics_tpu_torch.ops import kpm as tkpm
 from elphdynamics_tpu_torch.ops import timefreqfft as ttf
@@ -172,8 +174,22 @@ def test_solve_oinv_matches_jax(model):
                             tsolve.PrecondApplies(lambda v: tkpm.apply_symmetric(tops, tst1, v)))
     np.testing.assert_array_equal(got.iters[0].numpy(), np.asarray(want.iters))
     _close(got.x[0].numpy(), want.x, 1e-9)
-    with pytest.raises(NotImplementedError):   # deflation is not ported
-        tsolve.solve_oinv(tops, tp, tenv, tb, tsolve.SolverConfig(), None, deflate=object())
+    # with a deflation basis: one refresh of the same float64 basis in both
+    # packages, then the init-projected CG
+    jP = lambda v: jkpm.apply_symmetric(jops, jst[0], v)  # noqa: E731
+    tP = lambda v: tkpm.apply_symmetric(tops, tst1, v)  # noqa: E731
+    jdef = jdefl.refresh(jdefl.init(jax.random.PRNGKey(7), 4, tops.Nsites, tops.Ltau,
+                                    dtype=jnp.float64),
+                         lambda v: jops.mulMTM(jp, jenv, v), jP,
+                         jdefl.DeflationConfig(k=4, filter_degree=4, power_iters=3))
+    tdef = tdefl.DeflationState(*(torch.as_tensor(np.asarray(getattr(jdef, f)))[None]
+                                  for f in ("W", "chol", "pvec", "lam_max")))
+    want = jsolve.solve_oinv(jops, jp, jenv, jb, jsolve.SolverConfig(tol=1e-7, maxiter=300),
+                             jsolve.PrecondApplies(jP, None, None), deflate=jdef)
+    got = tsolve.solve_oinv(tops, tp, tenv, tb, tsolve.SolverConfig(tol=1e-7, maxiter=300),
+                            tsolve.PrecondApplies(tP), deflate=tdef)
+    np.testing.assert_array_equal(got.iters[0].numpy(), np.asarray(want.iters))
+    _close(got.x[0].numpy(), want.x, 1e-9)
 
 
 # --- KPM ----------------------------------------------------------------------
