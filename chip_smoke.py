@@ -94,14 +94,37 @@ Phases (one line each, and the process exits non-zero if any fails):
     16 by plain KPM-CG, with deflation and with the near-null
     preconditioner: iterations, set-up and solve seconds, peak memory;
 22. the TOML driver on ``examples/holstein_hmc_deep_beta.toml`` (as shipped,
-    cut in depth; the tuned dt) and on the stock 4×4 Holstein example with
-    a ``[tempering]`` ladder on 8 chains (the exchange rate);
+    cut in depth to 4 tuned + 2 sampling updates; the tuned dt) and on the
+    stock 4×4 Holstein example with a ``[tempering]`` ladder on 8 chains
+    (the exchange rate);
 23. every (kernel, coefficient form, field shape) that one of the 64×64
-    runs of phases 9, 11, 13, 14, 17, 20 and 21 launched (``ckb_cuda.launch_shapes``),
+    runs of phases 9, 11, 13, 14, 17, 20, 21 and 24 launched (``ckb_cuda.launch_shapes``),
     against the twin in float32 and float64 (complex64 and complex128 for
     K1's complex mode), all directions, at every launch geometry the
     wrapper's tuning may keep for that shape, so that no run goes through a
     row count or geometry that was not checked.
+24. (a) chain sharding: 2 gloo ranks sharing card 0 run ``KERNEL_64X64``
+    (16 chains, 8 per rank; 1 warm-up and 2 timed updates), each launching
+    K1 and K2 (counts set to 0 just before, read just after, summed over
+    the ranks): every chain's x bit for bit against the same two blocks
+    run one after the other in this process, and against the one-rank
+    16-chain run of phase 9 (equal decisions; x differs at float32
+    rounding, torch's sums over 8 chains adding in another order); the
+    driver on the stock 4×4 Holstein example (4 chains, float64, cut in
+    depth) on 2 chain ranks against one rank: x and bins to 1e-9;
+25. (b) site sharding at 4×4, float64, 2 gloo ranks, against the unsharded
+    card run: an HMC update with KPM and warm starts, a twisted update,
+    reflection and swap moves, a Runge-Kutta Langevin step and a
+    Green's-function sample; x to 1e-12 (probe solutions 1e-10), equal
+    decisions and iterations;
+26. (c) one site-sharded ``KERNEL_64X64`` update on 2 gloo ranks sharing
+    the card (the halo fold is plain torch, its halos and all-reduces
+    staged through the host: not a multi-GPU rate): seconds, CG
+    iterations, flags, halo messages and bytes per fold, all-reduces;
+27. (d) (a)–(c) with one NCCL rank per card when the machine has two cards,
+    else one line saying why not.
+
+Phases 24–27 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -848,7 +871,7 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
         out["max_flag"] = max(out["max_flag"], out["exchange_max_flag"])
     say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_updates=timed,
         **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out.items()})
-    out["launch_shapes"] = set(ckb_cuda.launch_shapes)
+    out.update(launch_shapes=set(ckb_cuda.launch_shapes), x=state.x.cpu(), accepted=acc)
     shape = (cfg.n_chains, b.ops.Nph, round(cfg.beta / cfg.dtau))
     if not (out["x_finite"] and out["dH_finite"] and out["x_shape"] == shape):
         raise RuntimeError(f"{cfg.name}: non-finite or misshapen output")
@@ -1550,6 +1573,322 @@ def phase_driver_deep() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# several ranks: chain sharding, site sharding, NCCL
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 600
+
+
+def _launch(fn, world: int, backend: str, args=()) -> list:
+    """``fn(device, *args)`` on ``world`` spawned ranks: gloo ranks share
+    card 0 (their messages staged through host memory), NCCL ranks take
+    one card each."""
+    from elphdynamics_tpu_torch.parallel.multihost import launch
+
+    return launch(fn, world, backend, "cuda:0", args, timeout_s=RANK_TIMEOUT_S)
+
+
+def _chain_block(device, world: int, rank: int, warmup: int, timed: int) -> dict:
+    """``KERNEL_64X64`` on block ``rank`` of ``world`` blocks of its 16
+    chains (the whole batch's draws cut to the block), kernel counts set to
+    0 just before the updates and read just after."""
+    from elphdynamics_tpu_torch.bench import KERNEL_64X64, build
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+
+    b = build(KERNEL_64X64, device, torch.float32)
+    cb = ChainBlock.of(KERNEL_64X64.n_chains, world, rank)
+    state, run = cb.local(b.state), cb.wrap(b.step)
+    ckb_cuda.reset_counts()
+    acc = []
+    for n in range(warmup + timed):
+        if n == warmup:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+        state, stats = run(b.params, state, generator=b.generator)
+        acc.append(stats.accepted)
+    torch.cuda.synchronize(device)
+    return dict(seconds=time.perf_counter() - t0, chains=cb.n, x=state.x,
+                accepted=torch.stack(acc), launches=ckb_cuda.launches,
+                fused_launches=ckb_cuda.fused_launches,
+                table_launches=dict(ckb_cuda.table_launches),
+                launch_shapes=set(ckb_cuda.launch_shapes))
+
+
+def _rank_chain_64(device, warmup: int, timed: int) -> dict:
+    """This rank's :func:`_chain_block`; rank 0 returns every chain's final
+    x and decisions."""
+    from elphdynamics_tpu_torch.parallel import multihost
+    from elphdynamics_tpu_torch.parallel.multihost import all_gather
+
+    out = _chain_block(device, multihost.world(), multihost.rank(), warmup, timed)
+    x, acc = all_gather(out["x"]).cpu(), all_gather(out["accepted"], dim=1).cpu()
+    primary = multihost.rank() == 0
+    return dict(out, x=x if primary else None, accepted=acc if primary else None)
+
+
+def _rank_driver(device, path: str, run_id: int, n_chains: int, n_devices: int,
+                 site_devices: int, dtype=torch.float32) -> dict:
+    """One rank of ``simulation.simulate``: its statistics, the processed
+    bins it wrote (rank 0) and the final checkpointed x."""
+    from elphdynamics_tpu_torch import simulation
+
+    bins, write_bin = [], simulation.out_io.write_bin
+
+    def recording_write_bin(datafolder, processed, bin_index, ops):
+        bins.append(processed)
+        return write_bin(datafolder, processed, bin_index, ops)
+
+    simulation.out_io.write_bin = recording_write_bin
+    try:
+        stats = simulation.simulate(path, run_id=run_id, n_chains=n_chains, device=device,
+                                    dtype=dtype, n_devices=n_devices, site_devices=site_devices)
+    finally:
+        simulation.out_io.write_bin = write_bin
+    return dict(stats=stats, bins=bins)
+
+
+def _bin_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _bin_leaves(v, f"{path}/{k}")
+    else:
+        yield path, np.asarray(tree)
+
+
+def _bins_diff(a: list, b: list) -> tuple[float, int]:
+    """The largest |difference| of two runs' processed bins, and how many
+    arrays were compared."""
+    if len(a) != len(b) or not a:
+        raise RuntimeError(f"bins: {len(a)} against {len(b)}")
+    worst, n = 0.0, 0
+    for ba, bb in zip(a, b):
+        other = dict(_bin_leaves(bb))
+        for path, arr in _bin_leaves(ba):
+            worst = max(worst, float(np.abs(other[path] - arr).max()) if arr.size else 0.0)
+            n += 1
+    return worst, n
+
+
+def _checkpoint_x(folder: str) -> np.ndarray:
+    with np.load(os.path.join(folder, "checkpoint.npz")) as z:
+        return z["x"]
+
+
+def phase_chain_sharded(reference: dict, backend: str = "gloo") -> dict:
+    """(a) Chain sharding: 2 ranks run ``KERNEL_64X64`` (16 chains, 8 per
+    rank; 1 warm-up and 2 timed updates), each launching K1 and K2; every
+    chain's x against the one-rank run of the same configuration
+    (``reference``, phase 9). Then the driver on the stock Holstein example
+    (cut in depth, 4 chains, float64) on 2 chain ranks against one rank:
+    bins and x to 1e-9."""
+    t0 = time.perf_counter()
+    ranks = _launch(_rank_chain_64, 2, backend, (1, 2))
+    x = ranks[0]["x"]
+    # the ranks' work block after block in this process: the same draws,
+    # the same shapes
+    blocks = [_chain_block(torch.device("cuda"), 2, r, 1, 2) for r in range(2)]
+    exact = bool(torch.equal(x, torch.cat([blk["x"].cpu() for blk in blocks])))
+    dx = float((x - reference["x"]).abs().max())
+    acc_equal = bool(torch.equal(ranks[0]["accepted"][-2:].reshape(-1).bool(),
+                                 reference["accepted"].reshape(-1).bool()))
+    tables = {k: sum(r["table_launches"][k] for r in ranks) for k in ranks[0]["table_launches"]}
+    seconds = max(r["seconds"] for r in ranks)
+    say(f"chain_sharded_64x64_{backend}", ranks=2, chains_per_rank=ranks[0]["chains"],
+        timed_updates=2, sweeps_per_s=f"{16 * 2 / seconds:.6g}",
+        one_rank_sweeps_per_s=f"{reference['sweeps_per_s']:.6g}",
+        bitwise_vs_blocks_in_one_process=exact, max_abs_dx_vs_16_chain_batch=f"{dx:.3e}",
+        accept_equal=acc_equal,
+        k1_launches_by_rank=[r["launches"] for r in ranks],
+        k2_launches_by_rank=[r["fused_launches"] for r in ranks],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    if min(min(r["launches"], r["fused_launches"]) for r in ranks) <= 0:
+        raise RuntimeError("a chain rank launched K1 or K2 no time")
+    # each rank's work equals the same block's in one process bit for bit;
+    # against one 16-chain batch, torch's float32 sums over 8 chains add in
+    # another order, so x differs at rounding level amplified along the
+    # trajectories, with the same decisions
+    if not (exact and acc_equal):
+        raise RuntimeError(f"chain-sharded KERNEL_64X64: bitwise against its blocks {exact}, "
+                           f"decisions equal to one rank {acc_equal} (max |dx| {dx})")
+    out = dict(table_launches=tables, launch_shapes=set().union(*(r["launch_shapes"]
+                                                                  for r in ranks)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
+        cfg = tomllib.load(f)
+    cfg["hmc"].update(burnin_updates=1, simulation_updates=2)
+    cfg["simulation"].update(num_bins=2, random_seed=17)
+    from elphdynamics_tpu_torch.io.output import dump_toml
+
+    with tempfile.TemporaryDirectory() as work:
+        cfg["simulation"]["filepath"] = work
+        path = os.path.join(work, "square.toml")
+        with open(path, "w") as f:
+            f.write(dump_toml(cfg))
+        t0 = time.perf_counter()
+        one = _rank_driver(torch.device("cuda"), path, 1, 4, 1, 1, torch.float64)
+        t1 = time.perf_counter()
+        two = _launch(_rank_driver, 2, backend, (path, 2, 4, 2, 1, torch.float64))
+        t2 = time.perf_counter()
+        folder = os.path.join(work, cfg["simulation"]["foldername"])
+        dx = float(np.abs(_checkpoint_x(f"{folder}-2") - _checkpoint_x(f"{folder}-1")).max())
+    dbin, nbin = _bins_diff(one["bins"], two[0]["bins"])
+    say(f"chain_sharded_driver_{backend}", chains=4, ranks=2,
+        max_abs_dx=f"{dx:.3e}", max_abs_dbin=f"{dbin:.3e}", arrays=nbin,
+        bitwise=dx == 0.0 and dbin == 0.0, one_rank_s=f"{t1 - t0:.1f}",
+        two_rank_s=f"{t2 - t1:.1f}")
+    # float64: sums over 2 chains instead of 4 may add in another order
+    if not (dx <= 1e-9 and dbin <= 1e-9):
+        raise RuntimeError(f"the chain-sharded driver differs from one rank: x {dx}, bins {dbin}")
+    return out
+
+
+def _rank_site_small(device) -> dict:
+    """(b) 4×4 float64 on this rank's block of sites against the unsharded
+    card run (rank 0 runs it too), every sampler from equal generators:
+    an HMC update with KPM and warm starts, a twisted update, reflection
+    and swap moves, a Runge-Kutta Langevin step, a Green's-function
+    sample. Per run: the largest |Δ| and whether decisions and iterations
+    agree."""
+    from elphdynamics_tpu_torch.bench import build_bench_step, shard_bench_step
+    from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.dynamics.special_updates import (
+        SpecialUpdateConfig, make_reflection_update, make_swap_update)
+    from elphdynamics_tpu_torch.measure.greens import sample_greens
+    from elphdynamics_tpu_torch.ops import kpm
+    from elphdynamics_tpu_torch.ops.fourier_accel import build_Q
+    from elphdynamics_tpu_torch.parallel import multihost
+    from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard
+
+    out = {}
+
+    def gens():
+        return (torch.Generator(device=device).manual_seed(9),
+                torch.Generator(device=device).manual_seed(9))
+
+    for name, twist in (("hmc", None), ("hmc_twisted", (0.3, 0.1))):
+        b = build_bench_step(4, 1.0, 0.1, 0.05, 2, device, torch.float64, trajectory_time=0.2,
+                             twist=twist)
+        shard = SiteShard(b.ops.spec.ckb, b.ops.spec.wij_table, multihost.world(),
+                          multihost.rank())
+        lb = shard_bench_step(b, shard)
+        g1, g2 = gens()
+        s1, st1 = b.step(b.params, b.state, g1)
+        s2, st2 = lb.step(lb.params, lb.state, g2)
+        out[name] = (float((shard.local(s1.x) - s2.x).abs().max()),
+                     bool(torch.equal(st1.accepted, st2.accepted)),
+                     bool(torch.equal(st1.iters, st2.iters)))
+        if twist is not None:
+            continue
+        ops, lops, params, lp = b.ops, lb.ops, b.params, lb.params
+        x, lx = s1.x, shard.local(s1.x)
+        pre, lpre = kpm.make_precond(ops, b.kpm_cfg), kpm.make_precond(lops, b.kpm_cfg)
+        ucfg = SpecialUpdateConfig(n_moves=3, tol=1e-5, maxiter=500)
+        for uname, make in (("reflection", make_reflection_update), ("swap", make_swap_update)):
+            g1, g2 = gens()
+            x1, r1 = make(ops, ucfg, pre)(params, x, g1)
+            x2, r2 = make(lops, ucfg, lpre)(lp, lx, g2)
+            out[uname] = (float((shard.local(x1) - x2).abs().max()), bool(torch.equal(r1, r2)),
+                          True)
+        Q = build_Q(params.omega.double().cpu().numpy(), ops.dtau, ops.Ltau,
+                    [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
+        scfg = SolverConfig(tol=1e-8, maxiter=500)
+        g1, g2 = gens()
+        x1, l1 = make_langevin_step(ops, Q, 1e-3, "rk", scfg, pre)(params, x, g1)
+        x2, l2 = make_langevin_step(lops, Q, 1e-3, "rk", scfg, lpre)(lp, lx, g2)
+        out["langevin_rk"] = (float((shard.local(x1) - x2).abs().max()), True,
+                              bool(torch.equal(l1.iters, l2.iters)))
+        g1, g2 = gens()
+        gd1 = sample_greens(ops, params, x, 4, scfg, pre, g1)
+        gd2 = sample_greens(lops, lp, lx, 4, scfg, lpre, g2)
+        out["greens"] = (float((gd1.MinvR - shard.gather(gd2.MinvR)).abs().max()), True,
+                         bool(torch.equal(gd1.iters, gd2.iters)))
+    return out
+
+
+def phase_site_small(backend: str = "gloo") -> None:
+    """(b) Site sharding at 4×4, float64, D = 2, against the unsharded card
+    run: x to 1e-12 (probe solutions to 1e-10), equal decisions and
+    iterations."""
+    t0 = time.perf_counter()
+    ranks = _launch(_rank_site_small, 2, backend)
+    bad = []
+    for name in ranks[0]:
+        dx = max(r[name][0] for r in ranks)
+        same = all(r[name][1] and r[name][2] for r in ranks)
+        tol = 1e-10 if name == "greens" else 1e-12
+        say(f"site_small_{name}_{backend}", ranks=2, max_abs_dx=f"{dx:.3e}", tol=tol,
+            decisions_and_iterations_equal=same)
+        if not (dx <= tol and same):
+            bad.append(name)
+    say(f"site_small_{backend}", seconds=f"{time.perf_counter() - t0:.1f}")
+    if bad:
+        raise RuntimeError(f"site-sharded runs disagree with the unsharded card run: {bad}")
+
+
+def _rank_site_64(device) -> dict:
+    """(c) One ``KERNEL_64X64`` update (16 chains) on this rank's half of
+    the 64×64 sites, with the shard's halo and all-reduce counts."""
+    from elphdynamics_tpu_torch.bench import KERNEL_64X64, build, shard_bench_step
+    from elphdynamics_tpu_torch.parallel import multihost
+    from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard
+
+    b = build(KERNEL_64X64, device, torch.float32)
+    shard = SiteShard(b.ops.spec.ckb, b.ops.spec.wij_table, multihost.world(), multihost.rank())
+    lb = shard_bench_step(b, shard)
+    torch.cuda.synchronize(device)
+    shard.reset_counts()
+    t0 = time.perf_counter()
+    state, stats = lb.step(lb.params, lb.state, lb.generator)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    nsolves = lb.hmc_cfg.Nt + 2
+    return dict(seconds=seconds, iters=stats.iters.cpu().tolist(),
+                flags=stats.flag.cpu().tolist(), accepted=stats.accepted.cpu().tolist(),
+                finite=bool(torch.isfinite(state.x).all()), nsolves=nsolves,
+                folds=shard.folds, halo_msgs=shard.halo_msgs, halo_bytes=shard.halo_bytes,
+                allreduces=shard.allreduces, block=tuple(state.x.shape))
+
+
+def phase_site_64(backend: str = "gloo") -> dict:
+    """(c) Site sharding at full width: one ``KERNEL_64X64`` update on 2
+    ranks. Under gloo both ranks share one card and every halo and
+    all-reduce goes through host memory: not a multi-GPU rate."""
+    ranks = _launch(_rank_site_64, 2, backend)
+    r = ranks[0]
+    cg_iters = sum(r["iters"]) / len(r["iters"]) * r["nsolves"]
+    label = ("2 ranks on one card, halos staged through the host: not a multi-GPU rate"
+             if backend == "gloo" else "2 ranks, one card each, NCCL")
+    say(f"site_sharded_64x64_{backend}", ranks=2, block="x".join(map(str, r["block"])),
+        seconds=f"{max(x['seconds'] for x in ranks):.3f}", cg_iters_per_solve=r["iters"],
+        flags=r["flags"], accepted=r["accepted"], folds=r["folds"],
+        halo_msgs_per_fold=f"{r['halo_msgs'] / max(r['folds'], 1):.3g}",
+        halo_bytes_per_fold=f"{r['halo_bytes'] / max(r['folds'], 1):.6g}",
+        allreduces=r["allreduces"], allreduces_per_cg_iter=f"{r['allreduces'] / cg_iters:.3g}",
+        label=repr(label))
+    if not all(x["finite"] and max(x["flags"]) == 0 for x in ranks):
+        raise RuntimeError("the site-sharded 64x64 update flagged or went non-finite")
+    if any(x["accepted"] != r["accepted"] or x["iters"] != r["iters"] for x in ranks):
+        raise RuntimeError("the site ranks disagree on the update's decisions")
+    return r
+
+
+def phase_nccl(reference: dict) -> dict | None:
+    """(d) (a)–(c) with one rank per card under NCCL, when the machine has
+    two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        say("nccl", skipped=f"'one CUDA device on this machine ({n}); NCCL ranks need one "
+                            "card each'")
+        return None
+    out = phase_chain_sharded(reference, "nccl")
+    phase_site_small("nccl")
+    phase_site_64("nccl")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1607,6 +1946,10 @@ def main() -> int:
     drv_lang = phase_driver_langevin()
     drv_tw = phase_driver_twisted()
     phase_driver_deep()
+    chains = phase_chain_sharded(runs[KERNEL_64X64.name])
+    phase_site_small()
+    phase_site_64()
+    chains_nccl = phase_nccl(runs[KERNEL_64X64.name])
     idle = [f for f in ("fold/column", "fold/chain", "fused/chain")
             if drv_ssh["table_launches"][f] <= 0]
     if idle:
@@ -1615,7 +1958,10 @@ def main() -> int:
         raise RuntimeError("kernel timing missing")
     holstein_paths = {"hmc_driver_64x64": drv, "langevin_driver_64x64": drv_lang,
                       LANGEVIN_64X64.name: lang, KERNEL_2MN_64X64.name: runs[KERNEL_2MN_64X64.name],
-                      TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep}
+                      TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep,
+                      "chain_sharded_64x64": chains}
+    if chains_nccl is not None:
+        holstein_paths["chain_sharded_64x64_nccl"] = chains_nccl
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
     # K1's complex mode: the twisted 64×64 configurations, and the stock
     # twisted SSH example (its fermion operator and densified Ā are K1's at

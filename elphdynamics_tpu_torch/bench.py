@@ -134,6 +134,10 @@ class BenchStep:
     # acceptance, iterations, flag), attempted every ``exchange_freq`` updates
     exchange: object = None
     exchange_freq: int = 0
+    # what the step was built from (for :func:`shard_bench_step`)
+    mass: object = None
+    hmc_cfg: HMCConfig | None = None
+    kpm_cfg: kpm.KPMConfig | None = None
 
 
 @dataclass(frozen=True)
@@ -234,7 +238,8 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_o
                       [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
     cfg = HMCConfig(dt=dt, trajectory_time=trajectory_time, Nb=4, tol=1e-5,
                     maxiter=500, construct_guess=True, guess_order=3, integrator=integrator)
-    precond = kpm.make_precond(ops, kpm.KPMConfig(max_order=max_order))
+    kcfg = kpm.KPMConfig(max_order=max_order)
+    precond = kpm.make_precond(ops, kcfg)
     step = make_hmc_step(ops, mass, cfg, precond)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = init_phonons_half_filled(ops, params, n_chains, gen)
@@ -246,7 +251,26 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_o
         exchange = make_exchange_step(ops, tcfg, n_chains, precond)
     return BenchStep(ops=ops, params=params, step=step,
                      state=HMCState(x=x, v=torch.zeros_like(x)), generator=gen,
-                     exchange=exchange, exchange_freq=EXCHANGE_FREQ if exchange else 0)
+                     exchange=exchange, exchange_freq=EXCHANGE_FREQ if exchange else 0,
+                     mass=mass, hmc_cfg=cfg, kpm_cfg=kcfg)
+
+
+def shard_bench_step(b: BenchStep, shard) -> BenchStep:
+    """A Holstein :class:`BenchStep` on a site shard
+    (:class:`..parallel.lattice_shard.SiteShard`): the same HMC update on
+    the rank's block of sites (the halo fold, no kernel), its parameters and
+    initial state cut to the block; the generator is shared."""
+    from elphdynamics_tpu_torch.parallel.lattice_shard import shard_holstein
+
+    if b.exchange is not None or not b.ops.is_holstein:
+        raise NotImplementedError("a site-sharded bench step is Holstein without a ladder: "
+                                  "ROADMAP slice H2")
+    lspec, lparams = shard_holstein(b.ops.spec, b.params, shard)
+    ops = make_model_ops(lspec)
+    step = make_hmc_step(ops, b.mass, b.hmc_cfg, kpm.make_precond(ops, b.kpm_cfg))
+    return BenchStep(ops=ops, params=lparams, step=step,
+                     state=HMCState(x=shard.local(b.state.x), v=shard.local(b.state.v)),
+                     generator=b.generator, mass=b.mass, hmc_cfg=b.hmc_cfg, kpm_cfg=b.kpm_cfg)
 
 
 @dataclass(frozen=True)

@@ -46,7 +46,8 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import (
     SolverConfig, precond_applies, precond_state, resolve_precond, solve_oinv)
-from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.models.adapter import (
+    ModelOps, global_phonons, global_sites, local_sites, site_sum)
 from elphdynamics_tpu_torch.ops import deflation
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
 from elphdynamics_tpu_torch.utils.device import require_device
@@ -149,13 +150,14 @@ def draw(ops: ModelOps, n_chains: int, dtype: torch.dtype, device,
          ) -> HMCDraws:
     """Draw one update's random numbers from ``generator``; ``fdtype`` is
     the fermion-field dtype (complex under complex hopping; default
-    ``dtype``)."""
+    ``dtype``). A site-sharded model draws for every site and keeps its
+    block."""
     C = n_chains
+    momentum = torch.randn((C, global_phonons(ops), ops.Ltau), generator=generator, dtype=dtype,
+                           device=device)
+    R = pseudofermion_noise((C, global_sites(ops), ops.Ltau), fdtype or dtype, device, generator)
     return HMCDraws(
-        momentum=torch.randn((C, ops.Nph, ops.Ltau), generator=generator,
-                             dtype=dtype, device=device),
-        pseudofermion=pseudofermion_noise((C, ops.Nsites, ops.Ltau), fdtype or dtype, device,
-                                          generator),
+        momentum=local_sites(ops, momentum), pseudofermion=local_sites(ops, R),
         uniform=torch.rand((C,), generator=generator, dtype=torch.float64, device=device),
     )
 
@@ -199,6 +201,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     -> (state, stats)``; with ``dynamic_dt`` the update
     ``step(params, state, dt, generator=None, draws=None)``, ``dt`` a 0-dim
     tensor on the fields' device (Nt stays ``cfg.Nt``).
+    ``step.draw(params, x, n_chains, generator)`` makes an update's draws.
+    On a site-sharded model (``ops.shard``) the same step runs on the
+    rank's block of sites, its energies summed over the ranks.
 
     ``mass_table`` is the ``[Nph, Lτ]`` dynamical-mass spectrum; ``precond``
     a :class:`..ops.kpm.Preconditioner` (full setup once per update, a
@@ -207,7 +212,12 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     update at the starting field and used by every solve of the update.
     """
     cfg.check()
+    if ops.shard is not None and (cfg.deflate_k > 0 or cfg.integrator != "leapfrog"
+                                  or cfg.block or cfg.solver_kind != "cg"):
+        raise NotImplementedError("deflation / 2MN / block CG / BiCGStab / GMRES with "
+                                  "--site-devices: ROADMAP slice H2")
     has_lambda = ops.calc_Lambda is not None
+    mass_table = local_sites(ops, mass_table)
     # kinetic energy over primary fields only (aliased SSH fields repeat them)
     k_mask = (None if ops.is_holstein else
               torch.as_tensor(ops.spec.primary_phonon == np.arange(ops.Nph))[:, None])
@@ -261,10 +271,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         mv = mass(v).apply(v, 1.0)
         if k_mask is not None:
             v = k_mask.to(v) * v
-        return fdot(v, mv, dim=(-2, -1)) / 2
+        return site_sum(ops, fdot(v, mv, dim=(-2, -1))) / 2
 
     def calc_S(params, x, Lphi, z):
-        return fdot(Lphi, z, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
+        return site_sum(ops, fdot(Lphi, z, dim=(1, -2, -1))) / 2 + ops.calc_Sb(params, x, False)
 
     def boson_substeps(params, x, v, qf, dt_b):
         QdSb = qf(ops.calc_dSbdx(params, x, False))
@@ -399,16 +409,22 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
+    def draw_update(params, x, n_chains: int, generator=None) -> HMCDraws:
+        """The draws of one update of ``n_chains`` chains like ``x``."""
+        return draw(ops, n_chains, x.dtype, x.device, generator, field_dtype(params, x.dtype))
+
     if dynamic_dt:
         def dyn_step(params, state: HMCState, dt, generator: torch.Generator | None = None,
                      draws: HMCDraws | None = None):
             return _step(params, state, dt, generator, draws)
+        dyn_step.draw = draw_update
         return dyn_step
 
     def step(params, state: HMCState, generator: torch.Generator | None = None,
              draws: HMCDraws | None = None):
         return _step(params, state, cfg.dt, generator, draws)
 
+    step.draw = draw_update
     return step
 
 

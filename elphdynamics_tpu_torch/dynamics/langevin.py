@@ -29,7 +29,8 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.force import total_force
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_state
-from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.models.adapter import (
+    ModelOps, global_phonons, global_sites, local_sites)
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
@@ -61,22 +62,28 @@ def draw(ops: ModelOps, n_chains: int, method: str, dtype: torch.dtype, device,
          ) -> LangevinDraws:
     """Draw one step's random numbers from ``generator``: η, then the force
     vectors in order (of the fermion-field dtype ``fdtype``, default
-    ``dtype``)."""
-    eta = torch.randn((n_chains, ops.Nph, ops.Ltau), generator=generator, dtype=dtype,
-                      device=device)
-    g = tuple(trace_noise((n_chains, ops.Nsites, ops.Ltau), fdtype or dtype, device, generator)
+    ``dtype``). A site-sharded model draws for every site and keeps its
+    block."""
+    eta = torch.randn((n_chains, global_phonons(ops), ops.Ltau), generator=generator,
+                      dtype=dtype, device=device)
+    g = tuple(local_sites(ops, trace_noise((n_chains, global_sites(ops), ops.Ltau),
+                                           fdtype or dtype, device, generator))
               for _ in range(n_forces(method)))
-    return LangevinDraws(eta=eta, g=g)
+    return LangevinDraws(eta=local_sites(ops, eta), g=g)
 
 
 def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
                        scfg: SolverConfig = SolverConfig(), precond=None):
     """Build ``step(params, x, generator=None, draws=None) -> (x, stats)``
+    (``step.draw(params, x, n_chains, generator)`` makes a step's draws)
     for ``method`` in {euler, rk (update_method 2), heun (update_method 3)}
     on fields ``x`` ``[C, Nph, Lτ]``. ``Q_table`` is the ``[Nph, Lτ]``
     acceleration spectrum (:func:`..ops.fourier_accel.build_Q`)."""
     if method not in METHODS:
         raise ValueError(f"unknown Langevin method {method!r} (one of {METHODS})")
+    if ops.shard is not None and scfg.kind != "cg":
+        raise NotImplementedError("BiCGStab / GMRES with --site-devices: ROADMAP slice H2")
+    Q_table = local_sites(ops, Q_table)
     q_ops: dict = {}
     amp = math.sqrt(2.0 * dt)
 
@@ -124,4 +131,10 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
                          field_dtype(params, x.dtype))
         return scheme(params, x, ops.tie(draws.eta.to(x)), draws.g, accel(x))
 
+    def draw_step(params, x, n_chains: int, generator=None) -> LangevinDraws:
+        """The draws of one step of ``n_chains`` chains like ``x``."""
+        return draw(ops, n_chains, method, x.dtype, x.device, generator,
+                    field_dtype(params, x.dtype))
+
+    step.draw = draw_step
     return step

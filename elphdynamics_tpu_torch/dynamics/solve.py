@@ -52,6 +52,18 @@ class SolverConfig:
             raise ValueError(f"unknown solver kind {self.kind!r} (cg, bicgstab or gmres)")
 
 
+def _site_reduce(ops: ModelOps, scfg: SolverConfig, block: bool):
+    """The all-reduce of a site-sharded model's CG dots (None on one rank).
+    Site sharding runs plain CG only: block CG and BiCGStab / GMRES under
+    ``--site-devices`` are a later slice."""
+    if ops.shard is None:
+        return None
+    if scfg.kind != "cg" or block:
+        raise NotImplementedError("BiCGStab / GMRES / block CG with --site-devices: "
+                                  "ROADMAP slice H2")
+    return ops.shard.sum
+
+
 @dataclass(frozen=True)
 class PrecondApplies:
     symmetric: object          # (v) -> v   ≈ (MᵀM)⁻¹
@@ -142,13 +154,16 @@ def solve_minv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
     ``[C, s, N, Lτ]`` by block CG over the ``s`` axis: valid only when those
     systems share the operator (the nᵥ probes of one configuration), never
     for the chain axis."""
+    use_block = block and scfg.block and rhs.ndim >= 4
+    reduce = _site_reduce(ops, scfg, use_block)
     if scfg.kind == "cg":
         b = ops.mulMT(params, derived, rhs)
         hot, chk = _cg_operators(ops, params, derived, scfg)
-        solve = (solvers.block_solve_checked if block and scfg.block and rhs.ndim >= 4
-                 else solvers.solve_checked)
-        return solve(hot, b, apply_P=pa.symmetric if pa else None, tol=scfg.tol,
-                     maxiter=scfg.maxiter, kappa_max=scfg.kappa_max, apply_A_check=chk)
+        kw = dict(apply_P=pa.symmetric if pa else None, tol=scfg.tol, maxiter=scfg.maxiter,
+                  kappa_max=scfg.kappa_max, apply_A_check=chk)
+        if use_block:
+            return solvers.block_solve_checked(hot, b, **kw)
+        return solvers.solve_checked(hot, b, reduce=reduce, **kw)
     return _checked_nonsym(lambda v: ops.mulM(params, derived, v), rhs, _base_solver(scfg),
                            pa.left if pa else None, scfg)
 
@@ -166,13 +181,15 @@ def solve_oinv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
     the shared Gram solves sit on the float32 noise floor, so those stay on
     batched CG. BiCGStab / GMRES solve Mᵀ·y = rhs with the right
     preconditioner, then M·z = y with the left one."""
+    use_block = scfg.block and deflate is None and rhs.ndim >= 4 and scfg.tol >= 1e-6
+    reduce = _site_reduce(ops, scfg, use_block)
     if scfg.kind == "cg":
         hot, chk = _cg_operators(ops, params, derived, scfg)
         kw = dict(apply_P=pa.symmetric if pa else None, tol=scfg.tol, maxiter=scfg.maxiter,
                   kappa_max=scfg.kappa_max, apply_A_check=chk)
-        if scfg.block and deflate is None and rhs.ndim >= 4 and scfg.tol >= 1e-6:
+        if use_block:
             return solvers.block_solve_checked(hot, rhs, X0=x0, **kw)
-        return solvers.solve_checked(hot, rhs, x0=x0, deflate=deflate, **kw)
+        return solvers.solve_checked(hot, rhs, x0=x0, deflate=deflate, reduce=reduce, **kw)
     base = _base_solver(scfg)
     res1 = _checked_nonsym(lambda v: ops.mulMT(params, derived, v), rhs, base,
                            pa.right if pa else None, scfg)

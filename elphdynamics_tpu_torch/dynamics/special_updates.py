@@ -18,6 +18,10 @@ never warm-started.
 
 Random draws are explicit, as in :mod:`.hmc`: an update takes optional
 :class:`SpecialDraws`; without them it draws from its ``generator``.
+
+On a site-sharded model the picks are global sites and bonds: the rank
+that holds a site flips it, and a swapped row reaches the other rank by
+an all-reduce; the actions are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from dataclasses import dataclass
 import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
-from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.models.adapter import (
+    ModelOps, global_phonons, global_sites, local_sites, site_sum)
 from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
 
 
@@ -61,7 +66,7 @@ def _eval_S(ops: ModelOps, params, x, phi, tol: float, maxiter: int, precond=Non
     pa = resolve_precond(precond, params, x)
     sol = solve_oinv(ops, params, ops.stack(derived), Lphi,
                      SolverConfig(tol=tol, maxiter=maxiter), pa)
-    S = fdot(Lphi, sol.x, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
+    S = site_sum(ops, fdot(Lphi, sol.x, dim=(1, -2, -1))) / 2 + ops.calc_Sb(params, x, False)
     return S, sol.flag.amax(dim=1)
 
 
@@ -72,7 +77,7 @@ def _refresh_phi(ops: ModelOps, params, x, R):
     MtR = ops.mulMT(params, ops.stack(derived), R)
     phi = (ops.mulLambdaInv(ops.calc_Lambda(params, x)[:, None], MtR)
            if ops.calc_Lambda is not None else MtR)
-    S0 = fdot(R, R, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, x, False)
+    S0 = site_sum(ops, fdot(R, R, dim=(1, -2, -1))) / 2 + ops.calc_Sb(params, x, False)
     return phi, S0
 
 
@@ -80,7 +85,22 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
                  propose, precond):
     """The Metropolis loop shared by the moves: ``draw_picks(shape,
     generator, device)`` draws the ``[n_moves, C]`` picks, ``propose(x,
-    picks)`` returns the moved fields for one chain vector of picks."""
+    picks)`` returns the moved fields for one chain vector of picks. The
+    update's ``draw(params, x, n_chains, generator)`` makes the draws of
+    one call (on a site-sharded model every site's pseudofermions, cut to
+    the rank's block)."""
+
+    def draw(params, x, n_chains: int, generator=None) -> SpecialDraws:
+        C = n_chains
+        return SpecialDraws(
+            picks=draw_picks((n_moves, C), generator, x.device),
+            pseudofermion=torch.stack([
+                local_sites(ops, pseudofermion_noise((C, global_sites(ops), ops.Ltau),
+                                                     field_dtype(params, x.dtype), x.device,
+                                                     generator))
+                for _ in range(n_moves)]),
+            uniform=torch.rand((n_moves, C), generator=generator, dtype=torch.float64,
+                               device=x.device))
 
     def update(params, x, generator: torch.Generator | None = None,
                draws: SpecialDraws | None = None):
@@ -88,14 +108,7 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
         if n_moves == 0:
             return x, torch.zeros(C, dtype=torch.float64, device=x.device)
         if draws is None:
-            draws = SpecialDraws(
-                picks=draw_picks((n_moves, C), generator, x.device),
-                pseudofermion=torch.stack([
-                    pseudofermion_noise((C, ops.Nsites, ops.Ltau), field_dtype(params, x.dtype),
-                                        x.device, generator)
-                    for _ in range(n_moves)]),
-                uniform=torch.rand((n_moves, C), generator=generator, dtype=torch.float64,
-                                   device=x.device))
+            draws = draw(params, x, C, generator)
         accepted = torch.zeros(C, dtype=torch.int64, device=x.device)
         for m in range(n_moves):
             phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[m].to(x.device))
@@ -107,6 +120,8 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
             accepted = accepted + acc.to(torch.int64)
         return x, accepted.to(torch.float64) / max(n_moves, 1)
 
+    update.draw = draw
+    update.n_moves = n_moves
     return update
 
 
@@ -122,15 +137,20 @@ def make_reflection_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None
     generator=None, draws=None) -> (x, acceptance [C])``."""
     if not ops.is_holstein:
         return _make_update(ops, cfg, 0, None, None, precond)
+    N = global_phonons(ops)
 
     def propose(x, sites):
         rows = torch.arange(x.shape[0], device=x.device)
         x_new = x.clone()
-        x_new[rows, sites] = -x[rows, sites]
+        if ops.shard is None:
+            x_new[rows, sites] = -x[rows, sites]
+        else:
+            # the rank that holds the site flips it
+            has, r = ops.shard.owns(sites)
+            x_new[rows, r] = torch.where(has[:, None], -x[rows, r], x[rows, r])
         return x_new
 
-    return _make_update(ops, cfg, min(cfg.n_moves, ops.Nph), _uniform_picks(ops.Nph), propose,
-                        precond)
+    return _make_update(ops, cfg, min(cfg.n_moves, N), _uniform_picks(N), propose, precond)
 
 
 def _swap_rows(x, i, j):
@@ -161,6 +181,17 @@ def make_swap_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
 
     def propose(x, bonds):
         ends = table.to(x.device)[:, bonds]
-        return _swap_rows(x, ends[0], ends[1])
+        if ops.shard is None:
+            return _swap_rows(x, ends[0], ends[1])
+        # site-sharded: each endpoint's row reaches every rank (one
+        # all-reduce each), and its owner writes the other's
+        i, j = ends[0], ends[1]
+        row_i, row_j = ops.shard.row(x, i), ops.shard.row(x, j)
+        rows = torch.arange(x.shape[0], device=x.device)
+        x_new = x.clone()
+        for site, val in ((i, row_j), (j, row_i)):
+            has, r = ops.shard.owns(site)
+            x_new[rows, r] = torch.where(has[:, None], val, x_new[rows, r])
+        return x_new
 
     return _make_update(ops, cfg, n_moves, _uniform_picks(ops.spec.Nbonds), propose, precond)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
-from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.models.adapter import ModelOps, global_sites, local_sites
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
 FFT_DIMS = (-4, -3, -2, -1)
@@ -54,9 +54,10 @@ def sample_greens(ops: ModelOps, params, x, nv: int, scfg: SolverConfig, precond
     preconditioner set up at ``x`` ``[C, N, Lτ]``."""
     C = x.shape[0]
     if R is None:
-        # circular complex normals under complex hopping
-        R = trace_noise((C, nv, ops.Nsites, ops.Ltau), field_dtype(params, x.dtype), x.device,
-                        generator)
+        # circular complex normals under complex hopping; a site-sharded
+        # model draws every site's and keeps its block
+        R = local_sites(ops, trace_noise((C, nv, global_sites(ops), ops.Ltau),
+                                         field_dtype(params, x.dtype), x.device, generator))
     derived = ops.derived(params, x)
     pa = resolve_precond(precond, params, x)
     # a chain's nᵥ systems share its operator: eligible for block CG

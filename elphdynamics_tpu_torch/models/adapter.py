@@ -12,12 +12,19 @@ applies a chain's table to every row of that chain). SSH has no Λ shift.
 Under complex hopping the SSH tables are complex and the fields the
 operators act on are of the parameters' complex type
 (:func:`..utils.dtypes.field_dtype`); ``stack`` is unchanged.
+
+A site-sharded Holstein model (:mod:`..parallel.lattice_shard`) has the
+same operators on the rank's block of sites and carries its ``shard``, the
+hook through which the samplers sum over sites (:func:`site_sum`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
+
+import numpy as np
+import torch
 
 from elphdynamics_tpu_torch.models import holstein as Hm
 from elphdynamics_tpu_torch.models import ssh as Sm
@@ -46,6 +53,10 @@ class ModelOps:
     mulLambda: Callable | None = None
     mulLambdaInv: Callable | None = None
     muldLambdadx: Callable | None = None
+    # the site shard of a site-sharded model (parallel/lattice_shard.SiteShard):
+    # fields hold its block of Nsites sites and every sum over sites goes
+    # through shard.sum; None on one rank
+    shard: object = None
 
 
 def make_model_ops(spec) -> ModelOps:
@@ -93,4 +104,36 @@ def make_model_ops(spec) -> ModelOps:
         mulLambda=lambda Lam, v: Hm.mulLambda(spec, Lam, v),
         mulLambdaInv=lambda Lam, v: Hm.mulLambdaInv(spec, Lam, v),
         muldLambdadx=lambda p, x, Lam, vl, vr: Hm.muldLambdadx(spec, p, x, Lam, vl, vr),
+        shard=spec.shard,
     )
+
+
+def site_sum(ops: ModelOps, partial):
+    """A per-chain sum over sites: ``partial`` itself on one rank, the sum
+    of every rank's ``partial`` on a site-sharded model."""
+    return partial if ops.shard is None else ops.shard.sum(partial)
+
+
+def global_sites(ops: ModelOps) -> int:
+    """The model's site count over every rank (``ops.Nsites`` on one rank):
+    random draws are made at this size, so that a site-sharded run sees
+    the one-rank run's numbers."""
+    return ops.Nsites if ops.shard is None else ops.shard.N
+
+
+def global_phonons(ops: ModelOps) -> int:
+    """The phonon-field count over every rank (``ops.Nph`` on one rank; a
+    site-sharded Holstein model has one phonon per site)."""
+    return ops.Nph if ops.shard is None else ops.shard.N
+
+
+def local_sites(ops: ModelOps, a, dim: int = -2):
+    """This rank's block of the site axis ``dim`` of a global tensor or
+    numpy table (``a`` itself on one rank)."""
+    if ops.shard is None:
+        return a
+    if torch.is_tensor(a):
+        return ops.shard.local(a, dim)
+    idx = [slice(None)] * np.ndim(a)
+    idx[dim] = slice(ops.shard.lo, ops.shard.lo + ops.shard.B)
+    return np.asarray(a)[tuple(idx)]

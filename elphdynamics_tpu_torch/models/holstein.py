@@ -82,6 +82,10 @@ class HolsteinSpec:
     bond_def_of_bond: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
     ckb_to_bond: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
     bond_to_ckb: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
+    # a rank's block of a site-sharded model (parallel/lattice_shard.py):
+    # fields hold Nsites = B sites, the fold is the halo fold, sums over
+    # sites are all-reduced; None on one rank
+    shard: object = None
 
 
 def build_holstein(
@@ -271,6 +275,8 @@ def _promote(p: HolsteinParams, y):
 
 def _fold(spec: HolsteinSpec, p: HolsteinParams, y, *, reverse: bool):
     y = _promote(p, y)
+    if spec.shard is not None:
+        return spec.shard.fold(p.cosht, p.sinht, y, reverse=reverse)
     if spec.kernel_fold and y.is_cuda:
         return ckb_cuda.fold(spec.ckb, p.cosht, p.sinht, y.contiguous(), reverse=reverse)
     return ckb.fold(spec.ckb, p.cosht, p.sinht, y, reverse=reverse)
@@ -340,7 +346,8 @@ def muldMdx(spec: HolsteinSpec, p: HolsteinParams, env, x, u, v):
 
 def calc_Sb(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     """Phonon action Sb = Δτ·Σ[ω²x²/2 + ω₄x⁴ − λx·shifted + (Δx/Δτ)²/2
-    + ωᵢⱼ²(xᵢ±xⱼ)²/2], summed over the last two axes in float64."""
+    + ωᵢⱼ²(xᵢ±xⱼ)²/2], summed over the last two axes in float64 (over every
+    rank's sites on a site-sharded model)."""
     om2 = (p.omega ** 2)[:, None]
     om4 = p.omega4[:, None]
     lam = site_leaf(p.lam, x)
@@ -349,6 +356,10 @@ def calc_Sb(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     if shifted:
         sb = sb - lam * x
     total = fsum(sb, dim=(-2, -1))
+    if spec.shard is not None:
+        if spec.wij_table.shape[1] > 0:
+            total = total + spec.shard.wij_sb(p.wij, spec.wij_sign, x)
+        return spec.dtau * spec.shard.sum(total)
     if spec.wij_table.shape[1] > 0:
         i = torch.as_tensor(spec.wij_table[0], device=x.device)
         j = torch.as_tensor(spec.wij_table[1], device=x.device)
@@ -367,6 +378,8 @@ def calc_dSbdx(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     d = spec.dtau * (om2 * x + 4.0 * om4 * x ** 3) - lap / spec.dtau
     if shifted:
         d = d - spec.dtau * lam
+    if spec.shard is not None and spec.wij_table.shape[1] > 0:
+        return spec.shard.wij_dsb(p.wij, spec.wij_sign, spec.dtau, x, d)
     if spec.wij_table.shape[1] > 0:
         i = torch.as_tensor(spec.wij_table[0], device=x.device)
         j = torch.as_tensor(spec.wij_table[1], device=x.device)

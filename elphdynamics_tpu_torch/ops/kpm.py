@@ -30,6 +30,11 @@ Every matmul runs in full precision of the field dtype (the JAX package ran
 these at the TPU's DEFAULT precision); choosing a lower precision is a
 later, measured change.
 
+On a site-sharded model (``ops.shard``, :mod:`..parallel.lattice_shard`)
+Ā stays a fold, the rank's halo fold on its block of sites, with the
+composed recurrence; the power-iteration norms are summed over the ranks
+and the start vectors are the whole model's, cut to the block.
+
 Two options exist on the dense-Ā branch only, as in the JAX package:
 ``stacked`` precomputes the dense T_m(Ā′) stack per setup/refresh so that a
 pass is one stacked matmul and a coefficient combine, and
@@ -59,6 +64,7 @@ import torch
 
 from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.ops.checkerboard import CheckerboardSpec
 from elphdynamics_tpu_torch.ops.timefreqfft import omega_to_tau, tau_to_omega
 from elphdynamics_tpu_torch.utils.dtypes import complex_of, real_of
 
@@ -168,9 +174,18 @@ def _dense(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return mat.reshape(mat.shape[:1] + (1,) * (v.ndim - 3) + mat.shape[1:])
 
 
+def _fold_target(ops: ModelOps):
+    """What Ā's fold runs on: the model's checkerboard, or on a site-sharded
+    model its shard (the halo fold on the rank's block)."""
+    return ops.shard if ops.shard is not None else ops.spec.ckb
+
+
 def _fold(st: KPMState, spec_ckb, v, reverse: bool, sign: float):
     """Ā's hopping factor without a dense matrix: the kernel on CUDA (the
-    gate above leaves no other fold there), the plain twin on the CPU."""
+    gate above leaves no other fold there), the plain twin on the CPU; the
+    halo fold when ``spec_ckb`` is a site shard."""
+    if not isinstance(spec_ckb, CheckerboardSpec):
+        return spec_ckb.fold(st.cosh_bar, st.sinh_bar, v, reverse=reverse, sign=sign)
     return ckb_cuda.fold(spec_ckb, st.cosh_bar, st.sinh_bar, v.contiguous(),
                          reverse=reverse, sign=sign)
 
@@ -266,15 +281,21 @@ def _state_is_complex(st: KPMState) -> bool:
     return st.sinh_bar.is_complex()
 
 
-def _spectral_radius(apply_fn, v0: torch.Tensor, n_chains: int, n_iter: int):
+def _spectral_radius(apply_fn, v0: torch.Tensor, n_chains: int, n_iter: int, shard=None):
     """Power-iteration estimate of the dominant |eigenvalue| per chain, from
-    the start vector ``v0`` ``[N, 1]`` shared by all chains."""
-    v = v0 / torch.linalg.vector_norm(v0)
+    the start vector ``v0`` ``[N, 1]`` shared by all chains (on a site
+    shard its block of rows, the norms summed over the ranks)."""
+    def norm(a, dim=None):
+        if shard is None:
+            return torch.linalg.vector_norm(a, dim=dim)
+        return torch.sqrt(shard.sum(torch.linalg.vector_norm(a, dim=dim) ** 2))
+
+    v = v0 / norm(v0)
     v = v.expand((n_chains,) + tuple(v0.shape)).contiguous()
     lam = torch.ones(n_chains, dtype=real_of(v0.dtype), device=v0.device)
     for _ in range(n_iter):
         w = apply_fn(v)
-        lam = torch.linalg.vector_norm(w, dim=(-2, -1))
+        lam = norm(w, dim=(-2, -1))
         safe = torch.where(lam > 0, lam, torch.ones_like(lam))
         v = w / safe[:, None, None]
     return lam
@@ -338,12 +359,14 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     C = x.shape[0]
     derived = ops.derived(params, x)
     expnV_bar, cosh_bar, sinh_bar = _avg_operator(ops, params, derived)
-    sc = ops.spec.ckb
+    sc = _fold_target(ops)
     dtype, device = expnV_bar.dtype, expnV_bar.device
     dense = ops.is_holstein and ops.spec.dense_ckb
     expK = params.expK if dense else None
     expK_inv = params.expK_inv if dense else None
-    if expK is None and 0 < sc.nbonds and _dense_abar_gate(ops.Nsites, sinh_bar):
+    # a site-sharded Ā stays a halo fold: no rank holds a dense matrix
+    if (expK is None and ops.shard is None and 0 < ops.spec.ckb.nbonds
+            and _dense_abar_gate(ops.Nsites, sinh_bar)):
         expK, expK_inv = _dense_avg(ops, cosh_bar, sinh_bar)
     Wf, Wb = _dft_tables(ops.Ltau)
     st0 = KPMState(expnV_bar=expnV_bar, cosh_bar=cosh_bar, sinh_bar=sinh_bar,
@@ -358,8 +381,9 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     cplx = _state_is_complex(st0)
     pdtype = complex_of(dtype) if cplx else dtype
     v1, v2 = (s.to(device=device, dtype=pdtype) for s in start)
-    e_max = _spectral_radius(lambda v: _mulA(st0, sc, v), v1, C, cfg.n_power)
-    e_min = 1.0 / _spectral_radius(lambda v: _mulA_inv(st0, sc, v), v2, C, cfg.n_power)
+    e_max = _spectral_radius(lambda v: _mulA(st0, sc, v), v1, C, cfg.n_power, ops.shard)
+    e_min = 1.0 / _spectral_radius(lambda v: _mulA_inv(st0, sc, v), v2, C, cfg.n_power,
+                                   ops.shard)
     active = (e_min > 0.0) & (e_min < 1.0) & (e_max > 1.0) & ((e_max - e_min) < 2.0)
 
     lam_lo = torch.clamp((1.0 - 2.0 * cfg.buf) * e_min, min=0.0)
@@ -436,7 +460,7 @@ def _chebyshev_apply_stacked(ops: ModelOps, st: KPMState, w, coeff, transposed: 
     """Σₘ c_m(ω)·T_m(Ā′)·w on the stacked-real layout, Ā′ = (Ā − λavg)/λmag
     (Āᵀ when ``transposed``): the dense recurrence when Ā is dense, the
     fused-step recurrence on the fold branch."""
-    if st.expK is None:
+    if st.expK is None and ops.shard is None:
         return _chebyshev_apply_stacked_fused(ops, st, w, coeff, transposed)
     return _chebyshev_apply_stacked_composed(ops, st, w, coeff, transposed)
 
@@ -446,7 +470,7 @@ def _chebyshev_apply_stacked_composed(ops: ModelOps, st: KPMState, w, coeff,
     """The recurrence written out: each step applies Ā (dense matmul or a
     fold) and then the spectral map and the combine as elementwise
     passes."""
-    sc = ops.spec.ckb
+    sc = _fold_target(ops)
     mul = _mulA_T if transposed else _mulA
     mag = _chain(st.lam_mag, w)
     shift = _chain(st.lam_avg / st.lam_mag, w)
@@ -507,7 +531,7 @@ def _chebyshev_apply(ops: ModelOps, st: KPMState, u, coeff, transposed: bool):
     (a dense matmul, or the fold: the CUDA kernel's complex mode on the
     card) and then the spectral map and the combine as elementwise
     passes."""
-    sc = ops.spec.ckb
+    sc = _fold_target(ops)
     mul = _mulA_T if transposed else _mulA
     mag = _chain(st.lam_mag, u)
     shift = _chain(st.lam_avg / st.lam_mag, u)
@@ -600,7 +624,9 @@ def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
     per update, cheap refresh and apply inside the solves. The power
     iteration starts from two fixed vectors drawn from ``seed``; a caller
     may pass others to ``setup``."""
-    fixed = start_vectors(ops.Nsites, seed)
+    fixed = start_vectors(ops.Nsites if ops.shard is None else ops.shard.N, seed)
+    if ops.shard is not None:
+        fixed = tuple(ops.shard.local(v) for v in fixed)
     return Preconditioner(
         setup=lambda params, x, start=None: setup(ops, params, x, cfg,
                                                   fixed if start is None else start),

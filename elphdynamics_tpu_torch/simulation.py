@@ -29,8 +29,25 @@ The timers around device work (``_clock``) do not synchronise the card:
 an update's queued tail can land in the next interval, by less than the
 runs' noise.
 
-Not ported: sharding chains or the lattice over several devices and
-multi-host runs (ROADMAP slice H).
+Several ranks (:mod:`.parallel`, one process each, joined in a
+``torch.distributed`` process group before :func:`simulate` runs on every
+one of them):
+
+* ``n_devices`` ranks shard the chains: each runs the one-card update on
+  its block of chains (:class:`.parallel.chains.ChainBlock`), the draws
+  made for the whole batch and cut to the block, and the per-chain
+  statistics, increments and fields gathered where every chain is needed;
+* ``site_devices`` ranks shard the lattice of a Holstein model: every rank
+  runs the same samplers on its block of sites
+  (:mod:`.parallel.lattice_shard`), and the measurements gather the probe
+  solutions for the estimator stage.
+
+Every rank runs the same loop and reaches every collective; the files
+(datafolder, logs, bins, summary, checkpoint) are written by rank 0 only,
+and every host decision comes from values equal on every rank. Both
+layouts at once, SSH, block / BiCGStab / GMRES solves, deflation, the
+near-null preconditioner, tempering and 2MN under site sharding are a
+later slice (ROADMAP H2) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,12 +75,18 @@ from elphdynamics_tpu_torch.io import checkpoint as ckpt
 from elphdynamics_tpu_torch.io import output as out_io
 from elphdynamics_tpu_torch.io.config import SimulationSetup, build_setup, load_toml
 from elphdynamics_tpu_torch.io.summary import write_summary
+from elphdynamics_tpu_torch.measure.greens import sample_greens
 from elphdynamics_tpu_torch.measure.measurements import (
     make_measurement_step, mean_over_chains, process_bin, zero_container)
 from elphdynamics_tpu_torch.measure.mufinder import MuTuner
+from elphdynamics_tpu_torch.models.adapter import global_sites, make_model_ops
 from elphdynamics_tpu_torch.ops import kpm
 from elphdynamics_tpu_torch.ops.nearnull import make_nearnull_precond
+from elphdynamics_tpu_torch.parallel import multihost
+from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard, shard_holstein, shard_params
 from elphdynamics_tpu_torch.utils.device import require_device
+from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
 logger = logging.getLogger("elphdynamics_tpu_torch")
 
@@ -96,30 +119,107 @@ def name_datafolder(filepath: str, foldername: str, run_id: int | None = None) -
         i += 1
 
 
+# chains per card at Lτ = 40 by site count: the knee of the sweeps/s of
+# tools/sweep_chains.py (the fewest chains within 90% of the best) on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6); in between, the nearer
+# entry in log N
+CHAINS_PER_CARD = {"holstein": {64: 2048, 1024: 64, 4096: 32},
+                   "ssh": {64: 2048, 1024: 64, 4096: 64}}
+
+
+def auto_chains(Nsites: int, Ltau: int, n_devices: int = 1, is_holstein: bool = True) -> int:
+    """The chain count of ``--chains 0``: the measured per-card count for the
+    nearest site count, shrunk ∝ 40/Lτ, times ``n_devices`` chain ranks."""
+    table = CHAINS_PER_CARD["holstein" if is_holstein else "ssh"]
+    n = min(table, key=lambda k: abs(math.log(k) - math.log(max(Nsites, 1))))
+    per_card = max(1, int(table[n] * 40.0 / max(Ltau, 1)))
+    return per_card * max(n_devices, 1)
+
+
+def check_parallel(cfg: dict, n_devices: int = 1, site_devices: int = 1) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP slice H2) for a layout
+    this slice does not run: both layouts at once; under ``site_devices``
+    SSH and every solver aid other than plain KPM-CG, 2MN and tempering;
+    tempering over chain ranks."""
+    if n_devices < 1 or site_devices < 1:
+        raise ValueError("--devices and --site-devices must be >= 1")
+    sol = cfg.get("solver", {})
+    h = cfg.get("hmc", {})
+    why = []
+    if n_devices > 1 and site_devices > 1:
+        why.append("--devices with --site-devices (the 2-D chain x site layout)")
+    if site_devices > 1:
+        if "ssh" in cfg:
+            why.append("the SSH model with --site-devices")
+        if str(sol.get("type", "CG")).lower() != "cg" or sol.get("block", False):
+            why.append("BiCGStab / GMRES / block CG with --site-devices")
+        if int(sol.get("deflation", {}).get("k", 0)) > 0 or "nearnull" in sol:
+            why.append("[solver.deflation] / [solver.nearnull] with --site-devices")
+        if any(str(t.get("integrator", "leapfrog")).lower() == "2mn"
+               for t in (h, h.get("burnin", {}))):
+            why.append("the 2MN integrator with --site-devices")
+    if "tempering" in cfg and (n_devices > 1 or site_devices > 1):
+        why.append("[tempering] over several ranks")
+    if why:
+        raise NotImplementedError("; ".join(why) + ": ROADMAP slice H2")
+
+
 def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda",
-             dtype: torch.dtype = torch.float32) -> dict:
+             dtype: torch.dtype = torch.float32, n_devices: int = 1,
+             site_devices: int = 1) -> dict:
     """Run a full simulation from a TOML path or a parsed config dict on
-    one ``device`` in ``dtype``; return the run statistics."""
-    if n_chains < 1:
-        raise ValueError(f"n_chains must be >= 1, got {n_chains}")
+    ``device`` in ``dtype``; return the run statistics. ``n_chains = 0``
+    takes :func:`auto_chains`.
+
+    With ``n_devices > 1`` (chains) or ``site_devices > 1`` (the lattice)
+    every rank of the process group calls this with the same arguments
+    (:func:`.parallel.multihost.launch`, or ``torchrun`` and
+    ``--multihost``); ``device`` is the rank's own
+    (:func:`.parallel.multihost.rank_device`)."""
+    if n_chains < 0:
+        raise ValueError(f"n_chains must be >= 0, got {n_chains}")
     device = require_device(device)
     cfg = load_toml(config) if isinstance(config, str) else dict(config)
-    sim = cfg["simulation"]
-    datafolder = name_datafolder(sim.get("filepath", "."), sim["foldername"], run_id)
+    check_parallel(cfg, n_devices, site_devices)
+    world = n_devices * site_devices
+    if world != multihost.world():
+        raise ValueError(f"{n_devices} chain x {site_devices} site ranks need a process group "
+                         f"of {world}, this process is in one of {multihost.world()} (start "
+                         "the ranks with parallel.multihost.launch or torchrun)")
+    if n_chains == 0 and site_devices > 1:
+        raise ValueError("--chains 0 (auto) needs an explicit chain count with --site-devices")
+    primary = multihost.is_primary()
+    sim = cfg["simulation"] = dict(cfg["simulation"])
+    if world > 1 and "random_seed" not in sim:
+        # every rank draws the same numbers: rank 0's fresh seed for all
+        sim["random_seed"] = multihost.bcast_int(
+            int(np.random.SeedSequence().entropy % (2 ** 31)))
+    datafolder = multihost.bcast_str(
+        name_datafolder(sim.get("filepath", "."), sim["foldername"], run_id))
     setup = build_setup(cfg, datafolder, device, dtype)
-    os.makedirs(datafolder, exist_ok=True)
-    with open(os.path.join(datafolder, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=1)
-    if isinstance(config, str) and os.path.isfile(config):
-        shutil.copy(config, os.path.join(datafolder, os.path.basename(config)))
+    if n_chains == 0:
+        n_chains = auto_chains(setup.ops.Nsites, setup.ops.Ltau, n_devices,
+                               setup.ops.is_holstein)
+    if primary:
+        os.makedirs(datafolder, exist_ok=True)
+        with open(os.path.join(datafolder, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1)
+        if isinstance(config, str) and os.path.isfile(config):
+            shutil.copy(config, os.path.join(datafolder, os.path.basename(config)))
+        else:
+            with open(os.path.join(datafolder, "input.toml"), "w") as f:
+                f.write(out_io.dump_toml(cfg))
+        handler = logging.FileHandler(os.path.join(datafolder,
+                                                   f"{setup.sim_params.foldername}.log"))
+        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
     else:
-        with open(os.path.join(datafolder, "input.toml"), "w") as f:
-            f.write(out_io.dump_toml(cfg))
-
-    handler = logging.FileHandler(os.path.join(datafolder, f"{setup.sim_params.foldername}.log"))
-    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+        handler = logging.NullHandler()   # the other ranks log nowhere
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
+    par = _Parallel(
+        chains=ChainBlock.of(n_chains, n_devices, multihost.rank()) if n_devices > 1 else None,
+        shard=(SiteShard(setup.ops.spec.ckb, setup.ops.spec.wij_table, site_devices,
+                         multihost.rank()) if site_devices > 1 else None))
     try:
         import elphdynamics_tpu_torch
         logger.info("elphdynamics_tpu_torch version: %s", elphdynamics_tpu_torch.__version__)
@@ -128,10 +228,74 @@ def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda"
                     torch.cuda.get_device_name(device) if device.type == "cuda" else "host",
                     dtype)
         logger.info("Markov chains: %d", n_chains)
-        return _run(setup, n_chains)
+        if world > 1:
+            logger.info("Ranks: %d (%d chain x %d site, backend %s)", world, n_devices,
+                        site_devices, torch.distributed.get_backend())
+        return _run(setup, n_chains, par)
     finally:
         logger.removeHandler(handler)
         handler.close()
+
+
+def run_rank(device, kwargs: dict, profile: str | None = None) -> dict:
+    """One rank of a command-line run: :func:`simulate` on ``device`` with
+    ``kwargs``; with ``profile`` under ``torch.profiler`` (CPU and, on the
+    card, CUDA activity), its Chrome trace written to
+    ``profile/trace.json`` (rank r > 0: ``trace_rank<r>.json``)."""
+    device = torch.device(device)
+    if not profile:
+        return simulate(device=device, **kwargs)
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    os.makedirs(profile, exist_ok=True)
+    with torch_profile(activities=acts) as prof:
+        stats = simulate(device=device, **kwargs)
+    r = multihost.rank()
+    prof.export_chrome_trace(os.path.join(profile, "trace.json" if r == 0
+                                          else f"trace_rank{r}.json"))
+    return stats
+
+
+@dataclass(frozen=True)
+class _Parallel:
+    """This rank's part of the run: a block of chains, or a block of sites
+    (None, None on one rank)."""
+
+    chains: ChainBlock | None = None
+    shard: SiteShard | None = None
+
+    def gather_field(self, x):
+        """Every chain's and site's field from the ranks' blocks (a
+        collective)."""
+        if self.chains is not None:
+            return self.chains.gather(x)
+        if self.shard is not None:
+            return self.shard.gather(x)
+        return x
+
+    def local_field(self, x):
+        """This rank's block of a whole ``[C, N, Lτ]`` field."""
+        if self.chains is not None:
+            return self.chains.local(x)
+        if self.shard is not None:
+            return self.shard.local(x)
+        return x
+
+    def run(self, update, params, state, *args, generator, draws_dim: int = 0):
+        """An update on this rank's part: the whole batch's draws cut to the
+        chain block, or the sharded update on the local parameters (which
+        cut its own draws to the site block)."""
+        if self.chains is not None:
+            return self.chains.wrap(update, draws_dim)(params, state, *args,
+                                                       generator=generator)
+        if self.shard is not None:
+            params = shard_params(params, self.shard)
+        return update(params, state, *args, generator)
+
+    def gather_stats(self, obj):
+        """Per-chain statistics of every chain (site ranks hold them all)."""
+        return self.chains.gather(obj) if self.chains is not None else obj
 
 
 @dataclass(frozen=True)
@@ -144,18 +308,20 @@ class _LangevinUpdate:
     flag: torch.Tensor
 
 
-def _langevin_update(setup: SimulationSetup, precond):
-    """The Langevin step as a sampler update ``(params, state, generator) ->
-    (state, stats)``; the momenta of ``state`` ride along untouched."""
-    lstep = make_langevin_step(setup.ops, setup.fa_Q, setup.langevin_dt, setup.langevin_method,
+def _langevin_update(ops, setup: SimulationSetup, precond):
+    """The Langevin step as a sampler update ``(params, state, generator,
+    draws=None) -> (state, stats)``; the momenta of ``state`` ride along
+    untouched."""
+    lstep = make_langevin_step(ops, setup.fa_Q, setup.langevin_dt, setup.langevin_method,
                                setup.solver_cfg, precond)
 
-    def update(params, state: HMCState, generator):
-        x, stats = lstep(params, state.x, generator)
+    def update(params, state: HMCState, generator=None, draws=None):
+        x, stats = lstep(params, state.x, generator, draws)
         return replace(state, x=x), _LangevinUpdate(
             accepted=torch.ones_like(stats.flag, dtype=torch.bool), iters=stats.iters,
             flag=stats.flag)
 
+    update.draw = lstep.draw
     return update
 
 
@@ -286,12 +452,20 @@ def _host_tree(tree):
     return tree.detach().cpu().numpy()
 
 
-def _run(setup: SimulationSetup, n_chains: int) -> dict:
-    ops, params, sp = setup.ops, setup.params, setup.sim_params
+def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) -> dict:
+    # ops_g / params: the whole model (measurement analysis, files); ops: the
+    # rank's samplers (a block of sites under site sharding)
+    ops_g, params, sp = setup.ops, setup.params, setup.sim_params
+    ops = ops_g
+    if par.shard is not None:
+        ops = make_model_ops(shard_holstein(ops_g.spec, params, par.shard)[0])
     datafolder = sp.datafolder
     dev, dtype = setup.device, setup.dtype
     mspec = setup.mspec
-    resume = ckpt.has_checkpoint(datafolder)
+    primary = multihost.is_primary()
+    # rank 0 looks (a rank that looked later could see this run's own
+    # first checkpoint)
+    resume = bool(multihost.bcast_int(int(primary and ckpt.has_checkpoint(datafolder))))
 
     tcfg = setup.tempering_cfg
     if tcfg is not None:
@@ -315,8 +489,10 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
             tuned_step = make_hmc_step(ops, setup.fa_mass, bcfg, precond, dynamic_dt=True)
             tuner = dt_tuner_init(bcfg.dt, device=dev)
     else:
-        sim_step = burnin_step = _langevin_update(setup, precond)
-    mstep = make_measurement_step(ops, mspec, setup.solver_cfg, precond)
+        sim_step = burnin_step = _langevin_update(ops, setup, precond)
+    # under site sharding only the estimator stage of the global step runs
+    mstep = make_measurement_step(ops_g, mspec, setup.solver_cfg,
+                                  None if par.shard is not None else precond)
     reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
     swap = make_swap_update(ops, setup.swap_cfg, precond)
 
@@ -335,14 +511,14 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
                     "target acceptance %.2f)", cfg2.dt, cfg2.Nt, setup.hmc_cfg.dt,
                     setup.hmc_cfg.Nt, bcfg.target_acceptance)
 
-    container = zero_container(ops, mspec, dtype, dev)
+    container = zero_container(ops_g, mspec, dtype, dev)
     tune = setup.tune_density or {}
     mu_tuner = MuTuner(
         active=setup.tune_density is not None, init_mu=float(params.mu.mean()),
-        target_N=tune.get("density", 1.0) * ops.Nsites, N=ops.Nsites, beta=ops.beta,
-        dtau=ops.dtau, forgetful_c=tune.get("memory", 0.75),
-        kappa_min=tune.get("kappa_min", 0.1) * ops.Nsites,
-        logfile=os.path.join(datafolder, "mu_tuner_log.out"))
+        target_N=tune.get("density", 1.0) * ops_g.Nsites, N=ops_g.Nsites, beta=ops_g.beta,
+        dtau=ops_g.dtau, forgetful_c=tune.get("memory", 0.75),
+        kappa_min=tune.get("kappa_min", 0.1) * ops_g.Nsites,
+        logfile=os.path.join(datafolder, "mu_tuner_log.out") if primary else None)
     gen = torch.Generator(device=dev).manual_seed(sp.random_seed)
     burnin_start = sim_start = 0
 
@@ -351,8 +527,8 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
         if st["x"].shape[0] != n_chains:
             raise ValueError(f"{datafolder}: the checkpoint holds {st['x'].shape[0]} chains, "
                              f"the run asks for {n_chains}")
-        x = torch.as_tensor(st["x"], device=dev).to(dtype)
-        v = torch.as_tensor(st["v"], device=dev).to(dtype)
+        x = par.local_field(torch.as_tensor(st["x"], device=dev).to(dtype))
+        v = par.local_field(torch.as_tensor(st["v"], device=dev).to(dtype))
         gen.set_state(torch.as_tensor(st["generator"]))
         container = {group: {k: torch.as_tensor(st["container"].get(group, {}).get(k, z.cpu().numpy()),
                                                 device=dev).to(z.dtype)
@@ -375,14 +551,18 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
             freeze_tuned_dt(sim_stats["tuned_dt"])
     else:
         if setup.read_phonon_config:
-            x0 = torch.as_tensor(out_io.read_phonons(ops, setup.read_phonon_config),
+            x0 = torch.as_tensor(out_io.read_phonons(ops_g, setup.read_phonon_config),
                                  device=dev).to(dtype)
-            x = x0.expand((n_chains,) + tuple(x0.shape)).contiguous()
+            x = par.local_field(x0.expand((n_chains,) + tuple(x0.shape)).contiguous())
+        elif par.shard is not None:
+            # draws every site's numbers and keeps the block
+            x = init_phonons_half_filled(ops, shard_params(params, par.shard), n_chains, gen)
         else:
-            x = init_phonons_half_filled(ops, params, n_chains, gen)
+            x = par.local_field(init_phonons_half_filled(ops, params, n_chains, gen))
         v = torch.zeros_like(x)
-        out_io.init_measurement_folders(datafolder, container, mspec.snapshots)
-        out_io.write_key_files(datafolder, ops, mspec, container)
+        if primary:
+            out_io.init_measurement_folders(datafolder, container, mspec.snapshots)
+            out_io.write_key_files(datafolder, ops_g, mspec, container)
 
     exchange = None
     n_meas_chains = n_chains
@@ -399,15 +579,16 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     # anew (from its own seed, leaving the main stream as it is) on resume
     defl = None
     if hmc and setup.hmc_cfg.deflate_k > 0:
-        defl = init_deflation(ops, setup.hmc_cfg, n_chains,
-                              torch.Generator(device=dev).manual_seed(sp.random_seed + 7919),
-                              params=setup.params, device=dev)
+        defl = par.local_field(init_deflation(
+            ops, setup.hmc_cfg, n_chains,
+            torch.Generator(device=dev).manual_seed(sp.random_seed + 7919),
+            params=setup.params, device=dev))
     state = HMCState(x=x, v=v, defl=defl)
 
     stats_acc = _Stats(dev)
     hmc_table = setup.config.get("hmc", {})
     hmc_log = _HMCLog(os.path.join(datafolder, "hmc_sim_log.out")
-                      if hmc_table.get("log", False) else None, n_chains, dev)
+                      if hmc_table.get("log", False) and primary else None, n_chains, dev)
     # verbose rows are per leapfrog step: read them (and the stats) every update
     stats_sync = hmc_log.f is not None and bool(hmc_table.get("verbose", False))
     npairs = mspec.nv * (mspec.nv - 1) // 2
@@ -423,18 +604,22 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     def maybe_checkpoint(bstart, sstart, force=False, min_interval=None):
         nonlocal t_ckpt
         interval = sp.chckpnt_freq_s if min_interval is None else min_interval
-        if not (force or (time.time() - t_ckpt) > interval):
+        # rank 0's clock decides for every rank: the gathers below are collectives
+        due = force or bool(multihost.bcast_int(int((time.time() - t_ckpt) > interval)))
+        if not due:
             return
         flush_stats()  # the checkpointed sim_stats include the window
         t0 = time.time()
         extras = {}
         if tuner is not None and bstart < sp.burnin:
             extras["dt_tuner"] = tuner.as_list()
-        ckpt.save_checkpoint(datafolder, x=state.x, v=state.v, generator_state=gen.get_state(),
-                             params=params, container=container,
-                             counters={"burnin_start": bstart, "sim_start": sstart},
-                             sim_stats=sim_stats, mu_tuner_state=mu_tuner.state_dict(),
-                             extras=extras)
+        x_all, v_all = par.gather_field(state.x), par.gather_field(state.v)
+        if primary:
+            ckpt.save_checkpoint(datafolder, x=x_all, v=v_all, generator_state=gen.get_state(),
+                                 params=params, container=container,
+                                 counters={"burnin_start": bstart, "sim_start": sstart},
+                                 sim_stats=sim_stats, mu_tuner_state=mu_tuner.state_dict(),
+                                 extras=extras)
         sim_stats["write_time"] += time.time() - t0
         t_ckpt = time.time()
 
@@ -462,7 +647,8 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
                                 (swap, setup.swap_cfg, "swap")):
             if cfg_.n_moves and cfg_.freq and n % cfg_.freq == 0:
                 t0 = _clock(dev)
-                xn, rate = upd(params, state.x, gen)
+                xn, rate = par.run(upd, params, state.x, generator=gen, draws_dim=1)
+                rate = par.gather_stats(rate)
                 state = replace(state, x=xn)
                 sim_stats["simulation_time"] += _clock(dev) - t0
                 stats_acc.fold(kind, n, rate, 0.0, 0)
@@ -483,12 +669,27 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     def measure():
         # under tempering only the rung-0 chains (physical couplings) are
         # measured: the other rungs' bins would be discarded
-        inc, mstats, snaps = mstep(rung_params(params), state.x[:n_meas_chains], gen)
+        mparams = rung_params(params)
+        if par.shard is not None:
+            # the probe solves on the site blocks, the estimators on the
+            # gathered probes, solutions and fields
+            gd = sample_greens(ops, shard_params(mparams, par.shard), state.x, mspec.nv,
+                               setup.solver_cfg, precond, gen)
+            gd = replace(gd, R=par.shard.gather(gd.R), MinvR=par.shard.gather(gd.MinvR))
+            inc, mstats, snaps = mstep.analyze(mparams, par.shard.gather(state.x), gd)
+        elif par.chains is not None:
+            cb = par.chains
+            x = state.x
+            R = trace_noise((cb.total, mspec.nv, global_sites(ops), ops.Ltau),
+                            field_dtype(mparams, x.dtype), x.device, gen)
+            inc, mstats, snaps = cb.gather(mstep(mparams, x, R=cb.local(R)))
+        else:
+            inc, mstats, snaps = mstep(mparams, state.x[:n_meas_chains], gen)
         inc, snaps = mean_over_chains(inc, snaps, mstats["flag"])
         return inc, (mstats["flag"] != 0).sum(), snaps
 
     def tune_mu(params, inc):
-        Nm = float(inc["global"]["density"]) / npairs * ops.Nsites
+        Nm = float(inc["global"]["density"]) / npairs * ops_g.Nsites
         N2m = float(inc["global"]["Nsqr"]) / npairs
         return apply_mu(params, mu_tuner.update(Nm, N2m))
 
@@ -498,13 +699,16 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
             maybe_checkpoint(n, 0)
             t0 = _clock(dev)
             if tuner is not None:
-                state, stats = tuned_step(params, state, torch.exp(tuner.log_dt), gen)
+                state, stats = par.run(tuned_step, params, state, torch.exp(tuner.log_dt),
+                                       generator=gen)
+                stats = par.gather_stats(stats)
                 # a flagged (auto-rejected) or non-finite update counts as 0
                 p = torch.clamp(torch.exp(-stats.delta_H), max=1.0)
                 p = torch.where(torch.isfinite(p) & (stats.flag == 0), p, torch.zeros_like(p))
                 tuner = dt_tuner_update(tuner, p.mean(), bcfg.target_acceptance)
             else:
-                state, stats = burnin_step(params, state, gen)
+                state, stats = par.run(burnin_step, params, state, generator=gen)
+                stats = par.gather_stats(stats)
             sim_stats["simulation_time"] += _clock(dev) - t0
             record_update("burnin", n + 1, n + 1, stats)
             state = do_special(state, n + 1)
@@ -521,7 +725,8 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
         for n in range(sim_start, sp.nsteps):
             maybe_checkpoint(sp.burnin, n)
             t0 = _clock(dev)
-            state, stats = sim_step(params, state, gen)
+            state, stats = par.run(sim_step, params, state, generator=gen)
+            stats = par.gather_stats(stats)
             sim_stats["simulation_time"] += _clock(dev) - t0
             record_update("simulation", n + 1, sp.burnin + n + 1, stats)
             state = do_special(state, n + 1)
@@ -538,20 +743,21 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
             stats_acc.fold("measurement", nmeas, 0.0, 0.0, 0, n_flagged=n_flagged)
             if mu_tuner.active:
                 params = tune_mu(params, inc)
-            if snaps:
+            if snaps and primary:
                 t0 = time.time()
                 for sname, svals in _host_tree(snaps).items():
                     out_io.write_snapshot(datafolder, sname, svals, nmeas)
                 sim_stats["write_time"] += time.time() - t0
             if nmeas % sp.bin_size == 0:
                 flush_stats()  # the window's deferred stats and warnings
-                t0 = _clock(dev)
-                processed = _host_tree(process_bin(ops, mspec, container, sp.bin_size))
-                sim_stats["measurement_time"] += _clock(dev) - t0
-                t0 = time.time()
-                out_io.write_bin(datafolder, processed, nmeas // sp.bin_size, ops)
-                sim_stats["write_time"] += time.time() - t0
-                container = zero_container(ops, mspec, dtype, dev)
+                if primary:
+                    t0 = _clock(dev)
+                    processed = _host_tree(process_bin(ops_g, mspec, container, sp.bin_size))
+                    sim_stats["measurement_time"] += _clock(dev) - t0
+                    t0 = time.time()
+                    out_io.write_bin(datafolder, processed, nmeas // sp.bin_size, ops_g)
+                    sim_stats["write_time"] += time.time() - t0
+                container = zero_container(ops_g, mspec, dtype, dev)
                 maybe_checkpoint(sp.burnin, n + 1, min_interval=min(10.0, sp.chckpnt_freq_s))
 
         # ---- finalize. The last checkpoint holds the raw counters: a resume
@@ -574,13 +780,14 @@ def _run(setup: SimulationSetup, n_chains: int) -> dict:
     for k in ("simulation_time", "measurement_time", "write_time"):
         sim_stats[k + "_min"] = sim_stats[k] / 60.0
 
-    x_final = state.x[0]
-    out_io.write_phonons(ops, x_final, os.path.join(datafolder, "final_phonon_config.out"))
-    if sp.write_M_matrix:
-        out_io.write_M_matrix(ops, rung_params(params), x_final,
-                              os.path.join(datafolder, "M_matrix.out"))
+    x_final = par.gather_field(state.x)[0]
     mu_tuner.estimate_mu()
-    write_summary(setup, sim_stats, mu_tuner)
+    if primary:
+        out_io.write_phonons(ops_g, x_final, os.path.join(datafolder, "final_phonon_config.out"))
+        if sp.write_M_matrix:
+            out_io.write_M_matrix(ops_g, rung_params(params), x_final,
+                                  os.path.join(datafolder, "M_matrix.out"))
+        write_summary(setup, sim_stats, mu_tuner)
     logger.info("simulation complete: %s", sim_stats)
     return sim_stats
 

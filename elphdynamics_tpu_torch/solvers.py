@@ -56,6 +56,16 @@ def _dot_hot(a, b):
     return fdot_fast(a, b, dim=(-2, -1))
 
 
+def _dots(pairs, reduce=None, dot=_dot_hot):
+    """The per-system dots of each ``(a, b)`` of ``pairs``. ``reduce`` (a
+    site-sharded solve: the site ranks' sum) turns the rank's partial dots
+    into the global ones, all of ``pairs`` in one all-reduce."""
+    ds = [dot(a, b) for a, b in pairs]
+    if reduce is None:
+        return ds
+    return list(reduce(torch.stack(ds)).unbind(0))
+
+
 def _norm_hot(a):
     return torch.sqrt(_dot_hot(a, a))
 
@@ -93,18 +103,25 @@ class CGResult:
 def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
        apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
        kappa_max: float = 1e12, active0: torch.Tensor | None = None,
-       deflate=None) -> CGResult:
+       deflate=None, reduce: Callable | None = None) -> CGResult:
     """Preconditioned CG for SPD ``A`` (``apply_P`` applies P⁻¹). A system
     stops when ``|r|/|b| < tol`` or when the running condition-number lower
     bound ``(2j/log(2ε₀/ε))²`` exceeds ``kappa_max``; ``active0`` masks out
     systems that should not be solved at all. ``deflate`` (a
     :class:`..ops.deflation.DeflationState`, chain axis leading as in ``b``)
-    projects the slow modes out of the start before the first iteration."""
+    projects the slow modes out of the start before the first iteration.
+
+    ``reduce`` makes the dots global on a site-sharded solve (each rank
+    holds a block of sites): two all-reduces per iteration, pᵀAp and then
+    |r|² with rᵀz. Every stopping decision then comes from the same bits on
+    every rank, so the ranks iterate in step."""
     if x0 is None:
         x0 = torch.zeros_like(b)
+    if deflate is not None and reduce is not None:
+        raise NotImplementedError("deflation with --site-devices: ROADMAP slice H2")
     P = apply_P if apply_P is not None else (lambda v: v)
 
-    normb = _norm(b)
+    normb = torch.sqrt(_dots([(b, b)], reduce, _dot)[0])
     safe_normb = _positive(normb)
     r = b - apply_A(x0)
     if deflate is not None:
@@ -114,8 +131,8 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
             x0 = deflation.project(deflate, r, x0)
             r = b - apply_A(x0)
     z = P(r)
-    rdotz = _dot(r, z)
-    eps0 = _norm(r) / safe_normb
+    rdotz, rr0 = _dots([(r, z), (r, r)], reduce, _dot)
+    eps0 = torch.sqrt(rr0) / safe_normb
 
     batch = b.shape[:-2]
     active = torch.ones(batch, dtype=torch.bool, device=b.device)
@@ -131,15 +148,15 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
         if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
             break
         Ap = apply_A(p)
-        pAp = _dot_hot(p, Ap)
+        pAp, = _dots([(p, Ap)], reduce)
         alpha = rdotz / _nonzero(pAp)
         x_new = x + _bc(alpha, x) * p
         r_new = r - _bc(alpha, r) * Ap
-        eps = _norm_hot(r_new) / safe_normb
+        z_new = P(r_new)
+        rr, rdotz_new = _dots([(r_new, r_new), (r_new, z_new)], reduce)
+        eps = torch.sqrt(rr) / safe_normb
         kmin_new = _kappa_bound(kmin, eps0, eps, j)
         done = (eps < tol) | (kmin_new > kappa_max)
-        z_new = P(r_new)
-        rdotz_new = _dot_hot(r_new, z_new)
         beta = rdotz_new / _nonzero(rdotz)
         p_new = z_new + _bc(beta, p) * p
 
@@ -166,29 +183,35 @@ class SolveResult:
 def solve_checked(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
                   apply_P: Callable | None = None, tol: float = 1e-5,
                   maxiter: int = 1000, kappa_max: float = 1e12,
-                  apply_A_check: Callable | None = None, deflate=None) -> SolveResult:
+                  apply_A_check: Callable | None = None, deflate=None,
+                  reduce: Callable | None = None) -> SolveResult:
     """CG with residual verification and retry: systems whose true residual
     ``|A·x−b|/|b|`` exceeds √tol are flagged (1 = hit maxiter, 2 = false
     convergence) and re-solved from zero, unpreconditioned, with 10× the
     iteration budget. ``apply_A_check`` (default ``apply_A``) is the operator
     of the verification and the retry; ``deflate`` goes to the first
-    :func:`cg` only (the retry starts from zero, undeflated)."""
+    :func:`cg` only (the retry starts from zero, undeflated). ``reduce``
+    as in :func:`cg`, for the verification too."""
     A_chk = apply_A_check if apply_A_check is not None else apply_A
     res1 = cg(apply_A, b, x0=x0, apply_P=apply_P, tol=tol, maxiter=maxiter,
-              kappa_max=kappa_max, deflate=deflate)
+              kappa_max=kappa_max, deflate=deflate, reduce=reduce)
     return _verify_and_retry(A_chk, b, res1, tol, maxiter, kappa_max,
-                             retry=apply_P is not None)
+                             retry=apply_P is not None, reduce=reduce)
 
 
 def _verify_and_retry(A_chk, b, res1: CGResult, tol: float, maxiter: int, kappa_max: float,
-                      retry: bool = True) -> SolveResult:
+                      retry: bool = True, reduce: Callable | None = None) -> SolveResult:
     """The ladder shared by :func:`solve_checked` and
     :func:`block_solve_checked`: verify ``res1`` against ``A_chk``, flag the
     systems above √tol and re-solve them from zero by plain masked CG. The
     retry runs only when a system failed (one host read)."""
-    normb = _norm(b)
+    def norms(a, b_):
+        return [torch.sqrt(d) for d in _dots([(a, a), (b_, b_)], reduce, _dot)]
+
+    d1 = A_chk(res1.x) - b
+    res_norm, normb = norms(d1, b)
     safe_normb = _positive(normb)
-    err = _norm(A_chk(res1.x) - b) / safe_normb
+    err = res_norm / safe_normb
     sq = math.sqrt(tol)
     bad = err > sq
     one, two, zero = (torch.full_like(res1.iters, k) for k in (1, 2, 0))
@@ -199,9 +222,9 @@ def _verify_and_retry(A_chk, b, res1: CGResult, tol: float, maxiter: int, kappa_
 
     x_start = torch.where(_bc(bad, res1.x), torch.zeros_like(res1.x), res1.x)
     res2 = cg(A_chk, b, x0=x_start, tol=tol, maxiter=10 * maxiter,
-              kappa_max=kappa_max, active0=bad)
+              kappa_max=kappa_max, active0=bad, reduce=reduce)
     x = torch.where(_bc(bad, res1.x), res2.x, res1.x)
-    err2 = _norm(A_chk(x) - b) / safe_normb
+    err2 = norms(A_chk(x) - b, b)[0] / safe_normb
     still_bad = bad & (err2 > sq)
     flag = torch.where(still_bad, flag, zero)
     return SolveResult(x=x, iters=res1.iters + res2.iters, residual=err2, flag=flag)

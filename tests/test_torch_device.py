@@ -13,6 +13,7 @@ from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.models.ssh import build_ssh
 from elphdynamics_tpu_torch.ops import deflation
+from elphdynamics_tpu_torch.parallel import multihost
 from elphdynamics_tpu_torch.utils.device import require_device
 
 torch.set_num_threads(1)
@@ -44,6 +45,7 @@ ENTRY_POINTS = {
     "deflation.init": lambda tmp: deflation.init(2, 4, 4, 10),
     "hmc.dt_tuner_init": lambda tmp: hmc.dt_tuner_init(0.05),
     "hmc.DtTunerState.from_list": lambda tmp: hmc.DtTunerState.from_list([0.0] * 7),
+    "multihost.launch": lambda tmp: multihost.launch(print, 2, "gloo"),
 }
 
 

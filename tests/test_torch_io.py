@@ -38,6 +38,7 @@ from elphdynamics_tpu_torch.io import output as tout
 from elphdynamics_tpu_torch.io import summary as tsummary
 from elphdynamics_tpu_torch.measure import measurements as tm
 from elphdynamics_tpu_torch.measure.mufinder import MuTuner
+from elphdynamics_tpu_torch.simulation import check_parallel
 
 torch.set_num_threads(1)
 
@@ -205,19 +206,33 @@ def _ssh(c, **extra):
     return c
 
 
-# (id, edit, slice): what the port still refuses. The ids keep the numbers
-# they had when the list also held what has been ported since.
+# (id, edit, slice[, (--devices, --site-devices)]): what the port still
+# refuses, a layout of ranks included. The ids keep the numbers they had
+# when the list also held what has been ported since.
 UNPORTED = [
     ("slice F4-12", lambda c: (c["holstein"].update(twist=[0.3, 0.0]),
                                c["solver"].update(block=True)), "slice F4"),
+    ("slice H2-ssh", lambda c: _ssh(c), "slice H2", (1, 2)),
+    ("slice H2-ssh_langevin", lambda c: _langevin(_ssh(c)), "slice H2", (1, 2)),
+    ("slice H2-chain_x_site", lambda c: None, "slice H2", (2, 2)),
+    ("slice H2-block", lambda c: c["solver"].update(block=True), "slice H2", (1, 2)),
+    ("slice H2-deflation", lambda c: c["solver"].update(deflation={"k": 4}), "slice H2",
+     (1, 2)),
+    ("slice H2-nearnull", lambda c: c["solver"].update(nearnull={"k": 4}), "slice H2", (1, 2)),
+    ("slice H2-tempering", lambda c: c.update(tempering={"ladder": [1.0, 0.5]}), "slice H2",
+     (1, 2)),
+    ("slice H2-2mn", lambda c: c["hmc"].update(integrator="2mn"), "slice H2", (1, 2)),
 ]
 
 
-@pytest.mark.parametrize("edit,slice_", [u[1:] for u in UNPORTED], ids=[u[0] for u in UNPORTED])
-def test_unported_sections_raise(edit, slice_, tmp_path):
+@pytest.mark.parametrize("edit,slice_,layout", [(u[1], u[2], u[3] if len(u) > 3 else (1, 1))
+                                                for u in UNPORTED],
+                         ids=[u[0] for u in UNPORTED])
+def test_unported_sections_raise(edit, slice_, layout, tmp_path):
     cfg = _stock("holstein_hmc_square")
     edit(cfg)
     with pytest.raises(NotImplementedError, match=slice_):
+        check_parallel(cfg, *layout)
         tconfig.build_setup(cfg, str(tmp_path), "cpu", torch.float64)
 
 
@@ -300,12 +315,24 @@ def test_cli_deep_beta_example_with_profile(tmp_path):
     assert "tune_dt: frozen dt=" in log
 
 
-def test_cli_refuses_cuda_without_a_card_and_multi_gpu(capsys):
+def test_cli_refuses_cuda_without_a_card_and_multi_gpu(capsys, monkeypatch):
+    """Without a card a CUDA run (one rank or several) exits with a message;
+    more NCCL ranks than cards is refused before a rank starts; a
+    ``--multihost`` process needs its launcher's environment; both layouts
+    at once are the next slice's."""
     path = os.path.join(EXAMPLES, "holstein_hmc_square.toml")
     if not torch.cuda.is_available():
         assert cli.main([path]) != 0
         assert "no CUDA device" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="slice H"):
-        cli.main([path, "--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice H"):
+        assert cli.main([path, "--devices", "2"]) != 0
+        assert "no CUDA device" in capsys.readouterr().err
+    else:
+        n = torch.cuda.device_count()
+        assert cli.main([path, "--devices", str(n + 1)]) != 0
+        assert "CUDA devices" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="slice H2"):
+        cli.main([path, "--devices", "2", "--site-devices", "2", "--device", "cpu"])
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="launcher"):
         cli.main([path, "--multihost", "--device", "cpu"])

@@ -1,0 +1,251 @@
+"""Rank functions of the PyTorch port's multi-rank tests
+(``tests/test_torch_parallel_*.py``).
+
+``elphdynamics_tpu_torch.parallel.multihost.launch`` spawns each rank and
+pickles its function by import path, so the functions live here, in a
+module that imports torch and the port only (a spawned rank does not
+import JAX). Every function takes the rank's device first and returns
+numpy arrays or numbers; a sharded field comes back as the rank's block,
+and the test assembles the blocks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig, HMCDraws, HMCState, make_hmc_step
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
+from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+from elphdynamics_tpu_torch.models.adapter import make_model_ops
+from elphdynamics_tpu_torch.models.holstein import build_holstein
+from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.ops.checkerboard import build_checkerboard_spec
+from elphdynamics_tpu_torch.parallel import multihost
+from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard, shard_holstein
+
+UC = (2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
+T_ASSIGN = [(1.0, 0.1, 0, 0, (1, 0, 0)), (1.0, 0.1, 0, 0, (0, 1, 0))]
+WIJ = [(0.3, 0.05, 1, 0, 0, (1, 0, 0)), (0.2, 0.0, -1, 0, 0, (0, 1, 0))]
+
+
+def holstein_kw(case: str) -> dict:
+    """Model arguments shared by both packages: ``plain``, ``wij``
+    (dispersion and an anharmonic term) or ``twist`` (complex hopping)."""
+    kw = dict(t_assignments=T_ASSIGN, omega=1.0, omega_std=0.1, lam=1.0, lam_std=0.1, mu=-0.1)
+    if case == "wij":
+        kw.update(wij_assignments=WIJ, omega4=0.05)
+    if case == "twist":
+        kw.update(twist=(0.3, 0.0))
+    return kw
+
+
+def build(L: int, beta: float, dtau: float, case: str, seed: int = 5, **extra):
+    """The port's Holstein model on the CPU (float64)."""
+    return build_holstein(Lattice.create(UnitCell.create(*UC), L), beta, dtau,
+                          rng=np.random.default_rng(seed), device="cpu",
+                          **holstein_kw(case), **extra)
+
+
+def _shard(spec, params):
+    """This rank's (shard, local ops, local params) of a model."""
+    shard = SiteShard(spec.ckb, spec.wij_table, multihost.world(), multihost.rank())
+    lspec, lparams = shard_holstein(spec, params, shard)
+    return shard, make_model_ops(lspec), lparams
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+FOLDS = (("mul", False, 1.0), ("transpose", True, 1.0), ("inverse", True, -1.0),
+         ("inverse_transpose", False, -1.0))
+
+
+def fold_worker(device, cases):
+    """The halo fold of each ``(neighbor table, nsites, cosh, sinh, v)`` of
+    ``cases`` in the four directions on this rank's block:
+    ``{(case, direction): block}``, and per case the shard's (messages,
+    bytes, folds)."""
+    out = {}
+    for i, (table, nsites, c, s, v) in enumerate(cases):
+        spec = build_checkerboard_spec(nsites, table)
+        shard = SiteShard(spec, np.zeros((2, 0), dtype=np.int64), multihost.world(),
+                          multihost.rank())
+        c, s, v = (torch.as_tensor(a, device=device) for a in (c, s, v))
+        for name, rev, sign in FOLDS:
+            out[(i, name)] = _np(shard.fold(c, s, shard.local(v), reverse=rev, sign=sign))
+        out[(i, "halo")] = (shard.halo_msgs, shard.halo_bytes, shard.folds)
+    return out
+
+
+def solve_worker(device, L: int, cases, n_chains: int):
+    """:func:`solve_case` for each model case."""
+    return {case: solve_case(L, case, n_chains) for case in cases}
+
+
+def solve_case(L: int, case: str, n_chains: int):
+    """Sharded operators, bosonic action, KPM bounds and the checked CG
+    against the one-rank port on the same inputs: the largest differences
+    and both iteration counts."""
+    spec, params = build(L, 1.0, 0.1, case, dense_threshold=0)
+    ops = make_model_ops(spec)
+    shard, lops, lp = _shard(spec, params)
+    g = torch.Generator().manual_seed(1)
+    x = 0.3 * torch.randn((n_chains, spec.Nsites, spec.Ltau), generator=g, dtype=torch.float64)
+    rhs = torch.randn((n_chains, 2, spec.Nsites, spec.Ltau), generator=g, dtype=torch.float64)
+    if params.cosht.is_complex():
+        rhs = rhs.to(params.cosht.dtype)
+    loc = shard.local
+    d, ld = ops.derived(params, x), lops.derived(lp, loc(x))
+    diffs = {
+        "mulM": (loc(ops.mulM(params, d[:, None], rhs)) - lops.mulM(lp, ld[:, None], loc(rhs))),
+        "mulMT": (loc(ops.mulMT(params, d[:, None], rhs)) - lops.mulMT(lp, ld[:, None], loc(rhs))),
+        "muldMdx": (loc(ops.muldMdx(params, d[:, None], x[:, None], rhs, rhs))
+                    - lops.muldMdx(lp, ld[:, None], loc(x)[:, None], loc(rhs), loc(rhs))),
+        "Sb": ops.calc_Sb(params, x) - lops.calc_Sb(lp, loc(x)),
+        "dSbdx": loc(ops.calc_dSbdx(params, x, True)) - lops.calc_dSbdx(lp, loc(x), True),
+    }
+    kcfg = kpm.KPMConfig(max_order=4)
+    pre, lpre = kpm.make_symmetric_precond(ops, kcfg), kpm.make_symmetric_precond(lops, kcfg)
+    st, lst = pre.setup(params, x), lpre.setup(lp, loc(x))
+    diffs["lam_avg"] = st.lam_avg - lst.lam_avg
+    diffs["lam_mag"] = st.lam_mag - lst.lam_mag
+    scfg = SolverConfig(tol=1e-8, maxiter=500)
+    full = solve_oinv(ops, params, d[:, None], rhs, scfg, resolve_precond(pre, params, x))
+    part = solve_oinv(lops, lp, ld[:, None], loc(rhs), scfg, resolve_precond(lpre, lp, loc(x)))
+    diffs["cg_x"] = loc(full.x) - part.x
+    out = {k: float(v.abs().max()) for k, v in diffs.items()}
+    out["iters"] = (_np(full.iters).tolist(), _np(part.iters).tolist())
+    out["flags"] = (_np(full.flag).tolist(), _np(part.flag).tolist())
+    out["allreduces"] = shard.allreduces
+    return out
+
+
+def _local_draws(draws: dict, shard) -> HMCDraws:
+    """Numpy whole-model draws as the rank's HMCDraws."""
+    T = torch.as_tensor
+    return HMCDraws(momentum=shard.local(T(draws["momentum"])),
+                    pseudofermion=shard.local(T(draws["pseudofermion"])),
+                    uniform=T(draws["uniform"]),
+                    kpm_start=tuple(shard.local(T(v)) for v in draws["kpm_start"]))
+
+
+def hmc_worker(device, L: int, beta: float, case: str, cfg: dict, kpm_kw: dict, mass, x0, v0,
+               draws: dict, dt=None):
+    """One sharded HMC update with the given whole-model draws, and the same
+    update of the one-rank port (rank 0): the sharded x and v blocks, both
+    runs' statistics and the one-rank fields."""
+    spec, params = build(L, beta, 0.1, case)
+    ops = make_model_ops(spec)
+    shard, lops, lp = _shard(spec, params)
+    hcfg = HMCConfig(**cfg)
+    dyn = dt is not None
+    step = make_hmc_step(lops, mass, hcfg, kpm.make_symmetric_precond(lops, kpm.KPMConfig(**kpm_kw)),
+                         dynamic_dt=dyn)
+    x0, v0 = torch.as_tensor(x0), torch.as_tensor(v0)
+    args = (torch.tensor(dt, dtype=torch.float64),) if dyn else ()
+    st, stats = step(lp, HMCState(x=shard.local(x0), v=shard.local(v0)), *args,
+                     draws=_local_draws(draws, shard))
+
+    def stat_dict(s):
+        return {k: _np(getattr(s, k)) for k in ("accepted", "iters", "flag", "delta_H", "H")}
+
+    out = dict(x=_np(st.x), v=_np(st.v), stats=stat_dict(stats),
+               halo=(shard.halo_msgs, shard.halo_bytes, shard.folds, shard.allreduces))
+    if multihost.rank() == 0:
+        one = make_hmc_step(ops, mass, hcfg, kpm.make_symmetric_precond(ops, kpm.KPMConfig(**kpm_kw)),
+                            dynamic_dt=dyn)
+        T = torch.as_tensor
+        st1, stats1 = one(params, HMCState(x=x0, v=v0), *args, draws=HMCDraws(
+            momentum=T(draws["momentum"]), pseudofermion=T(draws["pseudofermion"]),
+            uniform=T(draws["uniform"]), kpm_start=tuple(T(v) for v in draws["kpm_start"])))
+        out.update(one_x=_np(st1.x), one_v=_np(st1.v), one_stats=stat_dict(stats1))
+    return out
+
+
+def sampler_worker(device, L: int, case: str, n_chains: int):
+    """Reflection, swap, the three Langevin schemes and a Green's-function
+    sample, sharded and on one rank from equal generators: per sampler the
+    largest difference and whether the decisions and iterations agree."""
+    from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
+    from elphdynamics_tpu_torch.dynamics.special_updates import (
+        SpecialUpdateConfig, make_reflection_update, make_swap_update)
+    from elphdynamics_tpu_torch.measure.greens import sample_greens
+    from elphdynamics_tpu_torch.ops.fourier_accel import build_Q
+
+    spec, params = build(L, 1.0, 0.1, case)
+    ops = make_model_ops(spec)
+    shard, lops, lp = _shard(spec, params)
+    kcfg = kpm.KPMConfig(max_order=4)
+    pre, lpre = kpm.make_precond(ops, kcfg), kpm.make_precond(lops, kcfg)
+    g = torch.Generator().manual_seed(2)
+    x = 0.4 * torch.randn((n_chains, spec.Nsites, spec.Ltau), generator=g, dtype=torch.float64)
+    out = {}
+
+    def gens():
+        return torch.Generator().manual_seed(9), torch.Generator().manual_seed(9)
+
+    ucfg = SpecialUpdateConfig(n_moves=3, tol=1e-5, maxiter=500)
+    for name, make in (("reflection", make_reflection_update), ("swap", make_swap_update)):
+        g1, g2 = gens()
+        x1, r1 = make(ops, ucfg, pre)(params, x, g1)
+        x2, r2 = make(lops, ucfg, lpre)(lp, shard.local(x), g2)
+        out[name] = (float((shard.local(x1) - x2).abs().max()), _np(r1).tolist(), _np(r2).tolist())
+    Q = build_Q(_np(params.omega), spec.dtau, spec.Ltau,
+                [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
+    scfg = SolverConfig(tol=1e-8, maxiter=500)
+    for method in ("euler", "rk", "heun"):
+        g1, g2 = gens()
+        x1, s1 = make_langevin_step(ops, Q, 1e-3, method, scfg, pre)(params, x, g1)
+        x2, s2 = make_langevin_step(lops, Q, 1e-3, method, scfg, lpre)(lp, shard.local(x), g2)
+        out[method] = (float((shard.local(x1) - x2).abs().max()),
+                       _np(s1.iters).tolist(), _np(s2.iters).tolist())
+    g1, g2 = gens()
+    gd1 = sample_greens(ops, params, x, 4, scfg, pre, g1)
+    gd2 = sample_greens(lops, lp, shard.local(x), 4, scfg, lpre, g2)
+    MinvR = shard.gather(gd2.MinvR)
+    out["greens"] = (float((gd1.MinvR - MinvR).abs().max()),
+                     float((gd1.R - shard.gather(gd2.R)).abs().max()),
+                     _np(gd1.iters).tolist(), _np(gd2.iters).tolist())
+    return out
+
+
+def simulate_worker(device, config: str, run_id: int, n_chains: int, n_devices: int = 1,
+                    site_devices: int = 1):
+    """One rank of a driver run on the CPU in float64: its statistics and
+    the processed bins it wrote, as float64 arrays (rank 0 writes them; the
+    text files round to 8 digits)."""
+    from elphdynamics_tpu_torch import simulation
+
+    bins = []
+    write_bin = simulation.out_io.write_bin
+
+    def recording_write_bin(datafolder, processed, bin_index, ops):
+        bins.append(processed)
+        return write_bin(datafolder, processed, bin_index, ops)
+
+    simulation.out_io.write_bin = recording_write_bin
+    try:
+        stats = simulation.simulate(config, run_id=run_id, n_chains=n_chains, device=device,
+                                    dtype=torch.float64, n_devices=n_devices,
+                                    site_devices=site_devices)
+    finally:
+        simulation.out_io.write_bin = write_bin
+    return stats, bins
+
+
+def collectives_worker(device):
+    """Every collective of ``parallel.multihost`` and ``parallel.comm`` on
+    rank-stamped tensors."""
+    from elphdynamics_tpu_torch.parallel.comm import allreduce_sum, halo_exchange
+
+    r, D = multihost.rank(), multihost.world()
+    x = torch.full((2, 3), float(r))
+    from_prev, from_next = halo_exchange(torch.full((1, 2), 10.0 * r), torch.full((3,), -1.0 * r),
+                                         (r + 1) % D, (r - 1) % D)
+    none = halo_exchange(None, None, (r + 1) % D, (r - 1) % D)
+    return dict(fetch=multihost.fetch(x), tree=multihost.fetch_tree({"a": {"b": x[0]}}),
+                int=multihost.bcast_int(7 + r), str=multihost.bcast_str(f"rank {r}"),
+                sum=_np(allreduce_sum(torch.tensor([1.0, r]))), from_prev=_np(from_prev),
+                from_next=_np(from_next), none=none, primary=multihost.is_primary())
