@@ -59,7 +59,7 @@ Phases (one line each, and the process exits non-zero if any fails):
     right applies;
 14. the TOML driver on ``examples/holstein_langevin_square.toml`` with its
     counts cut, and the same file at 64×64, β = 4 (4 chains, a few steps,
-    two measurements) with BondBond, CurrentCurrent and BondPairGreens
+    one measurement) with BondBond, CurrentCurrent and BondPairGreens
     switched on (nᵥ = 10; BondBond and BondPairGreens time dependent);
 15. K1's complex mode (complex hopping: twisted boundaries) against its
     twin in complex64 and complex128, all directions, in its three table
@@ -94,11 +94,11 @@ Phases (one line each, and the process exits non-zero if any fails):
     16 by plain KPM-CG, with deflation and with the near-null
     preconditioner: iterations, set-up and solve seconds, peak memory;
 22. the TOML driver on ``examples/holstein_hmc_deep_beta.toml`` (as shipped,
-    cut in depth to 4 tuned + 2 sampling updates; the tuned dt) and on the
+    cut in depth to 4 tuned + 1 sampling update; the tuned dt) and on the
     stock 4×4 Holstein example with a ``[tempering]`` ladder on 8 chains
     (the exchange rate);
 23. every (kernel, coefficient form, field shape) that one of the 64×64
-    runs of phases 9, 11, 13, 14, 17, 20, 21 and 24 launched (``ckb_cuda.launch_shapes``),
+    runs of phases 9, 11, 13, 14, 17, 20, 21, 24 and 29 launched (``ckb_cuda.launch_shapes``),
     against the twin in float32 and float64 (complex64 and complex128 for
     K1's complex mode), all directions, at every launch geometry the
     wrapper's tuning may keep for that shape, so that no run goes through a
@@ -116,15 +116,35 @@ Phases (one line each, and the process exits non-zero if any fails):
     card run: an HMC update with KPM and warm starts, a twisted update,
     reflection and swap moves, a Runge-Kutta Langevin step and a
     Green's-function sample; x to 1e-12 (probe solutions 1e-10), equal
-    decisions and iterations;
-26. (c) one site-sharded ``KERNEL_64X64`` update on 2 gloo ranks sharing
-    the card (the halo fold is plain torch, its halos and all-reduces
-    staged through the host: not a multi-GPU rate): seconds, CG
-    iterations, flags, halo messages and bytes per fold, all-reduces;
-27. (d) (a)–(c) with one NCCL rank per card when the machine has two cards,
-    else one line saying why not.
+    decisions and iterations (run in the 2-rank launch of (e)–(g));
+26. (c) replaced by (g)'s ``KERNEL_64X64`` on the 2×2 layout, which
+    covers it;
+27. (e) SSH site-sharded at 4×4, float64, on 2 gloo ranks against the
+    unsharded card run: an HMC update with KPM and warm starts, a twisted
+    update, swap (and the null reflection) moves, a Runge-Kutta Langevin
+    step, a Green's-function sample; x to 1e-12 (probe solutions 1e-10),
+    equal decisions and iterations, and the bond field bitwise equal on
+    both ranks after each sampler;
+28. (f) 4×4 float64 on 4 ranks (2 chain × 2 site) against one rank: an HMC
+    update with slow-mode deflation and block-CG probe solves, tempering
+    exchanges of both parities (Holstein and SSH); and the stock 4×4 SSH
+    example through the driver on 2 site ranks (cut in depth to 2 updates,
+    KPM order 8): x and bins to 1e-9 (a bin array to 1e-9 of its largest
+    value when that exceeds 1), equal decisions;
+29. (g) at full width, trajectories cut to 0.1: one site-sharded
+    ``SSH_64X64`` update (8 chains, D = 2) and ``KERNEL_64X64`` on the 2×2
+    layout (8 chains per block), each with seconds, CG iterations, flags,
+    halo messages and bytes per fold, all-reduces, and SSH's force
+    all-reduce bytes per force evaluation ([8, 8192, 40] float32); then
+    each chain block's measurement on its gathered lattice (Greens, 2
+    probes; K1 and K2); ``TEMPERING_64X64`` on 2 chain ranks, phase 20's
+    sequence, its exchange rates and decisions against phase 20's, and a
+    64×64 SSH ladder (4 rungs × 2 lanes) on 2 chain ranks against one
+    rank; K1 and K2 launches per rank in ``launches_by_path``;
+30. (d) (a), (b), (e)–(g) with one NCCL rank per card when the machine has
+    two cards (the 2×2 layout with four), else one line saying why not.
 
-Phases 24–27 run before 23, which comes last.
+Phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -871,7 +891,8 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
         out["max_flag"] = max(out["max_flag"], out["exchange_max_flag"])
     say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_updates=timed,
         **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out.items()})
-    out.update(launch_shapes=set(ckb_cuda.launch_shapes), x=state.x.cpu(), accepted=acc)
+    out.update(launch_shapes=set(ckb_cuda.launch_shapes), x=state.x.cpu(), accepted=acc,
+               exchange_rates=[(float(r), int(f)) for r, f in exchanges])
     shape = (cfg.n_chains, b.ops.Nph, round(cfg.beta / cfg.dtau))
     if not (out["x_finite"] and out["dH_finite"] and out["x_shape"] == shape):
         raise RuntimeError(f"{cfg.name}: non-finite or misshapen output")
@@ -979,7 +1000,9 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
     with tempfile.TemporaryDirectory() as work:
         small = json.loads(json.dumps(stock))
         burnin, sampling, bins = small_updates
-        small["hmc"].update(burnin_updates=burnin, simulation_updates=sampling)
+        # 20 of the stock 100 leapfrog steps: the 4×4 runs are host-bound
+        small["hmc"].update(burnin_updates=burnin, simulation_updates=sampling,
+                            trajectory_time=0.2)
         small["simulation"]["num_bins"] = bins
         run_driver(f"{name}_square_4x4", small, 1, work)
         big = json.loads(json.dumps(stock))
@@ -998,8 +1021,8 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
 
 def phase_driver_langevin() -> dict:
     """``examples/holstein_langevin_square.toml`` with its counts cut (4×4,
-    dense branch), and the same file at 64×64, β = 4, 4 chains, 1 + 4
-    Runge-Kutta steps and two measurements with the bond-pair correlations
+    dense branch), and the same file at 64×64, β = 4, 4 chains, 1 + 2
+    Runge-Kutta steps and one measurement with the bond-pair correlations
     BondBond, CurrentCurrent and BondPairGreens switched on (nᵥ = 10: 45
     probe pairs, 4 bond pairs). BondBond and BondPairGreens are time
     dependent, CurrentCurrent is written at equal time (its transforms run
@@ -1016,8 +1039,8 @@ def phase_driver_langevin() -> dict:
         big = json.loads(json.dumps(stock))
         big["lattice"]["L"] = 64
         big["holstein"]["beta"] = 4.0
-        big["langevin"].update(burnin_timesteps=1, simulation_timesteps=4, meas_freq=2)
-        big["simulation"]["num_bins"] = 2
+        big["langevin"].update(burnin_timesteps=1, simulation_timesteps=2, meas_freq=2)
+        big["simulation"]["num_bins"] = 1
         big["measurements"]["num_random_vectors"] = 10
         bond = ("BondBond", "CurrentCurrent", "BondPairGreens")
         big["measurements"].update({k: {"measure": True, "time_dependent": k != "CurrentCurrent"}
@@ -1544,7 +1567,7 @@ def phase_deep_beta_solves() -> dict:
 def phase_driver_deep() -> dict:
     """``examples/holstein_hmc_deep_beta.toml`` as shipped (8×8, β = 16, 20
     probes, time-dependent correlations, ``tune_dt`` toward 0.85), cut in
-    depth only: 4 tuned burn-in updates, 2 sampling updates, 2 bins, 1
+    depth only: 4 tuned burn-in updates, 1 sampling update, 1 bin, 1
     chain (host-bound: thousands of CG iterations per update); and the
     stock 4×4 Holstein example with ``[tempering] ladder = [1.0, 0.9, 0.8,
     0.7]`` (an exchange every update) on 8 chains, 2 sampling updates."""
@@ -1553,8 +1576,8 @@ def phase_driver_deep() -> dict:
     with tempfile.TemporaryDirectory() as work:
         with open(os.path.join(here, "examples", "holstein_hmc_deep_beta.toml"), "rb") as f:
             deep = tomllib.load(f)
-        deep["hmc"].update(burnin_updates=4, simulation_updates=2)
-        deep["simulation"]["num_bins"] = 2
+        deep["hmc"].update(burnin_updates=4, simulation_updates=1)
+        deep["simulation"]["num_bins"] = 1
         # dual averaging starts from its shrinkage point log(10·dt₀): its
         # first burn-in steps try dt up to ~13·dt₀, where a β = 16
         # trajectory can run away; such an update is flagged, rejected and
@@ -1563,7 +1586,7 @@ def phase_driver_deep() -> dict:
                                  failures_ok=deep["hmc"]["burnin_updates"])
         with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
             temp = tomllib.load(f)
-        temp["hmc"].update(burnin_updates=0, simulation_updates=2)
+        temp["hmc"].update(burnin_updates=0, simulation_updates=2, trajectory_time=0.2)
         temp["simulation"]["num_bins"] = 2
         temp["tempering"] = {"ladder": [1.0, 0.9, 0.8, 0.7], "freq": 1}
         out["tempering"] = run_driver("holstein_tempering_4x4", temp, 8, work)
@@ -1580,13 +1603,17 @@ def phase_driver_deep() -> dict:
 RANK_TIMEOUT_S = 600
 
 
+# every gloo rank's device (NCCL ranks take cuda:r)
+RANK_DEVICE = "cuda:0"
+
+
 def _launch(fn, world: int, backend: str, args=()) -> list:
     """``fn(device, *args)`` on ``world`` spawned ranks: gloo ranks share
     card 0 (their messages staged through host memory), NCCL ranks take
     one card each."""
     from elphdynamics_tpu_torch.parallel.multihost import launch
 
-    return launch(fn, world, backend, "cuda:0", args, timeout_s=RANK_TIMEOUT_S)
+    return launch(fn, world, backend, RANK_DEVICE, args, timeout_s=RANK_TIMEOUT_S)
 
 
 def _chain_block(device, world: int, rank: int, warmup: int, timed: int) -> dict:
@@ -1657,18 +1684,24 @@ def _bin_leaves(tree, path=""):
         yield path, np.asarray(tree)
 
 
-def _bins_diff(a: list, b: list) -> tuple[float, int]:
-    """The largest |difference| of two runs' processed bins, and how many
-    arrays were compared."""
+def _bins_diff(a: list, b: list, scaled: bool = False):
+    """The largest |difference| of two runs' processed bins and how many
+    arrays were compared; with ``scaled`` also the largest difference over
+    its array's scale max(1, max |value|) and that array's path."""
     if len(a) != len(b) or not a:
         raise RuntimeError(f"bins: {len(a)} against {len(b)}")
-    worst, n = 0.0, 0
+    worst, rel, where, n = 0.0, 0.0, "", 0
     for ba, bb in zip(a, b):
         other = dict(_bin_leaves(bb))
         for path, arr in _bin_leaves(ba):
-            worst = max(worst, float(np.abs(other[path] - arr).max()) if arr.size else 0.0)
+            if arr.size:
+                d = float(np.abs(other[path] - arr).max())
+                worst = max(worst, d)
+                r = d / max(1.0, float(np.abs(arr).max()))
+                if r > rel:
+                    rel, where = r, path
             n += 1
-    return worst, n
+    return (worst, n, rel, where) if scaled else (worst, n)
 
 
 def _checkpoint_x(folder: str) -> np.ndarray:
@@ -1717,7 +1750,7 @@ def phase_chain_sharded(reference: dict, backend: str = "gloo") -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
         cfg = tomllib.load(f)
-    cfg["hmc"].update(burnin_updates=1, simulation_updates=2)
+    cfg["hmc"].update(burnin_updates=1, simulation_updates=2, trajectory_time=0.2)
     cfg["simulation"].update(num_bins=2, random_seed=17)
     from elphdynamics_tpu_torch.io.output import dump_toml
 
@@ -1744,14 +1777,15 @@ def phase_chain_sharded(reference: dict, backend: str = "gloo") -> dict:
     return out
 
 
-def _rank_site_small(device) -> dict:
-    """(b) 4×4 float64 on this rank's block of sites against the unsharded
-    card run (rank 0 runs it too), every sampler from equal generators:
-    an HMC update with KPM and warm starts, a twisted update, reflection
-    and swap moves, a Runge-Kutta Langevin step, a Green's-function
-    sample. Per run: the largest |Δ| and whether decisions and iterations
-    agree."""
-    from elphdynamics_tpu_torch.bench import build_bench_step, shard_bench_step
+def _rank_site_small(device, model: str = "holstein") -> dict:
+    """(b) / (e) 4×4 float64 on this rank's block of sites against the
+    unsharded card run (every rank runs it too), every sampler from equal
+    generators: an HMC update with KPM and warm starts, a twisted update,
+    reflection and swap moves, a Runge-Kutta Langevin step, a
+    Green's-function sample, of the Holstein or the SSH model. Per run: the
+    largest |Δ|, whether decisions and iterations agree, and the sharded
+    phonon field (SSH's bond field is whole on every rank)."""
+    from elphdynamics_tpu_torch.bench import build_bench_step, build_ssh_step, shard_bench_step
     from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
     from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
     from elphdynamics_tpu_torch.dynamics.special_updates import (
@@ -1763,130 +1797,488 @@ def _rank_site_small(device) -> dict:
     from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard
 
     out = {}
+    ssh = model == "ssh"
+    make = build_ssh_step if ssh else build_bench_step
 
     def gens():
         return (torch.Generator(device=device).manual_seed(9),
                 torch.Generator(device=device).manual_seed(9))
 
     for name, twist in (("hmc", None), ("hmc_twisted", (0.3, 0.1))):
-        b = build_bench_step(4, 1.0, 0.1, 0.05, 2, device, torch.float64, trajectory_time=0.2,
-                             twist=twist)
-        shard = SiteShard(b.ops.spec.ckb, b.ops.spec.wij_table, multihost.world(),
-                          multihost.rank())
+        b = make(4, 1.0, 0.1, 0.05, 2, device, torch.float64, trajectory_time=0.2, twist=twist)
+        shard = SiteShard(b.ops.spec.ckb, getattr(b.ops.spec, "wij_table", np.zeros((2, 0), int)),
+                          multihost.world(), multihost.rank())
         lb = shard_bench_step(b, shard)
+
+        def mine(t):
+            """This rank's part of a whole phonon field."""
+            return t if ssh else shard.local(t)
+
         g1, g2 = gens()
         s1, st1 = b.step(b.params, b.state, g1)
         s2, st2 = lb.step(lb.params, lb.state, g2)
-        out[name] = (float((shard.local(s1.x) - s2.x).abs().max()),
+        out[name] = (float((mine(s1.x) - s2.x).abs().max()),
                      bool(torch.equal(st1.accepted, st2.accepted)),
-                     bool(torch.equal(st1.iters, st2.iters)))
+                     bool(torch.equal(st1.iters, st2.iters)), s2.x.cpu())
         if twist is not None:
             continue
         ops, lops, params, lp = b.ops, lb.ops, b.params, lb.params
-        x, lx = s1.x, shard.local(s1.x)
+        x, lx = s1.x, mine(s1.x)
         pre, lpre = kpm.make_precond(ops, b.kpm_cfg), kpm.make_precond(lops, b.kpm_cfg)
         ucfg = SpecialUpdateConfig(n_moves=3, tol=1e-5, maxiter=500)
-        for uname, make in (("reflection", make_reflection_update), ("swap", make_swap_update)):
+        for uname, upd in (("reflection", make_reflection_update), ("swap", make_swap_update)):
             g1, g2 = gens()
-            x1, r1 = make(ops, ucfg, pre)(params, x, g1)
-            x2, r2 = make(lops, ucfg, lpre)(lp, lx, g2)
-            out[uname] = (float((shard.local(x1) - x2).abs().max()), bool(torch.equal(r1, r2)),
-                          True)
+            x1, r1 = upd(ops, ucfg, pre)(params, x, g1)
+            x2, r2 = upd(lops, ucfg, lpre)(lp, lx, g2)
+            out[uname] = (float((mine(x1) - x2).abs().max()), bool(torch.equal(r1, r2)), True,
+                          x2.cpu())
         Q = build_Q(params.omega.double().cpu().numpy(), ops.dtau, ops.Ltau,
                     [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
         scfg = SolverConfig(tol=1e-8, maxiter=500)
         g1, g2 = gens()
         x1, l1 = make_langevin_step(ops, Q, 1e-3, "rk", scfg, pre)(params, x, g1)
         x2, l2 = make_langevin_step(lops, Q, 1e-3, "rk", scfg, lpre)(lp, lx, g2)
-        out["langevin_rk"] = (float((shard.local(x1) - x2).abs().max()), True,
-                              bool(torch.equal(l1.iters, l2.iters)))
+        out["langevin_rk"] = (float((mine(x1) - x2).abs().max()), True,
+                              bool(torch.equal(l1.iters, l2.iters)), x2.cpu())
         g1, g2 = gens()
         gd1 = sample_greens(ops, params, x, 4, scfg, pre, g1)
         gd2 = sample_greens(lops, lp, lx, 4, scfg, lpre, g2)
         out["greens"] = (float((gd1.MinvR - shard.gather(gd2.MinvR)).abs().max()), True,
-                         bool(torch.equal(gd1.iters, gd2.iters)))
+                         bool(torch.equal(gd1.iters, gd2.iters)), None)
     return out
 
 
-def phase_site_small(backend: str = "gloo") -> None:
-    """(b) Site sharding at 4×4, float64, D = 2, against the unsharded card
-    run: x to 1e-12 (probe solutions to 1e-10), equal decisions and
-    iterations."""
-    t0 = time.perf_counter()
-    ranks = _launch(_rank_site_small, 2, backend)
+def _say_site_small(ranks: list, model: str, backend: str) -> list:
+    """(b) / (e) lines from each rank's :func:`_rank_site_small`: x to
+    1e-12 (probe solutions to 1e-10), equal decisions and iterations; SSH's
+    bond field bitwise equal on both ranks after each sampler. Returns the
+    runs that failed."""
+    tag = "" if model == "holstein" else f"{model}_"
     bad = []
     for name in ranks[0]:
         dx = max(r[name][0] for r in ranks)
         same = all(r[name][1] and r[name][2] for r in ranks)
         tol = 1e-10 if name == "greens" else 1e-12
-        say(f"site_small_{name}_{backend}", ranks=2, max_abs_dx=f"{dx:.3e}", tol=tol,
-            decisions_and_iterations_equal=same)
+        kv = {}
+        if model == "ssh" and ranks[0][name][3] is not None:
+            kv["bond_field_bitwise_equal_on_ranks"] = all(
+                torch.equal(r[name][3], ranks[0][name][3]) for r in ranks)
+            same = same and kv["bond_field_bitwise_equal_on_ranks"]
+        say(f"site_small_{tag}{name}_{backend}", ranks=len(ranks), max_abs_dx=f"{dx:.3e}",
+            tol=tol, decisions_and_iterations_equal=same, **kv)
         if not (dx <= tol and same):
-            bad.append(name)
-    say(f"site_small_{backend}", seconds=f"{time.perf_counter() - t0:.1f}")
-    if bad:
-        raise RuntimeError(f"site-sharded runs disagree with the unsharded card run: {bad}")
+            bad.append(f"site_small_{tag}{name}")
+    return bad
 
 
-def _rank_site_64(device) -> dict:
-    """(c) One ``KERNEL_64X64`` update (16 chains) on this rank's half of
-    the 64×64 sites, with the shard's halo and all-reduce counts."""
-    from elphdynamics_tpu_torch.bench import KERNEL_64X64, build, shard_bench_step
+# the 64×64 runs on several ranks take a few leapfrog steps: the counters per
+# fold and per force evaluation do not depend on the trajectory's length
+SHORT_TRAJECTORY = 0.1
+LADDER4 = (1.0, 0.9, 0.8, 0.7)
+
+
+def _layout(n_chain: int, n_site: int, n_chains: int, spec):
+    """This rank's (ChainBlock or None, SiteShard or None) of the 2-D
+    layout."""
     from elphdynamics_tpu_torch.parallel import multihost
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
     from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard
 
-    b = build(KERNEL_64X64, device, torch.float32)
-    shard = SiteShard(b.ops.spec.ckb, b.ops.spec.wij_table, multihost.world(), multihost.rank())
-    lb = shard_bench_step(b, shard)
+    site_group, chain_group = multihost.layout_groups(n_chain, n_site)
+    block, d = divmod(multihost.rank(), n_site)
+    cb = ChainBlock.of(n_chains, n_chain, block, chain_group) if n_chain > 1 else None
+    shard = (SiteShard(spec.ckb, getattr(spec, "wij_table", np.zeros((2, 0), int)), n_site, d,
+                       site_group, base=block * n_site) if n_site > 1 else None)
+    return cb, shard
+
+
+def _sharded_64(device, cfg_name: str, n_chain: int, n_site: int, measure: bool = False):
+    """(g) One update of the 64×64 configuration ``cfg_name`` (float32,
+    trajectory cut to ``SHORT_TRAJECTORY``) on this rank's chains and sites
+    of the ``n_chain`` × ``n_site`` layout, with the shard's counters; with
+    ``measure`` then the chain block's measurement (Greens, 2 probes) on its
+    gathered lattice, as the driver's 2-D layout runs it (K1 and K2 counted
+    from 0 just before it)."""
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.measure import measurements as M
+    from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
+
+    cfg = getattr(bench, cfg_name.upper())
+    b = bench.build(cfg, device, torch.float32)
+    b = replace(b, hmc_cfg=replace(b.hmc_cfg, trajectory_time=SHORT_TRAJECTORY))
+    cb, shard = _layout(n_chain, n_site, cfg.n_chains, b.ops.spec)
+    lb = bench.shard_bench_step(b, shard, cb)
     torch.cuda.synchronize(device)
     shard.reset_counts()
     t0 = time.perf_counter()
     state, stats = lb.step(lb.params, lb.state, lb.generator)
     torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
-    nsolves = lb.hmc_cfg.Nt + 2
-    return dict(seconds=seconds, iters=stats.iters.cpu().tolist(),
-                flags=stats.flag.cpu().tolist(), accepted=stats.accepted.cpu().tolist(),
-                finite=bool(torch.isfinite(state.x).all()), nsolves=nsolves,
-                folds=shard.folds, halo_msgs=shard.halo_msgs, halo_bytes=shard.halo_bytes,
-                allreduces=shard.allreduces, block=tuple(state.x.shape))
+    out = dict(seconds=time.perf_counter() - t0, iters=stats.iters.cpu().tolist(),
+               flags=stats.flag.cpu().tolist(), accepted=stats.accepted.cpu().tolist(),
+               finite=bool(torch.isfinite(state.x).all()), nsolves=lb.hmc_cfg.Nt + 2,
+               force_evals=lb.hmc_cfg.Nt + 1, folds=shard.folds, halo_msgs=shard.halo_msgs,
+               halo_bytes=shard.halo_bytes, allreduces=shard.allreduces,
+               force_sums=shard.force_sums, force_bytes=shard.force_bytes,
+               block=tuple(state.x.shape), chains=state.x.shape[0])
+    if measure:
+        mspec = M.MeasurementSpec(nv=2, onsite_corr=(("Greens", True),))
+        mstep = M.make_measurement_step(b.ops, mspec, SolverConfig(tol=1e-5, maxiter=2000),
+                                        kpm.make_precond(b.ops, b.kpm_cfg))
+        x = shard.gather(state.x) if b.ops.is_holstein else state.x
+        from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+        R = trace_noise((cfg.n_chains, mspec.nv, b.ops.Nsites, b.ops.Ltau), x.dtype, x.device,
+                        lb.generator)
+        ckb_cuda.reset_counts()
+        _, mstats, _ = mstep(b.params, x, R=cb.local(R))
+        torch.cuda.synchronize(device)
+        out.update(measure_flags=mstats["flag"].cpu().tolist(),
+                   table_launches=dict(ckb_cuda.table_launches),
+                   launch_shapes=set(ckb_cuda.launch_shapes))
+    return out
 
 
-def phase_site_64(backend: str = "gloo") -> dict:
-    """(c) Site sharding at full width: one ``KERNEL_64X64`` update on 2
-    ranks. Under gloo both ranks share one card and every halo and
-    all-reduce goes through host memory: not a multi-GPU rate."""
-    ranks = _launch(_rank_site_64, 2, backend)
+def _say_sharded_64(tag: str, ranks: list, backend: str) -> dict:
+    """The line of a :func:`_sharded_64` run; fails on a flag, a non-finite
+    field or ranks of one site group that disagree."""
     r = ranks[0]
     cg_iters = sum(r["iters"]) / len(r["iters"]) * r["nsolves"]
-    label = ("2 ranks on one card, halos staged through the host: not a multi-GPU rate"
-             if backend == "gloo" else "2 ranks, one card each, NCCL")
-    say(f"site_sharded_64x64_{backend}", ranks=2, block="x".join(map(str, r["block"])),
+    label = ("ranks on one card, halos staged through the host: not a multi-GPU rate"
+             if backend == "gloo" else "one card per rank, NCCL")
+    kv = {}
+    if r["force_sums"]:
+        kv.update(force_allreduces_per_force_eval=f"{r['force_sums'] / r['force_evals']:.3g}",
+                  force_allreduce_bytes_per_force_eval=f"{r['force_bytes'] / r['force_sums']:.6g}")
+    say(f"{tag}_{backend}", ranks=len(ranks), block="x".join(map(str, r["block"])),
         seconds=f"{max(x['seconds'] for x in ranks):.3f}", cg_iters_per_solve=r["iters"],
         flags=r["flags"], accepted=r["accepted"], folds=r["folds"],
         halo_msgs_per_fold=f"{r['halo_msgs'] / max(r['folds'], 1):.3g}",
         halo_bytes_per_fold=f"{r['halo_bytes'] / max(r['folds'], 1):.6g}",
         allreduces=r["allreduces"], allreduces_per_cg_iter=f"{r['allreduces'] / cg_iters:.3g}",
-        label=repr(label))
+        **kv, label=repr(label))
     if not all(x["finite"] and max(x["flags"]) == 0 for x in ranks):
-        raise RuntimeError("the site-sharded 64x64 update flagged or went non-finite")
-    if any(x["accepted"] != r["accepted"] or x["iters"] != r["iters"] for x in ranks):
-        raise RuntimeError("the site ranks disagree on the update's decisions")
+        raise RuntimeError(f"{tag}: the update flagged or went non-finite")
     return r
 
 
-def phase_nccl(reference: dict) -> dict | None:
-    """(d) (a)–(c) with one rank per card under NCCL, when the machine has
-    two cards."""
+TEMPERING_RUNS = ("tempering_64x64", "ssh_tempering_64x64")
+
+
+def _tempering_chain_ranks(device, n_chain: int, names=TEMPERING_RUNS) -> dict:
+    """(g) ``TEMPERING_64X64`` (16 chains, 4 rungs × 4 lanes) on this rank's
+    block of ``n_chain`` chain ranks: phase 20's sequence (1 warm-up and 4
+    timed updates, an exchange every 2 updates, both parities), the
+    exchanges across the chain ranks; and a 64×64 SSH ladder (8 chains, 4
+    rungs × 2 lanes, trajectory cut) with one exchange of each parity. K1
+    and K2 counted from 0 just before each run."""
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    makers = {
+        "tempering_64x64": lambda: bench.build(bench.TEMPERING_64X64, device, torch.float32),
+        "ssh_tempering_64x64": lambda: bench.build_ssh_step(
+            64, 4.0, 0.1, 0.025, 8, device, torch.float32, trajectory_time=SHORT_TRAJECTORY,
+            ladder=LADDER4)}
+    out = {}
+    for name in names:
+        b = makers[name]()
+        cb, _ = _layout(n_chain, 1, b.state.x.shape[0], b.ops.spec)
+        lb = bench.shard_bench_step(b, chains=cb) if cb is not None else b
+        updates = 5 if name == "tempering_64x64" else 4
+        ckb_cuda.reset_counts()
+        state, acc, rates = lb.state, [], []
+        t0 = time.perf_counter()
+        for n in range(1, updates + 1):
+            state, stats = lb.step(lb.params, state, lb.generator)
+            acc.append(stats.accepted)
+            if n % lb.exchange_freq == 0:
+                x, v, rate, _, flag = lb.exchange(lb.params, state.x, state.v,
+                                                  (n // lb.exchange_freq) % 2, lb.generator)
+                state = replace(state, x=x, v=v)
+                rates.append((float(rate), int(flag)))
+        torch.cuda.synchronize(device)
+        out[name] = dict(seconds=time.perf_counter() - t0, accepted=torch.stack(acc).cpu(),
+                         rates=rates, x=state.x.cpu(),
+                         table_launches=dict(ckb_cuda.table_launches),
+                         launch_shapes=set(ckb_cuda.launch_shapes))
+    return out
+
+
+def _rank_pair(device, reference: dict) -> dict:
+    """(b), (e) and the two-rank parts of (f) and (g) on this rank of 2:
+    the Holstein and SSH 4×4 site-sharded samplers, the stock 4×4 SSH example through
+    the driver on 2 site ranks, a site-sharded ``SSH_64X64`` update, and
+    tempering on 2 chain ranks."""
+    from elphdynamics_tpu_torch import bench
+
+    out = dict(holstein_small=_rank_site_small(device, "holstein"),
+               ssh_small=_rank_site_small(device, "ssh"))
+    out["driver"] = _rank_driver(device, reference["ssh_driver_path"], 2, 1, 1, 2,
+                                 torch.float64)
+    out["ssh_64"] = _sharded_64(device, bench.SSH_64X64.name, 1, 2)
+    out.update(_tempering_chain_ranks(device, 2))
+    return out
+
+
+def _exchange_4x4(device, n_chain: int, n_site: int, model: str) -> dict:
+    """A tempering exchange of each parity on 4×4 float64 (4 rungs × 1 lane,
+    the couplings per chain) on this rank's part of the layout."""
+    from elphdynamics_tpu_torch import bench
+
+    make = bench.build_ssh_step if model == "ssh" else bench.build_bench_step
+    b = make(4, 1.0, 0.1, 0.05, 4, device, torch.float64, trajectory_time=0.2, ladder=LADDER4)
+    cb, shard = _layout(n_chain, n_site, 4, b.ops.spec)
+    lb = bench.shard_bench_step(b, shard, cb) if (cb or shard) else b
+    g = torch.Generator(device=device).manual_seed(7)
+    x, v, res = lb.state.x + 0.05, lb.state.v, []
+    for parity in (0, 1):
+        x, v, rate, _, flag = lb.exchange(lb.params, x, v, parity, g)
+        res.append((float(rate), int(flag)))
+    return dict(rates=res, x=x.cpu())
+
+
+def _deflated_4x4(device, n_chain: int, n_site: int) -> dict:
+    """An HMC update with slow-mode deflation (k = 4, float64 basis) and the
+    nᵥ = 4 probe solves of a Green's-function sample by block CG, 4×4
+    float64, 4 chains, on this rank's part of the layout."""
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.measure.greens import sample_greens
+    from elphdynamics_tpu_torch.models.adapter import make_model_ops
+    from elphdynamics_tpu_torch.ops import deflation, kpm
+    from elphdynamics_tpu_torch.parallel.lattice_shard import shard_model
+    from elphdynamics_tpu_torch.dynamics.tempering import chain_params
+
+    b = bench.build_bench_step(4, 1.0, 0.1, 0.05, 4, device, torch.float64, trajectory_time=0.2)
+    cfg = replace(b.hmc_cfg, deflate_k=4, deflate_filter=4, deflate_power=3)
+    g0 = torch.Generator(device=device).manual_seed(40)
+    defl = deflation.init(4, 4, b.ops.Nsites, b.ops.Ltau, dtype=torch.float64, device=device,
+                          generator=g0)
+    cb, shard = _layout(n_chain, n_site, 4, b.ops.spec)
+    ops, params, x, v = b.ops, b.params, b.state.x + 0.05, b.state.v
+    if shard is not None:
+        spec, params = shard_model(ops.spec, params, shard)
+        ops = make_model_ops(spec)
+        x, v, defl = shard.local(x), shard.local(v), deflation.cut(defl, shard.local)
+    if cb is not None:
+        params = chain_params(params, cb.lo, cb.n)
+        x, v, defl = cb.local(x), cb.local(v), cb.local(defl)
+    pre = kpm.make_precond(ops, b.kpm_cfg)
+    step = make_hmc_step(ops, b.mass, cfg, pre)
+    if cb is not None:
+        run = cb.wrap(step)
+        st, stats = run(params, HMCState(x=x, v=v, defl=defl),
+                        generator=torch.Generator(device=device).manual_seed(3))
+    else:
+        st, stats = step(params, HMCState(x=x, v=v, defl=defl),
+                         torch.Generator(device=device).manual_seed(3))
+    # the probes of every chain and site, cut to this rank's part
+    from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+
+    R = trace_noise((4, 4, b.ops.Nsites, b.ops.Ltau), torch.float64, device,
+                    torch.Generator(device=device).manual_seed(5))
+    if shard is not None:
+        R = shard.local(R)
+    if cb is not None:
+        R = cb.local(R)
+    gd = sample_greens(ops, params, st.x, 4, SolverConfig(tol=1e-10, maxiter=500, block=True),
+                       pre, R=R)
+    return dict(x=st.x.cpu(), accepted=stats.accepted.cpu(), iters=stats.iters.cpu(),
+                flag=stats.flag.cpu(), MinvR=gd.MinvR.cpu(), giters=gd.iters.cpu(),
+                gflag=gd.flag.cpu())
+
+
+def _rank_quad(device) -> dict:
+    """(f) and the four-rank part of (g) on this rank of 2 chain × 2 site
+    ranks: the deflated update and block-CG probe solves, tempering
+    exchanges (Holstein and SSH) at 4×4 float64, each also run on one rank
+    by rank 0 (no collective); ``KERNEL_64X64`` on the 2×2 layout and the
+    chain blocks' measurement."""
+    from elphdynamics_tpu_torch import bench
+
+    out = dict(deflated=_deflated_4x4(device, 2, 2),
+               exchange_holstein=_exchange_4x4(device, 2, 2, "holstein"),
+               exchange_ssh=_exchange_4x4(device, 2, 2, "ssh"))
+    out["kernel_64"] = _sharded_64(device, bench.KERNEL_64X64.name, 2, 2, measure=True)
+    return out
+
+
+def _one_rank_4x4(device) -> dict:
+    """The one-rank card runs of (f)'s 4×4 pieces (this process)."""
+    return dict(deflated=_deflated_4x4(device, 1, 1),
+                exchange_holstein=_exchange_4x4(device, 1, 1, "holstein"),
+                exchange_ssh=_exchange_4x4(device, 1, 1, "ssh"))
+
+
+def _blocks(ranks: list, key: str, field: str, n_chain: int, n_site: int, site_axis: bool):
+    """The whole tensor from a 2-D layout's ranks' blocks: sites along
+    axis −2 within a chain block (when ``site_axis``), chain blocks along
+    axis 0."""
+    rows = []
+    for b in range(n_chain):
+        parts = [ranks[b * n_site + s][key][field] for s in range(n_site)]
+        rows.append(torch.cat(parts, dim=-2) if site_axis else parts[0])
+    return torch.cat(rows, dim=0)
+
+
+def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True,
+             device: str = "cuda") -> dict:
+    """(e)–(g) Slice H2 on gloo ranks sharing card 0 (or NCCL ranks, one card
+    each): SSH under site sharding, the 2-D layout, block CG, deflation and
+    tempering across ranks against one rank; ``SSH_64X64`` site-sharded,
+    ``KERNEL_64X64`` on 2×2 and ``TEMPERING_64X64`` on 2 chain ranks at full
+    width. Returns each kernel-launching run's counts and shapes."""
+    from elphdynamics_tpu_torch.io.output import dump_toml
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "ssh_hmc_square.toml"), "rb") as f:
+        cfg = tomllib.load(f)
+    cfg["hmc"].update(burnin_updates=0, simulation_updates=2, trajectory_time=0.05)
+    cfg["simulation"].update(num_bins=2, random_seed=17)
+    cfg["measurements"]["num_random_vectors"] = 4
+    cfg["solver"].setdefault("preconditioner", {})["max_order"] = 8
+    paths = {}
+    with tempfile.TemporaryDirectory() as work:
+        cfg["simulation"]["filepath"] = work
+        path = os.path.join(work, "ssh_square.toml")
+        with open(path, "w") as f:
+            f.write(dump_toml(cfg))
+        one = _rank_driver(torch.device(device), path, 1, 1, 1, 1, torch.float64)
+        pair = _launch(_rank_pair, 2, backend, (dict(ssh_driver_path=path),))
+        folder = os.path.join(work, cfg["simulation"]["foldername"])
+        dx = float(np.abs(_checkpoint_x(f"{folder}-2") - _checkpoint_x(f"{folder}-1")).max())
+    # (b), (e) Holstein's and SSH's samplers at 4×4 against the unsharded card run
+    bad = (_say_site_small([r["holstein_small"] for r in pair], "holstein", backend)
+           + _say_site_small([r["ssh_small"] for r in pair], "ssh", backend))
+    # (f) the stock SSH example through the driver on 2 site ranks
+    # bins hold sums up to ~1e3: each is held to 1e-9 of its array's scale
+    dbin, nbin, rel, where = _bins_diff(one["bins"], pair[0]["driver"]["bins"], scaled=True)
+    acc_same = all(r["driver"]["stats"]["acceptance_rate"] == one["stats"]["acceptance_rate"]
+                   for r in pair)
+    say(f"h2_ssh_driver_site_{backend}", ranks=2, max_abs_dx=f"{dx:.3e}",
+        max_abs_dbin=f"{dbin:.3e}", max_scaled_dbin=f"{rel:.3e}", worst_bin=where,
+        arrays=nbin, tol=1e-9, acceptance_equal=acc_same)
+    if not (dx <= 1e-9 and rel <= 1e-9 and acc_same):
+        bad.append("ssh_driver_site")
+    # (g) SSH_64X64 on 2 site ranks
+    _say_sharded_64(f"h2_ssh_64x64_site2", [r["ssh_64"] for r in pair], backend)
+    # (g) tempering on 2 chain ranks against the one-rank runs
+    for name in ("tempering_64x64", "ssh_tempering_64x64"):
+        runs = [r[name] for r in pair]
+        ref = reference[name]
+        # phase 20 keeps its timed updates' decisions, after a warm-up
+        acc = torch.cat([r["accepted"] for r in runs], dim=1)[-ref["accepted"].shape[0]:]
+        same_acc = bool(torch.equal(acc.bool(), ref["accepted"].bool()))
+        same_rates = all(r["rates"] == ref["rates"] for r in runs)
+        dxt = float((torch.cat([r["x"] for r in runs]) - ref["x"]).abs().max())
+        say(f"h2_{name}_chain2_{backend}", ranks=2, exchanges=len(ref["rates"]),
+            exchange_rates=[r for r, _ in runs[0]["rates"]],
+            one_rank_exchange_rates=[r for r, _ in ref["rates"]], rates_equal=same_rates,
+            accept_equal=same_acc, max_abs_dx_vs_one_rank=f"{dxt:.3e}",
+            seconds=f"{max(r['seconds'] for r in runs):.1f}",
+            one_rank_seconds=f"{ref['seconds']:.1f}",
+            k1_launches_by_rank=[sum(v for k, v in r["table_launches"].items()
+                                     if k.startswith("fold/")) for r in runs],
+            k2_launches_by_rank=[sum(v for k, v in r["table_launches"].items()
+                                     if k.startswith("fused/")) for r in runs])
+        if not (same_acc and same_rates):
+            bad.append(name)
+        for i, r in enumerate(runs):
+            paths[f"{name}_chain_rank{i}"] = r
+    if quad:
+        one4 = _one_rank_4x4(torch.device(device))
+        quadr = _launch(_rank_quad, 4, backend)
+        # (f) deflation, block-CG probes and exchanges on 2×2 against one rank
+        d = quadr[0]["deflated"]
+        x = _blocks(quadr, "deflated", "x", 2, 2, True)
+        z = _blocks(quadr, "deflated", "MinvR", 2, 2, True)
+        dxd = float((x - one4["deflated"]["x"]).abs().max())
+        dz = float((z - one4["deflated"]["MinvR"]).abs().max())
+        acc = torch.cat([quadr[2 * b]["deflated"]["accepted"] for b in range(2)])
+        its = torch.cat([quadr[2 * b]["deflated"]["iters"] for b in range(2)])
+        gits = torch.cat([quadr[2 * b]["deflated"]["giters"] for b in range(2)])
+        same = (torch.equal(acc, one4["deflated"]["accepted"])
+                and torch.equal(its, one4["deflated"]["iters"])
+                and torch.equal(gits, one4["deflated"]["giters"])
+                and int(d["flag"].max()) == 0 and int(d["gflag"].max()) == 0)
+        say(f"h2_2x2_deflated_hmc_and_block_cg_{backend}", ranks=4,
+            max_abs_dx=f"{dxd:.3e}", max_abs_dz=f"{dz:.3e}", tol=1e-9,
+            decisions_and_iterations_equal=same)
+        if not (dxd <= 1e-9 and dz <= 1e-9 and same):
+            bad.append("deflated_2x2")
+        for model in ("holstein", "ssh"):
+            key = f"exchange_{model}"
+            x = _blocks(quadr, key, "x", 2, 2, model == "holstein")
+            dxe = float((x - one4[key]["x"]).abs().max())
+            same = all(r[key]["rates"] == one4[key]["rates"] for r in quadr)
+            if model == "ssh":
+                same = same and all(torch.equal(quadr[2 * b + 1][key]["x"],
+                                                quadr[2 * b][key]["x"]) for b in range(2))
+            say(f"h2_2x2_{key}_{backend}", ranks=4, rates=[r for r, _ in one4[key]["rates"]],
+                rates_equal=same, max_abs_dx=f"{dxe:.3e}", tol=1e-9)
+            if not (dxe <= 1e-9 and same):
+                bad.append(key)
+        # (g) KERNEL_64X64 on 2×2 and the chain blocks' measurement
+        _say_sharded_64("h2_kernel_64x64_2x2", [r["kernel_64"] for r in quadr], backend)
+        for i, r in enumerate(quadr):
+            if max(r["kernel_64"]["measure_flags"]) != 0:
+                bad.append("chain_block_measurement")
+            paths[f"chain_block_measure_64x64_rank{i}"] = r["kernel_64"]
+    say(f"h2_{backend}", seconds=f"{time.perf_counter() - t0:.1f}")
+    if bad:
+        raise RuntimeError(f"slice H2 runs disagree with one rank or failed: {bad}")
+    return paths
+
+
+def phase_nccl(reference: dict, h2_reference: dict) -> dict | None:
+    """(d) (a), (b), (e)–(g) with one rank per card under NCCL, when the
+    machine has two cards (the 2×2 layout only with four)."""
     n = torch.cuda.device_count()
     if n < 2:
         say("nccl", skipped=f"'one CUDA device on this machine ({n}); NCCL ranks need one "
                             "card each'")
         return None
     out = phase_chain_sharded(reference, "nccl")
-    phase_site_small("nccl")
-    phase_site_64("nccl")
+    paths = phase_h2(h2_reference, "nccl", quad=n >= 4)
+    if n < 4:
+        say("nccl_2x2", skipped=f"'{n} CUDA devices on this machine; the 2x2 layout needs 4'")
+    return dict(chain_sharded=out, h2=paths)
+
+
+def h2_references(tempering: dict, device: str = "cuda") -> dict:
+    """The one-rank runs that (g)'s tempering on chain ranks is held
+    against: phase 20's ``TEMPERING_64X64`` run (``tempering``, its timed
+    updates) and the 64×64 SSH ladder of :func:`_tempering_chain_ranks`, run
+    here."""
+    out = _tempering_chain_ranks(torch.device(device), 1, ("ssh_tempering_64x64",))
+    r = out["ssh_tempering_64x64"]
+    say("ssh_tempering_64x64_one_rank", exchange_rates=[x for x, _ in r["rates"]],
+        seconds=f"{r['seconds']:.1f}")
+    out["tempering_64x64"] = dict(accepted=tempering["accepted"], rates=tempering["exchange_rates"],
+                                  x=tempering["x"], seconds=tempering["seconds"])
     return out
+
+
+def nccl_only() -> int:
+    """(d) alone, for a machine with several cards: the build, the one-rank
+    ``KERNEL_64X64`` and ``TEMPERING_64X64`` runs that (a) and (g) are held
+    against, then (a), (b) and (e)–(g) on NCCL ranks, one card each (the
+    2×2 layout with four cards). Run as ``python3 -c "import chip_smoke as
+    c, sys; sys.exit(c.nccl_only())"``."""
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke: NCCL ranks need two CUDA devices", file=sys.stderr)
+        return 1
+    from elphdynamics_tpu_torch.bench import KERNEL_64X64, TEMPERING_64X64
+
+    phase_card()
+    phase_build()
+    ref = run_config(KERNEL_64X64, warmup=1, timed=2)
+    tempering = run_config(TEMPERING_64X64, warmup=1, timed=4)
+    phase_nccl(ref, h2_references(tempering))
+    say("total", seconds=f"{time.perf_counter() - T_START:.1f}")
+    return 0
 
 
 def main() -> int:
@@ -1941,15 +2333,15 @@ def main() -> int:
     # per update, 4–6 s each; SSH's KPM at max_order 64, 25–45 s each): a few
     # updates each; the SSH runs (4×4, and 64×64 at ~19 s per update) take
     # one sampling update and no burn-in
-    drv = phase_driver("holstein_hmc_square", "holstein", (1, 2, 2))
+    drv = phase_driver("holstein_hmc_square", "holstein", (1, 2, 2), big_updates=(0, 2, 2))
     drv_ssh = phase_driver("ssh_hmc_square", "ssh", (0, 1, 1), big_updates=(0, 1, 1))
     drv_lang = phase_driver_langevin()
     drv_tw = phase_driver_twisted()
     phase_driver_deep()
     chains = phase_chain_sharded(runs[KERNEL_64X64.name])
-    phase_site_small()
-    phase_site_64()
-    chains_nccl = phase_nccl(runs[KERNEL_64X64.name])
+    h2_ref = h2_references(runs[TEMPERING_64X64.name])
+    h2 = phase_h2(h2_ref)
+    nccl = phase_nccl(runs[KERNEL_64X64.name], h2_ref)
     idle = [f for f in ("fold/column", "fold/chain", "fused/chain")
             if drv_ssh["table_launches"][f] <= 0]
     if idle:
@@ -1960,9 +2352,14 @@ def main() -> int:
                       LANGEVIN_64X64.name: lang, KERNEL_2MN_64X64.name: runs[KERNEL_2MN_64X64.name],
                       TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep,
                       "chain_sharded_64x64": chains}
-    if chains_nccl is not None:
-        holstein_paths["chain_sharded_64x64_nccl"] = chains_nccl
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
+    # slice H2's paths that reach the kernels: tempering on chain ranks (each
+    # rank's own counts) and the chain blocks' measurements of the 2x2 layout
+    for tag, paths in (("", h2), ("_nccl", (nccl or {}).get("h2", {}))):
+        for k, r in paths.items():
+            (ssh_paths if k.startswith("ssh_") else holstein_paths)[k + tag] = r
+    if nccl is not None:
+        holstein_paths["chain_sharded_64x64_nccl"] = nccl["chain_sharded"]
     # K1's complex mode: the twisted 64×64 configurations, and the stock
     # twisted SSH example (its fermion operator and densified Ā are K1's at
     # any size; the 4×4 Holstein example runs dense matmuls)

@@ -15,13 +15,16 @@ available), or the CPU with ``--device cpu``. Fields are float32 unless
 Chrome trace to ``DIR/trace.json``.
 
 Several ranks, one process each: ``--devices N`` shards the chains over N
-ranks, ``--site-devices N`` the lattice of a Holstein model. The command
-spawns the ranks itself, joined by NCCL with one card each (it fails when
+ranks, ``--site-devices N`` the lattice (Holstein or SSH), and both
+together make the 2-D layout of N₁ × N₂ ranks. The command spawns the
+ranks itself, joined by NCCL with one card each (it fails when
 the host has fewer cards than ranks) or, with ``--device cpu``, by gloo on
 the CPU. With ``--multihost`` it spawns nothing: every process is one rank,
 started by ``torchrun`` (or a launcher that sets ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT`` and ``LOCAL_RANK``), and the ranks meet
-through ``env://``. Layouts of a later slice raise ``NotImplementedError``.
+through ``env://``. Under ``--site-devices`` the near-null preconditioner,
+the 2MN integrator and BiCGStab / GMRES raise ``NotImplementedError`` before
+any rank starts (the JAX package does not run them sharded).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def main(argv=None) -> int:
     ap.add_argument("--devices", type=int, default=1,
                     help="ranks to shard the chains over (one card each on CUDA)")
     ap.add_argument("--site-devices", type=int, default=1,
-                    help="ranks to shard one chain's lattice over (Holstein)")
+                    help="ranks to shard one chain's lattice over (with --devices: "
+                         "the 2-D chain x site layout)")
     ap.add_argument("--multihost", action="store_true",
                     help="this process is one rank of a launcher-started run (env://)")
     ap.add_argument("--profile", metavar="DIR", default=None,

@@ -75,7 +75,7 @@ from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_fille
 from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_applies, solve_oinv
 from elphdynamics_tpu_torch.dynamics.tempering import (
-    TemperingConfig, ladder_params, make_exchange_step)
+    TemperingConfig, chain_params, ladder_params, make_exchange_step)
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams, build_holstein
@@ -138,6 +138,7 @@ class BenchStep:
     mass: object = None
     hmc_cfg: HMCConfig | None = None
     kpm_cfg: kpm.KPMConfig | None = None
+    tcfg: TemperingConfig | None = None
 
 
 @dataclass(frozen=True)
@@ -252,25 +253,40 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_o
     return BenchStep(ops=ops, params=params, step=step,
                      state=HMCState(x=x, v=torch.zeros_like(x)), generator=gen,
                      exchange=exchange, exchange_freq=EXCHANGE_FREQ if exchange else 0,
-                     mass=mass, hmc_cfg=cfg, kpm_cfg=kcfg)
+                     mass=mass, hmc_cfg=cfg, kpm_cfg=kcfg,
+                     tcfg=None if exchange is None else tcfg)
 
 
-def shard_bench_step(b: BenchStep, shard) -> BenchStep:
-    """A Holstein :class:`BenchStep` on a site shard
-    (:class:`..parallel.lattice_shard.SiteShard`): the same HMC update on
-    the rank's block of sites (the halo fold, no kernel), its parameters and
-    initial state cut to the block; the generator is shared."""
-    from elphdynamics_tpu_torch.parallel.lattice_shard import shard_holstein
+def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
+    """A :class:`BenchStep` on this rank's part of a run: its block of sites
+    (``shard``, a :class:`..parallel.lattice_shard.SiteShard`; Holstein or
+    SSH, the halo fold, no kernel) and of chains (``chains``, a
+    :class:`..parallel.chains.ChainBlock`: the whole batch's draws cut to
+    the block, a ladder's exchange across the chain ranks). Its parameters
+    and initial state are cut; the generator is shared."""
+    from elphdynamics_tpu_torch.parallel.lattice_shard import shard_model
 
-    if b.exchange is not None or not b.ops.is_holstein:
-        raise NotImplementedError("a site-sharded bench step is Holstein without a ladder: "
-                                  "ROADMAP slice H2")
-    lspec, lparams = shard_holstein(b.ops.spec, b.params, shard)
-    ops = make_model_ops(lspec)
-    step = make_hmc_step(ops, b.mass, b.hmc_cfg, kpm.make_precond(ops, b.kpm_cfg))
-    return BenchStep(ops=ops, params=lparams, step=step,
-                     state=HMCState(x=shard.local(b.state.x), v=shard.local(b.state.v)),
-                     generator=b.generator, mass=b.mass, hmc_cfg=b.hmc_cfg, kpm_cfg=b.kpm_cfg)
+    ops, params, x, v = b.ops, b.params, b.state.x, b.state.v
+    if shard is not None:
+        spec, params = shard_model(ops.spec, params, shard)
+        ops = make_model_ops(spec)
+        if ops.is_holstein:
+            x, v = shard.local(x), shard.local(v)
+    precond = kpm.make_precond(ops, b.kpm_cfg)
+    step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond)
+    exchange = None
+    if b.tcfg is not None:
+        exchange = make_exchange_step(ops, b.tcfg, b.state.x.shape[0], precond, chains=chains)
+    if chains is not None:
+        params = chain_params(params, chains.lo, chains.n)
+        x, v = chains.local(x), chains.local(v)
+        run = chains.wrap(step)
+
+        def step(params, state, generator=None):
+            return run(params, state, generator=generator)
+    return BenchStep(ops=ops, params=params, step=step, state=HMCState(x=x, v=v),
+                     generator=b.generator, exchange=exchange, exchange_freq=b.exchange_freq,
+                     mass=b.mass, hmc_cfg=b.hmc_cfg, kpm_cfg=b.kpm_cfg, tcfg=b.tcfg)
 
 
 @dataclass(frozen=True)

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
-from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.models.adapter import ModelOps, force_sum
 
 
 @dataclass(frozen=True)
@@ -31,9 +31,10 @@ class ForceResult:
 
 def fermionic_force(ops: ModelOps, params, x, derived, g, scfg: SolverConfig,
                     pa=None) -> ForceResult:
-    """−2·gᵀ·[∂M/∂x]·M⁻¹g for the Gaussian vectors ``g`` ``[C, N, Lτ]``."""
+    """−2·gᵀ·[∂M/∂x]·M⁻¹g for the Gaussian vectors ``g`` ``[C, N, Lτ]``
+    (on a site-sharded SSH model summed over the ranks, :func:`force_sum`)."""
     sol = solve_minv(ops, params, derived, g, scfg, pa)
-    dSf = -2.0 * ops.muldMdx(params, derived, x, g, sol.x)
+    dSf = -2.0 * force_sum(ops, ops.muldMdx(params, derived, x, g, sol.x))
     return ForceResult(dSdx=dSf, iters=sol.iters, flag=sol.flag)
 
 

@@ -45,9 +45,10 @@ import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import (
-    SolverConfig, precond_applies, precond_state, resolve_precond, solve_oinv)
+    SolverConfig, precond_applies, precond_state, resolve_precond, site_reduce, solve_oinv)
 from elphdynamics_tpu_torch.models.adapter import (
-    ModelOps, global_phonons, global_sites, local_sites, site_sum)
+    ModelOps, force_sum, global_phonons, global_sites, local_phonons, local_sites,
+    phonon_sum, site_sum)
 from elphdynamics_tpu_torch.ops import deflation
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
 from elphdynamics_tpu_torch.utils.device import require_device
@@ -57,6 +58,11 @@ from elphdynamics_tpu_torch.utils.dtypes import (
 # Omelyan's second-order minimum-norm coefficient (hep-lat/0506011 §2)
 LAM_2MN = 0.1931833275037836
 INTEGRATORS = ("leapfrog", "2mn")
+
+# the refusal of 2MN under site sharding, and why (ROADMAP §3)
+SITE_2MN = ("the 2MN integrator with --site-devices: the JAX package's sharded HMC steps "
+            "ignore [hmc] integrator and run leapfrog, so there is no sharded 2MN to match "
+            "(ROADMAP section 3, found in the reference)")
 
 
 @dataclass(frozen=True)
@@ -151,13 +157,13 @@ def draw(ops: ModelOps, n_chains: int, dtype: torch.dtype, device,
     """Draw one update's random numbers from ``generator``; ``fdtype`` is
     the fermion-field dtype (complex under complex hopping; default
     ``dtype``). A site-sharded model draws for every site and keeps its
-    block."""
+    block (and the whole bond field's momenta for SSH)."""
     C = n_chains
     momentum = torch.randn((C, global_phonons(ops), ops.Ltau), generator=generator, dtype=dtype,
                            device=device)
     R = pseudofermion_noise((C, global_sites(ops), ops.Ltau), fdtype or dtype, device, generator)
     return HMCDraws(
-        momentum=local_sites(ops, momentum), pseudofermion=local_sites(ops, R),
+        momentum=local_phonons(ops, momentum), pseudofermion=local_sites(ops, R),
         uniform=torch.rand((C,), generator=generator, dtype=torch.float64, device=device),
     )
 
@@ -203,7 +209,12 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     tensor on the fields' device (Nt stays ``cfg.Nt``).
     ``step.draw(params, x, n_chains, generator)`` makes an update's draws.
     On a site-sharded model (``ops.shard``) the same step runs on the
-    rank's block of sites, its energies summed over the ranks.
+    rank's block of sites, its energies summed over the site group (SSH:
+    the bond field, its momenta and the bosonic terms are whole on every
+    rank, the fermionic force is summed once per evaluation), block CG and
+    deflation with their Grams all-reduced. 2MN and BiCGStab / GMRES stay
+    refused there (the JAX package's sharded steps run leapfrog and CG
+    whatever is asked; ROADMAP §3).
 
     ``mass_table`` is the ``[Nph, Lτ]`` dynamical-mass spectrum; ``precond``
     a :class:`..ops.kpm.Preconditioner` (full setup once per update, a
@@ -212,12 +223,11 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     update at the starting field and used by every solve of the update.
     """
     cfg.check()
-    if ops.shard is not None and (cfg.deflate_k > 0 or cfg.integrator != "leapfrog"
-                                  or cfg.block or cfg.solver_kind != "cg"):
-        raise NotImplementedError("deflation / 2MN / block CG / BiCGStab / GMRES with "
-                                  "--site-devices: ROADMAP slice H2")
+    if ops.shard is not None and cfg.integrator != "leapfrog":
+        raise NotImplementedError(SITE_2MN)
+    site_reduce(ops, cfg.solver_kind)   # BiCGStab / GMRES stay refused on a site shard
     has_lambda = ops.calc_Lambda is not None
-    mass_table = local_sites(ops, mass_table)
+    mass_table = local_phonons(ops, mass_table)
     # kinetic energy over primary fields only (aliased SSH fields repeat them)
     k_mask = (None if ops.is_holstein else
               torch.as_tensor(ops.spec.primary_phonon == np.arange(ops.Nph))[:, None])
@@ -259,7 +269,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         force when Nb == 1 (else the substeps integrate it)."""
         ds, xs = ops.stack(derived), x[:, None]
         Mz = ops.mulM(params, ds, z)
-        dSf = -ops.muldMdx(params, ds, xs, Mz, z).sum(dim=1)
+        dSf = -force_sum(ops, ops.muldMdx(params, ds, xs, Mz, z).sum(dim=1))
         if has_lambda:
             Lam = ops.calc_Lambda(params, x)
             dSf = dSf + ops.muldLambdadx(params, xs, Lam[:, None], phi, z).sum(dim=1)
@@ -271,7 +281,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         mv = mass(v).apply(v, 1.0)
         if k_mask is not None:
             v = k_mask.to(v) * v
-        return site_sum(ops, fdot(v, mv, dim=(-2, -1))) / 2
+        return phonon_sum(ops, fdot(v, mv, dim=(-2, -1))) / 2
 
     def calc_S(params, x, Lphi, z):
         return site_sum(ops, fdot(Lphi, z, dim=(1, -2, -1))) / 2 + ops.calc_Sb(params, x, False)
@@ -302,7 +312,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         ds0 = ops.stack(derived0)
         return deflation.refresh(
             state.defl, lambda v: ops.mulMTM(params, ds0, v.to(fdtype)),
-            pa0.symmetric if pa0 is not None else (lambda v: v), cfg.deflation)
+            pa0.symmetric if pa0 is not None else (lambda v: v), cfg.deflation,
+            reduce=site_reduce(ops))
 
     def _step(params, state: HMCState, dt, generator, draws):
         x0, v_in = state.x, state.v
@@ -485,7 +496,9 @@ def init_deflation(ops: ModelOps, cfg: HMCConfig, n_chains: int,
                    device="cuda") -> deflation.DeflationState | None:
     """A fresh per-chain deflation basis for ``HMCState.defl`` (None when
     ``cfg.deflate_k`` is 0): float32, complex64 when ``params`` have complex
-    hopping (the Hermitian projector)."""
+    hopping (the Hermitian projector). ``ops`` is the whole model: a
+    site-sharded run cuts this basis to its block
+    (:func:`..ops.deflation.cut`)."""
     if cfg.deflate_k <= 0:
         return None
     dtype = (torch.complex64 if params is not None and params_are_complex(params)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from elphdynamics_tpu_torch.models.adapter import ModelOps, global_phonons, local_sites
+from elphdynamics_tpu_torch.models.adapter import ModelOps, global_phonons, local_phonons
 
 
 def _qho_sigma(omega: torch.Tensor, beta: float) -> torch.Tensor:
@@ -32,13 +32,14 @@ def init_phonons_half_filled(ops: ModelOps, params, n_chains: int,
     none) replaces the generator's draws."""
     dev, dt = params.omega.device, params.omega.dtype
     if draws is None:
-        # a site-sharded model draws every site's numbers and keeps its block
+        # a site-sharded Holstein model draws every site's numbers and keeps
+        # its block (SSH's bond field is whole on every rank)
         N = global_phonons(ops)
         normals = torch.randn((n_chains, N), generator=generator, dtype=dt, device=dev)
         ints = (torch.randint(-1, 2, (n_chains, N), generator=generator, device=dev)
                 if ops.is_holstein else None)
-        normals = local_sites(ops, normals, -1)
-        ints = None if ints is None else local_sites(ops, ints, -1)
+        normals = local_phonons(ops, normals, -1)
+        ints = None if ints is None else local_phonons(ops, ints, -1)
     else:
         normals, ints = draws
     sigma = _qho_sigma(params.omega, ops.beta)

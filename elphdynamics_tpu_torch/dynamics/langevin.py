@@ -28,9 +28,9 @@ from dataclasses import dataclass
 import torch
 
 from elphdynamics_tpu_torch.dynamics.force import total_force
-from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_state
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_state, site_reduce
 from elphdynamics_tpu_torch.models.adapter import (
-    ModelOps, global_phonons, global_sites, local_sites)
+    ModelOps, global_phonons, global_sites, local_phonons, local_sites)
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
@@ -63,13 +63,13 @@ def draw(ops: ModelOps, n_chains: int, method: str, dtype: torch.dtype, device,
     """Draw one step's random numbers from ``generator``: η, then the force
     vectors in order (of the fermion-field dtype ``fdtype``, default
     ``dtype``). A site-sharded model draws for every site and keeps its
-    block."""
+    block (SSH keeps the whole bond field's η)."""
     eta = torch.randn((n_chains, global_phonons(ops), ops.Ltau), generator=generator,
                       dtype=dtype, device=device)
     g = tuple(local_sites(ops, trace_noise((n_chains, global_sites(ops), ops.Ltau),
                                            fdtype or dtype, device, generator))
               for _ in range(n_forces(method)))
-    return LangevinDraws(eta=local_sites(ops, eta), g=g)
+    return LangevinDraws(eta=local_phonons(ops, eta), g=g)
 
 
 def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
@@ -81,9 +81,8 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
     acceleration spectrum (:func:`..ops.fourier_accel.build_Q`)."""
     if method not in METHODS:
         raise ValueError(f"unknown Langevin method {method!r} (one of {METHODS})")
-    if ops.shard is not None and scfg.kind != "cg":
-        raise NotImplementedError("BiCGStab / GMRES with --site-devices: ROADMAP slice H2")
-    Q_table = local_sites(ops, Q_table)
+    site_reduce(ops, scfg.kind)   # BiCGStab / GMRES stay refused on a site shard
+    Q_table = local_phonons(ops, Q_table)
     q_ops: dict = {}
     amp = math.sqrt(2.0 * dt)
 

@@ -52,15 +52,21 @@ class SolverConfig:
             raise ValueError(f"unknown solver kind {self.kind!r} (cg, bicgstab or gmres)")
 
 
-def _site_reduce(ops: ModelOps, scfg: SolverConfig, block: bool):
-    """The all-reduce of a site-sharded model's CG dots (None on one rank).
-    Site sharding runs plain CG only: block CG and BiCGStab / GMRES under
-    ``--site-devices`` are a later slice."""
+# the refusal of BiCGStab / GMRES under site sharding, and why (ROADMAP §3)
+SITE_NONSYM = ("BiCGStab / GMRES with --site-devices: the JAX package's sharded samplers "
+               "read only [solver] block and solve by CG whatever type is set, so there is "
+               "no sharded BiCGStab / GMRES to match (ROADMAP section 3, found in the "
+               "reference)")
+
+
+def site_reduce(ops: ModelOps, kind: str = "cg"):
+    """The all-reduce of a site-sharded model's dots and Grams over its site
+    group (None on one rank). Site sharding runs CG and block CG; BiCGStab
+    and GMRES there raise (:data:`SITE_NONSYM`)."""
     if ops.shard is None:
         return None
-    if scfg.kind != "cg" or block:
-        raise NotImplementedError("BiCGStab / GMRES / block CG with --site-devices: "
-                                  "ROADMAP slice H2")
+    if kind != "cg":
+        raise NotImplementedError(SITE_NONSYM)
     return ops.shard.sum
 
 
@@ -155,14 +161,14 @@ def solve_minv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
     systems share the operator (the nᵥ probes of one configuration), never
     for the chain axis."""
     use_block = block and scfg.block and rhs.ndim >= 4
-    reduce = _site_reduce(ops, scfg, use_block)
+    reduce = site_reduce(ops, scfg.kind)
     if scfg.kind == "cg":
         b = ops.mulMT(params, derived, rhs)
         hot, chk = _cg_operators(ops, params, derived, scfg)
         kw = dict(apply_P=pa.symmetric if pa else None, tol=scfg.tol, maxiter=scfg.maxiter,
                   kappa_max=scfg.kappa_max, apply_A_check=chk)
         if use_block:
-            return solvers.block_solve_checked(hot, b, **kw)
+            return solvers.block_solve_checked(hot, b, reduce=reduce, **kw)
         return solvers.solve_checked(hot, b, reduce=reduce, **kw)
     return _checked_nonsym(lambda v: ops.mulM(params, derived, v), rhs, _base_solver(scfg),
                            pa.left if pa else None, scfg)
@@ -182,13 +188,13 @@ def solve_oinv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
     batched CG. BiCGStab / GMRES solve Mᵀ·y = rhs with the right
     preconditioner, then M·z = y with the left one."""
     use_block = scfg.block and deflate is None and rhs.ndim >= 4 and scfg.tol >= 1e-6
-    reduce = _site_reduce(ops, scfg, use_block)
+    reduce = site_reduce(ops, scfg.kind)
     if scfg.kind == "cg":
         hot, chk = _cg_operators(ops, params, derived, scfg)
         kw = dict(apply_P=pa.symmetric if pa else None, tol=scfg.tol, maxiter=scfg.maxiter,
                   kappa_max=scfg.kappa_max, apply_A_check=chk)
         if use_block:
-            return solvers.block_solve_checked(hot, rhs, X0=x0, **kw)
+            return solvers.block_solve_checked(hot, rhs, X0=x0, reduce=reduce, **kw)
         return solvers.solve_checked(hot, rhs, x0=x0, deflate=deflate, reduce=reduce, **kw)
     base = _base_solver(scfg)
     res1 = _checked_nonsym(lambda v: ops.mulMT(params, derived, v), rhs, base,

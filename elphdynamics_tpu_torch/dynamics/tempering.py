@@ -22,6 +22,16 @@ In the port the couplings alone become per-chain ``[C, ...]`` leaves (the
 models broadcast them against the chain axis); every other parameter stays
 shared. Random numbers come from a generator or an injected
 :class:`ExchangeDraws`.
+
+Across chain ranks (:class:`..parallel.chains.ChainBlock`) neighbouring
+rungs sit on different ranks, and the exchange still takes the one-rank
+run's decisions: every rank draws the whole batch's numbers from the same
+generator, evaluates its own chains' actions (each at its partner's x and
+φ, received with one gather of x, v and φ over the chain group), the
+``[C]`` action differences and flags are gathered, every rank decides every
+pair from the same values, and each keeps its block of the permuted x and
+v. On a site-sharded model (the 2-D layout) the cross solve runs on the
+rank's block of sites, its actions summed over the site group.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ import torch
 
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
 from elphdynamics_tpu_torch.dynamics.special_updates import _refresh_phi
-from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.models.adapter import ModelOps, global_sites, local_sites, site_sum
 from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
 
 
@@ -82,6 +92,15 @@ def ladder_params(params, tcfg: TemperingConfig, n_chains: int):
     return replace(params, **{lin: mult * base, quad: mult * mult * getattr(params, quad)})
 
 
+def chain_params(params, lo: int, n: int):
+    """``params`` for chains ``[lo, lo + n)``: per-chain couplings cut to
+    that block (``params`` themselves when the couplings are shared)."""
+    lin, quad = _coupling_names(params)
+    if getattr(params, lin).ndim == 1:
+        return params
+    return replace(params, **{k: getattr(params, k).narrow(0, lo, n) for k in (lin, quad)})
+
+
 def rung_params(params):
     """Shared-coupling parameters at the physical couplings: those of chain
     0, a rung-0 chain (``params`` themselves when the couplings are
@@ -99,16 +118,27 @@ def target_mask(tcfg: TemperingConfig, n_chains: int) -> np.ndarray:
     return m
 
 
-def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, precond=None):
+def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, precond=None,
+                       chains=None):
     """Build ``exchange(params, x, v, parity, generator=None, draws=None) ->
     (x, v, acc_rate, iters, flag)`` for ladder ``params`` (per-chain
     couplings, :func:`ladder_params`) and fields ``[C, Nph, Lτ]``;
     ``parity`` ∈ {0, 1} chooses the rung pairs. ``acc_rate`` is the accepted
     share of the complete pairs, ``iters`` the chains' mean solve
-    iterations, ``flag`` the largest solver flag (0-dim tensors)."""
+    iterations, ``flag`` the largest solver flag (0-dim tensors).
+
+    With ``chains`` (this rank's :class:`..parallel.chains.ChainBlock` of
+    the ``n_chains``) ``params`` hold its block's couplings
+    (:func:`chain_params`), ``x`` and ``v`` its block, and the results are
+    its block of the exchanged fields; the draws stay the whole batch's."""
     K = len(tcfg.ladder)
     M = n_chains // K
     scfg = SolverConfig(tol=tcfg.tol, maxiter=tcfg.maxiter)
+    lo, n = (chains.lo, chains.n) if chains is not None else (0, n_chains)
+
+    def gather(t):
+        """Every chain's ``t`` from the chain ranks' blocks."""
+        return t if chains is None else chains.gather(t)
 
     def partners(parity: int, device):
         chain = torch.arange(n_chains, device=device)
@@ -120,31 +150,34 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
 
     def exchange(params, x, v, parity: int, generator: torch.Generator | None = None,
                  draws: ExchangeDraws | None = None):
-        if x.shape[0] != n_chains:
-            raise ValueError(f"x holds {x.shape[0]} chains, the exchange {n_chains}")
+        if x.shape[0] != n:
+            raise ValueError(f"x holds {x.shape[0]} chains, the exchange {n}")
         if draws is None:
+            # a site-sharded model draws every site's and keeps its block
             draws = ExchangeDraws(
-                pseudofermion=pseudofermion_noise((n_chains, ops.Nsites, ops.Ltau),
-                                                  field_dtype(params, x.dtype), x.device,
-                                                  generator),
+                pseudofermion=local_sites(ops, pseudofermion_noise(
+                    (n_chains, global_sites(ops), ops.Ltau), field_dtype(params, x.dtype),
+                    x.device, generator)),
                 uniform=torch.rand((n_chains,), generator=generator, dtype=torch.float64,
                                    device=x.device))
-        phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion.to(x.device))
+        phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[lo:lo + n].to(x.device))
         partner, lower = partners(parity, x.device)
+        x_all, v_all, phi_all = gather(x), gather(v), gather(phi)
 
-        # one batched cross solve: each chain's action at its partner's
-        # (x, φ); the pseudofermion travels with its configuration
-        xp, phip = x[partner], phi[partner]
+        # one batched cross solve: each of this rank's chains' action at its
+        # partner's (x, φ); the pseudofermion travels with its configuration
+        mine = partner[lo:lo + n]
+        xp, phip = x_all[mine], phi_all[mine]
         Lphi = (ops.mulLambda(ops.calc_Lambda(params, xp)[:, None], phip)
                 if ops.calc_Lambda is not None else phip)
         sol = solve_oinv(ops, params, ops.stack(ops.derived(params, xp)), Lphi, scfg,
                          resolve_precond(precond, params, xp))
-        S_cross = fdot(Lphi, sol.x, dim=(1, -2, -1)) / 2 + ops.calc_Sb(params, xp, False)
+        S_cross = (site_sum(ops, fdot(Lphi, sol.x, dim=(1, -2, -1))) / 2
+                   + ops.calc_Sb(params, xp, False))
         ns = sol.iters.shape[1]
-        iters = (sol.iters.sum(dim=1) + ns - 1) // ns
-        flag = sol.flag.amax(dim=1)
-
-        half = S_cross - S0
+        half, iters, flag = (gather(t) for t in (S_cross - S0,
+                                                 (sol.iters.sum(dim=1) + ns - 1) // ns,
+                                                 sol.flag.amax(dim=1)))
         dS = half + half[partner]                 # the same on both members
         paired = partner != torch.arange(n_chains, device=x.device)
         u = draws.uniform.to(device=x.device, dtype=dS.dtype)
@@ -153,6 +186,8 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
         sel = torch.where(accept, partner, torch.arange(n_chains, device=x.device))
         n_pairs = torch.clamp((paired & lower).sum(), min=1)
         acc_rate = (accept & lower).sum().to(torch.float64) / n_pairs
-        return x[sel], v[sel], acc_rate, iters.to(torch.float64).mean(), flag.max()
+        keep = sel[lo:lo + n]
+        return (x_all[keep], v_all[keep], acc_rate, iters.to(torch.float64).mean(),
+                flag.max())
 
     return exchange

@@ -13,9 +13,14 @@ Under complex hopping the SSH tables are complex and the fields the
 operators act on are of the parameters' complex type
 (:func:`..utils.dtypes.field_dtype`); ``stack`` is unchanged.
 
-A site-sharded Holstein model (:mod:`..parallel.lattice_shard`) has the
-same operators on the rank's block of sites and carries its ``shard``, the
-hook through which the samplers sum over sites (:func:`site_sum`).
+A site-sharded model (:mod:`..parallel.lattice_shard`) has the same
+operators on the rank's block of sites and carries its ``shard``, the hook
+through which the samplers sum over sites (:func:`site_sum`). Holstein's
+phonon field is cut with the sites; SSH's bond field stays whole on every
+rank, so a sum over it is already global (:func:`phonon_sum` leaves it
+alone: summing it over the ranks would count it D times), while SSH's
+fermionic force is the one bond-field quantity that each rank holds only a
+share of (:func:`force_sum`).
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ def make_model_ops(spec) -> ModelOps:
             calc_Sb=lambda p, x, shifted=False: Sm.calc_Sb(spec, p, x, shifted),
             calc_dSbdx=lambda p, x, shifted=False: Sm.calc_dSbdx(spec, p, x, shifted),
             tie=lambda v: Sm.tie_fields(spec, v),
+            shard=spec.shard,
         )
     if not isinstance(spec, Hm.HolsteinSpec):
         raise TypeError(f"unknown model spec {type(spec).__name__}")
@@ -121,10 +127,41 @@ def global_sites(ops: ModelOps) -> int:
     return ops.Nsites if ops.shard is None else ops.shard.N
 
 
+def phonons_cut(ops: ModelOps) -> bool:
+    """Whether a rank holds only its block of the phonon field: a
+    site-sharded Holstein model (one phonon per site). A site-sharded SSH
+    model keeps the whole bond field on every rank."""
+    return ops.shard is not None and ops.is_holstein
+
+
 def global_phonons(ops: ModelOps) -> int:
-    """The phonon-field count over every rank (``ops.Nph`` on one rank; a
-    site-sharded Holstein model has one phonon per site)."""
-    return ops.Nph if ops.shard is None else ops.shard.N
+    """The phonon-field count over every rank (``ops.Nph`` on one rank and
+    for SSH; a site-sharded Holstein model has one phonon per site)."""
+    return ops.shard.N if phonons_cut(ops) else ops.Nph
+
+
+def phonon_sum(ops: ModelOps, partial):
+    """A per-chain sum over the phonon field (the kinetic energy): summed
+    over the ranks where each holds a block of it (Holstein), ``partial``
+    itself where it is whole on every rank (one rank, SSH)."""
+    return site_sum(ops, partial) if phonons_cut(ops) else partial
+
+
+def force_sum(ops: ModelOps, partial):
+    """The fermionic force on the phonon field from the rank's ``partial``
+    of ``muldMdx``: on a site-sharded SSH model the sum of every rank's
+    share of the whole bond field (one all-reduce per force evaluation);
+    elsewhere ``partial`` itself (Holstein's force on a site is local)."""
+    if ops.shard is None or ops.is_holstein:
+        return partial
+    return ops.shard.sum_force(partial)
+
+
+def local_phonons(ops: ModelOps, a, dim: int = -2):
+    """This rank's part of the phonon axis ``dim`` of a whole tensor or
+    numpy table: the block where the phonons are cut (Holstein), else
+    ``a`` itself."""
+    return local_sites(ops, a, dim) if phonons_cut(ops) else a
 
 
 def local_sites(ops: ModelOps, a, dim: int = -2):

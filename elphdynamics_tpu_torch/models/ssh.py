@@ -21,6 +21,14 @@ in plain torch, as the JAX package does outside Pallas. Primary-field
 aliasing: same-named phonons on different bond types share one degree of
 freedom, through ``primary_phonon``.
 
+A rank's block of a site-sharded model (``SSHSpec.shard``,
+:func:`..parallel.lattice_shard.shard_ssh`) holds ``Nsites = B`` sites of
+every fermion field and the whole bond field: exp(−Δτ·K) is the shard's
+halo fold, exp(+Δτ·μ) the block's diagonal, and :func:`muldMdx` returns
+the rank's share of the force (its sites' walk scattered onto the whole
+``[.., Nph, Lτ]`` array), which the caller sums over the ranks once per
+force evaluation (:func:`..models.adapter.force_sum`).
+
 Twisted boundaries: ``t_phase`` holds each bond's complex Peierls phase, and
 the physical hopping is t_phase·t′(x). The tables become c = cosh(Δτ·t′)
 (carried complex) and s = t_phase·sinh(Δτ·t′), each bond block the
@@ -86,6 +94,10 @@ class SSHSpec:
     bond_defs: tuple = ()        # ((o1, o2, (dL...), has_phonon), ...)
     # per-device index tensors, built on first use
     _cache: dict = field(default_factory=dict, repr=False, compare=False)
+    # a rank's block of a site-sharded model (parallel/lattice_shard.py):
+    # fermion fields hold Nsites = B sites, the bond field stays whole, the
+    # fold is the halo fold; None on one rank
+    shard: object = None
 
     def tensor(self, name: str, device) -> torch.Tensor:
         """``getattr(self, name)`` as a tensor on ``device``, cached."""
@@ -271,7 +283,8 @@ def ckb_coeffs(spec: SSHSpec, p: SSHParams, x) -> SSHDerived:
 
 
 def exp_mu(spec: SSHSpec, p: SSHParams):
-    """exp(+Δτ·μ) diagonal, ``[N, 1]``."""
+    """exp(+Δτ·μ) diagonal, ``[N, 1]`` (the block's ``[B, 1]`` on a shard,
+    whose parameters hold the block's μ)."""
     return torch.exp(spec.dtau * p.mu)[:, None]
 
 
@@ -303,6 +316,8 @@ def _apply_K(spec: SSHSpec, coeffs: SSHDerived, y, transpose: bool = False):
     cosh_b, sinh_b = coeffs
     if sinh_b.is_complex() and not y.is_complex():
         y = y.to(sinh_b.dtype)
+    if spec.shard is not None:
+        return spec.shard.fold(cosh_b, sinh_b, y, reverse=transpose)
     return ckb_cuda.fold(spec.ckb, cosh_b, sinh_b, y.contiguous(), reverse=transpose)
 
 
@@ -343,6 +358,23 @@ def _group_bonds(spec: SSHSpec, g: int, device):
     return spec._cache[key]
 
 
+def _shard_group_bonds(spec: SSHSpec, g: int, device):
+    """The block's sites with a phonon-carrying bond in group ``g`` of a
+    site-sharded model: (local rows, phonons, original bonds, first-endpoint
+    mask ``[n, 1]``) as tensors on ``device``, cached; None when it has
+    none."""
+    key = ("shard_group_bonds", g, str(device))
+    if key not in spec._cache:
+        sh = spec.shard
+        tabs = sh.ssh_phonons(spec)
+        rows = np.nonzero(tabs[1][g])[0]
+        spec._cache[key] = None if rows.size == 0 else tuple(
+            torch.as_tensor(a, device=device)
+            for a in (rows, tabs[0][g][rows], tabs[2][g][rows],
+                      sh.plan.is_lo[g][sh.d][rows][:, None]))
+    return spec._cache[key]
+
+
 def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
     """uᵀ·[∂M/∂x_b(τ)]·v for every phonon and slice, ``[..., Nph, Lτ]``.
 
@@ -353,7 +385,8 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
     reference's α + 2α₂x. Aliased phonons sum their forces onto the
     primary, which every alias then carries. Under twisted boundaries the
     bond's vertex is [0, ph; p̄h, 0] (the phase on the i←j entry) and the
-    force on the real field is Re[ph·c̄ᵢ·bⱼ + p̄h·c̄ⱼ·bᵢ]."""
+    force on the real field is Re[ph·c̄ᵢ·bⱼ + p̄h·c̄ⱼ·bᵢ]. On a site shard
+    the result is this rank's share, which the caller sums over the ranks."""
     cosh_b, sinh_b = coeffs
     cplx = sinh_b.is_complex()
     b = exp_mu(spec, p) * torch.roll(v, 1, dims=-1)
@@ -364,26 +397,46 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
     batch = torch.broadcast_shapes(x.shape[:-2], b.shape[:-2])
     out = torch.zeros(batch + (spec.Nph, spec.Ltau), dtype=x.dtype, device=x.device)
     sgn = -_tau_sign(spec, x, True)
-    partner = spec.ckb.torch_tables(x.device)[0]
-    for g in range(spec.ckb.ngroups):
-        cg, sg = ckb.group_coeffs(spec.ckb, g, cosh_b, sinh_b, b)
-        b = cg * b + sg * b.index_select(-2, partner[g])
-        c = cg * c - sg * c.index_select(-2, partner[g])
-        sites = _group_bonds(spec, g, x.device)
-        if sites is None:
-            continue
-        i_s, j_s, ph_s, bond_s = sites
-        dKdx = (phonon_leaf(p.alpha, ph_s, x)
+
+    def dKdx(ph_s):
+        return (phonon_leaf(p.alpha, ph_s, x)
                 + 2.0 * phonon_leaf(p.alpha2, ph_s, x) * x.index_select(-2, ph_s))
-        bi, bj = b.index_select(-2, i_s), b.index_select(-2, j_s)
-        ci, cj = c.index_select(-2, i_s), c.index_select(-2, j_s)
-        if cplx:
-            phb = p.t_phase.index_select(-1, bond_s)[:, None]
-            pair = (phb * ci.conj() * bj + phb.conj() * cj.conj() * bi).real
-        else:
-            pair = cj * bi + ci * bj
-        dmdx = sgn * spec.dtau * dKdx * pair
-        out = out.index_add(-2, ph_s, dmdx.expand(batch + dmdx.shape[-2:]))
+
+    if spec.shard is not None:
+        # each site of the block pairs its b with its partner's c: the two
+        # endpoints of a bond, on this rank or another, give the bond's two terms
+        for g, b, c, cp in spec.shard.fold_walk(cosh_b, sinh_b, b, c):
+            sites = _shard_group_bonds(spec, g, x.device)
+            if sites is None:
+                continue
+            rows, ph_s, bond_s, lo = sites
+            br, cpr = b.index_select(-2, rows), cp.index_select(-2, rows)
+            if cplx:
+                phb = p.t_phase.index_select(-1, bond_s)[:, None]
+                pair = (torch.where(lo, phb.conj(), phb) * cpr.conj() * br).real
+            else:
+                pair = cpr * br
+            dmdx = sgn * spec.dtau * dKdx(ph_s) * pair
+            out = out.index_add(-2, ph_s, dmdx.expand(batch + dmdx.shape[-2:]))
+    else:
+        partner = spec.ckb.torch_tables(x.device)[0]
+        for g in range(spec.ckb.ngroups):
+            cg, sg = ckb.group_coeffs(spec.ckb, g, cosh_b, sinh_b, b)
+            b = cg * b + sg * b.index_select(-2, partner[g])
+            c = cg * c - sg * c.index_select(-2, partner[g])
+            sites = _group_bonds(spec, g, x.device)
+            if sites is None:
+                continue
+            i_s, j_s, ph_s, bond_s = sites
+            bi, bj = b.index_select(-2, i_s), b.index_select(-2, j_s)
+            ci, cj = c.index_select(-2, i_s), c.index_select(-2, j_s)
+            if cplx:
+                phb = p.t_phase.index_select(-1, bond_s)[:, None]
+                pair = (phb * ci.conj() * bj + phb.conj() * cj.conj() * bi).real
+            else:
+                pair = cj * bi + ci * bj
+            dmdx = sgn * spec.dtau * dKdx(ph_s) * pair
+            out = out.index_add(-2, ph_s, dmdx.expand(batch + dmdx.shape[-2:]))
     prim = spec.tensor("primary_phonon", x.device)
     return torch.zeros_like(out).index_add(-2, prim, out).index_select(-2, prim)
 

@@ -37,27 +37,31 @@ def _map_fields(obj, fn):
 
 @dataclasses.dataclass(frozen=True)
 class ChainBlock:
-    """Chains ``[lo, lo + n)`` of ``total``: this rank's block."""
+    """Chains ``[lo, lo + n)`` of ``total``: this rank's block. ``group``
+    is the process group of the chain ranks (None: every rank; under the
+    2-D layout the ranks that hold this rank's block of sites)."""
 
     total: int
     lo: int
     n: int
+    group: object = dataclasses.field(default=None, compare=False)
 
     @classmethod
-    def of(cls, n_chains: int, world: int, rank: int) -> "ChainBlock":
+    def of(cls, n_chains: int, world: int, rank: int, group=None) -> "ChainBlock":
+        """Block ``rank`` of ``world`` chain blocks."""
         if n_chains % world:
             raise ValueError(f"n_chains={n_chains} must be a multiple of n_devices={world}")
         n = n_chains // world
-        return cls(total=n_chains, lo=rank * n, n=n)
+        return cls(total=n_chains, lo=rank * n, n=n, group=group)
 
     def local(self, obj, dim: int = 0):
         """This rank's block of every tensor of ``obj`` along ``dim``."""
         return _map_fields(obj, lambda t: t.narrow(dim, self.lo, self.n))
 
     def gather(self, obj, dim: int = 0):
-        """Every rank's block of every tensor of ``obj`` concatenated along
-        ``dim`` (a collective)."""
-        return _map_fields(obj, lambda t: all_gather(t, dim))
+        """Every chain rank's block of every tensor of ``obj`` concatenated
+        along ``dim`` (a collective of the chain group)."""
+        return _map_fields(obj, lambda t: all_gather(t, dim, self.group))
 
     def wrap(self, update, draws_dim: int = 0):
         """``update(params, state, *args, generator=None, draws=None)`` run

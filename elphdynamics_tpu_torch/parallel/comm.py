@@ -1,10 +1,17 @@
 """The two collectives of a site-sharded solve.
 
 * :func:`allreduce_sum`: the float64 partial sums of the CG dots, the
-  energies and the KPM power-iteration norms, summed over the ranks;
+  energies and the KPM power-iteration norms, summed over the ranks of a
+  site group (and SSH's fermionic force over the bond field);
 * :func:`halo_exchange`: one boundary-crossing checkerboard group's halo
   rows, sent to both ring neighbours and received from both in one
   ``dist.batch_isend_irecv``.
+
+Both take a process ``group`` (None: every rank). Under the 2-D chain ×
+site layout a site group holds one chain block's site ranks
+(:func:`..multihost.layout_groups`); the halo peers are global ranks of
+that group, and no collective of one site group involves another, so each
+group's solve may stop at its own iteration count.
 
 Under gloo a CUDA tensor is staged through host memory explicitly (gloo's
 point-to-point ops take CPU tensors, and NCCL refuses two ranks on one
@@ -31,19 +38,20 @@ def _staged(t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend() == "gloo"
 
 
-def allreduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks, as a new tensor on ``t``'s device
-    (every rank gets the same bits)."""
+def allreduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group``, as a new tensor on
+    ``t``'s device (every rank gets the same bits)."""
     staged = _staged(t)
     buf = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(t.device) if staged else buf
 
 
 def halo_exchange(send_next: torch.Tensor | None, send_prev: torch.Tensor | None,
-                  next_rank: int, prev_rank: int):
+                  next_rank: int, prev_rank: int, group=None):
     """Send ``send_next`` to ``next_rank`` and ``send_prev`` to
-    ``prev_rank``; return ``(from_prev, from_next)``: the previous rank's
+    ``prev_rank`` (global ranks of ``group``); return ``(from_prev,
+    from_next)``: the previous rank's
     ``send_next`` (this rank's previous halo, shaped like ``send_next``)
     and the next rank's ``send_prev`` (shaped like ``send_prev``). Either
     direction may be None (no rows cross that way); every rank passes the
@@ -57,12 +65,12 @@ def halo_exchange(send_next: torch.Tensor | None, send_prev: torch.Tensor | None
     ops, outs = [], []
     for t, peer, tag in ((send_next, next_rank, _TO_NEXT), (send_prev, prev_rank, _TO_PREV)):
         if t is not None:
-            ops.append(dist.P2POp(dist.isend, t.contiguous().to(wire), peer, tag=tag))
+            ops.append(dist.P2POp(dist.isend, t.contiguous().to(wire), peer, group, tag=tag))
     for like, peer, tag in ((send_next, prev_rank, _TO_NEXT), (send_prev, next_rank, _TO_PREV)):
         buf = None
         if like is not None:
             buf = torch.empty(like.shape, dtype=like.dtype, device=wire)
-            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group, tag=tag))
         outs.append(buf)
     for w in dist.batch_isend_irecv(ops):
         w.wait()

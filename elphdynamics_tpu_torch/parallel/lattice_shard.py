@@ -1,23 +1,32 @@
-"""Site (lattice) sharding of the Holstein model over ranks.
+"""Site (lattice) sharding of the Holstein and SSH models over ranks.
 
 Counterpart of ``elphdynamics_tpu/parallel/lattice_shard.py``. The site
-axis of every ``[..., N, Lτ]`` field is cut into D equal contiguous blocks,
-one per rank; τ stays whole on every rank, so the τ-shift of M,
-exp(−Δτ·V), the Fourier acceleration and the KPM τ↔ω transforms are
-rank-local. What crosses ranks:
+axis of every ``[..., N, Lτ]`` fermion field is cut into D equal contiguous
+blocks, one per rank of a site group; τ stays whole on every rank, so the
+τ-shift of M, the exp(−Δτ·V) and exp(+Δτ·μ) diagonals, the Fourier
+acceleration and the KPM τ↔ω transforms are rank-local. What crosses
+ranks:
 
 * the checkerboard fold: within a group every site couples to one partner;
   a partner on a ring-adjacent rank arrives as a halo row, one exchange
   (:func:`..comm.halo_exchange`) per boundary-crossing group;
-* the ωᵢⱼ dispersion pairs, through the same kind of halo;
-* sums over sites (CG dots, energies, KPM norms): one all-reduce of the
-  ranks' float64 partial sums.
+* the ωᵢⱼ dispersion pairs (Holstein), through the same kind of halo;
+* sums over sites (CG dots, energies, KPM norms, block-CG Grams,
+  deflation Grams): one all-reduce of the ranks' float64 partial sums.
+
+Holstein's phonons live on sites, so its phonon field is cut like the
+fermion fields. SSH's live on bonds: the bond field x, its momenta, the
+bosonic action and its force stay whole on every rank (each rank
+integrates the same trajectory), and the fermionic force is the one
+quantity over the bond field that is a sum over sites: each rank walks its
+block's share (:meth:`SiteShard.fold_walk`) onto the whole ``[.., Nph,
+Lτ]`` array, and one all-reduce per force evaluation assembles it.
 
 Where the JAX package duplicates its samplers for the sharded case, the
-port runs its ordinary ones on sharded operators: :func:`shard_holstein`
-gives the rank a Holstein spec whose fold is the halo fold and whose
-fields hold its B = N/D sites, and the spec's :class:`SiteShard` is the
-one collective hook the samplers consult (``ModelOps.shard``) for the sums
+port runs its ordinary ones on sharded operators: :func:`shard_model`
+gives the rank a spec whose fold is the halo fold and whose fermion fields
+hold its B = N/D sites, and the spec's :class:`SiteShard` is the one
+collective hook the samplers consult (``ModelOps.shard``) for the sums
 over sites. Without a shard the one-rank path is untouched.
 
 The sharded fold is plain torch on the rank's block in any case (the JAX
@@ -207,26 +216,59 @@ def build_wij_plan(wij_table: np.ndarray, N: int, D: int) -> WijPlan | None:
                    row_j=row_j, ext_i=ext_i, k_j=k_j, mask_j=mask_j)
 
 
-class SiteShard:
-    """One rank's block of sites and the collectives over the site ranks.
+def ssh_group_phonons(spec, plan: ShardPlan):
+    """Per (group, block) phonon tables of the sharded SSH ``muldMdx``, each
+    a tuple over groups of ``[D, B]`` arrays: ``ph_of_site`` the phonon of
+    the bond at a local site (0 where masked), ``ph_mask`` whether the site
+    has a phonon-carrying bond in the group, ``bond_orig`` the bond in the
+    original order (its Peierls phase)."""
+    D, B = plan.D, plan.B
+    ph_of_site, ph_mask, bond_orig = [], [], []
+    for g in range(spec.ckb.ngroups):
+        orig = spec.ckb_to_bond[spec.ckb.bond_of_site[g]]
+        ph = spec.bond_to_phonon[orig]
+        ph_of_site.append(np.maximum(ph, 0).reshape(D, B).copy())
+        ph_mask.append((spec.ckb.mask[g] & (ph >= 0)).reshape(D, B).copy())
+        bond_orig.append(orig.reshape(D, B).copy())
+    return tuple(ph_of_site), tuple(ph_mask), tuple(bond_orig)
 
-    ``d`` is this rank's block (= its rank in the process group), ``N`` the
-    global site count, ``B = N/D`` the block, ``lo`` its first site. The
-    counters (``folds``, ``halo_msgs``, ``halo_bytes`` sent, ``allreduces``)
-    feed the PERF metrics; :meth:`reset_counts` zeroes them.
+
+class SiteShard:
+    """One rank's block of sites and the collectives over its site group.
+
+    ``d`` is this rank's block (its rank within the site group ``group``,
+    whose global ranks are ``base .. base + D − 1``), ``N`` the global site
+    count, ``B = N/D`` the block, ``lo`` its first site. The counters
+    (``folds``, ``halo_msgs``, ``halo_bytes`` sent, ``allreduces``,
+    ``allreduce_bytes``; ``force_sums`` and ``force_bytes`` of them SSH's
+    force all-reduces) feed the PERF metrics; :meth:`reset_counts` zeroes
+    them.
     """
 
-    def __init__(self, ckb: CheckerboardSpec, wij_table: np.ndarray, D: int, d: int):
+    def __init__(self, ckb: CheckerboardSpec, wij_table: np.ndarray, D: int, d: int,
+                 group=None, base: int = 0):
         self.plan = build_shard_plan(ckb, D)
         self.wplan = build_wij_plan(wij_table, ckb.nsites, D)
         self.N, self.D, self.d, self.B = ckb.nsites, D, d, self.plan.B
         self.lo = d * self.B
-        self.next_rank, self.prev_rank = (d + 1) % D, (d - 1) % D
+        self.group = group
+        self.next_rank, self.prev_rank = base + (d + 1) % D, base + (d - 1) % D
         self._tables: dict = {}
         self.reset_counts()
 
     def reset_counts(self) -> None:
         self.folds = self.halo_msgs = self.halo_bytes = self.allreduces = 0
+        self.allreduce_bytes = self.force_sums = self.force_bytes = 0
+
+    def ssh_phonons(self, spec):
+        """This rank's rows of :func:`ssh_group_phonons` for the SSH ``spec``
+        (whole or the rank's: the bond tables are the same), cached."""
+        key = "ssh_phonons"
+        tabs = self._tables.get(key)
+        if tabs is None:
+            tabs = self._tables[key] = tuple(tuple(a[self.d] for a in t)
+                                             for t in ssh_group_phonons(spec, self.plan))
+        return tabs
 
     # --- layout
 
@@ -236,13 +278,21 @@ class SiteShard:
 
     def gather(self, t: torch.Tensor, dim: int = -2) -> torch.Tensor:
         """The global tensor from every rank's block along ``dim`` (a
-        collective)."""
-        return all_gather(t, dim)
+        collective of the site group)."""
+        return all_gather(t, dim, self.group)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the site ranks of the partial sums ``t``."""
+        """The sum over the site group of the partial sums ``t``."""
         self.allreduces += 1
-        return allreduce_sum(t)
+        self.allreduce_bytes += t.numel() * t.element_size()
+        return allreduce_sum(t, self.group)
+
+    def sum_force(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`sum` of the ranks' shares of SSH's fermionic force on the
+        whole bond field, counted apart."""
+        self.force_sums += 1
+        self.force_bytes += t.numel() * t.element_size()
+        return self.sum(t)
 
     def row(self, x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
         """Global row ``i[c]`` of chain c of the sharded ``[C, B, Lτ]``
@@ -279,33 +329,58 @@ class SiteShard:
             return v
         sn = v.index_select(-2, send_next_rows) if hp else None
         sp = v.index_select(-2, send_prev_rows) if hn else None
-        from_prev, from_next = halo_exchange(sn, sp, self.next_rank, self.prev_rank)
+        from_prev, from_next = halo_exchange(sn, sp, self.next_rank, self.prev_rank, self.group)
         self.halo_msgs += (hp > 0) + (hn > 0)
         self.halo_bytes += sum(t.numel() * t.element_size() for t in (sn, sp) if t is not None)
         return torch.cat([v] + [t for t in (from_prev, from_next) if t is not None], dim=-2)
+
+    def _group_coeffs(self, tabs, g: int, cosh_b, sinh_b, v):
+        """Group ``g``'s (c, s) on the block's sites, shaped against ``v``."""
+        one = torch.ones((), dtype=cosh_b.dtype, device=v.device)
+        zero = torch.zeros((), dtype=sinh_b.dtype, device=v.device)
+        return (_site_coeffs(cosh_b, tabs["bos"][g], tabs["mask"][g], one, v),
+                _site_coeffs(sinh_b, tabs["bos"][g], tabs["mask"][g], zero, v, tabs["lo"][g]))
 
     def fold(self, cosh_b, sinh_b, v, *, reverse: bool = False, sign: float = 1.0):
         """The checkerboard fold of the local ``[..., B, K]`` block in
         direction ``(reverse, sign)`` (forward, transpose = reversed order,
         inverse = reversed with −s, inverse transpose = forward with −s),
-        coefficients ``[Nb]`` or per chain ``[C, Nb]``; each site's update
-        is the plain twin's (:func:`..ops.checkerboard.fold`)."""
+        coefficients ``[Nb]``, per chain ``[C, Nb]`` or per chain and column
+        ``[C, Nb, K]`` (SSH's fermion operator), real or complex; each
+        site's update is the plain twin's (:func:`..ops.checkerboard.fold`)."""
         tabs = self._dev_tables(v.device)
         p = self.plan
-        one = torch.ones((), dtype=cosh_b.dtype, device=v.device)
-        zero = torch.zeros((), dtype=sinh_b.dtype, device=v.device)
         if sinh_b.is_complex() and not v.is_complex():
             v = v.to(sinh_b.dtype)
         self.folds += 1
         order = range(p.ngroups - 1, -1, -1) if reverse else range(p.ngroups)
         for g in order:
-            c = _site_coeffs(cosh_b, tabs["bos"][g], tabs["mask"][g], one, v)
-            s = _site_coeffs(sinh_b, tabs["bos"][g], tabs["mask"][g], zero, v, tabs["lo"][g])
+            c, s = self._group_coeffs(tabs, g, cosh_b, sinh_b, v)
             if sign < 0:
                 s = -s
             ext = self._extend(v, tabs["send_next"][g], tabs["send_prev"][g], p.hp[g], p.hn[g])
             v = c * v + s * ext.index_select(-2, tabs["partner"][g])
         return v
+
+    def fold_walk(self, cosh_b, sinh_b, b, c):
+        """SSH's ``muldMdx`` group walk on the block: per group g in order,
+        b ← G_g·b and c ← G_g⁻¹·c, yielding ``(g, b, c, cp)`` after the
+        group, ``cp`` the partner's new c. One halo exchange per crossing
+        group carries b and c together; the partner's new c is rebuilt
+        locally from the shared bond rotation (the partner sits at the
+        bond's other endpoint and takes conj(s)), with no second halo."""
+        tabs = self._dev_tables(b.device)
+        p = self.plan
+        K = b.shape[-1]
+        self.folds += 1
+        for g in range(p.ngroups):
+            cg, sg = self._group_coeffs(tabs, g, cosh_b, sinh_b, b)
+            ext = self._extend(torch.cat([b, c], dim=-1), tabs["send_next"][g],
+                               tabs["send_prev"][g], p.hp[g], p.hn[g])
+            bp, cp_old = ext.index_select(-2, tabs["partner"][g]).split(K, dim=-1)
+            cp = cg * cp_old - (sg.conj() if sg.is_complex() else sg) * c
+            b, c = cg * b + sg * bp, cg * c - sg * cp_old
+            yield g, b, c, cp
 
     # --- ωᵢⱼ dispersion
 
@@ -366,9 +441,32 @@ def shard_holstein(spec, params, shard: SiteShard):
     return lspec, shard_params(params, shard)
 
 
+def shard_ssh(spec, params, shard: SiteShard):
+    """The rank's SSH model: a spec with ``Nsites = B`` whose fold is
+    ``shard``'s halo fold (the fermion fields hold the block), and
+    parameters with the chemical potential cut to the block. The bond field
+    (``Nph``), the hopping, the couplings and every bond table stay whole."""
+    if spec.Nsites != shard.N:
+        raise ValueError(f"the shard is for {shard.N} sites, the model has {spec.Nsites}")
+    B = shard.B
+    lspec = replace(spec, Nsites=B, Ndim=B * spec.Ltau, shard=shard, _cache={})
+    return lspec, shard_params(params, shard)
+
+
+def shard_model(spec, params, shard: SiteShard):
+    """The rank's model of either family (:func:`shard_holstein`,
+    :func:`shard_ssh`)."""
+    if hasattr(params, "lam"):
+        return shard_holstein(spec, params, shard)
+    return shard_ssh(spec, params, shard)
+
+
 def shard_params(params, shard: SiteShard):
-    """Holstein parameters with the site tables cut to ``shard``'s block
-    (views: cheap to take again after the chemical potential moves)."""
+    """Parameters with the site tables cut to ``shard``'s block (views:
+    cheap to take again after the chemical potential moves): Holstein's
+    μ, ω, ω₄, λ, λ₂, SSH's μ (its other tables are per bond)."""
+    if not hasattr(params, "lam"):
+        return replace(params, mu=shard.local(params.mu, -1))
     return replace(params, **{k: shard.local(getattr(params, k), -1)
                               for k in ("mu", "omega", "omega4", "lam", "lam2")},
                    expK=None, expK_inv=None)

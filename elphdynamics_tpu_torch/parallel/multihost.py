@@ -40,7 +40,8 @@ from elphdynamics_tpu_torch.parallel.comm import _staged
 from elphdynamics_tpu_torch.utils.device import require_device
 
 __all__ = ["init", "init_from_env", "backend_for", "rank", "world", "is_primary",
-           "rank_device", "fetch", "fetch_tree", "bcast_int", "bcast_str", "launch"]
+           "rank_device", "layout_groups", "fetch", "fetch_tree", "bcast_int", "bcast_str",
+           "launch"]
 
 # a collective that waits longer than this fails instead of hanging
 DEFAULT_TIMEOUT_S = 600.0
@@ -97,17 +98,38 @@ def rank_device(device) -> torch.device:
     return device
 
 
-def all_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """The ranks' tensors (equal shapes) concatenated along ``dim`` in rank
-    order, on ``t``'s device (a collective)."""
-    if world() == 1:
+def layout_groups(n_chain: int, n_site: int):
+    """The process groups of the 2-D chain × site layout, for this rank:
+    ``(site_group, chain_group)``. Rank r is chain block ``r // n_site``
+    and site block ``r % n_site``; its site group holds the ``n_site``
+    ranks of its chain block, its chain group the ``n_chain`` ranks of its
+    site block. A group that spans every rank is None (the default group).
+    ``dist.new_group`` is a collective of every rank, so every rank builds
+    every group, site groups first, in one order."""
+    if n_chain * n_site != world():
+        raise ValueError(f"{n_chain} chain x {n_site} site ranks need a process group of "
+                         f"{n_chain * n_site}, this one has {world()}")
+    if n_chain == 1 or n_site == 1:
+        return None, None
+    r = rank()
+    site = [dist.new_group([b * n_site + s for s in range(n_site)]) for b in range(n_chain)]
+    chain = [dist.new_group([b * n_site + s for b in range(n_chain)]) for s in range(n_site)]
+    return site[r // n_site], chain[r % n_site]
+
+
+def all_gather(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """The tensors (equal shapes) of the ranks of ``group`` (None: every
+    rank) concatenated along ``dim`` in rank order, on ``t``'s device (a
+    collective of the group)."""
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
+    if n == 1:
         return t
     src = t.detach().contiguous()
     staged = _staged(src)
     if staged:
         src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(world())]
-    dist.all_gather(parts, src)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     return out.to(t.device) if staged else out
 

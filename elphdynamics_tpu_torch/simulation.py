@@ -37,17 +37,25 @@ one of them):
   its block of chains (:class:`.parallel.chains.ChainBlock`), the draws
   made for the whole batch and cut to the block, and the per-chain
   statistics, increments and fields gathered where every chain is needed;
-* ``site_devices`` ranks shard the lattice of a Holstein model: every rank
-  runs the same samplers on its block of sites
-  (:mod:`.parallel.lattice_shard`), and the measurements gather the probe
-  solutions for the estimator stage.
+* ``site_devices`` ranks shard the lattice: every rank runs the same
+  samplers on its block of sites (:mod:`.parallel.lattice_shard`; SSH's
+  bond field stays whole on every rank), and the measurements gather the
+  probe solutions for the estimator stage;
+* both at once, the 2-D layout: ``n_devices`` chain blocks of
+  ``site_devices`` site ranks each (rank r is chain block r // site_devices
+  and site block r % site_devices). A site group's collectives (halos, the
+  sums over sites) involve only its own ranks, so its solves stop at their
+  own iteration counts; the chain group of a site block gathers chains.
+  Each chain block's measurement runs on its gathered lattice with the
+  one-card measurement, as the JAX package's combined mode does.
 
-Every rank runs the same loop and reaches every collective; the files
-(datafolder, logs, bins, summary, checkpoint) are written by rank 0 only,
-and every host decision comes from values equal on every rank. Both
-layouts at once, SSH, block / BiCGStab / GMRES solves, deflation, the
-near-null preconditioner, tempering and 2MN under site sharding are a
-later slice (ROADMAP H2) and raise ``NotImplementedError``.
+Tempering runs on every layout; across chain ranks the exchange gathers
+the partners' fields over the chain group and takes the one-rank run's
+decisions. Every rank runs the same loop and reaches every collective; the
+files (datafolder, logs, bins, summary, checkpoint) are written by rank 0
+only, and every host decision comes from values equal on every rank that
+shares a collective. Under site sharding the near-null preconditioner, 2MN
+and BiCGStab / GMRES raise ``NotImplementedError`` (:func:`check_parallel`).
 """
 
 from __future__ import annotations
@@ -64,13 +72,15 @@ import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.dynamics.hmc import (
-    DtTunerState, HMCState, dt_tuner_init, dt_tuner_update, init_deflation, make_hmc_step)
+    SITE_2MN, DtTunerState, HMCState, dt_tuner_init, dt_tuner_update, init_deflation,
+    make_hmc_step)
 from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
 from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
+from elphdynamics_tpu_torch.dynamics.solve import SITE_NONSYM
 from elphdynamics_tpu_torch.dynamics.special_updates import (
     make_reflection_update, make_swap_update)
 from elphdynamics_tpu_torch.dynamics.tempering import (
-    check_ladder, ladder_params, make_exchange_step, rung_params)
+    chain_params, check_ladder, ladder_params, make_exchange_step, rung_params)
 from elphdynamics_tpu_torch.io import checkpoint as ckpt
 from elphdynamics_tpu_torch.io import output as out_io
 from elphdynamics_tpu_torch.io.config import SimulationSetup, build_setup, load_toml
@@ -80,11 +90,11 @@ from elphdynamics_tpu_torch.measure.measurements import (
     make_measurement_step, mean_over_chains, process_bin, zero_container)
 from elphdynamics_tpu_torch.measure.mufinder import MuTuner
 from elphdynamics_tpu_torch.models.adapter import global_sites, make_model_ops
-from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.ops import deflation, kpm
 from elphdynamics_tpu_torch.ops.nearnull import make_nearnull_precond
 from elphdynamics_tpu_torch.parallel import multihost
 from elphdynamics_tpu_torch.parallel.chains import ChainBlock
-from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard, shard_holstein, shard_params
+from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard, shard_model, shard_params
 from elphdynamics_tpu_torch.utils.device import require_device
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
@@ -136,32 +146,34 @@ def auto_chains(Nsites: int, Ltau: int, n_devices: int = 1, is_holstein: bool = 
     return per_card * max(n_devices, 1)
 
 
+# the refusal of the near-null preconditioner under site sharding, and why
+# (ROADMAP §3)
+SITE_NEARNULL = ("[solver.nearnull] with --site-devices: the JAX package refuses it too "
+                 "(its sharded steps build their own preconditioner applies and the "
+                 "two-level state is not threaded through them; ROADMAP section 3)")
+
+
 def check_parallel(cfg: dict, n_devices: int = 1, site_devices: int = 1) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP slice H2) for a layout
-    this slice does not run: both layouts at once; under ``site_devices``
-    SSH and every solver aid other than plain KPM-CG, 2MN and tempering;
-    tempering over chain ranks."""
+    """Raise ``NotImplementedError`` for the three layouts the JAX package
+    does not really run, each message naming its cause: under
+    ``site_devices`` the near-null preconditioner (the JAX package raises),
+    the 2MN integrator and BiCGStab / GMRES (its sharded steps run leapfrog
+    and CG whatever is asked; ROADMAP §3)."""
     if n_devices < 1 or site_devices < 1:
         raise ValueError("--devices and --site-devices must be >= 1")
     sol = cfg.get("solver", {})
     h = cfg.get("hmc", {})
     why = []
-    if n_devices > 1 and site_devices > 1:
-        why.append("--devices with --site-devices (the 2-D chain x site layout)")
     if site_devices > 1:
-        if "ssh" in cfg:
-            why.append("the SSH model with --site-devices")
-        if str(sol.get("type", "CG")).lower() != "cg" or sol.get("block", False):
-            why.append("BiCGStab / GMRES / block CG with --site-devices")
-        if int(sol.get("deflation", {}).get("k", 0)) > 0 or "nearnull" in sol:
-            why.append("[solver.deflation] / [solver.nearnull] with --site-devices")
+        if "nearnull" in sol:
+            why.append(SITE_NEARNULL)
         if any(str(t.get("integrator", "leapfrog")).lower() == "2mn"
                for t in (h, h.get("burnin", {}))):
-            why.append("the 2MN integrator with --site-devices")
-    if "tempering" in cfg and (n_devices > 1 or site_devices > 1):
-        why.append("[tempering] over several ranks")
+            why.append(SITE_2MN)
+        if str(sol.get("type", "CG")).lower() != "cg":
+            why.append(SITE_NONSYM)
     if why:
-        raise NotImplementedError("; ".join(why) + ": ROADMAP slice H2")
+        raise NotImplementedError("; ".join(why))
 
 
 def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda",
@@ -216,10 +228,17 @@ def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda"
         handler = logging.NullHandler()   # the other ranks log nowhere
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
+    site_group, chain_group = (multihost.layout_groups(n_devices, site_devices) if world > 1
+                               else (None, None))
+    block, d = divmod(multihost.rank(), site_devices)
+    spec = setup.ops.spec
     par = _Parallel(
-        chains=ChainBlock.of(n_chains, n_devices, multihost.rank()) if n_devices > 1 else None,
-        shard=(SiteShard(setup.ops.spec.ckb, setup.ops.spec.wij_table, site_devices,
-                         multihost.rank()) if site_devices > 1 else None))
+        chains=(ChainBlock.of(n_chains, n_devices, block, chain_group) if n_devices > 1
+                else None),
+        shard=(SiteShard(spec.ckb, getattr(spec, "wij_table", np.zeros((2, 0), np.int64)),
+                         site_devices, d, site_group, base=block * site_devices)
+               if site_devices > 1 else None),
+        cut_phonons=setup.ops.is_holstein)
     try:
         import elphdynamics_tpu_torch
         logger.info("elphdynamics_tpu_torch version: %s", elphdynamics_tpu_torch.__version__)
@@ -259,38 +278,53 @@ def run_rank(device, kwargs: dict, profile: str | None = None) -> dict:
 
 @dataclass(frozen=True)
 class _Parallel:
-    """This rank's part of the run: a block of chains, or a block of sites
-    (None, None on one rank)."""
+    """This rank's part of the run: a block of chains, a block of sites, or
+    both (the 2-D layout); (None, None) on one rank. ``cut_phonons``: the
+    phonon field is cut with the sites (Holstein; SSH's bond field is whole
+    on every rank of a site group)."""
 
     chains: ChainBlock | None = None
     shard: SiteShard | None = None
+    cut_phonons: bool = True
 
-    def gather_field(self, x):
-        """Every chain's and site's field from the ranks' blocks (a
-        collective)."""
-        if self.chains is not None:
-            return self.chains.gather(x)
-        if self.shard is not None:
+    def gather_sites(self, x):
+        """The chain block's phonon field on the whole lattice (a collective
+        of the site group where the field is cut)."""
+        if self.shard is not None and self.cut_phonons:
             return self.shard.gather(x)
         return x
 
+    def gather_field(self, x):
+        """Every chain's and site's phonon field from the ranks' blocks
+        (collectives of the site group, then of the chain group)."""
+        x = self.gather_sites(x)
+        return self.chains.gather(x) if self.chains is not None else x
+
     def local_field(self, x):
-        """This rank's block of a whole ``[C, N, Lτ]`` field."""
+        """This rank's block of a whole ``[C, Nph, Lτ]`` phonon field."""
         if self.chains is not None:
-            return self.chains.local(x)
-        if self.shard is not None:
-            return self.shard.local(x)
+            x = self.chains.local(x)
+        if self.shard is not None and self.cut_phonons:
+            x = self.shard.local(x)
         return x
 
+    def local_params(self, params):
+        """``params`` of this rank's sites and chains (the site tables and
+        per-chain couplings cut)."""
+        if self.shard is not None:
+            params = shard_params(params, self.shard)
+        if self.chains is not None:
+            params = chain_params(params, self.chains.lo, self.chains.n)
+        return params
+
     def run(self, update, params, state, *args, generator, draws_dim: int = 0):
-        """An update on this rank's part: the whole batch's draws cut to the
-        chain block, or the sharded update on the local parameters (which
-        cut its own draws to the site block)."""
+        """An update on this rank's part, on its parameters: the whole
+        batch's draws cut to the chain block (the sharded update cuts its
+        own draws to the site block)."""
+        params = self.local_params(params)
         if self.chains is not None:
             return self.chains.wrap(update, draws_dim)(params, state, *args,
                                                        generator=generator)
-        if self.shard is not None:
-            params = shard_params(params, self.shard)
         return update(params, state, *args, generator)
 
     def gather_stats(self, obj):
@@ -458,7 +492,7 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     ops_g, params, sp = setup.ops, setup.params, setup.sim_params
     ops = ops_g
     if par.shard is not None:
-        ops = make_model_ops(shard_holstein(ops_g.spec, params, par.shard)[0])
+        ops = make_model_ops(shard_model(ops_g.spec, params, par.shard)[0])
     datafolder = sp.datafolder
     dev, dtype = setup.device, setup.dtype
     mspec = setup.mspec
@@ -490,9 +524,13 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
             tuner = dt_tuner_init(bcfg.dt, device=dev)
     else:
         sim_step = burnin_step = _langevin_update(ops, setup, precond)
-    # under site sharding only the estimator stage of the global step runs
-    mstep = make_measurement_step(ops_g, mspec, setup.solver_cfg,
-                                  None if par.shard is not None else precond)
+    # site-only: the estimator stage of the global step runs on the gathered
+    # probes; 2-D: the one-card measurement on each chain block's lattice
+    mprecond = precond
+    if par.shard is not None:
+        mprecond = (kpm.make_precond(ops_g, setup.kpm_cfg)
+                    if par.chains is not None and setup.kpm_cfg is not None else None)
+    mstep = make_measurement_step(ops_g, mspec, setup.solver_cfg, mprecond)
     reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
     swap = make_swap_update(ops, setup.swap_cfg, precond)
 
@@ -554,11 +592,12 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
             x0 = torch.as_tensor(out_io.read_phonons(ops_g, setup.read_phonon_config),
                                  device=dev).to(dtype)
             x = par.local_field(x0.expand((n_chains,) + tuple(x0.shape)).contiguous())
-        elif par.shard is not None:
-            # draws every site's numbers and keeps the block
-            x = init_phonons_half_filled(ops, shard_params(params, par.shard), n_chains, gen)
         else:
-            x = par.local_field(init_phonons_half_filled(ops, params, n_chains, gen))
+            # every chain's numbers (a site-sharded model draws every site's
+            # and keeps its block), then this rank's chains
+            p0 = shard_params(params, par.shard) if par.shard is not None else params
+            x = init_phonons_half_filled(ops, p0, n_chains, gen)
+            x = par.chains.local(x) if par.chains is not None else x
         v = torch.zeros_like(x)
         if primary:
             out_io.init_measurement_folders(datafolder, container, mspec.snapshots)
@@ -570,19 +609,23 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
         # a resumed run loaded the per-chain couplings from its checkpoint
         if not resume:
             params = ladder_params(params, tcfg, n_chains)
-        exchange = make_exchange_step(ops, tcfg, n_chains, precond)
+        exchange = make_exchange_step(ops, tcfg, n_chains, precond, chains=par.chains)
         n_meas_chains = n_chains // len(tcfg.ladder)
         sim_stats.setdefault("tempering_acceptance_rate", 0.0)
         logger.info("parallel tempering: ladder=%s freq=%d (%d chains/rung)",
                     list(tcfg.ladder), tcfg.freq, n_meas_chains)
     # the deflation basis is a solver aid, not checkpointed: it is drawn
     # anew (from its own seed, leaving the main stream as it is) on resume
+    # (the whole model's basis, cut to this rank's chains and sites)
     defl = None
     if hmc and setup.hmc_cfg.deflate_k > 0:
-        defl = par.local_field(init_deflation(
-            ops, setup.hmc_cfg, n_chains,
-            torch.Generator(device=dev).manual_seed(sp.random_seed + 7919),
-            params=setup.params, device=dev))
+        defl = init_deflation(ops_g, setup.hmc_cfg, n_chains,
+                              torch.Generator(device=dev).manual_seed(sp.random_seed + 7919),
+                              params=setup.params, device=dev)
+        if par.chains is not None:
+            defl = par.chains.local(defl)
+        if par.shard is not None:
+            defl = deflation.cut(defl, par.shard.local)
     state = HMCState(x=x, v=v, defl=defl)
 
     stats_acc = _Stats(dev)
@@ -660,7 +703,8 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
         if exchange is None or n % tcfg.freq:
             return state
         t0 = _clock(dev)
-        xn, vn, rate, _, flag = exchange(params, state.x, state.v, (n // tcfg.freq) % 2, gen)
+        xn, vn, rate, _, flag = exchange(par.local_params(params), state.x, state.v,
+                                         (n // tcfg.freq) % 2, gen)
         state = replace(state, x=xn, v=vn)
         sim_stats["simulation_time"] += _clock(dev) - t0
         stats_acc.fold("tempering", n, rate, 0.0, flag)
@@ -670,21 +714,28 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
         # under tempering only the rung-0 chains (physical couplings) are
         # measured: the other rungs' bins would be discarded
         mparams = rung_params(params)
-        if par.shard is not None:
+        if par.shard is not None and par.chains is None:
             # the probe solves on the site blocks, the estimators on the
             # gathered probes, solutions and fields
-            gd = sample_greens(ops, shard_params(mparams, par.shard), state.x, mspec.nv,
+            x = state.x[:n_meas_chains]
+            gd = sample_greens(ops, shard_params(mparams, par.shard), x, mspec.nv,
                                setup.solver_cfg, precond, gen)
             gd = replace(gd, R=par.shard.gather(gd.R), MinvR=par.shard.gather(gd.MinvR))
-            inc, mstats, snaps = mstep.analyze(mparams, par.shard.gather(state.x), gd)
-        elif par.chains is not None:
-            cb = par.chains
-            x = state.x
-            R = trace_noise((cb.total, mspec.nv, global_sites(ops), ops.Ltau),
-                            field_dtype(mparams, x.dtype), x.device, gen)
-            inc, mstats, snaps = cb.gather(mstep(mparams, x, R=cb.local(R)))
+            inc, mstats, snaps = mstep.analyze(mparams, par.gather_sites(x), gd)
         else:
-            inc, mstats, snaps = mstep(mparams, state.x[:n_meas_chains], gen)
+            # the chain block's whole lattice (2-D layout: a site-group gather)
+            x = par.gather_sites(state.x)
+            cb = par.chains
+            if cb is None:
+                inc, mstats, snaps = mstep(mparams, x[:n_meas_chains], gen)
+            elif exchange is not None:
+                # rung 0 may sit on one chain rank: every rank measures the
+                # gathered rung-0 chains, as the one-rank run does
+                inc, mstats, snaps = mstep(mparams, cb.gather(x)[:n_meas_chains], gen)
+            else:
+                R = trace_noise((cb.total, mspec.nv, global_sites(ops), ops.Ltau),
+                                field_dtype(mparams, x.dtype), x.device, gen)
+                inc, mstats, snaps = cb.gather(mstep(mparams, x, R=cb.local(R)))
         inc, snaps = mean_over_chains(inc, snaps, mstats["flag"])
         return inc, (mstats["flag"] != 0).sum(), snaps
 

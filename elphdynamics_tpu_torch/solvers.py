@@ -117,8 +117,6 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     every rank, so the ranks iterate in step."""
     if x0 is None:
         x0 = torch.zeros_like(b)
-    if deflate is not None and reduce is not None:
-        raise NotImplementedError("deflation with --site-devices: ROADMAP slice H2")
     P = apply_P if apply_P is not None else (lambda v: v)
 
     normb = torch.sqrt(_dots([(b, b)], reduce, _dot)[0])
@@ -128,7 +126,7 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
         # two passes, one step of iterative refinement: a float32 WᵀAW
         # factor limits one projection to ~1e-4·|b| in the slow modes
         for _ in range(2):
-            x0 = deflation.project(deflate, r, x0)
+            x0 = deflation.project(deflate, r, x0, reduce)
             r = b - apply_A(x0)
     z = P(r)
     rdotz, rr0 = _dots([(r, z), (r, r)], reduce, _dot)
@@ -299,7 +297,8 @@ def _colsolve(G: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 
 def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None, *,
              apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
-             kappa_max: float = 1e12, active0: torch.Tensor | None = None) -> CGResult:
+             kappa_max: float = 1e12, active0: torch.Tensor | None = None,
+             reduce: Callable | None = None) -> CGResult:
     """Breakdown-guarded block CG: ``A·X = B`` for ``s`` right-hand sides
     ``[..., s, N, Lτ]`` that share the operator, the search block spanning
     all residuals (O'Leary 1980). Leading axes before ``s`` are independent
@@ -311,7 +310,12 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     * α and β come from the explicit Gram solves ``(PᵀAP)α = PᵀR`` and
       ``(PᵀAP)β = −QᵀZ``, not from the ρ recursion;
     * the Gram matrices accumulate in float64, the block updates are field
-      dtype matmuls (TF32 matmuls must be off, as they are by default)."""
+      dtype matmuls (TF32 matmuls must be off, as they are by default).
+
+    ``reduce`` (a site-sharded solve: the site group's sum) makes the Grams
+    and norms global, one all-reduce per set: the start's norms, then per
+    iteration the pair PᵀAP, PᵀR, the residual norms and QᵀZ. Every rank of
+    the group then takes the same decisions and iterates in step."""
     if B.ndim < 3:
         raise ValueError("block_cg needs [..., s, N, Ltau] right-hand sides")
     if B.is_complex():
@@ -327,17 +331,27 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     flat = B.shape[:-2] + (field[0] * field[1],)
 
     def gram(U, W):
-        """[..., a, b] = Σ U[..., a]·W[..., b] over the field, in float64."""
+        """[..., a, b] = Σ U[..., a]·W[..., b] over the field, in float64
+        (the rank's partial on a site shard)."""
         return torch.matmul(U.reshape(flat).double(), W.reshape(flat).double().mT)
+
+    def grams(*pairs):
+        """The Grams of ``pairs``, made global in one all-reduce."""
+        gs = [gram(U, W) for U, W in pairs]
+        return gs if reduce is None else list(reduce(torch.stack(gs)).unbind(0))
+
+    def norms(a, dot=_dot):
+        return torch.sqrt(_dots([(a, a)], reduce, dot)[0])
 
     def combine(U, coef):
         """Σₐ U[..., a]·coef[..., a, b] as a [..., b] block."""
         return torch.matmul(coef.to(U.dtype).mT, U.reshape(flat)).reshape(U.shape)
 
-    safe_normb = _positive(_norm(B))            # [..., s]
     R = B - apply_A(X0)
     Z = P(R)
-    eps0 = _norm(R) / safe_normb
+    normb, normr = (torch.sqrt(d) for d in _dots([(B, B), (R, R)], reduce, _dot))
+    safe_normb = _positive(normb)               # [..., s]
+    eps0 = normr / safe_normb
 
     batch = B.shape[:-2]
     active = torch.ones(batch, dtype=torch.bool, device=B.device)
@@ -347,7 +361,7 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     conv = eps0 < tol
 
     Pd = Z * _bc(active, Z)
-    Pd = Pd / _bc(_positive(_norm_hot(Pd)), Pd)
+    Pd = Pd / _bc(_positive(norms(Pd, _dot_hot)), Pd)
     X = X0
     kmin = torch.zeros_like(eps0)
     iters = torch.zeros(batch, dtype=torch.int32, device=B.device)
@@ -358,16 +372,17 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
             break
         Pd = Pd * _bc(active, Pd)
         Q = apply_A(Pd)
+        G, PR = grams((Pd, Q), (Pd, R))
         # frozen slots: a unit diagonal keeps the batched LU non-singular
-        G = gram(Pd, Q) + eye * (~active).to(torch.float64)[..., None, :]
-        alpha = _colsolve(G, gram(Pd, R)) * active[..., None, :].to(torch.float64)
+        G = G + eye * (~active).to(torch.float64)[..., None, :]
+        alpha = _colsolve(G, PR) * active[..., None, :].to(torch.float64)
         X_new = X + combine(Pd, alpha)
         R_new = R - combine(Q, alpha)
-        eps = _norm_hot(R_new) / safe_normb
+        eps = norms(R_new, _dot_hot) / safe_normb
         kmin_new = _kappa_bound(kmin, eps0, eps, j)
         done = (eps < tol) | (kmin_new > kappa_max)
         Z_new = P(R_new) * _bc(active & ~done, R_new)
-        beta = _colsolve(G, -gram(Q, Z_new))
+        beta = _colsolve(G, -grams((Q, Z_new))[0])
         Pd_new = Z_new + combine(Pd, beta)
 
         m = _bc(active, X)
@@ -384,14 +399,15 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
 def block_solve_checked(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None, *,
                         apply_P: Callable | None = None, tol: float = 1e-5,
                         maxiter: int = 1000, kappa_max: float = 1e12,
-                        apply_A_check: Callable | None = None) -> SolveResult:
+                        apply_A_check: Callable | None = None,
+                        reduce: Callable | None = None) -> SolveResult:
     """:func:`block_cg` with the residual verification and retry ladder of
     :func:`solve_checked`; failed columns are re-solved by plain
-    unpreconditioned masked CG."""
+    unpreconditioned masked CG. ``reduce`` as in :func:`block_cg`."""
     A_chk = apply_A_check if apply_A_check is not None else apply_A
     res1 = block_cg(apply_A, B, X0=X0, apply_P=apply_P, tol=tol, maxiter=maxiter,
-                    kappa_max=kappa_max)
-    return _verify_and_retry(A_chk, B, res1, tol, maxiter, kappa_max)
+                    kappa_max=kappa_max, reduce=reduce)
+    return _verify_and_retry(A_chk, B, res1, tol, maxiter, kappa_max, reduce=reduce)
 
 
 def bicgstab(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,

@@ -8,8 +8,12 @@ JAX package where it has them; no rank is spawned here.
 * ``ChainBlock`` cuts a batch into equal contiguous blocks;
   ``auto_chains`` (``--chains 0``) follows its per-card table, scales with
   40/Lτ and the number of chain ranks.
-* Every layout of the next slice (H2) raises ``NotImplementedError``
-  naming it, before any rank starts.
+* Under ``--site-devices`` the near-null preconditioner, 2MN and
+  BiCGStab / GMRES raise ``NotImplementedError`` naming the cause, before
+  any rank starts; every layout slice H2 ported (SSH under site sharding,
+  the 2-D layout, block CG, deflation, tempering on site or chain ranks)
+  passes ``check_parallel`` and runs through the CLI on gloo ranks with the
+  one-rank run's bins.
 """
 
 import copy
@@ -113,31 +117,97 @@ def test_chain_block_and_auto_chains():
     assert auto_chains(4096, 40 * 65, 2, False) == 2
 
 
-H2 = [
-    ("ssh_site", lambda c: c.update(ssh={}), 1, 2),
-    ("both_layouts", lambda c: None, 2, 2),
-    ("gmres_site", lambda c: c["solver"].update(type="GMRES"), 1, 2),
-    ("block_site", lambda c: c["solver"].update(block=True), 1, 2),
-    ("deflation_site", lambda c: c["solver"].update(deflation={"k": 4}), 1, 2),
-    ("nearnull_site", lambda c: c["solver"].update(nearnull={"k": 4}), 1, 2),
-    ("2mn_site", lambda c: c["hmc"].update(integrator="2mn"), 1, 2),
-    ("tempering_site", lambda c: c.update(tempering={"ladder": [1.0, 0.5]}), 1, 2),
-    ("tempering_chains", lambda c: c.update(tempering={"ladder": [1.0, 0.5]}), 2, 1),
+RUN = [
+    ("ssh_site", "ssh_hmc_square", lambda c: None, 1, 2, 1),
+    ("both_layouts", "holstein_hmc_square", lambda c: None, 2, 2, 4),
+    ("block_site", "holstein_hmc_square", lambda c: c["solver"].update(block=True), 1, 2, 1),
+    ("deflation_site", "holstein_hmc_square",
+     lambda c: c["solver"].update(deflation={"k": 4}), 1, 2, 1),
+    ("tempering_site", "holstein_hmc_square",
+     lambda c: c.update(tempering={"ladder": [1.0, 0.9], "freq": 1}), 1, 2, 2),
+    ("tempering_chains", "holstein_hmc_square",
+     lambda c: c.update(tempering={"ladder": [1.0, 0.9], "freq": 1}), 2, 1, 4),
+]
+
+REFUSED = [
+    ("nearnull_site", lambda c: c["solver"].update(nearnull={"k": 4}), "refuses it too"),
+    ("2mn_site", lambda c: c["hmc"].update(integrator="2mn"), "2MN integrator.*run leapfrog"),
+    ("gmres_site", lambda c: c["solver"].update(type="GMRES"), "BiCGStab / GMRES.*by CG"),
+    ("bicgstab_site", lambda c: c["solver"].update(type="BiCGStab"), "BiCGStab / GMRES.*by CG"),
 ]
 
 
-@pytest.mark.parametrize("edit,devices,site_devices", [h[1:] for h in H2],
-                         ids=[h[0] for h in H2])
-def test_h2_layouts_raise(edit, devices, site_devices, tmp_path):
-    """Each layout of the next slice is refused by ``check_parallel`` and
-    by the CLI before it spawns a rank."""
+@pytest.mark.parametrize("edit,pattern", [h[1:] for h in REFUSED], ids=[h[0] for h in REFUSED])
+def test_h2_layouts_raise(edit, pattern, tmp_path):
+    """The three layouts the JAX package does not really run under
+    ``--site-devices`` are refused by ``check_parallel`` and by the CLI
+    before it spawns a rank, each message naming its cause (ROADMAP §3);
+    without ``--site-devices`` the same file passes."""
     cfg = _stock("holstein_hmc_square")
     edit(cfg)
-    with pytest.raises(NotImplementedError, match="slice H2"):
-        check_parallel(cfg, devices, site_devices)
+    with pytest.raises(NotImplementedError, match=pattern):
+        check_parallel(cfg, 1, 2)
     path = tmp_path / "h2.toml"
     path.write_text(dump_toml(cfg))
-    with pytest.raises(NotImplementedError, match="slice H2"):
-        cli.main([str(path), "--device", "cpu", "--devices", str(devices),
-                  "--site-devices", str(site_devices)])
-    check_parallel(_stock("holstein_hmc_square"), devices, 1)
+    with pytest.raises(NotImplementedError, match=pattern):
+        cli.main([str(path), "--device", "cpu", "--devices", "2", "--site-devices", "2"])
+    check_parallel(cfg, 2, 1)
+
+
+def _bin_numbers(root):
+    """Every number of every per-bin file under ``root``, by relative path."""
+    out = {}
+    for folder, _, files in os.walk(root):
+        if not folder.endswith("_f"):
+            continue
+        for f in files:
+            path = os.path.join(folder, f)
+            vals = []
+            for tok in open(path).read().split():
+                try:
+                    vals.append(float(tok))
+                except ValueError:
+                    pass
+            out[os.path.relpath(path, root)] = np.asarray(vals)
+    return out
+
+
+@pytest.mark.parametrize("example,edit,devices,site_devices,chains", [h[1:] for h in RUN],
+                         ids=[h[0] for h in RUN])
+def test_h2_layouts_run(example, edit, devices, site_devices, chains, tmp_path, monkeypatch):
+    """Each layout that slice H2 ported is accepted by ``check_parallel``,
+    and a cut CLI run on gloo ranks (Holstein on a 2×2 lattice, SSH on
+    4×4) ends at the one-rank run's x and writes its bins, to 1e-9. Every
+    process runs one torch thread: with more, torch adds some CPU sums in
+    another order per thread count, x differs at rounding, and the probe
+    solves (tol 1e-5, the KPM order a floor of the spectral bounds) can
+    carry that to ~1e-5 relative in the estimators."""
+    cfg = _stock(example)
+    edit(cfg)
+    check_parallel(cfg, devices, site_devices)
+    if example.startswith("holstein"):
+        cfg["lattice"]["L"] = 2   # SSH's bond-phonon Green's function needs L > 2
+    cfg["hmc"].update(burnin_updates=0, simulation_updates=2, trajectory_time=0.05)
+    cfg["simulation"].update(filepath=str(tmp_path), num_bins=2)
+    cfg["measurements"]["num_random_vectors"] = 2
+    cfg["solver"].setdefault("preconditioner", {})["max_order"] = 8
+    path = tmp_path / "h2.toml"
+    path.write_text(dump_toml(cfg))
+    base = [str(path), "--device", "cpu", "--x64", "--chains", str(chains)]
+    # one torch thread in every process: the CLI gives each rank the host's
+    # cores over the ranks
+    monkeypatch.setattr(os, "cpu_count", lambda: devices * site_devices)
+    torch.set_num_threads(1)
+    assert cli.main(base + ["1"]) == 0
+    assert cli.main(base + ["2", "--devices", str(devices),
+                            "--site-devices", str(site_devices)]) == 0
+    folder = cfg["simulation"]["foldername"]
+    xs = []
+    for i in (1, 2):
+        with np.load(tmp_path / f"{folder}-{i}" / "checkpoint.npz") as z:
+            xs.append(z["x"])
+    np.testing.assert_allclose(xs[1], xs[0], rtol=0, atol=1e-9)
+    one, many = (_bin_numbers(tmp_path / f"{folder}-{i}") for i in (1, 2))
+    assert len(one) > 5 and one.keys() == many.keys()
+    for name, want in one.items():
+        np.testing.assert_allclose(many[name], want, rtol=0, atol=1e-9, err_msg=name)

@@ -22,7 +22,7 @@ from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.ops import kpm
 from elphdynamics_tpu_torch.ops.checkerboard import build_checkerboard_spec
 from elphdynamics_tpu_torch.parallel import multihost
-from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard, shard_holstein
+from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard, shard_holstein, shard_ssh
 
 UC = (2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
 T_ASSIGN = [(1.0, 0.1, 0, 0, (1, 0, 0)), (1.0, 0.1, 0, 0, (0, 1, 0))]
@@ -131,11 +131,21 @@ def _local_draws(draws: dict, shard) -> HMCDraws:
                     kpm_start=tuple(shard.local(T(v)) for v in draws["kpm_start"]))
 
 
+def _defl_state(defl):
+    """Numpy (W, chol, pvec, lam_max) as a deflation state, or None."""
+    from elphdynamics_tpu_torch.ops.deflation import DeflationState
+
+    return None if defl is None else DeflationState(*(torch.as_tensor(a) for a in defl))
+
+
 def hmc_worker(device, L: int, beta: float, case: str, cfg: dict, kpm_kw: dict, mass, x0, v0,
-               draws: dict, dt=None):
-    """One sharded HMC update with the given whole-model draws, and the same
-    update of the one-rank port (rank 0): the sharded x and v blocks, both
-    runs' statistics and the one-rank fields."""
+               draws: dict, dt=None, defl=None):
+    """One sharded HMC update with the given whole-model draws (and whole
+    deflation basis ``defl``, cut to the block), and the same update of the
+    one-rank port (rank 0): the sharded x and v blocks, both runs'
+    statistics and the one-rank fields."""
+    from elphdynamics_tpu_torch.ops import deflation
+
     spec, params = build(L, beta, 0.1, case)
     ops = make_model_ops(spec)
     shard, lops, lp = _shard(spec, params)
@@ -145,19 +155,22 @@ def hmc_worker(device, L: int, beta: float, case: str, cfg: dict, kpm_kw: dict, 
                          dynamic_dt=dyn)
     x0, v0 = torch.as_tensor(x0), torch.as_tensor(v0)
     args = (torch.tensor(dt, dtype=torch.float64),) if dyn else ()
-    st, stats = step(lp, HMCState(x=shard.local(x0), v=shard.local(v0)), *args,
-                     draws=_local_draws(draws, shard))
+    d0 = _defl_state(defl)
+    st, stats = step(lp, HMCState(x=shard.local(x0), v=shard.local(v0),
+                                  defl=None if d0 is None else deflation.cut(d0, shard.local)),
+                     *args, draws=_local_draws(draws, shard))
 
     def stat_dict(s):
         return {k: _np(getattr(s, k)) for k in ("accepted", "iters", "flag", "delta_H", "H")}
 
     out = dict(x=_np(st.x), v=_np(st.v), stats=stat_dict(stats),
-               halo=(shard.halo_msgs, shard.halo_bytes, shard.folds, shard.allreduces))
+               halo=(shard.halo_msgs, shard.halo_bytes, shard.folds, shard.allreduces),
+               W=None if st.defl is None else _np(st.defl.W))
     if multihost.rank() == 0:
         one = make_hmc_step(ops, mass, hcfg, kpm.make_symmetric_precond(ops, kpm.KPMConfig(**kpm_kw)),
                             dynamic_dt=dyn)
         T = torch.as_tensor
-        st1, stats1 = one(params, HMCState(x=x0, v=v0), *args, draws=HMCDraws(
+        st1, stats1 = one(params, HMCState(x=x0, v=v0, defl=d0), *args, draws=HMCDraws(
             momentum=T(draws["momentum"]), pseudofermion=T(draws["pseudofermion"]),
             uniform=T(draws["uniform"]), kpm_start=tuple(T(v) for v in draws["kpm_start"])))
         out.update(one_x=_np(st1.x), one_v=_np(st1.v), one_stats=stat_dict(stats1))
@@ -249,3 +262,176 @@ def collectives_worker(device):
                 int=multihost.bcast_int(7 + r), str=multihost.bcast_str(f"rank {r}"),
                 sum=_np(allreduce_sum(torch.tensor([1.0, r]))), from_prev=_np(from_prev),
                 from_next=_np(from_next), none=none, primary=multihost.is_primary())
+
+
+# --- SSH under site sharding (tests/test_torch_parallel_ssh.py) --------------
+
+SSH_HOP = dict(t=1.0, t_std=0.1, alpha=0.3, alpha_std=0.05, alpha2=0.1, alpha2_std=0.02,
+               omega=1.0, omega_std=0.1, omega4=0.05, o1=0, o2=0)
+SSH_HOPPINGS = [dict(SSH_HOP, dL=(1, 0, 0), name="x"), dict(SSH_HOP, dL=(0, 1, 0), name="y")]
+SSH_MU = [(-0.2, 0.1, None)]
+
+
+def build_ssh_model(L: int, beta: float, dtau: float, twist=None, seed: int = 3):
+    """The port's SSH model shared with the tests (x and y bonds with
+    disorder on every parameter), on the CPU in float64."""
+    from elphdynamics_tpu_torch.models.ssh import build_ssh
+
+    return build_ssh(Lattice.create(UnitCell.create(*UC), L), beta, dtau,
+                     hoppings=SSH_HOPPINGS, mu_assignments=SSH_MU, twist=twist,
+                     rng=np.random.default_rng(seed), device="cpu")
+
+
+def _fixed_precond(ops, cfg, start):
+    """The CG preconditioner started from the given (whole-lattice) power
+    iteration vectors, cut to the rank's block on a shard."""
+    if ops.shard is not None:
+        start = tuple(ops.shard.local(v) for v in start)
+    return kpm.Preconditioner(
+        setup=lambda params, x, start_=None: kpm.setup(ops, params, x, cfg, start),
+        refresh=lambda st, params, x: kpm.refresh(ops, st, params, x),
+        symmetric=lambda st, v: kpm.apply_symmetric(ops, st, v, cfg))
+
+
+def ssh_worker(device, L: int, beta: float, runs: dict):
+    """SSH's samplers on this rank's block of sites and (rank 0) on one
+    rank, from the given whole-model inputs and draws: per run the
+    sharded result (x whole on every rank; probe solutions as the block),
+    the one-rank result, and the shard's counters. ``runs`` maps a name to
+    (kind, twist, inputs): kind ``hmc``, ``langevin_rk``, ``swap`` or
+    ``greens``."""
+    from elphdynamics_tpu_torch.dynamics.langevin import LangevinDraws, make_langevin_step
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.dynamics.special_updates import (
+        SpecialDraws, SpecialUpdateConfig, make_swap_update)
+    from elphdynamics_tpu_torch.measure.greens import sample_greens
+
+    T = torch.as_tensor
+    out = {}
+    for name, (kind, twist, inp) in runs.items():
+        spec, params = build_ssh_model(L, beta, 0.1, twist)
+        shard = SiteShard(spec.ckb, np.zeros((2, 0), np.int64), multihost.world(),
+                          multihost.rank())
+        lspec, lp = shard_ssh(spec, params, shard)
+        ops, lops = make_model_ops(spec), make_model_ops(lspec)
+        kcfg = kpm.KPMConfig(**inp["kpm"])
+        start = tuple(T(v) for v in inp["kpm_start"])
+        res = {}
+        for tag, o, p in (("sharded", lops, lp), ("one", ops, params)):
+            if tag == "one" and multihost.rank() != 0:
+                continue
+            pre = _fixed_precond(o, kcfg, start)
+            cut = (lambda t: o.shard.local(T(t))) if o.shard is not None else T
+            if kind == "hmc":
+                step = make_hmc_step(o, inp["mass"], HMCConfig(**inp["cfg"]), pre)
+                st, stats = step(p, HMCState(x=T(inp["x0"]), v=T(inp["v0"])), draws=HMCDraws(
+                    momentum=T(inp["momentum"]), pseudofermion=cut(inp["pseudofermion"]),
+                    uniform=T(inp["uniform"])))
+                res[tag] = dict(x=_np(st.x), v=_np(st.v), accepted=_np(stats.accepted),
+                                iters=_np(stats.iters), flag=_np(stats.flag),
+                                delta_H=_np(stats.delta_H))
+            elif kind == "langevin_rk":
+                step = make_langevin_step(o, inp["Q"], inp["dt"], "rk",
+                                          SolverConfig(**inp["scfg"]), pre)
+                x1, stats = step(p, T(inp["x0"]), draws=LangevinDraws(
+                    eta=T(inp["eta"]), g=tuple(cut(g) for g in inp["g"])))
+                res[tag] = dict(x=_np(x1), iters=_np(stats.iters), flag=_np(stats.flag))
+            elif kind == "swap":
+                upd = make_swap_update(o, SpecialUpdateConfig(**inp["cfg"]), pre)
+                x1, rate = upd(p, T(inp["x0"]), draws=SpecialDraws(
+                    picks=T(inp["picks"]), pseudofermion=cut(inp["pseudofermion"]),
+                    uniform=T(inp["uniform"])))
+                res[tag] = dict(x=_np(x1), rate=_np(rate))
+            else:
+                gd = sample_greens(o, p, T(inp["x0"]), inp["R"].shape[1],
+                                   SolverConfig(**inp["scfg"]), pre, R=cut(inp["R"]))
+                res[tag] = dict(MinvR=_np(gd.MinvR), iters=_np(gd.iters), flag=_np(gd.flag))
+        res["counts"] = (shard.halo_msgs, shard.folds, shard.allreduces, shard.allreduce_bytes)
+        out[name] = res
+    return out
+
+
+# --- block CG, deflation and tempering across ranks ---------------------------
+
+def block_worker(device, L: int, x, B, R, tol: float, start):
+    """Block CG on a site-sharded Holstein model (the ``plain`` case), with
+    the symmetric KPM preconditioner (power-iteration ``start``): on
+    MᵀM·X = B (``B`` ``[C, s, N, Lτ]``), and the nᵥ probe solves of a
+    Green's-function sample with ``[solver] block`` (probes ``R``). The
+    rank's blocks of the solutions, the iterations and flags, and (rank 0)
+    the one-rank port's."""
+    from elphdynamics_tpu_torch import solvers
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.measure.greens import sample_greens
+
+    spec, params = build(L, 1.0, 0.1, "plain")
+    ops = make_model_ops(spec)
+    shard, lops, lp = _shard(spec, params)
+    T = torch.as_tensor
+    scfg = SolverConfig(tol=tol, maxiter=500, block=True)
+    kcfg = kpm.KPMConfig(max_order=4)
+    out = {}
+    for tag, o, p, cut, red in (("sharded", lops, lp, shard.local, shard.sum),
+                                ("one", ops, params, lambda t: t, None)):
+        if tag == "one" and multihost.rank() != 0:
+            continue
+        xx = cut(T(x))
+        d = o.derived(p, xx)[:, None]
+        pre = _fixed_precond(o, kcfg, tuple(T(v) for v in start))
+        res = solvers.block_cg(lambda v: o.mulMTM(p, d, v), cut(T(B)), tol=tol, maxiter=500,
+                               apply_P=resolve_precond(pre, p, xx).symmetric, reduce=red)
+        gd = sample_greens(o, p, xx, R.shape[1], scfg, pre, R=cut(T(R)))
+        out[tag] = dict(X=_np(res.x), iters=_np(res.iters), MinvR=_np(gd.MinvR),
+                        giters=_np(gd.iters), gflag=_np(gd.flag))
+    out["allreduces"] = shard.allreduces
+    return out
+
+
+def aids_worker(device, block_args: tuple, hmc_runs: dict):
+    """:func:`hmc_worker` with each of ``hmc_runs`` (name -> arguments after
+    the device) and :func:`block_worker` with ``block_args`` (under
+    ``"block_cg"``), in one launch."""
+    out = {name: hmc_worker(device, *args) for name, args in hmc_runs.items()}
+    out["block_cg"] = block_worker(device, *block_args)
+    return out
+
+
+def exchange_worker(device, n_devices: int, site_devices: int, model: str, ladder, x,
+                    generator_seed: int):
+    """Two tempering exchanges (both pair parities) on this rank's block of
+    chains and sites, the draws from a generator every rank seeds alike:
+    per exchange the rank's block of x and v, the acceptance and flag. The
+    model is the ``plain`` Holstein case or the shared SSH one; ``x``
+    whole ``[C, Nph, Lτ]``."""
+    from elphdynamics_tpu_torch.dynamics.tempering import (
+        TemperingConfig, chain_params, ladder_params, make_exchange_step)
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+    from elphdynamics_tpu_torch.parallel.lattice_shard import shard_model, shard_params
+
+    C = x.shape[0]
+    spec, params = (build(4, 1.0, 0.1, "plain") if model == "holstein"
+                    else build_ssh_model(4, 1.0, 0.1))
+    tcfg = TemperingConfig(ladder=tuple(ladder), freq=1, tol=1e-9, maxiter=500)
+    params = ladder_params(params, tcfg, C)
+    site_group, chain_group = multihost.layout_groups(n_devices, site_devices)
+    block, d = divmod(multihost.rank(), site_devices)
+    ops, x = make_model_ops(spec), torch.as_tensor(x)
+    cb = ChainBlock.of(C, n_devices, block, chain_group) if n_devices > 1 else None
+    if site_devices > 1:
+        shard = SiteShard(spec.ckb, getattr(spec, "wij_table", np.zeros((2, 0), np.int64)),
+                          site_devices, d, site_group, base=block * site_devices)
+        ops = make_model_ops(shard_model(spec, params, shard)[0])
+        params = shard_params(params, shard)
+        if ops.is_holstein:
+            x = shard.local(x)
+    if cb is not None:
+        params = chain_params(params, cb.lo, cb.n)
+        x = cb.local(x)
+    exchange = make_exchange_step(ops, tcfg, C, kpm.make_precond(ops, kpm.KPMConfig(max_order=4)),
+                                  chains=cb)
+    g = torch.Generator().manual_seed(generator_seed)
+    v, out = torch.zeros_like(x), []
+    for parity in (0, 1):
+        x, v, rate, iters, flag = exchange(params, x, v, parity, g)
+        out.append(dict(x=_np(x), rate=float(rate), flag=int(flag), iters=float(iters)))
+    return out
