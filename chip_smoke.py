@@ -128,14 +128,16 @@ Phases (one line each, and the process exits non-zero if any fails):
 28. (f) 4×4 float64 on 4 ranks (2 chain × 2 site) against one rank: an HMC
     update with slow-mode deflation and block-CG probe solves, tempering
     exchanges of both parities (Holstein and SSH); and the stock 4×4 SSH
-    example through the driver on 2 site ranks (cut in depth to 2 updates,
-    KPM order 8): x and bins to 1e-9 (a bin array to 1e-9 of its largest
-    value when that exceeds 1), equal decisions;
+    example through the driver on 2 site ranks (cut in depth to 1 + 2
+    updates, KPM order 8): x and bins to 1e-9, equal decisions;
 29. (g) at full width, trajectories cut to 0.1: one site-sharded
     ``SSH_64X64`` update (8 chains, D = 2) and ``KERNEL_64X64`` on the 2×2
-    layout (8 chains per block), each with seconds, CG iterations, flags,
-    halo messages and bytes per fold, all-reduces, and SSH's force
-    all-reduce bytes per force evaluation ([8, 8192, 40] float32); then
+    layout (8 chains per block), each after a warm-up update, with seconds
+    beside the same update of one site group's chains on one rank, CG
+    iterations, flags, halo messages and bytes per fold, all-reduces, and
+    SSH's force all-reduce bytes per force evaluation ([8, 8192, 40]
+    float32); the ranks of each site group must agree on the decisions,
+    the iterations and (SSH) the bits of the whole bond field; then
     each chain block's measurement on its gathered lattice (Greens, 2
     probes; K1 and K2); ``TEMPERING_64X64`` on 2 chain ranks, phase 20's
     sequence, its exchange rates and decisions against phase 20's, and a
@@ -163,6 +165,7 @@ kernel-vs-twin phases make that launch before they time.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -1603,17 +1606,13 @@ def phase_driver_deep() -> dict:
 RANK_TIMEOUT_S = 600
 
 
-# every gloo rank's device (NCCL ranks take cuda:r)
-RANK_DEVICE = "cuda:0"
-
-
 def _launch(fn, world: int, backend: str, args=()) -> list:
     """``fn(device, *args)`` on ``world`` spawned ranks: gloo ranks share
     card 0 (their messages staged through host memory), NCCL ranks take
     one card each."""
     from elphdynamics_tpu_torch.parallel.multihost import launch
 
-    return launch(fn, world, backend, RANK_DEVICE, args, timeout_s=RANK_TIMEOUT_S)
+    return launch(fn, world, backend, "cuda:0", args, timeout_s=RANK_TIMEOUT_S)
 
 
 def _chain_block(device, world: int, rank: int, warmup: int, timed: int) -> dict:
@@ -1684,24 +1683,18 @@ def _bin_leaves(tree, path=""):
         yield path, np.asarray(tree)
 
 
-def _bins_diff(a: list, b: list, scaled: bool = False):
-    """The largest |difference| of two runs' processed bins and how many
-    arrays were compared; with ``scaled`` also the largest difference over
-    its array's scale max(1, max |value|) and that array's path."""
+def _bins_diff(a: list, b: list) -> tuple[float, int]:
+    """The largest |difference| of two runs' processed bins, and how many
+    arrays were compared."""
     if len(a) != len(b) or not a:
         raise RuntimeError(f"bins: {len(a)} against {len(b)}")
-    worst, rel, where, n = 0.0, 0.0, "", 0
+    worst, n = 0.0, 0
     for ba, bb in zip(a, b):
         other = dict(_bin_leaves(bb))
         for path, arr in _bin_leaves(ba):
-            if arr.size:
-                d = float(np.abs(other[path] - arr).max())
-                worst = max(worst, d)
-                r = d / max(1.0, float(np.abs(arr).max()))
-                if r > rel:
-                    rel, where = r, path
+            worst = max(worst, float(np.abs(other[path] - arr).max()) if arr.size else 0.0)
             n += 1
-    return (worst, n, rel, where) if scaled else (worst, n)
+    return worst, n
 
 
 def _checkpoint_x(folder: str) -> np.ndarray:
@@ -1750,7 +1743,7 @@ def phase_chain_sharded(reference: dict, backend: str = "gloo") -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
         cfg = tomllib.load(f)
-    cfg["hmc"].update(burnin_updates=1, simulation_updates=2, trajectory_time=0.2)
+    cfg["hmc"].update(burnin_updates=0, simulation_updates=2, trajectory_time=0.2)
     cfg["simulation"].update(num_bins=2, random_seed=17)
     from elphdynamics_tpu_torch.io.output import dump_toml
 
@@ -1806,7 +1799,7 @@ def _rank_site_small(device, model: str = "holstein") -> dict:
 
     for name, twist in (("hmc", None), ("hmc_twisted", (0.3, 0.1))):
         b = make(4, 1.0, 0.1, 0.05, 2, device, torch.float64, trajectory_time=0.2, twist=twist)
-        shard = SiteShard(b.ops.spec.ckb, getattr(b.ops.spec, "wij_table", np.zeros((2, 0), int)),
+        shard = SiteShard(b.ops.spec.ckb, getattr(b.ops.spec, "wij_table", None),
                           multihost.world(), multihost.rank())
         lb = shard_bench_step(b, shard)
 
@@ -1887,40 +1880,45 @@ def _layout(n_chain: int, n_site: int, n_chains: int, spec):
     site_group, chain_group = multihost.layout_groups(n_chain, n_site)
     block, d = divmod(multihost.rank(), n_site)
     cb = ChainBlock.of(n_chains, n_chain, block, chain_group) if n_chain > 1 else None
-    shard = (SiteShard(spec.ckb, getattr(spec, "wij_table", np.zeros((2, 0), int)), n_site, d,
+    shard = (SiteShard(spec.ckb, getattr(spec, "wij_table", None), n_site, d,
                        site_group, base=block * n_site) if n_site > 1 else None)
     return cb, shard
 
 
 def _sharded_64(device, cfg_name: str, n_chain: int, n_site: int, measure: bool = False):
-    """(g) One update of the 64×64 configuration ``cfg_name`` (float32,
-    trajectory cut to ``SHORT_TRAJECTORY``) on this rank's chains and sites
-    of the ``n_chain`` × ``n_site`` layout, with the shard's counters; with
-    ``measure`` then the chain block's measurement (Greens, 2 probes) on its
-    gathered lattice, as the driver's 2-D layout runs it (K1 and K2 counted
-    from 0 just before it)."""
+    """(g) One warm-up and one timed update of the 64×64 configuration
+    ``cfg_name`` (float32, trajectory cut to ``SHORT_TRAJECTORY``) on this
+    rank's chains and sites of the ``n_chain`` × ``n_site`` layout, with the
+    shard's counters from the timed update and a hash of SSH's whole bond
+    field; with ``measure`` then the chain block's measurement (Greens, 2
+    probes) on its gathered lattice, as the driver's 2-D layout runs it (K1
+    and K2 counted from 0 just before it)."""
     from elphdynamics_tpu_torch import bench
     from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
     from elphdynamics_tpu_torch.measure import measurements as M
     from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
 
     cfg = getattr(bench, cfg_name.upper())
-    b = bench.build(cfg, device, torch.float32)
-    b = replace(b, hmc_cfg=replace(b.hmc_cfg, trajectory_time=SHORT_TRAJECTORY))
+    b = bench.build(cfg, device, torch.float32, trajectory_time=SHORT_TRAJECTORY)
     cb, shard = _layout(n_chain, n_site, cfg.n_chains, b.ops.spec)
     lb = bench.shard_bench_step(b, shard, cb)
+    # the warm-up takes the first calls' costs (NCCL's communicators among them)
+    state, _ = lb.step(lb.params, lb.state, lb.generator)
     torch.cuda.synchronize(device)
     shard.reset_counts()
     t0 = time.perf_counter()
-    state, stats = lb.step(lb.params, lb.state, lb.generator)
+    state, stats = lb.step(lb.params, state, lb.generator)
     torch.cuda.synchronize(device)
+    whole = not b.ops.is_holstein
     out = dict(seconds=time.perf_counter() - t0, iters=stats.iters.cpu().tolist(),
                flags=stats.flag.cpu().tolist(), accepted=stats.accepted.cpu().tolist(),
                finite=bool(torch.isfinite(state.x).all()), nsolves=lb.hmc_cfg.Nt + 2,
                force_evals=lb.hmc_cfg.Nt + 1, folds=shard.folds, halo_msgs=shard.halo_msgs,
                halo_bytes=shard.halo_bytes, allreduces=shard.allreduces,
                force_sums=shard.force_sums, force_bytes=shard.force_bytes,
-               block=tuple(state.x.shape), chains=state.x.shape[0])
+               block=tuple(state.x.shape), chains=state.x.shape[0], n_site=n_site,
+               field_sha256=(hashlib.sha256(state.x.cpu().numpy().tobytes()).hexdigest()
+                             if whole else None))
     if measure:
         mspec = M.MeasurementSpec(nv=2, onsite_corr=(("Greens", True),))
         mstep = M.make_measurement_step(b.ops, mspec, SolverConfig(tol=1e-5, maxiter=2000),
@@ -1938,19 +1936,31 @@ def _sharded_64(device, cfg_name: str, n_chain: int, n_site: int, measure: bool 
     return out
 
 
-def _say_sharded_64(tag: str, ranks: list, backend: str) -> dict:
-    """The line of a :func:`_sharded_64` run; fails on a flag, a non-finite
-    field or ranks of one site group that disagree."""
+def _say_sharded_64(tag: str, ranks: list, backend: str, one_rank_s: float) -> dict:
+    """The line of a :func:`_sharded_64` run beside ``one_rank_s``, the
+    seconds of the same update of one site group's chains on one rank;
+    fails on a flag, a non-finite field or ranks of one site group that
+    disagree on the decisions, the CG iterations or (SSH) the bits of the
+    whole bond field."""
     r = ranks[0]
+    n_site = r["n_site"]
+    groups = [ranks[i:i + n_site] for i in range(0, len(ranks), n_site)]
+    agree = all(x[k] == g[0][k] for g in groups for x in g
+                for k in ("accepted", "iters", "field_sha256"))
     cg_iters = sum(r["iters"]) / len(r["iters"]) * r["nsolves"]
+    seconds = max(x["seconds"] for x in ranks)
     label = ("ranks on one card, halos staged through the host: not a multi-GPU rate"
              if backend == "gloo" else "one card per rank, NCCL")
     kv = {}
     if r["force_sums"]:
         kv.update(force_allreduces_per_force_eval=f"{r['force_sums'] / r['force_evals']:.3g}",
                   force_allreduce_bytes_per_force_eval=f"{r['force_bytes'] / r['force_sums']:.6g}")
+    if r["field_sha256"] is not None:
+        kv["bond_field_bitwise_equal_in_site_groups"] = agree
     say(f"{tag}_{backend}", ranks=len(ranks), block="x".join(map(str, r["block"])),
-        seconds=f"{max(x['seconds'] for x in ranks):.3f}", cg_iters_per_solve=r["iters"],
+        seconds=f"{seconds:.3f}", one_rank_seconds=f"{one_rank_s:.3f}",
+        sharded_over_one_rank=f"{seconds / one_rank_s:.3g}",
+        site_groups_agree=agree, cg_iters_per_solve=r["iters"],
         flags=r["flags"], accepted=r["accepted"], folds=r["folds"],
         halo_msgs_per_fold=f"{r['halo_msgs'] / max(r['folds'], 1):.3g}",
         halo_bytes_per_fold=f"{r['halo_bytes'] / max(r['folds'], 1):.6g}",
@@ -1958,6 +1968,9 @@ def _say_sharded_64(tag: str, ranks: list, backend: str) -> dict:
         **kv, label=repr(label))
     if not all(x["finite"] and max(x["flags"]) == 0 for x in ranks):
         raise RuntimeError(f"{tag}: the update flagged or went non-finite")
+    if not agree:
+        raise RuntimeError(f"{tag}: the ranks of a site group disagree on the update's "
+                           "decisions, iterations or bond field")
     return r
 
 
@@ -2122,20 +2135,20 @@ def _blocks(ranks: list, key: str, field: str, n_chain: int, n_site: int, site_a
     return torch.cat(rows, dim=0)
 
 
-def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True,
-             device: str = "cuda") -> dict:
+def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True) -> dict:
     """(e)–(g) Slice H2 on gloo ranks sharing card 0 (or NCCL ranks, one card
     each): SSH under site sharding, the 2-D layout, block CG, deflation and
     tempering across ranks against one rank; ``SSH_64X64`` site-sharded,
     ``KERNEL_64X64`` on 2×2 and ``TEMPERING_64X64`` on 2 chain ranks at full
-    width. Returns each kernel-launching run's counts and shapes."""
+    width, each beside its one-rank time in ``reference``. Returns each
+    kernel-launching run's counts and shapes."""
     from elphdynamics_tpu_torch.io.output import dump_toml
 
     t0 = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "examples", "ssh_hmc_square.toml"), "rb") as f:
         cfg = tomllib.load(f)
-    cfg["hmc"].update(burnin_updates=0, simulation_updates=2, trajectory_time=0.05)
+    cfg["hmc"].update(burnin_updates=1, simulation_updates=2, trajectory_time=0.05)
     cfg["simulation"].update(num_bins=2, random_seed=17)
     cfg["measurements"]["num_random_vectors"] = 4
     cfg["solver"].setdefault("preconditioner", {})["max_order"] = 8
@@ -2145,7 +2158,7 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True,
         path = os.path.join(work, "ssh_square.toml")
         with open(path, "w") as f:
             f.write(dump_toml(cfg))
-        one = _rank_driver(torch.device(device), path, 1, 1, 1, 1, torch.float64)
+        one = _rank_driver(torch.device("cuda"), path, 1, 1, 1, 1, torch.float64)
         pair = _launch(_rank_pair, 2, backend, (dict(ssh_driver_path=path),))
         folder = os.path.join(work, cfg["simulation"]["foldername"])
         dx = float(np.abs(_checkpoint_x(f"{folder}-2") - _checkpoint_x(f"{folder}-1")).max())
@@ -2153,17 +2166,16 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True,
     bad = (_say_site_small([r["holstein_small"] for r in pair], "holstein", backend)
            + _say_site_small([r["ssh_small"] for r in pair], "ssh", backend))
     # (f) the stock SSH example through the driver on 2 site ranks
-    # bins hold sums up to ~1e3: each is held to 1e-9 of its array's scale
-    dbin, nbin, rel, where = _bins_diff(one["bins"], pair[0]["driver"]["bins"], scaled=True)
+    dbin, nbin = _bins_diff(one["bins"], pair[0]["driver"]["bins"])
     acc_same = all(r["driver"]["stats"]["acceptance_rate"] == one["stats"]["acceptance_rate"]
                    for r in pair)
     say(f"h2_ssh_driver_site_{backend}", ranks=2, max_abs_dx=f"{dx:.3e}",
-        max_abs_dbin=f"{dbin:.3e}", max_scaled_dbin=f"{rel:.3e}", worst_bin=where,
-        arrays=nbin, tol=1e-9, acceptance_equal=acc_same)
-    if not (dx <= 1e-9 and rel <= 1e-9 and acc_same):
+        max_abs_dbin=f"{dbin:.3e}", arrays=nbin, tol=1e-9, acceptance_equal=acc_same)
+    if not (dx <= 1e-9 and dbin <= 1e-9 and acc_same):
         bad.append("ssh_driver_site")
     # (g) SSH_64X64 on 2 site ranks
-    _say_sharded_64(f"h2_ssh_64x64_site2", [r["ssh_64"] for r in pair], backend)
+    _say_sharded_64("h2_ssh_64x64_site2", [r["ssh_64"] for r in pair], backend,
+                    reference["one_rank_s"]["ssh_64x64"])
     # (g) tempering on 2 chain ranks against the one-rank runs
     for name in ("tempering_64x64", "ssh_tempering_64x64"):
         runs = [r[name] for r in pair]
@@ -2188,7 +2200,7 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True,
         for i, r in enumerate(runs):
             paths[f"{name}_chain_rank{i}"] = r
     if quad:
-        one4 = _one_rank_4x4(torch.device(device))
+        one4 = _one_rank_4x4(torch.device("cuda"))
         quadr = _launch(_rank_quad, 4, backend)
         # (f) deflation, block-CG probes and exchanges on 2×2 against one rank
         d = quadr[0]["deflated"]
@@ -2221,7 +2233,8 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True,
             if not (dxe <= 1e-9 and same):
                 bad.append(key)
         # (g) KERNEL_64X64 on 2×2 and the chain blocks' measurement
-        _say_sharded_64("h2_kernel_64x64_2x2", [r["kernel_64"] for r in quadr], backend)
+        _say_sharded_64("h2_kernel_64x64_2x2", [r["kernel_64"] for r in quadr], backend,
+                        reference["one_rank_s"]["kernel_64x64"])
         for i, r in enumerate(quadr):
             if max(r["kernel_64"]["measure_flags"]) != 0:
                 bad.append("chain_block_measurement")
@@ -2247,17 +2260,42 @@ def phase_nccl(reference: dict, h2_reference: dict) -> dict | None:
     return dict(chain_sharded=out, h2=paths)
 
 
-def h2_references(tempering: dict, device: str = "cuda") -> dict:
-    """The one-rank runs that (g)'s tempering on chain ranks is held
-    against: phase 20's ``TEMPERING_64X64`` run (``tempering``, its timed
-    updates) and the 64×64 SSH ladder of :func:`_tempering_chain_ranks`, run
-    here."""
-    out = _tempering_chain_ranks(torch.device(device), 1, ("ssh_tempering_64x64",))
+def _one_rank_64(cfg) -> float:
+    """Seconds of one update of ``cfg`` (float32, trajectory cut to
+    ``SHORT_TRAJECTORY``) on one rank after one warm-up update, as
+    :func:`_sharded_64` times its ranks."""
+    from elphdynamics_tpu_torch import bench
+
+    b = bench.build(cfg, "cuda", torch.float32, trajectory_time=SHORT_TRAJECTORY)
+    state, _ = b.step(b.params, b.state, b.generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = b.step(b.params, state, b.generator)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not (bool(torch.isfinite(state.x).all()) and int(stats.flag.max()) == 0):
+        raise RuntimeError(f"one-rank {cfg.name}: the update flagged or went non-finite")
+    return seconds
+
+
+def h2_references(tempering: dict) -> dict:
+    """The one-rank runs that (g) is held against: phase 20's
+    ``TEMPERING_64X64`` run (``tempering``, its timed updates), the 64×64
+    SSH ladder of :func:`_tempering_chain_ranks`, and the times of one
+    ``SSH_64X64`` update and one 8-chain ``KERNEL_64X64`` update (a chain
+    block of the 2×2 layout) at the sharded runs' trajectory, run here."""
+    from elphdynamics_tpu_torch.bench import KERNEL_64X64, SSH_64X64
+
+    out = _tempering_chain_ranks(torch.device("cuda"), 1, ("ssh_tempering_64x64",))
     r = out["ssh_tempering_64x64"]
     say("ssh_tempering_64x64_one_rank", exchange_rates=[x for x, _ in r["rates"]],
         seconds=f"{r['seconds']:.1f}")
     out["tempering_64x64"] = dict(accepted=tempering["accepted"], rates=tempering["exchange_rates"],
                                   x=tempering["x"], seconds=tempering["seconds"])
+    out["one_rank_s"] = {"ssh_64x64": _one_rank_64(SSH_64X64),
+                         "kernel_64x64": _one_rank_64(replace(KERNEL_64X64, n_chains=8))}
+    say("h2_one_rank_64x64", trajectory_time=SHORT_TRAJECTORY,
+        **{f"{k}_seconds": f"{v:.3f}" for k, v in out["one_rank_s"].items()})
     return out
 
 
@@ -2331,9 +2369,9 @@ def main() -> int:
     deep = phase_deep_beta_solves()
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
     # per update, 4–6 s each; SSH's KPM at max_order 64, 25–45 s each): a few
-    # updates each; the SSH runs (4×4, and 64×64 at ~19 s per update) take
-    # one sampling update and no burn-in
-    drv = phase_driver("holstein_hmc_square", "holstein", (1, 2, 2), big_updates=(0, 2, 2))
+    # updates each; the 64×64 runs (SSH's at ~19 s per update) and the SSH
+    # 4×4 run take one sampling update and no burn-in
+    drv = phase_driver("holstein_hmc_square", "holstein", (1, 2, 2), big_updates=(0, 1, 1))
     drv_ssh = phase_driver("ssh_hmc_square", "ssh", (0, 1, 1), big_updates=(0, 1, 1))
     drv_lang = phase_driver_langevin()
     drv_tw = phase_driver_twisted()

@@ -50,6 +50,7 @@ import torch
 from elphdynamics_tpu_torch.lattice import Lattice, sort_neighbor_table
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
 from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.parallel.lattice_shard import ssh_group_phonons
 from elphdynamics_tpu_torch.utils.device import require_device
 from elphdynamics_tpu_torch.utils.dtypes import complex_of, fsum
 
@@ -341,38 +342,36 @@ def mulMMT(spec: SSHSpec, p: SSHParams, coeffs, v):
     return mulM(spec, p, coeffs, mulMT(spec, p, coeffs, v))
 
 
-def _group_bonds(spec: SSHSpec, g: int, device):
-    """The phonon-carrying bonds of group ``g``: (first sites, second sites,
-    phonons, original bonds) as index tensors on ``device``, cached; None
-    when it has none."""
-    key = ("group_bonds", g, str(device))
-    if key not in spec._cache:
-        in_g = np.nonzero(spec.ckb.groups == g)[0]
-        bonds = spec.ckb_to_bond[in_g]
-        ph = spec.bond_to_phonon[bonds]
-        sel = ph >= 0
-        spec._cache[key] = None if not sel.any() else tuple(
-            torch.as_tensor(a, device=device) for a in (spec.ckb.neighbor_table[0, in_g[sel]],
-                                                        spec.ckb.neighbor_table[1, in_g[sel]],
-                                                        ph[sel], bonds[sel]))
-    return spec._cache[key]
-
-
-def _shard_group_bonds(spec: SSHSpec, g: int, device):
-    """The block's sites with a phonon-carrying bond in group ``g`` of a
-    site-sharded model: (local rows, phonons, original bonds, first-endpoint
-    mask ``[n, 1]``) as tensors on ``device``, cached; None when it has
+def _site_bonds(spec: SSHSpec, g: int, device):
+    """The sites of the block (the whole lattice on one rank) with a
+    phonon-carrying bond in group ``g``, first endpoints first: (local rows,
+    phonons, original bonds, first-endpoint mask ``[n, 1]``) as tensors on
+    ``device`` and the count of first endpoints, cached; None when it has
     none."""
-    key = ("shard_group_bonds", g, str(device))
+    key = ("site_bonds", g, str(device))
     if key not in spec._cache:
-        sh = spec.shard
-        tabs = sh.ssh_phonons(spec)
-        rows = np.nonzero(tabs[1][g])[0]
-        spec._cache[key] = None if rows.size == 0 else tuple(
+        D, d = (spec.shard.D, spec.shard.d) if spec.shard is not None else (1, 0)
+        ph, has, bond = (t[g][d] for t in ssh_group_phonons(spec, D))
+        lo = spec.ckb.is_lo[g].reshape(D, -1)[d]
+        first = np.nonzero(has & lo)[0]
+        rows = np.concatenate([first, np.nonzero(has & ~lo)[0]])
+        spec._cache[key] = None if rows.size == 0 else (tuple(
             torch.as_tensor(a, device=device)
-            for a in (rows, tabs[0][g][rows], tabs[2][g][rows],
-                      sh.plan.is_lo[g][sh.d][rows][:, None]))
+            for a in (rows, ph[rows], bond[rows], lo[rows][:, None])), first.size)
     return spec._cache[key]
+
+
+def _fold_walk(spec: SSHSpec, cosh_b, sinh_b, b, c):
+    """:func:`muldMdx`'s group walk on the whole lattice: per group g in
+    order, b ← G_g·b and c ← G_g⁻¹·c, yielding ``(g, b, cp)`` after the
+    group, ``cp`` the partner's new c (on a shard
+    :meth:`..parallel.lattice_shard.SiteShard.fold_walk`)."""
+    partner = spec.ckb.torch_tables(b.device)[0]
+    for g in range(spec.ckb.ngroups):
+        cg, sg = ckb.group_coeffs(spec.ckb, g, cosh_b, sinh_b, b)
+        b = cg * b + sg * b.index_select(-2, partner[g])
+        c = cg * c - sg * c.index_select(-2, partner[g])
+        yield g, b, c.index_select(-2, partner[g])
 
 
 def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
@@ -380,13 +379,17 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
 
     The group walk: carry b ← G_g·b and c ← G_g⁻¹·c through the
     checkerboard groups (b starts as exp(Δτμ)·v(τ−1), c as exp(−Δτ·K)ᵀ·u);
-    after group g every phonon-carrying bond (i, j) of g contributes
-    ±Δτ·(α + 2α₂x)·(c_j·b_i + c_i·b_j), minus on the τ=0 slice, with the
-    reference's α + 2α₂x. Aliased phonons sum their forces onto the
-    primary, which every alias then carries. Under twisted boundaries the
-    bond's vertex is [0, ph; p̄h, 0] (the phase on the i←j entry) and the
-    force on the real field is Re[ph·c̄ᵢ·bⱼ + p̄h·c̄ⱼ·bᵢ]. On a site shard
-    the result is this rank's share, which the caller sums over the ranks."""
+    after group g each endpoint i of a phonon-carrying bond (i, j) of g
+    contributes ±Δτ·(α + 2α₂x)·c_j·b_i, minus on the τ=0 slice, with the
+    reference's α + 2α₂x: the bond's two endpoints give its two terms, in
+    two passes (first endpoints, then second), so that no pass adds twice
+    to one phonon. Aliased phonons sum their forces onto the primary, which
+    every alias then carries. Under twisted boundaries the bond's vertex is
+    [0, ph; p̄h, 0] (the phase on the i←j entry) and the force on the real
+    field is Re[ph·c̄ᵢ·bⱼ + p̄h·c̄ⱼ·bᵢ]. On a site shard each site of the
+    block pairs its b with its partner's c, on this rank or another, and
+    the result is this rank's share, which the caller sums over the
+    ranks."""
     cosh_b, sinh_b = coeffs
     cplx = sinh_b.is_complex()
     b = exp_mu(spec, p) * torch.roll(v, 1, dims=-1)
@@ -397,46 +400,24 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
     batch = torch.broadcast_shapes(x.shape[:-2], b.shape[:-2])
     out = torch.zeros(batch + (spec.Nph, spec.Ltau), dtype=x.dtype, device=x.device)
     sgn = -_tau_sign(spec, x, True)
-
-    def dKdx(ph_s):
-        return (phonon_leaf(p.alpha, ph_s, x)
+    walk = (spec.shard.fold_walk(cosh_b, sinh_b, b, c) if spec.shard is not None
+            else _fold_walk(spec, cosh_b, sinh_b, b, c))
+    for g, b, cp in walk:
+        sites = _site_bonds(spec, g, x.device)
+        if sites is None:
+            continue
+        (rows, ph_s, bond_s, lo), n_lo = sites
+        br, cpr = b.index_select(-2, rows), cp.index_select(-2, rows)
+        if cplx:
+            phb = p.t_phase.index_select(-1, bond_s)[:, None]
+            pair = (torch.where(lo, phb.conj(), phb) * cpr.conj() * br).real
+        else:
+            pair = cpr * br
+        dkdx = (phonon_leaf(p.alpha, ph_s, x)
                 + 2.0 * phonon_leaf(p.alpha2, ph_s, x) * x.index_select(-2, ph_s))
-
-    if spec.shard is not None:
-        # each site of the block pairs its b with its partner's c: the two
-        # endpoints of a bond, on this rank or another, give the bond's two terms
-        for g, b, c, cp in spec.shard.fold_walk(cosh_b, sinh_b, b, c):
-            sites = _shard_group_bonds(spec, g, x.device)
-            if sites is None:
-                continue
-            rows, ph_s, bond_s, lo = sites
-            br, cpr = b.index_select(-2, rows), cp.index_select(-2, rows)
-            if cplx:
-                phb = p.t_phase.index_select(-1, bond_s)[:, None]
-                pair = (torch.where(lo, phb.conj(), phb) * cpr.conj() * br).real
-            else:
-                pair = cpr * br
-            dmdx = sgn * spec.dtau * dKdx(ph_s) * pair
-            out = out.index_add(-2, ph_s, dmdx.expand(batch + dmdx.shape[-2:]))
-    else:
-        partner = spec.ckb.torch_tables(x.device)[0]
-        for g in range(spec.ckb.ngroups):
-            cg, sg = ckb.group_coeffs(spec.ckb, g, cosh_b, sinh_b, b)
-            b = cg * b + sg * b.index_select(-2, partner[g])
-            c = cg * c - sg * c.index_select(-2, partner[g])
-            sites = _group_bonds(spec, g, x.device)
-            if sites is None:
-                continue
-            i_s, j_s, ph_s, bond_s = sites
-            bi, bj = b.index_select(-2, i_s), b.index_select(-2, j_s)
-            ci, cj = c.index_select(-2, i_s), c.index_select(-2, j_s)
-            if cplx:
-                phb = p.t_phase.index_select(-1, bond_s)[:, None]
-                pair = (phb * ci.conj() * bj + phb.conj() * cj.conj() * bi).real
-            else:
-                pair = cj * bi + ci * bj
-            dmdx = sgn * spec.dtau * dKdx(ph_s) * pair
-            out = out.index_add(-2, ph_s, dmdx.expand(batch + dmdx.shape[-2:]))
+        dmdx = (sgn * spec.dtau * dkdx * pair).expand(batch + pair.shape[-2:])
+        for part in (slice(None, n_lo), slice(n_lo, None)):
+            out = out.index_add(-2, ph_s[part], dmdx[..., part, :])
     prim = spec.tensor("primary_phonon", x.device)
     return torch.zeros_like(out).index_add(-2, prim, out).index_select(-2, prim)
 

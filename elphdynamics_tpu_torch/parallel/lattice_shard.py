@@ -175,12 +175,12 @@ class WijPlan:
     mask_j: np.ndarray
 
 
-def build_wij_plan(wij_table: np.ndarray, N: int, D: int) -> WijPlan | None:
+def build_wij_plan(wij_table: np.ndarray | None, N: int, D: int) -> WijPlan | None:
     """Plan the ωᵢⱼ halo for the ``[2, Nwij]`` pair table; None without
-    dispersion."""
-    nw = wij_table.shape[1]
-    if nw == 0:
+    dispersion (no table, or an empty one)."""
+    if wij_table is None or wij_table.shape[1] == 0:
         return None
+    nw = wij_table.shape[1]
     B = N // D
     prev_need = [[] for _ in range(D)]
     next_need = [[] for _ in range(D)]
@@ -216,13 +216,14 @@ def build_wij_plan(wij_table: np.ndarray, N: int, D: int) -> WijPlan | None:
                    row_j=row_j, ext_i=ext_i, k_j=k_j, mask_j=mask_j)
 
 
-def ssh_group_phonons(spec, plan: ShardPlan):
-    """Per (group, block) phonon tables of the sharded SSH ``muldMdx``, each
-    a tuple over groups of ``[D, B]`` arrays: ``ph_of_site`` the phonon of
-    the bond at a local site (0 where masked), ``ph_mask`` whether the site
-    has a phonon-carrying bond in the group, ``bond_orig`` the bond in the
+def ssh_group_phonons(spec, D: int):
+    """Per (group, block) phonon tables of SSH's ``muldMdx`` over D site
+    blocks (D = 1: the whole lattice on one rank), each a tuple over groups
+    of ``[D, B]`` arrays: ``ph_of_site`` the phonon of the bond at a local
+    site (0 where masked), ``ph_mask`` whether the site has a
+    phonon-carrying bond in the group, ``bond_orig`` the bond in the
     original order (its Peierls phase)."""
-    D, B = plan.D, plan.B
+    B = spec.ckb.nsites // D
     ph_of_site, ph_mask, bond_orig = [], [], []
     for g in range(spec.ckb.ngroups):
         orig = spec.ckb_to_bond[spec.ckb.bond_of_site[g]]
@@ -245,7 +246,7 @@ class SiteShard:
     them.
     """
 
-    def __init__(self, ckb: CheckerboardSpec, wij_table: np.ndarray, D: int, d: int,
+    def __init__(self, ckb: CheckerboardSpec, wij_table: np.ndarray | None, D: int, d: int,
                  group=None, base: int = 0):
         self.plan = build_shard_plan(ckb, D)
         self.wplan = build_wij_plan(wij_table, ckb.nsites, D)
@@ -259,16 +260,6 @@ class SiteShard:
     def reset_counts(self) -> None:
         self.folds = self.halo_msgs = self.halo_bytes = self.allreduces = 0
         self.allreduce_bytes = self.force_sums = self.force_bytes = 0
-
-    def ssh_phonons(self, spec):
-        """This rank's rows of :func:`ssh_group_phonons` for the SSH ``spec``
-        (whole or the rank's: the bond tables are the same), cached."""
-        key = "ssh_phonons"
-        tabs = self._tables.get(key)
-        if tabs is None:
-            tabs = self._tables[key] = tuple(tuple(a[self.d] for a in t)
-                                             for t in ssh_group_phonons(spec, self.plan))
-        return tabs
 
     # --- layout
 
@@ -364,11 +355,12 @@ class SiteShard:
 
     def fold_walk(self, cosh_b, sinh_b, b, c):
         """SSH's ``muldMdx`` group walk on the block: per group g in order,
-        b ← G_g·b and c ← G_g⁻¹·c, yielding ``(g, b, c, cp)`` after the
-        group, ``cp`` the partner's new c. One halo exchange per crossing
-        group carries b and c together; the partner's new c is rebuilt
-        locally from the shared bond rotation (the partner sits at the
-        bond's other endpoint and takes conj(s)), with no second halo."""
+        b ← G_g·b and c ← G_g⁻¹·c, yielding ``(g, b, cp)`` after the group,
+        ``cp`` the partner's new c. One halo exchange per crossing group
+        carries b and c together; the partner's new c is rebuilt locally
+        from the shared bond rotation (the partner sits at the bond's other
+        endpoint and takes conj(s)), with no second halo. The whole
+        lattice's walk is ``models.ssh._fold_walk``."""
         tabs = self._dev_tables(b.device)
         p = self.plan
         K = b.shape[-1]
@@ -380,7 +372,7 @@ class SiteShard:
             bp, cp_old = ext.index_select(-2, tabs["partner"][g]).split(K, dim=-1)
             cp = cg * cp_old - (sg.conj() if sg.is_complex() else sg) * c
             b, c = cg * b + sg * bp, cg * c - sg * cp_old
-            yield g, b, c, cp
+            yield g, b, cp
 
     # --- ωᵢⱼ dispersion
 

@@ -235,7 +235,7 @@ def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda"
     par = _Parallel(
         chains=(ChainBlock.of(n_chains, n_devices, block, chain_group) if n_devices > 1
                 else None),
-        shard=(SiteShard(spec.ckb, getattr(spec, "wij_table", np.zeros((2, 0), np.int64)),
+        shard=(SiteShard(spec.ckb, getattr(spec, "wij_table", None),
                          site_devices, d, site_group, base=block * site_devices)
                if site_devices > 1 else None),
         cut_phonons=setup.ops.is_holstein)

@@ -45,7 +45,7 @@ from elphdynamics_tpu.ops import kpm as jkpm
 from elphdynamics_tpu.ops.fourier_accel import build_mass, build_Q
 from elphdynamics_tpu.parallel.lattice_shard import _ssh_group_phonons
 from elphdynamics_tpu.parallel.lattice_shard import build_shard_plan as j_build_shard_plan
-from elphdynamics_tpu_torch.parallel.lattice_shard import build_shard_plan, ssh_group_phonons
+from elphdynamics_tpu_torch.parallel.lattice_shard import ssh_group_phonons
 from elphdynamics_tpu_torch.parallel.multihost import launch
 
 torch.set_num_threads(1)
@@ -186,7 +186,7 @@ def test_ssh_group_phonons_match_jax():
     js, _, _ = _jax_model()
     ts, _ = W.build_ssh_model(L, BETA, 0.1)
     for D in (2, 4):
-        got = ssh_group_phonons(ts, build_shard_plan(ts.ckb, D))
+        got = ssh_group_phonons(ts, D)
         want = _ssh_group_phonons(js, j_build_shard_plan(js.ckb, D))
         for a, b in zip(got, want):
             for ga, gb in zip(a, b):

@@ -418,7 +418,7 @@ def exchange_worker(device, n_devices: int, site_devices: int, model: str, ladde
     ops, x = make_model_ops(spec), torch.as_tensor(x)
     cb = ChainBlock.of(C, n_devices, block, chain_group) if n_devices > 1 else None
     if site_devices > 1:
-        shard = SiteShard(spec.ckb, getattr(spec, "wij_table", np.zeros((2, 0), np.int64)),
+        shard = SiteShard(spec.ckb, getattr(spec, "wij_table", None),
                           site_devices, d, site_group, base=block * site_devices)
         ops = make_model_ops(shard_model(spec, params, shard)[0])
         params = shard_params(params, shard)
