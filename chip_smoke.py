@@ -56,7 +56,8 @@ Phases (one line each, and the process exits non-zero if any fails):
     launch counts per kernel mode; and on the kernel 64×64 model nᵥ = 10
     probe solves per chain by CG, block CG, GMRES and BiCGStab: iterations,
     seconds, the solutions' mutual distance, K2 launches of the left and
-    right applies;
+    right applies; then block CG on complex fields at full width (phase
+    31);
 14. the TOML driver on ``examples/holstein_langevin_square.toml`` with its
     counts cut, and the same file at 64×64, β = 4 (4 chains, a few steps,
     one measurement) with BondBond, CurrentCurrent and BondPairGreens
@@ -72,7 +73,10 @@ Phases (one line each, and the process exits non-zero if any fails):
     so the complex KPM recurrence runs K1) against the CPU with the same
     draws: a Holstein and an SSH HMC update, a Holstein Runge-Kutta
     Langevin step and a Holstein measurement with every on-site
-    correlation and CurrentCurrent;
+    correlation and CurrentCurrent; block CG on complex fields (Hermitian
+    block CG): nᵥ = 4 probe solves of M (tol 1e-10) and a Holstein and an
+    SSH HMC update with ``[solver] block`` (trajectory solves at s = 1), x
+    within 1e-12, equal iterations and decisions;
 17. the twisted configurations at full width, ``TWISTED_64X64`` (16
     chains) and ``SSH_TWISTED_64X64`` (8 chains): 1 warm-up and 2 timed
     updates, every complex K1 form on its path launched, flags 0,
@@ -98,7 +102,7 @@ Phases (one line each, and the process exits non-zero if any fails):
     stock 4×4 Holstein example with a ``[tempering]`` ladder on 8 chains
     (the exchange rate);
 23. every (kernel, coefficient form, field shape) that one of the 64×64
-    runs of phases 9, 11, 13, 14, 17, 20, 21, 24 and 29 launched (``ckb_cuda.launch_shapes``),
+    runs of phases 9, 11, 13, 14, 17, 20, 21, 24, 29 and 31 launched (``ckb_cuda.launch_shapes``),
     against the twin in float32 and float64 (complex64 and complex128 for
     K1's complex mode), all directions, at every launch geometry the
     wrapper's tuning may keep for that shape, so that no run goes through a
@@ -113,21 +117,27 @@ Phases (one line each, and the process exits non-zero if any fails):
     driver on the stock 4×4 Holstein example (4 chains, float64, cut in
     depth) on 2 chain ranks against one rank: x and bins to 1e-9;
 25. (b) site sharding at 4×4, float64, 2 gloo ranks, against the unsharded
-    card run: an HMC update with KPM and warm starts, a twisted update,
-    reflection and swap moves, a Runge-Kutta Langevin step and a
-    Green's-function sample; x to 1e-12 (probe solutions 1e-10), equal
-    decisions and iterations (run in the 2-rank launch of (e)–(g));
+    card run: an HMC update with KPM and warm starts, a twisted update, a
+    twisted update with ``[solver] block`` and the block-CG probe solves
+    of a twisted Green's-function sample (tol 1e-10), reflection and swap
+    moves, a Runge-Kutta Langevin step and a Green's-function sample; x to
+    1e-12 (the plain sample's probe solutions 1e-10), equal decisions and
+    iterations (run in the 2-rank launch of (e)–(g));
 26. (c) replaced by (g)'s ``KERNEL_64X64`` on the 2×2 layout, which
     covers it;
 27. (e) SSH site-sharded at 4×4, float64, on 2 gloo ranks against the
     unsharded card run: an HMC update with KPM and warm starts, a twisted
-    update, swap (and the null reflection) moves, a Runge-Kutta Langevin
-    step, a Green's-function sample; x to 1e-12 (probe solutions 1e-10),
+    update, a twisted block-CG update and block-CG probe solves, swap (and
+    the null reflection) moves, a Runge-Kutta Langevin step, a
+    Green's-function sample; x to 1e-12 (the plain sample's probe
+    solutions 1e-10),
     equal decisions and iterations, and the bond field bitwise equal on
     both ranks after each sampler;
 28. (f) 4×4 float64 on 4 ranks (2 chain × 2 site) against one rank: an HMC
-    update with slow-mode deflation and block-CG probe solves, tempering
-    exchanges of both parities (Holstein and SSH); and the stock 4×4 SSH
+    update with slow-mode deflation and block-CG probe solves (1e-9), a
+    twisted HMC update with ``[solver] block`` and block-CG probe solves
+    on complex fields (1e-12), tempering exchanges of both parities
+    (Holstein and SSH); and the stock 4×4 SSH
     example through the driver on 2 site ranks (cut in depth to 1 + 2
     updates, KPM order 8): x and bins to 1e-9, equal decisions;
 29. (g) at full width, trajectories cut to 0.1: one site-sharded
@@ -144,9 +154,18 @@ Phases (one line each, and the process exits non-zero if any fails):
     64×64 SSH ladder (4 rungs × 2 lanes) on 2 chain ranks against one
     rank; K1 and K2 launches per rank in ``launches_by_path``;
 30. (d) (a), (b), (e)–(g) with one NCCL rank per card when the machine has
-    two cards (the 2×2 layout with four), else one line saying why not.
+    two cards (the 2×2 layout with four), else one line saying why not;
+31. block CG on complex fields at full width: nᵥ = 10 circular complex
+    probes per chain on ``TWISTED_64X64`` (16 chains) and
+    ``SSH_TWISTED_64X64`` (8 chains), complex64, tol 1e-5, solved by
+    ``solve_minv`` with Hermitian block CG and with CG on the same probes
+    and preconditioner state, each timed after a warm-up solve: iterations
+    per system (mean, max), seconds, flags, the recomputed ‖M·X − R‖/‖R‖
+    of every system (≤ √tol), the largest relative difference between the
+    two solutions (≤ ``BLOCK_VS_CG_GATE``) and K1's complex launches by
+    table form (each of the model's forms > 0 in the block run).
 
-Phases 24–30 run before 23, which comes last.
+Phase 31 runs after 13; phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -1338,6 +1357,135 @@ def phase_small_twisted_reference() -> None:
         cuda_launches=incs["cuda"][2], cpu_launches=incs["cpu"][2])
     if not (worst <= 1e-10 and incs["cuda"][2] > 0 and incs["cpu"][2] == 0):
         raise RuntimeError("the card's twisted measurement disagrees with the CPU")
+    _small_twisted_block()
+
+
+def _small_twisted_block() -> None:
+    """Block CG on complex fields (Hermitian block CG), 4×4 float64, card
+    against CPU with K1 forced on and the dense Ā off: nᵥ = 4 probe solves
+    of M by block CG (tol 1e-10; x within 1e-12 of the CPU's largest entry)
+    on the twisted Holstein model, and an HMC update with ``[solver] block``
+    (the trajectory solves at s = 1) of the twisted Holstein and SSH models
+    (x within 1e-12); equal iterations and decisions."""
+    from elphdynamics_tpu_torch.bench import TWIST, build_bench_step, build_ssh_step
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCState, draw, make_hmc_step
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
+    from elphdynamics_tpu_torch.ops import kpm
+    from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+
+    forced = dict(dense_threshold=0, pallas_threshold=0)
+    c128 = torch.complex128
+    shared = {}
+
+    def probes(dev):
+        b = build_bench_step(4, 1.0, 0.1, 0.05, 4, dev, torch.float64, twist=TWIST, **forced)
+        if dev == "cpu":
+            g = torch.Generator().manual_seed(6)
+            shared["probes"] = (0.3 * torch.randn((4, 16, 10), generator=g, dtype=torch.float64),
+                                trace_noise((4, 4, 16, 10), c128, "cpu", g))
+        x, R = (t.to(dev) for t in shared["probes"])
+        pa = resolve_precond(kpm.make_precond(b.ops, b.kpm_cfg), b.params, x)
+        res = solve_minv(b.ops, b.params, b.ops.stack(b.ops.derived(b.params, x)), R,
+                         SolverConfig(tol=1e-10, maxiter=500, block=True), pa, block=True)
+        return res.x, res.iters, res.flag
+
+    def update(model, builder, kw):
+        def run(dev):
+            b = builder(4, 1.0, 0.1, 0.05, 4, dev, torch.float64, trajectory_time=0.2,
+                        twist=TWIST, **kw)
+            if dev == "cpu":
+                shared[model] = (b.state.x, draw(b.ops, 4, torch.float64, "cpu",
+                                                 torch.Generator().manual_seed(1), fdtype=c128))
+            x0, draws = shared[model]
+            step = make_hmc_step(b.ops, b.mass, replace(b.hmc_cfg, block=True),
+                                 kpm.make_symmetric_precond(b.ops, b.kpm_cfg))
+            moved = replace(draws, momentum=draws.momentum.to(dev),
+                            pseudofermion=draws.pseudofermion.to(dev),
+                            uniform=draws.uniform.to(dev))
+            st, stats = step(b.params, HMCState(x=x0.to(dev), v=torch.zeros_like(x0, device=dev)),
+                             draws=moved)
+            return st.x, stats.iters, stats.accepted
+        return run
+
+    phase = "small_twisted_reference"
+    with _without_dense_abar():
+        _card_vs_cpu("holstein_block_probes", probes, ("fold/shared/complex",), relative=True,
+                     phase=phase)
+        _card_vs_cpu("holstein_block_hmc", update("holstein", build_bench_step, forced),
+                     ("fold/shared/complex",), phase=phase)
+        _card_vs_cpu("ssh_block_hmc", update("ssh", build_ssh_step, {}),
+                     ("fold/column/complex", "fold/chain/complex"), phase=phase)
+
+
+# block CG against CG at full width: both solutions have normal-equation
+# residuals within the checked solve's tol = 1e-5; they may differ by the
+# error such a residual allows on a κ ≲ 100 operator
+BLOCK_VS_CG_GATE = 1e-3
+
+
+def phase_block_complex_64() -> dict:
+    """Block CG on complex fields at full width: nᵥ = 10 circular complex
+    probes per chain on ``TWISTED_64X64`` (16 chains) and
+    ``SSH_TWISTED_64X64`` (8 chains), complex64, tol 1e-5, the KPM
+    preconditioner set up once: ``solve_minv`` by Hermitian block CG
+    (``[solver] block``) and by CG on the same probes and preconditioner
+    state, each timed after a warm-up solve. Prints iterations per system,
+    seconds, flags, the recomputed ‖M·X − R‖/‖R‖ of every system, the
+    largest relative difference between the two solutions and K1's complex
+    launches by table form. Fails on a flag, a residual above √tol, a
+    difference above :data:`BLOCK_VS_CG_GATE` or a complex K1 form of the
+    model launched no time by the block solve. Returns each block run's
+    launches and shapes."""
+    from elphdynamics_tpu_torch.bench import SSH_TWISTED_64X64, TWISTED_64X64, build
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
+    from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
+    from elphdynamics_tpu_torch.utils.dtypes import fdot, trace_noise
+
+    tol, nv = 1e-5, 10
+    out, bad = {}, []
+    for cfg, forms in ((TWISTED_64X64, ("fold/shared/complex",)),
+                       (SSH_TWISTED_64X64, ("fold/column/complex", "fold/chain/complex"))):
+        b = build(cfg, "cuda", torch.float32)
+        ops, params, x = b.ops, b.params, b.state.x
+        C = x.shape[0]
+        R = trace_noise((C, nv, ops.Nsites, ops.Ltau), torch.complex64, "cuda",
+                        torch.Generator(device="cuda").manual_seed(8))
+        ds = ops.stack(ops.derived(params, x))
+        pa = resolve_precond(kpm.make_precond(ops, b.kpm_cfg), params, x)
+        sols, runs = {}, {}
+        for kind, block in (("block_cg", True), ("cg", False)):
+            scfg = SolverConfig(tol=tol, maxiter=500, block=block)
+            solve_minv(ops, params, ds, R, scfg, pa, block=True)  # tunes the launch geometries
+            ckb_cuda.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve_minv(ops, params, ds, R, scfg, pa, block=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            d = ops.mulM(params, ds, res.x) - R
+            resid = torch.sqrt(fdot(d, d) / fdot(R, R))
+            sols[kind] = res.x
+            runs[kind] = dict(table_launches=dict(ckb_cuda.table_launches),
+                              launch_shapes=set(ckb_cuda.launch_shapes))
+            say("block_complex_64x64", config=cfg.name, kind=kind, chains=C, systems=C * nv,
+                dtype="complex64", tol=tol, iters_mean=f"{res.iters.double().mean().item():.2f}",
+                iters_max=int(res.iters.max()), seconds=f"{secs:.4f}",
+                max_flag=int(res.flag.max()), max_residual_M=f"{resid.max().item():.3e}",
+                residual_gate=f"{math.sqrt(tol):.3e}",
+                k1_complex_launches={m: ckb_cuda.table_launches[m] for m in COMPLEX_MODES})
+            if int(res.flag.max()) != 0 or not resid.max().item() <= math.sqrt(tol):
+                bad.append(f"{cfg.name}/{kind}: flag or residual")
+        diff = torch.sqrt(fdot(sols["block_cg"] - sols["cg"], sols["block_cg"] - sols["cg"])
+                          / fdot(sols["cg"], sols["cg"])).max().item()
+        idle = [m for m in forms if runs["block_cg"]["table_launches"][m] <= 0]
+        say("block_complex_64x64", config=cfg.name, max_rel_diff_block_vs_cg=f"{diff:.3e}",
+            gate=BLOCK_VS_CG_GATE, idle_k1_forms=idle or "none")
+        if not diff <= BLOCK_VS_CG_GATE or idle:
+            bad.append(f"{cfg.name}: block and CG {diff:.3e} apart, idle {idle}")
+        out[f"block_cg_{cfg.name}"] = runs["block_cg"]
+    if bad:
+        raise RuntimeError(f"block CG on complex fields at 64x64: {bad}")
+    return out
 
 
 def phase_driver_twisted() -> dict:
@@ -1363,12 +1511,14 @@ def phase_driver_twisted() -> dict:
 # slow-mode deflation, the near-null preconditioner
 # ---------------------------------------------------------------------------
 
-def _card_vs_cpu(run: str, fn, modes, tol: float = 1e-12, relative: bool = False) -> None:
+def _card_vs_cpu(run: str, fn, modes, tol: float = 1e-12, relative: bool = False,
+                 phase: str = "small_deep_reference") -> None:
     """``fn(dev) -> (x, iterations, decisions)`` on the CPU (first: it may
     draw the shared inputs there) and on the card, each with the kernels'
     counts set to 0 before; x within ``tol`` (absolute, or relative to the
     CPU's largest entry), equal iterations and decisions, every table form of
-    ``modes`` launched on the card and no kernel on the CPU."""
+    ``modes`` launched on the card and no kernel on the CPU; one line of
+    ``phase``."""
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
     runs = {}
@@ -1380,7 +1530,7 @@ def _card_vs_cpu(run: str, fn, modes, tol: float = 1e-12, relative: bool = False
     dx = (xg - xc).abs().max().item() / (xc.abs().max().item() if relative else 1.0)
     ok = (dx <= tol and torch.equal(ig, ic) and torch.equal(dg, dc)
           and all(ng[m] > 0 for m in modes) and sum(nc.values()) == 0)
-    say("small_deep_reference", run=run, **{"max_rel_dx" if relative else "max_abs_dx": f"{dx:.3e}"},
+    say(phase, run=run, **{"max_rel_dx" if relative else "max_abs_dx": f"{dx:.3e}"},
         tol=tol, iters=ig.flatten().tolist()[:8], iters_equal=bool(torch.equal(ig, ic)),
         decisions_equal=bool(torch.equal(dg, dc)), cuda_launches={m: ng[m] for m in modes},
         cpu_launches=sum(nc.values()))
@@ -1774,7 +1924,9 @@ def _rank_site_small(device, model: str = "holstein") -> dict:
     """(b) / (e) 4×4 float64 on this rank's block of sites against the
     unsharded card run (every rank runs it too), every sampler from equal
     generators: an HMC update with KPM and warm starts, a twisted update,
-    reflection and swap moves, a Runge-Kutta Langevin step, a
+    a twisted update with ``[solver] block`` (Hermitian block CG at s = 1)
+    and the block-CG probe solves of a twisted Green's-function sample (tol
+    1e-10), reflection and swap moves, a Runge-Kutta Langevin step, a
     Green's-function sample, of the Holstein or the SSH model. Per run: the
     largest |Δ|, whether decisions and iterations agree, and the sharded
     phonon field (SSH's bond field is whole on every rank)."""
@@ -1797,8 +1949,11 @@ def _rank_site_small(device, model: str = "holstein") -> dict:
         return (torch.Generator(device=device).manual_seed(9),
                 torch.Generator(device=device).manual_seed(9))
 
-    for name, twist in (("hmc", None), ("hmc_twisted", (0.3, 0.1))):
+    for name, twist, block in (("hmc", None, False), ("hmc_twisted", (0.3, 0.1), False),
+                               ("hmc_twisted_block", (0.3, 0.1), True)):
         b = make(4, 1.0, 0.1, 0.05, 2, device, torch.float64, trajectory_time=0.2, twist=twist)
+        if block:
+            b = shard_bench_step(replace(b, hmc_cfg=replace(b.hmc_cfg, block=True)))
         shard = SiteShard(b.ops.spec.ckb, getattr(b.ops.spec, "wij_table", None),
                           multihost.world(), multihost.rank())
         lb = shard_bench_step(b, shard)
@@ -1813,6 +1968,16 @@ def _rank_site_small(device, model: str = "holstein") -> dict:
         out[name] = (float((mine(s1.x) - s2.x).abs().max()),
                      bool(torch.equal(st1.accepted, st2.accepted)),
                      bool(torch.equal(st1.iters, st2.iters)), s2.x.cpu())
+        if block:
+            bcfg = SolverConfig(tol=1e-10, maxiter=500, block=True)
+            g1, g2 = gens()
+            gd1 = sample_greens(b.ops, b.params, s1.x, 4, bcfg,
+                                kpm.make_precond(b.ops, b.kpm_cfg), g1)
+            gd2 = sample_greens(lb.ops, lb.params, mine(s1.x), 4, bcfg,
+                                kpm.make_precond(lb.ops, b.kpm_cfg), g2)
+            out["greens_twisted_block"] = (
+                float((gd1.MinvR - shard.gather(gd2.MinvR)).abs().max()), True,
+                bool(torch.equal(gd1.iters, gd2.iters) and int(gd2.flag.max()) == 0), None)
         if twist is not None:
             continue
         ops, lops, params, lp = b.ops, lb.ops, b.params, lb.params
@@ -2102,6 +2267,36 @@ def _deflated_4x4(device, n_chain: int, n_site: int) -> dict:
                 gflag=gd.flag.cpu())
 
 
+def _twisted_block_4x4(device, n_chain: int, n_site: int) -> dict:
+    """A twisted 4×4 float64 HMC update of 4 chains with ``[solver] block``
+    (the trajectory solves by Hermitian block CG at s = 1) and the nᵥ = 4
+    probe solves of a Green's-function sample by block CG (tol 1e-10), on
+    this rank's part of the layout."""
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.measure.greens import sample_greens
+    from elphdynamics_tpu_torch.ops import kpm
+    from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+
+    b = bench.build_bench_step(4, 1.0, 0.1, 0.05, 4, device, torch.float64,
+                               trajectory_time=0.2, twist=(0.3, 0.1))
+    b = replace(b, hmc_cfg=replace(b.hmc_cfg, block=True))
+    cb, shard = _layout(n_chain, n_site, 4, b.ops.spec)
+    lb = bench.shard_bench_step(b, shard, cb)
+    st, stats = lb.step(lb.params, lb.state, torch.Generator(device=device).manual_seed(3))
+    R = trace_noise((4, 4, b.ops.Nsites, b.ops.Ltau), torch.complex128, device,
+                    torch.Generator(device=device).manual_seed(5))
+    if shard is not None:
+        R = shard.local(R)
+    if cb is not None:
+        R = cb.local(R)
+    gd = sample_greens(lb.ops, lb.params, st.x, 4, SolverConfig(tol=1e-10, maxiter=500, block=True),
+                       kpm.make_precond(lb.ops, b.kpm_cfg), R=R)
+    return dict(x=st.x.cpu(), accepted=stats.accepted.cpu(), iters=stats.iters.cpu(),
+                flag=stats.flag.cpu(), MinvR=gd.MinvR.cpu(), giters=gd.iters.cpu(),
+                gflag=gd.flag.cpu())
+
+
 def _rank_quad(device) -> dict:
     """(f) and the four-rank part of (g) on this rank of 2 chain × 2 site
     ranks: the deflated update and block-CG probe solves, tempering
@@ -2111,6 +2306,7 @@ def _rank_quad(device) -> dict:
     from elphdynamics_tpu_torch import bench
 
     out = dict(deflated=_deflated_4x4(device, 2, 2),
+               twisted_block=_twisted_block_4x4(device, 2, 2),
                exchange_holstein=_exchange_4x4(device, 2, 2, "holstein"),
                exchange_ssh=_exchange_4x4(device, 2, 2, "ssh"))
     out["kernel_64"] = _sharded_64(device, bench.KERNEL_64X64.name, 2, 2, measure=True)
@@ -2120,6 +2316,7 @@ def _rank_quad(device) -> dict:
 def _one_rank_4x4(device) -> dict:
     """The one-rank card runs of (f)'s 4×4 pieces (this process)."""
     return dict(deflated=_deflated_4x4(device, 1, 1),
+                twisted_block=_twisted_block_4x4(device, 1, 1),
                 exchange_holstein=_exchange_4x4(device, 1, 1, "holstein"),
                 exchange_ssh=_exchange_4x4(device, 1, 1, "ssh"))
 
@@ -2202,24 +2399,21 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True) -> dict:
     if quad:
         one4 = _one_rank_4x4(torch.device("cuda"))
         quadr = _launch(_rank_quad, 4, backend)
-        # (f) deflation, block-CG probes and exchanges on 2×2 against one rank
-        d = quadr[0]["deflated"]
-        x = _blocks(quadr, "deflated", "x", 2, 2, True)
-        z = _blocks(quadr, "deflated", "MinvR", 2, 2, True)
-        dxd = float((x - one4["deflated"]["x"]).abs().max())
-        dz = float((z - one4["deflated"]["MinvR"]).abs().max())
-        acc = torch.cat([quadr[2 * b]["deflated"]["accepted"] for b in range(2)])
-        its = torch.cat([quadr[2 * b]["deflated"]["iters"] for b in range(2)])
-        gits = torch.cat([quadr[2 * b]["deflated"]["giters"] for b in range(2)])
-        same = (torch.equal(acc, one4["deflated"]["accepted"])
-                and torch.equal(its, one4["deflated"]["iters"])
-                and torch.equal(gits, one4["deflated"]["giters"])
-                and int(d["flag"].max()) == 0 and int(d["gflag"].max()) == 0)
-        say(f"h2_2x2_deflated_hmc_and_block_cg_{backend}", ranks=4,
-            max_abs_dx=f"{dxd:.3e}", max_abs_dz=f"{dz:.3e}", tol=1e-9,
-            decisions_and_iterations_equal=same)
-        if not (dxd <= 1e-9 and dz <= 1e-9 and same):
-            bad.append("deflated_2x2")
+        # (f) deflation, block-CG probes, the twisted block-CG update and
+        # probes, and exchanges on 2×2 against one rank
+        for key, label, tol in (("deflated", "deflated_hmc_and_block_cg", 1e-9),
+                                ("twisted_block", "twisted_block_cg_hmc_and_probes", 1e-12)):
+            x = _blocks(quadr, key, "x", 2, 2, True)
+            z = _blocks(quadr, key, "MinvR", 2, 2, True)
+            dxd = float((x - one4[key]["x"]).abs().max())
+            dz = float((z - one4[key]["MinvR"]).abs().max())
+            same = all(torch.equal(_blocks(quadr, key, f, 2, 2, False), one4[key][f])
+                       for f in ("accepted", "iters", "giters"))
+            same = same and all(int(r[key][f].max()) == 0 for r in quadr for f in ("flag", "gflag"))
+            say(f"h2_2x2_{label}_{backend}", ranks=4, max_abs_dx=f"{dxd:.3e}",
+                max_abs_dz=f"{dz:.3e}", tol=tol, decisions_and_iterations_equal=same)
+            if not (dxd <= tol and dz <= tol and same):
+                bad.append(f"{key}_2x2")
         for model in ("holstein", "ssh"):
             key = f"exchange_{model}"
             x = _blocks(quadr, key, "x", 2, 2, model == "holstein")
@@ -2365,6 +2559,7 @@ def main() -> int:
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
     shapes["solver_kinds_64x64"] = phase_solver_kinds_64()["launch_shapes"]
+    block_cplx = phase_block_complex_64()
     phase_deep_beta_kernels()
     deep = phase_deep_beta_solves()
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
@@ -2401,10 +2596,15 @@ def main() -> int:
     # K1's complex mode: the twisted 64×64 configurations, and the stock
     # twisted SSH example (its fermion operator and densified Ā are K1's at
     # any size; the 4×4 Holstein example runs dense matmuls)
-    twisted_paths = {TWISTED_64X64.name: runs[TWISTED_64X64.name]}
+    # and the block-CG probe solves of both twisted 64×64 models
+    twisted_paths = {TWISTED_64X64.name: runs[TWISTED_64X64.name],
+                     f"block_cg_{TWISTED_64X64.name}": block_cplx[f"block_cg_{TWISTED_64X64.name}"]}
     twisted_ssh_paths = {SSH_TWISTED_64X64.name: runs[SSH_TWISTED_64X64.name],
-                         "ssh_twisted_driver_4x4": drv_tw["ssh_hmc_twisted"]}
+                         "ssh_twisted_driver_4x4": drv_tw["ssh_hmc_twisted"],
+                         f"block_cg_{SSH_TWISTED_64X64.name}":
+                             block_cplx[f"block_cg_{SSH_TWISTED_64X64.name}"]}
     shapes.update({k: r["launch_shapes"] for k, r in (holstein_paths | ssh_paths).items()})
+    shapes.update({k: r["launch_shapes"] for k, r in block_cplx.items()})
     phase_path_shapes(shapes)
     say("total", seconds=f"{time.perf_counter() - T_START:.1f}")
 

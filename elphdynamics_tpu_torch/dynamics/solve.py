@@ -14,7 +14,9 @@ CG solves of MᵀM can start from a deflated guess (``deflate``,
 Fields carry an explicit leading chain axis, so the systems of one chain
 that share its operator are ``rhs[c]``: block CG needs ``rhs`` of at least
 four axes ``[C, s, N, Lτ]`` (the JAX package, which maps over chains, asks
-for three).
+for three). Under complex hopping block CG is Hermitian block CG
+(:func:`..solvers.block_cg`) on M†M; every call site below runs it
+unchanged.
 """
 
 from __future__ import annotations
@@ -159,7 +161,8 @@ def solve_minv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
     ``block=True`` (CG with ``scfg.block`` only) solves ``rhs``
     ``[C, s, N, Lτ]`` by block CG over the ``s`` axis: valid only when those
     systems share the operator (the nᵥ probes of one configuration), never
-    for the chain axis."""
+    for the chain axis. Complex probes (complex hopping) run Hermitian block
+    CG with s = nᵥ."""
     use_block = block and scfg.block and rhs.ndim >= 4
     reduce = site_reduce(ops, scfg.kind)
     if scfg.kind == "cg":
@@ -185,7 +188,10 @@ def solve_oinv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
     operator per chain; the spins differ only in φ) run through block CG,
     unless deflating. Gated to tol ≥ 1e-6: at the tol² endpoint tolerance
     the shared Gram solves sit on the float32 noise floor, so those stay on
-    batched CG. BiCGStab / GMRES solve Mᵀ·y = rhs with the right
+    batched CG. Under complex hopping the two spins are one complex stack
+    entry ``[C, 1, N, Lτ]``, so the block is s = 1: Hermitian block CG at
+    s = 1 is CG in exact arithmetic (its iterates differ from CG's by
+    rounding). BiCGStab / GMRES solve Mᵀ·y = rhs with the right
     preconditioner, then M·z = y with the left one."""
     use_block = scfg.block and deflate is None and rhs.ndim >= 4 and scfg.tol >= 1e-6
     reduce = site_reduce(ops, scfg.kind)

@@ -20,8 +20,8 @@ Beyond the reference, as in the JAX package: ``[hmc] integrator = "2mn"``,
 ``[tempering]`` (``ladder``, ``freq``), ``[solver.deflation]`` (``k``,
 ``filter_degree``, ``power_iters``, ``cutoff``) and ``[solver.nearnull]``
 (CG with ``[solver.preconditioner]`` and real hopping only). ``[solver]
-block`` with complex hopping raises ``NotImplementedError`` naming its
-ROADMAP slice (F4).
+block`` with complex hopping runs Hermitian block CG
+(:func:`..solvers.block_cg`).
 
 Disorder is drawn from ``numpy.random.default_rng(random_seed)`` in the
 JAX package's order, so one seed builds the same parameters in both.
@@ -107,10 +107,6 @@ class SimulationSetup:
 def load_toml(path: str) -> dict:
     with open(path, "rb") as f:
         return tomllib.load(f)
-
-
-def _not_ported(what: str, slice_: str):
-    return NotImplementedError(f"{what}: ROADMAP slice {slice_}")
 
 
 def _build_lattice(cfg: dict) -> Lattice:
@@ -258,9 +254,6 @@ def build_setup(cfg: dict, datafolder: str, device, dtype: torch.dtype) -> Simul
                               restart=sol.get("restart", 20),
                               block=bool(sol.get("block", False)),
                               loop_precision=sol.get("loop_precision", "high"))
-    if solver_cfg.block and params_are_complex(params):
-        raise _not_ported("[solver] block with complex hopping (block CG on complex fields)",
-                          "F4")
     kpm_cfg = None
     if "preconditioner" in sol:
         p = sol["preconditioner"]

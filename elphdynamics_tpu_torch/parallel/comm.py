@@ -2,7 +2,9 @@
 
 * :func:`allreduce_sum`: the float64 partial sums of the CG dots, the
   energies and the KPM power-iteration norms, summed over the ranks of a
-  site group (and SSH's fermionic force over the bond field);
+  site group (and SSH's fermionic force over the bond field), and block
+  CG's Grams (complex128 on complex fields: ``dist.all_reduce`` sums a
+  complex tensor as its real view, one message, under gloo and NCCL);
 * :func:`halo_exchange`: one boundary-crossing checkerboard group's halo
   rows, sent to both ring neighbours and received from both in one
   ``dist.batch_isend_irecv``.

@@ -12,7 +12,8 @@ ranks:
   (:func:`..comm.halo_exchange`) per boundary-crossing group;
 * the ωᵢⱼ dispersion pairs (Holstein), through the same kind of halo;
 * sums over sites (CG dots, energies, KPM norms, block-CG Grams,
-  deflation Grams): one all-reduce of the ranks' float64 partial sums.
+  deflation Grams): one all-reduce of the ranks' float64 (complex128 for
+  block CG on complex fields) partial sums.
 
 Holstein's phonons live on sites, so its phonon field is cut like the
 fermion fields. SSH's live on bonds: the bond field x, its momenta, the

@@ -25,7 +25,11 @@ field dtype before they touch a field. The block updates of
 Complex fields (complex hopping) run through ``cg``, ``cg_split``,
 ``bicgstab`` and ``gmres`` unchanged: the dot products are the real
 Hermitian product Re(a†b), so the solvers work on the real ℝ²ⁿ embedding.
-``block_cg`` refuses them (ROADMAP slice F4).
+On a ℂ-linear Hermitian operator (M†M and the complex KPM polynomial) that
+is complex CG: r†z and p†Ap are real there, so α and β are the same.
+``block_cg`` is Hermitian block CG on them: complex Grams U†W and complex
+s×s solves (see its docstring); its norms, κ bound and verification stay on
+Re(a†b).
 """
 
 from __future__ import annotations
@@ -279,8 +283,10 @@ def _colsolve(G: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     D⁻½·(D⁻½GD⁻½)⁻¹·D⁻½ folded in (a unit diagonal conditions the Gram
     matrix as a per-iteration column normalisation would). s = 2 uses the
     closed-form inverse; larger blocks one batched LU without the error
-    check's host read (``torch.linalg.solve_ex``)."""
-    dg = torch.diagonal(G, dim1=-2, dim2=-1)
+    check's host read (``torch.linalg.solve_ex``). A complex ``G`` is
+    Hermitian: its diagonal is real, and the closed form, which keeps the
+    two off-diagonal entries apart, is the inverse of any 2×2 matrix."""
+    dg = torch.diagonal(G, dim1=-2, dim2=-1).real
     sc = 1.0 / torch.sqrt(_positive(dg))
     Gh = G * sc[..., :, None] * sc[..., None, :]
     Ch = sc[..., :, None] * C
@@ -307,10 +313,20 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     * converged columns freeze: they are zeroed out of the direction block
       and the Gram matrix gets a unit diagonal in their slot;
     * the Gram solves are scaled to a unit diagonal (:func:`_colsolve`);
-    * α and β come from the explicit Gram solves ``(PᵀAP)α = PᵀR`` and
-      ``(PᵀAP)β = −QᵀZ``, not from the ρ recursion;
-    * the Gram matrices accumulate in float64, the block updates are field
-      dtype matmuls (TF32 matmuls must be off, as they are by default).
+    * α and β come from the explicit Gram solves ``(P†AP)α = P†R`` and
+      ``(P†AP)β = −Q†Z``, not from the ρ recursion;
+    * the Gram matrices accumulate in float64 (complex128 for complex
+      fields), the block updates are field dtype matmuls (TF32 matmuls must
+      be off, as they are by default).
+
+    Complex fields (a ℂ-linear Hermitian positive definite ``A`` and ``P``:
+    M†M and the complex KPM polynomial) run Hermitian block CG: the Grams
+    are U†W and α, β complex s×s solves, so the search spans the complex
+    span of the s directions, 2s real directions per iteration for one
+    application of ``A`` to the block. The other choice, the real embedding
+    with Re(U†W), searches s real directions for the same matvecs: it
+    deflates half as much. At s = 1 (the spin-packed trajectory solve of
+    complex hopping) this is CG in exact arithmetic.
 
     ``reduce`` (a site-sharded solve: the site group's sum) makes the Grams
     and norms global, one all-reduce per set: the start's norms, then per
@@ -318,11 +334,6 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     the group then takes the same decisions and iterates in step."""
     if B.ndim < 3:
         raise ValueError("block_cg needs [..., s, N, Ltau] right-hand sides")
-    if B.is_complex():
-        # the JAX package's block CG forms complex Grams without a conjugate
-        # and reaches the tolerance only through its unpreconditioned retry
-        raise NotImplementedError("block CG on complex fields (complex hopping): "
-                                  "ROADMAP slice F4")
     if X0 is None:
         X0 = torch.zeros_like(B)
     P = apply_P if apply_P is not None else (lambda v: v)
@@ -330,10 +341,14 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     field = B.shape[-2:]
     flat = B.shape[:-2] + (field[0] * field[1],)
 
+    wide = torch.complex128 if B.is_complex() else torch.float64
+
     def gram(U, W):
-        """[..., a, b] = Σ U[..., a]·W[..., b] over the field, in float64
-        (the rank's partial on a site shard)."""
-        return torch.matmul(U.reshape(flat).double(), W.reshape(flat).double().mT)
+        """[..., a, b] = Σ conj(U[..., a])·W[..., b] over the field (U†W),
+        in float64 or complex128 (the rank's partial on a site shard). The
+        JAX package leaves out the conjugate, which is no inner product on
+        complex fields."""
+        return torch.matmul(U.reshape(flat).to(wide).conj(), W.reshape(flat).to(wide).mT)
 
     def grams(*pairs):
         """The Grams of ``pairs``, made global in one all-reduce."""
@@ -344,7 +359,7 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
         return torch.sqrt(_dots([(a, a)], reduce, dot)[0])
 
     def combine(U, coef):
-        """Σₐ U[..., a]·coef[..., a, b] as a [..., b] block."""
+        """Σₐ U[..., a]·coef[..., a, b] as a [..., b] block (no conjugate)."""
         return torch.matmul(coef.to(U.dtype).mT, U.reshape(flat)).reshape(U.shape)
 
     R = B - apply_A(X0)
@@ -365,7 +380,7 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     X = X0
     kmin = torch.zeros_like(eps0)
     iters = torch.zeros(batch, dtype=torch.int32, device=B.device)
-    eye = torch.eye(s, dtype=torch.float64, device=B.device)
+    eye = torch.eye(s, dtype=wide, device=B.device)
 
     for j in range(maxiter):
         if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
@@ -374,8 +389,8 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
         Q = apply_A(Pd)
         G, PR = grams((Pd, Q), (Pd, R))
         # frozen slots: a unit diagonal keeps the batched LU non-singular
-        G = G + eye * (~active).to(torch.float64)[..., None, :]
-        alpha = _colsolve(G, PR) * active[..., None, :].to(torch.float64)
+        G = G + eye * (~active).to(wide)[..., None, :]
+        alpha = _colsolve(G, PR) * active[..., None, :].to(wide)
         X_new = X + combine(Pd, alpha)
         R_new = R - combine(Q, alpha)
         eps = norms(R_new, _dot_hot) / safe_normb

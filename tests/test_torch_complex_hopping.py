@@ -411,14 +411,19 @@ def test_complex_cg_split_matches_jax():
 
 
 def test_block_cg_refuses_complex_fields():
-    """The JAX package's block CG forms complex Grams without a conjugate
-    (it reaches the tolerance only through its retry); the port refuses
-    complex blocks (ROADMAP slice F4)."""
+    """Block CG takes complex blocks (Hermitian block CG, slice F4; the JAX
+    package's forms its Grams without a conjugate): on the identity it
+    returns a complex block in one iteration. What it still refuses is a
+    complex field without its block axis."""
     from elphdynamics_tpu_torch import solvers
 
-    B = torch.zeros((1, 2, 4, 3), dtype=torch.complex128)
-    with pytest.raises(NotImplementedError, match="slice F4"):
-        solvers.block_cg(lambda v: v, B)
+    B = _T(_cnormal(np.random.default_rng(0), (1, 2, 4, 3)))
+    res = solvers.block_cg(lambda v: v, B, tol=1e-12)
+    assert res.x.dtype == torch.complex128 and bool(res.converged.all())
+    torch.testing.assert_close(res.x, B, rtol=0, atol=1e-14)
+    assert res.iters.tolist() == [[1, 1]]
+    with pytest.raises(ValueError, match="s, N, Ltau"):
+        solvers.block_cg(lambda v: v, B[0, 0])
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,12 @@ the JAX package.
   and ``write_summary`` write the same files, byte for byte, as the JAX
   package's.
 * Checkpoints round-trip; a JAX checkpoint is refused; what the port does
-  not run raises, naming its ROADMAP slice or its cause (block CG on
-  complex fields; near-null and 2MN under ``--site-devices``); the
-  sections ported since (Langevin, GMRES, block CG, the KPM options, the
-  bond-pair correlations, twisted boundaries and complex hopping, the
-  deep-β tools, and slice H2's layouts of ranks on gloo ranks) load and
-  run; the CLI refuses a CUDA run without a card.
+  not run raises, naming its cause (near-null and 2MN under
+  ``--site-devices``); the sections ported since (Langevin, GMRES, block
+  CG, the KPM options, the bond-pair correlations, twisted boundaries and
+  complex hopping, block CG on complex fields, the deep-β tools, and slice
+  H2's layouts of ranks on gloo ranks) load and run; the CLI refuses a
+  CUDA run without a card.
 """
 
 import copy
@@ -208,14 +208,19 @@ def _ssh(c, **extra):
     return c
 
 
+def _twisted(c):
+    """The config with its [holstein] table replaced by the stock twisted
+    example's (twist = [π/4, π/8])."""
+    c["holstein"] = jconfig.load_toml(os.path.join(EXAMPLES, "holstein_hmc_twisted.toml"))[
+        "holstein"]
+    return c
+
+
 # (id, edit, what the message names[, (--devices, --site-devices)]): what
-# the port still refuses, a layout of ranks included. The ids keep the
-# numbers they had when the list also held what has been ported since
-# (near-null and 2MN under site sharding stay refused, as the reference
-# does not run them sharded: ROADMAP section 3).
+# the port refuses, a layout of ranks included: near-null and 2MN under
+# site sharding, as the reference does not run them sharded (ROADMAP
+# section 3).
 UNPORTED = [
-    ("slice F4-12", lambda c: (c["holstein"].update(twist=[0.3, 0.0]),
-                               c["solver"].update(block=True)), "slice F4"),
     ("slice H2-nearnull", lambda c: c["solver"].update(nearnull={"k": 4}),
      "nearnull.*refuses it too", (1, 2)),
     ("slice H2-2mn", lambda c: c["hmc"].update(integrator="2mn"), "2MN integrator", (1, 2)),
@@ -255,6 +260,7 @@ PORTED = [
     ("ssh_twist", lambda c: _ssh(c, twist=[0.3, 0.0])),
     ("twist", lambda c: c["holstein"].update(twist=[0.3, 0.0])),
     ("imag", lambda c: c["holstein"]["t"][0].update(imag=0.2)),
+    ("twist_block", lambda c: _twisted(c)["solver"].update(block=True)),
     ("tempering", lambda c: c.update(tempering={"ladder": [1.0, 0.5]})),
     ("tune_dt", lambda c: c["hmc"].update(tune_dt=True, target_acceptance=0.7)),
     ("2mn", lambda c: c["hmc"].update(integrator="2mn")),

@@ -13,7 +13,8 @@ ranks on the CPU (float64), against the JAX package and the one-rank port.
   with equal iterations and flags.
 
 The collectives themselves (gather to the host, broadcasts, the
-all-reduce, the two-way halo exchange with distinct neighbours and with
+all-reduce, real and complex128 with the same bits on every rank, the
+two-way halo exchange with distinct neighbours and with
 one rank on both sides) are checked on their own first.
 
 Each test spawns its ranks (``parallel.multihost.launch``, a ``file://``
@@ -55,6 +56,13 @@ def test_collectives(D, tmp_path):
         np.testing.assert_array_equal(o["tree"]["a"]["b"], np.repeat(np.arange(D, dtype=float), 3))
         assert (o["int"], o["str"], o["primary"]) == (7, "rank 0", r == 0)
         np.testing.assert_array_equal(o["sum"], [D, D * (D - 1) / 2])
+        # complex sums: right, and the same bits on every rank
+        assert o["csum"].dtype == np.complex128
+        np.testing.assert_allclose(o["csum"], [[D * (1 + 2j), 1j * D * (D - 1) / 2],
+                                               [0.1 * D * (D + 1) / 2,
+                                                0.3j * sum(1 / k for k in range(1, D + 1))]],
+                                   rtol=1e-15, atol=0)
+        np.testing.assert_array_equal(o["csum"], out[0]["csum"])
         # the previous rank's "next" message and the next rank's "prev" one
         np.testing.assert_array_equal(o["from_prev"], np.full((1, 2), 10.0 * ((r - 1) % D)))
         np.testing.assert_array_equal(o["from_next"], np.full((3,), -1.0 * ((r + 1) % D)))

@@ -19,6 +19,12 @@ x agrees with JAX to 1e-10 and with the one-rank port to 1e-12 (probe
 solutions to 1e-10); decisions, flags and iterations are equal; the bond
 field is bitwise equal on every rank after each sampler. The per-group
 phonon tables of the sharded force walk equal the JAX package's.
+
+Block CG on complex fields on 2 site ranks against one rank, on a twisted
+4×4 SSH model (the checks of ``test_torch_parallel_hmc_twisted.py``): one
+HMC update whose trajectory solves run Hermitian block CG and a block-CG
+probe sample; x and the probe solutions to 1e-12, equal decisions and
+iterations, the bond field bit for bit the same on both ranks.
 """
 
 import functools
@@ -47,6 +53,7 @@ from elphdynamics_tpu.parallel.lattice_shard import _ssh_group_phonons
 from elphdynamics_tpu.parallel.lattice_shard import build_shard_plan as j_build_shard_plan
 from elphdynamics_tpu_torch.parallel.lattice_shard import ssh_group_phonons
 from elphdynamics_tpu_torch.parallel.multihost import launch
+from test_torch_parallel_hmc_twisted import check_twisted_block
 
 torch.set_num_threads(1)
 
@@ -241,3 +248,7 @@ def test_site_sharded_ssh_samplers_match_jax(D, tmp_path):
     # the walk crossed blocks, and one force all-reduce carries the bond field
     msgs, folds, allreduces, nbytes = one["hmc"]["counts"]
     assert msgs > 0 and folds > 0 and allreduces > 0 and nbytes > 0
+
+
+def test_site_sharded_ssh_twisted_block_cg_equals_one_rank(tmp_path):
+    check_twisted_block("ssh", 1, 2, tmp_path)

@@ -260,7 +260,11 @@ def collectives_worker(device):
     none = halo_exchange(None, None, (r + 1) % D, (r - 1) % D)
     return dict(fetch=multihost.fetch(x), tree=multihost.fetch_tree({"a": {"b": x[0]}}),
                 int=multihost.bcast_int(7 + r), str=multihost.bcast_str(f"rank {r}"),
-                sum=_np(allreduce_sum(torch.tensor([1.0, r]))), from_prev=_np(from_prev),
+                sum=_np(allreduce_sum(torch.tensor([1.0, r]))),
+                # a complex128 stack, as block CG's Grams on complex fields
+                csum=_np(allreduce_sum(torch.tensor(
+                    [[1 + 2j, 1j * r], [0.1 * (r + 1), 0.3j / (r + 1)]], dtype=torch.complex128))),
+                from_prev=_np(from_prev),
                 from_next=_np(from_next), none=none, primary=multihost.is_primary())
 
 
@@ -435,3 +439,74 @@ def exchange_worker(device, n_devices: int, site_devices: int, model: str, ladde
         x, v, rate, iters, flag = exchange(params, x, v, parity, g)
         out.append(dict(x=_np(x), rate=float(rate), flag=int(flag), iters=float(iters)))
     return out
+
+
+# --- block CG on complex fields across ranks (slice F4) -----------------------
+
+def twisted_block_worker(device, model: str, n_chain: int, n_site: int):
+    """On a twisted 4×4 model (``holstein`` or ``ssh``, float64, 4 chains)
+    on this rank's part of an ``n_chain`` × ``n_site`` layout: one HMC
+    update whose trajectory solves run Hermitian block CG (s = 1: the two
+    spins are one complex entry) and the nᵥ = 4 probe solves of a
+    Green's-function sample by block CG (tol 1e-10), from generators and
+    probes every rank makes alike; rank 0 also runs both on one rank. Per
+    run the rank's blocks (Holstein's x and the probe solutions cut to its
+    sites, SSH's bond field whole), the statistics, and the number of
+    ``block_cg`` calls."""
+    from dataclasses import replace
+
+    from elphdynamics_tpu_torch import bench, solvers
+    from elphdynamics_tpu_torch.measure.greens import sample_greens
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+    from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+
+    make = bench.build_ssh_step if model == "ssh" else bench.build_bench_step
+    b = make(4, 1.0, 0.1, 0.05, 4, "cpu", torch.float64, trajectory_time=0.2, twist=(0.3, 0.1))
+    b = replace(b, hmc_cfg=replace(b.hmc_cfg, block=True))
+    site_group, chain_group = multihost.layout_groups(n_chain, n_site)
+    blk, d = divmod(multihost.rank(), n_site)
+    spec = b.ops.spec
+    shard = (SiteShard(spec.ckb, getattr(spec, "wij_table", None), n_site, d, site_group,
+                       base=blk * n_site) if n_site > 1 else None)
+    cb = ChainBlock.of(4, n_chain, blk, chain_group) if n_chain > 1 else None
+    R = trace_noise((4, 4, spec.Nsites, spec.Ltau), torch.complex128, "cpu",
+                    torch.Generator().manual_seed(5))
+    parts = {"sharded": (bench.shard_bench_step(b, shard, cb), shard, cb)}
+    if multihost.rank() == 0:
+        parts["one"] = (bench.shard_bench_step(b), None, None)
+    block_cg, calls = solvers.block_cg, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return block_cg(*a, **kw)
+
+    solvers.block_cg = counted
+    out = {}
+    try:
+        for tag, (lb, sh, ch) in parts.items():
+            calls.clear()
+            st, stats = lb.step(lb.params, lb.state, torch.Generator().manual_seed(3))
+            r = R if sh is None else sh.local(R)
+            r = r if ch is None else ch.local(r)
+            gd = sample_greens(lb.ops, lb.params, st.x, 4,
+                               SolverConfig(tol=1e-10, maxiter=500, block=True),
+                               kpm.make_precond(lb.ops, b.kpm_cfg), R=r)
+            out[tag] = dict(x=_np(st.x), accepted=_np(stats.accepted), iters=_np(stats.iters),
+                            flag=_np(stats.flag), MinvR=_np(gd.MinvR), giters=_np(gd.iters),
+                            gflag=_np(gd.flag), block_calls=len(calls))
+    finally:
+        solvers.block_cg = block_cg
+    return out
+
+
+def layout_whole(ranks: list, run: str, field: str, n_chain: int, n_site: int,
+                 site_axis: bool) -> np.ndarray:
+    """The whole array from the ranks' blocks of a 2-D layout (rank r holds
+    chain block r // n_site and site block r % n_site): site blocks
+    concatenated along axis −2 within a chain block (when ``site_axis``),
+    chain blocks along axis 0."""
+    rows = []
+    for b in range(n_chain):
+        parts = [ranks[b * n_site + s][run][field] for s in range(n_site)]
+        rows.append(np.concatenate(parts, axis=-2) if site_axis else parts[0])
+    return np.concatenate(rows, axis=0)
