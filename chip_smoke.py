@@ -32,7 +32,7 @@ Phases (one line each, and the process exits non-zero if any fails):
    SSH modes and K2 with per-chain tables;
 7. a small preconditioner apply (4×4, float64) on the fold branch: K2 on
    the card against its twin on the CPU;
-8. the bench 8×8 configuration (128 chains, dense branch): 1 warm-up and 3
+8. the bench 8×8 configuration (128 chains, dense branch): 1 warm-up and 2
    timed updates;
 9. the kernel 64×64 configuration (16 chains, fold branch, N = 4096): 1
    warm-up and 2 timed updates, with K1's and K2's launch counts; and the
@@ -139,7 +139,18 @@ Phases (one line each, and the process exits non-zero if any fails):
     on complex fields (1e-12), tempering exchanges of both parities
     (Holstein and SSH); and the stock 4×4 SSH
     example through the driver on 2 site ranks (cut in depth to 1 + 2
-    updates, KPM order 8): x and bins to 1e-9, equal decisions;
+    updates, KPM order 8): x and bins to 1e-9, equal decisions. At
+    0 + 2 updates the bins differ by 7.2e-9 on ``Nsqr`` (|Nsqr| = 257.5):
+    every solve agrees to ≤ 1.5e-15 in ‖x‖² up to the second
+    measurement's probe solve (CG on MᵀM, tol 1e-5, 11/11/12/11
+    iterations on both layouts, residuals 9.71e-6, 9.64e-6, 2.68e-6,
+    9.80e-6, equal to 1.5e-9), whose solutions differ by 2.6e-11 in ‖x‖²:
+    the one-rank run folds with K1 and the ranks with the plain halo fold,
+    whose roundings that solve amplifies by its conditioning, not by a
+    stopping threshold. On the CPU a ±1 half-ulp perturbation of every
+    fold gives 7.0e-9 on ``Nsqr`` at seed 26 and ≤ 1.1e-13 at seeds
+    17–25 (``scripts/ssh_site_parity.py``); 1 + 2 updates agree to
+    3.2e-14;
 29. (g) at full width, trajectories cut to 0.1: one site-sharded
     ``SSH_64X64`` update (8 chains, D = 2) and ``KERNEL_64X64`` on the 2×2
     layout (8 chains per block), each after a warm-up update, with seconds
@@ -165,7 +176,25 @@ Phases (one line each, and the process exits non-zero if any fails):
     two solutions (≤ ``BLOCK_VS_CG_GATE``) and K1's complex launches by
     table form (each of the model's forms > 0 in the block run).
 
-Phase 31 runs after 13; phases 24–30 run before 23, which comes last.
+32. ``[solver] loop_precision``: one in-loop exp(−Δτ·K) apply at "high"
+    (three bf16 products accumulated in float32) and at "highest" against
+    float64 at the bench 8×8 and 32×32 dense shapes; "high" must differ
+    from float32 and stay within ``BF16X3_GATE`` of max|A|·|y|;
+33. independent draws across seeds with the CUDA generator: the driver on
+    ``examples/holstein_hmc_square.toml`` at 64×64 (4 chains) at seeds 2,
+    3 and 4, stopped once its first update has drawn; every chain's x₀,
+    momenta, pseudofermions and Metropolis uniform differ between seeds
+    (and between chains); the uniforms are printed;
+34. the float32 single-site anchor of ``tests/test_accum.py`` on the card:
+    ``ED_CHAINS`` chains, ``ED_BURNIN`` + ``ED_MEAS`` updates, density and
+    ⟨x²⟩ against exact diagonalisation within 0.08 and 0.1, the two
+    measured halves' ⟨x²⟩ within ``ED_FLAT_SIGMAS`` standard errors;
+35. the HMC energy in float32 against float64 on the same draws (the 64×64
+    driver run's model, 4 chains, one leapfrog step): H at the start within
+    u·(|S| + K) per chain, ΔH within twice that.
+
+Phase 31 runs after 13, 32 after 19, 33, 35 and 34 after 22; phases 24–30
+run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -2345,6 +2374,9 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "examples", "ssh_hmc_square.toml"), "rb") as f:
         cfg = tomllib.load(f)
+    # 1 + 2 updates: at 0 + 2 the second measurement's probe solve amplifies
+    # K1's rounding against the halo fold's to 7.2e-9 on Nsqr (phase 28 in
+    # the module docstring; scripts/ssh_site_parity.py)
     cfg["hmc"].update(burnin_updates=1, simulation_updates=2, trajectory_time=0.05)
     cfg["simulation"].update(num_bins=2, random_seed=17)
     cfg["measurements"]["num_random_vectors"] = 4
@@ -2513,6 +2545,247 @@ def nccl_only() -> int:
     return 0
 
 
+# the in-loop operator of loop_precision "high": three bf16 products
+# accumulated in float32, relative to max|A|·|y|; one bf16 product is off by
+# ~2⁻⁹, float32 by ~2⁻²⁴ (N terms)
+BF16X3_GATE = 2.0 ** -14
+
+
+def phase_loop_precision() -> None:
+    """32. ``[solver] loop_precision``: on the dense Holstein branch at the
+    bench 8×8 (128 chains) and 32×32 (32 chains) shapes, one in-loop
+    exp(−Δτ·K) apply at "high" (bf16×3 in float32) and at "highest"
+    against float64, on a spin-stacked float32 field. Fails when "high"
+    is not the cheaper operator (equal to the float32 one) or is off by
+    more than ``BF16X3_GATE`` of max|A|·|y|."""
+    from elphdynamics_tpu_torch.bench import build_bench_step
+    from elphdynamics_tpu_torch.models import holstein as Hm
+
+    for name, L, chains in (("bench_8x8", 8, 128), ("dense_32x32", 32, 32)):
+        b = build_bench_step(L, 4.0, 0.1, 0.05, chains, "cuda", torch.float32)
+        C, N, Lt = b.state.x.shape
+        y = torch.randn((C, 2, N, Lt), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        exact = torch.matmul(b.params.expK.double(), y.double())
+        scale = float(torch.matmul(b.params.expK.double().abs(), y.double().abs()).max())
+        hot = Hm.apply_expK(b.ops.spec, b.params, y, "high")
+        full = Hm.apply_expK(b.ops.spec, b.params, y, "highest")
+        err_hot = float((hot.double() - exact).abs().max()) / scale
+        err_full = float((full.double() - exact).abs().max()) / scale
+        cheaper = hot.dtype == torch.float32 and not torch.equal(hot, full)
+        say(f"loop_precision_{name}", N=N, field=list(y.shape), dense=b.ops.spec.dense_ckb,
+            high_rel_err=f"{err_hot:.3e}", highest_rel_err=f"{err_full:.3e}",
+            gate=f"{BF16X3_GATE:.3e}", high_is_bf16x3=cheaper)
+        if not (b.ops.spec.dense_ckb and cheaper and err_hot <= BF16X3_GATE):
+            raise RuntimeError(f"loop_precision {name}: the in-loop operator is not the "
+                               f"bf16x3 one within {BF16X3_GATE:.3e} (error {err_hot:.3e})")
+
+
+class _DrawsTaken(Exception):
+    """Stops a driver run once its first update has drawn."""
+
+
+def _first_draws(cfg: dict, seed: int, chains: int) -> dict:
+    """The start fields and the first update's draws of the driver on the
+    parsed input ``cfg`` at ``seed``, recorded at the draw seams
+    (``simulation.init_phonons_half_filled``, ``dynamics.hmc.draw``); the
+    run stops there."""
+    from elphdynamics_tpu_torch import simulation
+    from elphdynamics_tpu_torch.dynamics import hmc
+
+    seen = {}
+    init, draw = simulation.init_phonons_half_filled, hmc.draw
+
+    def rec_init(*a, **k):
+        seen["x0"] = init(*a, **k)
+        return seen["x0"]
+
+    def rec_draw(*a, **k):
+        d = draw(*a, **k)
+        seen.update(momentum=d.momentum, pseudofermion=d.pseudofermion, uniform=d.uniform)
+        raise _DrawsTaken
+
+    cfg = json.loads(json.dumps(cfg))
+    simulation.init_phonons_half_filled, hmc.draw = rec_init, rec_draw
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            cfg["simulation"].update(filepath=work, random_seed=seed)
+            simulation.simulate(cfg, n_chains=chains, device="cuda", dtype=torch.float32)
+    except _DrawsTaken:
+        pass
+    finally:
+        simulation.init_phonons_half_filled, hmc.draw = init, draw
+    if len(seen) != 4:
+        raise RuntimeError(f"seed {seed}: the first update drew nothing")
+    return {k: v.double().cpu() for k, v in seen.items()}
+
+
+SEEDS = (2, 3, 4)
+
+
+def phase_seed_draws() -> set:
+    """33. Independent draws across seeds with the CUDA generator: the
+    driver on ``examples/holstein_hmc_square.toml`` at 64×64, β = 4 (the
+    64×64 driver run's model; 4 chains, float32) at seeds 2, 3 and 4,
+    stopped once the first update has drawn. Every chain's start field
+    x₀, momenta, pseudofermions and Metropolis uniform differ between every
+    two seeds (and the chains of a seed from each other); the uniforms are
+    printed. Returns the kernels' launch shapes of the runs' set-up."""
+    import itertools
+
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
+        cfg = tomllib.load(f)
+    cfg["lattice"]["L"] = 64
+    cfg["holstein"]["beta"] = 4.0
+    cfg["hmc"].update(dt=0.025, num_multitimesteps=4, burnin_updates=0, simulation_updates=1)
+    cfg["simulation"]["num_bins"] = 1
+    chains = 4
+    ckb_cuda.reset_counts()
+    runs = {s: _first_draws(cfg, s, chains) for s in SEEDS}
+    shapes = set(ckb_cuda.launch_shapes)
+    same = []
+    for name in ("x0", "momentum", "pseudofermion", "uniform"):
+        for a, b in itertools.combinations(SEEDS, 2):
+            same += [(name, a, b, c) for c in range(chains)
+                     if torch.equal(runs[a][name][c], runs[b][name][c])]
+        for s in SEEDS:
+            rows = runs[s][name].reshape(chains, -1)
+            same += [(name, s, c1, c2) for c1, c2 in itertools.combinations(range(chains), 2)
+                     if torch.equal(rows[c1], rows[c2])]
+    say("seed_draws_64x64", chains=chains, seeds=list(SEEDS),
+        uniforms={s: [round(float(u), 6) for u in runs[s]["uniform"]] for s in SEEDS},
+        x0_first={s: [round(float(x[0, 0]), 6) for x in runs[s]["x0"]] for s in SEEDS},
+        equal_pairs=len(same))
+    if same:
+        raise RuntimeError(f"draws equal across seeds or chains: {same[:8]}")
+    return shapes
+
+
+U32 = 2.0 ** -24
+
+
+def phase_float32_energy() -> set:
+    """35. The HMC energy in float32 against float64 on the same draws: the
+    64×64 driver run's model (``examples/holstein_hmc_square.toml`` at
+    L = 64, β = 4, dt 0.025, Fourier-acceleration mass 0.1), 4 chains, one
+    leapfrog step, start fields and draws made in float64 and cast. H at
+    the start holds the same state in both dtypes: each chain within
+    u·(|S| + K), u = 2⁻²⁴ (every term rounded once; the kinetic energy
+    through float32 mass circulants was off by ~0.064, 4× that); ΔH, two
+    evaluations one step apart, within twice that. Returns the kernels'
+    launch shapes."""
+    from elphdynamics_tpu_torch.dynamics import hmc
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
+    from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
+    from elphdynamics_tpu_torch.io.config import build_setup
+    from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "holstein_hmc_square.toml"), "rb") as f:
+        cfg = tomllib.load(f)
+    cfg["lattice"]["L"] = 64
+    cfg["holstein"]["beta"] = 4.0
+    cfg["hmc"].update(dt=0.025, num_multitimesteps=4, trajectory_time=0.025)
+    chains, stats = 4, {}
+    g = torch.Generator("cuda").manual_seed(5)
+    ckb_cuda.reset_counts()
+    with tempfile.TemporaryDirectory() as work:
+        for dtype in (torch.float64, torch.float32):
+            st = build_setup(cfg, work, torch.device("cuda"), dtype)
+            if dtype == torch.float64:
+                x0 = init_phonons_half_filled(st.ops, st.params, chains, g)
+                d64 = hmc.draw(st.ops, chains, torch.float64, "cuda", g)
+            step = make_hmc_step(st.ops, st.fa_mass, st.hmc_cfg,
+                                 kpm.make_precond(st.ops, st.kpm_cfg))
+            draws = replace(d64, momentum=d64.momentum.to(dtype),
+                            pseudofermion=d64.pseudofermion.to(dtype))
+            x = x0.to(dtype)
+            _, stats[dtype] = step(st.params, HMCState(x=x, v=torch.zeros_like(x)), draws=draws)
+    shapes = set(ckb_cuda.launch_shapes)
+    a, b = stats[torch.float32], stats[torch.float64]
+    dH0 = ((a.H - a.delta_H) - (b.H - b.delta_H)).double().cpu()
+    ddH = (a.delta_H - b.delta_H).double().cpu()
+    bound = (U32 * (b.S.abs() + b.K)).double().cpu()
+    ok = (bool((dH0.abs() <= bound).all()) and bool((ddH.abs() <= 2 * bound).all())
+          and int(a.flag.max()) == 0 == int(b.flag.max()))
+    say("float32_energy_64x64", chains=chains,
+        H_start=[f"{float(h):.4f}" for h in (b.H - b.delta_H).cpu()],
+        H_start_f32_minus_f64=[f"{float(d):.3e}" for d in dH0],
+        bound_per_chain=[f"{float(r):.3e}" for r in bound],
+        dH_f32_minus_f64=[f"{float(d):.3e}" for d in ddH], ok=ok)
+    if not ok:
+        raise RuntimeError("float32 H or ΔH differs from float64 beyond its rounding")
+    return shapes
+
+
+# the float32 single-site anchor on the card (tests/test_accum.py:81): many
+# chains, few updates (a single site costs almost nothing; updates are
+# host-bound)
+ED_CHAINS, ED_BURNIN, ED_MEAS = 4096, 30, 30
+ED_DENSITY_TOL, ED_X2_TOL = 0.08, 0.1
+# thermalised: the first and second measured halves' ⟨x²⟩ within this many
+# standard errors of their difference (from the chains' spread: chains are
+# independent, updates of one chain are not)
+ED_FLAT_SIGMAS = 4.0
+
+
+def phase_ed_float32() -> None:
+    """34. The float32 single-site anchor on the card: the single-site
+    Holstein model (β = 2, Δτ = 0.1, ω = 1, λ = 1, μ = −0.5) in float32
+    through the port's HMC (dt 0.05, trajectory 1, Nb 4, tol 1e-5, warm
+    starts) and measurements (nᵥ = 10), ``ED_CHAINS`` chains, ``ED_BURNIN``
+    burn-in updates and ``ED_MEAS`` measured ones; density and ⟨x²⟩
+    against ``single_site_holstein_ed`` within 0.08 and 0.1 (the tolerances
+    of ``tests/test_accum.py``), and the ⟨x²⟩ of the first and second
+    halves of the measured updates within ``ED_FLAT_SIGMAS`` standard
+    errors of each other (the chains have thermalised; the running mean
+    over the measured updates is printed). Fails when any of them does not
+    hold."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_ed_helpers as E
+    from ed_reference import single_site_holstein_ed
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig
+    from elphdynamics_tpu_torch.measure.measurements import MeasurementSpec
+
+    t0 = time.perf_counter()
+    beta, dtau, omega, lam, mu = 2.0, 0.1, 1.0, 1.0, -0.5
+    ops, params = E.single_site(beta, dtau, omega, lam, mu, dtype=torch.float32, device="cuda")
+    ed = single_site_holstein_ed(beta, omega, lam, mu)
+    cfg = HMCConfig(dt=0.05, trajectory_time=1.0, Nb=4, tol=1e-5, maxiter=1000,
+                    construct_guess=True)
+    hist: list = []
+    res, _ = E.run_hmc_with_measurements(ops, params, cfg, MeasurementSpec(nv=10),
+                                         n_chains=ED_CHAINS, burnin=ED_BURNIN, nmeas=ED_MEAS,
+                                         seed=11, history=hist)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dens = E.scalar(res, "global", "density")
+    x2 = E.scalar(res, "onsite", "x2")
+    x2s = torch.stack([h[0] for h in hist])          # [measured, C]
+    half = x2s.shape[0] // 2
+    d = x2s[:half].mean(dim=0) - x2s[half:].mean(dim=0)
+    drift, sigma = float(d.mean()), float(d.std() / math.sqrt(d.numel()))
+    means = x2s.mean(dim=1)
+    running = [float(means[:k].mean()) for k in range(5, len(means) + 1, 5)]
+    ok = (abs(dens - ed["n"]) < ED_DENSITY_TOL and abs(x2 - ed["x2"]) < ED_X2_TOL
+          and abs(drift) < ED_FLAT_SIGMAS * sigma)
+    say("ed_single_site_float32", chains=ED_CHAINS, burnin=ED_BURNIN, measured=ED_MEAS,
+        density=f"{dens:.5f}", density_ed=f"{ed['n']:.5f}", density_tol=ED_DENSITY_TOL,
+        x2=f"{x2:.5f}", x2_ed=f"{ed['x2']:.5f}", x2_tol=ED_X2_TOL,
+        x2_first_half=f"{float(x2s[:half].mean()):.5f}",
+        x2_second_half=f"{float(x2s[half:].mean()):.5f}", halves_diff=f"{drift:.5f}",
+        halves_diff_sigma=f"{sigma:.5f}", flat_sigmas=ED_FLAT_SIGMAS,
+        x2_running_mean_every_5=[round(r, 5) for r in running],
+        acceptance=f"{statistics.mean(h[1] for h in hist):.4f}",
+        dtype=str(res["global"]["density"].dtype), seconds=f"{seconds:.1f}", ok=ok)
+    if not ok:
+        raise RuntimeError("the float32 single-site run left its ED tolerance or drifted")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2532,12 +2805,13 @@ def main() -> int:
     phase_small_solver_reference()
     phase_small_twisted_reference()
     phase_small_deep_reference()
+    phase_loop_precision()
 
     from elphdynamics_tpu_torch.bench import (
         BENCH_8X8, KERNEL_2MN_64X64, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64,
         SSH_LANGEVIN_64X64, SSH_TWISTED_64X64, TEMPERING_64X64, TWISTED_64X64)
 
-    run_config(BENCH_8X8, warmup=1, timed=3)
+    run_config(BENCH_8X8, warmup=1, timed=2)
     shapes, runs = {}, {}
     holstein = ("fold/shared", "fused/shared")
     # tempering: 4 timed updates, so that both pair parities are tried
@@ -2564,17 +2838,21 @@ def main() -> int:
     deep = phase_deep_beta_solves()
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
     # per update, 4–6 s each; SSH's KPM at max_order 64, 25–45 s each): a few
-    # updates each; the 64×64 runs (SSH's at ~19 s per update) and the SSH
-    # 4×4 run take one sampling update and no burn-in. The 64×64 Holstein
+    # sampling updates and no burn-in each (the 64×64 Holstein and the
+    # deep-β runs take burn-in updates); the 64×64 runs (SSH's at ~19 s per
+    # update) and the SSH 4×4 run take one sampling update. The 64×64 Holstein
     # run adds one burn-in update: from the fresh start H drifts by 0.45–0.72
     # over the first trajectory on every chain, which 18 of 28 chains
     # accepted, so all four reject it about one run in 60; 15 of 16 accepted
     # the second (scripts/driver_acceptance_probe.py)
-    drv = phase_driver("holstein_hmc_square", "holstein", (1, 2, 2), big_updates=(1, 1, 1))
+    drv = phase_driver("holstein_hmc_square", "holstein", (0, 2, 2), big_updates=(1, 1, 1))
     drv_ssh = phase_driver("ssh_hmc_square", "ssh", (0, 1, 1), big_updates=(0, 1, 1))
     drv_lang = phase_driver_langevin()
     drv_tw = phase_driver_twisted()
     phase_driver_deep()
+    shapes["seed_draws_64x64"] = phase_seed_draws()
+    shapes["float32_energy_64x64"] = phase_float32_energy()
+    phase_ed_float32()
     chains = phase_chain_sharded(runs[KERNEL_64X64.name])
     h2_ref = h2_references(runs[TEMPERING_64X64.name])
     h2 = phase_h2(h2_ref)

@@ -77,7 +77,7 @@ class HMCConfig:
     solver_kind: str = "cg"   # "cg" | "bicgstab" | "gmres"
     restart: int = 20         # GMRES restart length
     block: bool = False       # block CG over the spin-stacked trajectory solves
-    loop_precision: str | None = "high"   # accepted, not used yet (solve.py)
+    loop_precision: str | None = "high"   # in-loop CG operator (solve.SolverConfig)
     integrator: str = "leapfrog"          # "leapfrog" | "2mn"
     log_verbose: bool = False
     construct_guess: bool = False          # warm-start the trajectory solves
@@ -110,7 +110,7 @@ class HMCConfig:
         if self.integrator not in INTEGRATORS:
             raise ValueError(f"unknown integrator {self.integrator!r} "
                              "(expected 'leapfrog' or '2mn')")
-        SolverConfig(kind=self.solver_kind)
+        SolverConfig(kind=self.solver_kind, loop_precision=self.loop_precision)
 
 
 @dataclass(frozen=True)
@@ -234,10 +234,15 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     mass_ops: dict = {}
 
     def mass(like) -> MassOperator:
-        key = (like.device, like.dtype)
-        if key not in mass_ops:
-            mass_ops[key] = MassOperator(mass_table, (-0.5, -1.0, 1.0), like.device, like.dtype)
-        return mass_ops[key]
+        """The Fourier-acceleration mass operator in float64 on ``like``'s
+        device, for every field dtype: its circulants rounded to float32
+        would put M (the kinetic energy), M⁻¹ (the accelerations) and M^−½
+        (the refresh) ~u·κ(M) apart, biasing a float32 H and ΔH with one
+        sign on every chain."""
+        if like.device not in mass_ops:
+            mass_ops[like.device] = MassOperator(mass_table, (-0.5, -1.0, 1.0), like.device,
+                                                 torch.float64)
+        return mass_ops[like.device]
 
     tol1 = cfg.tol
     tol2 = cfg.tol ** 2
@@ -278,6 +283,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         return dSf
 
     def calc_K(v):
+        """½·vᵀ·M·v, in float64 (:func:`mass`)."""
+        v = v.double()
         mv = mass(v).apply(v, 1.0)
         if k_mask is not None:
             v = k_mask.to(v) * v
@@ -325,10 +332,11 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         mop = mass(x0)
 
         def qf(a):
-            return mop.apply(a, -1.0)
+            return mop.apply(a.double(), -1.0).to(a.dtype)
 
-        R = ops.tie(draws.momentum.to(x0))
-        v0 = cfg.alpha * v_in + math.sqrt(1.0 - cfg.alpha ** 2) * mop.apply(R, -0.5)
+        R = ops.tie(draws.momentum.to(x0)).double()
+        v0 = (cfg.alpha * v_in.double()
+              + math.sqrt(1.0 - cfg.alpha ** 2) * mop.apply(R, -0.5)).to(x0.dtype)
 
         derived0 = ops.derived(params, x0)
         MtR = ops.mulMT(params, ops.stack(derived0), draws.pseudofermion.to(x0.device))

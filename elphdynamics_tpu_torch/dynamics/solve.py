@@ -28,6 +28,7 @@ import torch
 
 from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.models.adapter import ModelOps
+from elphdynamics_tpu_torch.models.holstein import LOOP_PRECISIONS
 from elphdynamics_tpu_torch.utils.dtypes import fdot
 
 
@@ -43,15 +44,20 @@ class SolverConfig:
     # block CG over the systems of one chain that share its operator (the nᵥ
     # probes of a measurement, the two spins of a trajectory solve)
     block: bool = False
-    # accepted for parity with the JAX package and not used yet: every
-    # operator runs at the full precision of the field dtype (the TPU's
-    # bf16×3 "high" has no H100 counterpart; a lower in-loop precision is a
-    # later, measured change)
+    # the split precision policy of the JAX package (_cg_operators): the
+    # in-loop MᵀM of CG at this precision, the verification, the retry and
+    # every solve with tol < 1e-6 at full precision. Only the dense Holstein
+    # operator of a real float32 CUDA field has a cheaper form ("high": three
+    # bf16 products accumulated in float32; models/holstein.py); elsewhere
+    # every value runs the full operator
     loop_precision: str | None = "high"
 
     def __post_init__(self):
         if self.kind not in ("cg", "bicgstab", "gmres"):
             raise ValueError(f"unknown solver kind {self.kind!r} (cg, bicgstab or gmres)")
+        if self.loop_precision not in LOOP_PRECISIONS:
+            raise ValueError(f"unknown loop_precision {self.loop_precision!r} "
+                             f"(expected one of {LOOP_PRECISIONS})")
 
 
 # the refusal of BiCGStab / GMRES under site sharding, and why (ROADMAP §3)
@@ -107,9 +113,17 @@ def resolve_precond(precond, params, x, prev_state=None) -> PrecondApplies | Non
 
 
 def _cg_operators(ops: ModelOps, params, derived, scfg: SolverConfig):
-    """(in-loop, verification) MᵀM operators. Both are the full-precision
-    operator here, so the verification operator is None (the loop's)."""
-    return (lambda v: ops.mulMTM(params, derived, v)), None
+    """(in-loop, verification) MᵀM operators of the CG paths: ``(full,
+    None)`` for ``loop_precision`` None or "highest" and for tol < 1e-6 (the
+    tol² endpoint solves iterate to the float32 floor, which a cheaper
+    operator would raise), else ``(cheaper, full)``: the cheaper operator
+    steers the iteration, the residual verification and the retry use the
+    full one."""
+    full = lambda v: ops.mulMTM(params, derived, v)
+    prec = scfg.loop_precision
+    if prec is None or prec == "highest" or scfg.tol < 1e-6:
+        return full, None
+    return (lambda v: ops.mulMTM(params, derived, v, precision=prec)), full
 
 
 def _checked_nonsym(apply_A, b, base, apply_P, scfg: SolverConfig):

@@ -22,9 +22,14 @@ forces on the real phonon field take the real part of the adjoint pairing.
 The CUDA kernel folds complex fields in its complex mode.
 
 Both thresholds default to 2048, values tuned on a TPU; an H100
-measurement has to set them anew. Every matmul runs in full precision of
-the field dtype: the ``precision`` arguments are accepted for interface
-parity with the JAX package and not used yet.
+measurement has to set them anew. ``precision`` (``[solver]
+loop_precision``, passed only by the in-loop CG operator) selects the dense
+matmul's arithmetic: ``None`` / ``"highest"`` the full precision of the
+field dtype; ``"high"`` three bf16 products (hi·hi + hi·lo + lo·hi, the
+bf16×3 of the JAX package's TPU matmul) and ``"default"`` one, accumulated
+and returned in float32. The cheaper forms run only on a real float32 CUDA
+field on the dense branch: on the CPU, in float64, under complex hopping
+and on the fold branch every apply is full precision.
 """
 
 from __future__ import annotations
@@ -282,11 +287,50 @@ def _fold(spec: HolsteinSpec, p: HolsteinParams, y, *, reverse: bool):
     return ckb.fold(spec.ckb, p.cosht, p.sinht, y, reverse=reverse)
 
 
+# bf16 products per dense matmul for each cheaper ``loop_precision``
+BF16_PASSES = {"high": 3, "default": 1}
+LOOP_PRECISIONS = (None, "highest") + tuple(BF16_PASSES)
+
+
+def _split_bf16(a):
+    """a ≈ hi + lo, both bfloat16 (hi carries a's leading 8 bits, lo the next 8)."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.to(a.dtype)).to(torch.bfloat16)
+
+
+def bf16_matmul(A, y, passes: int):
+    """A·y for a float32 ``[N, N]`` A and a float32 ``[..., N, Lτ]`` y on
+    CUDA as ``passes`` bf16 products (3: hi·hi + hi·lo + lo·hi; 1: hi·hi),
+    summed inside one cuBLAS bf16 GEMM over the concatenated inner axis and
+    accumulated and returned in float32 (a bf16 ``torch.matmul`` would
+    round its output to bf16)."""
+    N, L = y.shape[-2], y.shape[-1]
+    y3 = y.reshape(-1, N, L)
+    A_hi, A_lo = _split_bf16(A)
+    y_hi, y_lo = _split_bf16(y3)
+    if passes == 3:
+        A_cat = torch.cat([A_hi, A_hi, A_lo], dim=1)
+        y_cat = torch.cat([y_hi, y_lo, y_hi], dim=1)
+    else:
+        A_cat, y_cat = A_hi, y_hi
+    out = torch.bmm(A_cat.expand(y3.shape[0], -1, -1), y_cat, out_dtype=torch.float32)
+    return out.reshape(y.shape)
+
+
+def _dense(A, y, precision):
+    """A·y over the site axis at ``precision`` (module docstring; the
+    values are checked by ``dynamics.solve.SolverConfig``)."""
+    if (precision in BF16_PASSES and y.is_cuda and y.dtype == torch.float32
+            and A.dtype == torch.float32):
+        return bf16_matmul(A, y, BF16_PASSES[precision])
+    return torch.matmul(A, y)
+
+
 def apply_expK(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
-    """exp(−Δτ·K)·y over the site axis (dense matmul or checkerboard fold;
-    ``precision`` is not used yet)."""
+    """exp(−Δτ·K)·y over the site axis (dense matmul at ``precision``, or
+    the checkerboard fold)."""
     if spec.dense_ckb:
-        return torch.matmul(p.expK, _promote(p, y))
+        return _dense(p.expK, _promote(p, y), precision)
     return _fold(spec, p, y, reverse=False)
 
 
@@ -295,7 +339,7 @@ def apply_expK_T(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
     (the reversed fold of Hermitian bond blocks is the adjoint; the dense
     branch conjugates)."""
     if spec.dense_ckb:
-        return torch.matmul(p.expK.mH, _promote(p, y))
+        return _dense(p.expK.mH, _promote(p, y), precision)
     return _fold(spec, p, y, reverse=True)
 
 

@@ -9,6 +9,11 @@ and swap moves and measurements as shipped.
   for bit (through the CLI);
 * ``--site-devices 2`` with 1 chain: the binned measurements within 1e-10
   of the one-rank run's, x within 1e-12;
+* the stock SSH example (``examples/ssh_hmc_square.toml``, 4×4, uncut
+  width) with ``chip_smoke.py`` phase (f)'s settings (seed 17, trajectory
+  0.05, nᵥ 4, KPM ``max_order`` 8, float64) at 0 + 2 updates and 2 bins on
+  2 site ranks: every bin array within an absolute 1e-9 of the one-rank
+  run's, equal acceptance;
 * ``--multihost``: two processes started with the launcher's environment
   variables (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``)
   write what ``--devices 2`` writes.
@@ -89,17 +94,10 @@ def test_site_sharded_driver_bins_match_one_rank(tmp_path):
                  threads=1, store_dir=str(tmp_path))
     bins2 = out[0][1]
     assert out[1][1] == [] and len(bins1) == len(bins2) == 2
-    def leaves(tree, path=""):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                yield from leaves(v, f"{path}/{k}")
-        else:
-            yield path, np.asarray(tree)
-
     n = 0
     for b1, b2 in zip(bins1, bins2):
-        got = dict(leaves(b2))
-        for path, want in leaves(b1):
+        got = dict(_leaves(b2))
+        for path, want in _leaves(b1):
             np.testing.assert_allclose(got[path], want, rtol=0, atol=1e-10, err_msg=path)
             n += 1
     assert n > 10
@@ -107,6 +105,40 @@ def test_site_sharded_driver_bins_match_one_rank(tmp_path):
     x2, _ = _checkpoint(_folder(tmp_path, 2))
     np.testing.assert_allclose(x2, x1, rtol=0, atol=1e-12)
     assert out[0][0]["acceptance_rate"] == out[1][0]["acceptance_rate"]
+
+
+def test_site_sharded_ssh_example_bins_match_one_rank(tmp_path):
+    """The SSH example on 2 site ranks at 0 + 2 updates, no cut but the
+    counts of phase (f) (its 4×4 lattice and every measurement as
+    shipped)."""
+    cfg = load_toml(os.path.join(REPO, "examples", "ssh_hmc_square.toml"))
+    cfg["hmc"].update(burnin_updates=0, simulation_updates=2, trajectory_time=0.05)
+    cfg["simulation"].update(filepath=str(tmp_path), num_bins=2, random_seed=17)
+    cfg["measurements"]["num_random_vectors"] = 4
+    cfg["solver"].setdefault("preconditioner", {})["max_order"] = 8
+    path = tmp_path / "ssh.toml"
+    path.write_text(dump_toml(cfg))
+    stats1, bins1 = W.simulate_worker(torch.device("cpu"), str(path), 1, 1)
+    out = launch(W.simulate_worker, 2, "gloo", "cpu", (str(path), 2, 1, 1, 2),
+                 timeout_s=TIMEOUT, threads=1, store_dir=str(tmp_path))
+    bins2 = out[0][1]
+    assert len(bins1) == len(bins2) == 2
+    n = 0
+    for b1, b2 in zip(bins1, bins2):
+        got = dict(_leaves(b2))
+        for p, want in _leaves(b1):
+            np.testing.assert_allclose(got[p], want, rtol=0, atol=1e-9, err_msg=p)
+            n += 1
+    assert n > 10
+    assert out[0][0]["acceptance_rate"] == stats1["acceptance_rate"]
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, np.asarray(tree)
 
 
 def _free_port():
