@@ -28,8 +28,13 @@ import torch
 
 from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.models.adapter import ModelOps
-from elphdynamics_tpu_torch.models.holstein import LOOP_PRECISIONS
 from elphdynamics_tpu_torch.utils.dtypes import fdot
+
+# the values of ``[solver] loop_precision``, the JAX package's: None and
+# "highest" run every operator at full precision, "high" and "default" the
+# in-loop MᵀM cheaper where the model has a cheaper form
+# (models/holstein.BF16_PASSES)
+LOOP_PRECISIONS = (None, "highest", "high", "default")
 
 
 @dataclass(frozen=True)

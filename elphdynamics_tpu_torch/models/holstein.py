@@ -288,8 +288,8 @@ def _fold(spec: HolsteinSpec, p: HolsteinParams, y, *, reverse: bool):
 
 
 # bf16 products per dense matmul for each cheaper ``loop_precision``
+# (``dynamics.solve.LOOP_PRECISIONS``); any other value runs full precision
 BF16_PASSES = {"high": 3, "default": 1}
-LOOP_PRECISIONS = (None, "highest") + tuple(BF16_PASSES)
 
 
 def _split_bf16(a):
@@ -298,39 +298,63 @@ def _split_bf16(a):
     return hi, (a - hi.to(a.dtype)).to(torch.bfloat16)
 
 
-def bf16_matmul(A, y, passes: int):
-    """A·y for a float32 ``[N, N]`` A and a float32 ``[..., N, Lτ]`` y on
-    CUDA as ``passes`` bf16 products (3: hi·hi + hi·lo + lo·hi; 1: hi·hi),
-    summed inside one cuBLAS bf16 GEMM over the concatenated inner axis and
-    accumulated and returned in float32 (a bf16 ``torch.matmul`` would
-    round its output to bf16)."""
+def _bf16_operand(spec: HolsteinSpec, A, passes: int, adjoint: bool):
+    """The bf16 operand of :func:`bf16_matmul` for the fixed matrix ``A``
+    (for Aᵀ with ``adjoint``): [hi | hi | lo] along the inner axis for 3
+    passes, hi for 1. Split once and kept in the checkerboard spec's cache
+    for as long as ``A`` is the matrix applied."""
+    key = ("bf16_operand", passes, adjoint)
+    hit = spec.ckb._cache.get(key)
+    if hit is None or hit[0] is not A:
+        hi, lo = _split_bf16(A.mT if adjoint else A)
+        op = torch.cat([hi, hi, lo], dim=1) if passes == 3 else hi.contiguous()
+        hit = spec.ckb._cache[key] = (A, op)
+    return hit[1]
+
+
+def _bf16_stack(y3, passes: int):
+    """The bf16 operand of :func:`bf16_matmul` for a ``[B, N, Lτ]`` field:
+    [hi; lo; hi] along the inner axis for 3 passes, hi for 1, written into
+    one buffer (three launches, where splitting and concatenating takes
+    five). lo is y − hi, exact in float32, rounded to bf16 on its write."""
+    if passes == 1:
+        return y3.to(torch.bfloat16)
+    B, N, L = y3.shape
+    buf = torch.empty((B, 3 * N, L), dtype=torch.bfloat16, device=y3.device)
+    hi = buf[:, :N]
+    hi.copy_(y3)
+    torch.sub(y3, hi, out=buf[:, N:2 * N])
+    buf[:, 2 * N:].copy_(hi)
+    return buf
+
+
+def bf16_matmul(A_op, y, passes: int):
+    """A·y for a float32 ``[..., N, Lτ]`` y on CUDA, with A given as its
+    bf16 operand (:func:`_bf16_operand`): ``passes`` bf16 products (3:
+    hi·hi + hi·lo + lo·hi; 1: hi·hi), summed inside one cuBLAS bf16 GEMM
+    over the concatenated inner axis and accumulated and returned in
+    float32 (a bf16 ``torch.matmul`` would round its output to bf16)."""
     N, L = y.shape[-2], y.shape[-1]
     y3 = y.reshape(-1, N, L)
-    A_hi, A_lo = _split_bf16(A)
-    y_hi, y_lo = _split_bf16(y3)
-    if passes == 3:
-        A_cat = torch.cat([A_hi, A_hi, A_lo], dim=1)
-        y_cat = torch.cat([y_hi, y_lo, y_hi], dim=1)
-    else:
-        A_cat, y_cat = A_hi, y_hi
-    out = torch.bmm(A_cat.expand(y3.shape[0], -1, -1), y_cat, out_dtype=torch.float32)
+    out = torch.bmm(A_op.expand(y3.shape[0], -1, -1), _bf16_stack(y3, passes),
+                    out_dtype=torch.float32)
     return out.reshape(y.shape)
 
 
-def _dense(A, y, precision):
-    """A·y over the site axis at ``precision`` (module docstring; the
-    values are checked by ``dynamics.solve.SolverConfig``)."""
-    if (precision in BF16_PASSES and y.is_cuda and y.dtype == torch.float32
-            and A.dtype == torch.float32):
-        return bf16_matmul(A, y, BF16_PASSES[precision])
-    return torch.matmul(A, y)
+def _dense(spec: HolsteinSpec, A, y, precision, adjoint: bool = False):
+    """A·y (A†·y with ``adjoint``) over the site axis at ``precision``
+    (module docstring)."""
+    passes = BF16_PASSES.get(precision)
+    if passes and y.is_cuda and y.dtype == torch.float32 and A.dtype == torch.float32:
+        return bf16_matmul(_bf16_operand(spec, A, passes, adjoint), y, passes)
+    return torch.matmul(A.mH if adjoint else A, y)
 
 
 def apply_expK(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
     """exp(−Δτ·K)·y over the site axis (dense matmul at ``precision``, or
     the checkerboard fold)."""
     if spec.dense_ckb:
-        return _dense(p.expK, _promote(p, y), precision)
+        return _dense(spec, p.expK, _promote(p, y), precision)
     return _fold(spec, p, y, reverse=False)
 
 
@@ -339,7 +363,7 @@ def apply_expK_T(spec: HolsteinSpec, p: HolsteinParams, y, precision=None):
     (the reversed fold of Hermitian bond blocks is the adjoint; the dense
     branch conjugates)."""
     if spec.dense_ckb:
-        return _dense(p.expK.mH, _promote(p, y), precision)
+        return _dense(spec, p.expK, _promote(p, y), precision, adjoint=True)
     return _fold(spec, p, y, reverse=True)
 
 

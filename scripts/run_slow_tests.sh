@@ -33,9 +33,6 @@ declare -a CHUNKS=(
   "tests/test_checkerboard.py tests/test_holstein.py tests/test_ssh.py tests/test_lattice.py tests/test_accum.py tests/test_native.py tests/test_solver_dispatch.py tests/test_complex_hopping.py"
   # 7: complex-hopping measurement surface (~10 min)
   "tests/test_complex_measurements.py"
-  # 8: the PyTorch port's exact-diagonalisation anchors (~12 min with 4
-  # workers, ~30 min in one process)
-  "tests/test_torch_ed_samplers.py tests/test_torch_ed_physics.py tests/test_torch_ed_anchors.py"
 )
 
 check_manifest() {

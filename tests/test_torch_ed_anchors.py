@@ -27,7 +27,12 @@ from elphdynamics_tpu_torch.measure.measurements import MeasurementSpec
 from elphdynamics_tpu_torch.models import holstein as H
 from elphdynamics_tpu_torch.models.adapter import make_model_ops
 
-pytestmark = pytest.mark.slow
+# minutes each on a CPU: they run only when their marker is selected
+# (`pytest -m ed_anchor tests/test_torch_ed_*.py`) and skip otherwise
+pytestmark = [pytest.mark.ed_anchor,
+              pytest.mark.skipif("'ed_anchor' not in config.getoption('markexpr')",
+                                 reason="exact-diagonalisation anchor: select it with "
+                                        "-m ed_anchor")]
 
 
 def test_tempering_rung0_matches_ed():

@@ -16,7 +16,12 @@ from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
 from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
 
-pytestmark = pytest.mark.slow
+# minutes each on a CPU: they run only when their marker is selected
+# (`pytest -m ed_anchor tests/test_torch_ed_*.py`) and skip otherwise
+pytestmark = [pytest.mark.ed_anchor,
+              pytest.mark.skipif("'ed_anchor' not in config.getoption('markexpr')",
+                                 reason="exact-diagonalisation anchor: select it with "
+                                        "-m ed_anchor")]
 
 BETA, OMEGA, LAM, MU = 2.0, 1.0, 1.0, -0.5
 

@@ -183,3 +183,43 @@ def test_bf16x3_arithmetic_error_bound():
     err1 = float((one.double() - exact).abs().max() / scale)
     assert err3 <= 2.0 ** -14, err3
     assert err1 > 2.0 ** -12, err1
+
+
+def test_cheaper_forms_are_loop_precisions():
+    from elphdynamics_tpu_torch.dynamics.solve import LOOP_PRECISIONS
+    assert set(H.BF16_PASSES) <= set(LOOP_PRECISIONS)
+    assert None in LOOP_PRECISIONS and "highest" in LOOP_PRECISIONS
+    assert not {None, "highest"} & set(H.BF16_PASSES)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_bf16_operand_is_split_once_per_matrix(passes, adjoint):
+    """exp(−Δτ·K)'s bf16 operand is [hi | hi | lo] of A (Aᵀ for the
+    adjoint), built on the first apply and reused while A is the matrix."""
+    ops, params = _model(torch.float32)
+    spec, A = ops.spec, params.expK
+    op = H._bf16_operand(spec, A, passes, adjoint)
+    a = A.mT if adjoint else A
+    hi, lo = H._split_bf16(a)
+    want = torch.cat([hi, hi, lo], dim=1) if passes == 3 else hi
+    assert op.dtype == torch.bfloat16 and torch.equal(op, want)
+    assert H._bf16_operand(spec, A, passes, adjoint) is op
+    # hi + lo carries A to bf16×2 precision (16 bits)
+    err = float(((hi.double() + lo.double()) - a.double()).abs().max() / a.abs().max())
+    assert err <= 2.0 ** -16, err
+    # a new matrix (other parameters on the same spec) is split anew
+    B = 2.0 * A
+    opB = H._bf16_operand(spec, B, passes, adjoint)
+    assert opB is not op and torch.equal(opB.float(), 2.0 * op.float())
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_bf16_field_operand_is_hi_lo_hi(passes):
+    """The field's bf16 operand, built in one buffer, is bitwise the
+    concatenation [hi; lo; hi] of its bf16 split (hi for one pass)."""
+    y = torch.randn((4, 16, 10), generator=torch.Generator().manual_seed(2))
+    hi, lo = H._split_bf16(y)
+    want = torch.cat([hi, lo, hi], dim=1) if passes == 3 else hi
+    got = H._bf16_stack(y, passes)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
