@@ -33,9 +33,11 @@ Phases (one line each, and the process exits non-zero if any fails):
 7. a small preconditioner apply (4×4, float64) on the fold branch: K2 on
    the card against its twin on the CPU;
 8. the bench 8×8 configuration (128 chains, dense branch): 1 warm-up and 2
-   timed updates;
+   timed updates, through the graphed update (``dynamics/graphs.py``; the
+   warm-up update captures; its graph replays counted, > 0);
 9. the kernel 64×64 configuration (16 chains, fold branch, N = 4096): 1
-   warm-up and 2 timed updates, with K1's and K2's launch counts; and the
+   warm-up and 2 timed updates through the graphed update, with K1's and
+   K2's launch counts (launches inside the graphs count once per replay); and the
    SSH 64×64 configuration (8 chains): 1 warm-up and 2 timed updates, with
    the launch counts of each kernel mode;
 10. the 64×64 A/B of the two fold-branch Chebyshev recurrences (K2 steps
@@ -44,7 +46,9 @@ Phases (one line each, and the process exits non-zero if any fails):
     holstein_hmc_square.toml`` and ``examples/ssh_hmc_square.toml``, each
     with its counts cut (4×4, dense branch) and at 64×64, β = 4 (4 chains,
     K1 and K2 on the path), each into a temporary directory, with seconds
-    per update and per measurement and the peak device memory;
+    per update and per measurement and the peak device memory; the
+    Holstein runs update through the graphed update (its replays > 0 at
+    64×64);
 12. Langevin dynamics and the other solver kinds, 4×4 float64 on the card
     (K1 forced on, the dense Ā off) against the CPU: one Euler, one
     Runge-Kutta and one Heun step with the same injected draws, Holstein
@@ -195,8 +199,20 @@ Phases (one line each, and the process exits non-zero if any fails):
     driver run's model, 4 chains, one leapfrog step): H at the start within
     u·(|S| + K) per chain, ΔH within twice that.
 
-Phase 31 runs after 13, 32 after 19, 33, 35 and 34 after 22; phases 24–30
-run before 23, which comes last.
+36. the graphed update (``dynamics/graphs.py``: the one-rank Holstein
+    leapfrog CG update captured as CUDA graphs, replayed) against the eager
+    update, asked for by name, at bench 8×8, 32×32 and ``KERNEL_64X64`` (K1
+    and K2 inside the graphs): at 8×8 and 64×64 two updates each way on
+    the same draws from the same state, bit for bit or x within
+    ``GRAPH_X_REL_TOL`` and ΔH within 2u·(|S| + K), equal decisions, flags
+    and iterations, and on the second update equal K1 / K2 launches by form
+    and equal host reads; the graphs, capture seconds, pool bytes and
+    replays per update; the graphed update's busy share (its replays' CUDA
+    event spans over wall time); sweeps/s of each in ``GRAPH_AB_BLOCKS``
+    interleaved blocks (median, IQR; ``chiprun_out/graphed_update.json``).
+
+Phase 36 runs after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
+phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -913,19 +929,20 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
             exchanges.append((rate, flag))
         return state_, stats_
 
-    for n in range(1, warmup + 1):
-        state, stats = update(n)
-    torch.cuda.synchronize()
-    acc, iters, flags, dHs = [], [], [], []
-    t0 = time.perf_counter()
-    for n in range(warmup + 1, warmup + timed + 1):
-        state, stats = update(n)
-        acc.append(stats.accepted)
-        iters.append(stats.iters)
-        flags.append(stats.flag)
-        dHs.append(stats.delta_H)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with counting_replays() as replays:
+        for n in range(1, warmup + 1):
+            state, stats = update(n)
+        torch.cuda.synchronize()
+        acc, iters, flags, dHs = [], [], [], []
+        t0 = time.perf_counter()
+        for n in range(warmup + 1, warmup + timed + 1):
+            state, stats = update(n)
+            acc.append(stats.accepted)
+            iters.append(stats.iters)
+            flags.append(stats.flag)
+            dHs.append(stats.delta_H)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
     by_table = dict(ckb_cuda.table_launches)
     acc, iters, flags, dHs = (torch.stack(a).cpu() for a in (acc, iters, flags, dHs))
@@ -935,7 +952,7 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
                max_flag=int(flags.max()), dH_finite=bool(torch.isfinite(dHs).all()),
                max_abs_dH=dHs.abs().max().item(), kernel_launches=launches,
                fused_kernel_launches=fused_launches, table_launches=by_table,
-               build_s=build_s, seconds=elapsed,
+               build_s=build_s, seconds=elapsed, graph_replays=replays["n"],
                x_shape=tuple(state.x.shape), x_finite=bool(torch.isfinite(state.x).all()))
     if exchanges:
         out.update(exchanges=len(exchanges),
@@ -949,6 +966,10 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     shape = (cfg.n_chains, b.ops.Nph, round(cfg.beta / cfg.dtau))
     if not (out["x_finite"] and out["dH_finite"] and out["x_shape"] == shape):
         raise RuntimeError(f"{cfg.name}: non-finite or misshapen output")
+    # a real field of a graphed configuration must have replayed graphs
+    # (complex hopping runs the eager update)
+    if getattr(b.step, "segmented", False) and cfg.twist is None and replays["n"] <= 0:
+        raise RuntimeError(f"{cfg.name}: the graphed update replayed no graph")
     return out
 
 
@@ -971,10 +992,11 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()
         f.write(dump_toml(cfg))
     torch.cuda.reset_peak_memory_stats()
     ckb_cuda.reset_counts()
-    t0 = time.perf_counter()
-    stats = simulate(path, n_chains=n_chains, device="cuda", dtype=torch.float32)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting_replays() as replays:
+        t0 = time.perf_counter()
+        stats = simulate(path, n_chains=n_chains, device="cuda", dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches, fused_launches = ckb_cuda.launches, ckb_cuda.fused_launches
     by_table, shapes = dict(ckb_cuda.table_launches), set(ckb_cuda.launch_shapes)
     sp = cfg["simulation"]
@@ -1023,7 +1045,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                **{k: stats[k] for k in ("tuned_dt", "tempering_acceptance_rate") if k in stats},
                kernel_launches=launches, fused_kernel_launches=fused_launches,
-               table_launches=by_table,
+               table_launches=by_table, graph_replays=replays["n"],
                sections_ok=(all(f"## {x} ##" in summary for x in sections)
                             and (not ssh or "sign_switch 1 = " in summary)),
                bins_finite=finite)
@@ -1069,6 +1091,8 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
     if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
         raise RuntimeError(f"the 64x64 {name} driver run launched a kernel no time: "
                            f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
+    if model == "holstein" and out["graph_replays"] <= 0:
+        raise RuntimeError("the 64x64 Holstein driver run replayed no CUDA graph")
     return out
 
 
@@ -2804,6 +2828,193 @@ def phase_ed_float32() -> None:
         raise RuntimeError("the float32 single-site run left its ED tolerance or drifted")
 
 
+# phase 36: the graphed update against the eager one
+U_F32 = 2.0 ** -24                # float32 unit roundoff
+GRAPH_X_REL_TOL = 1e-6            # x, relative, where the two paths' bits differ
+GRAPH_AB_BLOCKS = 5               # interleaved blocks of each form per configuration
+GRAPH_AB_UPDATES = {"bench_8x8": 2, "bench_32x32": 2, "kernel_64x64": 1}
+
+
+@contextlib.contextmanager
+def counting_replays(timed: bool = False):
+    """Count the CUDA graph replays of every graphed update inside the
+    block (``box["n"]``); ``timed``: also each replay's CUDA events
+    (``box["spans"]``)."""
+    from elphdynamics_tpu_torch.dynamics import graphs
+
+    box = {"n": 0, "spans": []}
+    replay = graphs.UpdateGraphs.replay
+
+    def counted(self, name):
+        box["n"] += 1
+        if not timed:
+            return replay(self, name)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(self, name)
+        b.record()
+        box["spans"].append((a, b))
+
+    graphs.UpdateGraphs.replay = counted
+    try:
+        yield box
+    finally:
+        graphs.UpdateGraphs.replay = replay
+
+
+def _eager_twin(b):
+    """The eager update of bench step ``b``'s model, asked for by name: its
+    own preconditioner (the same fixed start vectors), the model's spec and
+    so the kernels' tuned geometries shared."""
+    from elphdynamics_tpu_torch.dynamics.hmc import make_hmc_step
+    from elphdynamics_tpu_torch.ops import kpm
+
+    return make_hmc_step(b.ops, b.mass, b.hmc_cfg, kpm.make_precond(b.ops, b.kpm_cfg),
+                         eager=True)
+
+
+def _counted_update(step, params, state, draws):
+    """One update on ``draws``, every count set to 0 just before and read
+    just after: (state, stats, {seconds, K1/K2 launches by form, host
+    reads, graph replays})."""
+    from elphdynamics_tpu_torch import solvers
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    torch.cuda.synchronize()
+    ckb_cuda.reset_counts()
+    solvers.host_reads = 0
+    with counting_replays() as box:
+        t0 = time.perf_counter()
+        out, stats = step(params, state, draws=draws)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, stats, dict(seconds=seconds, launches=dict(ckb_cuda.table_launches),
+                            host_reads=solvers.host_reads, replays=box["n"])
+
+
+def _replay_busy_share(step, params, state, draws) -> dict:
+    """The device's busy share of one graphed update: the summed CUDA-event
+    spans of its graph replays over its wall time (the eager update's, and
+    both under ``torch.profiler``: ``scripts/profile_torch_hmc.py``)."""
+    torch.cuda.synchronize()
+    with counting_replays(timed=True) as box:
+        t0 = time.perf_counter()
+        step(params, state, draws=draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    span = sum(a.elapsed_time(b) for a, b in box["spans"]) / 1e3
+    return dict(replay_span_s=span, wall_s=wall, replay_busy_share=span / wall)
+
+
+def _graph_parity(b, eager, name: str) -> dict:
+    """Two updates of ``b``'s graphed step and of its eager twin on the same
+    draws from the same state: bit for bit, or x within ``GRAPH_X_REL_TOL``
+    and ΔH within 2·u·(|S| + K), with equal decisions, flags and
+    iterations; on the second update (the first captures) equal K1 / K2
+    launches by form and equal host reads."""
+    state, out = b.state, {}
+    for u in (1, 2):
+        draws = eager.draw(b.params, state.x, b.state.x.shape[0], b.generator)
+        sg, tg, mg = _counted_update(b.step, b.params, state, draws)
+        se, te, me = _counted_update(eager, b.params, state, draws)
+        bitwise = all(torch.equal(p, q) for p, q in ((sg.x, se.x), (sg.v, se.v),
+                                                    (tg.delta_H, te.delta_H)))
+        x_rel = float((sg.x - se.x).abs().max() / se.x.abs().max())
+        dH_gate = 2 * U_F32 * (te.S.abs() + te.K.abs())
+        dH_ok = bool(((tg.delta_H - te.delta_H).abs() <= dH_gate).all())
+        same = all(torch.equal(p, q) for p, q in ((tg.accepted, te.accepted),
+                                                  (tg.iters, te.iters), (tg.flag, te.flag)))
+        row = dict(bitwise=bitwise, x_rel=f"{x_rel:.3e}", dH_within_gate=dH_ok,
+                   decisions_iters_flags_equal=same, graphed_s=f"{mg['seconds']:.4f}",
+                   eager_s=f"{me['seconds']:.4f}", replays=mg["replays"],
+                   host_reads_graphed=mg["host_reads"], host_reads_eager=me["host_reads"],
+                   k1_graphed=mg["launches"]["fold/shared"], k1_eager=me["launches"]["fold/shared"],
+                   k2_graphed=mg["launches"]["fused/shared"],
+                   k2_eager=me["launches"]["fused/shared"],
+                   acceptance=f"{tg.accepted.double().mean().item():.4f}",
+                   cg_iters=f"{tg.iters.double().mean().item():.2f}")
+        if u == 1:
+            ws = b.step.workspace()
+            row.update(graphs=len(ws.graphs.graphs), capture_s=f"{ws.graphs.capture_s:.3f}",
+                       pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}")
+        say(f"graph_parity_{name}", update=u, **row)
+        if not (bitwise or (x_rel <= GRAPH_X_REL_TOL and dH_ok)) or not same:
+            raise RuntimeError(f"graphed {name} update {u} left the eager one: {row}")
+        if u == 2 and (mg["launches"] != me["launches"] or mg["host_reads"] != me["host_reads"]
+                       or mg["replays"] <= 0):
+            raise RuntimeError(f"graphed {name}: launches, host reads or replays differ: {row}")
+        out[u] = row
+        state = se
+    return out
+
+
+def _sweeps_ab(b, eager, name: str, n_chains: int) -> dict:
+    """Sweeps per second of the eager and the graphed update in
+    ``GRAPH_AB_BLOCKS`` interleaved blocks each (E G G E ...), every block
+    ``GRAPH_AB_UPDATES[name]`` updates from one start on one seed: medians,
+    quartiles and IQRs."""
+    updates = GRAPH_AB_UPDATES[name]
+    start = b.state
+    rates = {"eager": [], "graphed": []}
+    order = [("eager", "graphed")[(i // 2 + i) % 2] for i in range(2 * GRAPH_AB_BLOCKS)]
+    for form in order:
+        step = b.step if form == "graphed" else eager
+        g = torch.Generator(device="cuda").manual_seed(17)
+        state = start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(updates):
+            state, _ = step(b.params, state, g)
+        torch.cuda.synchronize()
+        rates[form].append(n_chains * updates / (time.perf_counter() - t0))
+    out = {}
+    for form, r in rates.items():
+        q1, med, q3 = statistics.quantiles(r, n=4, method="inclusive")
+        out[form] = dict(median=med, q1=q1, q3=q3, iqr=q3 - q1, blocks=[round(x, 4) for x in r])
+    out["speedup_median"] = out["graphed"]["median"] / out["eager"]["median"]
+    return out
+
+
+def phase_graphed_update() -> dict:
+    """36. The graphed update (``dynamics/graphs.py``) against the eager
+    one at bench 8×8 (dense branch), 32×32 (dense) and ``KERNEL_64X64`` (the
+    fold branch: K1 and K2 inside the graphs): two updates each way on the
+    same draws (:func:`_graph_parity`; 8×8 and 64×64), the graphed update's
+    busy share (:func:`_replay_busy_share`), and sweeps/s in interleaved
+    blocks (:func:`_sweeps_ab`)."""
+    from elphdynamics_tpu_torch.bench import BENCH_8X8, BENCH_32X32, KERNEL_64X64, build
+
+    out = {}
+    for cfg in (BENCH_8X8, BENCH_32X32, KERNEL_64X64):
+        b = build(cfg, "cuda", torch.float32)
+        eager = _eager_twin(b)
+        if not b.step.segmented or eager.segmented:
+            raise RuntimeError(f"{cfg.name}: the bench step is not the graphed update")
+        res = out[cfg.name] = {}
+        if cfg is not BENCH_32X32:
+            res["parity"] = _graph_parity(b, eager, cfg.name)
+        else:
+            b.step(b.params, b.state, b.generator)    # warm-up and capture
+            eager(b.params, b.state, b.generator)
+        draws = eager.draw(b.params, b.state.x, cfg.n_chains,
+                           torch.Generator(device="cuda").manual_seed(5))
+        res["busy_graphed"] = _replay_busy_share(b.step, b.params, b.state, draws)
+        res["ab"] = _sweeps_ab(b, eager, cfg.name, cfg.n_chains)
+        ab = res["ab"]
+        say(f"graph_ab_{cfg.name}", chains=cfg.n_chains, blocks=GRAPH_AB_BLOCKS,
+            updates_per_block=GRAPH_AB_UPDATES[cfg.name],
+            eager_median=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
+            graphed_median=f"{ab['graphed']['median']:.4f}",
+            graphed_iqr=f"{ab['graphed']['iqr']:.4f}",
+            speedup_median=f"{ab['speedup_median']:.3f}",
+            eager_blocks=ab["eager"]["blocks"], graphed_blocks=ab["graphed"]["blocks"],
+            graphed_replay_busy=f"{res['busy_graphed']['replay_busy_share']:.4f}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "graphed_update.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2847,6 +3058,7 @@ def main() -> int:
         if big["max_flag"] != 0 or big["acceptance"] <= 0:
             raise RuntimeError(f"{cfg.name}: flag {big['max_flag']}, "
                                f"acceptance {big['acceptance']}")
+    phase_graphed_update()
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
@@ -2880,7 +3092,8 @@ def main() -> int:
         raise RuntimeError(f"the 64x64 SSH driver run launched these kernel modes no time: {idle}")
     if not all(math.isfinite(k["ms"]) for k in (kern, fused, *tables.values(), *ctables.values())):
         raise RuntimeError("kernel timing missing")
-    holstein_paths = {"hmc_driver_64x64": drv, "langevin_driver_64x64": drv_lang,
+    holstein_paths = {KERNEL_64X64.name: runs[KERNEL_64X64.name],
+                      "hmc_driver_64x64": drv, "langevin_driver_64x64": drv_lang,
                       LANGEVIN_64X64.name: lang, KERNEL_2MN_64X64.name: runs[KERNEL_2MN_64X64.name],
                       TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep,
                       "chain_sharded_64x64": chains}

@@ -5,10 +5,12 @@ update; and one Langevin time step of either model.
 Model: square lattice, t = 1 on both bonds, ω = 1, λ = 1, μ = 0; Fourier
 mass block ω ∈ (0, 10) with m = 0.5; HMC with trajectory time 1, Nb = 4,
 tol 1e-5, maxiter 500, cubic warm starts; symmetric KPM at max_order 4;
-half-filled initial phonons. Two configurations use it:
+half-filled initial phonons. Three configurations use it:
 
 * ``BENCH_8X8``: 8×8, β = 4, Δτ = 0.1 (Lτ = 40), dt = 0.05, 128 chains —
   the dense branch (no kernel);
+* ``BENCH_32X32``: the same at 32×32 (N = 1024), 32 chains, the second
+  row of the JAX package's ``bench.py`` — the dense branch;
 * ``KERNEL_64X64``: 64×64 (N = 4096), β = 4, Δτ = 0.1, dt = 0.025, 16
   chains — the checkerboard-fold branch, which runs the CUDA kernel on a
   card for both exp(−Δτ·K) and the KPM Ā.
@@ -104,6 +106,7 @@ class BenchConfig:
 
 
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
+BENCH_32X32 = BenchConfig("bench_32x32", L=32, beta=4.0, dtau=0.1, dt=0.05, n_chains=32)
 KERNEL_64X64 = BenchConfig("kernel_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=16)
 SSH_64X64 = BenchConfig("ssh_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=8,
                         model="ssh")
@@ -161,7 +164,8 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     KPM-preconditioned HMC step (``integrator``) and a half-filled initial
     state of ``n_chains`` chains on ``device`` (the card unless the caller
     asks for the CPU); with a ``ladder``, per-chain couplings and the
-    tempering exchange."""
+    tempering exchange. Without a ladder, the leapfrog step of a real field
+    replays CUDA graphs on the card (``dynamics/graphs.py``)."""
     device = require_device(device)
     spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
                                    pallas_threshold, twist)
@@ -241,7 +245,8 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_o
                     maxiter=500, construct_guess=True, guess_order=3, integrator=integrator)
     kcfg = kpm.KPMConfig(max_order=max_order)
     precond = kpm.make_precond(ops, kcfg)
-    step = make_hmc_step(ops, mass, cfg, precond)
+    # tempering keeps the eager update (dynamics/graphs.py covers the rest)
+    step = make_hmc_step(ops, mass, cfg, precond, eager=ladder is not None)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = init_phonons_half_filled(ops, params, n_chains, gen)
     exchange = None
@@ -273,7 +278,7 @@ def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
         if ops.is_holstein:
             x, v = shard.local(x), shard.local(v)
     precond = kpm.make_precond(ops, b.kpm_cfg)
-    step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond)
+    step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond, eager=True)
     exchange = None
     if b.tcfg is not None:
         exchange = make_exchange_step(ops, b.tcfg, b.state.x.shape[0], precond, chains=chains)

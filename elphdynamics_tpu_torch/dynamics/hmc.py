@@ -34,6 +34,20 @@ carry each trajectory step's energies. ``dynamic_dt`` makes the step size
 an argument (a 0-dim tensor on the device, the trajectory length Nt fixed
 from ``cfg``), so the burn-in tuner (:func:`dt_tuner_update`, Nesterov dual
 averaging toward ``target_acceptance``) changes it with no host read.
+
+The one-rank Holstein leapfrog update with CG of a real field is a fixed
+sequence of segments over one workspace (:mod:`.graphs`): the start
+(momenta, φ, the KPM setup, the tol² solve's start), a block of
+``solvers.CG_SYNC_EVERY`` masked CG iterations, the verification, a
+leapfrog step from a solved z to the next solve's start, the end (ΔH, the
+Metropolis test, the masked state update). On a CUDA field each segment is
+captured once as a CUDA graph and replayed; the host keeps the loop
+control (CG's ``any(active)`` before a block, the verification's
+``any(bad)`` and its rare retry, run eagerly). On the CPU the segments run
+directly, doing the eager update's arithmetic in its order. Every other
+configuration (SSH, 2MN, block CG, deflation, BiCGStab / GMRES, complex
+hopping, a site shard), and a caller that asks for it by name
+(``eager=True``), runs the eager update.
 """
 
 from __future__ import annotations
@@ -44,8 +58,11 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from elphdynamics_tpu_torch import solvers
+from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.solve import (
-    SolverConfig, precond_applies, precond_state, resolve_precond, site_reduce, solve_oinv)
+    SolverConfig, _cg_operators, precond_applies, precond_state, resolve_precond, site_reduce,
+    solve_oinv)
 from elphdynamics_tpu_torch.models.adapter import (
     ModelOps, force_sum, global_phonons, global_sites, local_phonons, local_sites,
     phonon_sum, site_sum)
@@ -202,7 +219,7 @@ def zhist_push(hist, z, ok):
 
 
 def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
-                  dynamic_dt: bool = False):
+                  dynamic_dt: bool = False, eager: bool = False):
     """Build the update ``step(params, state, generator=None, draws=None)
     -> (state, stats)``; with ``dynamic_dt`` the update
     ``step(params, state, dt, generator=None, draws=None)``, ``dt`` a 0-dim
@@ -221,6 +238,14 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     refresh before every solve). With ``cfg.deflate_k > 0`` the state
     carries a deflation basis (:func:`init_deflation`), refreshed once per
     update at the starting field and used by every solve of the update.
+
+    ``eager`` asks for the eager update where the graphed one (module
+    docstring) would run. ``step.segmented`` says whether the configuration
+    takes the graphed update on a real field (complex hopping parameters
+    take the eager one); ``step.workspace()`` is its
+    :class:`.graphs.Workspace` (None before the first call), whose
+    ``graphs`` (a CUDA field) count replays, capture seconds and pool bytes
+    and whose ``retries`` count the verifications' retries.
     """
     cfg.check()
     if ops.shard is not None and cfg.integrator != "leapfrog":
@@ -302,6 +327,18 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             v = v - dt_b / 2 * QdSb
         return x, v
 
+    def accel(like):
+        """The Fourier acceleration M⁻¹·a (in float64, returned in a's dtype)."""
+        mop = mass(like)
+        return lambda a: mop.apply(a.double(), -1.0).to(a.dtype)
+
+    def drift(params, qf, x, v, h):
+        """Position update over ``h``: a plain drift (Nb = 1) or Nb bosonic
+        substeps of h/Nb."""
+        if cfg.Nb == 1:
+            return x + h * v, v
+        return boson_substeps(params, x, v, qf, h / cfg.Nb)
+
     def refresh_deflation(params, state, derived0, pstate, fdtype):
         """The basis refined at the update's starting field (kept on reject
         too: it only steers solver starts)."""
@@ -330,10 +367,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         if draws is None:
             draws = draw(ops, x0.shape[0], x0.dtype, x0.device, generator, fdtype)
         mop = mass(x0)
-
-        def qf(a):
-            return mop.apply(a.double(), -1.0).to(a.dtype)
-
+        qf = accel(x0)
         R = ops.tie(draws.momentum.to(x0)).double()
         v0 = (cfg.alpha * v_in.double()
               + math.sqrt(1.0 - cfg.alpha ** 2) * mop.apply(R, -0.5)).to(x0.dtype)
@@ -350,13 +384,6 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         z0, iters, flag = solve_O(params, x0, derived0, Lphi0, tol2, pstate, defl=defl)
         H0 = calc_S(params, x0, Lphi0, z0) + calc_K(v0)
         QdSdx = qf(forces(params, x0, derived0, phi, z0))
-
-        def drift(x, v, h):
-            """Position update over ``h``: a plain drift (Nb = 1) or Nb
-            bosonic substeps of h/Nb."""
-            if cfg.Nb == 1:
-                return x + h * v, v
-            return boson_substeps(params, x, v, qf, h / cfg.Nb)
 
         def force_at(x, guess):
             """The tol¹ solve at ``x`` (warm-started from ``guess``) and the
@@ -376,18 +403,18 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
                 # as the leapfrog carries QdSdx; the two solves sit dt/2 apart,
                 # so the warm-start extrapolation applies unchanged
                 v1 = v - LAM_2MN * dt * QdSdx
-                x1, v1 = drift(x, v1, dt / 2)
+                x1, v1 = drift(params, qf, x, v1, dt / 2)
                 Qd_m, z_m, it_m, fl_m, _ = force_at(x1, zhist_guess(hist, g_ord))
                 hist = zhist_push(hist, z_m, ok)
                 v1 = v1 - (1.0 - 2.0 * LAM_2MN) * dt * Qd_m
-                x1, v1 = drift(x1, v1, dt / 2)
+                x1, v1 = drift(params, qf, x1, v1, dt / 2)
                 Qd1, z1, it_e, fl_e, Lphi1 = force_at(x1, zhist_guess(hist, g_ord))
                 hist = zhist_push(hist, z1, ok)
                 v1 = v1 - LAM_2MN * dt * Qd1
                 it1, fl1 = it_m + it_e, torch.maximum(fl_m, fl_e)
             else:
                 v1 = v - dt / 2 * QdSdx
-                x1, v1 = drift(x, v1, dt)
+                x1, v1 = drift(params, qf, x, v1, dt)
                 Qd1, z1, it1, fl1, Lphi1 = force_at(x1, zhist_guess(hist, g_ord))
                 v1 = v1 - dt / 2 * Qd1
                 hist = zhist_push(hist, z1, ok)
@@ -428,6 +455,291 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
+    # --- the graphed update: the leapfrog CG update of a real one-rank
+    # Holstein field as a fixed sequence of segments over one workspace
+    # (dynamics/graphs.py), replayed as CUDA graphs on a CUDA field and
+    # called directly on the CPU. Each segment does the eager update's
+    # arithmetic in the eager update's order.
+    segmented = (not eager and ops.shard is None and ops.is_holstein
+                 and cfg.integrator == "leapfrog" and cfg.solver_kind == "cg" and not cfg.block
+                 and cfg.deflate_k <= 0
+                 and (precond is None or (precond.cfg is not None
+                                          and precond.cfg.exact_lowfreq == 0)))
+    box: dict = {}
+
+    def operators(ws, tol):
+        """(in-loop, verification) MᵀM of a solve at ``tol`` on the
+        workspace's field (dynamics/solve._cg_operators)."""
+        return _cg_operators(ops, ws.params, ops.stack(ws.env),
+                             SolverConfig(tol=tol, loop_precision=cfg.loop_precision))
+
+    def block_kind(tol) -> str:
+        """The CG block graph of a solve at ``tol``: one graph serves every
+        solve whose in-loop operator is the full one."""
+        loop = _cg_operators(ops, None, None, SolverConfig(
+            tol=tol, loop_precision=cfg.loop_precision))[1] is not None
+        return "cg_block_loop" if loop else "cg_block"
+
+    def check_op(ws):
+        """The verification's (and the retry's) operator: the full MᵀM."""
+        hot, chk = operators(ws, tol1)
+        return chk if chk is not None else hot
+
+    def P(ws):
+        return precond_applies(precond, ws.kpm).symmetric if precond is not None else None
+
+    def chain_result(ws):
+        """The finished solve's per-chain iterations and flag."""
+        ns = ws.cg.iters.shape[1]
+        return (ws.cg.iters.sum(dim=1) + ns - 1) // ns, ws.verdict.flag.amax(dim=1)
+
+    def hist(ws):
+        return tuple(getattr(ws, f"hist{i}") for i in range(zhist_size(g_ord)))
+
+    def step_dt(ws):
+        return ws.dt if dynamic_dt else cfg.dt
+
+    def solve_setup(ws, x, guess, tol):
+        """Refresh the preconditioner at ``x`` and start the solve of
+        MᵀM·z = ws.Lphi at ``tol`` (ws.env holds the field's derived state)."""
+        if precond is not None:
+            ws.load("kpm", precond.refresh(ws.kpm, ws.params, x))
+        ws.tol.fill_(tol)
+        st = solvers.cg_init(operators(ws, tol)[0], ws.Lphi, guess if use_g else None,
+                             apply_P=P(ws), tol=ws.tol)
+        if "cg" in ws:
+            ws.cg.load_(st)
+        else:
+            ws.keep("cg", st.clone())
+
+    def seg_cg_block(ws, tol):
+        solvers.cg_block(operators(ws, tol)[0], ws.cg, apply_P=P(ws), tol=ws.tol,
+                         maxiter=cfg.maxiter, kappa_max=cfg.kappa_max)
+
+    def seg_verify(ws):
+        ws.load("verdict", solvers.cg_verify(check_op(ws), ws.Lphi, ws.cg.x, ws.cg.iters,
+                                             ws.tol, cfg.maxiter))
+
+    def retry(ws):
+        """The verification's retry, eager (it runs only when a system
+        failed), through the same kernels; its result goes into the
+        workspace."""
+        res = solvers.cg_retry(check_op(ws), ws.Lphi, ws.cg.x, ws.cg.iters, ws.verdict, ws.tol,
+                               cfg.maxiter, cfg.kappa_max)
+        ws.cg.x.copy_(res.x)
+        ws.cg.iters.copy_(res.iters)
+        ws.verdict.flag.copy_(res.flag)
+        ws.verdict.residual.copy_(res.residual)
+        ws.retries += 1
+
+    def seg_start(ws):
+        """Momenta, φ = Λ⁻¹·MᵀR, the KPM setup and the tol² solve's start."""
+        p, x0 = ws.params, ws.x0
+        mop = mass(x0)
+        R = ops.tie(ws.momentum.to(x0)).double()
+        ws.put("v0", (cfg.alpha * ws.v_in.double()
+                      + math.sqrt(1.0 - cfg.alpha ** 2) * mop.apply(R, -0.5)).to(x0.dtype))
+        derived0 = ws.put("env", ops.derived(p, x0))
+        MtR = ops.mulMT(p, ops.stack(derived0), ws.pseudofermion.to(x0.device))
+        phi = ws.put("phi", ops.mulLambdaInv(ops.calc_Lambda(p, x0)[:, None], MtR)
+                     if has_lambda else MtR)
+        if precond is not None:
+            ws.load("kpm", precond.setup(p, x0, ws.kpm_start))
+        ws.put("Lphi", lam_phi(p, x0, phi))
+        solve_setup(ws, x0, None, tol2)
+
+    def pre_step(ws):
+        """A leapfrog step up to its solve's start: the half kick, the drift,
+        the derived state and Λφ at the new field, the warm-start guess."""
+        p, dt = ws.params, step_dt(ws)
+        ws.put("ok", ws.flag == 0)
+        v1 = ws.v - dt / 2 * ws.QdSdx
+        x1, v1 = drift(p, accel(ws.x0), ws.x, v1, dt)
+        ws.put("x1", x1)
+        ws.put("v1", v1)
+        ws.put("env", ops.derived(p, x1))
+        ws.put("Lphi", lam_phi(p, x1, ws.phi))
+        solve_setup(ws, ws.x1, zhist_guess(hist(ws), g_ord), tol1)
+
+    def post_step(ws):
+        """A leapfrog step from its solved z: the force, the half kick, the
+        warm-start history and the masked commit."""
+        p, dt = ws.params, step_dt(ws)
+        z1 = ws.cg.x
+        it1, fl1 = chain_result(ws)
+        Qd1 = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z1))
+        v1 = ws.v1 - dt / 2 * Qd1
+        for i, h in enumerate(zhist_push(hist(ws), z1, ws.ok)):
+            ws.put(f"hist{i}", h)
+        okb = ws.ok[:, None, None]
+        ws.put("x", torch.where(okb, ws.x1, ws.x))
+        ws.put("v", torch.where(okb, v1, ws.v))
+        ws.put("QdSdx", torch.where(okb, Qd1, ws.QdSdx))
+        ws.put("iters", ws.iters + torch.where(ws.ok, it1, torch.zeros_like(it1)))
+        ws.put("flag", torch.maximum(ws.flag, torch.where(ws.ok, fl1, torch.zeros_like(fl1))))
+        if cfg.log_verbose:
+            S_t, K_t = calc_S(p, ws.x, ws.Lphi, z1), calc_K(ws.v)
+            for name, col in (("traj_H", S_t + K_t), ("traj_S", S_t), ("traj_K", K_t),
+                              ("traj_iters", it1)):
+                if name not in ws:
+                    ws.put(name, torch.zeros(col.shape + (cfg.Nt,), dtype=col.dtype,
+                                             device=col.device))
+                getattr(ws, name).index_copy_(1, ws.k, col[:, None])
+            ws.k.add_(1)
+
+    def seg_first(ws):
+        """After the tol² start solve: H₀, the first force, the history; then
+        the first step up to its solve."""
+        p, x0 = ws.params, ws.x0
+        z0 = ws.cg.x
+        it, fl = chain_result(ws)
+        ws.put("iters", it)
+        ws.put("flag", fl)
+        ws.put("H0", calc_S(p, x0, ws.Lphi, z0) + calc_K(ws.v0))
+        ws.put("QdSdx", accel(x0)(forces(p, x0, ws.env, ws.phi, z0)))
+        ws.put("x", x0)
+        ws.put("v", ws.v0)
+        for i in range(zhist_size(g_ord)):
+            ws.put(f"hist{i}", z0)
+        if cfg.log_verbose:
+            ws.k.zero_()
+        pre_step(ws)
+
+    def seg_step(ws):
+        post_step(ws)
+        pre_step(ws)
+
+    def seg_last(ws):
+        """After the last step's solve: its commit, then the tol² end solve's
+        start at the final field."""
+        post_step(ws)
+        p = ws.params
+        ws.put("env", ops.derived(p, ws.x))
+        ws.put("Lphi", lam_phi(p, ws.x, ws.phi))
+        solve_setup(ws, ws.x, zhist_last(hist(ws)), tol2)
+
+    def seg_end(ws):
+        """ΔH, the Metropolis test and the masked state update."""
+        p = ws.params
+        z1 = ws.cg.x
+        it2, fl2 = chain_result(ws)
+        iters = ws.iters + it2
+        flag = torch.maximum(ws.flag, fl2)
+        S1 = calc_S(p, ws.x, ws.Lphi, z1)
+        K1 = calc_K(ws.v)
+        H1 = S1 + K1
+        dH = H1 - ws.H0
+        Pacc = torch.minimum(torch.ones_like(dH), torch.exp(-dH))
+        accept = (ws.uniform.to(Pacc) < Pacc) & (flag == 0)
+        acc = accept[:, None, None]
+        nsolves = cfg.Nt + 2
+        for name, val in (("out_x", torch.where(acc, ws.x, ws.x0)),
+                          ("out_v", torch.where(acc, ws.v, -ws.v0)), ("accepted", accept),
+                          ("mean_iters", (iters + nsolves // 2) // nsolves),
+                          ("out_flag", flag), ("delta_H", dH), ("H1", H1), ("S1", S1),
+                          ("K1", K1)):
+            ws.put(name, val)
+
+    def segments(ws):
+        """Every segment once, in the order of a first update whose solves
+        each stop after one CG block (the warm-up and the capture order)."""
+        k1, k2 = block_kind(tol1), block_kind(tol2)
+        seq = [("start", lambda: seg_start(ws)),
+               (k2, lambda: seg_cg_block(ws, tol2)), ("verify", lambda: seg_verify(ws)),
+               ("first", lambda: seg_first(ws)),
+               (k1, lambda: seg_cg_block(ws, tol1)), ("verify", lambda: seg_verify(ws))]
+        if cfg.Nt > 1:
+            seq += [("step", lambda: seg_step(ws)), (k1, lambda: seg_cg_block(ws, tol1)),
+                    ("verify", lambda: seg_verify(ws))]
+        return seq + [("last", lambda: seg_last(ws)), (k2, lambda: seg_cg_block(ws, tol2)),
+                      ("verify", lambda: seg_verify(ws)), ("end", lambda: seg_end(ws))]
+
+    def workspace(params, x):
+        """The workspace of ``x``'s device, dtype and shape, its parameters
+        brought to ``params``; a new one (new graphs) where those differ or
+        where exp(−Δτ·K), whose bf16 operand a graph holds, changed."""
+        ws = box.get("ws")
+        key = (x.device, x.dtype, tuple(x.shape))
+        if ws is not None and ws.key == key and ws.keep_params(params, ("expK", "expK_inv")):
+            return ws
+        ws = box["ws"] = graphs.Workspace(x.device)
+        ws.key = key
+        ws.keep_params(params)
+        ws.graphs = graphs.UpdateGraphs(x.device) if x.device.type == "cuda" else None
+        ws.retries = 0
+        ws.put("tol", torch.zeros((), dtype=torch.float64, device=x.device))
+        ws.put("k", torch.zeros(1, dtype=torch.int64, device=x.device))
+        if precond is not None:
+            ws.start_src = None
+        return ws
+
+    def graphed(params, state: HMCState, dt, generator, draws):
+        x = state.x
+        if x.ndim != 3:
+            raise ValueError(f"state.x must be [C, Nph, Ltau], got {tuple(x.shape)}")
+        if draws is None:
+            draws = draw(ops, x.shape[0], x.dtype, x.device, generator, x.dtype)
+        ws = workspace(params, x)
+        dev = x.device
+        ws.put("x0", x)
+        ws.put("v_in", state.v)
+        ws.put("momentum", draws.momentum.to(x))
+        ws.put("pseudofermion", draws.pseudofermion.to(dev))
+        ws.put("uniform", draws.uniform.to(device=dev, dtype=torch.float64))
+        if dynamic_dt:
+            ws.put("dt", (dt if torch.is_tensor(dt) else torch.tensor(dt, dtype=torch.float64))
+                   .to(dev))
+        if precond is not None:
+            src = draws.kpm_start if draws.kpm_start is not None else precond.start
+            if ws.start_src is not src:
+                ws.kpm_start = tuple(ws.put(f"kpm_start{i}", s.to(dev)) for i, s in enumerate(src))
+                ws.start_src = src
+        if ws.graphs is not None and not ws.graphs.graphs:
+            seq = segments(ws)
+            ws.graphs.warm_up(seq)
+            ws.graphs.capture(seq)
+
+        def run(name, fn):
+            if ws.graphs is None:
+                fn()
+            else:
+                ws.graphs.replay(name)
+
+        def solve(tol):
+            j = 0
+            while j < cfg.maxiter and solvers.host_any(ws.cg.active):
+                run(block_kind(tol), lambda: seg_cg_block(ws, tol))
+                j += solvers.CG_SYNC_EVERY
+            run("verify", lambda: seg_verify(ws))
+            if precond is not None and solvers.host_any(ws.verdict.bad):
+                retry(ws)
+
+        run("start", lambda: seg_start(ws))
+        solve(tol2)
+        run("first", lambda: seg_first(ws))
+        for _ in range(cfg.Nt - 1):
+            solve(tol1)
+            run("step", lambda: seg_step(ws))
+        solve(tol1)
+        run("last", lambda: seg_last(ws))
+        solve(tol2)
+        run("end", lambda: seg_end(ws))
+
+        stats = HMCStats(accepted=ws.accepted.clone(), iters=ws.mean_iters.clone(),
+                         flag=ws.out_flag.clone(), delta_H=ws.delta_H.clone(), H=ws.H1.clone(),
+                         S=ws.S1.clone(), K=ws.K1.clone())
+        if cfg.log_verbose:
+            stats = replace(stats, traj_H=ws.traj_H.clone(), traj_S=ws.traj_S.clone(),
+                            traj_K=ws.traj_K.clone(), traj_iters=ws.traj_iters.clone())
+        return HMCState(x=ws.out_x.clone(), v=ws.out_v.clone(), defl=state.defl), stats
+
+    def update(params, state: HMCState, dt, generator, draws):
+        """The graphed update where the configuration and the fields are in
+        its slice, else the eager one."""
+        if segmented and not params_are_complex(params):
+            return graphed(params, state, dt, generator, draws)
+        return _step(params, state, dt, generator, draws)
+
     def draw_update(params, x, n_chains: int, generator=None) -> HMCDraws:
         """The draws of one update of ``n_chains`` chains like ``x``."""
         return draw(ops, n_chains, x.dtype, x.device, generator, field_dtype(params, x.dtype))
@@ -435,15 +747,19 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     if dynamic_dt:
         def dyn_step(params, state: HMCState, dt, generator: torch.Generator | None = None,
                      draws: HMCDraws | None = None):
-            return _step(params, state, dt, generator, draws)
+            return update(params, state, dt, generator, draws)
         dyn_step.draw = draw_update
+        dyn_step.segmented = segmented
+        dyn_step.workspace = lambda: box.get("ws")
         return dyn_step
 
     def step(params, state: HMCState, generator: torch.Generator | None = None,
              draws: HMCDraws | None = None):
-        return _step(params, state, cfg.dt, generator, draws)
+        return update(params, state, cfg.dt, generator, draws)
 
     step.draw = draw_update
+    step.segmented = segmented
+    step.workspace = lambda: box.get("ws")
     return step
 
 

@@ -256,14 +256,14 @@ def expnV(spec: HolsteinSpec, p: HolsteinParams, x):
 def _tau_sign_first(spec: HolsteinSpec, like):
     """[+1, −1, ..., −1]: the antiperiodic wrap at τ=0."""
     s = -torch.ones(spec.Ltau, dtype=like.dtype, device=like.device)
-    s[0] = 1.0
+    s[:1].fill_(1.0)   # a fill, not a host-to-device copy (a CUDA graph captures it)
     return s
 
 
 def _tau_sign_last(spec: HolsteinSpec, like):
     """[−1, ..., −1, +1]: the wrap at τ=Lτ−1 (Mᵀ)."""
     s = -torch.ones(spec.Ltau, dtype=like.dtype, device=like.device)
-    s[-1] = 1.0
+    s[-1:].fill_(1.0)
     return s
 
 
@@ -301,9 +301,11 @@ def _split_bf16(a):
 def _bf16_operand(spec: HolsteinSpec, A, passes: int, adjoint: bool):
     """The bf16 operand of :func:`bf16_matmul` for the fixed matrix ``A``
     (for Aᵀ with ``adjoint``): [hi | hi | lo] along the inner axis for 3
-    passes, hi for 1. Split once and kept in the checkerboard spec's cache
-    for as long as ``A`` is the matrix applied."""
-    key = ("bf16_operand", passes, adjoint)
+    passes, hi for 1. Split once per matrix and kept, with the matrix, in
+    the checkerboard spec's cache: a CUDA graph that captured an apply
+    (``dynamics/graphs.py``) reads the kept operand, so an apply of another
+    matrix on the same spec must not free it."""
+    key = ("bf16_operand", passes, adjoint, id(A))
     hit = spec.ckb._cache.get(key)
     if hit is None or hit[0] is not A:
         hi, lo = _split_bf16(A.mT if adjoint else A)
@@ -412,6 +414,20 @@ def muldMdx(spec: HolsteinSpec, p: HolsteinParams, env, x, u, v):
 # bosonic (phonon) action
 # ---------------------------------------------------------------------------
 
+def _wij_tables(spec: HolsteinSpec, like):
+    """The dispersive pairs' site indices ``i``, ``j`` and signs ``[Nwij, 1]``
+    on ``like``'s device, uploaded once per device and dtype and kept in the
+    checkerboard spec's cache (a captured update reads them, never uploads)."""
+    key = ("wij_tables", str(like.device), like.dtype)
+    hit = spec.ckb._cache.get(key)
+    if hit is None:
+        hit = spec.ckb._cache[key] = (
+            torch.as_tensor(spec.wij_table[0], device=like.device),
+            torch.as_tensor(spec.wij_table[1], device=like.device),
+            torch.as_tensor(spec.wij_sign, dtype=like.dtype, device=like.device)[:, None])
+    return hit
+
+
 def calc_Sb(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     """Phonon action Sb = Δτ·Σ[ω²x²/2 + ω₄x⁴ − λx·shifted + (Δx/Δτ)²/2
     + ωᵢⱼ²(xᵢ±xⱼ)²/2], summed over the last two axes in float64 (over every
@@ -429,9 +445,7 @@ def calc_Sb(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
             total = total + spec.shard.wij_sb(p.wij, spec.wij_sign, x)
         return spec.dtau * spec.shard.sum(total)
     if spec.wij_table.shape[1] > 0:
-        i = torch.as_tensor(spec.wij_table[0], device=x.device)
-        j = torch.as_tensor(spec.wij_table[1], device=x.device)
-        sgn = torch.as_tensor(spec.wij_sign, dtype=x.dtype, device=x.device)[:, None]
+        i, j, sgn = _wij_tables(spec, x)
         pair = x.index_select(-2, i) + sgn * x.index_select(-2, j)
         total = total + ((p.wij ** 2)[:, None] * pair * pair / 2).sum(dim=(-2, -1))
     return spec.dtau * total
@@ -449,9 +463,7 @@ def calc_dSbdx(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     if spec.shard is not None and spec.wij_table.shape[1] > 0:
         return spec.shard.wij_dsb(p.wij, spec.wij_sign, spec.dtau, x, d)
     if spec.wij_table.shape[1] > 0:
-        i = torch.as_tensor(spec.wij_table[0], device=x.device)
-        j = torch.as_tensor(spec.wij_table[1], device=x.device)
-        sgn = torch.as_tensor(spec.wij_sign, dtype=x.dtype, device=x.device)[:, None]
+        i, j, sgn = _wij_tables(spec, x)
         w2 = (p.wij ** 2)[:, None]
         pair = spec.dtau * w2 * (x.index_select(-2, i) + sgn * x.index_select(-2, j))
         d = d.index_add(-2, i, pair).index_add(-2, j, sgn * pair)

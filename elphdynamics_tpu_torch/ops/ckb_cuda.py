@@ -50,7 +50,11 @@ twin; a CUDA tensor launches the kernel or raises. ``launches`` and
 ``"fold/shared/complex"``, ``"fold/chain/complex"``,
 ``"fold/column/complex"``); ``launch_shapes`` holds each counted
 launch's (form key, field shape, dtype), so that a caller can see at which
-shapes a run went through the kernels.
+shapes a run went through the kernels. A CUDA graph's capture launches
+nothing on the card: :func:`recording` keeps what its capture counted in a
+:class:`LaunchRecord` and restores the counts, and each replay of the graph
+counts the record again (``dynamics/graphs.py``). A capture that reaches a
+shape's first launch (the geometry tuning, the bond-plan upload) raises.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ import math
 import os
 import shutil
 import subprocess
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -78,6 +82,7 @@ table_launches = {"fold/shared": 0, "fold/chain": 0, "fold/column": 0,
                   "fused/shared": 0, "fused/chain": 0, "fold/shared/complex": 0,
                   "fold/chain/complex": 0, "fold/column/complex": 0}
 launch_shapes: set = set()    # (form key, field shape, dtype) of the counted launches
+_recording: list = []         # the LaunchRecords of the CUDA graphs being captured
 
 
 def reset_counts() -> None:
@@ -89,10 +94,66 @@ def reset_counts() -> None:
     launch_shapes.clear()
 
 
+def _add(form: str, n: int) -> None:
+    global launches, fused_launches
+    if form.startswith("fold/"):
+        launches += n
+    else:
+        fused_launches += n
+    table_launches[form] += n
+
+
 def _count(kernel: str, cosh_b, v) -> None:
     form = f"{kernel}/{TABLE_FORMS[cosh_b.ndim - 1]}" + ("/complex" if v.is_complex() else "")
-    table_launches[form] += 1
-    launch_shapes.add((form, tuple(v.shape), v.dtype))
+    shape = (form, tuple(v.shape), v.dtype)
+    _add(form, 1)
+    launch_shapes.add(shape)
+    for rec in _recording:
+        rec.forms[form] = rec.forms.get(form, 0) + 1
+        rec.shapes.add(shape)
+
+
+@dataclass
+class LaunchRecord:
+    """The launches counted while one CUDA graph was captured (a capture
+    launches nothing on the card): per table form, and their (form, field
+    shape, dtype). :meth:`replayed` counts them once per replay."""
+
+    forms: dict = field(default_factory=dict)
+    shapes: set = field(default_factory=set)
+
+    def replayed(self) -> None:
+        for form, n in self.forms.items():
+            _add(form, n)
+        launch_shapes.update(self.shapes)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the launches counted inside the block (a graph's capture) in
+    a :class:`LaunchRecord`, and restore every count on leaving it, so that
+    the counts hold only launches made on the card."""
+    global launches, fused_launches
+    saved = (launches, fused_launches, dict(table_launches), set(launch_shapes))
+    rec = LaunchRecord()
+    _recording.append(rec)
+    try:
+        yield rec
+    finally:
+        _recording.remove(rec)
+        launches, fused_launches = saved[0], saved[1]
+        table_launches.update(saved[2])
+        launch_shapes.clear()
+        launch_shapes.update(saved[3])
+
+
+def _refuse_in_capture(what: str) -> None:
+    """Raise where a CUDA graph capture reaches work that a launch does only
+    at a new shape (tuning, host-to-device uploads): such a launch has to
+    run once before the capture."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} during a CUDA graph capture: launch the kernel at this "
+                           "shape once before capturing it")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"ckb_fold": CSRC / "ckb_fold.cu", "ckb_fold_fused": CSRC / "ckb_fold_fused.cu"}
@@ -262,6 +323,7 @@ def _device_plan(spec: ckb.CheckerboardSpec, cs: int, reverse: bool, device: tor
     key = ("cluster_plan", cs, bool(reverse), str(device))
     out = spec._cache.get(key)
     if out is None:
+        _refuse_in_capture("a bond plan upload")
         plan = cluster_plan(spec, cs, reverse)
         table = np.concatenate([plan.offsets.ravel(), plan.crosses]).astype(np.int32)
         out = (torch.as_tensor(plan.bonds, device=device).contiguous(),
@@ -488,6 +550,7 @@ def _geometry(spec, v, name: str, run, per_column: bool = False) -> Geometry:
            v.dtype, name, per_column)
     g = spec._cache.get(key)
     if g is None:
+        _refuse_in_capture("tuning a launch geometry")
         cands = launch_candidates(spec, v, name, per_column)
         g = cands[0] if len(cands) == 1 else fastest(cands, _time_candidates(cands, run))
         spec._cache[key] = g
@@ -506,7 +569,6 @@ def _on_device(dev: int):
 
 
 def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float, geometry) -> torch.Tensor:
-    global launches
     per_column = cosh_b.ndim == 3
     inner, cstride = _check(spec, cosh_b, sinh_b, v, per_column=True)
     out = torch.empty_like(v)
@@ -526,7 +588,6 @@ def _launch(spec, cosh_b, sinh_b, v, reverse: bool, sign: float, geometry) -> to
 
     with _on_device(dev):
         run(geometry or _geometry(spec, v, "ckb_fold", run, per_column))
-    launches += 1
     _count("fold", cosh_b, v)
     return out
 
@@ -549,7 +610,6 @@ def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False
 
 def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
                   prev, geometry) -> torch.Tensor:
-    global fused_launches
     _, cstride = _check(spec, cosh_b, sinh_b, v, per_column=False, name="ckb_fold_fused")
     ckb.check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev)
     if prev is not None and not prev.is_contiguous():
@@ -575,7 +635,6 @@ def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
 
     with _on_device(dev):
         run(geometry or _geometry(spec, v, "ckb_fold_fused", run))
-    fused_launches += 1
     _count("fused", cosh_b, v)
     return out
 

@@ -349,6 +349,34 @@ def _from_half_stacked(st: KPMState, w, Ltau: int, dtype, use_dft: bool):
     return omega_to_tau(full, real=True).to(dtype)
 
 
+# host-built constant tables on a device, per (name, size, device, dtype)
+_TABLES: dict = {}
+
+
+def _table(name: str, n: int, device, dtype, make) -> torch.Tensor:
+    """The table ``make(n)`` (float64 numpy) on ``device`` in ``dtype``,
+    uploaded once and kept: a captured update (``dynamics/graphs.py``)
+    reads the kept tensor and never uploads. A first upload during a
+    capture raises."""
+    device = torch.device(device)
+    key = (name, n, str(device), dtype)
+    t = _TABLES.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"KPM table {name!r} uploaded during a CUDA graph capture: "
+                               "run the setup once before capturing it")
+        t = _TABLES[key] = torch.as_tensor(make(n), device=device).to(dtype)
+    return t
+
+
+def _phis(Lw: int, Ltau: int) -> np.ndarray:
+    return 2.0 * np.pi / Ltau * (np.arange(Lw) + 0.5)
+
+
+def _cheb_nodes(M: int) -> np.ndarray:
+    return (np.arange(2 * M) + 0.5) * np.pi / (2 * M)
+
+
 def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     """Build the KPM state for phonon fields ``x`` ``[C, N, Lτ]``.
     ``start`` is the pair of power-iteration start vectors
@@ -368,15 +396,15 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
     if (expK is None and ops.shard is None and 0 < ops.spec.ckb.nbonds
             and _dense_abar_gate(ops.Nsites, sinh_bar)):
         expK, expK_inv = _dense_avg(ops, cosh_bar, sinh_bar)
-    Wf, Wb = _dft_tables(ops.Ltau)
+    Ltau = ops.Ltau
     st0 = KPMState(expnV_bar=expnV_bar, cosh_bar=cosh_bar, sinh_bar=sinh_bar,
                    lam_avg=torch.ones(C, dtype=dtype, device=device),
                    lam_mag=torch.ones(C, dtype=dtype, device=device),
                    coeff=torch.zeros((C, 1, 1), dtype=dtype, device=device),
                    active=torch.ones(C, dtype=torch.bool, device=device),
                    expK=expK, expK_inv=expK_inv,
-                   dft_f=torch.as_tensor(Wf, device=device).to(dtype),
-                   dft_b=torch.as_tensor(Wb, device=device).to(dtype))
+                   dft_f=_table("dft_f", Ltau, device, dtype, lambda n: _dft_tables(n)[0]),
+                   dft_b=_table("dft_b", Ltau, device, dtype, lambda n: _dft_tables(n)[1]))
 
     cplx = _state_is_complex(st0)
     pdtype = complex_of(dtype) if cplx else dtype
@@ -393,17 +421,17 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
 
     # real fields use the lower half spectrum (conjugate symmetry supplies
     # the rest); complex fields need all Lτ frequencies
-    Ltau = ops.Ltau
     Lw = Ltau if cplx else (Ltau + 1) // 2
-    phis = torch.as_tensor(2.0 * np.pi / Ltau * (np.arange(Lw) + 0.5), device=device).to(dtype)
+    phis = _table(f"phis{Ltau}", Lw, device, dtype, lambda n: _phis(n, Ltau))
     M = cfg.max_order
     NM = 2 * M
-    theta_n = (np.arange(NM) + 0.5) * np.pi / NM
-    nodes = torch.as_tensor(np.cos(theta_n), device=device).to(dtype)          # [NM]
+    nodes = _table("cheb_nodes", M, device, dtype, lambda m: np.cos(_cheb_nodes(m)))   # [NM]
     xs = lam_mag[:, None] * nodes + lam_avg[:, None]                           # [C, NM]
     f = 1.0 / (1.0 - torch.exp(-1j * phis)[None, None, :] * xs[:, :, None])   # [C, NM, Lw]
-    cosmat = torch.as_tensor(np.cos(np.outer(np.arange(M), theta_n)), device=device).to(dtype)
-    scale = torch.as_tensor(np.where(np.arange(M) == 0, 1.0, 2.0), device=device).to(dtype)[:, None] / NM
+    cosmat = _table("cheb_cos", M, device, dtype,
+                    lambda m: np.cos(np.outer(np.arange(m), _cheb_nodes(m))))
+    scale = _table("cheb_scale", M, device, dtype,
+                   lambda m: np.where(np.arange(m) == 0, 1.0, 2.0))[:, None] / NM
     coeff = scale * torch.matmul(cosmat.to(f.dtype), f)                         # [C, M, Lw]
 
     # on the full spectrum the hard frequencies sit at both ends (e^{−iφ} → 1
@@ -610,13 +638,17 @@ class Preconditioner:
     coefficient build; ``refresh(st, params, x)`` re-derives only the
     averaged operator; ``symmetric(st, v)``, ``left(st, v)`` and
     ``right(st, v)`` apply P⁻¹ (the last two None on a symmetric-only
-    preconditioner)."""
+    preconditioner). A KPM preconditioner also carries its configuration
+    and its fixed power-iteration start vectors (``setup``'s default), which
+    a graphed update keeps on the device."""
 
     setup: object
     refresh: object
     symmetric: object
     left: object = None
     right: object = None
+    cfg: KPMConfig | None = None
+    start: tuple | None = None
 
 
 def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
@@ -632,6 +664,7 @@ def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):
                                                   fixed if start is None else start),
         refresh=lambda st, params, x: refresh(ops, st, params, x),
         symmetric=lambda st, v: apply_symmetric(ops, st, v, cfg),
+        cfg=cfg, start=fixed,
     )
 
 

@@ -513,14 +513,19 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     hmc = setup.dynamics_type == "hmc"
     bcfg = setup.hmc_burnin_cfg
     tuned_step = tuner = None
+    # tempering and every multi-rank layout keep the eager update; elsewhere
+    # a one-rank Holstein leapfrog CG update on the card replays CUDA graphs
+    # (dynamics/graphs.py)
+    eager = tcfg is not None or par.shard is not None or par.chains is not None
     if hmc:
-        sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
+        sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)
         burnin_step = (sim_step if bcfg == setup.hmc_cfg
-                       else make_hmc_step(ops, setup.fa_mass, bcfg, precond))
+                       else make_hmc_step(ops, setup.fa_mass, bcfg, precond, eager=eager))
         if bcfg.tune_dt and sp.burnin > 0:
             # the burn-in step takes dt from the tuner on the device; the
             # trajectory length Nt stays the configured one until the freeze
-            tuned_step = make_hmc_step(ops, setup.fa_mass, bcfg, precond, dynamic_dt=True)
+            tuned_step = make_hmc_step(ops, setup.fa_mass, bcfg, precond, dynamic_dt=True,
+                                       eager=eager)
             tuner = dt_tuner_init(bcfg.dt, device=dev)
     else:
         sim_step = burnin_step = _langevin_update(ops, setup, precond)
@@ -543,7 +548,7 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
         round(trajectory_time/dt) restores the configured trajectory time."""
         nonlocal sim_step
         cfg2 = replace(setup.hmc_cfg, dt=float(tuned_dt))
-        sim_step = make_hmc_step(ops, setup.fa_mass, cfg2, precond)
+        sim_step = make_hmc_step(ops, setup.fa_mass, cfg2, precond, eager=eager)
         sim_stats["tuned_dt"] = float(tuned_dt)
         logger.info("tune_dt: frozen dt=%.6g Nt=%d (configured dt=%.6g Nt=%d, "
                     "target acceptance %.2f)", cfg2.dt, cfg2.Nt, setup.hmc_cfg.dt,

@@ -13,7 +13,11 @@ The JAX loops are ``lax.while_loop`` programs whose condition reads
 ``any(active)`` on the device. Here that flag is read on the host only
 once every ``CG_SYNC_EVERY`` iterations (GMRES: at that cadence inside a
 restart cycle and once per cycle), and the retry ladders run only when a
-verification failed — one host sync per solve for them.
+verification failed — one host sync per solve for them. :func:`cg` is a
+start (:func:`cg_init`) and blocks of ``CG_SYNC_EVERY`` iterations
+(:func:`cg_block`) over a :class:`CGState` updated in place, and its
+verification is :func:`cg_verify` then, rarely, :func:`cg_retry`: fixed
+shapes that a CUDA graph captures (``dynamics/graphs.py``).
 
 Dot products, norms and Gram matrices accumulate in float64
 (:mod:`elphdynamics_tpu_torch.utils.dtypes`); scalars are cast back to the
@@ -35,7 +39,7 @@ Re(a†b).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable
 
 import torch
@@ -89,12 +93,26 @@ def _positive(a):
     return torch.where(a > 0, a, torch.ones_like(a))
 
 
-def _kappa_bound(kmin, eps0, eps, j: int):
+def _kappa_bound(kmin, eps0, eps, j):
     """The running condition-number lower bound (2(j+1)/log(2ε₀/ε))² with
-    the signed log of the reference formula; only ε ≈ 2ε₀ is guarded."""
+    the signed log of the reference formula; only ε ≈ 2ε₀ is guarded. ``j``
+    is the iteration index, a number or a 0-dim float64 tensor (a captured
+    CG block reads it from the device)."""
     logr = torch.log(2.0 * eps0 / torch.where(eps > 0, eps, torch.full_like(eps, 1e-300)))
     logr = torch.where(logr.abs() > 1e-12, logr, torch.full_like(logr, 1e-12))
     return torch.maximum(kmin, (2.0 * (j + 1) / logr) ** 2)
+
+
+# host reads of CG's ``any(active)`` and of the verification's ``any(bad)``
+# since import (or since a caller last set it to 0): the same count on the
+# eager update and on the graphed one, which replays the same loops
+host_reads = 0
+
+
+def host_any(flags: torch.Tensor) -> bool:
+    global host_reads
+    host_reads += 1
+    return bool(flags.any())
 
 
 @dataclass(frozen=True)
@@ -104,21 +122,44 @@ class CGResult:
     converged: torch.Tensor  # per-system bool
 
 
-def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
-       apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
-       kappa_max: float = 1e12, active0: torch.Tensor | None = None,
-       deflate=None, reduce: Callable | None = None) -> CGResult:
-    """Preconditioned CG for SPD ``A`` (``apply_P`` applies P⁻¹). A system
-    stops when ``|r|/|b| < tol`` or when the running condition-number lower
-    bound ``(2j/log(2ε₀/ε))²`` exceeds ``kappa_max``; ``active0`` masks out
-    systems that should not be solved at all. ``deflate`` (a
-    :class:`..ops.deflation.DeflationState`, chain axis leading as in ``b``)
-    projects the slow modes out of the start before the first iteration.
+@dataclass
+class CGState:
+    """Masked batched CG between two blocks of :func:`cg_block`: the
+    iterate, residual and direction, the per-system ``rdotz``, κ bound,
+    start residual ε₀, safe |b|, iteration count, convergence and activity
+    masks, and the iteration index ``j`` (a 0-dim float64 tensor). A block
+    updates every field in place, so a captured block reads and writes the
+    same memory on every replay."""
 
-    ``reduce`` makes the dots global on a site-sharded solve (each rank
-    holds a block of sites): two all-reduces per iteration, pᵀAp and then
-    |r|² with rᵀz. Every stopping decision then comes from the same bits on
-    every rank, so the ranks iterate in step."""
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rdotz: torch.Tensor
+    kmin: torch.Tensor
+    eps0: torch.Tensor
+    safe_normb: torch.Tensor
+    iters: torch.Tensor
+    conv: torch.Tensor
+    active: torch.Tensor
+    j: torch.Tensor
+
+    def clone(self) -> "CGState":
+        return CGState(*(getattr(self, f.name).clone() for f in fields(self)))
+
+    def load_(self, other: "CGState") -> None:
+        """Copy ``other``'s values into this state's tensors."""
+        for f in fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+
+
+def cg_init(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+            apply_P: Callable | None = None, tol=1e-5, active0: torch.Tensor | None = None,
+            deflate=None, reduce: Callable | None = None) -> CGState:
+    """The start of :func:`cg`: r = b − A·x0 (after the deflated start),
+    z = P(r), the start residual and the masks. ``tol`` is a number or a
+    0-dim float64 tensor. The state's ``x`` and ``p`` may be ``x0`` and
+    ``r`` themselves: clone it (:meth:`CGState.clone`) or load it into
+    another state before a block runs on it."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     P = apply_P if apply_P is not None else (lambda v: v)
@@ -141,37 +182,75 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     if active0 is not None:
         active = active & active0
     active = active & (eps0 >= tol)
-    conv = eps0 < tol
-    x, p = x0, z
-    kmin = torch.zeros_like(normb)
-    iters = torch.zeros(batch, dtype=torch.int32, device=b.device)
+    return CGState(x=x0, r=r, p=z, rdotz=rdotz, kmin=torch.zeros_like(normb), eps0=eps0,
+                   safe_normb=safe_normb,
+                   iters=torch.zeros(batch, dtype=torch.int32, device=b.device),
+                   conv=eps0 < tol, active=active,
+                   j=torch.zeros((), dtype=torch.float64, device=b.device))
 
-    for j in range(maxiter):
-        if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
-            break
-        Ap = apply_A(p)
-        pAp, = _dots([(p, Ap)], reduce)
-        alpha = rdotz / _nonzero(pAp)
-        x_new = x + _bc(alpha, x) * p
-        r_new = r - _bc(alpha, r) * Ap
+
+def cg_block(apply_A: Callable, st: CGState, *, apply_P: Callable | None = None, tol=1e-5,
+             maxiter: int = 1000, kappa_max: float = 1e12,
+             reduce: Callable | None = None) -> None:
+    """``CG_SYNC_EVERY`` masked iterations of :func:`cg` on ``st``, in
+    place. An iteration changes a system only while it is active and
+    ``j < maxiter``, so a block that runs past ``maxiter`` stops where the
+    loop does. ``tol`` as in :func:`cg_init`."""
+    P = apply_P if apply_P is not None else (lambda v: v)
+    for _ in range(CG_SYNC_EVERY):
+        act = st.active & (st.j < maxiter)
+        Ap = apply_A(st.p)
+        pAp, = _dots([(st.p, Ap)], reduce)
+        alpha = st.rdotz / _nonzero(pAp)
+        x_new = st.x + _bc(alpha, st.x) * st.p
+        r_new = st.r - _bc(alpha, st.r) * Ap
         z_new = P(r_new)
         rr, rdotz_new = _dots([(r_new, r_new), (r_new, z_new)], reduce)
-        eps = torch.sqrt(rr) / safe_normb
-        kmin_new = _kappa_bound(kmin, eps0, eps, j)
+        eps = torch.sqrt(rr) / st.safe_normb
+        kmin_new = _kappa_bound(st.kmin, st.eps0, eps, st.j)
         done = (eps < tol) | (kmin_new > kappa_max)
-        beta = rdotz_new / _nonzero(rdotz)
-        p_new = z_new + _bc(beta, p) * p
+        beta = rdotz_new / _nonzero(st.rdotz)
+        p_new = z_new + _bc(beta, st.p) * st.p
 
-        m = _bc(active, x)
-        x = torch.where(m, x_new, x)
-        r = torch.where(m, r_new, r)
-        p = torch.where(m, p_new, p)
-        rdotz = torch.where(active, rdotz_new, rdotz)
-        kmin = torch.where(active, kmin_new, kmin)
-        iters = iters + active.to(torch.int32)
-        conv = conv | (active & (eps < tol))
-        active = active & ~done
-    return CGResult(x=x, iters=iters, converged=conv)
+        m = _bc(act, st.x)
+        torch.where(m, x_new, st.x, out=st.x)
+        torch.where(m, r_new, st.r, out=st.r)
+        torch.where(m, p_new, st.p, out=st.p)
+        torch.where(act, rdotz_new, st.rdotz, out=st.rdotz)
+        torch.where(act, kmin_new, st.kmin, out=st.kmin)
+        st.iters += act.to(torch.int32)
+        st.conv |= act & (eps < tol)
+        st.active &= ~(act & done)
+        st.j += 1
+
+
+def cg(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+       apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
+       kappa_max: float = 1e12, active0: torch.Tensor | None = None,
+       deflate=None, reduce: Callable | None = None) -> CGResult:
+    """Preconditioned CG for SPD ``A`` (``apply_P`` applies P⁻¹). A system
+    stops when ``|r|/|b| < tol`` or when the running condition-number lower
+    bound ``(2j/log(2ε₀/ε))²`` exceeds ``kappa_max``; ``active0`` masks out
+    systems that should not be solved at all. ``deflate`` (a
+    :class:`..ops.deflation.DeflationState`, chain axis leading as in ``b``)
+    projects the slow modes out of the start before the first iteration.
+
+    ``reduce`` makes the dots global on a site-sharded solve (each rank
+    holds a block of sites): two all-reduces per iteration, pᵀAp and then
+    |r|² with rᵀz. Every stopping decision then comes from the same bits on
+    every rank, so the ranks iterate in step.
+
+    The loop is :func:`cg_init` and then blocks of :func:`cg_block`, with
+    ``any(active)`` read on the host before each block."""
+    st = cg_init(apply_A, b, x0, apply_P=apply_P, tol=tol, active0=active0, deflate=deflate,
+                 reduce=reduce)
+    st.x, st.p = st.x.clone(), st.p.clone()
+    j = 0
+    while j < maxiter and host_any(st.active):
+        cg_block(apply_A, st, apply_P=apply_P, tol=tol, maxiter=maxiter, kappa_max=kappa_max,
+                 reduce=reduce)
+        j += CG_SYNC_EVERY
+    return CGResult(x=st.x, iters=st.iters, converged=st.conv)
 
 
 @dataclass(frozen=True)
@@ -201,35 +280,66 @@ def solve_checked(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = 
                              retry=apply_P is not None, reduce=reduce)
 
 
+def _norms(a, b, reduce):
+    """(|a|, |b|) per system, the two dots in one reduction."""
+    return [torch.sqrt(d) for d in _dots([(a, a), (b, b)], reduce, _dot)]
+
+
+def _sqrt_tol(tol):
+    """√tol, correctly rounded for a number and for a float64 tensor alike."""
+    return torch.sqrt(tol) if torch.is_tensor(tol) else math.sqrt(tol)
+
+
+@dataclass(frozen=True)
+class Verdict:
+    """:func:`cg_verify`'s result: the relative true residual, the systems
+    above √tol, their flags and the safe |b|."""
+
+    residual: torch.Tensor
+    bad: torch.Tensor
+    flag: torch.Tensor
+    safe_normb: torch.Tensor
+
+
+def cg_verify(A_chk, b, x, iters, tol, maxiter: int, reduce: Callable | None = None) -> Verdict:
+    """Verify a CG solution against ``A_chk``: flag the systems whose
+    ``|A·x−b|/|b|`` exceeds √tol (1 = hit ``maxiter``, 2 = false
+    convergence). ``tol`` is a number or a 0-dim float64 tensor (√tol is
+    correctly rounded either way)."""
+    res_norm, normb = _norms(A_chk(x) - b, b, reduce)
+    safe_normb = _positive(normb)
+    err = res_norm / safe_normb
+    bad = err > _sqrt_tol(tol)
+    one, two, zero = (torch.full_like(iters, k) for k in (1, 2, 0))
+    flag = torch.where(bad, torch.where(iters >= maxiter, one, two), zero)
+    return Verdict(residual=err, bad=bad, flag=flag, safe_normb=safe_normb)
+
+
+def cg_retry(A_chk, b, x, iters, v: Verdict, tol, maxiter: int, kappa_max: float,
+             reduce: Callable | None = None) -> SolveResult:
+    """Re-solve the systems :func:`cg_verify` flagged from zero by plain
+    masked CG with 10× the iteration budget; the others keep ``x``. A
+    system stays flagged if the retry leaves it above √tol."""
+    x_start = torch.where(_bc(v.bad, x), torch.zeros_like(x), x)
+    res2 = cg(A_chk, b, x0=x_start, tol=tol, maxiter=10 * maxiter,
+              kappa_max=kappa_max, active0=v.bad, reduce=reduce)
+    x = torch.where(_bc(v.bad, x), res2.x, x)
+    err2 = _norms(A_chk(x) - b, b, reduce)[0] / v.safe_normb
+    still_bad = v.bad & (err2 > _sqrt_tol(tol))
+    flag = torch.where(still_bad, v.flag, torch.zeros_like(v.flag))
+    return SolveResult(x=x, iters=iters + res2.iters, residual=err2, flag=flag)
+
+
 def _verify_and_retry(A_chk, b, res1: CGResult, tol: float, maxiter: int, kappa_max: float,
                       retry: bool = True, reduce: Callable | None = None) -> SolveResult:
     """The ladder shared by :func:`solve_checked` and
     :func:`block_solve_checked`: verify ``res1`` against ``A_chk``, flag the
     systems above √tol and re-solve them from zero by plain masked CG. The
     retry runs only when a system failed (one host read)."""
-    def norms(a, b_):
-        return [torch.sqrt(d) for d in _dots([(a, a), (b_, b_)], reduce, _dot)]
-
-    d1 = A_chk(res1.x) - b
-    res_norm, normb = norms(d1, b)
-    safe_normb = _positive(normb)
-    err = res_norm / safe_normb
-    sq = math.sqrt(tol)
-    bad = err > sq
-    one, two, zero = (torch.full_like(res1.iters, k) for k in (1, 2, 0))
-    flag = torch.where(bad, torch.where(res1.iters >= maxiter, one, two), zero)
-
-    if not retry or not bool(bad.any()):
-        return SolveResult(x=res1.x, iters=res1.iters, residual=err, flag=flag)
-
-    x_start = torch.where(_bc(bad, res1.x), torch.zeros_like(res1.x), res1.x)
-    res2 = cg(A_chk, b, x0=x_start, tol=tol, maxiter=10 * maxiter,
-              kappa_max=kappa_max, active0=bad, reduce=reduce)
-    x = torch.where(_bc(bad, res1.x), res2.x, res1.x)
-    err2 = norms(A_chk(x) - b, b)[0] / safe_normb
-    still_bad = bad & (err2 > sq)
-    flag = torch.where(still_bad, flag, zero)
-    return SolveResult(x=x, iters=res1.iters + res2.iters, residual=err2, flag=flag)
+    v = cg_verify(A_chk, b, res1.x, res1.iters, tol, maxiter, reduce)
+    if not retry or not host_any(v.bad):
+        return SolveResult(x=res1.x, iters=res1.iters, residual=v.residual, flag=v.flag)
+    return cg_retry(A_chk, b, res1.x, res1.iters, v, tol, maxiter, kappa_max, reduce)
 
 
 def cg_split(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,

@@ -3,12 +3,15 @@ card.
 
     python scripts/profile_torch_hmc.py CONFIG [--trace DIR]
 
-with CONFIG one of bench_8x8, kernel_64x64, ssh_64x64, twisted_64x64,
-ssh_twisted_64x64, langevin_64x64, ssh_langevin_64x64, gmres_64x64,
-measure_64x64, measure_ssh_64x64, measure_bond_64x64, driver_4x4.
+with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_64x64,
+twisted_64x64, ssh_twisted_64x64, langevin_64x64, ssh_langevin_64x64,
+gmres_64x64, measure_64x64, measure_ssh_64x64, measure_bond_64x64,
+driver_4x4; ``--eager`` runs the eager update of a Holstein HMC
+configuration in place of its CUDA graphs (``dynamics/graphs.py``).
 
-``bench_8x8``, ``kernel_64x64`` and ``ssh_64x64`` (the optical SSH model,
-8 chains) are the HMC updates of ``bench.py``, ``twisted_64x64`` and
+``bench_8x8``, ``bench_32x32``, ``kernel_64x64`` and ``ssh_64x64`` (the
+optical SSH model, 8 chains) are the HMC updates of ``bench.py``,
+``twisted_64x64`` and
 ``ssh_twisted_64x64`` its twisted-boundary (complex hopping) updates; ``langevin_64x64`` and
 ``ssh_langevin_64x64`` one Runge-Kutta Langevin step of its Langevin
 configurations; ``gmres_64x64`` one GMRES solve of M·z = r for nᵥ = 10
@@ -39,6 +42,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import torch
@@ -47,21 +51,32 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from elphdynamics_tpu_torch import bench  # noqa: E402
-from elphdynamics_tpu_torch.ops import ckb_cuda  # noqa: E402
+from elphdynamics_tpu_torch.dynamics.hmc import make_hmc_step  # noqa: E402
+from elphdynamics_tpu_torch.ops import ckb_cuda, kpm  # noqa: E402
+
+
+HMC_CONFIGS = {"bench_8x8": bench.BENCH_8X8, "bench_32x32": bench.BENCH_32X32,
+               "kernel_64x64": bench.KERNEL_64X64, "ssh_64x64": bench.SSH_64X64,
+               "twisted_64x64": bench.TWISTED_64X64,
+               "ssh_twisted_64x64": bench.SSH_TWISTED_64X64}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("config",
-                    choices=["bench_8x8", "kernel_64x64", "ssh_64x64", "twisted_64x64",
-                             "ssh_twisted_64x64", "langevin_64x64",
-                             "ssh_langevin_64x64", "gmres_64x64", "measure_64x64",
-                             "measure_ssh_64x64", "measure_bond_64x64", "driver_4x4"])
+                    choices=[*HMC_CONFIGS, "langevin_64x64", "ssh_langevin_64x64",
+                             "gmres_64x64", "measure_64x64", "measure_ssh_64x64",
+                             "measure_bond_64x64", "driver_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager update in place of the CUDA graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
+    hmc_step = None
+    if args.eager and args.config not in HMC_CONFIGS:
+        ap.error("--eager takes an HMC configuration")
     if args.config.startswith("measure"):
         run = _measurement(ssh="ssh" in args.config, bond="bond" in args.config)
     elif args.config == "driver_4x4":
@@ -77,11 +92,13 @@ def main() -> int:
             box["x"], stats = b.step(b.params, box["x"], b.generator)
             return stats.iters
     else:
-        cfg = {"bench_8x8": bench.BENCH_8X8, "kernel_64x64": bench.KERNEL_64X64,
-               "ssh_64x64": bench.SSH_64X64, "twisted_64x64": bench.TWISTED_64X64,
-               "ssh_twisted_64x64": bench.SSH_TWISTED_64X64}[args.config]
+        cfg = HMC_CONFIGS[args.config]
         b = bench.build(cfg, "cuda", torch.float32)
+        if args.eager:
+            b = replace(b, step=make_hmc_step(b.ops, b.mass, b.hmc_cfg,
+                                              kpm.make_precond(b.ops, b.kpm_cfg), eager=True))
         box = {"state": b.state}
+        hmc_step = b.step
 
         def run():
             box["state"], stats = b.step(b.params, box["state"], b.generator)
@@ -104,7 +121,9 @@ def main() -> int:
         return sum(e.self_device_time_total for e in cuda
                    if f"{name}<" in e.key and mode in e.key) / 1e6
 
-    print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} wall_s={wall:.4f} "
+    graphed = hmc_step is not None and hmc_step.workspace() is not None
+    print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} graphed={graphed} "
+          f"wall_s={wall:.4f} "
           f"device_kernel_s={dev_us / 1e6:.4f} device_busy_share={dev_us / 1e6 / wall:.4f} "
           f"fold_launches={ckb_cuda.launches} fold_s={kernel_s('ckb_fold_kernel'):.4f} "
           f"fold_per_column_s={kernel_s('ckb_fold_kernel', ', true>'):.4f} "
