@@ -38,17 +38,16 @@ Phases (one line each, and the process exits non-zero if any fails):
 9. the kernel 64×64 configuration (16 chains, fold branch, N = 4096): 1
    warm-up and 2 timed updates through the graphed update, with K1's and
    K2's launch counts (launches inside the graphs count once per replay); and the
-   SSH 64×64 configuration (8 chains): 1 warm-up and 2 timed updates, with
-   the launch counts of each kernel mode;
+   SSH 64×64 configuration (8 chains): 1 warm-up and 2 timed updates
+   through the graphed update, with the launch counts of each kernel mode;
 10. the 64×64 A/B of the two fold-branch Chebyshev recurrences (K2 steps
     against K1 plus elementwise passes) on one KPM state;
 11. the TOML driver, ``simulation.simulate``: ``examples/
     holstein_hmc_square.toml`` and ``examples/ssh_hmc_square.toml``, each
     with its counts cut (4×4, dense branch) and at 64×64, β = 4 (4 chains,
     K1 and K2 on the path), each into a temporary directory, with seconds
-    per update and per measurement and the peak device memory; the
-    Holstein runs update through the graphed update (its replays > 0 at
-    64×64);
+    per update and per measurement and the peak device memory; every run
+    updates through the graphed update (Holstein and SSH; replays > 0);
 12. Langevin dynamics and the other solver kinds, 4×4 float64 on the card
     (K1 forced on, the dense Ā off) against the CPU: one Euler, one
     Runge-Kutta and one Heun step with the same injected draws, Holstein
@@ -205,13 +204,20 @@ Phases (one line each, and the process exits non-zero if any fails):
     and K2 inside the graphs): at 8×8 and 64×64 two updates each way on
     the same draws from the same state, bit for bit or x within
     ``GRAPH_X_REL_TOL`` and ΔH within 2u·(|S| + K), equal decisions, flags
-    and iterations, and on the second update equal K1 / K2 launches by form
+    and iterations, replays = host reads + 1, and on the second update
+    equal K1 / K2 launches by form
     and equal host reads; the graphs, capture seconds, pool bytes and
     replays per update; the graphed update's busy share (its replays' CUDA
     event spans over wall time); sweeps/s of each in ``GRAPH_AB_BLOCKS``
     interleaved blocks (median, IQR; ``chiprun_out/graphed_update.json``).
+37. the same for the graphed SSH update at ``SSH_8X8`` (64 chains, the
+    dense-Ā branch: K1 per-column, and K1 per-chain re-densifying Ā on
+    every KPM refresh) and ``SSH_64X64`` (8 chains, the fold branch: K1
+    per-column, K1 per-chain at K = 1, K2 per-chain), each kernel form
+    launched inside the graphs as often as in the eager update (JSON
+    ``graphed_update_ssh.json`` beside phase 36's).
 
-Phase 36 runs after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
+Phases 36 and 37 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
 phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
@@ -1079,7 +1085,7 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
         small["hmc"].update(burnin_updates=burnin, simulation_updates=sampling,
                             trajectory_time=0.2)
         small["simulation"]["num_bins"] = bins
-        run_driver(f"{name}_square_4x4", small, 1, work)
+        small_out = run_driver(f"{name}_square_4x4", small, 1, work)
         big = json.loads(json.dumps(stock))
         big["lattice"]["L"] = 64
         big[model]["beta"] = 4.0
@@ -1091,8 +1097,10 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
     if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
         raise RuntimeError(f"the 64x64 {name} driver run launched a kernel no time: "
                            f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
-    if model == "holstein" and out["graph_replays"] <= 0:
-        raise RuntimeError("the 64x64 Holstein driver run replayed no CUDA graph")
+    # both models' one-card leapfrog CG updates are graphed (dynamics/graphs.py)
+    if min(small_out["graph_replays"], out["graph_replays"]) <= 0:
+        raise RuntimeError(f"a {name} driver run replayed no CUDA graph: 4x4 "
+                           f"{small_out['graph_replays']}, 64x64 {out['graph_replays']}")
     return out
 
 
@@ -2832,7 +2840,9 @@ def phase_ed_float32() -> None:
 U_F32 = 2.0 ** -24                # float32 unit roundoff
 GRAPH_X_REL_TOL = 1e-6            # x, relative, where the two paths' bits differ
 GRAPH_AB_BLOCKS = 5               # interleaved blocks of each form per configuration
-GRAPH_AB_UPDATES = {"bench_8x8": 2, "bench_32x32": 2, "kernel_64x64": 1}
+# updates per block; 32×32 and SSH 8×8 at 1 (from 2) pay for phase 37
+GRAPH_AB_UPDATES = {"bench_8x8": 2, "bench_32x32": 1, "kernel_64x64": 1, "ssh_8x8": 1,
+                    "ssh_64x64": 1}
 
 
 @contextlib.contextmanager
@@ -2906,12 +2916,14 @@ def _replay_busy_share(step, params, state, draws) -> dict:
     return dict(replay_span_s=span, wall_s=wall, replay_busy_share=span / wall)
 
 
-def _graph_parity(b, eager, name: str) -> dict:
+def _graph_parity(b, eager, name: str, forms=()) -> dict:
     """Two updates of ``b``'s graphed step and of its eager twin on the same
     draws from the same state: bit for bit, or x within ``GRAPH_X_REL_TOL``
     and ΔH within 2·u·(|S| + K), with equal decisions, flags and
-    iterations; on the second update (the first captures) equal K1 / K2
-    launches by form and equal host reads."""
+    iterations; in both updates replays = host reads + 1; on the second
+    (the first captures) equal K1 / K2 launches by form, each of ``forms``
+    (the kernel forms on the configuration's path; none on a dense
+    Holstein branch) launched, and equal host reads."""
     state, out = b.state, {}
     for u in (1, 2):
         draws = eager.draw(b.params, state.x, b.state.x.shape[0], b.generator)
@@ -2928,9 +2940,8 @@ def _graph_parity(b, eager, name: str) -> dict:
                    decisions_iters_flags_equal=same, graphed_s=f"{mg['seconds']:.4f}",
                    eager_s=f"{me['seconds']:.4f}", replays=mg["replays"],
                    host_reads_graphed=mg["host_reads"], host_reads_eager=me["host_reads"],
-                   k1_graphed=mg["launches"]["fold/shared"], k1_eager=me["launches"]["fold/shared"],
-                   k2_graphed=mg["launches"]["fused/shared"],
-                   k2_eager=me["launches"]["fused/shared"],
+                   launches_graphed={f: mg["launches"][f] for f in forms},
+                   launches_eager={f: me["launches"][f] for f in forms},
                    acceptance=f"{tg.accepted.double().mean().item():.4f}",
                    cg_iters=f"{tg.iters.double().mean().item():.2f}")
         if u == 1:
@@ -2940,9 +2951,12 @@ def _graph_parity(b, eager, name: str) -> dict:
         say(f"graph_parity_{name}", update=u, **row)
         if not (bitwise or (x_rel <= GRAPH_X_REL_TOL and dH_ok)) or not same:
             raise RuntimeError(f"graphed {name} update {u} left the eager one: {row}")
+        if mg["replays"] != mg["host_reads"] + 1:
+            raise RuntimeError(f"graphed {name} update {u}: replays are not host reads + 1: {row}")
         if u == 2 and (mg["launches"] != me["launches"] or mg["host_reads"] != me["host_reads"]
-                       or mg["replays"] <= 0):
-            raise RuntimeError(f"graphed {name}: launches, host reads or replays differ: {row}")
+                       or any(mg["launches"][f] <= 0 for f in forms)):
+            raise RuntimeError(f"graphed {name}: launches or host reads differ, or a form "
+                               f"launched no time: {row}")
         out[u] = row
         state = se
     return out
@@ -2975,24 +2989,25 @@ def _sweeps_ab(b, eager, name: str, n_chains: int) -> dict:
     return out
 
 
-def phase_graphed_update() -> dict:
-    """36. The graphed update (``dynamics/graphs.py``) against the eager
-    one at bench 8×8 (dense branch), 32×32 (dense) and ``KERNEL_64X64`` (the
-    fold branch: K1 and K2 inside the graphs): two updates each way on the
-    same draws (:func:`_graph_parity`; 8×8 and 64×64), the graphed update's
-    busy share (:func:`_replay_busy_share`), and sweeps/s in interleaved
-    blocks (:func:`_sweeps_ab`)."""
-    from elphdynamics_tpu_torch.bench import BENCH_8X8, BENCH_32X32, KERNEL_64X64, build
+def _graphed_against_eager(configs, forms: dict, out_file: str) -> dict:
+    """Each bench configuration of ``configs``, graphed against eager: two
+    updates each way on the same draws (:func:`_graph_parity`, with the
+    configuration's kernel forms ``forms[name]``; a configuration not in
+    ``forms`` runs no parity check), the graphed
+    update's busy share (:func:`_replay_busy_share`), and sweeps/s in
+    interleaved blocks (:func:`_sweeps_ab`), written to ``out_file`` in the
+    output directory."""
+    from elphdynamics_tpu_torch.bench import build
 
     out = {}
-    for cfg in (BENCH_8X8, BENCH_32X32, KERNEL_64X64):
+    for cfg in configs:
         b = build(cfg, "cuda", torch.float32)
         eager = _eager_twin(b)
         if not b.step.segmented or eager.segmented:
             raise RuntimeError(f"{cfg.name}: the bench step is not the graphed update")
         res = out[cfg.name] = {}
-        if cfg is not BENCH_32X32:
-            res["parity"] = _graph_parity(b, eager, cfg.name)
+        if forms.get(cfg.name) is not None:
+            res["parity"] = _graph_parity(b, eager, cfg.name, forms[cfg.name])
         else:
             b.step(b.params, b.state, b.generator)    # warm-up and capture
             eager(b.params, b.state, b.generator)
@@ -3010,9 +3025,42 @@ def phase_graphed_update() -> dict:
             eager_blocks=ab["eager"]["blocks"], graphed_blocks=ab["graphed"]["blocks"],
             graphed_replay_busy=f"{res['busy_graphed']['replay_busy_share']:.4f}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "graphed_update.json"), "w") as f:
+    with open(os.path.join("chiprun_out", out_file), "w") as f:
         json.dump(out, f, indent=1, default=str)
     return out
+
+
+def phase_graphed_update() -> dict:
+    """36. The graphed update (``dynamics/graphs.py``) against the eager
+    one at bench 8×8 (dense branch), 32×32 (dense) and ``KERNEL_64X64`` (the
+    fold branch: K1 and K2 inside the graphs); parity at 8×8 and 64×64."""
+    from elphdynamics_tpu_torch.bench import BENCH_8X8, BENCH_32X32, KERNEL_64X64
+
+    return _graphed_against_eager(
+        (BENCH_8X8, BENCH_32X32, KERNEL_64X64),
+        {BENCH_8X8.name: (), KERNEL_64X64.name: ("fold/shared", "fused/shared")},
+        "graphed_update.json")
+
+
+def phase_graphed_update_ssh() -> dict:
+    """37. The graphed SSH update against the eager one at ``SSH_8X8`` (the
+    dense-Ā branch: K1 per-column for the fermion operator, K1 per-chain
+    re-densifying each chain's Ā on every KPM refresh) and ``SSH_64X64``
+    (the fold branch: K1 per-column, K1 per-chain at K = 1 for Ā's power
+    iteration, K2 per-chain for every Chebyshev step), all inside the
+    graphs. Bit for bit is expected: the same kernels at the same tuned
+    geometries in the same order, and no atomic reduction on the path
+    (SSH's alias sum gathers, ``models/ssh._tie_sum``; the bench models
+    have no aliases anyway). The fallback bound of :func:`_graph_parity`
+    (x within ``GRAPH_X_REL_TOL``, ΔH within 2·u·(|S| + K)) covers only a
+    cuBLAS algorithm that changes under capture, on 8×8's dense Ā."""
+    from elphdynamics_tpu_torch.bench import SSH_8X8, SSH_64X64
+
+    return _graphed_against_eager(
+        (SSH_8X8, SSH_64X64),
+        {SSH_8X8.name: ("fold/column", "fold/chain"),
+         SSH_64X64.name: ("fold/column", "fold/chain", "fused/chain")},
+        "graphed_update_ssh.json")
 
 
 def main() -> int:
@@ -3059,6 +3107,7 @@ def main() -> int:
             raise RuntimeError(f"{cfg.name}: flag {big['max_flag']}, "
                                f"acceptance {big['acceptance']}")
     phase_graphed_update()
+    phase_graphed_update_ssh()
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)

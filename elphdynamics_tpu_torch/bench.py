@@ -21,10 +21,17 @@ Fourier mass block ω ∈ (0, 10) with m = 0.5; HMC with trajectory time 1,
 Nb = 4, tol 1e-5, maxiter 500, cubic warm starts; symmetric KPM at
 max_order 8; half-filled initial phonons; β = 4, Δτ = 0.1 (Lτ = 40).
 
+* ``SSH_8X8``: 8×8, dt = 0.05, 64 chains, the JAX package's own SSH bench
+  (``scripts/bench_ssh.py``) — the dense-Ā branch: on a card the fermion
+  operator runs the fold kernel with per-(chain, bond, τ) coefficients, and
+  every KPM refresh re-densifies each chain's Ā by the fold kernel with
+  per-chain tables on a ``[C, N, N]`` identity;
 * ``SSH_64X64``: 64×64, dt = 0.025, 8 chains (N = 4096, Nb = Nph = 8192, 4
   groups) — on a card the fermion operator runs the fold kernel with
   per-(chain, bond, τ) coefficients, the KPM Ā its per-chain tables, and
   every Chebyshev step the fused kernel.
+
+Both SSH updates replay CUDA graphs on a card, as the Holstein ones do.
 
 Twisted boundaries (complex hopping), the twist [π/4, π/8] of
 ``examples/*_hmc_twisted.toml``: every fold of a complex field runs the
@@ -108,6 +115,7 @@ class BenchConfig:
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
 BENCH_32X32 = BenchConfig("bench_32x32", L=32, beta=4.0, dtau=0.1, dt=0.05, n_chains=32)
 KERNEL_64X64 = BenchConfig("kernel_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=16)
+SSH_8X8 = BenchConfig("ssh_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=64, model="ssh")
 SSH_64X64 = BenchConfig("ssh_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=8,
                         model="ssh")
 LANGEVIN_64X64 = BenchConfig("langevin_64x64", L=64, beta=4.0, dtau=0.1, dt=1e-3, n_chains=16,
@@ -180,7 +188,8 @@ def build_ssh_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     """The SSH model (with ``twist``, twisted boundaries), its
     KPM-preconditioned HMC step and a half-filled initial state of
     ``n_chains`` chains on ``device`` (the card unless the caller asks for
-    the CPU); ``integrator``, ``ladder`` as in :func:`build_bench_step`."""
+    the CPU); ``integrator``, ``ladder`` as in :func:`build_bench_step`
+    (the leapfrog step of a real field replays CUDA graphs on the card)."""
     device = require_device(device)
     spec, params = _ssh_model(L, beta, dtau, dtype, device, twist)
     return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8,

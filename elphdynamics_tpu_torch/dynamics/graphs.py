@@ -39,11 +39,12 @@ def capturing(device: torch.device) -> bool:
 
 
 class Workspace:
-    """Named tensors that outlive a segment. :meth:`put` copies a value into
-    the tensor of that name (made on the first put, which must not happen
-    during a capture); attribute access reads it. :meth:`load` does the
-    same for a dataclass of tensors, field by field. The parameters the
-    segments read are a kept copy (:meth:`keep_params`)."""
+    """Named tensors that outlive a segment. :meth:`put` copies a value (a
+    tensor or a NamedTuple of tensors) into the kept value of that name
+    (made on the first put, which must not happen during a capture);
+    attribute access reads it. :meth:`load` does the same for a dataclass of
+    tensors, field by field. The parameters the segments read are a kept
+    copy (:meth:`keep_params`)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -68,11 +69,20 @@ class Workspace:
         self._t[name] = value
         return value
 
-    def put(self, name: str, value: torch.Tensor) -> torch.Tensor:
+    def put(self, name: str, value):
+        """Copy ``value``, a tensor or a NamedTuple of tensors (SSH's derived
+        state ``SSHDerived(cosh, sinh)``), into the kept value of that name,
+        each tensor in place; the first put keeps a clone."""
         buf = self._t.get(name)
+        if torch.is_tensor(value):
+            if buf is None:
+                return self.keep(name, value.clone())
+            return buf.copy_(value)
         if buf is None:
-            return self.keep(name, value.clone())
-        return buf.copy_(value)
+            return self.keep(name, value._make(t.clone() for t in value))
+        for dst, src in zip(buf, value):
+            dst.copy_(src)
+        return buf
 
     def keep_params(self, params, rebuild=()) -> bool:
         """Keep ``self.params``, a copy of the parameter dataclass ``params``

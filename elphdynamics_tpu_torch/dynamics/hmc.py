@@ -35,19 +35,22 @@ an argument (a 0-dim tensor on the device, the trajectory length Nt fixed
 from ``cfg``), so the burn-in tuner (:func:`dt_tuner_update`, Nesterov dual
 averaging toward ``target_acceptance``) changes it with no host read.
 
-The one-rank Holstein leapfrog update with CG of a real field is a fixed
-sequence of segments over one workspace (:mod:`.graphs`): the start
+The one-rank leapfrog update with CG of a real field, Holstein or SSH, is a
+fixed sequence of segments over one workspace (:mod:`.graphs`): the start
 (momenta, φ, the KPM setup, the tol² solve's start), a block of
 ``solvers.CG_SYNC_EVERY`` masked CG iterations, the verification, a
-leapfrog step from a solved z to the next solve's start, the end (ΔH, the
-Metropolis test, the masked state update). On a CUDA field each segment is
-captured once as a CUDA graph and replayed; the host keeps the loop
-control (CG's ``any(active)`` before a block, the verification's
-``any(bad)`` and its rare retry, run eagerly). On the CPU the segments run
-directly, doing the eager update's arithmetic in its order. Every other
-configuration (SSH, 2MN, block CG, deflation, BiCGStab / GMRES, complex
-hopping, a site shard), and a caller that asks for it by name
-(``eager=True``), runs the eager update.
+leapfrog step from a solved z to the next solve's start (its Nb bosonic
+substeps included), the end (ΔH, the Metropolis test, the masked state
+update). On a CUDA field each segment is captured once as a CUDA graph and
+replayed; the host keeps the loop control (CG's ``any(active)`` before a
+block, the verification's ``any(bad)`` and its rare retry, run eagerly).
+On the CPU the segments run directly, doing the eager update's arithmetic
+in its order. The model's derived state (Holstein's ``expnV``, SSH's
+``SSHDerived`` tables) and the KPM state, SSH's per-chain τ-means and
+dense Ā included, are copied into the workspace's tensors in place. Every
+other configuration (2MN, block CG, deflation, BiCGStab / GMRES, the KPM
+``exact_lowfreq`` blocks, complex hopping, a site shard), and a caller
+that asks for it by name (``eager=True``), runs the eager update.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from elphdynamics_tpu_torch.dynamics.solve import (
 from elphdynamics_tpu_torch.models.adapter import (
     ModelOps, force_sum, global_phonons, global_sites, local_phonons, local_sites,
     phonon_sum, site_sum)
+from elphdynamics_tpu_torch.models.ssh import primary_mask
 from elphdynamics_tpu_torch.ops import deflation
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
 from elphdynamics_tpu_torch.utils.device import require_device
@@ -240,9 +244,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     update at the starting field and used by every solve of the update.
 
     ``eager`` asks for the eager update where the graphed one (module
-    docstring) would run. ``step.segmented`` says whether the configuration
-    takes the graphed update on a real field (complex hopping parameters
-    take the eager one); ``step.workspace()`` is its
+    docstring: the one-rank leapfrog CG update of either model) would run.
+    ``step.segmented`` says whether the configuration takes the graphed
+    update on a real field (complex hopping parameters take the eager
+    one); ``step.workspace()`` is its
     :class:`.graphs.Workspace` (None before the first call), whose
     ``graphs`` (a CUDA field) count replays, capture seconds and pool bytes
     and whose ``retries`` count the verifications' retries.
@@ -253,9 +258,6 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     site_reduce(ops, cfg.solver_kind)   # BiCGStab / GMRES stay refused on a site shard
     has_lambda = ops.calc_Lambda is not None
     mass_table = local_phonons(ops, mass_table)
-    # kinetic energy over primary fields only (aliased SSH fields repeat them)
-    k_mask = (None if ops.is_holstein else
-              torch.as_tensor(ops.spec.primary_phonon == np.arange(ops.Nph))[:, None])
     mass_ops: dict = {}
 
     def mass(like) -> MassOperator:
@@ -311,8 +313,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         """½·vᵀ·M·v, in float64 (:func:`mass`)."""
         v = v.double()
         mv = mass(v).apply(v, 1.0)
-        if k_mask is not None:
-            v = k_mask.to(v) * v
+        if not ops.is_holstein:
+            # primary fields only: aliased SSH fields repeat them
+            v = primary_mask(ops.spec, v) * v
         return phonon_sum(ops, fdot(v, mv, dim=(-2, -1))) / 2
 
     def calc_S(params, x, Lphi, z):
@@ -456,11 +459,11 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
     # --- the graphed update: the leapfrog CG update of a real one-rank
-    # Holstein field as a fixed sequence of segments over one workspace
+    # field (Holstein or SSH) as a fixed sequence of segments over one workspace
     # (dynamics/graphs.py), replayed as CUDA graphs on a CUDA field and
     # called directly on the CPU. Each segment does the eager update's
     # arithmetic in the eager update's order.
-    segmented = (not eager and ops.shard is None and ops.is_holstein
+    segmented = (not eager and ops.shard is None
                  and cfg.integrator == "leapfrog" and cfg.solver_kind == "cg" and not cfg.block
                  and cfg.deflate_k <= 0
                  and (precond is None or (precond.cfg is not None
@@ -657,7 +660,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     def workspace(params, x):
         """The workspace of ``x``'s device, dtype and shape, its parameters
         brought to ``params``; a new one (new graphs) where those differ or
-        where exp(−Δτ·K), whose bf16 operand a graph holds, changed."""
+        where Holstein's exp(−Δτ·K), whose bf16 operand a graph holds,
+        changed. A graph derives nothing else from the parameters: it reads
+        the kept copy, SSH's (μ, t, ω, ω₄, α, α₂) included, on every
+        replay."""
         ws = box.get("ws")
         key = (x.device, x.dtype, tuple(x.shape))
         if ws is not None and ws.key == key and ws.keep_params(params, ("expK", "expK_inv")):

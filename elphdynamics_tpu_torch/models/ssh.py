@@ -100,14 +100,23 @@ class SSHSpec:
     # fold is the halo fold; None on one rank
     shard: object = None
 
-    def tensor(self, name: str, device) -> torch.Tensor:
-        """``getattr(self, name)`` as a tensor on ``device``, cached."""
-        key = (name, str(device))
-        out = self._cache.get(key)
-        if out is None:
-            out = self._cache[key] = torch.as_tensor(np.ascontiguousarray(getattr(self, name)),
-                                                     device=device)
-        return out
+    def cached(self, key, device, make):
+        """``make()`` (tensors on ``device`` built from the spec), made on
+        first use and kept under ``key``. A captured update
+        (``dynamics/graphs.py``) reads the kept value: making it during a
+        CUDA graph capture raises (the warm-up makes it)."""
+        if key not in self._cache:
+            if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"SSH table {key!r} made during a CUDA graph capture: run "
+                                   "the update once before capturing it")
+            self._cache[key] = make()
+        return self._cache[key]
+
+    def tensor(self, name: str, device, make=None) -> torch.Tensor:
+        """``getattr(self, name)``, or the array ``make()`` builds from the
+        spec, as a tensor on ``device``, uploaded once (:meth:`cached`)."""
+        return self.cached((name, str(device)), device, lambda: torch.as_tensor(
+            np.ascontiguousarray(getattr(self, name) if make is None else make()), device=device))
 
 
 def build_ssh(
@@ -252,8 +261,8 @@ def phonon_leaf(a, idx, like):
 def hopping_t_prime(spec: SSHSpec, p: SSHParams, x):
     """Modulated hopping t′(bond, τ) = t − (αx + sign(x)·α₂x²) in original
     bond order, ``[..., Nbonds, Lτ]``."""
-    btp = torch.as_tensor(np.maximum(spec.bond_to_phonon, 0), device=x.device)
-    has = torch.as_tensor(spec.bond_to_phonon >= 0, device=x.device)[:, None]
+    btp = spec.tensor("bond_phonon_or_0", x.device, lambda: np.maximum(spec.bond_to_phonon, 0))
+    has = spec.tensor("bond_has_phonon", x.device, lambda: (spec.bond_to_phonon >= 0)[:, None])
     xb = x.index_select(-2, btp)
     a = phonon_leaf(p.alpha, btp, x)
     a2 = phonon_leaf(p.alpha2, btp, x)
@@ -306,7 +315,7 @@ def dense_K(spec: SSHSpec, cosh_b, sinh_b):
 def _tau_sign(spec: SSHSpec, like, first: bool):
     """[+1, −1, ..., −1] (``first``: the wrap at τ=0) or [−1, ..., −1, +1]."""
     s = -torch.ones(spec.Ltau, dtype=like.dtype, device=like.device)
-    s[0 if first else -1] = 1.0
+    (s[:1] if first else s[-1:]).fill_(1.0)   # a fill, not a host-to-device copy
     return s
 
 
@@ -348,17 +357,17 @@ def _site_bonds(spec: SSHSpec, g: int, device):
     phonons, original bonds, first-endpoint mask ``[n, 1]``) as tensors on
     ``device`` and the count of first endpoints, cached; None when it has
     none."""
-    key = ("site_bonds", g, str(device))
-    if key not in spec._cache:
+    def make():
         D, d = (spec.shard.D, spec.shard.d) if spec.shard is not None else (1, 0)
         ph, has, bond = (t[g][d] for t in ssh_group_phonons(spec, D))
         lo = spec.ckb.is_lo[g].reshape(D, -1)[d]
         first = np.nonzero(has & lo)[0]
         rows = np.concatenate([first, np.nonzero(has & ~lo)[0]])
-        spec._cache[key] = None if rows.size == 0 else (tuple(
+        return None if rows.size == 0 else (tuple(
             torch.as_tensor(a, device=device)
             for a in (rows, ph[rows], bond[rows], lo[rows][:, None])), first.size)
-    return spec._cache[key]
+
+    return spec.cached(("site_bonds", g, str(device)), device, make)
 
 
 def _fold_walk(spec: SSHSpec, cosh_b, sinh_b, b, c):
@@ -372,6 +381,43 @@ def _fold_walk(spec: SSHSpec, cosh_b, sinh_b, b, c):
         b = cg * b + sg * b.index_select(-2, partner[g])
         c = cg * c - sg * c.index_select(-2, partner[g])
         yield g, b, c.index_select(-2, partner[g])
+
+
+def _alias_groups(spec: SSHSpec, device):
+    """Each phonon's alias group (its primary's), in ascending phonon order:
+    ``members`` ``[k, Nph]``, row j the group's j-th member (the primary
+    first, the earliest phonon of its name), and ``valid`` ``[k, Nph, 1]``
+    where a group has fewer than k members; cached. None when no phonon is
+    aliased."""
+    def make():
+        prim = spec.primary_phonon
+        groups = [np.nonzero(prim == prim[q])[0] for q in range(spec.Nph)]
+        k = max((g.size for g in groups), default=1)
+        if k == 1:
+            return None
+        members = np.stack([[g[j] if j < g.size else g[0] for g in groups] for j in range(k)])
+        valid = np.stack([[j < g.size for g in groups] for j in range(k)])
+        return (torch.as_tensor(members, device=device),
+                torch.as_tensor(valid[:, :, None], device=device))
+
+    return spec.cached(("alias_groups", str(device)), device, make)
+
+
+def _tie_sum(spec: SSHSpec, out):
+    """Every phonon's force summed over its alias group, ``out`` itself
+    where no phonon is aliased. The members are added in ascending phonon
+    order by gathers, never by an atomic scatter, so the sum has the same
+    bits on every run and every device, and on the CPU those of the
+    ``index_add`` onto zeros that the JAX package's scatter-add mirrors."""
+    groups = _alias_groups(spec, out.device)
+    if groups is None:
+        return out
+    members, valid = groups
+    acc = out.index_select(-2, members[0])
+    zero = torch.zeros((), dtype=out.dtype, device=out.device)
+    for j in range(1, members.shape[0]):
+        acc = acc + torch.where(valid[j], out.index_select(-2, members[j]), zero)
+    return acc
 
 
 def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
@@ -418,8 +464,7 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
         dmdx = (sgn * spec.dtau * dkdx * pair).expand(batch + pair.shape[-2:])
         for part in (slice(None, n_lo), slice(n_lo, None)):
             out = out.index_add(-2, ph_s[part], dmdx[..., part, :])
-    prim = spec.tensor("primary_phonon", x.device)
-    return torch.zeros_like(out).index_add(-2, prim, out).index_select(-2, prim)
+    return _tie_sum(spec, out)
 
 
 # ---------------------------------------------------------------------------
@@ -428,8 +473,9 @@ def muldMdx(spec: SSHSpec, p: SSHParams, coeffs, x, u, v):
 
 def primary_mask(spec: SSHSpec, like) -> torch.Tensor:
     """``[Nph, 1]``: 1 on primary fields, 0 on their aliases."""
-    return torch.as_tensor(spec.primary_phonon == np.arange(spec.Nph),
-                           device=like.device).to(like.dtype)[:, None]
+    mask = spec.tensor("primary_mask", like.device,
+                       lambda: (spec.primary_phonon == np.arange(spec.Nph))[:, None])
+    return mask.to(like.dtype)
 
 
 def calc_Sb(spec: SSHSpec, p: SSHParams, x, shifted: bool = False):

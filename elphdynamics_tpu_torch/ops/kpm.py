@@ -460,7 +460,9 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
 def refresh(ops: ModelOps, st: KPMState, params, x) -> KPMState:
     """Recompute only the averaged operator for the current fields, reusing
     the bounds and coefficients of an earlier :func:`setup`; SSH's dense Ā
-    (its hopping factor depends on the fields) is densified anew."""
+    (its hopping factor depends on the fields) is densified anew. The
+    result's new tensors (SSH's per-chain τ-means and dense Ā) are what a
+    graphed update copies into its kept state (``graphs.Workspace.load``)."""
     derived = ops.derived(params, x)
     expnV_bar, cosh_bar, sinh_bar = _avg_operator(ops, params, derived)
     st = replace(st, expnV_bar=expnV_bar, cosh_bar=cosh_bar, sinh_bar=sinh_bar)

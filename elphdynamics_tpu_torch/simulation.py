@@ -514,8 +514,8 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     bcfg = setup.hmc_burnin_cfg
     tuned_step = tuner = None
     # tempering and every multi-rank layout keep the eager update; elsewhere
-    # a one-rank Holstein leapfrog CG update on the card replays CUDA graphs
-    # (dynamics/graphs.py)
+    # a one-rank leapfrog CG update (Holstein or SSH) on the card replays
+    # CUDA graphs (dynamics/graphs.py)
     eager = tcfg is not None or par.shard is not None or par.chains is not None
     if hmc:
         sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)

@@ -1,16 +1,23 @@
 """Profile one update, or one measurement, of the PyTorch port on a CUDA
 card.
 
-    python scripts/profile_torch_hmc.py CONFIG [--trace DIR]
+    python scripts/profile_torch_hmc.py CONFIG [--eager] [--timed N] [--no-profile]
+                                               [--trace DIR]
 
-with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_64x64,
-twisted_64x64, ssh_twisted_64x64, langevin_64x64, ssh_langevin_64x64,
-gmres_64x64, measure_64x64, measure_ssh_64x64, measure_bond_64x64,
-driver_4x4; ``--eager`` runs the eager update of a Holstein HMC
-configuration in place of its CUDA graphs (``dynamics/graphs.py``).
+with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_8x8,
+ssh_64x64, twisted_64x64, ssh_twisted_64x64, langevin_64x64,
+ssh_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
+measure_bond_64x64, driver_4x4, driver_ssh_4x4; ``--eager`` runs the
+eager update of an HMC configuration or a driver step in place of its CUDA
+graphs (``dynamics/graphs.py``; the twisted ones are eager either way).
+``--timed N`` times N more runs after the warm-up, without the profiler
+(host clock, each run ended by a synchronisation), and for a driver step
+its HMC update apart; ``--no-profile`` stops there (the profiler's cost
+per recorded event makes an eager stock SSH step take many minutes).
 
-``bench_8x8``, ``bench_32x32``, ``kernel_64x64`` and ``ssh_64x64`` (the
-optical SSH model, 8 chains) are the HMC updates of ``bench.py``,
+``bench_8x8``, ``bench_32x32``, ``kernel_64x64``, ``ssh_8x8`` (the optical
+SSH model, 64 chains, dense Ā) and ``ssh_64x64`` (8 chains) are the HMC
+updates of ``bench.py``,
 ``twisted_64x64`` and
 ``ssh_twisted_64x64`` its twisted-boundary (complex hopping) updates; ``langevin_64x64`` and
 ``ssh_langevin_64x64`` one Runge-Kutta Langevin step of its Langevin
@@ -26,7 +33,9 @@ time-dependent bond-pair correlations (BondBond, CurrentCurrent,
 BondPairGreens);
 ``driver_4x4`` is one sampling step of the driver on
 ``examples/holstein_hmc_square.toml`` (1 chain): the HMC update, the
-reflection and swap moves and the measurement. Builds the
+reflection and swap moves and the measurement; ``driver_ssh_4x4`` the
+same on ``examples/ssh_hmc_square.toml`` (100 leapfrog steps of 10
+bosonic substeps, KPM ``max_order`` 64). Builds the
 configuration in float32, runs it once to warm up, then once under
 ``torch.profiler`` and prints: wall time, summed device-kernel time and
 the device's busy share, both kernels' launches and summed device time
@@ -56,7 +65,8 @@ from elphdynamics_tpu_torch.ops import ckb_cuda, kpm  # noqa: E402
 
 
 HMC_CONFIGS = {"bench_8x8": bench.BENCH_8X8, "bench_32x32": bench.BENCH_32X32,
-               "kernel_64x64": bench.KERNEL_64X64, "ssh_64x64": bench.SSH_64X64,
+               "kernel_64x64": bench.KERNEL_64X64, "ssh_8x8": bench.SSH_8X8,
+               "ssh_64x64": bench.SSH_64X64,
                "twisted_64x64": bench.TWISTED_64X64,
                "ssh_twisted_64x64": bench.SSH_TWISTED_64X64}
 
@@ -66,21 +76,28 @@ def main() -> int:
     ap.add_argument("config",
                     choices=[*HMC_CONFIGS, "langevin_64x64", "ssh_langevin_64x64",
                              "gmres_64x64", "measure_64x64", "measure_ssh_64x64",
-                             "measure_bond_64x64", "driver_4x4"])
+                             "measure_bond_64x64", "driver_4x4", "driver_ssh_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     ap.add_argument("--eager", action="store_true",
                     help="the eager update in place of the CUDA graphs")
+    ap.add_argument("--timed", type=int, default=0,
+                    help="runs timed without the profiler after the warm-up")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="no profiled run after the timed ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
     hmc_step = None
-    if args.eager and args.config not in HMC_CONFIGS:
-        ap.error("--eager takes an HMC configuration")
+    if args.eager and args.config not in HMC_CONFIGS and not args.config.startswith("driver"):
+        ap.error("--eager takes an HMC configuration or a driver step")
+    box = {}
     if args.config.startswith("measure"):
         run = _measurement(ssh="ssh" in args.config, bond="bond" in args.config)
-    elif args.config == "driver_4x4":
-        run = _driver_step()
+    elif args.config.startswith("driver"):
+        example = "ssh_hmc_square" if "ssh" in args.config else "holstein_hmc_square"
+        run, box = _driver_step(example, args.eager)
+        hmc_step = box["step"]
     elif args.config == "gmres_64x64":
         run = _gmres_solve()
     elif "langevin" in args.config:
@@ -105,6 +122,22 @@ def main() -> int:
             return stats.iters
     run()
     torch.cuda.synchronize()
+    first_update_s = box.get("update_s")
+    timed, update_s = [], []
+    for _ in range(args.timed):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        if "update_s" in box:
+            update_s.append(box["update_s"])
+    if timed:
+        print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} eager={args.eager} "
+              f"unprofiled_s={[round(t, 4) for t in timed]}"
+              + (f" first_update_s={first_update_s:.4f} update_s={[round(t, 4) for t in update_s]}"
+                 if update_s else ""))
+    if args.no_profile:
+        return 0
     ckb_cuda.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -184,8 +217,10 @@ def _measurement(ssh: bool = False, bond: bool = False):
     return run
 
 
-def _driver_step():
-    """One sampling step of the driver on the stock 4×4 example."""
+def _driver_step(example: str, eager: bool):
+    """One sampling step of the driver on a stock 4×4 example (the eager
+    HMC update with ``eager``), and a box that keeps the update's seconds
+    (host clock, ended by a synchronisation)."""
     import tempfile
 
     from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
@@ -197,20 +232,23 @@ def _driver_step():
     from elphdynamics_tpu_torch.ops import kpm
 
     root = Path(__file__).resolve().parent.parent
-    cfg = load_toml(str(root / "examples" / "holstein_hmc_square.toml"))
+    cfg = load_toml(str(root / "examples" / f"{example}.toml"))
     setup = build_setup(cfg, tempfile.gettempdir(), "cuda", torch.float32)
     ops, params = setup.ops, setup.params
     precond = kpm.make_precond(ops, setup.kpm_cfg)
-    step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
+    step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)
     reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
     swap = make_swap_update(ops, setup.swap_cfg, precond)
     mstep = M.make_measurement_step(ops, setup.mspec, setup.solver_cfg, precond)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = init_phonons_half_filled(ops, params, 1, gen)
-    box = {"state": HMCState(x=x, v=torch.zeros_like(x))}
+    box = {"state": HMCState(x=x, v=torch.zeros_like(x)), "step": step}
 
     def run():
+        t0 = time.perf_counter()
         state, stats = step(params, box["state"], gen)
+        torch.cuda.synchronize()
+        box["update_s"] = time.perf_counter() - t0
         x, _ = reflect(params, state.x, gen)
         x, _ = swap(params, x, gen)
         inc, mstats, snaps = mstep(params, x, gen)
@@ -218,7 +256,7 @@ def _driver_step():
         box["state"] = HMCState(x=x, v=state.v)
         return stats.iters
 
-    return run
+    return run, box
 
 
 if __name__ == "__main__":
