@@ -51,12 +51,13 @@ Phases (one line each, and the process exits non-zero if any fails):
 12. Langevin dynamics and the other solver kinds, 4×4 float64 on the card
     (K1 forced on, the dense Ā off) against the CPU: one Euler, one
     Runge-Kutta and one Heun step with the same injected draws, Holstein
-    and SSH; ``solve_minv`` and ``solve_oinv`` by GMRES and by BiCGStab with
+    and SSH (the graphed step, replays > 0); ``solve_minv`` and ``solve_oinv`` by GMRES and by BiCGStab with
     the left and right KPM applies; a block-CG probe solve; 1e-10 in x;
 13. the Langevin configurations at full width, ``LANGEVIN_64X64`` (16
     chains) and ``SSH_LANGEVIN_64X64`` (8 chains): 1 warm-up and 3 timed
-    Runge-Kutta steps, steps per second, CG iterations per solve, flags 0,
-    launch counts per kernel mode; and on the kernel 64×64 model nᵥ = 10
+    Runge-Kutta steps through the graphed step (replays > 0), steps per
+    second, CG iterations per solve, flags 0, launch counts per kernel
+    mode; and on the kernel 64×64 model nᵥ = 10
     probe solves per chain by CG, block CG, GMRES and BiCGStab: iterations,
     seconds, the solutions' mutual distance, K2 launches of the left and
     right applies; then block CG on complex fields at full width (phase
@@ -65,6 +66,7 @@ Phases (one line each, and the process exits non-zero if any fails):
     counts cut, and the same file at 64×64, β = 4 (4 chains, a few steps,
     one measurement) with BondBond, CurrentCurrent and BondPairGreens
     switched on (nᵥ = 10; BondBond and BondPairGreens time dependent);
+    both runs step through the graphed Langevin step (replays > 0);
 15. K1's complex mode (complex hopping: twisted boundaries) against its
     twin in complex64 and complex128, all directions, in its three table
     forms at the twisted 64×64 shapes: [Nb] tables on [16, 4096, 40] and
@@ -216,8 +218,23 @@ Phases (one line each, and the process exits non-zero if any fails):
     per-column, K1 per-chain at K = 1, K2 per-chain), each kernel form
     launched inside the graphs as often as in the eager update (JSON
     ``graphed_update_ssh.json`` beside phase 36's).
+38. the graphed Langevin step (``dynamics/langevin.py``: the one-rank CG
+    step's segments as CUDA graphs) against the eager step, asked for by
+    name, at ``LANGEVIN_64X64`` (16 chains, RK; K1 and K2 inside the
+    graphs), ``SSH_LANGEVIN_64X64`` (8 chains, RK; K1 per-chain and
+    per-column, K2 per-chain) and the stock
+    ``examples/holstein_langevin_square.toml`` step (4×4, one chain): two
+    steps each way on the same draws from the same fields, x bit for bit or
+    within ``GRAPH_X_REL_TOL``, equal iterations and flags, replays = host
+    reads + 1, equal K1 / K2 launches by form on the second step; graphs,
+    capture seconds, pool bytes, busy share and chain-steps/s in
+    ``GRAPH_AB_BLOCKS`` interleaved blocks (``chiprun_out/
+    graphed_langevin.json``); at 4×4, ``LANGEVIN_LONG_STEPS`` graphed steps
+    with no growth of allocated device memory between step 5 and the last,
+    and none over ``LANGEVIN_REBUILDS`` steps built afresh; then the
+    allocated memory against what Python reaches, by memory pool.
 
-Phases 36 and 37 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
+Phases 36, 37 and 38 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
 phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
@@ -237,6 +254,7 @@ kernel-vs-twin phases make that launch before they time.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import math
@@ -278,8 +296,12 @@ def device_ms(fn, reps: int = 30, replays: int = 3) -> float:
     (after a warm-up call on the capture stream), the graph replayed
     ``replays`` times between two CUDA events, over ``replays``·``reps``.
     The captured launches run back to back on the card, so the host's pace
-    does not enter, and no profiler trace (CUPTI) is needed."""
-    stream = torch.cuda.Stream()
+    does not enter, and no profiler trace (CUPTI) is needed. The capture
+    stream is the port's (``graphs.capture_stream``): a fresh stream per
+    call would leave a cuBLAS workspace on each."""
+    from elphdynamics_tpu_torch.dynamics.graphs import capture_stream
+
+    stream = capture_stream(torch.device("cuda"))
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         fn()
@@ -735,8 +757,9 @@ MODES = {"holstein": ("fold/shared", "fused/shared"),
 def phase_small_langevin_reference() -> None:
     """One Euler, one Runge-Kutta and one Heun step of the 4×4 Holstein and
     SSH models in float64 on the card (K1 forced on, the dense Ā off, so K2
-    runs) against the same step on the CPU (plain twins), with the same
-    injected draws."""
+    runs; the graphed step, its replays > 0) against the same step on the
+    CPU (plain twins, the segments run directly), with the same injected
+    draws."""
     from elphdynamics_tpu_torch.bench import build_langevin_step
     from elphdynamics_tpu_torch.dynamics import langevin as tl
     from elphdynamics_tpu_torch.ops import ckb_cuda
@@ -755,16 +778,18 @@ def phase_small_langevin_reference() -> None:
                     moved = tl.LangevinDraws(eta=draws.eta.to(dev),
                                              g=tuple(g.to(dev) for g in draws.g))
                     ckb_cuda.reset_counts()
-                    x1, stats = b.step(b.params, x0.to(dev), draws=moved)
+                    with counting_replays() as replays:
+                        x1, stats = b.step(b.params, x0.to(dev), draws=moved)
                     runs[dev] = (x1.cpu(), stats.iters.cpu(), stats.flag.cpu(),
-                                 dict(ckb_cuda.table_launches))
+                                 dict(ckb_cuda.table_launches), replays["n"])
                 dx = (runs["cuda"][0] - runs["cpu"][0]).abs().max().item()
                 n = runs["cuda"][3]
                 say("small_langevin_reference", model=model, method=method,
                     max_abs_dx=f"{dx:.3e}", tol=1e-10, iters=runs["cuda"][1].tolist(),
                     iters_equal=bool(torch.equal(runs["cuda"][1], runs["cpu"][1])),
-                    cuda_launches=n, cpu_launches=sum(runs["cpu"][3].values()))
-                if not (dx <= 1e-10 and int(runs["cuda"][2].max()) == 0
+                    cuda_launches=n, cpu_launches=sum(runs["cpu"][3].values()),
+                    graph_replays=runs["cuda"][4])
+                if not (dx <= 1e-10 and int(runs["cuda"][2].max()) == 0 and runs["cuda"][4] > 0
                         and int(runs["cpu"][2].max()) == 0
                         and all(n[m] > 0 for m in MODES[model])
                         and sum(runs["cpu"][3].values()) == 0):
@@ -817,7 +842,8 @@ def phase_small_solver_reference() -> None:
 
 def run_langevin_config(cfg, warmup: int, timed: int) -> dict:
     """Build the Langevin configuration ``cfg`` on the card in float32 and
-    run warm-up + timed steps."""
+    run warm-up + timed steps (the graphed step: the warm-up captures, the
+    timed steps replay)."""
     from elphdynamics_tpu_torch.bench import build
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
@@ -831,13 +857,14 @@ def run_langevin_config(cfg, warmup: int, timed: int) -> dict:
     torch.cuda.synchronize()
     ckb_cuda.reset_counts()
     iters, flags = [], []
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        x, stats = b.step(b.params, x, b.generator)
-        iters.append(stats.iters)
-        flags.append(stats.flag)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with counting_replays() as replays:
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            x, stats = b.step(b.params, x, b.generator)
+            iters.append(stats.iters)
+            flags.append(stats.flag)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     by_table = dict(ckb_cuda.table_launches)
     iters, flags = torch.stack(iters).cpu(), torch.stack(flags).cpu()
     out = dict(steps_per_s=cfg.n_chains * timed / elapsed, s_per_step=elapsed / timed,
@@ -845,7 +872,8 @@ def run_langevin_config(cfg, warmup: int, timed: int) -> dict:
                max_flag=int(flags.max()),
                launches_per_step={k: v / timed for k, v in by_table.items() if v},
                table_launches=by_table, build_s=build_s, seconds=elapsed,
-               x_shape=tuple(x.shape), x_finite=bool(torch.isfinite(x).all()))
+               graph_replays=replays["n"], x_shape=tuple(x.shape),
+               x_finite=bool(torch.isfinite(x).all()))
     say(cfg.name, chains=cfg.n_chains, L=cfg.L, timed_steps=timed,
         **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out.items()})
     out["launch_shapes"] = set(ckb_cuda.launch_shapes)
@@ -854,6 +882,9 @@ def run_langevin_config(cfg, warmup: int, timed: int) -> dict:
     if not (out["x_finite"] and out["x_shape"] == shape) or out["max_flag"] != 0 or idle:
         raise RuntimeError(f"{cfg.name}: non-finite or misshapen output, flag "
                            f"{out['max_flag']}, or kernel modes launched no time: {idle}")
+    # the one-rank CG step of a real field is the graphed one (dynamics/langevin.py)
+    if b.step.segmented and cfg.twist is None and replays["n"] <= 0:
+        raise RuntimeError(f"{cfg.name}: the graphed Langevin step replayed no graph")
     return out
 
 
@@ -1120,7 +1151,7 @@ def phase_driver_langevin() -> dict:
         small = json.loads(json.dumps(stock))
         small["langevin"].update(burnin_timesteps=2, simulation_timesteps=4, meas_freq=2)
         small["simulation"]["num_bins"] = 2
-        run_driver("langevin_square_4x4", small, 1, work)
+        small_out = run_driver("langevin_square_4x4", small, 1, work)
         big = json.loads(json.dumps(stock))
         big["lattice"]["L"] = 64
         big["holstein"]["beta"] = 4.0
@@ -1135,6 +1166,10 @@ def phase_driver_langevin() -> dict:
     if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
         raise RuntimeError("the 64x64 Langevin driver run launched a kernel no time: "
                            f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
+    # the one-card CG Langevin step is graphed (dynamics/langevin.py)
+    if min(small_out["graph_replays"], out["graph_replays"]) <= 0:
+        raise RuntimeError(f"a Langevin driver run replayed no CUDA graph: 4x4 "
+                           f"{small_out['graph_replays']}, 64x64 {out['graph_replays']}")
     return out
 
 
@@ -2840,8 +2875,9 @@ def phase_ed_float32() -> None:
 U_F32 = 2.0 ** -24                # float32 unit roundoff
 GRAPH_X_REL_TOL = 1e-6            # x, relative, where the two paths' bits differ
 GRAPH_AB_BLOCKS = 5               # interleaved blocks of each form per configuration
-# updates per block; 32×32 and SSH 8×8 at 1 (from 2) pay for phase 37
-GRAPH_AB_UPDATES = {"bench_8x8": 2, "bench_32x32": 1, "kernel_64x64": 1, "ssh_8x8": 1,
+# updates per block; 32×32 and SSH 8×8 at 1 (from 2) pay for phase 37,
+# 8×8 at 1 (from 2) for phase 38
+GRAPH_AB_UPDATES = {"bench_8x8": 1, "bench_32x32": 1, "kernel_64x64": 1, "ssh_8x8": 1,
                     "ssh_64x64": 1}
 
 
@@ -2884,9 +2920,10 @@ def _eager_twin(b):
 
 
 def _counted_update(step, params, state, draws):
-    """One update on ``draws``, every count set to 0 just before and read
-    just after: (state, stats, {seconds, K1/K2 launches by form, host
-    reads, graph replays})."""
+    """One update (or Langevin step: ``state`` the fields) on ``draws``,
+    every count set to 0 just before and read just after: (state, stats,
+    {seconds, K1/K2 launches by form and their shapes, host reads, graph
+    replays})."""
     from elphdynamics_tpu_torch import solvers
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
@@ -2899,7 +2936,8 @@ def _counted_update(step, params, state, draws):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     return out, stats, dict(seconds=seconds, launches=dict(ckb_cuda.table_launches),
-                            host_reads=solvers.host_reads, replays=box["n"])
+                            shapes=set(ckb_cuda.launch_shapes), host_reads=solvers.host_reads,
+                            replays=box["n"])
 
 
 def _replay_busy_share(step, params, state, draws) -> dict:
@@ -2962,13 +3000,11 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
     return out
 
 
-def _sweeps_ab(b, eager, name: str, n_chains: int) -> dict:
-    """Sweeps per second of the eager and the graphed update in
-    ``GRAPH_AB_BLOCKS`` interleaved blocks each (E G G E ...), every block
-    ``GRAPH_AB_UPDATES[name]`` updates from one start on one seed: medians,
-    quartiles and IQRs."""
-    updates = GRAPH_AB_UPDATES[name]
-    start = b.state
+def _sweeps_ab(b, eager, n_chains: int, start, updates: int) -> dict:
+    """Sweeps (or chain-steps) per second of the eager and the graphed step
+    in ``GRAPH_AB_BLOCKS`` interleaved blocks each (E G G E ...), every
+    block ``updates`` steps from ``start`` on one seed: medians, quartiles
+    and IQRs."""
     rates = {"eager": [], "graphed": []}
     order = [("eager", "graphed")[(i // 2 + i) % 2] for i in range(2 * GRAPH_AB_BLOCKS)]
     for form in order:
@@ -3014,7 +3050,7 @@ def _graphed_against_eager(configs, forms: dict, out_file: str) -> dict:
         draws = eager.draw(b.params, b.state.x, cfg.n_chains,
                            torch.Generator(device="cuda").manual_seed(5))
         res["busy_graphed"] = _replay_busy_share(b.step, b.params, b.state, draws)
-        res["ab"] = _sweeps_ab(b, eager, cfg.name, cfg.n_chains)
+        res["ab"] = _sweeps_ab(b, eager, cfg.n_chains, b.state, GRAPH_AB_UPDATES[cfg.name])
         ab = res["ab"]
         say(f"graph_ab_{cfg.name}", chains=cfg.n_chains, blocks=GRAPH_AB_BLOCKS,
             updates_per_block=GRAPH_AB_UPDATES[cfg.name],
@@ -3063,6 +3099,175 @@ def phase_graphed_update_ssh() -> dict:
         "graphed_update_ssh.json")
 
 
+# phase 38: the graphed Langevin step against the eager one
+# steps per interleaved block (the eager stock 4×4 step takes ~0.8 s)
+LANGEVIN_AB_STEPS = {"langevin_64x64": 2, "ssh_langevin_64x64": 2, "langevin_stock_4x4": 2}
+LANGEVIN_LONG_STEPS = 200   # graphed steps at the stock 4×4 shape; memory read after 5 and after these
+LANGEVIN_REBUILDS = 3       # fresh graphed steps of that model, memory read after each
+
+
+def _langevin_parity(b, eager, name: str, forms=()) -> dict:
+    """Two steps of ``b``'s graphed Langevin step and of its eager twin on
+    the same draws from the same fields: x bit for bit or within
+    ``GRAPH_X_REL_TOL``, finite and of its shape, equal iterations and
+    flags (0); in both steps replays = host reads + 1; on the second (the
+    first captures) equal K1 / K2 launches by form, each of ``forms``
+    launched, and equal host reads."""
+    x, out = b.x, {}
+    for u in (1, 2):
+        draws = eager.draw(b.params, x, x.shape[0], b.generator)
+        xg, tg, mg = _counted_update(b.step, b.params, x, draws)
+        xe, te, me = _counted_update(eager, b.params, x, draws)
+        x_rel = float((xg - xe).abs().max() / xe.abs().max())
+        same = torch.equal(tg.iters, te.iters) and torch.equal(tg.flag, te.flag)
+        finite = bool(torch.isfinite(xg).all()) and xg.shape == x.shape
+        row = dict(bitwise=torch.equal(xg, xe), x_rel=f"{x_rel:.3e}", iters_flags_equal=same,
+                   x_finite=finite, max_flag=int(tg.flag.max()),
+                   cg_iters=f"{tg.iters.double().mean().item():.2f}",
+                   graphed_s=f"{mg['seconds']:.4f}", eager_s=f"{me['seconds']:.4f}",
+                   replays=mg["replays"], host_reads_graphed=mg["host_reads"],
+                   host_reads_eager=me["host_reads"],
+                   launches_graphed={f: mg["launches"][f] for f in forms},
+                   launches_eager={f: me["launches"][f] for f in forms})
+        if u == 1:
+            ws = b.step.workspace()
+            row.update(graphs=sorted(ws.graphs.graphs), capture_s=f"{ws.graphs.capture_s:.3f}",
+                       pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}")
+        say(f"graph_parity_{name}", step=u, **row)
+        if not (row["bitwise"] or x_rel <= GRAPH_X_REL_TOL) or not same or not finite \
+                or row["max_flag"] != 0:
+            raise RuntimeError(f"graphed {name} step {u} left the eager one: {row}")
+        if mg["replays"] != mg["host_reads"] + 1:
+            raise RuntimeError(f"graphed {name} step {u}: replays are not host reads + 1: {row}")
+        if u == 2 and (mg["launches"] != me["launches"] or mg["host_reads"] != me["host_reads"]
+                       or any(mg["launches"][f] <= 0 for f in forms)):
+            raise RuntimeError(f"graphed {name}: launches or host reads differ, or a form "
+                               f"launched no time: {row}")
+        out[u] = row
+        out["table_launches"], out["launch_shapes"] = mg["launches"], mg["shapes"]
+        x = xe
+    return out
+
+
+def _langevin_memory(b) -> dict:
+    """``LANGEVIN_LONG_STEPS`` graphed steps from ``b``'s fields: allocated
+    device memory after step 5 and after the last (no growth allowed), x
+    finite and every flag 0; then ``LANGEVIN_REBUILDS`` graphed steps built
+    afresh on the same model (new workspace and graphs each, the last one
+    dropped first): allocated memory after each (no growth allowed after
+    the first)."""
+    from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x, flag, mem = b.x, None, {}
+    t0 = time.perf_counter()
+    for n in range(1, LANGEVIN_LONG_STEPS + 1):
+        x, st = b.step(b.params, x, g)
+        flag = st.flag if flag is None else torch.maximum(flag, st.flag)
+        if n in (5, LANGEVIN_LONG_STEPS):
+            torch.cuda.synchronize()
+            mem[n] = torch.cuda.memory_allocated()
+    seconds = time.perf_counter() - t0
+    rebuilt = []
+    for _ in range(LANGEVIN_REBUILDS):
+        step = make_langevin_step(b.ops, b.Q, b.dt, b.method, b.solver, b.precond)
+        step(b.params, b.x, g)
+        del step
+        gc.collect()
+        torch.cuda.synchronize()
+        rebuilt.append(torch.cuda.memory_allocated())
+    out = dict(steps=LANGEVIN_LONG_STEPS, seconds=seconds, s_per_step=seconds / LANGEVIN_LONG_STEPS,
+               allocated_after_5=mem[5], allocated_after_last=mem[LANGEVIN_LONG_STEPS],
+               growth_bytes=mem[LANGEVIN_LONG_STEPS] - mem[5], rebuilt_allocated=rebuilt,
+               rebuild_growth_bytes=rebuilt[-1] - rebuilt[0],
+               x_finite=bool(torch.isfinite(x).all()), max_flag=int(flag.max()))
+    say("graphed_langevin_memory", **out)
+    if out["growth_bytes"] > 0 or out["rebuild_growth_bytes"] > 0 or not out["x_finite"] \
+            or out["max_flag"] != 0:
+        raise RuntimeError(f"the graphed stock Langevin step grew device memory or failed: {out}")
+    return out
+
+
+def _cuda_memory_report() -> dict:
+    """Allocated device memory against the CUDA tensors the garbage
+    collector reaches, and the allocator's active blocks by memory pool:
+    the default pool, or the private pools of CUDA graphs (with how many
+    such pools hold any)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    storages = {}
+    for o in gc.get_objects():
+        if torch.is_tensor(o) and o.is_cuda:
+            st = o.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    allocated = torch.cuda.memory_allocated()
+    by_pool: dict = {}
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        active = sum(blk["size"] for blk in seg["blocks"] if blk["state"] == "active_allocated")
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        by_pool[pool] = by_pool.get(pool, 0) + active
+    graph_pools = [v for k, v in by_pool.items() if k != (0, 0) and v > 0]
+    out = dict(allocated_mb=allocated / 2**20, python_tensors_mb=sum(storages.values()) / 2**20,
+               held_outside_python_mb=(allocated - sum(storages.values())) / 2**20,
+               default_pool_active_mb=by_pool.get((0, 0), 0) / 2**20,
+               graph_pools_active_mb=sum(graph_pools) / 2**20, graph_pools_active=len(graph_pools))
+    say("cuda_memory_after_graph_phases",
+        **{k: (f"{v:.1f}" if isinstance(v, float) else v) for k, v in out.items()})
+    return out
+
+
+def phase_graphed_langevin() -> dict:
+    """38. The graphed Langevin step against the eager one, asked for by
+    name: ``LANGEVIN_64X64`` (16 chains, RK; K1 and K2 inside the graphs),
+    ``SSH_LANGEVIN_64X64`` (8 chains, RK; K1 per-chain and per-column, K2
+    per-chain) and the stock ``examples/holstein_langevin_square.toml``
+    step (4×4, one chain, RK, KPM max_order 64: the host-bound extreme):
+    :func:`_langevin_parity`, the graphed step's busy share, chain-steps/s
+    in interleaved blocks, and at 4×4 :func:`_langevin_memory`; then
+    :func:`_cuda_memory_report`. JSON ``graphed_langevin.json``. Returns
+    the 64×64 configurations' second graphed steps (launches, shapes)."""
+    from elphdynamics_tpu_torch.bench import (
+        LANGEVIN_64X64, SSH_LANGEVIN_64X64, build, build_langevin_example)
+
+    stock = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                         "holstein_langevin_square.toml")
+    runs = ((LANGEVIN_64X64.name, lambda: build(LANGEVIN_64X64, "cuda", torch.float32),
+             MODES["holstein"]),
+            (SSH_LANGEVIN_64X64.name, lambda: build(SSH_LANGEVIN_64X64, "cuda", torch.float32),
+             MODES["ssh"]),
+            ("langevin_stock_4x4", lambda: build_langevin_example(stock, 1, "cuda", torch.float32),
+             ()))
+    out = {}
+    for name, make, forms in runs:
+        b = make()
+        eager = b.eager()
+        if not b.step.segmented or eager.segmented:
+            raise RuntimeError(f"{name}: the Langevin step is not the graphed one")
+        res = out[name] = {"parity": _langevin_parity(b, eager, name, forms)}
+        chains = b.x.shape[0]
+        draws = eager.draw(b.params, b.x, chains, torch.Generator(device="cuda").manual_seed(5))
+        res["busy_graphed"] = _replay_busy_share(b.step, b.params, b.x, draws)
+        ab = res["ab"] = _sweeps_ab(b, eager, chains, b.x, LANGEVIN_AB_STEPS[name])
+        ws = b.step.workspace()
+        say(f"graph_ab_{name}", chains=chains, blocks=GRAPH_AB_BLOCKS,
+            steps_per_block=LANGEVIN_AB_STEPS[name], graphs=len(ws.graphs.graphs),
+            eager_median=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
+            graphed_median=f"{ab['graphed']['median']:.4f}",
+            graphed_iqr=f"{ab['graphed']['iqr']:.4f}",
+            speedup_median=f"{ab['speedup_median']:.3f}",
+            eager_blocks=ab["eager"]["blocks"], graphed_blocks=ab["graphed"]["blocks"],
+            graphed_replay_busy=f"{res['busy_graphed']['replay_busy_share']:.4f}")
+        if name == "langevin_stock_4x4":
+            res["memory"] = _langevin_memory(b)
+        del b, eager, ws
+    out["memory_report"] = _cuda_memory_report()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "graphed_langevin.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return {f"graphed_{name}": out[name]["parity"]
+            for name in (LANGEVIN_64X64.name, SSH_LANGEVIN_64X64.name)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3108,6 +3313,7 @@ def main() -> int:
                                f"acceptance {big['acceptance']}")
     phase_graphed_update()
     phase_graphed_update_ssh()
+    graphed_lang = phase_graphed_langevin()
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
@@ -3147,6 +3353,9 @@ def main() -> int:
                       TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep,
                       "chain_sharded_64x64": chains}
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
+    # phase 38's second graphed steps: the kernels inside the Langevin graphs
+    for k, r in graphed_lang.items():
+        (ssh_paths if "ssh" in k else holstein_paths)[k] = r
     # slice H2's paths that reach the kernels: tempering on chain ranks (each
     # rank's own counts) and the chain blocks' measurements of the 2x2 layout
     for tag, paths in (("", h2), ("_nccl", (nccl or {}).get("h2", {}))):

@@ -70,6 +70,12 @@ solves of MᵀM·z = Mᵀg, no Metropolis test):
 * ``LANGEVIN_64X64``: the Holstein model and KPM of ``KERNEL_64X64``, 16
   chains;
 * ``SSH_LANGEVIN_64X64``: the SSH model and KPM of ``SSH_64X64``, 8 chains.
+
+Both replay CUDA graphs on a card (the graphed Langevin step,
+``dynamics/langevin.py``); :meth:`LangevinBench.eager` is the eager twin.
+:func:`build_langevin_example` builds a stock ``[langevin]`` file's step
+as the driver does (``examples/holstein_langevin_square.toml``: 4×4, β = 2,
+RK, KPM max_order 64).
 """
 
 from __future__ import annotations
@@ -160,6 +166,17 @@ class LangevinBench:
     x: torch.Tensor         # initial fields [C, Nph, Lτ]
     generator: torch.Generator
     precond: object         # the step's kpm.Preconditioner
+    # what the step was built from
+    Q: object               # the [Nph, Lτ] acceleration spectrum
+    dt: float
+    method: str
+    solver: SolverConfig
+
+    def eager(self):
+        """The same step asked for eager (the same model and
+        preconditioner, so the same draws give the same step)."""
+        return make_langevin_step(self.ops, self.Q, self.dt, self.method, self.solver,
+                                  self.precond, eager=True)
 
 
 def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
@@ -217,11 +234,37 @@ def build_langevin_step(L: int, beta: float, dtau: float, dt: float, n_chains: i
     Q = build_Q(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
                 [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
     precond = kpm.make_precond(ops, kpm.KPMConfig(max_order=8 if model == "ssh" else 4))
+    return _langevin_bench(ops, params, Q, dt, method, solver, precond, n_chains, device, seed)
+
+
+def build_langevin_example(path: str, n_chains: int = 1, device="cuda",
+                           dtype: torch.dtype = torch.float32, seed: int = 0) -> LangevinBench:
+    """The Langevin step of the input file ``path`` (a ``[langevin]`` TOML
+    such as ``examples/holstein_langevin_square.toml``) as the driver builds
+    it on one card, its model drawn from ``seed``, and half-filled initial
+    fields of ``n_chains`` chains on ``device``."""
+    from elphdynamics_tpu_torch.io.config import build_setup, load_toml
+
+    device = require_device(device)
+    cfg = load_toml(path)
+    cfg["simulation"]["random_seed"] = seed
+    setup = build_setup(cfg, "", device, dtype)
+    if setup.dynamics_type != "langevin":
+        raise ValueError(f"{path}: not a [langevin] input file")
+    ops = setup.ops
+    precond = kpm.make_precond(ops, setup.kpm_cfg) if setup.kpm_cfg is not None else None
+    return _langevin_bench(ops, setup.params, setup.fa_Q, setup.langevin_dt,
+                           setup.langevin_method, setup.solver_cfg, precond, n_chains, device,
+                           seed)
+
+
+def _langevin_bench(ops, params, Q, dt, method, solver, precond, n_chains, device,
+                    seed) -> LangevinBench:
     gen = torch.Generator(device=device).manual_seed(seed)
     return LangevinBench(ops=ops, params=params,
                          step=make_langevin_step(ops, Q, dt, method, solver, precond),
                          x=init_phonons_half_filled(ops, params, n_chains, gen), generator=gen,
-                         precond=precond)
+                         precond=precond, Q=Q, dt=dt, method=method, solver=solver)
 
 
 def _holstein_model(L, beta, dtau, dtype, device, dense_threshold, pallas_threshold,

@@ -1,13 +1,16 @@
-"""CUDA graphs of an update: the port's counterpart of the JAX package's
-compiled update (``jax.jit`` over ``lax.while_loop`` bodies).
+"""CUDA graphs of an update or a Langevin step: the port's counterpart of
+the JAX package's compiled update (``jax.jit`` over ``lax.while_loop``
+bodies).
 
 An update is split into segments, each a function over one
 :class:`Workspace` of tensors that keep their addresses from one update to
-the next. On a CUDA device every segment is captured once into a
-``torch.cuda.CUDAGraph``, all of one update's graphs in one memory pool and
-in the order they first replay, and then replayed; the host keeps only the
-loop control between replays (``any(active)`` before a CG block, ``any(bad)``
-after a verification). On the CPU each segment is called directly, so the
+the next. Its CG solves are the segments of :class:`CGSolve`, shared by
+the HMC update (``dynamics/hmc.py``) and the Langevin step
+(``dynamics/langevin.py``). On a CUDA device every segment is captured
+once into a ``torch.cuda.CUDAGraph``, all of one update's graphs in one
+memory pool and in the order they first replay, and then replayed; the
+host keeps only the loop control between replays (``any(active)`` before
+a CG block, ``any(bad)`` after a verification). On the CPU each segment is called directly, so the
 tier-1 tests run the same code the graphs hold.
 
 Before its capture every segment runs once eagerly on the capture stream
@@ -30,7 +33,14 @@ from dataclasses import fields, replace
 
 import torch
 
+from elphdynamics_tpu_torch import solvers
+from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, _cg_operators, precond_applies
 from elphdynamics_tpu_torch.ops import ckb_cuda
+
+# parameters a graph holds a value derived from: Holstein's exp(−Δτ·K) and
+# its inverse (the bf16 operand of the in-loop MᵀM); a change needs a new
+# workspace and new graphs
+REBUILD = ("expK", "expK_inv")
 
 
 def capturing(device: torch.device) -> bool:
@@ -133,18 +143,176 @@ class Workspace:
             dst.copy_(src)
         return kept
 
+    def put_start(self, src) -> None:
+        """Keep the preconditioner's power-iteration start vectors ``src``
+        (a tuple of tensors) on the device as ``self.kpm_start``, copied in
+        only when ``src`` is another tuple than the last one."""
+        if self.__dict__.get("start_src") is not src:
+            self.kpm_start = tuple(self.put(f"kpm_start{i}", s.to(self.device))
+                                   for i, s in enumerate(src))
+            self.start_src = src
+
+    def capture_once(self, segments) -> None:
+        """On a CUDA device, the first time: warm up and capture the
+        ``(name, fn)`` pairs that ``segments()`` lists."""
+        if self.graphs is not None and not self.graphs.graphs:
+            seq = segments()
+            self.graphs.warm_up(seq)
+            self.graphs.capture(seq)
+
+    def run(self, name: str, fn) -> None:
+        """Segment ``name``: its graph replayed on a CUDA device, ``fn``
+        called on the CPU."""
+        if self.graphs is None:
+            fn()
+        else:
+            self.graphs.replay(name)
+
+
+def step_workspace(box: dict, params, x) -> Workspace:
+    """The workspace kept in ``box`` for fields like ``x``, its parameters
+    brought to ``params``; a new one (new graphs) where the device, dtype or
+    shape differ or where a parameter of :data:`REBUILD` changed. A graph
+    derives nothing else from the parameters: it reads the kept copy on
+    every replay."""
+    ws = box.get("ws")
+    key = (x.device, x.dtype, tuple(x.shape))
+    if ws is not None and ws.key == key and ws.keep_params(params, REBUILD):
+        return ws
+    ws = box["ws"] = Workspace(x.device)
+    ws.key = key
+    ws.keep_params(params)
+    ws.graphs = UpdateGraphs(x.device) if x.device.type == "cuda" else None
+    ws.retries = 0
+    ws.put("tol", torch.zeros((), dtype=torch.float64, device=x.device))
+    return ws
+
+
+def graphable_precond(precond) -> bool:
+    """Whether the segments cover ``precond``: none, or a KPM
+    preconditioner without the exact low-frequency blocks."""
+    return precond is None or (precond.cfg is not None and precond.cfg.exact_lowfreq == 0)
+
+
+class CGSolve:
+    """The CG solve of MᵀM·z = ``ws.<rhs>`` (KPM-preconditioned or plain)
+    as segments over a workspace (the derived state ``ws.env``, stacked by
+    ``ops.stack`` where ``stacked``; the tolerance ``ws.tol``; the
+    preconditioner state ``ws.kpm``): its start (:meth:`start`), blocks of
+    ``solvers.CG_SYNC_EVERY`` masked iterations (:meth:`block`), the
+    verification (:meth:`verify`) and its rare retry (:meth:`retry`, run
+    eagerly), each doing :func:`..solvers.solve_checked`'s arithmetic.
+    :meth:`solve` keeps the eager solve's host reads: ``any(active)``
+    before each block, and ``any(bad)`` after the verification where a
+    preconditioner makes a retry possible."""
+
+    def __init__(self, ops, precond, maxiter: int, kappa_max: float, loop_precision,
+                 rhs: str, stacked: bool):
+        self.ops, self.precond = ops, precond
+        self.maxiter, self.kappa_max, self.loop_precision = maxiter, kappa_max, loop_precision
+        self.rhs, self.stacked = rhs, stacked
+
+    def _hot(self, ws, tol):
+        """The in-loop MᵀM of a solve at ``tol`` on the workspace's field
+        (dynamics/solve._cg_operators)."""
+        return self._operators(ws, SolverConfig(tol=tol, loop_precision=self.loop_precision))
+
+    def _full(self, ws):
+        """The verification's (and the retry's) operator: the full MᵀM."""
+        return self._operators(ws, SolverConfig(loop_precision=None))
+
+    def _operators(self, ws, scfg):
+        env = self.ops.stack(ws.env) if self.stacked else ws.env
+        return _cg_operators(self.ops, ws.params, env, scfg)[0]
+
+    def kind(self, tol) -> str:
+        """The CG block graph of a solve at ``tol``: one graph serves every
+        solve whose in-loop operator is the full one."""
+        loop = _cg_operators(self.ops, None, None, SolverConfig(
+            tol=tol, loop_precision=self.loop_precision))[1] is not None
+        return "cg_block_loop" if loop else "cg_block"
+
+    def _P(self, ws):
+        if self.precond is None:
+            return None
+        return precond_applies(self.precond, ws.kpm).symmetric
+
+    def start(self, ws, tol: float, guess=None) -> None:
+        """The solve's start at ``tol`` from ``guess`` (zero for None)."""
+        ws.tol.fill_(tol)
+        st = solvers.cg_init(self._hot(ws, tol), getattr(ws, self.rhs), guess,
+                             apply_P=self._P(ws), tol=ws.tol)
+        if "cg" in ws:
+            ws.cg.load_(st)
+        else:
+            ws.keep("cg", st.clone())
+
+    def block(self, ws, tol) -> None:
+        solvers.cg_block(self._hot(ws, tol), ws.cg, apply_P=self._P(ws), tol=ws.tol,
+                         maxiter=self.maxiter, kappa_max=self.kappa_max)
+
+    def verify(self, ws) -> None:
+        ws.load("verdict", solvers.cg_verify(self._full(ws), getattr(ws, self.rhs), ws.cg.x,
+                                             ws.cg.iters, ws.tol, self.maxiter))
+
+    def retry(self, ws) -> None:
+        """The verification's retry, eager (it runs only when a system
+        failed), through the same kernels; its result goes into the
+        workspace."""
+        res = solvers.cg_retry(self._full(ws), getattr(ws, self.rhs), ws.cg.x, ws.cg.iters,
+                               ws.verdict, ws.tol, self.maxiter, self.kappa_max)
+        ws.cg.x.copy_(res.x)
+        ws.cg.iters.copy_(res.iters)
+        ws.verdict.flag.copy_(res.flag)
+        ws.verdict.residual.copy_(res.residual)
+        ws.retries += 1
+
+    def segments(self, ws, tol) -> list:
+        """The solve's segments in capture order: one CG block, the
+        verification."""
+        return [(self.kind(tol), lambda: self.block(ws, tol)), ("verify", lambda: self.verify(ws))]
+
+    def solve(self, ws, tol) -> None:
+        """The host loop of a started solve: blocks while any system is
+        active, the verification, and the retry where a system failed."""
+        j = 0
+        while j < self.maxiter and solvers.host_any(ws.cg.active):
+            ws.run(self.kind(tol), lambda: self.block(ws, tol))
+            j += solvers.CG_SYNC_EVERY
+        ws.run("verify", lambda: self.verify(ws))
+        if self.precond is not None and solvers.host_any(ws.verdict.bad):
+            self.retry(ws)
+
+
+# one capture stream per device for every graph set: cuBLAS allocates a
+# workspace (32 MiB on an H100) for each stream it first runs a product on
+# and keeps it until the process ends, and torch.cuda.Stream hands out up
+# to 32 pooled streams, so a stream per graph set left up to 32 of them
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream on which every graph set of ``device`` warms up and
+    captures."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
 
 class UpdateGraphs:
     """The captured segments of one update on one CUDA device: one graph
-    per segment name, one memory pool, one capture stream. Each graph keeps
-    the kernel launches counted during its capture
-    (:class:`..ops.ckb_cuda.LaunchRecord`), and every replay counts them
-    again, so the kernels' launch counts stay counts of launches on the
-    card."""
+    per segment name, one memory pool, the device's capture stream
+    (:func:`capture_stream`). Each graph keeps the kernel launches counted
+    during its capture (:class:`..ops.ckb_cuda.LaunchRecord`), and every
+    replay counts them again, so the kernels' launch counts stay counts of
+    launches on the card."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.stream = torch.cuda.Stream(device)
+        self.stream = capture_stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: dict = {}
         self.replays = 0          # replays since the graphs were made

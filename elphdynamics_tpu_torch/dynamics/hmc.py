@@ -61,11 +61,9 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.solve import (
-    SolverConfig, _cg_operators, precond_applies, precond_state, resolve_precond, site_reduce,
-    solve_oinv)
+    SolverConfig, precond_applies, precond_state, resolve_precond, site_reduce, solve_oinv)
 from elphdynamics_tpu_torch.models.adapter import (
     ModelOps, force_sum, global_phonons, global_sites, local_phonons, local_sites,
     phonon_sum, site_sum)
@@ -465,34 +463,14 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     # arithmetic in the eager update's order.
     segmented = (not eager and ops.shard is None
                  and cfg.integrator == "leapfrog" and cfg.solver_kind == "cg" and not cfg.block
-                 and cfg.deflate_k <= 0
-                 and (precond is None or (precond.cfg is not None
-                                          and precond.cfg.exact_lowfreq == 0)))
+                 and cfg.deflate_k <= 0 and graphs.graphable_precond(precond))
     box: dict = {}
-
-    def operators(ws, tol):
-        """(in-loop, verification) MᵀM of a solve at ``tol`` on the
-        workspace's field (dynamics/solve._cg_operators)."""
-        return _cg_operators(ops, ws.params, ops.stack(ws.env),
-                             SolverConfig(tol=tol, loop_precision=cfg.loop_precision))
-
-    def block_kind(tol) -> str:
-        """The CG block graph of a solve at ``tol``: one graph serves every
-        solve whose in-loop operator is the full one."""
-        loop = _cg_operators(ops, None, None, SolverConfig(
-            tol=tol, loop_precision=cfg.loop_precision))[1] is not None
-        return "cg_block_loop" if loop else "cg_block"
-
-    def check_op(ws):
-        """The verification's (and the retry's) operator: the full MᵀM."""
-        hot, chk = operators(ws, tol1)
-        return chk if chk is not None else hot
-
-    def P(ws):
-        return precond_applies(precond, ws.kpm).symmetric if precond is not None else None
+    cg = graphs.CGSolve(ops, precond, cfg.maxiter, cfg.kappa_max, cfg.loop_precision,
+                        rhs="Lphi", stacked=True)
 
     def chain_result(ws):
-        """The finished solve's per-chain iterations and flag."""
+        """The finished solve's per-chain iterations and flag (the mean
+        over the spin stack's systems, the largest flag)."""
         ns = ws.cg.iters.shape[1]
         return (ws.cg.iters.sum(dim=1) + ns - 1) // ns, ws.verdict.flag.amax(dim=1)
 
@@ -507,33 +485,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         MᵀM·z = ws.Lphi at ``tol`` (ws.env holds the field's derived state)."""
         if precond is not None:
             ws.load("kpm", precond.refresh(ws.kpm, ws.params, x))
-        ws.tol.fill_(tol)
-        st = solvers.cg_init(operators(ws, tol)[0], ws.Lphi, guess if use_g else None,
-                             apply_P=P(ws), tol=ws.tol)
-        if "cg" in ws:
-            ws.cg.load_(st)
-        else:
-            ws.keep("cg", st.clone())
-
-    def seg_cg_block(ws, tol):
-        solvers.cg_block(operators(ws, tol)[0], ws.cg, apply_P=P(ws), tol=ws.tol,
-                         maxiter=cfg.maxiter, kappa_max=cfg.kappa_max)
-
-    def seg_verify(ws):
-        ws.load("verdict", solvers.cg_verify(check_op(ws), ws.Lphi, ws.cg.x, ws.cg.iters,
-                                             ws.tol, cfg.maxiter))
-
-    def retry(ws):
-        """The verification's retry, eager (it runs only when a system
-        failed), through the same kernels; its result goes into the
-        workspace."""
-        res = solvers.cg_retry(check_op(ws), ws.Lphi, ws.cg.x, ws.cg.iters, ws.verdict, ws.tol,
-                               cfg.maxiter, cfg.kappa_max)
-        ws.cg.x.copy_(res.x)
-        ws.cg.iters.copy_(res.iters)
-        ws.verdict.flag.copy_(res.flag)
-        ws.verdict.residual.copy_(res.residual)
-        ws.retries += 1
+        cg.start(ws, tol, guess if use_g else None)
 
     def seg_start(ws):
         """Momenta, φ = Λ⁻¹·MᵀR, the KPM setup and the tol² solve's start."""
@@ -646,38 +598,12 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     def segments(ws):
         """Every segment once, in the order of a first update whose solves
         each stop after one CG block (the warm-up and the capture order)."""
-        k1, k2 = block_kind(tol1), block_kind(tol2)
-        seq = [("start", lambda: seg_start(ws)),
-               (k2, lambda: seg_cg_block(ws, tol2)), ("verify", lambda: seg_verify(ws)),
-               ("first", lambda: seg_first(ws)),
-               (k1, lambda: seg_cg_block(ws, tol1)), ("verify", lambda: seg_verify(ws))]
+        seq = [("start", lambda: seg_start(ws)), *cg.segments(ws, tol2),
+               ("first", lambda: seg_first(ws)), *cg.segments(ws, tol1)]
         if cfg.Nt > 1:
-            seq += [("step", lambda: seg_step(ws)), (k1, lambda: seg_cg_block(ws, tol1)),
-                    ("verify", lambda: seg_verify(ws))]
-        return seq + [("last", lambda: seg_last(ws)), (k2, lambda: seg_cg_block(ws, tol2)),
-                      ("verify", lambda: seg_verify(ws)), ("end", lambda: seg_end(ws))]
-
-    def workspace(params, x):
-        """The workspace of ``x``'s device, dtype and shape, its parameters
-        brought to ``params``; a new one (new graphs) where those differ or
-        where Holstein's exp(−Δτ·K), whose bf16 operand a graph holds,
-        changed. A graph derives nothing else from the parameters: it reads
-        the kept copy, SSH's (μ, t, ω, ω₄, α, α₂) included, on every
-        replay."""
-        ws = box.get("ws")
-        key = (x.device, x.dtype, tuple(x.shape))
-        if ws is not None and ws.key == key and ws.keep_params(params, ("expK", "expK_inv")):
-            return ws
-        ws = box["ws"] = graphs.Workspace(x.device)
-        ws.key = key
-        ws.keep_params(params)
-        ws.graphs = graphs.UpdateGraphs(x.device) if x.device.type == "cuda" else None
-        ws.retries = 0
-        ws.put("tol", torch.zeros((), dtype=torch.float64, device=x.device))
-        ws.put("k", torch.zeros(1, dtype=torch.int64, device=x.device))
-        if precond is not None:
-            ws.start_src = None
-        return ws
+            seq += [("step", lambda: seg_step(ws)), *cg.segments(ws, tol1)]
+        return seq + [("last", lambda: seg_last(ws)), *cg.segments(ws, tol2),
+                      ("end", lambda: seg_end(ws))]
 
     def graphed(params, state: HMCState, dt, generator, draws):
         x = state.x
@@ -685,8 +611,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             raise ValueError(f"state.x must be [C, Nph, Ltau], got {tuple(x.shape)}")
         if draws is None:
             draws = draw(ops, x.shape[0], x.dtype, x.device, generator, x.dtype)
-        ws = workspace(params, x)
+        ws = graphs.step_workspace(box, params, x)
         dev = x.device
+        if cfg.log_verbose and "k" not in ws:
+            ws.put("k", torch.zeros(1, dtype=torch.int64, device=dev))
         ws.put("x0", x)
         ws.put("v_in", state.v)
         ws.put("momentum", draws.momentum.to(x))
@@ -696,40 +624,19 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             ws.put("dt", (dt if torch.is_tensor(dt) else torch.tensor(dt, dtype=torch.float64))
                    .to(dev))
         if precond is not None:
-            src = draws.kpm_start if draws.kpm_start is not None else precond.start
-            if ws.start_src is not src:
-                ws.kpm_start = tuple(ws.put(f"kpm_start{i}", s.to(dev)) for i, s in enumerate(src))
-                ws.start_src = src
-        if ws.graphs is not None and not ws.graphs.graphs:
-            seq = segments(ws)
-            ws.graphs.warm_up(seq)
-            ws.graphs.capture(seq)
+            ws.put_start(draws.kpm_start if draws.kpm_start is not None else precond.start)
+        ws.capture_once(lambda: segments(ws))
 
-        def run(name, fn):
-            if ws.graphs is None:
-                fn()
-            else:
-                ws.graphs.replay(name)
-
-        def solve(tol):
-            j = 0
-            while j < cfg.maxiter and solvers.host_any(ws.cg.active):
-                run(block_kind(tol), lambda: seg_cg_block(ws, tol))
-                j += solvers.CG_SYNC_EVERY
-            run("verify", lambda: seg_verify(ws))
-            if precond is not None and solvers.host_any(ws.verdict.bad):
-                retry(ws)
-
-        run("start", lambda: seg_start(ws))
-        solve(tol2)
-        run("first", lambda: seg_first(ws))
+        ws.run("start", lambda: seg_start(ws))
+        cg.solve(ws, tol2)
+        ws.run("first", lambda: seg_first(ws))
         for _ in range(cfg.Nt - 1):
-            solve(tol1)
-            run("step", lambda: seg_step(ws))
-        solve(tol1)
-        run("last", lambda: seg_last(ws))
-        solve(tol2)
-        run("end", lambda: seg_end(ws))
+            cg.solve(ws, tol1)
+            ws.run("step", lambda: seg_step(ws))
+        cg.solve(ws, tol1)
+        ws.run("last", lambda: seg_last(ws))
+        cg.solve(ws, tol2)
+        ws.run("end", lambda: seg_end(ws))
 
         stats = HMCStats(accepted=ws.accepted.clone(), iters=ws.mean_iters.clone(),
                          flag=ws.out_flag.clone(), delta_H=ws.delta_H.clone(), H=ws.H1.clone(),

@@ -18,6 +18,21 @@ Random draws are explicit, as in :mod:`.hmc`: a step takes optional
 :class:`LangevinDraws`; without them it draws from its ``generator`` on the
 field's device, first η and then one ``g`` per force evaluation in the
 order the forces are evaluated.
+
+The one-rank step with CG of a real field (no preconditioner, or KPM
+without the exact low-frequency blocks) is a fixed sequence of segments
+over one workspace (:mod:`.graphs`), as the HMC update is: the start (η
+tied, the step's full KPM setup, the derived state, b = Mᵀg₀ and the
+solve's start), the solve's blocks of ``solvers.CG_SYNC_EVERY`` CG
+iterations and its verification (:class:`.graphs.CGSolve`), for RK and
+Heun the middle (force 1, the predictor, the KPM refresh, the second
+solve's start) and a second solve, and the end (the last force and the
+field update). On a CUDA field each segment is captured once as a CUDA
+graph and replayed, the host keeping the eager step's reads; on the CPU
+the segments run directly, doing the eager step's arithmetic in its order.
+Every other configuration (BiCGStab / GMRES, the near-null or
+``exact_lowfreq`` preconditioners, complex hopping, a site shard), and a
+caller that asks for it by name (``eager=True``), runs the eager step.
 """
 
 from __future__ import annotations
@@ -27,12 +42,13 @@ from dataclasses import dataclass
 
 import torch
 
+from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.force import total_force
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_state, site_reduce
 from elphdynamics_tpu_torch.models.adapter import (
-    ModelOps, global_phonons, global_sites, local_phonons, local_sites)
+    ModelOps, force_sum, global_phonons, global_sites, local_phonons, local_sites)
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
-from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
+from elphdynamics_tpu_torch.utils.dtypes import field_dtype, params_are_complex, trace_noise
 
 METHODS = ("euler", "rk", "heun")
 
@@ -73,12 +89,20 @@ def draw(ops: ModelOps, n_chains: int, method: str, dtype: torch.dtype, device,
 
 
 def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
-                       scfg: SolverConfig = SolverConfig(), precond=None):
+                       scfg: SolverConfig = SolverConfig(), precond=None, eager: bool = False):
     """Build ``step(params, x, generator=None, draws=None) -> (x, stats)``
     (``step.draw(params, x, n_chains, generator)`` makes a step's draws)
     for ``method`` in {euler, rk (update_method 2), heun (update_method 3)}
     on fields ``x`` ``[C, Nph, Lτ]``. ``Q_table`` is the ``[Nph, Lτ]``
-    acceleration spectrum (:func:`..ops.fourier_accel.build_Q`)."""
+    acceleration spectrum (:func:`..ops.fourier_accel.build_Q`).
+
+    ``eager`` asks for the eager step where the graphed one (module
+    docstring) would run. ``step.segmented`` says whether the configuration
+    takes the graphed step on a real field (complex hopping parameters take
+    the eager one); ``step.workspace()`` is its :class:`.graphs.Workspace`
+    (None before the first call), whose ``graphs`` (a CUDA field) count
+    replays, capture seconds and pool bytes and whose ``retries`` count the
+    verifications' retries."""
     if method not in METHODS:
         raise ValueError(f"unknown Langevin method {method!r} (one of {METHODS})")
     site_reduce(ops, scfg.kind)   # BiCGStab / GMRES stay refused on a site shard
@@ -121,6 +145,108 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
 
     scheme = {"euler": euler, "rk": rk, "heun": heun}[method]
 
+    # --- the graphed step: the segments over one workspace, each doing the
+    # eager step's arithmetic in its order
+    segmented = (not eager and ops.shard is None and scfg.kind == "cg"
+                 and graphs.graphable_precond(precond))
+    box: dict = {}
+    cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
+                        rhs="b", stacked=False)
+
+    def solved_force(ws, x, g):
+        """The force at ``x`` from the finished solve of MᵀM·z = Mᵀg
+        (:func:`..force.total_force`: the fermionic force, then the shifted
+        bosonic one)."""
+        p = ws.params
+        dSf = -2.0 * force_sum(ops, ops.muldMdx(p, ws.env, x, g, ws.cg.x))
+        return dSf + ops.calc_dSbdx(p, x, True)
+
+    def solve_start(ws, x, g, refresh: bool):
+        """The derived state at ``x``, the preconditioner refreshed there
+        from the step's setup (``refresh``), b = Mᵀg and the solve's start."""
+        p = ws.params
+        env = ws.put("env", ops.derived(p, x))
+        if precond is not None and refresh:
+            ws.load("kpm", precond.refresh(ws.kpm, p, x))
+        ws.put("b", ops.mulMT(p, env, g))
+        cg.start(ws, scfg.tol)
+
+    def seg_start(ws):
+        """η tied, the step's full KPM setup at x, the first solve's start
+        (RK and Heun solve with a refresh of the setup, Euler with the setup
+        itself)."""
+        p, x = ws.params, ws.x0
+        eta = ws.put("eta", ops.tie(ws.eta_in))
+        if method == "heun":
+            ws.put("xi", accel(x).apply(eta, 0.5))
+        if precond is not None:
+            ws.load("kpm", precond.setup(p, x, ws.kpm_start))
+        solve_start(ws, x, ws.g0, refresh=method != "euler")
+
+    def seg_mid(ws):
+        """Force 1, the predictor (RK: unaccelerated; Heun: its accelerated
+        force) and the second solve's start there."""
+        x = ws.x0
+        f1 = ws.put("f1", solved_force(ws, x, ws.g0))
+        ws.put("iters1", ws.cg.iters)
+        ws.put("flag1", ws.verdict.flag)
+        if method == "heun":
+            dG1 = ws.put("dG1", accel(x).apply(f1, 1.0))
+            xp = x + amp * ws.xi - dt * dG1
+        else:
+            xp = x + amp * ws.eta - dt * f1
+        xp = ws.put("xp", xp)
+        solve_start(ws, xp, ws.g1, refresh=True)
+
+    def seg_end(ws):
+        """The last force and the field update; the step's iterations and
+        flag."""
+        x, Q = ws.x0, accel(ws.x0)
+        if method == "euler":
+            f = solved_force(ws, x, ws.g0)
+            x_new = x + amp * Q.apply(ws.eta, 0.5) - dt * Q.apply(f, 1.0)
+            iters, flag = ws.cg.iters, ws.verdict.flag
+        else:
+            f2 = solved_force(ws, ws.xp, ws.g1)
+            if method == "rk":
+                favg = (ws.f1 + f2) / 2.0
+                x_new = x + amp * Q.apply(ws.eta, 0.5) - dt * Q.apply(favg, 1.0)
+                iters = ws.cg.iters
+            else:
+                dG2 = Q.apply(f2, 1.0)
+                x_new = x + amp * ws.xi - dt * (ws.dG1 + dG2) / 2.0
+                iters = (ws.iters1 + ws.cg.iters) // 2
+            flag = torch.maximum(ws.flag1, ws.verdict.flag)
+        ws.put("out_x", x_new)
+        ws.put("iters", iters)
+        ws.put("flag", flag)
+
+    def segments(ws):
+        """Every segment once, in the order of a step whose solves each
+        stop after one CG block (the warm-up and the capture order)."""
+        seq = [("start", lambda: seg_start(ws)), *cg.segments(ws, scfg.tol)]
+        if method != "euler":
+            seq += [("mid", lambda: seg_mid(ws)), *cg.segments(ws, scfg.tol)]
+        return seq + [("end", lambda: seg_end(ws))]
+
+    def graphed(params, x, draws):
+        ws = graphs.step_workspace(box, params, x)
+        ws.put("x0", x)
+        ws.put("eta_in", draws.eta.to(x))
+        for i, g in enumerate(draws.g):
+            ws.put(f"g{i}", g.to(x.device))
+        if precond is not None:
+            ws.put_start(precond.start)
+        ws.capture_once(lambda: segments(ws))
+
+        ws.run("start", lambda: seg_start(ws))
+        cg.solve(ws, scfg.tol)
+        if method != "euler":
+            ws.run("mid", lambda: seg_mid(ws))
+            cg.solve(ws, scfg.tol)
+        ws.run("end", lambda: seg_end(ws))
+        return ws.out_x.clone(), LangevinStats(ws.iters.clone(), ws.flag.clone())
+
     def step(params, x, generator: torch.Generator | None = None,
              draws: LangevinDraws | None = None):
         if x.ndim != 3:
@@ -128,6 +254,8 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         if draws is None:
             draws = draw(ops, x.shape[0], method, x.dtype, x.device, generator,
                          field_dtype(params, x.dtype))
+        if segmented and not params_are_complex(params):
+            return graphed(params, x, draws)
         return scheme(params, x, ops.tie(draws.eta.to(x)), draws.g, accel(x))
 
     def draw_step(params, x, n_chains: int, generator=None) -> LangevinDraws:
@@ -136,4 +264,6 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
                     field_dtype(params, x.dtype))
 
     step.draw = draw_step
+    step.segmented = segmented
+    step.workspace = lambda: box.get("ws")
     return step

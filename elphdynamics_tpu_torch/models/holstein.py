@@ -34,6 +34,7 @@ and on the fold branch every apply is full precision.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -301,16 +302,20 @@ def _split_bf16(a):
 def _bf16_operand(spec: HolsteinSpec, A, passes: int, adjoint: bool):
     """The bf16 operand of :func:`bf16_matmul` for the fixed matrix ``A``
     (for Aᵀ with ``adjoint``): [hi | hi | lo] along the inner axis for 3
-    passes, hi for 1. Split once per matrix and kept, with the matrix, in
-    the checkerboard spec's cache: a CUDA graph that captured an apply
-    (``dynamics/graphs.py``) reads the kept operand, so an apply of another
-    matrix on the same spec must not free it."""
+    passes, hi for 1. Split once per matrix and kept in the checkerboard
+    spec's cache for as long as the matrix lives: a CUDA graph that
+    captured an apply (``dynamics/graphs.py``) reads the kept operand (its
+    workspace keeps the matrix), so an apply of another matrix on the same
+    spec must not free it, and a matrix that is dropped (a workspace built
+    anew clones its own) takes its operand with it."""
+    cache = spec.ckb._cache
     key = ("bf16_operand", passes, adjoint, id(A))
-    hit = spec.ckb._cache.get(key)
-    if hit is None or hit[0] is not A:
+    hit = cache.get(key)
+    if hit is None or hit[0]() is not A:
         hi, lo = _split_bf16(A.mT if adjoint else A)
         op = torch.cat([hi, hi, lo], dim=1) if passes == 3 else hi.contiguous()
-        hit = spec.ckb._cache[key] = (A, op)
+        hit = cache[key] = (weakref.ref(A), op)
+        weakref.finalize(A, cache.pop, key, None)
     return hit[1]
 
 

@@ -342,12 +342,13 @@ class _LangevinUpdate:
     flag: torch.Tensor
 
 
-def _langevin_update(ops, setup: SimulationSetup, precond):
+def _langevin_update(ops, setup: SimulationSetup, precond, eager: bool = False):
     """The Langevin step as a sampler update ``(params, state, generator,
-    draws=None) -> (state, stats)``; the momenta of ``state`` ride along
+    draws=None) -> (state, stats)`` (``eager``: the eager step where the
+    graphed one would run); the momenta of ``state`` ride along
     untouched."""
     lstep = make_langevin_step(ops, setup.fa_Q, setup.langevin_dt, setup.langevin_method,
-                               setup.solver_cfg, precond)
+                               setup.solver_cfg, precond, eager=eager)
 
     def update(params, state: HMCState, generator=None, draws=None):
         x, stats = lstep(params, state.x, generator, draws)
@@ -514,8 +515,8 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     bcfg = setup.hmc_burnin_cfg
     tuned_step = tuner = None
     # tempering and every multi-rank layout keep the eager update; elsewhere
-    # a one-rank leapfrog CG update (Holstein or SSH) on the card replays
-    # CUDA graphs (dynamics/graphs.py)
+    # a one-rank leapfrog CG update or CG Langevin step (Holstein or SSH) on
+    # the card replays CUDA graphs (dynamics/graphs.py)
     eager = tcfg is not None or par.shard is not None or par.chains is not None
     if hmc:
         sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)
@@ -528,7 +529,7 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
                                        eager=eager)
             tuner = dt_tuner_init(bcfg.dt, device=dev)
     else:
-        sim_step = burnin_step = _langevin_update(ops, setup, precond)
+        sim_step = burnin_step = _langevin_update(ops, setup, precond, eager)
     # site-only: the estimator stage of the global step runs on the gathered
     # probes; 2-D: the one-card measurement on each chain block's lattice
     mprecond = precond

@@ -7,9 +7,10 @@ card.
 with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_8x8,
 ssh_64x64, twisted_64x64, ssh_twisted_64x64, langevin_64x64,
 ssh_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
-measure_bond_64x64, driver_4x4, driver_ssh_4x4; ``--eager`` runs the
-eager update of an HMC configuration or a driver step in place of its CUDA
-graphs (``dynamics/graphs.py``; the twisted ones are eager either way).
+measure_bond_64x64, driver_4x4, driver_ssh_4x4, driver_langevin_4x4;
+``--eager`` runs the eager update of an HMC configuration, the eager
+Langevin step or a driver step in place of its CUDA graphs
+(``dynamics/graphs.py``; the twisted ones are eager either way).
 ``--timed N`` times N more runs after the warm-up, without the profiler
 (host clock, each run ended by a synchronisation), and for a driver step
 its HMC update apart; ``--no-profile`` stops there (the profiler's cost
@@ -35,7 +36,10 @@ BondPairGreens);
 ``examples/holstein_hmc_square.toml`` (1 chain): the HMC update, the
 reflection and swap moves and the measurement; ``driver_ssh_4x4`` the
 same on ``examples/ssh_hmc_square.toml`` (100 leapfrog steps of 10
-bosonic substeps, KPM ``max_order`` 64). Builds the
+bosonic substeps, KPM ``max_order`` 64); ``driver_langevin_4x4`` one
+step of the driver on ``examples/holstein_langevin_square.toml`` (1 chain,
+RK, KPM ``max_order`` 64; the file measures once per 1000 steps, so a step
+is the Langevin step alone). Builds the
 configuration in float32, runs it once to warm up, then once under
 ``torch.profiler`` and prints: wall time, summed device-kernel time and
 the device's busy share, both kernels' launches and summed device time
@@ -76,7 +80,8 @@ def main() -> int:
     ap.add_argument("config",
                     choices=[*HMC_CONFIGS, "langevin_64x64", "ssh_langevin_64x64",
                              "gmres_64x64", "measure_64x64", "measure_ssh_64x64",
-                             "measure_bond_64x64", "driver_4x4", "driver_ssh_4x4"])
+                             "measure_bond_64x64", "driver_4x4", "driver_ssh_4x4",
+                             "driver_langevin_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     ap.add_argument("--eager", action="store_true",
                     help="the eager update in place of the CUDA graphs")
@@ -88,26 +93,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
-    hmc_step = None
-    if args.eager and args.config not in HMC_CONFIGS and not args.config.startswith("driver"):
-        ap.error("--eager takes an HMC configuration or a driver step")
+    graphable = None    # the step that may replay CUDA graphs
+    if args.eager and args.config.startswith(("measure", "gmres")):
+        ap.error("--eager takes an HMC configuration, a Langevin step or a driver step")
     box = {}
     if args.config.startswith("measure"):
         run = _measurement(ssh="ssh" in args.config, bond="bond" in args.config)
+    elif args.config == "driver_langevin_4x4":
+        run, box = _langevin_step(bench.build_langevin_example(
+            str(Path(__file__).resolve().parent.parent / "examples"
+                / "holstein_langevin_square.toml"), 1, "cuda", torch.float32), args.eager)
+        graphable = box["step"]
     elif args.config.startswith("driver"):
         example = "ssh_hmc_square" if "ssh" in args.config else "holstein_hmc_square"
         run, box = _driver_step(example, args.eager)
-        hmc_step = box["step"]
+        graphable = box["step"]
     elif args.config == "gmres_64x64":
         run = _gmres_solve()
     elif "langevin" in args.config:
-        b = bench.build(bench.SSH_LANGEVIN_64X64 if "ssh" in args.config
-                        else bench.LANGEVIN_64X64, "cuda", torch.float32)
-        box = {"x": b.x}
-
-        def run():
-            box["x"], stats = b.step(b.params, box["x"], b.generator)
-            return stats.iters
+        run, box = _langevin_step(bench.build(bench.SSH_LANGEVIN_64X64 if "ssh" in args.config
+                                              else bench.LANGEVIN_64X64, "cuda", torch.float32),
+                                  args.eager)
+        graphable = box["step"]
     else:
         cfg = HMC_CONFIGS[args.config]
         b = bench.build(cfg, "cuda", torch.float32)
@@ -115,7 +122,7 @@ def main() -> int:
             b = replace(b, step=make_hmc_step(b.ops, b.mass, b.hmc_cfg,
                                               kpm.make_precond(b.ops, b.kpm_cfg), eager=True))
         box = {"state": b.state}
-        hmc_step = b.step
+        graphable = b.step
 
         def run():
             box["state"], stats = b.step(b.params, box["state"], b.generator)
@@ -154,7 +161,7 @@ def main() -> int:
         return sum(e.self_device_time_total for e in cuda
                    if f"{name}<" in e.key and mode in e.key) / 1e6
 
-    graphed = hmc_step is not None and hmc_step.workspace() is not None
+    graphed = graphable is not None and graphable.workspace() is not None
     print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} graphed={graphed} "
           f"wall_s={wall:.4f} "
           f"device_kernel_s={dev_us / 1e6:.4f} device_busy_share={dev_us / 1e6 / wall:.4f} "
@@ -173,6 +180,23 @@ def main() -> int:
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out / f"{args.config}_trace.json"))
     return 0
+
+
+def _langevin_step(b, eager: bool):
+    """One step of the Langevin bench ``b`` (its eager twin with
+    ``eager``), and a box that keeps the step's seconds (host clock, ended
+    by a synchronisation)."""
+    step = b.eager() if eager else b.step
+    box = {"x": b.x, "step": step}
+
+    def run():
+        t0 = time.perf_counter()
+        box["x"], stats = step(b.params, box["x"], b.generator)
+        torch.cuda.synchronize()
+        box["update_s"] = time.perf_counter() - t0
+        return stats.iters
+
+    return run, box
 
 
 def _gmres_solve():

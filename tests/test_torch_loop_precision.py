@@ -214,6 +214,22 @@ def test_bf16_operand_is_split_once_per_matrix(passes, adjoint):
     assert opB is not op and torch.equal(opB.float(), 2.0 * op.float())
 
 
+def test_bf16_operand_goes_with_its_matrix():
+    """The cache keeps no matrix alive: a matrix that is dropped (a graphed
+    step's workspace built anew clones its own) takes its operand out of
+    the spec's cache, while a live matrix keeps its operand."""
+    ops, params = _model(torch.float32)
+    spec = ops.spec
+    before = len(spec.ckb._cache)
+    A = params.expK.clone()
+    op = H._bf16_operand(spec, A, 3, False)
+    H._bf16_operand(spec, A, 3, True)
+    assert len(spec.ckb._cache) == before + 2
+    assert H._bf16_operand(spec, A, 3, False) is op
+    del A, op
+    assert len(spec.ckb._cache) == before
+
+
 @pytest.mark.parametrize("passes", [1, 3])
 def test_bf16_field_operand_is_hi_lo_hi(passes):
     """The field's bf16 operand, built in one buffer, is bitwise the
