@@ -47,7 +47,8 @@ Phases (one line each, and the process exits non-zero if any fails):
     with its counts cut (4×4, dense branch) and at 64×64, β = 4 (4 chains,
     K1 and K2 on the path), each into a temporary directory, with seconds
     per update and per measurement and the peak device memory; every run
-    updates through the graphed update (Holstein and SSH; replays > 0);
+    replays the graphs of the update, of the moves its file configures and
+    of the measurement (Holstein and SSH; replays > 0 for each part);
 12. Langevin dynamics and the other solver kinds, 4×4 float64 on the card
     (K1 forced on, the dense Ā off) against the CPU: one Euler, one
     Runge-Kutta and one Heun step with the same injected draws, Holstein
@@ -233,8 +234,23 @@ Phases (one line each, and the process exits non-zero if any fails):
     with no growth of allocated device memory between step 5 and the last,
     and none over ``LANGEVIN_REBUILDS`` steps built afresh; then the
     allocated memory against what Python reaches, by memory pool.
+39. the graphed reflection, swap and measurement (``dynamics/
+    special_updates.py``, ``measure/measurements.py``: each part's segments
+    as CUDA graphs) against the eager ones, asked for by name, on the
+    driver steps of ``examples/holstein_hmc_square.toml`` and
+    ``ssh_hmc_square.toml`` (4×4, one chain) and of both files at 64×64,
+    β = 4, 4 chains, nᵥ = 10 (K1 and K2 inside the graphs;
+    ``bench.build_hmc_example``): two calls of each part each way on the
+    same draws from the same fields, x, acceptance and every increment bit
+    for bit, equal iterations and flags, replays = host reads + 1, equal K1
+    / K2 launches by form on the second call; graphs, capture seconds, pool
+    bytes and seconds per part in ``SPECIAL_AB_BLOCKS`` interleaved blocks
+    (median, IQR; ``chiprun_out/graphed_special_measure.json``); at stock
+    Holstein 4×4, ``SPECIAL_MEMORY_CALLS`` graphed measurements with no
+    growth of allocated device memory. Phase 11's driver runs replay the
+    graphs of the update, the moves and the measurement.
 
-Phases 36, 37 and 38 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
+Phases 36, 37, 38 and 39 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
 phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
@@ -1083,6 +1099,7 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()
                **{k: stats[k] for k in ("tuned_dt", "tempering_acceptance_rate") if k in stats},
                kernel_launches=launches, fused_kernel_launches=fused_launches,
                table_launches=by_table, graph_replays=replays["n"],
+               graph_replays_by_part=stats["graph_replays"],
                sections_ok=(all(f"## {x} ##" in summary for x in sections)
                             and (not ssh or "sign_switch 1 = " in summary)),
                bins_finite=finite)
@@ -1100,13 +1117,16 @@ def run_driver(name: str, cfg: dict, n_chains: int, workdir: str, extra_files=()
 def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
                  big_updates: tuple[int, int, int] = (1, 2, 2)) -> dict:
     """A stock 4×4 example with its counts cut, and the same file at 64×64
-    (β = 4, dt = 0.025, 4 bosonic substeps, 4 chains): the full-width run,
-    with K1 (fermion operator, Ā power iteration) and K2 (Chebyshev steps)
-    on its path. ``small_updates`` / ``big_updates``: each run's burn-in
-    updates, sampling updates (a measurement after each at 64×64) and bins.
-    Each run writes into its own temporary folder."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, "examples", f"{example}.toml"), "rb") as f:
+    (β = 4, dt = 0.025, 4 bosonic substeps, 4 chains, nᵥ = 10:
+    ``bench.wide_hmc_config``): the full-width run, with K1 (fermion
+    operator, Ā power iteration) and K2 (Chebyshev steps) on its path.
+    ``small_updates`` / ``big_updates``: each run's burn-in updates,
+    sampling updates (a measurement after each at 64×64) and bins. Each run
+    writes into its own temporary folder; both must replay the graphs of
+    the update, the moves the file configures and the measurement."""
+    from elphdynamics_tpu_torch.bench import wide_hmc_config
+
+    with open(os.path.join(_examples_dir(), f"{example}.toml"), "rb") as f:
         stock = tomllib.load(f)
     name = example.split("_")[0]
     with tempfile.TemporaryDirectory() as work:
@@ -1117,21 +1137,21 @@ def phase_driver(example: str, model: str, small_updates: tuple[int, int, int],
                             trajectory_time=0.2)
         small["simulation"]["num_bins"] = bins
         small_out = run_driver(f"{name}_square_4x4", small, 1, work)
-        big = json.loads(json.dumps(stock))
-        big["lattice"]["L"] = 64
-        big[model]["beta"] = 4.0
-        big["hmc"].update(dt=0.025, num_multitimesteps=4, burnin_updates=big_updates[0],
-                          simulation_updates=big_updates[1], meas_freq=1)
+        big = wide_hmc_config(stock)
+        big["hmc"].update(burnin_updates=big_updates[0], simulation_updates=big_updates[1])
         big["simulation"]["num_bins"] = big_updates[2]
-        big["measurements"]["num_random_vectors"] = 10
         out = run_driver(f"{name}_square_64x64", big, 4, work)
     if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
         raise RuntimeError(f"the 64x64 {name} driver run launched a kernel no time: "
                            f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
-    # both models' one-card leapfrog CG updates are graphed (dynamics/graphs.py)
-    if min(small_out["graph_replays"], out["graph_replays"]) <= 0:
-        raise RuntimeError(f"a {name} driver run replayed no CUDA graph: 4x4 "
-                           f"{small_out['graph_replays']}, 64x64 {out['graph_replays']}")
+    # both models' one-card leapfrog CG updates, moves and measurements are
+    # graphed (dynamics/graphs.py); SSH's reflection is a null move
+    parts = ("update", "swap", "measurement") + (("reflect",) if model == "holstein" else ())
+    for run in (small_out, out):
+        if any(run["graph_replays_by_part"][p] <= 0 for p in parts):
+            raise RuntimeError(f"a {name} driver run replayed no CUDA graph of a part: 4x4 "
+                               f"{small_out['graph_replays_by_part']}, 64x64 "
+                               f"{out['graph_replays_by_part']}")
     return out
 
 
@@ -1166,8 +1186,11 @@ def phase_driver_langevin() -> dict:
     if out["kernel_launches"] <= 0 or out["fused_kernel_launches"] <= 0:
         raise RuntimeError("the 64x64 Langevin driver run launched a kernel no time: "
                            f"K1 {out['kernel_launches']}, K2 {out['fused_kernel_launches']}")
-    # the one-card CG Langevin step is graphed (dynamics/langevin.py)
-    if min(small_out["graph_replays"], out["graph_replays"]) <= 0:
+    # the one-card CG Langevin step and measurement are graphed
+    # (dynamics/langevin.py, measure/measurements.py)
+    if min(small_out["graph_replays"], out["graph_replays"],
+           *(r["graph_replays_by_part"][p] for r in (small_out, out)
+             for p in ("update", "measurement"))) <= 0:
         raise RuntimeError(f"a Langevin driver run replayed no CUDA graph: 4x4 "
                            f"{small_out['graph_replays']}, 64x64 {out['graph_replays']}")
     return out
@@ -2874,7 +2897,7 @@ def phase_ed_float32() -> None:
 # phase 36: the graphed update against the eager one
 U_F32 = 2.0 ** -24                # float32 unit roundoff
 GRAPH_X_REL_TOL = 1e-6            # x, relative, where the two paths' bits differ
-GRAPH_AB_BLOCKS = 5               # interleaved blocks of each form per configuration
+GRAPH_AB_BLOCKS = 3               # interleaved blocks of each form per configuration
 # updates per block; 32×32 and SSH 8×8 at 1 (from 2) pay for phase 37,
 # 8×8 at 1 (from 2) for phase 38
 GRAPH_AB_UPDATES = {"bench_8x8": 1, "bench_32x32": 1, "kernel_64x64": 1, "ssh_8x8": 1,
@@ -3102,7 +3125,7 @@ def phase_graphed_update_ssh() -> dict:
 # phase 38: the graphed Langevin step against the eager one
 # steps per interleaved block (the eager stock 4×4 step takes ~0.8 s)
 LANGEVIN_AB_STEPS = {"langevin_64x64": 2, "ssh_langevin_64x64": 2, "langevin_stock_4x4": 2}
-LANGEVIN_LONG_STEPS = 200   # graphed steps at the stock 4×4 shape; memory read after 5 and after these
+LANGEVIN_LONG_STEPS = 100   # graphed steps at the stock 4×4 shape; memory read after 5 and after these
 LANGEVIN_REBUILDS = 3       # fresh graphed steps of that model, memory read after each
 
 
@@ -3268,6 +3291,210 @@ def phase_graphed_langevin() -> dict:
             for name in (LANGEVIN_64X64.name, SSH_LANGEVIN_64X64.name)}
 
 
+# phase 39: the graphed reflection, swap and measurement against the eager ones
+SPECIAL_AB_BLOCKS = 3          # interleaved blocks of each form per case (one step each)
+SPECIAL_MEMORY_CALLS = 50      # graphed stock 4×4 measurements, memory read after 5 and after these
+SPECIAL_PARTS = ("reflect", "swap", "measure")
+
+
+def _examples_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+
+
+def _special_cases():
+    """(name, parsed [hmc] file, chains, the kernel forms on its path) of
+    phase 39: the stock 4×4 Holstein and SSH files at one chain, and both
+    widened to 64×64, β = 4, 4 chains, nᵥ = 10 as phase 11's driver runs
+    are (``bench.wide_hmc_config``)."""
+    from elphdynamics_tpu_torch.bench import wide_hmc_config
+
+    out = []
+    for model, example in (("holstein", "holstein_hmc_square"), ("ssh", "ssh_hmc_square")):
+        with open(os.path.join(_examples_dir(), f"{example}.toml"), "rb") as f:
+            stock = tomllib.load(f)
+        out += [(f"{model}_stock_4x4", stock, 1, ()),
+                (f"{model}_64x64", wide_hmc_config(stock), 4, MODES[model])]
+    return out
+
+
+def _part_call(fn, *args, **kw):
+    """One call of a move or measurement, every count set to 0 just before
+    and read just after: (result, {seconds, K1/K2 launches by form and their
+    shapes, host reads, graph replays})."""
+    from elphdynamics_tpu_torch import solvers
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    torch.cuda.synchronize()
+    ckb_cuda.reset_counts()
+    solvers.host_reads = 0
+    with counting_replays() as box:
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, dict(seconds=seconds, launches=dict(ckb_cuda.table_launches),
+                     shapes=set(ckb_cuda.launch_shapes), host_reads=solvers.host_reads,
+                     replays=box["n"])
+
+
+def _tree_equal(a, b) -> bool:
+    """Nested dicts / tuples of tensors equal bit for bit (and in shape)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_tree_equal(p, q) for p, q in zip(a, b))
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _special_parity(ex, twin, name: str, forms) -> dict:
+    """Two calls of each part (reflection, swap, measurement) of the example
+    step ``ex`` graphed and of its eager twin on the same draws from the same
+    fields: results bit for bit (x and acceptance; every increment, the
+    probe solves' iterations and flags, the snapshots), replays = host reads
+    + 1 in both calls, and on the second (the first captures) equal K1 / K2
+    launches by form, each of ``forms`` launched, and equal host reads."""
+    C = ex.state.x.shape[0]
+    out = {}
+    for part in SPECIAL_PARTS:
+        seg, eager = getattr(ex, part), getattr(twin, part)
+        if part != "measure" and seg.n_moves == 0:
+            continue                          # SSH's reflection: a null move
+        if not seg.segmented or eager.segmented:
+            raise RuntimeError(f"{name} {part}: not the segmented call")
+        x, rows = ex.state.x, {}
+        for u in (1, 2):
+            if part == "measure":
+                R = eager.draw(ex.params, x, ex.generator)
+                rg, mg = _part_call(seg, ex.params, x, R=R)
+                re_, me = _part_call(eager, ex.params, x, R=R)
+                extra = dict(cg_iters=rg[1]["iters"].tolist(), max_flag=int(rg[1]["flag"].max()))
+            else:
+                draws = eager.draw(ex.params, x, C, ex.generator)
+                rg, mg = _part_call(seg, ex.params, x, draws=draws)
+                re_, me = _part_call(eager, ex.params, x, draws=draws)
+                extra = dict(acceptance=rg[1].tolist())
+            row = dict(bitwise=_tree_equal(rg, re_), graphed_s=f"{mg['seconds']:.4f}",
+                       eager_s=f"{me['seconds']:.4f}", replays=mg["replays"],
+                       host_reads_graphed=mg["host_reads"], host_reads_eager=me["host_reads"],
+                       launches_graphed={f: mg["launches"][f] for f in forms},
+                       launches_eager={f: me["launches"][f] for f in forms}, **extra)
+            if u == 1:
+                ws = seg.workspace()
+                row.update(graphs=sorted(ws.graphs.graphs), capture_s=f"{ws.graphs.capture_s:.3f}",
+                           pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}")
+            say(f"special_parity_{name}_{part}", call=u, **row)
+            if not row["bitwise"] or (part == "measure" and row["max_flag"] != 0):
+                raise RuntimeError(f"graphed {name} {part} call {u} left the eager one: {row}")
+            if mg["replays"] != mg["host_reads"] + 1:
+                raise RuntimeError(f"graphed {name} {part} call {u}: replays are not host "
+                                   f"reads + 1: {row}")
+            if u == 2 and (mg["launches"] != me["launches"] or mg["host_reads"] != me["host_reads"]
+                           or any(mg["launches"][f] <= 0 for f in forms)):
+                raise RuntimeError(f"graphed {name} {part}: launches or host reads differ, or "
+                                   f"a form launched no time: {row}")
+            rows[u] = row
+            if part != "measure":
+                x = re_[0]
+        rows["table_launches"], rows["launch_shapes"] = mg["launches"], mg["shapes"]
+        out[part] = rows
+    return out
+
+
+def _parts_ab(ex, twin, blocks: int) -> dict:
+    """Seconds per call of each part, eager and graphed, in ``blocks``
+    interleaved blocks each (E G G E ...), every block one reflection, swap
+    and measurement from the example's fields on one seed, each call ended by
+    a synchronisation: medians, quartiles and IQRs, and of their sum."""
+    C = ex.state.x.shape[0]
+    secs = {form: {p: [] for p in (*SPECIAL_PARTS, "parts")} for form in ("eager", "graphed")}
+    order = [("eager", "graphed")[(i // 2 + i) % 2] for i in range(2 * blocks)]
+    for form in order:
+        src = ex if form == "graphed" else twin
+        g = torch.Generator(device="cuda").manual_seed(17)
+        x, total = ex.state.x, 0.0
+        for part in SPECIAL_PARTS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if part == "measure":
+                getattr(src, part)(ex.params, x, g)
+            else:
+                x, _ = getattr(src, part)(ex.params, x, g)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            secs[form][part].append(dt)
+            total += dt
+        secs[form]["parts"].append(total)
+    out = {}
+    for form, parts in secs.items():
+        out[form] = {}
+        for part, r in parts.items():
+            q1, med, q3 = statistics.quantiles(r, n=4, method="inclusive")
+            out[form][part] = dict(median=med, q1=q1, q3=q3, iqr=q3 - q1,
+                                   blocks=[round(v, 4) for v in r])
+    out["speedup_median"] = {p: out["eager"][p]["median"] / out["graphed"][p]["median"]
+                             for p in out["eager"]}
+    return out
+
+
+def _measurement_memory(ex) -> dict:
+    """``SPECIAL_MEMORY_CALLS`` graphed measurements of the example's fields
+    on one seed: allocated device memory after the 5th and after the last
+    (no growth allowed), every flag 0."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    mem, flag = {}, None
+    t0 = time.perf_counter()
+    for n in range(1, SPECIAL_MEMORY_CALLS + 1):
+        _, stats, _ = ex.measure(ex.params, ex.state.x, g)
+        flag = stats["flag"] if flag is None else torch.maximum(flag, stats["flag"])
+        if n in (5, SPECIAL_MEMORY_CALLS):
+            torch.cuda.synchronize()
+            mem[n] = torch.cuda.memory_allocated()
+    seconds = time.perf_counter() - t0
+    out = dict(calls=SPECIAL_MEMORY_CALLS, s_per_call=seconds / SPECIAL_MEMORY_CALLS,
+               allocated_after_5=mem[5], allocated_after_last=mem[SPECIAL_MEMORY_CALLS],
+               growth_bytes=mem[SPECIAL_MEMORY_CALLS] - mem[5], max_flag=int(flag.max()))
+    say("graphed_measurement_memory", **out)
+    if out["growth_bytes"] > 0 or out["max_flag"] != 0:
+        raise RuntimeError(f"graphed measurements grew device memory or failed: {out}")
+    return out
+
+
+def phase_graphed_special_measure() -> dict:
+    """39. The graphed reflection, swap and measurement (``dynamics/
+    special_updates.py``, ``measure/measurements.py``: each part's segments
+    as CUDA graphs) against the eager ones, asked for by name, on the stock
+    ``examples/holstein_hmc_square.toml`` and ``ssh_hmc_square.toml`` driver
+    steps at one chain and the same files at 64×64, β = 4, 4 chains, nᵥ =
+    10 (``bench.build_hmc_example``; K1 and K2 inside the 64×64 graphs):
+    :func:`_special_parity`, seconds per part in interleaved blocks
+    (:func:`_parts_ab`), and at stock Holstein 4×4
+    :func:`_measurement_memory`. JSON ``graphed_special_measure.json``.
+    Returns the 64×64 parts' second graphed calls (launches, shapes) by
+    path name."""
+    from elphdynamics_tpu_torch.bench import build_hmc_example
+
+    out, paths = {}, {}
+    for name, cfg, chains, forms in _special_cases():
+        ex = build_hmc_example(cfg, chains, "cuda", torch.float32)
+        twin = ex.eager()
+        res = out[name] = {"parity": _special_parity(ex, twin, name, forms)}
+        ab = res["ab"] = _parts_ab(ex, twin, SPECIAL_AB_BLOCKS)
+        say(f"special_ab_{name}", chains=chains, blocks=SPECIAL_AB_BLOCKS,
+            **{f"{form}_{part}": f"{ab[form][part]['median']:.4f} ({ab[form][part]['iqr']:.4f})"
+               for form in ("eager", "graphed") for part in ab[form]},
+            speedup_median={p: round(v, 3) for p, v in ab["speedup_median"].items()})
+        if name == "holstein_stock_4x4":
+            res["memory"] = _measurement_memory(ex)
+        if forms:
+            for part, rows in res["parity"].items():
+                paths[f"graphed_{part}_{name}"] = rows
+        del ex, twin
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "graphed_special_measure.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3314,6 +3541,7 @@ def main() -> int:
     phase_graphed_update()
     phase_graphed_update_ssh()
     graphed_lang = phase_graphed_langevin()
+    graphed_special = phase_graphed_special_measure()
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
@@ -3353,8 +3581,9 @@ def main() -> int:
                       TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep,
                       "chain_sharded_64x64": chains}
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
-    # phase 38's second graphed steps: the kernels inside the Langevin graphs
-    for k, r in graphed_lang.items():
+    # phase 38's second graphed steps and phase 39's second graphed calls: the
+    # kernels inside the Langevin, move and measurement graphs
+    for k, r in (graphed_lang | graphed_special).items():
         (ssh_paths if "ssh" in k else holstein_paths)[k] = r
     # slice H2's paths that reach the kernels: tempering on chain ranks (each
     # rank's own counts) and the chain blocks' measurements of the 2x2 layout

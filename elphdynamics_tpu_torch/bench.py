@@ -76,10 +76,21 @@ Both replay CUDA graphs on a card (the graphed Langevin step,
 :func:`build_langevin_example` builds a stock ``[langevin]`` file's step
 as the driver does (``examples/holstein_langevin_square.toml``: 4×4, β = 2,
 RK, KPM max_order 64).
+
+:func:`build_hmc_example` builds a stock ``[hmc]`` file's whole driver
+step as the driver does on one card: the HMC update, the reflection and
+swap moves and the measurement (``examples/holstein_hmc_square.toml``: 4×4,
+β = 2, 100 leapfrog steps of 10 bosonic substeps, 4 reflections and 4
+swaps, nᵥ = 10 probes, KPM max_order 8; ``ssh_hmc_square.toml`` the same
+with 4 swaps and KPM max_order 64). All four replay CUDA graphs on a card;
+:meth:`HMCExample.eager` is the eager twin. :func:`wide_hmc_config` widens
+such a file to 64×64, β = 4 (dt 0.025, 4 bosonic substeps, nᵥ = 10, a
+measurement per update), where K1 and K2 run inside every part.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass, fields
 
@@ -89,9 +100,12 @@ from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig, HMCState, make_hmc_st
 from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
 from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_applies, solve_oinv
+from elphdynamics_tpu_torch.dynamics.special_updates import (
+    make_reflection_update, make_swap_update)
 from elphdynamics_tpu_torch.dynamics.tempering import (
     TemperingConfig, chain_params, ladder_params, make_exchange_step)
 from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
+from elphdynamics_tpu_torch.measure.measurements import make_measurement_step
 from elphdynamics_tpu_torch.models.adapter import ModelOps, make_model_ops
 from elphdynamics_tpu_torch.models.holstein import HolsteinParams, build_holstein
 from elphdynamics_tpu_torch.models.ssh import SSHParams, build_ssh
@@ -256,6 +270,77 @@ def build_langevin_example(path: str, n_chains: int = 1, device="cuda",
     return _langevin_bench(ops, setup.params, setup.fa_Q, setup.langevin_dt,
                            setup.langevin_method, setup.solver_cfg, precond, n_chains, device,
                            seed)
+
+
+@dataclass(frozen=True)
+class HMCExample:
+    """One sampling step of a stock ``[hmc]`` input file as the driver runs
+    it on one card: the HMC update, the reflection and swap moves, the
+    measurement (``simulation._run``'s ``sim_step``, ``reflect``, ``swap``
+    and ``mstep``, one preconditioner shared by all four)."""
+
+    ops: ModelOps
+    params: HolsteinParams | SSHParams
+    setup: object           # the file's io.config.SimulationSetup
+    precond: object         # the kpm.Preconditioner (None without one)
+    step: object            # step(params, state, generator) -> (state, stats)
+    reflect: object         # reflect(params, x, generator) -> (x, acceptance)
+    swap: object            # swap(params, x, generator) -> (x, acceptance)
+    measure: object         # measure(params, x, generator) -> (increments, stats, snapshots)
+    state: HMCState         # initial state
+    generator: torch.Generator
+
+    def eager(self) -> "HMCExample":
+        """The same step with every part asked for eager (the same model,
+        preconditioner, state and generator, so the same draws give the same
+        results)."""
+        return _hmc_parts(self.setup, self.precond, self.state, self.generator, eager=True)
+
+
+def wide_hmc_config(cfg: dict) -> dict:
+    """A copy of the parsed ``[hmc]`` input file ``cfg`` at full width: L = 64,
+    β = 4, dt = 0.025 with 4 bosonic substeps (the same trajectory time),
+    nᵥ = 10 probes and a measurement after every update."""
+    wide = copy.deepcopy(cfg)
+    wide["lattice"]["L"] = 64
+    wide["holstein" if "holstein" in wide else "ssh"]["beta"] = 4.0
+    wide["hmc"].update(dt=0.025, num_multitimesteps=4, meas_freq=1)
+    wide["measurements"]["num_random_vectors"] = 10
+    return wide
+
+
+def build_hmc_example(config, n_chains: int = 1, device="cuda",
+                      dtype: torch.dtype = torch.float32, seed: int = 0,
+                      eager: bool = False) -> HMCExample:
+    """The driver step of the ``[hmc]`` input file ``config`` (a path such as
+    ``examples/holstein_hmc_square.toml``, or a parsed file, which is not
+    changed) as the driver builds it on one card, its model drawn from
+    ``seed``, and half-filled initial fields of ``n_chains`` chains on
+    ``device``; ``eager`` asks for every part's eager form."""
+    from elphdynamics_tpu_torch.io.config import build_setup, load_toml
+
+    device = require_device(device)
+    cfg = load_toml(config) if isinstance(config, str) else copy.deepcopy(config)
+    cfg["simulation"]["random_seed"] = seed
+    setup = build_setup(cfg, "", device, dtype)
+    if setup.dynamics_type != "hmc":
+        raise ValueError(f"{config if isinstance(config, str) else 'config'}: "
+                         "not an [hmc] input file")
+    precond = kpm.make_precond(setup.ops, setup.kpm_cfg) if setup.kpm_cfg is not None else None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = init_phonons_half_filled(setup.ops, setup.params, n_chains, gen)
+    return _hmc_parts(setup, precond, HMCState(x=x, v=torch.zeros_like(x)), gen, eager)
+
+
+def _hmc_parts(setup, precond, state, gen, eager: bool) -> HMCExample:
+    ops = setup.ops
+    return HMCExample(
+        ops=ops, params=setup.params, setup=setup, precond=precond,
+        step=make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager),
+        reflect=make_reflection_update(ops, setup.reflect_cfg, precond, eager=eager),
+        swap=make_swap_update(ops, setup.swap_cfg, precond, eager=eager),
+        measure=make_measurement_step(ops, setup.mspec, setup.solver_cfg, precond, eager=eager),
+        state=state, generator=gen)
 
 
 def _langevin_bench(ops, params, Q, dt, method, solver, precond, n_chains, device,

@@ -1,17 +1,20 @@
-"""CUDA graphs of an update or a Langevin step: the port's counterpart of
-the JAX package's compiled update (``jax.jit`` over ``lax.while_loop``
-bodies).
+"""CUDA graphs of a sampler call: the port's counterpart of the JAX
+package's compiled update, Langevin step, special updates and measurement
+step (``jax.jit`` over ``lax.while_loop`` and ``lax.scan`` bodies).
 
-An update is split into segments, each a function over one
-:class:`Workspace` of tensors that keep their addresses from one update to
-the next. Its CG solves are the segments of :class:`CGSolve`, shared by
-the HMC update (``dynamics/hmc.py``) and the Langevin step
-(``dynamics/langevin.py``). On a CUDA device every segment is captured
-once into a ``torch.cuda.CUDAGraph``, all of one update's graphs in one
-memory pool and in the order they first replay, and then replayed; the
-host keeps only the loop control between replays (``any(active)`` before
-a CG block, ``any(bad)`` after a verification). On the CPU each segment is called directly, so the
-tier-1 tests run the same code the graphs hold.
+Graphed, on one rank with CG on a real field: the leapfrog HMC update
+(``dynamics/hmc.py``), the Langevin step (``dynamics/langevin.py``), the
+reflection and swap moves (``dynamics/special_updates.py``) and the
+measurement step (``measure/measurements.py``). A call is split into
+segments, each a function over one :class:`Workspace` of tensors that keep
+their addresses from one call to the next. Its CG solves are the segments
+of :class:`CGSolve`, shared by all four. On a CUDA device every segment is
+captured once into a ``torch.cuda.CUDAGraph``, all of one call's graphs in
+one memory pool and in the order they first replay, and then replayed; the
+host keeps only the loop control between replays (``any(active)`` before a
+CG block, ``any(bad)`` after a verification) and the copies of a call's
+inputs into the workspace. On the CPU each segment is called directly, so
+the tier-1 tests run the same code the graphs hold.
 
 Before its capture every segment runs once eagerly on the capture stream
 (the warm-up): first-use work that a capture cannot hold happens there, such
@@ -19,7 +22,7 @@ as the kernels' launch-geometry tuning and bond-plan uploads
 (``ops/ckb_cuda.py``), the KPM constant tables (``ops/kpm.py``), the mass
 operator's circulants and the bf16 operand of exp(−Δτ·K). A capture that
 reaches such work raises, as does any other failed capture or replay: there
-is no fallback to the eager update.
+is no fallback to the eager call.
 
 Only workspace tensors cross a segment boundary. They are allocated outside
 the pool during the warm-up, so a graph's intermediates, which the pool
@@ -46,6 +49,18 @@ REBUILD = ("expK", "expK_inv")
 def capturing(device: torch.device) -> bool:
     """Whether the current stream of a CUDA ``device`` is being captured."""
     return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def made_once(cache: dict, device: torch.device, make, what: str):
+    """``make()`` (tensors on ``device`` built from host data), kept in
+    ``cache`` per device and made on first use there: a segmented call's
+    warm-up. Making it during a CUDA graph capture raises."""
+    if device not in cache:
+        if capturing(device):
+            raise RuntimeError(f"{what} made during a CUDA graph capture: the warm-up "
+                               "must make it")
+        cache[device] = make()
+    return cache[device]
 
 
 class Workspace:
@@ -303,7 +318,7 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class UpdateGraphs:
-    """The captured segments of one update on one CUDA device: one graph
+    """The captured segments of one sampler call on one CUDA device: one graph
     per segment name, one memory pool, the device's capture stream
     (:func:`capture_stream`). Each graph keeps the kernel launches counted
     during its capture (:class:`..ops.ckb_cuda.LaunchRecord`), and every

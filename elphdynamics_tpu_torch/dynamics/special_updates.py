@@ -22,6 +22,23 @@ Random draws are explicit, as in :mod:`.hmc`: an update takes optional
 On a site-sharded model the picks are global sites and bonds: the rank
 that holds a site flips it, and a swapped row reaches the other rank by
 an all-reduce; the actions are summed over the ranks.
+
+On one rank with a real field and no preconditioner or KPM without the
+exact low-frequency blocks, a call is a fixed sequence of segments over
+one workspace (:mod:`.graphs`), as the HMC update is: ``first`` (move 0's
+start: φ and S₀ at x, the proposal, the derived state, Λφ and the full
+KPM setup at the proposed field, the tol² solve's start from zero), the
+solve's CG blocks and verification (:class:`.graphs.CGSolve`), ``next``
+(move m's Metropolis test and masked commit, then move m+1's start) and
+``last`` (the last move's test and the acceptance rate). Move m's picks,
+pseudofermions and uniform are copied into fixed workspace slots before
+the replay that reads them, so no graph holds a move index. On a CUDA
+field each segment is captured once as a CUDA graph and replayed, the host
+keeping the eager call's reads (CG's ``any(active)`` before a block, the
+verification's ``any(bad)``); on the CPU the segments run directly, doing
+the eager call's arithmetic in its order. Complex hopping, the near-null
+and ``exact_lowfreq`` preconditioners, a site shard and a caller that asks
+for it by name (``eager=True``) run the eager call.
 """
 
 from __future__ import annotations
@@ -30,10 +47,12 @@ from dataclasses import dataclass
 
 import torch
 
+from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
 from elphdynamics_tpu_torch.models.adapter import (
     ModelOps, global_phonons, global_sites, local_sites, site_sum)
-from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
+from elphdynamics_tpu_torch.utils.dtypes import (
+    fdot, field_dtype, params_are_complex, pseudofermion_noise)
 
 
 @dataclass(frozen=True)
@@ -82,13 +101,18 @@ def _refresh_phi(ops: ModelOps, params, x, R):
 
 
 def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_picks,
-                 propose, precond):
+                 propose, precond, eager: bool = False):
     """The Metropolis loop shared by the moves: ``draw_picks(shape,
     generator, device)`` draws the ``[n_moves, C]`` picks, ``propose(x,
     picks)`` returns the moved fields for one chain vector of picks. The
     update's ``draw(params, x, n_chains, generator)`` makes the draws of
     one call (on a site-sharded model every site's pseudofermions, cut to
-    the rank's block)."""
+    the rank's block). ``eager`` asks for the eager call where the
+    segmented one (module docstring) would run; ``update.segmented`` says
+    whether the configuration takes it on a real field, and
+    ``update.workspace()`` is its :class:`.graphs.Workspace` (None before
+    the first segmented call)."""
+    tol2 = cfg.tol ** 2
 
     def draw(params, x, n_chains: int, generator=None) -> SpecialDraws:
         C = n_chains
@@ -102,6 +126,107 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
             uniform=torch.rand((n_moves, C), generator=generator, dtype=torch.float64,
                                device=x.device))
 
+    def eager_update(params, x, draws: SpecialDraws):
+        accepted = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+        for m in range(n_moves):
+            phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[m].to(x.device))
+            x_new = propose(x, draws.picks[m].to(x.device))
+            S1, flag = _eval_S(ops, params, x_new, phi, tol2, cfg.maxiter, precond)
+            P = torch.clamp(torch.exp(-(S1 - S0)), max=1.0)
+            acc = (draws.uniform[m].to(P) < P) & (flag == 0)
+            x = torch.where(acc[:, None, None], x_new, x)
+            accepted = accepted + acc.to(torch.int64)
+        return x, accepted.to(torch.float64) / max(n_moves, 1)
+
+    # --- the segmented call: the eager call's arithmetic in its order, over
+    # one workspace (dynamics/graphs.py)
+    segmented = (not eager and n_moves > 0 and ops.shard is None
+                 and graphs.graphable_precond(precond))
+    box: dict = {}
+    # the eager call's solve: CG at tol², kappa_max and loop_precision at
+    # SolverConfig's defaults, preconditioned by the symmetric apply
+    scfg = SolverConfig(tol=tol2, maxiter=cfg.maxiter)
+    cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
+                        rhs="Lphi", stacked=True)
+
+    def move_start(ws):
+        """φ and S₀ at ws.x from the move's pseudofermions (:func:`_refresh_phi`),
+        the proposal at the move's picks, then the derived state, Λφ and the
+        full KPM setup at the proposed field and the tol² solve's start from
+        zero (:func:`_eval_S`)."""
+        p = ws.params
+        phi, S0 = _refresh_phi(ops, p, ws.x, ws.R)
+        ws.put("S0", S0)
+        x_new = ws.put("x_new", propose(ws.x, ws.pick))
+        ws.put("env", ops.derived(p, x_new))
+        ws.put("Lphi", ops.mulLambda(ops.calc_Lambda(p, x_new)[:, None], phi)
+               if ops.calc_Lambda is not None else phi)
+        if precond is not None:
+            ws.load("kpm", precond.setup(p, x_new, ws.kpm_start))
+        cg.start(ws, tol2)
+
+    def move_end(ws):
+        """S₁ from the finished solve, the Metropolis test against the move's
+        uniform and the masked commit."""
+        S1 = (site_sum(ops, fdot(ws.Lphi, ws.cg.x, dim=(1, -2, -1))) / 2
+              + ops.calc_Sb(ws.params, ws.x_new, False))
+        flag = ws.verdict.flag.amax(dim=1)
+        P = torch.clamp(torch.exp(-(S1 - ws.S0)), max=1.0)
+        acc = (ws.u.to(P) < P) & (flag == 0)
+        ws.put("x", torch.where(acc[:, None, None], ws.x_new, ws.x))
+        ws.put("accepted", ws.accepted + acc.to(torch.int64))
+
+    def seg_next(ws):
+        move_end(ws)
+        move_start(ws)
+
+    def seg_last(ws):
+        move_end(ws)
+        ws.put("rate", ws.accepted.to(torch.float64) / n_moves)
+
+    def segments(ws):
+        """Every segment once, in the order of a call whose solves each stop
+        after one CG block (the warm-up and the capture order)."""
+        seq = [("first", lambda: move_start(ws)), *cg.segments(ws, tol2)]
+        if n_moves > 1:
+            seq.append(("next", lambda: seg_next(ws)))
+        return seq + [("last", lambda: seg_last(ws))]
+
+    def segmented_update(params, x, draws: SpecialDraws):
+        ws = graphs.step_workspace(box, params, x)
+        dev = x.device
+
+        def load(start: int | None, end: int | None):
+            """The slots of move ``start``'s start (pseudofermions, picks)
+            and of move ``end``'s test (uniform)."""
+            if start is not None:
+                ws.put("R", draws.pseudofermion[start].to(dev))
+                ws.put("pick", draws.picks[start].to(dev))
+            if end is not None:
+                ws.put("u", draws.uniform[end].to(dev))
+
+        def begin():
+            ws.put("x", x)
+            ws.put("accepted", torch.zeros(x.shape[0], dtype=torch.int64, device=dev))
+
+        begin()
+        load(0, 0)
+        if precond is not None:
+            ws.put_start(precond.start)
+        if ws.graphs is not None and not ws.graphs.graphs:
+            ws.capture_once(lambda: segments(ws))
+            begin()     # the warm-up ran a move on the slots
+        ws.run("first", lambda: move_start(ws))
+        for m in range(n_moves):
+            cg.solve(ws, tol2)
+            if m + 1 < n_moves:
+                load(m + 1, m)
+                ws.run("next", lambda: seg_next(ws))
+            else:
+                load(None, m)
+                ws.run("last", lambda: seg_last(ws))
+        return ws.x.clone(), ws.rate.clone()
+
     def update(params, x, generator: torch.Generator | None = None,
                draws: SpecialDraws | None = None):
         C = x.shape[0]
@@ -109,19 +234,14 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
             return x, torch.zeros(C, dtype=torch.float64, device=x.device)
         if draws is None:
             draws = draw(params, x, C, generator)
-        accepted = torch.zeros(C, dtype=torch.int64, device=x.device)
-        for m in range(n_moves):
-            phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[m].to(x.device))
-            x_new = propose(x, draws.picks[m].to(x.device))
-            S1, flag = _eval_S(ops, params, x_new, phi, cfg.tol ** 2, cfg.maxiter, precond)
-            P = torch.clamp(torch.exp(-(S1 - S0)), max=1.0)
-            acc = (draws.uniform[m].to(P) < P) & (flag == 0)
-            x = torch.where(acc[:, None, None], x_new, x)
-            accepted = accepted + acc.to(torch.int64)
-        return x, accepted.to(torch.float64) / max(n_moves, 1)
+        if segmented and not params_are_complex(params):
+            return segmented_update(params, x, draws)
+        return eager_update(params, x, draws)
 
     update.draw = draw
     update.n_moves = n_moves
+    update.segmented = segmented
+    update.workspace = lambda: box.get("ws")
     return update
 
 
@@ -131,12 +251,13 @@ def _uniform_picks(n: int):
     return draw_picks
 
 
-def make_reflection_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
+def make_reflection_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None,
+                           eager: bool = False):
     """Reflection x → −x on ``n_moves`` random sites per call (Holstein; for
     SSH a null move that accepts nothing). Returns ``update(params, x,
     generator=None, draws=None) -> (x, acceptance [C])``."""
     if not ops.is_holstein:
-        return _make_update(ops, cfg, 0, None, None, precond)
+        return _make_update(ops, cfg, 0, None, None, precond, eager)
     N = global_phonons(ops)
 
     def propose(x, sites):
@@ -150,7 +271,8 @@ def make_reflection_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None
             x_new[rows, r] = torch.where(has[:, None], -x[rows, r], x[rows, r])
         return x_new
 
-    return _make_update(ops, cfg, min(cfg.n_moves, N), _uniform_picks(N), propose, precond)
+    return _make_update(ops, cfg, min(cfg.n_moves, N), _uniform_picks(N), propose, precond,
+                        eager)
 
 
 def _swap_rows(x, i, j):
@@ -162,7 +284,8 @@ def _swap_rows(x, i, j):
     return x_new
 
 
-def make_swap_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
+def make_swap_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None,
+                     eager: bool = False):
     """Swap ``n_moves`` times per call: the worldlines of the two sites of a
     random bond (Holstein, bonds in checkerboard order), or of two distinct
     random phonons (SSH)."""
@@ -175,12 +298,14 @@ def make_swap_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
             return torch.stack([i, torch.where(j >= i, j + 1, j)], dim=-1)
 
         return _make_update(ops, cfg, cfg.n_moves if Nph >= 2 else 0, draw_pair,
-                            lambda x, ij: _swap_rows(x, ij[:, 0], ij[:, 1]), precond)
+                            lambda x, ij: _swap_rows(x, ij[:, 0], ij[:, 1]), precond, eager)
     n_moves = cfg.n_moves if ops.spec.Nbonds > 0 else 0
-    table = torch.as_tensor(ops.spec.ckb.neighbor_table)
+    tables: dict = {}
 
     def propose(x, bonds):
-        ends = table.to(x.device)[:, bonds]
+        table = graphs.made_once(tables, x.device, lambda: torch.as_tensor(
+            ops.spec.ckb.neighbor_table, device=x.device), "the swap's bond table")
+        ends = table[:, bonds]
         if ops.shard is None:
             return _swap_rows(x, ends[0], ends[1])
         # site-sharded: each endpoint's row reaches every rank (one
@@ -194,4 +319,5 @@ def make_swap_update(ops: ModelOps, cfg: SpecialUpdateConfig, precond=None):
             x_new[rows, r] = torch.where(has[:, None], val, x_new[rows, r])
         return x_new
 
-    return _make_update(ops, cfg, n_moves, _uniform_picks(ops.spec.Nbonds), propose, precond)
+    return _make_update(ops, cfg, n_moves, _uniform_picks(ops.spec.Nbonds), propose, precond,
+                        eager)

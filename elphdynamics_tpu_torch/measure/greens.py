@@ -47,17 +47,22 @@ class GreensData:
     flag: torch.Tensor    # [C] max solver flag
 
 
+def draw_probes(ops: ModelOps, params, x, nv: int,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """The nᵥ probes per chain of fields ``x`` ``[C, N, Lτ]``: unit normals,
+    circular complex normals under complex hopping; a site-sharded model
+    draws every site's and keeps its block."""
+    return local_sites(ops, trace_noise((x.shape[0], nv, global_sites(ops), ops.Ltau),
+                                        field_dtype(params, x.dtype), x.device, generator))
+
+
 def sample_greens(ops: ModelOps, params, x, nv: int, scfg: SolverConfig, precond=None,
                   generator: torch.Generator | None = None, R=None) -> GreensData:
     """Draw nᵥ probes per chain (or take ``R`` ``[C, nᵥ, N, Lτ]``) and solve
     M·z = r for all of them at once by the configured solver kind, with the
     preconditioner set up at ``x`` ``[C, N, Lτ]``."""
-    C = x.shape[0]
     if R is None:
-        # circular complex normals under complex hopping; a site-sharded
-        # model draws every site's and keeps its block
-        R = local_sites(ops, trace_noise((C, nv, global_sites(ops), ops.Ltau),
-                                         field_dtype(params, x.dtype), x.device, generator))
+        R = draw_probes(ops, params, x, nv, generator)
     derived = ops.derived(params, x)
     pa = resolve_precond(precond, params, x)
     # a chain's nᵥ systems share its operator: eligible for block CG
@@ -142,13 +147,15 @@ def pair_indices(nv: int):
     return np.triu_indices(nv, k=1)
 
 
-def pair_tensor_sums(lattice, R: torch.Tensor, MinvR: torch.Tensor) -> PairTensors:
+def pair_tensor_sums(lattice, R: torch.Tensor, MinvR: torch.Tensor,
+                     pairs=None) -> PairTensors:
     """The pair-summed tensors from ``[C, nᵥ, N, Lτ]`` probes and
     solutions. Complex probes (complex hopping): conj on every probe of a
     same-vector pairing (G↑ = E[M⁻¹R ⊙ conj R]); each unordered pair gives
     vector i to spin ↑ and j to spin ↓ = conj, and the spin sums become
     real parts (per factor for the direct products, of the whole
-    convolution for the same-spin exchange)."""
+    convolution for the same-spin exchange). ``pairs``: :func:`pair_indices`
+    as index tensors on the probes' device (uploaded here when None)."""
     nv, Ltau = R.shape[-3], R.shape[-1]
     V = 2 * Ltau * lattice.ncells
     cplx = R.is_complex()
@@ -169,7 +176,8 @@ def pair_tensor_sums(lattice, R: torch.Tensor, MinvR: torch.Tensor) -> PairTenso
         # complex type, as every pair tensor is)
         G_up, G = G, G.real.to(G.dtype)
 
-    iu, ju = (torch.as_tensor(i, device=R.device) for i in pair_indices(nv))
+    iu, ju = (torch.as_tensor(i, device=R.device)
+              for i in (pair_indices(nv) if pairs is None else pairs))
     Mi, Mj = Mc.index_select(V_AX, iu), Mc.index_select(V_AX, ju)
     Ri, Rj = Rc.index_select(V_AX, iu), Rc.index_select(V_AX, ju)
 

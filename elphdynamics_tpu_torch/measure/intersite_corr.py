@@ -72,7 +72,9 @@ def _bond(defs, n):
 class BondFields:
     """Cell-layout fields of every probe pair: r₁ / M⁻¹r₁ of probe i and
     r₂ / M⁻¹r₂ of probe j, each ``[C, P, nₒ, L1, L2, L3, Lτ]`` complex;
-    complex probes (complex hopping) are stored conjugated."""
+    complex probes (complex hopping) are stored conjugated. ``pair_idx``:
+    the pairs' (i, j) indices, arrays (uploaded here) or index tensors on
+    the probes' device."""
 
     def __init__(self, lattice, R, MinvR, pair_idx, cdtype: torch.dtype):
         self.cplx = R.is_complex()
@@ -124,14 +126,25 @@ def measure_bondbond(ops, pt, bf: BondFields, bond_pairs, time_dependent: bool):
     return torch.stack(out, dim=1)
 
 
-def _hopping_grids(ops, params, x, cdtype):
+def hopping_cells(spec, device) -> list:
+    """Each bond definition's base cells (its bonds' first-endpoint cells,
+    in original bond order) as an index tensor on ``device``."""
+    lat = spec.lattice
+    return [torch.as_tensor(lat.calc_neighbor_table(d[0], d[1], d[2])[0]
+                            // lat.unit_cell.norbits, device=device)
+            for d in spec.bond_defs]
+
+
+def _hopping_grids(ops, params, x, cdtype, cells=None):
     """The hopping amplitude of every bond definition on its base cell,
     ``[ndefs, (C,) L1, L2, L3, 1 | Lτ]``: bare and τ-independent for
     Holstein, modulated per chain, bond and τ for SSH. Bonds are scattered
     onto base cells, not reshaped: a pair that the periodic wrap duplicates
-    is kept once, and the dropped copy's cell carries weight 0."""
+    is kept once, and the dropped copy's cell carries weight 0. ``cells``:
+    :func:`hopping_cells` on the fields' device (made here when None)."""
     spec, lat = ops.spec, ops.spec.lattice
-    norb = lat.unit_cell.norbits
+    if cells is None:
+        cells = hopping_cells(spec, x.device)
     if ops.is_holstein:
         tvals = params.t[None, :, None]                          # [1, Nbonds, 1]
     else:
@@ -140,12 +153,10 @@ def _hopping_grids(ops, params, x, cdtype):
             tvals = params.t_phase[None, :, None] * tvals
     lead, tail = tvals.shape[0], tvals.shape[-1]
     grids, n0 = [], 0
-    for dfn in spec.bond_defs:
-        tb = lat.calc_neighbor_table(dfn[0], dfn[1], dfn[2])
-        nnew = tb.shape[1]
-        cells = torch.as_tensor(tb[0] // norb, device=tvals.device)
+    for base in cells:
+        nnew = base.shape[0]
         g = torch.zeros((lead, lat.ncells, tail), dtype=tvals.dtype, device=tvals.device)
-        g[:, cells] = tvals[:, n0:n0 + nnew]
+        g[:, base] = tvals[:, n0:n0 + nnew]
         n0 += nnew
         grids.append(g.reshape(lead, lat.L3, lat.L2, lat.L1, tail).permute(0, 3, 2, 1, 4))
     t = torch.stack(grids).to(cdtype)                            # [ndefs, lead, L1, L2, L3, tail]
@@ -153,11 +164,12 @@ def _hopping_grids(ops, params, x, cdtype):
 
 
 def measure_currentcurrent(ops, params, x, pt, bf: BondFields, bond_pairs,
-                           time_dependent: bool):
+                           time_dependent: bool, cells=None):
     """⟨J′(τ,r)·J″(0,0)⟩ with J = i·Σσ(t·c†c − t*·c†c) per bond:
-    ``[C, n_bond_pairs, L1, L2, L3, Lτ+1 | 1]``."""
+    ``[C, n_bond_pairs, L1, L2, L3, Lτ+1 | 1]`` (``cells`` as in
+    :func:`_hopping_grids`)."""
     spec, Lt, lat = ops.spec, ops.Ltau, ops.spec.lattice
-    t = _hopping_grids(ops, params, x, bf.r1.dtype)
+    t = _hopping_grids(ops, params, x, bf.r1.dtype, cells)
     norm = lat.ncells * Lt
 
     def w(tn):

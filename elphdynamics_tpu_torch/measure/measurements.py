@@ -41,18 +41,20 @@ correlations to momentum space and integrates the susceptibilities
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
 
+from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
 from elphdynamics_tpu_torch.measure import greens as G
 from elphdynamics_tpu_torch.measure import intersite_corr as IC
 from elphdynamics_tpu_torch.models import ssh as Sm
 from elphdynamics_tpu_torch.models.adapter import ModelOps
-from elphdynamics_tpu_torch.utils.dtypes import complex_of
+from elphdynamics_tpu_torch.utils.dtypes import complex_of, params_are_complex
 from elphdynamics_tpu_torch.utils.math import simpson
 
 ONSITE_CORR_KINDS = ("Greens", "DenDen", "SpinSpin", "PairGreens", "PhononGreens")
@@ -81,6 +83,12 @@ class MeasurementSpec:
             unknown = [e[0] for e in entries if e[0] not in known]
             if unknown:
                 raise ValueError(f"unknown {where} correlation kinds {unknown}")
+
+
+def _unit(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The first unit vector of length ``n``, made on ``device`` (a
+    segmented measurement's graph holds no copy of host data)."""
+    return (torch.arange(n, device=device) == 0).to(dtype)
 
 
 def _corr_pairs(n, explicit):
@@ -140,12 +148,29 @@ def zero_container(ops: ModelOps, mspec: MeasurementSpec, dtype: torch.dtype, de
 # ---------------------------------------------------------------------------
 
 def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
-                          scfg: SolverConfig = SolverConfig(), precond=None):
+                          scfg: SolverConfig = SolverConfig(), precond=None,
+                          eager: bool = False):
     """Build ``step(params, x, generator=None, R=None) -> (increments,
     stats, snapshots)`` for fields ``x`` ``[C, N, Lτ]``: every increment
     and snapshot has a leading chain axis; ``stats`` holds the per-chain
-    ``iters`` and ``flag`` of the probe solves. ``R`` injects the probes.
-    ``step.analyze(params, x, gd)`` is everything after the solves."""
+    ``iters`` and ``flag`` of the probe solves. ``R`` injects the probes
+    (``step.draw(params, x, generator)`` draws them as a call does).
+    ``step.analyze(params, x, gd)`` is everything after the solves.
+
+    On one rank, with CG (``scfg.block`` off) on a real field and no
+    preconditioner or KPM without the exact low-frequency blocks, a call is
+    a fixed sequence of segments over one workspace (``dynamics/graphs.py``),
+    as the HMC update is: ``probe_start`` (the derived state, the full KPM
+    setup at x, b = MᵀR and the CG start from zero), the solve's CG blocks
+    and verification, and ``analyze`` (the pair tensors, every estimator,
+    the snapshots). The probes are drawn eagerly, in the eager order, and
+    copied into the workspace. On a CUDA field each segment is captured
+    once as a CUDA graph and replayed, the host keeping the eager solve's
+    reads; on the CPU the segments run directly, doing the eager
+    measurement's arithmetic in its order. ``eager`` asks for the eager
+    call where the segmented one would run; ``step.segmented`` says whether
+    the configuration takes it on a real field, ``step.workspace()`` is its
+    workspace (None before the first segmented call)."""
     mspec.check()
     if ops.is_holstein and any(e[0] == "PhononGreens" for e in mspec.intersite_corr):
         raise ValueError("PhononGreens is an on-site correlation for the Holstein model "
@@ -162,30 +187,67 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     onsite_kinds = _normalize_kinds(mspec.onsite_corr)
     inter_kinds = _normalize_kinds(mspec.intersite_corr)
     inter_pairs = _corr_pairs(ndefs, mspec.intersite_pairs)
-    if not ops.is_holstein:
-        # per-definition volume: each definition's own bond count times Lτ
-        def_counts = np.bincount(spec.bond_to_definition, minlength=ndefs)
-        Vb_def = np.maximum(def_counts, 1) * Lt
+    bond_kinds = [k for k in inter_kinds if k != "PhononGreens"]
 
-    def kind_pairs(kind):
-        td, kp = onsite_kinds[kind]
-        return td, (_corr_pairs(no, kp) if kp is not None else onsite_pairs)
+    # the static index tables: arrays here, tensors on a device made once
+    # there (:func:`tables`), so that a measurement uploads nothing
+    arrays = {}
+    arrays["iu"], arrays["ju"] = G.pair_indices(nv)
+    if spec.Nbonds:
+        arrays["s1"] = spec.ckb.neighbor_table[0][spec.bond_to_ckb]
+        arrays["s2"] = spec.ckb.neighbor_table[1][spec.bond_to_ckb]
+        bdef = spec.bond_def_of_bond if ops.is_holstein else spec.bond_to_definition
+        arrays["bdef_mask"] = np.asarray(bdef)[:, None] == np.arange(ndefs)[None, :]
+        if not ops.is_holstein:
+            # per-definition volume: each definition's own bond count times Lτ
+            def_counts = np.bincount(spec.bond_to_definition, minlength=ndefs)
+            arrays["Vb"] = np.maximum(def_counts, 1) * Lt
+            arrays["has_ph"] = (spec.bond_to_phonon >= 0)[:, None]
+            arrays["php"] = np.maximum(spec.bond_to_phonon, 0)
+    for kind, (_, kp) in onsite_kinds.items():
+        kp = _corr_pairs(no, kp) if kp is not None else onsite_pairs
+        arrays[f"o1/{kind}"], arrays[f"o2/{kind}"] = kp[:, 0], kp[:, 1]
+        arrays[f"same/{kind}"] = kp[:, 0] == kp[:, 1]
+    if "PhononGreens" in inter_kinds:
+        ph_pairs = _corr_pairs(_phonon_types(spec), inter_kinds["PhononGreens"][1])
+        arrays["ph0"], arrays["ph1"] = ph_pairs[:, 0], ph_pairs[:, 1]
+    # each bond-pair correlation's pairs of bond definitions, as ints
+    bond_pair_lists = {
+        kind: [tuple(int(i) for i in p) for p in
+               (_corr_pairs(ndefs, inter_kinds[kind][1]) if inter_kinds[kind][1] is not None
+                else inter_pairs)]
+        for kind in bond_kinds}
+    dev_tables: dict = {}
+
+    def tables(dev) -> dict:
+        """``arrays`` as tensors on ``dev`` (and the bond definitions' base
+        cells for CurrentCurrent), made on first use there
+        (:func:`..dynamics.graphs.made_once`)."""
+        def make():
+            t = {k: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for k, a in arrays.items()}
+            t["pairs"] = (t.pop("iu"), t.pop("ju"))
+            if "CurrentCurrent" in inter_kinds:
+                t["cells"] = IC.hopping_cells(spec, dev)
+            return t
+        return graphs.made_once(dev_tables, dev, make, "the measurement's index tables")
 
     def analyze(params, x, gd: G.GreensData):
         dev, dt = x.device, x.dtype
         C = x.shape[0]
-        site_orbit = torch.as_tensor(lat.site_to_orbit, device=dev)
+        T = tables(dev)
 
         def orbit_sum(f):
-            """[C, N, Lτ] -> per-orbital totals [C, nₒ]."""
-            tot = f.sum(dim=-1)
-            return torch.zeros((C, no), dtype=tot.dtype, device=dev).index_add(1, site_orbit, tot)
+            """[C, N, Lτ] -> per-orbital totals [C, nₒ] (sites run orbit
+            fastest; a sum, where an atomic scatter would add in a varying
+            order on a card)."""
+            return f.sum(dim=-1).reshape(C, lat.ncells, no).sum(dim=1)
 
         def chains(v):
             return v.expand((C,) + tuple(v.shape))
 
         R, MinvR = gd.R, gd.MinvR
-        pt = G.pair_tensor_sums(lat, R, MinvR)
+        pt = G.pair_tensor_sums(lat, R, MinvR, T["pairs"])
         out: dict[str, Any] = {"global": {}, "onsite": {}, "intersite": {},
                                "onsite_corr": {}, "intersite_corr": {}}
 
@@ -237,10 +299,7 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             out["intersite"] = {k: torch.zeros((C, ndefs), dtype=dt, device=dev)
                                 for k in _container_shapes(ops, mspec)["intersite"]}
         else:
-            s1 = torch.as_tensor(spec.ckb.neighbor_table[0][spec.bond_to_ckb], device=dev)
-            s2 = torch.as_tensor(spec.ckb.neighbor_table[1][spec.bond_to_ckb], device=dev)
-            bdef = torch.as_tensor(spec.bond_def_of_bond if ops.is_holstein
-                                   else spec.bond_to_definition, device=dev)
+            s1, s2, bdef_mask = T["s1"], T["s2"], T["bdef_mask"]
             # complex hopping: conj probe and Re (each pair's ↑/↓ assignment
             # symmetrises to the spin-summed 2·Re G per vector)
             est_12c = MinvR.index_select(-2, s1) * Rp.index_select(-2, s2)
@@ -260,20 +319,21 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                 return (nv - 1) * (w * est_12c + w.conj() * est_21c).real.sum(dim=1)
 
             def per_def(v, V):
-                return torch.zeros((C, ndefs), dtype=dt, device=dev).index_add(
-                    1, bdef, v.sum(dim=-1)) / V
+                """Per-bond values summed per bond definition (a masked sum,
+                in a fixed order), over the volumes ``V``."""
+                zero = torch.zeros((), dtype=dt, device=dev)
+                return torch.where(bdef_mask, v.sum(dim=-1)[:, :, None], zero).sum(dim=1) / V
 
             if ops.is_holstein:
                 out["intersite"]["el_ke"] = per_def(ke_pairs(params.t[:, None]),
                                                     lat.ncells * Lt)
             else:
-                Vb = torch.as_tensor(Vb_def, device=dev).to(dt)
+                Vb = T["Vb"].to(dt)
                 tp = Sm.hopping_t_prime(spec, params, x)          # [C, Nbonds, Lt]
                 tf = tp if params.t_phase is None else params.t_phase[:, None] * tp
                 out["intersite"]["el_ke"] = per_def(ke_pairs(tf), Vb)
                 # the phonon-carrying bonds
-                has_ph = torch.as_tensor(spec.bond_to_phonon >= 0, device=dev)[:, None]
-                php = torch.as_tensor(np.maximum(spec.bond_to_phonon, 0), device=dev)
+                has_ph, php = T["has_ph"], T["php"]
                 xb = x.index_select(-2, php)
                 om = params.omega[php][:, None]
                 al = params.alpha[php][:, None]
@@ -293,16 +353,15 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                 out["intersite"]["sign_switch"] = n_pairs * acc(switch)
 
         # ---- on-site correlations
-        def oslices(pairs):
-            o1 = torch.as_tensor(pairs[:, 0], device=dev)
-            o2 = torch.as_tensor(pairs[:, 1], device=dev)
+        def oslices(kind):
+            o1, o2 = T[f"o1/{kind}"], T[f"o2/{kind}"]
 
             def at0(A, a, b):
                 return A[:, a, b, 0, 0, 0, 0][:, :, None, None, None]
 
-            delta_r = torch.zeros(pt.G.shape[3:6], dtype=dt, device=dev)
-            delta_r[0, 0, 0] = 1.0
-            same = torch.as_tensor(pairs[:, 0] == pairs[:, 1], device=dev)
+            dims = pt.G.shape[3:6]
+            delta_r = _unit(math.prod(dims), dt, dev).reshape(dims)
+            same = T[f"same/{kind}"]
             return {"o1": o1, "o2": o2, "Gp": pt.G[:, o2, o1], "GGp": pt.GG[:, o2, o1],
                     "GDDp": pt.GDD_G00[:, o2, o1], "G0Dp": pt.G0D_GD0[:, o2, o1],
                     "G_o2o2_00": at0(pt.G, o2, o2), "G_o1o1_00": at0(pt.G, o1, o1),
@@ -313,11 +372,10 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             """[C, np, l..., 2Lt] -> [C, np, l..., Lt(+1)] with τ=β = τ=0."""
             return torch.cat([A[..., :Lt], A[..., :1]], dim=-1) if td else A[..., :1]
 
-        delta_t0 = torch.zeros(2 * Lt, dtype=dt, device=dev)
-        delta_t0[0] = 1.0
+        delta_t0 = _unit(2 * Lt, dt, dev)
         if "Greens" in onsite_kinds:
-            td, kp = kind_pairs("Greens")
-            sl = oslices(kp)
+            td = onsite_kinds["Greens"][0]
+            sl = oslices("Greens")
             main = sl["Gp"][..., :Lt] if td else sl["Gp"][..., :1]
             if td:
                 # G(β) = δᵣ − G(0), per-pair sum: δ → n_pairs·δ
@@ -325,16 +383,16 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                 main = torch.cat([main, beta], dim=-1)
             out["onsite_corr"]["Greens"] = main
         if "DenDen" in onsite_kinds:
-            td, kp = kind_pairs("DenDen")
-            sl = oslices(kp)
+            td = onsite_kinds["DenDen"][0]
+            sl = oslices("DenDen")
             dd = 4.0 * (n_pairs - sl["G_o2o2_00"][..., None] - sl["G_o1o1_00"][..., None]
                         + sl["GDDp"]
                         + 0.5 * (sl["delta"][..., None] * delta_t0
                                  * sl["G_o2o1_00"][..., None] - sl["G0Dp"]))
             out["onsite_corr"]["DenDen"] = tslice(dd, td)
         if "SpinSpin" in onsite_kinds:
-            td, kp = kind_pairs("SpinSpin")
-            sl = oslices(kp)
+            td = onsite_kinds["SpinSpin"][0]
+            sl = oslices("SpinSpin")
             ss = (-2.0 * sl["G0Dp"]
                   + 2.0 * sl["delta"][..., None] * delta_t0 * sl["G_o2o1_00"][..., None])
             if pt.GDD_minus is not None:
@@ -355,8 +413,8 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                 ss = ss[..., :1]
             out["onsite_corr"]["SpinSpin"] = ss
         if "PairGreens" in onsite_kinds:
-            td, kp = kind_pairs("PairGreens")
-            sl = oslices(kp)
+            td = onsite_kinds["PairGreens"][0]
+            sl = oslices("PairGreens")
             pg = sl["GGp"]
             if td:
                 beta = pg[..., 0] + sl["delta"] * (n_pairs - 2.0 * sl["G_o1o1_00"].real)
@@ -365,40 +423,33 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                 pg = pg[..., :1]
             out["onsite_corr"]["PairGreens"] = pg
         if "PhononGreens" in onsite_kinds:
-            td, kp = kind_pairs("PhononGreens")
+            td = onsite_kinds["PhononGreens"][0]
             xc = G.to_cell_layout(lat, x).to(complex_of(dt))     # [C, no, L1, L2, L3, Lt]
-            xx = n_pairs * G.translational_average(
-                xc[:, torch.as_tensor(kp[:, 0], device=dev)],
-                xc[:, torch.as_tensor(kp[:, 1], device=dev)])
+            xx = n_pairs * G.translational_average(xc[:, T["o1/PhononGreens"]],
+                                                   xc[:, T["o2/PhononGreens"]])
             out["onsite_corr"]["PhononGreens"] = (torch.cat([xx, xx[..., :1]], dim=-1)
                                                   if td else xx[..., :1])
 
         # ---- inter-site correlations: SSH's bond-phonon Green's function
         if "PhononGreens" in inter_kinds:
             ntypes = _phonon_types(spec)
-            td, kp = inter_kinds["PhononGreens"]
-            pairs = _corr_pairs(ntypes, kp)
+            td = inter_kinds["PhononGreens"][0]
             per_type = ops.Nph // ntypes
             if per_type != lat.ncells:
                 raise ValueError("SSH PhononGreens needs one phonon per unit cell per type "
                                  "(bond deduplication on tiny lattices breaks this)")
             xt = x.reshape(C, ntypes, lat.L3, lat.L2, lat.L1, Lt).permute(0, 1, 4, 3, 2, 5)
             xt = xt.to(complex_of(dt))
-            xx = n_pairs * G.translational_average(
-                xt[:, torch.as_tensor(pairs[:, 1], device=dev)],
-                xt[:, torch.as_tensor(pairs[:, 0], device=dev)])
+            xx = n_pairs * G.translational_average(xt[:, T["ph1"]], xt[:, T["ph0"]])
             out["intersite_corr"]["PhononGreens"] = (torch.cat([xx, xx[..., :1]], dim=-1)
                                                      if td else xx[..., :1])
 
         # ---- inter-site correlations over pairs of bond definitions
-        bond_kinds = [k for k in inter_kinds if k != "PhononGreens"]
         if bond_kinds:
-            bf = IC.BondFields(lat, R, MinvR, G.pair_indices(nv), complex_of(dt))
+            bf = IC.BondFields(lat, R, MinvR, T["pairs"], complex_of(dt))
 
             def bond_pairs(kind):
-                td, kp = inter_kinds[kind]
-                arr = _corr_pairs(ndefs, kp) if kp is not None else inter_pairs
-                return td, [tuple(int(i) for i in p) for p in arr]
+                return inter_kinds[kind][0], bond_pair_lists[kind]
 
             if "BondBond" in inter_kinds:
                 td, bp = bond_pairs("BondBond")
@@ -406,7 +457,7 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             if "CurrentCurrent" in inter_kinds:
                 td, bp = bond_pairs("CurrentCurrent")
                 out["intersite_corr"]["CurrentCurrent"] = IC.measure_currentcurrent(
-                    ops, params, x, pt, bf, bp, td)
+                    ops, params, x, pt, bf, bp, td, T["cells"])
             if "BondPairGreens" in inter_kinds:
                 td, bp = bond_pairs("BondPairGreens")
                 out["intersite_corr"]["BondPairGreens"] = IC.measure_bondpairgreens(
@@ -424,11 +475,63 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             snaps["phonon_position"] = x.mean(dim=-1)
         return out, {"iters": gd.iters, "flag": gd.flag}, snaps
 
+    # --- the segmented measurement: the eager one's arithmetic in its order
+    segmented = (not eager and ops.shard is None and scfg.kind == "cg" and not scfg.block
+                 and graphs.graphable_precond(precond))
+    box: dict = {}
+    cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
+                        rhs="b", stacked=True)
+
+    def seg_start(ws):
+        """The derived state and the full KPM setup at x, b = MᵀR and the
+        probe solve's start from zero (:func:`.greens.sample_greens`)."""
+        p = ws.params
+        env = ws.put("env", ops.derived(p, ws.x))
+        if precond is not None:
+            ws.load("kpm", precond.setup(p, ws.x, ws.kpm_start))
+        ws.put("b", ops.mulMT(p, ops.stack(env), ws.R))
+        cg.start(ws, scfg.tol)
+
+    def seg_analyze(ws):
+        """The solve's per-chain statistics and :func:`analyze`, every
+        result copied into the workspace (``ws.results``)."""
+        gd = G.GreensData(R=ws.R, MinvR=ws.cg.x, iters=ws.cg.iters.sum(dim=1) // nv,
+                          flag=ws.verdict.flag.amax(dim=1))
+        inc, stats, snaps = analyze(ws.params, ws.x, gd)
+        ws.results = ({g: {k: ws.put(f"inc.{g}.{k}", v) for k, v in vals.items()}
+                       for g, vals in inc.items()},
+                      {k: ws.put(f"stats.{k}", v) for k, v in stats.items()},
+                      {k: ws.put(f"snap.{k}", v) for k, v in snaps.items()})
+
+    def segmented_step(params, x, R):
+        ws = graphs.step_workspace(box, params, x)
+        ws.put("x", x)
+        ws.put("R", R)
+        if precond is not None:
+            ws.put_start(precond.start)
+        ws.capture_once(lambda: [("probe_start", lambda: seg_start(ws)),
+                                 *cg.segments(ws, scfg.tol),
+                                 ("analyze", lambda: seg_analyze(ws))])
+        ws.run("probe_start", lambda: seg_start(ws))
+        cg.solve(ws, scfg.tol)
+        ws.run("analyze", lambda: seg_analyze(ws))
+        inc, stats, snaps = ws.results
+        return ({g: {k: v.clone() for k, v in vals.items()} for g, vals in inc.items()},
+                {k: v.clone() for k, v in stats.items()}, {k: v.clone() for k, v in snaps.items()})
+
+    def draw(params, x, generator: torch.Generator | None = None):
+        return G.draw_probes(ops, params, x, nv, generator)
+
     def step(params, x, generator: torch.Generator | None = None, R=None):
+        if segmented and not params_are_complex(params):
+            return segmented_step(params, x, draw(params, x, generator) if R is None else R)
         gd = G.sample_greens(ops, params, x, nv, scfg, precond, generator, R)
         return analyze(params, x, gd)
 
     step.analyze = analyze
+    step.draw = draw
+    step.segmented = segmented
+    step.workspace = lambda: box.get("ws")
     return step
 
 

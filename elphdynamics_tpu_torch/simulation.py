@@ -357,6 +357,7 @@ def _langevin_update(ops, setup: SimulationSetup, precond, eager: bool = False):
             flag=stats.flag)
 
     update.draw = lstep.draw
+    update.workspace = lstep.workspace
     return update
 
 
@@ -480,6 +481,17 @@ class _HMCLog:
             self.f = None
 
 
+def _replays(*parts) -> int:
+    """The CUDA graph replays of the distinct ``parts`` (updates, moves or a
+    measurement step) since their graphs were made."""
+    n = 0
+    for part in {id(p): p for p in parts if p is not None}.values():
+        ws = getattr(part, "workspace", lambda: None)()
+        if ws is not None and ws.graphs is not None:
+            n += ws.graphs.replays
+    return n
+
+
 def _host_tree(tree):
     """A nested dict of tensors as numpy arrays."""
     if isinstance(tree, dict):
@@ -514,9 +526,11 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     hmc = setup.dynamics_type == "hmc"
     bcfg = setup.hmc_burnin_cfg
     tuned_step = tuner = None
-    # tempering and every multi-rank layout keep the eager update; elsewhere
-    # a one-rank leapfrog CG update or CG Langevin step (Holstein or SSH) on
-    # the card replays CUDA graphs (dynamics/graphs.py)
+    # tempering and every multi-rank layout keep the eager update, moves and
+    # measurement; elsewhere on the card the one-rank leapfrog CG update or
+    # CG Langevin step (Holstein or SSH), the reflection and swap moves and
+    # the CG measurement replay CUDA graphs (dynamics/graphs.py; each builder
+    # keeps the eager form for what its graphs do not cover)
     eager = tcfg is not None or par.shard is not None or par.chains is not None
     if hmc:
         sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)
@@ -536,9 +550,9 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     if par.shard is not None:
         mprecond = (kpm.make_precond(ops_g, setup.kpm_cfg)
                     if par.chains is not None and setup.kpm_cfg is not None else None)
-    mstep = make_measurement_step(ops_g, mspec, setup.solver_cfg, mprecond)
-    reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
-    swap = make_swap_update(ops, setup.swap_cfg, precond)
+    mstep = make_measurement_step(ops_g, mspec, setup.solver_cfg, mprecond, eager=eager)
+    reflect = make_reflection_update(ops, setup.reflect_cfg, precond, eager=eager)
+    swap = make_swap_update(ops, setup.swap_cfg, precond, eager=eager)
 
     sim_stats = {"simulation_time": 0.0, "measurement_time": 0.0, "write_time": 0.0,
                  "iters": 0.0, "acceptance_rate": 0.0, "reflect_acceptance_rate": 0.0,
@@ -824,6 +838,10 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     finally:
         hmc_log.close()
 
+    # CUDA graph replays by part (0 where a part ran eager or on the CPU)
+    sim_stats["graph_replays"] = {"update": _replays(sim_step, burnin_step, tuned_step),
+                                  "reflect": _replays(reflect), "swap": _replays(swap),
+                                  "measurement": _replays(mstep)}
     total = sp.burnin + sp.nsteps
     sim_stats["iters"] /= max(total, 1)
     sim_stats["acceptance_rate"] /= max(total, 1)

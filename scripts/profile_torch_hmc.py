@@ -7,14 +7,20 @@ card.
 with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_8x8,
 ssh_64x64, twisted_64x64, ssh_twisted_64x64, langevin_64x64,
 ssh_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
-measure_bond_64x64, driver_4x4, driver_ssh_4x4, driver_langevin_4x4;
+measure_bond_64x64, driver_4x4, driver_ssh_4x4, driver_64x64,
+driver_ssh_64x64, driver_langevin_4x4;
 ``--eager`` runs the eager update of an HMC configuration, the eager
-Langevin step or a driver step in place of its CUDA graphs
-(``dynamics/graphs.py``; the twisted ones are eager either way).
+Langevin step or a driver step with every part eager (update, reflection,
+swap, measurement) in place of its CUDA graphs (``dynamics/graphs.py``;
+the twisted ones are eager either way).
 ``--timed N`` times N more runs after the warm-up, without the profiler
-(host clock, each run ended by a synchronisation), and for a driver step
-its HMC update apart; ``--no-profile`` stops there (the profiler's cost
-per recorded event makes an eager stock SSH step take many minutes).
+(host clock, each run ended by a synchronisation), and for an HMC driver
+step each part apart (``parts``: the update, the reflection and swap
+calls, the measurement with its chain mean and container add, each ended
+by a synchronisation), then one bin's post-processing and text files
+(``bin_s``, written to a temporary folder, with the file's updates per
+bin); ``--no-profile`` stops there (the profiler's cost per recorded event
+makes an eager stock SSH step take many minutes).
 
 ``bench_8x8``, ``bench_32x32``, ``kernel_64x64``, ``ssh_8x8`` (the optical
 SSH model, 64 chains, dense Ā) and ``ssh_64x64`` (8 chains) are the HMC
@@ -34,9 +40,12 @@ time-dependent bond-pair correlations (BondBond, CurrentCurrent,
 BondPairGreens);
 ``driver_4x4`` is one sampling step of the driver on
 ``examples/holstein_hmc_square.toml`` (1 chain): the HMC update, the
-reflection and swap moves and the measurement; ``driver_ssh_4x4`` the
-same on ``examples/ssh_hmc_square.toml`` (100 leapfrog steps of 10
-bosonic substeps, KPM ``max_order`` 64); ``driver_langevin_4x4`` one
+reflection and swap moves and the measurement (``bench.build_hmc_example``);
+``driver_ssh_4x4`` the same on ``examples/ssh_hmc_square.toml`` (100
+leapfrog steps of 10 bosonic substeps, KPM ``max_order`` 64);
+``driver_64x64`` and ``driver_ssh_64x64`` the same two files widened as
+``chip_smoke.py``'s 64×64 driver runs are (``bench.wide_hmc_config``: L =
+64, β = 4, 4 chains, nᵥ = 10); ``driver_langevin_4x4`` one
 step of the driver on ``examples/holstein_langevin_square.toml`` (1 chain,
 RK, KPM ``max_order`` 64; the file measures once per 1000 steps, so a step
 is the Langevin step alone). Builds the
@@ -81,7 +90,7 @@ def main() -> int:
                     choices=[*HMC_CONFIGS, "langevin_64x64", "ssh_langevin_64x64",
                              "gmres_64x64", "measure_64x64", "measure_ssh_64x64",
                              "measure_bond_64x64", "driver_4x4", "driver_ssh_4x4",
-                             "driver_langevin_4x4"])
+                             "driver_64x64", "driver_ssh_64x64", "driver_langevin_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     ap.add_argument("--eager", action="store_true",
                     help="the eager update in place of the CUDA graphs")
@@ -106,7 +115,7 @@ def main() -> int:
         graphable = box["step"]
     elif args.config.startswith("driver"):
         example = "ssh_hmc_square" if "ssh" in args.config else "holstein_hmc_square"
-        run, box = _driver_step(example, args.eager)
+        run, box = _driver_step(example, args.eager, wide="64x64" in args.config)
         graphable = box["step"]
     elif args.config == "gmres_64x64":
         run = _gmres_solve()
@@ -130,7 +139,8 @@ def main() -> int:
     run()
     torch.cuda.synchronize()
     first_update_s = box.get("update_s")
-    timed, update_s = [], []
+    first_parts = box.get("parts")
+    timed, update_s, parts = [], [], []
     for _ in range(args.timed):
         t0 = time.perf_counter()
         run()
@@ -138,11 +148,17 @@ def main() -> int:
         timed.append(time.perf_counter() - t0)
         if "update_s" in box:
             update_s.append(box["update_s"])
+        if "parts" in box:
+            parts.append(box["parts"])
     if timed:
         print(f"[{args.config}] device={torch.cuda.get_device_name(0)!r} eager={args.eager} "
               f"unprofiled_s={[round(t, 4) for t in timed]}"
               + (f" first_update_s={first_update_s:.4f} update_s={[round(t, 4) for t in update_s]}"
                  if update_s else ""))
+    if parts:
+        print(f"[{args.config}] eager={args.eager} first_parts_s={_rounded(first_parts)} "
+              f"parts_s={[_rounded(p) for p in parts]} bin_s={box['bin']()[0]:.4f} "
+              f"updates_per_bin={box['bin']()[1]} replays={box['replays']()}", flush=True)
     if args.no_profile:
         return 0
     ckb_cuda.reset_counts()
@@ -241,45 +257,81 @@ def _measurement(ssh: bool = False, bond: bool = False):
     return run
 
 
-def _driver_step(example: str, eager: bool):
-    """One sampling step of the driver on a stock 4×4 example (the eager
-    HMC update with ``eager``), and a box that keeps the update's seconds
-    (host clock, ended by a synchronisation)."""
+def _rounded(parts: dict) -> dict:
+    return {k: round(v, 4) for k, v in parts.items()}
+
+
+def _driver_step(example: str, eager: bool, wide: bool = False):
+    """One sampling step of the driver on a stock example (``wide``: at
+    64×64, 4 chains) with every part eager with ``eager``, and a box that
+    keeps the step's parts' seconds (host clock, each ended by a
+    synchronisation), the graph replays of each part so far and a timer of
+    one bin's post-processing and text files."""
     import tempfile
 
-    from elphdynamics_tpu_torch.dynamics.hmc import HMCState, make_hmc_step
-    from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
-    from elphdynamics_tpu_torch.dynamics.special_updates import (
-        make_reflection_update, make_swap_update)
-    from elphdynamics_tpu_torch.io.config import build_setup, load_toml
+    from elphdynamics_tpu_torch.dynamics.hmc import HMCState
+    from elphdynamics_tpu_torch.io import output as out_io
+    from elphdynamics_tpu_torch.io.config import load_toml
     from elphdynamics_tpu_torch.measure import measurements as M
-    from elphdynamics_tpu_torch.ops import kpm
+    from elphdynamics_tpu_torch.simulation import _host_tree
 
     root = Path(__file__).resolve().parent.parent
     cfg = load_toml(str(root / "examples" / f"{example}.toml"))
-    setup = build_setup(cfg, tempfile.gettempdir(), "cuda", torch.float32)
-    ops, params = setup.ops, setup.params
-    precond = kpm.make_precond(ops, setup.kpm_cfg)
-    step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)
-    reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
-    swap = make_swap_update(ops, setup.swap_cfg, precond)
-    mstep = M.make_measurement_step(ops, setup.mspec, setup.solver_cfg, precond)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = init_phonons_half_filled(ops, params, 1, gen)
-    box = {"state": HMCState(x=x, v=torch.zeros_like(x)), "step": step}
+    if wide:
+        cfg = bench.wide_hmc_config(cfg)
+    ex = bench.build_hmc_example(cfg, 4 if wide else 1, "cuda", torch.float32, eager=eager)
+    params, gen, mspec = ex.params, ex.generator, ex.setup.mspec
+    container = M.zero_container(ex.ops, mspec, torch.float32, "cuda")
+    box = {"state": ex.state, "step": ex.step}
 
     def run():
-        t0 = time.perf_counter()
-        state, stats = step(params, box["state"], gen)
-        torch.cuda.synchronize()
-        box["update_s"] = time.perf_counter() - t0
-        x, _ = reflect(params, state.x, gen)
-        x, _ = swap(params, x, gen)
-        inc, mstats, snaps = mstep(params, x, gen)
-        M.mean_over_chains(inc, snaps, mstats["flag"])
+        parts, t0 = {}, time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        state, stats = ex.step(params, box["state"], gen)
+        lap("update")
+        x, _ = ex.reflect(params, state.x, gen)
+        lap("reflect")
+        x, _ = ex.swap(params, x, gen)
+        lap("swap")
+        inc, mstats, snaps = ex.measure(params, x, gen)
+        inc, _ = M.mean_over_chains(inc, snaps, mstats["flag"])
+        for group, vals in container.items():
+            for k, a in vals.items():
+                a.add_(inc[group][k])
+        lap("measurement")
         box["state"] = HMCState(x=x, v=state.v)
+        box["update_s"], box["parts"] = parts["update"], parts
         return stats.iters
 
+    def replays():
+        out = {}
+        for name in ("step", "reflect", "swap", "measure"):
+            fn = getattr(getattr(ex, name), "workspace", None)
+            ws = fn() if fn is not None else None
+            out[name] = ws.graphs.replays if ws is not None and ws.graphs is not None else 0
+        return out
+
+    def bin_once():
+        """One bin of the file's size: post-processing and the text files."""
+        if "bin_s" not in box:
+            sp = ex.setup.sim_params
+            with tempfile.TemporaryDirectory() as folder:
+                out_io.init_measurement_folders(folder, container, mspec.snapshots)
+                out_io.write_key_files(folder, ex.ops, mspec, container)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                processed = _host_tree(M.process_bin(ex.ops, mspec, container, sp.bin_size))
+                out_io.write_bin(folder, processed, 1, ex.ops)
+                box["bin_s"] = (time.perf_counter() - t0, sp.bin_size)
+        return box["bin_s"]
+
+    box["replays"], box["bin"] = replays, bin_once
     return run, box
 
 

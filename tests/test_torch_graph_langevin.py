@@ -273,8 +273,8 @@ def test_changed_parameters_equal_eager(branch_gate):
 def test_driver_writes_the_same_bins(tmp_path, monkeypatch):
     """``examples/holstein_langevin_square.toml`` with its counts cut
     (2 + 4 steps, a measurement per step, 2 bins, nᵥ 4, KPM max_order 8),
-    2 chains: the driver through the graphed step (its segments run) and
-    through the eager one write byte-identical bins."""
+    2 chains: the driver through the graphed step and measurement (their
+    segments run) and through the eager ones write byte-identical bins."""
     calls = {"n": 0}
     run = graphs.Workspace.run
 
@@ -283,12 +283,14 @@ def test_driver_writes_the_same_bins(tmp_path, monkeypatch):
         return run(self, name, fn)
 
     monkeypatch.setattr(graphs.Workspace, "run", counted)
-    real = simulation.make_langevin_step
+    makers = {k: getattr(simulation, k) for k in ("make_langevin_step", "make_measurement_step")}
     folders = {}
     for form in ("graphed", "eager"):
         if form == "eager":
-            monkeypatch.setattr(simulation, "make_langevin_step",
-                                lambda *a, **k: real(*a, **{**k, "eager": True}))
+            # the measurement is graphed too: the eager run asks for both eager
+            for k, real in makers.items():
+                monkeypatch.setattr(simulation, k, lambda *a, _r=real, **kw: _r(
+                    *a, **{**kw, "eager": True}))
         cfg = _example("holstein_langevin_square", tmp_path / form)
         path = tmp_path / f"{form}.toml"
         path.write_text(dump_toml(copy.deepcopy(cfg)))
