@@ -83,12 +83,12 @@ Phases (one line each, and the process exits non-zero if any fails):
     block CG): nᵥ = 4 probe solves of M (tol 1e-10) and a Holstein and an
     SSH HMC update with ``[solver] block`` (trajectory solves at s = 1), x
     within 1e-12, equal iterations and decisions;
-17. the twisted configurations at full width, ``TWISTED_64X64`` (16
-    chains) and ``SSH_TWISTED_64X64`` (8 chains): 1 warm-up and 2 timed
-    updates, every complex K1 form on its path launched, flags 0,
-    acceptance > 0;
+17. (folded into phase 40, which runs ``TWISTED_64X64`` and
+    ``SSH_TWISTED_64X64`` graphed and eager and checks every complex K1
+    form on their paths launched, flags 0 and acceptance > 0);
 18. the TOML driver on ``examples/holstein_hmc_twisted.toml`` and
-    ``examples/ssh_hmc_twisted.toml``, one update and one measurement each;
+    ``examples/ssh_hmc_twisted.toml``, one update and one measurement each,
+    both replaying their graphs (replays > 0 for each part);
 19. the deep-β samplers and solver aids, 4×4 float64 on the card (K1 forced
     on, the dense Ā off) against the CPU with the same draws: a 2MN update,
     a dynamic-dt update, a tempering exchange (Holstein and SSH, λ or α per
@@ -108,7 +108,8 @@ Phases (one line each, and the process exits non-zero if any fails):
     stock 4×4 Holstein example with a ``[tempering]`` ladder on 8 chains
     (the exchange rate);
 23. every (kernel, coefficient form, field shape) that one of the 64×64
-    runs of phases 9, 11, 13, 14, 17, 20, 21, 24, 29 and 31 launched (``ckb_cuda.launch_shapes``),
+    runs of phases 9, 11, 13, 14, 20, 21, 24, 29, 31 and 36–40 launched
+    (``ckb_cuda.launch_shapes``),
     against the twin in float32 and float64 (complex64 and complex128 for
     K1's complex mode), all directions, at every launch geometry the
     wrapper's tuning may keep for that shape, so that no run goes through a
@@ -203,16 +204,18 @@ Phases (one line each, and the process exits non-zero if any fails):
 
 36. the graphed update (``dynamics/graphs.py``: the one-rank Holstein
     leapfrog CG update captured as CUDA graphs, replayed) against the eager
-    update, asked for by name, at bench 8×8, 32×32 and ``KERNEL_64X64`` (K1
-    and K2 inside the graphs): at 8×8 and 64×64 two updates each way on
+    update, asked for by name, at bench 8×8, 32×32 (dense matmuls that
+    cuBLAS plans under capture at N = 1024) and ``KERNEL_64X64`` (K1
+    and K2 inside the graphs): two updates each way on
     the same draws from the same state, bit for bit or x within
     ``GRAPH_X_REL_TOL`` and ΔH within 2u·(|S| + K), equal decisions, flags
     and iterations, replays = host reads + 1, and on the second update
     equal K1 / K2 launches by form
     and equal host reads; the graphs, capture seconds, pool bytes and
     replays per update; the graphed update's busy share (its replays' CUDA
-    event spans over wall time); sweeps/s of each in ``GRAPH_AB_BLOCKS``
-    interleaved blocks (median, IQR; ``chiprun_out/graphed_update.json``).
+    event spans over wall time; ``chiprun_out/graphed_update.json``). The
+    interleaved sweeps/s blocks of phases 36 and 37 went to pay for phase
+    40.
 37. the same for the graphed SSH update at ``SSH_8X8`` (64 chains, the
     dense-Ā branch: K1 per-column, and K1 per-chain re-densifying Ā on
     every KPM refresh) and ``SSH_64X64`` (8 chains, the fold branch: K1
@@ -228,8 +231,7 @@ Phases (one line each, and the process exits non-zero if any fails):
     steps each way on the same draws from the same fields, x bit for bit or
     within ``GRAPH_X_REL_TOL``, equal iterations and flags, replays = host
     reads + 1, equal K1 / K2 launches by form on the second step; graphs,
-    capture seconds, pool bytes, busy share and chain-steps/s in
-    ``GRAPH_AB_BLOCKS`` interleaved blocks (``chiprun_out/
+    capture seconds, pool bytes and busy share (``chiprun_out/
     graphed_langevin.json``); at 4×4, ``LANGEVIN_LONG_STEPS`` graphed steps
     with no growth of allocated device memory between step 5 and the last,
     and none over ``LANGEVIN_REBUILDS`` steps built afresh; then the
@@ -243,14 +245,34 @@ Phases (one line each, and the process exits non-zero if any fails):
     ``bench.build_hmc_example``): two calls of each part each way on the
     same draws from the same fields, x, acceptance and every increment bit
     for bit, equal iterations and flags, replays = host reads + 1, equal K1
-    / K2 launches by form on the second call; graphs, capture seconds, pool
-    bytes and seconds per part in ``SPECIAL_AB_BLOCKS`` interleaved blocks
-    (median, IQR; ``chiprun_out/graphed_special_measure.json``); at stock
+    / K2 launches by form on the second call; graphs, capture seconds and
+    pool bytes (``chiprun_out/graphed_special_measure.json``); at stock
     Holstein 4×4, ``SPECIAL_MEMORY_CALLS`` graphed measurements with no
-    growth of allocated device memory. Phase 11's driver runs replay the
-    graphs of the update, the moves and the measurement.
+    growth of allocated device memory; the 64×64 Holstein measurement at
+    ``BLOCKED_CHAINS`` chains, its estimators in blocks of chains
+    (``measurements.analyze_chains``), graphed, eager and graphed in one
+    block of every chain on the same probes: bit for bit, replays = host
+    reads + 1, and the blocks' peak of allocated memory below the one
+    block's. Phase 11's driver runs replay the graphs of the update, the
+    moves and the measurement. (The interleaved blocks of phases 38 and 39
+    went to pay for phase 40.)
+40. complex hopping graphed: the same checks against the eager calls at
+    ``TWISTED_64X64`` (16 chains) and ``SSH_TWISTED_64X64`` (8 chains) for
+    the HMC update, ``TWISTED_LANGEVIN_64X64`` (16 chains) for the RK
+    Langevin step, and on the moves and measurement of
+    ``examples/holstein_hmc_twisted.toml`` and ``ssh_hmc_twisted.toml`` (the
+    square files' moves added: the twisted files configure none) at 4×4
+    (one chain) and 64×64 (4 chains): every result bit for bit on the same
+    draws, replays = host reads + 1, equal K1 complex launches by form
+    (``fold/shared/complex``, ``fold/column/complex``,
+    ``fold/chain/complex``), ``GRAPH_AB_BLOCKS`` interleaved A/B blocks
+    (sweeps/s, chain-steps/s, seconds per part), busy shares, capture seconds and
+    pool bytes, and ``TWISTED_MEMORY_STEPS`` graphed twisted SSH 4×4
+    driver steps with no growth of allocated memory (``chiprun_out/
+    graphed_complex.json``). Its 64×64 runs' shapes enter phase 23 and
+    ``launches_by_path``.
 
-Phases 36, 37, 38 and 39 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
+Phases 36, 37, 38, 39 and 40 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
 phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
@@ -1019,9 +1041,8 @@ def run_config(cfg, warmup: int, timed: int) -> dict:
     shape = (cfg.n_chains, b.ops.Nph, round(cfg.beta / cfg.dtau))
     if not (out["x_finite"] and out["dH_finite"] and out["x_shape"] == shape):
         raise RuntimeError(f"{cfg.name}: non-finite or misshapen output")
-    # a real field of a graphed configuration must have replayed graphs
-    # (complex hopping runs the eager update)
-    if getattr(b.step, "segmented", False) and cfg.twist is None and replays["n"] <= 0:
+    # a graphed configuration (real or complex hopping) must have replayed graphs
+    if getattr(b.step, "segmented", False) and replays["n"] <= 0:
         raise RuntimeError(f"{cfg.name}: the graphed update replayed no graph")
     return out
 
@@ -1613,7 +1634,7 @@ def phase_driver_twisted() -> dict:
     """``examples/holstein_hmc_twisted.toml`` and ``examples/
     ssh_hmc_twisted.toml`` through the driver on the card, as shipped (4×4,
     1 chain) with their counts cut to one sampling update, its measurement
-    and one bin."""
+    and one bin; the update and the measurement replay CUDA graphs."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = {}
     with tempfile.TemporaryDirectory() as work:
@@ -1623,7 +1644,12 @@ def phase_driver_twisted() -> dict:
                 cfg = tomllib.load(f)
             cfg["hmc"].update(burnin_updates=0, simulation_updates=1, meas_freq=1)
             cfg["simulation"]["num_bins"] = 1
-            out[example] = run_driver(example, cfg, 1, work, extra_files=extra)
+            run = out[example] = run_driver(example, cfg, 1, work, extra_files=extra)
+            # the files configure no moves; the update and the measurement
+            # replay their graphs under complex hopping
+            if any(run["graph_replays_by_part"][p] <= 0 for p in ("update", "measurement")):
+                raise RuntimeError(f"the {example} driver run replayed no CUDA graph of a "
+                                   f"part: {run['graph_replays_by_part']}")
     return out
 
 
@@ -2897,11 +2923,11 @@ def phase_ed_float32() -> None:
 # phase 36: the graphed update against the eager one
 U_F32 = 2.0 ** -24                # float32 unit roundoff
 GRAPH_X_REL_TOL = 1e-6            # x, relative, where the two paths' bits differ
-GRAPH_AB_BLOCKS = 3               # interleaved blocks of each form per configuration
-# updates per block; 32×32 and SSH 8×8 at 1 (from 2) pay for phase 37,
-# 8×8 at 1 (from 2) for phase 38
-GRAPH_AB_UPDATES = {"bench_8x8": 1, "bench_32x32": 1, "kernel_64x64": 1, "ssh_8x8": 1,
-                    "ssh_64x64": 1}
+# phase 40's interleaved blocks of each form per configuration, and HMC
+# updates per block (phases 36–39 run none since phase 40 came: PRs 12–15
+# settled them, and their time pays for it)
+GRAPH_AB_BLOCKS = 3
+GRAPH_AB_UPDATES = 1
 
 
 @contextlib.contextmanager
@@ -2929,17 +2955,6 @@ def counting_replays(timed: bool = False):
         yield box
     finally:
         graphs.UpdateGraphs.replay = replay
-
-
-def _eager_twin(b):
-    """The eager update of bench step ``b``'s model, asked for by name: its
-    own preconditioner (the same fixed start vectors), the model's spec and
-    so the kernels' tuned geometries shared."""
-    from elphdynamics_tpu_torch.dynamics.hmc import make_hmc_step
-    from elphdynamics_tpu_torch.ops import kpm
-
-    return make_hmc_step(b.ops, b.mass, b.hmc_cfg, kpm.make_precond(b.ops, b.kpm_cfg),
-                         eager=True)
 
 
 def _counted_update(step, params, state, draws):
@@ -3004,7 +3019,8 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
                    launches_graphed={f: mg["launches"][f] for f in forms},
                    launches_eager={f: me["launches"][f] for f in forms},
                    acceptance=f"{tg.accepted.double().mean().item():.4f}",
-                   cg_iters=f"{tg.iters.double().mean().item():.2f}")
+                   cg_iters=f"{tg.iters.double().mean().item():.2f}",
+                   max_flag=int(tg.flag.max()))
         if u == 1:
             ws = b.step.workspace()
             row.update(graphs=len(ws.graphs.graphs), capture_s=f"{ws.graphs.capture_s:.3f}",
@@ -3019,6 +3035,7 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
             raise RuntimeError(f"graphed {name}: launches or host reads differ, or a form "
                                f"launched no time: {row}")
         out[u] = row
+        out["table_launches"], out["launch_shapes"] = mg["launches"], mg["shapes"]
         state = se
     return out
 
@@ -3048,57 +3065,67 @@ def _sweeps_ab(b, eager, n_chains: int, start, updates: int) -> dict:
     return out
 
 
-def _graphed_against_eager(configs, forms: dict, out_file: str) -> dict:
-    """Each bench configuration of ``configs``, graphed against eager: two
-    updates each way on the same draws (:func:`_graph_parity`, with the
-    configuration's kernel forms ``forms[name]``; a configuration not in
-    ``forms`` runs no parity check), the graphed
-    update's busy share (:func:`_replay_busy_share`), and sweeps/s in
-    interleaved blocks (:func:`_sweeps_ab`), written to ``out_file`` in the
-    output directory."""
+def _graphed_update(cfg, forms):
+    """The bench configuration ``cfg``'s graphed update against its eager
+    twin: two updates each way on the same draws (:func:`_graph_parity`,
+    with the kernel forms ``forms`` on its path; None runs a warm-up call of
+    each instead) and the graphed update's busy share
+    (:func:`_replay_busy_share`). The eager twin is the bench step's
+    (:meth:`..bench.BenchStep.eager`): its own preconditioner (the same
+    fixed start vectors), the model's spec and so the kernels' tuned
+    geometries shared. Returns (the bench step, its eager twin, the
+    results)."""
     from elphdynamics_tpu_torch.bench import build
 
-    out = {}
-    for cfg in configs:
-        b = build(cfg, "cuda", torch.float32)
-        eager = _eager_twin(b)
-        if not b.step.segmented or eager.segmented:
-            raise RuntimeError(f"{cfg.name}: the bench step is not the graphed update")
-        res = out[cfg.name] = {}
-        if forms.get(cfg.name) is not None:
-            res["parity"] = _graph_parity(b, eager, cfg.name, forms[cfg.name])
-        else:
-            b.step(b.params, b.state, b.generator)    # warm-up and capture
-            eager(b.params, b.state, b.generator)
-        draws = eager.draw(b.params, b.state.x, cfg.n_chains,
-                           torch.Generator(device="cuda").manual_seed(5))
-        res["busy_graphed"] = _replay_busy_share(b.step, b.params, b.state, draws)
-        res["ab"] = _sweeps_ab(b, eager, cfg.n_chains, b.state, GRAPH_AB_UPDATES[cfg.name])
-        ab = res["ab"]
-        say(f"graph_ab_{cfg.name}", chains=cfg.n_chains, blocks=GRAPH_AB_BLOCKS,
-            updates_per_block=GRAPH_AB_UPDATES[cfg.name],
-            eager_median=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
-            graphed_median=f"{ab['graphed']['median']:.4f}",
-            graphed_iqr=f"{ab['graphed']['iqr']:.4f}",
-            speedup_median=f"{ab['speedup_median']:.3f}",
-            eager_blocks=ab["eager"]["blocks"], graphed_blocks=ab["graphed"]["blocks"],
-            graphed_replay_busy=f"{res['busy_graphed']['replay_busy_share']:.4f}")
+    b = build(cfg, "cuda", torch.float32)
+    eager = b.eager()
+    if not b.step.segmented or eager.segmented:
+        raise RuntimeError(f"{cfg.name}: the bench step is not the graphed update")
+    res = {}
+    if forms is not None:
+        res["parity"] = _graph_parity(b, eager, cfg.name, forms)
+    else:
+        b.step(b.params, b.state, b.generator)    # warm-up and capture
+        eager(b.params, b.state, b.generator)
+    draws = eager.draw(b.params, b.state.x, cfg.n_chains,
+                       torch.Generator(device="cuda").manual_seed(5))
+    res["busy_graphed"] = _replay_busy_share(b.step, b.params, b.state, draws)
+    ws = b.step.workspace()
+    say(f"graph_busy_{cfg.name}", chains=cfg.n_chains, graphs=len(ws.graphs.graphs),
+        capture_s=f"{ws.graphs.capture_s:.3f}", pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}",
+        graphed_replay_busy=f"{res['busy_graphed']['replay_busy_share']:.4f}")
+    return b, eager, res
+
+
+def _say_ab(name: str, ab: dict, per_block: str, n: int, busy: dict) -> None:
+    """One line of an interleaved A/B (:func:`_sweeps_ab`)."""
+    say(f"graph_ab_{name}", blocks=GRAPH_AB_BLOCKS, **{per_block: n},
+        eager_median=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
+        graphed_median=f"{ab['graphed']['median']:.4f}",
+        graphed_iqr=f"{ab['graphed']['iqr']:.4f}",
+        speedup_median=f"{ab['speedup_median']:.3f}",
+        eager_blocks=ab["eager"]["blocks"], graphed_blocks=ab["graphed"]["blocks"],
+        graphed_replay_busy=f"{busy['replay_busy_share']:.4f}")
+
+
+def _write_json(out_file: str, out: dict) -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", out_file), "w") as f:
         json.dump(out, f, indent=1, default=str)
-    return out
 
 
 def phase_graphed_update() -> dict:
     """36. The graphed update (``dynamics/graphs.py``) against the eager
-    one at bench 8×8 (dense branch), 32×32 (dense) and ``KERNEL_64X64`` (the
-    fold branch: K1 and K2 inside the graphs); parity at 8×8 and 64×64."""
+    one at bench 8×8 and 32×32 (the dense branch; at 32×32 cuBLAS picks its
+    algorithms for N = 1024 under capture) and ``KERNEL_64X64`` (the fold
+    branch: K1 and K2 inside the graphs): :func:`_graph_parity` and the
+    graphed busy share (the A/B blocks went to pay for phase 40)."""
     from elphdynamics_tpu_torch.bench import BENCH_8X8, BENCH_32X32, KERNEL_64X64
 
-    return _graphed_against_eager(
-        (BENCH_8X8, BENCH_32X32, KERNEL_64X64),
-        {BENCH_8X8.name: (), KERNEL_64X64.name: ("fold/shared", "fused/shared")},
-        "graphed_update.json")
+    out = {cfg.name: _graphed_update(cfg, forms)[2] for cfg, forms in (
+        (BENCH_8X8, ()), (BENCH_32X32, ()), (KERNEL_64X64, ("fold/shared", "fused/shared")))}
+    _write_json("graphed_update.json", out)
+    return out
 
 
 def phase_graphed_update_ssh() -> dict:
@@ -3112,19 +3139,19 @@ def phase_graphed_update_ssh() -> dict:
     (SSH's alias sum gathers, ``models/ssh._tie_sum``; the bench models
     have no aliases anyway). The fallback bound of :func:`_graph_parity`
     (x within ``GRAPH_X_REL_TOL``, ΔH within 2·u·(|S| + K)) covers only a
-    cuBLAS algorithm that changes under capture, on 8×8's dense Ā."""
+    cuBLAS algorithm that changes under capture, on 8×8's dense Ā. No A/B
+    blocks since phase 40 (they pay for it)."""
     from elphdynamics_tpu_torch.bench import SSH_8X8, SSH_64X64
 
-    return _graphed_against_eager(
-        (SSH_8X8, SSH_64X64),
-        {SSH_8X8.name: ("fold/column", "fold/chain"),
-         SSH_64X64.name: ("fold/column", "fold/chain", "fused/chain")},
-        "graphed_update_ssh.json")
+    out = {cfg.name: _graphed_update(cfg, forms)[2] for cfg, forms in (
+        (SSH_8X8, ("fold/column", "fold/chain")),
+        (SSH_64X64, ("fold/column", "fold/chain", "fused/chain")))}
+    _write_json("graphed_update_ssh.json", out)
+    return out
 
 
 # phase 38: the graphed Langevin step against the eager one
-# steps per interleaved block (the eager stock 4×4 step takes ~0.8 s)
-LANGEVIN_AB_STEPS = {"langevin_64x64": 2, "ssh_langevin_64x64": 2, "langevin_stock_4x4": 2}
+LANGEVIN_AB_STEPS = 2       # steps per interleaved block (phase 40)
 LANGEVIN_LONG_STEPS = 100   # graphed steps at the stock 4×4 shape; memory read after 5 and after these
 LANGEVIN_REBUILDS = 3       # fresh graphed steps of that model, memory read after each
 
@@ -3239,14 +3266,30 @@ def _cuda_memory_report() -> dict:
     return out
 
 
+def _langevin_against_eager(name: str, b, eager, forms) -> dict:
+    """The Langevin bench ``b``'s graphed step against its eager twin
+    ``eager``: :func:`_langevin_parity` and the graphed step's busy
+    share."""
+    if not b.step.segmented or eager.segmented:
+        raise RuntimeError(f"{name}: the Langevin step is not the graphed one")
+    res = {"parity": _langevin_parity(b, eager, name, forms)}
+    chains = b.x.shape[0]
+    draws = eager.draw(b.params, b.x, chains, torch.Generator(device="cuda").manual_seed(5))
+    res["busy_graphed"] = _replay_busy_share(b.step, b.params, b.x, draws)
+    say(f"graph_busy_{name}", chains=chains, graphs=len(b.step.workspace().graphs.graphs),
+        graphed_replay_busy=f"{res['busy_graphed']['replay_busy_share']:.4f}")
+    return res
+
+
 def phase_graphed_langevin() -> dict:
     """38. The graphed Langevin step against the eager one, asked for by
     name: ``LANGEVIN_64X64`` (16 chains, RK; K1 and K2 inside the graphs),
     ``SSH_LANGEVIN_64X64`` (8 chains, RK; K1 per-chain and per-column, K2
     per-chain) and the stock ``examples/holstein_langevin_square.toml``
     step (4×4, one chain, RK, KPM max_order 64: the host-bound extreme):
-    :func:`_langevin_parity`, the graphed step's busy share, chain-steps/s
-    in interleaved blocks, and at 4×4 :func:`_langevin_memory`; then
+    :func:`_langevin_parity`, the graphed step's busy share (the
+    interleaved blocks went to pay for phase 40), and at 4×4
+    :func:`_langevin_memory`; then
     :func:`_cuda_memory_report`. JSON ``graphed_langevin.json``. Returns
     the 64×64 configurations' second graphed steps (launches, shapes)."""
     from elphdynamics_tpu_torch.bench import (
@@ -3263,37 +3306,23 @@ def phase_graphed_langevin() -> dict:
     out = {}
     for name, make, forms in runs:
         b = make()
-        eager = b.eager()
-        if not b.step.segmented or eager.segmented:
-            raise RuntimeError(f"{name}: the Langevin step is not the graphed one")
-        res = out[name] = {"parity": _langevin_parity(b, eager, name, forms)}
-        chains = b.x.shape[0]
-        draws = eager.draw(b.params, b.x, chains, torch.Generator(device="cuda").manual_seed(5))
-        res["busy_graphed"] = _replay_busy_share(b.step, b.params, b.x, draws)
-        ab = res["ab"] = _sweeps_ab(b, eager, chains, b.x, LANGEVIN_AB_STEPS[name])
-        ws = b.step.workspace()
-        say(f"graph_ab_{name}", chains=chains, blocks=GRAPH_AB_BLOCKS,
-            steps_per_block=LANGEVIN_AB_STEPS[name], graphs=len(ws.graphs.graphs),
-            eager_median=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
-            graphed_median=f"{ab['graphed']['median']:.4f}",
-            graphed_iqr=f"{ab['graphed']['iqr']:.4f}",
-            speedup_median=f"{ab['speedup_median']:.3f}",
-            eager_blocks=ab["eager"]["blocks"], graphed_blocks=ab["graphed"]["blocks"],
-            graphed_replay_busy=f"{res['busy_graphed']['replay_busy_share']:.4f}")
+        res = out[name] = _langevin_against_eager(name, b, b.eager(), forms)
         if name == "langevin_stock_4x4":
             res["memory"] = _langevin_memory(b)
-        del b, eager, ws
+        del b
     out["memory_report"] = _cuda_memory_report()
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "graphed_langevin.json"), "w") as f:
-        json.dump(out, f, indent=1, default=str)
+    _write_json("graphed_langevin.json", out)
     return {f"graphed_{name}": out[name]["parity"]
             for name in (LANGEVIN_64X64.name, SSH_LANGEVIN_64X64.name)}
 
 
 # phase 39: the graphed reflection, swap and measurement against the eager ones
-SPECIAL_AB_BLOCKS = 3          # interleaved blocks of each form per case (one step each)
 SPECIAL_MEMORY_CALLS = 50      # graphed stock 4×4 measurements, memory read after 5 and after these
+BLOCKED_CHAINS = 16            # the 64×64 measurement whose estimators run in blocks of chains
+# blocks against one block of all chains, relative to each result's largest
+# magnitude: the same float32 arithmetic, its FFT and matmul plans chosen
+# by cuFFT and cuBLAS for another batch size (so not bit for bit on a card)
+BLOCKED_REL_TOL = 1e-5
 SPECIAL_PARTS = ("reflect", "swap", "measure")
 
 
@@ -3344,6 +3373,18 @@ def _tree_equal(a, b) -> bool:
     if isinstance(a, (tuple, list)):
         return len(a) == len(b) and all(_tree_equal(p, q) for p, q in zip(a, b))
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _tree_rel_diff(a, b) -> float:
+    """The largest difference of nested dicts / tuples of tensors, each
+    tensor's over its own largest magnitude (0 where both are 0)."""
+    if isinstance(a, dict):
+        return max((_tree_rel_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (tuple, list)):
+        return max((_tree_rel_diff(p, q) for p, q in zip(a, b)), default=0.0)
+    a, b = a.double(), b.double()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return float((a - b).abs().max()) / scale if scale > 0 else float((a - b).abs().max())
 
 
 def _special_parity(ex, twin, name: str, forms) -> dict:
@@ -3459,6 +3500,52 @@ def _measurement_memory(ex) -> dict:
     return out
 
 
+def _measurement_blocks(cfg) -> dict:
+    """The measurement of the parsed ``[hmc]`` file ``cfg`` (64×64) at
+    ``BLOCKED_CHAINS`` chains, whose estimators run in blocks of chains
+    (``measurements.analyze_chains``; more than one block here): graphed,
+    eager, and graphed in one block of every chain, on the same probes:
+    equal results, replays = host reads + 1, and each graphed call's peak of
+    allocated device memory above what was allocated before it, the
+    blocked one below the one block's. Graphed blocks equal eager blocks
+    bit for bit; against one block the libraries' plans differ with the
+    batch, so that comparison holds to ``BLOCKED_REL_TOL``."""
+    from elphdynamics_tpu_torch.bench import build_hmc_example
+    from elphdynamics_tpu_torch.measure.measurements import analyze_chains
+
+    ex = build_hmc_example(cfg, BLOCKED_CHAINS, "cuda", torch.float32)
+    whole = build_hmc_example(cfg, BLOCKED_CHAINS, "cuda", torch.float32,
+                              chain_block=BLOCKED_CHAINS)
+    twin = ex.eager()
+    block = analyze_chains(BLOCKED_CHAINS, ex.setup.mspec.nv, ex.ops.Nsites, ex.ops.Ltau,
+                           torch.float32)
+    x = ex.state.x
+    R = twin.measure.draw(ex.params, x, ex.generator)
+    calls, out = {}, dict(chains=BLOCKED_CHAINS, chains_per_block=block)
+    for form, step in (("blocks", ex.measure), ("eager", twin.measure), ("whole", whole.measure)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls[form], m = _part_call(step, ex.params, x, R=R)
+        out[f"{form}_s"] = f"{m['seconds']:.4f}"
+        out[f"{form}_peak_gb"] = f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}"
+        if form != "eager":
+            out[f"{form}_replays"], out[f"{form}_host_reads"] = m["replays"], m["host_reads"]
+            out[f"{form}_pool_gb"] = f"{step.workspace().graphs.pool_bytes / 1e9:.3f}"
+    out.update(bitwise_vs_eager=_tree_equal(calls["blocks"], calls["eager"]),
+               bitwise_vs_whole=_tree_equal(calls["blocks"], calls["whole"]),
+               rel_diff_vs_whole=f"{_tree_rel_diff(calls['blocks'], calls['whole']):.3e}",
+               rel_tol_vs_whole=BLOCKED_REL_TOL, max_flag=int(calls["blocks"][1]["flag"].max()))
+    say("blocked_measure_holstein_64x64", **out)
+    if (block >= BLOCKED_CHAINS or not out["bitwise_vs_eager"]
+            or float(out["rel_diff_vs_whole"]) > BLOCKED_REL_TOL
+            or out["max_flag"] != 0
+            or any(out[f"{f}_replays"] != out[f"{f}_host_reads"] + 1 for f in ("blocks", "whole"))
+            or float(out["blocks_peak_gb"]) >= float(out["whole_peak_gb"])):
+        raise RuntimeError(f"the measurement in blocks of chains left one block of all: {out}")
+    return out
+
+
 def phase_graphed_special_measure() -> dict:
     """39. The graphed reflection, swap and measurement (``dynamics/
     special_updates.py``, ``measure/measurements.py``: each part's segments
@@ -3466,9 +3553,10 @@ def phase_graphed_special_measure() -> dict:
     ``examples/holstein_hmc_square.toml`` and ``ssh_hmc_square.toml`` driver
     steps at one chain and the same files at 64×64, β = 4, 4 chains, nᵥ =
     10 (``bench.build_hmc_example``; K1 and K2 inside the 64×64 graphs):
-    :func:`_special_parity`, seconds per part in interleaved blocks
-    (:func:`_parts_ab`), and at stock Holstein 4×4
-    :func:`_measurement_memory`. JSON ``graphed_special_measure.json``.
+    :func:`_special_parity`, at stock Holstein 4×4
+    :func:`_measurement_memory`, and at Holstein 64×64
+    :func:`_measurement_blocks` (the interleaved blocks of seconds per part
+    went to pay for phase 40). JSON ``graphed_special_measure.json``.
     Returns the 64×64 parts' second graphed calls (launches, shapes) by
     path name."""
     from elphdynamics_tpu_torch.bench import build_hmc_example
@@ -3478,20 +3566,148 @@ def phase_graphed_special_measure() -> dict:
         ex = build_hmc_example(cfg, chains, "cuda", torch.float32)
         twin = ex.eager()
         res = out[name] = {"parity": _special_parity(ex, twin, name, forms)}
-        ab = res["ab"] = _parts_ab(ex, twin, SPECIAL_AB_BLOCKS)
-        say(f"special_ab_{name}", chains=chains, blocks=SPECIAL_AB_BLOCKS,
-            **{f"{form}_{part}": f"{ab[form][part]['median']:.4f} ({ab[form][part]['iqr']:.4f})"
-               for form in ("eager", "graphed") for part in ab[form]},
-            speedup_median={p: round(v, 3) for p, v in ab["speedup_median"].items()})
         if name == "holstein_stock_4x4":
             res["memory"] = _measurement_memory(ex)
         if forms:
             for part, rows in res["parity"].items():
                 paths[f"graphed_{part}_{name}"] = rows
         del ex, twin
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "graphed_special_measure.json"), "w") as f:
-        json.dump(out, f, indent=1, default=str)
+        if name == "holstein_64x64":
+            res["blocks"] = _measurement_blocks(cfg)
+    _write_json("graphed_special_measure.json", out)
+    return paths
+
+
+# phase 40: the graphed calls under complex hopping against the eager ones
+# graphed twisted 4×4 driver steps, memory read after 5 and after these
+TWISTED_MEMORY_STEPS = 50
+# the twisted examples ship without moves: phase 40 gives them the stock
+# square files' (4 reflections and 4 swaps; SSH's reflection is a null move)
+TWISTED_MOVES = {"holstein": {"reflection_update": {"freq": 1, "nsites": 4},
+                              "swap_update": {"freq": 1, "nbonds": 4}},
+                 "ssh": {"swap_update": {"freq": 1, "nbonds": 4}}}
+TWISTED_FORMS = {"holstein": ("fold/shared/complex",),
+                 "ssh": ("fold/column/complex", "fold/chain/complex")}
+
+
+def _twisted_cases():
+    """(name, parsed [hmc] file, chains, the kernel forms on its path) of
+    phase 40: ``examples/holstein_hmc_twisted.toml`` and
+    ``ssh_hmc_twisted.toml`` with ``TWISTED_MOVES``, at 4×4 and one chain
+    (the trajectory cut to 0.2 for :func:`_twisted_memory`; the 4×4
+    Holstein file runs dense matmuls, no kernel) and widened to 64×64, β =
+    4, 4 chains, nᵥ = 10 (``bench.wide_hmc_config``)."""
+    from elphdynamics_tpu_torch.bench import wide_hmc_config
+
+    out = []
+    for model in ("holstein", "ssh"):
+        with open(os.path.join(_examples_dir(), f"{model}_hmc_twisted.toml"), "rb") as f:
+            stock = tomllib.load(f)
+        stock["hmc"].update(TWISTED_MOVES[model])
+        wide = wide_hmc_config(stock)
+        stock["hmc"]["trajectory_time"] = 0.2
+        out += [(f"{model}_twisted_4x4", stock, 1, () if model == "holstein" else
+                 TWISTED_FORMS[model]),
+                (f"{model}_twisted_64x64", wide, 4, TWISTED_FORMS[model])]
+    return out
+
+
+def _twisted_memory(ex) -> dict:
+    """``TWISTED_MEMORY_STEPS`` graphed driver steps of the example ``ex``
+    (its update, moves and measurement): allocated device memory after step
+    5 and after the last (no growth allowed), every flag 0."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    state, mem, flag = ex.state, {}, None
+    t0 = time.perf_counter()
+    for n in range(1, TWISTED_MEMORY_STEPS + 1):
+        state, stats = ex.step(ex.params, state, g)
+        x, _ = ex.reflect(ex.params, state.x, g)
+        x, _ = ex.swap(ex.params, x, g)
+        _, mstats, _ = ex.measure(ex.params, x, g)
+        state = replace(state, x=x)
+        step_flag = torch.maximum(stats.flag.max(), mstats["flag"].max())
+        flag = step_flag if flag is None else torch.maximum(flag, step_flag)
+        if n in (5, TWISTED_MEMORY_STEPS):
+            torch.cuda.synchronize()
+            mem[n] = torch.cuda.memory_allocated()
+    seconds = time.perf_counter() - t0
+    out = dict(steps=TWISTED_MEMORY_STEPS, s_per_step=seconds / TWISTED_MEMORY_STEPS,
+               allocated_after_5=mem[5], allocated_after_last=mem[TWISTED_MEMORY_STEPS],
+               growth_bytes=mem[TWISTED_MEMORY_STEPS] - mem[5], max_flag=int(flag),
+               replays={p: getattr(ex, p).workspace().graphs.replays
+                        for p in ("step", "reflect", "swap", "measure")
+                        if getattr(ex, p).workspace() is not None})
+    say("graphed_twisted_memory", **out)
+    if out["growth_bytes"] > 0 or out["max_flag"] != 0:
+        raise RuntimeError(f"graphed twisted driver steps grew device memory or failed: {out}")
+    return out
+
+
+def phase_graphed_complex() -> dict:
+    """40. The graphed calls under complex hopping (``dynamics/graphs.py``:
+    the same segments as a real field's, their fermion fields complex; K1's
+    complex mode inside the 64×64 graphs) against the eager ones, asked for
+    by name: the HMC update at ``TWISTED_64X64`` (16 chains) and
+    ``SSH_TWISTED_64X64`` (8 chains; :func:`_graphed_update`), the
+    RK Langevin step at ``TWISTED_LANGEVIN_64X64`` (16 chains), and the
+    reflection, swap and measurement of both twisted examples at 4×4 and
+    64×64 (:func:`_twisted_cases`; :func:`_special_parity`,
+    :func:`_parts_ab`); every result bit for bit on the same draws, equal
+    iterations, flags and K1 launches by form, replays = host reads + 1;
+    sweeps/s, chain-steps/s and seconds per part in interleaved blocks,
+    busy shares, capture seconds and pool bytes; at twisted SSH 4×4
+    :func:`_twisted_memory`; flags 0 and acceptance > 0 over the 64×64
+    updates (phase 17's checks, whose runs this phase took over). JSON
+    ``chiprun_out/graphed_complex.json``.
+    Returns the 64×64 runs' (and the SSH 4×4 parts') second graphed calls
+    (launches, shapes) by path name."""
+    from elphdynamics_tpu_torch.bench import (
+        SSH_TWISTED_64X64, TWISTED_64X64, TWISTED_LANGEVIN_64X64, build, build_hmc_example)
+
+    paths, upd = {}, {}
+    for cfg, forms in ((TWISTED_64X64, TWISTED_FORMS["holstein"]),
+                       (SSH_TWISTED_64X64, TWISTED_FORMS["ssh"])):
+        b, eager, res = _graphed_update(cfg, forms)
+        ab = res["ab"] = _sweeps_ab(b, eager, cfg.n_chains, b.state, GRAPH_AB_UPDATES)
+        _say_ab(cfg.name, ab, "updates_per_block", GRAPH_AB_UPDATES, res["busy_graphed"])
+        upd[cfg.name] = res
+        del b, eager
+    out = {"update": upd}
+    for name, res in upd.items():
+        rows = [res["parity"][u] for u in (1, 2)]
+        if not all(r["bitwise"] for r in rows):
+            raise RuntimeError(f"graphed {name}: not bit for bit against the eager update")
+        if max(r["max_flag"] for r in rows) != 0 or not any(
+                float(r["acceptance"]) > 0 for r in rows):
+            raise RuntimeError(f"graphed {name}: a solver flag, or no update accepted: {rows}")
+        paths[f"graphed_{name}"] = res["parity"]
+    b = build(TWISTED_LANGEVIN_64X64, "cuda", torch.float32)
+    eager = b.eager()
+    lang = out["langevin"] = _langevin_against_eager(TWISTED_LANGEVIN_64X64.name, b, eager,
+                                                      TWISTED_FORMS["holstein"])
+    ab = lang["ab"] = _sweeps_ab(b, eager, b.x.shape[0], b.x, LANGEVIN_AB_STEPS)
+    _say_ab(TWISTED_LANGEVIN_64X64.name, ab, "steps_per_block", LANGEVIN_AB_STEPS,
+            lang["busy_graphed"])
+    del b, eager
+    if not all(lang["parity"][u]["bitwise"] for u in (1, 2)):
+        raise RuntimeError("graphed twisted Langevin: not bit for bit against the eager step")
+    paths[f"graphed_{TWISTED_LANGEVIN_64X64.name}"] = lang["parity"]
+    for name, cfg, chains, forms in _twisted_cases():
+        ex = build_hmc_example(cfg, chains, "cuda", torch.float32)
+        twin = ex.eager()
+        res = out[name] = {"parity": _special_parity(ex, twin, name, forms)}
+        ab = res["ab"] = _parts_ab(ex, twin, GRAPH_AB_BLOCKS)
+        say(f"special_ab_{name}", chains=chains, blocks=GRAPH_AB_BLOCKS,
+            **{f"{form}_{part}": f"{ab[form][part]['median']:.4f} ({ab[form][part]['iqr']:.4f})"
+               for form in ("eager", "graphed") for part in ab[form]},
+            speedup_median={p: round(v, 3) for p, v in ab["speedup_median"].items()})
+        if name == "ssh_twisted_4x4":
+            res["memory"] = _twisted_memory(ex)
+        if forms:
+            for part, rows in res["parity"].items():
+                paths[f"graphed_{part}_{name}"] = rows
+        del ex, twin
+    _write_json("graphed_complex.json", out)
     return paths
 
 
@@ -3524,11 +3740,9 @@ def main() -> int:
     shapes, runs = {}, {}
     holstein = ("fold/shared", "fused/shared")
     # tempering: 4 timed updates, so that both pair parities are tried
+    # the twisted 64×64 updates: phase 40 (phase 17's runs folded into it)
     for cfg, forms, timed in ((KERNEL_64X64, holstein, 2),
                               (SSH_64X64, ("fold/column", "fold/chain", "fused/chain"), 2),
-                              (TWISTED_64X64, ("fold/shared/complex",), 2),
-                              (SSH_TWISTED_64X64, ("fold/column/complex", "fold/chain/complex"),
-                               2),
                               (KERNEL_2MN_64X64, holstein, 2), (TEMPERING_64X64, holstein, 4)):
         big = runs[cfg.name] = run_config(cfg, warmup=1, timed=timed)
         shapes[cfg.name] = big["launch_shapes"]
@@ -3542,6 +3756,7 @@ def main() -> int:
     phase_graphed_update_ssh()
     graphed_lang = phase_graphed_langevin()
     graphed_special = phase_graphed_special_measure()
+    graphed_cplx = phase_graphed_complex()
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
@@ -3592,16 +3807,21 @@ def main() -> int:
             (ssh_paths if k.startswith("ssh_") else holstein_paths)[k + tag] = r
     if nccl is not None:
         holstein_paths["chain_sharded_64x64_nccl"] = nccl["chain_sharded"]
-    # K1's complex mode: the twisted 64×64 configurations, and the stock
-    # twisted SSH example (its fermion operator and densified Ā are K1's at
-    # any size; the 4×4 Holstein example runs dense matmuls)
-    # and the block-CG probe solves of both twisted 64×64 models
-    twisted_paths = {TWISTED_64X64.name: runs[TWISTED_64X64.name],
-                     f"block_cg_{TWISTED_64X64.name}": block_cplx[f"block_cg_{TWISTED_64X64.name}"]}
-    twisted_ssh_paths = {SSH_TWISTED_64X64.name: runs[SSH_TWISTED_64X64.name],
-                         "ssh_twisted_driver_4x4": drv_tw["ssh_hmc_twisted"],
+    # K1's complex mode: the stock twisted SSH example (its fermion operator
+    # and densified Ā are K1's at any size; the 4×4 Holstein example runs
+    # dense matmuls), the block-CG probe solves of both twisted 64×64
+    # models and (below) phase 40's graphed twisted calls
+    twisted_paths = {f"block_cg_{TWISTED_64X64.name}":
+                     block_cplx[f"block_cg_{TWISTED_64X64.name}"]}
+    twisted_ssh_paths = {"ssh_twisted_driver_4x4": drv_tw["ssh_hmc_twisted"],
                          f"block_cg_{SSH_TWISTED_64X64.name}":
                              block_cplx[f"block_cg_{SSH_TWISTED_64X64.name}"]}
+    # phase 40's second graphed calls: K1's complex mode inside the graphs
+    # (path_shapes takes the 64×64 runs' shapes)
+    for k, r in graphed_cplx.items():
+        (twisted_ssh_paths if "ssh" in k else twisted_paths)[k] = r
+        if k.endswith("64x64"):
+            shapes[k] = r["launch_shapes"]
     shapes.update({k: r["launch_shapes"] for k, r in (holstein_paths | ssh_paths).items()})
     shapes.update({k: r["launch_shapes"] for k, r in block_cplx.items()})
     phase_path_shapes(shapes)

@@ -41,7 +41,11 @@ complex KPM recurrence is the fold plus elementwise passes).
 * ``TWISTED_64X64``: ``KERNEL_64X64`` twisted, 16 chains — ``[Nb]`` tables
   for the fermion operator and Ā;
 * ``SSH_TWISTED_64X64``: ``SSH_64X64`` twisted, 8 chains — ``[C, Nb, K]``
-  tables for the fermion operator, ``[C, Nb]`` for Ā.
+  tables for the fermion operator, ``[C, Nb]`` for Ā;
+* ``TWISTED_LANGEVIN_64X64``: ``LANGEVIN_64X64`` twisted, 16 chains.
+
+All three replay CUDA graphs on a card, as the real ones do;
+:meth:`BenchStep.eager` and :meth:`LangevinBench.eager` are the eager twins.
 
 The deep-β samplers on ``KERNEL_64X64``'s model (16 chains, N = 4096):
 
@@ -82,10 +86,13 @@ step as the driver does on one card: the HMC update, the reflection and
 swap moves and the measurement (``examples/holstein_hmc_square.toml``: 4×4,
 β = 2, 100 leapfrog steps of 10 bosonic substeps, 4 reflections and 4
 swaps, nᵥ = 10 probes, KPM max_order 8; ``ssh_hmc_square.toml`` the same
-with 4 swaps and KPM max_order 64). All four replay CUDA graphs on a card;
-:meth:`HMCExample.eager` is the eager twin. :func:`wide_hmc_config` widens
-such a file to 64×64, β = 4 (dt 0.025, 4 bosonic substeps, nᵥ = 10, a
-measurement per update), where K1 and K2 run inside every part.
+with 4 swaps and KPM max_order 64; the twisted ``holstein_hmc_twisted.toml``
+and ``ssh_hmc_twisted.toml``: 4×4, β = 4, complex hopping, no moves,
+CurrentCurrent measured). All four parts replay CUDA graphs on a card,
+under complex hopping too; :meth:`HMCExample.eager` is the eager twin.
+:func:`wide_hmc_config` widens such a file to 64×64, β = 4 (dt 0.025, 4
+bosonic substeps, nᵥ = 10, a measurement per update), where K1 (and for a
+real field K2) runs inside every part.
 """
 
 from __future__ import annotations
@@ -147,6 +154,8 @@ TWISTED_64X64 = BenchConfig("twisted_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
                             twist=TWIST)
 SSH_TWISTED_64X64 = BenchConfig("ssh_twisted_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
                                 n_chains=8, model="ssh", twist=TWIST)
+TWISTED_LANGEVIN_64X64 = BenchConfig("twisted_langevin_64x64", L=64, beta=4.0, dtau=0.1,
+                                     dt=1e-3, n_chains=16, sampler="langevin", twist=TWIST)
 KERNEL_2MN_64X64 = BenchConfig("kernel_2mn_64x64", L=64, beta=4.0, dtau=0.1, dt=0.05,
                                n_chains=16, integrator="2mn")
 TEMPERING_64X64 = BenchConfig("tempering_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
@@ -170,6 +179,13 @@ class BenchStep:
     hmc_cfg: HMCConfig | None = None
     kpm_cfg: kpm.KPMConfig | None = None
     tcfg: TemperingConfig | None = None
+
+    def eager(self):
+        """The same update asked for eager: the same model, and a
+        preconditioner of the same configuration (the same fixed start
+        vectors), so the same draws give the same update."""
+        return make_hmc_step(self.ops, self.mass, self.hmc_cfg,
+                             kpm.make_precond(self.ops, self.kpm_cfg), eager=True)
 
 
 @dataclass(frozen=True)
@@ -311,12 +327,14 @@ def wide_hmc_config(cfg: dict) -> dict:
 
 def build_hmc_example(config, n_chains: int = 1, device="cuda",
                       dtype: torch.dtype = torch.float32, seed: int = 0,
-                      eager: bool = False) -> HMCExample:
+                      eager: bool = False, chain_block: int | None = None) -> HMCExample:
     """The driver step of the ``[hmc]`` input file ``config`` (a path such as
     ``examples/holstein_hmc_square.toml``, or a parsed file, which is not
     changed) as the driver builds it on one card, its model drawn from
     ``seed``, and half-filled initial fields of ``n_chains`` chains on
-    ``device``; ``eager`` asks for every part's eager form."""
+    ``device`` (0: as many as the driver's ``--chains 0`` takes); ``eager`` asks for every part's eager form, ``chain_block``
+    sets the measurement's chains per pass of its estimators (None: as the
+    driver sizes them)."""
     from elphdynamics_tpu_torch.io.config import build_setup, load_toml
 
     device = require_device(device)
@@ -328,18 +346,25 @@ def build_hmc_example(config, n_chains: int = 1, device="cuda",
                          "not an [hmc] input file")
     precond = kpm.make_precond(setup.ops, setup.kpm_cfg) if setup.kpm_cfg is not None else None
     gen = torch.Generator(device=device).manual_seed(seed)
+    if n_chains == 0:
+        from elphdynamics_tpu_torch.simulation import auto_chains
+
+        n_chains = auto_chains(setup.ops.Nsites, setup.ops.Ltau, 1, setup.ops.is_holstein)
     x = init_phonons_half_filled(setup.ops, setup.params, n_chains, gen)
-    return _hmc_parts(setup, precond, HMCState(x=x, v=torch.zeros_like(x)), gen, eager)
+    return _hmc_parts(setup, precond, HMCState(x=x, v=torch.zeros_like(x)), gen, eager,
+                      chain_block)
 
 
-def _hmc_parts(setup, precond, state, gen, eager: bool) -> HMCExample:
+def _hmc_parts(setup, precond, state, gen, eager: bool,
+               chain_block: int | None = None) -> HMCExample:
     ops = setup.ops
     return HMCExample(
         ops=ops, params=setup.params, setup=setup, precond=precond,
         step=make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager),
         reflect=make_reflection_update(ops, setup.reflect_cfg, precond, eager=eager),
         swap=make_swap_update(ops, setup.swap_cfg, precond, eager=eager),
-        measure=make_measurement_step(ops, setup.mspec, setup.solver_cfg, precond, eager=eager),
+        measure=make_measurement_step(ops, setup.mspec, setup.solver_cfg, precond, eager=eager,
+                                      chain_block=chain_block),
         state=state, generator=gen)
 
 

@@ -2,10 +2,12 @@
 package's compiled update, Langevin step, special updates and measurement
 step (``jax.jit`` over ``lax.while_loop`` and ``lax.scan`` bodies).
 
-Graphed, on one rank with CG on a real field: the leapfrog HMC update
-(``dynamics/hmc.py``), the Langevin step (``dynamics/langevin.py``), the
-reflection and swap moves (``dynamics/special_updates.py``) and the
-measurement step (``measure/measurements.py``). A call is split into
+Graphed, on one rank with CG, on a real field or under complex hopping
+(the twisted ensemble's packed complex pseudofermions ``[C, 1, N, Lτ]``):
+the leapfrog HMC update (``dynamics/hmc.py``), the Langevin step
+(``dynamics/langevin.py``), the reflection and swap moves
+(``dynamics/special_updates.py``) and the measurement step
+(``measure/measurements.py``). A call is split into
 segments, each a function over one :class:`Workspace` of tensors that keep
 their addresses from one call to the next. Its CG solves are the segments
 of :class:`CGSolve`, shared by all four. On a CUDA device every segment is
@@ -20,7 +22,9 @@ Before its capture every segment runs once eagerly on the capture stream
 (the warm-up): first-use work that a capture cannot hold happens there, such
 as the kernels' launch-geometry tuning and bond-plan uploads
 (``ops/ckb_cuda.py``), the KPM constant tables (``ops/kpm.py``), the mass
-operator's circulants and the bf16 operand of exp(−Δτ·K). A capture that
+operator's circulants, the bf16 operand of exp(−Δτ·K), the τ↔ω phase Θ of
+the complex KPM pipeline (``ops/timefreqfft.py``) and the cuFFT plans of its
+full-spectrum FFTs. A capture that
 reaches such work raises, as does any other failed capture or replay: there
 is no fallback to the eager call.
 
@@ -39,6 +43,7 @@ import torch
 from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, _cg_operators, precond_applies
 from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.utils.dtypes import field_dtype
 
 # parameters a graph holds a value derived from: Holstein's exp(−Δτ·K) and
 # its inverse (the bf16 operand of the in-loop MᵀM); a change needs a new
@@ -185,13 +190,15 @@ class Workspace:
 
 
 def step_workspace(box: dict, params, x) -> Workspace:
-    """The workspace kept in ``box`` for fields like ``x``, its parameters
-    brought to ``params``; a new one (new graphs) where the device, dtype or
-    shape differ or where a parameter of :data:`REBUILD` changed. A graph
-    derives nothing else from the parameters: it reads the kept copy on
-    every replay."""
+    """The workspace kept in ``box`` for fields like ``x`` under parameters
+    like ``params``, its parameters brought to ``params``; a new one (new
+    graphs) where the device, dtype or shape differ, where the hopping turns
+    complex or real (a real workspace never serves a complex call, nor the
+    reverse: the fermion fields' dtype differs), or where a parameter of
+    :data:`REBUILD` changed. A graph derives nothing else from the
+    parameters: it reads the kept copy on every replay."""
     ws = box.get("ws")
-    key = (x.device, x.dtype, tuple(x.shape))
+    key = (x.device, x.dtype, tuple(x.shape), field_dtype(params, x.dtype))
     if ws is not None and ws.key == key and ws.keep_params(params, REBUILD):
         return ws
     ws = box["ws"] = Workspace(x.device)
@@ -219,7 +226,10 @@ class CGSolve:
     eagerly), each doing :func:`..solvers.solve_checked`'s arithmetic.
     :meth:`solve` keeps the eager solve's host reads: ``any(active)``
     before each block, and ``any(bad)`` after the verification where a
-    preconditioner makes a retry possible."""
+    preconditioner makes a retry possible. Under complex hopping the
+    systems are the packed complex fields (``[C, 1, N, Lτ]`` for a
+    trajectory solve, ``[C, nᵥ, N, Lτ]`` for the probes), their dots the
+    float64 Re(a†b) of :func:`..utils.dtypes.fdot`."""
 
     def __init__(self, ops, precond, maxiter: int, kappa_max: float, loop_precision,
                  rhs: str, stacked: bool):

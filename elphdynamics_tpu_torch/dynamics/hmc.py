@@ -35,10 +35,11 @@ an argument (a 0-dim tensor on the device, the trajectory length Nt fixed
 from ``cfg``), so the burn-in tuner (:func:`dt_tuner_update`, Nesterov dual
 averaging toward ``target_acceptance``) changes it with no host read.
 
-The one-rank leapfrog update with CG of a real field, Holstein or SSH, is a
-fixed sequence of segments over one workspace (:mod:`.graphs`): the start
-(momenta, φ, the KPM setup, the tol² solve's start), a block of
-``solvers.CG_SYNC_EVERY`` masked CG iterations, the verification, a
+The one-rank leapfrog update with CG, Holstein or SSH, real or complex
+hopping, is a fixed sequence of segments over one workspace
+(:mod:`.graphs`): the start (momenta, φ, the KPM setup, the tol² solve's
+start), a block of ``solvers.CG_SYNC_EVERY`` masked CG iterations, the
+verification, a
 leapfrog step from a solved z to the next solve's start (its Nb bosonic
 substeps included), the end (ΔH, the Metropolis test, the masked state
 update). On a CUDA field each segment is captured once as a CUDA graph and
@@ -49,8 +50,11 @@ in its order. The model's derived state (Holstein's ``expnV``, SSH's
 ``SSHDerived`` tables) and the KPM state, SSH's per-chain τ-means and
 dense Ā included, are copied into the workspace's tensors in place. Every
 other configuration (2MN, block CG, deflation, BiCGStab / GMRES, the KPM
-``exact_lowfreq`` blocks, complex hopping, a site shard), and a caller
-that asks for it by name (``eager=True``), runs the eager update.
+``exact_lowfreq`` blocks, a site shard), and a caller that asks for it by
+name (``eager=True``), runs the eager update. Under complex hopping the
+workspace holds the packed complex pseudofermions, φ, Λφ and the
+warm-start history ``[C, 1, N, Lτ]``, SSH's complex tables and the complex
+KPM state, while x, v and the forces stay real.
 """
 
 from __future__ import annotations
@@ -244,8 +248,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     ``eager`` asks for the eager update where the graphed one (module
     docstring: the one-rank leapfrog CG update of either model) would run.
     ``step.segmented`` says whether the configuration takes the graphed
-    update on a real field (complex hopping parameters take the eager
-    one); ``step.workspace()`` is its
+    update (on a real field or under complex hopping);
+    ``step.workspace()`` is its
     :class:`.graphs.Workspace` (None before the first call), whose
     ``graphs`` (a CUDA field) count replays, capture seconds and pool bytes
     and whose ``retries`` count the verifications' retries.
@@ -456,9 +460,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
-    # --- the graphed update: the leapfrog CG update of a real one-rank
-    # field (Holstein or SSH) as a fixed sequence of segments over one workspace
-    # (dynamics/graphs.py), replayed as CUDA graphs on a CUDA field and
+    # --- the graphed update: the leapfrog CG update of a one-rank field
+    # (Holstein or SSH, real or complex hopping) as a fixed sequence of
+    # segments over one workspace (dynamics/graphs.py), replayed as CUDA graphs on a CUDA field and
     # called directly on the CPU. Each segment does the eager update's
     # arithmetic in the eager update's order.
     segmented = (not eager and ops.shard is None
@@ -610,7 +614,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         if x.ndim != 3:
             raise ValueError(f"state.x must be [C, Nph, Ltau], got {tuple(x.shape)}")
         if draws is None:
-            draws = draw(ops, x.shape[0], x.dtype, x.device, generator, x.dtype)
+            draws = draw(ops, x.shape[0], x.dtype, x.device, generator,
+                         field_dtype(params, x.dtype))
         ws = graphs.step_workspace(box, params, x)
         dev = x.device
         if cfg.log_verbose and "k" not in ws:
@@ -647,9 +652,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         return HMCState(x=ws.out_x.clone(), v=ws.out_v.clone(), defl=state.defl), stats
 
     def update(params, state: HMCState, dt, generator, draws):
-        """The graphed update where the configuration and the fields are in
-        its slice, else the eager one."""
-        if segmented and not params_are_complex(params):
+        """The graphed update where the configuration is in its slice, else
+        the eager one."""
+        if segmented:
             return graphed(params, state, dt, generator, draws)
         return _step(params, state, dt, generator, draws)
 

@@ -19,8 +19,8 @@ Random draws are explicit, as in :mod:`.hmc`: a step takes optional
 field's device, first η and then one ``g`` per force evaluation in the
 order the forces are evaluated.
 
-The one-rank step with CG of a real field (no preconditioner, or KPM
-without the exact low-frequency blocks) is a fixed sequence of segments
+The one-rank step with CG, real or complex hopping (no preconditioner, or
+KPM without the exact low-frequency blocks) is a fixed sequence of segments
 over one workspace (:mod:`.graphs`), as the HMC update is: the start (η
 tied, the step's full KPM setup, the derived state, b = Mᵀg₀ and the
 solve's start), the solve's blocks of ``solvers.CG_SYNC_EVERY`` CG
@@ -30,9 +30,11 @@ solve's start) and a second solve, and the end (the last force and the
 field update). On a CUDA field each segment is captured once as a CUDA
 graph and replayed, the host keeping the eager step's reads; on the CPU
 the segments run directly, doing the eager step's arithmetic in its order.
-Every other configuration (BiCGStab / GMRES, the near-null or
-``exact_lowfreq`` preconditioners, complex hopping, a site shard), and a
-caller that asks for it by name (``eager=True``), runs the eager step.
+Complex hopping takes the graphed step too (the force probes g, b = M†g
+and the solution complex, x real). Every other configuration (BiCGStab /
+GMRES, the near-null or ``exact_lowfreq`` preconditioners, a site shard),
+and a caller that asks for it by name (``eager=True``), runs the eager
+step.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_state, s
 from elphdynamics_tpu_torch.models.adapter import (
     ModelOps, force_sum, global_phonons, global_sites, local_phonons, local_sites)
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
-from elphdynamics_tpu_torch.utils.dtypes import field_dtype, params_are_complex, trace_noise
+from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
 
 METHODS = ("euler", "rk", "heun")
 
@@ -98,8 +100,8 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
 
     ``eager`` asks for the eager step where the graphed one (module
     docstring) would run. ``step.segmented`` says whether the configuration
-    takes the graphed step on a real field (complex hopping parameters take
-    the eager one); ``step.workspace()`` is its :class:`.graphs.Workspace`
+    takes the graphed step (on a real field or under complex hopping);
+    ``step.workspace()`` is its :class:`.graphs.Workspace`
     (None before the first call), whose ``graphs`` (a CUDA field) count
     replays, capture seconds and pool bytes and whose ``retries`` count the
     verifications' retries."""
@@ -254,7 +256,7 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         if draws is None:
             draws = draw(ops, x.shape[0], method, x.dtype, x.device, generator,
                          field_dtype(params, x.dtype))
-        if segmented and not params_are_complex(params):
+        if segmented:
             return graphed(params, x, draws)
         return scheme(params, x, ops.tie(draws.eta.to(x)), draws.g, accel(x))
 

@@ -23,9 +23,11 @@ On a site-sharded model the picks are global sites and bonds: the rank
 that holds a site flips it, and a swapped row reaches the other rank by
 an all-reduce; the actions are summed over the ranks.
 
-On one rank with a real field and no preconditioner or KPM without the
-exact low-frequency blocks, a call is a fixed sequence of segments over
-one workspace (:mod:`.graphs`), as the HMC update is: ``first`` (move 0's
+On one rank, with a real field or under complex hopping (the packed
+complex pseudofermions ``[n_moves, C, 1, N, Lτ]``), and with no
+preconditioner or KPM without the exact low-frequency blocks, a call is a
+fixed sequence of segments over one workspace (:mod:`.graphs`), as the HMC
+update is: ``first`` (move 0's
 start: φ and S₀ at x, the proposal, the derived state, Λφ and the full
 KPM setup at the proposed field, the tol² solve's start from zero), the
 solve's CG blocks and verification (:class:`.graphs.CGSolve`), ``next``
@@ -36,9 +38,9 @@ the replay that reads them, so no graph holds a move index. On a CUDA
 field each segment is captured once as a CUDA graph and replayed, the host
 keeping the eager call's reads (CG's ``any(active)`` before a block, the
 verification's ``any(bad)``); on the CPU the segments run directly, doing
-the eager call's arithmetic in its order. Complex hopping, the near-null
-and ``exact_lowfreq`` preconditioners, a site shard and a caller that asks
-for it by name (``eager=True``) run the eager call.
+the eager call's arithmetic in its order. The near-null and
+``exact_lowfreq`` preconditioners, a site shard and a caller that asks for
+it by name (``eager=True``) run the eager call.
 """
 
 from __future__ import annotations
@@ -51,8 +53,7 @@ from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
 from elphdynamics_tpu_torch.models.adapter import (
     ModelOps, global_phonons, global_sites, local_sites, site_sum)
-from elphdynamics_tpu_torch.utils.dtypes import (
-    fdot, field_dtype, params_are_complex, pseudofermion_noise)
+from elphdynamics_tpu_torch.utils.dtypes import fdot, field_dtype, pseudofermion_noise
 
 
 @dataclass(frozen=True)
@@ -109,7 +110,7 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
     one call (on a site-sharded model every site's pseudofermions, cut to
     the rank's block). ``eager`` asks for the eager call where the
     segmented one (module docstring) would run; ``update.segmented`` says
-    whether the configuration takes it on a real field, and
+    whether the configuration takes it, and
     ``update.workspace()`` is its :class:`.graphs.Workspace` (None before
     the first segmented call)."""
     tol2 = cfg.tol ** 2
@@ -234,7 +235,7 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
             return x, torch.zeros(C, dtype=torch.float64, device=x.device)
         if draws is None:
             draws = draw(params, x, C, generator)
-        if segmented and not params_are_complex(params):
+        if segmented:
             return segmented_update(params, x, draws)
         return eager_update(params, x, draws)
 

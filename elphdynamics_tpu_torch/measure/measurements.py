@@ -32,7 +32,9 @@ scalars run on their real parts (the spin-summed density is 2 − 2·Re G),
 the bond kinetic energy is the Hermitian pair 2·Re[t·G↑(1,2) + t̄·G↑(2,1)],
 and SpinSpin gains the direct term 4·GDD_minus.
 
-Chains: the step measures every chain of a ``[C, N, Lτ]`` batch;
+Chains: the step measures every chain of a ``[C, N, Lτ]`` batch, the
+probe solves on all of them at once and the estimators on equal blocks of
+chains sized by :func:`analyze_chains` (their memory grows with the chains);
 :func:`mean_over_chains` then averages the increments over the chains whose
 probe solves succeeded. Per bin, :func:`process_bin` normalises, moves the
 correlations to momentum space and integrates the susceptibilities
@@ -54,7 +56,7 @@ from elphdynamics_tpu_torch.measure import greens as G
 from elphdynamics_tpu_torch.measure import intersite_corr as IC
 from elphdynamics_tpu_torch.models import ssh as Sm
 from elphdynamics_tpu_torch.models.adapter import ModelOps
-from elphdynamics_tpu_torch.utils.dtypes import complex_of, params_are_complex
+from elphdynamics_tpu_torch.utils.dtypes import complex_of
 from elphdynamics_tpu_torch.utils.math import simpson
 
 ONSITE_CORR_KINDS = ("Greens", "DenDen", "SpinSpin", "PairGreens", "PhononGreens")
@@ -83,6 +85,41 @@ class MeasurementSpec:
             unknown = [e[0] for e in entries if e[0] not in known]
             if unknown:
                 raise ValueError(f"unknown {where} correlation kinds {unknown}")
+
+
+# the bytes of pair-summed tensors that one pass of the estimators
+# (``analyze``) may hold, counted as :func:`analyze_chains` counts them. A
+# pass peaks at 10–15 times that count (1.2–1.8 GB per chain at 64×64, Lτ =
+# 40, nᵥ = 10, float32; PERF.md §6): a batch of every chain, 64 of them at
+# ``--chains 0`` for SSH at N = 4096, does not fit on an 80 GB card, and
+# this budget gives such a batch blocks of 8 chains, while the small
+# lattices' thousands of chains stay in one or a few passes
+ANALYZE_BYTES = 10 ** 9
+
+
+def analyze_chains(n_chains: int, nv: int, n_sites: int, ltau: int,
+                   dtype: torch.dtype) -> int:
+    """Chains per pass of the estimators for a batch of ``n_chains``: as
+    many as keep one pair-summed tensor per probe pair (nᵥ(nᵥ−1)/2 of them,
+    each 2·N·Lτ complex elements of ``dtype``'s precision per chain) within
+    ``ANALYZE_BYTES``, the batch then cut into equal blocks (the last may
+    be smaller)."""
+    pairs = max(nv * (nv - 1) // 2, 1)
+    per_chain = pairs * 2 * n_sites * ltau * complex_of(dtype).itemsize
+    most = max(1, ANALYZE_BYTES // per_chain)
+    blocks = -(-n_chains // most)
+    return -(-n_chains // blocks)
+
+
+def _join_chains(blocks: list):
+    """Nested dicts and tuples of per-chain tensors, one per block of chains,
+    joined along the chain axis."""
+    first = blocks[0]
+    if isinstance(first, dict):
+        return {k: _join_chains([b[k] for b in blocks]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_join_chains(list(parts)) for parts in zip(*blocks))
+    return torch.cat(blocks, dim=0)
 
 
 def _unit(n: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -149,7 +186,7 @@ def zero_container(ops: ModelOps, mspec: MeasurementSpec, dtype: torch.dtype, de
 
 def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
                           scfg: SolverConfig = SolverConfig(), precond=None,
-                          eager: bool = False):
+                          eager: bool = False, chain_block: int | None = None):
     """Build ``step(params, x, generator=None, R=None) -> (increments,
     stats, snapshots)`` for fields ``x`` ``[C, N, Lτ]``: every increment
     and snapshot has a leading chain axis; ``stats`` holds the per-chain
@@ -157,9 +194,10 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     (``step.draw(params, x, generator)`` draws them as a call does).
     ``step.analyze(params, x, gd)`` is everything after the solves.
 
-    On one rank, with CG (``scfg.block`` off) on a real field and no
-    preconditioner or KPM without the exact low-frequency blocks, a call is
-    a fixed sequence of segments over one workspace (``dynamics/graphs.py``),
+    On one rank, with CG (``scfg.block`` off), on a real field or under
+    complex hopping, and with no preconditioner or KPM without the exact
+    low-frequency blocks, a call is a fixed sequence of segments over one
+    workspace (``dynamics/graphs.py``),
     as the HMC update is: ``probe_start`` (the derived state, the full KPM
     setup at x, b = MᵀR and the CG start from zero), the solve's CG blocks
     and verification, and ``analyze`` (the pair tensors, every estimator,
@@ -169,8 +207,10 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     reads; on the CPU the segments run directly, doing the eager
     measurement's arithmetic in its order. ``eager`` asks for the eager
     call where the segmented one would run; ``step.segmented`` says whether
-    the configuration takes it on a real field, ``step.workspace()`` is its
-    workspace (None before the first segmented call)."""
+    the configuration takes it, ``step.workspace()`` is its
+    workspace (None before the first segmented call). ``chain_block``: the
+    chains per pass of the estimators (None: :func:`analyze_chains` of the
+    batch)."""
     mspec.check()
     if ops.is_holstein and any(e[0] == "PhononGreens" for e in mspec.intersite_corr):
         raise ValueError("PhononGreens is an on-site correlation for the Holstein model "
@@ -232,7 +272,8 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             return t
         return graphs.made_once(dev_tables, dev, make, "the measurement's index tables")
 
-    def analyze(params, x, gd: G.GreensData):
+    def analyze_block(params, x, gd: G.GreensData):
+        """:func:`analyze` on one block of chains."""
         dev, dt = x.device, x.dtype
         C = x.shape[0]
         T = tables(dev)
@@ -475,6 +516,21 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
             snaps["phonon_position"] = x.mean(dim=-1)
         return out, {"iters": gd.iters, "flag": gd.flag}, snaps
 
+    def analyze(params, x, gd: G.GreensData):
+        """Everything after the probe solves, a block of chains at a time
+        (``chain_block``; each chain's estimators are its own), the blocks'
+        results joined along the chain axis."""
+        C = x.shape[0]
+        block = chain_block or analyze_chains(C, nv, spec.Nsites, Lt, x.dtype)
+        if C <= block:
+            return analyze_block(params, x, gd)
+        blocks = []
+        for lo in range(0, C, block):
+            cut = slice(lo, lo + block)
+            blocks.append(analyze_block(params, x[cut], G.GreensData(
+                R=gd.R[cut], MinvR=gd.MinvR[cut], iters=gd.iters[cut], flag=gd.flag[cut])))
+        return _join_chains(blocks)
+
     # --- the segmented measurement: the eager one's arithmetic in its order
     segmented = (not eager and ops.shard is None and scfg.kind == "cg" and not scfg.block
                  and graphs.graphable_precond(precond))
@@ -523,7 +579,7 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         return G.draw_probes(ops, params, x, nv, generator)
 
     def step(params, x, generator: torch.Generator | None = None, R=None):
-        if segmented and not params_are_complex(params):
+        if segmented:
             return segmented_step(params, x, draw(params, x, generator) if R is None else R)
         gd = G.sample_greens(ops, params, x, nv, scfg, precond, generator, R)
         return analyze(params, x, gd)

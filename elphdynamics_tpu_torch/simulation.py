@@ -528,9 +528,10 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     tuned_step = tuner = None
     # tempering and every multi-rank layout keep the eager update, moves and
     # measurement; elsewhere on the card the one-rank leapfrog CG update or
-    # CG Langevin step (Holstein or SSH), the reflection and swap moves and
-    # the CG measurement replay CUDA graphs (dynamics/graphs.py; each builder
-    # keeps the eager form for what its graphs do not cover)
+    # CG Langevin step (Holstein or SSH, real or complex hopping), the
+    # reflection and swap moves and the CG measurement replay CUDA graphs
+    # (dynamics/graphs.py; each builder keeps the eager form for what its
+    # graphs do not cover)
     eager = tcfg is not None or par.shard is not None or par.chains is not None
     if hmc:
         sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)

@@ -2,17 +2,20 @@
 card.
 
     python scripts/profile_torch_hmc.py CONFIG [--eager] [--timed N] [--no-profile]
-                                               [--trace DIR]
+                                               [--trace DIR] [--chains N]
+                                               [--blocks K,K,...]
 
 with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_8x8,
 ssh_64x64, twisted_64x64, ssh_twisted_64x64, langevin_64x64,
-ssh_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
+ssh_langevin_64x64, twisted_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
 measure_bond_64x64, driver_4x4, driver_ssh_4x4, driver_64x64,
-driver_ssh_64x64, driver_langevin_4x4;
+driver_ssh_64x64, driver_twisted_4x4, driver_ssh_twisted_4x4,
+driver_twisted_64x64, driver_ssh_twisted_64x64, driver_deep_beta_8x8,
+driver_langevin_4x4;
 ``--eager`` runs the eager update of an HMC configuration, the eager
 Langevin step or a driver step with every part eager (update, reflection,
 swap, measurement) in place of its CUDA graphs (``dynamics/graphs.py``;
-the twisted ones are eager either way).
+real and complex hopping alike).
 ``--timed N`` times N more runs after the warm-up, without the profiler
 (host clock, each run ended by a synchronisation), and for an HMC driver
 step each part apart (``parts``: the update, the reflection and swap
@@ -20,16 +23,33 @@ calls, the measurement with its chain mean and container add, each ended
 by a synchronisation), then one bin's post-processing and text files
 (``bin_s``, written to a temporary folder, with the file's updates per
 bin); ``--no-profile`` stops there (the profiler's cost per recorded event
-makes an eager stock SSH step take many minutes).
+makes an eager stock SSH step take many minutes). A driver step's
+timed line also gives the peak allocated and reserved device memory of
+the process and each graphed part's pool; a step that runs out of device
+memory prints the error on a ``[CONFIG] out_of_memory`` line and exits 1.
+
+``--chains N`` sets a driver step's chains (default 1, and 4 at 64×64;
+0: the driver's ``--chains 0`` count, ``simulation.auto_chains``).
+``--blocks K,K,...`` times a driver step's measurement alone instead, its
+estimators in blocks of K chains (0: as the driver sizes them,
+``measurements.analyze_chains``; ``all``: one block of every chain): one
+step per K built side by side in one process from the same seed, a
+warm-up call of each, then ``--timed`` interleaved rounds (each round
+calls every K once, the order reversed every other round, each call ended
+by a synchronisation). Prints, per K, the seconds per call (median and
+quartiles), the graph pool, how far its results are from the first K's
+(the largest difference, each result's over its largest magnitude; 0: bit
+for bit), and the process's peak allocated memory; a K that runs out of
+memory is reported and dropped.
 
 ``bench_8x8``, ``bench_32x32``, ``kernel_64x64``, ``ssh_8x8`` (the optical
 SSH model, 64 chains, dense Ā) and ``ssh_64x64`` (8 chains) are the HMC
-updates of ``bench.py``,
-``twisted_64x64`` and
-``ssh_twisted_64x64`` its twisted-boundary (complex hopping) updates; ``langevin_64x64`` and
-``ssh_langevin_64x64`` one Runge-Kutta Langevin step of its Langevin
-configurations; ``gmres_64x64`` one GMRES solve of M·z = r for nᵥ = 10
-probes per chain on the ``langevin_64x64`` model (the left KPM apply);
+updates of ``bench.py``, ``twisted_64x64`` and ``ssh_twisted_64x64`` its
+twisted-boundary (complex hopping) updates; ``langevin_64x64``,
+``ssh_langevin_64x64`` and ``twisted_langevin_64x64`` one Runge-Kutta
+Langevin step of its Langevin configurations; ``gmres_64x64`` one GMRES
+solve of M·z = r for nᵥ = 10 probes per chain on the ``langevin_64x64``
+model (the left KPM apply);
 ``measure_64x64`` is one measurement of the driver at 64×64, β = 4 (4
 chains, nᵥ = 10, the five time-dependent on-site correlations, KPM
 max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it;
@@ -45,7 +65,13 @@ reflection and swap moves and the measurement (``bench.build_hmc_example``);
 leapfrog steps of 10 bosonic substeps, KPM ``max_order`` 64);
 ``driver_64x64`` and ``driver_ssh_64x64`` the same two files widened as
 ``chip_smoke.py``'s 64×64 driver runs are (``bench.wide_hmc_config``: L =
-64, β = 4, 4 chains, nᵥ = 10); ``driver_langevin_4x4`` one
+64, β = 4, 4 chains, nᵥ = 10); ``driver_twisted_4x4``,
+``driver_ssh_twisted_4x4``, ``driver_twisted_64x64`` and
+``driver_ssh_twisted_64x64`` the same for ``examples/holstein_hmc_twisted.toml``
+and ``ssh_hmc_twisted.toml`` (complex hopping; the files configure no
+moves, so a step is the update and the measurement);
+``driver_deep_beta_8x8`` the same for ``examples/holstein_hmc_deep_beta.toml``
+(8×8, β = 16, Lτ = 160, nᵥ = 20); ``driver_langevin_4x4`` one
 step of the driver on ``examples/holstein_langevin_square.toml`` (1 chain,
 RK, KPM ``max_order`` 64; the file measures once per 1000 steps, so a step
 is the Langevin step alone). Builds the
@@ -73,8 +99,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from elphdynamics_tpu_torch import bench  # noqa: E402
-from elphdynamics_tpu_torch.dynamics.hmc import make_hmc_step  # noqa: E402
-from elphdynamics_tpu_torch.ops import ckb_cuda, kpm  # noqa: E402
+from elphdynamics_tpu_torch.ops import ckb_cuda  # noqa: E402
 
 
 HMC_CONFIGS = {"bench_8x8": bench.BENCH_8X8, "bench_32x32": bench.BENCH_32X32,
@@ -82,15 +107,21 @@ HMC_CONFIGS = {"bench_8x8": bench.BENCH_8X8, "bench_32x32": bench.BENCH_32X32,
                "ssh_64x64": bench.SSH_64X64,
                "twisted_64x64": bench.TWISTED_64X64,
                "ssh_twisted_64x64": bench.SSH_TWISTED_64X64}
+LANGEVIN_CONFIGS = {"langevin_64x64": bench.LANGEVIN_64X64,
+                    "ssh_langevin_64x64": bench.SSH_LANGEVIN_64X64,
+                    "twisted_langevin_64x64": bench.TWISTED_LANGEVIN_64X64}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("config",
-                    choices=[*HMC_CONFIGS, "langevin_64x64", "ssh_langevin_64x64",
-                             "gmres_64x64", "measure_64x64", "measure_ssh_64x64",
-                             "measure_bond_64x64", "driver_4x4", "driver_ssh_4x4",
-                             "driver_64x64", "driver_ssh_64x64", "driver_langevin_4x4"])
+                    choices=[*HMC_CONFIGS, *LANGEVIN_CONFIGS, "gmres_64x64",
+                             "measure_64x64", "measure_ssh_64x64", "measure_bond_64x64",
+                             "driver_4x4", "driver_ssh_4x4", "driver_64x64",
+                             "driver_ssh_64x64", "driver_twisted_4x4",
+                             "driver_ssh_twisted_4x4", "driver_twisted_64x64",
+                             "driver_ssh_twisted_64x64", "driver_deep_beta_8x8",
+                             "driver_langevin_4x4"])
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     ap.add_argument("--eager", action="store_true",
                     help="the eager update in place of the CUDA graphs")
@@ -98,13 +129,42 @@ def main() -> int:
                     help="runs timed without the profiler after the warm-up")
     ap.add_argument("--no-profile", action="store_true",
                     help="no profiled run after the timed ones")
+    ap.add_argument("--chains", type=int, default=None,
+                    help="a driver step's chains (0: the driver's --chains 0 count)")
+    ap.add_argument("--blocks", default=None,
+                    help="time a driver step's measurement with its estimators in blocks "
+                         "of K chains, K,K,... (0: as the driver sizes them; all: one block)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
-    graphable = None    # the step that may replay CUDA graphs
     if args.eager and args.config.startswith(("measure", "gmres")):
         ap.error("--eager takes an HMC configuration, a Langevin step or a driver step")
+    hmc_driver = args.config.startswith("driver") and args.config != "driver_langevin_4x4"
+    if (args.chains is not None or args.blocks) and not hmc_driver:
+        ap.error("--chains and --blocks take an HMC driver step")
+    if args.blocks and args.timed < 2:
+        ap.error("--blocks needs --timed 2 or more rounds")
+    example = (("holstein_hmc_deep_beta" if "deep_beta" in args.config else
+                f"{'ssh' if 'ssh' in args.config else 'holstein'}_hmc_"
+                f"{'twisted' if 'twisted' in args.config else 'square'}") if hmc_driver else None)
+    wide = "64x64" in args.config
+    chains = args.chains if args.chains is not None else (4 if wide else 1)
+    if args.blocks:
+        return _measure_blocks(args.config, example, wide, chains, args.blocks, args.timed)
+    try:
+        return _profile(args, example, wide, chains)
+    except torch.OutOfMemoryError as e:
+        print(f"[{args.config}] out_of_memory chains={chains} "
+              f"peak_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+              f"error={str(e).splitlines()[0]!r}", flush=True)
+        return 1
+
+
+def _profile(args, example, wide: bool, chains: int) -> int:
+    """Build ``args.config``, warm it up, time it and profile it (module
+    docstring)."""
+    graphable = None    # the step that may replay CUDA graphs
     box = {}
     if args.config.startswith("measure"):
         run = _measurement(ssh="ssh" in args.config, bond="bond" in args.config)
@@ -113,23 +173,20 @@ def main() -> int:
             str(Path(__file__).resolve().parent.parent / "examples"
                 / "holstein_langevin_square.toml"), 1, "cuda", torch.float32), args.eager)
         graphable = box["step"]
-    elif args.config.startswith("driver"):
-        example = "ssh_hmc_square" if "ssh" in args.config else "holstein_hmc_square"
-        run, box = _driver_step(example, args.eager, wide="64x64" in args.config)
+    elif example is not None:
+        run, box = _driver_step(example, args.eager, wide, chains)
         graphable = box["step"]
     elif args.config == "gmres_64x64":
         run = _gmres_solve()
-    elif "langevin" in args.config:
-        run, box = _langevin_step(bench.build(bench.SSH_LANGEVIN_64X64 if "ssh" in args.config
-                                              else bench.LANGEVIN_64X64, "cuda", torch.float32),
-                                  args.eager)
+    elif args.config in LANGEVIN_CONFIGS:
+        run, box = _langevin_step(bench.build(LANGEVIN_CONFIGS[args.config], "cuda",
+                                              torch.float32), args.eager)
         graphable = box["step"]
     else:
         cfg = HMC_CONFIGS[args.config]
         b = bench.build(cfg, "cuda", torch.float32)
         if args.eager:
-            b = replace(b, step=make_hmc_step(b.ops, b.mass, b.hmc_cfg,
-                                              kpm.make_precond(b.ops, b.kpm_cfg), eager=True))
+            b = replace(b, step=b.eager())
         box = {"state": b.state}
         graphable = b.step
 
@@ -156,9 +213,13 @@ def main() -> int:
               + (f" first_update_s={first_update_s:.4f} update_s={[round(t, 4) for t in update_s]}"
                  if update_s else ""))
     if parts:
-        print(f"[{args.config}] eager={args.eager} first_parts_s={_rounded(first_parts)} "
+        print(f"[{args.config}] eager={args.eager} chains={box['chains']} "
+              f"first_parts_s={_rounded(first_parts)} "
               f"parts_s={[_rounded(p) for p in parts]} bin_s={box['bin']()[0]:.4f} "
-              f"updates_per_bin={box['bin']()[1]} replays={box['replays']()}", flush=True)
+              f"updates_per_bin={box['bin']()[1]} replays={box['replays']()} "
+              f"peak_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+              f"peak_reserved_gb={torch.cuda.max_memory_reserved() / 1e9:.3f} "
+              f"pool_gb={box['pools']()}", flush=True)
     if args.no_profile:
         return 0
     ckb_cuda.reset_counts()
@@ -261,28 +322,35 @@ def _rounded(parts: dict) -> dict:
     return {k: round(v, 4) for k, v in parts.items()}
 
 
-def _driver_step(example: str, eager: bool, wide: bool = False):
+def _driver_example(example: str, wide: bool, chains: int, **kw):
+    """The stock ``[hmc]`` example's driver step (``wide``: at 64×64) on
+    ``chains`` chains (0: the driver's ``--chains 0`` count) in float32."""
+    from elphdynamics_tpu_torch.io.config import load_toml
+
+    cfg = load_toml(str(Path(__file__).resolve().parent.parent / "examples"
+                        / f"{example}.toml"))
+    if wide:
+        cfg = bench.wide_hmc_config(cfg)
+    return bench.build_hmc_example(cfg, chains, "cuda", torch.float32, **kw)
+
+
+def _driver_step(example: str, eager: bool, wide: bool, chains: int):
     """One sampling step of the driver on a stock example (``wide``: at
-    64×64, 4 chains) with every part eager with ``eager``, and a box that
-    keeps the step's parts' seconds (host clock, each ended by a
-    synchronisation), the graph replays of each part so far and a timer of
-    one bin's post-processing and text files."""
+    64×64) on ``chains`` chains with every part eager with ``eager``, and a
+    box that keeps the step's parts' seconds (host clock, each ended by a
+    synchronisation), the graph replays and pools of each part so far and a
+    timer of one bin's post-processing and text files."""
     import tempfile
 
     from elphdynamics_tpu_torch.dynamics.hmc import HMCState
     from elphdynamics_tpu_torch.io import output as out_io
-    from elphdynamics_tpu_torch.io.config import load_toml
     from elphdynamics_tpu_torch.measure import measurements as M
     from elphdynamics_tpu_torch.simulation import _host_tree
 
-    root = Path(__file__).resolve().parent.parent
-    cfg = load_toml(str(root / "examples" / f"{example}.toml"))
-    if wide:
-        cfg = bench.wide_hmc_config(cfg)
-    ex = bench.build_hmc_example(cfg, 4 if wide else 1, "cuda", torch.float32, eager=eager)
+    ex = _driver_example(example, wide, chains, eager=eager)
     params, gen, mspec = ex.params, ex.generator, ex.setup.mspec
     container = M.zero_container(ex.ops, mspec, torch.float32, "cuda")
-    box = {"state": ex.state, "step": ex.step}
+    box = {"state": ex.state, "step": ex.step, "chains": ex.state.x.shape[0]}
 
     def run():
         parts, t0 = {}, time.perf_counter()
@@ -309,13 +377,17 @@ def _driver_step(example: str, eager: bool, wide: bool = False):
         box["update_s"], box["parts"] = parts["update"], parts
         return stats.iters
 
-    def replays():
-        out = {}
+    def graph_sets():
         for name in ("step", "reflect", "swap", "measure"):
             fn = getattr(getattr(ex, name), "workspace", None)
             ws = fn() if fn is not None else None
-            out[name] = ws.graphs.replays if ws is not None and ws.graphs is not None else 0
-        return out
+            yield name, ws.graphs if ws is not None else None
+
+    def replays():
+        return {name: g.replays if g is not None else 0 for name, g in graph_sets()}
+
+    def pools():
+        return {name: round(g.pool_bytes / 1e9, 3) for name, g in graph_sets() if g is not None}
 
     def bin_once():
         """One bin of the file's size: post-processing and the text files."""
@@ -331,8 +403,72 @@ def _driver_step(example: str, eager: bool, wide: bool = False):
                 box["bin_s"] = (time.perf_counter() - t0, sp.bin_size)
         return box["bin_s"]
 
-    box["replays"], box["bin"] = replays, bin_once
+    box["replays"], box["pools"], box["bin"] = replays, pools, bin_once
     return run, box
+
+
+def _measure_blocks(config: str, example: str, wide: bool, chains: int, blocks: str,
+                    rounds: int) -> int:
+    """Seconds per graphed measurement of a driver step with its estimators
+    in blocks of each K of ``blocks`` (module docstring)."""
+    import statistics
+
+    from elphdynamics_tpu_torch.measure import measurements as M
+
+    ex = _driver_example(example, wide, chains)
+    n, shape = ex.state.x.shape[0], (ex.setup.mspec.nv, ex.ops.Nsites, ex.ops.Ltau)
+    del ex
+    steps, secs, results = {}, {}, {}
+    for k in blocks.split(","):
+        block = n if k == "all" else int(k) or M.analyze_chains(n, *shape, torch.float32)
+        try:
+            ex = _driver_example(example, wide, n, chain_block=block)
+            results[k] = ex.measure(ex.params, ex.state.x, ex.generator)   # warm-up, capture
+            torch.cuda.synchronize()
+        except torch.OutOfMemoryError as e:
+            print(f"[{config}] blocks={k} chains={n} chains_per_block={block} out_of_memory "
+                  f"error={str(e).splitlines()[0]!r}", flush=True)
+            ex = None
+            torch.cuda.empty_cache()
+            continue
+        steps[k], secs[k] = (ex, block), []
+    first = next(iter(results), None)
+    for r in range(rounds):
+        for k in (list(steps) if r % 2 == 0 else list(steps)[::-1]):
+            ex = steps[k][0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.measure(ex.params, ex.state.x, ex.generator)
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t0)
+
+    def leaves(a):
+        if isinstance(a, dict):
+            for k in sorted(a):
+                yield from leaves(a[k])
+        elif isinstance(a, (tuple, list)):
+            for v in a:
+                yield from leaves(v)
+        else:
+            yield a.double()
+
+    def rel_diff(a, b) -> float:
+        """The largest difference, each result's over its largest magnitude."""
+        return max(((u - v).abs().max() / max(float(v.abs().max()), 1e-300)).item()
+                   for u, v in zip(leaves(a), leaves(b)))
+
+    for k, (ex, block) in steps.items():
+        q1, med, q3 = statistics.quantiles(secs[k], n=4, method="inclusive")
+        ws = ex.measure.workspace()
+        graphs = ws.graphs if ws is not None else None
+        print(f"[{config}] device={torch.cuda.get_device_name(0)!r} chains={n} "
+              f"blocks={k} chains_per_block={block} median_s={med:.4f} q1_s={q1:.4f} "
+              f"q3_s={q3:.4f} calls_s={[round(t, 4) for t in secs[k]]} "
+              f"pool_gb={graphs.pool_bytes / 1e9 if graphs is not None else 0.0:.3f} "
+              f"rel_diff_vs_{first}={rel_diff(results[k], results[first]):.3e}", flush=True)
+    print(f"[{config}] peak_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.3f}",
+          flush=True)
+    return 0 if steps else 1
 
 
 if __name__ == "__main__":

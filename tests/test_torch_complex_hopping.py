@@ -436,12 +436,11 @@ def _pf(key, N, Lt):
     return (r[0] + 1j * r[1])[None]
 
 
-@pytest.mark.parametrize("name", ["dense", "fold", "ssh"])
-def test_twisted_hmc_update_matches_jax(name):
-    """One KPM-preconditioned HMC update on a twisted lattice, 2 chains, with
-    the JAX package's draws: x and v within 1e-12, ΔH within 1e-10, equal
-    iterations, flags and accept decisions; the update accepts with a small
-    |ΔH| (the JAX package's physics check)."""
+def twisted_update_against_jax(name):
+    """One KPM-preconditioned HMC update on a twisted lattice, 2 chains,
+    with the JAX package's draws, through both packages: the port's step,
+    its new state and stats, and the JAX runs per chain. ``name``: the
+    dense or fold Holstein branch, or SSH."""
     if name == "ssh":
         js, jp, ts, tp, xs = _ssh(Ltau=10, alpha=0.3, alpha2=0.0)
         rng = np.random.default_rng(11)
@@ -479,6 +478,18 @@ def test_twisted_hmc_update_matches_jax(name):
     tstep = make_hmc_step(tops, mass, HMCConfig(**cfg),
                           kpm.make_symmetric_precond(tops, kpm.KPMConfig(max_order=max_order)))
     st, stats = tstep(tp, HMCState(x=_T(x0), v=_T(v0)), draws=draws)
+    return tstep, st, stats, runs
+
+
+@pytest.mark.parametrize("name", ["dense", "fold", "ssh"])
+def test_twisted_hmc_update_matches_jax(name):
+    """One KPM-preconditioned HMC update on a twisted lattice, 2 chains, with
+    the JAX package's draws: x and v within 1e-12, ΔH within 1e-10, equal
+    iterations, flags and accept decisions; the update accepts with a small
+    |ΔH| (the JAX package's physics check). The port's update is the
+    graphed one (its segments, run directly on the CPU)."""
+    tstep, st, stats, runs = twisted_update_against_jax(name)
+    assert tstep.segmented and tstep.workspace() is not None
     for c, (jst, jstats, _) in enumerate(runs):
         np.testing.assert_allclose(st.x[c].numpy(), np.asarray(jst.x), rtol=0, atol=1e-12)
         np.testing.assert_allclose(st.v[c].numpy(), np.asarray(jst.v), rtol=0, atol=1e-12)
@@ -513,7 +524,7 @@ def test_twisted_langevin_step_matches_jax():
     assert draws.g[0].is_complex()
     tstep = tl.make_langevin_step(tops, Q, 1e-3, "rk", tsolve.SolverConfig(**scfg))
     x1, stats = tstep(tp, _T(x0), draws=draws)
-    assert not x1.is_complex()
+    assert not x1.is_complex() and tstep.segmented and tstep.workspace() is not None
     for c, (jx, jstats, _) in enumerate(runs):
         np.testing.assert_allclose(x1[c].numpy(), np.asarray(jx), rtol=0, atol=1e-10)
         assert int(stats.iters[c]) == int(jstats.iters)
@@ -557,8 +568,9 @@ def test_twisted_special_updates_match_jax(kind):
     draws = tsu.SpecialDraws(picks=_T(np.stack(picks, axis=1)),
                              pseudofermion=_T(np.stack(pfs, axis=1)),
                              uniform=_T(np.stack(unis, axis=1)))
-    x_new, rate = tmake(tops, tsu.SpecialUpdateConfig(**cfg))(tp, _T(x), draws=draws)
-    assert not x_new.is_complex()
+    tupd = tmake(tops, tsu.SpecialUpdateConfig(**cfg))
+    x_new, rate = tupd(tp, _T(x), draws=draws)
+    assert not x_new.is_complex() and tupd.segmented and tupd.workspace() is not None
     for c, (jx, jrate, _) in enumerate(jres):
         assert round(rate[c].item() * n_moves) == round(float(jrate) * n_moves)
         np.testing.assert_allclose(x_new[c].numpy(), np.asarray(jx), rtol=0, atol=1e-10)

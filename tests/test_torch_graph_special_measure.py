@@ -18,13 +18,14 @@ Here, in float64, 2 chains, Lτ = 10:
   dependent and not, at ``loop_precision`` "high" and "highest";
 * they match the JAX package's jitted reflection, swap and measurement
   step on JAX's draws (x to 1e-10, increments to 1e-9);
-* the gate: complex hopping, ``[solver] block``, BiCGStab, GMRES, the
-  near-null and ``exact_lowfreq`` preconditioners, ``eager=True`` and a
-  site shard take the eager call;
+* the gate: ``[solver] block``, BiCGStab, GMRES, the near-null and
+  ``exact_lowfreq`` preconditioners, ``eager=True`` and a site shard take
+  the eager call; complex hopping takes the segmented one
+  (``tests/test_torch_graph_complex.py`` holds the twisted cases);
 * a solve made to fail runs the verification and the eager retry;
 * a stand-in capture: a second call makes no host-to-device copy;
-* the stock Holstein and SSH HMC files through the driver write the same
-  bins either way.
+* the stock Holstein and SSH HMC files and the twisted Holstein example
+  through the driver write the same bins either way.
 """
 
 import copy
@@ -332,10 +333,10 @@ def _gate_model(case):
 
 @pytest.mark.parametrize("case", GATE)
 def test_gate_takes_the_eager_call(case):
-    """Complex hopping takes the eager calls at call time (no workspace);
-    the other configurations are not segmented at all. Each call equals its
-    eager twin. The moves always solve by CG, so the solver kind and
-    ``block`` gate only the measurement."""
+    """Complex hopping takes the segmented calls (a workspace, graphs on a
+    card); the other configurations are not segmented at all. Each call
+    equals its eager twin. The moves always solve by CG, so the solver kind
+    and ``block`` gate only the measurement."""
     ops, params, x, precond = _gate_model(case)
     kind = case if case in ("bicgstab", "gmres") else "cg"
     scfg = SolverConfig(tol=1e-6, maxiter=500, kind=kind, block=case == "block")
@@ -352,14 +353,14 @@ def test_gate_takes_the_eager_call(case):
         return
     R = mtwin.draw(params, x, torch.Generator().manual_seed(2))
     _equal(mstep(params, x, R=R), mtwin(params, x, R=R))
-    assert mstep.workspace() is None
+    assert (mstep.workspace() is not None) == (case == "complex")
     for make in makers:
         upd = make(ops, cfg, precond, eager=eager)
         twin = make(ops, cfg, precond, eager=True)
         assert upd.segmented == moves_segmented
         draws = twin.draw(params, x, C, torch.Generator().manual_seed(4))
         _equal(upd(params, x, draws=draws), twin(params, x, draws=draws))
-        assert (upd.workspace() is not None) == (moves_segmented and case != "complex")
+        assert (upd.workspace() is not None) == moves_segmented
 
 
 # --- the verification's retry
@@ -440,12 +441,14 @@ def _stock(name, tmp_path):
     return cfg
 
 
-@pytest.mark.parametrize("name", ["holstein_hmc_square", "ssh_hmc_square"])
+@pytest.mark.parametrize("name", ["holstein_hmc_square", "ssh_hmc_square",
+                                  "holstein_hmc_twisted"])
 def test_driver_writes_the_same_bins(name, tmp_path, monkeypatch):
     """The stock HMC file, 2 chains: the driver through the segmented
     update, moves and measurement (their segments run) and through the eager
     ones write byte-identical bins; the run's statistics report each part's
-    replays (0 on the CPU)."""
+    replays (0 on the CPU). The twisted Holstein example (no moves) runs
+    its complex update and measurement segmented."""
     calls = {"n": 0}
     run = graphs.Workspace.run
 
