@@ -94,9 +94,9 @@ Phases (one line each, and the process exits non-zero if any fails):
     a dynamic-dt update, a tempering exchange (Holstein and SSH, λ or α per
     chain), a deflated and a near-null solve; x within 1e-12, equal
     iterations and decisions;
-20. ``KERNEL_2MN_64X64`` (2MN at dt 0.05, 16 chains) and ``TEMPERING_64X64``
-    (4 rungs × 4 lanes, an exchange every 2 updates, both parities): 1
-    warm-up and 2 (tempering: 4) timed updates, with the exchange acceptance;
+20. (went to phase 41, which runs ``KERNEL_2MN_64X64`` and
+    ``TEMPERING_64X64`` graphed against eager, with their flags, acceptance
+    and the exchange acceptance);
 21. both kernels at the deep-β shapes (K = 160: K1 [8, N, 160] and the
     deflation filter's [128, N, 160], K2 [4, 2, N, 160] and [4, 32, N, 160]
     with prev), against the twin, with device ms, plain ms, bound and the
@@ -167,12 +167,13 @@ Phases (one line each, and the process exits non-zero if any fails):
     float32); the ranks of each site group must agree on the decisions,
     the iterations and (SSH) the bits of the whole bond field; then
     each chain block's measurement on its gathered lattice (Greens, 2
-    probes; K1 and K2); ``TEMPERING_64X64`` on 2 chain ranks, phase 20's
-    sequence, its exchange rates and decisions against phase 20's, and a
-    64×64 SSH ladder (4 rungs × 2 lanes) on 2 chain ranks against one
-    rank; K1 and K2 launches per rank in ``launches_by_path``;
-30. (d) (a), (b), (e)–(g) with one NCCL rank per card when the machine has
-    two cards (the 2×2 layout with four), else one line saying why not;
+    probes; K1 and K2); a 64×64 SSH ladder (4 rungs × 2 lanes) on 2 chain
+    ranks against one rank (``TEMPERING_64X64`` on 2 chain ranks against
+    one rank: phase 41); K1 and K2 launches per rank in
+    ``launches_by_path``;
+30. (d) (a), (b), (e)–(g) and phase 41's chain ranks with one NCCL rank per
+    card when the machine has two cards (the 2×2 layout with four), else
+    one line saying why not;
 31. block CG on complex fields at full width: nᵥ = 10 circular complex
     probes per chain on ``TWISTED_64X64`` (16 chains) and
     ``SSH_TWISTED_64X64`` (8 chains), complex64, tol 1e-5, solved by
@@ -265,14 +266,33 @@ Phases (one line each, and the process exits non-zero if any fails):
     (one chain) and 64×64 (4 chains): every result bit for bit on the same
     draws, replays = host reads + 1, equal K1 complex launches by form
     (``fold/shared/complex``, ``fold/column/complex``,
-    ``fold/chain/complex``), ``GRAPH_AB_BLOCKS`` interleaved A/B blocks
-    (sweeps/s, chain-steps/s, seconds per part), busy shares, capture seconds and
-    pool bytes, and ``TWISTED_MEMORY_STEPS`` graphed twisted SSH 4×4
+    ``fold/chain/complex``), busy shares, capture seconds and pool bytes
+    (its interleaved A/B blocks went to pay for phase 41), and
+    ``TWISTED_MEMORY_STEPS`` graphed twisted SSH 4×4
     driver steps with no growth of allocated memory (``chiprun_out/
     graphed_complex.json``). Its 64×64 runs' shapes enter phase 23 and
     ``launches_by_path``.
+41. the chain-batched calls graphed (chain ranks, tempering, 2MN), each
+    against its eager form: ``KERNEL_2MN_64X64`` (16 chains) and
+    ``TEMPERING_64X64``'s laddered update and exchange (both parities) on
+    one rank, with interleaved A/B blocks (sweeps/s; a tempering block is 2
+    updates and an exchange) and the exchange's seconds; on 2 gloo ranks
+    sharing card 0 ``KERNEL_64X64`` (8 chains a rank; its A/B), the 64×64
+    reflection and swap (4 chains a rank) and ``TEMPERING_64X64``'s update
+    and exchange across the ranks, the ranks' decisions and exchange rates
+    held to the one-rank runs of the same sequence (phase 36's
+    ``KERNEL_64X64``; the one-rank ``TEMPERING_64X64`` here): every result
+    bit for bit on the same draws, equal K1 / K2 launches by form,
+    replays = host reads + 1 per run of segments between the exchange's two
+    gathers, flags 0 and acceptance > 0 (phase 20's checks); a dispersive 64×64
+    update run twice on the same draws (bit for bit) beside the old
+    ``index_add`` force rerun on one field; and 50 graphed tempering driver
+    steps of the stock 4×4 Holstein file on 8 chains with no growth of
+    allocated memory (``chiprun_out/graphed_chains.json``). Its runs' shapes
+    enter phase 23 and ``launches_by_path``; ``nccl_only()`` runs its ranks'
+    part on NCCL ranks, one card each.
 
-Phases 36, 37, 38, 39 and 40 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
+Phases 36, 37, 38, 39, 40 and 41 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
 phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
@@ -2286,34 +2306,30 @@ def _say_sharded_64(tag: str, ranks: list, backend: str, one_rank_s: float) -> d
     return r
 
 
-TEMPERING_RUNS = ("tempering_64x64", "ssh_tempering_64x64")
+# Holstein's TEMPERING_64X64 on chain ranks against one rank: phase 41
+TEMPERING_RUNS = ("ssh_tempering_64x64",)
 
 
 def _tempering_chain_ranks(device, n_chain: int, names=TEMPERING_RUNS) -> dict:
-    """(g) ``TEMPERING_64X64`` (16 chains, 4 rungs × 4 lanes) on this rank's
-    block of ``n_chain`` chain ranks: phase 20's sequence (1 warm-up and 4
-    timed updates, an exchange every 2 updates, both parities), the
-    exchanges across the chain ranks; and a 64×64 SSH ladder (8 chains, 4
-    rungs × 2 lanes, trajectory cut) with one exchange of each parity. K1
-    and K2 counted from 0 just before each run."""
+    """(g) A 64×64 SSH ladder (8 chains, 4 rungs × 2 lanes, trajectory
+    cut) on this rank's block of ``n_chain`` chain ranks: 4 updates, an
+    exchange every 2 (both parities) across the chain ranks. K1 and K2
+    counted from 0 just before the run."""
     from elphdynamics_tpu_torch import bench
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
-    makers = {
-        "tempering_64x64": lambda: bench.build(bench.TEMPERING_64X64, device, torch.float32),
-        "ssh_tempering_64x64": lambda: bench.build_ssh_step(
-            64, 4.0, 0.1, 0.025, 8, device, torch.float32, trajectory_time=SHORT_TRAJECTORY,
-            ladder=LADDER4)}
+    makers = {"ssh_tempering_64x64": lambda: bench.build_ssh_step(
+        64, 4.0, 0.1, 0.025, 8, device, torch.float32, trajectory_time=SHORT_TRAJECTORY,
+        ladder=LADDER4)}
     out = {}
     for name in names:
         b = makers[name]()
         cb, _ = _layout(n_chain, 1, b.state.x.shape[0], b.ops.spec)
         lb = bench.shard_bench_step(b, chains=cb) if cb is not None else b
-        updates = 5 if name == "tempering_64x64" else 4
         ckb_cuda.reset_counts()
         state, acc, rates = lb.state, [], []
         t0 = time.perf_counter()
-        for n in range(1, updates + 1):
+        for n in range(1, 5):
             state, stats = lb.step(lb.params, state, lb.generator)
             acc.append(stats.accepted)
             if n % lb.exchange_freq == 0:
@@ -2483,8 +2499,9 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True) -> dict:
     """(e)–(g) Slice H2 on gloo ranks sharing card 0 (or NCCL ranks, one card
     each): SSH under site sharding, the 2-D layout, block CG, deflation and
     tempering across ranks against one rank; ``SSH_64X64`` site-sharded,
-    ``KERNEL_64X64`` on 2×2 and ``TEMPERING_64X64`` on 2 chain ranks at full
-    width, each beside its one-rank time in ``reference``. Returns each
+    ``KERNEL_64X64`` on 2×2 and a 64×64 SSH ladder on 2 chain ranks at full
+    width, each beside its one-rank time in ``reference`` (``TEMPERING_64X64``
+    on 2 chain ranks: phase 41). Returns each
     kernel-launching run's counts and shapes."""
     from elphdynamics_tpu_torch.io.output import dump_toml
 
@@ -2524,10 +2541,9 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True) -> dict:
     _say_sharded_64("h2_ssh_64x64_site2", [r["ssh_64"] for r in pair], backend,
                     reference["one_rank_s"]["ssh_64x64"])
     # (g) tempering on 2 chain ranks against the one-rank runs
-    for name in ("tempering_64x64", "ssh_tempering_64x64"):
+    for name in TEMPERING_RUNS:
         runs = [r[name] for r in pair]
         ref = reference[name]
-        # phase 20 keeps its timed updates' decisions, after a warm-up
         acc = torch.cat([r["accepted"] for r in runs], dim=1)[-ref["accepted"].shape[0]:]
         same_acc = bool(torch.equal(acc.bool(), ref["accepted"].bool()))
         same_rates = all(r["rates"] == ref["rates"] for r in runs)
@@ -2601,7 +2617,7 @@ def phase_nccl(reference: dict, h2_reference: dict) -> dict | None:
     paths = phase_h2(h2_reference, "nccl", quad=n >= 4)
     if n < 4:
         say("nccl_2x2", skipped=f"'{n} CUDA devices on this machine; the 2x2 layout needs 4'")
-    return dict(chain_sharded=out, h2=paths)
+    return dict(chain_sharded=out, h2=paths, graphed_chains=phase_graphed_chains("nccl"))
 
 
 def _one_rank_64(cfg) -> float:
@@ -2622,10 +2638,10 @@ def _one_rank_64(cfg) -> float:
     return seconds
 
 
-def h2_references(tempering: dict) -> dict:
-    """The one-rank runs that (g) is held against: phase 20's
-    ``TEMPERING_64X64`` run (``tempering``, its timed updates), the 64×64
-    SSH ladder of :func:`_tempering_chain_ranks`, and the times of one
+def h2_references() -> dict:
+    """The one-rank runs that (g) is held against: the 64×64 SSH ladder of
+    :func:`_tempering_chain_ranks` (``TEMPERING_64X64`` on chain ranks is
+    held against one rank in phase 41), and the times of one
     ``SSH_64X64`` update and one 8-chain ``KERNEL_64X64`` update (a chain
     block of the 2×2 layout) at the sharded runs' trajectory, run here."""
     from elphdynamics_tpu_torch.bench import KERNEL_64X64, SSH_64X64
@@ -2634,8 +2650,6 @@ def h2_references(tempering: dict) -> dict:
     r = out["ssh_tempering_64x64"]
     say("ssh_tempering_64x64_one_rank", exchange_rates=[x for x, _ in r["rates"]],
         seconds=f"{r['seconds']:.1f}")
-    out["tempering_64x64"] = dict(accepted=tempering["accepted"], rates=tempering["exchange_rates"],
-                                  x=tempering["x"], seconds=tempering["seconds"])
     out["one_rank_s"] = {"ssh_64x64": _one_rank_64(SSH_64X64),
                          "kernel_64x64": _one_rank_64(replace(KERNEL_64X64, n_chains=8))}
     say("h2_one_rank_64x64", trajectory_time=SHORT_TRAJECTORY,
@@ -2645,20 +2659,19 @@ def h2_references(tempering: dict) -> dict:
 
 def nccl_only() -> int:
     """(d) alone, for a machine with several cards: the build, the one-rank
-    ``KERNEL_64X64`` and ``TEMPERING_64X64`` runs that (a) and (g) are held
-    against, then (a), (b) and (e)–(g) on NCCL ranks, one card each (the
-    2×2 layout with four cards). Run as ``python3 -c "import chip_smoke as
+    ``KERNEL_64X64`` run that (a) is held against, then (a), (b), (e)–(g)
+    and phase 41's chain ranks on NCCL ranks, one card each (the 2×2 layout
+    with four cards). Run as ``python3 -c "import chip_smoke as
     c, sys; sys.exit(c.nccl_only())"``."""
     if torch.cuda.device_count() < 2:
         print("chip_smoke: NCCL ranks need two CUDA devices", file=sys.stderr)
         return 1
-    from elphdynamics_tpu_torch.bench import KERNEL_64X64, TEMPERING_64X64
+    from elphdynamics_tpu_torch.bench import KERNEL_64X64
 
     phase_card()
     phase_build()
     ref = run_config(KERNEL_64X64, warmup=1, timed=2)
-    tempering = run_config(TEMPERING_64X64, warmup=1, timed=4)
-    phase_nccl(ref, h2_references(tempering))
+    phase_nccl(ref, h2_references())
     say("total", seconds=f"{time.perf_counter() - T_START:.1f}")
     return 0
 
@@ -2923,8 +2936,8 @@ def phase_ed_float32() -> None:
 # phase 36: the graphed update against the eager one
 U_F32 = 2.0 ** -24                # float32 unit roundoff
 GRAPH_X_REL_TOL = 1e-6            # x, relative, where the two paths' bits differ
-# phase 40's interleaved blocks of each form per configuration, and HMC
-# updates per block (phases 36–39 run none since phase 40 came: PRs 12–15
+# phase 41's interleaved blocks of each form per configuration, and HMC
+# updates per block (phases 36–40 run none since phase 41 came: PRs 12–16
 # settled them, and their time pays for it)
 GRAPH_AB_BLOCKS = 3
 GRAPH_AB_UPDATES = 1
@@ -3036,6 +3049,7 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
                                f"launched no time: {row}")
         out[u] = row
         out["table_launches"], out["launch_shapes"] = mg["launches"], mg["shapes"]
+        out.setdefault("accepted", []).append(tg.accepted.cpu())
         state = se
     return out
 
@@ -3151,7 +3165,6 @@ def phase_graphed_update_ssh() -> dict:
 
 
 # phase 38: the graphed Langevin step against the eager one
-LANGEVIN_AB_STEPS = 2       # steps per interleaved block (phase 40)
 LANGEVIN_LONG_STEPS = 100   # graphed steps at the stock 4×4 shape; memory read after 5 and after these
 LANGEVIN_REBUILDS = 3       # fresh graphed steps of that model, memory read after each
 
@@ -3387,16 +3400,16 @@ def _tree_rel_diff(a, b) -> float:
     return float((a - b).abs().max()) / scale if scale > 0 else float((a - b).abs().max())
 
 
-def _special_parity(ex, twin, name: str, forms) -> dict:
-    """Two calls of each part (reflection, swap, measurement) of the example
-    step ``ex`` graphed and of its eager twin on the same draws from the same
-    fields: results bit for bit (x and acceptance; every increment, the
+def _special_parity(ex, twin, name: str, forms, parts=SPECIAL_PARTS) -> dict:
+    """Two calls of each part of ``parts`` (reflection, swap, measurement)
+    of the example step ``ex`` graphed and of its eager twin on the same
+    draws from the same fields: results bit for bit (x and acceptance; every increment, the
     probe solves' iterations and flags, the snapshots), replays = host reads
     + 1 in both calls, and on the second (the first captures) equal K1 / K2
     launches by form, each of ``forms`` launched, and equal host reads."""
     C = ex.state.x.shape[0]
     out = {}
-    for part in SPECIAL_PARTS:
+    for part in parts:
         seg, eager = getattr(ex, part), getattr(twin, part)
         if part != "measure" and seg.n_moves == 0:
             continue                          # SSH's reflection: a null move
@@ -3438,42 +3451,6 @@ def _special_parity(ex, twin, name: str, forms) -> dict:
                 x = re_[0]
         rows["table_launches"], rows["launch_shapes"] = mg["launches"], mg["shapes"]
         out[part] = rows
-    return out
-
-
-def _parts_ab(ex, twin, blocks: int) -> dict:
-    """Seconds per call of each part, eager and graphed, in ``blocks``
-    interleaved blocks each (E G G E ...), every block one reflection, swap
-    and measurement from the example's fields on one seed, each call ended by
-    a synchronisation: medians, quartiles and IQRs, and of their sum."""
-    C = ex.state.x.shape[0]
-    secs = {form: {p: [] for p in (*SPECIAL_PARTS, "parts")} for form in ("eager", "graphed")}
-    order = [("eager", "graphed")[(i // 2 + i) % 2] for i in range(2 * blocks)]
-    for form in order:
-        src = ex if form == "graphed" else twin
-        g = torch.Generator(device="cuda").manual_seed(17)
-        x, total = ex.state.x, 0.0
-        for part in SPECIAL_PARTS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if part == "measure":
-                getattr(src, part)(ex.params, x, g)
-            else:
-                x, _ = getattr(src, part)(ex.params, x, g)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            secs[form][part].append(dt)
-            total += dt
-        secs[form]["parts"].append(total)
-    out = {}
-    for form, parts in secs.items():
-        out[form] = {}
-        for part, r in parts.items():
-            q1, med, q3 = statistics.quantiles(r, n=4, method="inclusive")
-            out[form][part] = dict(median=med, q1=q1, q3=q3, iqr=q3 - q1,
-                                   blocks=[round(v, 4) for v in r])
-    out["speedup_median"] = {p: out["eager"][p]["median"] / out["graphed"][p]["median"]
-                             for p in out["eager"]}
     return out
 
 
@@ -3651,11 +3628,11 @@ def phase_graphed_complex() -> dict:
     ``SSH_TWISTED_64X64`` (8 chains; :func:`_graphed_update`), the
     RK Langevin step at ``TWISTED_LANGEVIN_64X64`` (16 chains), and the
     reflection, swap and measurement of both twisted examples at 4×4 and
-    64×64 (:func:`_twisted_cases`; :func:`_special_parity`,
-    :func:`_parts_ab`); every result bit for bit on the same draws, equal
-    iterations, flags and K1 launches by form, replays = host reads + 1;
-    sweeps/s, chain-steps/s and seconds per part in interleaved blocks,
-    busy shares, capture seconds and pool bytes; at twisted SSH 4×4
+    64×64 (:func:`_twisted_cases`; :func:`_special_parity`); every result
+    bit for bit on the same draws, equal iterations, flags and K1 launches
+    by form, replays = host reads + 1; busy shares, capture seconds and
+    pool bytes (its interleaved A/B blocks, measured in PR 16, went to pay
+    for phase 41); at twisted SSH 4×4
     :func:`_twisted_memory`; flags 0 and acceptance > 0 over the 64×64
     updates (phase 17's checks, whose runs this phase took over). JSON
     ``chiprun_out/graphed_complex.json``.
@@ -3668,8 +3645,6 @@ def phase_graphed_complex() -> dict:
     for cfg, forms in ((TWISTED_64X64, TWISTED_FORMS["holstein"]),
                        (SSH_TWISTED_64X64, TWISTED_FORMS["ssh"])):
         b, eager, res = _graphed_update(cfg, forms)
-        ab = res["ab"] = _sweeps_ab(b, eager, cfg.n_chains, b.state, GRAPH_AB_UPDATES)
-        _say_ab(cfg.name, ab, "updates_per_block", GRAPH_AB_UPDATES, res["busy_graphed"])
         upd[cfg.name] = res
         del b, eager
     out = {"update": upd}
@@ -3685,9 +3660,6 @@ def phase_graphed_complex() -> dict:
     eager = b.eager()
     lang = out["langevin"] = _langevin_against_eager(TWISTED_LANGEVIN_64X64.name, b, eager,
                                                       TWISTED_FORMS["holstein"])
-    ab = lang["ab"] = _sweeps_ab(b, eager, b.x.shape[0], b.x, LANGEVIN_AB_STEPS)
-    _say_ab(TWISTED_LANGEVIN_64X64.name, ab, "steps_per_block", LANGEVIN_AB_STEPS,
-            lang["busy_graphed"])
     del b, eager
     if not all(lang["parity"][u]["bitwise"] for u in (1, 2)):
         raise RuntimeError("graphed twisted Langevin: not bit for bit against the eager step")
@@ -3696,11 +3668,6 @@ def phase_graphed_complex() -> dict:
         ex = build_hmc_example(cfg, chains, "cuda", torch.float32)
         twin = ex.eager()
         res = out[name] = {"parity": _special_parity(ex, twin, name, forms)}
-        ab = res["ab"] = _parts_ab(ex, twin, GRAPH_AB_BLOCKS)
-        say(f"special_ab_{name}", chains=chains, blocks=GRAPH_AB_BLOCKS,
-            **{f"{form}_{part}": f"{ab[form][part]['median']:.4f} ({ab[form][part]['iqr']:.4f})"
-               for form in ("eager", "graphed") for part in ab[form]},
-            speedup_median={p: round(v, 3) for p, v in ab["speedup_median"].items()})
         if name == "ssh_twisted_4x4":
             res["memory"] = _twisted_memory(ex)
         if forms:
@@ -3710,6 +3677,409 @@ def phase_graphed_complex() -> dict:
     _write_json("graphed_complex.json", out)
     return paths
 
+
+# phase 41: the chain-batched calls graphed (chain ranks, tempering, 2MN)
+# graphed tempering 4×4 driver steps, memory read after 5 and after these
+TEMPERING_MEMORY_STEPS = 50
+DISPERSIVE_RERUNS = 8         # the dispersive force's old index_add form, reruns on one input
+LADDER_AB_UPDATES = 2         # updates per interleaved tempering block, one exchange after them
+
+
+def _exchange_call(ex, params, x, v, parity: int, draws):
+    """One exchange on ``draws``, every count set to 0 just before and read
+    just after: (result, {seconds, launches by form, shapes, host reads,
+    replays, eager steps between replays})."""
+    from elphdynamics_tpu_torch.dynamics import graphs
+
+    graphs.collectives = 0
+    out, m = _part_call(ex, params, x, v, parity, draws=draws)
+    return out, dict(m, collectives=graphs.collectives)
+
+
+def _exchange_parity(b, twin, name: str, forms=()) -> dict:
+    """Three exchanges (parities 0, 1, 0) of ``b``'s graphed exchange and of
+    its eager twin on the same draws from the same fields: x, v, the
+    accepted share, iterations and flag bit for bit; replays = host reads +
+    1 per run of segments between the eager gathers (one rank: none; chain
+    ranks: two); from the second call (the first captures) equal K1 / K2
+    launches by form and host reads, each of ``forms`` launched; seconds
+    each way."""
+    x, v, out = b.state.x, b.state.v, {}
+    for call, parity in enumerate((0, 1, 0), start=1):
+        draws = twin.draw(b.params, x, b.generator)
+        rg, mg = _exchange_call(b.exchange, b.params, x, v, parity, draws)
+        re_, me = _exchange_call(twin, b.params, x, v, parity, draws)
+        row = dict(parity=parity, bitwise=_tree_equal(rg, re_), graphed_s=f"{mg['seconds']:.4f}",
+                   eager_s=f"{me['seconds']:.4f}", replays=mg["replays"],
+                   host_reads_graphed=mg["host_reads"], host_reads_eager=me["host_reads"],
+                   gathers=mg["collectives"], rate=float(rg[2]), cg_iters=float(rg[3]),
+                   flag=int(rg[4]), launches_graphed={f: mg["launches"][f] for f in forms},
+                   launches_eager={f: me["launches"][f] for f in forms})
+        if call == 1:
+            ws = b.exchange.workspace()
+            row.update(graphs=sorted(ws.graphs.graphs), capture_s=f"{ws.graphs.capture_s:.3f}",
+                       pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}")
+        say(f"exchange_parity_{name}", call=call, **row)
+        if not row["bitwise"] or row["flag"] != 0:
+            raise RuntimeError(f"graphed {name} exchange {call} left the eager one: {row}")
+        if mg["replays"] != mg["host_reads"] + 1 + mg["collectives"]:
+            raise RuntimeError(f"graphed {name} exchange {call}: replays are not host reads + 1 "
+                               f"per run between gathers: {row}")
+        if call > 1 and (mg["launches"] != me["launches"] or mg["host_reads"] != me["host_reads"]
+                         or any(mg["launches"][f] <= 0 for f in forms)):
+            raise RuntimeError(f"graphed {name} exchange: launches or host reads differ, or a "
+                               f"form launched no time: {row}")
+        out[call] = row
+        out["table_launches"], out["launch_shapes"] = mg["launches"], mg["shapes"]
+        x, v = re_[0], re_[1]
+    return out
+
+
+def _ladder_ab(b, eager, eager_ex, blocks: int) -> dict:
+    """Sweeps per second of a ladder's updates with their exchanges, eager
+    and graphed, in ``blocks`` interleaved blocks each (E G G E ...): every
+    block ``LADDER_AB_UPDATES`` updates and one exchange from the initial
+    state on one seed; and each block's exchange seconds."""
+    rates = {"eager": [], "graphed": []}
+    ex_s = {"eager": [], "graphed": []}
+    order = [("eager", "graphed")[(i // 2 + i) % 2] for i in range(2 * blocks)]
+    C = b.state.x.shape[0]
+    for form in order:
+        step, ex = (b.step, b.exchange) if form == "graphed" else (eager, eager_ex)
+        g = torch.Generator(device="cuda").manual_seed(17)
+        state = b.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LADDER_AB_UPDATES):
+            state, _ = step(b.params, state, g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ex(b.params, state.x, state.v, 0, g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rates[form].append(C * LADDER_AB_UPDATES / (t2 - t0))
+        ex_s[form].append(t2 - t1)
+    out = {}
+    for form in rates:
+        q1, med, q3 = statistics.quantiles(rates[form], n=4, method="inclusive")
+        e1, emed, e3 = statistics.quantiles(ex_s[form], n=4, method="inclusive")
+        out[form] = dict(median=med, q1=q1, q3=q3, iqr=q3 - q1,
+                         blocks=[round(r, 4) for r in rates[form]], exchange_s_median=emed,
+                         exchange_s_iqr=e3 - e1)
+    out["speedup_median"] = out["graphed"]["median"] / out["eager"]["median"]
+    return out
+
+
+def _old_dsbdx(spec, p, x):
+    """The dispersive force as the port computed it before its fixed-order
+    sum: the ωᵢⱼ pairs added by two ``index_add`` calls (on a card, atomic
+    adds in no fixed order where a site ends several pairs)."""
+    om2, om4 = (p.omega ** 2)[:, None], p.omega4[:, None]
+    lap = torch.roll(x, 1, dims=-1) + torch.roll(x, -1, dims=-1) - 2.0 * x
+    d = spec.dtau * (om2 * x + 4.0 * om4 * x ** 3) - lap / spec.dtau
+    i, j = (torch.as_tensor(spec.wij_table[k], device=x.device) for k in (0, 1))
+    sgn = torch.as_tensor(spec.wij_sign, dtype=x.dtype, device=x.device)[:, None]
+    pair = spec.dtau * (p.wij ** 2)[:, None] * (x.index_select(-2, i) + sgn * x.index_select(-2, j))
+    return d.index_add(-2, i, pair).index_add(-2, j, sgn * pair)
+
+
+def _dispersive_rerun() -> dict:
+    """``KERNEL_64X64``'s model with ωᵢⱼ along both bond directions (every
+    site the first endpoint of two pairs, the second of two), 16 chains,
+    trajectory ``SHORT_TRAJECTORY``: one graphed update run twice on the
+    same draws from the same state (x, v, ΔH and decisions bit for bit), the
+    fixed-order force run twice on one field (bit for bit), and the old
+    ``index_add`` force ``DISPERSIVE_RERUNS`` times on that field (its
+    distinct results counted: more than one is the fault the fixed order
+    repairs)."""
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.models.holstein import build_holstein, calc_dSbdx
+
+    spec, params = build_holstein(
+        bench._square(64), beta=4.0, dtau=0.1,
+        t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))],
+        omega=1.0, lam=1.0, mu=0.0, wij_assignments=[(0.3, 0.0, 1, 0, 0, (1, 0, 0)),
+                                                     (0.2, 0.0, -1, 0, 0, (0, 1, 0))],
+        dtype=torch.float32, device="cuda")
+    b = bench._bench_step(spec, params, 0.025, 16, torch.device("cuda"), 0, SHORT_TRAJECTORY,
+                          max_order=4)
+    draws = b.step.draw(b.params, b.state.x, 16, b.generator)
+    runs = [b.step(b.params, b.state, draws=draws) for _ in range(2)]
+    same_update = all(torch.equal(p, q) for p, q in (
+        (runs[0][0].x, runs[1][0].x), (runs[0][0].v, runs[1][0].v),
+        (runs[0][1].delta_H, runs[1][1].delta_H), (runs[0][1].accepted, runs[1][1].accepted)))
+    x = runs[0][0].x
+    same_force = torch.equal(calc_dSbdx(spec, b.params, x), calc_dSbdx(spec, b.params, x))
+    old = [_old_dsbdx(spec, b.params, x) for _ in range(DISPERSIVE_RERUNS)]
+    distinct = len({hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest() for t in old})
+    new_vs_old = float((calc_dSbdx(spec, b.params, x) - old[0]).abs().max())
+    out = dict(update_bitwise=same_update, force_bitwise=same_force,
+               old_form_distinct_results=distinct, old_form_reruns=DISPERSIVE_RERUNS,
+               old_form_max_abs_diff=f"{max(float((t - old[0]).abs().max()) for t in old):.3e}",
+               new_vs_old_max_abs=f"{new_vs_old:.3e}",
+               max_flag=int(runs[0][1].flag.max()),
+               acceptance=f"{runs[0][1].accepted.double().mean().item():.4f}")
+    say("dispersive_rerun_64x64", **out)
+    if not (same_update and same_force) or out["max_flag"] != 0:
+        raise RuntimeError(f"the dispersive 64x64 update is not the same bits on a rerun: {out}")
+    return out
+
+
+def _tempering_memory() -> dict:
+    """``TEMPERING_MEMORY_STEPS`` graphed driver steps of the stock 4×4
+    Holstein file (trajectory cut to 0.1) on 8 chains under the ladder
+    ``LADDER4``: the update, the moves, an exchange (parity alternating)
+    and the measurement of the rung-0 chains with their chain mean, as the
+    driver runs them; allocated device memory after step 5 and after the
+    last (no growth allowed), every flag 0."""
+    from elphdynamics_tpu_torch.bench import build_hmc_example
+    from elphdynamics_tpu_torch.dynamics.tempering import (
+        TemperingConfig, ladder_params, make_exchange_step, rung_params)
+    from elphdynamics_tpu_torch.measure.measurements import mean_over_chains
+
+    with open(os.path.join(_examples_dir(), "holstein_hmc_square.toml"), "rb") as f:
+        stock = tomllib.load(f)
+    stock["hmc"]["trajectory_time"] = 0.1
+    ex = build_hmc_example(stock, 8, "cuda", torch.float32)
+    tcfg = TemperingConfig(ladder=LADDER4, freq=1)
+    params = ladder_params(ex.params, tcfg, 8)
+    exchange = make_exchange_step(ex.ops, tcfg, 8, ex.precond)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    state, mem, flag, rate_sum = ex.state, {}, None, None
+    t0 = time.perf_counter()
+    for n in range(1, TEMPERING_MEMORY_STEPS + 1):
+        state, stats = ex.step(params, state, g)
+        x, _ = ex.reflect(params, state.x, g)
+        x, _ = ex.swap(params, x, g)
+        x, v, rate, _, ex_flag = exchange(params, x, state.v, n % 2, g)
+        inc, mstats, snaps = ex.measure(rung_params(params), x[:2], g)
+        mean_over_chains(inc, snaps, mstats["flag"])
+        state = replace(state, x=x, v=v)
+        rate_sum = rate if rate_sum is None else rate_sum + rate
+        step_flag = torch.stack([f.to(torch.int64) for f in (
+            stats.flag.max(), ex_flag, mstats["flag"].max())]).max()
+        flag = step_flag if flag is None else torch.maximum(flag, step_flag)
+        if n in (5, TEMPERING_MEMORY_STEPS):
+            torch.cuda.synchronize()
+            mem[n] = torch.cuda.memory_allocated()
+    seconds = time.perf_counter() - t0
+    out = dict(steps=TEMPERING_MEMORY_STEPS, chains=8, s_per_step=seconds / TEMPERING_MEMORY_STEPS,
+               allocated_after_5=mem[5], allocated_after_last=mem[TEMPERING_MEMORY_STEPS],
+               growth_bytes=mem[TEMPERING_MEMORY_STEPS] - mem[5], max_flag=int(flag),
+               exchange_acceptance=f"{float(rate_sum) / TEMPERING_MEMORY_STEPS:.4f}",
+               replays={p: getattr(ex, p).workspace().graphs.replays
+                        for p in ("step", "reflect", "swap", "measure")}
+               | {"exchange": exchange.workspace().graphs.replays})
+    say("graphed_tempering_memory", **out)
+    if out["growth_bytes"] > 0 or out["max_flag"] != 0:
+        raise RuntimeError(f"graphed tempering driver steps grew device memory or failed: {out}")
+    return out
+
+
+class _BlockTwin:
+    """The eager form ``fn`` of a chain rank's call, drawing the whole
+    batch's numbers (``total`` chains) and keeping this rank's block along
+    ``dim`` (what ``ChainBlock.wrap`` hands the graphed form)."""
+
+    def __init__(self, fn, cb, dim: int = 0):
+        self.fn, self.cb, self.dim = fn, cb, dim
+        self.segmented = False
+
+    def draw(self, params, x, n, generator):
+        return self.cb.local(self.fn.draw(params, x, self.cb.total, generator), self.dim)
+
+    def __call__(self, *args, **kw):
+        return self.fn(*args, **kw)
+
+
+def _rank_ab(step, eager, params, state, n_chains: int, blocks: int) -> dict:
+    """:func:`_sweeps_ab` on a chain rank, every block starting at a barrier
+    of the ranks so that their blocks of one form overlap: the sweeps/s of
+    the whole batch (``n_chains``) over this rank's time."""
+    import torch.distributed as dist
+
+    rates = {"eager": [], "graphed": []}
+    order = [("eager", "graphed")[(i // 2 + i) % 2] for i in range(2 * blocks)]
+    for form in order:
+        fn = step if form == "graphed" else eager
+        g = torch.Generator(device=state.x.device).manual_seed(17)
+        s = state
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_AB_UPDATES):
+            s, _ = fn(params, s, generator=g)
+        torch.cuda.synchronize()
+        rates[form].append(n_chains * GRAPH_AB_UPDATES / (time.perf_counter() - t0))
+    out = {}
+    for form, r in rates.items():
+        q1, med, q3 = statistics.quantiles(r, n=4, method="inclusive")
+        out[form] = dict(median=med, q1=q1, q3=q3, iqr=q3 - q1, blocks=[round(x, 4) for x in r])
+    return out
+
+
+def _rank_graphed_chains(device) -> dict:
+    """41 (chain ranks) on this rank of 2, each call graphed against its
+    eager form on the same whole-batch draws cut to the rank's block:
+    ``KERNEL_64X64`` (8 of 16 chains; :func:`_graph_parity`, replays and
+    host reads, launches by form, then :func:`_rank_ab`), the reflection
+    and swap of the stock Holstein file widened to 64×64 (4 of 8 chains;
+    :func:`_special_parity`), and ``TEMPERING_64X64`` (8 of 16 chains, 2
+    rungs a rank; the update and :func:`_exchange_parity`, whose gathers
+    cross the ranks)."""
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.dynamics.hmc import make_hmc_step
+    from elphdynamics_tpu_torch.ops import kpm
+    from elphdynamics_tpu_torch.parallel import multihost
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+
+    rank = multihost.rank()
+    out = {}
+    holstein = MODES["holstein"]
+    for cfg in (bench.KERNEL_64X64, bench.TEMPERING_64X64):
+        b = bench.build(cfg, device, torch.float32)
+        cb = ChainBlock.of(cfg.n_chains, 2, rank)
+        lb = bench.shard_bench_step(b, chains=cb)
+        eager = b.eager()
+        # the rank's graphed update unwrapped, so that it takes the block's draws
+        raw = make_hmc_step(b.ops, b.mass, b.hmc_cfg, kpm.make_precond(b.ops, b.kpm_cfg))
+        block = replace(lb, step=raw)
+        res = {"update": _graph_parity(block, _BlockTwin(eager, cb), f"{cfg.name}_rank{rank}",
+                                       holstein)}
+        if cfg.ladder is None:
+            res["ab"] = _rank_ab(cb.wrap(raw), cb.wrap(eager), lb.params, lb.state, cfg.n_chains,
+                                 GRAPH_AB_BLOCKS)
+        else:
+            res["exchange"] = _exchange_parity(lb, lb.eager_exchange(), f"{cfg.name}_rank{rank}",
+                                               holstein)
+        ws = raw.workspace()
+        res["pool_mb"], res["capture_s"] = ws.graphs.pool_bytes / 2 ** 20, ws.graphs.capture_s
+        out[cfg.name] = res
+        del b, lb, eager, raw, block
+    with open(os.path.join(_examples_dir(), "holstein_hmc_square.toml"), "rb") as f:
+        wide = bench.wide_hmc_config(tomllib.load(f))
+    ex = bench.build_hmc_example(wide, 8, device, torch.float32)
+    cb = ChainBlock.of(8, 2, rank)
+    twin = ex.eager()
+    block = replace(ex, state=cb.local(ex.state))
+    twin_block = replace(twin, reflect=_BlockTwin(twin.reflect, cb, 1),
+                         swap=_BlockTwin(twin.swap, cb, 1))
+    out["moves_64x64"] = _special_parity(block, twin_block, f"moves_64x64_rank{rank}", holstein,
+                                         parts=("reflect", "swap"))
+    return out
+
+
+def _held_to_one_rank(ranks: list, refs: dict, backend: str) -> None:
+    """The chain ranks' decisions against the one-rank runs of the same
+    sequence (``refs``: each configuration's :func:`_graph_parity` and, under
+    the ladder, :func:`_exchange_parity` on one rank): every update's
+    accepted chains, and the exchanges' accepted shares and flags. x is not
+    compared bit for bit: float32 sums over a block of 8 chains add in
+    another order than over 16 (phase 24)."""
+    bad = []
+    for name, ref in refs.items():
+        runs = [r[name] for r in ranks]
+        for u, want in enumerate(ref["parity"]["accepted"]):
+            got = torch.cat([r["update"]["accepted"][u] for r in runs])
+            if not torch.equal(got, want):
+                bad.append(f"{name} update {u + 1}: {got.tolist()} against {want.tolist()}")
+        if "exchange" in ref:
+            want = [(ref["exchange"][c]["rate"], ref["exchange"][c]["flag"]) for c in (1, 2, 3)]
+            for i, r in enumerate(runs):
+                got = [(r["exchange"][c]["rate"], r["exchange"][c]["flag"]) for c in (1, 2, 3)]
+                if got != want:
+                    bad.append(f"{name} exchanges on rank {i}: {got} against {want}")
+    say(f"chain_ranks_vs_one_rank_{backend}", configurations=sorted(refs), decisions_equal=not bad)
+    if bad:
+        raise RuntimeError(f"chain ranks left the one-rank run: {bad}")
+
+
+def phase_graphed_chains(backend: str = "gloo", kernel_ref: dict | None = None) -> dict:
+    """41. The chain-batched calls graphed (``dynamics/graphs.py``: chain
+    ranks, the tempering ladder and its exchange, the 2MN integrator), each
+    against its eager form asked for by name: ``KERNEL_2MN_64X64`` (16
+    chains; :func:`_graphed_update`, interleaved A/B) and
+    ``TEMPERING_64X64`` on one rank (the laddered update, the exchange of
+    both parities, :func:`_ladder_ab`; phase 20's run and its checks); on 2
+    gloo ranks sharing card 0 :func:`_rank_graphed_chains`
+    (``KERNEL_64X64``'s update and A/B, the 64×64 moves,
+    ``TEMPERING_64X64``'s update and exchange across the ranks), their
+    decisions and exchanges held to the one-rank runs of the same sequence
+    (:func:`_held_to_one_rank`; ``kernel_ref``: phase 36's
+    ``KERNEL_64X64`` parity, else run here); every result bit for bit on
+    the same draws, equal K1 / K2 launches by form, replays = host reads +
+    1 per run of segments between the exchange's gathers;
+    :func:`_dispersive_rerun`; :func:`_tempering_memory`. JSON
+    ``chiprun_out/graphed_chains.json``. With ``backend`` "nccl" (a machine
+    with two cards) the ranks take one card each, and of the one-rank part
+    only the references run. Returns each graphed run's second call
+    (launches, shapes) by path name."""
+    from elphdynamics_tpu_torch.bench import KERNEL_2MN_64X64, KERNEL_64X64, TEMPERING_64X64
+
+    holstein = MODES["holstein"]
+    out, paths = {}, {}
+    if backend == "gloo":
+        b, eager, res = _graphed_update(KERNEL_2MN_64X64, holstein)
+        ab = res["ab"] = _sweeps_ab(b, eager, KERNEL_2MN_64X64.n_chains, b.state,
+                                    GRAPH_AB_UPDATES)
+        _say_ab(KERNEL_2MN_64X64.name, ab, "updates_per_block", GRAPH_AB_UPDATES,
+                res["busy_graphed"])
+        out[KERNEL_2MN_64X64.name] = res
+        paths[f"graphed_{KERNEL_2MN_64X64.name}"] = res["parity"]
+        del b, eager
+    b, eager, res = _graphed_update(TEMPERING_64X64, holstein)
+    eager_ex = b.eager_exchange()
+    res["exchange"] = _exchange_parity(b, eager_ex, TEMPERING_64X64.name, holstein)
+    if backend == "gloo":
+        ab = res["ab"] = _ladder_ab(b, eager, eager_ex, GRAPH_AB_BLOCKS)
+        _say_ab(TEMPERING_64X64.name, ab, "updates_per_block", LADDER_AB_UPDATES,
+                res["busy_graphed"])
+        say(f"exchange_ab_{TEMPERING_64X64.name}",
+            eager_s=f"{ab['eager']['exchange_s_median']:.4f} ({ab['eager']['exchange_s_iqr']:.4f})",
+            graphed_s=f"{ab['graphed']['exchange_s_median']:.4f} "
+                      f"({ab['graphed']['exchange_s_iqr']:.4f})")
+        paths[f"graphed_{TEMPERING_64X64.name}"] = res["parity"]
+        paths[f"graphed_exchange_{TEMPERING_64X64.name}"] = res["exchange"]
+    out[TEMPERING_64X64.name] = res
+    del b, eager, eager_ex
+    for name in out:
+        rows = [out[name]["parity"][u] for u in (1, 2)]
+        if (max(r["max_flag"] for r in rows) != 0
+                or not any(float(r["acceptance"]) > 0 for r in rows)):
+            raise RuntimeError(f"graphed {name}: a solver flag, or no update accepted: {rows}")
+    if backend == "gloo":
+        out["dispersive"] = _dispersive_rerun()
+        out["tempering_memory"] = _tempering_memory()
+    if kernel_ref is None:
+        kernel_ref = _graphed_update(KERNEL_64X64, holstein)[2]
+    t0 = time.perf_counter()
+    ranks = _launch(_rank_graphed_chains, 2, backend)
+    _held_to_one_rank(ranks, {KERNEL_64X64.name: kernel_ref,
+                              TEMPERING_64X64.name: out[TEMPERING_64X64.name]}, backend)
+    per_rank = [r[KERNEL_64X64.name]["ab"] for r in ranks]
+    ab = {form: {"median": min(r[form]["median"] for r in per_rank),
+                 "iqr": max(r[form]["iqr"] for r in per_rank),
+                 "blocks": [r[form]["blocks"] for r in per_rank]} for form in ("eager", "graphed")}
+    ab["speedup_median"] = ab["graphed"]["median"] / ab["eager"]["median"]
+    say(f"graph_ab_{KERNEL_64X64.name}_chain2_{backend}", ranks=2, blocks=GRAPH_AB_BLOCKS,
+        eager_median=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
+        graphed_median=f"{ab['graphed']['median']:.4f}", graphed_iqr=f"{ab['graphed']['iqr']:.4f}",
+        speedup_median=f"{ab['speedup_median']:.3f}",
+        pool_mb=[round(r[KERNEL_64X64.name]["pool_mb"], 1) for r in ranks],
+        capture_s=[round(r[KERNEL_64X64.name]["capture_s"], 3) for r in ranks],
+        label=repr("ranks on one card, messages staged through the host" if backend == "gloo"
+                   else "one card per rank, NCCL"),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    out[f"chain_ranks_{backend}"] = dict(ranks=ranks, ab=ab)
+    for i, r in enumerate(ranks):
+        for name in (KERNEL_64X64.name, TEMPERING_64X64.name):
+            paths[f"graphed_{name}_chain_rank{i}_{backend}"] = r[name]["update"]
+        paths[f"graphed_exchange_{TEMPERING_64X64.name}_chain_rank{i}_{backend}"] = \
+            r[TEMPERING_64X64.name]["exchange"]
+        for part, rows in r["moves_64x64"].items():
+            paths[f"graphed_{part}_64x64_chain_rank{i}_{backend}"] = rows
+    _write_json(f"graphed_chains{'' if backend == 'gloo' else '_' + backend}.json", out)
+    return paths
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3733,17 +4103,16 @@ def main() -> int:
     phase_loop_precision()
 
     from elphdynamics_tpu_torch.bench import (
-        BENCH_8X8, KERNEL_2MN_64X64, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64,
-        SSH_LANGEVIN_64X64, SSH_TWISTED_64X64, TEMPERING_64X64, TWISTED_64X64)
+        BENCH_8X8, KERNEL_64X64, LANGEVIN_64X64, SSH_64X64, SSH_LANGEVIN_64X64,
+        SSH_TWISTED_64X64, TWISTED_64X64)
 
     run_config(BENCH_8X8, warmup=1, timed=2)
     shapes, runs = {}, {}
     holstein = ("fold/shared", "fused/shared")
-    # tempering: 4 timed updates, so that both pair parities are tried
-    # the twisted 64×64 updates: phase 40 (phase 17's runs folded into it)
+    # the twisted 64×64 updates: phase 40 (phase 17's runs folded into it);
+    # the 2MN and tempering 64×64 runs (phase 20's): phase 41
     for cfg, forms, timed in ((KERNEL_64X64, holstein, 2),
-                              (SSH_64X64, ("fold/column", "fold/chain", "fused/chain"), 2),
-                              (KERNEL_2MN_64X64, holstein, 2), (TEMPERING_64X64, holstein, 4)):
+                              (SSH_64X64, ("fold/column", "fold/chain", "fused/chain"), 2)):
         big = runs[cfg.name] = run_config(cfg, warmup=1, timed=timed)
         shapes[cfg.name] = big["launch_shapes"]
         idle = [f for f in forms if big["table_launches"][f] <= 0]
@@ -3752,11 +4121,12 @@ def main() -> int:
         if big["max_flag"] != 0 or big["acceptance"] <= 0:
             raise RuntimeError(f"{cfg.name}: flag {big['max_flag']}, "
                                f"acceptance {big['acceptance']}")
-    phase_graphed_update()
+    graphed_upd = phase_graphed_update()
     phase_graphed_update_ssh()
     graphed_lang = phase_graphed_langevin()
     graphed_special = phase_graphed_special_measure()
     graphed_cplx = phase_graphed_complex()
+    graphed_chains = phase_graphed_chains(kernel_ref=graphed_upd[KERNEL_64X64.name])
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
@@ -3781,7 +4151,7 @@ def main() -> int:
     shapes["float32_energy_64x64"] = phase_float32_energy()
     phase_ed_float32()
     chains = phase_chain_sharded(runs[KERNEL_64X64.name])
-    h2_ref = h2_references(runs[TEMPERING_64X64.name])
+    h2_ref = h2_references()
     h2 = phase_h2(h2_ref)
     nccl = phase_nccl(runs[KERNEL_64X64.name], h2_ref)
     idle = [f for f in ("fold/column", "fold/chain", "fused/chain")
@@ -3792,13 +4162,13 @@ def main() -> int:
         raise RuntimeError("kernel timing missing")
     holstein_paths = {KERNEL_64X64.name: runs[KERNEL_64X64.name],
                       "hmc_driver_64x64": drv, "langevin_driver_64x64": drv_lang,
-                      LANGEVIN_64X64.name: lang, KERNEL_2MN_64X64.name: runs[KERNEL_2MN_64X64.name],
-                      TEMPERING_64X64.name: runs[TEMPERING_64X64.name], "deep_beta_64x64": deep,
+                      LANGEVIN_64X64.name: lang, "deep_beta_64x64": deep,
                       "chain_sharded_64x64": chains}
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
-    # phase 38's second graphed steps and phase 39's second graphed calls: the
-    # kernels inside the Langevin, move and measurement graphs
-    for k, r in (graphed_lang | graphed_special).items():
+    # phase 38's second graphed steps, phase 39's and phase 41's second
+    # graphed calls: the kernels inside the Langevin, move, measurement,
+    # 2MN, laddered update and exchange graphs (41: on chain ranks too)
+    for k, r in (graphed_lang | graphed_special | graphed_chains).items():
         (ssh_paths if "ssh" in k else holstein_paths)[k] = r
     # slice H2's paths that reach the kernels: tempering on chain ranks (each
     # rank's own counts) and the chain blocks' measurements of the 2x2 layout

@@ -57,6 +57,11 @@ The deep-β samplers on ``KERNEL_64X64``'s model (16 chains, N = 4096):
   diagonals; the hopping tables stay ``[Nb]``), an exchange attempt every 2
   updates (:attr:`BenchStep.exchange`).
 
+Both replay CUDA graphs on a card, the exchange too;
+:meth:`BenchStep.eager` and :meth:`BenchStep.eager_exchange` are the eager
+twins. :func:`shard_bench_step` cuts a step to a rank's chains (graphed) or
+sites (eager).
+
 ``DEEP_BETA_64X64`` (:func:`build_deep_beta_solves`) builds solves, not an
 update: the Holstein model at 64×64, β = 16, Δτ = 0.1 (Lτ = 160), 4
 chains, KPM ``max_order`` 8 (the stock deep-β example's), tol 1e-5,
@@ -187,6 +192,13 @@ class BenchStep:
         return make_hmc_step(self.ops, self.mass, self.hmc_cfg,
                              kpm.make_precond(self.ops, self.kpm_cfg), eager=True)
 
+    def eager_exchange(self):
+        """Under a ladder, the exchange asked for eager, as :meth:`eager`
+        builds the update (on the same chain block)."""
+        return make_exchange_step(self.ops, self.tcfg, self.exchange.n_chains,
+                                  kpm.make_precond(self.ops, self.kpm_cfg),
+                                  chains=self.exchange.chains, eager=True)
+
 
 @dataclass(frozen=True)
 class LangevinBench:
@@ -219,8 +231,9 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     KPM-preconditioned HMC step (``integrator``) and a half-filled initial
     state of ``n_chains`` chains on ``device`` (the card unless the caller
     asks for the CPU); with a ``ladder``, per-chain couplings and the
-    tempering exchange. Without a ladder, the leapfrog step of a real field
-    replays CUDA graphs on the card (``dynamics/graphs.py``)."""
+    tempering exchange. The step (leapfrog or 2MN, real or complex hopping)
+    and the exchange replay CUDA graphs on the card
+    (``dynamics/graphs.py``)."""
     device = require_device(device)
     spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
                                    pallas_threshold, twist)
@@ -236,7 +249,7 @@ def build_ssh_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     KPM-preconditioned HMC step and a half-filled initial state of
     ``n_chains`` chains on ``device`` (the card unless the caller asks for
     the CPU); ``integrator``, ``ladder`` as in :func:`build_bench_step`
-    (the leapfrog step of a real field replays CUDA graphs on the card)."""
+    (the step and the exchange replay CUDA graphs on the card)."""
     device = require_device(device)
     spec, params = _ssh_model(L, beta, dtau, dtype, device, twist)
     return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8,
@@ -407,8 +420,7 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_o
                     maxiter=500, construct_guess=True, guess_order=3, integrator=integrator)
     kcfg = kpm.KPMConfig(max_order=max_order)
     precond = kpm.make_precond(ops, kcfg)
-    # tempering keeps the eager update (dynamics/graphs.py covers the rest)
-    step = make_hmc_step(ops, mass, cfg, precond, eager=ladder is not None)
+    step = make_hmc_step(ops, mass, cfg, precond)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = init_phonons_half_filled(ops, params, n_chains, gen)
     exchange = None
@@ -440,10 +452,13 @@ def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
         if ops.is_holstein:
             x, v = shard.local(x), shard.local(v)
     precond = kpm.make_precond(ops, b.kpm_cfg)
-    step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond, eager=True)
+    # a site shard's collectives run inside every solve: its update and
+    # exchange stay eager; a chain block's replay the one-card graphs
+    step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond, eager=shard is not None)
     exchange = None
     if b.tcfg is not None:
-        exchange = make_exchange_step(ops, b.tcfg, b.state.x.shape[0], precond, chains=chains)
+        exchange = make_exchange_step(ops, b.tcfg, b.state.x.shape[0], precond, chains=chains,
+                                      eager=shard is not None)
     if chains is not None:
         params = chain_params(params, chains.lo, chains.n)
         x, v = chains.local(x), chains.local(v)
@@ -451,6 +466,8 @@ def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
 
         def step(params, state, generator=None):
             return run(params, state, generator=generator)
+
+        step.segmented, step.workspace = run.segmented, run.workspace
     return BenchStep(ops=ops, params=params, step=step, state=HMCState(x=x, v=v),
                      generator=b.generator, exchange=exchange, exchange_freq=b.exchange_freq,
                      mass=b.mass, hmc_cfg=b.hmc_cfg, kpm_cfg=b.kpm_cfg, tcfg=b.tcfg)

@@ -2,15 +2,21 @@
 package's compiled update, Langevin step, special updates and measurement
 step (``jax.jit`` over ``lax.while_loop`` and ``lax.scan`` bodies).
 
-Graphed, on one rank with CG, on a real field or under complex hopping
-(the twisted ensemble's packed complex pseudofermions ``[C, 1, N, Lτ]``):
-the leapfrog HMC update (``dynamics/hmc.py``), the Langevin step
-(``dynamics/langevin.py``), the reflection and swap moves
-(``dynamics/special_updates.py``) and the measurement step
-(``measure/measurements.py``). A call is split into
+Graphed, with CG, on one rank or on a chain rank's block of chains, on a
+real field or under complex hopping (the twisted ensemble's packed complex
+pseudofermions ``[C, 1, N, Lτ]``), with shared or per-chain (tempering
+ladder) couplings: the HMC update, leapfrog or 2MN (``dynamics/hmc.py``),
+the Langevin step (``dynamics/langevin.py``), the reflection and swap
+moves (``dynamics/special_updates.py``), the measurement step
+(``measure/measurements.py``) and the tempering exchange
+(``dynamics/tempering.py``). A call is split into
 segments, each a function over one :class:`Workspace` of tensors that keep
 their addresses from one call to the next. Its CG solves are the segments
-of :class:`CGSolve`, shared by all four. On a CUDA device every segment is
+of :class:`CGSolve`, shared by all five. A call on chain ranks may stop
+between two replays for an eager collective (the exchange's gathers,
+:meth:`Workspace.collective`; gloo cannot be captured) and resume in the
+same workspace: it replays host reads + 1 graphs per run of segments
+between two such steps. On a CUDA device every segment is
 captured once into a ``torch.cuda.CUDAGraph``, all of one call's graphs in
 one memory pool and in the order they first replay, and then replayed; the
 host keeps only the loop control between replays (``any(active)`` before a
@@ -172,6 +178,17 @@ class Workspace:
                                    for i, s in enumerate(src))
             self.start_src = src
 
+    def collective(self, fn) -> None:
+        """An eager step between two replays of a segmented call, such as a
+        gather of the chain ranks: ``fn()`` on the current stream, which
+        orders it after the replays before it and before those after it
+        (a replay runs on the current stream). It is never captured: gloo
+        cannot be, and a collective issued while a stream captures fails.
+        In a segment list it stands as :func:`between`'s entry."""
+        global collectives
+        fn()
+        collectives += 1
+
     def capture_once(self, segments) -> None:
         """On a CUDA device, the first time: warm up and capture the
         ``(name, fn)`` pairs that ``segments()`` lists."""
@@ -187,6 +204,20 @@ class Workspace:
             fn()
         else:
             self.graphs.replay(name)
+
+
+# eager steps between replays (Workspace.collective) since the last reset: a
+# segmented call replays host reads + 1 graphs per run of segments between
+# two of them
+collectives = 0
+
+
+def between(fn) -> tuple:
+    """The segment-list entry of an eager step between two segments
+    (:meth:`Workspace.collective`): the warm-up runs it in its place, on the
+    current stream after the capture stream's work so far; the capture
+    skips it."""
+    return (None, fn)
 
 
 def step_workspace(box: dict, params, x) -> Workspace:
@@ -346,19 +377,28 @@ class UpdateGraphs:
 
     def warm_up(self, segments) -> None:
         """Run ``segments`` (``(name, fn)`` pairs) once each, in order,
-        eagerly on the capture stream."""
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.stream):
-            for _, fn in segments:
+        eagerly on the capture stream; an entry of :func:`between` (name
+        None) on the current stream, joined to the capture stream on both
+        sides."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        for name, fn in segments:
+            if name is None:
+                current.wait_stream(self.stream)
                 fn()
-        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+                self.stream.wait_stream(current)
+                continue
+            with torch.cuda.stream(self.stream):
+                fn()
+        current.wait_stream(self.stream)
         torch.cuda.synchronize(self.device)
 
     def capture(self, segments) -> None:
-        """Capture each not yet captured segment of ``segments``, in order."""
+        """Capture each not yet captured segment of ``segments``, in order
+        (the eager steps of :func:`between` are not captured)."""
         t0 = time.perf_counter()
         for name, fn in segments:
-            if name in self.graphs:
+            if name is None or name in self.graphs:
                 continue
             graph = torch.cuda.CUDAGraph()
             with ckb_cuda.recording() as rec:

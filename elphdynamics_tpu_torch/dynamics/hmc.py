@@ -35,13 +35,15 @@ an argument (a 0-dim tensor on the device, the trajectory length Nt fixed
 from ``cfg``), so the burn-in tuner (:func:`dt_tuner_update`, Nesterov dual
 averaging toward ``target_acceptance``) changes it with no host read.
 
-The one-rank leapfrog update with CG, Holstein or SSH, real or complex
-hopping, is a fixed sequence of segments over one workspace
+The update with CG on one rank or a chain rank's block, leapfrog or 2MN,
+Holstein or SSH, real or complex hopping, shared or per-chain (tempering
+ladder) couplings, is a fixed sequence of segments over one workspace
 (:mod:`.graphs`): the start (momenta, φ, the KPM setup, the tol² solve's
 start), a block of ``solvers.CG_SYNC_EVERY`` masked CG iterations, the
 verification, a
-leapfrog step from a solved z to the next solve's start (its Nb bosonic
-substeps included), the end (ΔH, the Metropolis test, the masked state
+trajectory step from a solved z to the next solve's start (its Nb bosonic
+substeps included; 2MN's middle of a step, between its two solves, a
+segment of its own), the end (ΔH, the Metropolis test, the masked state
 update). On a CUDA field each segment is captured once as a CUDA graph and
 replayed; the host keeps the loop control (CG's ``any(active)`` before a
 block, the verification's ``any(bad)`` and its rare retry, run eagerly).
@@ -49,7 +51,7 @@ On the CPU the segments run directly, doing the eager update's arithmetic
 in its order. The model's derived state (Holstein's ``expnV``, SSH's
 ``SSHDerived`` tables) and the KPM state, SSH's per-chain τ-means and
 dense Ā included, are copied into the workspace's tensors in place. Every
-other configuration (2MN, block CG, deflation, BiCGStab / GMRES, the KPM
+other configuration (block CG, deflation, BiCGStab / GMRES, the KPM
 ``exact_lowfreq`` blocks, a site shard), and a caller that asks for it by
 name (``eager=True``), runs the eager update. Under complex hopping the
 workspace holds the packed complex pseudofermions, φ, Λφ and the
@@ -246,7 +248,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     update at the starting field and used by every solve of the update.
 
     ``eager`` asks for the eager update where the graphed one (module
-    docstring: the one-rank leapfrog CG update of either model) would run.
+    docstring: the CG update of either model and integrator without a site
+    shard) would run.
     ``step.segmented`` says whether the configuration takes the graphed
     update (on a real field or under complex hopping);
     ``step.workspace()`` is its
@@ -460,14 +463,14 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
-    # --- the graphed update: the leapfrog CG update of a one-rank field
-    # (Holstein or SSH, real or complex hopping) as a fixed sequence of
-    # segments over one workspace (dynamics/graphs.py), replayed as CUDA graphs on a CUDA field and
-    # called directly on the CPU. Each segment does the eager update's
-    # arithmetic in the eager update's order.
-    segmented = (not eager and ops.shard is None
-                 and cfg.integrator == "leapfrog" and cfg.solver_kind == "cg" and not cfg.block
+    # --- the graphed update: the CG update of a field without a site shard
+    # (leapfrog or 2MN; Holstein or SSH, real or complex hopping) as a
+    # fixed sequence of segments over one workspace (dynamics/graphs.py),
+    # replayed as CUDA graphs on a CUDA field and called directly on the
+    # CPU. Each segment does the eager update's arithmetic in its order.
+    segmented = (not eager and ops.shard is None and cfg.solver_kind == "cg" and not cfg.block
                  and cfg.deflate_k <= 0 and graphs.graphable_precond(precond))
+    two_mn = cfg.integrator == "2mn"
     box: dict = {}
     cg = graphs.CGSolve(ops, precond, cfg.maxiter, cfg.kappa_max, cfg.loop_precision,
                         rhs="Lphi", stacked=True)
@@ -507,27 +510,57 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         ws.put("Lphi", lam_phi(p, x0, phi))
         solve_setup(ws, x0, None, tol2)
 
-    def pre_step(ws):
-        """A leapfrog step up to its solve's start: the half kick, the drift,
-        the derived state and Λφ at the new field, the warm-start guess."""
-        p, dt = ws.params, step_dt(ws)
-        ws.put("ok", ws.flag == 0)
-        v1 = ws.v - dt / 2 * ws.QdSdx
-        x1, v1 = drift(p, accel(ws.x0), ws.x, v1, dt)
+    def start_solve_at(ws, x1, v1):
+        """The trajectory solve at the drifted field: the derived state and
+        Λφ there, the warm-start guess from the history."""
         ws.put("x1", x1)
         ws.put("v1", v1)
-        ws.put("env", ops.derived(p, x1))
-        ws.put("Lphi", lam_phi(p, x1, ws.phi))
+        ws.put("env", ops.derived(ws.params, ws.x1))
+        ws.put("Lphi", lam_phi(ws.params, ws.x1, ws.phi))
         solve_setup(ws, ws.x1, zhist_guess(hist(ws), g_ord), tol1)
 
+    def pre_step(ws):
+        """A trajectory step up to its (first) solve's start: leapfrog's half
+        kick and drift over dt, or 2MN's λ-kick and drift over dt/2."""
+        p, dt = ws.params, step_dt(ws)
+        ws.put("ok", ws.flag == 0)
+        if two_mn:
+            v1 = ws.v - LAM_2MN * dt * ws.QdSdx
+            x1, v1 = drift(p, accel(ws.x0), ws.x, v1, dt / 2)
+        else:
+            v1 = ws.v - dt / 2 * ws.QdSdx
+            x1, v1 = drift(p, accel(ws.x0), ws.x, v1, dt)
+        start_solve_at(ws, x1, v1)
+
+    def seg_mid(ws):
+        """2MN's middle of a step, from the first solve's z: the force, the
+        history, the middle kick, the second drift over dt/2 and the second
+        solve's start."""
+        p, dt = ws.params, step_dt(ws)
+        z_m = ws.cg.x
+        it_m, fl_m = chain_result(ws)
+        Qd_m = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z_m))
+        for i, h in enumerate(zhist_push(hist(ws), z_m, ws.ok)):
+            ws.put(f"hist{i}", h)
+        ws.put("it_m", it_m)
+        ws.put("fl_m", fl_m)
+        v1 = ws.v1 - (1.0 - 2.0 * LAM_2MN) * dt * Qd_m
+        x1, v1 = drift(p, accel(ws.x0), ws.x1, v1, dt / 2)
+        start_solve_at(ws, x1, v1)
+
     def post_step(ws):
-        """A leapfrog step from its solved z: the force, the half kick, the
-        warm-start history and the masked commit."""
+        """A trajectory step from its (last) solved z: the force, the closing
+        kick (leapfrog's half kick, 2MN's λ-kick), the warm-start history and
+        the masked commit."""
         p, dt = ws.params, step_dt(ws)
         z1 = ws.cg.x
         it1, fl1 = chain_result(ws)
         Qd1 = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z1))
-        v1 = ws.v1 - dt / 2 * Qd1
+        if two_mn:
+            v1 = ws.v1 - LAM_2MN * dt * Qd1
+            it1, fl1 = ws.it_m + it1, torch.maximum(ws.fl_m, fl1)
+        else:
+            v1 = ws.v1 - dt / 2 * Qd1
         for i, h in enumerate(zhist_push(hist(ws), z1, ws.ok)):
             ws.put(f"hist{i}", h)
         okb = ws.ok[:, None, None]
@@ -591,7 +624,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         Pacc = torch.minimum(torch.ones_like(dH), torch.exp(-dH))
         accept = (ws.uniform.to(Pacc) < Pacc) & (flag == 0)
         acc = accept[:, None, None]
-        nsolves = cfg.Nt + 2
+        nsolves = (2 * cfg.Nt if two_mn else cfg.Nt) + 2
         for name, val in (("out_x", torch.where(acc, ws.x, ws.x0)),
                           ("out_v", torch.where(acc, ws.v, -ws.v0)), ("accepted", accept),
                           ("mean_iters", (iters + nsolves // 2) // nsolves),
@@ -604,6 +637,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         each stop after one CG block (the warm-up and the capture order)."""
         seq = [("start", lambda: seg_start(ws)), *cg.segments(ws, tol2),
                ("first", lambda: seg_first(ws)), *cg.segments(ws, tol1)]
+        if two_mn:
+            seq += [("mid", lambda: seg_mid(ws)), *cg.segments(ws, tol1)]
         if cfg.Nt > 1:
             seq += [("step", lambda: seg_step(ws)), *cg.segments(ws, tol1)]
         return seq + [("last", lambda: seg_last(ws)), *cg.segments(ws, tol2),
@@ -635,10 +670,13 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         ws.run("start", lambda: seg_start(ws))
         cg.solve(ws, tol2)
         ws.run("first", lambda: seg_first(ws))
-        for _ in range(cfg.Nt - 1):
+        for k in range(cfg.Nt):
             cg.solve(ws, tol1)
-            ws.run("step", lambda: seg_step(ws))
-        cg.solve(ws, tol1)
+            if two_mn:
+                ws.run("mid", lambda: seg_mid(ws))
+                cg.solve(ws, tol1)
+            if k + 1 < cfg.Nt:
+                ws.run("step", lambda: seg_step(ws))
         ws.run("last", lambda: seg_last(ws))
         cg.solve(ws, tol2)
         ws.run("end", lambda: seg_end(ws))

@@ -19,7 +19,8 @@ Random draws are explicit, as in :mod:`.hmc`: a step takes optional
 field's device, first η and then one ``g`` per force evaluation in the
 order the forces are evaluated.
 
-The one-rank step with CG, real or complex hopping (no preconditioner, or
+The step with CG on one rank or a chain rank's block (the whole batch's
+draws cut to it), real or complex hopping (no preconditioner, or
 KPM without the exact low-frequency blocks) is a fixed sequence of segments
 over one workspace (:mod:`.graphs`), as the HMC update is: the start (η
 tied, the step's full KPM setup, the derived state, b = Mᵀg₀ and the

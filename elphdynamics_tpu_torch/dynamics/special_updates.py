@@ -23,7 +23,8 @@ On a site-sharded model the picks are global sites and bonds: the rank
 that holds a site flips it, and a swapped row reaches the other rank by
 an all-reduce; the actions are summed over the ranks.
 
-On one rank, with a real field or under complex hopping (the packed
+On one rank or a chain rank's block, with shared or per-chain (tempering
+ladder) couplings, with a real field or under complex hopping (the packed
 complex pseudofermions ``[n_moves, C, 1, N, Lτ]``), and with no
 preconditioner or KPM without the exact low-frequency blocks, a call is a
 fixed sequence of segments over one workspace (:mod:`.graphs`), as the HMC

@@ -41,6 +41,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_oinv
 from elphdynamics_tpu_torch.dynamics.special_updates import _refresh_phi
 from elphdynamics_tpu_torch.models.adapter import ModelOps, global_sites, local_sites, site_sum
@@ -119,7 +120,7 @@ def target_mask(tcfg: TemperingConfig, n_chains: int) -> np.ndarray:
 
 
 def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, precond=None,
-                       chains=None):
+                       chains=None, eager: bool = False):
     """Build ``exchange(params, x, v, parity, generator=None, draws=None) ->
     (x, v, acc_rate, iters, flag)`` for ladder ``params`` (per-chain
     couplings, :func:`ladder_params`) and fields ``[C, Nph, Lτ]``;
@@ -130,7 +131,25 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
     With ``chains`` (this rank's :class:`..parallel.chains.ChainBlock` of
     the ``n_chains``) ``params`` hold its block's couplings
     (:func:`chain_params`), ``x`` and ``v`` its block, and the results are
-    its block of the exchanged fields; the draws stay the whole batch's."""
+    its block of the exchanged fields; the draws stay the whole batch's.
+
+    Without a site shard, with CG and a graphable preconditioner
+    (:func:`.graphs.graphable_precond`), the exchange is a fixed sequence of
+    segments over one workspace (:mod:`.graphs`), replayed as CUDA graphs on
+    a CUDA field and called directly on the CPU, each doing the eager
+    exchange's arithmetic in its order: ``first`` (φ and S₀), ``cross``
+    (the partners' Λφ, the derived state and full KPM setup at their x, the
+    tol solve's start from zero), the solve's CG blocks and verification,
+    ``actions`` (S_cross − S₀, iterations, flags) and ``decide`` (the
+    Metropolis test, the permuted block of x and v, the accepted share). On
+    chain ranks the gathers of x, v and φ and of the ``[C]`` values run
+    eagerly between replays (:meth:`.graphs.Workspace.collective`); on one
+    rank there are none, and ``first`` + ``cross`` and ``actions`` +
+    ``decide`` are one segment each. The pair parity is no graph's: both
+    parities' partner tables sit on the device and the attempt's is copied
+    into a fixed slot, so one graph set serves both. ``eager`` asks for the
+    eager exchange; ``exchange.segmented`` and ``exchange.workspace()`` as
+    for the HMC update."""
     K = len(tcfg.ladder)
     M = n_chains // K
     scfg = SolverConfig(tol=tcfg.tol, maxiter=tcfg.maxiter)
@@ -148,18 +167,38 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
         upper = (rel % 2 == 1) & (rung - 1 >= 0) & (rel - 1 >= 0)
         return torch.where(lower, chain + M, torch.where(upper, chain - M, chain)), lower
 
-    def exchange(params, x, v, parity: int, generator: torch.Generator | None = None,
-                 draws: ExchangeDraws | None = None):
-        if x.shape[0] != n:
-            raise ValueError(f"x holds {x.shape[0]} chains, the exchange {n}")
-        if draws is None:
-            # a site-sharded model draws every site's and keeps its block
-            draws = ExchangeDraws(
-                pseudofermion=local_sites(ops, pseudofermion_noise(
-                    (n_chains, global_sites(ops), ops.Ltau), field_dtype(params, x.dtype),
-                    x.device, generator)),
-                uniform=torch.rand((n_chains,), generator=generator, dtype=torch.float64,
-                                   device=x.device))
+    def draw(params, x, generator=None) -> ExchangeDraws:
+        """The draws of one exchange of every chain (a site-sharded model
+        draws every site's and keeps its block)."""
+        return ExchangeDraws(
+            pseudofermion=local_sites(ops, pseudofermion_noise(
+                (n_chains, global_sites(ops), ops.Ltau), field_dtype(params, x.dtype),
+                x.device, generator)),
+            uniform=torch.rand((n_chains,), generator=generator, dtype=torch.float64,
+                               device=x.device))
+
+    def cross_action(params, xp, Lphi, z):
+        """Each chain's action at its partner's field from the solve's z."""
+        return (site_sum(ops, fdot(Lphi, z, dim=(1, -2, -1))) / 2
+                + ops.calc_Sb(params, xp, False))
+
+    def decide(partner, lower, half, iters, flag, u, x_all, v_all):
+        """The Metropolis test of every pair on the gathered ``[C]`` values,
+        this rank's block of the permuted fields and the accepted share."""
+        dS = half + half[partner]                 # the same on both members
+        chain = torch.arange(n_chains, device=half.device)
+        paired = partner != chain
+        u = u.to(dtype=dS.dtype)
+        u_pair = torch.where(lower, u, u[partner])
+        accept = paired & (flag == 0) & (flag[partner] == 0) & (u_pair < torch.exp(-dS))
+        sel = torch.where(accept, partner, chain)
+        n_pairs = torch.clamp((paired & lower).sum(), min=1)
+        acc_rate = (accept & lower).sum().to(torch.float64) / n_pairs
+        keep = sel[lo:lo + n]
+        return (x_all[keep], v_all[keep], acc_rate, iters.to(torch.float64).mean(),
+                flag.max())
+
+    def eager_exchange(params, x, v, parity: int, draws: ExchangeDraws):
         phi, S0 = _refresh_phi(ops, params, x, draws.pseudofermion[lo:lo + n].to(x.device))
         partner, lower = partners(parity, x.device)
         x_all, v_all, phi_all = gather(x), gather(v), gather(phi)
@@ -172,22 +211,131 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
                 if ops.calc_Lambda is not None else phip)
         sol = solve_oinv(ops, params, ops.stack(ops.derived(params, xp)), Lphi, scfg,
                          resolve_precond(precond, params, xp))
-        S_cross = (site_sum(ops, fdot(Lphi, sol.x, dim=(1, -2, -1))) / 2
-                   + ops.calc_Sb(params, xp, False))
+        S_cross = cross_action(params, xp, Lphi, sol.x)
         ns = sol.iters.shape[1]
         half, iters, flag = (gather(t) for t in (S_cross - S0,
                                                  (sol.iters.sum(dim=1) + ns - 1) // ns,
                                                  sol.flag.amax(dim=1)))
-        dS = half + half[partner]                 # the same on both members
-        paired = partner != torch.arange(n_chains, device=x.device)
-        u = draws.uniform.to(device=x.device, dtype=dS.dtype)
-        u_pair = torch.where(lower, u, u[partner])
-        accept = paired & (flag == 0) & (flag[partner] == 0) & (u_pair < torch.exp(-dS))
-        sel = torch.where(accept, partner, torch.arange(n_chains, device=x.device))
-        n_pairs = torch.clamp((paired & lower).sum(), min=1)
-        acc_rate = (accept & lower).sum().to(torch.float64) / n_pairs
-        keep = sel[lo:lo + n]
-        return (x_all[keep], v_all[keep], acc_rate, iters.to(torch.float64).mean(),
-                flag.max())
+        return decide(partner, lower, half, iters, flag,
+                      draws.uniform.to(device=x.device), x_all, v_all)
 
+    # --- the segmented exchange (see the docstring)
+    segmented = (not eager and ops.shard is None and graphs.graphable_precond(precond))
+    box: dict = {}
+    tables: dict = {}
+    cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
+                        rhs="Lphi", stacked=True)
+
+    def pair_tables(device):
+        """Both parities' partner and lower-member tables, on the device."""
+        return graphs.made_once(tables, device, lambda: tuple(
+            torch.stack(t) for t in zip(*(partners(q, device) for q in (0, 1)))),
+            "the exchange's pair tables")
+
+    def fields(ws):
+        """Every chain's x, v and φ: the gathered copies on chain ranks, the
+        rank's own on one rank."""
+        if chains is None:
+            return ws.x, ws.v, ws.phi
+        return ws.x_all, ws.v_all, ws.phi_all
+
+    def seg_first(ws):
+        """φ and S₀ at the rank's x (:func:`_refresh_phi`)."""
+        phi, S0 = _refresh_phi(ops, ws.params, ws.x, ws.R)
+        ws.put("phi", phi)
+        ws.put("S0", S0)
+
+    def gather_fields(ws):
+        for name in ("x", "v", "phi"):
+            ws.put(f"{name}_all", gather(getattr(ws, name)))
+
+    def seg_cross(ws):
+        """The partners' x and Λφ, the derived state and the full KPM setup
+        at their x, and the tol solve's start from zero."""
+        p = ws.params
+        x_all, _, phi_all = fields(ws)
+        mine = ws.partner[lo:lo + n]
+        xp = ws.put("xp", x_all[mine])
+        phip = phi_all[mine]
+        ws.put("env", ops.derived(p, xp))
+        ws.put("Lphi", ops.mulLambda(ops.calc_Lambda(p, xp)[:, None], phip)
+               if ops.calc_Lambda is not None else phip)
+        if precond is not None:
+            ws.load("kpm", precond.setup(p, xp, ws.kpm_start))
+        cg.start(ws, scfg.tol)
+
+    def seg_actions(ws):
+        """S_cross − S₀, the mean iterations and the largest flag per chain."""
+        ns = ws.cg.iters.shape[1]
+        ws.put("half", cross_action(ws.params, ws.xp, ws.Lphi, ws.cg.x) - ws.S0)
+        ws.put("iters", (ws.cg.iters.sum(dim=1) + ns - 1) // ns)
+        ws.put("flag", ws.verdict.flag.amax(dim=1))
+
+    def gather_values(ws):
+        for name in ("half", "iters", "flag"):
+            ws.put(f"{name}_all", gather(getattr(ws, name)))
+
+    def seg_decide(ws):
+        x_all, v_all, _ = fields(ws)
+        vals = ((ws.half, ws.iters, ws.flag) if chains is None
+                else (ws.half_all, ws.iters_all, ws.flag_all))
+        for name, val in zip(("out_x", "out_v", "rate", "mean_iters", "max_flag"),
+                             decide(ws.partner, ws.lower, *vals, ws.u, x_all, v_all)):
+            ws.put(name, val)
+
+    def segments(ws):
+        """Every segment once (and the gathers between them on chain ranks),
+        in the order of an exchange whose solve stops after one CG block
+        (the warm-up and the capture order)."""
+        if chains is None:
+            return [("start", lambda: (seg_first(ws), seg_cross(ws))),
+                    *cg.segments(ws, scfg.tol),
+                    ("end", lambda: (seg_actions(ws), seg_decide(ws)))]
+        return [("first", lambda: seg_first(ws)), graphs.between(lambda: gather_fields(ws)),
+                ("cross", lambda: seg_cross(ws)), *cg.segments(ws, scfg.tol),
+                ("actions", lambda: seg_actions(ws)), graphs.between(lambda: gather_values(ws)),
+                ("decide", lambda: seg_decide(ws))]
+
+    def segmented_exchange(params, x, v, parity: int, draws: ExchangeDraws):
+        ws = graphs.step_workspace(box, params, x)
+        dev = x.device
+        partner, lower = pair_tables(dev)
+        ws.put("partner", partner[parity])
+        ws.put("lower", lower[parity])
+        ws.put("x", x)
+        ws.put("v", v)
+        ws.put("R", draws.pseudofermion[lo:lo + n].to(dev))
+        ws.put("u", draws.uniform.to(device=dev))
+        if precond is not None:
+            ws.put_start(precond.start)
+        ws.capture_once(lambda: segments(ws))
+        if chains is None:
+            ws.run("start", lambda: (seg_first(ws), seg_cross(ws)))
+            cg.solve(ws, scfg.tol)
+            ws.run("end", lambda: (seg_actions(ws), seg_decide(ws)))
+        else:
+            ws.run("first", lambda: seg_first(ws))
+            ws.collective(lambda: gather_fields(ws))
+            ws.run("cross", lambda: seg_cross(ws))
+            cg.solve(ws, scfg.tol)
+            ws.run("actions", lambda: seg_actions(ws))
+            ws.collective(lambda: gather_values(ws))
+            ws.run("decide", lambda: seg_decide(ws))
+        return (ws.out_x.clone(), ws.out_v.clone(), ws.rate.clone(), ws.mean_iters.clone(),
+                ws.max_flag.clone())
+
+    def exchange(params, x, v, parity: int, generator: torch.Generator | None = None,
+                 draws: ExchangeDraws | None = None):
+        if x.shape[0] != n:
+            raise ValueError(f"x holds {x.shape[0]} chains, the exchange {n}")
+        if draws is None:
+            draws = draw(params, x, generator)
+        if segmented:
+            return segmented_exchange(params, x, v, parity, draws)
+        return eager_exchange(params, x, v, parity, draws)
+
+    exchange.draw = draw
+    exchange.n_chains, exchange.chains = n_chains, chains
+    exchange.segmented = segmented
+    exchange.workspace = lambda: box.get("ws")
     return exchange

@@ -194,7 +194,8 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     (``step.draw(params, x, generator)`` draws them as a call does).
     ``step.analyze(params, x, gd)`` is everything after the solves.
 
-    On one rank, with CG (``scfg.block`` off), on a real field or under
+    On one rank or a chain rank (its block, or the gathered rung-0 chains
+    under tempering), with CG (``scfg.block`` off), on a real field or under
     complex hopping, and with no preconditioner or KPM without the exact
     low-frequency blocks, a call is a fixed sequence of segments over one
     workspace (``dynamics/graphs.py``),

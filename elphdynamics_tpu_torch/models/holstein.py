@@ -45,6 +45,7 @@ from elphdynamics_tpu_torch.ops import checkerboard as ckb
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.utils.device import require_device
 from elphdynamics_tpu_torch.utils.dtypes import complex_of, fsum
+from elphdynamics_tpu_torch.utils.math import add_plan, ordered_add
 
 
 @dataclass(frozen=True)
@@ -420,16 +421,21 @@ def muldMdx(spec: HolsteinSpec, p: HolsteinParams, env, x, u, v):
 # ---------------------------------------------------------------------------
 
 def _wij_tables(spec: HolsteinSpec, like):
-    """The dispersive pairs' site indices ``i``, ``j`` and signs ``[Nwij, 1]``
-    on ``like``'s device, uploaded once per device and dtype and kept in the
-    checkerboard spec's cache (a captured update reads them, never uploads)."""
+    """The dispersive pairs' site indices ``i``, ``j``, signs ``[Nwij, 1]``
+    and the fixed-order plan of their force sum (:func:`..utils.math.add_plan`
+    of the sources ``[i side; j side]``) on ``like``'s device, uploaded once
+    per device and dtype and kept in the checkerboard spec's cache (a
+    captured update reads them, never uploads)."""
     key = ("wij_tables", str(like.device), like.dtype)
     hit = spec.ckb._cache.get(key)
     if hit is None:
+        members, valid = add_plan(np.concatenate(spec.wij_table[:2]), spec.Nsites)
         hit = spec.ckb._cache[key] = (
             torch.as_tensor(spec.wij_table[0], device=like.device),
             torch.as_tensor(spec.wij_table[1], device=like.device),
-            torch.as_tensor(spec.wij_sign, dtype=like.dtype, device=like.device)[:, None])
+            torch.as_tensor(spec.wij_sign, dtype=like.dtype, device=like.device)[:, None],
+            torch.as_tensor(members, device=like.device),
+            torch.as_tensor(valid[:, :, None], device=like.device))
     return hit
 
 
@@ -450,7 +456,7 @@ def calc_Sb(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
             total = total + spec.shard.wij_sb(p.wij, spec.wij_sign, x)
         return spec.dtau * spec.shard.sum(total)
     if spec.wij_table.shape[1] > 0:
-        i, j, sgn = _wij_tables(spec, x)
+        i, j, sgn = _wij_tables(spec, x)[:3]
         pair = x.index_select(-2, i) + sgn * x.index_select(-2, j)
         total = total + ((p.wij ** 2)[:, None] * pair * pair / 2).sum(dim=(-2, -1))
     return spec.dtau * total
@@ -468,10 +474,13 @@ def calc_dSbdx(spec: HolsteinSpec, p: HolsteinParams, x, shifted: bool = False):
     if spec.shard is not None and spec.wij_table.shape[1] > 0:
         return spec.shard.wij_dsb(p.wij, spec.wij_sign, spec.dtau, x, d)
     if spec.wij_table.shape[1] > 0:
-        i, j, sgn = _wij_tables(spec, x)
+        # each site adds its pairs' terms in a fixed order (its i-side pairs,
+        # then its j-side ones): a site that ends several pairs would make an
+        # index_add an atomic sum in no fixed order on the card
+        i, j, sgn, members, valid = _wij_tables(spec, x)
         w2 = (p.wij ** 2)[:, None]
         pair = spec.dtau * w2 * (x.index_select(-2, i) + sgn * x.index_select(-2, j))
-        d = d.index_add(-2, i, pair).index_add(-2, j, sgn * pair)
+        d = ordered_add(d, torch.cat([pair, sgn * pair], dim=-2), members, valid)
     return d
 
 

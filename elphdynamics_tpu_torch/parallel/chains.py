@@ -6,9 +6,12 @@ update on them: the chains are independent, so no rank waits on another
 inside an update. Random numbers are drawn for the whole batch from the
 generator every rank holds in the same state, and each rank keeps its
 block (:meth:`ChainBlock.wrap`), so a chain's trajectory is the one-rank
-run's bit for bit. Per-chain statistics, measurement increments and the
-fields are gathered (:meth:`ChainBlock.gather`) where the driver needs
-every chain: the logs, the bins, the checkpoint.
+run's bit for bit. The wrapped update is the one-card one, graphed or
+eager: a chain rank's update holds no collective, so its CUDA graphs are
+the one-rank graphs at the block's shape. Per-chain statistics,
+measurement increments and the fields are gathered
+(:meth:`ChainBlock.gather`) where the driver needs every chain: the logs,
+the bins, the checkpoint.
 """
 
 from __future__ import annotations
@@ -74,4 +77,8 @@ class ChainBlock:
             draws = update.draw(params, x, self.total, generator)
             return update(params, state, *args, draws=self.local(draws, draws_dim))
 
+        # a graphed update stays inspectable through the wrapper
+        for name in ("segmented", "workspace"):
+            if hasattr(update, name):
+                setattr(run, name, getattr(update, name))
         return run

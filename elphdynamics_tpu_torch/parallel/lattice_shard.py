@@ -50,6 +50,7 @@ import torch
 from elphdynamics_tpu_torch.ops.checkerboard import CheckerboardSpec, _site_coeffs
 from elphdynamics_tpu_torch.parallel.comm import allreduce_sum, halo_exchange
 from elphdynamics_tpu_torch.parallel.multihost import all_gather
+from elphdynamics_tpu_torch.utils.math import add_plan, ordered_add
 
 
 @dataclass(frozen=True)
@@ -386,6 +387,12 @@ class SiteShard:
                 name: torch.as_tensor(getattr(w, name)[d], device=device)
                 for name in ("send_next", "send_prev", "row_i", "ext_j", "k_i", "mask_i",
                              "row_j", "ext_i", "k_j", "mask_j")}
+            # the fixed order of the force's adds onto this rank's rows: the
+            # i side's pairs, then the j side's
+            members, valid = add_plan(np.concatenate([w.row_i[d], w.row_j[d]]), self.B,
+                                      np.concatenate([w.mask_i[d], w.mask_j[d]]))
+            tabs["members"] = torch.as_tensor(members, device=device)
+            tabs["valid"] = torch.as_tensor(valid[:, :, None], device=device)
         return tabs
 
     def _wij_sides(self, wij, wij_sign, x):
@@ -412,13 +419,14 @@ class SiteShard:
 
     def wij_dsb(self, wij, wij_sign, dtau: float, x, d):
         """``d`` plus the ωᵢⱼ force on this rank's rows: Δτ·ω²·(xᵢ ± xⱼ) on
-        the i side, ±Δτ·ω²·(xᵢ ± xⱼ) on the j side."""
+        the i side, ±Δτ·ω²·(xᵢ ± xⱼ) on the j side, each row's terms added
+        in a fixed order (:func:`..utils.math.ordered_add`)."""
+        terms = []
         for side, (rows, m, kk, sgn, pair) in enumerate(self._wij_sides(wij, wij_sign, x)):
             g = dtau * (wij ** 2)[kk][:, None] * pair
-            if side == 1:
-                g = sgn * g
-            d = d.index_add(-2, rows, torch.where(m, g, torch.zeros_like(g)))
-        return d
+            terms.append(sgn * g if side == 1 else g)
+        t = self._wij_tables(x.device)
+        return ordered_add(d, torch.cat(terms, dim=-2), t["members"], t["valid"])
 
 
 def shard_holstein(spec, params, shard: SiteShard):

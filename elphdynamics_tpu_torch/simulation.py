@@ -37,6 +37,8 @@ one of them):
   its block of chains (:class:`.parallel.chains.ChainBlock`), the draws
   made for the whole batch and cut to the block, and the per-chain
   statistics, increments and fields gathered where every chain is needed;
+  on a card its update, moves, measurement and exchange replay CUDA graphs
+  as one rank's do (:mod:`.dynamics.graphs`), the gathers between replays;
 * ``site_devices`` ranks shard the lattice: every rank runs the same
   samplers on its block of sites (:mod:`.parallel.lattice_shard`; SSH's
   bond field stays whole on every rank), and the measurements gather the
@@ -51,10 +53,11 @@ one of them):
 
 Tempering runs on every layout; across chain ranks the exchange gathers
 the partners' fields over the chain group and takes the one-rank run's
-decisions. Every rank runs the same loop and reaches every collective; the
-files (datafolder, logs, bins, summary, checkpoint) are written by rank 0
-only, and every host decision comes from values equal on every rank that
-shares a collective. Under site sharding the near-null preconditioner, 2MN
+decisions. A site-sharded layout runs every part eagerly (its collectives
+sit inside every solve). Every rank runs the same loop and reaches every
+collective; the files (datafolder, logs, bins, summary, checkpoint) are
+written by rank 0 only, and every host decision comes from values equal on
+every rank that shares a collective. Under site sharding the near-null preconditioner, 2MN
 and BiCGStab / GMRES raise ``NotImplementedError`` (:func:`check_parallel`).
 """
 
@@ -526,13 +529,14 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     hmc = setup.dynamics_type == "hmc"
     bcfg = setup.hmc_burnin_cfg
     tuned_step = tuner = None
-    # tempering and every multi-rank layout keep the eager update, moves and
-    # measurement; elsewhere on the card the one-rank leapfrog CG update or
-    # CG Langevin step (Holstein or SSH, real or complex hopping), the
-    # reflection and swap moves and the CG measurement replay CUDA graphs
-    # (dynamics/graphs.py; each builder keeps the eager form for what its
-    # graphs do not cover)
-    eager = tcfg is not None or par.shard is not None or par.chains is not None
+    # a site-sharded layout keeps the eager update, moves, measurement and
+    # exchange (its collectives run inside every solve); elsewhere on the
+    # card, one rank or a chain rank, under tempering too, the CG update
+    # (leapfrog or 2MN) or CG Langevin step (Holstein or SSH, real or
+    # complex hopping), the reflection and swap moves, the CG measurement
+    # and the tempering exchange replay CUDA graphs (dynamics/graphs.py; each
+    # builder keeps the eager form for what its graphs do not cover)
+    eager = par.shard is not None
     if hmc:
         sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)
         burnin_step = (sim_step if bcfg == setup.hmc_cfg
@@ -630,7 +634,8 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
         # a resumed run loaded the per-chain couplings from its checkpoint
         if not resume:
             params = ladder_params(params, tcfg, n_chains)
-        exchange = make_exchange_step(ops, tcfg, n_chains, precond, chains=par.chains)
+        exchange = make_exchange_step(ops, tcfg, n_chains, precond, chains=par.chains,
+                                      eager=eager)
         n_meas_chains = n_chains // len(tcfg.ladder)
         sim_stats.setdefault("tempering_acceptance_rate", 0.0)
         logger.info("parallel tempering: ladder=%s freq=%d (%d chains/rung)",
@@ -843,6 +848,8 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     sim_stats["graph_replays"] = {"update": _replays(sim_step, burnin_step, tuned_step),
                                   "reflect": _replays(reflect), "swap": _replays(swap),
                                   "measurement": _replays(mstep)}
+    if exchange is not None:
+        sim_stats["graph_replays"]["exchange"] = _replays(exchange)
     total = sp.burnin + sp.nsteps
     sim_stats["iters"] /= max(total, 1)
     sim_stats["acceptance_rate"] /= max(total, 1)

@@ -6,7 +6,8 @@ card.
                                                [--blocks K,K,...]
 
 with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_8x8,
-ssh_64x64, twisted_64x64, ssh_twisted_64x64, langevin_64x64,
+ssh_64x64, twisted_64x64, ssh_twisted_64x64, kernel_2mn_64x64,
+tempering_64x64, langevin_64x64,
 ssh_langevin_64x64, twisted_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
 measure_bond_64x64, driver_4x4, driver_ssh_4x4, driver_64x64,
 driver_ssh_64x64, driver_twisted_4x4, driver_ssh_twisted_4x4,
@@ -19,11 +20,12 @@ real and complex hopping alike).
 ``--timed N`` times N more runs after the warm-up, without the profiler
 (host clock, each run ended by a synchronisation), and for an HMC driver
 step each part apart (``parts``: the update, the reflection and swap
-calls, the measurement with its chain mean and container add, each ended
-by a synchronisation), then one bin's post-processing and text files
-(``bin_s``, written to a temporary folder, with the file's updates per
-bin); ``--no-profile`` stops there (the profiler's cost per recorded event
-makes an eager stock SSH step take many minutes). A driver step's
+calls, the measurement, and its chain mean and container add as the
+driver makes them (``accumulate``), each ended by a synchronisation),
+then one bin's post-processing and text files (``bin_s``, written to a
+temporary folder, with the file's updates per bin); ``--no-profile``
+stops there (the profiler's cost per recorded event makes an eager stock
+SSH step take many minutes). A driver step's
 timed line also gives the peak allocated and reserved device memory of
 the process and each graphed part's pool; a step that runs out of device
 memory prints the error on a ``[CONFIG] out_of_memory`` line and exits 1.
@@ -45,7 +47,9 @@ memory is reported and dropped.
 ``bench_8x8``, ``bench_32x32``, ``kernel_64x64``, ``ssh_8x8`` (the optical
 SSH model, 64 chains, dense Ā) and ``ssh_64x64`` (8 chains) are the HMC
 updates of ``bench.py``, ``twisted_64x64`` and ``ssh_twisted_64x64`` its
-twisted-boundary (complex hopping) updates; ``langevin_64x64``,
+twisted-boundary (complex hopping) updates, ``kernel_2mn_64x64`` its 2MN
+update and ``tempering_64x64`` its laddered update (per-chain couplings;
+the exchange: ``tools/profile_torch_deep.py tempering_64x64``); ``langevin_64x64``,
 ``ssh_langevin_64x64`` and ``twisted_langevin_64x64`` one Runge-Kutta
 Langevin step of its Langevin configurations; ``gmres_64x64`` one GMRES
 solve of M·z = r for nᵥ = 10 probes per chain on the ``langevin_64x64``
@@ -106,7 +110,9 @@ HMC_CONFIGS = {"bench_8x8": bench.BENCH_8X8, "bench_32x32": bench.BENCH_32X32,
                "kernel_64x64": bench.KERNEL_64X64, "ssh_8x8": bench.SSH_8X8,
                "ssh_64x64": bench.SSH_64X64,
                "twisted_64x64": bench.TWISTED_64X64,
-               "ssh_twisted_64x64": bench.SSH_TWISTED_64X64}
+               "ssh_twisted_64x64": bench.SSH_TWISTED_64X64,
+               "kernel_2mn_64x64": bench.KERNEL_2MN_64X64,
+               "tempering_64x64": bench.TEMPERING_64X64}
 LANGEVIN_CONFIGS = {"langevin_64x64": bench.LANGEVIN_64X64,
                     "ssh_langevin_64x64": bench.SSH_LANGEVIN_64X64,
                     "twisted_langevin_64x64": bench.TWISTED_LANGEVIN_64X64}
@@ -368,11 +374,13 @@ def _driver_step(example: str, eager: bool, wide: bool, chains: int):
         x, _ = ex.swap(params, x, gen)
         lap("swap")
         inc, mstats, snaps = ex.measure(params, x, gen)
+        lap("measurement")
+        # the driver's chain mean and bin accumulation (simulation._run)
         inc, _ = M.mean_over_chains(inc, snaps, mstats["flag"])
         for group, vals in container.items():
             for k, a in vals.items():
                 a.add_(inc[group][k])
-        lap("measurement")
+        lap("accumulate")
         box["state"] = HMCState(x=x, v=state.v)
         box["update_s"], box["parts"] = parts["update"], parts
         return stats.iters

@@ -510,3 +510,160 @@ def layout_whole(ranks: list, run: str, field: str, n_chain: int, n_site: int,
         parts = [ranks[b * n_site + s][run][field] for s in range(n_site)]
         rows.append(np.concatenate(parts, axis=-2) if site_axis else parts[0])
     return np.concatenate(rows, axis=0)
+
+
+# --- the graphed chain-batched calls (dynamics/graphs.py) on chain ranks ----
+
+def _same(a, b) -> bool:
+    """Two results (tensors, or tuples / dicts / dataclasses of them) equal
+    bit for bit."""
+    import dataclasses
+
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if dataclasses.is_dataclass(a):
+        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(p, q) for p, q in zip(a, b))
+    return a == b
+
+
+def graph_chains_worker(device, n_chains: int = 4):
+    """On this rank's block of ``n_chains`` chains (every chain on one
+    rank), from generators every rank seeds alike, each call in its
+    segmented form and in its eager form (asked for by name) on the same
+    draws: two leapfrog updates, two 2MN updates, two updates and an
+    exchange of each parity under a 2-rung ladder (4×4 Holstein, Lτ = 10),
+    an RK Langevin step, the reflection and swap moves, the measurement
+    with injected probes and the measurement of the gathered rung-0 chains.
+    Per call: whether the two forms agree bit for bit (host reads
+    included), the segmented form's results on the rank's block, its host
+    reads and the eager steps between its replays."""
+    from elphdynamics_tpu_torch import bench, solvers
+    from elphdynamics_tpu_torch.dynamics import graphs
+    from elphdynamics_tpu_torch.dynamics.special_updates import (
+        SpecialUpdateConfig, make_reflection_update, make_swap_update)
+    from elphdynamics_tpu_torch.dynamics.tempering import rung_params
+    from elphdynamics_tpu_torch.measure import measurements as M
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+    from elphdynamics_tpu_torch.utils.dtypes import trace_noise
+
+    world = multihost.world()
+    cb = ChainBlock.of(n_chains, world, multihost.rank()) if world > 1 else None
+
+    def local(t):
+        return t if cb is None else cb.local(t)
+
+    def gather(t):
+        return t if cb is None else cb.gather(t)
+
+    def on_block(f, draws_dim: int = 0):
+        """``f(params, state, *args, generator)`` on this rank's chains, the
+        whole batch's draws cut to them."""
+        if cb is None:
+            return lambda p, s, *a, g: f(p, s, *a, g)
+        run = cb.wrap(f, draws_dim)
+        return lambda p, s, *a, g: run(p, s, *a, generator=g)
+
+    out = {}
+
+    def both(name, seg, eager, *args):
+        """``seg(*args, g=gen)`` and ``eager(*args, g=gen)`` from equal
+        generators, their host reads and eager steps counted; the
+        segmented form's result."""
+        res = []
+        for f in (seg, eager):
+            solvers.host_reads = graphs.collectives = 0
+            r = f(*args, g=torch.Generator().manual_seed(31))
+            res.append((r, solvers.host_reads, graphs.collectives))
+        out[name] = dict(same=_same(res[0][0], res[1][0]) and res[0][1] == res[1][1],
+                         reads=res[0][1], collectives=res[0][2])
+        return res[0][0]
+
+    for label, integrator, ladder in (("leapfrog", "leapfrog", None), ("2mn", "2mn", None),
+                                      ("tempering", "leapfrog", (1.0, 0.9))):
+        b = bench.build_bench_step(4, 1.0, 0.1, 0.05, n_chains, "cpu", torch.float64,
+                                   trajectory_time=0.15, integrator=integrator, ladder=ladder)
+        lb = bench.shard_bench_step(b, chains=cb) if cb is not None else b
+        eager = lb.eager()
+        assert lb.step.segmented and not eager.segmented
+        step = (lambda p, s, g: lb.step(p, s, g)) if cb is None else (
+            lambda p, s, g: lb.step(p, s, generator=g))
+        state = lb.state
+        for u in range(2):
+            state, stats = both(f"{label}_update{u}", step, on_block(eager), lb.params, state)
+            out[f"{label}_update{u}"].update(x=_np(state.x), v=_np(state.v),
+                                             accepted=_np(stats.accepted),
+                                             iters=_np(stats.iters), dH=_np(stats.delta_H))
+        if ladder is not None:
+            ex, ex_eager = lb.exchange, lb.eager_exchange()
+            assert ex.segmented and not ex_eager.segmented
+            x, v = state.x, state.v
+            for parity in (0, 1):
+                x, v, rate, iters, flag = both(
+                    f"exchange_p{parity}", lambda p, x_, v_, g: ex(p, x_, v_, parity, g),
+                    lambda p, x_, v_, g: ex_eager(p, x_, v_, parity, g), lb.params, x, v)
+                out[f"exchange_p{parity}"].update(x=_np(x), v=_np(v), rate=float(rate),
+                                                  iters=float(iters), flag=int(flag))
+            rung0 = (rung_params(b.params), gather(x)[:n_chains // len(ladder)])
+
+    lang = bench.build_langevin_step(4, 1.0, 0.1, 1e-3, n_chains, "cpu", torch.float64,
+                                     method="rk")
+    x, stats = both("langevin", on_block(lang.step), on_block(lang.eager()), lang.params,
+                    local(lang.x))
+    out["langevin"].update(x=_np(x), iters=_np(stats.iters))
+
+    b = bench.build_bench_step(4, 1.0, 0.1, 0.05, n_chains, "cpu", torch.float64,
+                               trajectory_time=0.15)
+    pre = bench.kpm.make_precond(b.ops, b.kpm_cfg)
+    x = local(b.state.x) + 0.1
+    ucfg = SpecialUpdateConfig(n_moves=3, tol=1e-5, maxiter=500)
+    for name, make in (("reflect", make_reflection_update), ("swap", make_swap_update)):
+        xm, rate = both(name, on_block(make(b.ops, ucfg, pre), 1),
+                        on_block(make(b.ops, ucfg, pre, eager=True), 1), b.params, x)
+        out[name].update(x=_np(xm), rate=_np(rate))
+    mspec = M.MeasurementSpec(nv=2, onsite_corr=(("Greens", True), ("DenDen", False)),
+                              snapshots=("density",))
+    scfg = bench.SolverConfig(tol=1e-6, maxiter=500)
+    mstep = M.make_measurement_step(b.ops, mspec, scfg, pre)
+    mtwin = M.make_measurement_step(b.ops, mspec, scfg, pre, eager=True)
+    R = trace_noise((n_chains, mspec.nv, b.ops.Nsites, b.ops.Ltau), x.dtype, x.device,
+                    torch.Generator().manual_seed(5))
+    inc, mstats, _ = both("measure_probes", lambda p, x_, g: mstep(p, x_, R=local(R)),
+                          lambda p, x_, g: mtwin(p, x_, R=local(R)), b.params, x)
+    out["measure_probes"].update(greens=_np(gather(inc["onsite_corr"]["Greens"])),
+                                 flag=_np(gather(mstats["flag"])))
+    # under tempering every rank measures the gathered rung-0 chains
+    inc, mstats, _ = both("measure_rung0", lambda p, x_, g: mstep(p, x_, g),
+                          lambda p, x_, g: mtwin(p, x_, g), *rung0)
+    out["measure_rung0"].update(greens=_np(inc["onsite_corr"]["Greens"]),
+                                flag=_np(mstats["flag"]))
+    return out
+
+
+def wij_force_worker(device, seed: int):
+    """The ωᵢⱼ force (``calc_dSbdx`` of the dispersive ``wij`` model, 4×4,
+    float64) on this rank's block of sites: the fixed-order sum, and the
+    two ``index_add`` calls it replaced (:meth:`SiteShard.wij_dsb` before
+    the change) on the same inputs."""
+    from elphdynamics_tpu_torch.models.holstein import calc_dSbdx
+
+    spec, params = build(4, 1.0, 0.1, "wij")
+    shard, lops, lp = _shard(spec, params)
+    x = torch.randn((3, spec.Nsites, spec.Ltau), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(seed))
+    xl = shard.local(x)
+    new = calc_dSbdx(lops.spec, lp, xl)
+    # the old form: the force without ωᵢⱼ, then one index_add per side
+    om2, om4 = (lp.omega ** 2)[:, None], lp.omega4[:, None]
+    lap = torch.roll(xl, 1, dims=-1) + torch.roll(xl, -1, dims=-1) - 2.0 * xl
+    old = spec.dtau * (om2 * xl + 4.0 * om4 * xl ** 3) - lap / spec.dtau
+    for side, (rows, m, kk, sgn, pair) in enumerate(
+            shard._wij_sides(lp.wij, spec.wij_sign, xl)):
+        g = spec.dtau * (lp.wij ** 2)[kk][:, None] * pair
+        if side == 1:
+            g = sgn * g
+        old = old.index_add(-2, rows, torch.where(m, g, torch.zeros_like(g)))
+    return _np(new), _np(old)
