@@ -61,8 +61,7 @@ Phases (one line each, and the process exits non-zero if any fails):
     mode; and on the kernel 64×64 model nᵥ = 10
     probe solves per chain by CG, block CG, GMRES and BiCGStab: iterations,
     seconds, the solutions' mutual distance, K2 launches of the left and
-    right applies; then block CG on complex fields at full width (phase
-    31);
+    right applies (block CG on complex fields at full width: phase 42);
 14. the TOML driver on ``examples/holstein_langevin_square.toml`` with its
     counts cut, and the same file at 64×64, β = 4 (4 chains, a few steps,
     one measurement) with BondBond, CurrentCurrent and BondPairGreens
@@ -100,15 +99,14 @@ Phases (one line each, and the process exits non-zero if any fails):
 21. both kernels at the deep-β shapes (K = 160: K1 [8, N, 160] and the
     deflation filter's [128, N, 160], K2 [4, 2, N, 160] and [4, 32, N, 160]
     with prev), against the twin, with device ms, plain ms, bound and the
-    dense matmul; and ``DEEP_BETA_64X64``: from-zero solves at 64×64, β =
-    16 by plain KPM-CG, with deflation and with the near-null
-    preconditioner: iterations, set-up and solve seconds, peak memory;
+    dense matmul (the ``DEEP_BETA_64X64`` solves: phase 42, graphed and
+    eager);
 22. the TOML driver on ``examples/holstein_hmc_deep_beta.toml`` (as shipped,
     cut in depth to 4 tuned + 1 sampling update; the tuned dt) and on the
     stock 4×4 Holstein example with a ``[tempering]`` ladder on 8 chains
     (the exchange rate);
 23. every (kernel, coefficient form, field shape) that one of the 64×64
-    runs of phases 9, 11, 13, 14, 20, 21, 24, 29, 31 and 36–40 launched
+    runs of phases 9, 11, 13, 14, 24, 29 and 36–42 launched
     (``ckb_cuda.launch_shapes``),
     against the twin in float32 and float64 (complex64 and complex128 for
     K1's complex mode), all directions, at every launch geometry the
@@ -174,15 +172,8 @@ Phases (one line each, and the process exits non-zero if any fails):
 30. (d) (a), (b), (e)–(g) and phase 41's chain ranks with one NCCL rank per
     card when the machine has two cards (the 2×2 layout with four), else
     one line saying why not;
-31. block CG on complex fields at full width: nᵥ = 10 circular complex
-    probes per chain on ``TWISTED_64X64`` (16 chains) and
-    ``SSH_TWISTED_64X64`` (8 chains), complex64, tol 1e-5, solved by
-    ``solve_minv`` with Hermitian block CG and with CG on the same probes
-    and preconditioner state, each timed after a warm-up solve: iterations
-    per system (mean, max), seconds, flags, the recomputed ‖M·X − R‖/‖R‖
-    of every system (≤ √tol), the largest relative difference between the
-    two solutions (≤ ``BLOCK_VS_CG_GATE``) and K1's complex launches by
-    table form (each of the model's forms > 0 in the block run).
+31. (folded into phase 42, which runs the same block-against-CG checks on
+    the graphed measurement's probe solves);
 
 32. ``[solver] loop_precision``: one in-loop exp(−Δτ·K) apply and one of
     its adjoint at "high" (three bf16 products accumulated in float32), at
@@ -291,8 +282,30 @@ Phases (one line each, and the process exits non-zero if any fails):
     allocated memory (``chiprun_out/graphed_chains.json``). Its runs' shapes
     enter phase 23 and ``launches_by_path``; ``nccl_only()`` runs its ranks'
     part on NCCL ranks, one card each.
+42. the CG solver aids graphed: first both kernels at the new shapes the
+    aids give them at 64×64 (K1 [512 | 256 | 40, 4096, 40], K2
+    [16, 32 | 16, 4096, 40] and [4, 10, 4096, 40] with prev) against the
+    twin with device ms, plain ms, bound and the dense matmul; then each
+    aid against its eager form on the same
+    draws (bit for bit or x within ``GRAPH_X_REL_TOL``, equal decisions,
+    iterations and flags, replays = host reads + 1, equal K1 / K2 launches
+    by form): the updates of ``BLOCK_64X64`` (block CG over the spins),
+    ``DEFLATED_64X64`` (k = 32; the refreshed basis compared too),
+    ``NEARNULL_64X64`` (k 16, c 4) and ``LOWFREQ_32X32`` (the dense Ā's
+    exact low-frequency blocks), each with its busy share and interleaved
+    sweeps/s blocks, flags 0 and acceptance > 0; the 64×64 Holstein
+    measurement (4 chains, nᵥ = 10) with block probes and its seconds per
+    call each way; phase 31's block-against-CG checks on the graphed
+    measurement's complex probe solves at ``TWISTED_64X64`` and
+    ``SSH_TWISTED_64X64`` (flags, ‖M·X − R‖/‖R‖ ≤ √tol,
+    ``BLOCK_VS_CG_GATE``, every complex K1 form launched, bit for bit
+    against the eager call); the three ``DEEP_BETA_64X64`` solve kinds
+    graphed and eager (set-up and solve seconds, busy share, pool, peak
+    memory); ``AIDS_MEMORY_UPDATES`` graphed deflated 4×4 updates with no
+    memory growth (``chiprun_out/graphed_aids.json``). Its 64×64 runs'
+    shapes enter phase 23 and ``launches_by_path``.
 
-Phases 36, 37, 38, 39, 40 and 41 run after 9, 31 after 13, 32 after 19, 33, 35 and 34 after 22;
+Phases 36–42 run after 9, 32 after 19, 33, 35 and 34 after 22;
 phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
@@ -1585,71 +1598,6 @@ def _small_twisted_block() -> None:
 BLOCK_VS_CG_GATE = 1e-3
 
 
-def phase_block_complex_64() -> dict:
-    """Block CG on complex fields at full width: nᵥ = 10 circular complex
-    probes per chain on ``TWISTED_64X64`` (16 chains) and
-    ``SSH_TWISTED_64X64`` (8 chains), complex64, tol 1e-5, the KPM
-    preconditioner set up once: ``solve_minv`` by Hermitian block CG
-    (``[solver] block``) and by CG on the same probes and preconditioner
-    state, each timed after a warm-up solve. Prints iterations per system,
-    seconds, flags, the recomputed ‖M·X − R‖/‖R‖ of every system, the
-    largest relative difference between the two solutions and K1's complex
-    launches by table form. Fails on a flag, a residual above √tol, a
-    difference above :data:`BLOCK_VS_CG_GATE` or a complex K1 form of the
-    model launched no time by the block solve. Returns each block run's
-    launches and shapes."""
-    from elphdynamics_tpu_torch.bench import SSH_TWISTED_64X64, TWISTED_64X64, build
-    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
-    from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
-    from elphdynamics_tpu_torch.utils.dtypes import fdot, trace_noise
-
-    tol, nv = 1e-5, 10
-    out, bad = {}, []
-    for cfg, forms in ((TWISTED_64X64, ("fold/shared/complex",)),
-                       (SSH_TWISTED_64X64, ("fold/column/complex", "fold/chain/complex"))):
-        b = build(cfg, "cuda", torch.float32)
-        ops, params, x = b.ops, b.params, b.state.x
-        C = x.shape[0]
-        R = trace_noise((C, nv, ops.Nsites, ops.Ltau), torch.complex64, "cuda",
-                        torch.Generator(device="cuda").manual_seed(8))
-        ds = ops.stack(ops.derived(params, x))
-        pa = resolve_precond(kpm.make_precond(ops, b.kpm_cfg), params, x)
-        sols, runs = {}, {}
-        for kind, block in (("block_cg", True), ("cg", False)):
-            scfg = SolverConfig(tol=tol, maxiter=500, block=block)
-            solve_minv(ops, params, ds, R, scfg, pa, block=True)  # tunes the launch geometries
-            ckb_cuda.reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = solve_minv(ops, params, ds, R, scfg, pa, block=True)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            d = ops.mulM(params, ds, res.x) - R
-            resid = torch.sqrt(fdot(d, d) / fdot(R, R))
-            sols[kind] = res.x
-            runs[kind] = dict(table_launches=dict(ckb_cuda.table_launches),
-                              launch_shapes=set(ckb_cuda.launch_shapes))
-            say("block_complex_64x64", config=cfg.name, kind=kind, chains=C, systems=C * nv,
-                dtype="complex64", tol=tol, iters_mean=f"{res.iters.double().mean().item():.2f}",
-                iters_max=int(res.iters.max()), seconds=f"{secs:.4f}",
-                max_flag=int(res.flag.max()), max_residual_M=f"{resid.max().item():.3e}",
-                residual_gate=f"{math.sqrt(tol):.3e}",
-                k1_complex_launches={m: ckb_cuda.table_launches[m] for m in COMPLEX_MODES})
-            if int(res.flag.max()) != 0 or not resid.max().item() <= math.sqrt(tol):
-                bad.append(f"{cfg.name}/{kind}: flag or residual")
-        diff = torch.sqrt(fdot(sols["block_cg"] - sols["cg"], sols["block_cg"] - sols["cg"])
-                          / fdot(sols["cg"], sols["cg"])).max().item()
-        idle = [m for m in forms if runs["block_cg"]["table_launches"][m] <= 0]
-        say("block_complex_64x64", config=cfg.name, max_rel_diff_block_vs_cg=f"{diff:.3e}",
-            gate=BLOCK_VS_CG_GATE, idle_k1_forms=idle or "none")
-        if not diff <= BLOCK_VS_CG_GATE or idle:
-            bad.append(f"{cfg.name}: block and CG {diff:.3e} apart, idle {idle}")
-        out[f"block_cg_{cfg.name}"] = runs["block_cg"]
-    if bad:
-        raise RuntimeError(f"block CG on complex fields at 64x64: {bad}")
-    return out
-
-
 def phase_driver_twisted() -> dict:
     """``examples/holstein_hmc_twisted.toml`` and ``examples/
     ssh_hmc_twisted.toml`` through the driver on the card, as shipped (4×4,
@@ -1793,9 +1741,19 @@ def phase_deep_beta_kernels() -> dict:
     Lτ = 160, float32, forward, against the twin): K1 on the fermion
     operator's [8, 4096, 160] (4 chains × 2 spins) and the deflation
     filter's [128, 4096, 160] (4 chains × k = 32); K2 with per-chain
-    diagonals and prev on [4, 2, 4096, 160] and [4, 32, 4096, 160]. Device
-    ms, plain ms, bound (each input read once, the output written once) and
-    the dense-matmul library form."""
+    diagonals and prev on [4, 2, 4096, 160] and [4, 32, 4096, 160]
+    (:func:`_kernel_shapes`)."""
+    return _kernel_shapes((("fold", (8,)), ("fold", (128,)), ("fused", (4, 2)),
+                           ("fused", (4, 32))), 160, "deep_kernel")
+
+
+def _kernel_shapes(cases, K: int, tag: str) -> dict:
+    """Both kernels on the 64×64 Holstein model's tables at the field shapes
+    ``cases`` ((kernel, leading axes), each [*lead, 4096, K], float32,
+    forward) against the twin: device ms, plain ms, bound (each input read
+    once, the output written once) and the dense-matmul library form. K2
+    takes per-chain diagonals and prev (the KPM recurrence's step), the
+    chain axis leading."""
     from elphdynamics_tpu_torch.ops import checkerboard as ckb
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
@@ -1804,8 +1762,8 @@ def phase_deep_beta_kernels() -> dict:
     c, s = params.cosht.float(), params.sinht.float()
     g = torch.Generator(device="cuda").manual_seed(13)
     out = {}
-    for kernel, lead in (("fold", (8,)), ("fold", (128,)), ("fused", (4, 2)), ("fused", (4, 32))):
-        v = torch.randn(lead + (N, 160), generator=g, device="cuda")
+    for kernel, lead in cases:
+        v = torch.randn(lead + (N, K), generator=g, device="cuda")
         if kernel == "fold":
             kw, fast, plain_fn = {}, ckb_cuda.fold, ckb.fold
             nbytes, flops = 2 * v.numel() * 4 + 2 * c.numel() * 4, 3 * G * v.numel()
@@ -1830,57 +1788,12 @@ def phase_deep_beta_kernels() -> dict:
         shape = "x".join(map(str, v.shape))
         out[f"{kernel}/{shape}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                         library_ms=lib, max_abs_err=err)
-        say("deep_kernel", kernel=kernel, shape=shape, dtype="float32",
+        say(tag, kernel=kernel, shape=shape, dtype="float32",
             max_rel_err=f"{rel:.3e}", tol=F32_TOL, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             bound_ms=f"{b_ms:.4f}", bound_by=b_by, bound_share=f"{b_ms / ms:.3f}",
             library_ms=f"{lib:.4f}")
         if not rel <= F32_TOL:
             raise RuntimeError(f"{kernel} at {shape} disagrees with its twin: {rel}")
-    return out
-
-
-def phase_deep_beta_solves() -> dict:
-    """``bench.DEEP_BETA_64X64``: from-zero solves of MᵀM at 64×64, β = 16
-    (Lτ = 160), 4 chains × 2 spins, at a τ-rough field (half-filled
-    worldlines plus free-phonon τ-fluctuations), KPM max_order 8, tol 1e-5,
-    float32, by
-    plain KPM-CG, with deflation (k 32) and with the near-null
-    preconditioner (k 16): iterations per solve, set-up and solve seconds,
-    flags and peak device memory, each kind run twice (the first pass tunes
-    the launch geometries at the new shapes; the second is reported). The
-    kernels' counts cover the whole phase."""
-    from elphdynamics_tpu_torch.bench import DEEP_BETA_64X64, SOLVE_KINDS, build_deep_beta_solves
-    from elphdynamics_tpu_torch.ops import ckb_cuda
-
-    d = build_deep_beta_solves(DEEP_BETA_64X64, "cuda", torch.float32)
-    torch.cuda.synchronize()
-    ckb_cuda.reset_counts()
-    out = {}
-    for kind in SOLVE_KINDS:
-        for _ in range(2):
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run = d.prepare(kind)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            res = run()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-        out[kind] = dict(iters=res.iters.double().mean().item(), max_iters=int(res.iters.max()),
-                         setup_s=t1 - t0, solve_s=t2 - t1, max_flag=int(res.flag.max()),
-                         max_residual=res.residual.max().item(),
-                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        say(DEEP_BETA_64X64.name, kind=kind, chains=DEEP_BETA_64X64.n_chains,
-            Ltau=d.ops.Ltau, systems=res.iters.numel(),
-            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out[kind].items()})
-    out.update(table_launches=dict(ckb_cuda.table_launches),
-               launch_shapes=set(ckb_cuda.launch_shapes))
-    say(DEEP_BETA_64X64.name, table_launches=out["table_launches"])
-    bad = [k for k in SOLVE_KINDS if out[k]["max_flag"] != 0]
-    idle = [m for m in ("fold/shared", "fused/shared") if out["table_launches"][m] <= 0]
-    if bad or idle:
-        raise RuntimeError(f"deep-beta solves: flagged {bad}, kernel forms launched no time {idle}")
     return out
 
 
@@ -2974,13 +2887,16 @@ def _counted_update(step, params, state, draws):
     """One update (or Langevin step: ``state`` the fields) on ``draws``,
     every count set to 0 just before and read just after: (state, stats,
     {seconds, K1/K2 launches by form and their shapes, host reads, graph
-    replays})."""
+    replays, the peak of allocated device memory above what was allocated
+    before the call})."""
     from elphdynamics_tpu_torch import solvers
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
     torch.cuda.synchronize()
     ckb_cuda.reset_counts()
     solvers.host_reads = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with counting_replays() as box:
         t0 = time.perf_counter()
         out, stats = step(params, state, draws=draws)
@@ -2988,7 +2904,8 @@ def _counted_update(step, params, state, draws):
         seconds = time.perf_counter() - t0
     return out, stats, dict(seconds=seconds, launches=dict(ckb_cuda.table_launches),
                             shapes=set(ckb_cuda.launch_shapes), host_reads=solvers.host_reads,
-                            replays=box["n"])
+                            replays=box["n"],
+                            peak_bytes=torch.cuda.max_memory_allocated() - base)
 
 
 def _replay_busy_share(step, params, state, draws) -> dict:
@@ -3018,8 +2935,10 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
         draws = eager.draw(b.params, state.x, b.state.x.shape[0], b.generator)
         sg, tg, mg = _counted_update(b.step, b.params, state, draws)
         se, te, me = _counted_update(eager, b.params, state, draws)
-        bitwise = all(torch.equal(p, q) for p, q in ((sg.x, se.x), (sg.v, se.v),
-                                                    (tg.delta_H, te.delta_H)))
+        pairs = [(sg.x, se.x), (sg.v, se.v), (tg.delta_H, te.delta_H)]
+        if sg.defl is not None:     # the refreshed deflation basis
+            pairs += [(sg.defl.W, se.defl.W), (sg.defl.chol, se.defl.chol)]
+        bitwise = all(torch.equal(p, q) for p, q in pairs)
         x_rel = float((sg.x - se.x).abs().max() / se.x.abs().max())
         dH_gate = 2 * U_F32 * (te.S.abs() + te.K.abs())
         dH_ok = bool(((tg.delta_H - te.delta_H).abs() <= dH_gate).all())
@@ -3033,7 +2952,9 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
                    launches_eager={f: me["launches"][f] for f in forms},
                    acceptance=f"{tg.accepted.double().mean().item():.4f}",
                    cg_iters=f"{tg.iters.double().mean().item():.2f}",
-                   max_flag=int(tg.flag.max()))
+                   max_flag=int(tg.flag.max()),
+                   graphed_peak_mb=f"{mg['peak_bytes'] / 2**20:.1f}",
+                   eager_peak_mb=f"{me['peak_bytes'] / 2**20:.1f}")
         if u == 1:
             ws = b.step.workspace()
             row.update(graphs=len(ws.graphs.graphs), capture_s=f"{ws.graphs.capture_s:.3f}",
@@ -4080,6 +4001,293 @@ def phase_graphed_chains(backend: str = "gloo", kernel_ref: dict | None = None) 
             paths[f"graphed_{part}_64x64_chain_rank{i}_{backend}"] = rows
     _write_json(f"graphed_chains{'' if backend == 'gloo' else '_' + backend}.json", out)
     return paths
+# phase 42: the CG solver aids graphed (block CG, deflation, near-null, the
+# exact low-frequency blocks) against their eager forms
+AIDS_MEMORY_UPDATES = 50      # graphed deflated 4×4 updates, memory read after 5 and after these
+AIDS_PROBES = 10              # nᵥ of the block-probe runs
+
+
+def _calls_ab(graphed, eager) -> dict:
+    """Seconds per call of two argument-free callables in
+    ``GRAPH_AB_BLOCKS`` interleaved blocks each (E G G E ...), one call a
+    block: medians, quartiles and IQRs."""
+    secs = {"eager": [], "graphed": []}
+    order = [("eager", "graphed")[(i // 2 + i) % 2] for i in range(2 * GRAPH_AB_BLOCKS)]
+    for form in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (graphed if form == "graphed" else eager)()
+        torch.cuda.synchronize()
+        secs[form].append(time.perf_counter() - t0)
+    out = {}
+    for form, r in secs.items():
+        q1, med, q3 = statistics.quantiles(r, n=4, method="inclusive")
+        out[form] = dict(median=med, q1=q1, q3=q3, iqr=q3 - q1, blocks=[round(x, 4) for x in r])
+    out["speedup_median"] = out["eager"]["median"] / out["graphed"]["median"]
+    return out
+
+
+def _aid_updates() -> dict:
+    """The four aid configurations' updates graphed against eager: parity
+    (:func:`_graph_parity`, the refreshed deflation basis included), busy
+    share, interleaved sweeps/s blocks; flags 0 and acceptance > 0 over the
+    parity updates."""
+    from elphdynamics_tpu_torch.bench import (
+        BLOCK_64X64, DEFLATED_64X64, LOWFREQ_32X32, NEARNULL_64X64)
+
+    out = {}
+    for cfg, forms in ((BLOCK_64X64, MODES["holstein"]), (DEFLATED_64X64, MODES["holstein"]),
+                       (NEARNULL_64X64, MODES["holstein"]), (LOWFREQ_32X32, ())):
+        b, eager, res = _graphed_update(cfg, forms)
+        par = res["parity"]
+        acc = float(torch.cat(par["accepted"]).double().mean())
+        flag = max(par[u]["max_flag"] for u in (1, 2))
+        ab = _sweeps_ab(b, eager, cfg.n_chains, b.state, GRAPH_AB_UPDATES)
+        _say_ab(cfg.name, ab, "updates_per_block", GRAPH_AB_UPDATES, res["busy_graphed"])
+        ws = b.step.workspace()
+        res.update(ab=ab, acceptance=acc, max_flag=flag, graphs=sorted(ws.graphs.graphs),
+                   pool_bytes=ws.graphs.pool_bytes, capture_s=ws.graphs.capture_s)
+        say(f"graphed_aid_{cfg.name}", acceptance=f"{acc:.4f}", max_flag=flag,
+            graphs=sorted(ws.graphs.graphs))
+        if flag != 0 or not acc > 0:
+            raise RuntimeError(f"{cfg.name}: flag {flag}, acceptance {acc}")
+        out[cfg.name] = res
+        del b, eager, ws
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _block_measure_64() -> dict:
+    """The 64×64 Holstein measurement (the stock file widened, 4 chains,
+    nᵥ = 10) with ``[solver] block``: block CG over each chain's probes
+    (s = 10), graphed against eager (:func:`_special_parity`) and seconds
+    per call in interleaved blocks."""
+    from elphdynamics_tpu_torch.bench import build_hmc_example, wide_hmc_config
+
+    with open(os.path.join(_examples_dir(), "holstein_hmc_square.toml"), "rb") as f:
+        cfg = wide_hmc_config(tomllib.load(f))
+    cfg["solver"]["block"] = True
+    ex = build_hmc_example(cfg, 4, "cuda", torch.float32)
+    twin = ex.eager()
+    rows = _special_parity(ex, twin, "block_64x64", MODES["holstein"], parts=("measure",))
+    x, g = ex.state.x, torch.Generator(device="cuda").manual_seed(23)
+    R = twin.measure.draw(ex.params, x, g)
+    ab = _calls_ab(lambda: ex.measure(ex.params, x, R=R), lambda: twin.measure(ex.params, x, R=R))
+    ws = ex.measure.workspace()
+    say("graph_ab_block_measure_64x64", chains=4, nv=ex.setup.mspec.nv,
+        eager_median_s=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
+        graphed_median_s=f"{ab['graphed']['median']:.4f}",
+        graphed_iqr=f"{ab['graphed']['iqr']:.4f}", speedup_median=f"{ab['speedup_median']:.3f}",
+        pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}", graphs=sorted(ws.graphs.graphs))
+    if "bcg" not in ws or ws.bcg.x.shape[1] != ex.setup.mspec.nv:
+        raise RuntimeError("the 64x64 block measurement did not solve by block CG")
+    return dict(parity=rows["measure"], ab=ab, pool_bytes=ws.graphs.pool_bytes)
+
+
+def _twisted_block_probes() -> dict:
+    """Block CG on complex fields at full width (phase 31's checks, graphed):
+    nᵥ = 10 circular complex probes per chain on ``TWISTED_64X64`` (16
+    chains) and ``SSH_TWISTED_64X64`` (8), complex64, tol 1e-5, through the
+    graphed measurement with ``[solver] block`` (Hermitian block CG,
+    s = nᵥ) and with CG on the same probes: the block call bit for bit
+    against its eager twin with replays = host reads + 1, flags 0, the
+    recomputed ‖M·X − R‖/‖R‖ of every system ≤ √tol, block and CG within
+    ``BLOCK_VS_CG_GATE`` and each of the model's complex K1 forms launched
+    by the block call. Returns each block call's launches and shapes."""
+    from elphdynamics_tpu_torch.bench import SSH_TWISTED_64X64, TWISTED_64X64, build
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
+    from elphdynamics_tpu_torch.measure.measurements import MeasurementSpec, make_measurement_step
+    from elphdynamics_tpu_torch.ops import kpm
+    from elphdynamics_tpu_torch.utils.dtypes import fdot, trace_noise
+
+    tol, out, bad = 1e-5, {}, []
+    for cfg, forms in ((TWISTED_64X64, ("fold/shared/complex",)),
+                       (SSH_TWISTED_64X64, ("fold/column/complex", "fold/chain/complex"))):
+        b = build(cfg, "cuda", torch.float32)
+        ops, params, x = b.ops, b.params, b.state.x
+        C = x.shape[0]
+        R = trace_noise((C, AIDS_PROBES, ops.Nsites, ops.Ltau), torch.complex64, "cuda",
+                        torch.Generator(device="cuda").manual_seed(8))
+        mspec = MeasurementSpec(nv=AIDS_PROBES)
+        sols, runs = {}, {}
+        for kind, block in (("block_cg", True), ("cg", False)):
+            scfg = SolverConfig(tol=tol, maxiter=500, block=block)
+            step = make_measurement_step(ops, mspec, scfg, kpm.make_precond(ops, b.kpm_cfg))
+            step(params, x, R=R)                       # warm-up and capture
+            res, m = _part_call(step, params, x, R=R)
+            ws = step.workspace()
+            X = (ws.bcg if block else ws.cg).x.clone()
+            d = ops.mulM(params, ops.stack(ops.derived(params, x)), X) - R
+            resid = torch.sqrt(fdot(d, d) / fdot(R, R))
+            sols[kind] = X
+            row = dict(config=cfg.name, kind=kind, chains=C, systems=C * AIDS_PROBES,
+                       dtype="complex64", tol=tol,
+                       iters_mean=f"{res[1]['iters'].double().mean().item():.2f}",
+                       seconds=f"{m['seconds']:.4f}", max_flag=int(res[1]["flag"].max()),
+                       max_residual_M=f"{resid.max().item():.3e}",
+                       residual_gate=f"{math.sqrt(tol):.3e}", replays=m["replays"],
+                       host_reads=m["host_reads"],
+                       k1_complex_launches={f: m["launches"][f] for f in COMPLEX_MODES})
+            if block:
+                twin = make_measurement_step(ops, mspec, scfg, kpm.make_precond(ops, b.kpm_cfg),
+                                             eager=True)
+                eres, me = _part_call(twin, params, x, R=R)
+                row.update(bitwise=_tree_equal(res, eres), eager_seconds=f"{me['seconds']:.4f}",
+                           pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}")
+                runs[kind] = dict(table_launches=m["launches"], launch_shapes=m["shapes"])
+                if (not row["bitwise"] or m["replays"] != m["host_reads"] + 1
+                        or m["launches"] != me["launches"]
+                        or any(m["launches"][f] <= 0 for f in forms)):
+                    bad.append(f"{cfg.name}/block: {row}")
+            say("block_complex_64x64", **row)
+            if row["max_flag"] != 0 or not resid.max().item() <= math.sqrt(tol):
+                bad.append(f"{cfg.name}/{kind}: flag or residual")
+            del step, ws
+        diff = torch.sqrt(fdot(sols["block_cg"] - sols["cg"], sols["block_cg"] - sols["cg"])
+                          / fdot(sols["cg"], sols["cg"])).max().item()
+        say("block_complex_64x64", config=cfg.name, max_rel_diff_block_vs_cg=f"{diff:.3e}",
+            gate=BLOCK_VS_CG_GATE)
+        if not diff <= BLOCK_VS_CG_GATE:
+            bad.append(f"{cfg.name}: block and CG {diff:.3e} apart")
+        out[f"block_cg_{cfg.name}"] = runs["block_cg"]
+        del b
+        gc.collect()
+    if bad:
+        raise RuntimeError(f"graphed block CG on complex fields at 64x64: {bad}")
+    return out
+
+
+def _deep_beta_graphed() -> dict:
+    """``bench.DEEP_BETA_64X64``'s three solve kinds (plain KPM-CG, with
+    deflation, with the near-null preconditioner; 64×64, β = 16, Lτ = 160,
+    4 chains × 2 spins, float32), graphed (the set-up, its basis refreshes
+    and the solve's start one segment, the CG blocks and verification
+    others) against eager: each graphed call twice (the first captures),
+    then the eager twin; set-up and solve seconds each way, iterations,
+    flags, peak memory, replays = host reads + 1, the replays' busy share,
+    the pool and capture seconds, equal K1 / K2 launches by form. Results
+    bit for bit, or x within ``GRAPH_X_REL_TOL`` with equal iterations and
+    flags."""
+    from elphdynamics_tpu_torch import solvers
+    from elphdynamics_tpu_torch.bench import DEEP_BETA_64X64, SOLVE_KINDS, build_deep_beta_solves
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    d = build_deep_beta_solves(DEEP_BETA_64X64, "cuda", torch.float32)
+    out, launches, shapes = {}, {}, set()
+
+    def timed(kind, eager, spans=False):
+        torch.cuda.synchronize()
+        ckb_cuda.reset_counts()
+        solvers.host_reads = 0
+        torch.cuda.reset_peak_memory_stats()
+        with counting_replays(timed=spans) as box:
+            t0 = time.perf_counter()
+            run = d.prepare(kind, eager=eager)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        busy = (sum(a.elapsed_time(b) for a, b in box["spans"]) / 1e3 / (t2 - t0)
+                if spans else None)
+        return run, res, dict(setup_s=t1 - t0, solve_s=t2 - t1, replays=box["n"],
+                              host_reads=solvers.host_reads, busy=busy,
+                              launches=dict(ckb_cuda.table_launches),
+                              shapes=set(ckb_cuda.launch_shapes),
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    for kind in SOLVE_KINDS:
+        timed(kind, False)                         # warm-up, capture
+        run, g, mg = timed(kind, False, spans=True)
+        _, e, me = timed(kind, True)
+        bitwise = all(torch.equal(getattr(g, f), getattr(e, f))
+                      for f in ("x", "iters", "flag", "residual"))
+        x_rel = float((g.x - e.x).abs().max() / e.x.abs().max())
+        same = torch.equal(g.iters, e.iters) and torch.equal(g.flag, e.flag)
+        ws = run.workspace
+        row = dict(chains=DEEP_BETA_64X64.n_chains, Ltau=d.ops.Ltau, systems=g.iters.numel(),
+                   iters=f"{g.iters.double().mean().item():.2f}", max_iters=int(g.iters.max()),
+                   max_flag=int(g.flag.max()), bitwise=bitwise, x_rel=f"{x_rel:.3e}",
+                   graphed_setup_s=f"{mg['setup_s']:.4f}", graphed_solve_s=f"{mg['solve_s']:.4f}",
+                   eager_setup_s=f"{me['setup_s']:.4f}", eager_solve_s=f"{me['solve_s']:.4f}",
+                   replays=mg["replays"], host_reads=mg["host_reads"],
+                   replay_busy=f"{mg['busy']:.4f}", graphs=sorted(ws.graphs.graphs),
+                   pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}",
+                   capture_s=f"{ws.graphs.capture_s:.3f}",
+                   graphed_peak_gb=f"{mg['peak_gb']:.3f}", eager_peak_gb=f"{me['peak_gb']:.3f}")
+        say(f"{DEEP_BETA_64X64.name}_graphed", kind=kind, **row)
+        if (not (bitwise or (x_rel <= GRAPH_X_REL_TOL and same)) or row["max_flag"] != 0
+                or mg["replays"] != mg["host_reads"] + 1 or mg["launches"] != me["launches"]):
+            raise RuntimeError(f"graphed deep-beta {kind} solve left the eager one: {row}")
+        out[kind] = row
+        for f, n in mg["launches"].items():
+            launches[f] = launches.get(f, 0) + n
+        shapes |= mg["shapes"]
+    out.update(table_launches=launches, launch_shapes=shapes)
+    idle = [m for m in MODES["holstein"] if launches[m] <= 0]
+    if idle:
+        raise RuntimeError(f"graphed deep-beta solves: kernel forms launched no time {idle}")
+    return out
+
+
+def _deflated_memory() -> dict:
+    """``AIDS_MEMORY_UPDATES`` graphed deflated 4×4 updates (4 chains, k 4,
+    trajectory 0.1): allocated device memory after the 5th and after the
+    last (no growth allowed), every flag 0."""
+    from elphdynamics_tpu_torch.bench import build_bench_step
+
+    b = build_bench_step(4, 1.0, 0.1, 0.05, 4, "cuda", torch.float32, trajectory_time=0.1,
+                         deflate_k=4)
+    state, mem, flag = b.state, {}, 0
+    t0 = time.perf_counter()
+    for n in range(1, AIDS_MEMORY_UPDATES + 1):
+        state, stats = b.step(b.params, state, b.generator)
+        flag = max(flag, int(stats.flag.max()))
+        if n in (5, AIDS_MEMORY_UPDATES):
+            torch.cuda.synchronize()
+            mem[n] = torch.cuda.memory_allocated()
+    out = dict(updates=AIDS_MEMORY_UPDATES,
+               s_per_update=(time.perf_counter() - t0) / AIDS_MEMORY_UPDATES,
+               allocated_after_5=mem[5], allocated_after_last=mem[AIDS_MEMORY_UPDATES],
+               growth_bytes=mem[AIDS_MEMORY_UPDATES] - mem[5], max_flag=flag,
+               segmented=b.step.segmented)
+    say("graphed_deflated_memory", **out)
+    if out["growth_bytes"] > 0 or flag != 0 or not b.step.segmented:
+        raise RuntimeError(f"graphed deflated updates grew device memory or failed: {out}")
+    return out
+
+
+def phase_graphed_aids() -> dict:
+    """42. The CG solver aids graphed, each against its eager form (after
+    both kernels at the new shapes the aids give them, :func:`_kernel_shapes`):
+    ``BLOCK_64X64``, ``DEFLATED_64X64``, ``NEARNULL_64X64`` (16 chains, K1
+    and K2 inside the graphs) and ``LOWFREQ_32X32`` (32 chains, the dense Ā
+    and its exact low-frequency blocks) updates; the 64×64 measurement
+    with block probes; block CG on complex probes at ``TWISTED_64X64`` and
+    ``SSH_TWISTED_64X64`` (phase 31's checks); the three
+    ``DEEP_BETA_64X64`` solve kinds (phase 21's solves, both ways); and
+    ``AIDS_MEMORY_UPDATES`` graphed deflated 4×4 updates with no memory
+    growth (``chiprun_out/graphed_aids.json``). Returns the runs whose
+    launches and shapes enter ``launches_by_path`` and phase 23: the
+    Holstein paths (``holstein``), the twisted block calls (``twisted``)
+    and the deep-β solves (``deep``)."""
+    # the new shapes the aids give the kernels at 64×64 (Lτ = 40): the
+    # deflation filter's and the near-null assembly's 16 × 32 rows, the
+    # near-null smoothing's 16 × 16, the block probes' 4 × 10
+    kernels = _kernel_shapes((("fold", (512,)), ("fold", (256,)), ("fold", (40,)),
+                              ("fused", (16, 32)), ("fused", (16, 16)), ("fused", (4, 10))),
+                             40, "aid_kernel")
+    out = {"kernels": kernels, "updates": _aid_updates(),
+           "block_measure_64x64": _block_measure_64(),
+           "twisted": _twisted_block_probes(), "deep": _deep_beta_graphed(),
+           "memory": _deflated_memory()}
+    _write_json("graphed_aids.json", out)
+    holstein = {f"graphed_{name}": res["parity"] for name, res in out["updates"].items()
+                if name.endswith("64x64")}
+    holstein["graphed_block_measure_64x64"] = out["block_measure_64x64"]["parity"]
+    return {"holstein": holstein, "twisted": out["twisted"], "deep": out["deep"]}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4127,13 +4335,13 @@ def main() -> int:
     graphed_special = phase_graphed_special_measure()
     graphed_cplx = phase_graphed_complex()
     graphed_chains = phase_graphed_chains(kernel_ref=graphed_upd[KERNEL_64X64.name])
+    aids = phase_graphed_aids()
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
     shapes["solver_kinds_64x64"] = phase_solver_kinds_64()["launch_shapes"]
-    block_cplx = phase_block_complex_64()
+    block_cplx, deep = aids["twisted"], aids["deep"]
     phase_deep_beta_kernels()
-    deep = phase_deep_beta_solves()
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
     # per update, 4–6 s each; SSH's KPM at max_order 64, 25–45 s each): a few
     # updates each; the 64×64 runs (SSH's at ~19 s per update) and the SSH
@@ -4165,10 +4373,12 @@ def main() -> int:
                       LANGEVIN_64X64.name: lang, "deep_beta_64x64": deep,
                       "chain_sharded_64x64": chains}
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
-    # phase 38's second graphed steps, phase 39's and phase 41's second
-    # graphed calls: the kernels inside the Langevin, move, measurement,
-    # 2MN, laddered update and exchange graphs (41: on chain ranks too)
-    for k, r in (graphed_lang | graphed_special | graphed_chains).items():
+    # phase 38's second graphed steps, phase 39's, phase 41's and phase 42's
+    # second graphed calls: the kernels inside the Langevin, move,
+    # measurement, 2MN, laddered update and exchange graphs (41: on chain
+    # ranks too) and those of the solver aids (block CG, deflation,
+    # near-null)
+    for k, r in (graphed_lang | graphed_special | graphed_chains | aids["holstein"]).items():
         (ssh_paths if "ssh" in k else holstein_paths)[k] = r
     # slice H2's paths that reach the kernels: tempering on chain ranks (each
     # rank's own counts) and the chain blocks' measurements of the 2x2 layout
@@ -4179,8 +4389,8 @@ def main() -> int:
         holstein_paths["chain_sharded_64x64_nccl"] = nccl["chain_sharded"]
     # K1's complex mode: the stock twisted SSH example (its fermion operator
     # and densified Ā are K1's at any size; the 4×4 Holstein example runs
-    # dense matmuls), the block-CG probe solves of both twisted 64×64
-    # models and (below) phase 40's graphed twisted calls
+    # dense matmuls), phase 42's graphed block-CG probe solves of both
+    # twisted 64×64 models and (below) phase 40's graphed twisted calls
     twisted_paths = {f"block_cg_{TWISTED_64X64.name}":
                      block_cplx[f"block_cg_{TWISTED_64X64.name}"]}
     twisted_ssh_paths = {"ssh_twisted_driver_4x4": drv_tw["ssh_hmc_twisted"],

@@ -104,11 +104,13 @@ from __future__ import annotations
 
 import copy
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 import torch
 
-from elphdynamics_tpu_torch.dynamics.hmc import HMCConfig, HMCState, make_hmc_step
+from elphdynamics_tpu_torch.dynamics import graphs
+from elphdynamics_tpu_torch.dynamics.hmc import (
+    HMCConfig, HMCState, init_deflation, make_hmc_step)
 from elphdynamics_tpu_torch.dynamics.init_phonons import init_phonons_half_filled
 from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, precond_applies, solve_oinv
@@ -142,6 +144,13 @@ class BenchConfig:
     twist: tuple | None = None  # twisted-boundary flux angles (complex hopping)
     integrator: str = "leapfrog"
     ladder: tuple | None = None  # parallel-tempering coupling ladder (rung-major chains)
+    # the CG solver aids: block CG over the spins, a deflation basis of
+    # deflate_k fields, the near-null preconditioner (k, c), the KPM's exact
+    # low-frequency blocks
+    block: bool = False
+    deflate_k: int = 0
+    nearnull: tuple | None = None
+    exact_lowfreq: int = 0
 
 
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
@@ -166,6 +175,14 @@ KERNEL_2MN_64X64 = BenchConfig("kernel_2mn_64x64", L=64, beta=4.0, dtau=0.1, dt=
 TEMPERING_64X64 = BenchConfig("tempering_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
                               n_chains=16, ladder=(1.0, 0.9, 0.8, 0.7))
 EXCHANGE_FREQ = 2   # updates per exchange attempt under a ladder
+BLOCK_64X64 = BenchConfig("block_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025, n_chains=16,
+                          block=True)
+DEFLATED_64X64 = BenchConfig("deflated_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
+                             n_chains=16, deflate_k=32)
+NEARNULL_64X64 = BenchConfig("nearnull_64x64", L=64, beta=4.0, dtau=0.1, dt=0.025,
+                             n_chains=16, nearnull=(16, 4))
+LOWFREQ_32X32 = BenchConfig("lowfreq_32x32", L=32, beta=4.0, dtau=0.1, dt=0.05, n_chains=32,
+                            exact_lowfreq=4)
 
 
 @dataclass(frozen=True)
@@ -184,19 +201,23 @@ class BenchStep:
     hmc_cfg: HMCConfig | None = None
     kpm_cfg: kpm.KPMConfig | None = None
     tcfg: TemperingConfig | None = None
+    nearnull_cfg: NearNullConfig | None = None
+
+    def precond(self):
+        """A new preconditioner of the step's configuration (KPM, or the
+        near-null one): the same fixed start vectors and test vectors."""
+        return _make_precond(self.ops, self.kpm_cfg, self.nearnull_cfg)
 
     def eager(self):
         """The same update asked for eager: the same model, and a
         preconditioner of the same configuration (the same fixed start
         vectors), so the same draws give the same update."""
-        return make_hmc_step(self.ops, self.mass, self.hmc_cfg,
-                             kpm.make_precond(self.ops, self.kpm_cfg), eager=True)
+        return make_hmc_step(self.ops, self.mass, self.hmc_cfg, self.precond(), eager=True)
 
     def eager_exchange(self):
         """Under a ladder, the exchange asked for eager, as :meth:`eager`
         builds the update (on the same chain block)."""
-        return make_exchange_step(self.ops, self.tcfg, self.exchange.n_chains,
-                                  kpm.make_precond(self.ops, self.kpm_cfg),
+        return make_exchange_step(self.ops, self.tcfg, self.exchange.n_chains, self.precond(),
                                   chains=self.exchange.chains, eager=True)
 
 
@@ -226,34 +247,36 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                      seed: int = 0, trajectory_time: float = 1.0,
                      dense_threshold: int = 2048,
                      pallas_threshold: int = 2048, twist=None, integrator: str = "leapfrog",
-                     ladder=None) -> BenchStep:
+                     ladder=None, **aids) -> BenchStep:
     """Build the model (with ``twist``, twisted boundaries), the
     KPM-preconditioned HMC step (``integrator``) and a half-filled initial
     state of ``n_chains`` chains on ``device`` (the card unless the caller
     asks for the CPU); with a ``ladder``, per-chain couplings and the
-    tempering exchange. The step (leapfrog or 2MN, real or complex hopping)
-    and the exchange replay CUDA graphs on the card
-    (``dynamics/graphs.py``)."""
+    tempering exchange; ``aids`` are :class:`BenchConfig`'s solver aids
+    (``block``, ``deflate_k``, ``nearnull``, ``exact_lowfreq``). The step
+    (leapfrog or 2MN, real or complex hopping, with any aid) and the
+    exchange replay CUDA graphs on the card (``dynamics/graphs.py``)."""
     device = require_device(device)
     spec, params = _holstein_model(L, beta, dtau, dtype, device, dense_threshold,
                                    pallas_threshold, twist)
     return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=4,
-                       integrator=integrator, ladder=ladder)
+                       integrator=integrator, ladder=ladder, **aids)
 
 
 def build_ssh_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
                    device="cuda", dtype: torch.dtype = torch.float32, *,
                    seed: int = 0, trajectory_time: float = 1.0, twist=None,
-                   integrator: str = "leapfrog", ladder=None) -> BenchStep:
+                   integrator: str = "leapfrog", ladder=None, **aids) -> BenchStep:
     """The SSH model (with ``twist``, twisted boundaries), its
     KPM-preconditioned HMC step and a half-filled initial state of
     ``n_chains`` chains on ``device`` (the card unless the caller asks for
-    the CPU); ``integrator``, ``ladder`` as in :func:`build_bench_step`
-    (the step and the exchange replay CUDA graphs on the card)."""
+    the CPU); ``integrator``, ``ladder`` and ``aids`` as in
+    :func:`build_bench_step` (the step and the exchange replay CUDA graphs
+    on the card)."""
     device = require_device(device)
     spec, params = _ssh_model(L, beta, dtau, dtype, device, twist)
     return _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order=8,
-                       integrator=integrator, ladder=ladder)
+                       integrator=integrator, ladder=ladder, **aids)
 
 
 def build_langevin_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
@@ -411,18 +434,32 @@ def _square(L: int) -> Lattice:
     return Lattice.create(UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]]), L)
 
 
+def _make_precond(ops, kcfg: kpm.KPMConfig, ncfg: NearNullConfig | None):
+    """The KPM preconditioner of ``kcfg`` (all three applies), or with
+    ``ncfg`` the near-null one over it."""
+    if ncfg is not None:
+        return make_nearnull_precond(ops, kcfg, ncfg)
+    return kpm.make_precond(ops, kcfg)
+
+
 def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order: int,
-                integrator: str = "leapfrog", ladder=None) -> BenchStep:
+                integrator: str = "leapfrog", ladder=None, block: bool = False,
+                deflate_k: int = 0, nearnull=None, exact_lowfreq: int = 0) -> BenchStep:
     ops = make_model_ops(spec)
     mass = build_mass(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
                       [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
     cfg = HMCConfig(dt=dt, trajectory_time=trajectory_time, Nb=4, tol=1e-5,
-                    maxiter=500, construct_guess=True, guess_order=3, integrator=integrator)
-    kcfg = kpm.KPMConfig(max_order=max_order)
-    precond = kpm.make_precond(ops, kcfg)
+                    maxiter=500, construct_guess=True, guess_order=3, integrator=integrator,
+                    block=block, deflate_k=deflate_k)
+    kcfg = kpm.KPMConfig(max_order=max_order, exact_lowfreq=exact_lowfreq)
+    ncfg = None if nearnull is None else NearNullConfig(k=nearnull[0], c=nearnull[1])
+    precond = _make_precond(ops, kcfg, ncfg)
     step = make_hmc_step(ops, mass, cfg, precond)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = init_phonons_half_filled(ops, params, n_chains, gen)
+    # the deflation basis from its own seed, the main stream left as it is
+    defl = init_deflation(ops, cfg, n_chains, torch.Generator(device=device).manual_seed(
+        seed + 7919), params=params, device=device)
     exchange = None
     if ladder is not None:
         tcfg = TemperingConfig(ladder=tuple(ladder), freq=EXCHANGE_FREQ, tol=cfg.tol,
@@ -430,10 +467,10 @@ def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_o
         params = ladder_params(params, tcfg, n_chains)
         exchange = make_exchange_step(ops, tcfg, n_chains, precond)
     return BenchStep(ops=ops, params=params, step=step,
-                     state=HMCState(x=x, v=torch.zeros_like(x)), generator=gen,
+                     state=HMCState(x=x, v=torch.zeros_like(x), defl=defl), generator=gen,
                      exchange=exchange, exchange_freq=EXCHANGE_FREQ if exchange else 0,
                      mass=mass, hmc_cfg=cfg, kpm_cfg=kcfg,
-                     tcfg=None if exchange is None else tcfg)
+                     tcfg=None if exchange is None else tcfg, nearnull_cfg=ncfg)
 
 
 def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
@@ -445,13 +482,15 @@ def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
     and initial state are cut; the generator is shared."""
     from elphdynamics_tpu_torch.parallel.lattice_shard import shard_model
 
-    ops, params, x, v = b.ops, b.params, b.state.x, b.state.v
+    ops, params, x, v, defl = b.ops, b.params, b.state.x, b.state.v, b.state.defl
     if shard is not None:
         spec, params = shard_model(ops.spec, params, shard)
         ops = make_model_ops(spec)
         if ops.is_holstein:
             x, v = shard.local(x), shard.local(v)
-    precond = kpm.make_precond(ops, b.kpm_cfg)
+        if defl is not None:
+            defl = deflation.cut(defl, shard.local)
+    precond = _make_precond(ops, b.kpm_cfg, b.nearnull_cfg)
     # a site shard's collectives run inside every solve: its update and
     # exchange stay eager; a chain block's replay the one-card graphs
     step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond, eager=shard is not None)
@@ -462,15 +501,18 @@ def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
     if chains is not None:
         params = chain_params(params, chains.lo, chains.n)
         x, v = chains.local(x), chains.local(v)
+        if defl is not None:
+            defl = chains.local(defl)
         run = chains.wrap(step)
 
         def step(params, state, generator=None):
             return run(params, state, generator=generator)
 
         step.segmented, step.workspace = run.segmented, run.workspace
-    return BenchStep(ops=ops, params=params, step=step, state=HMCState(x=x, v=v),
+    return BenchStep(ops=ops, params=params, step=step, state=HMCState(x=x, v=v, defl=defl),
                      generator=b.generator, exchange=exchange, exchange_freq=b.exchange_freq,
-                     mass=b.mass, hmc_cfg=b.hmc_cfg, kpm_cfg=b.kpm_cfg, tcfg=b.tcfg)
+                     mass=b.mass, hmc_cfg=b.hmc_cfg, kpm_cfg=b.kpm_cfg, tcfg=b.tcfg,
+                     nearnull_cfg=b.nearnull_cfg)
 
 
 @dataclass(frozen=True)
@@ -500,36 +542,108 @@ class DeepBetaSolves:
     rhs: torch.Tensor        # [C, 2, N, Lτ] Mᵀ·R
     cfg: DeepBetaConfig
     seed: int                # the deflation basis's draw
+    # the starting basis on the device ("basis"), and per kind the graphed
+    # solve's preconditioner, CGSolve and workspace box
+    kept: dict = field(default_factory=dict, repr=False, compare=False)
 
-    def prepare(self, kind: str):
+    def _precond(self, kind: str):
+        kcfg = kpm.KPMConfig(max_order=self.cfg.max_order)
+        return (make_nearnull_precond(self.ops, kcfg, self.cfg.nearnull) if kind == "nearnull"
+                else kpm.make_precond(self.ops, kcfg))
+
+    def _basis(self) -> deflation.DeflationState:
+        """The starting basis, drawn on the host, so that every device
+        starts from one basis; drawn and uploaded once, each prepare's
+        refreshes start from it (they leave it as it is)."""
+        if "basis" not in self.kept:
+            x = self.x
+            init = deflation.init(x.shape[0], self.cfg.deflation.k, self.ops.Nsites,
+                                  self.ops.Ltau, dtype=x.dtype, device="cpu",
+                                  generator=torch.Generator().manual_seed(self.seed))
+            self.kept["basis"] = deflation.DeflationState(*(getattr(init, f.name).to(x.device)
+                                                            for f in fields(init)))
+        return self.kept["basis"]
+
+    def _refreshed(self, defl, apply_P, derived):
+        """``defl`` refreshed ``cfg.refreshes`` times at x."""
+        p, x, cfg = self.params, self.x, self.cfg
+        for _ in range(cfg.refreshes):
+            defl = deflation.refresh(defl, lambda v: self.ops.mulMTM(p, derived, v.to(x.dtype)),
+                                     apply_P, cfg.deflation)
+        return defl
+
+    def prepare(self, kind: str, eager: bool = False):
         """The solve of ``kind`` (one of :data:`SOLVE_KINDS`) made ready:
         its preconditioner set up at ``x`` (and the deflation basis refreshed
         ``cfg.refreshes`` times); returns ``run() -> SolveResult``, a
-        from-zero solve of all right-hand sides."""
+        from-zero solve of all right-hand sides.
+
+        Graphed unless ``eager``: the set-up (the preconditioner's setup,
+        the basis's refreshes and the solve's start, ``solvers.cg_init``)
+        is one segment, replayed here, and ``run`` the solve's CG blocks,
+        verification and an ``end`` segment that keeps the result
+        (:class:`..dynamics.graphs.CGSolve`), on the card as CUDA graphs,
+        host reads + 1 replays a call; a kind's workspace, graphs and preconditioner are made
+        on its first graphed prepare and kept. The eager form sets up and
+        solves through ``dynamics.solve.solve_oinv``, the same arithmetic."""
         if kind not in SOLVE_KINDS:
             raise ValueError(f"unknown solve kind {kind!r} (expected one of {SOLVE_KINDS})")
+        if not eager:
+            return self._prepare_graphed(kind)
         ops, p, x, cfg = self.ops, self.params, self.x, self.cfg
-        kcfg = kpm.KPMConfig(max_order=cfg.max_order)
-        precond = (make_nearnull_precond(ops, kcfg, cfg.nearnull) if kind == "nearnull"
-                   else kpm.make_precond(ops, kcfg))
+        precond = self._precond(kind)
         pa = precond_applies(precond, precond.setup(p, x))
         ds = ops.stack(ops.derived(p, x))
-        defl = None
-        if kind == "deflation":
-            # drawn on the host, so that every device starts from one basis
-            init = deflation.init(x.shape[0], cfg.deflation.k, ops.Nsites, ops.Ltau,
-                                  dtype=x.dtype, device="cpu",
-                                  generator=torch.Generator().manual_seed(self.seed))
-            defl = deflation.DeflationState(*(getattr(init, f.name).to(x.device)
-                                              for f in fields(init)))
-            for _ in range(cfg.refreshes):
-                defl = deflation.refresh(defl, lambda v: ops.mulMTM(p, ds, v.to(x.dtype)),
-                                         pa.symmetric, cfg.deflation)
+        defl = self._refreshed(self._basis(), pa.symmetric, ds) if kind == "deflation" else None
         scfg = SolverConfig(tol=cfg.tol, maxiter=cfg.maxiter)
 
         def run() -> SolveResult:
             return solve_oinv(ops, p, ds, self.rhs, scfg, pa, deflate=defl)
 
+        return run
+
+    def _prepare_graphed(self, kind: str):
+        ops, cfg = self.ops, self.cfg
+        deflate = kind == "deflation"
+        if kind not in self.kept:
+            precond = self._precond(kind)
+            scfg = SolverConfig(tol=cfg.tol, maxiter=cfg.maxiter)
+            self.kept[kind] = (precond, graphs.CGSolve(
+                ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision, rhs="rhs",
+                stacked=True, deflate=deflate), {})
+        precond, cg, box = self.kept[kind]
+        ws = graphs.step_workspace(box, self.params, self.x)
+        ws.put("x", self.x)
+        ws.put("rhs", self.rhs)
+        ws.put_start(precond.start)
+        if deflate:
+            ws.put("defl_in", self._basis())
+
+        def setup():
+            env = ws.put("env", ops.derived(ws.params, ws.x))
+            ws.load("kpm", precond.setup(ws.params, ws.x, ws.kpm_start))
+            if deflate:
+                ws.load("defl", self._refreshed(
+                    ws.defl_in, precond_applies(precond, ws.kpm).symmetric, ops.stack(env)))
+            cg.start(ws, cfg.tol)
+
+        def end():
+            st = cg.state(ws)
+            for name, val in (("out_x", st.x), ("out_iters", st.iters),
+                              ("out_residual", ws.verdict.residual),
+                              ("out_flag", ws.verdict.flag)):
+                ws.put(name, val)
+
+        ws.capture_once(lambda: [("setup", setup), *cg.segments(ws, cfg.tol), ("end", end)])
+        ws.run("setup", setup)
+
+        def run() -> SolveResult:
+            cg.solve(ws, cfg.tol)
+            ws.run("end", end)
+            return SolveResult(x=ws.out_x.clone(), iters=ws.out_iters.clone(),
+                               residual=ws.out_residual.clone(), flag=ws.out_flag.clone())
+
+        run.workspace = ws
         return run
 
 
@@ -576,4 +690,6 @@ def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
                                    model=cfg.model, method=cfg.method, twist=cfg.twist, **kw)
     make = build_ssh_step if cfg.model == "ssh" else build_bench_step
     return make(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype, twist=cfg.twist,
-                integrator=cfg.integrator, ladder=cfg.ladder, **kw)
+                integrator=cfg.integrator, ladder=cfg.ladder, block=cfg.block,
+                deflate_k=cfg.deflate_k, nearnull=cfg.nearnull,
+                exact_lowfreq=cfg.exact_lowfreq, **kw)

@@ -9,10 +9,12 @@ ladder) couplings: the HMC update, leapfrog or 2MN (``dynamics/hmc.py``),
 the Langevin step (``dynamics/langevin.py``), the reflection and swap
 moves (``dynamics/special_updates.py``), the measurement step
 (``measure/measurements.py``) and the tempering exchange
-(``dynamics/tempering.py``). A call is split into
+(``dynamics/tempering.py``), with the CG solver aids: block CG, slow-mode
+deflation, the near-null preconditioner and the KPM's exact low-frequency
+blocks. A call is split into
 segments, each a function over one :class:`Workspace` of tensors that keep
-their addresses from one call to the next. Its CG solves are the segments
-of :class:`CGSolve`, shared by all five. A call on chain ranks may stop
+their addresses from one call to the next. Its CG and block CG solves are
+the segments of :class:`CGSolve`, shared by all five. A call on chain ranks may stop
 between two replays for an eager collective (the exchange's gathers,
 :meth:`Workspace.collective`; gloo cannot be captured) and resume in the
 same workspace: it replays host reads + 1 graphs per run of segments
@@ -29,7 +31,8 @@ Before its capture every segment runs once eagerly on the capture stream
 as the kernels' launch-geometry tuning and bond-plan uploads
 (``ops/ckb_cuda.py``), the KPM constant tables (``ops/kpm.py``), the mass
 operator's circulants, the bf16 operand of exp(−Δτ·K), the τ↔ω phase Θ of
-the complex KPM pipeline (``ops/timefreqfft.py``) and the cuFFT plans of its
+the complex KPM pipeline (``ops/timefreqfft.py``), the near-null test
+vectors (``ops/nearnull.py``) and the cuFFT plans of its
 full-spectrum FFTs. A capture that
 reaches such work raises, as does any other failed capture or replay: there
 is no fallback to the eager call.
@@ -42,7 +45,7 @@ shares between graphs, never hold a value another graph reads.
 from __future__ import annotations
 
 import time
-from dataclasses import fields, replace
+from dataclasses import fields, is_dataclass, replace
 
 import torch
 
@@ -50,6 +53,9 @@ from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, _cg_operators, precond_applies
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype
+
+# a workspace's start vectors before its first put_start (None is a value)
+_NO_START = object()
 
 # parameters a graph holds a value derived from: Holstein's exp(−Δτ·K) and
 # its inverse (the bf16 operand of the in-loop MᵀM); a change needs a new
@@ -106,14 +112,23 @@ class Workspace:
         return value
 
     def put(self, name: str, value):
-        """Copy ``value``, a tensor or a NamedTuple of tensors (SSH's derived
-        state ``SSHDerived(cosh, sinh)``), into the kept value of that name,
-        each tensor in place; the first put keeps a clone."""
+        """Copy ``value``, a tensor, a NamedTuple of tensors (SSH's derived
+        state ``SSHDerived(cosh, sinh)``) or a dataclass of tensors (a
+        deflation basis), into the kept value of that name, each tensor in
+        place; the first put keeps a clone, so that no segment ever writes
+        into a tensor the caller holds."""
         buf = self._t.get(name)
         if torch.is_tensor(value):
             if buf is None:
                 return self.keep(name, value.clone())
             return buf.copy_(value)
+        if is_dataclass(value):
+            if buf is None:
+                return self.keep(name, replace(value, **{
+                    f.name: getattr(value, f.name).clone() for f in fields(value)}))
+            for f in fields(value):
+                getattr(buf, f.name).copy_(getattr(value, f.name))
+            return buf
         if buf is None:
             return self.keep(name, value._make(t.clone() for t in value))
         for dst, src in zip(buf, value):
@@ -153,29 +168,34 @@ class Workspace:
 
     def load(self, name: str, value):
         """Keep a dataclass of tensors (a preconditioner state, a
-        verification's result): the first value is kept as it is (its
-        tensors are fresh or constants), a later one copied into it field
-        by field, skipping the fields that are the kept tensors themselves
-        (the constants)."""
+        verification's result), or a tuple of them (the near-null
+        preconditioner's ``(KPMState, NearNullState)``): the first value is
+        kept as it is (its tensors are fresh or constants), a later one
+        copied into it field by field, skipping the fields that are the
+        kept tensors themselves (the constants)."""
         kept = self._t.get(name)
         if kept is None:
             return self.keep(name, value)
-        for f in fields(value):
-            src, dst = getattr(value, f.name), getattr(kept, f.name)
-            if src is dst:
-                continue
-            if not torch.is_tensor(src):
-                raise ValueError(f"{name}.{f.name}: {src!r} where the kept state has {dst!r}")
-            dst.copy_(src)
+        for src_dc, dst_dc in (zip(value, kept) if isinstance(value, tuple)
+                               else ((value, kept),)):
+            for f in fields(src_dc):
+                src, dst = getattr(src_dc, f.name), getattr(dst_dc, f.name)
+                if src is dst:
+                    continue
+                if not torch.is_tensor(src):
+                    raise ValueError(f"{name}.{f.name}: {src!r} where the kept state has "
+                                     f"{dst!r}")
+                dst.copy_(src)
         return kept
 
     def put_start(self, src) -> None:
         """Keep the preconditioner's power-iteration start vectors ``src``
         (a tuple of tensors) on the device as ``self.kpm_start``, copied in
-        only when ``src`` is another tuple than the last one."""
-        if self.__dict__.get("start_src") is not src:
-            self.kpm_start = tuple(self.put(f"kpm_start{i}", s.to(self.device))
-                                   for i, s in enumerate(src))
+        only when ``src`` is another tuple than the last one; None (a
+        preconditioner that carries none) passes None to its setup."""
+        if self.__dict__.get("start_src", _NO_START) is not src:
+            self.kpm_start = None if src is None else tuple(
+                self.put(f"kpm_start{i}", s.to(self.device)) for i, s in enumerate(src))
             self.start_src = src
 
     def collective(self, fn) -> None:
@@ -241,32 +261,48 @@ def step_workspace(box: dict, params, x) -> Workspace:
     return ws
 
 
-def graphable_precond(precond) -> bool:
-    """Whether the segments cover ``precond``: none, or a KPM
-    preconditioner without the exact low-frequency blocks."""
-    return precond is None or (precond.cfg is not None and precond.cfg.exact_lowfreq == 0)
-
-
 class CGSolve:
-    """The CG solve of MᵀM·z = ``ws.<rhs>`` (KPM-preconditioned or plain)
-    as segments over a workspace (the derived state ``ws.env``, stacked by
+    """The CG solve of MᵀM·z = ``ws.<rhs>`` (preconditioned or plain) as
+    segments over a workspace (the derived state ``ws.env``, stacked by
     ``ops.stack`` where ``stacked``; the tolerance ``ws.tol``; the
     preconditioner state ``ws.kpm``): its start (:meth:`start`), blocks of
-    ``solvers.CG_SYNC_EVERY`` masked iterations (:meth:`block`), the
+    ``solvers.CG_SYNC_EVERY`` masked iterations (:meth:`block_step`), the
     verification (:meth:`verify`) and its rare retry (:meth:`retry`, run
-    eagerly), each doing :func:`..solvers.solve_checked`'s arithmetic.
+    eagerly), each doing :func:`..solvers.solve_checked`'s arithmetic, or
+    with ``block`` :func:`..solvers.block_solve_checked`'s (block CG over
+    the axis before the field axes: the two spins of a trajectory solve, the
+    nᵥ probes of a measurement). The state is ``ws.cg``, or ``ws.bcg`` for
+    block CG (:meth:`state`), so an update that runs both kinds keeps both;
+    their graphs are ``cg_block`` and ``verify``, and ``bcg_block`` and
+    ``bcg_verify`` (``_block_loop`` where the in-loop operator is the
+    cheaper one). With ``deflate`` the
+    start is projected onto the workspace's deflation basis ``ws.defl``
+    twice (``solvers.cg_init(deflate=)``).
+
     :meth:`solve` keeps the eager solve's host reads: ``any(active)``
     before each block, and ``any(bad)`` after the verification where a
-    preconditioner makes a retry possible. Under complex hopping the
+    retry is possible (a preconditioner, or block CG). On a replayed call a
+    preconditioner's deferred check (``precond.check``, the near-null
+    factorisations) runs before the first read. Under complex hopping the
     systems are the packed complex fields (``[C, 1, N, Lτ]`` for a
     trajectory solve, ``[C, nᵥ, N, Lτ]`` for the probes), their dots the
-    float64 Re(a†b) of :func:`..utils.dtypes.fdot`."""
+    float64 Re(a†b) of :func:`..utils.dtypes.fdot` and block CG's Grams
+    Hermitian."""
 
     def __init__(self, ops, precond, maxiter: int, kappa_max: float, loop_precision,
-                 rhs: str, stacked: bool):
+                 rhs: str, stacked: bool, block: bool = False, deflate: bool = False):
         self.ops, self.precond = ops, precond
         self.maxiter, self.kappa_max, self.loop_precision = maxiter, kappa_max, loop_precision
         self.rhs, self.stacked = rhs, stacked
+        self.block, self.deflate = block, deflate
+        self.name = "bcg" if block else "cg"
+        # graph names are per kind: an update that runs both keeps both
+        self.verify_name = "bcg_verify" if block else "verify"
+
+    def state(self, ws):
+        """The solve's :class:`..solvers.CGState` (block CG's
+        :class:`..solvers.BlockCGState`) in the workspace."""
+        return getattr(ws, self.name)
 
     def _hot(self, ws, tol):
         """The in-loop MᵀM of a solve at ``tol`` on the workspace's field
@@ -286,7 +322,7 @@ class CGSolve:
         solve whose in-loop operator is the full one."""
         loop = _cg_operators(self.ops, None, None, SolverConfig(
             tol=tol, loop_precision=self.loop_precision))[1] is not None
-        return "cg_block_loop" if loop else "cg_block"
+        return f"{self.name}_block_loop" if loop else f"{self.name}_block"
 
     def _P(self, ws):
         if self.precond is None:
@@ -296,29 +332,37 @@ class CGSolve:
     def start(self, ws, tol: float, guess=None) -> None:
         """The solve's start at ``tol`` from ``guess`` (zero for None)."""
         ws.tol.fill_(tol)
-        st = solvers.cg_init(self._hot(ws, tol), getattr(ws, self.rhs), guess,
-                             apply_P=self._P(ws), tol=ws.tol)
-        if "cg" in ws:
-            ws.cg.load_(st)
+        rhs = getattr(ws, self.rhs)
+        if self.block:
+            st = solvers.block_cg_init(self._hot(ws, tol), rhs, guess, apply_P=self._P(ws),
+                                       tol=ws.tol)
         else:
-            ws.keep("cg", st.clone())
+            st = solvers.cg_init(self._hot(ws, tol), rhs, guess, apply_P=self._P(ws), tol=ws.tol,
+                                 deflate=ws.defl if self.deflate else None)
+        if self.name in ws:
+            self.state(ws).load_(st)
+        else:
+            ws.keep(self.name, st.clone())
 
-    def block(self, ws, tol) -> None:
-        solvers.cg_block(self._hot(ws, tol), ws.cg, apply_P=self._P(ws), tol=ws.tol,
-                         maxiter=self.maxiter, kappa_max=self.kappa_max)
+    def block_step(self, ws, tol) -> None:
+        step = solvers.block_cg_block if self.block else solvers.cg_block
+        step(self._hot(ws, tol), self.state(ws), apply_P=self._P(ws), tol=ws.tol,
+             maxiter=self.maxiter, kappa_max=self.kappa_max)
 
     def verify(self, ws) -> None:
-        ws.load("verdict", solvers.cg_verify(self._full(ws), getattr(ws, self.rhs), ws.cg.x,
-                                             ws.cg.iters, ws.tol, self.maxiter))
+        st = self.state(ws)
+        ws.load("verdict", solvers.cg_verify(self._full(ws), getattr(ws, self.rhs), st.x,
+                                             st.iters, ws.tol, self.maxiter))
 
     def retry(self, ws) -> None:
         """The verification's retry, eager (it runs only when a system
         failed), through the same kernels; its result goes into the
         workspace."""
-        res = solvers.cg_retry(self._full(ws), getattr(ws, self.rhs), ws.cg.x, ws.cg.iters,
+        st = self.state(ws)
+        res = solvers.cg_retry(self._full(ws), getattr(ws, self.rhs), st.x, st.iters,
                                ws.verdict, ws.tol, self.maxiter, self.kappa_max)
-        ws.cg.x.copy_(res.x)
-        ws.cg.iters.copy_(res.iters)
+        st.x.copy_(res.x)
+        st.iters.copy_(res.iters)
         ws.verdict.flag.copy_(res.flag)
         ws.verdict.residual.copy_(res.residual)
         ws.retries += 1
@@ -326,17 +370,21 @@ class CGSolve:
     def segments(self, ws, tol) -> list:
         """The solve's segments in capture order: one CG block, the
         verification."""
-        return [(self.kind(tol), lambda: self.block(ws, tol)), ("verify", lambda: self.verify(ws))]
+        return [(self.kind(tol), lambda: self.block_step(ws, tol)),
+                (self.verify_name, lambda: self.verify(ws))]
 
     def solve(self, ws, tol) -> None:
         """The host loop of a started solve: blocks while any system is
         active, the verification, and the retry where a system failed."""
+        if ws.graphs is not None and self.precond is not None and self.precond.check:
+            self.precond.check(ws.kpm)
+        st = self.state(ws)
         j = 0
-        while j < self.maxiter and solvers.host_any(ws.cg.active):
-            ws.run(self.kind(tol), lambda: self.block(ws, tol))
+        while j < self.maxiter and solvers.host_any(st.active):
+            ws.run(self.kind(tol), lambda: self.block_step(ws, tol))
             j += solvers.CG_SYNC_EVERY
-        ws.run("verify", lambda: self.verify(ws))
-        if self.precond is not None and solvers.host_any(ws.verdict.bad):
+        ws.run(self.verify_name, lambda: self.verify(ws))
+        if (self.block or self.precond is not None) and solvers.host_any(ws.verdict.bad):
             self.retry(ws)
 
 

@@ -37,10 +37,12 @@ averaging toward ``target_acceptance``) changes it with no host read.
 
 The update with CG on one rank or a chain rank's block, leapfrog or 2MN,
 Holstein or SSH, real or complex hopping, shared or per-chain (tempering
-ladder) couplings, is a fixed sequence of segments over one workspace
-(:mod:`.graphs`): the start (momenta, φ, the KPM setup, the tol² solve's
-start), a block of ``solvers.CG_SYNC_EVERY`` masked CG iterations, the
-verification, a
+ladder) couplings, with block CG, deflation and any preconditioner (KPM
+with or without the ``exact_lowfreq`` blocks, the near-null one), is a
+fixed sequence of segments over one workspace (:mod:`.graphs`): the start
+(momenta, φ, the preconditioner's setup, the deflation basis's refresh,
+the tol² solve's start), a block of ``solvers.CG_SYNC_EVERY`` masked CG
+(or block CG) iterations, the verification, a
 trajectory step from a solved z to the next solve's start (its Nb bosonic
 substeps included; 2MN's middle of a step, between its two solves, a
 segment of its own), the end (ΔH, the Metropolis test, the masked state
@@ -50,10 +52,10 @@ block, the verification's ``any(bad)`` and its rare retry, run eagerly).
 On the CPU the segments run directly, doing the eager update's arithmetic
 in its order. The model's derived state (Holstein's ``expnV``, SSH's
 ``SSHDerived`` tables) and the KPM state, SSH's per-chain τ-means and
-dense Ā included, are copied into the workspace's tensors in place. Every
-other configuration (block CG, deflation, BiCGStab / GMRES, the KPM
-``exact_lowfreq`` blocks, a site shard), and a caller that asks for it by
-name (``eager=True``), runs the eager update. Under complex hopping the
+dense Ā included, the near-null state and the deflation basis, are copied
+into the workspace's tensors in place; the basis comes back as new tensors.
+BiCGStab / GMRES, a site shard and a caller that asks for it by name
+(``eager=True``) run the eager update. Under complex hopping the
 workspace holds the packed complex pseudofermions, φ, Λφ and the
 warm-start history ``[C, 1, N, Lτ]``, SSH's complex tables and the complex
 KPM state, while x, v and the forces stay real.
@@ -249,7 +251,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
 
     ``eager`` asks for the eager update where the graphed one (module
     docstring: the CG update of either model and integrator without a site
-    shard) would run.
+    shard, block CG and deflation included) would run.
     ``step.segmented`` says whether the configuration takes the graphed
     update (on a real field or under complex hopping);
     ``step.workspace()`` is its
@@ -347,11 +349,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             return x + h * v, v
         return boson_substeps(params, x, v, qf, h / cfg.Nb)
 
-    def refresh_deflation(params, state, derived0, pstate, fdtype):
-        """The basis refined at the update's starting field (kept on reject
-        too: it only steers solver starts)."""
-        if cfg.deflate_k <= 0:
-            return state.defl
+    def check_deflation(params, state) -> None:
+        """Refuse a deflated update without a basis, or a real basis under
+        complex hopping (host-side, before any work)."""
         if state.defl is None:
             raise ValueError("cfg.deflate_k > 0 requires HMCState.defl "
                              "(initialize with dynamics.hmc.init_deflation)")
@@ -360,10 +360,14 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             raise ValueError("complex hopping parameters require a complex deflation "
                              "basis: initialize with init_deflation(ops, cfg, n_chains, "
                              "params=params)")
+
+    def refine_deflation(params, defl, derived0, pstate, fdtype):
+        """One refresh of the basis ``defl`` at the update's starting field,
+        through P⁻¹A of the preconditioner's setup there."""
         pa0 = precond_applies(precond, pstate)
         ds0 = ops.stack(derived0)
         return deflation.refresh(
-            state.defl, lambda v: ops.mulMTM(params, ds0, v.to(fdtype)),
+            defl, lambda v: ops.mulMTM(params, ds0, v.to(fdtype)),
             pa0.symmetric if pa0 is not None else (lambda v: v), cfg.deflation,
             reduce=site_reduce(ops))
 
@@ -386,7 +390,12 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
                else MtR)
 
         pstate = precond_state(precond, params, x0, start=draws.kpm_start)
-        defl = refresh_deflation(params, state, derived0, pstate, fdtype)
+        # the basis refined at the starting field (kept on reject too: it
+        # only steers solver starts)
+        defl = state.defl
+        if cfg.deflate_k > 0:
+            check_deflation(params, state)
+            defl = refine_deflation(params, defl, derived0, pstate, fdtype)
 
         Lphi0 = lam_phi(params, x0, phi)
         z0, iters, flag = solve_O(params, x0, derived0, Lphi0, tol2, pstate, defl=defl)
@@ -464,22 +473,32 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
     # --- the graphed update: the CG update of a field without a site shard
-    # (leapfrog or 2MN; Holstein or SSH, real or complex hopping) as a
-    # fixed sequence of segments over one workspace (dynamics/graphs.py),
-    # replayed as CUDA graphs on a CUDA field and called directly on the
-    # CPU. Each segment does the eager update's arithmetic in its order.
-    segmented = (not eager and ops.shard is None and cfg.solver_kind == "cg" and not cfg.block
-                 and cfg.deflate_k <= 0 and graphs.graphable_precond(precond))
+    # (leapfrog or 2MN; Holstein or SSH, real or complex hopping; block CG,
+    # deflation and any preconditioner) as a fixed sequence of segments
+    # over one workspace (dynamics/graphs.py), replayed as CUDA graphs on a
+    # CUDA field and called directly on the CPU. Each segment does the
+    # eager update's arithmetic in its order.
+    segmented = not eager and ops.shard is None and cfg.solver_kind == "cg"
     two_mn = cfg.integrator == "2mn"
+    deflating = cfg.deflate_k > 0
     box: dict = {}
     cg = graphs.CGSolve(ops, precond, cfg.maxiter, cfg.kappa_max, cfg.loop_precision,
-                        rhs="Lphi", stacked=True)
+                        rhs="Lphi", stacked=True, deflate=deflating)
+    bcg = graphs.CGSolve(ops, precond, cfg.maxiter, cfg.kappa_max, cfg.loop_precision,
+                         rhs="Lphi", stacked=True, block=True)
 
-    def chain_result(ws):
+    def solver(tol) -> graphs.CGSolve:
+        """The solve at ``tol``: block CG over the spin stack where
+        ``cfg.block`` asks and the solve is not deflated and tol ≥ 1e-6
+        (dynamics/solve.solve_oinv's gate), else CG."""
+        return bcg if cfg.block and not deflating and tol >= 1e-6 else cg
+
+    def chain_result(ws, tol):
         """The finished solve's per-chain iterations and flag (the mean
         over the spin stack's systems, the largest flag)."""
-        ns = ws.cg.iters.shape[1]
-        return (ws.cg.iters.sum(dim=1) + ns - 1) // ns, ws.verdict.flag.amax(dim=1)
+        st = solver(tol).state(ws)
+        ns = st.iters.shape[1]
+        return (st.iters.sum(dim=1) + ns - 1) // ns, ws.verdict.flag.amax(dim=1)
 
     def hist(ws):
         return tuple(getattr(ws, f"hist{i}") for i in range(zhist_size(g_ord)))
@@ -492,10 +511,11 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         MᵀM·z = ws.Lphi at ``tol`` (ws.env holds the field's derived state)."""
         if precond is not None:
             ws.load("kpm", precond.refresh(ws.kpm, ws.params, x))
-        cg.start(ws, tol, guess if use_g else None)
+        solver(tol).start(ws, tol, guess if use_g else None)
 
     def seg_start(ws):
-        """Momenta, φ = Λ⁻¹·MᵀR, the KPM setup and the tol² solve's start."""
+        """Momenta, φ = Λ⁻¹·MᵀR, the preconditioner's setup, the deflation
+        basis's refresh and the tol² solve's start."""
         p, x0 = ws.params, ws.x0
         mop = mass(x0)
         R = ops.tie(ws.momentum.to(x0)).double()
@@ -507,6 +527,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
                      if has_lambda else MtR)
         if precond is not None:
             ws.load("kpm", precond.setup(p, x0, ws.kpm_start))
+        if deflating:
+            ws.load("defl", refine_deflation(p, ws.defl_in, derived0,
+                                             ws.kpm if precond is not None else None,
+                                             field_dtype(p, x0.dtype)))
         ws.put("Lphi", lam_phi(p, x0, phi))
         solve_setup(ws, x0, None, tol2)
 
@@ -537,8 +561,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         history, the middle kick, the second drift over dt/2 and the second
         solve's start."""
         p, dt = ws.params, step_dt(ws)
-        z_m = ws.cg.x
-        it_m, fl_m = chain_result(ws)
+        z_m = solver(tol1).state(ws).x
+        it_m, fl_m = chain_result(ws, tol1)
         Qd_m = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z_m))
         for i, h in enumerate(zhist_push(hist(ws), z_m, ws.ok)):
             ws.put(f"hist{i}", h)
@@ -553,8 +577,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         kick (leapfrog's half kick, 2MN's λ-kick), the warm-start history and
         the masked commit."""
         p, dt = ws.params, step_dt(ws)
-        z1 = ws.cg.x
-        it1, fl1 = chain_result(ws)
+        z1 = solver(tol1).state(ws).x
+        it1, fl1 = chain_result(ws, tol1)
         Qd1 = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z1))
         if two_mn:
             v1 = ws.v1 - LAM_2MN * dt * Qd1
@@ -583,8 +607,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         """After the tol² start solve: H₀, the first force, the history; then
         the first step up to its solve."""
         p, x0 = ws.params, ws.x0
-        z0 = ws.cg.x
-        it, fl = chain_result(ws)
+        z0 = solver(tol2).state(ws).x
+        it, fl = chain_result(ws, tol2)
         ws.put("iters", it)
         ws.put("flag", fl)
         ws.put("H0", calc_S(p, x0, ws.Lphi, z0) + calc_K(ws.v0))
@@ -613,8 +637,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     def seg_end(ws):
         """ΔH, the Metropolis test and the masked state update."""
         p = ws.params
-        z1 = ws.cg.x
-        it2, fl2 = chain_result(ws)
+        z1 = solver(tol2).state(ws).x
+        it2, fl2 = chain_result(ws, tol2)
         iters = ws.iters + it2
         flag = torch.maximum(ws.flag, fl2)
         S1 = calc_S(p, ws.x, ws.Lphi, z1)
@@ -635,13 +659,14 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     def segments(ws):
         """Every segment once, in the order of a first update whose solves
         each stop after one CG block (the warm-up and the capture order)."""
-        seq = [("start", lambda: seg_start(ws)), *cg.segments(ws, tol2),
-               ("first", lambda: seg_first(ws)), *cg.segments(ws, tol1)]
+        s1, s2 = solver(tol1), solver(tol2)
+        seq = [("start", lambda: seg_start(ws)), *s2.segments(ws, tol2),
+               ("first", lambda: seg_first(ws)), *s1.segments(ws, tol1)]
         if two_mn:
-            seq += [("mid", lambda: seg_mid(ws)), *cg.segments(ws, tol1)]
+            seq += [("mid", lambda: seg_mid(ws)), *s1.segments(ws, tol1)]
         if cfg.Nt > 1:
-            seq += [("step", lambda: seg_step(ws)), *cg.segments(ws, tol1)]
-        return seq + [("last", lambda: seg_last(ws)), *cg.segments(ws, tol2),
+            seq += [("step", lambda: seg_step(ws)), *s1.segments(ws, tol1)]
+        return seq + [("last", lambda: seg_last(ws)), *s2.segments(ws, tol2),
                       ("end", lambda: seg_end(ws))]
 
     def graphed(params, state: HMCState, dt, generator, draws):
@@ -651,8 +676,15 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         if draws is None:
             draws = draw(ops, x.shape[0], x.dtype, x.device, generator,
                          field_dtype(params, x.dtype))
+        if deflating:
+            check_deflation(params, state)
         ws = graphs.step_workspace(box, params, x)
         dev = x.device
+        if deflating:
+            # the caller's basis; the refresh reads its W, pvec and lam_max
+            # (its chol, float32 from init_deflation and in the field dtype
+            # after a refresh, is rebuilt)
+            ws.put("defl_in", state.defl)
         if cfg.log_verbose and "k" not in ws:
             ws.put("k", torch.zeros(1, dtype=torch.int64, device=dev))
         ws.put("x0", x)
@@ -667,18 +699,19 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             ws.put_start(draws.kpm_start if draws.kpm_start is not None else precond.start)
         ws.capture_once(lambda: segments(ws))
 
+        s1, s2 = solver(tol1), solver(tol2)
         ws.run("start", lambda: seg_start(ws))
-        cg.solve(ws, tol2)
+        s2.solve(ws, tol2)
         ws.run("first", lambda: seg_first(ws))
         for k in range(cfg.Nt):
-            cg.solve(ws, tol1)
+            s1.solve(ws, tol1)
             if two_mn:
                 ws.run("mid", lambda: seg_mid(ws))
-                cg.solve(ws, tol1)
+                s1.solve(ws, tol1)
             if k + 1 < cfg.Nt:
                 ws.run("step", lambda: seg_step(ws))
         ws.run("last", lambda: seg_last(ws))
-        cg.solve(ws, tol2)
+        s2.solve(ws, tol2)
         ws.run("end", lambda: seg_end(ws))
 
         stats = HMCStats(accepted=ws.accepted.clone(), iters=ws.mean_iters.clone(),
@@ -687,7 +720,12 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         if cfg.log_verbose:
             stats = replace(stats, traj_H=ws.traj_H.clone(), traj_S=ws.traj_S.clone(),
                             traj_K=ws.traj_K.clone(), traj_iters=ws.traj_iters.clone())
-        return HMCState(x=ws.out_x.clone(), v=ws.out_v.clone(), defl=state.defl), stats
+        defl = state.defl
+        if deflating:
+            # the refreshed basis, kept on a reject too, as new tensors
+            defl = replace(ws.defl, **{name: getattr(ws.defl, name).clone()
+                                       for name in ("W", "chol", "pvec", "lam_max")})
+        return HMCState(x=ws.out_x.clone(), v=ws.out_v.clone(), defl=defl), stats
 
     def update(params, state: HMCState, dt, generator, draws):
         """The graphed update where the configuration is in its slice, else

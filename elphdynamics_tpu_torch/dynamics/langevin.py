@@ -20,8 +20,9 @@ field's device, first η and then one ``g`` per force evaluation in the
 order the forces are evaluated.
 
 The step with CG on one rank or a chain rank's block (the whole batch's
-draws cut to it), real or complex hopping (no preconditioner, or
-KPM without the exact low-frequency blocks) is a fixed sequence of segments
+draws cut to it), real or complex hopping (no preconditioner, KPM with or
+without the exact low-frequency blocks, or the near-null one) is a fixed
+sequence of segments
 over one workspace (:mod:`.graphs`), as the HMC update is: the start (η
 tied, the step's full KPM setup, the derived state, b = Mᵀg₀ and the
 solve's start), the solve's blocks of ``solvers.CG_SYNC_EVERY`` CG
@@ -32,10 +33,8 @@ field update). On a CUDA field each segment is captured once as a CUDA
 graph and replayed, the host keeping the eager step's reads; on the CPU
 the segments run directly, doing the eager step's arithmetic in its order.
 Complex hopping takes the graphed step too (the force probes g, b = M†g
-and the solution complex, x real). Every other configuration (BiCGStab /
-GMRES, the near-null or ``exact_lowfreq`` preconditioners, a site shard),
-and a caller that asks for it by name (``eager=True``), runs the eager
-step.
+and the solution complex, x real). BiCGStab / GMRES, a site shard and a
+caller that asks for it by name (``eager=True``) run the eager step.
 """
 
 from __future__ import annotations
@@ -150,8 +149,7 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
 
     # --- the graphed step: the segments over one workspace, each doing the
     # eager step's arithmetic in its order
-    segmented = (not eager and ops.shard is None and scfg.kind == "cg"
-                 and graphs.graphable_precond(precond))
+    segmented = not eager and ops.shard is None and scfg.kind == "cg"
     box: dict = {}
     cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
                         rhs="b", stacked=False)

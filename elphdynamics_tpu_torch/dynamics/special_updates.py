@@ -25,9 +25,9 @@ an all-reduce; the actions are summed over the ranks.
 
 On one rank or a chain rank's block, with shared or per-chain (tempering
 ladder) couplings, with a real field or under complex hopping (the packed
-complex pseudofermions ``[n_moves, C, 1, N, Lτ]``), and with no
-preconditioner or KPM without the exact low-frequency blocks, a call is a
-fixed sequence of segments over one workspace (:mod:`.graphs`), as the HMC
+complex pseudofermions ``[n_moves, C, 1, N, Lτ]``), and with any
+preconditioner (KPM, with or without the exact low-frequency blocks, or
+the near-null one), a call is a fixed sequence of segments over one workspace (:mod:`.graphs`), as the HMC
 update is: ``first`` (move 0's
 start: φ and S₀ at x, the proposal, the derived state, Λφ and the full
 KPM setup at the proposed field, the tol² solve's start from zero), the
@@ -39,9 +39,8 @@ the replay that reads them, so no graph holds a move index. On a CUDA
 field each segment is captured once as a CUDA graph and replayed, the host
 keeping the eager call's reads (CG's ``any(active)`` before a block, the
 verification's ``any(bad)``); on the CPU the segments run directly, doing
-the eager call's arithmetic in its order. The near-null and
-``exact_lowfreq`` preconditioners, a site shard and a caller that asks for
-it by name (``eager=True``) run the eager call.
+the eager call's arithmetic in its order. A site shard and a caller that
+asks for it by name (``eager=True``) run the eager call.
 """
 
 from __future__ import annotations
@@ -142,8 +141,7 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
 
     # --- the segmented call: the eager call's arithmetic in its order, over
     # one workspace (dynamics/graphs.py)
-    segmented = (not eager and n_moves > 0 and ops.shard is None
-                 and graphs.graphable_precond(precond))
+    segmented = not eager and n_moves > 0 and ops.shard is None
     box: dict = {}
     # the eager call's solve: CG at tol², kappa_max and loop_precision at
     # SolverConfig's defaults, preconditioned by the symmetric apply

@@ -133,8 +133,8 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
     (:func:`chain_params`), ``x`` and ``v`` its block, and the results are
     its block of the exchanged fields; the draws stay the whole batch's.
 
-    Without a site shard, with CG and a graphable preconditioner
-    (:func:`.graphs.graphable_precond`), the exchange is a fixed sequence of
+    Without a site shard (the exchange solves by CG, with any
+    preconditioner), the exchange is a fixed sequence of
     segments over one workspace (:mod:`.graphs`), replayed as CUDA graphs on
     a CUDA field and called directly on the CPU, each doing the eager
     exchange's arithmetic in its order: ``first`` (φ and S₀), ``cross``
@@ -220,7 +220,7 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
                       draws.uniform.to(device=x.device), x_all, v_all)
 
     # --- the segmented exchange (see the docstring)
-    segmented = (not eager and ops.shard is None and graphs.graphable_precond(precond))
+    segmented = not eager and ops.shard is None
     box: dict = {}
     tables: dict = {}
     cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,

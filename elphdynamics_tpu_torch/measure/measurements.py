@@ -195,13 +195,15 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     ``step.analyze(params, x, gd)`` is everything after the solves.
 
     On one rank or a chain rank (its block, or the gathered rung-0 chains
-    under tempering), with CG (``scfg.block`` off), on a real field or under
-    complex hopping, and with no preconditioner or KPM without the exact
-    low-frequency blocks, a call is a fixed sequence of segments over one
-    workspace (``dynamics/graphs.py``),
-    as the HMC update is: ``probe_start`` (the derived state, the full KPM
-    setup at x, b = MᵀR and the CG start from zero), the solve's CG blocks
-    and verification, and ``analyze`` (the pair tensors, every estimator,
+    under tempering), with CG or block CG over the nᵥ probes
+    (``scfg.block``), on a real field or under complex hopping, and with
+    any preconditioner (KPM, with or without the exact low-frequency
+    blocks, or the near-null one), a call is a fixed sequence of segments
+    over one workspace (``dynamics/graphs.py``),
+    as the HMC update is: ``probe_start`` (the derived state, the full
+    preconditioner setup at x, b = MᵀR and the (block) CG start from zero),
+    the solve's (block) CG blocks and verification, and ``analyze`` (the
+    pair tensors, every estimator,
     the snapshots). The probes are drawn eagerly, in the eager order, and
     copied into the workspace. On a CUDA field each segment is captured
     once as a CUDA graph and replayed, the host keeping the eager solve's
@@ -533,11 +535,12 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         return _join_chains(blocks)
 
     # --- the segmented measurement: the eager one's arithmetic in its order
-    segmented = (not eager and ops.shard is None and scfg.kind == "cg" and not scfg.block
-                 and graphs.graphable_precond(precond))
+    segmented = not eager and ops.shard is None and scfg.kind == "cg"
     box: dict = {}
+    # the probes' solve: block CG over the nᵥ probes of a chain with
+    # ``scfg.block`` (dynamics/solve.solve_minv), else CG
     cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
-                        rhs="b", stacked=True)
+                        rhs="b", stacked=True, block=scfg.block)
 
     def seg_start(ws):
         """The derived state and the full KPM setup at x, b = MᵀR and the
@@ -552,7 +555,8 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     def seg_analyze(ws):
         """The solve's per-chain statistics and :func:`analyze`, every
         result copied into the workspace (``ws.results``)."""
-        gd = G.GreensData(R=ws.R, MinvR=ws.cg.x, iters=ws.cg.iters.sum(dim=1) // nv,
+        st = cg.state(ws)
+        gd = G.GreensData(R=ws.R, MinvR=st.x, iters=st.iters.sum(dim=1) // nv,
                           flag=ws.verdict.flag.amax(dim=1))
         inc, stats, snaps = analyze(ws.params, ws.x, gd)
         ws.results = ({g: {k: ws.put(f"inc.{g}.{k}", v) for k, v in vals.items()}

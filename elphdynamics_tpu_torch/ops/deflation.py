@@ -39,6 +39,7 @@ import torch
 
 from elphdynamics_tpu_torch.utils.device import require_device
 from elphdynamics_tpu_torch.utils.dtypes import fdot, real_of
+from elphdynamics_tpu_torch.utils.linalg import cholesky_solve
 
 
 @dataclass(frozen=True)
@@ -202,5 +203,5 @@ def project(st: DeflationState, r0: torch.Tensor, x0: torch.Tensor,
     c = torch.matmul(rf, Wf.conj().mT)                      # [C, S, k]: w_i†·r0
     if reduce is not None:
         c = reduce(c)
-    y = torch.cholesky_solve(c.mT, st.chol.to(r0.dtype))      # [C, k, S]
+    y = cholesky_solve(c.mT, st.chol.to(r0.dtype))            # [C, k, S]
     return x0 + torch.matmul(y.mT, Wf).reshape(r0.shape)

@@ -39,8 +39,9 @@ Two options exist on the dense-Ā branch only, as in the JAX package:
 ``stacked`` precomputes the dense T_m(Ā′) stack per setup/refresh so that a
 pass is one stacked matmul and a coefficient combine, and
 ``exact_lowfreq = k`` inverts the k lowest Matsubara blocks exactly once
-per setup (a complex batched ``torch.linalg.inv``; the JAX package embeds
-them in real 2×2 blocks) and leaves the Chebyshev expansion the rest. The
+per setup (a complex batched inverse, no host read, on cuSOLVER on a card:
+:mod:`..utils.linalg`; the JAX package embeds them in real 2×2 blocks) and leaves the Chebyshev expansion
+the rest. The
 exact blocks enter the symmetric apply only; the left and right applies see
 those frequencies' coefficients zeroed, as in the JAX package.
 
@@ -67,6 +68,7 @@ from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.ops.checkerboard import CheckerboardSpec
 from elphdynamics_tpu_torch.ops.timefreqfft import omega_to_tau, tau_to_omega
 from elphdynamics_tpu_torch.utils.dtypes import complex_of, real_of
+from elphdynamics_tpu_torch.utils.linalg import inv_ex
 
 
 @dataclass(frozen=True)
@@ -253,14 +255,17 @@ def _stacked_cheb(S2: torch.Tensor, coeff: torch.Tensor, w: torch.Tensor) -> tor
 
 def _lowfreq_blocks(st: KPMState, k: int, Ltau: int) -> torch.Tensor:
     """G_j = (I − e^{−iφ_j}Ā)⁻¹ for the k lowest Matsubara frequencies,
-    complex ``[C, k, N, N]``, by one batched complex inverse. Built once per
-    full setup: the ``buf`` window that lets the bounds stay frozen along a
-    trajectory covers these blocks equally."""
+    complex ``[C, k, N, N]``, by one batched complex inverse
+    (:func:`..utils.linalg.inv_ex`: no error check's host read, its LU on
+    cuSOLVER on a card, which a CUDA graph captures).
+    Built once per full setup: the ``buf`` window that lets the bounds stay
+    frozen along a trajectory covers these blocks equally. The φ_j are a
+    kept table (:func:`_table`)."""
     A = _dense_A(st)
-    phis = torch.as_tensor(2.0 * np.pi / Ltau * (np.arange(k) + 0.5), device=A.device).to(A.dtype)
+    phis = _table(f"phis{Ltau}", k, A.device, A.dtype, lambda n: _phis(n, Ltau))
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     blocks = eye - torch.exp(-1j * phis)[None, :, None, None] * A[:, None]
-    return torch.linalg.inv(blocks)
+    return inv_ex(blocks)
 
 
 def _lowfreq_apply_sym(st: KPMState, ur, ui):
@@ -451,8 +456,8 @@ def setup(ops: ModelOps, params, x, cfg: KPMConfig, start) -> KPMState:
         k = min(cfg.exact_lowfreq, Lw)
         # the exact blocks replace those columns: their Chebyshev
         # coefficients are zeroed so the polynomial adds nothing there
-        coeff = st.coeff.clone()
-        coeff[:, :, :k] = 0.0
+        low = torch.arange(Lw, device=device) < k
+        coeff = torch.where(low, torch.zeros_like(st.coeff), st.coeff)
         st = replace(st, G_low=_lowfreq_blocks(st, k, Ltau), coeff=coeff)
     return st
 
@@ -640,9 +645,12 @@ class Preconditioner:
     coefficient build; ``refresh(st, params, x)`` re-derives only the
     averaged operator; ``symmetric(st, v)``, ``left(st, v)`` and
     ``right(st, v)`` apply P⁻¹ (the last two None on a symmetric-only
-    preconditioner). A KPM preconditioner also carries its configuration
-    and its fixed power-iteration start vectors (``setup``'s default), which
-    a graphed update keeps on the device."""
+    preconditioner). A preconditioner also carries its fixed
+    power-iteration start vectors (``setup``'s default), which a graphed
+    call keeps on the device, a KPM one its configuration, and one whose
+    setup or refresh defers an error check (the near-null factorisations)
+    ``check(st)``, which raises that error: a replayed call runs it at the
+    solve's first host read."""
 
     setup: object
     refresh: object
@@ -651,6 +659,7 @@ class Preconditioner:
     right: object = None
     cfg: KPMConfig | None = None
     start: tuple | None = None
+    check: object = None
 
 
 def make_symmetric_precond(ops: ModelOps, cfg: KPMConfig, seed: int = 1234):

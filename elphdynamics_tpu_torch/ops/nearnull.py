@@ -20,16 +20,25 @@ are refused by the configuration.
 
 Fields carry a leading chain axis: ``T`` ``[C, k, N, Lτ]``, the whitening
 ``C`` ``[C, Lτ/c, k, k]``, ``Ginv`` ``[C, D, D]``.
+
+Setup and refresh are fixed sequences with no host read, so a graphed
+sampler call (``dynamics/graphs.py``) captures them: the smoothing is a CG
+start and ⌈iters / ``CG_SYNC_EVERY``⌉ masked blocks, the chunk Grams'
+factorisation keeps its ``info`` in the state (:func:`check` raises
+``torch.linalg.cholesky``'s error from it: at once on an eager call, at
+the solve's next host read on a replayed one), and the test vectors sit on
+the device from the first setup there.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
 from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.ops import kpm
+from elphdynamics_tpu_torch.utils.linalg import cholesky_solve
 
 
 @dataclass(frozen=True)
@@ -53,6 +62,10 @@ class NearNullState:
     T: torch.Tensor     # [C, k, N, Lτ] smoothed test vectors (unit norm)
     C: torch.Tensor     # [C, nt, k, k] per-chunk whitening: B_J = T|_J · C_J
     Ginv: torch.Tensor  # [C, D, D] inverse Galerkin matrix, D = nt·k
+    # [C, nt] the chunk Grams' Cholesky info (0: factorised; :func:`check`)
+    info: torch.Tensor | None = None
+    # [C, k, N, Lτ] the setup's test vectors, which every refresh re-smooths
+    T0: torch.Tensor | None = None
 
 
 def _chunk_counts(Ltau: int, cfg: NearNullConfig) -> tuple[int, int]:
@@ -70,11 +83,20 @@ def _chunk_counts(Ltau: int, cfg: NearNullConfig) -> tuple[int, int]:
 
 def _smooth(ops, params, derived, kst, kcfg, T, iters: int):
     """Inverse-iteration smoothing T ← normalise(A⁻¹T) by ``iters``
-    KPM-preconditioned CG iterations (``derived`` stacked for ``T``)."""
-    res = solvers.cg(lambda v: ops.mulMTM(params, derived, v), T,
-                     apply_P=lambda v: kpm.apply_symmetric(ops, kst, v, kcfg),
-                     tol=0.0, maxiter=iters)
-    W = res.x
+    KPM-preconditioned CG iterations (``derived`` stacked for ``T``): the
+    loop of ``solvers.cg`` at tol 0 without its host reads, ⌈iters /
+    ``CG_SYNC_EVERY``⌉ masked blocks (an iteration past ``iters`` changes
+    nothing, so the bits are the loop's)."""
+    def A(v):
+        return ops.mulMTM(params, derived, v)
+
+    def P(v):
+        return kpm.apply_symmetric(ops, kst, v, kcfg)
+
+    st = solvers.cg_init(A, T, apply_P=P, tol=0.0)
+    for _ in range(-(-iters // solvers.CG_SYNC_EVERY)):
+        solvers.cg_block(A, st, apply_P=P, tol=0.0, maxiter=iters)
+    W = st.x
     nrm = torch.sqrt((W * W).sum(dim=(-2, -1), keepdim=True))
     return W / torch.clamp(nrm, min=1e-30)
 
@@ -93,8 +115,9 @@ def _build(ops, params, derived, T, cfg: NearNullConfig) -> NearNullState:
     scale = torch.diagonal(S, dim1=-2, dim2=-1).sum(-1).mean(dim=1) / k
     eye = torch.eye(k, dtype=dtype, device=device)
     S = S + (cfg.reg * scale)[:, None, None, None] * eye
-    Linv = torch.linalg.solve_triangular(torch.linalg.cholesky(S),
-                                         eye.expand(S.shape).contiguous(), upper=False)
+    # torch.linalg.cholesky's factor; its error check (a host read) is check's
+    L, info = torch.linalg.cholesky_ex(S)
+    Linv = torch.linalg.solve_triangular(L, eye.expand(S.shape).contiguous(), upper=False)
     Cw = Linv.mT
 
     # M·W columns, two parity-coloured applies (M spreads one τ slice)
@@ -120,7 +143,26 @@ def _build(ops, params, derived, T, cfg: NearNullConfig) -> NearNullState:
     Z[:, J, J1] += Go
     Z[:, J1, J] += Go.mT
     G = Z.permute(0, 1, 3, 2, 4).reshape(Cn, nt * k, nt * k)
-    return NearNullState(T=T, C=Cw, Ginv=_spd_inverse(G, cfg))
+    return NearNullState(T=T, C=Cw, Ginv=_spd_inverse(G, cfg), info=info)
+
+
+def check(nn: NearNullState) -> None:
+    """Raise ``torch.linalg.cholesky``'s error where a chunk Gram of ``nn``
+    did not factorise (one host read)."""
+    if nn.info is None:
+        return
+    info = nn.info.reshape(-1).cpu()
+    bad = torch.nonzero(info).reshape(-1)
+    if len(bad):
+        b = int(bad[0])
+        raise torch.linalg.LinAlgError(
+            f"linalg.cholesky: (Batch element {b}): The factorization could not be completed "
+            f"because the input is not positive-definite (the leading minor of order "
+            f"{int(info[b])} is not positive-definite).")
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def _spd_inverse(G: torch.Tensor, cfg: NearNullConfig) -> torch.Tensor:
@@ -132,7 +174,7 @@ def _spd_inverse(G: torch.Tensor, cfg: NearNullConfig) -> torch.Tensor:
     eye = torch.eye(G.shape[-1], dtype=torch.float64, device=G.device)
     Gs = G64 * s[..., :, None] * s[..., None, :] + cfg.reg * eye
     L, info = torch.linalg.cholesky_ex(Gs)
-    X = torch.cholesky_solve(eye.expand(Gs.shape), L)
+    X = cholesky_solve(eye.expand(Gs.shape), L)
     X = 0.5 * (X + X.mT)
     X = torch.where((info == 0)[:, None, None], X, torch.zeros_like(X))
     return (X * s[..., :, None] * s[..., None, :]).to(G.dtype)
@@ -157,37 +199,59 @@ def make_nearnull_precond(ops, kcfg: kpm.KPMConfig, ncfg: NearNullConfig,
                           ) -> kpm.Preconditioner:
     """The two-level :class:`..kpm.Preconditioner` (symmetric apply only;
     state ``(KPMState, NearNullState)``). Setup smooths the test vectors and
-    assembles G at the update's starting field; each refresh re-smooths them
-    at the current field (``refresh_mode``) and re-assembles G. The KPM
-    power iteration starts from ``kpm.start_vectors(N, seed)`` unless setup
-    is given others; ``test_vectors`` ``[k, N, Lτ]`` (default: normals drawn
-    from ``ncfg.seed``) seed every chain's T."""
+    assembles G at the update's starting field; each refresh re-smooths the
+    setup's test vectors at the current field (``refresh_mode``) and
+    re-assembles G, whichever state it is given of those the setup led to.
+    The KPM power iteration starts from ``kpm.start_vectors(N, seed)``
+    (the preconditioner's ``start``) unless setup is given others;
+    ``test_vectors`` ``[k, N, Lτ]`` (default: normals drawn from
+    ``ncfg.seed``) seed every chain's T, uploaded once per device and
+    dtype. A failed chunk factorisation raises (:func:`check`) at once,
+    unless a CUDA graph is capturing the call: the preconditioner's
+    ``check`` then runs after a replay."""
     fixed = kpm.start_vectors(ops.Nsites, seed)
     tv0 = test_vectors
     if tv0 is None:
         tv0 = torch.randn((ncfg.k, ops.Nsites, ops.Ltau), dtype=torch.float64,
                           generator=torch.Generator().manual_seed(ncfg.seed))
+    uploaded: dict = {}
+
+    def test_vectors_on(device, dtype):
+        key = (device, dtype)
+        if key not in uploaded:
+            if _capturing(device):
+                raise RuntimeError("near-null test vectors uploaded during a CUDA graph "
+                                   "capture: run the setup once before capturing it")
+            uploaded[key] = tv0.to(device=device, dtype=dtype)
+        return uploaded[key]
+
+    def checked(nn, x):
+        if not _capturing(x.device):
+            check(nn)
+        return nn
 
     def setup(params, x, start=None):
         kst = kpm.setup(ops, params, x, kcfg, fixed if start is None else start)
         derived = ops.stack(ops.derived(params, x))
-        T = tv0.to(device=x.device, dtype=x.dtype).expand(
+        T = test_vectors_on(x.device, x.dtype).expand(
             (x.shape[0],) + tuple(tv0.shape)).contiguous()
         for _ in range(ncfg.setup_passes):
             T = _smooth(ops, params, derived, kst, kcfg, T, ncfg.setup_iters)
-        return kst, _build(ops, params, derived, T, ncfg)
+        nn = _build(ops, params, derived, T, ncfg)
+        return kst, checked(replace(nn, T0=T.clone()), x)
 
     def refresh(st, params, x):
         kst = kpm.refresh(ops, st[0], params, x)
         if ncfg.refresh_mode == "freeze":
             return kst, st[1]
         derived = ops.stack(ops.derived(params, x))
-        T = st[1].T
+        T = st[1].T0
         if ncfg.refresh_mode == "smooth" and ncfg.refresh_iters > 0:
             T = _smooth(ops, params, derived, kst, kcfg, T, ncfg.refresh_iters)
-        return kst, _build(ops, params, derived, T, ncfg)
+        return kst, checked(replace(_build(ops, params, derived, T, ncfg), T0=st[1].T0), x)
 
     def symmetric(st, v):
         return kpm.apply_symmetric(ops, st[0], v, kcfg) + apply_correction(ops, st[1], v, ncfg)
 
-    return kpm.Preconditioner(setup=setup, refresh=refresh, symmetric=symmetric)
+    return kpm.Preconditioner(setup=setup, refresh=refresh, symmetric=symmetric, start=fixed,
+                              check=lambda st: check(st[1]))

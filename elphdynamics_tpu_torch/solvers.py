@@ -15,9 +15,11 @@ once every ``CG_SYNC_EVERY`` iterations (GMRES: at that cadence inside a
 restart cycle and once per cycle), and the retry ladders run only when a
 verification failed — one host sync per solve for them. :func:`cg` is a
 start (:func:`cg_init`) and blocks of ``CG_SYNC_EVERY`` iterations
-(:func:`cg_block`) over a :class:`CGState` updated in place, and its
-verification is :func:`cg_verify` then, rarely, :func:`cg_retry`: fixed
-shapes that a CUDA graph captures (``dynamics/graphs.py``).
+(:func:`cg_block`) over a :class:`CGState` updated in place, :func:`block_cg`
+likewise (:func:`block_cg_init`, :func:`block_cg_block`, a
+:class:`BlockCGState`), and the verification is :func:`cg_verify` then,
+rarely, :func:`cg_retry`: fixed shapes that a CUDA graph captures
+(``dynamics/graphs.py``).
 
 Dot products, norms and Gram matrices accumulate in float64
 (:mod:`elphdynamics_tpu_torch.utils.dtypes`); scalars are cast back to the
@@ -122,8 +124,21 @@ class CGResult:
     converged: torch.Tensor  # per-system bool
 
 
+class _InPlace:
+    """``clone`` and ``load_`` of a dataclass of tensors that a solver
+    block updates in place."""
+
+    def clone(self):
+        return type(self)(*(getattr(self, f.name).clone() for f in fields(self)))
+
+    def load_(self, other) -> None:
+        """Copy ``other``'s values into this state's tensors."""
+        for f in fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+
+
 @dataclass
-class CGState:
+class CGState(_InPlace):
     """Masked batched CG between two blocks of :func:`cg_block`: the
     iterate, residual and direction, the per-system ``rdotz``, κ bound,
     start residual ε₀, safe |b|, iteration count, convergence and activity
@@ -142,14 +157,6 @@ class CGState:
     conv: torch.Tensor
     active: torch.Tensor
     j: torch.Tensor
-
-    def clone(self) -> "CGState":
-        return CGState(*(getattr(self, f.name).clone() for f in fields(self)))
-
-    def load_(self, other: "CGState") -> None:
-        """Copy ``other``'s values into this state's tensors."""
-        for f in fields(self):
-            getattr(self, f.name).copy_(getattr(other, f.name))
 
 
 def cg_init(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
@@ -411,6 +418,130 @@ def _colsolve(G: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return sc[..., :, None] * Y
 
 
+@dataclass
+class BlockCGState(_InPlace):
+    """Block CG between two blocks of :func:`block_cg_block`: the iterate,
+    residual and search blocks ``[..., s, N, Lτ]``, the per-column safe |b|,
+    start residual ε₀ and κ bound, the iteration count, convergence and
+    activity masks, and the iteration index ``j`` (a 0-dim float64 tensor).
+    A block updates every field in place, as :class:`CGState`'s does."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    safe_normb: torch.Tensor
+    eps0: torch.Tensor
+    kmin: torch.Tensor
+    iters: torch.Tensor
+    conv: torch.Tensor
+    active: torch.Tensor
+    j: torch.Tensor
+
+
+class _BlockOps:
+    """The Grams, norms and block combinations of block CG on right-hand
+    sides shaped like ``B`` ``[..., s, N, Lτ]``."""
+
+    def __init__(self, B: torch.Tensor, reduce: Callable | None):
+        if B.ndim < 3:
+            raise ValueError("block_cg needs [..., s, N, Ltau] right-hand sides")
+        self.flat = B.shape[:-2] + (B.shape[-2] * B.shape[-1],)
+        self.wide = torch.complex128 if B.is_complex() else torch.float64
+        self.reduce = reduce
+
+    def gram(self, U, W):
+        """[..., a, b] = Σ conj(U[..., a])·W[..., b] over the field (U†W),
+        in float64 or complex128 (the rank's partial on a site shard). The
+        JAX package leaves out the conjugate, which is no inner product on
+        complex fields."""
+        return torch.matmul(U.reshape(self.flat).to(self.wide).conj(),
+                            W.reshape(self.flat).to(self.wide).mT)
+
+    def grams(self, *pairs):
+        """The Grams of ``pairs``, made global in one all-reduce."""
+        gs = [self.gram(U, W) for U, W in pairs]
+        return gs if self.reduce is None else list(self.reduce(torch.stack(gs)).unbind(0))
+
+    def norms(self, a, dot=_dot):
+        return torch.sqrt(_dots([(a, a)], self.reduce, dot)[0])
+
+    def combine(self, U, coef):
+        """Σₐ U[..., a]·coef[..., a, b] as a [..., b] block (no conjugate)."""
+        return torch.matmul(coef.to(U.dtype).mT, U.reshape(self.flat)).reshape(U.shape)
+
+
+def block_cg_init(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None, *,
+                  apply_P: Callable | None = None, tol=1e-5,
+                  active0: torch.Tensor | None = None,
+                  reduce: Callable | None = None) -> BlockCGState:
+    """The start of :func:`block_cg`: R = B − A·X0, Z = P(R), the per-column
+    start residual and masks, and the first search block (Z with the
+    inactive columns zeroed, each column normalised). ``tol`` is a number or
+    a 0-dim float64 tensor. The state's ``x`` may be ``X0`` itself: clone
+    it or load it into another state before a block runs on it."""
+    bo = _BlockOps(B, reduce)
+    if X0 is None:
+        X0 = torch.zeros_like(B)
+    P = apply_P if apply_P is not None else (lambda v: v)
+    R = B - apply_A(X0)
+    Z = P(R)
+    normb, normr = (torch.sqrt(d) for d in _dots([(B, B), (R, R)], reduce, _dot))
+    safe_normb = _positive(normb)               # [..., s]
+    eps0 = normr / safe_normb
+
+    batch = B.shape[:-2]
+    active = torch.ones(batch, dtype=torch.bool, device=B.device)
+    if active0 is not None:
+        active = active & active0
+    active = active & (eps0 >= tol)
+
+    Pd = Z * _bc(active, Z)
+    Pd = Pd / _bc(_positive(bo.norms(Pd, _dot_hot)), Pd)
+    return BlockCGState(x=X0, r=R, p=Pd, safe_normb=safe_normb, eps0=eps0,
+                        kmin=torch.zeros_like(eps0),
+                        iters=torch.zeros(batch, dtype=torch.int32, device=B.device),
+                        conv=eps0 < tol, active=active,
+                        j=torch.zeros((), dtype=torch.float64, device=B.device))
+
+
+def block_cg_block(apply_A: Callable, st: BlockCGState, *, apply_P: Callable | None = None,
+                   tol=1e-5, maxiter: int = 1000, kappa_max: float = 1e12,
+                   reduce: Callable | None = None) -> None:
+    """``CG_SYNC_EVERY`` masked iterations of :func:`block_cg` on ``st``,
+    in place, with no host read. An iteration changes a column only while
+    it is active and ``j < maxiter``. ``tol`` as in :func:`block_cg_init`."""
+    bo = _BlockOps(st.x, reduce)
+    P = apply_P if apply_P is not None else (lambda v: v)
+    s = st.x.shape[-3]
+    eye = torch.eye(s, dtype=bo.wide, device=st.x.device)
+    for _ in range(CG_SYNC_EVERY):
+        act = st.active & (st.j < maxiter)
+        Pd = st.p * _bc(act, st.p)
+        Q = apply_A(Pd)
+        G, PR = bo.grams((Pd, Q), (Pd, st.r))
+        # frozen slots: a unit diagonal keeps the batched LU non-singular
+        G = G + eye * (~act).to(bo.wide)[..., None, :]
+        alpha = _colsolve(G, PR) * act[..., None, :].to(bo.wide)
+        X_new = st.x + bo.combine(Pd, alpha)
+        R_new = st.r - bo.combine(Q, alpha)
+        eps = bo.norms(R_new, _dot_hot) / st.safe_normb
+        kmin_new = _kappa_bound(st.kmin, st.eps0, eps, st.j)
+        done = (eps < tol) | (kmin_new > kappa_max)
+        Z_new = P(R_new) * _bc(act & ~done, R_new)
+        beta = _colsolve(G, -bo.grams((Q, Z_new))[0])
+        Pd_new = Z_new + bo.combine(Pd, beta)
+
+        m = _bc(act, st.x)
+        torch.where(m, X_new, st.x, out=st.x)
+        torch.where(m, R_new, st.r, out=st.r)
+        torch.where(m, Pd_new, torch.zeros_like(Pd_new), out=st.p)
+        torch.where(act, kmin_new, st.kmin, out=st.kmin)
+        st.iters += act.to(torch.int32)
+        st.conv |= act & (eps < tol)
+        st.active &= ~(act & done)
+        st.j += 1
+
+
 def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None, *,
              apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
              kappa_max: float = 1e12, active0: torch.Tensor | None = None,
@@ -441,84 +572,20 @@ def block_cg(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None,
     ``reduce`` (a site-sharded solve: the site group's sum) makes the Grams
     and norms global, one all-reduce per set: the start's norms, then per
     iteration the pair PᵀAP, PᵀR, the residual norms and QᵀZ. Every rank of
-    the group then takes the same decisions and iterates in step."""
-    if B.ndim < 3:
-        raise ValueError("block_cg needs [..., s, N, Ltau] right-hand sides")
-    if X0 is None:
-        X0 = torch.zeros_like(B)
-    P = apply_P if apply_P is not None else (lambda v: v)
-    s = B.shape[-3]
-    field = B.shape[-2:]
-    flat = B.shape[:-2] + (field[0] * field[1],)
+    the group then takes the same decisions and iterates in step.
 
-    wide = torch.complex128 if B.is_complex() else torch.float64
-
-    def gram(U, W):
-        """[..., a, b] = Σ conj(U[..., a])·W[..., b] over the field (U†W),
-        in float64 or complex128 (the rank's partial on a site shard). The
-        JAX package leaves out the conjugate, which is no inner product on
-        complex fields."""
-        return torch.matmul(U.reshape(flat).to(wide).conj(), W.reshape(flat).to(wide).mT)
-
-    def grams(*pairs):
-        """The Grams of ``pairs``, made global in one all-reduce."""
-        gs = [gram(U, W) for U, W in pairs]
-        return gs if reduce is None else list(reduce(torch.stack(gs)).unbind(0))
-
-    def norms(a, dot=_dot):
-        return torch.sqrt(_dots([(a, a)], reduce, dot)[0])
-
-    def combine(U, coef):
-        """Σₐ U[..., a]·coef[..., a, b] as a [..., b] block (no conjugate)."""
-        return torch.matmul(coef.to(U.dtype).mT, U.reshape(flat)).reshape(U.shape)
-
-    R = B - apply_A(X0)
-    Z = P(R)
-    normb, normr = (torch.sqrt(d) for d in _dots([(B, B), (R, R)], reduce, _dot))
-    safe_normb = _positive(normb)               # [..., s]
-    eps0 = normr / safe_normb
-
-    batch = B.shape[:-2]
-    active = torch.ones(batch, dtype=torch.bool, device=B.device)
-    if active0 is not None:
-        active = active & active0
-    active = active & (eps0 >= tol)
-    conv = eps0 < tol
-
-    Pd = Z * _bc(active, Z)
-    Pd = Pd / _bc(_positive(norms(Pd, _dot_hot)), Pd)
-    X = X0
-    kmin = torch.zeros_like(eps0)
-    iters = torch.zeros(batch, dtype=torch.int32, device=B.device)
-    eye = torch.eye(s, dtype=wide, device=B.device)
-
-    for j in range(maxiter):
-        if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
-            break
-        Pd = Pd * _bc(active, Pd)
-        Q = apply_A(Pd)
-        G, PR = grams((Pd, Q), (Pd, R))
-        # frozen slots: a unit diagonal keeps the batched LU non-singular
-        G = G + eye * (~active).to(wide)[..., None, :]
-        alpha = _colsolve(G, PR) * active[..., None, :].to(wide)
-        X_new = X + combine(Pd, alpha)
-        R_new = R - combine(Q, alpha)
-        eps = norms(R_new, _dot_hot) / safe_normb
-        kmin_new = _kappa_bound(kmin, eps0, eps, j)
-        done = (eps < tol) | (kmin_new > kappa_max)
-        Z_new = P(R_new) * _bc(active & ~done, R_new)
-        beta = _colsolve(G, -grams((Q, Z_new))[0])
-        Pd_new = Z_new + combine(Pd, beta)
-
-        m = _bc(active, X)
-        X = torch.where(m, X_new, X)
-        R = torch.where(m, R_new, R)
-        Pd = torch.where(m, Pd_new, torch.zeros_like(Pd_new))
-        kmin = torch.where(active, kmin_new, kmin)
-        iters = iters + active.to(torch.int32)
-        conv = conv | (active & (eps < tol))
-        active = active & ~done
-    return CGResult(x=X, iters=iters, converged=conv)
+    The loop is :func:`block_cg_init` and then blocks of
+    :func:`block_cg_block`, with ``any(active)`` read on the host before
+    each block, as :func:`cg` runs."""
+    st = block_cg_init(apply_A, B, X0, apply_P=apply_P, tol=tol, active0=active0,
+                       reduce=reduce)
+    st.x = st.x.clone()
+    j = 0
+    while j < maxiter and host_any(st.active):
+        block_cg_block(apply_A, st, apply_P=apply_P, tol=tol, maxiter=maxiter,
+                       kappa_max=kappa_max, reduce=reduce)
+        j += CG_SYNC_EVERY
+    return CGResult(x=st.x, iters=st.iters, converged=st.conv)
 
 
 def block_solve_checked(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | None = None, *,

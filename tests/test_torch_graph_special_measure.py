@@ -18,10 +18,11 @@ Here, in float64, 2 chains, Lτ = 10:
   dependent and not, at ``loop_precision`` "high" and "highest";
 * they match the JAX package's jitted reflection, swap and measurement
   step on JAX's draws (x to 1e-10, increments to 1e-9);
-* the gate: ``[solver] block``, BiCGStab, GMRES, the near-null and
-  ``exact_lowfreq`` preconditioners, ``eager=True`` and a site shard take
-  the eager call; complex hopping takes the segmented one
-  (``tests/test_torch_graph_complex.py`` holds the twisted cases);
+* the gate: BiCGStab, GMRES, ``eager=True`` and a site shard take the
+  eager call; complex hopping, ``[solver] block`` and the near-null and
+  ``exact_lowfreq`` preconditioners take the segmented one
+  (``tests/test_torch_graph_complex.py`` holds the twisted cases,
+  ``tests/test_torch_graph_aids.py`` the solver aids);
 * a solve made to fail runs the verification and the eager retry;
 * a stand-in capture: a second call makes no host-to-device copy;
 * the stock Holstein and SSH HMC files and the twisted Holstein example
@@ -333,10 +334,12 @@ def _gate_model(case):
 
 @pytest.mark.parametrize("case", GATE)
 def test_gate_takes_the_eager_call(case):
-    """Complex hopping takes the segmented calls (a workspace, graphs on a
-    card); the other configurations are not segmented at all. Each call
-    equals its eager twin. The moves always solve by CG, so the solver kind
-    and ``block`` gate only the measurement."""
+    """Complex hopping, ``[solver] block`` and the near-null and
+    ``exact_lowfreq`` preconditioners take the segmented calls (a
+    workspace, graphs on a card); BiCGStab, GMRES, ``eager=True`` and a
+    site shard are not segmented at all. Each call equals its eager twin.
+    The moves always solve by CG, so the solver kind and ``block`` gate only
+    the measurement."""
     ops, params, x, precond = _gate_model(case)
     kind = case if case in ("bicgstab", "gmres") else "cg"
     scfg = SolverConfig(tol=1e-6, maxiter=500, kind=kind, block=case == "block")
@@ -344,16 +347,18 @@ def test_gate_takes_the_eager_call(case):
     eager = case == "eager"
     mstep = tm.make_measurement_step(ops, mspec, scfg, precond, eager=eager)
     mtwin = tm.make_measurement_step(ops, mspec, scfg, precond, eager=True)
-    assert mstep.segmented == (case == "complex")
+    measure_segmented = case in ("complex", "block", "nearnull", "exact_lowfreq")
+    assert mstep.segmented == measure_segmented
     cfg = tsu.SpecialUpdateConfig(freq=1, n_moves=2, maxiter=500)
     makers = (tsu.make_reflection_update, tsu.make_swap_update)
-    moves_segmented = case in ("complex", "block", "bicgstab", "gmres")
+    moves_segmented = case in ("complex", "block", "bicgstab", "gmres", "nearnull",
+                               "exact_lowfreq")
     if case == "shard":
         assert not any(make(ops, cfg, precond).segmented for make in makers)
         return
     R = mtwin.draw(params, x, torch.Generator().manual_seed(2))
     _equal(mstep(params, x, R=R), mtwin(params, x, R=R))
-    assert (mstep.workspace() is not None) == (case == "complex")
+    assert (mstep.workspace() is not None) == measure_segmented
     for make in makers:
         upd = make(ops, cfg, precond, eager=eager)
         twin = make(ops, cfg, precond, eager=True)

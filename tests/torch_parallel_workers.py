@@ -643,6 +643,47 @@ def graph_chains_worker(device, n_chains: int = 4):
     return out
 
 
+def graph_aids_worker(device, n_chains: int = 4):
+    """On this rank's block of ``n_chains`` chains (every chain on one
+    rank), from generators every rank seeds alike, two updates with block
+    CG and two with a deflation basis (4×4 Holstein, Lτ = 10, float64), each
+    in its segmented form and in its eager form (asked for by name) on the
+    same draws. Per update: whether the two forms agree bit for bit (host
+    reads included), whether the step is segmented, its host reads and the
+    segmented form's results on the rank's block (x, v, ΔH, iterations,
+    the refreshed basis)."""
+    from elphdynamics_tpu_torch import bench, solvers
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+
+    world = multihost.world()
+    cb = ChainBlock.of(n_chains, world, multihost.rank()) if world > 1 else None
+    out = {}
+    for label, aid in (("block", dict(block=True)), ("deflation", dict(deflate_k=4))):
+        b = bench.build_bench_step(4, 1.0, 0.1, 0.05, n_chains, "cpu", torch.float64,
+                                   trajectory_time=0.1, **aid)
+        lb = bench.shard_bench_step(b, chains=cb) if cb is not None else b
+        eager = lb.eager()
+        run_eager = eager if cb is None else cb.wrap(eager)
+        state_seg = state_eager = lb.state
+        for u in range(2):
+            res = []
+            for f, state in ((lb.step, state_seg), (run_eager, state_eager)):
+                solvers.host_reads = 0
+                g = torch.Generator().manual_seed(41 + u)
+                r = f(lb.params, state, g) if cb is None else f(lb.params, state, generator=g)
+                res.append((r, solvers.host_reads))
+            (state_seg, stats), reads = res[0]
+            state_eager = res[1][0][0]
+            row = dict(same=_same(res[0][0], res[1][0]) and reads == res[1][1],
+                       segmented=bool(lb.step.segmented and not eager.segmented), reads=reads,
+                       x=_np(state_seg.x), v=_np(state_seg.v), dH=_np(stats.delta_H),
+                       iters=_np(stats.iters))
+            if state_seg.defl is not None:
+                row["W"] = _np(state_seg.defl.W)
+            out[f"{label}_update{u}"] = row
+    return out
+
+
 def wij_force_worker(device, seed: int):
     """The ωᵢⱼ force (``calc_dSbdx`` of the dispersive ``wij`` model, 4×4,
     float64) on this rank's block of sites: the fixed-order sum, and the
