@@ -59,9 +59,10 @@ Phases (one line each, and the process exits non-zero if any fails):
     Runge-Kutta steps through the graphed step (replays > 0), steps per
     second, CG iterations per solve, flags 0, launch counts per kernel
     mode; and on the kernel 64×64 model nᵥ = 10
-    probe solves per chain by CG, block CG, GMRES and BiCGStab: iterations,
-    seconds, the solutions' mutual distance, K2 launches of the left and
-    right applies (block CG on complex fields at full width: phase 42);
+    probe solves per chain by CG and block CG: iterations, seconds, the
+    solutions' distance, K2 launches (GMRES and BiCGStab, with the left
+    apply, held to CG's solution: phase 43; block CG on complex fields at
+    full width: phase 42);
 14. the TOML driver on ``examples/holstein_langevin_square.toml`` with its
     counts cut, and the same file at 64×64, β = 4 (4 chains, a few steps,
     one measurement) with BondBond, CurrentCurrent and BondPairGreens
@@ -304,9 +305,21 @@ Phases (one line each, and the process exits non-zero if any fails):
     memory); ``AIDS_MEMORY_UPDATES`` graphed deflated 4×4 updates with no
     memory growth (``chiprun_out/graphed_aids.json``). Its 64×64 runs'
     shapes enter phase 23 and ``launches_by_path``.
+43. BiCGStab and GMRES graphed (``dynamics/graphs.NonsymSolve``), each
+    against its eager form on the same draws: bit for bit, replays = host
+    reads + 1 (an eager retry's reads apart), equal K1 / K2 launches by
+    form, flags as in the eager form: the ``GMRES_64X64`` and
+    ``BICGSTAB_64X64`` updates (their trajectories cut to 10 steps,
+    ``NONSYM_TRAJECTORY``) and the ``GMRES_LANGEVIN_64X64`` step (16
+    chains each; busy share, interleaved sweeps/s or chain-steps/s blocks,
+    pool bytes, capture seconds), the 64×64 Holstein measurement (4 chains,
+    nᵥ = 10) with GMRES probes and its seconds per call each way, and phase
+    13's GMRES and BiCGStab probe solves held to its CG solution
+    (``chiprun_out/graphed_nonsym.json``). Its runs' shapes enter phase 23
+    and ``launches_by_path``.
 
-Phases 36–42 run after 9, 32 after 19, 33, 35 and 34 after 22;
-phases 24–30 run before 23, which comes last.
+Phases 36–42 run after 9, 43 after 13, 32 after 19, 33, 35 and 34 after
+22; phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -961,10 +974,10 @@ def run_langevin_config(cfg, warmup: int, timed: int) -> dict:
 
 def phase_solver_kinds_64() -> dict:
     """nᵥ = 10 probe solves per chain of M·z = r on the kernel 64×64 model
-    (16 chains, float32, KPM max_order 4) by CG on MᵀM, block CG over each
-    chain's probes, GMRES and BiCGStab on M with the left apply: iterations,
-    seconds, flags, launches, and the largest relative distance between two
-    kinds' solutions."""
+    (16 chains, float32, KPM max_order 4) by CG on MᵀM and block CG over
+    each chain's probes: iterations, seconds, flags, launches, and the
+    relative distance between the two kinds' solutions (CG's is returned
+    as ``cg_x``: phase 43 holds GMRES's and BiCGStab's to it)."""
     from elphdynamics_tpu_torch.bench import LANGEVIN_64X64, build
     from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
     from elphdynamics_tpu_torch.ops import ckb_cuda
@@ -976,9 +989,7 @@ def phase_solver_kinds_64() -> dict:
     ds = ops.stack(ops.derived(b.params, x))
     pa = resolve_precond(b.precond, b.params, x)
     kw = dict(tol=1e-5, maxiter=500)
-    kinds = {"cg": (SolverConfig(**kw), False), "block_cg": (SolverConfig(block=True, **kw), True),
-             "gmres": (SolverConfig(kind="gmres", restart=20, **kw), False),
-             "bicgstab": (SolverConfig(kind="bicgstab", **kw), False)}
+    kinds = {"cg": (SolverConfig(**kw), False), "block_cg": (SolverConfig(block=True, **kw), True)}
     sols, out, shapes = {}, {}, set()
     for name, (scfg, block) in kinds.items():
         for timed in (False, True):      # the first pass tunes the launch geometries
@@ -1010,6 +1021,7 @@ def phase_solver_kinds_64() -> dict:
     if bad or not dist <= 1e-3:
         raise RuntimeError(f"64x64 solver kinds: flagged or idle {bad}, distance {dist}")
     out["launch_shapes"] = shapes
+    out["cg_x"] = sols["cg"]
     return out
 
 
@@ -2887,14 +2899,20 @@ def _counted_update(step, params, state, draws):
     """One update (or Langevin step: ``state`` the fields) on ``draws``,
     every count set to 0 just before and read just after: (state, stats,
     {seconds, K1/K2 launches by form and their shapes, host reads, graph
-    replays, the peak of allocated device memory above what was allocated
-    before the call})."""
+    replays, the host reads of the graphed form's eager retries (no replay
+    follows them), the peak of allocated device memory above what was
+    allocated before the call})."""
     from elphdynamics_tpu_torch import solvers
     from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    def retry_reads():
+        ws = step.workspace() if hasattr(step, "workspace") else None
+        return 0 if ws is None else ws.retry_reads
 
     torch.cuda.synchronize()
     ckb_cuda.reset_counts()
     solvers.host_reads = 0
+    retry0 = retry_reads()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with counting_replays() as box:
@@ -2904,7 +2922,7 @@ def _counted_update(step, params, state, draws):
         seconds = time.perf_counter() - t0
     return out, stats, dict(seconds=seconds, launches=dict(ckb_cuda.table_launches),
                             shapes=set(ckb_cuda.launch_shapes), host_reads=solvers.host_reads,
-                            replays=box["n"],
+                            replays=box["n"], retry_reads=retry_reads() - retry0,
                             peak_bytes=torch.cuda.max_memory_allocated() - base)
 
 
@@ -2926,10 +2944,11 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
     """Two updates of ``b``'s graphed step and of its eager twin on the same
     draws from the same state: bit for bit, or x within ``GRAPH_X_REL_TOL``
     and ΔH within 2·u·(|S| + K), with equal decisions, flags and
-    iterations; in both updates replays = host reads + 1; on the second
-    (the first captures) equal K1 / K2 launches by form, each of ``forms``
-    (the kernel forms on the configuration's path; none on a dense
-    Holstein branch) launched, and equal host reads."""
+    iterations; in both updates replays = host reads + 1 (the reads of an
+    eager retry, which no replay follows, not counted); on the second (the
+    first captures) equal K1 / K2 launches by form, each of ``forms`` (the
+    kernel forms on the configuration's path; none on a dense Holstein
+    branch) launched, and equal host reads."""
     state, out = b.state, {}
     for u in (1, 2):
         draws = eager.draw(b.params, state.x, b.state.x.shape[0], b.generator)
@@ -2948,6 +2967,7 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
                    decisions_iters_flags_equal=same, graphed_s=f"{mg['seconds']:.4f}",
                    eager_s=f"{me['seconds']:.4f}", replays=mg["replays"],
                    host_reads_graphed=mg["host_reads"], host_reads_eager=me["host_reads"],
+                   retry_reads=mg["retry_reads"],
                    launches_graphed={f: mg["launches"][f] for f in forms},
                    launches_eager={f: me["launches"][f] for f in forms},
                    acceptance=f"{tg.accepted.double().mean().item():.4f}",
@@ -2962,7 +2982,7 @@ def _graph_parity(b, eager, name: str, forms=()) -> dict:
         say(f"graph_parity_{name}", update=u, **row)
         if not (bitwise or (x_rel <= GRAPH_X_REL_TOL and dH_ok)) or not same:
             raise RuntimeError(f"graphed {name} update {u} left the eager one: {row}")
-        if mg["replays"] != mg["host_reads"] + 1:
+        if mg["replays"] != mg["host_reads"] - mg["retry_reads"] + 1:
             raise RuntimeError(f"graphed {name} update {u}: replays are not host reads + 1: {row}")
         if u == 2 and (mg["launches"] != me["launches"] or mg["host_reads"] != me["host_reads"]
                        or any(mg["launches"][f] <= 0 for f in forms)):
@@ -3000,7 +3020,7 @@ def _sweeps_ab(b, eager, n_chains: int, start, updates: int) -> dict:
     return out
 
 
-def _graphed_update(cfg, forms):
+def _graphed_update(cfg, forms, **build_kw):
     """The bench configuration ``cfg``'s graphed update against its eager
     twin: two updates each way on the same draws (:func:`_graph_parity`,
     with the kernel forms ``forms`` on its path; None runs a warm-up call of
@@ -3008,11 +3028,12 @@ def _graphed_update(cfg, forms):
     (:func:`_replay_busy_share`). The eager twin is the bench step's
     (:meth:`..bench.BenchStep.eager`): its own preconditioner (the same
     fixed start vectors), the model's spec and so the kernels' tuned
-    geometries shared. Returns (the bench step, its eager twin, the
+    geometries shared. ``build_kw`` go to :func:`..bench.build` (a cut
+    ``trajectory_time``). Returns (the bench step, its eager twin, the
     results)."""
     from elphdynamics_tpu_torch.bench import build
 
-    b = build(cfg, "cuda", torch.float32)
+    b = build(cfg, "cuda", torch.float32, **build_kw)
     eager = b.eager()
     if not b.step.segmented or eager.segmented:
         raise RuntimeError(f"{cfg.name}: the bench step is not the graphed update")
@@ -4289,6 +4310,184 @@ def phase_graphed_aids() -> dict:
     return {"holstein": holstein, "twisted": out["twisted"], "deep": out["deep"]}
 
 
+# phase 43: BiCGStab and GMRES graphed
+NONSYM_PROBES = 10            # nᵥ of the 64×64 GMRES measurement
+NONSYM_MEASURE_CHAINS = 4
+# the updates' trajectory in phase 43 (Nt = 10 of the configurations' 40:
+# the script's time); phase_graphed_nonsym(cg_x, 1.0) runs them whole
+NONSYM_TRAJECTORY = 0.25
+
+
+def _nonsym_probe_solves(cg_x) -> dict:
+    """Phase 13's GMRES and BiCGStab probe solves: nᵥ = 10 probes per chain
+    of M·z = r on the ``LANGEVIN_64X64`` model (16 chains) with the left
+    KPM apply, eager, on the probes phase 13 drew (seed 6): iterations,
+    seconds, flags, launches, and the largest relative distance from CG's
+    solution ``cg_x`` and from each other (≤ 1e-3)."""
+    from elphdynamics_tpu_torch.bench import LANGEVIN_64X64, build
+    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
+    from elphdynamics_tpu_torch.ops import ckb_cuda
+
+    b = build(LANGEVIN_64X64, "cuda", torch.float32)
+    ops, x = b.ops, b.x
+    R = torch.randn((x.shape[0], NONSYM_PROBES, ops.Nsites, ops.Ltau), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    ds = ops.stack(ops.derived(b.params, x))
+    pa = resolve_precond(b.precond, b.params, x)
+    kw = dict(tol=1e-5, maxiter=500)
+    sols, out, shapes = {"cg": cg_x}, {}, set()
+    for name, scfg in (("gmres", SolverConfig(kind="gmres", restart=20, **kw)),
+                       ("bicgstab", SolverConfig(kind="bicgstab", **kw))):
+        ckb_cuda.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_minv(ops, b.params, ds, R, scfg, pa)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        sols[name] = res.x
+        shapes |= ckb_cuda.launch_shapes
+        out[name] = dict(iters=res.iters.double().mean().item(), max_iters=int(res.iters.max()),
+                         seconds=secs, max_flag=int(res.flag.max()),
+                         max_residual=res.residual.max().item(),
+                         k1_launches=ckb_cuda.launches, k2_launches=ckb_cuda.fused_launches)
+        say("solver_kinds_64x64", kind=name, systems=R.shape[0] * R.shape[1],
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out[name].items()})
+
+    def norm(a):
+        return a.double().pow(2).sum(dim=(-2, -1)).sqrt()
+
+    dist = max((norm(sols[a] - sols[c]) / norm(cg_x)).max().item()
+               for a in sols for c in sols if a < c)
+    say("solver_kinds_64x64", kinds=sorted(sols), max_mutual_distance=f"{dist:.3e}",
+        tol=kw["tol"], gate=1e-3)
+    bad = [k for k, v in out.items()
+           if v["max_flag"] != 0 or v["k1_launches"] <= 0 or v["k2_launches"] <= 0]
+    if bad or not dist <= 1e-3:
+        raise RuntimeError(f"64x64 GMRES / BiCGStab probe solves: flagged or idle {bad}, "
+                           f"distance {dist}")
+    out["launch_shapes"] = shapes
+    return out
+
+
+def _bitwise_rows(name: str, rows: dict) -> None:
+    """Phase 43 holds every call to its eager form bit for bit."""
+    if not all(rows[u]["bitwise"] for u in (1, 2)):
+        raise RuntimeError(f"graphed {name} is not bit for bit its eager form")
+
+
+def _nonsym_update(cfg, trajectory_time: float) -> dict:
+    """A nonsymmetric 64×64 update (its trajectory ``trajectory_time``)
+    graphed against eager: parity (:func:`_graph_parity`, bit for bit),
+    busy share, interleaved sweeps/s blocks; the eager updates' flags (a
+    float32 tol² endpoint solve may flag: the graphed form must flag
+    alike)."""
+    b, eager, res = _graphed_update(cfg, MODES["holstein"], trajectory_time=trajectory_time)
+    par = res["parity"]
+    _bitwise_rows(cfg.name, par)
+    ab = _sweeps_ab(b, eager, cfg.n_chains, b.state, GRAPH_AB_UPDATES)
+    _say_ab(cfg.name, ab, "updates_per_block", GRAPH_AB_UPDATES, res["busy_graphed"])
+    ws = b.step.workspace()
+    acc = float(torch.cat(par["accepted"]).double().mean())
+    res.update(ab=ab, acceptance=acc, max_flag=max(par[u]["max_flag"] for u in (1, 2)),
+               graphs=sorted(ws.graphs.graphs), pool_bytes=ws.graphs.pool_bytes,
+               capture_s=ws.graphs.capture_s)
+    say(f"graphed_nonsym_{cfg.name}", Nt=b.hmc_cfg.Nt, acceptance=f"{acc:.4f}",
+        max_flag=res["max_flag"],
+        graphs=len(ws.graphs.graphs), pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}",
+        capture_s=f"{ws.graphs.capture_s:.3f}", retries=ws.retries)
+    if not acc > 0:
+        raise RuntimeError(f"{cfg.name}: acceptance {acc}")
+    return res
+
+
+def _nonsym_langevin(cfg) -> dict:
+    """The GMRES Langevin step graphed against eager
+    (:func:`_langevin_against_eager`, bit for bit) and interleaved
+    chain-steps/s blocks."""
+    from elphdynamics_tpu_torch.bench import build
+
+    b = build(cfg, "cuda", torch.float32)
+    eager = b.eager()
+    res = _langevin_against_eager(cfg.name, b, eager, MODES["holstein"])
+    _bitwise_rows(cfg.name, res["parity"])
+    ab = _sweeps_ab(b, eager, cfg.n_chains, b.x, GRAPH_AB_UPDATES)
+    _say_ab(cfg.name, ab, "steps_per_block", GRAPH_AB_UPDATES, res["busy_graphed"])
+    ws = b.step.workspace()
+    res.update(ab=ab, graphs=sorted(ws.graphs.graphs), pool_bytes=ws.graphs.pool_bytes,
+               capture_s=ws.graphs.capture_s)
+    say(f"graphed_nonsym_{cfg.name}", graphs=len(ws.graphs.graphs),
+        pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}", capture_s=f"{ws.graphs.capture_s:.3f}")
+    return res
+
+
+def _nonsym_measure_64() -> dict:
+    """The 64×64 Holstein measurement (the stock file widened, 4 chains,
+    nᵥ = 10) with GMRES probes (restart 20) on M with the left KPM apply,
+    graphed against eager (:func:`_special_parity`: bit for bit, flags 0),
+    seconds per call in interleaved blocks and the graphed call's busy
+    share."""
+    from elphdynamics_tpu_torch.bench import build_hmc_example, wide_hmc_config
+
+    with open(os.path.join(_examples_dir(), "holstein_hmc_square.toml"), "rb") as f:
+        cfg = wide_hmc_config(tomllib.load(f))
+    cfg["solver"].update(type="GMRES", restart=20)
+    cfg["measurements"]["num_random_vectors"] = NONSYM_PROBES
+    ex = build_hmc_example(cfg, NONSYM_MEASURE_CHAINS, "cuda", torch.float32)
+    twin = ex.eager()
+    rows = _special_parity(ex, twin, "gmres_64x64", MODES["holstein"], parts=("measure",))
+    x, g = ex.state.x, torch.Generator(device="cuda").manual_seed(23)
+    R = twin.measure.draw(ex.params, x, g)
+    ab = _calls_ab(lambda: ex.measure(ex.params, x, R=R), lambda: twin.measure(ex.params, x, R=R))
+    torch.cuda.synchronize()
+    with counting_replays(timed=True) as box:
+        t0 = time.perf_counter()
+        ex.measure(ex.params, x, R=R)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(a.elapsed_time(c) for a, c in box["spans"]) / 1e3 / wall
+    ws = ex.measure.workspace()
+    say("graph_ab_gmres_measure_64x64", chains=NONSYM_MEASURE_CHAINS, nv=NONSYM_PROBES,
+        eager_median_s=f"{ab['eager']['median']:.4f}", eager_iqr=f"{ab['eager']['iqr']:.4f}",
+        graphed_median_s=f"{ab['graphed']['median']:.4f}",
+        graphed_iqr=f"{ab['graphed']['iqr']:.4f}", speedup_median=f"{ab['speedup_median']:.3f}",
+        graphed_replay_busy=f"{busy:.4f}", pool_mb=f"{ws.graphs.pool_bytes / 2**20:.1f}",
+        capture_s=f"{ws.graphs.capture_s:.3f}", graphs=len(ws.graphs.graphs))
+    if "gmres" not in ws or ws.gmres.x.shape[1] != NONSYM_PROBES:
+        raise RuntimeError("the 64x64 GMRES measurement did not solve by GMRES")
+    return dict(parity=rows["measure"], ab=ab, busy=busy, pool_bytes=ws.graphs.pool_bytes,
+                capture_s=ws.graphs.capture_s)
+
+
+def phase_graphed_nonsym(cg_x, trajectory_time: float = NONSYM_TRAJECTORY) -> dict:
+    """43. BiCGStab and GMRES graphed (``dynamics/graphs.NonsymSolve``),
+    each against its eager form on the same draws, bit for bit, replays =
+    host reads + 1, equal K1 / K2 launches by form, flags as in the eager
+    form: the ``GMRES_64X64`` and ``BICGSTAB_64X64`` updates (each (MᵀM)⁻¹
+    two solves, Mᵀ with the right KPM apply, then M with the left one; the
+    trajectory cut to ``trajectory_time``, the tol² endpoint solves whole) and
+    the ``GMRES_LANGEVIN_64X64`` step (16 chains, RK), with busy shares and
+    interleaved sweeps/s (chain-steps/s) blocks; the 64×64 measurement (4
+    chains, nᵥ = 10) with GMRES probes; phase 22's GMRES and BiCGStab probe
+    solves, held to CG's solution ``cg_x`` (``chiprun_out/graphed_nonsym.json``).
+    Returns the runs whose launches and shapes enter ``launches_by_path``
+    and phase 23."""
+    from elphdynamics_tpu_torch.bench import (
+        BICGSTAB_64X64, GMRES_64X64, GMRES_LANGEVIN_64X64)
+
+    out = {"probes": _nonsym_probe_solves(cg_x)}
+    for cfg in (GMRES_64X64, BICGSTAB_64X64):
+        out[cfg.name] = _nonsym_update(cfg, trajectory_time)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out[GMRES_LANGEVIN_64X64.name] = _nonsym_langevin(GMRES_LANGEVIN_64X64)
+    out["gmres_measure_64x64"] = _nonsym_measure_64()
+    _write_json("graphed_nonsym.json", out)
+    runs = {f"graphed_{name}": out[name]["parity"]
+            for name in (GMRES_64X64.name, BICGSTAB_64X64.name, GMRES_LANGEVIN_64X64.name,
+                         "gmres_measure_64x64")}
+    return {"runs": runs, "probe_shapes": out["probes"]["launch_shapes"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4339,7 +4538,10 @@ def main() -> int:
     phase_chebyshev_ab()
     lang = run_langevin_config(LANGEVIN_64X64, warmup=1, timed=3)
     lang_ssh = run_langevin_config(SSH_LANGEVIN_64X64, warmup=1, timed=3)
-    shapes["solver_kinds_64x64"] = phase_solver_kinds_64()["launch_shapes"]
+    kinds = phase_solver_kinds_64()
+    shapes["solver_kinds_64x64"] = kinds["launch_shapes"]
+    nonsym = phase_graphed_nonsym(kinds.pop("cg_x"))
+    shapes["solver_kinds_nonsym_64x64"] = nonsym["probe_shapes"]
     block_cplx, deep = aids["twisted"], aids["deep"]
     phase_deep_beta_kernels()
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps
@@ -4373,12 +4575,13 @@ def main() -> int:
                       LANGEVIN_64X64.name: lang, "deep_beta_64x64": deep,
                       "chain_sharded_64x64": chains}
     ssh_paths = {"ssh_hmc_driver_64x64": drv_ssh, SSH_LANGEVIN_64X64.name: lang_ssh}
-    # phase 38's second graphed steps, phase 39's, phase 41's and phase 42's
-    # second graphed calls: the kernels inside the Langevin, move,
-    # measurement, 2MN, laddered update and exchange graphs (41: on chain
-    # ranks too) and those of the solver aids (block CG, deflation,
-    # near-null)
-    for k, r in (graphed_lang | graphed_special | graphed_chains | aids["holstein"]).items():
+    # phase 38's second graphed steps, phase 39's, phase 41's, phase 42's
+    # and phase 43's second graphed calls: the kernels inside the Langevin,
+    # move, measurement, 2MN, laddered update and exchange graphs (41: on
+    # chain ranks too), those of the solver aids (block CG, deflation,
+    # near-null) and those of BiCGStab and GMRES
+    for k, r in (graphed_lang | graphed_special | graphed_chains | aids["holstein"]
+                 | nonsym["runs"]).items():
         (ssh_paths if "ssh" in k else holstein_paths)[k] = r
     # slice H2's paths that reach the kernels: tempering on chain ranks (each
     # rank's own counts) and the chain blocks' measurements of the 2x2 layout

@@ -82,6 +82,19 @@ solves of MᵀM·z = Mᵀg, no Metropolis test):
 
 Both replay CUDA graphs on a card (the graphed Langevin step,
 ``dynamics/langevin.py``); :meth:`LangevinBench.eager` is the eager twin.
+
+The nonsymmetric solvers (``BenchConfig.solver``; restart 20 for GMRES,
+the JAX package's settings otherwise: tol 1e-5, tol² at the HMC endpoints,
+maxiter 500), each (MᵀM)⁻¹ of an update two solves in sequence, Mᵀ with
+the right KPM apply and then M with the left one, and the Langevin force's
+M⁻¹ one solve with the left apply:
+
+* ``GMRES_64X64`` and ``BICGSTAB_64X64``: ``KERNEL_64X64`` by GMRES and by
+  BiCGStab;
+* ``GMRES_LANGEVIN_64X64``: ``LANGEVIN_64X64`` by GMRES.
+
+All three replay CUDA graphs on a card (``dynamics/graphs.NonsymSolve``),
+with K1 in M and Mᵀ and K2 in the KPM applies.
 :func:`build_langevin_example` builds a stock ``[langevin]`` file's step
 as the driver does (``examples/holstein_langevin_square.toml``: 4×4, β = 2,
 RK, KPM max_order 64).
@@ -104,7 +117,7 @@ from __future__ import annotations
 
 import copy
 import math
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 
 import torch
 
@@ -151,6 +164,9 @@ class BenchConfig:
     deflate_k: int = 0
     nearnull: tuple | None = None
     exact_lowfreq: int = 0
+    # the solver kind ("cg", "bicgstab", "gmres") and GMRES's restart length
+    solver: str = "cg"
+    restart: int = 20
 
 
 BENCH_8X8 = BenchConfig("bench_8x8", L=8, beta=4.0, dtau=0.1, dt=0.05, n_chains=128)
@@ -183,6 +199,9 @@ NEARNULL_64X64 = BenchConfig("nearnull_64x64", L=64, beta=4.0, dtau=0.1, dt=0.02
                              n_chains=16, nearnull=(16, 4))
 LOWFREQ_32X32 = BenchConfig("lowfreq_32x32", L=32, beta=4.0, dtau=0.1, dt=0.05, n_chains=32,
                             exact_lowfreq=4)
+GMRES_64X64 = replace(KERNEL_64X64, name="gmres_64x64", solver="gmres")
+BICGSTAB_64X64 = replace(KERNEL_64X64, name="bicgstab_64x64", solver="bicgstab")
+GMRES_LANGEVIN_64X64 = replace(LANGEVIN_64X64, name="gmres_langevin_64x64", solver="gmres")
 
 
 @dataclass(frozen=True)
@@ -253,7 +272,8 @@ def build_bench_step(L: int, beta: float, dtau: float, dt: float, n_chains: int,
     state of ``n_chains`` chains on ``device`` (the card unless the caller
     asks for the CPU); with a ``ladder``, per-chain couplings and the
     tempering exchange; ``aids`` are :class:`BenchConfig`'s solver aids
-    (``block``, ``deflate_k``, ``nearnull``, ``exact_lowfreq``). The step
+    (``block``, ``deflate_k``, ``nearnull``, ``exact_lowfreq``) and its
+    solver kind and restart length (``solver``, ``restart``). The step
     (leapfrog or 2MN, real or complex hopping, with any aid) and the
     exchange replay CUDA graphs on the card (``dynamics/graphs.py``)."""
     device = require_device(device)
@@ -444,13 +464,14 @@ def _make_precond(ops, kcfg: kpm.KPMConfig, ncfg: NearNullConfig | None):
 
 def _bench_step(spec, params, dt, n_chains, device, seed, trajectory_time, max_order: int,
                 integrator: str = "leapfrog", ladder=None, block: bool = False,
-                deflate_k: int = 0, nearnull=None, exact_lowfreq: int = 0) -> BenchStep:
+                deflate_k: int = 0, nearnull=None, exact_lowfreq: int = 0, solver: str = "cg",
+                restart: int = 20) -> BenchStep:
     ops = make_model_ops(spec)
     mass = build_mass(params.omega.double().cpu().numpy(), spec.dtau, spec.Ltau,
                       [dict(omega_min=0.0, omega_max=10.0, mass=0.5)])
     cfg = HMCConfig(dt=dt, trajectory_time=trajectory_time, Nb=4, tol=1e-5,
                     maxiter=500, construct_guess=True, guess_order=3, integrator=integrator,
-                    block=block, deflate_k=deflate_k)
+                    block=block, deflate_k=deflate_k, solver_kind=solver, restart=restart)
     kcfg = kpm.KPMConfig(max_order=max_order, exact_lowfreq=exact_lowfreq)
     ncfg = None if nearnull is None else NearNullConfig(k=nearnull[0], c=nearnull[1])
     precond = _make_precond(ops, kcfg, ncfg)
@@ -687,9 +708,11 @@ def build(cfg: BenchConfig, device="cuda", dtype: torch.dtype = torch.float32,
     of one configuration."""
     if cfg.sampler == "langevin":
         return build_langevin_step(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype,
-                                   model=cfg.model, method=cfg.method, twist=cfg.twist, **kw)
+                                   model=cfg.model, method=cfg.method, twist=cfg.twist,
+                                   solver=SolverConfig(tol=1e-5, maxiter=500, kind=cfg.solver,
+                                                       restart=cfg.restart), **kw)
     make = build_ssh_step if cfg.model == "ssh" else build_bench_step
     return make(cfg.L, cfg.beta, cfg.dtau, cfg.dt, cfg.n_chains, device, dtype, twist=cfg.twist,
                 integrator=cfg.integrator, ladder=cfg.ladder, block=cfg.block,
                 deflate_k=cfg.deflate_k, nearnull=cfg.nearnull,
-                exact_lowfreq=cfg.exact_lowfreq, **kw)
+                exact_lowfreq=cfg.exact_lowfreq, solver=cfg.solver, restart=cfg.restart, **kw)

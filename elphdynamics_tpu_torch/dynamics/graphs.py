@@ -2,8 +2,8 @@
 package's compiled update, Langevin step, special updates and measurement
 step (``jax.jit`` over ``lax.while_loop`` and ``lax.scan`` bodies).
 
-Graphed, with CG, on one rank or on a chain rank's block of chains, on a
-real field or under complex hopping (the twisted ensemble's packed complex
+Graphed, with CG, BiCGStab or GMRES, on one rank or on a chain rank's
+block of chains, on a real field or under complex hopping (the twisted ensemble's packed complex
 pseudofermions ``[C, 1, N, Lτ]``), with shared or per-chain (tempering
 ladder) couplings: the HMC update, leapfrog or 2MN (``dynamics/hmc.py``),
 the Langevin step (``dynamics/langevin.py``), the reflection and swap
@@ -14,7 +14,10 @@ deflation, the near-null preconditioner and the KPM's exact low-frequency
 blocks. A call is split into
 segments, each a function over one :class:`Workspace` of tensors that keep
 their addresses from one call to the next. Its CG and block CG solves are
-the segments of :class:`CGSolve`, shared by all five. A call on chain ranks may stop
+the segments of :class:`CGSolve`, shared by all five, its BiCGStab and
+GMRES solves (the update's, the Langevin step's and the measurement's;
+the moves and the exchange solve by CG) those of :class:`NonsymSolve`. A
+call on chain ranks may stop
 between two replays for an eager collective (the exchange's gathers,
 :meth:`Workspace.collective`; gloo cannot be captured) and resume in the
 same workspace: it replays host reads + 1 graphs per run of segments
@@ -22,8 +25,9 @@ between two such steps. On a CUDA device every segment is
 captured once into a ``torch.cuda.CUDAGraph``, all of one call's graphs in
 one memory pool and in the order they first replay, and then replayed; the
 host keeps only the loop control between replays (``any(active)`` before a
-CG block, ``any(bad)`` after a verification) and the copies of a call's
-inputs into the workspace. On the CPU each segment is called directly, so
+CG or BiCGStab block, GMRES's ``any(~done_all)`` before a restart cycle and
+``any(~done)`` before a block of Arnoldi steps, ``any(bad)`` after a
+verification) and the copies of a call's inputs into the workspace. On the CPU each segment is called directly, so
 the tier-1 tests run the same code the graphs hold.
 
 Before its capture every segment runs once eagerly on the capture stream
@@ -50,7 +54,8 @@ from dataclasses import fields, is_dataclass, replace
 import torch
 
 from elphdynamics_tpu_torch import solvers
-from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, _cg_operators, precond_applies
+from elphdynamics_tpu_torch.dynamics.solve import (
+    SolverConfig, _cg_operators, base_solver, nonsym_retry, precond_applies)
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype
 
@@ -257,6 +262,8 @@ def step_workspace(box: dict, params, x) -> Workspace:
     ws.keep_params(params)
     ws.graphs = UpdateGraphs(x.device) if x.device.type == "cuda" else None
     ws.retries = 0
+    # the host reads of the eager retries, which no replay follows
+    ws.retry_reads = 0
     ws.put("tol", torch.zeros((), dtype=torch.float64, device=x.device))
     return ws
 
@@ -358,9 +365,10 @@ class CGSolve:
         """The verification's retry, eager (it runs only when a system
         failed), through the same kernels; its result goes into the
         workspace."""
-        st = self.state(ws)
+        st, reads = self.state(ws), solvers.host_reads
         res = solvers.cg_retry(self._full(ws), getattr(ws, self.rhs), st.x, st.iters,
                                ws.verdict, ws.tol, self.maxiter, self.kappa_max)
+        ws.retry_reads += solvers.host_reads - reads
         st.x.copy_(res.x)
         st.iters.copy_(res.iters)
         ws.verdict.flag.copy_(res.flag)
@@ -386,6 +394,229 @@ class CGSolve:
         ws.run(self.verify_name, lambda: self.verify(ws))
         if (self.block or self.precond is not None) and solvers.host_any(ws.verdict.bad):
             self.retry(ws)
+
+    def result(self, ws):
+        """The finished solve's (solution, per-system iterations, flags)."""
+        st = self.state(ws)
+        return st.x, st.iters, ws.verdict.flag
+
+
+class NonsymSolve:
+    """The BiCGStab or GMRES solve (``kind``) of
+    :func:`..dynamics.solve.solve_minv`, M·x = ``ws.<rhs>`` with the left
+    apply, or with ``oinv`` the two stages of
+    :func:`..dynamics.solve.solve_oinv`: Mᵀ·y = ``ws.<rhs>`` with the right
+    apply (stage ``T``), then M·z = y with the left one (stage ``M``), y the
+    first stage's solution after its retry (``ws.ns_y``). Each stage does
+    ``dynamics/solve._checked_nonsym``'s arithmetic as segments over a
+    workspace (the derived state ``ws.env``, stacked by ``ops.stack`` where
+    ``stacked``; the tolerance ``ws.tol``; the preconditioner state
+    ``ws.kpm``), with :class:`CGSolve`'s interface, so that a sampler call
+    runs either.
+
+    BiCGStab's state is ``ws.bicg`` (:class:`..solvers.BiCGStabState`), its
+    blocks of ``solvers.CG_SYNC_EVERY`` iterations the graphs
+    ``bicg_block_{stage}``. GMRES's is ``ws.gmres``
+    (:class:`..solvers.GMRESState`, its Krylov basis kept from one call to
+    the next), in graphs ``gmres_cycle_{stage}`` (a restart cycle's start),
+    ``gmres_arnoldi_{stage}_{i0}`` (the Arnoldi steps i0 … i0 + 3, on fixed
+    slices of the basis; the last block also closes the cycle, since it
+    ends at the restart length) and ``gmres_close_{stage}_{n}`` (the close of
+    a cycle left after n steps, one graph for each n a host read can stop
+    at: the multiples of ``CG_SYNC_EVERY`` below the restart length). Then
+    ``nonsym_verify_{stage}`` (:func:`..solvers.cg_verify`) and, rarely,
+    the eager retry (:func:`..dynamics.solve.nonsym_retry`); between the
+    stages ``nonsym_next`` keeps the first stage's solution, iterations and
+    flags and starts the second. The two stages share the state, and no
+    name is a :class:`CGSolve` graph's.
+
+    :meth:`solve` keeps the eager solve's host reads: BiCGStab's
+    ``any(active)`` before each block, GMRES's ``any(~done_all)`` before
+    each cycle and ``any(~done)`` before each block of Arnoldi steps, and
+    ``any(bad)`` after a verification where the stage has a
+    preconditioner. The result (:meth:`result`) sums the two stages'
+    iterations and takes the larger flag, as ``solve_oinv`` does."""
+
+    def __init__(self, ops, precond, kind: str, maxiter: int, restart: int, rhs: str,
+                 stacked: bool, oinv: bool):
+        self.ops, self.precond = ops, precond
+        self.kind, self.maxiter, self.restart = kind, maxiter, restart
+        self.rhs, self.stacked = rhs, stacked
+        self.name = "bicg" if kind == "bicgstab" else "gmres"
+        self.stages = ("T", "M") if oinv else ("M",)
+        self.base = base_solver(SolverConfig(kind=kind, restart=restart))
+
+    def state(self, ws):
+        """The solve's :class:`..solvers.BiCGStabState` or
+        :class:`..solvers.GMRESState` in the workspace."""
+        return getattr(ws, self.name)
+
+    def _A(self, ws, stage: str):
+        env = self.ops.stack(ws.env) if self.stacked else ws.env
+        mul = self.ops.mulMT if stage == "T" else self.ops.mulM
+        return lambda v: mul(ws.params, env, v)
+
+    def _has_P(self, stage: str) -> bool:
+        side = "right" if stage == "T" else "left"
+        return self.precond is not None and getattr(self.precond, side) is not None
+
+    def _P(self, ws, stage: str):
+        if not self._has_P(stage):
+            return None
+        pa = precond_applies(self.precond, ws.kpm)
+        return pa.right if stage == "T" else pa.left
+
+    def _b(self, ws, stage: str):
+        return ws.ns_y if stage == "M" and len(self.stages) == 2 else getattr(ws, self.rhs)
+
+    def _init(self, ws, stage: str) -> None:
+        """The stage's start from zero at ``ws.tol``."""
+        b = self._b(ws, stage)
+        if self.kind == "bicgstab":
+            st = solvers.bicgstab_init(self._A(ws, stage), b, tol=ws.tol)
+            if self.name in ws:
+                self.state(ws).load_(st)
+            else:
+                ws.keep(self.name, st.clone())
+            return
+        if self.name not in ws:
+            ws.keep(self.name, solvers.gmres_state(b, self.restart))
+        solvers.gmres_init(self.state(ws), b, apply_P=self._P(ws, stage))
+
+    def start(self, ws, tol: float, guess=None) -> None:
+        """The solve's start at ``tol``, from zero: callers pass no
+        ``guess`` (no warm start, as in the JAX package)."""
+        ws.tol.fill_(tol)
+        self._init(ws, self.stages[0])
+
+    def _kw(self, ws, stage: str) -> dict:
+        return dict(apply_P=self._P(ws, stage), tol=ws.tol)
+
+    def _bicg_block(self, ws, stage: str) -> None:
+        solvers.bicgstab_block(self._A(ws, stage), self.state(ws), maxiter=self.maxiter,
+                               **self._kw(ws, stage))
+
+    def _cycle(self, ws, stage: str) -> None:
+        solvers.gmres_cycle_start(self._A(ws, stage), self._b(ws, stage), self.state(ws),
+                                  **self._kw(ws, stage))
+
+    def _arnoldi(self, ws, stage: str, i0: int) -> None:
+        solvers.gmres_arnoldi_block(self._A(ws, stage), self.state(ws), i0,
+                                    **self._kw(ws, stage))
+        if i0 + solvers.CG_SYNC_EVERY >= self.restart:
+            self._close(ws, stage, self.restart)
+
+    def _close(self, ws, stage: str, n: int) -> None:
+        solvers.gmres_cycle_close(self.state(ws), n, apply_P=self._P(ws, stage))
+
+    def verify(self, ws, stage: str) -> None:
+        st = self.state(ws)
+        ws.load("verdict", solvers.cg_verify(self._A(ws, stage), self._b(ws, stage), st.x,
+                                             st.iters, ws.tol, self.maxiter))
+
+    def retry(self, ws, stage: str) -> None:
+        """The verification's retry, eager (it runs only when a system
+        failed), through the same kernels; its result goes into the
+        workspace."""
+        st, reads = self.state(ws), solvers.host_reads
+        res = nonsym_retry(self._A(ws, stage), self._b(ws, stage), st.x, st.iters, ws.verdict,
+                           self.base, ws.tol, self.maxiter)
+        ws.retry_reads += solvers.host_reads - reads
+        st.x.copy_(res.x)
+        st.iters.copy_(res.iters)
+        ws.verdict.flag.copy_(res.flag)
+        ws.verdict.residual.copy_(res.residual)
+        ws.retries += 1
+
+    def next_stage(self, ws) -> None:
+        """Between the stages: the first one's solution (the second one's
+        right-hand side), iterations and flags kept, the second one
+        started."""
+        st = self.state(ws)
+        ws.put("ns_y", st.x)
+        ws.put("ns_iters", st.iters)
+        ws.put("ns_flag", ws.verdict.flag)
+        self._init(ws, "M")
+
+    def _steps(self, ws, stage: str) -> list:
+        """The stage's iteration segments in capture order."""
+        if self.kind == "bicgstab":
+            return [(f"bicg_block_{stage}", lambda: self._bicg_block(ws, stage))]
+        every = solvers.CG_SYNC_EVERY
+        starts = range(0, self.restart, every)
+        return ([(f"gmres_cycle_{stage}", lambda: self._cycle(ws, stage))]
+                + [(f"gmres_arnoldi_{stage}_{i0}", lambda i0=i0: self._arnoldi(ws, stage, i0))
+                   for i0 in starts]
+                + [(f"gmres_close_{stage}_{n}", lambda n=n: self._close(ws, stage, n))
+                   for n in starts])
+
+    def segments(self, ws, tol) -> list:
+        """The solve's segments in capture order: per stage its iteration
+        segments and its verification, ``nonsym_next`` between the
+        stages."""
+        seq = []
+        for k, stage in enumerate(self.stages):
+            if k:
+                seq.append(("nonsym_next", lambda: self.next_stage(ws)))
+            seq += self._steps(ws, stage)
+            seq.append((f"nonsym_verify_{stage}", lambda s=stage: self.verify(ws, s)))
+        return seq
+
+    def _iterate(self, ws, stage: str) -> None:
+        """The host loop of a started stage up to its verification."""
+        st, every = self.state(ws), solvers.CG_SYNC_EVERY
+        if self.kind == "bicgstab":
+            j = 0
+            while j < self.maxiter and solvers.host_any(st.active):
+                ws.run(f"bicg_block_{stage}", lambda: self._bicg_block(ws, stage))
+                j += every
+            return
+        m = self.restart
+        for _ in range(solvers.gmres_cycles(self.maxiter, m)):
+            if not solvers.host_any(~st.done_all):
+                break
+            ws.run(f"gmres_cycle_{stage}", lambda: self._cycle(ws, stage))
+            n = 0
+            for i0 in range(0, m, every):
+                if not solvers.host_any(~st.done):
+                    break
+                ws.run(f"gmres_arnoldi_{stage}_{i0}", lambda i0=i0: self._arnoldi(ws, stage, i0))
+                n = min(i0 + every, m)
+            if n < m:
+                ws.run(f"gmres_close_{stage}_{n}", lambda n=n: self._close(ws, stage, n))
+
+    def solve(self, ws, tol) -> None:
+        """The host loop of a started solve: each stage's iterations, its
+        verification and its retry where a system failed."""
+        if ws.graphs is not None and self.precond is not None and self.precond.check:
+            self.precond.check(ws.kpm)
+        for k, stage in enumerate(self.stages):
+            if k:
+                ws.run("nonsym_next", lambda: self.next_stage(ws))
+            self._iterate(ws, stage)
+            ws.run(f"nonsym_verify_{stage}", lambda s=stage: self.verify(ws, s))
+            if self._has_P(stage) and solvers.host_any(ws.verdict.bad):
+                self.retry(ws, stage)
+
+    def result(self, ws):
+        """The finished solve's (solution, per-system iterations, flags):
+        with two stages the second one's solution, the iterations summed and
+        the larger flag."""
+        st = self.state(ws)
+        if len(self.stages) == 1:
+            return st.x, st.iters, ws.verdict.flag
+        return st.x, ws.ns_iters + st.iters, torch.maximum(ws.ns_flag, ws.verdict.flag)
+
+
+def make_solve(ops, precond, scfg: SolverConfig, rhs: str, stacked: bool, block: bool = False):
+    """The segmented solve for M⁻¹ of ``scfg``'s kind (the Langevin force's,
+    the probes'): :class:`CGSolve` on MᵀM for CG (block CG with ``block``),
+    else :class:`NonsymSolve` on M."""
+    if scfg.kind == "cg":
+        return CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision, rhs=rhs,
+                       stacked=stacked, block=block)
+    return NonsymSolve(ops, precond, scfg.kind, scfg.maxiter, scfg.restart, rhs=rhs,
+                       stacked=stacked, oinv=False)
 
 
 # one capture stream per device for every graph set: cuBLAS allocates a

@@ -35,27 +35,31 @@ an argument (a 0-dim tensor on the device, the trajectory length Nt fixed
 from ``cfg``), so the burn-in tuner (:func:`dt_tuner_update`, Nesterov dual
 averaging toward ``target_acceptance``) changes it with no host read.
 
-The update with CG on one rank or a chain rank's block, leapfrog or 2MN,
+The update on one rank or a chain rank's block, leapfrog or 2MN,
 Holstein or SSH, real or complex hopping, shared or per-chain (tempering
-ladder) couplings, with block CG, deflation and any preconditioner (KPM
-with or without the ``exact_lowfreq`` blocks, the near-null one), is a
-fixed sequence of segments over one workspace (:mod:`.graphs`): the start
-(momenta, φ, the preconditioner's setup, the deflation basis's refresh,
-the tol² solve's start), a block of ``solvers.CG_SYNC_EVERY`` masked CG
-(or block CG) iterations, the verification, a
+ladder) couplings, with CG (block CG, deflation and any preconditioner:
+KPM with or without the ``exact_lowfreq`` blocks, the near-null one) or
+BiCGStab / GMRES, is a fixed sequence of segments over one workspace
+(:mod:`.graphs`): the start (momenta, φ, the preconditioner's setup, the
+deflation basis's refresh, the tol² solve's start), the solve's segments
+(a block of ``solvers.CG_SYNC_EVERY`` masked CG or block CG iterations
+and the verification, :class:`.graphs.CGSolve`; BiCGStab's blocks or
+GMRES's cycles, Arnoldi blocks and closes, and a verification, for each
+of the two solves Mᵀ then M, :class:`.graphs.NonsymSolve`), a
 trajectory step from a solved z to the next solve's start (its Nb bosonic
 substeps included; 2MN's middle of a step, between its two solves, a
 segment of its own), the end (ΔH, the Metropolis test, the masked state
 update). On a CUDA field each segment is captured once as a CUDA graph and
-replayed; the host keeps the loop control (CG's ``any(active)`` before a
-block, the verification's ``any(bad)`` and its rare retry, run eagerly).
+replayed; the host keeps the loop control (the solvers' reads before a
+block or cycle, the verification's ``any(bad)`` and its rare retry, run
+eagerly).
 On the CPU the segments run directly, doing the eager update's arithmetic
 in its order. The model's derived state (Holstein's ``expnV``, SSH's
 ``SSHDerived`` tables) and the KPM state, SSH's per-chain τ-means and
 dense Ā included, the near-null state and the deflation basis, are copied
 into the workspace's tensors in place; the basis comes back as new tensors.
-BiCGStab / GMRES, a site shard and a caller that asks for it by name
-(``eager=True``) run the eager update. Under complex hopping the
+A site shard and a caller that asks for it by name (``eager=True``) run
+the eager update. Under complex hopping the
 workspace holds the packed complex pseudofermions, φ, Λφ and the
 warm-start history ``[C, 1, N, Lτ]``, SSH's complex tables and the complex
 KPM state, while x, v and the forces stay real.
@@ -250,8 +254,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     update at the starting field and used by every solve of the update.
 
     ``eager`` asks for the eager update where the graphed one (module
-    docstring: the CG update of either model and integrator without a site
-    shard, block CG and deflation included) would run.
+    docstring: the update of either model and integrator without a site
+    shard, by any solver kind, block CG and deflation included) would
+    run.
     ``step.segmented`` says whether the configuration takes the graphed
     update (on a real field or under complex hopping);
     ``step.workspace()`` is its
@@ -472,13 +477,14 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
-    # --- the graphed update: the CG update of a field without a site shard
-    # (leapfrog or 2MN; Holstein or SSH, real or complex hopping; block CG,
-    # deflation and any preconditioner) as a fixed sequence of segments
+    # --- the graphed update: the update of a field without a site shard
+    # (leapfrog or 2MN; Holstein or SSH, real or complex hopping; CG with
+    # block CG, deflation and any preconditioner, or BiCGStab / GMRES) as a
+    # fixed sequence of segments
     # over one workspace (dynamics/graphs.py), replayed as CUDA graphs on a
     # CUDA field and called directly on the CPU. Each segment does the
     # eager update's arithmetic in its order.
-    segmented = not eager and ops.shard is None and cfg.solver_kind == "cg"
+    segmented = not eager and ops.shard is None
     two_mn = cfg.integrator == "2mn"
     deflating = cfg.deflate_k > 0
     box: dict = {}
@@ -486,19 +492,26 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
                         rhs="Lphi", stacked=True, deflate=deflating)
     bcg = graphs.CGSolve(ops, precond, cfg.maxiter, cfg.kappa_max, cfg.loop_precision,
                          rhs="Lphi", stacked=True, block=True)
+    # BiCGStab / GMRES: Mᵀ then M, undeflated, never warm-started
+    nonsym = (graphs.NonsymSolve(ops, precond, cfg.solver_kind, cfg.maxiter, cfg.restart,
+                                 rhs="Lphi", stacked=True, oinv=True)
+              if cfg.solver_kind != "cg" else None)
 
-    def solver(tol) -> graphs.CGSolve:
-        """The solve at ``tol``: block CG over the spin stack where
-        ``cfg.block`` asks and the solve is not deflated and tol ≥ 1e-6
-        (dynamics/solve.solve_oinv's gate), else CG."""
+    def solver(tol):
+        """The solve at ``tol``: BiCGStab / GMRES where ``cfg`` asks; else
+        block CG over the spin stack where ``cfg.block`` asks and the solve
+        is not deflated and tol ≥ 1e-6 (dynamics/solve.solve_oinv's gate),
+        else CG."""
+        if nonsym is not None:
+            return nonsym
         return bcg if cfg.block and not deflating and tol >= 1e-6 else cg
 
-    def chain_result(ws, tol):
-        """The finished solve's per-chain iterations and flag (the mean
-        over the spin stack's systems, the largest flag)."""
-        st = solver(tol).state(ws)
-        ns = st.iters.shape[1]
-        return (st.iters.sum(dim=1) + ns - 1) // ns, ws.verdict.flag.amax(dim=1)
+    def solved(ws, tol):
+        """The finished solve's z and its per-chain iterations and flag
+        (the mean over the spin stack's systems, the largest flag)."""
+        z, iters, flag = solver(tol).result(ws)
+        ns = iters.shape[1]
+        return z, (iters.sum(dim=1) + ns - 1) // ns, flag.amax(dim=1)
 
     def hist(ws):
         return tuple(getattr(ws, f"hist{i}") for i in range(zhist_size(g_ord)))
@@ -561,8 +574,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         history, the middle kick, the second drift over dt/2 and the second
         solve's start."""
         p, dt = ws.params, step_dt(ws)
-        z_m = solver(tol1).state(ws).x
-        it_m, fl_m = chain_result(ws, tol1)
+        z_m, it_m, fl_m = solved(ws, tol1)
         Qd_m = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z_m))
         for i, h in enumerate(zhist_push(hist(ws), z_m, ws.ok)):
             ws.put(f"hist{i}", h)
@@ -577,8 +589,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         kick (leapfrog's half kick, 2MN's λ-kick), the warm-start history and
         the masked commit."""
         p, dt = ws.params, step_dt(ws)
-        z1 = solver(tol1).state(ws).x
-        it1, fl1 = chain_result(ws, tol1)
+        z1, it1, fl1 = solved(ws, tol1)
         Qd1 = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z1))
         if two_mn:
             v1 = ws.v1 - LAM_2MN * dt * Qd1
@@ -607,8 +618,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         """After the tol² start solve: H₀, the first force, the history; then
         the first step up to its solve."""
         p, x0 = ws.params, ws.x0
-        z0 = solver(tol2).state(ws).x
-        it, fl = chain_result(ws, tol2)
+        z0, it, fl = solved(ws, tol2)
         ws.put("iters", it)
         ws.put("flag", fl)
         ws.put("H0", calc_S(p, x0, ws.Lphi, z0) + calc_K(ws.v0))
@@ -637,8 +647,7 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     def seg_end(ws):
         """ΔH, the Metropolis test and the masked state update."""
         p = ws.params
-        z1 = solver(tol2).state(ws).x
-        it2, fl2 = chain_result(ws, tol2)
+        z1, it2, fl2 = solved(ws, tol2)
         iters = ws.iters + it2
         flag = torch.maximum(ws.flag, fl2)
         S1 = calc_S(p, ws.x, ws.Lphi, z1)

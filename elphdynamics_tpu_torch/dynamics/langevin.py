@@ -19,22 +19,24 @@ Random draws are explicit, as in :mod:`.hmc`: a step takes optional
 field's device, first η and then one ``g`` per force evaluation in the
 order the forces are evaluated.
 
-The step with CG on one rank or a chain rank's block (the whole batch's
-draws cut to it), real or complex hopping (no preconditioner, KPM with or
-without the exact low-frequency blocks, or the near-null one) is a fixed
-sequence of segments
-over one workspace (:mod:`.graphs`), as the HMC update is: the start (η
-tied, the step's full KPM setup, the derived state, b = Mᵀg₀ and the
-solve's start), the solve's blocks of ``solvers.CG_SYNC_EVERY`` CG
-iterations and its verification (:class:`.graphs.CGSolve`), for RK and
+The step on one rank or a chain rank's block (the whole batch's draws cut
+to it), real or complex hopping, with CG (no preconditioner, KPM with or
+without the exact low-frequency blocks, or the near-null one) or
+BiCGStab / GMRES, is a fixed sequence of segments over one workspace
+(:mod:`.graphs`), as the HMC update is: the start (η tied, the step's full
+KPM setup, the derived state, the right-hand side (CG's b = Mᵀg₀, else
+g₀) and the solve's start), the solve's segments (CG's blocks of
+``solvers.CG_SYNC_EVERY`` iterations and its verification,
+:class:`.graphs.CGSolve`; BiCGStab's or GMRES's on M,
+:class:`.graphs.NonsymSolve`), for RK and
 Heun the middle (force 1, the predictor, the KPM refresh, the second
 solve's start) and a second solve, and the end (the last force and the
 field update). On a CUDA field each segment is captured once as a CUDA
 graph and replayed, the host keeping the eager step's reads; on the CPU
 the segments run directly, doing the eager step's arithmetic in its order.
 Complex hopping takes the graphed step too (the force probes g, b = M†g
-and the solution complex, x real). BiCGStab / GMRES, a site shard and a
-caller that asks for it by name (``eager=True``) run the eager step.
+and the solution complex, x real). A site shard and a caller that asks
+for it by name (``eager=True``) run the eager step.
 """
 
 from __future__ import annotations
@@ -149,28 +151,29 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
 
     # --- the graphed step: the segments over one workspace, each doing the
     # eager step's arithmetic in its order
-    segmented = not eager and ops.shard is None and scfg.kind == "cg"
+    segmented = not eager and ops.shard is None
     box: dict = {}
-    cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
-                        rhs="b", stacked=False)
+    # CG on MᵀM·z = Mᵀg, or BiCGStab / GMRES on M·z = g
+    solve = graphs.make_solve(ops, precond, scfg, rhs="b", stacked=False)
 
     def solved_force(ws, x, g):
-        """The force at ``x`` from the finished solve of MᵀM·z = Mᵀg
+        """The force at ``x`` from the finished solve for z = M⁻¹g
         (:func:`..force.total_force`: the fermionic force, then the shifted
         bosonic one)."""
         p = ws.params
-        dSf = -2.0 * force_sum(ops, ops.muldMdx(p, ws.env, x, g, ws.cg.x))
+        dSf = -2.0 * force_sum(ops, ops.muldMdx(p, ws.env, x, g, solve.result(ws)[0]))
         return dSf + ops.calc_dSbdx(p, x, True)
 
     def solve_start(ws, x, g, refresh: bool):
         """The derived state at ``x``, the preconditioner refreshed there
-        from the step's setup (``refresh``), b = Mᵀg and the solve's start."""
+        from the step's setup (``refresh``), the right-hand side (CG's
+        b = Mᵀg, else g) and the solve's start."""
         p = ws.params
         env = ws.put("env", ops.derived(p, x))
         if precond is not None and refresh:
             ws.load("kpm", precond.refresh(ws.kpm, p, x))
-        ws.put("b", ops.mulMT(p, env, g))
-        cg.start(ws, scfg.tol)
+        ws.put("b", ops.mulMT(p, env, g) if scfg.kind == "cg" else g)
+        solve.start(ws, scfg.tol)
 
     def seg_start(ws):
         """η tied, the step's full KPM setup at x, the first solve's start
@@ -189,8 +192,9 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         force) and the second solve's start there."""
         x = ws.x0
         f1 = ws.put("f1", solved_force(ws, x, ws.g0))
-        ws.put("iters1", ws.cg.iters)
-        ws.put("flag1", ws.verdict.flag)
+        _, iters1, flag1 = solve.result(ws)
+        ws.put("iters1", iters1)
+        ws.put("flag1", flag1)
         if method == "heun":
             dG1 = ws.put("dG1", accel(x).apply(f1, 1.0))
             xp = x + amp * ws.xi - dt * dG1
@@ -203,21 +207,20 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         """The last force and the field update; the step's iterations and
         flag."""
         x, Q = ws.x0, accel(ws.x0)
+        _, iters, flag = solve.result(ws)
         if method == "euler":
             f = solved_force(ws, x, ws.g0)
             x_new = x + amp * Q.apply(ws.eta, 0.5) - dt * Q.apply(f, 1.0)
-            iters, flag = ws.cg.iters, ws.verdict.flag
         else:
             f2 = solved_force(ws, ws.xp, ws.g1)
             if method == "rk":
                 favg = (ws.f1 + f2) / 2.0
                 x_new = x + amp * Q.apply(ws.eta, 0.5) - dt * Q.apply(favg, 1.0)
-                iters = ws.cg.iters
             else:
                 dG2 = Q.apply(f2, 1.0)
                 x_new = x + amp * ws.xi - dt * (ws.dG1 + dG2) / 2.0
-                iters = (ws.iters1 + ws.cg.iters) // 2
-            flag = torch.maximum(ws.flag1, ws.verdict.flag)
+                iters = (ws.iters1 + iters) // 2
+            flag = torch.maximum(ws.flag1, flag)
         ws.put("out_x", x_new)
         ws.put("iters", iters)
         ws.put("flag", flag)
@@ -225,9 +228,9 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
     def segments(ws):
         """Every segment once, in the order of a step whose solves each
         stop after one CG block (the warm-up and the capture order)."""
-        seq = [("start", lambda: seg_start(ws)), *cg.segments(ws, scfg.tol)]
+        seq = [("start", lambda: seg_start(ws)), *solve.segments(ws, scfg.tol)]
         if method != "euler":
-            seq += [("mid", lambda: seg_mid(ws)), *cg.segments(ws, scfg.tol)]
+            seq += [("mid", lambda: seg_mid(ws)), *solve.segments(ws, scfg.tol)]
         return seq + [("end", lambda: seg_end(ws))]
 
     def graphed(params, x, draws):
@@ -241,10 +244,10 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         ws.capture_once(lambda: segments(ws))
 
         ws.run("start", lambda: seg_start(ws))
-        cg.solve(ws, scfg.tol)
+        solve.solve(ws, scfg.tol)
         if method != "euler":
             ws.run("mid", lambda: seg_mid(ws))
-            cg.solve(ws, scfg.tol)
+            solve.solve(ws, scfg.tol)
         ws.run("end", lambda: seg_end(ws))
         return ws.out_x.clone(), LangevinStats(ws.iters.clone(), ws.flag.clone())
 

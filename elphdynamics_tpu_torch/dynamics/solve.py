@@ -21,7 +21,6 @@ unchanged.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
@@ -131,42 +130,51 @@ def _cg_operators(ops: ModelOps, params, derived, scfg: SolverConfig):
     return (lambda v: ops.mulMTM(params, derived, v, precision=prec)), full
 
 
-def _checked_nonsym(apply_A, b, base, apply_P, scfg: SolverConfig):
-    """Residual verification and unpreconditioned retry for the BiCGStab and
-    GMRES paths. The retry runs only when a system failed (one host read);
-    it then iterates every system from its first solution, and only the
-    failed ones keep its result."""
-    def nrm(a):
-        return torch.sqrt(fdot(a, a, dim=(-2, -1)))
-
-    res1 = base(apply_A, b, apply_P=apply_P, tol=scfg.tol, maxiter=scfg.maxiter)
-    normb = nrm(b)
-    safe = torch.where(normb > 0, normb, torch.ones_like(normb))
-    err = nrm(apply_A(res1.x) - b) / safe
-    sq = math.sqrt(scfg.tol)
-    bad = err > sq
-    one, two, zero = (torch.full_like(res1.iters, k) for k in (1, 2, 0))
-    flag = torch.where(bad, torch.where(res1.iters >= scfg.maxiter, one, two), zero)
-    if apply_P is None or not bool(bad.any()):
-        return solvers.SolveResult(x=res1.x, iters=res1.iters, residual=err, flag=flag)
-    badf = bad[..., None, None]
-    x_start = torch.where(badf, torch.zeros_like(res1.x), res1.x)
-    res2 = base(apply_A, b, x0=x_start, apply_P=None, tol=scfg.tol,
-                maxiter=10 * scfg.maxiter)
-    x = torch.where(badf, res2.x, res1.x)
-    err2 = nrm(apply_A(x) - b) / safe
-    flag = torch.where(bad & (err2 > sq), flag, zero)
-    iters = res1.iters + torch.where(bad, res2.iters, zero)
+def nonsym_retry(apply_A, b, x, iters, v: solvers.Verdict, base, tol, maxiter: int
+                 ) -> solvers.SolveResult:
+    """The retry of the BiCGStab and GMRES paths after
+    :func:`..solvers.cg_verify` flagged a system (``v``): every system
+    iterated again by ``base`` unpreconditioned with 10× the iteration
+    budget, from zero where flagged and from ``x`` elsewhere; only the
+    flagged systems keep its result and its iterations, and one stays
+    flagged if the retry leaves it above √tol. ``tol`` is a number or a
+    0-dim float64 tensor."""
+    badf = v.bad[..., None, None]
+    x_start = torch.where(badf, torch.zeros_like(x), x)
+    res2 = base(apply_A, b, x0=x_start, apply_P=None, tol=tol, maxiter=10 * maxiter)
+    x = torch.where(badf, res2.x, x)
+    d = apply_A(x) - b
+    err2 = torch.sqrt(fdot(d, d, dim=(-2, -1))) / v.safe_normb
+    zero = torch.zeros_like(v.flag)
+    flag = torch.where(v.bad & (err2 > solvers._sqrt_tol(tol)), v.flag, zero)
+    iters = iters + torch.where(v.bad, res2.iters, zero)
     return solvers.SolveResult(x=x, iters=iters, residual=err2, flag=flag)
 
 
-def _base_solver(scfg: SolverConfig):
+def _checked_nonsym(apply_A, b, base, apply_P, scfg: SolverConfig):
+    """Residual verification (:func:`..solvers.cg_verify`) and
+    unpreconditioned retry (:func:`nonsym_retry`) for the BiCGStab and GMRES
+    paths. The retry runs only when a preconditioned system failed (one
+    host read)."""
+    res1 = base(apply_A, b, apply_P=apply_P, tol=scfg.tol, maxiter=scfg.maxiter)
+    v = solvers.cg_verify(apply_A, b, res1.x, res1.iters, scfg.tol, scfg.maxiter)
+    if apply_P is None or not solvers.host_any(v.bad):
+        return solvers.SolveResult(x=res1.x, iters=res1.iters, residual=v.residual, flag=v.flag)
+    return nonsym_retry(apply_A, b, res1.x, res1.iters, v, base, scfg.tol, scfg.maxiter)
+
+
+def base_solver(scfg: SolverConfig):
+    """The BiCGStab or GMRES solve of ``scfg.kind`` that the residual
+    verification follows, called as ``base(apply_A, b, x0=None, *, apply_P,
+    tol, maxiter)``: GMRES's loop without its own residual check
+    (``converged`` there: the systems its Givens estimate stopped)."""
     if scfg.kind == "bicgstab":
         return solvers.bicgstab
 
     def gmres_batched(apply_A, b, x0=None, *, apply_P=None, tol, maxiter):
-        return solvers.gmres(apply_A, b, x0, apply_P=apply_P, tol=tol, maxiter=maxiter,
-                             restart=scfg.restart)
+        st = solvers.gmres_iterate(apply_A, b, x0, apply_P=apply_P, tol=tol, maxiter=maxiter,
+                                   restart=scfg.restart)
+        return solvers.CGResult(x=st.x, iters=st.iters, converged=st.done_all)
 
     return gmres_batched
 
@@ -192,7 +200,7 @@ def solve_minv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
         if use_block:
             return solvers.block_solve_checked(hot, b, reduce=reduce, **kw)
         return solvers.solve_checked(hot, b, reduce=reduce, **kw)
-    return _checked_nonsym(lambda v: ops.mulM(params, derived, v), rhs, _base_solver(scfg),
+    return _checked_nonsym(lambda v: ops.mulM(params, derived, v), rhs, base_solver(scfg),
                            pa.left if pa else None, scfg)
 
 
@@ -221,7 +229,7 @@ def solve_oinv(ops: ModelOps, params, derived, rhs, scfg: SolverConfig,
         if use_block:
             return solvers.block_solve_checked(hot, rhs, X0=x0, reduce=reduce, **kw)
         return solvers.solve_checked(hot, rhs, x0=x0, deflate=deflate, reduce=reduce, **kw)
-    base = _base_solver(scfg)
+    base = base_solver(scfg)
     res1 = _checked_nonsym(lambda v: ops.mulMT(params, derived, v), rhs, base,
                            pa.right if pa else None, scfg)
     res2 = _checked_nonsym(lambda v: ops.mulM(params, derived, v), res1.x, base,

@@ -196,13 +196,14 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
 
     On one rank or a chain rank (its block, or the gathered rung-0 chains
     under tempering), with CG or block CG over the nᵥ probes
-    (``scfg.block``), on a real field or under complex hopping, and with
-    any preconditioner (KPM, with or without the exact low-frequency
-    blocks, or the near-null one), a call is a fixed sequence of segments
-    over one workspace (``dynamics/graphs.py``),
+    (``scfg.block``) or BiCGStab / GMRES on M, on a real field or under
+    complex hopping, and with any preconditioner (KPM, with or without the
+    exact low-frequency blocks, or the near-null one), a call is a fixed
+    sequence of segments over one workspace (``dynamics/graphs.py``),
     as the HMC update is: ``probe_start`` (the derived state, the full
-    preconditioner setup at x, b = MᵀR and the (block) CG start from zero),
-    the solve's (block) CG blocks and verification, and ``analyze`` (the
+    preconditioner setup at x, CG's b = MᵀR and the solve's start from
+    zero), the solve's segments (:class:`..dynamics.graphs.CGSolve` or
+    :class:`..dynamics.graphs.NonsymSolve`), and ``analyze`` (the
     pair tensors, every estimator,
     the snapshots). The probes are drawn eagerly, in the eager order, and
     copied into the workspace. On a CUDA field each segment is captured
@@ -535,29 +536,31 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         return _join_chains(blocks)
 
     # --- the segmented measurement: the eager one's arithmetic in its order
-    segmented = not eager and ops.shard is None and scfg.kind == "cg"
+    segmented = not eager and ops.shard is None
     box: dict = {}
-    # the probes' solve: block CG over the nᵥ probes of a chain with
-    # ``scfg.block`` (dynamics/solve.solve_minv), else CG
-    cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
-                        rhs="b", stacked=True, block=scfg.block)
+    cg_kind = scfg.kind == "cg"
+    # the probes' solve (dynamics/solve.solve_minv): with CG on MᵀM·z = MᵀR,
+    # block CG over the nᵥ probes of a chain with ``scfg.block``; else
+    # BiCGStab / GMRES on M·z = R
+    solve = graphs.make_solve(ops, precond, scfg, rhs="b" if cg_kind else "R", stacked=True,
+                              block=scfg.block)
 
     def seg_start(ws):
-        """The derived state and the full KPM setup at x, b = MᵀR and the
-        probe solve's start from zero (:func:`.greens.sample_greens`)."""
+        """The derived state and the full KPM setup at x, CG's b = MᵀR and
+        the probe solve's start from zero (:func:`.greens.sample_greens`)."""
         p = ws.params
         env = ws.put("env", ops.derived(p, ws.x))
         if precond is not None:
             ws.load("kpm", precond.setup(p, ws.x, ws.kpm_start))
-        ws.put("b", ops.mulMT(p, ops.stack(env), ws.R))
-        cg.start(ws, scfg.tol)
+        if cg_kind:
+            ws.put("b", ops.mulMT(p, ops.stack(env), ws.R))
+        solve.start(ws, scfg.tol)
 
     def seg_analyze(ws):
         """The solve's per-chain statistics and :func:`analyze`, every
         result copied into the workspace (``ws.results``)."""
-        st = cg.state(ws)
-        gd = G.GreensData(R=ws.R, MinvR=st.x, iters=st.iters.sum(dim=1) // nv,
-                          flag=ws.verdict.flag.amax(dim=1))
+        z, iters, flag = solve.result(ws)
+        gd = G.GreensData(R=ws.R, MinvR=z, iters=iters.sum(dim=1) // nv, flag=flag.amax(dim=1))
         inc, stats, snaps = analyze(ws.params, ws.x, gd)
         ws.results = ({g: {k: ws.put(f"inc.{g}.{k}", v) for k, v in vals.items()}
                        for g, vals in inc.items()},
@@ -571,10 +574,10 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         if precond is not None:
             ws.put_start(precond.start)
         ws.capture_once(lambda: [("probe_start", lambda: seg_start(ws)),
-                                 *cg.segments(ws, scfg.tol),
+                                 *solve.segments(ws, scfg.tol),
                                  ("analyze", lambda: seg_analyze(ws))])
         ws.run("probe_start", lambda: seg_start(ws))
-        cg.solve(ws, scfg.tol)
+        solve.solve(ws, scfg.tol)
         ws.run("analyze", lambda: seg_analyze(ws))
         inc, stats, snaps = ws.results
         return ({g: {k: v.clone() for k, v in vals.items()} for g, vals in inc.items()},

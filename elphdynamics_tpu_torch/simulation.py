@@ -531,14 +531,14 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     tuned_step = tuner = None
     # a site-sharded layout keeps the eager update, moves, measurement and
     # exchange (its collectives run inside every solve); elsewhere on the
-    # card, one rank or a chain rank, under tempering too, the CG update
-    # (leapfrog or 2MN) or CG Langevin step (Holstein or SSH, real or
-    # complex hopping), the reflection and swap moves, the CG measurement
-    # and the tempering exchange replay CUDA graphs, with block CG, the
-    # deflation basis (made once below and carried in the state) and the
-    # one preconditioner built above, near-null or KPM with its exact
-    # low-frequency blocks included (dynamics/graphs.py; each builder keeps
-    # the eager form for what its graphs do not cover: BiCGStab / GMRES)
+    # card, one rank or a chain rank, under tempering too, the update
+    # (leapfrog or 2MN) or Langevin step (Holstein or SSH, real or complex
+    # hopping), the reflection and swap moves, the measurement and the
+    # tempering exchange replay CUDA graphs, with block CG, the deflation
+    # basis (made once below and carried in the state), the one
+    # preconditioner built above, near-null or KPM with its exact
+    # low-frequency blocks included, and BiCGStab / GMRES
+    # (dynamics/graphs.py)
     eager = par.shard is not None
     if hmc:
         sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)

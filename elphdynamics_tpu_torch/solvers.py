@@ -17,9 +17,14 @@ verification failed — one host sync per solve for them. :func:`cg` is a
 start (:func:`cg_init`) and blocks of ``CG_SYNC_EVERY`` iterations
 (:func:`cg_block`) over a :class:`CGState` updated in place, :func:`block_cg`
 likewise (:func:`block_cg_init`, :func:`block_cg_block`, a
-:class:`BlockCGState`), and the verification is :func:`cg_verify` then,
-rarely, :func:`cg_retry`: fixed shapes that a CUDA graph captures
-(``dynamics/graphs.py``).
+:class:`BlockCGState`), :func:`bicgstab` likewise (:func:`bicgstab_init`,
+:func:`bicgstab_block`, a :class:`BiCGStabState`), :func:`gmres` a start
+(:func:`gmres_init`) and per restart cycle :func:`gmres_cycle_start`,
+blocks of Arnoldi steps (:func:`gmres_arnoldi_block`) and
+:func:`gmres_cycle_close` over a :class:`GMRESState`, and the verification
+is :func:`cg_verify` then, rarely, :func:`cg_retry`: fixed shapes that a
+CUDA graph captures (``dynamics/graphs.py``). Every host read goes through
+:func:`host_any`, which counts it.
 
 Dot products, norms and Gram matrices accumulate in float64
 (:mod:`elphdynamics_tpu_torch.utils.dtypes`); scalars are cast back to the
@@ -105,9 +110,11 @@ def _kappa_bound(kmin, eps0, eps, j):
     return torch.maximum(kmin, (2.0 * (j + 1) / logr) ** 2)
 
 
-# host reads of CG's ``any(active)`` and of the verification's ``any(bad)``
-# since import (or since a caller last set it to 0): the same count on the
-# eager update and on the graphed one, which replays the same loops
+# host reads of the solvers' loop flags (CG's and BiCGStab's ``any(active)``,
+# GMRES's ``any(~done)`` and ``any(~done_all)``) and of the verification's
+# ``any(bad)`` since import (or since a caller last set it to 0): the same
+# count on the eager update and on the graphed one, which replays the same
+# loops
 host_reads = 0
 
 
@@ -602,65 +609,316 @@ def block_solve_checked(apply_A: Callable, B: torch.Tensor, X0: torch.Tensor | N
     return _verify_and_retry(A_chk, B, res1, tol, maxiter, kappa_max, reduce=reduce)
 
 
-def bicgstab(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
-             apply_P: Callable | None = None, tol: float = 1e-5,
-             maxiter: int = 1000) -> CGResult:
-    """Preconditioned BiCGStab for a non-symmetric ``A``, batched with masked
-    convergence. A breakdown (ρ = 0 or ω = 0) stops that system through the
-    masks; no host branch looks at it."""
+@dataclass
+class BiCGStabState(_InPlace):
+    """Masked batched BiCGStab between two blocks of :func:`bicgstab_block`:
+    the iterate, residual, shadow residual r̃, search direction and A·p̂, the
+    per-system ρ of the last iteration, α, ω, safe |b|, iteration count,
+    convergence and activity masks, and the iteration index ``j`` (a 0-dim
+    float64 tensor). A block updates every field in place, as
+    :class:`CGState`'s does."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    rt: torch.Tensor
+    p: torch.Tensor
+    v: torch.Tensor
+    rho_old: torch.Tensor
+    alpha: torch.Tensor
+    omega: torch.Tensor
+    safe_normb: torch.Tensor
+    iters: torch.Tensor
+    conv: torch.Tensor
+    active: torch.Tensor
+    j: torch.Tensor
+
+
+def bicgstab_init(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+                  tol=1e-5) -> BiCGStabState:
+    """The start of :func:`bicgstab`: r = r̃ = b − A·x0, the start residual
+    and the masks. ``tol`` is a number or a 0-dim float64 tensor. The
+    state's ``x`` may be ``x0``, and ``r`` and ``rt`` are one tensor: clone
+    it (:meth:`BiCGStabState.clone`) or load it into another state before a
+    block runs on it."""
     if x0 is None:
         x0 = torch.zeros_like(b)
-    P = apply_P if apply_P is not None else (lambda v: v)
-
     safe_normb = _positive(_norm(b))
     r = b - apply_A(x0)
-    rt = r
     eps0 = _norm(r) / safe_normb
     batch = b.shape[:-2]
-    x = x0
-    pvec, v = torch.zeros_like(b), torch.zeros_like(b)
-    rho_old, omega = torch.ones_like(eps0), torch.ones_like(eps0)
-    alpha = torch.zeros_like(eps0)
-    iters = torch.zeros(batch, dtype=torch.int32, device=b.device)
-    active, conv = eps0 >= tol, eps0 < tol
+    return BiCGStabState(x=x0, r=r, rt=r, p=torch.zeros_like(b), v=torch.zeros_like(b),
+                         rho_old=torch.ones_like(eps0), alpha=torch.zeros_like(eps0),
+                         omega=torch.ones_like(eps0), safe_normb=safe_normb,
+                         iters=torch.zeros(batch, dtype=torch.int32, device=b.device),
+                         conv=eps0 < tol, active=eps0 >= tol,
+                         j=torch.zeros((), dtype=torch.float64, device=b.device))
 
-    for j in range(maxiter):
-        if j % CG_SYNC_EVERY == 0 and not bool(active.any()):
-            break
-        rho = _dot_hot(rt, r)
+
+def bicgstab_block(apply_A: Callable, st: BiCGStabState, *, apply_P: Callable | None = None,
+                   tol=1e-5, maxiter: int = 1000) -> None:
+    """``CG_SYNC_EVERY`` masked iterations of :func:`bicgstab` on ``st``, in
+    place, with no host read. An iteration changes a system only while it
+    is active and ``j < maxiter``. ``tol`` as in :func:`bicgstab_init`."""
+    P = apply_P if apply_P is not None else (lambda v: v)
+    for _ in range(CG_SYNC_EVERY):
+        act = st.active & (st.j < maxiter)
+        rho = _dot_hot(st.rt, st.r)
         breakdown = rho == 0
-        beta = (rho / _nonzero(rho_old)) * (alpha / _nonzero(omega))
-        p_new = r + _bc(beta, r) * (pvec - _bc(omega, v) * v)
+        beta = (rho / _nonzero(st.rho_old)) * (st.alpha / _nonzero(st.omega))
+        p_new = st.r + _bc(beta, st.r) * (st.p - _bc(st.omega, st.v) * st.v)
         phat = P(p_new)
         v_new = apply_A(phat)
-        alpha_new = rho / _nonzero(_dot_hot(rt, v_new))
-        s = r - _bc(alpha_new, r) * v_new
-        early = _norm_hot(s) / safe_normb < tol
+        alpha_new = rho / _nonzero(_dot_hot(st.rt, v_new))
+        s = st.r - _bc(alpha_new, st.r) * v_new
+        early = _norm_hot(s) / st.safe_normb < tol
         shat = P(s)
         t = apply_A(shat)
         omega_new = _dot_hot(t, s) / _nonzero(_dot_hot(t, t))
-        x_early = x + _bc(alpha_new, x) * phat
-        x_full = x_early + _bc(omega_new, x) * shat
-        r_new = s - _bc(omega_new, r) * t
-        eps = _norm_hot(r_new) / safe_normb
+        x_early = st.x + _bc(alpha_new, st.x) * phat
+        x_full = x_early + _bc(omega_new, st.x) * shat
+        r_new = s - _bc(omega_new, st.r) * t
+        eps = _norm_hot(r_new) / st.safe_normb
         done = early | (eps < tol) | breakdown | (omega_new == 0)
 
-        m = _bc(active, x)
-        x = torch.where(m, torch.where(_bc(early, x), x_early, x_full), x)
-        r = torch.where(m, r_new, r)
-        pvec = torch.where(m, p_new, pvec)
-        v = torch.where(m, v_new, v)
-        rho_old = torch.where(active, rho, rho_old)
-        alpha = torch.where(active, alpha_new, alpha)
-        omega = torch.where(active, omega_new, omega)
-        iters = iters + active.to(torch.int32)
-        conv = conv | (active & (early | (eps < tol)))
-        active = active & ~done
-    return CGResult(x=x, iters=iters, converged=conv)
+        m = _bc(act, st.x)
+        torch.where(m, torch.where(_bc(early, st.x), x_early, x_full), st.x, out=st.x)
+        torch.where(m, r_new, st.r, out=st.r)
+        torch.where(m, p_new, st.p, out=st.p)
+        torch.where(m, v_new, st.v, out=st.v)
+        torch.where(act, rho, st.rho_old, out=st.rho_old)
+        torch.where(act, alpha_new, st.alpha, out=st.alpha)
+        torch.where(act, omega_new, st.omega, out=st.omega)
+        st.iters += act.to(torch.int32)
+        st.conv |= act & (early | (eps < tol))
+        st.active &= ~(act & done)
+        st.j += 1
+
+
+def bicgstab(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+             apply_P: Callable | None = None, tol=1e-5, maxiter: int = 1000) -> CGResult:
+    """Preconditioned BiCGStab for a non-symmetric ``A``, batched with masked
+    convergence. A breakdown (ρ = 0 or ω = 0) stops that system through the
+    masks; no host branch looks at it.
+
+    The loop is :func:`bicgstab_init` and then blocks of
+    :func:`bicgstab_block`, with ``any(active)`` read on the host before
+    each block, as :func:`cg` runs. ``tol`` as in :func:`bicgstab_init`."""
+    st = bicgstab_init(apply_A, b, x0, tol=tol).clone()
+    j = 0
+    while j < maxiter and host_any(st.active):
+        bicgstab_block(apply_A, st, apply_P=apply_P, tol=tol, maxiter=maxiter)
+        j += CG_SYNC_EVERY
+    return CGResult(x=st.x, iters=st.iters, converged=st.conv)
+
+
+@dataclass
+class GMRESState(_InPlace):
+    """Restarted GMRES on right-hand sides ``[..., N, Lτ]`` with restart
+    length m, between two of its pieces (:func:`gmres_init`,
+    :func:`gmres_cycle_start`, :func:`gmres_arnoldi_block`,
+    :func:`gmres_cycle_close`), each of which updates it in place: the
+    iterate, the Krylov basis ``V`` ``[m+1, ..., N, Lτ]`` (one buffer for the
+    whole solve) and its rows widened to float64 (complex128 for a complex
+    field) ``W`` for the projections' dots, which write their products into
+    ``prod`` and the scaled rows into ``rows`` (``[m, ..., N, Lτ]`` each, so
+    that no step allocates in proportion to the basis), the Hessenberg
+    columns ``H`` ``[..., m+1, m]``, the accumulated Givens rotations ``Qr``
+    ``[..., m+1, m+1]``, an Arnoldi step's column ``col`` ``[..., m+1]`` and
+    the back-substitution's ``y`` ``[..., m]`` (all float64), the cycle's
+    start residual β, the preconditioned |b|, the masks of the systems done
+    in this cycle and in earlier ones, and the iteration count."""
+
+    x: torch.Tensor
+    V: torch.Tensor
+    W: torch.Tensor
+    prod: torch.Tensor
+    rows: torch.Tensor
+    H: torch.Tensor
+    Qr: torch.Tensor
+    col: torch.Tensor
+    y: torch.Tensor
+    beta: torch.Tensor
+    normb: torch.Tensor
+    done: torch.Tensor
+    done_all: torch.Tensor
+    iters: torch.Tensor
+
+
+def gmres_state(b: torch.Tensor, restart: int) -> GMRESState:
+    """The buffers of a GMRES solve of right-hand sides like ``b`` with
+    restart length ``restart``. The basis and the projections' buffers are
+    left uninitialised: a cycle reads only the rows it wrote."""
+    batch, dev, f64 = tuple(b.shape[:-2]), b.device, torch.float64
+    m = restart
+    wide = torch.complex128 if b.is_complex() else f64
+
+    def zeros(shape, dtype=f64):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return GMRESState(x=torch.zeros_like(b), V=b.new_empty((m + 1,) + tuple(b.shape)),
+                      W=b.new_empty((m + 1,) + tuple(b.shape), dtype=wide),
+                      prod=b.new_empty((m,) + tuple(b.shape), dtype=f64),
+                      rows=b.new_empty((m,) + tuple(b.shape)),
+                      H=zeros(batch + (m + 1, m)), Qr=zeros(batch + (m + 1, m + 1)),
+                      col=zeros(batch + (m + 1,)), y=zeros(batch + (m,)), beta=zeros(batch),
+                      normb=zeros(batch), done=zeros(batch, torch.bool),
+                      done_all=zeros(batch, torch.bool), iters=zeros(batch, torch.int32))
+
+
+def _gmres_P(apply_P, side: str):
+    """(P, right): the preconditioner's apply (the identity for None) and
+    whether it is applied on the right."""
+    P = apply_P if apply_P is not None else (lambda v: v)
+    return P, apply_P is not None and side == "right"
+
+
+def gmres_init(st: GMRESState, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+               apply_P: Callable | None = None, side: str = "right") -> None:
+    """The start of :func:`gmres` on ``st``, in place: |b| (|P·b| with left
+    preconditioning), x = ``x0`` (zero for None), no iteration and no
+    system done."""
+    P, right = _gmres_P(apply_P, side)
+    st.normb.copy_(_positive(_norm(b if right else P(b))))
+    if x0 is None:
+        st.x.zero_()
+    else:
+        st.x.copy_(x0)
+    st.iters.zero_()
+    st.done_all.zero_()
+
+
+def gmres_cycle_start(apply_A: Callable, b: torch.Tensor, st: GMRESState, *,
+                      apply_P: Callable | None = None, tol=1e-5, side: str = "right") -> None:
+    """The start of a restart cycle, in place: the residual, β and the first
+    basis row, H and the rotations reset, the systems already below ``tol``
+    done. ``tol`` is a number or a 0-dim float64 tensor."""
+    P, right = _gmres_P(apply_P, side)
+    r = (b - apply_A(st.x)) if right else P(b - apply_A(st.x))
+    st.beta.copy_(_norm_hot(r))
+    st.V[0].copy_(r / _bc(_positive(st.beta), r))
+    st.W[0].copy_(st.V[0])
+    st.H.zero_()
+    st.Qr.zero_()
+    torch.diagonal(st.Qr, dim1=-2, dim2=-1).fill_(1.0)
+    st.done.copy_(st.done_all | (st.beta / st.normb < tol))
+
+
+def _project(st: GMRESState, w, n):
+    """Coefficients of ``w`` on the first ``n`` basis rows, and ``w`` with
+    them removed: :func:`..utils.dtypes.fdot` of the rows and ``w`` (the
+    widened rows ``st.W`` times ``w`` widened, summed over the field), the
+    products written into ``st.prod`` and the scaled rows into
+    ``st.rows``."""
+    W, prod = st.W[:n], st.prod[:n]
+    wide = w.to(W.dtype)[None]
+    dims = (-2, -1)
+    if W.is_complex():
+        # Re(a†b) = Re(a)·Re(b) + Im(a)·Im(b), as fdot sums it
+        h = torch.mul(W.real, wide.real, out=prod).sum(dim=dims)
+        h = h + torch.mul(W.imag, wide.imag, out=prod).sum(dim=dims)
+    else:
+        h = torch.mul(W, wide, out=prod).sum(dim=dims)                # [n, ...]
+    rows = torch.mul(st.V[:n], h[..., None, None].to(w.dtype), out=st.rows[:n])
+    return h, w - rows.sum(dim=0)
+
+
+def gmres_arnoldi_block(apply_A: Callable, st: GMRESState, i0: int, *,
+                        apply_P: Callable | None = None, tol=1e-5, side: str = "right") -> None:
+    """The Arnoldi steps ``i0`` … ``i0 + CG_SYNC_EVERY − 1`` (up to the
+    restart length) of a cycle, in place, each on the fixed slices
+    ``V[:i+1]``: the new basis row, the Hessenberg column rotated by the
+    accumulated rotations and a new rotation, the residual estimate. A
+    system done in this cycle freezes (zero basis rows and columns, its
+    rotations stop) and stops counting iterations. ``tol`` as in
+    :func:`gmres_cycle_start`."""
+    P, right = _gmres_P(apply_P, side)
+    m = st.H.shape[-1]
+    for i in range(i0, min(i0 + CG_SYNC_EVERY, m)):
+        done = st.done
+        w = apply_A(P(st.V[i])) if right else P(apply_A(st.V[i]))
+        h, w = _project(st, w, i + 1)
+        h2, w = _project(st, w, i + 1)
+        hip = _norm_hot(w)
+        st.V[i + 1].copy_(torch.where(_bc(done, w), torch.zeros_like(w),
+                                      w / _bc(_positive(hip), w)))
+        st.W[i + 1].copy_(st.V[i + 1])
+        st.col.zero_()
+        st.col[..., :i + 1] = torch.movedim(h + h2, 0, -1)
+        st.col[..., i + 1] = hip
+        col = torch.matmul(st.Qr, st.col[..., None])[..., 0]
+        # the new rotation zeroes col[i+1]
+        a, c = col[..., i], col[..., i + 1]
+        denom = torch.sqrt(a * a + c * c)
+        ci = torch.where(denom > 0, a / _positive(denom), torch.ones_like(a))
+        si = torch.where(denom > 0, c / _positive(denom), torch.zeros_like(a))
+        col[..., i] = ci * a + si * c
+        col[..., i + 1].zero_()
+        fr = done[..., None]
+        qi, qi1 = st.Qr[..., i, :], st.Qr[..., i + 1, :]
+        new_qi = torch.where(fr, qi, ci[..., None] * qi + si[..., None] * qi1)
+        new_qi1 = torch.where(fr, qi1, ci[..., None] * qi1 - si[..., None] * qi)
+        st.Qr[..., i, :] = new_qi
+        st.Qr[..., i + 1, :] = new_qi1
+        st.H[..., :, i] = torch.where(fr, torch.zeros_like(col), col)
+        eps = (st.beta * st.Qr[..., i + 1, 0]).abs() / st.normb
+        st.iters += (~done).to(torch.int32)
+        st.done |= eps < tol
+
+
+def gmres_cycle_close(st: GMRESState, n: int, *, apply_P: Callable | None = None,
+                      side: str = "right") -> None:
+    """The end of a cycle that ran ``n`` Arnoldi steps, in place: the
+    back-substitution y = H[:n, :n]⁻¹·s[:n] (a zero diagonal is a frozen or
+    unreached column and stays out of the correction), the update of the
+    systems not done before the cycle, and the cycle's done mask kept."""
+    P, right = _gmres_P(apply_P, side)
+    m = st.H.shape[-1]
+    svec = st.beta[..., None] * st.Qr[..., :m, 0]
+    st.y.zero_()
+    for k in range(n - 1, -1, -1):
+        hkk = st.H[..., k, k]
+        val = (svec[..., k] - (st.H[..., k, :] * st.y).sum(dim=-1)) / _nonzero(hkk)
+        st.y[..., k] = torch.where(hkk != 0, val, torch.zeros_like(val))
+    if n:
+        dt = st.V.dtype
+        dx = (st.V[:n] * torch.movedim(st.y[..., :n], -1, 0)[..., None, None].to(dt)).sum(dim=0)
+        if right:
+            dx = P(dx)
+        torch.where(_bc(st.done_all, st.x), st.x, st.x + dx, out=st.x)
+    st.done_all.copy_(st.done)
+
+
+def gmres_cycles(maxiter: int, restart: int) -> int:
+    """The restart cycles of :func:`gmres` within ``maxiter`` iterations."""
+    return max(1, -(-maxiter // restart))
+
+
+def gmres_iterate(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+                  apply_P: Callable | None = None, tol=1e-5, maxiter: int = 1000,
+                  restart: int = 20, side: str = "right") -> GMRESState:
+    """The loop of :func:`gmres`, its final state returned: for a caller
+    that verifies x itself (``dynamics/solve.py``), as the JAX package's
+    compiled solves leave out :func:`gmres`'s unused residual check."""
+    m = restart
+    kw = dict(apply_P=apply_P, side=side)
+    st = gmres_state(b, m)
+    gmres_init(st, b, x0, **kw)
+    for _ in range(gmres_cycles(maxiter, m)):
+        if not host_any(~st.done_all):
+            break
+        gmres_cycle_start(apply_A, b, st, tol=tol, **kw)
+        n = 0
+        for i0 in range(0, m, CG_SYNC_EVERY):
+            if not host_any(~st.done):
+                break
+            gmres_arnoldi_block(apply_A, st, i0, tol=tol, **kw)
+            n = min(i0 + CG_SYNC_EVERY, m)
+        gmres_cycle_close(st, n, **kw)
+    return st
 
 
 def gmres(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
-          apply_P: Callable | None = None, tol: float = 1e-5, maxiter: int = 1000,
+          apply_P: Callable | None = None, tol=1e-5, maxiter: int = 1000,
           restart: int = 20, side: str = "right") -> CGResult:
     """Preconditioned restarted GMRES, batched over the leading axes of ``b``.
 
@@ -683,84 +941,15 @@ def gmres(apply_A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     (A·P)u = b with x = P·u, whose Givens estimate is the true residual;
     left tracks ‖P(b−Ax)‖.
 
-    Host reads: ``all(done)`` every ``CG_SYNC_EVERY`` Arnoldi steps (leaving
-    a cycle early changes nothing: frozen systems contribute zero columns)
-    and once per restart cycle."""
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-    P = apply_P if apply_P is not None else (lambda v: v)
-    right = apply_P is not None and side == "right"
-    m = restart
-    n_outer = max(1, -(-maxiter // m))
-    batch = tuple(b.shape[:-2])
-    dt, dev, f64 = b.dtype, b.device, torch.float64
-
-    normb = _positive(_norm(b if right else P(b)))
-    x = x0
-    iters = torch.zeros(batch, dtype=torch.int32, device=dev)
-    done_all = torch.zeros(batch, dtype=torch.bool, device=dev)
-    V = b.new_empty((m + 1,) + tuple(b.shape))
-
-    def project(w, n):
-        """Coefficients of ``w`` on the first ``n`` basis rows, and ``w``
-        with them removed."""
-        h = fdot(V[:n], w[None], dim=(-2, -1))               # [n, ...]
-        return h, w - (V[:n] * h[..., None, None].to(dt)).sum(dim=0)
-
-    for _ in range(n_outer):
-        if bool(done_all.all()):
-            break
-        r = (b - apply_A(x)) if right else P(b - apply_A(x))
-        beta = _norm_hot(r)
-        V[0] = r / _bc(_positive(beta), r)
-        H = torch.zeros(batch + (m + 1, m), dtype=f64, device=dev)
-        Qr = torch.eye(m + 1, dtype=f64, device=dev).expand(batch + (m + 1, m + 1)).contiguous()
-        done = done_all | (beta / normb < tol)
-        n = 0
-        for i in range(m):
-            if i % CG_SYNC_EVERY == 0 and bool(done.all()):
-                break
-            w = apply_A(P(V[i])) if right else P(apply_A(V[i]))
-            h, w = project(w, i + 1)
-            h2, w = project(w, i + 1)
-            hip = _norm_hot(w)
-            V[i + 1] = torch.where(_bc(done, w), torch.zeros_like(w), w / _bc(_positive(hip), w))
-            col = torch.zeros(batch + (m + 1,), dtype=f64, device=dev)
-            col[..., :i + 1] = torch.movedim(h + h2, 0, -1)
-            col[..., i + 1] = hip
-            col = torch.matmul(Qr, col[..., None])[..., 0]
-            # the new rotation zeroes col[i+1]
-            a, c = col[..., i], col[..., i + 1]
-            denom = torch.sqrt(a * a + c * c)
-            ci = torch.where(denom > 0, a / _positive(denom), torch.ones_like(a))
-            si = torch.where(denom > 0, c / _positive(denom), torch.zeros_like(a))
-            col[..., i] = ci * a + si * c
-            col[..., i + 1] = 0.0
-            fr = done[..., None]
-            qi, qi1 = Qr[..., i, :], Qr[..., i + 1, :]
-            new_qi = torch.where(fr, qi, ci[..., None] * qi + si[..., None] * qi1)
-            new_qi1 = torch.where(fr, qi1, ci[..., None] * qi1 - si[..., None] * qi)
-            Qr[..., i, :] = new_qi
-            Qr[..., i + 1, :] = new_qi1
-            H[..., :, i] = torch.where(fr, torch.zeros_like(col), col)
-            eps = (beta * Qr[..., i + 1, 0]).abs() / normb
-            iters = iters + (~done).to(torch.int32)
-            done = done | (eps < tol)
-            n = i + 1
-        # back-substitution y = H[:n, :n]⁻¹·s[:n]; a zero diagonal is a frozen
-        # or unreached column and stays out of the correction
-        svec = beta[..., None] * Qr[..., :m, 0]
-        y = torch.zeros(batch + (m,), dtype=f64, device=dev)
-        for k in range(n - 1, -1, -1):
-            hkk = H[..., k, k]
-            val = (svec[..., k] - (H[..., k, :] * y).sum(dim=-1)) / _nonzero(hkk)
-            y[..., k] = torch.where(hkk != 0, val, torch.zeros_like(val))
-        if n:
-            dx = (V[:n] * torch.movedim(y[..., :n], -1, 0)[..., None, None].to(dt)).sum(dim=0)
-            if right:
-                dx = P(dx)
-            x = torch.where(_bc(done_all, x), x, x + dx)
-        done_all = done
-
-    err = _norm(apply_A(x) - b) / _positive(_norm(b))
-    return CGResult(x=x, iters=iters, converged=err < math.sqrt(tol))
+    The loop (:func:`gmres_iterate`) is :func:`gmres_init` and, per restart
+    cycle, :func:`gmres_cycle_start`, blocks of ``CG_SYNC_EVERY`` Arnoldi
+    steps (:func:`gmres_arnoldi_block`) and :func:`gmres_cycle_close` over a
+    :class:`GMRESState`. Host reads (:func:`host_any`): ``any(~done)``
+    before each block (leaving a cycle early changes nothing: frozen
+    systems contribute zero columns) and ``any(~done_all)`` before each
+    cycle. ``converged`` is the true relative residual |A·x − b|/|b| below
+    √tol. ``tol`` is a number or a 0-dim float64 tensor."""
+    st = gmres_iterate(apply_A, b, x0, apply_P=apply_P, tol=tol, maxiter=maxiter,
+                       restart=restart, side=side)
+    err = _norm(apply_A(st.x) - b) / _positive(_norm(b))
+    return CGResult(x=st.x, iters=st.iters, converged=err < _sqrt_tol(tol))

@@ -7,16 +7,17 @@ card.
 
 with CONFIG one of bench_8x8, bench_32x32, kernel_64x64, ssh_8x8,
 ssh_64x64, twisted_64x64, ssh_twisted_64x64, kernel_2mn_64x64,
-tempering_64x64, langevin_64x64,
-ssh_langevin_64x64, twisted_langevin_64x64, gmres_64x64, measure_64x64, measure_ssh_64x64,
+tempering_64x64, gmres_update_64x64, bicgstab_64x64, langevin_64x64,
+ssh_langevin_64x64, twisted_langevin_64x64, gmres_langevin_64x64, gmres_64x64,
+measure_64x64, measure_ssh_64x64,
 measure_bond_64x64, driver_4x4, driver_ssh_4x4, driver_64x64,
 driver_ssh_64x64, driver_twisted_4x4, driver_ssh_twisted_4x4,
 driver_twisted_64x64, driver_ssh_twisted_64x64, driver_deep_beta_8x8,
 driver_langevin_4x4;
 ``--eager`` runs the eager update of an HMC configuration, the eager
-Langevin step or a driver step with every part eager (update, reflection,
-swap, measurement) in place of its CUDA graphs (``dynamics/graphs.py``;
-real and complex hopping alike).
+Langevin step, the eager GMRES solve or a driver step with every part eager
+(update, reflection, swap, measurement) in place of its CUDA graphs
+(``dynamics/graphs.py``; real and complex hopping alike).
 ``--timed N`` times N more runs after the warm-up, without the profiler
 (host clock, each run ended by a synchronisation), and for an HMC driver
 step each part apart (``parts``: the update, the reflection and swap
@@ -51,9 +52,12 @@ twisted-boundary (complex hopping) updates, ``kernel_2mn_64x64`` its 2MN
 update and ``tempering_64x64`` its laddered update (per-chain couplings;
 the exchange: ``tools/profile_torch_deep.py tempering_64x64``); ``langevin_64x64``,
 ``ssh_langevin_64x64`` and ``twisted_langevin_64x64`` one Runge-Kutta
-Langevin step of its Langevin configurations; ``gmres_64x64`` one GMRES
-solve of M·z = r for nᵥ = 10 probes per chain on the ``langevin_64x64``
-model (the left KPM apply);
+Langevin step of its Langevin configurations; ``gmres_update_64x64`` and
+``bicgstab_64x64`` the updates of ``bench.GMRES_64X64`` and
+``BICGSTAB_64X64`` (each (MᵀM)⁻¹ by Mᵀ then M), ``gmres_langevin_64x64`` the
+RK step of ``GMRES_LANGEVIN_64X64``; ``gmres_64x64`` one GMRES solve of
+M·z = r for nᵥ = 10 probes per chain on the ``langevin_64x64`` model (the
+left KPM apply), graphed (``--eager``: the eager solve);
 ``measure_64x64`` is one measurement of the driver at 64×64, β = 4 (4
 chains, nᵥ = 10, the five time-dependent on-site correlations, KPM
 max_order 8), as the 64×64 run of ``chip_smoke.py`` makes it;
@@ -112,10 +116,14 @@ HMC_CONFIGS = {"bench_8x8": bench.BENCH_8X8, "bench_32x32": bench.BENCH_32X32,
                "twisted_64x64": bench.TWISTED_64X64,
                "ssh_twisted_64x64": bench.SSH_TWISTED_64X64,
                "kernel_2mn_64x64": bench.KERNEL_2MN_64X64,
-               "tempering_64x64": bench.TEMPERING_64X64}
+               "tempering_64x64": bench.TEMPERING_64X64,
+               # bench.GMRES_64X64's update (the case gmres_64x64 is a probe solve)
+               "gmres_update_64x64": bench.GMRES_64X64,
+               "bicgstab_64x64": bench.BICGSTAB_64X64}
 LANGEVIN_CONFIGS = {"langevin_64x64": bench.LANGEVIN_64X64,
                     "ssh_langevin_64x64": bench.SSH_LANGEVIN_64X64,
-                    "twisted_langevin_64x64": bench.TWISTED_LANGEVIN_64X64}
+                    "twisted_langevin_64x64": bench.TWISTED_LANGEVIN_64X64,
+                    "gmres_langevin_64x64": bench.GMRES_LANGEVIN_64X64}
 
 
 def main() -> int:
@@ -144,8 +152,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_hmc: no CUDA device", file=sys.stderr)
         return 1
-    if args.eager and args.config.startswith(("measure", "gmres")):
-        ap.error("--eager takes an HMC configuration, a Langevin step or a driver step")
+    if args.eager and args.config.startswith("measure"):
+        ap.error("--eager takes an HMC configuration, a Langevin step, the GMRES solve or a "
+                 "driver step")
     hmc_driver = args.config.startswith("driver") and args.config != "driver_langevin_4x4"
     if (args.chains is not None or args.blocks) and not hmc_driver:
         ap.error("--chains and --blocks take an HMC driver step")
@@ -183,7 +192,7 @@ def _profile(args, example, wide: bool, chains: int) -> int:
         run, box = _driver_step(example, args.eager, wide, chains)
         graphable = box["step"]
     elif args.config == "gmres_64x64":
-        run = _gmres_solve()
+        run, graphable = _gmres_solve(args.eager)
     elif args.config in LANGEVIN_CONFIGS:
         run, box = _langevin_step(bench.build(LANGEVIN_CONFIGS[args.config], "cuda",
                                               torch.float32), args.eager)
@@ -282,18 +291,43 @@ def _langevin_step(b, eager: bool):
     return run, box
 
 
-def _gmres_solve():
+def _gmres_solve(eager: bool):
     """One GMRES solve (restart 20, tol 1e-5) of nᵥ = 10 probes per chain on
-    the Langevin 64×64 model, preconditioned by the left KPM apply."""
-    from elphdynamics_tpu_torch.dynamics.solve import SolverConfig, resolve_precond, solve_minv
+    the Langevin 64×64 model, preconditioned by the left KPM apply: its
+    graphs (``dynamics/graphs.NonsymSolve``: a start, each cycle's start,
+    blocks of Arnoldi steps and close, the verification; the first call
+    captures them) or with ``eager`` the eager solve; and an object whose
+    ``workspace()`` is the graphed solve's workspace (None eager)."""
+    from types import SimpleNamespace
+
+    from elphdynamics_tpu_torch.dynamics import graphs
+    from elphdynamics_tpu_torch.dynamics.solve import (
+        SolverConfig, precond_applies, precond_state, solve_minv)
 
     b = bench.build(bench.LANGEVIN_64X64, "cuda", torch.float32)
     R = torch.randn((b.x.shape[0], 10, b.ops.Nsites, b.ops.Ltau), device="cuda",
                     generator=b.generator)
-    ds = b.ops.stack(b.ops.derived(b.params, b.x))
-    pa = resolve_precond(b.precond, b.params, b.x)
+    derived = b.ops.derived(b.params, b.x)
+    pstate = precond_state(b.precond, b.params, b.x)
     scfg = SolverConfig(tol=1e-5, maxiter=500, kind="gmres", restart=20)
-    return lambda: solve_minv(b.ops, b.params, ds, R, scfg, pa).iters
+    if eager:
+        ds, pa = b.ops.stack(derived), precond_applies(b.precond, pstate)
+        return (lambda: solve_minv(b.ops, b.params, ds, R, scfg, pa).iters,
+                SimpleNamespace(workspace=lambda: None))
+    solve = graphs.make_solve(b.ops, b.precond, scfg, rhs="R", stacked=True)
+    ws = graphs.step_workspace({}, b.params, b.x)
+    ws.put("env", derived)
+    ws.put("R", R)
+    ws.load("kpm", pstate)
+
+    def run():
+        ws.capture_once(lambda: [("probe_start", lambda: solve.start(ws, scfg.tol)),
+                                 *solve.segments(ws, scfg.tol)])
+        ws.run("probe_start", lambda: solve.start(ws, scfg.tol))
+        solve.solve(ws, scfg.tol)
+        return solve.result(ws)[1]
+
+    return run, SimpleNamespace(workspace=lambda: ws)
 
 
 def _measurement(ssh: bool = False, bond: bool = False):

@@ -20,9 +20,10 @@ CPU the same segment functions run uncaptured. Here, in float64 at 4×4
   (the tolerances of ``tests/test_torch_block_complex.py``,
   ``tests/test_torch_deflation.py`` and ``tests/test_torch_measurements.py``,
   stated in each test);
-* the update's gate: BiCGStab, GMRES, ``eager=True`` and a site shard
-  keep the eager update; block CG and CG solves replay graphs of their own
-  names;
+* the update's gate: BiCGStab and GMRES take the segmented update (equal
+  to the eager one; ``tests/test_torch_graph_nonsym.py`` holds them),
+  ``eager=True`` and a site shard keep the eager update; block CG and CG
+  solves replay graphs of their own names;
 * ``maxiter = 2`` runs the block verification and its eager retry;
 * a failed near-null factorisation raises ``torch.linalg.cholesky``'s error
   from the segmented call as from the eager one;
@@ -175,21 +176,34 @@ def test_segmented_update_with_aid_equals_eager(case):
 
 @pytest.mark.parametrize("case", ["bicgstab", "gmres", "eager", "shard"])
 def test_update_gate_keeps_the_eager_update(case):
-    """BiCGStab, GMRES, ``eager=True`` and a site shard keep the eager
-    update, with block CG and deflation set too (a shard's calls need a
-    process group: only its gate is read here)."""
+    """With block CG and deflation set: BiCGStab and GMRES take the
+    segmented update (their own solve, which ignores both, as the eager
+    update does), equal to its eager twin bit for bit; ``eager=True`` and a
+    site shard keep the eager update (a shard's calls need a process group:
+    only its gate is read here)."""
     b = _bench(block=True, deflate_k=4)
     ops, params = b.ops, b.params
-    cfg = replace(b.hmc_cfg, solver_kind=case if case in ("bicgstab", "gmres") else "cg")
+    nonsym = case in ("bicgstab", "gmres")
+    cfg = replace(b.hmc_cfg, solver_kind=case if nonsym else "cg")
     if case == "shard":
         shard = SiteShard(ops.spec.ckb, ops.spec.wij_table, 1, 0)
         ops = make_model_ops(shard_model(ops.spec, params, shard)[0])
     step = make_hmc_step(ops, b.mass, cfg, kpm.make_precond(ops, b.kpm_cfg),
                          eager=case == "eager")
-    assert not step.segmented
-    if case != "shard":
-        step(params, b.state, torch.Generator().manual_seed(0))
-        assert step.workspace() is None
+    assert step.segmented == nonsym
+    if case == "shard":
+        return
+    twin = make_hmc_step(ops, b.mass, cfg, kpm.make_precond(ops, b.kpm_cfg), eager=True)
+    draws = twin.draw(params, b.state.x, C, torch.Generator().manual_seed(0))
+    r_step, r_twin = _call(step, params, b.state, draws=draws), _call(twin, params, b.state,
+                                                                        draws=draws)
+    _equal(r_step[0], r_twin[0])
+    assert r_step[1] == r_twin[1] > 0
+    ws = step.workspace()
+    assert (ws is not None) == nonsym
+    if nonsym:
+        assert ("bicg" if case == "bicgstab" else "gmres") in ws
+        assert "cg" not in ws and "bcg" not in ws and "defl" in ws
 
 
 def test_block_and_cg_solves_replay_graphs_of_their_own(monkeypatch):

@@ -12,10 +12,11 @@ functions run uncaptured. Here, in float64, 2 chains, Lτ = 10:
   "highest";
 * it matches the JAX package's jitted step on JAX's draws (x to 1e-10,
   iterations and flags exact), one case per method;
-* the gate: BiCGStab / GMRES and ``eager=True`` take the eager step;
-  complex hopping and the near-null and ``exact_lowfreq`` preconditioners
-  take the graphed one (``tests/test_torch_graph_complex.py`` holds the
-  twisted cases, ``tests/test_torch_graph_aids.py`` the solver aids);
+* the gate: ``eager=True`` takes the eager step; complex hopping, the
+  near-null and ``exact_lowfreq`` preconditioners, BiCGStab and GMRES take
+  the graphed one (``tests/test_torch_graph_complex.py`` holds the twisted
+  cases, ``tests/test_torch_graph_aids.py`` the solver aids,
+  ``tests/test_torch_graph_nonsym.py`` the nonsymmetric solves);
 * a solve made to fail runs the verification and the eager retry;
 * a stand-in capture: a second step makes no host-to-device copy;
 * changed parameters (the μ tuner) are copied into the workspace, a new
@@ -170,9 +171,10 @@ def test_segmented_step_matches_jax(method, name):
 @pytest.mark.parametrize("case", ["complex", "bicgstab", "gmres", "nearnull", "exact_lowfreq",
                                   "eager"])
 def test_gate_takes_the_eager_step(case):
-    """Complex hopping and the near-null and ``exact_lowfreq``
-    preconditioners take the graphed step (a workspace, graphs on a card);
-    BiCGStab, GMRES and ``eager=True`` are not segmented at all. Each step
+    """Complex hopping, the near-null and ``exact_lowfreq``
+    preconditioners, BiCGStab and GMRES take the graphed step (a workspace,
+    graphs on a card; ``tests/test_torch_graph_nonsym.py`` holds the
+    nonsymmetric solves); ``eager=True`` is not segmented at all. Each step
     equals its eager twin."""
     twist = bench.TWIST if case == "complex" else None
     kind = case if case in ("bicgstab", "gmres") else "cg"
@@ -187,7 +189,7 @@ def test_gate_takes_the_eager_step(case):
         precond = kpm.make_precond(b.ops, kpm.KPMConfig(max_order=4, exact_lowfreq=1))
     step = tl.make_langevin_step(b.ops, b.Q, b.dt, b.method, b.solver, precond,
                                  eager=case == "eager")
-    graphed = case in ("complex", "nearnull", "exact_lowfreq")
+    graphed = case != "eager"
     assert step.segmented == graphed
     twin = tl.make_langevin_step(b.ops, b.Q, b.dt, b.method, b.solver, precond, eager=True)
     draws = twin.draw(b.params, b.x, C, torch.Generator().manual_seed(2))

@@ -18,11 +18,12 @@ Here, in float64, 2 chains, Lτ = 10:
   dependent and not, at ``loop_precision`` "high" and "highest";
 * they match the JAX package's jitted reflection, swap and measurement
   step on JAX's draws (x to 1e-10, increments to 1e-9);
-* the gate: BiCGStab, GMRES, ``eager=True`` and a site shard take the
-  eager call; complex hopping, ``[solver] block`` and the near-null and
-  ``exact_lowfreq`` preconditioners take the segmented one
+* the gate: ``eager=True`` and a site shard take the eager call; complex
+  hopping, ``[solver] block``, the near-null and ``exact_lowfreq``
+  preconditioners, BiCGStab and GMRES take the segmented one
   (``tests/test_torch_graph_complex.py`` holds the twisted cases,
-  ``tests/test_torch_graph_aids.py`` the solver aids);
+  ``tests/test_torch_graph_aids.py`` the solver aids,
+  ``tests/test_torch_graph_nonsym.py`` the nonsymmetric solves);
 * a solve made to fail runs the verification and the eager retry;
 * a stand-in capture: a second call makes no host-to-device copy;
 * the stock Holstein and SSH HMC files and the twisted Holstein example
@@ -334,12 +335,13 @@ def _gate_model(case):
 
 @pytest.mark.parametrize("case", GATE)
 def test_gate_takes_the_eager_call(case):
-    """Complex hopping, ``[solver] block`` and the near-null and
-    ``exact_lowfreq`` preconditioners take the segmented calls (a
-    workspace, graphs on a card); BiCGStab, GMRES, ``eager=True`` and a
-    site shard are not segmented at all. Each call equals its eager twin.
-    The moves always solve by CG, so the solver kind and ``block`` gate only
-    the measurement."""
+    """Complex hopping, ``[solver] block``, the near-null and
+    ``exact_lowfreq`` preconditioners, BiCGStab and GMRES take the
+    segmented calls (a workspace, graphs on a card;
+    ``tests/test_torch_graph_nonsym.py`` holds the nonsymmetric probe
+    solves); ``eager=True`` and a site shard are not segmented at all. Each
+    call equals its eager twin. The moves always solve by CG, so the solver
+    kind and ``block`` gate only the measurement."""
     ops, params, x, precond = _gate_model(case)
     kind = case if case in ("bicgstab", "gmres") else "cg"
     scfg = SolverConfig(tol=1e-6, maxiter=500, kind=kind, block=case == "block")
@@ -347,7 +349,7 @@ def test_gate_takes_the_eager_call(case):
     eager = case == "eager"
     mstep = tm.make_measurement_step(ops, mspec, scfg, precond, eager=eager)
     mtwin = tm.make_measurement_step(ops, mspec, scfg, precond, eager=True)
-    measure_segmented = case in ("complex", "block", "nearnull", "exact_lowfreq")
+    measure_segmented = case not in ("eager", "shard")
     assert mstep.segmented == measure_segmented
     cfg = tsu.SpecialUpdateConfig(freq=1, n_moves=2, maxiter=500)
     makers = (tsu.make_reflection_update, tsu.make_swap_update)

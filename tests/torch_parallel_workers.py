@@ -648,17 +648,31 @@ def graph_aids_worker(device, n_chains: int = 4):
     rank), from generators every rank seeds alike, two updates with block
     CG and two with a deflation basis (4×4 Holstein, Lτ = 10, float64), each
     in its segmented form and in its eager form (asked for by name) on the
-    same draws. Per update: whether the two forms agree bit for bit (host
-    reads included), whether the step is segmented, its host reads and the
-    segmented form's results on the rank's block (x, v, ΔH, iterations,
-    the refreshed basis)."""
+    same draws (:func:`_segmented_against_eager`)."""
+    return _segmented_against_eager(
+        (("block", dict(block=True)), ("deflation", dict(deflate_k=4))), n_chains)
+
+
+def graph_nonsym_worker(device, n_chains: int = 4):
+    """:func:`graph_aids_worker` for two GMRES updates (restart 20, the
+    bench configurations' settings)."""
+    return _segmented_against_eager((("gmres", dict(solver="gmres")),), n_chains)
+
+
+def _segmented_against_eager(cases, n_chains: int):
+    """For each ``(label, options)`` of ``cases`` (:func:`bench.build_bench_step`
+    options), two updates on this rank's block of chains in the segmented
+    and in the eager form on the same draws. Per update: whether the two
+    forms agree bit for bit (host reads included), whether the step is
+    segmented, its host reads and the segmented form's results on the
+    rank's block (x, v, ΔH, iterations, decisions, the refreshed basis)."""
     from elphdynamics_tpu_torch import bench, solvers
     from elphdynamics_tpu_torch.parallel.chains import ChainBlock
 
     world = multihost.world()
     cb = ChainBlock.of(n_chains, world, multihost.rank()) if world > 1 else None
     out = {}
-    for label, aid in (("block", dict(block=True)), ("deflation", dict(deflate_k=4))):
+    for label, aid in cases:
         b = bench.build_bench_step(4, 1.0, 0.1, 0.05, n_chains, "cpu", torch.float64,
                                    trajectory_time=0.1, **aid)
         lb = bench.shard_bench_step(b, chains=cb) if cb is not None else b
@@ -677,7 +691,7 @@ def graph_aids_worker(device, n_chains: int = 4):
             row = dict(same=_same(res[0][0], res[1][0]) and reads == res[1][1],
                        segmented=bool(lb.step.segmented and not eager.segmented), reads=reads,
                        x=_np(state_seg.x), v=_np(state_seg.v), dH=_np(stats.delta_H),
-                       iters=_np(stats.iters))
+                       iters=_np(stats.iters), accepted=_np(stats.accepted))
             if state_seg.defl is not None:
                 row["W"] = _np(state_seg.defl.W)
             out[f"{label}_update{u}"] = row
