@@ -25,7 +25,10 @@ Phases (one line each, and the process exits non-zero if any fails):
    [8, 4096, 1] (the power iteration) and [8, 2, 4096, 40] (Ā on a CG
    block), K2 with per-chain tables on [8, 2, 4096, 40] with and without
    ``prev``; each with device ms, plain ms, bound and the one-call library
-   form where there is one;
+   form (for the per-column tables one batched ``torch.matmul`` by the
+   [8, 40, 4096, 4096] stack of dense matrices, one per chain and column,
+   21.5 GB, assembled from the twin's fold of the identity; in phase 15
+   complex64, 43 GB);
 6. a small update (4×4, float64) on the card with K1 forced on, against
    the same update on the CPU through the plain twin; the same for a 4×4
    SSH update with the dense Ā switched off, so that K1 runs in both its
@@ -74,7 +77,8 @@ Phases (one line each, and the process exits non-zero if any fails):
     [16, 4096, 1], per-(chain, bond, column) tables on [8, 1, 4096, 40],
     per-chain tables on [8, 1, 4096, 40], [8, 4096, 1] and [8, 4096, 4096]
     (a densified Ā); device ms (forward), plain ms, bound and the dense
-    complex matmul;
+    complex matmul (per-column tables: the batched matmul by the
+    [8, 40, 4096, 4096] complex64 stack, 43 GB);
 16. twisted 4×4 float64 runs on the card (K1 forced on, the dense Ā off,
     so the complex KPM recurrence runs K1) against the CPU with the same
     draws: a Holstein and an SSH HMC update, a Holstein Runge-Kutta
@@ -172,7 +176,19 @@ Phases (one line each, and the process exits non-zero if any fails):
     ``launches_by_path``;
 30. (d) (a), (b), (e)–(g) and phase 41's chain ranks with one NCCL rank per
     card when the machine has two cards (the 2×2 layout with four), else
-    one line saying why not;
+    one line saying why not; there a site shard's calls replay CUDA graphs
+    with the site group's all-reduces and halo exchanges inside them, and
+    the graphed site shards are held to their eager forms on the same
+    draws, bit for bit: the 4×4 float64 samplers of
+    ``tests/torch_parallel_workers.graph_sites_worker`` (updates, the dt
+    tuner's, block CG, deflation, Langevin, moves, probe solves; Holstein
+    with and without ωᵢⱼ, SSH, twisted) on 2 site ranks and a laddered
+    update and exchange on 2×2, then ``KERNEL_64X64`` and ``SSH_64X64`` at
+    D = 2 (the dt tuner's update too) and ``KERNEL_64X64`` on 2×2, with
+    sweeps/s graphed against eager and against one rank's graphed update of
+    the same chains, busy shares, replays = host reads + 1, the site
+    groups agreeing on decisions, iterations, host reads, replays and SSH's
+    bond field (``chiprun_out/graphed_sites_nccl.json``);
 31. (folded into phase 42, which runs the same block-against-CG checks on
     the graphed measurement's probe solves);
 
@@ -278,8 +294,9 @@ Phases (one line each, and the process exits non-zero if any fails):
     replays = host reads + 1 per run of segments between the exchange's two
     gathers, flags 0 and acceptance > 0 (phase 20's checks); a dispersive 64×64
     update run twice on the same draws (bit for bit) beside the old
-    ``index_add`` force rerun on one field; and 50 graphed tempering driver
-    steps of the stock 4×4 Holstein file on 8 chains with no growth of
+    ``index_add`` force rerun on one field; and ``TEMPERING_MEMORY_STEPS``
+    graphed tempering driver steps of the stock 4×4 Holstein file on 8
+    chains with no growth of
     allocated memory (``chiprun_out/graphed_chains.json``). Its runs' shapes
     enter phase 23 and ``launches_by_path``; ``nccl_only()`` runs its ranks'
     part on NCCL ranks, one card each.
@@ -318,8 +335,19 @@ Phases (one line each, and the process exits non-zero if any fails):
     (``chiprun_out/graphed_nonsym.json``). Its runs' shapes enter phase 23
     and ``launches_by_path``.
 
-Phases 36–42 run after 9, 43 after 13, 32 after 19, 33, 35 and 34 after
-22; phases 24–30 run before 23, which comes last.
+44. a site shard graphed on one card: a one-rank NCCL site group
+    (``multihost.launch(fn, 1, "nccl")``) runs a D = 1 site shard of
+    ``KERNEL_64X64`` and of ``SSH_64X64`` (every site in the block: no
+    halo, every all-reduce an NCCL op inside the graphs), trajectories cut
+    to ``SHORT_TRAJECTORY``, two updates each graphed against the eager
+    form on the same draws: bit for bit, equal shard counters in the
+    second (a graph's counted at its capture and added at each replay; the
+    first also counts the warm-up), replays = host reads
+    + 1, the all-reduces each graph holds per replay
+    (``chiprun_out/graphed_sites.json``).
+
+Phases 36–42 run after 9, 43 and 44 after 13, 32 after 19, 33, 35 and 34
+after 22; phases 24–30 run before 23, which comes last.
 
 The line before the last is a JSON object with the kernels' numbers, one
 entry per kernel and coefficient mode (``launches`` summed over the 64×64
@@ -436,6 +464,35 @@ def library_ms(spec, c, s, v) -> float:
         return device_ms(lambda: torch.matmul(dense, v), reps=5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def library_ms_columns(spec, c, s, v) -> float:
+    """One batched ``torch.matmul`` by the ``[C, K, N, N]`` stack of dense
+    checkerboard matrices, one per chain and column of the per-(chain,
+    bond, column) tables ``c``, ``s`` ``[C, Nb, K]``, on the field ``v``
+    ``[C, S, N, K]`` laid out as ``[C, K, N, S]`` (the permute not timed),
+    TF32 off: the one PyTorch call that computes the per-column fold. Each
+    matrix is the plain fold of the identity, assembled on the card (21.5
+    GB in float32 and 43 GB in complex64 at SSH 64×64's ``[8, 8192, 40]``
+    tables). Timed here only; the port never calls it."""
+    from elphdynamics_tpu_torch.ops import checkerboard as ckb
+
+    C, K, N = c.shape[0], c.shape[-1], v.shape[-2]
+    eye = torch.eye(N, dtype=v.dtype, device=v.device)
+    dense = torch.empty((C, K, N, N), dtype=v.dtype, device=v.device)
+    for ci in range(C):
+        for k in range(K):
+            dense[ci, k] = ckb.fold(spec, c[ci, :, k].contiguous(), s[ci, :, k].contiguous(), eye)
+    del eye
+    vp = v.permute(0, 3, 2, 1).contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return device_ms(lambda: torch.matmul(dense, vp), reps=3, replays=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        del dense, vp
+        torch.cuda.empty_cache()
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -654,11 +711,14 @@ def phase_table_kernels() -> dict:
                     + (C * N + 2 * C if kernel == "fused" else 0))
                 flops = (3 * G + (6 if kernel == "fused" else 0)) * v.numel()
                 b_ms, b_by = bound(nbytes, flops)
-                # the one-call library form, once per float32 shape: none exists
-                # for per-column tables (per-(chain, τ) dense matrices take
-                # C·Lτ·N² elements)
+                # the one-call library form, once per float32 shape (per-column
+                # tables at their main shape only: C·Lτ dense matrices of N²
+                # elements, 21.5 GB)
                 lib = (library_ms(sc, c, s, v)
                        if dtype == torch.float32 and form == "chain" and name == "forward" else None)
+                if (dtype == torch.float32 and form == "column" and name == "forward"
+                        and shape == main_shape[key]):
+                    lib = library_ms_columns(sc, c, s, v)
                 say("table_kernel", kernel=kernel, tables=form, dtype=str(dtype).split(".")[1],
                     shape="x".join(map(str, shape)), table_shape="x".join(map(str, c.shape)),
                     direction=name, max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
@@ -1429,8 +1489,10 @@ def phase_complex_kernels() -> dict:
                     # 14 real flops per complex element per group
                     b_ms, b_by = bound(v.element_size() * (2 * v.numel() + c.numel() + s.numel()),
                                        14 * sc.ngroups * v.numel(), rate)
-                    lib = (library_ms(sc, c, s, v) if dtype == torch.complex64
-                           and shape == main_shape[form] and form != "column" else None)
+                    lib = None
+                    if dtype == torch.complex64 and shape == main_shape[form]:
+                        lib = (library_ms_columns(sc, c, s, v) if form == "column"
+                               else library_ms(sc, c, s, v))
                     timing = dict(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                                   bound_ms=f"{b_ms:.4f}", bound_by=b_by,
                                   bound_share=f"{b_ms / ms:.3f}",
@@ -2532,7 +2594,10 @@ def phase_h2(reference: dict, backend: str = "gloo", quad: bool = True) -> dict:
 
 def phase_nccl(reference: dict, h2_reference: dict) -> dict | None:
     """(d) (a), (b), (e)–(g) with one rank per card under NCCL, when the
-    machine has two cards (the 2×2 layout only with four)."""
+    machine has two cards (the 2×2 layout only with four); there a site
+    shard's calls replay CUDA graphs, its collectives inside them. Then
+    phase 41's chain ranks and the graphed site shards held to their eager
+    forms (:func:`phase_graphed_sites_nccl`)."""
     n = torch.cuda.device_count()
     if n < 2:
         say("nccl", skipped=f"'one CUDA device on this machine ({n}); NCCL ranks need one "
@@ -2542,7 +2607,8 @@ def phase_nccl(reference: dict, h2_reference: dict) -> dict | None:
     paths = phase_h2(h2_reference, "nccl", quad=n >= 4)
     if n < 4:
         say("nccl_2x2", skipped=f"'{n} CUDA devices on this machine; the 2x2 layout needs 4'")
-    return dict(chain_sharded=out, h2=paths, graphed_chains=phase_graphed_chains("nccl"))
+    return dict(chain_sharded=out, h2=paths, graphed_chains=phase_graphed_chains("nccl"),
+                graphed_sites=phase_graphed_sites_nccl(n))
 
 
 def _one_rank_64(cfg) -> float:
@@ -2863,8 +2929,10 @@ U_F32 = 2.0 ** -24                # float32 unit roundoff
 GRAPH_X_REL_TOL = 1e-6            # x, relative, where the two paths' bits differ
 # phase 41's interleaved blocks of each form per configuration, and HMC
 # updates per block (phases 36–40 run none since phase 41 came: PRs 12–16
-# settled them, and their time pays for it)
-GRAPH_AB_BLOCKS = 3
+# settled them, and their time pays for it). Two blocks since phase 44
+# came (a third costs some 40-55 s of the script's 900 s budget): the
+# median is then the mean of the two and the IQR half their distance.
+GRAPH_AB_BLOCKS = 2
 GRAPH_AB_UPDATES = 1
 
 
@@ -4022,6 +4090,393 @@ def phase_graphed_chains(backend: str = "gloo", kernel_ref: dict | None = None) 
             paths[f"graphed_{part}_64x64_chain_rank{i}_{backend}"] = rows
     _write_json(f"graphed_chains{'' if backend == 'gloo' else '_' + backend}.json", out)
     return paths
+# phase 44 and (d): a site shard's calls graphed on NCCL site groups, their
+# all-reduces and halo exchanges captured inside the graphs
+SITE_RUNS = ("kernel_64x64", "ssh_64x64")
+SITE_AB_BLOCKS = 3            # interleaved blocks of each form on the multi-card layouts
+# the 4×4 float64 samplers of tests/torch_parallel_workers.graph_sites_worker
+SITE_SMALL_CASES = ("holstein", "wij", "ssh", "twist", "ssh_twist")
+
+
+class _WithDt:
+    """A dynamic-dt update (or its eager twin) called at a fixed ``dt`` as
+    an ordinary update."""
+
+    def __init__(self, step, dt):
+        self.step, self.dt = step, dt
+        self.segmented = step.segmented
+
+    def draw(self, *args):
+        return self.step.draw(*args)
+
+    def workspace(self):
+        return self.step.workspace() if hasattr(self.step, "workspace") else None
+
+    def __call__(self, params, state, generator=None, draws=None):
+        return self.step(params, state, self.dt, generator, draws)
+
+
+def _site_layout(n_chain: int, n_site: int, n_chains: int, spec):
+    """:func:`_layout`, with a site shard at ``n_site`` = 1 too: a one-rank
+    site group holding every site (no halo; every all-reduce an NCCL op)."""
+    if n_site > 1:
+        return _layout(n_chain, n_site, n_chains, spec)
+    from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard
+
+    return None, SiteShard(spec.ckb, getattr(spec, "wij_table", None), 1, 0)
+
+
+def _shard_counts(shard) -> dict:
+    from elphdynamics_tpu_torch.parallel.lattice_shard import COUNTERS
+
+    return {k: getattr(shard, k) for k in COUNTERS}
+
+
+def _site_parity(step, twin, lb, shard, n_chains: int, tag: str, updates: int = 2) -> dict:
+    """``updates`` updates of a site shard's graphed ``step`` and of its
+    eager ``twin`` on the same draws (the whole batch's, cut to the rank's
+    chains and sites) from the same state: bit for bit (x, v, ΔH,
+    decisions, iterations, flags), equal host reads and shard counters
+    (those of the graphed update added at each replay), replays = host
+    reads + 1 (an eager retry's reads not counted); the counters equal
+    from the second update on (the first also counts the warm-up, every
+    segment once, eagerly). Per update: the row,
+    the decisions, iterations and (SSH) a hash of the whole bond field."""
+    state, out = lb.state, {}
+    for u in range(1, updates + 1):
+        draws = twin.draw(lb.params, state.x, n_chains, lb.generator)
+        shard.reset_counts()
+        sg, tg, mg = _counted_update(step, lb.params, state, draws)
+        cg = _shard_counts(shard)
+        shard.reset_counts()
+        se, te, me = _counted_update(twin, lb.params, state, draws)
+        ce = _shard_counts(shard)
+        bitwise = all(torch.equal(p, q) for p, q in (
+            (sg.x, se.x), (sg.v, se.v), (tg.delta_H, te.delta_H), (tg.accepted, te.accepted),
+            (tg.iters, te.iters), (tg.flag, te.flag)))
+        row = dict(bitwise=bitwise, counters_equal=cg == ce, replays=mg["replays"],
+                   host_reads=mg["host_reads"], host_reads_eager=me["host_reads"],
+                   retry_reads=mg["retry_reads"], graphed_s=f"{mg['seconds']:.4f}",
+                   eager_s=f"{me['seconds']:.4f}", allreduces=cg["allreduces"],
+                   halo_msgs=cg["halo_msgs"], folds=cg["folds"], force_sums=cg["force_sums"],
+                   max_flag=int(tg.flag.max()), finite=bool(torch.isfinite(sg.x).all()))
+        say(f"site_parity_{tag}", update=u, **row)
+        # the first graphed call also counts its warm-up (every segment run
+        # once eagerly), which ran on the card; from the second on the counts
+        # are the replays' alone
+        if not (bitwise and (u == 1 or row["counters_equal"]) and row["finite"]
+                and row["max_flag"] == 0):
+            raise RuntimeError(f"{tag} update {u}: the graphed site-sharded update left the "
+                               f"eager one, or flagged: {row} {cg} {ce}")
+        if ((sg.x.is_cuda and mg["replays"] != mg["host_reads"] - mg["retry_reads"] + 1)
+                or mg["host_reads"] != me["host_reads"]):
+            raise RuntimeError(f"{tag} update {u}: replays are not host reads + 1, or the "
+                               f"host reads differ: {row}")
+        row.update(accepted=tg.accepted.cpu().tolist(), iters=tg.iters.cpu().tolist(),
+                   field_sha256=(hashlib.sha256(sg.x.cpu().numpy().tobytes()).hexdigest()
+                                 if not lb.ops.is_holstein else None))
+        out[u] = row
+        state = se
+    return out
+
+
+def _rank_graphed_sites(device, n_chain: int, n_site: int, names, blocks: int,
+                        dyn: bool) -> dict:
+    """44 / (d) on this rank of the ``n_chain`` × ``n_site`` layout (NCCL,
+    one card per rank): per configuration of ``names`` (float32, trajectory
+    cut to ``SHORT_TRAJECTORY``) the site-sharded update graphed against
+    its eager form (:func:`_site_parity`); with ``dyn`` the dt tuner's
+    update too; with ``blocks`` the interleaved A/B of the whole batch's
+    sweeps/s (:func:`_rank_ab`) and the graphed update's busy share. Per
+    configuration also the graphs, their pool and capture seconds, and the
+    all-reduces and halo messages each graph holds (counted at its capture,
+    added at each replay)."""
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.dynamics.hmc import make_hmc_step
+    from elphdynamics_tpu_torch.parallel import multihost
+
+    rank, out = multihost.rank(), {}
+    for name in names:
+        cfg = getattr(bench, name.upper())
+        b = bench.build(cfg, device, torch.float32, trajectory_time=SHORT_TRAJECTORY)
+        cb, shard = _site_layout(n_chain, n_site, cfg.n_chains, b.ops.spec)
+        lb = bench.shard_bench_step(b, shard, cb)
+        raw = make_hmc_step(lb.ops, lb.mass, lb.hmc_cfg, lb.precond())
+        eager = lb.eager()
+        twin = eager if cb is None else _BlockTwin(eager, cb)
+        tag = f"{name}_{n_chain}x{n_site}_rank{rank}"
+        res = {"update": _site_parity(raw, twin, lb, shard, cfg.n_chains, tag)}
+        if dyn:
+            dt = torch.tensor(lb.hmc_cfg.dt, dtype=torch.float64, device=device)
+            dstep = make_hmc_step(lb.ops, lb.mass, lb.hmc_cfg, lb.precond(), dynamic_dt=True)
+            deager = make_hmc_step(lb.ops, lb.mass, lb.hmc_cfg, lb.precond(), dynamic_dt=True,
+                                   eager=True)
+            dtwin = _WithDt(deager, dt)
+            res["update_dt"] = _site_parity(_WithDt(dstep, dt), dtwin if cb is None
+                                            else _BlockTwin(dtwin, cb), lb, shard,
+                                            cfg.n_chains, f"{tag}_dt", updates=1)
+        ws = raw.workspace()
+        if ws.graphs is not None:
+            res.update(graphs=len(ws.graphs.graphs), capture_s=ws.graphs.capture_s,
+                       pool_mb=ws.graphs.pool_bytes / 2 ** 20,
+                       per_replay={g: (srec.per_replay("allreduces"),
+                                       srec.per_replay("halo_msgs"))
+                                   for g, (_, srec) in ws.graphs.graphs.items()})
+        if blocks:
+            run, run_eager = (raw, eager) if cb is None else (cb.wrap(raw), cb.wrap(eager))
+            res["ab"] = _rank_ab(run, run_eager, lb.params, lb.state, cfg.n_chains, blocks)
+            draws = twin.draw(lb.params, lb.state.x, cfg.n_chains,
+                              torch.Generator(device=device).manual_seed(5))
+            res["busy"] = _replay_busy_share(raw, lb.params, lb.state, draws)
+        out[name] = res
+        del b, lb, raw, eager, twin, ws
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _site_groups_agree(ranks: list, n_site: int, name: str) -> bool:
+    """The ranks of each site group took the same decisions, iterations,
+    host reads and replays in every update, and (SSH) hold the same bond
+    field bit for bit."""
+    groups = [ranks[i:i + n_site] for i in range(0, len(ranks), n_site)]
+    keys = ("accepted", "iters", "host_reads", "replays", "field_sha256")
+    return all(r[name][part][u][k] == g[0][name][part][u][k]
+               for g in groups for r in g for part in ("update", "update_dt")
+               if part in g[0][name] for u in g[0][name][part] for k in keys)
+
+
+def phase_graphed_sites_one_card() -> dict:
+    """44. A one-rank NCCL site group on card 0 (``multihost.launch(fn, 1,
+    "nccl")``): a D = 1 site shard of ``KERNEL_64X64`` and of ``SSH_64X64``
+    (every site in the block, so no halo; every all-reduce an NCCL op
+    captured inside the graphs), trajectories cut to ``SHORT_TRAJECTORY``,
+    two updates each graphed against the eager form, bit for bit, with
+    equal shard counters in the second, replays = host reads + 1, and the
+    all-reduces
+    each graph holds per replay. JSON ``chiprun_out/graphed_sites.json``."""
+    t0 = time.perf_counter()
+    r = _launch(_rank_graphed_sites, 1, "nccl", (1, 1, SITE_RUNS, 0, False))[0]
+    for name in SITE_RUNS:
+        res = r[name]
+        rows = [res["update"][u] for u in (1, 2)]
+        say(f"graphed_sites_{name}_1x1_nccl", bitwise=all(x["bitwise"] for x in rows),
+            counters_equal_second_update=rows[1]["counters_equal"],
+            replays=[x["replays"] for x in rows], host_reads=[x["host_reads"] for x in rows],
+            allreduces=[x["allreduces"] for x in rows], graphs=res["graphs"],
+            capture_s=f"{res['capture_s']:.3f}", pool_mb=f"{res['pool_mb']:.1f}",
+            allreduces_per_replay={g: a for g, (a, _) in res["per_replay"].items()},
+            graphed_s=[x["graphed_s"] for x in rows], eager_s=[x["eager_s"] for x in rows])
+        if sum(a for a, _ in res["per_replay"].values()) <= 0:
+            raise RuntimeError(f"{name}: no all-reduce inside the graphs of a site shard")
+    say("graphed_sites_1x1_nccl", seconds=f"{time.perf_counter() - t0:.1f}")
+    _write_json("graphed_sites.json", r)
+    return r
+
+
+def _one_rank_rates(cfg, blocks: int) -> dict:
+    """Sweeps/s of ``cfg``'s graphed one-rank update (float32, trajectory
+    cut to ``SHORT_TRAJECTORY``) in ``blocks`` blocks of
+    ``GRAPH_AB_UPDATES`` updates after a warm-up: median, IQR."""
+    from elphdynamics_tpu_torch import bench
+
+    b = bench.build(cfg, "cuda", torch.float32, trajectory_time=SHORT_TRAJECTORY)
+    state, _ = b.step(b.params, b.state, b.generator)
+    rates = []
+    for _ in range(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_AB_UPDATES):
+            state, _ = b.step(b.params, state, b.generator)
+        torch.cuda.synchronize()
+        rates.append(cfg.n_chains * GRAPH_AB_UPDATES / (time.perf_counter() - t0))
+    q1, med, q3 = statistics.quantiles(rates, n=4, method="inclusive")
+    return dict(median=med, iqr=q3 - q1, blocks=[round(x, 4) for x in rates])
+
+
+def _say_graphed_sites(layout: str, ranks: list, n_site: int, refs: dict) -> list:
+    """The lines of a multi-card :func:`_rank_graphed_sites` run: per
+    configuration the site groups' agreement, the A/B (the slowest rank's
+    median, the widest IQR) beside one rank's graphed update of the same
+    chains (``refs``), busy shares, replays, host reads, pool and capture
+    seconds. Returns the configurations whose site groups disagree."""
+    bad = []
+    for name in ranks[0]:
+        agree = _site_groups_agree(ranks, n_site, name)
+        per = [r[name]["ab"] for r in ranks]
+        ab = {form: dict(median=min(p[form]["median"] for p in per),
+                         iqr=max(p[form]["iqr"] for p in per)) for form in ("eager", "graphed")}
+        one = refs[name]
+        rows = ranks[0][name]["update"]
+        say(f"graphed_sites_{name}_{layout}_nccl", ranks=len(ranks), site_groups_agree=agree,
+            graphed_sweeps_per_s=f"{ab['graphed']['median']:.4f}",
+            graphed_iqr=f"{ab['graphed']['iqr']:.4f}",
+            eager_sweeps_per_s=f"{ab['eager']['median']:.4f}",
+            eager_iqr=f"{ab['eager']['iqr']:.4f}",
+            graphed_over_eager=f"{ab['graphed']['median'] / ab['eager']['median']:.3f}",
+            one_rank_graphed_sweeps_per_s=f"{one['median']:.4f}",
+            one_rank_iqr=f"{one['iqr']:.4f}",
+            graphed_over_one_rank=f"{ab['graphed']['median'] / one['median']:.3f}",
+            busy=[round(r[name]["busy"]["replay_busy_share"], 4) for r in ranks],
+            replays=[rows[u]["replays"] for u in rows],
+            host_reads=[rows[u]["host_reads"] for u in rows],
+            allreduces=[rows[u]["allreduces"] for u in rows],
+            halo_msgs=[rows[u]["halo_msgs"] for u in rows],
+            pool_mb=[round(r[name]["pool_mb"], 1) for r in ranks],
+            capture_s=[round(r[name]["capture_s"], 3) for r in ranks],
+            graphs=ranks[0][name]["graphs"], blocks=SITE_AB_BLOCKS,
+            label=repr("one card per rank, NCCL"))
+        if not agree:
+            bad.append(f"{name}_{layout}")
+    return bad
+
+
+def _say_site_small_graphed(layout: str, ranks: list, n_site: int) -> list:
+    """The lines of :func:`torch_parallel_workers.graph_sites_worker` on NCCL
+    ranks (4×4 float64): every call bit for bit its eager form, replays =
+    host reads − retry reads + 1 + eager steps between replays, the ranks
+    of a site group agreeing on host reads, replays and counters. Returns
+    the calls that failed."""
+    bad = []
+    for name in ranks[0]:
+        rows = [r[name] for r in ranks]
+        groups = [rows[i:i + n_site] for i in range(0, len(rows), n_site)]
+        same = all(x["same"] and x["segmented"] for x in rows)
+        replays_ok = all(x["replays"] == x["reads"] - x["retry_reads"] + 1 + x["collectives"]
+                         for x in rows)
+        agree = all(x[k] == g[0][k] for g in groups for x in g
+                    for k in ("reads", "replays", "counts"))
+        say(f"site_small_graphed_{name}_{layout}_nccl", bitwise_vs_eager=same,
+            replays=rows[0]["replays"], host_reads=rows[0]["reads"],
+            replays_are_reads_plus_one=replays_ok, site_groups_agree=agree,
+            allreduces=rows[0]["counts"]["allreduces"], halo_msgs=rows[0]["counts"]["halo_msgs"])
+        if not (same and replays_ok and agree):
+            bad.append(f"{name}_{layout}")
+    return bad
+
+
+HALO_REPS = 20                # eager exchanges in the halo probe
+
+
+def _rank_halo(device) -> dict:
+    """(d) The halo of ``SSH_64X64``'s fermion fields ([8, 2, B, 40]
+    float32) on this rank of a site group of every rank, through
+    ``comm.halo_exchange`` (``batch_isend_irecv``): each crossing group's
+    exchange timed eagerly (``HALO_REPS`` rounds of every crossing group,
+    each round from a barrier, median and IQR per exchange), then one round
+    captured in a CUDA graph on the capture stream (after an eager round
+    there) and replayed, its rows against the eager ones bit for bit."""
+    import torch.distributed as dist
+
+    from elphdynamics_tpu_torch import bench
+    from elphdynamics_tpu_torch.dynamics.graphs import capture_stream
+    from elphdynamics_tpu_torch.parallel import comm, multihost
+    from elphdynamics_tpu_torch.parallel.lattice_shard import SiteShard
+
+    cfg = bench.SSH_64X64
+    b = bench.build(cfg, device, torch.float32)
+    world, rank = multihost.world(), multihost.rank()
+    shard = SiteShard(b.ops.spec.ckb, None, world, rank)
+    p, tabs = shard.plan, shard._dev_tables(device)
+    g = torch.Generator(device=device).manual_seed(3 + rank)
+    v = torch.randn((cfg.n_chains, 2, shard.B, b.ops.Ltau), generator=g, device=device)
+    crossing = [k for k in range(p.ngroups) if p.hp[k] or p.hn[k]]
+
+    def round_():
+        rows = []
+        for k in crossing:
+            sn = v.index_select(-2, tabs["send_next"][k]) if p.hp[k] else None
+            sp = v.index_select(-2, tabs["send_prev"][k]) if p.hn[k] else None
+            rows += [t for t in comm.halo_exchange(sn, sp, shard.next_rank, shard.prev_rank)
+                     if t is not None]
+        return rows
+
+    eager_rows = round_()
+    times = []
+    for _ in range(HALO_REPS):
+        dist.barrier()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        round_()
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) / max(len(crossing), 1) * 1e3)
+    q1, med, q3 = statistics.quantiles(times, n=4, method="inclusive")
+    stream = capture_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        round_()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = round_()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    return {"groups": len(crossing), "rows": len(eager_rows),
+            "bytes_sent_per_exchange": sum(
+                (p.hp[k] + p.hn[k]) * v[..., :1, :].numel() * v.element_size()
+                for k in crossing) / max(len(crossing), 1),
+            "eager_ms": med, "eager_iqr_ms": q3 - q1,
+            "captured_equals_eager": len(captured) == len(eager_rows) > 0 and all(
+                torch.equal(a, c) for a, c in zip(eager_rows, captured))}
+
+
+def phase_halo() -> dict:
+    """(d) :func:`_rank_halo` on 2 NCCL ranks: the slowest rank's median
+    per exchange; fails unless every rank's captured exchange delivers the
+    eager rows."""
+    ranks = _launch(_rank_halo, 2, "nccl")
+    r = ranks[0]
+    ok = all(x["captured_equals_eager"] for x in ranks)
+    say("halo_p2p_ssh_64x64_nccl", ranks=2, groups=r["groups"],
+        bytes_sent_per_exchange=r["bytes_sent_per_exchange"],
+        eager_ms_per_exchange=f"{max(x['eager_ms'] for x in ranks):.4f}",
+        eager_iqr_ms=f"{max(x['eager_iqr_ms'] for x in ranks):.4f}",
+        captured_equals_eager=ok)
+    if not ok:
+        raise RuntimeError("a captured halo exchange differs from the eager one")
+    return {"ranks": ranks}
+
+
+def phase_graphed_sites_nccl(n: int) -> dict:
+    """(d) The site-sharded calls graphed on NCCL site groups, one card per
+    rank: the halo captured and timed (:func:`phase_halo`), the 4×4 float64
+    samplers of
+    ``tests/torch_parallel_workers.graph_sites_worker`` on 2 site ranks
+    (and the laddered update and exchange on 2×2 with four cards), then
+    ``KERNEL_64X64`` and ``SSH_64X64`` at D = 2 (the dt tuner's update too)
+    and, with four cards, ``KERNEL_64X64`` on 2×2: each against its eager
+    form bit for bit (:func:`_rank_graphed_sites`), the ranks of a site
+    group agreeing, sweeps/s of graphed against eager and against one
+    rank's graphed update of the same chains. JSON
+    ``chiprun_out/graphed_sites_nccl.json``."""
+    from elphdynamics_tpu_torch import bench
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_parallel_workers as W
+
+    t0 = time.perf_counter()
+    halo = phase_halo()
+    bad = _say_site_small_graphed("1x2", _launch(W.graph_sites_worker, 2, "nccl",
+                                                 (1, SITE_SMALL_CASES)), 2)
+    if n >= 4:
+        bad += _say_site_small_graphed("2x2", _launch(W.graph_sites_worker, 4, "nccl",
+                                                      (2, ("ladder",), 4)), 2)
+    refs = {name: _one_rank_rates(getattr(bench, name.upper()), SITE_AB_BLOCKS)
+            for name in SITE_RUNS}
+    runs = {"1x2": _launch(_rank_graphed_sites, 2, "nccl",
+                           (1, 2, SITE_RUNS, SITE_AB_BLOCKS, True))}
+    if n >= 4:
+        runs["2x2"] = _launch(_rank_graphed_sites, 4, "nccl",
+                              (2, 2, ("kernel_64x64",), SITE_AB_BLOCKS, False))
+    for layout, ranks in runs.items():
+        bad += _say_graphed_sites(layout, ranks, 2, refs)
+    say("graphed_sites_nccl", seconds=f"{time.perf_counter() - t0:.1f}")
+    _write_json("graphed_sites_nccl.json", dict(halo=halo, refs=refs, runs=runs))
+    if bad:
+        raise RuntimeError(f"graphed site-sharded runs failed: {bad}")
+    return runs
+
+
 # phase 42: the CG solver aids graphed (block CG, deflation, near-null, the
 # exact low-frequency blocks) against their eager forms
 AIDS_MEMORY_UPDATES = 50      # graphed deflated 4×4 updates, memory read after 5 and after these
@@ -4542,6 +4997,7 @@ def main() -> int:
     shapes["solver_kinds_64x64"] = kinds["launch_shapes"]
     nonsym = phase_graphed_nonsym(kinds.pop("cg_x"))
     shapes["solver_kinds_nonsym_64x64"] = nonsym["probe_shapes"]
+    phase_graphed_sites_one_card()
     block_cplx, deep = aids["twisted"], aids["deep"]
     phase_deep_beta_kernels()
     # the stock 4×4 examples are host-bound (dense branch, 100 leapfrog steps

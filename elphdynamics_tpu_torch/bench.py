@@ -59,8 +59,9 @@ The deep-β samplers on ``KERNEL_64X64``'s model (16 chains, N = 4096):
 
 Both replay CUDA graphs on a card, the exchange too;
 :meth:`BenchStep.eager` and :meth:`BenchStep.eager_exchange` are the eager
-twins. :func:`shard_bench_step` cuts a step to a rank's chains (graphed) or
-sites (eager).
+twins. :func:`shard_bench_step` cuts a step to a rank's chains or sites,
+graphed either way (a site shard's collectives inside its graphs on NCCL
+ranks; eager on a gloo site group on a card).
 
 ``DEEP_BETA_64X64`` (:func:`build_deep_beta_solves`) builds solves, not an
 update: the Holstein model at 64×64, β = 16, Δτ = 0.1 (Lτ = 160), 4
@@ -512,13 +513,13 @@ def shard_bench_step(b: BenchStep, shard=None, chains=None) -> BenchStep:
         if defl is not None:
             defl = deflation.cut(defl, shard.local)
     precond = _make_precond(ops, b.kpm_cfg, b.nearnull_cfg)
-    # a site shard's collectives run inside every solve: its update and
-    # exchange stay eager; a chain block's replay the one-card graphs
-    step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond, eager=shard is not None)
+    # graphed: a chain block's update replays the one-card graphs, a site
+    # shard's holds its site group's collectives (captured under NCCL; a
+    # gloo site group on a card runs it eagerly, dynamics/graphs.graphable)
+    step = make_hmc_step(ops, b.mass, b.hmc_cfg, precond)
     exchange = None
     if b.tcfg is not None:
-        exchange = make_exchange_step(ops, b.tcfg, b.state.x.shape[0], precond, chains=chains,
-                                      eager=shard is not None)
+        exchange = make_exchange_step(ops, b.tcfg, b.state.x.shape[0], precond, chains=chains)
     if chains is not None:
         params = chain_params(params, chains.lo, chains.n)
         x, v = chains.local(x), chains.local(v)

@@ -3,8 +3,10 @@ package's compiled update, Langevin step, special updates and measurement
 step (``jax.jit`` over ``lax.while_loop`` and ``lax.scan`` bodies).
 
 Graphed, with CG, BiCGStab or GMRES, on one rank or on a chain rank's
-block of chains, on a real field or under complex hopping (the twisted ensemble's packed complex
-pseudofermions ``[C, 1, N, Lτ]``), with shared or per-chain (tempering
+block of chains (with CG and block CG also on a rank's block of sites, a
+site shard, :func:`graphable`), on a real field or under complex hopping
+(the twisted ensemble's packed complex pseudofermions ``[C, 1, N, Lτ]``),
+with shared or per-chain (tempering
 ladder) couplings: the HMC update, leapfrog or 2MN (``dynamics/hmc.py``),
 the Langevin step (``dynamics/langevin.py``), the reflection and swap
 moves (``dynamics/special_updates.py``), the measurement step
@@ -21,7 +23,15 @@ call on chain ranks may stop
 between two replays for an eager collective (the exchange's gathers,
 :meth:`Workspace.collective`; gloo cannot be captured) and resume in the
 same workspace: it replays host reads + 1 graphs per run of segments
-between two such steps. On a CUDA device every segment is
+between two such steps. A call on a site shard's block of sites holds
+its site group's collectives (the all-reduces of the dots, energies and
+Grams, the halo exchanges of the fold, SSH's force sum) inside its
+segments: on NCCL ranks, one card each, they are captured into the graphs
+(every rank of the group replays the same graphs in the same order, since
+every host read is of an all-reduced value); a site group under gloo on a
+card (ranks sharing one card, messages staged through host memory) cannot
+be captured, and its calls run eagerly (:func:`graphable` reads the
+backend). On a CUDA device every segment is
 captured once into a ``torch.cuda.CUDAGraph``, all of one call's graphs in
 one memory pool and in the order they first replay, and then replayed; the
 host keeps only the loop control between replays (``any(active)`` before a
@@ -55,8 +65,8 @@ import torch
 
 from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.dynamics.solve import (
-    SolverConfig, _cg_operators, base_solver, nonsym_retry, precond_applies)
-from elphdynamics_tpu_torch.ops import ckb_cuda
+    SolverConfig, _cg_operators, base_solver, nonsym_retry, precond_applies, site_reduce)
+from elphdynamics_tpu_torch.utils import capture
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype
 
 # a workspace's start vectors before its first put_start (None is a value)
@@ -66,6 +76,18 @@ _NO_START = object()
 # its inverse (the bf16 operand of the in-loop MᵀM); a change needs a new
 # workspace and new graphs
 REBUILD = ("expK", "expK_inv")
+
+
+def graphable(shard, device: torch.device) -> bool:
+    """Whether a segmented call of a model with site shard ``shard`` (None
+    on one rank or a chain rank) on ``device`` runs segmented: always
+    without a shard; with one on the CPU (the segments called directly,
+    the gloo collectives inside them) or on an NCCL site group (the
+    collectives captured). A site group under gloo on a card runs the
+    eager call: gloo cannot be captured. A builder's ``.segmented`` says
+    whether its configuration takes the segmented call; on a site shard
+    each call reads this gate too."""
+    return shard is None or torch.device(device).type != "cuda" or shard.backend() == "nccl"
 
 
 def capturing(device: torch.device) -> bool:
@@ -294,11 +316,15 @@ class CGSolve:
     systems are the packed complex fields (``[C, 1, N, Lτ]`` for a
     trajectory solve, ``[C, nᵥ, N, Lτ]`` for the probes), their dots the
     float64 Re(a†b) of :func:`..utils.dtypes.fdot` and block CG's Grams
-    Hermitian."""
+    Hermitian. On a site shard every dot, norm and Gram is summed over the
+    site group (``reduce``, :func:`..dynamics.solve.site_reduce`), as in
+    the eager solve, so every rank reads the same ``any(active)`` and
+    ``any(bad)``."""
 
     def __init__(self, ops, precond, maxiter: int, kappa_max: float, loop_precision,
                  rhs: str, stacked: bool, block: bool = False, deflate: bool = False):
         self.ops, self.precond = ops, precond
+        self.reduce = site_reduce(ops)
         self.maxiter, self.kappa_max, self.loop_precision = maxiter, kappa_max, loop_precision
         self.rhs, self.stacked = rhs, stacked
         self.block, self.deflate = block, deflate
@@ -342,10 +368,10 @@ class CGSolve:
         rhs = getattr(ws, self.rhs)
         if self.block:
             st = solvers.block_cg_init(self._hot(ws, tol), rhs, guess, apply_P=self._P(ws),
-                                       tol=ws.tol)
+                                       tol=ws.tol, reduce=self.reduce)
         else:
             st = solvers.cg_init(self._hot(ws, tol), rhs, guess, apply_P=self._P(ws), tol=ws.tol,
-                                 deflate=ws.defl if self.deflate else None)
+                                 deflate=ws.defl if self.deflate else None, reduce=self.reduce)
         if self.name in ws:
             self.state(ws).load_(st)
         else:
@@ -354,12 +380,12 @@ class CGSolve:
     def block_step(self, ws, tol) -> None:
         step = solvers.block_cg_block if self.block else solvers.cg_block
         step(self._hot(ws, tol), self.state(ws), apply_P=self._P(ws), tol=ws.tol,
-             maxiter=self.maxiter, kappa_max=self.kappa_max)
+             maxiter=self.maxiter, kappa_max=self.kappa_max, reduce=self.reduce)
 
     def verify(self, ws) -> None:
         st = self.state(ws)
         ws.load("verdict", solvers.cg_verify(self._full(ws), getattr(ws, self.rhs), st.x,
-                                             st.iters, ws.tol, self.maxiter))
+                                             st.iters, ws.tol, self.maxiter, self.reduce))
 
     def retry(self, ws) -> None:
         """The verification's retry, eager (it runs only when a system
@@ -367,7 +393,7 @@ class CGSolve:
         workspace."""
         st, reads = self.state(ws), solvers.host_reads
         res = solvers.cg_retry(self._full(ws), getattr(ws, self.rhs), st.x, st.iters,
-                               ws.verdict, ws.tol, self.maxiter, self.kappa_max)
+                               ws.verdict, ws.tol, self.maxiter, self.kappa_max, self.reduce)
         ws.retry_reads += solvers.host_reads - reads
         st.x.copy_(res.x)
         st.iters.copy_(res.iters)
@@ -640,10 +666,10 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 class UpdateGraphs:
     """The captured segments of one sampler call on one CUDA device: one graph
     per segment name, one memory pool, the device's capture stream
-    (:func:`capture_stream`). Each graph keeps the kernel launches counted
-    during its capture (:class:`..ops.ckb_cuda.LaunchRecord`), and every
-    replay counts them again, so the kernels' launch counts stay counts of
-    launches on the card."""
+    (:func:`capture_stream`). Each graph keeps what was counted during its
+    capture (:class:`..utils.capture.Record`: the kernel launches, a site
+    shard's folds, halo messages and all-reduces), and every replay counts
+    it again, so the counts stay counts of what ran on the card."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -680,7 +706,7 @@ class UpdateGraphs:
             if name is None or name in self.graphs:
                 continue
             graph = torch.cuda.CUDAGraph()
-            with ckb_cuda.recording() as rec:
+            with capture.recording() as rec:
                 with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                     fn()
             self.graphs[name] = (graph, rec)

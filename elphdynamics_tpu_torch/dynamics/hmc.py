@@ -58,8 +58,12 @@ in its order. The model's derived state (Holstein's ``expnV``, SSH's
 ``SSHDerived`` tables) and the KPM state, SSH's per-chain τ-means and
 dense Ā included, the near-null state and the deflation basis, are copied
 into the workspace's tensors in place; the basis comes back as new tensors.
-A site shard and a caller that asks for it by name (``eager=True``) run
-the eager update. Under complex hopping the
+A site shard's update (leapfrog, CG or block CG, deflation, the dt
+tuner's step) is segmented too, its site group's all-reduces and halo
+exchanges inside the segments: captured on NCCL ranks, one card each; a
+site group under gloo on a card runs the eager update
+(:func:`.graphs.graphable` reads the group's backend), as does a caller
+that asks for it by name (``eager=True``). Under complex hopping the
 workspace holds the packed complex pseudofermions, φ, Λφ and the
 warm-start history ``[C, 1, N, Lτ]``, SSH's complex tables and the complex
 KPM state, while x, v and the forces stay real.
@@ -254,11 +258,13 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
     update at the starting field and used by every solve of the update.
 
     ``eager`` asks for the eager update where the graphed one (module
-    docstring: the update of either model and integrator without a site
-    shard, by any solver kind, block CG and deflation included) would
-    run.
+    docstring: the update of either model and integrator, by any solver
+    kind, block CG and deflation included; on a site shard leapfrog by CG,
+    except on a gloo site group on a card) would run.
     ``step.segmented`` says whether the configuration takes the graphed
-    update (on a real field or under complex hopping);
+    update (on a real field or under complex hopping); on a site shard the
+    device decides at each call (:func:`.graphs.graphable`), and on a gloo
+    site group on a card the eager update runs although it is True;
     ``step.workspace()`` is its
     :class:`.graphs.Workspace` (None before the first call), whose
     ``graphs`` (a CUDA field) count replays, capture seconds and pool bytes
@@ -477,14 +483,14 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
             stats = replace(stats, traj_H=tH, traj_S=tS, traj_K=tK, traj_iters=tI)
         return HMCState(x=x_new, v=v_new, defl=defl), stats
 
-    # --- the graphed update: the update of a field without a site shard
-    # (leapfrog or 2MN; Holstein or SSH, real or complex hopping; CG with
-    # block CG, deflation and any preconditioner, or BiCGStab / GMRES) as a
-    # fixed sequence of segments
-    # over one workspace (dynamics/graphs.py), replayed as CUDA graphs on a
-    # CUDA field and called directly on the CPU. Each segment does the
-    # eager update's arithmetic in its order.
-    segmented = not eager and ops.shard is None
+    # --- the graphed update (leapfrog or 2MN; Holstein or SSH, real or
+    # complex hopping; CG with block CG, deflation and any preconditioner,
+    # or BiCGStab / GMRES; on a site shard leapfrog by CG, its collectives
+    # inside the segments) as a fixed sequence of segments over one
+    # workspace (dynamics/graphs.py), replayed as CUDA graphs on a CUDA
+    # field and called directly on the CPU. Each segment does the eager
+    # update's arithmetic in its order.
+    segmented = not eager
     two_mn = cfg.integrator == "2mn"
     deflating = cfg.deflate_k > 0
     box: dict = {}
@@ -737,9 +743,10 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         return HMCState(x=ws.out_x.clone(), v=ws.out_v.clone(), defl=defl), stats
 
     def update(params, state: HMCState, dt, generator, draws):
-        """The graphed update where the configuration is in its slice, else
-        the eager one."""
-        if segmented:
+        """The graphed update where the configuration is in its slice and
+        the device can hold it (:func:`.graphs.graphable`), else the eager
+        one."""
+        if segmented and graphs.graphable(ops.shard, state.x.device):
             return graphed(params, state, dt, generator, draws)
         return _step(params, state, dt, generator, draws)
 

@@ -35,8 +35,11 @@ field update). On a CUDA field each segment is captured once as a CUDA
 graph and replayed, the host keeping the eager step's reads; on the CPU
 the segments run directly, doing the eager step's arithmetic in its order.
 Complex hopping takes the graphed step too (the force probes g, b = M†g
-and the solution complex, x real). A site shard and a caller that asks
-for it by name (``eager=True``) run the eager step.
+and the solution complex, x real). So does a site shard's step by CG,
+its site group's all-reduces and halo exchanges inside the segments
+(captured on NCCL ranks, one card each); a site group under gloo on a
+card runs the eager step (:func:`.graphs.graphable` reads the group's
+backend), as does a caller that asks for it by name (``eager=True``).
 """
 
 from __future__ import annotations
@@ -102,7 +105,8 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
 
     ``eager`` asks for the eager step where the graphed one (module
     docstring) would run. ``step.segmented`` says whether the configuration
-    takes the graphed step (on a real field or under complex hopping);
+    takes the graphed step (on a real field or under complex hopping; on a
+    site shard where :func:`.graphs.graphable` lets the call's device);
     ``step.workspace()`` is its :class:`.graphs.Workspace`
     (None before the first call), whose ``graphs`` (a CUDA field) count
     replays, capture seconds and pool bytes and whose ``retries`` count the
@@ -151,7 +155,7 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
 
     # --- the graphed step: the segments over one workspace, each doing the
     # eager step's arithmetic in its order
-    segmented = not eager and ops.shard is None
+    segmented = not eager
     box: dict = {}
     # CG on MᵀM·z = Mᵀg, or BiCGStab / GMRES on M·z = g
     solve = graphs.make_solve(ops, precond, scfg, rhs="b", stacked=False)
@@ -258,7 +262,7 @@ def make_langevin_step(ops: ModelOps, Q_table, dt: float, method: str = "euler",
         if draws is None:
             draws = draw(ops, x.shape[0], method, x.dtype, x.device, generator,
                          field_dtype(params, x.dtype))
-        if segmented:
+        if segmented and graphs.graphable(ops.shard, x.device):
             return graphed(params, x, draws)
         return scheme(params, x, ops.tie(draws.eta.to(x)), draws.g, accel(x))
 

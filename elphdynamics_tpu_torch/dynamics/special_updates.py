@@ -39,8 +39,13 @@ the replay that reads them, so no graph holds a move index. On a CUDA
 field each segment is captured once as a CUDA graph and replayed, the host
 keeping the eager call's reads (CG's ``any(active)`` before a block, the
 verification's ``any(bad)``); on the CPU the segments run directly, doing
-the eager call's arithmetic in its order. A site shard and a caller that
-asks for it by name (``eager=True``) run the eager call.
+the eager call's arithmetic in its order. A site shard's call is
+segmented too, its site group's all-reduces (the actions, the swapped
+rows of :meth:`..parallel.lattice_shard.SiteShard.row`) and halo
+exchanges inside the segments (captured on NCCL ranks, one card each); a
+site group under gloo on a card runs the eager call
+(:func:`.graphs.graphable` reads the group's backend), as does a caller
+that asks for it by name (``eager=True``).
 """
 
 from __future__ import annotations
@@ -110,7 +115,8 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
     one call (on a site-sharded model every site's pseudofermions, cut to
     the rank's block). ``eager`` asks for the eager call where the
     segmented one (module docstring) would run; ``update.segmented`` says
-    whether the configuration takes it, and
+    whether the configuration takes it (on a site shard where
+    :func:`.graphs.graphable` lets the call's device), and
     ``update.workspace()`` is its :class:`.graphs.Workspace` (None before
     the first segmented call)."""
     tol2 = cfg.tol ** 2
@@ -141,7 +147,7 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
 
     # --- the segmented call: the eager call's arithmetic in its order, over
     # one workspace (dynamics/graphs.py)
-    segmented = not eager and n_moves > 0 and ops.shard is None
+    segmented = not eager and n_moves > 0
     box: dict = {}
     # the eager call's solve: CG at tol², kappa_max and loop_precision at
     # SolverConfig's defaults, preconditioned by the symmetric apply
@@ -234,7 +240,7 @@ def _make_update(ops: ModelOps, cfg: SpecialUpdateConfig, n_moves: int, draw_pic
             return x, torch.zeros(C, dtype=torch.float64, device=x.device)
         if draws is None:
             draws = draw(params, x, C, generator)
-        if segmented:
+        if segmented and graphs.graphable(ops.shard, x.device):
             return segmented_update(params, x, draws)
         return eager_update(params, x, draws)
 

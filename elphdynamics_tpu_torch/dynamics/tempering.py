@@ -133,8 +133,9 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
     (:func:`chain_params`), ``x`` and ``v`` its block, and the results are
     its block of the exchanged fields; the draws stay the whole batch's.
 
-    Without a site shard (the exchange solves by CG, with any
-    preconditioner), the exchange is a fixed sequence of
+    The exchange (it solves by CG, with any preconditioner; on a site
+    shard too, its site group's all-reduces and halo exchanges inside the
+    segments) is a fixed sequence of
     segments over one workspace (:mod:`.graphs`), replayed as CUDA graphs on
     a CUDA field and called directly on the CPU, each doing the eager
     exchange's arithmetic in its order: ``first`` (φ and S₀), ``cross``
@@ -147,9 +148,11 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
     rank there are none, and ``first`` + ``cross`` and ``actions`` +
     ``decide`` are one segment each. The pair parity is no graph's: both
     parities' partner tables sit on the device and the attempt's is copied
-    into a fixed slot, so one graph set serves both. ``eager`` asks for the
-    eager exchange; ``exchange.segmented`` and ``exchange.workspace()`` as
-    for the HMC update."""
+    into a fixed slot, so one graph set serves both. A site shard's group
+    under gloo on a card runs the eager exchange (:func:`.graphs.graphable`
+    reads the group's backend). ``eager`` asks for the eager exchange;
+    ``exchange.segmented`` and ``exchange.workspace()`` as for the HMC
+    update."""
     K = len(tcfg.ladder)
     M = n_chains // K
     scfg = SolverConfig(tol=tcfg.tol, maxiter=tcfg.maxiter)
@@ -220,7 +223,7 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
                       draws.uniform.to(device=x.device), x_all, v_all)
 
     # --- the segmented exchange (see the docstring)
-    segmented = not eager and ops.shard is None
+    segmented = not eager
     box: dict = {}
     tables: dict = {}
     cg = graphs.CGSolve(ops, precond, scfg.maxiter, scfg.kappa_max, scfg.loop_precision,
@@ -330,7 +333,7 @@ def make_exchange_step(ops: ModelOps, tcfg: TemperingConfig, n_chains: int, prec
             raise ValueError(f"x holds {x.shape[0]} chains, the exchange {n}")
         if draws is None:
             draws = draw(params, x, generator)
-        if segmented:
+        if segmented and graphs.graphable(ops.shard, x.device):
             return segmented_exchange(params, x, v, parity, draws)
         return eager_exchange(params, x, v, parity, draws)
 

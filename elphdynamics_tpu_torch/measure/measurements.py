@@ -39,6 +39,13 @@ chains sized by :func:`analyze_chains` (their memory grows with the chains);
 probe solves succeeded. Per bin, :func:`process_bin` normalises, moves the
 correlations to momentum space and integrates the susceptibilities
 (PairSusc, ChargeSusc, SpinSusc, BondPairSusc).
+
+A site-sharded run measures in two halves: the probe solves on each rank's
+block of sites (:func:`make_probe_solve`, segmented like the measurement
+step: replayed as CUDA graphs with the site group's all-reduces and halos
+inside them on NCCL ranks, eager on a gloo site group on a card), then the
+estimators of the whole model on the gathered probes
+(``step.analyze``).
 """
 
 from __future__ import annotations
@@ -211,7 +218,9 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     reads; on the CPU the segments run directly, doing the eager
     measurement's arithmetic in its order. ``eager`` asks for the eager
     call where the segmented one would run; ``step.segmented`` says whether
-    the configuration takes it, ``step.workspace()`` is its
+    the configuration takes it (on a site shard where
+    :func:`..dynamics.graphs.graphable` lets the call's device),
+    ``step.workspace()`` is its
     workspace (None before the first segmented call). ``chain_block``: the
     chains per pass of the estimators (None: :func:`analyze_chains` of the
     batch)."""
@@ -536,49 +545,21 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         return _join_chains(blocks)
 
     # --- the segmented measurement: the eager one's arithmetic in its order
-    segmented = not eager and ops.shard is None
+    segmented = not eager
     box: dict = {}
-    cg_kind = scfg.kind == "cg"
-    # the probes' solve (dynamics/solve.solve_minv): with CG on MᵀM·z = MᵀR,
-    # block CG over the nᵥ probes of a chain with ``scfg.block``; else
-    # BiCGStab / GMRES on M·z = R
-    solve = graphs.make_solve(ops, precond, scfg, rhs="b" if cg_kind else "R", stacked=True,
-                              block=scfg.block)
-
-    def seg_start(ws):
-        """The derived state and the full KPM setup at x, CG's b = MᵀR and
-        the probe solve's start from zero (:func:`.greens.sample_greens`)."""
-        p = ws.params
-        env = ws.put("env", ops.derived(p, ws.x))
-        if precond is not None:
-            ws.load("kpm", precond.setup(p, ws.x, ws.kpm_start))
-        if cg_kind:
-            ws.put("b", ops.mulMT(p, ops.stack(env), ws.R))
-        solve.start(ws, scfg.tol)
+    probes = _ProbeSegments(ops, nv, scfg, precond)
 
     def seg_analyze(ws):
         """The solve's per-chain statistics and :func:`analyze`, every
         result copied into the workspace (``ws.results``)."""
-        z, iters, flag = solve.result(ws)
-        gd = G.GreensData(R=ws.R, MinvR=z, iters=iters.sum(dim=1) // nv, flag=flag.amax(dim=1))
-        inc, stats, snaps = analyze(ws.params, ws.x, gd)
+        inc, stats, snaps = analyze(ws.params, ws.x, probes.result(ws))
         ws.results = ({g: {k: ws.put(f"inc.{g}.{k}", v) for k, v in vals.items()}
                        for g, vals in inc.items()},
                       {k: ws.put(f"stats.{k}", v) for k, v in stats.items()},
                       {k: ws.put(f"snap.{k}", v) for k, v in snaps.items()})
 
     def segmented_step(params, x, R):
-        ws = graphs.step_workspace(box, params, x)
-        ws.put("x", x)
-        ws.put("R", R)
-        if precond is not None:
-            ws.put_start(precond.start)
-        ws.capture_once(lambda: [("probe_start", lambda: seg_start(ws)),
-                                 *solve.segments(ws, scfg.tol),
-                                 ("analyze", lambda: seg_analyze(ws))])
-        ws.run("probe_start", lambda: seg_start(ws))
-        solve.solve(ws, scfg.tol)
-        ws.run("analyze", lambda: seg_analyze(ws))
+        ws = probes.run(box, params, x, R, "analyze", seg_analyze)
         inc, stats, snaps = ws.results
         return ({g: {k: v.clone() for k, v in vals.items()} for g, vals in inc.items()},
                 {k: v.clone() for k, v in stats.items()}, {k: v.clone() for k, v in snaps.items()})
@@ -587,7 +568,7 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
         return G.draw_probes(ops, params, x, nv, generator)
 
     def step(params, x, generator: torch.Generator | None = None, R=None):
-        if segmented:
+        if segmented and graphs.graphable(ops.shard, x.device):
             return segmented_step(params, x, draw(params, x, generator) if R is None else R)
         gd = G.sample_greens(ops, params, x, nv, scfg, precond, generator, R)
         return analyze(params, x, gd)
@@ -597,6 +578,91 @@ def make_measurement_step(ops: ModelOps, mspec: MeasurementSpec,
     step.segmented = segmented
     step.workspace = lambda: box.get("ws")
     return step
+
+
+class _ProbeSegments:
+    """The probe solves of a measurement (:func:`.greens.sample_greens`) as
+    segments over a workspace: ``probe_start`` (the derived state, the full
+    preconditioner setup at x, CG's b = MᵀR and the solve's start from
+    zero) and the solve's segments (:class:`..dynamics.graphs.CGSolve`,
+    block CG over the nᵥ probes of a chain with ``scfg.block``, or
+    :class:`..dynamics.graphs.NonsymSolve` on M), then the caller's last
+    segment."""
+
+    def __init__(self, ops: ModelOps, nv: int, scfg: SolverConfig, precond):
+        self.ops, self.nv, self.scfg, self.precond = ops, nv, scfg, precond
+        self.cg_kind = scfg.kind == "cg"
+        self.solve = graphs.make_solve(ops, precond, scfg, rhs="b" if self.cg_kind else "R",
+                                       stacked=True, block=scfg.block)
+
+    def start(self, ws) -> None:
+        ops, p = self.ops, ws.params
+        env = ws.put("env", ops.derived(p, ws.x))
+        if self.precond is not None:
+            ws.load("kpm", self.precond.setup(p, ws.x, ws.kpm_start))
+        if self.cg_kind:
+            ws.put("b", ops.mulMT(p, ops.stack(env), ws.R))
+        self.solve.start(ws, self.scfg.tol)
+
+    def result(self, ws) -> G.GreensData:
+        """The finished solve as the probes' :class:`.greens.GreensData`."""
+        z, iters, flag = self.solve.result(ws)
+        return G.GreensData(R=ws.R, MinvR=z, iters=iters.sum(dim=1) // self.nv,
+                            flag=flag.amax(dim=1))
+
+    def run(self, box: dict, params, x, R, last: str, fn):
+        """One call on the workspace kept in ``box``: x and the probes ``R``
+        copied in, the start, the solve's host loop, then segment ``last``
+        (``fn(ws)``); returns the workspace."""
+        ws = graphs.step_workspace(box, params, x)
+        ws.put("x", x)
+        ws.put("R", R)
+        if self.precond is not None:
+            ws.put_start(self.precond.start)
+        tol = self.scfg.tol
+        ws.capture_once(lambda: [("probe_start", lambda: self.start(ws)),
+                                 *self.solve.segments(ws, tol), (last, lambda: fn(ws))])
+        ws.run("probe_start", lambda: self.start(ws))
+        self.solve.solve(ws, tol)
+        ws.run(last, lambda: fn(ws))
+        return ws
+
+
+def make_probe_solve(ops: ModelOps, nv: int, scfg: SolverConfig = SolverConfig(),
+                     precond=None, eager: bool = False):
+    """Build ``solve(params, x, generator=None, R=None) -> GreensData``:
+    :func:`.greens.sample_greens` of ``nv`` probes per chain as segments
+    (``probe_start``, the solve's, ``probes``), replayed as CUDA graphs on
+    a card and called directly on the CPU. It is the site-sharded
+    measurement's first half: on a rank's block of sites (``ops.shard``)
+    the probes are the block's and the solve's dots sum over the site
+    group inside the segments (captured on NCCL ranks; a gloo site group on
+    a card runs :func:`.greens.sample_greens` eagerly,
+    :func:`..dynamics.graphs.graphable`); the estimators then run on the
+    gathered probes. ``eager`` asks for the eager solve; ``.segmented`` and
+    ``.workspace()`` as for the measurement step."""
+    box: dict = {}
+    probes = _ProbeSegments(ops, nv, scfg, precond)
+
+    def keep(ws):
+        """The probes' per-chain statistics into the workspace (the solution
+        is the solve's own workspace tensor)."""
+        gd = probes.result(ws)
+        ws.gd = G.GreensData(R=ws.R, MinvR=gd.MinvR, iters=ws.put("probe_iters", gd.iters),
+                             flag=ws.put("probe_flag", gd.flag))
+
+    def solve(params, x, generator: torch.Generator | None = None, R=None) -> G.GreensData:
+        if R is None:
+            R = G.draw_probes(ops, params, x, nv, generator)
+        if eager or not graphs.graphable(ops.shard, x.device):
+            return G.sample_greens(ops, params, x, nv, scfg, precond, R=R)
+        gd = probes.run(box, params, x, R, "probes", keep).gd
+        return G.GreensData(R=R, MinvR=gd.MinvR.clone(), iters=gd.iters.clone(),
+                            flag=gd.flag.clone())
+
+    solve.segmented = not eager
+    solve.workspace = lambda: box.get("ws")
+    return solve
 
 
 def mean_over_chains(inc: dict, snaps: dict, flag: torch.Tensor):

@@ -51,10 +51,10 @@ twin; a CUDA tensor launches the kernel or raises. ``launches`` and
 ``"fold/column/complex"``); ``launch_shapes`` holds each counted
 launch's (form key, field shape, dtype), so that a caller can see at which
 shapes a run went through the kernels. A CUDA graph's capture launches
-nothing on the card: :func:`recording` keeps what its capture counted in a
-:class:`LaunchRecord` and restores the counts, and each replay of the graph
-counts the record again (``dynamics/graphs.py``). A capture that reaches a
-shape's first launch (the geometry tuning, the bond-plan upload) raises.
+nothing on the card: its launches are counted into the graph's record, and
+each replay of the graph counts them again (``utils/capture.py``,
+``dynamics/graphs.py``). A capture that reaches a shape's first launch
+(the geometry tuning, the bond-plan upload) raises.
 """
 
 from __future__ import annotations
@@ -66,13 +66,14 @@ import math
 import os
 import shutil
 import subprocess
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
+from elphdynamics_tpu_torch.utils import capture
 
 # kernel launches since import (or since a caller last set them to 0)
 launches = 0
@@ -82,7 +83,6 @@ table_launches = {"fold/shared": 0, "fold/chain": 0, "fold/column": 0,
                   "fused/shared": 0, "fused/chain": 0, "fold/shared/complex": 0,
                   "fold/chain/complex": 0, "fold/column/complex": 0}
 launch_shapes: set = set()    # (form key, field shape, dtype) of the counted launches
-_recording: list = []         # the LaunchRecords of the CUDA graphs being captured
 
 
 def reset_counts() -> None:
@@ -103,57 +103,14 @@ def _add(form: str, n: int) -> None:
     table_launches[form] += n
 
 
+def _add_shape(shape, n: int) -> None:
+    launch_shapes.add(shape)
+
+
 def _count(kernel: str, cosh_b, v) -> None:
     form = f"{kernel}/{TABLE_FORMS[cosh_b.ndim - 1]}" + ("/complex" if v.is_complex() else "")
-    shape = (form, tuple(v.shape), v.dtype)
-    _add(form, 1)
-    launch_shapes.add(shape)
-    for rec in _recording:
-        rec.forms[form] = rec.forms.get(form, 0) + 1
-        rec.shapes.add(shape)
-
-
-@dataclass
-class LaunchRecord:
-    """The launches counted while one CUDA graph was captured (a capture
-    launches nothing on the card): per table form, and their (form, field
-    shape, dtype). :meth:`replayed` counts them once per replay."""
-
-    forms: dict = field(default_factory=dict)
-    shapes: set = field(default_factory=set)
-
-    def replayed(self) -> None:
-        for form, n in self.forms.items():
-            _add(form, n)
-        launch_shapes.update(self.shapes)
-
-
-@contextlib.contextmanager
-def recording():
-    """Record the launches counted inside the block (a graph's capture) in
-    a :class:`LaunchRecord`, and restore every count on leaving it, so that
-    the counts hold only launches made on the card."""
-    global launches, fused_launches
-    saved = (launches, fused_launches, dict(table_launches), set(launch_shapes))
-    rec = LaunchRecord()
-    _recording.append(rec)
-    try:
-        yield rec
-    finally:
-        _recording.remove(rec)
-        launches, fused_launches = saved[0], saved[1]
-        table_launches.update(saved[2])
-        launch_shapes.clear()
-        launch_shapes.update(saved[3])
-
-
-def _refuse_in_capture(what: str) -> None:
-    """Raise where a CUDA graph capture reaches work that a launch does only
-    at a new shape (tuning, host-to-device uploads): such a launch has to
-    run once before the capture."""
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"{what} during a CUDA graph capture: launch the kernel at this "
-                           "shape once before capturing it")
+    capture.count(_add, form)
+    capture.count(_add_shape, (form, tuple(v.shape), v.dtype))
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"ckb_fold": CSRC / "ckb_fold.cu", "ckb_fold_fused": CSRC / "ckb_fold_fused.cu"}
@@ -323,7 +280,7 @@ def _device_plan(spec: ckb.CheckerboardSpec, cs: int, reverse: bool, device: tor
     key = ("cluster_plan", cs, bool(reverse), str(device))
     out = spec._cache.get(key)
     if out is None:
-        _refuse_in_capture("a bond plan upload")
+        capture.refuse(device, "a bond plan upload")
         plan = cluster_plan(spec, cs, reverse)
         table = np.concatenate([plan.offsets.ravel(), plan.crosses]).astype(np.int32)
         out = (torch.as_tensor(plan.bonds, device=device).contiguous(),
@@ -550,7 +507,7 @@ def _geometry(spec, v, name: str, run, per_column: bool = False) -> Geometry:
            v.dtype, name, per_column)
     g = spec._cache.get(key)
     if g is None:
-        _refuse_in_capture("tuning a launch geometry")
+        capture.refuse(v.device, "tuning a launch geometry")
         cands = launch_candidates(spec, v, name, per_column)
         g = cands[0] if len(cands) == 1 else fastest(cands, _time_candidates(cands, run))
         spec._cache[key] = g

@@ -24,6 +24,15 @@ With two ranks the previous and the next neighbour are the same rank. The
 two messages then travel between the same pair, so they carry distinct
 tags (gloo matches by tag) and are posted in a fixed order, the message
 to the next rank first (NCCL matches a pair's messages in order).
+
+Inside a CUDA graph (a segmented sampler call on an NCCL site group,
+``dynamics/graphs.py``) both collectives are captured as they are: the
+all-reduce and the halo's ``dist.batch_isend_irecv``. Under torch 2.11
+with NCCL on two H100s a captured halo delivers the eager exchange's rows
+bit for bit, and at ``SSH_64X64``'s halo (320 KB a message) an eager
+exchange takes 0.38-0.40 ms (``chip_smoke.phase_halo``, ``PERF.md``).
+A CUDA site group under gloo stages through host memory and cannot be
+captured: its calls run eagerly (``dynamics/graphs.graphable``).
 """
 
 from __future__ import annotations

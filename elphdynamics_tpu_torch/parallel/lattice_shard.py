@@ -34,6 +34,16 @@ The sharded fold is plain torch on the rank's block in any case (the JAX
 package's is plain ``jnp`` too): the CUDA fold kernels take whole site
 slabs, and a halo as deep as the group walk is not built yet (ROADMAP).
 
+A sampler call on a shard is segmented like one rank's
+(``dynamics/graphs.py``): on an NCCL site group, one card per rank, its
+segments are captured as CUDA graphs with the all-reduces and halo
+exchanges inside them. Every device table the fold and the ωᵢⱼ terms
+read (:meth:`SiteShard._dev_tables`, :meth:`SiteShard._wij_tables`, the
+ωᵢⱼ signs per device and dtype) is uploaded once, in a call's warm-up; a
+capture that reaches a first upload raises. The counters count what ran:
+a graph keeps what its capture counted, and each replay adds it again
+(``utils/capture.py``).
+
 The plans are host numpy, built once; a bond or ωᵢⱼ pair that reaches a
 block that is not ring-adjacent is refused (order the sites so that bonds
 cross at most one block boundary: the orbit-fastest row-major orderings of
@@ -46,10 +56,12 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from elphdynamics_tpu_torch.ops.checkerboard import CheckerboardSpec, _site_coeffs
 from elphdynamics_tpu_torch.parallel.comm import allreduce_sum, halo_exchange
 from elphdynamics_tpu_torch.parallel.multihost import all_gather
+from elphdynamics_tpu_torch.utils import capture
 from elphdynamics_tpu_torch.utils.math import add_plan, ordered_add
 
 
@@ -236,6 +248,11 @@ def ssh_group_phonons(spec, D: int):
     return tuple(ph_of_site), tuple(ph_mask), tuple(bond_orig)
 
 
+# the shard counters (SiteShard's docstring)
+COUNTERS = ("folds", "halo_msgs", "halo_bytes", "allreduces", "allreduce_bytes", "force_sums",
+            "force_bytes")
+
+
 class SiteShard:
     """One rank's block of sites and the collectives over its site group.
 
@@ -260,8 +277,21 @@ class SiteShard:
         self.reset_counts()
 
     def reset_counts(self) -> None:
-        self.folds = self.halo_msgs = self.halo_bytes = self.allreduces = 0
-        self.allreduce_bytes = self.force_sums = self.force_bytes = 0
+        for name in COUNTERS:
+            setattr(self, name, 0)
+
+    def _add(self, name: str, n: int) -> None:
+        setattr(self, name, getattr(self, name) + n)
+
+    def _count(self, **adds) -> None:
+        """Add to the counters (to the records of the graphs being
+        captured during a capture, :func:`..utils.capture.count`)."""
+        for name, n in adds.items():
+            capture.count(self._add, name, n)
+
+    def backend(self) -> str:
+        """The site group's backend (``nccl`` or ``gloo``)."""
+        return dist.get_backend(self.group)
 
     # --- layout
 
@@ -276,15 +306,13 @@ class SiteShard:
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the site group of the partial sums ``t``."""
-        self.allreduces += 1
-        self.allreduce_bytes += t.numel() * t.element_size()
+        self._count(allreduces=1, allreduce_bytes=t.numel() * t.element_size())
         return allreduce_sum(t, self.group)
 
     def sum_force(self, t: torch.Tensor) -> torch.Tensor:
         """:meth:`sum` of the ranks' shares of SSH's fermionic force on the
         whole bond field, counted apart."""
-        self.force_sums += 1
-        self.force_bytes += t.numel() * t.element_size()
+        self._count(force_sums=1, force_bytes=t.numel() * t.element_size())
         return self.sum(t)
 
     def row(self, x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -306,6 +334,7 @@ class SiteShard:
         key = str(device)
         tabs = self._tables.get(key)
         if tabs is None:
+            capture.refuse(device, "the shard's halo tables' upload")
             p, d = self.plan, self.d
 
             def T(a):
@@ -323,8 +352,9 @@ class SiteShard:
         sn = v.index_select(-2, send_next_rows) if hp else None
         sp = v.index_select(-2, send_prev_rows) if hn else None
         from_prev, from_next = halo_exchange(sn, sp, self.next_rank, self.prev_rank, self.group)
-        self.halo_msgs += (hp > 0) + (hn > 0)
-        self.halo_bytes += sum(t.numel() * t.element_size() for t in (sn, sp) if t is not None)
+        self._count(halo_msgs=(hp > 0) + (hn > 0),
+                    halo_bytes=sum(t.numel() * t.element_size() for t in (sn, sp)
+                                   if t is not None))
         return torch.cat([v] + [t for t in (from_prev, from_next) if t is not None], dim=-2)
 
     def _group_coeffs(self, tabs, g: int, cosh_b, sinh_b, v):
@@ -345,7 +375,7 @@ class SiteShard:
         p = self.plan
         if sinh_b.is_complex() and not v.is_complex():
             v = v.to(sinh_b.dtype)
-        self.folds += 1
+        self._count(folds=1)
         order = range(p.ngroups - 1, -1, -1) if reverse else range(p.ngroups)
         for g in order:
             c, s = self._group_coeffs(tabs, g, cosh_b, sinh_b, v)
@@ -366,7 +396,7 @@ class SiteShard:
         tabs = self._dev_tables(b.device)
         p = self.plan
         K = b.shape[-1]
-        self.folds += 1
+        self._count(folds=1)
         for g in range(p.ngroups):
             cg, sg = self._group_coeffs(tabs, g, cosh_b, sinh_b, b)
             ext = self._extend(torch.cat([b, c], dim=-1), tabs["send_next"][g],
@@ -382,6 +412,7 @@ class SiteShard:
         key = ("wij", str(device))
         tabs = self._tables.get(key)
         if tabs is None:
+            capture.refuse(device, "the shard's wij tables' upload")
             w, d = self.wplan, self.d
             tabs = self._tables[key] = {
                 name: torch.as_tensor(getattr(w, name)[d], device=device)
@@ -395,12 +426,23 @@ class SiteShard:
             tabs["valid"] = torch.as_tensor(valid[:, :, None], device=device)
         return tabs
 
+    def _wij_sign(self, wij_sign, like):
+        """The pairs' signs ``wij_sign`` (host numpy) on ``like``'s device in
+        its dtype, uploaded once per device and dtype."""
+        key = ("wij_sign", str(like.device), like.dtype)
+        sgn = self._tables.get(key)
+        if sgn is None:
+            capture.refuse(like.device, "the shard's wij signs' upload")
+            sgn = self._tables[key] = torch.as_tensor(wij_sign, dtype=like.dtype,
+                                                      device=like.device)
+        return sgn
+
     def _wij_sides(self, wij, wij_sign, x):
         """The i side and the j side of the pairs this rank holds, each as
         (local rows, validity mask, pair indices, signs, xᵢ ± xⱼ)."""
         t = self._wij_tables(x.device)
         ext = self._extend(x, t["send_next"], t["send_prev"], self.wplan.hp, self.wplan.hn)
-        sgn_all = torch.as_tensor(wij_sign, device=x.device).to(x.dtype)
+        sgn_all = self._wij_sign(wij_sign, x)
         out = []
         for rows, exts, kk, m, from_j in ((t["row_i"], t["ext_j"], t["k_i"], t["mask_i"], False),
                                           (t["row_j"], t["ext_i"], t["k_j"], t["mask_j"], True)):

@@ -53,8 +53,12 @@ one of them):
 
 Tempering runs on every layout; across chain ranks the exchange gathers
 the partners' fields over the chain group and takes the one-rank run's
-decisions. A site-sharded layout runs every part eagerly (its collectives
-sit inside every solve). Every rank runs the same loop and reaches every
+decisions. A site-sharded layout replays CUDA graphs too, its site
+group's collectives (the all-reduces and halo exchanges inside every
+solve) captured in them, on NCCL ranks, one card each; on a site group
+under gloo on a card (ranks sharing one card) every site-sharded part runs
+eagerly (``dynamics/graphs.graphable`` reads the backend; the log's
+``Ranks`` line says which). Every rank runs the same loop and reaches every
 collective; the files (datafolder, logs, bins, summary, checkpoint) are
 written by rank 0 only, and every host decision comes from values equal on
 every rank that shares a collective. Under site sharding the near-null preconditioner, 2MN
@@ -74,6 +78,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
+from elphdynamics_tpu_torch.dynamics import graphs
 from elphdynamics_tpu_torch.dynamics.hmc import (
     SITE_2MN, DtTunerState, HMCState, dt_tuner_init, dt_tuner_update, init_deflation,
     make_hmc_step)
@@ -88,9 +93,8 @@ from elphdynamics_tpu_torch.io import checkpoint as ckpt
 from elphdynamics_tpu_torch.io import output as out_io
 from elphdynamics_tpu_torch.io.config import SimulationSetup, build_setup, load_toml
 from elphdynamics_tpu_torch.io.summary import write_summary
-from elphdynamics_tpu_torch.measure.greens import sample_greens
 from elphdynamics_tpu_torch.measure.measurements import (
-    make_measurement_step, mean_over_chains, process_bin, zero_container)
+    make_measurement_step, make_probe_solve, mean_over_chains, process_bin, zero_container)
 from elphdynamics_tpu_torch.measure.mufinder import MuTuner
 from elphdynamics_tpu_torch.models.adapter import global_sites, make_model_ops
 from elphdynamics_tpu_torch.ops import deflation, kpm
@@ -253,6 +257,12 @@ def simulate(config, run_id: int | None = None, n_chains: int = 1, device="cuda"
         if world > 1:
             logger.info("Ranks: %d (%d chain x %d site, backend %s)", world, n_devices,
                         site_devices, torch.distributed.get_backend())
+        if par.shard is not None:
+            logger.info("Site shard: %d sites per rank; the sampler calls %s", par.shard.B,
+                        ("replay CUDA graphs, the site group's NCCL collectives inside them"
+                         if device.type == "cuda" else "run segmented")
+                        if graphs.graphable(par.shard, device)
+                        else "run eagerly: a gloo site group on a card cannot be captured")
         return _run(setup, n_chains, par)
     finally:
         logger.removeHandler(handler)
@@ -345,13 +355,12 @@ class _LangevinUpdate:
     flag: torch.Tensor
 
 
-def _langevin_update(ops, setup: SimulationSetup, precond, eager: bool = False):
+def _langevin_update(ops, setup: SimulationSetup, precond):
     """The Langevin step as a sampler update ``(params, state, generator,
-    draws=None) -> (state, stats)`` (``eager``: the eager step where the
-    graphed one would run); the momenta of ``state`` ride along
+    draws=None) -> (state, stats)``; the momenta of ``state`` ride along
     untouched."""
     lstep = make_langevin_step(ops, setup.fa_Q, setup.langevin_dt, setup.langevin_method,
-                               setup.solver_cfg, precond, eager=eager)
+                               setup.solver_cfg, precond)
 
     def update(params, state: HMCState, generator=None, draws=None):
         x, stats = lstep(params, state.x, generator, draws)
@@ -529,38 +538,39 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     hmc = setup.dynamics_type == "hmc"
     bcfg = setup.hmc_burnin_cfg
     tuned_step = tuner = None
-    # a site-sharded layout keeps the eager update, moves, measurement and
-    # exchange (its collectives run inside every solve); elsewhere on the
-    # card, one rank or a chain rank, under tempering too, the update
-    # (leapfrog or 2MN) or Langevin step (Holstein or SSH, real or complex
-    # hopping), the reflection and swap moves, the measurement and the
+    # on the card, one rank, a chain rank or a site rank of an NCCL site
+    # group, under tempering too, the update (leapfrog or 2MN) or Langevin
+    # step (Holstein or SSH, real or complex hopping), the reflection and
+    # swap moves, the measurement (a site shard's probe solves) and the
     # tempering exchange replay CUDA graphs, with block CG, the deflation
     # basis (made once below and carried in the state), the one
     # preconditioner built above, near-null or KPM with its exact
     # low-frequency blocks included, and BiCGStab / GMRES
-    # (dynamics/graphs.py)
-    eager = par.shard is not None
+    # (dynamics/graphs.py); a site shard of a gloo group on a card runs
+    # them eagerly (graphs.graphable)
     if hmc:
-        sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond, eager=eager)
+        sim_step = make_hmc_step(ops, setup.fa_mass, setup.hmc_cfg, precond)
         burnin_step = (sim_step if bcfg == setup.hmc_cfg
-                       else make_hmc_step(ops, setup.fa_mass, bcfg, precond, eager=eager))
+                       else make_hmc_step(ops, setup.fa_mass, bcfg, precond))
         if bcfg.tune_dt and sp.burnin > 0:
             # the burn-in step takes dt from the tuner on the device; the
             # trajectory length Nt stays the configured one until the freeze
-            tuned_step = make_hmc_step(ops, setup.fa_mass, bcfg, precond, dynamic_dt=True,
-                                       eager=eager)
+            tuned_step = make_hmc_step(ops, setup.fa_mass, bcfg, precond, dynamic_dt=True)
             tuner = dt_tuner_init(bcfg.dt, device=dev)
     else:
-        sim_step = burnin_step = _langevin_update(ops, setup, precond, eager)
+        sim_step = burnin_step = _langevin_update(ops, setup, precond)
     # site-only: the estimator stage of the global step runs on the gathered
     # probes; 2-D: the one-card measurement on each chain block's lattice
     mprecond = precond
     if par.shard is not None:
         mprecond = (kpm.make_precond(ops_g, setup.kpm_cfg)
                     if par.chains is not None and setup.kpm_cfg is not None else None)
-    mstep = make_measurement_step(ops_g, mspec, setup.solver_cfg, mprecond, eager=eager)
-    reflect = make_reflection_update(ops, setup.reflect_cfg, precond, eager=eager)
-    swap = make_swap_update(ops, setup.swap_cfg, precond, eager=eager)
+    mstep = make_measurement_step(ops_g, mspec, setup.solver_cfg, mprecond)
+    # site-only: the probe solves on the rank's block of sites
+    probe_solve = (make_probe_solve(ops, mspec.nv, setup.solver_cfg, precond)
+                   if par.shard is not None and par.chains is None else None)
+    reflect = make_reflection_update(ops, setup.reflect_cfg, precond)
+    swap = make_swap_update(ops, setup.swap_cfg, precond)
 
     sim_stats = {"simulation_time": 0.0, "measurement_time": 0.0, "write_time": 0.0,
                  "iters": 0.0, "acceptance_rate": 0.0, "reflect_acceptance_rate": 0.0,
@@ -571,7 +581,7 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
         round(trajectory_time/dt) restores the configured trajectory time."""
         nonlocal sim_step
         cfg2 = replace(setup.hmc_cfg, dt=float(tuned_dt))
-        sim_step = make_hmc_step(ops, setup.fa_mass, cfg2, precond, eager=eager)
+        sim_step = make_hmc_step(ops, setup.fa_mass, cfg2, precond)
         sim_stats["tuned_dt"] = float(tuned_dt)
         logger.info("tune_dt: frozen dt=%.6g Nt=%d (configured dt=%.6g Nt=%d, "
                     "target acceptance %.2f)", cfg2.dt, cfg2.Nt, setup.hmc_cfg.dt,
@@ -637,8 +647,7 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
         # a resumed run loaded the per-chain couplings from its checkpoint
         if not resume:
             params = ladder_params(params, tcfg, n_chains)
-        exchange = make_exchange_step(ops, tcfg, n_chains, precond, chains=par.chains,
-                                      eager=eager)
+        exchange = make_exchange_step(ops, tcfg, n_chains, precond, chains=par.chains)
         n_meas_chains = n_chains // len(tcfg.ladder)
         sim_stats.setdefault("tempering_acceptance_rate", 0.0)
         logger.info("parallel tempering: ladder=%s freq=%d (%d chains/rung)",
@@ -747,8 +756,7 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
             # the probe solves on the site blocks, the estimators on the
             # gathered probes, solutions and fields
             x = state.x[:n_meas_chains]
-            gd = sample_greens(ops, shard_params(mparams, par.shard), x, mspec.nv,
-                               setup.solver_cfg, precond, gen)
+            gd = probe_solve(shard_params(mparams, par.shard), x, gen)
             gd = replace(gd, R=par.shard.gather(gd.R), MinvR=par.shard.gather(gd.MinvR))
             inc, mstats, snaps = mstep.analyze(mparams, par.gather_sites(x), gd)
         else:
@@ -850,7 +858,7 @@ def _run(setup: SimulationSetup, n_chains: int, par: _Parallel = _Parallel()) ->
     # CUDA graph replays by part (0 where a part ran eager or on the CPU)
     sim_stats["graph_replays"] = {"update": _replays(sim_step, burnin_step, tuned_step),
                                   "reflect": _replays(reflect), "swap": _replays(swap),
-                                  "measurement": _replays(mstep)}
+                                  "measurement": _replays(mstep, probe_solve)}
     if exchange is not None:
         sim_stats["graph_replays"]["exchange"] = _replays(exchange)
     total = sp.burnin + sp.nsteps

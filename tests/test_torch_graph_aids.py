@@ -174,13 +174,26 @@ def test_segmented_update_with_aid_equals_eager(case):
         assert isinstance(ws.kpm, tuple) and ws.kpm[1].T.shape[1] == 4
 
 
+def _assert_card_gate(shard) -> None:
+    """On a card a site shard's calls read its group's backend: NCCL runs
+    them segmented (captured), gloo eagerly; on the CPU both run
+    segmented."""
+    for backend, on_card in (("gloo", False), ("nccl", True)):
+        shard.backend = lambda b=backend: b
+        assert graphs.graphable(shard, torch.device("cuda")) is on_card
+        assert graphs.graphable(shard, torch.device("cpu"))
+    del shard.backend
+
+
 @pytest.mark.parametrize("case", ["bicgstab", "gmres", "eager", "shard"])
 def test_update_gate_keeps_the_eager_update(case):
     """With block CG and deflation set: BiCGStab and GMRES take the
     segmented update (their own solve, which ignores both, as the eager
-    update does), equal to its eager twin bit for bit; ``eager=True`` and a
-    site shard keep the eager update (a shard's calls need a process group:
-    only its gate is read here)."""
+    update does), equal to its eager twin bit for bit; ``eager=True`` keeps
+    the eager update; a site shard takes the segmented one (its calls need
+    a process group: only its gate is read here, the calls are held to
+    their eager forms in ``tests/test_torch_graph_sites.py``), except a gloo
+    site group on a card, whose calls run eagerly."""
     b = _bench(block=True, deflate_k=4)
     ops, params = b.ops, b.params
     nonsym = case in ("bicgstab", "gmres")
@@ -190,8 +203,9 @@ def test_update_gate_keeps_the_eager_update(case):
         ops = make_model_ops(shard_model(ops.spec, params, shard)[0])
     step = make_hmc_step(ops, b.mass, cfg, kpm.make_precond(ops, b.kpm_cfg),
                          eager=case == "eager")
-    assert step.segmented == nonsym
+    assert step.segmented == (nonsym or case == "shard")
     if case == "shard":
+        _assert_card_gate(ops.shard)
         return
     twin = make_hmc_step(ops, b.mass, cfg, kpm.make_precond(ops, b.kpm_cfg), eager=True)
     draws = twin.draw(params, b.state.x, C, torch.Generator().manual_seed(0))

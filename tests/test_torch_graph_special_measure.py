@@ -339,9 +339,13 @@ def test_gate_takes_the_eager_call(case):
     ``exact_lowfreq`` preconditioners, BiCGStab and GMRES take the
     segmented calls (a workspace, graphs on a card;
     ``tests/test_torch_graph_nonsym.py`` holds the nonsymmetric probe
-    solves); ``eager=True`` and a site shard are not segmented at all. Each
-    call equals its eager twin. The moves always solve by CG, so the solver
-    kind and ``block`` gate only the measurement."""
+    solves); ``eager=True`` is not segmented at all. Each call equals its
+    eager twin. A site shard takes the segmented calls too (they need a
+    process group: only the gate is read here, the calls are held to their
+    eager forms in ``tests/test_torch_graph_sites.py``), except a gloo site
+    group on a card, whose calls run eagerly. The moves always
+    solve by CG, so the solver kind and ``block`` gate only the
+    measurement."""
     ops, params, x, precond = _gate_model(case)
     kind = case if case in ("bicgstab", "gmres") else "cg"
     scfg = SolverConfig(tol=1e-6, maxiter=500, kind=kind, block=case == "block")
@@ -349,14 +353,18 @@ def test_gate_takes_the_eager_call(case):
     eager = case == "eager"
     mstep = tm.make_measurement_step(ops, mspec, scfg, precond, eager=eager)
     mtwin = tm.make_measurement_step(ops, mspec, scfg, precond, eager=True)
-    measure_segmented = case not in ("eager", "shard")
+    measure_segmented = case != "eager"
     assert mstep.segmented == measure_segmented
     cfg = tsu.SpecialUpdateConfig(freq=1, n_moves=2, maxiter=500)
     makers = (tsu.make_reflection_update, tsu.make_swap_update)
     moves_segmented = case in ("complex", "block", "bicgstab", "gmres", "nearnull",
-                               "exact_lowfreq")
+                               "exact_lowfreq", "shard")
     if case == "shard":
-        assert not any(make(ops, cfg, precond).segmented for make in makers)
+        assert all(make(ops, cfg, precond).segmented for make in makers)
+        # on a card the calls read the site group's backend: gloo runs eagerly
+        for backend, on_card in (("gloo", False), ("nccl", True)):
+            ops.shard.backend = lambda b=backend: b
+            assert graphs.graphable(ops.shard, torch.device("cuda")) is on_card
         return
     R = mtwin.draw(params, x, torch.Generator().manual_seed(2))
     _equal(mstep(params, x, R=R), mtwin(params, x, R=R))

@@ -2,8 +2,9 @@
 package's unsharded ``make_hmc_step`` and the port's one-rank step, on 2
 and 4 gloo ranks on the CPU in float64.
 
-One update of 2 chains on a 4×4 lattice with the symmetric KPM
-preconditioner, warm starts (``guess_order = 3``) and Nb = 2 bosonic
+One update of 2 chains on a 4×4 lattice, in the eager form and in the
+segmented one (the graphed update's segments, run directly on the CPU),
+with the symmetric KPM preconditioner, warm starts (``guess_order = 3``) and Nb = 2 bosonic
 substeps, CG to 1e-9, with the JAX package's own draws fed in (each rank keeps its
 block of sites): plain, with ωᵢⱼ dispersion and an ω₄ term, on a twisted
 lattice (complex hopping; ``test_torch_parallel_hmc_twisted.py``), and
@@ -75,11 +76,13 @@ def _jax_run(case, dt=None):
     return runs, mass, x0, v0, draws
 
 
-def _check(case, dt, D, tmp_path):
-    """One sharded update on D ranks against JAX and the one-rank port."""
+def _check(case, dt, D, tmp_path, form="segmented"):
+    """One sharded update on D ranks, in ``form`` (``segmented``: the
+    graphed update's segments; ``eager``), against JAX and the one-rank
+    port."""
     runs, mass, x0, v0, draws = _jax_run(case, dt)
     out = launch(W.hmc_worker, D, "gloo", "cpu",
-                 (L, BETA, case, CFG, KPM, mass, x0, v0, draws, dt),
+                 (L, BETA, case, CFG, KPM, mass, x0, v0, draws, dt, None, form),
                  timeout_s=TIMEOUT, threads=1, store_dir=str(tmp_path))
     x = np.concatenate([o["x"] for o in out], axis=-2)
     v = np.concatenate([o["v"] for o in out], axis=-2)
@@ -104,7 +107,8 @@ def _check(case, dt, D, tmp_path):
     assert msgs > 0 and nbytes > 0 and folds > 0 and allreduces > 0
 
 
+@pytest.mark.parametrize("form", ["eager", "segmented"])
 @pytest.mark.parametrize("D", [2, 4])
 @pytest.mark.parametrize("case", ["plain", "wij"])
-def test_sharded_hmc_update_matches_jax(case, D, tmp_path):
-    _check(case, None, D, tmp_path)
+def test_sharded_hmc_update_matches_jax(case, D, form, tmp_path):
+    _check(case, None, D, tmp_path, form)

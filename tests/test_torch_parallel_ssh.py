@@ -7,7 +7,10 @@ into site blocks; the fermionic force is each rank's share of the group
 walk, all-reduced once per evaluation. On a 4×4 lattice with x and y bonds
 (disorder on every parameter, α₂ and ω₄ terms) and 2 chains, with the
 JAX package's own draws fed in (each rank keeps its block of the
-pseudofermions and probes, the bond momenta and η whole):
+pseudofermions and probes, the bond momenta and η whole), each sharded
+sampler in its eager form and in its segmented one (the graphed calls'
+segments, run directly on the CPU; the probes by
+``measurements.make_probe_solve``):
 
 * one HMC update with the KPM preconditioner and warm starts, real and
   twisted (complex hopping), CG to 1e-9;
@@ -200,11 +203,12 @@ def test_ssh_group_phonons_match_jax():
                 np.testing.assert_array_equal(ga, gb)
 
 
+@pytest.mark.parametrize("form", ["eager", "segmented"])
 @pytest.mark.parametrize("D", [2, 4])
-def test_site_sharded_ssh_samplers_match_jax(D, tmp_path):
+def test_site_sharded_ssh_samplers_match_jax(D, form, tmp_path):
     runs, refs = _jax_runs()
-    out = launch(W.ssh_worker, D, "gloo", "cpu", (L, BETA, runs), timeout_s=TIMEOUT, threads=1,
-                 store_dir=str(tmp_path))
+    out = launch(W.ssh_worker, D, "gloo", "cpu", (L, BETA, runs, form), timeout_s=TIMEOUT,
+                 threads=1, store_dir=str(tmp_path))
     one = out[0]
     for name in runs:
         sh = [r[name]["sharded"] for r in out]

@@ -40,10 +40,11 @@ def holstein_kw(case: str) -> dict:
     return kw
 
 
-def build(L: int, beta: float, dtau: float, case: str, seed: int = 5, **extra):
-    """The port's Holstein model on the CPU (float64)."""
+def build(L: int, beta: float, dtau: float, case: str, seed: int = 5, device="cpu", **extra):
+    """The port's Holstein model (float64), on the CPU unless ``device``
+    says otherwise."""
     return build_holstein(Lattice.create(UnitCell.create(*UC), L), beta, dtau,
-                          rng=np.random.default_rng(seed), device="cpu",
+                          rng=np.random.default_rng(seed), device=device,
                           **holstein_kw(case), **extra)
 
 
@@ -139,9 +140,10 @@ def _defl_state(defl):
 
 
 def hmc_worker(device, L: int, beta: float, case: str, cfg: dict, kpm_kw: dict, mass, x0, v0,
-               draws: dict, dt=None, defl=None):
+               draws: dict, dt=None, defl=None, form: str = "segmented"):
     """One sharded HMC update with the given whole-model draws (and whole
-    deflation basis ``defl``, cut to the block), and the same update of the
+    deflation basis ``defl``, cut to the block), in ``form`` (``segmented``,
+    the graphed update's segments; ``eager``), and the same update of the
     one-rank port (rank 0): the sharded x and v blocks, both runs'
     statistics and the one-rank fields."""
     from elphdynamics_tpu_torch.ops import deflation
@@ -152,7 +154,7 @@ def hmc_worker(device, L: int, beta: float, case: str, cfg: dict, kpm_kw: dict, 
     hcfg = HMCConfig(**cfg)
     dyn = dt is not None
     step = make_hmc_step(lops, mass, hcfg, kpm.make_symmetric_precond(lops, kpm.KPMConfig(**kpm_kw)),
-                         dynamic_dt=dyn)
+                         dynamic_dt=dyn, eager=form == "eager")
     x0, v0 = torch.as_tensor(x0), torch.as_tensor(v0)
     args = (torch.tensor(dt, dtype=torch.float64),) if dyn else ()
     d0 = _defl_state(defl)
@@ -276,14 +278,16 @@ SSH_HOPPINGS = [dict(SSH_HOP, dL=(1, 0, 0), name="x"), dict(SSH_HOP, dL=(0, 1, 0
 SSH_MU = [(-0.2, 0.1, None)]
 
 
-def build_ssh_model(L: int, beta: float, dtau: float, twist=None, seed: int = 3):
+def build_ssh_model(L: int, beta: float, dtau: float, twist=None, seed: int = 3,
+                    device="cpu"):
     """The port's SSH model shared with the tests (x and y bonds with
-    disorder on every parameter), on the CPU in float64."""
+    disorder on every parameter) in float64, on the CPU unless ``device``
+    says otherwise."""
     from elphdynamics_tpu_torch.models.ssh import build_ssh
 
     return build_ssh(Lattice.create(UnitCell.create(*UC), L), beta, dtau,
                      hoppings=SSH_HOPPINGS, mu_assignments=SSH_MU, twist=twist,
-                     rng=np.random.default_rng(seed), device="cpu")
+                     rng=np.random.default_rng(seed), device=device)
 
 
 def _fixed_precond(ops, cfg, start):
@@ -297,18 +301,21 @@ def _fixed_precond(ops, cfg, start):
         symmetric=lambda st, v: kpm.apply_symmetric(ops, st, v, cfg))
 
 
-def ssh_worker(device, L: int, beta: float, runs: dict):
-    """SSH's samplers on this rank's block of sites and (rank 0) on one
-    rank, from the given whole-model inputs and draws: per run the
-    sharded result (x whole on every rank; probe solutions as the block),
-    the one-rank result, and the shard's counters. ``runs`` maps a name to
-    (kind, twist, inputs): kind ``hmc``, ``langevin_rk``, ``swap`` or
-    ``greens``."""
+def ssh_worker(device, L: int, beta: float, runs: dict, form: str = "segmented"):
+    """SSH's samplers on this rank's block of sites, in ``form``
+    (``segmented``: the graphed calls' segments, the probe solves of
+    ``measurements.make_probe_solve``; ``eager``: the eager calls and
+    ``greens.sample_greens``), and (rank 0) on one rank, from the given
+    whole-model inputs and draws: per run the sharded result (x whole on
+    every rank; probe solutions as the block), the one-rank result, and the
+    shard's counters. ``runs`` maps a name to (kind, twist, inputs): kind
+    ``hmc``, ``langevin_rk``, ``swap`` or ``greens``."""
     from elphdynamics_tpu_torch.dynamics.langevin import LangevinDraws, make_langevin_step
     from elphdynamics_tpu_torch.dynamics.solve import SolverConfig
     from elphdynamics_tpu_torch.dynamics.special_updates import (
         SpecialDraws, SpecialUpdateConfig, make_swap_update)
     from elphdynamics_tpu_torch.measure.greens import sample_greens
+    from elphdynamics_tpu_torch.measure.measurements import make_probe_solve
 
     T = torch.as_tensor
     out = {}
@@ -326,8 +333,9 @@ def ssh_worker(device, L: int, beta: float, runs: dict):
                 continue
             pre = _fixed_precond(o, kcfg, start)
             cut = (lambda t: o.shard.local(T(t))) if o.shard is not None else T
+            eager = tag == "sharded" and form == "eager"
             if kind == "hmc":
-                step = make_hmc_step(o, inp["mass"], HMCConfig(**inp["cfg"]), pre)
+                step = make_hmc_step(o, inp["mass"], HMCConfig(**inp["cfg"]), pre, eager=eager)
                 st, stats = step(p, HMCState(x=T(inp["x0"]), v=T(inp["v0"])), draws=HMCDraws(
                     momentum=T(inp["momentum"]), pseudofermion=cut(inp["pseudofermion"]),
                     uniform=T(inp["uniform"])))
@@ -336,19 +344,21 @@ def ssh_worker(device, L: int, beta: float, runs: dict):
                                 delta_H=_np(stats.delta_H))
             elif kind == "langevin_rk":
                 step = make_langevin_step(o, inp["Q"], inp["dt"], "rk",
-                                          SolverConfig(**inp["scfg"]), pre)
+                                          SolverConfig(**inp["scfg"]), pre, eager=eager)
                 x1, stats = step(p, T(inp["x0"]), draws=LangevinDraws(
                     eta=T(inp["eta"]), g=tuple(cut(g) for g in inp["g"])))
                 res[tag] = dict(x=_np(x1), iters=_np(stats.iters), flag=_np(stats.flag))
             elif kind == "swap":
-                upd = make_swap_update(o, SpecialUpdateConfig(**inp["cfg"]), pre)
+                upd = make_swap_update(o, SpecialUpdateConfig(**inp["cfg"]), pre, eager=eager)
                 x1, rate = upd(p, T(inp["x0"]), draws=SpecialDraws(
                     picks=T(inp["picks"]), pseudofermion=cut(inp["pseudofermion"]),
                     uniform=T(inp["uniform"])))
                 res[tag] = dict(x=_np(x1), rate=_np(rate))
             else:
-                gd = sample_greens(o, p, T(inp["x0"]), inp["R"].shape[1],
-                                   SolverConfig(**inp["scfg"]), pre, R=cut(inp["R"]))
+                nv, scfg = inp["R"].shape[1], SolverConfig(**inp["scfg"])
+                sample = (make_probe_solve(o, nv, scfg, pre) if tag == "sharded" and not eager
+                          else lambda p_, x_, R: sample_greens(o, p_, x_, nv, scfg, pre, R=R))
+                gd = sample(p, T(inp["x0"]), R=cut(inp["R"]))
                 res[tag] = dict(MinvR=_np(gd.MinvR), iters=_np(gd.iters), flag=_np(gd.flag))
         res["counts"] = (shard.halo_msgs, shard.folds, shard.allreduces, shard.allreduce_bytes)
         out[name] = res
@@ -722,3 +732,233 @@ def wij_force_worker(device, seed: int):
             g = sgn * g
         old = old.index_add(-2, rows, torch.where(m, g, torch.zeros_like(g)))
     return _np(new), _np(old)
+
+
+# --- the graphed site-sharded calls (dynamics/graphs.py) on site ranks --------
+
+# the calls of each model case of :func:`graph_sites_worker`
+SITE_CALLS = {
+    "holstein": ("update", "update_dt", "update_block", "update_deflated", "langevin_euler",
+                 "langevin_rk", "reflect", "swap", "probes", "probes_block"),
+    "wij": ("update", "langevin_rk", "swap"),
+    "ssh": ("update", "langevin_euler", "langevin_rk", "swap", "probes"),
+    "twist": ("update", "langevin_rk", "probes_block"),
+    "ssh_twist": ("update",),
+    "ladder": ("update", "exchange"),
+}
+SITE_TWIST = (0.3, 0.0)
+
+
+def graph_sites_worker(device, n_chain: int, cases, n_chains: int = 2):
+    """On this rank of the ``n_chain`` × (world / ``n_chain``) layout (rank
+    r is chain block r // n_site and site block r % n_site), the calls of
+    each case of :data:`SITE_CALLS` (4×4, Lτ = 10, float64, ``n_chains``
+    chains in all): Holstein ``plain`` (``holstein``), with ωᵢⱼ dispersion
+    (``wij``), SSH, both under complex hopping (``twist``, ``ssh_twist``)
+    and a 2-rung Holstein ladder (``ladder``: its update and the exchange
+    of both parities). Each call runs in its segmented form and in its
+    eager form (asked for by name) on the same draws (the whole batch's,
+    cut to the rank's chains and sites): the leapfrog update (Holstein's
+    twice, the second from the first's state), the dt tuner's update, the
+    block-CG and deflated updates, the Langevin step, the moves and the
+    measurement's probe solves (CG, block CG); the updates other than the
+    leapfrog one take one trajectory step. On a card a first call's
+    counters also hold its warm-up and are not compared. Per call: whether the two forms agree bit
+    for bit (results, host reads and the shard's counters), the segmented
+    form's host reads, graph replays, counters and results (x the rank's
+    block; SSH's bond field whole), and on a card the eager retries' host
+    reads and the eager steps between replays (replays = host reads −
+    retry reads + 1 + those steps)."""
+    from elphdynamics_tpu_torch import bench, solvers
+    from elphdynamics_tpu_torch.dynamics import graphs
+    from elphdynamics_tpu_torch.dynamics import hmc as H
+    from elphdynamics_tpu_torch.dynamics.langevin import make_langevin_step
+    from elphdynamics_tpu_torch.dynamics.special_updates import (
+        SpecialUpdateConfig, make_reflection_update, make_swap_update)
+    from elphdynamics_tpu_torch.measure.measurements import make_probe_solve
+    from elphdynamics_tpu_torch.ops import deflation
+    from elphdynamics_tpu_torch.ops.fourier_accel import build_mass, build_Q
+    from elphdynamics_tpu_torch.parallel.chains import ChainBlock
+    from elphdynamics_tpu_torch.parallel.lattice_shard import COUNTERS, shard_model
+    from elphdynamics_tpu_torch.utils.dtypes import field_dtype, trace_noise
+
+    device = torch.device(device)
+    n_site = multihost.world() // n_chain
+    site_group, chain_group = multihost.layout_groups(n_chain, n_site)
+    block, d = divmod(multihost.rank(), n_site)
+    cb = ChainBlock.of(n_chains, n_chain, block, chain_group) if n_chain > 1 else None
+    out = {}
+
+    def shard_of(spec):
+        return SiteShard(spec.ckb, getattr(spec, "wij_table", None), n_site, d, site_group,
+                         base=block * n_site)
+
+    def chains(t, dim: int = 0):
+        return t if cb is None else cb.local(t, dim)
+
+    def graph_counts(f):
+        """(replays, the host reads of eager retries) of ``f``'s graphs."""
+        ws = f.workspace() if hasattr(f, "workspace") else None
+        if ws is None or ws.graphs is None:
+            return 0, 0
+        return ws.graphs.replays, ws.retry_reads
+
+    def both(name, shard, seg, eager, calls):
+        """``calls(f)`` of the segmented form ``seg`` and of ``eager``."""
+        # a first call on a card also counts its warm-up (every segment once,
+        # eagerly): its counters are compared from the second call on
+        ws = seg.workspace()
+        warm_up = ws is None and device.type == "cuda"
+        res = []
+        for f in (seg, eager):
+            solvers.host_reads = graphs.collectives = 0
+            shard.reset_counts()
+            before = graph_counts(f)
+            r = calls(f)
+            after = graph_counts(f)
+            res.append((r, solvers.host_reads, {k: getattr(shard, k) for k in COUNTERS},
+                        after[0] - before[0], after[1] - before[1], graphs.collectives))
+        out[name] = dict(same=(_same(res[0][0], res[1][0]) and res[0][1] == res[1][1]
+                               and (warm_up or res[0][2] == res[1][2])),
+                         reads=res[0][1], counts=res[0][2], replays=res[0][3],
+                         retry_reads=res[0][4], collectives=res[0][5],
+                         segmented=bool(seg.segmented and not eager.segmented
+                                        and graphs.graphable(shard, device)))
+        return res[0][0]
+
+    def rows(x, shard, holstein):
+        """x as the rank holds it (Holstein's sites cut, SSH's bonds whole)."""
+        return shard.local(x) if holstein else x
+
+    for case in cases:
+        calls = SITE_CALLS[case]
+        gen = torch.Generator(device=device)
+        if case == "ladder":
+            b = bench.build_bench_step(4, 1.0, 0.1, 0.05, n_chains, device, torch.float64,
+                                       trajectory_time=0.1, ladder=(1.0, 0.9))
+            shard = shard_of(b.ops.spec)
+            lb = bench.shard_bench_step(b, shard, cb)
+            step = H.make_hmc_step(lb.ops, lb.mass, lb.hmc_cfg, lb.precond())
+            eager = lb.eager()
+            draws = chains(eager.draw(lb.params, lb.state.x, n_chains, gen.manual_seed(7)))
+            st, stats = both(f"{case}_update", shard, step, eager,
+                             lambda f: f(lb.params, lb.state, draws=draws))
+            out[f"{case}_update"].update(x=_np(st.x), accepted=_np(stats.accepted))
+            ex, ex_eager = lb.exchange, lb.eager_exchange()
+            x, v = st.x, st.v
+            for parity in (0, 1):
+                dr = ex.draw(lb.params, x, gen.manual_seed(11 + parity))
+                x, v, rate, iters, flag = both(
+                    f"{case}_exchange{parity}", shard, ex, ex_eager,
+                    lambda f: f(lb.params, x, v, parity, draws=dr))
+                out[f"{case}_exchange{parity}"].update(x=_np(x), rate=float(rate),
+                                                       flag=int(flag))
+            continue
+        holstein = not case.startswith("ssh")
+        twist = SITE_TWIST if "twist" in case else None
+        if holstein:
+            spec, params = build(4, 1.0, 0.1, {"holstein": "plain"}.get(case, case),
+                                 device=device)
+        else:
+            spec, params = build_ssh_model(4, 1.0, 0.1, twist, device=device)
+        shard = shard_of(spec)
+        lspec, lp = shard_model(spec, params, shard)
+        ops = make_model_ops(lspec)
+        N, Nph, Lt = spec.Nsites, params.omega.shape[-1], spec.Ltau
+        rng = np.random.default_rng(13)
+        x0 = torch.as_tensor(0.5 * rng.standard_normal((n_chains, Nph, 1))
+                             + 0.1 * rng.standard_normal((n_chains, Nph, Lt)), device=device)
+        x = chains(rows(x0, shard, holstein))
+        omega = params.omega.double().cpu().numpy()
+        blocks = [dict(omega_min=0.0, omega_max=10.0, mass=0.5)]
+        pre = kpm.make_precond(ops, kpm.KPMConfig(max_order=4))
+        fdt = field_dtype(lp, x.dtype)
+        for call in calls:
+            name = f"{case}_{call}"
+            if call.startswith("update"):
+                cfg = HMCConfig(dt=0.05, trajectory_time=0.1 if call == "update" else 0.05,
+                                Nb=2 if case == "wij" else 1,
+                                tol=1e-6, maxiter=500, construct_guess=True, guess_order=2,
+                                block=call == "update_block",
+                                deflate_k=4 if call == "update_deflated" else 0)
+                dyn = call == "update_dt"
+                mass = build_mass(omega, spec.dtau, Lt, blocks)
+                step = H.make_hmc_step(ops, mass, cfg, pre, dynamic_dt=dyn)
+                eager = H.make_hmc_step(ops, mass, cfg, pre, dynamic_dt=dyn, eager=True)
+                defl = None
+                if cfg.deflate_k:
+                    whole = H.init_deflation(make_model_ops(spec), cfg, n_chains,
+                                             torch.Generator(device=device).manual_seed(3),
+                                             params=params, device=device)
+                    defl = chains(deflation.cut(whole, shard.local))
+                state = HMCState(x=x, v=torch.zeros_like(x), defl=defl)
+                args = (torch.tensor(0.04, dtype=torch.float64, device=device),) if dyn else ()
+                for u in range(2 if name == "holstein_update" else 1):
+                    dr = chains(eager.draw(lp, x, n_chains, gen.manual_seed(21 + u)))
+                    state, stats = both(f"{name}{u}", shard, step, eager,
+                                        lambda f: f(lp, state, *args, draws=dr))
+                    out[f"{name}{u}"].update(x=_np(state.x), v=_np(state.v),
+                                             accepted=_np(stats.accepted),
+                                             iters=_np(stats.iters), dH=_np(stats.delta_H))
+            elif call.startswith("langevin"):
+                Q = build_Q(omega, spec.dtau, Lt, blocks)
+                scfg = SolverConfig(tol=1e-6, maxiter=500)
+                method = call.split("_")[1]
+                step = make_langevin_step(ops, Q, 1e-3, method, scfg, pre)
+                eager = make_langevin_step(ops, Q, 1e-3, method, scfg, pre, eager=True)
+                dr = chains(eager.draw(lp, x, n_chains, gen.manual_seed(31)))
+                x1, stats = both(name, shard, step, eager, lambda f: f(lp, x, draws=dr))
+                out[name].update(x=_np(x1), iters=_np(stats.iters))
+            elif call in ("reflect", "swap"):
+                make = make_reflection_update if call == "reflect" else make_swap_update
+                ucfg = SpecialUpdateConfig(n_moves=2, tol=1e-4, maxiter=500)
+                upd, eager = make(ops, ucfg, pre), make(ops, ucfg, pre, eager=True)
+                dr = chains(eager.draw(lp, x, n_chains, gen.manual_seed(41)), 1)
+                xm, rate = both(name, shard, upd, eager, lambda f: f(lp, x + 0.1, draws=dr))
+                out[name].update(x=_np(xm), rate=_np(rate))
+            else:
+                scfg = SolverConfig(tol=1e-8, maxiter=500, block=call == "probes_block")
+                solve = make_probe_solve(ops, 2, scfg, pre)
+                eager = make_probe_solve(ops, 2, scfg, pre, eager=True)
+                R = chains(shard.local(trace_noise((n_chains, 2, N, Lt), fdt, device,
+                                                   gen.manual_seed(51))))
+                gd = both(name, shard, solve, eager, lambda f: f(lp, x, R=R))
+                out[name].update(MinvR=_np(gd.MinvR), iters=_np(gd.iters), flag=_np(gd.flag))
+    return out
+
+
+def halo_worker(device):
+    """The halo rows of every boundary-crossing group of the 4×4 Holstein
+    model's checkerboard on this rank's block of sites, real and complex,
+    from ``comm.halo_exchange``: whether each equals the rows the
+    neighbour sent (rebuilt here from the neighbour's plan and seed), bit
+    for bit, and the number of exchanges compared."""
+    from elphdynamics_tpu_torch.parallel import comm
+
+    spec, _ = build(4, 1.0, 0.1, "plain")
+    D, rank = multihost.world(), multihost.rank()
+    shards = [SiteShard(spec.ckb, None, D, d) for d in range(D)]
+    shard, p = shards[rank], shards[rank].plan
+
+    def fields(d):
+        """Rank ``d``'s real and complex blocks and its send tables."""
+        g = torch.Generator().manual_seed(d)
+        return ([torch.randn((2, 3, shards[d].B, 5), generator=g, dtype=dtype)
+                 for dtype in (torch.float64, torch.complex128)], shards[d]._dev_tables(device))
+
+    (mine, tabs) = fields(rank)
+    prev, nxt = fields(shard.prev_rank), fields(shard.next_rank)
+    same, n = True, 0
+    for i, v in enumerate(mine):
+        for k in range(p.ngroups):
+            sn = v.index_select(-2, tabs["send_next"][k]) if p.hp[k] else None
+            sp = v.index_select(-2, tabs["send_prev"][k]) if p.hn[k] else None
+            from_prev, from_next = comm.halo_exchange(sn, sp, shard.next_rank, shard.prev_rank)
+            if sn is not None:
+                want = prev[0][i].index_select(-2, prev[1]["send_next"][k])
+                same = same and torch.equal(from_prev, want)
+            if sp is not None:
+                want = nxt[0][i].index_select(-2, nxt[1]["send_prev"][k])
+                same = same and torch.equal(from_next, want)
+            n += sn is not None or sp is not None
+    return same, n
