@@ -1,0 +1,8 @@
+"""Mean CG iterations per solve over the window's chain-updates, from the
+update's ``stats.iters`` (each chain's mean over its Nt + 2 solves)."""
+
+import torch
+
+
+def read(record):
+    return float(torch.stack([s["update"]["iters"] for s in record.steps]).double().mean())
