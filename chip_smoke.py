@@ -1061,7 +1061,7 @@ def phase_solver_kinds_64() -> dict:
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         sols[name] = res.x
-        shapes |= ckb_cuda.launch_shapes
+        shapes |= set(ckb_cuda.launch_shapes)
         out[name] = dict(iters=res.iters.double().mean().item(), max_iters=int(res.iters.max()),
                          seconds=secs, max_flag=int(res.flag.max()),
                          max_residual=res.residual.max().item(),
@@ -4800,7 +4800,7 @@ def _nonsym_probe_solves(cg_x) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         sols[name] = res.x
-        shapes |= ckb_cuda.launch_shapes
+        shapes |= set(ckb_cuda.launch_shapes)
         out[name] = dict(iters=res.iters.double().mean().item(), max_iters=int(res.iters.max()),
                          seconds=secs, max_flag=int(res.flag.max()),
                          max_residual=res.residual.max().item(),

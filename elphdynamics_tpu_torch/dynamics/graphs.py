@@ -66,7 +66,7 @@ import torch
 from elphdynamics_tpu_torch import solvers
 from elphdynamics_tpu_torch.dynamics.solve import (
     SolverConfig, _cg_operators, base_solver, nonsym_retry, precond_applies, site_reduce)
-from elphdynamics_tpu_torch.utils import capture
+from elphdynamics_tpu_torch.utils import capture, spans
 from elphdynamics_tpu_torch.utils.dtypes import field_dtype
 
 # a workspace's start vectors before its first put_start (None is a value)
@@ -360,7 +360,7 @@ class CGSolve:
     def _P(self, ws):
         if self.precond is None:
             return None
-        return precond_applies(self.precond, ws.kpm).symmetric
+        return spans.marked("kpm.apply", precond_applies(self.precond, ws.kpm).symmetric)
 
     def start(self, ws, tol: float, guess=None) -> None:
         """The solve's start at ``tol`` from ``guess`` (zero for None)."""
@@ -409,17 +409,23 @@ class CGSolve:
 
     def solve(self, ws, tol) -> None:
         """The host loop of a started solve: blocks while any system is
-        active, the verification, and the retry where a system failed."""
-        if ws.graphs is not None and self.precond is not None and self.precond.check:
-            self.precond.check(ws.kpm)
-        st = self.state(ws)
-        j = 0
-        while j < self.maxiter and solvers.host_any(st.active):
-            ws.run(self.kind(tol), lambda: self.block_step(ws, tol))
-            j += solvers.CG_SYNC_EVERY
-        ws.run(self.verify_name, lambda: self.verify(ws))
-        if (self.block or self.precond is not None) and solvers.host_any(ws.verdict.bad):
-            self.retry(ws)
+        active, the verification, and the retry where a system failed (the
+        span ``solve``, with ``solve.block``, ``solve.verify`` and
+        ``solve.retry`` inside it)."""
+        with spans.span("solve"):
+            if ws.graphs is not None and self.precond is not None and self.precond.check:
+                self.precond.check(ws.kpm)
+            st = self.state(ws)
+            j = 0
+            while j < self.maxiter and solvers.host_any(st.active):
+                with spans.span("solve.block"):
+                    ws.run(self.kind(tol), lambda: self.block_step(ws, tol))
+                j += solvers.CG_SYNC_EVERY
+            with spans.span("solve.verify"):
+                ws.run(self.verify_name, lambda: self.verify(ws))
+            if (self.block or self.precond is not None) and solvers.host_any(ws.verdict.bad):
+                with spans.span("solve.retry"):
+                    self.retry(ws)
 
     def result(self, ws):
         """The finished solve's (solution, per-system iterations, flags)."""
@@ -490,7 +496,7 @@ class NonsymSolve:
         if not self._has_P(stage):
             return None
         pa = precond_applies(self.precond, ws.kpm)
-        return pa.right if stage == "T" else pa.left
+        return spans.marked("kpm.apply", pa.right if stage == "T" else pa.left)
 
     def _b(self, ws, stage: str):
         return ws.ns_y if stage == "M" and len(self.stages) == 2 else getattr(ws, self.rhs)
@@ -594,35 +600,45 @@ class NonsymSolve:
         if self.kind == "bicgstab":
             j = 0
             while j < self.maxiter and solvers.host_any(st.active):
-                ws.run(f"bicg_block_{stage}", lambda: self._bicg_block(ws, stage))
+                with spans.span("solve.block"):
+                    ws.run(f"bicg_block_{stage}", lambda: self._bicg_block(ws, stage))
                 j += every
             return
         m = self.restart
         for _ in range(solvers.gmres_cycles(self.maxiter, m)):
             if not solvers.host_any(~st.done_all):
                 break
-            ws.run(f"gmres_cycle_{stage}", lambda: self._cycle(ws, stage))
+            with spans.span("solve.block"):
+                ws.run(f"gmres_cycle_{stage}", lambda: self._cycle(ws, stage))
             n = 0
             for i0 in range(0, m, every):
                 if not solvers.host_any(~st.done):
                     break
-                ws.run(f"gmres_arnoldi_{stage}_{i0}", lambda i0=i0: self._arnoldi(ws, stage, i0))
+                with spans.span("solve.block"):
+                    ws.run(f"gmres_arnoldi_{stage}_{i0}",
+                           lambda i0=i0: self._arnoldi(ws, stage, i0))
                 n = min(i0 + every, m)
             if n < m:
-                ws.run(f"gmres_close_{stage}_{n}", lambda n=n: self._close(ws, stage, n))
+                with spans.span("solve.block"):
+                    ws.run(f"gmres_close_{stage}_{n}", lambda n=n: self._close(ws, stage, n))
 
     def solve(self, ws, tol) -> None:
         """The host loop of a started solve: each stage's iterations, its
-        verification and its retry where a system failed."""
-        if ws.graphs is not None and self.precond is not None and self.precond.check:
-            self.precond.check(ws.kpm)
-        for k, stage in enumerate(self.stages):
-            if k:
-                ws.run("nonsym_next", lambda: self.next_stage(ws))
-            self._iterate(ws, stage)
-            ws.run(f"nonsym_verify_{stage}", lambda s=stage: self.verify(ws, s))
-            if self._has_P(stage) and solvers.host_any(ws.verdict.bad):
-                self.retry(ws, stage)
+        verification and its retry where a system failed (the spans as
+        :meth:`CGSolve.solve`'s; a GMRES cycle's start and close are
+        ``solve.block`` too)."""
+        with spans.span("solve"):
+            if ws.graphs is not None and self.precond is not None and self.precond.check:
+                self.precond.check(ws.kpm)
+            for k, stage in enumerate(self.stages):
+                if k:
+                    ws.run("nonsym_next", lambda: self.next_stage(ws))
+                self._iterate(ws, stage)
+                with spans.span("solve.verify"):
+                    ws.run(f"nonsym_verify_{stage}", lambda s=stage: self.verify(ws, s))
+                if self._has_P(stage) and solvers.host_any(ws.verdict.bad):
+                    with spans.span("solve.retry"):
+                        self.retry(ws, stage)
 
     def result(self, ws):
         """The finished solve's (solution, per-system iterations, flags):
@@ -669,13 +685,18 @@ class UpdateGraphs:
     (:func:`capture_stream`). Each graph keeps what was counted during its
     capture (:class:`..utils.capture.Record`: the kernel launches, a site
     shard's folds, halo messages and all-reduces), and every replay counts
-    it again, so the counts stay counts of what ran on the card."""
+    it again, so the counts stay counts of what ran on the card. Each graph
+    also holds its timing marks (:class:`..utils.spans.Marks`: its begin
+    and end, and the ``kpm.apply``, ``kpm.setup``, ``kpm.refresh`` and
+    ``force`` marks its segment reached), which a replay's ``graph.replay``
+    span hands to the spans' record while spans record."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = capture_stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: dict = {}
+        self.marks: dict = {}     # per graph: its spans.Marks
         self.replays = 0          # replays since the graphs were made
         self.capture_s = 0.0      # seconds spent capturing
         self.pool_bytes = 0       # device memory the pool holds after the captures
@@ -685,38 +706,43 @@ class UpdateGraphs:
         eagerly on the capture stream; an entry of :func:`between` (name
         None) on the current stream, joined to the capture stream on both
         sides."""
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        for name, fn in segments:
-            if name is None:
-                current.wait_stream(self.stream)
-                fn()
-                self.stream.wait_stream(current)
-                continue
-            with torch.cuda.stream(self.stream):
-                fn()
-        current.wait_stream(self.stream)
-        torch.cuda.synchronize(self.device)
+        with spans.span("graphs.warm_up"):
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            for name, fn in segments:
+                if name is None:
+                    current.wait_stream(self.stream)
+                    fn()
+                    self.stream.wait_stream(current)
+                    continue
+                with torch.cuda.stream(self.stream):
+                    fn()
+            current.wait_stream(self.stream)
+            torch.cuda.synchronize(self.device)
 
     def capture(self, segments) -> None:
         """Capture each not yet captured segment of ``segments``, in order
         (the eager steps of :func:`between` are not captured)."""
         t0 = time.perf_counter()
-        for name, fn in segments:
-            if name is None or name in self.graphs:
-                continue
-            graph = torch.cuda.CUDAGraph()
-            with capture.recording() as rec:
-                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                    fn()
-            self.graphs[name] = (graph, rec)
-        torch.cuda.synchronize(self.device)
+        with spans.span("graphs.capture"):
+            for name, fn in segments:
+                if name is None or name in self.graphs:
+                    continue
+                graph = torch.cuda.CUDAGraph()
+                with capture.recording() as rec:
+                    with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                        with spans.marking() as marks:
+                            fn()
+                self.graphs[name] = (graph, rec)
+                self.marks[name] = marks
+            torch.cuda.synchronize(self.device)
         self.capture_s += time.perf_counter() - t0
         self.pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
                               if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
 
     def replay(self, name: str) -> None:
         graph, rec = self.graphs[name]
-        graph.replay()
+        with spans.span("graph.replay", name, self.marks[name]):
+            graph.replay()
         rec.replayed()
         self.replays += 1

@@ -86,6 +86,7 @@ from elphdynamics_tpu_torch.models.adapter import (
 from elphdynamics_tpu_torch.models.ssh import primary_mask
 from elphdynamics_tpu_torch.ops import deflation
 from elphdynamics_tpu_torch.ops.fourier_accel import MassOperator
+from elphdynamics_tpu_torch.utils import spans
 from elphdynamics_tpu_torch.utils.device import require_device
 from elphdynamics_tpu_torch.utils.dtypes import (
     fdot, field_dtype, params_are_complex, pseudofermion_noise)
@@ -529,7 +530,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         """Refresh the preconditioner at ``x`` and start the solve of
         MᵀM·z = ws.Lphi at ``tol`` (ws.env holds the field's derived state)."""
         if precond is not None:
-            ws.load("kpm", precond.refresh(ws.kpm, ws.params, x))
+            with spans.mark("kpm.refresh"):
+                ws.load("kpm", precond.refresh(ws.kpm, ws.params, x))
         solver(tol).start(ws, tol, guess if use_g else None)
 
     def seg_start(ws):
@@ -545,7 +547,8 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         phi = ws.put("phi", ops.mulLambdaInv(ops.calc_Lambda(p, x0)[:, None], MtR)
                      if has_lambda else MtR)
         if precond is not None:
-            ws.load("kpm", precond.setup(p, x0, ws.kpm_start))
+            with spans.mark("kpm.setup"):
+                ws.load("kpm", precond.setup(p, x0, ws.kpm_start))
         if deflating:
             ws.load("defl", refine_deflation(p, ws.defl_in, derived0,
                                              ws.kpm if precond is not None else None,
@@ -581,7 +584,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         solve's start."""
         p, dt = ws.params, step_dt(ws)
         z_m, it_m, fl_m = solved(ws, tol1)
-        Qd_m = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z_m))
+        with spans.mark("force"):
+            f_m = forces(p, ws.x1, ws.env, ws.phi, z_m)
+        Qd_m = accel(ws.x0)(f_m)
         for i, h in enumerate(zhist_push(hist(ws), z_m, ws.ok)):
             ws.put(f"hist{i}", h)
         ws.put("it_m", it_m)
@@ -596,7 +601,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         the masked commit."""
         p, dt = ws.params, step_dt(ws)
         z1, it1, fl1 = solved(ws, tol1)
-        Qd1 = accel(ws.x0)(forces(p, ws.x1, ws.env, ws.phi, z1))
+        with spans.mark("force"):
+            f1 = forces(p, ws.x1, ws.env, ws.phi, z1)
+        Qd1 = accel(ws.x0)(f1)
         if two_mn:
             v1 = ws.v1 - LAM_2MN * dt * Qd1
             it1, fl1 = ws.it_m + it1, torch.maximum(ws.fl_m, fl1)
@@ -628,7 +635,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         ws.put("iters", it)
         ws.put("flag", fl)
         ws.put("H0", calc_S(p, x0, ws.Lphi, z0) + calc_K(ws.v0))
-        ws.put("QdSdx", accel(x0)(forces(p, x0, ws.env, ws.phi, z0)))
+        with spans.mark("force"):
+            f0 = forces(p, x0, ws.env, ws.phi, z0)
+        ws.put("QdSdx", accel(x0)(f0))
         ws.put("x", x0)
         ws.put("v", ws.v0)
         for i in range(zhist_size(g_ord)):
@@ -684,7 +693,9 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         return seq + [("last", lambda: seg_last(ws)), *s2.segments(ws, tol2),
                       ("end", lambda: seg_end(ws))]
 
-    def graphed(params, state: HMCState, dt, generator, draws):
+    def inputs(params, state: HMCState, dt, generator, draws):
+        """The update's workspace with its inputs copied in, its graphs
+        warmed up and captured on the first call."""
         x = state.x
         if x.ndim != 3:
             raise ValueError(f"state.x must be [C, Nph, Ltau], got {tuple(x.shape)}")
@@ -713,41 +724,59 @@ def make_hmc_step(ops: ModelOps, mass_table, cfg: HMCConfig, precond=None,
         if precond is not None:
             ws.put_start(draws.kpm_start if draws.kpm_start is not None else precond.start)
         ws.capture_once(lambda: segments(ws))
+        return ws
+
+    # the span of each segment of the update's own (the solves' are theirs)
+    seg_spans = {name: f"hmc.seg.{name}" for name in ("start", "first", "mid", "step", "last",
+                                                       "end")}
+
+    def graphed(params, state: HMCState, dt, generator, draws):
+        """The segmented update: the spans ``hmc.inputs``, ``hmc.seg.<name>``
+        for each of its own segments, ``solve`` for each solve and
+        ``hmc.outputs``."""
+        with spans.span("hmc.inputs"):
+            ws = inputs(params, state, dt, generator, draws)
+
+        def run(name, fn):
+            with spans.span(seg_spans[name]):
+                ws.run(name, fn)
 
         s1, s2 = solver(tol1), solver(tol2)
-        ws.run("start", lambda: seg_start(ws))
+        run("start", lambda: seg_start(ws))
         s2.solve(ws, tol2)
-        ws.run("first", lambda: seg_first(ws))
+        run("first", lambda: seg_first(ws))
         for k in range(cfg.Nt):
             s1.solve(ws, tol1)
             if two_mn:
-                ws.run("mid", lambda: seg_mid(ws))
+                run("mid", lambda: seg_mid(ws))
                 s1.solve(ws, tol1)
             if k + 1 < cfg.Nt:
-                ws.run("step", lambda: seg_step(ws))
-        ws.run("last", lambda: seg_last(ws))
+                run("step", lambda: seg_step(ws))
+        run("last", lambda: seg_last(ws))
         s2.solve(ws, tol2)
-        ws.run("end", lambda: seg_end(ws))
+        run("end", lambda: seg_end(ws))
 
-        stats = HMCStats(accepted=ws.accepted.clone(), iters=ws.mean_iters.clone(),
-                         flag=ws.out_flag.clone(), delta_H=ws.delta_H.clone(), H=ws.H1.clone(),
-                         S=ws.S1.clone(), K=ws.K1.clone())
-        if cfg.log_verbose:
-            stats = replace(stats, traj_H=ws.traj_H.clone(), traj_S=ws.traj_S.clone(),
-                            traj_K=ws.traj_K.clone(), traj_iters=ws.traj_iters.clone())
-        defl = state.defl
-        if deflating:
-            # the refreshed basis, kept on a reject too, as new tensors
-            defl = replace(ws.defl, **{name: getattr(ws.defl, name).clone()
-                                       for name in ("W", "chol", "pvec", "lam_max")})
-        return HMCState(x=ws.out_x.clone(), v=ws.out_v.clone(), defl=defl), stats
+        with spans.span("hmc.outputs"):
+            stats = HMCStats(accepted=ws.accepted.clone(), iters=ws.mean_iters.clone(),
+                             flag=ws.out_flag.clone(), delta_H=ws.delta_H.clone(),
+                             H=ws.H1.clone(), S=ws.S1.clone(), K=ws.K1.clone())
+            if cfg.log_verbose:
+                stats = replace(stats, traj_H=ws.traj_H.clone(), traj_S=ws.traj_S.clone(),
+                                traj_K=ws.traj_K.clone(), traj_iters=ws.traj_iters.clone())
+            defl = state.defl
+            if deflating:
+                # the refreshed basis, kept on a reject too, as new tensors
+                defl = replace(ws.defl, **{name: getattr(ws.defl, name).clone()
+                                           for name in ("W", "chol", "pvec", "lam_max")})
+            return HMCState(x=ws.out_x.clone(), v=ws.out_v.clone(), defl=defl), stats
 
     def update(params, state: HMCState, dt, generator, draws):
         """The graphed update where the configuration is in its slice and
-        the device can hold it (:func:`.graphs.graphable`), else the eager
-        one."""
+        the device can hold it (:func:`.graphs.graphable`), inside the root
+        span ``hmc.update``, else the eager one."""
         if segmented and graphs.graphable(ops.shard, state.x.device):
-            return graphed(params, state, dt, generator, draws)
+            with spans.root("hmc.update", state.x.device):
+                return graphed(params, state, dt, generator, draws)
         return _step(params, state, dt, generator, draws)
 
     def draw_update(params, x, n_chains: int, generator=None) -> HMCDraws:

@@ -48,13 +48,15 @@ twin; a CUDA tensor launches the kernel or raises. ``launches`` and
 (``"fold/shared"``, ``"fold/chain"``, ``"fold/column"``,
 ``"fused/shared"``, ``"fused/chain"``, and K1's complex mode as
 ``"fold/shared/complex"``, ``"fold/chain/complex"``,
-``"fold/column/complex"``); ``launch_shapes`` holds each counted
-launch's (form key, field shape, dtype), so that a caller can see at which
-shapes a run went through the kernels. A CUDA graph's capture launches
-nothing on the card: its launches are counted into the graph's record, and
-each replay of the graph counts them again (``utils/capture.py``,
-``dynamics/graphs.py``). A capture that reaches a shape's first launch
-(the geometry tuning, the bond-plan upload) raises.
+``"fold/column/complex"``); ``launch_shapes`` counts the same launches by
+(form key, field shape, dtype), so that a caller can see at which shapes,
+and how often at each, a run went through the kernels. A CUDA graph's
+capture launches nothing on the card: its launches are counted into the
+graph's record, and each replay of the graph counts them again
+(``utils/capture.py``, ``dynamics/graphs.py``). A capture that reaches a
+shape's first launch (the geometry tuning, the bond-plan upload) raises.
+The nvcc build and a shape's geometry tuning are the spans ``ckb.build``
+and ``ckb.tune`` (``utils/spans.py``) while spans record.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ import numpy as np
 import torch
 
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
-from elphdynamics_tpu_torch.utils import capture
+from elphdynamics_tpu_torch.utils import capture, spans
 
 # kernel launches since import (or since a caller last set them to 0)
 launches = 0
@@ -82,7 +84,7 @@ TABLE_FORMS = ("shared", "chain", "column")   # [Nb], [C, Nb], [C, Nb, K]
 table_launches = {"fold/shared": 0, "fold/chain": 0, "fold/column": 0,
                   "fused/shared": 0, "fused/chain": 0, "fold/shared/complex": 0,
                   "fold/chain/complex": 0, "fold/column/complex": 0}
-launch_shapes: set = set()    # (form key, field shape, dtype) of the counted launches
+launch_shapes: dict = {}      # {(form key, field shape, dtype): counted launches}
 
 
 def reset_counts() -> None:
@@ -104,7 +106,7 @@ def _add(form: str, n: int) -> None:
 
 
 def _add_shape(shape, n: int) -> None:
-    launch_shapes.add(shape)
+    launch_shapes[shape] = launch_shapes.get(shape, 0) + n
 
 
 def _count(kernel: str, cosh_b, v) -> None:
@@ -170,22 +172,23 @@ def build(verbose: bool = False) -> dict[str, Path]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in missing:
-        tmp = todo[name].with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE, text=True))
     failed = []
-    for name, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(err.strip())
-        os.replace(tmp, todo[name])
+    with spans.span("ckb.build"):
+        for name in missing:
+            tmp = todo[name].with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True))
+        for name, (tmp, proc) in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n{err}")
+                continue
+            if verbose:
+                print(err.strip())
+            os.replace(tmp, todo[name])
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return todo
@@ -508,8 +511,9 @@ def _geometry(spec, v, name: str, run, per_column: bool = False) -> Geometry:
     g = spec._cache.get(key)
     if g is None:
         capture.refuse(v.device, "tuning a launch geometry")
-        cands = launch_candidates(spec, v, name, per_column)
-        g = cands[0] if len(cands) == 1 else fastest(cands, _time_candidates(cands, run))
+        with spans.span("ckb.tune"):
+            cands = launch_candidates(spec, v, name, per_column)
+            g = cands[0] if len(cands) == 1 else fastest(cands, _time_candidates(cands, run))
         spec._cache[key] = g
     return g
 

@@ -52,6 +52,7 @@ from typing import Callable
 import torch
 
 from elphdynamics_tpu_torch.ops import deflation
+from elphdynamics_tpu_torch.utils import spans
 from elphdynamics_tpu_torch.utils.dtypes import fdot, fdot_fast
 
 # iterations between host reads of any(active); masked iterations past
@@ -119,9 +120,12 @@ host_reads = 0
 
 
 def host_any(flags: torch.Tensor) -> bool:
+    """``any(flags)`` read on the host (the span ``host_read``: on a card,
+    the wait for the work before it)."""
     global host_reads
     host_reads += 1
-    return bool(flags.any())
+    with spans.span("host_read"):
+        return bool(flags.any())
 
 
 @dataclass(frozen=True)

@@ -89,7 +89,7 @@ def test_cuda_wrapper_on_cpu_uses_twin_without_launching(model):
     to the plain twin and counts no launch."""
     _, c, s, tspec = model
     v = torch.as_tensor(np.random.default_rng(3).standard_normal((2, tspec.nsites, 4)))
-    before, shapes = ckb_cuda.launches, set(ckb_cuda.launch_shapes)
+    before, shapes = ckb_cuda.launches, dict(ckb_cuda.launch_shapes)
     for _, rev, sign, _, tfn in DIRECTIONS:
         got = ckb_cuda.fold(tspec, torch.as_tensor(c), torch.as_tensor(s), v, reverse=rev, sign=sign)
         assert torch.equal(got, tfn(tspec, torch.as_tensor(c), torch.as_tensor(s), v))

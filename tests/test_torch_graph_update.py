@@ -306,7 +306,7 @@ def test_segmented_update_matches_jax(dense_threshold):
 
 def test_launch_counts_under_a_stand_in_capture():
     """A graph's capture counts nothing; each replay counts its launches,
-    by form and shape."""
+    by form and by shape."""
     ckb_cuda.reset_counts()
     v = torch.zeros((16, 2, 64, 10))
     shared, chain = torch.zeros(8), torch.zeros((16, 8))
@@ -317,14 +317,16 @@ def test_launch_counts_under_a_stand_in_capture():
         ckb_cuda._count("fused", chain, v)
         assert ckb_cuda.launches == 1 and ckb_cuda.fused_launches == 0
     assert (ckb_cuda.launches, ckb_cuda.fused_launches) == (1, 0)
-    assert ckb_cuda.launch_shapes == {("fold/shared", (16, 64, 10), torch.float32)}
+    assert ckb_cuda.launch_shapes == {("fold/shared", (16, 64, 10), torch.float32): 1}
     assert (rec.per_replay("fold/shared"), rec.per_replay("fused/chain")) == (3, 1)
     for _ in range(2):
         rec.replayed()
     assert (ckb_cuda.launches, ckb_cuda.fused_launches) == (7, 2)
     assert ckb_cuda.table_launches["fold/shared"] == 7
     assert ckb_cuda.table_launches["fused/chain"] == 2
-    assert ("fused/chain", (16, 2, 64, 10), torch.float32) in ckb_cuda.launch_shapes
+    assert ckb_cuda.launch_shapes == {("fold/shared", (16, 64, 10), torch.float32): 1,
+                                      ("fold/shared", (16, 2, 64, 10), torch.float32): 6,
+                                      ("fused/chain", (16, 2, 64, 10), torch.float32): 2}
     ckb_cuda.reset_counts()
 
 

@@ -141,7 +141,8 @@ def test_every_launch_candidate_matches_twin(cuda, kernel, lead, dtype):
         for geo in cands:
             got = fast(spec, c, s, v, geometry=geo, **kw)
             assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype], geo
-    assert ckb_cuda.launch_shapes == {(f"{kernel}/shared", tuple(v.shape), dtype)}
+    assert ckb_cuda.launch_shapes == {(f"{kernel}/shared", tuple(v.shape), dtype):
+                                      len(kws) * len(cands)}
     assert ckb_cuda.table_launches[f"{kernel}/shared"] == len(kws) * len(cands)
     ckb_cuda.reset_counts()
     assert not ckb_cuda.launch_shapes
