@@ -495,6 +495,31 @@ def library_ms_columns(spec, c, s, v) -> float:
         torch.cuda.empty_cache()
 
 
+def _outputs(fn, spec, c, s, v, kw: dict, acc0=None) -> tuple:
+    """``fn`` (a kernel or its twin) on one input: its output and, for K2
+    (``acc0``: the start sum), the sum it added into a copy of ``acc0``."""
+    if acc0 is None:
+        return (fn(spec, c, s, v, **kw),)
+    acc = acc0.clone()
+    return fn(spec, c, s, v, acc=acc, **kw), acc
+
+
+def _errors(got: tuple, want: tuple) -> tuple[float, float]:
+    """The largest error of the outputs ``got`` against ``want``: relative
+    (each output to its own max|want|) and absolute."""
+    pairs = list(zip(got, want))
+    return (max(((x - y).abs().max() / y.abs().max()).item() for x, y in pairs),
+            max((x - y).abs().max().item() for x, y in pairs))
+
+
+def _k2_operands(v, g, init: bool = False) -> tuple:
+    """A start sum and per-chain ``[C, K]`` coefficients for K2 on ``v``:
+    the start sum, and the keywords ``coeff`` and ``init``."""
+    coeff = torch.randn((v.shape[0], v.shape[-1]), generator=g, dtype=v.dtype, device=v.device)
+    return torch.randn(v.shape, generator=g, dtype=v.dtype, device=v.device), \
+        dict(coeff=coeff, init=init)
+
+
 def median_ms(fn, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
@@ -586,9 +611,14 @@ def phase_kernel_vs_twin() -> dict:
 
 
 def phase_fused_vs_twin() -> dict:
-    """K2 and its plain twin on the same inputs: 16 chains with one row each
-    and with nᵥ = 10 Green's-function rows each, K = 2Lω = 40; per-chain a,
-    b and pre (forward) or post (reverse) diagonals; with and without prev."""
+    """K2 and its plain twin on the same inputs, the step's result and the
+    Chebyshev sum it adds into: the Holstein 64×64 cell's Chebyshev block
+    [32 chains, 2 spins, 4096, 2Lω = 40] and 16 chains × nᵥ = 10
+    Green's-function rows; per-chain a, b and pre (forward) or post
+    (reverse) diagonals; the forms of a pass's first step (no prev, the sum
+    set) and of the others (prev, the sum read and added to). The twin's
+    time (``plain_ms``) is the step and the sum written out in PyTorch on
+    the card: the one-order A/B of the fusion."""
     from elphdynamics_tpu_torch.ops import checkerboard as ckb
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
@@ -599,37 +629,39 @@ def phase_fused_vs_twin() -> dict:
     main = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         c, s = params.cosht.to(dtype), params.sinht.to(dtype)
-        for inner in (1, 10):
-            shape = (16, inner, N, 40)
+        for C, inner in ((32, 2), (16, 10)):
+            shape = (C, inner, N, 40)
             v = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
             prev = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
-            diag = 0.5 + torch.rand((16, N), generator=g, dtype=dtype, device="cuda")
-            a = 0.5 + torch.rand(16, generator=g, dtype=dtype, device="cuda")
-            b = torch.rand(16, generator=g, dtype=dtype, device="cuda") - 0.5
+            diag = 0.5 + torch.rand((C, N), generator=g, dtype=dtype, device="cuda")
+            a = 0.5 + torch.rand(C, generator=g, dtype=dtype, device="cuda")
+            b = torch.rand(C, generator=g, dtype=dtype, device="cuda") - 0.5
             for name, rev in (("forward", False), ("reverse", True)):
                 for use_prev in (False, True):
+                    acc0, sum_kw = _k2_operands(v, g, init=not use_prev)
                     kw = dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None,
-                              a=a, b=b, c=-1.0, prev=prev if use_prev else None)
-                    got = ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw)
-                    want = ckb.fold_fused(spec.ckb, c, s, v, **kw)
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    rel = err / want.abs().max().item()
+                              a=a, b=b, c=-1.0, prev=prev if use_prev else None, **sum_kw)
+                    rel, err = _errors(_outputs(ckb_cuda.fold_fused, spec.ckb, c, s, v, kw, acc0),
+                                       _outputs(ckb.fold_fused, spec.ckb, c, s, v, kw, acc0))
                     worst_abs = max(worst_abs, err)
-                    run = lambda: ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw)  # noqa: E731
+                    timed = kw | dict(acc=acc0.clone())
+                    run = lambda: ckb_cuda.fold_fused(spec.ckb, c, s, v, **timed)  # noqa: E731
                     ms, call = device_ms(run), median_ms(run)
-                    plain = device_ms(lambda: ckb.fold_fused(spec.ckb, c, s, v, **kw), reps=10)
+                    plain = device_ms(lambda: ckb.fold_fused(spec.ckb, c, s, v, **timed),
+                                      reps=10)
                     say("fused_kernel", dtype=str(dtype).split(".")[1],
                         shape="x".join(map(str, shape)), direction=name, prev=use_prev,
-                        max_rel_err=f"{rel:.3e}", tol=tol, max_abs_err=f"{err:.3e}",
-                        kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}", plain_ms=f"{plain:.4f}")
+                        init=sum_kw["init"], max_rel_err=f"{rel:.3e}", tol=tol,
+                        max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}",
+                        plain_ms=f"{plain:.4f}")
                     if not rel <= tol:
                         raise RuntimeError(f"fused kernel disagrees with its twin: {rel} > {tol}")
-                    if dtype == torch.float32 and inner == 10 and not rev and use_prev:
-                        # v, prev read and o written once; per element 3 flops per
-                        # group plus pre and the 5-flop combine
-                        b_ms, b_by = bound(3 * v.numel() * v.element_size(),
-                                           (3 * spec.ckb.ngroups + 6) * v.numel())
+                    if dtype == torch.float32 and C == 32 and not rev and use_prev:
+                        # v, prev and acc read, o and acc written once, and the
+                        # coefficient row; per element 3 flops per group plus
+                        # pre, the 5-flop combine and the 4-flop sum
+                        b_ms, b_by = bound((5 * v.numel() + C * 40) * v.element_size(),
+                                           (3 * spec.ckb.ngroups + 10) * v.numel())
                         main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                     library_ms=library_ms(spec.ckb, c, s, v))
     return dict(max_abs_err=worst_abs, **main)
@@ -659,8 +691,10 @@ def phase_table_kernels() -> dict:
     2Lω = 40): K1 with per-(chain, bond, τ) tables on the fermion operator's
     [8, 2, N, 40]; K1 with per-chain tables on the power iteration's
     [8, N, 1] and on a CG block [8, 2, N, 40]; K2 with per-chain tables on
-    the Chebyshev block [8, 2, N, 40], with and without prev. Returns, per
-    kernel and mode, its numbers at its main-path shape (float32)."""
+    the Chebyshev block [8, 2, N, 40] (the SSH cell's), with prev adding
+    into the Chebyshev sum and without prev setting it, both checked.
+    Returns, per kernel and mode, its numbers at its main-path shape
+    (float32)."""
     from elphdynamics_tpu_torch.ops import checkerboard as ckb
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
@@ -678,6 +712,7 @@ def phase_table_kernels() -> dict:
             key = f"{kernel}/{form}"
             c, s = (t.to(dtype).contiguous() for t in tables[form])
             v = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+            acc0 = None
             if kernel == "fold":
                 variants = [(name, dict(reverse=rev, sign=sign)) for name, rev, sign in DIRECTIONS]
                 fast, plain_fn = ckb_cuda.fold, ckb.fold
@@ -686,30 +721,33 @@ def phase_table_kernels() -> dict:
                 diag = 0.5 + torch.rand((C, N), generator=g, dtype=dtype, device="cuda")
                 a = 0.5 + torch.rand(C, generator=g, dtype=dtype, device="cuda")
                 bb = torch.rand(C, generator=g, dtype=dtype, device="cuda") - 0.5
-                variants = [(f"{name}{'_prev' if p else ''}",
+                acc0, sum_kw = _k2_operands(v, g)
+                variants = [(f"{name}{'_prev' if p else '_init'}",
                              dict(reverse=rev, pre=None if rev else diag,
                                   post=diag if rev else None, a=a, b=bb, c=-1.0,
-                                  prev=prev if p else None))
+                                  prev=prev if p else None, **(sum_kw | dict(init=not p))))
                             for name, rev in (("forward", False), ("reverse", True))
                             for p in (True, False)]
                 fast, plain_fn = ckb_cuda.fold_fused, ckb.fold_fused
             for name, kw in variants:
-                got = fast(sc, c, s, v, **kw)
-                want = plain_fn(sc, c, s, v, **kw)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                rel = err / want.abs().max().item()
+                rel, err = _errors(_outputs(fast, sc, c, s, v, kw, acc0),
+                                   _outputs(plain_fn, sc, c, s, v, kw, acc0))
                 out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
-                run = lambda: fast(sc, c, s, v, **kw)  # noqa: E731
+                timed = kw if acc0 is None else kw | dict(acc=acc0.clone())
+                run = lambda: fast(sc, c, s, v, **timed)  # noqa: E731
                 ms, call = device_ms(run), median_ms(run)
-                plain = device_ms(lambda: plain_fn(sc, c, s, v, **kw), reps=10)
+                plain = device_ms(lambda: plain_fn(sc, c, s, v, **timed), reps=10)
                 # each input read once, each output written once: the field (and
-                # prev), the tables, K2's diagonal and scalars; 3 flops per
-                # element per group (K2: plus the diagonal and the combine)
+                # prev), the tables, K2's diagonal, scalars, coefficient row and
+                # sum (read unless set); 3 flops per element per group (K2: plus
+                # the diagonal, the combine and the 4-flop sum)
+                moves = 2 + (kw.get("prev") is not None)
+                if kernel == "fused":
+                    moves += 1 if kw["init"] else 2
                 nbytes = v.element_size() * (
-                    (2 + (kw.get("prev") is not None)) * v.numel() + c.numel() + s.numel()
-                    + (C * N + 2 * C if kernel == "fused" else 0))
-                flops = (3 * G + (6 if kernel == "fused" else 0)) * v.numel()
+                    moves * v.numel() + c.numel() + s.numel()
+                    + (C * N + 2 * C + C * shape[-1] if kernel == "fused" else 0))
+                flops = (3 * G + (10 if kernel == "fused" else 0)) * v.numel()
                 b_ms, b_by = bound(nbytes, flops)
                 # the one-call library form, once per float32 shape (per-column
                 # tables at their main shape only: C·Lτ dense matrices of N²
@@ -1327,7 +1365,8 @@ def phase_path_shapes(paths: dict) -> None:
     ``paths`` ({run name: its ``ckb_cuda.launch_shapes``}) launched, against
     the twin on the same inputs: float32 and float64 (K1's complex mode:
     complex64 and complex128, with the twisted models' tables), all four
-    directions (K2: forward and reverse, with and without prev), at every
+    directions (K2: forward and reverse, with prev adding into the
+    Chebyshev sum and without prev setting it; both outputs), at every
     launch geometry of ``ckb_cuda.launch_candidates`` for that shape, one of
     which the wrapper's tuning keeps. The kernels see a field as rows of
     [N, K] (and, with per-chain operands, chains of rows), so shapes are
@@ -1365,6 +1404,7 @@ def phase_path_shapes(paths: dict) -> None:
                     raise RuntimeError(f"no {form} tables for a field of shape {shape}")
             c, s = c.to(dtype).contiguous(), s.to(dtype).contiguous()
             v = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+            acc0 = None
             if kernel == "fold":
                 variants = [dict(reverse=rev, sign=sign) for _, rev, sign in DIRECTIONS]
                 fast, plain_fn = ckb_cuda.fold, ckb.fold
@@ -1373,9 +1413,10 @@ def phase_path_shapes(paths: dict) -> None:
                 diag = 0.5 + torch.rand((C, N), generator=g, dtype=dtype, device="cuda")
                 a = 0.5 + torch.rand(C, generator=g, dtype=dtype, device="cuda")
                 b = torch.rand(C, generator=g, dtype=dtype, device="cuda") - 0.5
+                acc0, sum_kw = _k2_operands(v, g)
                 variants = [dict(reverse=rev, pre=None if rev else diag,
                                  post=diag if rev else None, a=a, b=b, c=-1.0,
-                                 prev=prev if p else None)
+                                 prev=prev if p else None, **(sum_kw | dict(init=not p)))
                             for rev in (False, True) for p in (True, False)]
                 fast, plain_fn = ckb_cuda.fold_fused, ckb.fold_fused
             cands = ckb_cuda.launch_candidates(
@@ -1384,10 +1425,11 @@ def phase_path_shapes(paths: dict) -> None:
             n_geo = len(cands)
             rel = torch.zeros((), dtype=torch.float64, device="cuda")
             for kw in variants:
-                want = plain_fn(sc, c, s, v, **kw)
+                want = _outputs(plain_fn, sc, c, s, v, kw, acc0)
                 for geo in cands:
-                    got = fast(sc, c, s, v, geometry=geo, **kw)
-                    rel = torch.maximum(rel, ((got - want).abs().max() / want.abs().max()).double())
+                    got = _outputs(fast, sc, c, s, v, kw | dict(geometry=geo), acc0)
+                    for x, y in zip(got, want):
+                        rel = torch.maximum(rel, ((x - y).abs().max() / y.abs().max()).double())
             worst[dtype] = rel.item()
             if not worst[dtype] <= tol:
                 raise RuntimeError(f"{form} at {shape} ({dtype}) disagrees with its twin at one "
@@ -1826,8 +1868,9 @@ def _kernel_shapes(cases, K: int, tag: str) -> dict:
     ``cases`` ((kernel, leading axes), each [*lead, 4096, K], float32,
     forward) against the twin: device ms, plain ms, bound (each input read
     once, the output written once) and the dense-matmul library form. K2
-    takes per-chain diagonals and prev (the KPM recurrence's step), the
-    chain axis leading."""
+    takes per-chain diagonals and prev and adds into the Chebyshev sum (the
+    KPM recurrence's step), the chain axis leading; both its outputs are
+    checked."""
     from elphdynamics_tpu_torch.ops import checkerboard as ckb
     from elphdynamics_tpu_torch.ops import ckb_cuda
 
@@ -1838,25 +1881,25 @@ def _kernel_shapes(cases, K: int, tag: str) -> dict:
     out = {}
     for kernel, lead in cases:
         v = torch.randn(lead + (N, K), generator=g, device="cuda")
+        acc0 = None
         if kernel == "fold":
             kw, fast, plain_fn = {}, ckb_cuda.fold, ckb.fold
             nbytes, flops = 2 * v.numel() * 4 + 2 * c.numel() * 4, 3 * G * v.numel()
         else:
             C = lead[0]
+            acc0, sum_kw = _k2_operands(v, g)
             kw = dict(pre=0.5 + torch.rand((C, N), generator=g, device="cuda"),
                       a=0.5 + torch.rand(C, generator=g, device="cuda"),
                       b=torch.rand(C, generator=g, device="cuda") - 0.5, c=-1.0,
-                      prev=torch.randn_like(v))
+                      prev=torch.randn_like(v), **sum_kw)
             fast, plain_fn = ckb_cuda.fold_fused, ckb.fold_fused
-            nbytes = 3 * v.numel() * 4 + (2 * c.numel() + C * N + 2 * C) * 4
-            flops = (3 * G + 6) * v.numel()
-        got, want = fast(sc, c, s, v, **kw), plain_fn(sc, c, s, v, **kw)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        del got, want
-        ms = device_ms(lambda: fast(sc, c, s, v, **kw), reps=10)
-        plain = device_ms(lambda: plain_fn(sc, c, s, v, **kw), reps=3)
+            nbytes = 5 * v.numel() * 4 + (2 * c.numel() + C * N + 2 * C + C * K) * 4
+            flops = (3 * G + 10) * v.numel()
+        rel, err = _errors(_outputs(fast, sc, c, s, v, kw, acc0),
+                           _outputs(plain_fn, sc, c, s, v, kw, acc0))
+        timed = kw if acc0 is None else kw | dict(acc=acc0)
+        ms = device_ms(lambda: fast(sc, c, s, v, **timed), reps=10)
+        plain = device_ms(lambda: plain_fn(sc, c, s, v, **timed), reps=3)
         lib = library_ms(sc, c, s, v)
         b_ms, b_by = bound(nbytes, flops)
         shape = "x".join(map(str, v.shape))

@@ -251,18 +251,23 @@ def fold(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
 
 
 def check_fused_operands(spec: CheckerboardSpec, cosh_b, sinh_b, v, pre, post, a, b,
-                         prev) -> None:
+                         prev, acc, coeff) -> None:
     """Raise unless the operands of a fused step are what the kernel and its
     twin take: ``v`` ``[C, ..., N, K]``; coefficients ``[Nb]`` or per-chain
     ``[C, Nb]``; ``a``, ``b`` ``[C]``; ``pre``, ``post`` ``[C, N]`` or None;
-    ``prev`` of ``v``'s shape or None; all of ``v``'s dtype and device."""
+    ``prev`` of ``v``'s shape or None; ``acc`` of ``v``'s shape, sharing no
+    storage with ``v`` or ``prev``; ``coeff`` ``[C, K]`` with K even; all of
+    ``v``'s dtype and device."""
     if v.ndim < 3:
         raise ValueError(f"field must be [C, ..., N, K], got {tuple(v.shape)}")
     check_coeffs(spec, cosh_b, sinh_b, v, per_column=False)
-    C, N = v.shape[0], v.shape[-2]
+    C, N, K = v.shape[0], v.shape[-2], v.shape[-1]
+    if K % 2:
+        raise ValueError(f"the fused step needs K = 2Lω even, got K = {K}")
     for name, t, shape in (("a", a, (C,)), ("b", b, (C,)), ("pre", pre, (C, N)),
-                           ("post", post, (C, N)), ("prev", prev, tuple(v.shape))):
-        if t is None and name not in ("a", "b"):
+                           ("post", post, (C, N)), ("prev", prev, tuple(v.shape)),
+                           ("acc", acc, tuple(v.shape)), ("coeff", coeff, (C, K))):
+        if t is None and name not in ("a", "b", "acc", "coeff"):
             continue
         if not (torch.is_tensor(t) and tuple(t.shape) == shape and t.dtype == v.dtype
                 and t.device == v.device):
@@ -270,18 +275,30 @@ def check_fused_operands(spec: CheckerboardSpec, cosh_b, sinh_b, v, pre, post, a
                    else type(t).__name__)
             raise ValueError(f"{name} must be a {list(shape)} {v.dtype} tensor on "
                              f"{v.device}, got {got}")
+    for t in (v, prev):
+        if t is not None and acc.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+            raise ValueError("acc must not share storage with v or prev")
 
 
 def fold_fused(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
                sign: float = 1.0, pre=None, post=None, a, b, c: float = 0.0,
-               prev=None):
+               prev=None, acc, coeff, init: bool):
     """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev``: the
     plain twin of the fused CUDA kernel (``csrc/ckb_fold_fused.cu``), with
     its signature. ``v`` is ``[C, ..., N, K]``; the coefficients ``[Nb]``
     or ``[C, Nb]``; ``a``, ``b`` are per-chain ``[C]``; ``pre``/``post``
     are per-chain site diagonals ``[C, N]`` or None; ``c`` is a number and
-    ``prev`` a field of ``v``'s shape or None."""
-    check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev)
+    ``prev`` a field of ``v``'s shape or None. ``acc`` (``v``'s shape) gets
+    the step's term ``coeff ⊙ v`` of the Chebyshev sum added in place
+    (``init``: set to it), ``coeff`` ``[C, K]`` being per-chain complex
+    numbers on K = 2Lω as the real parts then the imaginary ones, ``v`` the
+    stacked-real halves (:func:`cmul_halves`)."""
+    check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev, acc, coeff)
+    term = cmul_halves(coeff, v)
+    if init:
+        acc.copy_(term)
+    else:
+        acc.add_(term)
     C = v.shape[0]
     v4 = v.reshape(C, -1, *v.shape[-2:])
 
@@ -296,6 +313,17 @@ def fold_fused(spec: CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = Fal
     if prev is not None:
         o = o + c * prev.reshape(v4.shape)
     return o.reshape(v.shape)
+
+
+def cmul_halves(coeff, v):
+    """Per-chain complex numbers ``coeff`` ``[C, 2Lω]`` (real parts, then
+    imaginary ones) times a stacked-real field ``v`` ``[C, ..., N, 2Lω]``
+    (real halves, then imaginary ones), in the same layout."""
+    Lw = v.shape[-1] // 2
+    t = coeff.reshape(coeff.shape[:1] + (1,) * (v.ndim - 2) + coeff.shape[1:])
+    cr, ci = t[..., :Lw], t[..., Lw:]
+    vr, vi = v[..., :Lw], v[..., Lw:]
+    return torch.cat([cr * vr - ci * vi, cr * vi + ci * vr], dim=-1)
 
 
 def dense_matrix(spec: CheckerboardSpec, cosh_b, sinh_b, inverse: bool = False) -> np.ndarray:

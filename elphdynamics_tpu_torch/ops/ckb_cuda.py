@@ -20,8 +20,11 @@ kernels (``csrc/ckb_fold.cu``, ``csrc/ckb_fold_fused.cu``, sharing
   by ``fold_kn_fused``): one KPM Chebyshev step
   ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` in one pass, per-chain ``a``,
   ``b``, ``pre``, ``post``, and ``[Nb]`` or per-chain ``[C, Nb]`` bond
-  coefficients, real fields only (a complex field is a ``TypeError``). Its
-  plain twin is :func:`..checkerboard.fold_fused`.
+  coefficients, real fields only (a complex field is a ``TypeError``). The
+  same pass adds the step's term of the KPM Chebyshev sum,
+  ``acc ← acc + c_m(ω) ⊙ v`` on the stacked-real halves (``acc=``,
+  ``coeff=``, ``init=``). Its plain twin is
+  :func:`..checkerboard.fold_fused`.
 
 Design (Hopper): a thread-block cluster of ``cs`` CTAs owns one ``[N, K]``
 row of the ``[B, N, K]`` field; rank ``r`` keeps the contiguous site range
@@ -50,7 +53,10 @@ twin; a CUDA tensor launches the kernel or raises. ``launches`` and
 ``"fold/shared/complex"``, ``"fold/chain/complex"``,
 ``"fold/column/complex"``); ``launch_shapes`` counts the same launches by
 (form key, field shape, dtype), so that a caller can see at which shapes,
-and how often at each, a run went through the kernels. A CUDA graph's
+and how often at each, a run went through the kernels;
+``fused_acc_launches`` counts the fused launches that carried the
+coefficient accumulation (also counted under their ``fused/<form>`` key,
+so its share of those is the accumulation's engagement). A CUDA graph's
 capture launches nothing on the card: its launches are counted into the
 graph's record, and each replay of the graph counts them again
 (``utils/capture.py``, ``dynamics/graphs.py``). A capture that reaches a
@@ -80,6 +86,7 @@ from elphdynamics_tpu_torch.utils import capture, spans
 # kernel launches since import (or since a caller last set them to 0)
 launches = 0
 fused_launches = 0
+fused_acc_launches = 0    # fused launches that added into a Chebyshev sum
 TABLE_FORMS = ("shared", "chain", "column")   # [Nb], [C, Nb], [C, Nb, K]
 table_launches = {"fold/shared": 0, "fold/chain": 0, "fold/column": 0,
                   "fused/shared": 0, "fused/chain": 0, "fold/shared/complex": 0,
@@ -89,8 +96,8 @@ launch_shapes: dict = {}      # {(form key, field shape, dtype): counted launche
 
 def reset_counts() -> None:
     """Set every launch count to 0 and forget the launches' shapes."""
-    global launches, fused_launches
-    launches = fused_launches = 0
+    global launches, fused_launches, fused_acc_launches
+    launches = fused_launches = fused_acc_launches = 0
     for k in table_launches:
         table_launches[k] = 0
     launch_shapes.clear()
@@ -109,10 +116,17 @@ def _add_shape(shape, n: int) -> None:
     launch_shapes[shape] = launch_shapes.get(shape, 0) + n
 
 
+def _add_acc(_key, n: int) -> None:
+    global fused_acc_launches
+    fused_acc_launches += n
+
+
 def _count(kernel: str, cosh_b, v) -> None:
     form = f"{kernel}/{TABLE_FORMS[cosh_b.ndim - 1]}" + ("/complex" if v.is_complex() else "")
     capture.count(_add, form)
     capture.count(_add_shape, (form, tuple(v.shape), v.dtype))
+    if kernel == "fused":
+        capture.count(_add_acc, "fused_acc")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"ckb_fold": CSRC / "ckb_fold.cu", "ckb_fold_fused": CSRC / "ckb_fold_fused.cu"}
@@ -138,7 +152,7 @@ KERNEL_DTYPES = {"ckb_fold": tuple(DTYPES), "ckb_fold_fused": (torch.float32, to
 _ARGTYPES = {
     "ckb_fold": [_PTR] * 6 + [_I32, _F64] + [_I32] * 9 + [_I64, _I32, _PTR],
     "ckb_fold_fused": ([_PTR] * 7 + [_I32, _F64] + [_PTR] * 4 + [_F64] + [_I32] * 9
-                       + [_I64, _PTR]),
+                       + [_I64, _PTR, _PTR, _I32, _PTR]),
 }
 
 _libs: dict = {}
@@ -503,8 +517,8 @@ def _geometry(spec, v, name: str, run, per_column: bool = False) -> Geometry:
     """The geometry of a launch of library ``name`` on ``v``, cached on the
     spec per (device, shape, dtype, library, coefficient mode). On a shape's
     first launch every one of its :func:`launch_candidates` runs through
-    ``run(geometry)`` (which launches into the caller's output; the launches
-    are not counted) and the fastest is kept."""
+    ``run(geometry)`` (which launches into the caller's output, and K2 into
+    a scratch sum; the launches are not counted) and the fastest is kept."""
     N, K = v.shape[-2:]
     key = ("cluster_geometry", _device_index(v), math.prod(v.shape[:-2]), N, K,
            v.dtype, name, per_column)
@@ -570,11 +584,12 @@ def fold(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False
 
 
 def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
-                  prev, geometry) -> torch.Tensor:
+                  prev, acc, coeff, init, geometry) -> torch.Tensor:
     _, cstride = _check(spec, cosh_b, sinh_b, v, per_column=False, name="ckb_fold_fused")
-    ckb.check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev)
-    if prev is not None and not prev.is_contiguous():
-        raise ValueError("prev must be contiguous")
+    ckb.check_fused_operands(spec, cosh_b, sinh_b, v, pre, post, a, b, prev, acc, coeff)
+    for label, t in (("prev", prev), ("acc", acc), ("coeff", coeff)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{label} must be contiguous")
     pre, post, a, b = (None if t is None else t.contiguous() for t in (pre, post, a, b))
     out = torch.empty_like(v)
     if v.numel() == 0:
@@ -585,38 +600,55 @@ def _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post, a, b, c,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    def run(g: Geometry) -> None:
+    def run(g: Geometry, sum_=acc, init_=init) -> None:
         bonds, poff = _device_plan(spec, g.cs, reverse, v.device)
         err = fn(v.data_ptr(), out.data_ptr(), ptr(prev), bonds.data_ptr(), poff.data_ptr(),
                  cosh_b.data_ptr(), sinh_b.data_ptr(), spec.ngroups, float(sign), ptr(pre),
                  ptr(post), ptr(a), ptr(b), float(c), g.B, g.N, g.K, g.kt, g.cs, g.vec,
-                 g.B // v.shape[0], g.owned, g.threads, cstride, _stream(dev))
+                 g.B // v.shape[0], g.owned, g.threads, cstride, sum_.data_ptr(),
+                 coeff.data_ptr(), int(init_), _stream(dev))
         if err != 0:
             raise RuntimeError(f"ckb_fold_fused kernel launch failed: CUDA error {err}")
 
+    scratch = []
+
+    def tune(g: Geometry) -> None:
+        # timed on the traffic of most steps, which read the sum they add
+        # into: a zeroed scratch sum, so the caller's acc is left alone
+        if not scratch:
+            scratch.append(torch.zeros_like(acc))
+        run(g, scratch[0], False)
+
     with _on_device(dev):
-        run(geometry or _geometry(spec, v, "ckb_fold_fused", run))
+        run(geometry or _geometry(spec, v, "ckb_fold_fused", tune))
     _count("fused", cosh_b, v)
     return out
 
 
 def fold_fused(spec: ckb.CheckerboardSpec, cosh_b, sinh_b, v, *, reverse: bool = False,
                sign: float = 1.0, pre=None, post=None, a, b, c: float = 0.0,
-               prev=None, geometry: Geometry | None = None) -> torch.Tensor:
+               prev=None, acc, coeff, init: bool,
+               geometry: Geometry | None = None) -> torch.Tensor:
     """One Chebyshev step ``a·(post ⊙ fold(pre ⊙ v)) + b·v + c·prev`` on a
     ``[C, ..., N, K]`` field: coefficients ``[Nb]`` or per-chain
     ``[C, Nb]``, per-chain ``a``, ``b`` (``[C]``) and
     ``pre``/``post`` (``[C, N]`` or None), one number ``c``, ``prev`` (v's
-    shape) or None. The CUDA kernel for a CUDA tensor, the plain twin
+    shape) or None. The same pass adds the step's term of the Chebyshev
+    sum into ``acc`` (v's shape), in place: ``acc ← acc + coeff ⊙ v`` as a
+    complex product on the stacked-real halves, ``coeff`` ``[C, K]`` being
+    the real then the imaginary parts of the step's per-chain complex
+    coefficients on K = 2Lω (``init``: ``acc ← coeff ⊙ v``, acc not read).
+    The CUDA kernel for a CUDA tensor, the plain twin
     :func:`..checkerboard.fold_fused` for a CPU tensor. The result is a new
-    tensor (it never aliases ``v`` or ``prev``). ``geometry`` as in
-    :func:`fold`."""
+    tensor (it never aliases ``v``, ``prev`` or ``acc``).
+    ``geometry`` as in :func:`fold`."""
     if v.device.type == "cuda":
         return _launch_fused(spec, cosh_b, sinh_b, v, reverse, sign, pre, post,
-                             a, b, c, prev, geometry)
+                             a, b, c, prev, acc, coeff, init, geometry)
     if v.device.type == "cpu":
         return ckb.fold_fused(spec, cosh_b, sinh_b, v, reverse=reverse, sign=sign,
-                              pre=pre, post=post, a=a, b=b, c=c, prev=prev)
+                              pre=pre, post=post, a=a, b=b, c=c, prev=prev, acc=acc,
+                              coeff=coeff, init=init)
     raise ValueError(f"no fused checkerboard step for device {v.device}")
 
 

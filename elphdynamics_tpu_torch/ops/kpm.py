@@ -23,9 +23,10 @@ through the checkerboard fold: the CUDA kernel for CUDA tensors above
 ``_PALLAS_ABAR_MIN_SITES`` sites, the plain fold otherwise. Both gates are
 the JAX package's TPU-tuned values. On the fold branch every Chebyshev step
 is one fused fold (``csrc/ckb_fold_fused.cu`` on CUDA, its plain twin on
-the CPU); the power iteration and Ā⁻¹ of the setup use the fold itself
-(``csrc/ckb_fold.cu`` on CUDA), as does the densification of a dense Ā
-that the model does not supply.
+the CPU) that also adds its term of the per-ω coefficient sum; the power
+iteration and Ā⁻¹ of the setup use the fold itself (``csrc/ckb_fold.cu`` on
+CUDA), as does the densification of a dense Ā that the model does not
+supply.
 Every matmul runs in full precision of the field dtype (the JAX package ran
 these at the TPU's DEFAULT precision); choosing a lower precision is a
 later, measured change.
@@ -65,7 +66,7 @@ import torch
 
 from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.ops import ckb_cuda
-from elphdynamics_tpu_torch.ops.checkerboard import CheckerboardSpec
+from elphdynamics_tpu_torch.ops.checkerboard import CheckerboardSpec, cmul_halves
 from elphdynamics_tpu_torch.ops.timefreqfft import omega_to_tau, tau_to_omega
 from elphdynamics_tpu_torch.utils.dtypes import complex_of, real_of
 from elphdynamics_tpu_torch.utils.linalg import inv_ex
@@ -480,15 +481,11 @@ def refresh(ops: ModelOps, st: KPMState, params, x) -> KPMState:
     return st
 
 
-def _cmul_halves(coeff_m, w):
-    """Per-chain complex coefficients ``[C, Lω]`` times a stacked-real block
-    ``w`` ``[C, ..., N, 2Lω]``."""
-    Lw = w.shape[-1] // 2
-    shape = coeff_m.shape[:1] + (1,) * (w.ndim - 2) + coeff_m.shape[1:]
-    cr = coeff_m.real.to(w.dtype).reshape(shape)
-    ci = coeff_m.imag.to(w.dtype).reshape(shape)
-    wr, wi = w[..., :Lw], w[..., Lw:]
-    return torch.cat([cr * wr - ci * wi, cr * wi + ci * wr], dim=-1)
+def _coeff_halves(coeff, dtype):
+    """The complex coefficients ``[C, M, Lω]`` as ``[M, C, 2Lω]``: order m's
+    per-chain real | imaginary halves in the field's ``dtype``, each order's
+    slice contiguous (built once per pass)."""
+    return torch.cat([coeff.real, coeff.imag], dim=-1).to(dtype).transpose(0, 1).contiguous()
 
 
 def _chebyshev_apply_stacked(ops: ModelOps, st: KPMState, w, coeff, transposed: bool):
@@ -510,13 +507,15 @@ def _chebyshev_apply_stacked_composed(ops: ModelOps, st: KPMState, w, coeff,
     mag = _chain(st.lam_mag, w)
     shift = _chain(st.lam_avg / st.lam_mag, w)
 
+    halves = _coeff_halves(coeff, w.dtype)
+
     def Ap(v):
         return mul(st, sc, v) / mag - shift * v
 
-    out = _cmul_halves(coeff[:, 0], w)
+    out = cmul_halves(halves[0], w)
     u_nm1, u_n = w, Ap(w)
     for m in range(1, coeff.shape[1]):
-        out = out + _cmul_halves(coeff[:, m], u_n)
+        out = out + cmul_halves(halves[m], u_n)
         u_nm1, u_n = u_n, 2.0 * Ap(u_n) - u_nm1
     return out
 
@@ -527,26 +526,29 @@ def _chebyshev_apply_stacked_fused(ops: ModelOps, st: KPMState, w, coeff,
     (:func:`..ckb_cuda.fold_fused`, the counterpart of the JAX package's
     ``_chebyshev_apply_stacked_pallas``): the exp(−Δτ·V̄) diagonal rides
     the step's ``pre`` (Ā) or ``post`` (Āᵀ), the spectral map its per-chain
-    ``a = a_mul/λmag``, ``b = −a_mul·λavg/λmag``, and the combine
-    ``2·Ap(u) − u₋`` its ``c = −1`` with ``prev``. The per-ω coefficient
-    accumulation stays elementwise."""
+    ``a = a_mul/λmag``, ``b = −a_mul·λavg/λmag``, the combine
+    ``2·Ap(u) − u₋`` its ``c = −1`` with ``prev``, and the per-ω
+    coefficient sum Σₘ c_m ⊙ u_m its ``acc``: step m reads u_m and adds
+    c_m ⊙ u_m into the pass's sum (step 0 starts it from w = u_0). A pass is ``max_order`` launches and no other kernel but the
+    coefficients' cast, once."""
     sc = ops.spec.ckb
     pre = None if transposed else st.expnV_bar
     post = st.expnV_bar if transposed else None
     inv_mag = (1.0 / st.lam_mag).to(w.dtype)
     shift = (st.lam_avg / st.lam_mag).to(w.dtype)
+    halves = _coeff_halves(coeff, w.dtype)
+    w = w.contiguous()
+    out = torch.empty_like(w)
 
-    def step(u, a_mul: float, prev=None):
+    def step(u, m: int, a_mul: float, prev=None):
         return ckb_cuda.fold_fused(sc, st.cosh_bar, st.sinh_bar, u, reverse=transposed,
                                    pre=pre, post=post, a=a_mul * inv_mag,
-                                   b=-a_mul * shift, c=-1.0, prev=prev)
+                                   b=-a_mul * shift, c=-1.0, prev=prev, acc=out,
+                                   coeff=halves[m], init=m == 0)
 
-    w = w.contiguous()
-    out = _cmul_halves(coeff[:, 0], w)
-    u_nm1, u_n = w, step(w, 1.0)
+    u_nm1, u_n = w, step(w, 0, 1.0)
     for m in range(1, coeff.shape[1]):
-        out = out + _cmul_halves(coeff[:, m], u_n)
-        u_nm1, u_n = u_n, step(u_n, 2.0, u_nm1)
+        u_nm1, u_n = u_n, step(u_n, m, 2.0, u_nm1)
     return out
 
 

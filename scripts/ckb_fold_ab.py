@@ -6,17 +6,19 @@ in one process, each comparison in turns (A, B, B, A).
 
 The shapes are those of a 64×64 lattice (N = 4096, K = 2Lω = 40): K1 at
 [32, 4096, 40], [16, 4096, 40] and [16, 4096, 1]; K2 with per-chain
-diagonals and prev at [16, 2, 4096, 40] and [16, 10, 4096, 40]; float32 and
-float64. Every time is device time per launch: the summed durations of the
-card's kernels under ``torch.profiler`` over ``reps`` launches back to back,
-over ``reps``, so the host's pace does not enter. The bound is the bytes
-(each input read once, the output written once) over 3.35 TB/s.
+diagonals and prev, adding into a Chebyshev sum, at [16, 2, 4096, 40] and
+[16, 10, 4096, 40]; float32 and float64. Every time is device time per
+launch: the summed durations of the card's kernels under ``torch.profiler``
+over ``reps`` launches back to back, over ``reps``, so the host's pace does
+not enter. The bound is the bytes (each input read once, each output
+written once) over 3.35 TB/s.
 
 Without options: the shipped kernels with the wrapper's geometry (the
 fastest of its candidates, timed on the shape's first launch), beside
 the same launch on a checkerboard with no bonds (copies and barriers, no
-sweep), a PyTorch pass over the same bytes (``clone`` for K1, ``v + prev``
-for K2), and the clusters of the grid against those the card holds at once.
+sweep), a PyTorch pass over about the same bytes (``clone`` for K1, one
+``addcmul`` of v, prev and the sum for K2: four of its five field moves),
+and the clusters of the grid against those the card holds at once.
 
 ``--old DIR``: also the kernels of the port's second slice (one ``[N, kt]``
 slab per block of 1024 threads), built from their sources in ``DIR``
@@ -28,6 +30,10 @@ second slice only, not of the sources it was replaced by.
 ``--variants``: the shipped kernels at other (cs, threads) geometries, and
 the persistent two-slab variant (``scripts/ckb_fold_persistent.cu``) with
 as many clusters as the card holds, against the wrapper's geometry.
+
+The second slice's K2 takes no sum: ``--old`` holds it against the
+shipped step's result only, and its time against a step that also adds
+into the sum.
 
 ``--copies``: K1 and K2 on a field whose chunks are 16-byte aligned (bulk
 copy engine) against a view one element into its storage (the threaded
@@ -172,7 +178,8 @@ def run_shipped(case, g=None, v=None):
     spec, v = case["spec"], case["v"] if v is None else v
     if case["fused"]:
         return ckb_cuda.fold_fused(spec, case["c"], case["s"], v, pre=case["pre"], a=case["a"],
-                                   b=case["b"], c=-1.0, prev=case["prev"], geometry=g)
+                                   b=case["b"], c=-1.0, prev=case["prev"], acc=case["acc"],
+                                   coeff=case["coeff"], init=False, geometry=g)
     return ckb_cuda.fold(spec, case["c"], case["s"], v, geometry=g)
 
 
@@ -254,14 +261,16 @@ def make_cases(spec, params, g):
                               nbytes=2 * v.numel() * v.element_size(), ref=lambda v=v: v.clone()))
         for inner in (2, 10):
             shape = (16, inner, 4096, 40)
-            v, prev = (torch.randn(shape, generator=g, device="cuda", dtype=dtype)
-                       for _ in range(2))
+            v, prev, acc = (torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+                            for _ in range(3))
             cases.append(dict(
                 kernel="ckb_fold_fused", fused=True, spec=spec, c=c, s=s, v=v, prev=prev,
                 pre=0.5 + torch.rand((16, 4096), generator=g, device="cuda", dtype=dtype),
                 a=0.5 + torch.rand(16, generator=g, device="cuda", dtype=dtype),
-                b=torch.rand(16, generator=g, device="cuda", dtype=dtype) - 0.5,
-                nbytes=3 * v.numel() * v.element_size(), ref=lambda v=v, p=prev: v + p))
+                b=torch.rand(16, generator=g, device="cuda", dtype=dtype) - 0.5, acc=acc,
+                coeff=torch.randn((16, 40), generator=g, device="cuda", dtype=dtype),
+                nbytes=5 * v.numel() * v.element_size(),
+                ref=lambda v=v, p=prev, a=acc: torch.addcmul(a, v, p)))
     return cases
 
 
@@ -292,7 +301,7 @@ def tuned_geometry(case):
     v = case["v"]
     N, K = v.shape[-2:]
     return case["spec"]._cache[("cluster_geometry", v.device.index, math.prod(v.shape[:-2]), N,
-                                K, v.element_size(), case["kernel"], False)]
+                                K, v.dtype, case["kernel"], False)]
 
 
 def section_shipped(cases, bare, old, reps):

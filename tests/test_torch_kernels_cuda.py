@@ -9,7 +9,8 @@ The shapes cover the cluster split (cs > 1, and ranks with unequal site
 counts where N is not a multiple of cs), the K-tiled route (128×128: a row
 larger than 16 slabs), K = 1, odd K with ragged chunk tails, and fields
 whose chunks start off a 16-byte boundary (a view one element into its
-storage). Both kernels also run with one coefficient table per chain
+storage); K2 takes even K = 2Lω only, so its ragged cases are K = 2 and
+K = 14 (Lω = 7). Both kernels also run with one coefficient table per chain
 ([C, Nb], SSH's Ā), and the fold with one coefficient per chain, bond and
 column ([C, Nb, K], SSH's fermion operator), whose tables may themselves
 start off a vector boundary; table forms a kernel does not take are
@@ -18,7 +19,11 @@ the bond's second endpoint taking conj(s)) runs the same shapes and forms,
 with complex c as the twin carries it. The deep-β shapes: K = Lτ = 160
 (β = 16) for both kernels, at every launch candidate, with the deflation
 filter's [C·k]-row batches; and K2's per-chain diagonals of a tempering
-ladder (λ per chain)."""
+ladder (λ per chain). Every K2 launch also adds its term of the KPM
+coefficient sum into a sum, checked against the twin's beside the step's
+result; the init form and the sum at every launch candidate of the
+benchmark cells' shapes, a K-tiled row, Lω no multiple of the vector width
+and a misaligned field, and inside one graphed preconditioner apply."""
 
 import functools
 
@@ -32,7 +37,8 @@ from elphdynamics_tpu_torch.lattice import Lattice, UnitCell
 from elphdynamics_tpu_torch.models.adapter import make_model_ops
 from elphdynamics_tpu_torch.models.holstein import build_holstein
 from elphdynamics_tpu_torch.ops import checkerboard as ckb
-from elphdynamics_tpu_torch.ops import ckb_cuda
+from elphdynamics_tpu_torch.ops import ckb_cuda, kpm
+from elphdynamics_tpu_torch.utils import capture
 
 DIRECTIONS = [("forward", False, 1.0), ("transpose", True, 1.0),
               ("inverse", True, -1.0), ("inverse_transpose", False, -1.0)]
@@ -58,6 +64,29 @@ def _spec(L):
         Lattice.create(uc, L), 1.0, 0.1, dense_threshold=0, rng=np.random.default_rng(0),
         t_assignments=[(1.0, 0.1, 0, 0, (1, 0, 0)), (0.8, 0.1, 0, 0, (0, 1, 0))], device="cpu")
     return spec.ckb, params
+
+
+def _err(got, want):
+    """The largest error relative to max|want| of a kernel's output, or of
+    each of K2's outputs (the step's result, the sum) on its own."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return max(((x - y).abs().max() / y.abs().max()).item() for x, y in pairs)
+
+
+def _sum_operands(v, g):
+    """A start sum and per-chain ``[C, K]`` coefficients for K2 on ``v``."""
+    return (torch.randn(v.shape, generator=g, device=v.device, dtype=v.dtype),
+            torch.randn((v.shape[0], v.shape[-1]), generator=g, device=v.device,
+                        dtype=v.dtype))
+
+
+def _k2(fn, acc0):
+    """K2 or its twin (``fn``) adding into a fresh copy of the start sum
+    ``acc0`` on every call: (the step's result, the sum)."""
+    def run(*operands, **kw):
+        acc = acc0.clone()
+        return fn(*operands, acc=acc, **kw), acc
+    return run
 
 
 def _randn(shape, offset, g, device, dtype):
@@ -130,9 +159,12 @@ def test_every_launch_candidate_matches_twin(cuda, kernel, lead, dtype):
         diag = 0.5 + torch.rand((C, spec.nsites), generator=g, device=cuda, dtype=dtype)
         a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
         b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
-        fast, plain, name, kws = ckb_cuda.fold_fused, ckb.fold_fused, "ckb_fold_fused", [
-            dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a, b=b,
-                 c=-1.0, prev=torch.randn_like(v)) for rev in (False, True)]
+        acc0, coeff = _sum_operands(v, g)
+        fast, plain, name = _k2(ckb_cuda.fold_fused, acc0), _k2(ckb.fold_fused, acc0), \
+            "ckb_fold_fused"
+        kws = [dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a,
+                    b=b, c=-1.0, prev=torch.randn_like(v), coeff=coeff, init=False)
+               for rev in (False, True)]
     cands = ckb_cuda.launch_candidates(spec, v, name)
     assert len(cands) > 1 and len(set(cands)) == len(cands)
     ckb_cuda.reset_counts()
@@ -140,7 +172,7 @@ def test_every_launch_candidate_matches_twin(cuda, kernel, lead, dtype):
         want = plain(spec, c, s, v, **kw)
         for geo in cands:
             got = fast(spec, c, s, v, geometry=geo, **kw)
-            assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype], geo
+            assert _err(got, want) <= TOLS[dtype], geo
     assert ckb_cuda.launch_shapes == {(f"{kernel}/shared", tuple(v.shape), dtype):
                                       len(kws) * len(cands)}
     assert ckb_cuda.table_launches[f"{kernel}/shared"] == len(kws) * len(cands)
@@ -171,19 +203,22 @@ def test_deep_beta_k160_candidates_match_twin(cuda, kernel, lead, dtype):
         diag = 0.5 + torch.rand((C, spec.nsites), generator=g, device=cuda, dtype=dtype)
         a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
         b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
-        fast, plain, name, kws = ckb_cuda.fold_fused, ckb.fold_fused, "ckb_fold_fused", [
-            dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a, b=b,
-                 c=-1.0, prev=torch.randn_like(v) if p else None)
-            for rev in (False, True) for p in (False, True)]
+        acc0, coeff = _sum_operands(v, g)
+        fast, plain, name = _k2(ckb_cuda.fold_fused, acc0), _k2(ckb.fold_fused, acc0), \
+            "ckb_fold_fused"
+        kws = [dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a,
+                    b=b, c=-1.0, prev=torch.randn_like(v) if p else None, coeff=coeff,
+                    init=False)
+               for rev in (False, True) for p in (False, True)]
     cands = ckb_cuda.launch_candidates(spec, v, name)
     assert cands and all(geo.kt < 160 for geo in cands)      # tiled
     for kw in kws:
         want = plain(spec, c, s, v, **kw)
         for geo in cands:
             got = fast(spec, c, s, v, geometry=geo, **kw)
-            assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype], geo
+            assert _err(got, want) <= TOLS[dtype], geo
         got = fast(spec, c, s, v, **kw)                       # the tuned geometry
-        assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+        assert _err(got, want) <= TOLS[dtype]
 
 
 @pytest.mark.cuda
@@ -208,23 +243,24 @@ def test_fused_kernel_ladder_diagonals_match_twin(cuda, dtype, rev, use_prev):
     v = torch.randn((16, 2, spec.Nsites, 40), generator=g, device=cuda, dtype=dtype)
     a = 0.5 + torch.rand(16, generator=g, device=cuda, dtype=dtype)
     b = torch.rand(16, generator=g, device=cuda, dtype=dtype) - 0.5
+    acc0, coeff = _sum_operands(v, g)
     kw = dict(reverse=rev, pre=None if rev else diag, post=diag if rev else None, a=a, b=b,
-              c=-1.0, prev=torch.randn_like(v) if use_prev else None)
+              c=-1.0, prev=torch.randn_like(v) if use_prev else None, coeff=coeff, init=False)
     c, s = params.cosht, params.sinht
     ckb_cuda.reset_counts()
-    got = ckb_cuda.fold_fused(spec.ckb, c, s, v, **kw)
-    want = ckb.fold_fused(spec.ckb, c, s, v, **kw)
+    got = _k2(ckb_cuda.fold_fused, acc0)(spec.ckb, c, s, v, **kw)
+    want = _k2(ckb.fold_fused, acc0)(spec.ckb, c, s, v, **kw)
     assert ckb_cuda.table_launches["fused/shared"] == 1
-    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+    assert _err(got, want) <= TOLS[dtype]
 
 
-# (L, chains, rows per chain, K, offset): the K2 shapes of chip_smoke.py —
-# 16 chains, and 16 chains × nᵥ = 10 Green's-function rows — small ragged
-# cases, the K-tiled route and misaligned v and prev
-FUSED_SHAPES = [(6, 2, 3, 7, 0), (64, 16, 1, 40, 0), (64, 16, 10, 40, 0), (5, 3, 1, 7, 0),
-                (6, 2, 2, 1, 0), (128, 2, 1, 40, 0), (64, 16, 2, 40, 1), (5, 3, 1, 7, 1)]
-FUSED_IDS = ["6x6", "64x64_C16", "64x64_C16_nv10", "5x5_K7", "6x6_K1", "128x128_ktiled",
-             "64x64_C16_misaligned", "5x5_K7_misaligned"]
+# (L, chains, rows per chain, K, offset): 16 chains, and 16 chains × nᵥ = 10
+# Green's-function rows; small ragged cases (K = 2Lω: Lω = 7, Lω = 1), the
+# K-tiled route and misaligned v and prev
+FUSED_SHAPES = [(6, 2, 3, 14, 0), (64, 16, 1, 40, 0), (64, 16, 10, 40, 0), (5, 3, 1, 14, 0),
+                (6, 2, 2, 2, 0), (128, 2, 1, 40, 0), (64, 16, 2, 40, 1), (5, 3, 1, 14, 1)]
+FUSED_IDS = ["6x6", "64x64_C16", "64x64_C16_nv10", "5x5_K14", "6x6_K2", "128x128_ktiled",
+             "64x64_C16_misaligned", "5x5_K14_misaligned"]
 
 
 @pytest.mark.cuda
@@ -244,16 +280,17 @@ def test_fused_kernel_matches_twin(cuda, L, C, nv, K, offset, dtype, name, rev, 
     post = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
     a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
     b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
+    acc0, coeff = _sum_operands(v, g)
     kw = dict(reverse=rev, sign=sign, pre=pre if not rev else None,
-              post=post if rev else None, a=a, b=b, c=-1.0, prev=prev)
+              post=post if rev else None, a=a, b=b, c=-1.0, prev=prev, coeff=coeff, init=False)
     before = ckb_cuda.fused_launches
-    got = ckb_cuda.fold_fused(spec, c, s, v, **kw)
+    got = _k2(ckb_cuda.fold_fused, acc0)(spec, c, s, v, **kw)
     assert ckb_cuda.fused_launches == before + 1
-    want = ckb.fold_fused(spec, c, s, v, **kw)
+    want = _k2(ckb.fold_fused, acc0)(spec, c, s, v, **kw)
     torch.cuda.synchronize()
-    assert got.shape == v.shape and got.dtype == dtype
-    assert got.data_ptr() not in (v.data_ptr(), None if prev is None else prev.data_ptr())
-    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+    assert got[0].shape == v.shape and got[0].dtype == dtype
+    assert got[0].data_ptr() not in (v.data_ptr(), None if prev is None else prev.data_ptr())
+    assert _err(got, want) <= TOLS[dtype]
 
 
 @pytest.mark.cuda
@@ -262,18 +299,31 @@ def test_fused_kernel_refuses_bad_inputs(cuda):
     c, s = params.cosht.to(cuda), params.sinht.to(cuda)
     v = torch.randn((2, spec.nsites, 8), device=cuda, dtype=torch.float64)
     ok = dict(a=torch.ones(2, device=cuda, dtype=torch.float64),
-              b=torch.zeros(2, device=cuda, dtype=torch.float64))
+              b=torch.zeros(2, device=cuda, dtype=torch.float64), acc=torch.zeros_like(v),
+              coeff=torch.ones((2, 8), device=cuda, dtype=torch.float64), init=False)
     bad = [dict(a=torch.ones(3, device=cuda, dtype=torch.float64)),
            dict(b=0.5),                                              # a number
            dict(pre=torch.ones((2, 5), device=cuda, dtype=torch.float64)),
            dict(post=torch.ones(spec.nsites, device=cuda, dtype=torch.float64)),
            dict(prev=v[:1].contiguous()),
-           dict(a=torch.ones(2, device=cuda))]                       # float32 a
+           dict(a=torch.ones(2, device=cuda)),                       # float32 a
+           dict(acc=None), dict(coeff=None),
+           dict(coeff=torch.ones((2, 4), device=cuda, dtype=torch.float64)),   # [C, Lω]
+           dict(acc=torch.zeros((2, spec.nsites, 16), device=cuda,
+                                dtype=torch.float64)[..., ::2]),     # not contiguous
+           dict(acc=v)]                                              # the step's own input
+    before = (ckb_cuda.fused_launches, ckb_cuda.fused_acc_launches)
     for kw in bad:
         with pytest.raises(ValueError):
             ckb_cuda.fold_fused(spec, c, s, v, **(ok | kw))
     with pytest.raises(ValueError):
         ckb_cuda.fold_fused(spec, c, s, v[0], **ok)                  # no chain axis
+    odd = torch.randn((2, spec.nsites, 7), device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError):                                  # K = 7 is no 2Lω
+        ckb_cuda.fold_fused(spec, c, s, odd, **(ok | dict(
+            acc=torch.zeros_like(odd), coeff=torch.ones((2, 7), device=cuda,
+                                                        dtype=torch.float64))))
+    assert (ckb_cuda.fused_launches, ckb_cuda.fused_acc_launches) == before
 
 
 @pytest.mark.cuda
@@ -291,17 +341,18 @@ def test_kernels_launch_without_bonds(cuda, dtype):
     got = ckb_cuda.fold(spec, empty, empty, v)
     assert ckb_cuda.launches == before + 1
     assert torch.equal(got, v) and got.data_ptr() != v.data_ptr()
+    acc0, coeff = _sum_operands(v, g)
     kw = dict(pre=0.5 + torch.rand((4, 36), generator=g, device=cuda, dtype=dtype),
               post=0.5 + torch.rand((4, 36), generator=g, device=cuda, dtype=dtype),
               a=0.5 + torch.rand(4, generator=g, device=cuda, dtype=dtype),
               b=torch.rand(4, generator=g, device=cuda, dtype=dtype) - 0.5,
-              c=-1.0, prev=prev)
+              c=-1.0, prev=prev, coeff=coeff, init=False)
     before = ckb_cuda.fused_launches
-    got = ckb_cuda.fold_fused(spec, empty, empty, v, **kw)
+    got = _k2(ckb_cuda.fold_fused, acc0)(spec, empty, empty, v, **kw)
     assert ckb_cuda.fused_launches == before + 1
-    want = ckb.fold_fused(spec, empty, empty, v, **kw)
+    want = _k2(ckb.fold_fused, acc0)(spec, empty, empty, v, **kw)
     torch.cuda.synchronize()
-    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+    assert _err(got, want) <= TOLS[dtype]
 
 
 def _tables(params, C, K, form, g, device, dtype, offset=0):
@@ -362,14 +413,15 @@ def test_fused_kernel_chain_tables_match_twin(cuda, L, C, nv, K, offset, dtype, 
     d = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
     a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
     b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
+    acc0, coeff = _sum_operands(v, g)
     kw = dict(reverse=rev, sign=sign, pre=None if rev else d, post=d if rev else None, a=a, b=b,
-              c=-1.0, prev=prev)
+              c=-1.0, prev=prev, coeff=coeff, init=False)
     before = ckb_cuda.fused_launches
-    got = ckb_cuda.fold_fused(spec, c, s, v, **kw)
+    got = _k2(ckb_cuda.fold_fused, acc0)(spec, c, s, v, **kw)
     assert ckb_cuda.fused_launches == before + 1
-    want = ckb.fold_fused(spec, c, s, v, **kw)
+    want = _k2(ckb.fold_fused, acc0)(spec, c, s, v, **kw)
     torch.cuda.synchronize()
-    assert ((got - want).abs().max() / want.abs().max()).item() <= TOLS[dtype]
+    assert _err(got, want) <= TOLS[dtype]
 
 
 @pytest.mark.cuda
@@ -399,7 +451,8 @@ def test_kernels_refuse_other_table_forms(cuda):
     with pytest.raises(ValueError):                                   # not contiguous
         t = torch.ones((3, 8, nb), **f64).transpose(1, 2)
         ckb_cuda.fold(spec, t, t, v)
-    ok = dict(a=torch.ones(3, **f64), b=torch.zeros(3, **f64))
+    ok = dict(a=torch.ones(3, **f64), b=torch.zeros(3, **f64), acc=torch.zeros_like(v),
+              coeff=torch.ones((3, 8), **f64), init=False)
     for shape in ((3, nb, 8), (2, nb)):
         t = torch.ones(shape, **f64)
         with pytest.raises(ValueError):
@@ -537,5 +590,99 @@ def test_complex_kernel_refuses_mismatched_tables(cuda):
         ckb_cuda.fold(spec, c128, s128, v128.real.contiguous())
     with pytest.raises(TypeError):                    # K2 is real-only
         ckb_cuda.fold_fused(spec, c128, s128, v128, a=torch.ones(2, device=cuda),
-                            b=torch.zeros(2, device=cuda))
+                            b=torch.zeros(2, device=cuda), acc=torch.zeros_like(v128),
+                            coeff=torch.ones((2, 8), device=cuda), init=True)
     assert (ckb_cuda.launches, ckb_cuda.fused_launches) == before
+
+
+# (chains and rows per chain, K, table form, offset): the K2 shapes of the
+# benchmark cells (Holstein 64×64: 32 chains × 2 spins, one [Nb] table; SSH
+# 64×64: 8 chains, [C, Nb] tables), the K-tiled deep-β row (K = 160),
+# Lω = 21 and 10 (no multiple of the vector width: the partner columns
+# column by column), and a field one element into its storage
+ACC_SHAPES = [((32, 2), 40, "shared", 0), ((8, 2), 40, "chain", 0), ((4, 2), 160, "shared", 0),
+              ((4, 2), 42, "chain", 0), ((4, 2), 20, "shared", 0), ((4, 2), 40, "chain", 1)]
+ACC_IDS = ["holstein_cell", "ssh_cell", "k160_tiled", "Lw21", "Lw10", "misaligned"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("lead,K,tables,offset", ACC_SHAPES, ids=ACC_IDS)
+def test_fused_accumulating_kernel_matches_twin(cuda, lead, K, tables, offset, dtype):
+    """K2 against the twin at every launch candidate and at the tuned
+    geometry: both directions, the init form and the accumulation; the
+    step's result and the sum acc ← acc + c_m ⊙ v in place; each launch
+    counted under its ``fused/<form>`` key and in ``fused_acc_launches``."""
+    spec, params = _spec(64)
+    N, C = spec.nsites, lead[0]
+    g = torch.Generator(device=cuda).manual_seed(21)
+    if tables == "shared":
+        c, s = (t.to(device=cuda, dtype=dtype) for t in (params.cosht, params.sinht))
+    else:
+        c, s = _tables(params, C, K, "chain", g, cuda, dtype)
+    v = _randn(lead + (N, K), offset, g, cuda, dtype)
+    prev = _randn(lead + (N, K), offset, g, cuda, dtype)
+    d = 0.5 + torch.rand((C, N), generator=g, device=cuda, dtype=dtype)
+    a = 0.5 + torch.rand(C, generator=g, device=cuda, dtype=dtype)
+    b = torch.rand(C, generator=g, device=cuda, dtype=dtype) - 0.5
+    coeff = torch.randn((C, K), generator=g, device=cuda, dtype=dtype)
+    acc0 = torch.randn(lead + (N, K), generator=g, device=cuda, dtype=dtype)
+    cands = ckb_cuda.launch_candidates(spec, v, "ckb_fold_fused")
+    assert cands and len(set(cands)) == len(cands)
+    assert all(geo.kt < K for geo in cands) == (K == 160)
+    ckb_cuda.reset_counts()
+    n = 0
+    for rev in (False, True):
+        kw = dict(reverse=rev, pre=None if rev else d, post=d if rev else None, a=a, b=b,
+                  c=-1.0, prev=prev)
+        for init in (True, False):
+            want_acc = acc0.clone()
+            want = ckb.fold_fused(spec, c, s, v, acc=want_acc, coeff=coeff, init=init, **kw)
+            for geo in cands + [None]:
+                acc = acc0.clone()
+                got = ckb_cuda.fold_fused(spec, c, s, v, acc=acc, coeff=coeff, init=init,
+                                          geometry=geo, **kw)
+                n += 1
+                torch.cuda.synchronize()
+                for x, y in ((got, want), (acc, want_acc)):
+                    assert ((x - y).abs().max() / y.abs().max()).item() <= TOLS[dtype], geo
+    assert ckb_cuda.fused_acc_launches == ckb_cuda.table_launches[f"fused/{tables}"] == n
+    assert ckb_cuda.launch_shapes == {(f"fused/{tables}", tuple(v.shape), dtype): n}
+    ckb_cuda.reset_counts()
+    assert ckb_cuda.fused_acc_launches == 0
+
+
+@pytest.mark.cuda
+def test_graphed_symmetric_apply_accumulates_in_every_k2_launch(cuda):
+    """One graphed preconditioner apply on the fold branch (a 64×64 Holstein
+    model, β = 4: Ā is no dense matrix): its replay launches K2 2·max_order
+    times, every launch carrying the coefficient sum, and gives the eager
+    apply's values."""
+    uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
+    spec, params = build_holstein(
+        Lattice.create(uc, 64), 4.0, 0.1, rng=np.random.default_rng(0), device=cuda,
+        dtype=torch.float32, omega=1.0, lam=1.0,
+        t_assignments=[(1.0, 0.0, 0, 0, (1, 0, 0)), (1.0, 0.0, 0, 0, (0, 1, 0))])
+    ops = make_model_ops(spec)
+    x = init_phonons_half_filled(ops, params, 2, torch.Generator(device=cuda).manual_seed(1))
+    cfg = kpm.KPMConfig(max_order=8)
+    st = kpm.setup(ops, params, x, cfg, kpm.start_vectors(ops.Nsites))
+    assert st.expK is None and st.S_fwd is None
+    v = torch.randn((2, 2, ops.Nsites, ops.Ltau), generator=torch.Generator(device=cuda)
+                    .manual_seed(2), device=cuda)
+    want = kpm.apply_symmetric(ops, st, v, cfg)          # the warm-up tunes the geometry
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    ckb_cuda.reset_counts()
+    with capture.recording() as rec:
+        with torch.cuda.graph(graph):
+            got = kpm.apply_symmetric(ops, st, v, cfg)
+    assert ckb_cuda.fused_launches == 0                  # a capture launches nothing
+    graph.replay()
+    rec.replayed()
+    torch.cuda.synchronize()
+    fused = sum(n for k, n in ckb_cuda.table_launches.items() if k.startswith("fused/"))
+    assert fused == 2 * cfg.max_order
+    assert ckb_cuda.fused_acc_launches == fused
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    ckb_cuda.reset_counts()

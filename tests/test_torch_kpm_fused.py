@@ -7,7 +7,14 @@ float64 on the CPU.
   pre/post/a/b/c/prev, both fold directions and the inverse, one chain and
   2 chains × nᵥ = 3 rows with per-chain scalars and diagonals, and with
   one coefficient table per chain (SSH's Ā) against the JAX kernel run
-  chain by chain with that chain's table. rtol 1e-10.
+  chain by chain with that chain's table. rtol 1e-10. Each of these steps
+  also adds its term of the Chebyshev sum into ``acc``, held to the
+  product of complex tensors.
+* The sum (``acc``, ``coeff``, ``init``: the coefficient sum of the KPM
+  recurrence riding the step) against the product of complex tensors, in
+  the init form and added to a sum: shared and per-chain tables, with and
+  without ``prev``, float32 and float64, Lω = 20 and an odd Lω; the step's
+  result is the same in both forms.
 * The port's fold-branch recurrence (``_chebyshev_apply_stacked`` on a
   state with ``expK = None``, which routes to the fused steps) against
   JAX's ``_chebyshev_apply_stacked_pallas`` (interpret mode) and against
@@ -78,6 +85,24 @@ def _jax_fused(js, jp, v, rev, sign, pre, post, a, b, c, prev, tables=None):
     return out
 
 
+def _complex_term(halves, v):
+    """The step's term of the Chebyshev sum from complex tensors: per-chain
+    ``halves`` ``[C, 2Lω]`` (real | imaginary) times the stacked-real field
+    ``v`` ``[C, ..., N, 2Lω]``, back on the stacked-real halves."""
+    Lw = v.shape[-1] // 2
+    cc = torch.complex(halves[:, :Lw], halves[:, Lw:])
+    t = cc.reshape(cc.shape[:1] + (1,) * (v.ndim - 2) + cc.shape[1:]) * \
+        torch.complex(v[..., :Lw], v[..., Lw:])
+    return torch.cat([t.real, t.imag], dim=-1)
+
+
+def _sum_operands(rng, v):
+    """A start ``acc`` and ``coeff`` halves for a fused step on ``v``."""
+    C, K = v.shape[0], v.shape[-1]
+    return (torch.as_tensor(rng.standard_normal(v.shape)).to(v.dtype),
+            torch.as_tensor(rng.standard_normal((C, K))).to(v.dtype))
+
+
 @pytest.mark.parametrize("name,rev,sign,use_prev,diag", CASES,
                          ids=[f"{c[0]}-{'prev' if c[3] else 'no_prev'}-{c[4]}" for c in CASES])
 @pytest.mark.parametrize("C,nv", [(1, 1), (2, 3)], ids=["1chain", "2chains_nv3"])
@@ -97,12 +122,16 @@ def test_fold_fused_twin_matches_jax(models, C, nv, name, rev, sign, use_prev, d
     def T(arr):
         return None if arr is None else torch.as_tensor(arr)
 
+    acc0, halves = _sum_operands(rng, T(v))
+    acc = acc0.clone()
     before = ckb_cuda.fused_launches
     got = ckb_cuda.fold_fused(ts.ckb, tp.cosht, tp.sinht, T(v), reverse=rev, sign=sign,
-                              pre=T(pre), post=T(post), a=T(a), b=T(b), c=c, prev=T(prev))
+                              pre=T(pre), post=T(post), a=T(a), b=T(b), c=c, prev=T(prev),
+                              acc=acc, coeff=halves, init=False)
     assert ckb_cuda.fused_launches == before  # a CPU tensor takes the twin
     assert got.shape == v.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
+    torch.testing.assert_close(acc, acc0 + _complex_term(halves, T(v)), rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("name,rev,sign,use_prev,diag",
@@ -129,17 +158,61 @@ def test_fold_fused_chain_tables_match_jax(models, name, rev, sign, use_prev, di
     def T(arr):
         return None if arr is None else torch.as_tensor(arr)
 
+    acc0, halves = _sum_operands(rng, T(v))
+    acc = acc0.clone()
     got = ckb_cuda.fold_fused(ts.ckb, T(cb), T(sb), T(v), reverse=rev, sign=sign, pre=T(pre),
-                              post=T(post), a=T(a), b=T(b), c=c, prev=T(prev))
+                              post=T(post), a=T(a), b=T(b), c=c, prev=T(prev), acc=acc,
+                              coeff=halves, init=False)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
+    torch.testing.assert_close(acc, acc0 + _complex_term(halves, T(v)), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("Lw", [20, 7], ids=["Lw20", "Lw7"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("use_prev", [False, True], ids=["no_prev", "prev"])
+@pytest.mark.parametrize("tables", ["shared", "chain"])
+def test_fold_fused_accumulates_the_complex_product(models, tables, use_prev, dtype, Lw):
+    """The step adds its term c_m ⊙ v of the Chebyshev sum (the product of
+    complex tensors) into ``acc`` in place; the init form sets ``acc`` to
+    that term without reading it; the step's result is the same in both."""
+    _, jp, ts, _ = models
+    C, nv, N, K = 2, 3, ts.Nsites, 2 * Lw
+    rng = np.random.default_rng([Lw, int(use_prev), int(dtype == torch.float32),
+                                 ("shared", "chain").index(tables)])
+
+    def T(arr):
+        return None if arr is None else torch.as_tensor(arr).to(dtype)
+
+    cb, sb = np.array(jp.cosht), np.array(jp.sinht)
+    if tables == "chain":
+        cb = cb[None] * (1.0 + 0.1 * rng.uniform(size=(C, ts.Nbonds)))
+        sb = sb[None] * (1.0 + 0.2 * rng.standard_normal((C, ts.Nbonds)))
+    v = T(rng.standard_normal((C, nv, N, K)))
+    coeff = torch.as_tensor(rng.standard_normal((C, Lw)) + 1j * rng.standard_normal((C, Lw)))
+    halves = torch.cat([coeff.real, coeff.imag], dim=-1).to(dtype)
+    kw = dict(reverse=tables == "chain", pre=T(rng.uniform(0.5, 1.5, (C, N))),
+              a=T(rng.uniform(0.5, 2.0, C)), b=T(rng.uniform(-1.0, 1.0, C)),
+              c=-1.0 if use_prev else 0.0,
+              prev=T(rng.standard_normal((C, nv, N, K))) if use_prev else None)
+    term = _complex_term(halves, v)
+    tol = dict(rtol=1e-12, atol=1e-12) if dtype == torch.float64 else dict(rtol=1e-6, atol=1e-6)
+    acc = torch.full_like(v, float("nan"))
+    first = ckb_cuda.fold_fused(ts.ckb, T(cb), T(sb), v, acc=acc, coeff=halves, init=True, **kw)
+    torch.testing.assert_close(acc, term, **tol)
+    acc0 = T(rng.standard_normal((C, nv, N, K)))
+    acc = acc0.clone()
+    got = ckb_cuda.fold_fused(ts.ckb, T(cb), T(sb), v, acc=acc, coeff=halves, init=False, **kw)
+    torch.testing.assert_close(got, first, rtol=0, atol=0)
+    torch.testing.assert_close(acc, acc0 + term, **tol)
 
 
 def test_fold_fused_refuses_per_column_tables(models):
     """The fused step takes [Nb] and [C, Nb] tables only."""
     _, _, ts, _ = models
-    t = torch.ones((2, ts.Nbonds, 5), dtype=torch.float64)
-    with pytest.raises(ValueError):
-        ckb.fold_fused(ts.ckb, t, t, _ones(2, ts.Nsites, 5), a=_ones(2), b=_ones(2))
+    t = torch.ones((2, ts.Nbonds, 6), dtype=torch.float64)
+    with pytest.raises(ValueError, match="must be one of"):
+        ckb.fold_fused(ts.ckb, t, t, _ones(2, ts.Nsites, 6), a=_ones(2), b=_ones(2),
+                       acc=_ones(2, ts.Nsites, 6), coeff=_ones(2, 6), init=False)
 
 
 def _ones(*shape):
@@ -147,20 +220,41 @@ def _ones(*shape):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(v=_ones(16, 5)),                   # an [N, K] block: no chain axis
+    dict(v=_ones(16, 6)),                   # an [N, K] block: no chain axis
     dict(a=1.5),                            # a number where a [C] tensor goes
     dict(b=_ones(1)),                       # [1] for 2 chains
     dict(pre=_ones(16)),                    # [N] where [C, N] goes
     dict(post=_ones(2, 16).float()),        # another dtype
-    dict(prev=_ones(1, 16, 5)),             # not v's shape
-], ids=["block", "number_a", "short_b", "flat_pre", "f32_post", "short_prev"])
+    dict(prev=_ones(1, 16, 6)),             # not v's shape
+    dict(coeff=None),                       # a sum with no coefficients
+    dict(acc=None),                         # coefficients with no sum
+    dict(v=_ones(2, 16, 5), acc=_ones(2, 16, 5), coeff=_ones(2, 5)),    # odd K
+    dict(coeff=_ones(2, 3)),                # [C, Lω] coeff
+    dict(acc=_ones(2, 16, 6).float()),      # another dtype
+], ids=["block", "number_a", "short_b", "flat_pre", "f32_post", "short_prev", "no_coeff",
+        "no_acc", "odd_K", "half_coeff", "f32_acc"])
 def test_fold_fused_refuses_other_forms(models, bad):
-    """The twin takes exactly the kernel's operand forms: [C] scalars and
-    [C, N] diagonals on a [C, ..., N, K] field."""
+    """The twin takes exactly the kernel's operand forms: [C] scalars,
+    [C, N] diagonals, a sum of the field's shape and [C, K] coefficients on
+    a [C, ..., N, K] field with K even."""
     _, _, ts, tp = models
-    kw = dict(v=_ones(2, ts.Nsites, 5), a=_ones(2), b=_ones(2)) | bad
+    kw = dict(v=_ones(2, ts.Nsites, 6), a=_ones(2), b=_ones(2), acc=_ones(2, ts.Nsites, 6),
+              coeff=_ones(2, 6), init=False) | bad
     with pytest.raises(ValueError):
         ckb.fold_fused(ts.ckb, tp.cosht, tp.sinht, kw.pop("v"), **kw)
+
+
+def test_fold_fused_refuses_acc_sharing_storage(models):
+    """``acc`` is updated in place, so it may not share storage with the
+    step's ``v`` or ``prev``."""
+    _, _, ts, tp = models
+    base = _ones(2, 2, ts.Nsites, 6)
+    kw = dict(a=_ones(2), b=_ones(2), coeff=_ones(2, 6), init=False)
+    with pytest.raises(ValueError):
+        ckb.fold_fused(ts.ckb, tp.cosht, tp.sinht, base[:, 0], acc=base[:, 1], **kw)
+    with pytest.raises(ValueError):
+        ckb.fold_fused(ts.ckb, tp.cosht, tp.sinht, _ones(2, ts.Nsites, 6), acc=base[:, 1],
+                       prev=base[:, 0], c=-1.0, **kw)
 
 
 def test_fold_fused_twin_without_bonds():
@@ -173,11 +267,13 @@ def test_fold_fused_twin_without_bonds():
     pre, post = (torch.as_tensor(rng.uniform(0.5, 1.5, (2, 6))) for _ in range(2))
     a, b = torch.tensor([1.5, 0.5]).double(), torch.tensor([-0.25, 0.75]).double()
     empty = torch.zeros(0, dtype=torch.float64)
+    acc, halves = torch.empty_like(v), torch.as_tensor(rng.standard_normal((2, 4)))
     got = ckb_cuda.fold_fused(spec, empty, empty, v, pre=pre, post=post, a=a, b=b,
-                              c=-1.0, prev=prev)
+                              c=-1.0, prev=prev, acc=acc, coeff=halves, init=True)
     d = (pre * post)[:, None, :, None]
     want = a[:, None, None, None] * d * v + b[:, None, None, None] * v - prev
     torch.testing.assert_close(got, want, rtol=1e-14, atol=1e-14)
+    torch.testing.assert_close(acc, _complex_term(halves, v), rtol=1e-14, atol=1e-14)
 
 
 @pytest.fixture(scope="module")
