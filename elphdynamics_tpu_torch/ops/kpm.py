@@ -68,8 +68,23 @@ from elphdynamics_tpu_torch.models.adapter import ModelOps
 from elphdynamics_tpu_torch.ops import ckb_cuda
 from elphdynamics_tpu_torch.ops.checkerboard import CheckerboardSpec, cmul_halves
 from elphdynamics_tpu_torch.ops.timefreqfft import omega_to_tau, tau_to_omega
+from elphdynamics_tpu_torch.utils import capture, spans
 from elphdynamics_tpu_torch.utils.dtypes import complex_of, real_of
 from elphdynamics_tpu_torch.utils.linalg import inv_ex
+
+# Chebyshev steps of the complex-hopping pass (``_chebyshev_apply``) since
+# import or ``reset_counts``; counted through ``utils/capture.count``, so a
+# replayed graph counts its steps again
+cheb_steps = {"complex": 0}
+
+
+def _add_steps(recurrence: str, n: int) -> None:
+    cheb_steps[recurrence] += n
+
+
+def reset_counts() -> None:
+    """Set the Chebyshev-step count to 0."""
+    cheb_steps["complex"] = 0
 
 
 @dataclass(frozen=True)
@@ -567,7 +582,8 @@ def _chebyshev_apply(ops: ModelOps, st: KPMState, u, coeff, transposed: bool):
     (the complex-hopping pass; Āᴴ when ``transposed``): each step applies Ā
     (a dense matmul, or the fold: the CUDA kernel's complex mode on the
     card) and then the spectral map and the combine as elementwise
-    passes."""
+    passes. The pass is the mark ``kpm.cheb_complex`` in a captured graph
+    (``utils/spans.py``)."""
     sc = _fold_target(ops)
     mul = _mulA_T if transposed else _mulA
     mag = _chain(st.lam_mag, u)
@@ -580,11 +596,13 @@ def _chebyshev_apply(ops: ModelOps, st: KPMState, u, coeff, transposed: bool):
     def cm(m):
         return coeff[:, m].reshape(cshape).to(u.dtype)
 
-    out = cm(0) * u
-    u_nm1, u_n = u, Ap(u)
-    for m in range(1, coeff.shape[1]):
-        out = out + cm(m) * u_n
-        u_nm1, u_n = u_n, 2.0 * Ap(u_n) - u_nm1
+    capture.count(_add_steps, "complex", coeff.shape[1])
+    with spans.mark("kpm.cheb_complex"):
+        out = cm(0) * u
+        u_nm1, u_n = u, Ap(u)
+        for m in range(1, coeff.shape[1]):
+            out = out + cm(m) * u_n
+            u_nm1, u_n = u_n, 2.0 * Ap(u_n) - u_nm1
     return out
 
 
